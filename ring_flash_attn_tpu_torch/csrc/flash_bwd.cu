@@ -1,0 +1,123 @@
+// Kernel B2: fused flash-attention backward, dq, dk and dv in one pass.
+//
+// Replaces the TPU kernel ring_flash_attn_tpu/ops/pallas_bwd_fused.py::
+// _bwd_fused_kernel (wrapper pallas_block_bwd_fused), for the mask model
+// the port carries: causal with a static integer offset (attend iff
+// iq + offset >= ik) or no mask, GQA (q head h reads kv head h / (Hq/Hkv)),
+// head_dim 64 or 128, bf16 q, k, v and dout. Contract of
+// ops/flash.py::block_bwd: dq fp32 (B, Hq, Sq, D); dk, dv (B, Hkv, Skv, D)
+// in fp32 or bf16, summed over the GQA group.
+//
+// What bounds it on the H100: tensor-core operations. A causal call does
+// 5 products of 2 * D flops per allowed (q, k) pair and head, about
+// 10 * pairs * Hq * D flops, on inputs of a few tens of MB: far above the
+// ~295 flop/byte ridge of bf16, so the bound is the 989 TFLOP/s dense bf16
+// rate. The TPU kernel keeps the whole (Skv, D) dk/dv of a head resident in
+// VMEM while one program walks every block pair in order; CUDA blocks run
+// in parallel and in no order, so this is the FlashAttention-2 design
+// instead (csrc/flash_bwd.cuh has the loop):
+//
+//  - one block per (batch, kv head, 64-key tile), heaviest causal tiles
+//    first, walking the GQA group's q heads and q tiles from the causal
+//    lower bound; dk and dv stay in registers and are written once, already
+//    summed over the group;
+//  - p, dp and ds are recomputed per block pair in fp32 (5 mma.sync
+//    products), and dq, which every kv tile adds to, goes by float2
+//    atomicAdd into an fp32 accumulator: its sum order changes from run to
+//    run, so dq is not bitwise reproducible (B3a/B3b, the split kernels,
+//    are: ops/flash.py routes deterministic calls there);
+//  - delta comes from a pre-pass (rfa_bwd_delta) when the caller has none,
+//    rather than being folded into the kv-major loop, which would read the
+//    forward output once per kv tile.
+//
+// wgmma, TMA and larger tiles are the next steps for this kernel.
+
+#include "flash_bwd.cuh"
+
+namespace rfa_bwd {
+
+// ---------------------------------------------------------------------------
+// delta = rowsum(dout * out) in fp32: one warp per (b, h, row)
+
+constexpr int DELTA_WARPS = 8;
+
+template <int D>
+__global__ void __launch_bounds__(DELTA_WARPS * 32)
+bwd_delta_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
+                 float* __restrict__ delta, int H, int S, long long rows,
+                 long long o_sb, long long o_sh, long long o_ss, long long y_sb,
+                 long long y_sh, long long y_ss) {
+  const long long r =
+      (long long)blockIdx.x * DELTA_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const int i = r % S;
+  const long long bh = r / S;
+  const int h = bh % H;
+  const long long b = bh / H;
+  const bf16* go = dout + b * o_sb + h * o_sh + i * o_ss;
+  const bf16* y = out + b * y_sb + h * y_sh + i * y_ss;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane * 2; d < D; d += 64) {
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(go + d));
+    const float2 c = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(y + d));
+    acc += a.x * c.x + a.y * c.y;
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m /= 2) acc += __shfl_xor_sync(0xffffffff, acc, m);
+  if (lane == 0) delta[r] = acc;
+}
+
+// strides: dout (b, h, s), out (b, h, s) in elements
+inline int launch_delta(const void* dout, const void* out, float* delta, int B,
+                        int H, int S, int D, const long long* st,
+                        cudaStream_t stream) {
+  const long long rows = (long long)B * H * S;
+  dim3 grid((unsigned)((rows + DELTA_WARPS - 1) / DELTA_WARPS));
+  const bf16* go = static_cast<const bf16*>(dout);
+  const bf16* y = static_cast<const bf16*>(out);
+  if (D == 128)
+    bwd_delta_kernel<128><<<grid, DELTA_WARPS * 32, 0, stream>>>(
+        go, y, delta, H, S, rows, st[0], st[1], st[2], st[3], st[4], st[5]);
+  else if (D == 64)
+    bwd_delta_kernel<64><<<grid, DELTA_WARPS * 32, 0, stream>>>(
+        go, y, delta, H, S, rows, st[0], st[1], st[2], st[3], st[4], st[5]);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+}  // namespace rfa_bwd
+
+// strides: q, k, v, dout (b, h, s) in elements; returns cudaGetLastError().
+// dq_acc must hold zeros: the kernel adds into it.
+extern "C" int rfa_flash_bwd(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, float* dq_acc, void* dk,
+                             void* dv, int B, int Hq, int Hkv, int Sq,
+                             int Skv, int D, const long long* strides,
+                             float scale, int causal, int offset,
+                             int dkv_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return rfa_bwd::launch_kv<128, true>(q, k, v, dout, lse, delta, dq_acc,
+                                         dk, dv, B, Hq, Hkv, Sq, Skv, strides,
+                                         scale, causal, offset, dkv_bf16, st);
+  if (D == 64)
+    return rfa_bwd::launch_kv<64, true>(q, k, v, dout, lse, delta, dq_acc, dk,
+                                        dv, B, Hq, Hkv, Sq, Skv, strides,
+                                        scale, causal, offset, dkv_bf16, st);
+  return cudaErrorInvalidValue;
+}
+
+// The pre-pass for both backward paths (ops/flash_bwd_cuda.py::bwd_delta):
+// B3a/B3b's launcher takes it from this library too.
+extern "C" int rfa_bwd_delta(const void* dout, const void* out, float* delta,
+                             int B, int H, int S, int D,
+                             const long long* strides, void* stream) {
+  return rfa_bwd::launch_delta(dout, out, delta, B, H, S, D, strides,
+                               static_cast<cudaStream_t>(stream));
+}

@@ -1,11 +1,20 @@
-from .transformer import ModelConfig, Transformer, init_params, params_from_jax
+from .transformer import (
+    ModelConfig,
+    Transformer,
+    init_params,
+    loss_fn,
+    params_from_jax,
+    train_step,
+)
 from .serve import SamplingParams, ServingEngine
 
 __all__ = [
     "ModelConfig",
     "Transformer",
     "init_params",
+    "loss_fn",
     "params_from_jax",
+    "train_step",
     "SamplingParams",
     "ServingEngine",
 ]

@@ -1,12 +1,12 @@
 """Flagship model: a llama-style decoder (RMSNorm, rotary, GQA attention,
-SwiGLU MLP), single device, forward only.
+SwiGLU MLP), single device: forward, loss and SGD training step.
 
 The port of ``ring_flash_attn_tpu/models/transformer.py`` for
-``axis_name=None``; the ring schedules, tensor parallelism, MoE and the
-training step come with their slices. Weights keep the JAX orientation
-(d_in, d_out), used as ``x @ W``, so that ``params_from_jax`` is a copy and
-not a transpose. Parameters do not require grad: nothing in this slice has
-a backward.
+``axis_name=None`` and the dense MLP; the ring schedules, tensor
+parallelism and MoE come with their slices. Weights keep the JAX
+orientation (d_in, d_out), used as ``x @ W``, so that ``params_from_jax``
+is a copy and not a transpose. Parameters require grad; the serving
+functions run under ``torch.no_grad()`` and build no graph.
 """
 
 import dataclasses
@@ -39,8 +39,7 @@ class ModelConfig:
 
 
 def _param(shape, dtype, device):
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class Block(nn.Module):
@@ -75,8 +74,10 @@ class Transformer(nn.Module):
     def device(self):
         return self.embed.device
 
-    def forward(self, tokens, positions):
-        """tokens (B, S) int, positions (S,) int -> logits (B, S, vocab) f32."""
+    def forward(self, tokens, positions, backend=None):
+        """tokens (B, S) int, positions (S,) int -> logits (B, S, vocab) f32.
+
+        ``backend="plain"`` runs attention's plain versions on the card."""
         cfg = self.cfg
         b, s = tokens.shape
         x = self.embed[tokens]
@@ -85,11 +86,41 @@ class Transformer(nn.Module):
             q = _rope(q, positions, cfg.rope_theta)
             k = _rope(k, positions, cfg.rope_theta)
             out, _ = flash_attention(q, k, v, cfg.head_dim**-0.5,
-                                     MaskArgs(causal=True))
+                                     MaskArgs(causal=True), backend=backend)
             x = x + out.transpose(1, 2).reshape(b, s, -1) @ layer.wo
             x = _mlp(x, layer)
         x = _rmsnorm(x, self.final_norm)
         return (x @ self.lm_head).float()
+
+
+def loss_fn(model, tokens, labels, positions, backend=None):
+    """Mean next-token cross-entropy. labels (B, S) are already shifted and
+    laid out like tokens; label -100 is ignored (padding). ``backend=
+    "plain"`` runs attention's plain versions on the card (the reference
+    that the kernels' gradients are held against)."""
+    logits = model(tokens, positions, backend=backend)
+    valid = labels >= 0
+    safe = labels.long().masked_fill(~valid, -100)  # every label < 0 ignored
+    loss_sum = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               safe.reshape(-1), ignore_index=-100,
+                               reduction="sum")
+    return loss_sum / valid.sum().clamp(min=1)
+
+
+def train_step(model, tokens, labels, positions, lr=1e-3):
+    """One SGD step: p <- (p.f32 - lr * g.f32).to(p.dtype) on every
+    parameter. Returns (model, loss).
+
+    Unlike the JAX ``train_step``, which returns new parameters, this one
+    updates the model's parameters in place (and returns the same model),
+    so that a full-width step holds one copy of the weights."""
+    params = list(model.parameters())
+    loss = loss_fn(model, tokens, labels, positions)
+    grads = torch.autograd.grad(loss, params)
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.copy_((p.float() - lr * g.float()).to(p.dtype))
+    return model, loss.detach()
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

@@ -1,5 +1,5 @@
 from .mask import NEG_INF, MaskArgs
-from .flash import block_fwd, flash_attention
+from .flash import block_bwd, block_fwd, compute_delta, flash_attention
 from .paged import (
     PagedKVCache,
     copy_pages,
@@ -13,7 +13,9 @@ from .paged import (
 __all__ = [
     "NEG_INF",
     "MaskArgs",
+    "block_bwd",
     "block_fwd",
+    "compute_delta",
     "flash_attention",
     "PagedKVCache",
     "copy_pages",

@@ -1,10 +1,14 @@
-"""Plain PyTorch block attention forward with the flash (out, lse) contract.
+"""Plain PyTorch block attention, forward and backward, with the flash
+(out, lse) contract.
 
-The port of ``naive_block_fwd`` from ``ring_flash_attn_tpu/ops/naive.py``
-and the plain version of kernel B1 (``csrc/flash_fwd.cu``): the same
-quantities as the kernel (fp32 accumulation, natural-log lse, NEG_INF
-sentinel masking) with O(Sq*Skv) memory. The CPU tests hold it against the
-JAX package; ``chip_smoke.py`` holds the kernel against it on the card.
+The port of ``naive_block_fwd`` and ``naive_block_bwd`` from
+``ring_flash_attn_tpu/ops/naive.py``: the plain versions of kernel B1
+(``csrc/flash_fwd.cu``) and of kernels B2, B3a and B3b
+(``csrc/flash_bwd.cu``, ``csrc/flash_bwd_split.cu``). They compute the same
+quantities as the kernels (fp32 accumulation, natural-log lse, NEG_INF
+sentinel masking) with O(Sq*Skv) memory. The CPU tests hold them against
+the JAX package; ``chip_smoke.py`` holds the kernels against them on the
+card.
 
 Shapes:
   q:    (B, Hq,  Sq,  D)
@@ -16,7 +20,7 @@ Shapes:
 
 import torch
 
-from .mask import NEG_INF, MaskArgs, mask_logits
+from .mask import NEG_INF, MaskArgs, check_supported, mask_logits
 
 
 def naive_block_fwd(q, k, v, scale, mask: MaskArgs):
@@ -37,3 +41,32 @@ def naive_block_fwd(q, k, v, scale, mask: MaskArgs):
     out = out.masked_fill(dead, 0.0)
     lse = lse.masked_fill(dead.squeeze(-1), NEG_INF)
     return out.reshape(b, hq, sq, d), lse.reshape(b, hq, sq)
+
+
+def naive_block_bwd(dout, q, k, v, lse, delta, scale, mask: MaskArgs):
+    """Returns (dq, dk, dv) fp32; dk/dv already summed over the GQA group.
+
+    p is recomputed from the (merged) lse: p = exp(q k^T * scale - lse);
+    dv = p^T dout; ds = p * (dout v^T - delta) * scale; dq = ds k;
+    dk = ds^T q. delta = rowsum(dout * out) (``ops/flash.py::
+    compute_delta``)."""
+    check_supported(mask)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    doutf = dout.float().reshape(b, hkv, g, sq, d)
+    # Dead rows carry lse = NEG_INF; clamping to NEG_INF/2 makes
+    # p = exp(NEG_INF - NEG_INF/2) underflow to 0 so they contribute no
+    # gradient (instead of exp(0) = 1). Live rows are unaffected.
+    lsef = lse.float().clamp(min=NEG_INF / 2).reshape(b, hkv, g, sq, 1)
+    deltaf = delta.float().reshape(b, hkv, g, sq, 1)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+    p = torch.exp(mask_logits(s, mask) - lsef)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, doutf)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", doutf, vf)
+    ds = p * (dp - deltaf) * scale
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+    return dq.reshape(b, hq, sq, d), dk, dv

@@ -2,12 +2,13 @@
 identical numpy inputs, in float32 on the CPU.
 
 On the CPU the port's wrappers run the plain PyTorch versions of kernels
-B1 (flash forward) and B5 (paged decode); the JAX side runs its XLA path
-and its Pallas kernels in interpret mode. The CUDA kernels themselves are
-held against the same plain versions on the card (chip_smoke.py and
-tests/test_torch_cuda.py).
+B1 (flash forward), B2/B3a/B3b (flash backward) and B5 (paged decode); the
+JAX side runs its XLA path and its Pallas kernels in interpret mode. The
+CUDA kernels themselves are held against the same plain versions on the
+card (chip_smoke.py and tests/test_torch_cuda.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,11 +16,22 @@ import torch
 
 from ring_flash_attn_tpu.ops import paged as jpaged
 from ring_flash_attn_tpu.ops.flash import block_fwd as jax_block_fwd
+from ring_flash_attn_tpu.ops.flash import compute_delta as jax_compute_delta
+from ring_flash_attn_tpu.ops.flash import (
+    flash_attention as jax_flash_attention)
 from ring_flash_attn_tpu.ops.mask import MaskArgs as JMask
+from ring_flash_attn_tpu.ops.naive import naive_block_bwd as jax_naive_bwd
+from ring_flash_attn_tpu.ops.naive import naive_block_fwd as jax_naive_fwd
+from ring_flash_attn_tpu.ops.pallas_bwd import pallas_block_bwd
+from ring_flash_attn_tpu.ops.pallas_bwd_fused import (
+    fused_bwd_supported as jax_fused_bwd_supported)
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
-from ring_flash_attn_tpu_torch.ops.flash import block_fwd, flash_attention
+from ring_flash_attn_tpu_torch.ops.flash import (
+    block_bwd, block_fwd, compute_delta, flash_attention)
+from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import fused_bwd_supported
 from ring_flash_attn_tpu_torch.ops.mask import NEG_INF, MaskArgs
-from ring_flash_attn_tpu_torch.ops.naive import naive_block_fwd
+from ring_flash_attn_tpu_torch.ops.naive import (
+    naive_block_bwd, naive_block_fwd)
 
 TOL = 1e-5
 # the Pallas kernels work in base 2 with scale*log2(e) folded into k and
@@ -83,13 +95,115 @@ def test_block_fwd_cpu_uses_plain_version_and_narrows():
 
 
 def test_unported_mask_fields_and_grad_raise():
+    """Unported MaskArgs fields raise in block_fwd and block_bwd alike;
+    flash_attention, forward-only before the training slice, now
+    differentiates."""
     q = torch.zeros((1, 1, 4, 8))
+    lse = torch.zeros((1, 1, 4))
     for field in ({"softcap": 5.0}, {"window_left": 2}, {"dropout_p": 0.1},
                   {"q_segids": np.zeros(4)}, {"alibi_slopes": np.ones(1)}):
+        mask = MaskArgs(causal=True, **field)
         with pytest.raises(NotImplementedError):
-            block_fwd(q, q, q, 1.0, MaskArgs(causal=True, **field))
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(q.requires_grad_(), q, q, 1.0, MaskArgs())
+            block_fwd(q, q, q, 1.0, mask)
+        with pytest.raises(NotImplementedError):
+            block_bwd(q, q, q, q, lse, lse, 1.0, mask)
+    x = torch.from_numpy(_np((1, 2, 8, 8), 0)).requires_grad_()
+    out, lse = flash_attention(x, x, x, 1.0, MaskArgs(causal=True))
+    assert out.requires_grad and not lse.requires_grad
+    (grad,) = torch.autograd.grad(out.sum(), x)
+    assert grad.shape == x.shape and torch.isfinite(grad).all()
+    assert float(grad.abs().sum()) > 0
+
+
+# ---- backward ----
+
+BWD_TOL = 5e-5  # the JAX backward tests' tolerance (tests/test_ops.py)
+
+
+def _bwd_case(case, d=16):
+    """numpy q, k, v, dout and the JAX forward's out, lse and delta."""
+    b, hq, hkv, sq, skv, causal, offset = FWD_CASES[case]
+    q, k, v = (_np((b, hq, sq, d), 0), _np((b, hkv, skv, d), 1),
+               _np((b, hkv, skv, d), 2))
+    dout = _np((b, hq, sq, d), 3)
+    jmask = JMask(causal=causal, offset=offset)
+    out, lse = jax_naive_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             d**-0.5, jmask)
+    delta = jax_compute_delta(jnp.asarray(dout), out)
+    arrays = dict(q=q, k=k, v=v, dout=dout, out=np.asarray(out),
+                  lse=np.asarray(lse), delta=np.asarray(delta))
+    return arrays, jmask, MaskArgs(causal=causal, offset=offset), d**-0.5
+
+
+def _blk(n):
+    return 64 if n % 64 == 0 else 32
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas_fused", "pallas_split"])
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_naive_block_bwd_matches_jax(case, backend):
+    """The plain version of B2/B3a/B3b against JAX's naive_block_bwd and
+    against its Pallas kernels in interpret mode (fused and split)."""
+    a, jmask, mask, scale = _bwd_case(case)
+    j = {n: jnp.asarray(x) for n, x in a.items()}
+    jargs = (j["dout"], j["q"], j["k"], j["v"], j["lse"], j["delta"], scale,
+             jmask)
+    if backend == "xla":
+        want = jax_naive_bwd(*jargs)
+    else:
+        want = pallas_block_bwd(
+            *jargs, interpret=True, blk_q=_blk(a["q"].shape[2]),
+            blk_kv=_blk(a["k"].shape[2]), fused=backend == "pallas_fused")
+    t = {n: torch.from_numpy(x.copy()) for n, x in a.items()}
+    got = naive_block_bwd(t["dout"], t["q"], t["k"], t["v"], t["lse"],
+                          t["delta"], scale, mask)
+    for x, w in zip(got, want):
+        _close(x, w, BWD_TOL)
+    if case == "dead_rows":
+        assert torch.all(got[0][..., :3, :] == 0)
+
+
+def test_block_bwd_delta_none_equals_delta_given():
+    a, _, mask, scale = _bwd_case("offset_sq_lt_skv")
+    t = {n: torch.from_numpy(x.copy()) for n, x in a.items()}
+    args = (t["dout"], t["q"], t["k"], t["v"], t["lse"])
+    given = block_bwd(*args, t["delta"], scale, mask)
+    folded = block_bwd(*args, None, scale, mask, out=t["out"],
+                       dq_dtype=torch.bfloat16, dkv_dtype=torch.bfloat16)
+    _close(compute_delta(t["dout"], t["out"]), a["delta"], TOL)
+    for x, y in zip(folded, given):
+        assert x.dtype == torch.bfloat16
+        assert torch.equal(x, y.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="requires the forward out"):
+        block_bwd(*args, None, scale, mask)
+
+
+@pytest.mark.parametrize("skv,d", [(8192, 128), (64 * 1024, 128),
+                                   (32768, 128), (32769, 128), (65536, 64),
+                                   (65537, 64)])
+def test_fused_bwd_supported_matches_jax(skv, d):
+    """Same selector, same limit: the same shapes pick B2 or B3 in both
+    packages (tests/test_ops.py::test_bwd_fused_gate_long_kv)."""
+    assert fused_bwd_supported(skv, d) == jax_fused_bwd_supported(skv, d)
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa_noncausal", "dead_rows"])
+def test_flash_attention_grad_matches_jax(case):
+    """torch.autograd.grad through the port's flash_attention against
+    jax.grad of the JAX flash_attention (XLA backend)."""
+    a, jmask, mask, scale = _bwd_case(case)
+
+    def jloss(q, k, v):
+        o, _ = jax_flash_attention(q, k, v, scale, jmask, "xla")
+        return jnp.sum(o * jnp.asarray(a["dout"]))
+
+    want = jax.grad(jloss, (0, 1, 2))(*(jnp.asarray(a[n]) for n in "qkv"))
+    qkv = [torch.from_numpy(a[n].copy()).requires_grad_() for n in "qkv"]
+    out, _ = flash_attention(*qkv, scale, mask)
+    got = torch.autograd.grad((out * torch.from_numpy(a["dout"])).sum(), qkv)
+    _close(out.detach(), a["out"], TOL)
+    for x, w in zip(got, want):
+        _close(x, w, BWD_TOL)
 
 
 # ---- paged cache ----
