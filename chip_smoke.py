@@ -35,6 +35,31 @@ Phases, each of which raises on failure:
    S=2048, then the main path: 3 ``train_step``s at S=8192 and one at
    S=36864 (past the fused limit), with each kernel's launch count over
    that run; then one S=8192 step under ``torch.profiler``.
+7. Kernel B4 (decode over a contiguous int8/fp8 cache) against its plain
+   version: S=32768 at lengths 32768, 30001 and 0, both fp8 types,
+   softcap, B=2, Tq=2, S=1280, a 32-token tail cache, ``length`` as a CUDA
+   tensor; timed at B=1, S=32768 int8 beside its byte bound.
+8. Kernel B6 (decode over int8/fp8 pages) against its plain version: 8
+   lanes of ragged lengths over shuffled block tables, the three types,
+   softcap; then its path through the op-level entry points
+   (``paged_quant_prefill``, 8 steps of ``paged_quant_append`` and
+   ``paged_quant_decode_attention``) with its launch count; timed at B=4,
+   context 8192, pages of 256 and 512, beside its byte bound and B5 in
+   bf16 at the same shape.
+9. Long-context inference at the same widths (4 layers, seeded random
+   weights, one process): at a 4096-token prompt the whole path of the
+   kernels against the plain versions (prefill and first decode-step
+   logits), then the main path: ``generate`` on a 32768-token prompt for
+   32 steps, with each kernel's launch count over that run; the first
+   decode step's logits against the plain versions over the same caches;
+   prefill and decode-step times; one decode step under
+   ``torch.profiler``.
+
+Every kernel is timed twice at its shape, L2 flushed before each call:
+``ms`` between CUDA events around the wrapper's call and ``device_ms``,
+the profiler's device time of what the call launches. They part where a
+call's launches take less device time than the host needs to issue them
+(B4, B6).
 
 Prints the card's name and power limit, then one JSON line with every
 kernel's numbers, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -54,6 +79,12 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 B1_OUT_TOL, B1_LSE_TOL = 2e-2, 1e-3  # bf16 P in P@V, bf16 out
 B5_TOL = 2e-3  # fp32 math on both sides; only the summation order differs
+# B4 and B6 keep fp32 operands on CUDA cores, as their plain versions do
+# (the int8 QK product of B6 is exact on both sides): only the summation
+# order, __expf and tanhf differ, a few ulps of fp32 (out is O(1e-2) and
+# lse O(10) at S=32768). One 64-token chunk dropped of 32768 would move
+# out by about 4e-4 and lse by about 2e-3, far past this limit
+QUANT_TOL = 1e-5
 LOGITS_REL_TOL = 5e-2  # |kernel - plain| / max|plain| after 4 bf16 layers
 # |kernel - plain| / max|plain| of dq, dk, dv: p and ds enter bf16 tensor-core
 # products, and B2's dq sums through atomics in run-dependent order
@@ -84,6 +115,66 @@ def cuda_ms(torch, fn, iters, flush):
         e1.synchronize()
         total += e0.elapsed_time(e1)
     return total / iters
+
+
+def _device_profile(torch, fn):
+    """fn() under torch.profiler: [(self device us, kernel name, count)],
+    largest first. fn() runs twice: the first run is the profiler's
+    warm-up cycle, whose records are dropped (tracing starts late and
+    misses the first kernels after it is switched on), the second is
+    recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")), reverse=True)
+
+
+def _short(key):
+    """A kernel's bare name out of its C++ signature."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+
+
+def kernel_ms(torch, fn, iters, flush):
+    """The two readings of a kernel's wrapper fn(), L2 flushed before each
+    call: ``ms`` between CUDA events around the call (cuda_ms: it holds
+    the launcher's host work wherever the device would otherwise wait for
+    it) and ``device_ms``, torch.profiler's device time of everything the
+    call launches (every kernel but the flush's own, whatever its name:
+    pre-passes, merges, casts and zeroing included)."""
+    def loop():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+
+    for _ in range(3):  # again if the profiler lost records of the loop
+        per_flush = {key: n for _, key, n in
+                     _device_profile(torch, flush.zero_)}
+        prof = _device_profile(torch, loop)
+        seen = {key: n for _, key, n in prof}
+        if per_flush and all(seen.get(key) == n * iters
+                             for key, n in per_flush.items()):
+            break
+    else:
+        raise AssertionError(f"torch.profiler lost kernels of the timed "
+                             f"loop: flush {per_flush}, loop {seen}")
+    parts = [(t / iters, key) for t, key, _ in prof if key not in per_flush]
+    device = sum(t for t, _ in parts) / 1e3
+    log("    device time of a call: " + ", ".join(
+        f"{_short(key)} {t:.1f} us" for t, key in parts))
+    return {"ms": cuda_ms(torch, fn, iters, flush), "device_ms": device}
 
 
 def max_err(a, b):
@@ -157,6 +248,10 @@ def phase_b1(torch, flush):
         # sequence would not fit)
         ("training Sq=512 Skv=36864 offset=36352", (1, 32, 8, 512, 36864),
          MaskArgs(causal=True, offset=36352), torch.bfloat16),
+        # the generate path's prefill of a 32768-token prompt, its last 512
+        # q rows over all 32768 keys (as above, the whole would not fit)
+        ("generate Sq=512 Skv=32768 offset=32256", (1, 32, 8, 512, 32768),
+         MaskArgs(causal=True, offset=32256), torch.bfloat16),
         # the training path's S=8192 step (bench.py's shape), timed below
         ("training causal 8192", (1, 32, 8, 8192, 8192),
          MaskArgs(causal=True), torch.bfloat16),
@@ -180,9 +275,9 @@ def phase_b1(torch, flush):
     # timing at the causal S=8192 shape of bench.py (the last case's inputs)
     s, hq, hkv, d = 8192, 32, 8, 128
     mask = MaskArgs(causal=True)
-    ms = cuda_ms(torch, lambda: flash_fwd_cuda(q, k, v, scale, mask,
-                                               out_dtype=torch.bfloat16),
-                 10, flush)
+    t = kernel_ms(torch, lambda: flash_fwd_cuda(
+        q, k, v, scale, mask, out_dtype=torch.bfloat16), 10, flush)
+    ms = t["ms"]
     plain_ms = cuda_ms(torch, lambda: naive_block_fwd(q, k, v, scale, mask),
                        2, flush)
     torch.cuda.empty_cache()
@@ -196,14 +291,15 @@ def phase_b1(torch, flush):
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * hq * s
     bound_ms = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
     log(f"  S=8192 causal bf16: kernel {ms:.3f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+        f"({flops / ms / 1e9:.1f} TFLOP/s; {t['device_ms']:.3f} ms of device "
+        f"time), plain {plain_ms:.3f} ms, "
         f"sdpa {lib_ms:.3f} ms, bound {bound_ms:.3f} ms (operations)")
     return {
         "name": "B1 flash_fwd", "route": "cuda",
         "source": "ring_flash_attn_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ring_flash_attn_tpu/ops/pallas_fwd.py:161",
         "shape": "q (1,32,8192,128) kv (1,8,8192,128) bf16 causal",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": worst, **t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms,
     }
 
@@ -272,8 +368,9 @@ def phase_b5(torch, flush):
     worst = max(worst, eo, el)
 
     q = cases[0][1]
-    ms = cuda_ms(torch, lambda: paged_decode_cuda(
+    t = kernel_ms(torch, lambda: paged_decode_cuda(
         q, k_pages, v_pages, tables, seq_lens, scale), 20, flush)
+    ms = t["ms"]
     plain_ms = cuda_ms(torch, lambda: _plain_paged_decode(
         q, cache, scale), 5, flush)
     tokens = sum(lens)
@@ -283,7 +380,8 @@ def phase_b5(torch, flush):
     bound_ms = max((kv_bytes + io_bytes) / H100_BYTES_PER_S,
                    flops / H100_BF16_FLOPS) * 1e3
     log(f"  lens {lens}: kernel {ms:.4f} ms "
-        f"({kv_bytes / ms / 1e6:.1f} GB/s of KV), plain {plain_ms:.3f} ms, "
+        f"({kv_bytes / ms / 1e6:.1f} GB/s of KV; {t['device_ms']:.4f} ms of "
+        f"device time), plain {plain_ms:.3f} ms, "
         f"bound {bound_ms:.4f} ms (bytes)")
     return {
         "name": "B5 paged_decode", "route": "cuda",
@@ -291,7 +389,7 @@ def phase_b5(torch, flush):
         "replaces": "ring_flash_attn_tpu/ops/paged.py:257",
         "shape": f"q (8,32,1,128) bf16, pages (128,8,256,128) bf16, "
                  f"lens {lens}",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": worst, **t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
     }
 
@@ -582,14 +680,15 @@ def phase_bwd(torch, flush):
     scale = d ** -0.5
     delta = compute_delta(dout, out)
     single = dict(out=out, dq_dtype=bf16, dkv_dtype=bf16)
-    b2_ms = cuda_ms(torch, lambda: flash_bwd_cuda(
+    b2 = kernel_ms(torch, lambda: flash_bwd_cuda(
         dout, q, k, v, lse, None, scale, mask, **single), 10, flush)
     split_ms = cuda_ms(torch, lambda: flash_bwd_split_cuda(
         dout, q, k, v, lse, None, scale, mask, **single), 10, flush)
-    b3a_ms = cuda_ms(torch, lambda: flash_bwd_dq_cuda(
+    b3a = kernel_ms(torch, lambda: flash_bwd_dq_cuda(
         dout, q, k, v, lse, delta, scale, mask, dq_dtype=bf16), 10, flush)
-    b3b_ms = cuda_ms(torch, lambda: flash_bwd_dkv_cuda(
+    b3b = kernel_ms(torch, lambda: flash_bwd_dkv_cuda(
         dout, q, k, v, lse, delta, scale, mask, dkv_dtype=bf16), 10, flush)
+    b2_ms, b3a_ms, b3b_ms = b2["ms"], b3a["ms"], b3b["ms"]
     plain_ms = cuda_ms(torch, lambda: naive_block_bwd(
         dout, q, k, v, lse, delta, scale, mask), 1, flush)
     torch.cuda.empty_cache()
@@ -624,7 +723,9 @@ def phase_bwd(torch, flush):
         f"{split_ms:.3f} ms; B3a {b3a_ms:.3f} ms (bound "
         f"{bound_ms['B3a']:.3f}); B3b {b3b_ms:.3f} ms (bound "
         f"{bound_ms['B3b']:.3f}); plain {plain_ms:.3f} ms; "
-        f"SDPA backward {lib_ms:.3f} ms (operations bound all)")
+        f"SDPA backward {lib_ms:.3f} ms (operations bound all); device "
+        f"time B2 {b2['device_ms']:.3f}, B3a {b3a['device_ms']:.3f}, B3b "
+        f"{b3b['device_ms']:.3f} ms")
     shape = "q (1,32,8192,128) kv (1,8,8192,128) bf16 causal"
     common = {"route": "cuda", "shape": shape, "plain_ms": plain_ms,
               "bound_by": "operations",
@@ -636,17 +737,17 @@ def phase_bwd(torch, flush):
              source="ring_flash_attn_tpu_torch/csrc/flash_bwd.cu",
              replaces="ring_flash_attn_tpu/ops/pallas_bwd_fused.py:59",
              max_abs_err=worst["B2"][0], max_rel_err=worst["B2"][1],
-             ms=b2_ms, bound_ms=bound_ms["B2"]),
+             **b2, bound_ms=bound_ms["B2"]),
         dict(common, name="B3a flash_bwd_dq",
              source="ring_flash_attn_tpu_torch/csrc/flash_bwd_split.cu",
              replaces="ring_flash_attn_tpu/ops/pallas_bwd.py:56",
              max_abs_err=worst["B3"][0], max_rel_err=worst["B3"][1],
-             ms=b3a_ms, bound_ms=bound_ms["B3a"], pair_ms=split_ms),
+             **b3a, bound_ms=bound_ms["B3a"], pair_ms=split_ms),
         dict(common, name="B3b flash_bwd_dkv",
              source="ring_flash_attn_tpu_torch/csrc/flash_bwd_split.cu",
              replaces="ring_flash_attn_tpu/ops/pallas_bwd.py:256",
              max_abs_err=worst["B3"][0], max_rel_err=worst["B3"][1],
-             ms=b3b_ms, bound_ms=bound_ms["B3b"], pair_ms=split_ms),
+             **b3b, bound_ms=bound_ms["B3b"], pair_ms=split_ms),
     ]
 
 
@@ -672,9 +773,6 @@ def _timed_step(torch, model, batch):
 
 
 def phase_train(torch):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from ring_flash_attn_tpu_torch.models import (
         ModelConfig, init_params, loss_fn, train_step)
     from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
@@ -747,14 +845,7 @@ def phase_train(torch):
     # where the time goes in one S=8192 step
     torch.cuda.empty_cache()
     wall = min(dt for _, dt in steps[1:])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        train_step(model, *batch)
-        torch.cuda.synchronize()
-    dev = sorted(((e.self_device_time_total, e.key, e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0), reverse=True)
+    dev = _device_profile(torch, lambda: train_step(model, *batch))
     busy_us = sum(t for t, _, _ in dev)
     log(f"  profiled S=8192 step: device busy {busy_us / 1e3:.3f} ms of the "
         f"unprofiled {wall * 1e3:.3f} ms step "
@@ -773,6 +864,363 @@ def phase_train(torch):
                                   for g, t in split.items()))
     log("  top 10 kernels by device time:")
     for t, key, count in dev[:10]:
+        log(f"    {100 * t / busy_us:5.1f}%  {t / 1e3:9.3f} ms  x{count:<4d} "
+            f"{key[:80]}")
+    return launches
+
+
+def _check_pair(what, name, got, ref, tol):
+    eo, el = max_err(got[0], ref[0]), max_err(got[1], ref[1])
+    log(f"  {name}: max|out| err {eo:.3e}, max|lse| err {el:.3e} "
+        f"(tol {tol})")
+    if not (eo <= tol and el <= tol):
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"{name}")
+    return max(eo, el)
+
+
+def phase_b4(torch, flush):
+    from ring_flash_attn_tpu_torch.ops.quant import (
+        _plain_quant_decode, quantize_kv)
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    log("== phase 7: kernel B4 (quantized contiguous decode) vs its plain "
+        "version")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hq, hkv, d = 32, 8, 128
+    scale = d ** -0.5
+
+    def cache_of(b, s, qdtype):
+        k = torch.randn((b, hkv, s, d), generator=gen, device=dev)
+        v = torch.randn((b, hkv, s, d), generator=gen, device=dev)
+        return quantize_kv(k, v, qdtype)
+
+    def q_of(b, tq=1, dtype=torch.bfloat16):
+        return torch.randn((b, hq, tq, d), generator=gen,
+                           device=dev).to(dtype)
+
+    def run(q, c, length, cap=None):
+        return quant_decode_cuda(q, c.k_q, c.k_scale, c.v_q, c.v_scale,
+                                 length, scale, softcap=cap)
+
+    big = cache_of(1, 32768, "int8")
+    q1 = q_of(1)
+    len_t = torch.tensor([20000], dtype=torch.int32, device=dev)
+    # (name, q, cache, length, softcap)
+    cases = [
+        ("int8 S=32768 length 32768", q1, big, 32768, None),
+        ("int8 S=32768 length 30001", q1, big, 30001, None),
+        ("int8 S=32768 length 0", q1, big, 0, None),
+        ("int8 S=32768 length 20000 as a CUDA tensor", q1, big, len_t, None),
+        ("int8 S=32768 softcap 12", q1, big, 32768, 12.0),
+        ("fp8_e4m3 S=32768", q1, cache_of(1, 32768, "fp8_e4m3"), 32768, None),
+        ("fp8_e5m2 S=32768 length 30001", q1, cache_of(1, 32768, "fp8_e5m2"),
+         30001, None),
+        ("int8 B=2 S=4096 f32 q", q_of(2, dtype=torch.float32),
+         cache_of(2, 4096, "int8"), 4000, None),
+        ("int8 Tq=2 (8 rows) S=1280", q_of(1, tq=2), cache_of(1, 1280, "int8"),
+         1280, None),
+        ("int8 tail cache S=32 length 7", q1, cache_of(1, 32, "int8"), 7,
+         None),
+    ]
+    worst = 0.0
+    for name, q, c, length, cap in cases:
+        got = run(q, c, length, cap)
+        ref = _plain_quant_decode(q, c, length, scale, cap)
+        torch.cuda.synchronize()
+        worst = max(worst, _check_pair("B4", name, got, ref, QUANT_TOL))
+        if name.endswith("length 0") and not (
+                bool((got[0] == 0).all()) and bool((got[1] == -1e30).all())):
+            raise AssertionError("B4: length 0 must give out=0, lse=NEG_INF")
+    again = run(q1, big, 32768)
+    if not (torch.equal(again[0], run(q1, big, 32768)[0])):
+        raise AssertionError("B4 is not bitwise reproducible")
+
+    # the two launches take less device time than the host needs to issue
+    # them, so ms (CUDA events around the call) holds the launcher's host
+    # work and device_ms is what the card spends
+    t = kernel_ms(torch, lambda: run(q1, big, 32768), 20, flush)
+    ms, dev_ms = t["ms"], t["device_ms"]
+    plain_ms = cuda_ms(torch, lambda: _plain_quant_decode(
+        q1, big, 32768, scale), 5, flush)
+    cache_bytes = 2 * big.k_q.numel() + 2 * 4 * big.k_scale.numel()
+    io_bytes = 2 * q1.numel() + 4 * (q1.numel() + hq)
+    flops = 4 * 32768 * hq * d
+    bound_ms = max((cache_bytes + io_bytes) / H100_BYTES_PER_S,
+                   flops / H100_BF16_FLOPS) * 1e3
+    log(f"  B=1 S=32768 int8: kernel {ms:.4f} ms between CUDA events around "
+        f"the call ({ms / bound_ms:.1f}x its bound), {dev_ms:.4f} ms of "
+        f"device time ({dev_ms / bound_ms:.1f}x; "
+        f"{cache_bytes / dev_ms / 1e6:.1f} GB/s of cache), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes: "
+        f"{cache_bytes / 1e6:.1f} MB of cache and scales)")
+    return {
+        "name": "B4 quant_decode", "route": "cuda",
+        "source": "ring_flash_attn_tpu_torch/csrc/quant_decode.cu",
+        "replaces": "ring_flash_attn_tpu/ops/quant_decode_pallas.py:28",
+        "shape": "q (1,32,1,128) bf16, cache (1,8,32768,128) int8, "
+                 "length 32768",
+        "max_abs_err": worst, **t, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+    }
+
+
+def phase_b6(torch, flush):
+    from ring_flash_attn_tpu_torch.ops import paged as P
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.paged_quant_decode_cuda import (
+        paged_quant_decode_cuda)
+
+    log("== phase 8: kernel B6 (quantized paged decode) vs its plain version")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lens = [0, 1, 255, 256, 257, 1000, 4095, 4096]
+    b, hq, hkv, d, ps, pps = len(lens), 32, 8, 128, 256, 16
+    scale = d ** -0.5
+    perm = np.random.default_rng(8).permutation(b * pps).astype(np.int32)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def kernel(q, c, cap=None):
+        return paged_quant_decode_cuda(
+            q, c.k_pages, c.k_scales, c.v_pages, c.v_scales, c.block_tables,
+            c.seq_lens, scale, softcap=cap)
+
+    k, v = rnd(b, hkv, pps * ps, d), rnd(b, hkv, pps * ps, d)
+    q1, q2 = rnd(b, hq, 1, d).to(torch.bfloat16), rnd(b, hq, 2, d)
+    worst = 0.0
+    for qdtype in ("int8", "fp8_e4m3", "fp8_e5m2"):
+        c = P.paged_quant_init(b, hkv, b * pps, ps, pps, d, qdtype=qdtype,
+                               block_tables=perm.reshape(b, pps))
+        c = P.paged_quant_prefill(c, k, v, lens)
+        for name, q, cap in ((f"{qdtype}, bf16 q", q1, None),
+                             (f"{qdtype}, softcap 30, Tq=2 f32 q", q2, 30.0)):
+            got = kernel(q, c, cap)
+            ref = P._plain_quant_paged_decode(q, c, scale, cap)
+            torch.cuda.synchronize()
+            worst = max(worst, _check_pair("B6", name, got, ref, QUANT_TOL))
+            if not (bool((got[0][0] == 0).all())
+                    and bool((got[1][0] == -1e30).all())):
+                raise AssertionError("B6: a dead lane must give out=0, "
+                                     "lse=NEG_INF")
+    del c, k, v
+
+    # its path through the op-level entry points: prefill, then 8 steps of
+    # append + decode; a second cache, filled the same way, goes to the
+    # plain version. Launches are counted over the kernel's calls only.
+    b2, ctx = 4, 2048
+    tables = perm[:b2 * pps].reshape(b2, pps)
+    k, v = rnd(b2, hkv, ctx, d), rnd(b2, hkv, ctx, d)
+    start = [2048, 1000, 0, 513]
+    mask = torch.tensor([True, True, False, True], device=dev)
+    caches = [P.paged_quant_prefill(
+        P.paged_quant_init(b2, hkv, b * pps, ps, pps, d, block_tables=tables),
+        k, v, start) for _ in range(2)]
+    paged_quant_decode_cuda.launches = 0
+    step_worst = 0.0
+    for step in range(8):
+        k_new, v_new = rnd(b2, hkv, 1, d), rnd(b2, hkv, 1, d)
+        caches = [P.paged_quant_append(c, k_new, v_new, mask=mask)
+                  for c in caches]
+        q = rnd(b2, hq, 1, d).to(torch.bfloat16)
+        got = P.paged_quant_decode_attention(q, caches[0], scale)
+        ref = P.paged_quant_decode_attention(q, caches[1], scale,
+                                             backend="plain")
+        torch.cuda.synchronize()
+        eo, el = max_err(got[0], ref[0]), max_err(got[1], ref[1])
+        step_worst = max(step_worst, eo, el)
+        if not (eo <= QUANT_TOL and el <= QUANT_TOL):
+            raise AssertionError(f"B6 disagrees with its plain version at "
+                                 f"append step {step}: {eo:.3e} {el:.3e}")
+    path_launches = paged_quant_decode_cuda.launches
+    end = caches[0].seq_lens.tolist()
+    same = all(torch.equal(x, y)
+               for x, y in zip(caches[0][:4], caches[1][:4]))
+    log(f"  prefill {start} + 8 x (append, decode): worst err "
+        f"{step_worst:.3e} (tol {QUANT_TOL}); lens now {end}; the two "
+        f"caches bitwise equal {same}; launches {path_launches}")
+    if end != [2056, 1008, 0, 521] or not same or path_launches != 8:
+        raise AssertionError("the quantized paged path went wrong")
+    worst = max(worst, step_worst)
+    del caches, k, v
+
+    # timing: 4 lanes of 8192 tokens, pages of 256 and 512, int8; B5 on the
+    # same tokens in bf16 pages of 256
+    b3, ctx = 4, 8192
+    k, v = rnd(b3, hkv, ctx, d), rnd(b3, hkv, ctx, d)
+    q = rnd(b3, hq, 1, d).to(torch.bfloat16)
+    full = [ctx] * b3
+    times = {}  # page size -> the kernel's two readings
+    for page in (256, 512):
+        n = b3 * ctx // page
+        tbl = np.random.default_rng(page).permutation(n).astype(
+            np.int32).reshape(b3, -1)
+        c = P.paged_quant_prefill(
+            P.paged_quant_init(b3, hkv, n, page, n // b3, d,
+                               block_tables=tbl), k, v, full)
+        times[page] = kernel_ms(torch, lambda: kernel(q, c), 20, flush)
+        if page == 256:
+            plain_ms = cuda_ms(torch, lambda: P._plain_quant_paged_decode(
+                q, c, scale), 5, flush)
+            cache_bytes = 2 * c.k_pages.numel() + 2 * 4 * c.k_scales.numel()
+            bf = P.paged_prefill(P.paged_init(hkv, n, page, d, tbl), k, v,
+                                 full)
+            b5 = kernel_ms(torch, lambda: paged_decode_cuda(
+                q, bf.k_pages, bf.v_pages, bf.block_tables, bf.seq_lens,
+                scale), 10, flush)
+            del bf
+    io_bytes = 2 * q.numel() + 4 * (q.numel() + b3 * hq) + 4 * tbl.size
+    flops = 4 * b3 * ctx * hq * d
+    bound_ms = max((cache_bytes + io_bytes) / H100_BYTES_PER_S,
+                   flops / H100_BF16_FLOPS) * 1e3
+    t, t512 = times[256], times[512]
+    log(f"  B=4 ctx 8192 int8, page 256: kernel {t['ms']:.4f} ms between "
+        f"CUDA events around the call ({t['ms'] / bound_ms:.1f}x its bound), "
+        f"{t['device_ms']:.4f} ms of device time "
+        f"({t['device_ms'] / bound_ms:.1f}x; "
+        f"{cache_bytes / t['device_ms'] / 1e6:.1f} GB/s of pages); page 512: "
+        f"{t512['ms']:.4f} and {t512['device_ms']:.4f} ms; plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes: "
+        f"{cache_bytes / 1e6:.1f} MB of pages and scales); B5 on the same "
+        f"tokens in bf16 pages of 256: {b5['ms']:.4f} and "
+        f"{b5['device_ms']:.4f} ms ({b5['ms'] / t['ms']:.1f}x and "
+        f"{b5['device_ms'] / t['device_ms']:.1f}x B6's)")
+    return {
+        "name": "B6 paged_quant_decode", "route": "cuda",
+        "source": "ring_flash_attn_tpu_torch/csrc/paged_quant_decode.cu",
+        "replaces": "ring_flash_attn_tpu/ops/paged.py:615",
+        "shape": "q (4,32,1,128) bf16, pages (128,8,256,128) int8, lens "
+                 "8192 x 4",
+        "max_abs_err": worst, **t, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "page_512": t512, "b5_bf16": b5,
+    }, {"B6 paged_quant_decode": path_launches}
+
+
+def phase_generate(torch):
+    from ring_flash_attn_tpu_torch.models import (
+        ModelConfig, decode_step, generate, init_params, prefill)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.quant import make_cache
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    log("== phase 9: long-context inference at Llama-3-8B widths, 4 layers, "
+        "one process")
+    cfg = ModelConfig(**FULL_WIDTH)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    steps = 32
+
+    def prompt_of(n, seed):
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab, size=(1, n))
+        return torch.as_tensor(toks, device="cuda")
+
+    def tails_of():
+        return [make_cache(1, cfg.kv_heads, steps, cfg.head_dim)
+                for _ in model.layers]
+
+    def rel(a, ref):
+        return max_err(a, ref) / float(ref.abs().max())
+
+    # the whole path at a 4096-token prompt: kernels vs plain versions
+    short = prompt_of(4096, 9)
+    res = {}
+    for backend in (None, "plain"):
+        lp, caches = prefill(model, short, backend=backend)
+        last = lp[:, -1].clone()
+        del lp
+        ld, _ = decode_step(model, last.argmax(-1), 4096, 0, caches,
+                            tails_of(), backend=backend)
+        toks = generate(model, short, 8, backend=backend)
+        res[backend] = (last, ld, toks)
+        del caches
+    e_pre, e_dec = (rel(res[None][i], res["plain"][i]) for i in (0, 1))
+    agree = int((res[None][2] == res["plain"][2]).sum())
+    log(f"  4096-token prompt, kernels vs plain: last prefill logits "
+        f"{e_pre:.3e}, first decode-step logits {e_dec:.3e} of max|plain| "
+        f"(tol {LOGITS_REL_TOL}); generated tokens equal {agree}/8")
+    if not (e_pre <= LOGITS_REL_TOL and e_dec <= LOGITS_REL_TOL):
+        raise AssertionError("generate's logits disagree with the plain "
+                             "versions")
+    del res
+    torch.cuda.empty_cache()
+
+    # the main path: counts from 0 over this run only
+    prompt = prompt_of(32768, 10)
+    counters = {"B1 flash_fwd": flash_fwd_cuda,
+                "B4 quant_decode": quant_decode_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(model, prompt, steps, max_new=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  generate: 32768-token prompt, {steps} steps in {wall:.3f} s; "
+        f"launches {launches}; peak memory {peak:.2f} GiB; tokens "
+        f"{toks[0, :8].tolist()}...")
+    if (tuple(toks.shape) != (1, steps) or toks.dtype != torch.int32
+            or not bool(((toks >= 0) & (toks < cfg.vocab)).all())):
+        raise AssertionError(f"generate returned {toks}")
+    want = {"B1 flash_fwd": cfg.layers,
+            "B4 quant_decode": cfg.layers * steps * 2}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+
+    # the same run in its two parts, timed apart
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, prompt)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    token = logits[:, -1].argmax(-1)
+    if not bool(torch.isfinite(logits[:, -1]).all()):
+        raise AssertionError("non-finite prefill logits")
+    del logits
+    tails = tails_of()
+    first, _ = decode_step(model, token, 32768, 0, caches, tails)
+    plain_first, _ = decode_step(model, token, 32768, 0, caches, tails_of(),
+                                 backend="plain")
+    e_first = rel(first, plain_first)
+    mine = [token]
+    token = first.argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(1, steps):
+        mine.append(token)
+        lg, _ = decode_step(model, token, 32768 + step, step, caches, tails)
+        token = lg.argmax(-1)
+    torch.cuda.synchronize()
+    dec_s = (time.perf_counter() - t0) / (steps - 1)
+    same = bool((torch.stack(mine, 1) == toks).all())
+    log(f"  prefill {pre_s:.3f} s ({32768 / pre_s:.0f} tokens/s); decode "
+        f"{dec_s * 1e3:.3f} ms per step ({1 / dec_s:.1f} steps/s) over "
+        f"{steps - 1} steps; first decode-step logits kernels vs plain over "
+        f"the same caches {e_first:.3e} of max|plain| (tol "
+        f"{LOGITS_REL_TOL}); the steps driven by hand give generate's "
+        f"tokens: {same}")
+    if not (e_first <= LOGITS_REL_TOL and bool(torch.isfinite(lg).all())):
+        raise AssertionError("the 32768-token decode step disagrees with "
+                             "the plain versions")
+    if not same:
+        raise AssertionError("generate and its parts gave different tokens")
+
+    # where the time goes in one decode step
+    dev = _device_profile(torch, lambda: decode_step(
+        model, token, 32768 + steps - 1, steps - 1, caches, tails))
+    busy_us = sum(t for t, _, _ in dev)
+    log(f"  profiled decode step: device busy {busy_us / 1e3:.3f} ms of the "
+        f"unprofiled {dec_s * 1e3:.3f} ms step "
+        f"({100 * busy_us / 1e3 / dec_s / 1e3:.1f}% busy)")
+    log("  top 8 kernels by device time:")
+    for t, key, count in dev[:8]:
         log(f"    {100 * t / busy_us:5.1f}%  {t / 1e3:9.3f} ms  x{count:<4d} "
             f"{key[:80]}")
     return launches
@@ -811,13 +1259,23 @@ def main():
     del flush
     torch.cuda.empty_cache()
     training = run("training", phase_train, torch)
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    kernels.append(run("B4", phase_b4, torch, flush))
+    b6, paged_quant = run("B6", phase_b6, torch, flush)
+    kernels.append(b6)
+    del flush
+    torch.cuda.empty_cache()
+    inference = run("generate", phase_generate, torch)
     for k in kernels:
         # each kernel's count on the run of its own path: serving for B1
-        # and B5, training for B2/B3a/B3b (B1 runs on both)
-        k["launches"] = serving.get(k["name"], training.get(k["name"]))
-        paths = {p: c[k["name"]] for p, c in (("serving", serving),
-                                              ("training", training))
-                 if k["name"] in c}
+        # and B5, training for B2/B3a/B3b, generate for B4 (B1 runs on all
+        # three), the op-level quantized paged path for B6
+        paths = {p: c[k["name"]] for p, c in (
+            ("serving", serving), ("training", training),
+            ("generate", inference), ("paged_quant", paged_quant))
+            if k["name"] in c}
+        k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths
     log(f"phase seconds {seconds}; phases took "
         f"{time.perf_counter() - t_start:.1f} s")

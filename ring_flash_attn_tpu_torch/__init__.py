@@ -2,12 +2,15 @@
 
 The port of the JAX/Pallas package ``ring_flash_attn_tpu``, slice by slice.
 Ported so far: the serving path (the paged-KV continuous-batching
-``ServingEngine`` over the llama-style flagship model) and single-device
+``ServingEngine`` over the llama-style flagship model), single-device
 training (``loss_fn``, ``train_step``, the differentiable
-``flash_attention`` and the flash-attn-style ``api`` functions), with five
-kernels written by hand in CUDA C++ for ``sm_90a`` (``csrc/``): the flash
-forward (B1), bf16 paged decode (B5), the fused flash backward (B2) and
-the split backward (B3a dq, B3b dk/dv). CUDA tensors go to the kernels,
+``flash_attention`` and the flash-attn-style ``api`` functions) and
+long-context inference on a quantized KV cache (``models.generate`` over a
+``torch.distributed`` process group, or one process on one card), with
+seven kernels written by hand in CUDA C++ for ``sm_90a`` (``csrc/``): the
+flash forward (B1), bf16 paged decode (B5), the fused flash backward (B2),
+the split backward (B3a dq, B3b dk/dv) and decode over an int8/fp8 cache,
+contiguous (B4) or paged (B6). CUDA tensors go to the kernels,
 CPU tensors to their plain PyTorch versions. The package imports neither
 JAX nor the JAX package.
 """
@@ -25,6 +28,7 @@ from .models import (  # noqa: F401
     SamplingParams,
     ServingEngine,
     Transformer,
+    generate,
     init_params,
     loss_fn,
     params_from_jax,
@@ -38,6 +42,7 @@ __all__ = [
     "SamplingParams",
     "ServingEngine",
     "Transformer",
+    "generate",
     "init_params",
     "loss_fn",
     "params_from_jax",

@@ -32,6 +32,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(src_bytes));
 }
 
+// 4-byte form of the same (one fp32 scale).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

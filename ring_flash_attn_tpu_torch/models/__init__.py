@@ -6,6 +6,7 @@ from .transformer import (
     params_from_jax,
     train_step,
 )
+from .generate import decode_step, generate, prefill
 from .serve import SamplingParams, ServingEngine
 
 __all__ = [
@@ -17,4 +18,7 @@ __all__ = [
     "train_step",
     "SamplingParams",
     "ServingEngine",
+    "decode_step",
+    "generate",
+    "prefill",
 ]

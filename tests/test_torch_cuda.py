@@ -208,3 +208,193 @@ def test_cuda_train_step_matches_plain():
     _, loss = train_step(model, tokens, labels, pos)
     assert flash_bwd_cuda.launches == n + cfg.layers
     assert abs(float(loss) - res[None][0]) <= 1e-2
+
+
+QDTYPE = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn,
+          "fp8_e5m2": torch.float8_e5m2}
+# fp32 math on both sides; only the summation order, __expf and tanhf
+# differ: a few ulps of fp32
+QUANT_TOL = 1e-5
+
+
+def _quant_cache(g, b, hkv, s, qdtype):
+    from ring_flash_attn_tpu_torch.ops.quant import quantize_kv
+
+    k = torch.randn((b, hkv, s, 128), generator=g, device="cuda")
+    v = torch.randn((b, hkv, s, 128), generator=g, device="cuda")
+    return quantize_kv(k, v, qdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", sorted(QDTYPE))
+def test_cuda_quantize_tensor_is_bitwise_the_cpu_one(qdtype):
+    """The cache must be bit-identical wherever it is written (and to the
+    JAX package's, which the CPU tests hold the CPU result against)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.quant import as_bytes, quantize_tensor
+
+    x = torch.randn((4, 2, 300, 128),
+                    generator=torch.Generator().manual_seed(3)) * 3
+    x[0, 0, 0] = 0
+    for xin in (x, x.to(torch.bfloat16)):
+        cq, cs = quantize_tensor(xin, qdtype)
+        gq, gs = quantize_tensor(xin.cuda(), qdtype)
+        assert torch.equal(as_bytes(gq).cpu(), as_bytes(cq))
+        assert torch.equal(gs.cpu(), cs)
+
+
+# (qdtype, B, Hq, Hkv, Tq, S, length, softcap, q dtype): a ragged last
+# chunk with a length as a CUDA tensor; fp8 with softcap, 8 rows, S not a
+# multiple of anything; a tail-like cache; length 0
+B4_CASES = [
+    ("int8", 2, 8, 2, 1, 1280, "tensor:1001", None, torch.bfloat16),
+    ("fp8_e4m3", 1, 8, 2, 2, 333, 333, 12.0, torch.float32),
+    ("fp8_e5m2", 1, 4, 4, 1, 32, 7, None, torch.bfloat16),
+    ("int8", 1, 32, 2, 1, 200, 0, None, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(B4_CASES)))
+def test_cuda_quant_decode_matches_plain_version(case):
+    """B4 against _plain_quant_decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.quant import _plain_quant_decode
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    qdtype, b, hq, hkv, tq, s, length, softcap, qdt = B4_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(case)
+    cache = _quant_cache(g, b, hkv, s, qdtype)
+    assert cache.k_q.dtype == QDTYPE[qdtype]
+    q = torch.randn((b, hq, tq, 128), generator=g, device="cuda").to(qdt)
+    if isinstance(length, str):
+        length = torch.tensor([int(length.split(":")[1])], dtype=torch.int32,
+                              device="cuda")
+    n = quant_decode_cuda.launches
+    out, lse = quant_decode_cuda(q, cache.k_q, cache.k_scale, cache.v_q,
+                                 cache.v_scale, length, 0.088,
+                                 softcap=softcap)
+    assert quant_decode_cuda.launches == n + 1
+    ref_out, ref_lse = _plain_quant_decode(q, cache, length, 0.088, softcap)
+    assert float((out - ref_out).abs().max()) <= QUANT_TOL
+    assert float((lse - ref_lse).abs().max()) <= QUANT_TOL
+    if not isinstance(length, torch.Tensor) and length == 0:
+        assert torch.all(out == 0) and torch.all(lse == -1e30)
+
+
+# (qdtype, page size, Tq, softcap): int8 (q quantized in the kernel) with
+# pages longer than a chunk and not a multiple of it; fp8 with short pages
+B6_CASES = [("int8", 80, 1, None), ("int8", 16, 2, 20.0),
+            ("fp8_e4m3", 16, 1, None), ("fp8_e5m2", 128, 2, 15.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(B6_CASES)))
+def test_cuda_paged_quant_decode_matches_plain_version(case):
+    """B6 against _plain_quant_paged_decode: shuffled tables, a dead lane,
+    a full lane, a lane ending inside a page."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.paged_quant_decode_cuda import (
+        paged_quant_decode_cuda)
+
+    qdtype, ps, tq, softcap = B6_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(case)
+    b, hq, hkv, pps = 3, 8, 2, 4
+    tables = torch.randperm(b * pps + 3, generator=g, device="cuda")[
+        :b * pps].reshape(b, pps).to(torch.int32)
+    cache = tpaged.paged_quant_init(b, hkv, b * pps + 3, ps, pps, 128,
+                                    qdtype=qdtype, block_tables=tables)
+    k = torch.randn((b, hkv, pps * ps, 128), generator=g, device="cuda")
+    v = torch.randn((b, hkv, pps * ps, 128), generator=g, device="cuda")
+    cache = tpaged.paged_quant_prefill(cache, k, v,
+                                       [0, pps * ps, 2 * ps + ps // 3])
+    q = torch.randn((b, hq, tq, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+    out, lse = paged_quant_decode_cuda(
+        q, cache.k_pages, cache.k_scales, cache.v_pages, cache.v_scales,
+        cache.block_tables, cache.seq_lens, 0.088, softcap=softcap)
+    ref_out, ref_lse = tpaged._plain_quant_paged_decode(q, cache, 0.088,
+                                                       softcap)
+    assert float((out - ref_out).abs().max()) <= QUANT_TOL
+    assert float((lse - ref_lse).abs().max()) <= QUANT_TOL
+    assert torch.all(out[0] == 0) and torch.all(lse[0] == -1e30)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_kernels_check_their_operands():
+    """Wrong dtype, a CPU tensor and mismatched shapes raise; nothing is
+    sent to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.paged_quant_decode_cuda import (
+        paged_quant_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    c = _quant_cache(g, 1, 2, 64, "int8")
+    q = torch.randn((1, 8, 1, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+    args = (c.k_q, c.k_scale, c.v_q, c.v_scale, 64, 0.088)
+    with pytest.raises(TypeError):
+        quant_decode_cuda(q.half(), *args)
+    with pytest.raises(ValueError):
+        quant_decode_cuda(q.cpu(), *args)
+    with pytest.raises(TypeError):
+        quant_decode_cuda(q, c.k_q.float(), *args[1:])
+    with pytest.raises(ValueError):
+        quant_decode_cuda(q, c.k_q, c.k_scale[:, :, :32].contiguous(),
+                          *args[2:])
+    with pytest.raises(ValueError):
+        quant_decode_cuda(q[..., :64].contiguous(), *args)
+    with pytest.raises(TypeError):
+        quant_decode_cuda(q, *args[:4], torch.tensor([64], device="cuda"),
+                          0.088)
+    cache = tpaged.paged_quant_init(1, 2, 4, 16, 4, 128)
+    pargs = (cache.k_pages, cache.k_scales, cache.v_pages, cache.v_scales,
+             cache.block_tables, cache.seq_lens, 0.088)
+    with pytest.raises(ValueError):
+        paged_quant_decode_cuda(q.cpu(), *pargs)
+    with pytest.raises(TypeError):
+        paged_quant_decode_cuda(q, *pargs[:5], cache.seq_lens.long(), 0.088)
+    with pytest.raises(ValueError):
+        paged_quant_decode_cuda(q, cache.k_pages, cache.k_scales[:, :, 0],
+                                *pargs[2:])
+
+
+@pytest.mark.cuda
+def test_cuda_generate_matches_plain():
+    """A narrow two-layer bf16 model at head_dim 128: generate through B1
+    and B4 against the same run on the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.models import (
+        ModelConfig, decode_step, generate, init_params, prefill)
+    from ring_flash_attn_tpu_torch.ops.quant import make_cache
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    cfg = ModelConfig(vocab=512, dim=256, layers=2, heads=4, kv_heads=2,
+                      head_dim=128, mlp_dim=512, dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.randint(
+        0, cfg.vocab, (1, 300), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    n = quant_decode_cuda.launches
+    toks = generate(model, prompt, 5, max_new=8)
+    assert quant_decode_cuda.launches == n + cfg.layers * 5 * 2
+    assert toks.shape == (1, 5) and toks.dtype == torch.int32
+    logits = {}
+    for backend in (None, "plain"):
+        lp, caches = prefill(model, prompt, backend=backend)
+        tails = [make_cache(1, cfg.kv_heads, 8, cfg.head_dim)
+                 for _ in model.layers]
+        ld, _ = decode_step(model, lp[:, -1].argmax(-1), 300, 0, caches,
+                            tails, backend=backend)
+        logits[backend] = (lp[:, -1], ld)
+    for k_, p_ in zip(logits[None], logits["plain"]):
+        assert float((k_ - p_).abs().max()) <= 5e-2 * float(p_.abs().max())
