@@ -54,6 +54,25 @@ Phases, each of which raises on failure:
    decode step's logits against the plain versions over the same caches;
    prefill and decode-step times; one decode step under
    ``torch.profiler``.
+10. Kernels B7 and B8 (the fused ring's forward and backward steps) against
+   their plain versions, step by step with the state carried over: diagonal
+   and off-diagonal steps, ALiBi on global positions, softcap, non-causal,
+   D 64 and 128, group 1 and 4, ragged lengths, and the headline shape
+   (8192 tokens a rank at 32/8 heads) on its last 512 q rows; B8's dk/dv
+   bitwise reproducible; both timed at the headline step beside their flop
+   bounds and ``F.scaled_dot_product_attention`` (timed only).
+11. The W-rank fused ring on one card: one process holds the shards of all
+   W ranks (W=4 at S=32768, and W=1) and drives every rank's steps, forward
+   and backward, causal and not, against B1 and B2/B3 on the whole sequence
+   and the plain versions on the last 512 rows; the same causal forward
+   through ``ring_attention``'s step calls (B1 + ``merge_partials``), timed
+   beside the fused steps.
+12. The ring entry points with no process group (world size 1) at the same
+   widths: ``RingAttentionLayer`` with "fused_ring", "ring" and "zigzag"
+   on (1, 8192, 32, 128), forward and backward, against the "flash" entry;
+   ``train_step`` with ``attention="ring"`` and ``"zigzag"`` over
+   ``sp_group=None`` for two steps at S=8192, whose losses equal phase 6's;
+   each kernel's launch count over the phase.
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -89,6 +108,19 @@ LOGITS_REL_TOL = 5e-2  # |kernel - plain| / max|plain| after 4 bf16 layers
 # |kernel - plain| / max|plain| of dq, dk, dv: p and ds enter bf16 tensor-core
 # products, and B2's dq sums through atomics in run-dependent order
 BWD_REL_TOL = 2e-2
+# lse of the fused ring against kernels that take q as it is: the ring's q
+# is pre-scaled by scale * log2(e) and rounded to bf16 before its steps, as
+# the JAX wrapper rounds it (2^-9 of each element), which moves a logit of
+# a few units, and lse with it, by some 1e-3 (B7 against its plain version,
+# which rounds q too, stays within B1_LSE_TOL)
+RING_LSE_TOL = 1e-2
+# the ring's out, |kernel - ref| / max|ref|: a row of the ring sees 8192 keys
+# or more, so |out| is a few 1e-2 and an absolute limit of B1_OUT_TOL would
+# pass any value at all. Causal rows near the start of the sequence are O(1)
+# and would hide the late rows behind their maximum, so the sequence is cut
+# into parts (a rank's shard each) and the worst part counts. One bf16 ulp
+# of out is at most 7.8e-3 of its value
+RING_OUT_REL_TOL = 2e-2
 LOSS_TOL = 1e-2  # |loss kernels - loss plain|, 4 bf16 layers
 GRAD_REL_TOL = 5e-2  # ||g kernels - g plain|| / ||g plain|| per parameter
 FULL_WIDTH = dict(vocab=32000, dim=4096, layers=4, heads=32, kv_heads=8,
@@ -551,6 +583,13 @@ def _rel_err(a, ref):
     return max_err(a, ref) / max(float(ref.abs().max()), 1e-30)
 
 
+def _rel_err_parts(a, ref, parts, dim=2):
+    """The worst ``_rel_err`` over ``parts`` equal slices along ``dim``
+    (the sequence), each relative to its own max|ref|."""
+    return max(_rel_err(x, r) for x, r in zip(a.chunk(parts, dim=dim),
+                                              ref.chunk(parts, dim=dim)))
+
+
 def phase_bwd(torch, flush):
     import torch.nn.functional as F
 
@@ -866,7 +905,7 @@ def phase_train(torch):
     for t, key, count in dev[:10]:
         log(f"    {100 * t / busy_us:5.1f}%  {t / 1e3:9.3f} ms  x{count:<4d} "
             f"{key[:80]}")
-    return launches
+    return launches, [loss for loss, _ in steps]
 
 
 def _check_pair(what, name, got, ref, tol):
@@ -1226,6 +1265,536 @@ def phase_generate(torch):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# the ring on one device: every rank's shards in one process
+
+
+def ring_forward_one_device(q, k, v, world, scale, causal, backend=None,
+                            softcap=None, alibi_slopes=None):
+    """The fused ring's forward for all ``world`` ranks in one process:
+    q, k, v are the global (B, H, S, D) tensors, rank r's shard the r-th of
+    ``world`` chunks along S. Every rank drives the step functions that
+    ``_fused_ring_forward`` drives, on the shard of ``(rank - step) %
+    world``. Returns the global (out, lse)."""
+    import torch
+
+    from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
+
+    kw = fr._transforms(q, causal, softcap, alibi_slopes)
+    l_local = q.shape[2] // world
+    ks, vs = k.chunk(world, dim=2), v.chunk(world, dim=2)
+    outs, lses = [], []
+    for rank, q_r in enumerate(q.chunk(world, dim=2)):
+        qs = fr._prescale(q_r, scale * fr.LOG2E)
+        state = fr.new_state(qs)
+        last_step = rank if causal else world - 1
+        for step in range(last_step + 1):
+            src = (rank - step) % world
+            res = fr.fwd_step(
+                qs, ks[src], vs[src], state, backend=backend,
+                diagonal=causal and step == 0, first=step == 0,
+                last=step == last_step, q_pos0=rank * l_local,
+                kv_pos0=src * l_local, **kw)
+        outs.append(res[0])
+        lses.append(res[1])
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def ring_backward_one_device(q, k, v, dout, out, lse, world, scale, causal,
+                             backend=None, softcap=None, alibi_slopes=None):
+    """The fused ring's backward for all ranks in one process, step by step
+    as ``_fused_ring_backward`` runs it: at step t rank r holds the kv shard
+    and the fp32 dk/dv accumulator of rank ``(r - t) % world``, which was
+    handed on from rank r - 1 after step t - 1. Returns the global (dq, dk,
+    dv) in fp32."""
+    import torch
+
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import bwd_delta
+    from ring_flash_attn_tpu_torch.ops.mask import NEG_INF
+    from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
+
+    kw = fr._transforms(q, causal, softcap, alibi_slopes)
+    l_local = q.shape[2] // world
+    kernel = q.is_cuda and backend is None
+    delta_fn = bwd_delta if kernel else compute_delta
+
+    def shards(x):
+        return x.chunk(world, dim=2)
+
+    qs = [fr._prescale(x, scale * fr.LOG2E) for x in shards(q)]
+    ks, vss = shards(k), [fr._prescale(x, scale) for x in shards(v)]
+    douts = [x.contiguous() for x in shards(dout)]
+    lse2 = [(x.float() * fr.LOG2E).clamp(min=NEG_INF / 2).contiguous()
+            for x in shards(lse)]
+    delta = [delta_fn(d, o.contiguous()) * scale
+             for d, o in zip(douts, shards(out))]
+    dq = [torch.zeros(x.shape, dtype=torch.float32, device=q.device)
+          for x in qs]
+    dkv = [torch.empty((2,) + tuple(x.shape), dtype=torch.float32,
+                       device=q.device) for x in ks]
+    for step in range(world):
+        for rank in range(world):
+            if causal and step > rank:
+                continue  # the accumulator passes through untouched
+            src = (rank - step) % world
+            fr.bwd_step(qs[rank], ks[src], vss[src], douts[rank], lse2[rank],
+                        delta[rank], dq[rank], dkv[src][0], dkv[src][1],
+                        backend=backend, diagonal=causal and step == 0,
+                        accumulate=step > 0, q_pos0=rank * l_local,
+                        kv_pos0=src * l_local, **kw)
+    # after W hops accumulator `src` is back on rank `src`
+    dk = torch.cat([a[0] for a in dkv], dim=2) * (fr.LN2 / scale)
+    return torch.cat(dq, dim=2), dk, torch.cat([a[1] for a in dkv], dim=2)
+
+
+def _finish(torch, m, l, acc):
+    """(out fp32, lse) of a ring state, as the last step would give it: a
+    row that has seen no key yet (l = 0) gives (0, NEG_INF)."""
+    live = l > 0
+    safe = torch.where(live, l, torch.ones_like(l))
+    out = (acc / safe[..., None]) * live[..., None]
+    lse = torch.where(live, (m + torch.log2(safe)) * float(np.log(2.0)),
+                      torch.full_like(m, -1e30))
+    return out, lse
+
+
+def phase_fused_ring(torch, flush):
+    import torch.nn.functional as F
+
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import bwd_delta
+    from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
+
+    log("== phase 10: kernels B7, B8 (fused ring steps) vs their plain "
+        "versions")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    worst = {"B7": [0.0, 0.0], "B8": [0.0, 0.0]}
+
+    def run_case(name, b, hq, hkv, sq, skv, d, steps, causal=True, cap=None,
+                 alibi=False, q_row0=0, q_slice=None):
+        """A rank's steps (dicts of diagonal, q_pos0, kv_pos0), each on its
+        own random kv shard: forward state after every step and (out, lse)
+        after the last, then the backward steps into shared accumulators.
+        With ``q_slice`` the kernels see all sq rows in the forward and the
+        plain versions (and both backwards) the last q_slice rows."""
+        scale = d ** -0.5
+        slopes = (torch.tensor([2.0 ** (-8.0 * (i + 1) / hq)
+                                for i in range(hq)], device=dev)
+                  if alibi else None)
+        q = rnd(b, hq, sq, d)
+        kw = fr._transforms(q, causal, cap, slopes)
+        qs = fr._prescale(q, scale * fr.LOG2E)
+        kvs = [(rnd(b, hkv, skv, d), rnd(b, hkv, skv, d)) for _ in steps]
+        rows = slice(sq - q_slice, sq) if q_slice else slice(None)
+        row0 = q_row0 + (sq - q_slice if q_slice else 0)
+        qs_p = qs[:, :, rows].contiguous()
+        st_k, st_p = fr.new_state(qs), fr.new_state(qs_p)
+        for i, (step, (k, v)) in enumerate(zip(steps, kvs)):
+            flags = dict(first=i == 0, last=i == len(steps) - 1, **step, **kw)
+            got = fr.fwd_step(qs, k, v, st_k, q_row0=q_row0, **flags)
+            ref = fr.fwd_step(qs_p, k, v, st_p, backend="plain", q_row0=row0,
+                              **flags)
+            torch.cuda.synchronize()
+            if got is None:
+                got = _finish(torch, *st_k)
+                ref = _finish(torch, *st_p)
+            eo = max_err(got[0][:, :, rows], ref[0])
+            ro = _rel_err(got[0][:, :, rows], ref[0])
+            el = max_err(got[1][:, :, rows], ref[1])
+            log(f"  {name}, forward step {i}: out err {eo:.3e}, of "
+                f"max|plain| {ro:.3e} (tol {RING_OUT_REL_TOL}), max|lse| err "
+                f"{el:.3e} (tol {B1_LSE_TOL})")
+            if not (ro <= RING_OUT_REL_TOL and el <= B1_LSE_TOL):
+                raise AssertionError(f"B7 disagrees with its plain version: "
+                                     f"{name}, step {i}")
+            worst["B7"] = [max(worst["B7"][0], eo), max(worst["B7"][1], ro)]
+        out, lse = got
+        # backward on the rows the plain version sees
+        out_p, lse_p = out[:, :, rows].contiguous(), lse[:, :, rows]
+        dout = rnd(b, hq, qs_p.shape[2], d)
+        lse2 = (lse_p * fr.LOG2E).clamp(min=-0.5e30).contiguous()
+        delta = bwd_delta(dout, out_p) * scale
+        res = {}
+        for tag, backend in (("kernel", None), ("again", None),
+                             ("plain", "plain")):
+            dq = torch.zeros(qs_p.shape, dtype=torch.float32, device=dev)
+            dkv = torch.empty((2, b, hkv, skv, d), dtype=torch.float32,
+                              device=dev)
+            for i, (step, (k, v)) in enumerate(zip(steps, kvs)):
+                fr.bwd_step(qs_p, k, fr._prescale(v, scale), dout, lse2,
+                            delta, dq, dkv[0], dkv[1], backend=backend,
+                            accumulate=i > 0, q_row0=row0, **step, **kw)
+            res[tag] = (dq, dkv[0], dkv[1])
+        torch.cuda.synchronize()
+        rel = [_rel_err(x, r) for x, r in zip(res["kernel"], res["plain"])]
+        ab = max(max_err(x, r) for x, r in zip(res["kernel"], res["plain"]))
+        same = [torch.equal(x, y)
+                for x, y in zip(res["kernel"], res["again"])]
+        log(f"  {name}, backward: rel err dq {rel[0]:.2e} dk {rel[1]:.2e} "
+            f"dv {rel[2]:.2e} (tol {BWD_REL_TOL}); two runs bitwise equal "
+            f"(dq, dk, dv) {same}")
+        if max(rel) > BWD_REL_TOL:
+            raise AssertionError(f"B8 disagrees with its plain version: "
+                                 f"{name}")
+        if not (same[1] and same[2]):
+            raise AssertionError(f"B8's dk/dv are not bitwise reproducible: "
+                                 f"{name}")
+        worst["B8"] = [max(worst["B8"][0], ab), max(worst["B8"][1], max(rel))]
+
+    diag = dict(diagonal=True, q_pos0=0, kv_pos0=0)
+
+    def off(q_pos0, kv_pos0):
+        return dict(diagonal=False, q_pos0=q_pos0, kv_pos0=kv_pos0)
+
+    run_case("one diagonal step (W=1), ragged L=300", 1, 8, 2, 300, 300, 128,
+             [diag])
+    run_case("rank 2 of 3, L=320: diagonal then two earlier shards", 2, 8, 2,
+             320, 320, 128,
+             [dict(diag, q_pos0=640, kv_pos0=640), off(640, 320),
+              off(640, 0)])
+    run_case("the same with ALiBi on global positions", 1, 8, 2, 320, 320,
+             128, [dict(diag, q_pos0=640, kv_pos0=640), off(640, 320),
+                   off(640, 0)], alibi=True)
+    run_case("softcap 20, ragged L=200", 1, 4, 4, 200, 200, 128,
+             [diag, off(200, 0)], cap=20.0)
+    run_case("non-causal, softcap and |ALiBi|, later shard first", 1, 8, 2,
+             256, 256, 128, [off(256, 512), off(256, 256), off(256, 0)],
+             causal=False, cap=25.0, alibi=True)
+    run_case("D=64, group 1, non-causal", 2, 4, 4, 192, 192, 64,
+             [off(0, 0), off(0, 192)], causal=False)
+    run_case("D=64, group 4, q_row0=64, Sq=100 Skv=230", 1, 8, 2, 100, 230,
+             64, [dict(diag, q_pos0=0, kv_pos0=0), off(460, 0)], alibi=True,
+             q_row0=64)
+    run_case("dead rows: q_row0=-5, then an earlier shard", 1, 8, 2, 100, 70,
+             128, [diag, off(0, 0)], q_row0=-5)
+    # the headline shape: a diagonal and an earlier shard, plain on the last
+    # 512 q rows (its fp32 scores of all 8192 would take tens of GB)
+    ll, hq, hkv, d = 8192, 32, 8, 128
+    run_case("headline q (1,32,8192,128) kv (1,8,8192,128), last 512 rows",
+             1, hq, hkv, ll, ll, d,
+             [dict(diag, q_pos0=ll, kv_pos0=ll), off(ll, 0)], q_slice=512)
+    torch.cuda.empty_cache()
+
+    # timing at the headline shape: an off-diagonal step that reads and
+    # writes the state, and the diagonal step that starts it
+    scale = d ** -0.5
+    q, k, v, dout = (rnd(1, hq, ll, d), rnd(1, hkv, ll, d), rnd(1, hkv, ll, d),
+                     rnd(1, hq, ll, d))
+    qs, vsc = fr._prescale(q, scale * fr.LOG2E), fr._prescale(v, scale)
+    state = fr.new_state(qs)
+    fr.fwd_step(qs, k, v, state, diagonal=True, first=True, last=False)
+    out, lse = fr.fwd_step(qs, k, v, state, diagonal=False, first=False,
+                           last=True)
+    lse2 = (lse * fr.LOG2E).contiguous()
+    delta = bwd_delta(dout, out) * scale
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    dkv = torch.zeros((2, 1, hkv, ll, d), dtype=torch.float32, device=dev)
+
+    def fwd(diagonal, backend=None):
+        return fr.fwd_step(qs, k, v, state, backend=backend,
+                           diagonal=diagonal, first=diagonal, last=False)
+
+    def bwd(diagonal, backend=None):
+        return fr.bwd_step(qs, k, vsc, dout, lse2, delta, dq, dkv[0], dkv[1],
+                           backend=backend, diagonal=diagonal,
+                           accumulate=not diagonal)
+
+    t7 = kernel_ms(torch, lambda: fwd(False), 10, flush)
+    t7d = kernel_ms(torch, lambda: fwd(True), 10, flush)
+    t8 = kernel_ms(torch, lambda: bwd(False), 5, flush)
+    t8d = kernel_ms(torch, lambda: bwd(True), 5, flush)
+    plain7 = cuda_ms(torch, lambda: fwd(False, "plain"), 1, flush)
+    torch.cuda.empty_cache()
+    plain8 = cuda_ms(torch, lambda: bwd(False, "plain"), 1, flush)
+    torch.cuda.empty_cache()
+    qr = q.detach().requires_grad_()
+    kr = k.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+    vr = v.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+    lib7 = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kr.detach(), vr.detach()), 10, flush)
+    o = F.scaled_dot_product_attention(qr, kr, vr)
+    lib8 = cuda_ms(torch, lambda: torch.autograd.grad(
+        o, (qr, kr, vr), dout, retain_graph=True), 5, flush)
+    del o, qr, kr, vr
+
+    n_q, n_kv, rows = q.numel(), k.numel(), hq * ll
+    per_product = 2 * hq * d * ll * ll
+    # q, k, v and the state (m, l, acc fp32) in; the state out
+    b7 = (2 * per_product, 2 * (n_q + 2 * n_kv) + 2 * 4 * (n_q + 2 * rows))
+    # q, k, v, dout, lse2, delta and the fp32 dq, dk, dv in; dq, dk, dv out
+    b8 = (5 * per_product, 2 * (2 * n_q + 2 * n_kv) + 2 * 4 * rows
+          + 2 * 4 * (n_q + 2 * n_kv))
+    bound7, bound8 = (max(f / H100_BF16_FLOPS, nb / H100_BYTES_PER_S) * 1e3
+                      for f, nb in (b7, b8))
+    log(f"  headline step, bf16: B7 off-diagonal {t7['ms']:.3f} ms "
+        f"({b7[0] / t7['ms'] / 1e9:.1f} TFLOP/s; device "
+        f"{t7['device_ms']:.3f}), diagonal {t7d['ms']:.3f} ms (device "
+        f"{t7d['device_ms']:.3f}), plain {plain7:.3f} ms, SDPA forward "
+        f"{lib7:.3f} ms, bound {bound7:.3f} ms; B8 off-diagonal "
+        f"{t8['ms']:.3f} ms ({b8[0] / t8['ms'] / 1e9:.1f} TFLOP/s; device "
+        f"{t8['device_ms']:.3f}), diagonal {t8d['ms']:.3f} ms (device "
+        f"{t8d['device_ms']:.3f}), plain {plain8:.3f} ms, SDPA backward "
+        f"{lib8:.3f} ms, bound {bound8:.3f} ms (operations bound both; a "
+        f"diagonal step is half the operations)")
+    shape = ("one off-diagonal ring step, q (1,32,8192,128) kv "
+             "(1,8,8192,128) bf16, state read and written")
+    common = {"route": "cuda", "shape": shape, "bound_by": "operations"}
+    return [
+        dict(common, name="B7 fused_ring_fwd",
+             source="ring_flash_attn_tpu_torch/csrc/fused_ring_fwd.cu",
+             replaces="ring_flash_attn_tpu/parallel/fused_ring.py:74",
+             max_abs_err=worst["B7"][0], max_rel_err=worst["B7"][1], **t7,
+             diagonal=t7d, plain_ms=plain7,
+             bound_ms=bound7, library_ms=lib7,
+             library="F.scaled_dot_product_attention, not causal, kv "
+                     "repeated to 32 heads"),
+        dict(common, name="B8 fused_ring_bwd",
+             source="ring_flash_attn_tpu_torch/csrc/fused_ring_bwd.cu",
+             replaces="ring_flash_attn_tpu/parallel/fused_ring.py:474",
+             max_abs_err=worst["B8"][0], max_rel_err=worst["B8"][1], **t8,
+             diagonal=t8d, plain_ms=plain8, bound_ms=bound8,
+             library_ms=lib8,
+             library="F.scaled_dot_product_attention backward, not causal, "
+                     "kv repeated to 32 heads"),
+    ]
+
+
+def phase_ring_one_device(torch):
+    from ring_flash_attn_tpu_torch.ops.flash import (
+        block_bwd, block_fwd, compute_delta)
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.merge import merge_partials
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+    from ring_flash_attn_tpu_torch.parallel.ring import _step_mask
+
+    log("== phase 11: the W-rank fused ring on one card vs the "
+        "whole-sequence kernels")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+    hq, hkv, d, ll, tail = 32, 8, 128, 8192, 512
+    scale = d ** -0.5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    for world in (4, 1):
+        s = world * ll
+        q, k, v, dout = (rnd(1, hq, s, d), rnd(1, hkv, s, d),
+                         rnd(1, hkv, s, d), rnd(1, hq, s, d))
+        for causal in (True, False):
+            name = f"W={world} S={s} {'causal' if causal else 'non-causal'}"
+            mask = MaskArgs(causal=causal)
+            out, lse = ring_forward_one_device(q, k, v, world, scale, causal)
+            if causal:
+                out_causal = out
+            ref_out, ref_lse = block_fwd(q, k, v, scale, mask, out_dtype=bf16)
+            # the plain version on the last rows of the last rank
+            row_mask = MaskArgs(causal=causal, offset=s - tail)
+            p_out, p_lse = naive_block_fwd(q[:, :, -tail:], k, v, scale,
+                                           row_mask)
+            torch.cuda.synchronize()
+            eo, el = max_err(out, ref_out), max_err(lse, ref_lse)
+            po = max_err(out[:, :, -tail:], p_out)
+            pl = max_err(lse[:, :, -tail:], p_lse)
+            # out relative to max|ref|, a quarter of the sequence at a time
+            ro = _rel_err_parts(out, ref_out, 4)
+            rp = _rel_err(out[:, :, -tail:], p_out)
+            log(f"  {name} forward: vs B1 on the whole sequence out err "
+                f"{eo:.3e}, of max|B1| by quarters {ro:.3e}, max|lse| err "
+                f"{el:.3e}; vs plain on the last {tail} rows out err "
+                f"{po:.3e}, of max|plain| {rp:.3e}, lse {pl:.3e} (tol "
+                f"{RING_OUT_REL_TOL} relative, lse {RING_LSE_TOL})")
+            if not (max(ro, rp) <= RING_OUT_REL_TOL
+                    and max(el, pl) <= RING_LSE_TOL):
+                raise AssertionError(f"the fused ring's forward is wrong: "
+                                     f"{name}")
+            got = ring_backward_one_device(q, k, v, dout, out, lse, world,
+                                           scale, causal)
+            ref = block_bwd(dout, q, k, v, lse, None, scale, mask, out=out)
+            delta = compute_delta(dout, out)
+            p_dq = naive_block_bwd(dout[:, :, -tail:], q[:, :, -tail:], k, v,
+                                   lse[:, :, -tail:], delta[:, :, -tail:],
+                                   scale, row_mask)[0]
+            # dk, dv of the first keys (every rank's q rows reach them, so
+            # their accumulator is added to at every hop) from the plain
+            # version over all q rows
+            keys = slice(0, tail)
+            _, p_dk, p_dv = naive_block_bwd(
+                dout, q, k[:, :, keys], v[:, :, keys], lse, delta, scale,
+                mask)
+            torch.cuda.synchronize()
+            rel = [_rel_err(x, r) for x, r in zip(got, ref)]
+            prel = [_rel_err(got[0][:, :, -tail:], p_dq),
+                    _rel_err(got[1][:, :, keys], p_dk),
+                    _rel_err(got[2][:, :, keys], p_dv)]
+            log(f"  {name} backward: vs B2/B3 on the whole sequence rel err "
+                f"dq {rel[0]:.2e} dk {rel[1]:.2e} dv {rel[2]:.2e}; vs plain: "
+                f"dq of the last {tail} rows {prel[0]:.2e}, dk and dv of "
+                f"the first {tail} keys over all q rows {prel[1]:.2e} "
+                f"{prel[2]:.2e} (tol {BWD_REL_TOL})")
+            if max(*rel, *prel) > BWD_REL_TOL:
+                raise AssertionError(f"the fused ring's backward is wrong: "
+                                     f"{name}")
+            del p_dk, p_dv
+            del got, ref, ref_out, p_out, p_dq
+        if world == 4:
+            # what carrying the state saves: the same causal ring through
+            # ring_attention's step calls, B1 and merge_partials
+            def schedule_ring():
+                outs = []
+                qr = q.chunk(world, dim=2)
+                kr, vr = k.chunk(world, dim=2), v.chunk(world, dim=2)
+                for rank in range(world):
+                    o = l = None
+                    for step in range(rank + 1):
+                        src = (rank - step) % world
+                        bo, bl = block_fwd(
+                            qr[rank], kr[src], vr[src], scale,
+                            _step_mask(step, rank, world, ll, True, {}))
+                        o, l = merge_partials(o, l, bo, bl)
+                    outs.append(o.to(bf16))
+                return outs
+
+            def fused_ring():
+                return ring_forward_one_device(q, k, v, world, scale, True)
+
+            times = {}
+            for name, fn in (("fused", fused_ring), ("schedule",
+                                                     schedule_ring),
+                             ("fused again", fused_ring),
+                             ("schedule again", schedule_ring)):
+                fn()
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(3):
+                    fn()
+                e1.record()
+                e1.synchronize()
+                times[name] = e0.elapsed_time(e1) / 3
+            eo = _rel_err_parts(out_causal,
+                                torch.cat(schedule_ring(), dim=2), world)
+            log(f"  W=4 causal forward of all 4 ranks (10 computing steps): "
+                f"fused steps (B7) {times['fused']:.3f} and "
+                f"{times['fused again']:.3f} ms; B1 + merge_partials "
+                f"{times['schedule']:.3f} and {times['schedule again']:.3f} "
+                f"ms; out differs by {eo:.3e} of a rank's max|out| (tol "
+                f"{RING_OUT_REL_TOL})")
+            if eo > RING_OUT_REL_TOL:
+                raise AssertionError("the schedule-level and fused rings "
+                                     "disagree")
+            compare = dict(times)
+        del q, k, v, dout, out_causal
+        torch.cuda.empty_cache()
+    return compare
+
+
+def phase_ring_entry_points(torch, flash_losses):
+    from ring_flash_attn_tpu_torch import RingAttentionLayer
+    from ring_flash_attn_tpu_torch.models import (
+        ModelConfig, init_params, prepare_zigzag_batch, train_step)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.parallel.fused_ring_cuda import (
+        fused_ring_bwd_cuda, fused_ring_fwd_cuda)
+
+    log("== phase 12: the ring entry points at W=1 (no process group) at "
+        "Llama-3-8B widths")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda,
+                "B7 fused_ring_fwd": fused_ring_fwd_cuda,
+                "B8 fused_ring_bwd": fused_ring_bwd_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+
+    # the registry's entries on (B, S, H, D), forward and backward, against
+    # the "flash" entry (B1 and B2, held against plain in phases 2 and 5)
+    s, hq, hkv, d = 8192, 32, 8, 128
+
+    def rnd(h):
+        return torch.randn((1, s, h, d), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_()
+
+    q, k, v = rnd(hq), rnd(hkv), rnd(hkv)
+    dout = rnd(hq).detach()
+
+    def run(impl, causal):
+        out = RingAttentionLayer(impl, causal=causal)(q, k, v)
+        return (out.detach(), *torch.autograd.grad(out, (q, k, v), dout))
+
+    for causal, impls in ((True, ("fused_ring", "ring", "zigzag")),
+                          (False, ("fused_ring",))):
+        ref = run("flash", causal)
+        for impl in impls:
+            got = run(impl, causal)
+            torch.cuda.synchronize()
+            eo = _rel_err_parts(got[0], ref[0], 4, dim=1)
+            rel = [_rel_err(x, r) for x, r in zip(got[1:], ref[1:])]
+            log(f"  RingAttentionLayer({impl!r}, causal={causal}) on "
+                f"(1,{s},{hq},{d}): |out - flash| of max|flash| by quarters "
+                f"{eo:.3e} (tol {RING_OUT_REL_TOL}); gradients rel err dq "
+                f"{rel[0]:.2e} dk {rel[1]:.2e} dv {rel[2]:.2e} (tol "
+                f"{BWD_REL_TOL})")
+            if not (eo <= RING_OUT_REL_TOL and max(rel) <= BWD_REL_TOL
+                    and got[0].shape == q.shape
+                    and got[0].dtype == torch.bfloat16):
+                raise AssertionError(f"registry entry {impl!r} is wrong")
+            del got
+        del ref
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+
+    # train_step over a sequence group of one process: the same losses as
+    # the single-device flash path took on the same batch (phase 6)
+    tokens, labels, positions = _train_batch(torch, FULL_WIDTH["vocab"],
+                                             8192, 2)
+    for attention in ("ring", "zigzag"):
+        cfg = ModelConfig(**FULL_WIDTH, attention=attention)
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        batch = (tokens, labels, positions)
+        if attention == "zigzag":
+            batch = prepare_zigzag_batch(tokens, 1)
+        losses = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, loss = train_step(model, *batch, sp_group=None)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        diffs = [abs(a - b) for a, b in zip(losses, flash_losses)]
+        log(f"  train_step(attention={attention!r}, sp_group=None) S=8192: "
+            f"losses {losses}, flash path {flash_losses[:2]} (max |diff| "
+            f"{max(diffs):.2e}, tol {LOSS_TOL}); second step {dt:.3f} s")
+        if not (max(diffs) <= LOSS_TOL and all(np.isfinite(losses))):
+            raise AssertionError(f"train_step over the {attention} schedule "
+                                 f"left the flash path's losses")
+        del model
+        torch.cuda.empty_cache()
+
+    launches = {name: fn.launches for name, fn in counters.items()}
+    layers = FULL_WIDTH["layers"]
+    # flash x 2, ring, zigzag through B1/B2 and fused_ring x 2 through
+    # B7/B8 (one step each at W=1); 2 schedules x 2 steps x layers
+    want = {"B1 flash_fwd": 4 + 4 * layers, "B2 flash_bwd": 4 + 4 * layers,
+            "B7 fused_ring_fwd": 2, "B8 fused_ring_bwd": 2}
+    log(f"  launches over this phase: {launches}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    return launches
+
+
 def main():
     import torch
 
@@ -1258,7 +1827,7 @@ def main():
     kernels += run("B2/B3", phase_bwd, torch, flush)
     del flush
     torch.cuda.empty_cache()
-    training = run("training", phase_train, torch)
+    training, flash_losses = run("training", phase_train, torch)
     torch.cuda.empty_cache()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernels.append(run("B4", phase_b4, torch, flush))
@@ -1267,13 +1836,26 @@ def main():
     del flush
     torch.cuda.empty_cache()
     inference = run("generate", phase_generate, torch)
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    kernels += run("B7/B8", phase_fused_ring, torch, flush)
+    del flush
+    torch.cuda.empty_cache()
+    ring_compare = run("ring on one card", phase_ring_one_device, torch)
+    torch.cuda.empty_cache()
+    ring = run("ring entry points", phase_ring_entry_points, torch,
+               flash_losses)
+    next(k for k in kernels if k["name"].startswith("B7"))[
+        "w4_causal_forward_ms"] = ring_compare
     for k in kernels:
         # each kernel's count on the run of its own path: serving for B1
         # and B5, training for B2/B3a/B3b, generate for B4 (B1 runs on all
-        # three), the op-level quantized paged path for B6
+        # four), the op-level quantized paged path for B6, the ring entry
+        # points for B7/B8
         paths = {p: c[k["name"]] for p, c in (
             ("serving", serving), ("training", training),
-            ("generate", inference), ("paged_quant", paged_quant))
+            ("generate", inference), ("paged_quant", paged_quant),
+            ("ring", ring))
             if k["name"] in c}
         k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths

@@ -6,21 +6,37 @@ Ported so far: the serving path (the paged-KV continuous-batching
 training (``loss_fn``, ``train_step``, the differentiable
 ``flash_attention`` and the flash-attn-style ``api`` functions) and
 long-context inference on a quantized KV cache (``models.generate`` over a
-``torch.distributed`` process group, or one process on one card), with
-seven kernels written by hand in CUDA C++ for ``sm_90a`` (``csrc/``): the
-flash forward (B1), bf16 paged decode (B5), the fused flash backward (B2),
-the split backward (B3a dq, B3b dk/dv) and decode over an int8/fp8 cache,
-contiguous (B4) or paged (B6). CUDA tensors go to the kernels,
+``torch.distributed`` process group, or one process on one card) and
+context-parallel attention and training over a process group (the ring,
+zigzag and fused-ring schedules of ``parallel``, their ``api`` functions,
+the attention registry of ``adapters`` and ``train_step`` with a sequence
+group), with nine kernels written by hand in CUDA C++ for ``sm_90a``
+(``csrc/``): the flash forward (B1), bf16 paged decode (B5), the fused
+flash backward (B2), the split backward (B3a dq, B3b dk/dv), decode over
+an int8/fp8 cache, contiguous (B4) or paged (B6), and the fused ring's
+forward and backward steps (B7, B8). CUDA tensors go to the kernels,
 CPU tensors to their plain PyTorch versions. The package imports neither
 JAX nor the JAX package.
 """
 
 __version__ = "0.1.0"
 
+from .adapters import (  # noqa: F401
+    RingAttentionLayer,
+    get_attention,
+    list_attention,
+    register_attention,
+)
 from .api import (  # noqa: F401
     flash_attn_func,
     flash_attn_kvpacked_func,
     flash_attn_qkvpacked_func,
+    ring_flash_attn_func,
+    ring_flash_attn_kvpacked_func,
+    ring_flash_attn_qkvpacked_func,
+    zigzag_ring_flash_attn_func,
+    zigzag_ring_flash_attn_kvpacked_func,
+    zigzag_ring_flash_attn_qkvpacked_func,
 )
 from .config import resolve_device  # noqa: F401
 from .models import (  # noqa: F401
@@ -32,9 +48,15 @@ from .models import (  # noqa: F401
     init_params,
     loss_fn,
     params_from_jax,
+    prepare_zigzag_batch,
     train_step,
 )
 from .ops import MaskArgs, block_bwd, block_fwd, flash_attention  # noqa: F401
+from .parallel import (  # noqa: F401
+    fused_ring_attention,
+    ring_attention,
+    zigzag_ring_attention,
+)
 
 __all__ = [
     "resolve_device",
@@ -46,6 +68,7 @@ __all__ = [
     "init_params",
     "loss_fn",
     "params_from_jax",
+    "prepare_zigzag_batch",
     "train_step",
     "MaskArgs",
     "block_bwd",
@@ -54,4 +77,17 @@ __all__ = [
     "flash_attn_func",
     "flash_attn_kvpacked_func",
     "flash_attn_qkvpacked_func",
+    "ring_flash_attn_func",
+    "ring_flash_attn_kvpacked_func",
+    "ring_flash_attn_qkvpacked_func",
+    "zigzag_ring_flash_attn_func",
+    "zigzag_ring_flash_attn_kvpacked_func",
+    "zigzag_ring_flash_attn_qkvpacked_func",
+    "RingAttentionLayer",
+    "get_attention",
+    "list_attention",
+    "register_attention",
+    "fused_ring_attention",
+    "ring_attention",
+    "zigzag_ring_attention",
 ]

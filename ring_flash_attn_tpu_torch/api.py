@@ -1,16 +1,22 @@
-"""Public single-device API in flash-attn's (B, S, H, D) layout.
+"""Public API in flash-attn's (B, S, H, D) layout.
 
-The port of ``flash_attn_func``, ``flash_attn_kvpacked_func`` and
-``flash_attn_qkvpacked_func`` from ``ring_flash_attn_tpu/api.py``, with
-flash-attn's keyword surface. Internally everything runs (B, H, S, D)
-through ``ops/flash.py::flash_attention``: the kernels B1 and B2 (or
-B3a/B3b) on the card, their plain versions on the CPU.
+The port of ``ring_flash_attn_tpu/api.py`` with flash-attn's keyword
+surface: the single-device ``flash_attn_func`` and the distributed
+``ring_flash_attn_func`` and ``zigzag_ring_flash_attn_func``, each with its
+kv-packed and qkv-packed form. ``group`` is a ``torch.distributed`` process
+group where the JAX package takes a mesh axis name (None: the default
+group, or one process when none is initialised); the distributed functions
+are per-process, on tensors sharded along S in their schedule's layout
+(``parallel/layouts.py``). Internally everything runs (B, H, S, D): the
+kernels B1 and B2 (or B3a/B3b) on the card, their plain versions on the
+CPU.
 
-Ported so far: causal or not, GQA, any ``softmax_scale``. A non-default
-``window_size``, ``softcap``, ``alibi_slopes`` or ``dropout_p`` builds the
-same ``MaskArgs`` as the JAX package and raises ``NotImplementedError``
-from ``check_supported`` until its slice ports it. The distributed and
-varlen entry points are not ported yet (see ROADMAP.md).
+Ported so far: causal or not, GQA, any ``softmax_scale``; ``softcap`` and
+``alibi_slopes`` (not on zigzag) in the plain versions only, so they run on
+CPU tensors and raise ``NotImplementedError`` from the block kernels on
+CUDA tensors. A non-default ``window_size`` or ``dropout_p`` raises
+``NotImplementedError`` until its slice ports it. The stripe and varlen
+entry points are not ported yet (see ROADMAP.md).
 
 ``deterministic=True`` asks for the split backward kernels B3a/B3b, which
 are bitwise reproducible; the default fused kernel B2 sums dq with atomics
@@ -20,6 +26,8 @@ ignores it: every path there is deterministic).
 
 from .ops.flash import flash_attention
 from .ops.mask import MaskArgs
+from .parallel.ring import ring_attention
+from .parallel.zigzag import zigzag_ring_attention
 
 
 def _bshd_to_bhsd(x):
@@ -83,8 +91,84 @@ def flash_attn_qkvpacked_func(qkv, **kw):
     return flash_attn_func(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], **kw)
 
 
+def _batch_variant(kind):
+    def func(
+        q, k, v,
+        dropout_p=0.0, softmax_scale=None, causal=False,
+        window_size=(-1, -1), softcap=0.0, alibi_slopes=None,
+        deterministic=False,
+        return_attn_probs=False, group=None, dropout_seed=None,
+    ):
+        window_left = window_right = None
+        if tuple(window_size) != (-1, -1):
+            if window_size[0] >= 0:
+                window_left = int(window_size[0])
+            if window_size[1] >= 0 and not causal:
+                window_right = int(window_size[1])
+        scale = _scale(softmax_scale, q.shape[-1])
+        qi, ki, vi = map(_bshd_to_bhsd, (q, k, v))
+        if kind == "ring":
+            out, lse = ring_attention(
+                qi, ki, vi, scale=scale, causal=causal, group=group,
+                softcap=_cap(softcap), alibi_slopes=alibi_slopes,
+                dropout_p=dropout_p or None, dropout_seed=dropout_seed,
+                window_left=window_left, window_right=window_right,
+            )
+        else:
+            if not causal:
+                raise ValueError("zigzag ring attention is causal-only")
+            if window_right is not None:
+                raise NotImplementedError(
+                    "window_size: zigzag takes causal sliding windows "
+                    "(left, 0) only")
+            out, lse = zigzag_ring_attention(
+                qi, ki, vi, scale=scale, group=group,
+                softcap=_cap(softcap), alibi_slopes=alibi_slopes,
+                dropout_p=dropout_p or None, dropout_seed=dropout_seed,
+                window_left=window_left,
+            )
+        return _ret(out, lse, return_attn_probs)
+
+    func.__doc__ = (
+        f"{kind} attention over ``group``, per process: q (B, S_local, Hq, "
+        f"D), k and v (B, S_local, Hkv, D) in the schedule's layout; "
+        f"returns as ``flash_attn_func``. ``deterministic`` is accepted "
+        f"and ignored, as in the JAX package.")
+    return func
+
+
+ring_flash_attn_func = _batch_variant("ring")
+zigzag_ring_flash_attn_func = _batch_variant("zigzag")
+
+
+def _kvpacked(func):
+    def wrapper(q, kv, *args, **kw):
+        return func(q, kv[:, :, 0], kv[:, :, 1], *args, **kw)
+
+    return wrapper
+
+
+def _qkvpacked(func):
+    def wrapper(qkv, *args, **kw):
+        return func(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], *args, **kw)
+
+    return wrapper
+
+
+ring_flash_attn_kvpacked_func = _kvpacked(ring_flash_attn_func)
+ring_flash_attn_qkvpacked_func = _qkvpacked(ring_flash_attn_func)
+zigzag_ring_flash_attn_kvpacked_func = _kvpacked(zigzag_ring_flash_attn_func)
+zigzag_ring_flash_attn_qkvpacked_func = _qkvpacked(zigzag_ring_flash_attn_func)
+
+
 __all__ = [
     "flash_attn_func",
     "flash_attn_kvpacked_func",
     "flash_attn_qkvpacked_func",
+    "ring_flash_attn_func",
+    "ring_flash_attn_kvpacked_func",
+    "ring_flash_attn_qkvpacked_func",
+    "zigzag_ring_flash_attn_func",
+    "zigzag_ring_flash_attn_kvpacked_func",
+    "zigzag_ring_flash_attn_qkvpacked_func",
 ]

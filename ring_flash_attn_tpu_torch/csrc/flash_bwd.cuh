@@ -26,6 +26,15 @@
 // m16n8k16 bf16 with fp32 accumulation; p and ds are rounded to bf16 only
 // as operands of the products, the scale stays in fp32 (the Pallas
 // wrappers fold scale * log2 e into bf16 q or k instead).
+//
+// With RING (kernel B8, csrc/fused_ring_bwd.cu) the same loop is one step
+// of the fused ring backward: q arrives pre-scaled by scale * log2 e, v
+// pre-scaled by scale, lse in base 2 and clamped, delta times scale, so no
+// scale is applied here; softcap and ALiBi are recomputed as the forward
+// applied them (with the 1 - tanh^2 factor on dS); dq adds into the rank's
+// accumulator, which the launcher does not zero, and dk, dv add into the
+// travelling fp32 accumulators instead of being written. Without RING all
+// of that compiles out.
 
 #pragma once
 
@@ -69,7 +78,16 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
 }
 
 // ---------------------------------------------------------------------------
-// kv-major loop (B2 with DQ, B3b without)
+// kv-major loop (B2 with DQ, B3b without, B8 with DQ and RING)
+
+// What a ring step adds to a block call (B8).
+struct Ring {
+  const float* slopes;  // (Hq,) ALiBi slopes * log2(e), or null
+  float cap2;           // softcap * log2(e); 0 = no capping
+  int q_pos0, kv_pos0;  // global positions of q row 0 and of key 0
+  int alibi_abs;        // ALiBi on |distance| (a ring without causal mask)
+  int accumulate;       // dk, dv: add to what is there (else write)
+};
 
 constexpr int KV_BN = 64;  // keys per block, 16 per warp
 constexpr int KV_BM = 32;  // q rows per step
@@ -88,7 +106,7 @@ struct KvSmem {
   static constexpr int BYTES = ELEMS * 2 + 2 * 2 * KV_BM * 4;
 };
 
-template <int D, bool DQ>
+template <int D, bool DQ, bool RING>
 __global__ void __launch_bounds__(KV_THREADS)
 bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -96,7 +114,7 @@ bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               float* __restrict__ dq_acc, void* __restrict__ dk,
               void* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
               Strides st, float scale, int causal, int offset,
-              int dkv_bf16) {
+              int dkv_bf16, Ring ring) {
   using S = KvSmem<D>;
   constexpr int LD = S::LD, LDS = S::LDS;
   constexpr int KD = D / 16;      // k-steps over the head dim
@@ -111,7 +129,9 @@ bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int group = Hq / Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
-  const float scale_log2 = scale * LOG2E;
+  const float scale_log2 = RING ? 1.f : scale * LOG2E;
+  const float ds_scale = RING ? 1.f : scale;
+  const float inv_cap2 = RING && ring.cap2 > 0.f ? 1.f / ring.cap2 : 0.f;
 
   // q tiles [t0, nq) hold every row that sees a key of this tile
   const int t0 = causal ? max(0, n0 - offset) / KV_BM : 0;
@@ -151,7 +171,8 @@ bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (row < Sq) {
         const long long idx = (long long)(b * Hq + h) * Sq + row;
         // dead rows (lse = NEG_INF) clamp so that p underflows to 0
-        l2 = fmaxf(lse[idx], RFA_NEG_INF / 2) * LOG2E;
+        // (a ring step's lse arrives in base 2, already clamped)
+        l2 = RING ? lse[idx] : fmaxf(lse[idx], RFA_NEG_INF / 2) * LOG2E;
         dl = delta[idx];
       }
       lses(s)[i] = l2;
@@ -203,9 +224,40 @@ bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // P^T; zero outside the mask and on the ragged edges
+    // P^T; zero outside the mask and on the ragged edges. A ring step
+    // recomputes the forward's softcap and ALiBi first and keeps the
+    // softcap's derivative 1 - tanh^2 for dS.
     const bool edge = m0 + KV_BM > Sq || n0 + KV_BN > Skv ||
                       (causal && m0 + offset < n0 + KV_BN - 1);
+    float dcap[RING ? NT : 1][4];
+    if constexpr (RING) {
+      // one uniform branch around the whole tile
+      if (ring.cap2 > 0.f || ring.slopes) {
+        const float slope = ring.slopes ? ring.slopes[h] : 0.f;
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[i][e];
+            dcap[i][e] = 1.f;
+            if (ring.cap2 > 0.f) {
+              const float t = tanhf(x * inv_cap2);
+              x = ring.cap2 * t;
+              dcap[i][e] = 1.f - t * t;
+            }
+            if (ring.slopes) {
+              const int key = n0 + warp * 16 + g + (e >= 2 ? 8 : 0);
+              const int row = m0 + i * 8 + tq * 2 + (e & 1);
+              float dist =
+                  (float)((ring.q_pos0 + row) - (ring.kv_pos0 + key));
+              if (ring.alibi_abs) dist = fabsf(dist);
+              x -= slope * dist;
+            }
+            sc[i][e] = x;
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
 #pragma unroll
@@ -265,9 +317,13 @@ bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
+      for (int e = 0; e < 4; ++e) {
         dpt[i][e] = sc[i][e] * (dpt[i][e] - dls[i * 8 + tq * 2 + (e & 1)]) *
-                    scale;
+                    ds_scale;
+        if constexpr (RING) {
+          if (ring.cap2 > 0.f) dpt[i][e] *= dcap[i][e];
+        }
+      }
 
     // dK += dS^T Q
 #pragma unroll
@@ -348,6 +404,20 @@ bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
       const long long o = base + i * 8 + tq * 2;
+      if constexpr (RING) {
+        // this block is the only writer of its keys: a plain read, add
+        // and write, in the same order every run
+        if (ring.accumulate) {
+          const float2 a = *reinterpret_cast<float2*>(
+              static_cast<float*>(dk) + o);
+          const float2 c = *reinterpret_cast<float2*>(
+              static_cast<float*>(dv) + o);
+          dk_acc[i][2 * r] += a.x;
+          dk_acc[i][2 * r + 1] += a.y;
+          dv_acc[i][2 * r] += c.x;
+          dv_acc[i][2 * r + 1] += c.y;
+        }
+      }
       if (dkv_bf16) {
         *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dk) + o) =
             rfa::pack_bf16(dk_acc[i][2 * r], dk_acc[i][2 * r + 1]);
@@ -363,13 +433,13 @@ bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool DQ>
+template <int D, bool DQ, bool RING = false>
 int launch_kv(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, float* dq_acc, void* dk,
               void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
               const long long* strides, float scale, int causal, int offset,
-              int dkv_bf16, cudaStream_t stream) {
-  auto kern = bwd_kv_kernel<D, DQ>;
+              int dkv_bf16, cudaStream_t stream, const Ring& ring = Ring{}) {
+  auto kern = bwd_kv_kernel<D, DQ, RING>;
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -382,7 +452,7 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
       dq_acc, dk, dv, Hq, Hkv, Sq, Skv, make_strides(strides), scale, causal,
-      offset, dkv_bf16);
+      offset, dkv_bf16, ring);
   return cudaGetLastError();
 }
 

@@ -4,6 +4,7 @@ from .transformer import (
     init_params,
     loss_fn,
     params_from_jax,
+    prepare_zigzag_batch,
     train_step,
 )
 from .generate import decode_step, generate, prefill
@@ -15,6 +16,7 @@ __all__ = [
     "init_params",
     "loss_fn",
     "params_from_jax",
+    "prepare_zigzag_batch",
     "train_step",
     "SamplingParams",
     "ServingEngine",

@@ -1,12 +1,22 @@
 """Flagship model: a llama-style decoder (RMSNorm, rotary, GQA attention,
-SwiGLU MLP), single device: forward, loss and SGD training step.
+SwiGLU MLP): forward, loss and SGD training step, on one device or with
+the sequence sharded over a process group.
 
-The port of ``ring_flash_attn_tpu/models/transformer.py`` for
-``axis_name=None`` and the dense MLP; the ring schedules, tensor
-parallelism and MoE come with their slices. Weights keep the JAX
-orientation (d_in, d_out), used as ``x @ W``, so that ``params_from_jax``
-is a copy and not a transpose. Parameters require grad; the serving
-functions run under ``torch.no_grad()`` and build no graph.
+The port of ``ring_flash_attn_tpu/models/transformer.py`` for the dense
+MLP and the ``ring`` and ``zigzag`` schedules; stripe, llama3 and usp
+attention in training, tensor parallelism and MoE come with their slices.
+Weights keep the JAX orientation (d_in, d_out), used as ``x @ W``, so that
+``params_from_jax`` is a copy and not a transpose. Parameters require grad;
+the serving functions run under ``torch.no_grad()`` and build no graph.
+
+The sequence group. JAX's ``axis_name=None`` means single-device flash
+attention, while ``group=None`` means the default process group everywhere
+in this package (``parallel/mesh.py``). So ``sp_group`` and ``data_group``
+spell "none" as ``False``, their default, which keeps the single-device
+behaviour; ``None`` is the default group (or one process when
+``torch.distributed`` is not initialised), and anything else a process
+group. With a sequence group every process holds (B, S_local) tokens in the
+layout of ``cfg.attention`` and the weights are replicated.
 """
 
 import dataclasses
@@ -19,6 +29,10 @@ from torch import nn
 from ..config import resolve_device
 from ..ops.flash import flash_attention
 from ..ops.mask import MaskArgs
+from ..parallel import layouts
+from ..parallel.mesh import all_reduce, psum_exact, ring_size
+from ..parallel.ring import ring_attention
+from ..parallel.zigzag import zigzag_ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +46,7 @@ class ModelConfig:
     mlp_dim: int = 2816
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
+    attention: str = "zigzag"  # with a sequence group: ring | zigzag
 
     @property
     def torch_dtype(self):
@@ -74,10 +89,12 @@ class Transformer(nn.Module):
     def device(self):
         return self.embed.device
 
-    def forward(self, tokens, positions, backend=None):
+    def forward(self, tokens, positions, backend=None, sp_group=False):
         """tokens (B, S) int, positions (S,) int -> logits (B, S, vocab) f32.
 
-        ``backend="plain"`` runs attention's plain versions on the card."""
+        ``backend="plain"`` runs attention's plain versions on the card.
+        With ``sp_group`` (see the module docstring) tokens and positions
+        are this process's shard and positions are global."""
         cfg = self.cfg
         b, s = tokens.shape
         x = self.embed[tokens]
@@ -85,42 +102,95 @@ class Transformer(nn.Module):
             q, k, v = _proj_qkv(cfg, layer, _rmsnorm(x, layer.attn_norm), b, s)
             q = _rope(q, positions, cfg.rope_theta)
             k = _rope(k, positions, cfg.rope_theta)
-            out, _ = flash_attention(q, k, v, cfg.head_dim**-0.5,
-                                     MaskArgs(causal=True), backend=backend)
+            out = _attend(cfg, q, k, v, backend, sp_group)
             x = x + out.transpose(1, 2).reshape(b, s, -1) @ layer.wo
             x = _mlp(x, layer)
         x = _rmsnorm(x, self.final_norm)
         return (x @ self.lm_head).float()
 
 
-def loss_fn(model, tokens, labels, positions, backend=None):
+def _attend(cfg, q, k, v, backend, sp_group):
+    """Causal attention by the config's schedule; out (B, Hq, S, hd)."""
+    scale = cfg.head_dim**-0.5
+    if sp_group is False:
+        out, _ = flash_attention(q, k, v, scale, MaskArgs(causal=True),
+                                 backend=backend)
+    elif cfg.attention == "ring":
+        out, _ = ring_attention(q, k, v, scale=scale, causal=True,
+                                group=sp_group, backend=backend)
+    elif cfg.attention == "zigzag":
+        out, _ = zigzag_ring_attention(q, k, v, scale=scale, group=sp_group,
+                                       backend=backend)
+    elif cfg.attention in ("stripe", "llama3", "usp"):
+        raise NotImplementedError(
+            f"attention={cfg.attention!r} is not ported to the training "
+            f"path yet (see ROADMAP.md)")
+    else:
+        raise ValueError(cfg.attention)
+    return out
+
+
+def loss_fn(model, tokens, labels, positions, backend=None, sp_group=False):
     """Mean next-token cross-entropy. labels (B, S) are already shifted and
     laid out like tokens; label -100 is ignored (padding). ``backend=
     "plain"`` runs attention's plain versions on the card (the reference
-    that the kernels' gradients are held against)."""
-    logits = model(tokens, positions, backend=backend)
+    that the kernels' gradients are held against). With ``sp_group`` the
+    mean is over the whole sequence: the loss sum and the count are summed
+    over the group."""
+    logits = model(tokens, positions, backend=backend, sp_group=sp_group)
     valid = labels >= 0
     safe = labels.long().masked_fill(~valid, -100)  # every label < 0 ignored
     loss_sum = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                safe.reshape(-1), ignore_index=-100,
                                reduction="sum")
-    return loss_sum / valid.sum().clamp(min=1)
+    count = valid.sum()
+    if sp_group is not False:
+        # a sum whose backward is the identity: a plain all-reduce would
+        # scale every weight gradient by the group's size
+        loss_sum = psum_exact(loss_sum, sp_group)
+        count = all_reduce(count, "sum", sp_group)  # carries no gradient
+    return loss_sum / count.clamp(min=1)
 
 
-def train_step(model, tokens, labels, positions, lr=1e-3):
+def train_step(model, tokens, labels, positions, lr=1e-3, sp_group=False,
+               data_group=False):
     """One SGD step: p <- (p.f32 - lr * g.f32).to(p.dtype) on every
     parameter. Returns (model, loss).
 
-    Unlike the JAX ``train_step``, which returns new parameters, this one
+    With ``sp_group`` and/or ``data_group`` (see the module docstring; the
+    weights are replicated over both) the gradients are summed over them,
+    and the loss is averaged over ``data_group``, as in the JAX
+    ``train_step``. Unlike it, which returns new parameters, this one
     updates the model's parameters in place (and returns the same model),
     so that a full-width step holds one copy of the weights."""
     params = list(model.parameters())
-    loss = loss_fn(model, tokens, labels, positions)
+    loss = loss_fn(model, tokens, labels, positions, sp_group=sp_group)
     grads = torch.autograd.grad(loss, params)
+    groups = [g for g in (sp_group, data_group) if g is not False]
     with torch.no_grad():
         for p, g in zip(params, grads):
+            for group in groups:
+                g = all_reduce(g, "sum", group)
             p.copy_((p.float() - lr * g.float()).to(p.dtype))
-    return model, loss.detach()
+        loss = loss.detach()
+        if data_group is not False:
+            loss = all_reduce(loss, "sum", data_group) / ring_size(data_group)
+    return model, loss
+
+
+def prepare_zigzag_batch(tokens, world):
+    """Global (B, S) token batch -> (tokens, labels, positions) in the
+    zigzag layout, rank-ordered along the sequence: rank r's shard is the
+    r-th of ``world`` equal chunks of each. Labels are shifted by one with
+    -100 last; positions (S,) int64 are global."""
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -100)],
+                       dim=1)
+    s_local = tokens.shape[1] // world
+    pos = np.concatenate([layouts.zigzag_position_ids(r, world, s_local)
+                          for r in range(world)])
+    return (layouts.all_local_zigzag(tokens, world, axis=1),
+            layouts.all_local_zigzag(labels, world, axis=1),
+            torch.as_tensor(pos, dtype=torch.long, device=tokens.device))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

@@ -17,8 +17,8 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_fwd_cuda import _check_operand
-from .mask import MaskArgs, causal_offset, check_supported
+from .flash_fwd_cuda import _check_operand, check_qkv
+from .mask import MaskArgs, causal_offset, check_kernel_supported
 
 # The JAX package's limit for the fused kernel (pallas_bwd_fused.py:56): the
 # TPU's VMEM budget for a head's resident fp32 dk/dv, not a Hopper limit.
@@ -67,24 +67,16 @@ def check_bwd(dout, q, k, v, lse, delta, mask: MaskArgs, out, dtypes):
     ``delta`` may be None when ``out`` (the forward output, bf16) is given.
     ``dtypes`` are the requested output dtypes (None, float32 or bfloat16).
     """
-    check_supported(mask)
+    check_kernel_supported(mask)
     offset = causal_offset(mask)
     if not isinstance(offset, int) or abs(offset) >= 2**30:
         raise TypeError(f"the kernel takes a static int offset, got {offset!r}")
     dev = q.device
-    for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-        _check_operand(name, x, dev)
-    b, hq, sq, d = q.shape
-    _, hkv, skv, _ = k.shape
-    if (dout.shape != q.shape or k.shape[0] != b or v.shape != k.shape
-            or k.shape[3] != d):
-        raise ValueError(f"shapes q {tuple(q.shape)} dout "
-                         f"{tuple(dout.shape)} k {tuple(k.shape)} v "
-                         f"{tuple(v.shape)} do not match")
-    if d not in (64, 128):
-        raise ValueError(f"head_dim must be 64 or 128, got {d}")
-    if hq % hkv:
-        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    b, hq, _, sq, _, _ = check_qkv(q, k, v)
+    _check_operand("dout", dout, dev)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} must match q "
+                         f"{tuple(q.shape)}")
     _check_rows("lse", lse, (b, hq, sq), dev)
     if delta is None:
         if out is None:

@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from . import _build
-from .mask import MaskArgs, causal_offset, check_supported
+from .mask import MaskArgs, causal_offset, check_kernel_supported
 
 # rfa_flash_fwd(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, strides, scale,
 #               causal, offset, out_bf16, stream)
@@ -45,16 +45,9 @@ def _check_operand(name, x, dev):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
-    """One attention block on the card: (out (B,Hq,Sq,D), lse f32 (B,Hq,Sq)).
-
-    q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) in bf16 with D in {64, 128}
-    and Hq % Hkv == 0; ``mask`` causal or not, with a static int offset.
-    out_dtype is float32 (the mergeable contract) or bfloat16."""
-    check_supported(mask)
-    offset = causal_offset(mask)
-    if not isinstance(offset, int) or abs(offset) >= 2**30:
-        raise TypeError(f"the kernel takes a static int offset, got {offset!r}")
+def check_qkv(q, k, v):
+    """Operand checks of the attention kernels on q (B, Hq, Sq, D) and k, v
+    (B, Hkv, Skv, D); returns (B, Hq, Hkv, Sq, Skv, D)."""
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, dev)
@@ -67,6 +60,21 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
         raise ValueError(f"head_dim must be 64 or 128, got {d}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    return b, hq, hkv, sq, skv, d
+
+
+def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
+    """One attention block on the card: (out (B,Hq,Sq,D), lse f32 (B,Hq,Sq)).
+
+    q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) in bf16 with D in {64, 128}
+    and Hq % Hkv == 0; ``mask`` causal or not, with a static int offset.
+    out_dtype is float32 (the mergeable contract) or bfloat16."""
+    check_kernel_supported(mask)
+    offset = causal_offset(mask)
+    if not isinstance(offset, int) or abs(offset) >= 2**30:
+        raise TypeError(f"the kernel takes a static int offset, got {offset!r}")
+    dev = q.device
+    b, hq, hkv, sq, skv, d = check_qkv(q, k, v)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     out = torch.empty((b, hq, sq, d), dtype=out_dtype, device=dev)

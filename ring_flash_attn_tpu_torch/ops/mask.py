@@ -1,11 +1,14 @@
 """Attention-mask specification shared by the kernel and its plain version.
 
 The port of ``ring_flash_attn_tpu/ops/mask.py``. ``MaskArgs`` keeps every
-field of the JAX version so that call sites read the same; this slice
-implements the position model of ``causal``, ``offset`` and ``kv_offset``
-(attend iff ``iq + offset >= ik + kv_offset``). The other constraints
-(segment ids, explicit positions, windows, softcap, ALiBi, dropout) raise
-``NotImplementedError`` until their slice ports them.
+field of the JAX version so that call sites read the same. Ported: the
+position model of ``causal``, ``offset`` and ``kv_offset`` (attend iff
+``iq + offset >= ik + kv_offset``) everywhere, and ``softcap`` and
+``alibi_slopes`` in the plain versions (``ops/naive.py``) and the fused
+ring's kernels B7/B8; the block kernels B1, B2 and B3a/B3b raise
+``NotImplementedError`` for those two (``check_kernel_supported``). The
+other constraints (segment ids, explicit positions, windows, dropout) raise
+``NotImplementedError`` everywhere until their slice ports them.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -36,7 +39,8 @@ class MaskArgs(NamedTuple):
 
 
 _UNPORTED = ("q_segids", "kv_segids", "q_pos", "kv_pos", "window_left",
-             "window_right", "softcap", "alibi_slopes")
+             "window_right")
+_KERNEL_UNPORTED = ("softcap", "alibi_slopes")
 
 
 def check_supported(mask: MaskArgs):
@@ -50,6 +54,18 @@ def check_supported(mask: MaskArgs):
         raise NotImplementedError(
             "MaskArgs.dropout_p is not ported yet (see ROADMAP.md)"
         )
+
+
+def check_kernel_supported(mask: MaskArgs):
+    """``check_supported``, and the logit transforms that only the plain
+    versions have so far: for the block kernels B1, B2 and B3a/B3b."""
+    check_supported(mask)
+    for name in _KERNEL_UNPORTED:
+        if getattr(mask, name) is not None:
+            raise NotImplementedError(
+                f"MaskArgs.{name} is not ported to the block kernels yet "
+                f"(see ROADMAP.md); backend='plain' has it"
+            )
 
 
 def causal_offset(mask: MaskArgs):
@@ -79,6 +95,26 @@ def allowed_mask(mask: MaskArgs, sq: int, skv: int, device=None):
         return None
     qp, kp = positions(mask, sq, skv, device)
     return qp[:, None] >= kp[None, :]
+
+
+def position_diff(mask: MaskArgs, sq: int, skv: int, device=None):
+    """(Sq, Skv) int64 q_pos - kv_pos per the mask's position model."""
+    qp, kp = positions(mask, sq, skv, device)
+    return qp[:, None] - kp[None, :]
+
+
+def alibi_bias(mask: MaskArgs, hkv: int, group: int, sq: int, skv: int,
+               device=None):
+    """(Hkv, G, Sq, Skv) f32 ALiBi bias ``-slope * distance``, or None; the
+    distance is ``q_pos - kv_pos``, its absolute value when not causal."""
+    if mask.alibi_slopes is None:
+        return None
+    dist = position_diff(mask, sq, skv, device).float()
+    if not mask.causal:
+        dist = dist.abs()
+    slopes = torch.as_tensor(mask.alibi_slopes, dtype=torch.float32,
+                             device=device).reshape(hkv, group, 1, 1)
+    return -slopes * dist
 
 
 def mask_logits(scores, mask: MaskArgs):

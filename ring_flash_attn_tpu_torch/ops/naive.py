@@ -6,7 +6,8 @@ The port of ``naive_block_fwd`` and ``naive_block_bwd`` from
 (``csrc/flash_fwd.cu``) and of kernels B2, B3a and B3b
 (``csrc/flash_bwd.cu``, ``csrc/flash_bwd_split.cu``). They compute the same
 quantities as the kernels (fp32 accumulation, natural-log lse, NEG_INF
-sentinel masking) with O(Sq*Skv) memory. The CPU tests hold them against
+sentinel masking) with O(Sq*Skv) memory, and beyond them softcap and
+ALiBi on the scaled logits (softcap, then ALiBi, then the mask). The CPU tests hold them against
 the JAX package; ``chip_smoke.py`` holds the kernels against them on the
 card.
 
@@ -20,7 +21,24 @@ Shapes:
 
 import torch
 
-from .mask import NEG_INF, MaskArgs, check_supported, mask_logits
+from .mask import (NEG_INF, MaskArgs, alibi_bias, check_supported,
+                   mask_logits)
+
+
+def _logits(qf, kf, scale, mask: MaskArgs):
+    """Scaled logits (B, Hkv, G, Sq, Skv) through softcap, then ALiBi, then
+    the mask, and the softcap's derivative 1 - tanh^2 (None without it)."""
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+    dcap = None
+    if mask.softcap:
+        t = torch.tanh(s / mask.softcap)
+        s = mask.softcap * t
+        dcap = 1.0 - t * t
+    bias = alibi_bias(mask, qf.shape[1], qf.shape[2], qf.shape[3],
+                      kf.shape[2], qf.device)
+    if bias is not None:
+        s = s + bias
+    return mask_logits(s, mask), dcap
 
 
 def naive_block_fwd(q, k, v, scale, mask: MaskArgs):
@@ -28,8 +46,7 @@ def naive_block_fwd(q, k, v, scale, mask: MaskArgs):
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
     qf = q.float().reshape(b, hkv, g, sq, d)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
-    s = mask_logits(s, mask)
+    s, _ = _logits(qf, k.float(), scale, mask)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -46,10 +63,11 @@ def naive_block_fwd(q, k, v, scale, mask: MaskArgs):
 def naive_block_bwd(dout, q, k, v, lse, delta, scale, mask: MaskArgs):
     """Returns (dq, dk, dv) fp32; dk/dv already summed over the GQA group.
 
-    p is recomputed from the (merged) lse: p = exp(q k^T * scale - lse);
-    dv = p^T dout; ds = p * (dout v^T - delta) * scale; dq = ds k;
-    dk = ds^T q. delta = rowsum(dout * out) (``ops/flash.py::
-    compute_delta``)."""
+    p is recomputed from the (merged) lse: p = exp(s - lse) with s the
+    logits as the forward transformed them; dv = p^T dout; ds = p *
+    (dout v^T - delta) * scale, times 1 - tanh^2 under softcap (ALiBi is
+    additive and leaves ds alone); dq = ds k; dk = ds^T q. delta =
+    rowsum(dout * out) (``ops/flash.py::compute_delta``)."""
     check_supported(mask)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -62,11 +80,13 @@ def naive_block_bwd(dout, q, k, v, lse, delta, scale, mask: MaskArgs):
     lsef = lse.float().clamp(min=NEG_INF / 2).reshape(b, hkv, g, sq, 1)
     deltaf = delta.float().reshape(b, hkv, g, sq, 1)
     kf, vf = k.float(), v.float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
-    p = torch.exp(mask_logits(s, mask) - lsef)
+    s, dcap = _logits(qf, kf, scale, mask)
+    p = torch.exp(s - lsef)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, doutf)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", doutf, vf)
     ds = p * (dp - deltaf) * scale
+    if dcap is not None:
+        ds = ds * dcap
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf)
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
     return dq.reshape(b, hq, sq, d), dk, dv

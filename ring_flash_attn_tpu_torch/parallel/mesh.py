@@ -9,7 +9,11 @@ every collective is the identity. That is how a single card runs the
 sequence-parallel paths.
 
 The ring is a batched isend/irecv pair to rank +- 1
-(``batch_isend_irecv``), as in the reference's ``RingComm``.
+(``batch_isend_irecv``), as in the reference's ``RingComm``: blocking
+(``ring_rotate``) or posted and waited for later (``ring_rotate_start``),
+so that the next step's KV travels while this step's kernel runs. The step
+loops of ring, zigzag and fused ring all move their tensors through
+``RingBuffer``: two buffers that take turns at sending and receiving.
 """
 
 import torch
@@ -32,23 +36,86 @@ def _global_rank(group, rank):
     return rank if group is None else dist.get_global_rank(group, rank)
 
 
-def ring_rotate(x, group=None, reverse=False):
-    """Rotate x one step around the ring: rank i's value moves to rank
-    i + 1 (``reverse=True``: to i - 1). Returns the received tensor."""
+class Rotation:
+    """A posted ring rotation: ``wait()`` returns the received tensor.
+
+    Between ``ring_rotate_start`` and ``wait`` the sent tensor must not be
+    written and the receive buffer must not be touched; kernels launched
+    in between run while the message travels (the reference's
+    ``commit()``/``wait()``). On NCCL the transfer runs on the backend's
+    own stream, ordered after the work already on the current stream, and
+    ``wait`` orders the current stream after it; on gloo ``wait`` blocks
+    the host."""
+
+    def __init__(self, received, requests=()):
+        self._received = received
+        self._requests = requests
+
+    def wait(self):
+        for req in self._requests:
+            req.wait()
+        self._requests = ()
+        return self._received
+
+
+def ring_rotate_start(x, group=None, reverse=False, out=None):
+    """Post the rotation of x one step around the ring (rank i's value
+    moves to rank i + 1; ``reverse=True``: to i - 1) and return its
+    ``Rotation``. ``out``, when given, is the contiguous buffer the
+    message lands in (so that a loop can alternate between two buffers).
+    At world size 1 nothing is posted and ``wait()`` returns x."""
     n = ring_size(group)
     if n == 1:
-        return x
+        return Rotation(x)
     rank = ring_rank(group)
     step = -1 if reverse else 1
     dst = _global_rank(group, (rank + step) % n)
     src = _global_rank(group, (rank - step) % n)
     x = x.contiguous()
-    recv = torch.empty_like(x)
+    recv = torch.empty_like(x) if out is None else out
     ops = [dist.P2POp(dist.isend, x, dst, group),
            dist.P2POp(dist.irecv, recv, src, group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recv
+    return Rotation(recv, dist.batch_isend_irecv(ops))
+
+
+def ring_rotate(x, group=None, reverse=False):
+    """Rotate x one step around the ring: rank i's value moves to rank
+    i + 1 (``reverse=True``: to i - 1). Returns the received tensor."""
+    return ring_rotate_start(x, group, reverse).wait()
+
+
+class RingBuffer:
+    """A tensor that travels the ring through two buffers, the way every
+    step loop of the port moves its KV and its dk/dv accumulator.
+
+    ``value`` is the resident tensor. ``start()`` posts its rotation into
+    the spare buffer (allocated at the first call); ``wait()`` makes what
+    arrived the resident value and the buffer it left the spare, which the
+    next ``start()`` receives into. Between the two, ``value`` may be read
+    (by this step's kernels) and not written. At world size 1 nothing is
+    posted and nothing is allocated, and ``value`` may be any object."""
+
+    def __init__(self, value, group=None):
+        self._group = group
+        self._moves = ring_size(group) > 1
+        self.value = value.contiguous() if self._moves else value
+        self._spare = self._posted = None
+
+    def start(self):
+        if self._moves:
+            if self._spare is None:
+                self._spare = torch.empty_like(self.value)
+            self._posted = ring_rotate_start(self.value, self._group,
+                                             out=self._spare)
+
+    def wait(self):
+        if self._posted is not None:
+            self.value, self._spare = self._posted.wait(), self.value
+            self._posted = None
+
+    def rotate(self):
+        self.start()
+        self.wait()
 
 
 def all_reduce(x, op="sum", group=None):

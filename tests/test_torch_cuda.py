@@ -1,4 +1,4 @@
-"""Kernels B1, B5, B2, B3a and B3b against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card.
 
 CUDA kernels have no CPU mode, so this test skips without an NVIDIA GPU.
 It imports neither JAX nor the JAX package, so it also runs on a machine
@@ -398,3 +398,64 @@ def test_cuda_generate_matches_plain():
         logits[backend] = (lp[:, -1], ld)
     for k_, p_ in zip(logits[None], logits["plain"]):
         assert float((k_ - p_).abs().max()) <= 5e-2 * float(p_.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,cap,alibi,d", [
+    (True, None, False, 128), (True, 20.0, True, 128), (False, 25.0, True, 64),
+])
+def test_fused_ring_kernels_match_plain_versions(causal, cap, alibi, d):
+    """B7 and B8 through ``fused_ring_attention`` (one process: a ring of
+    one, first and last step at once) and through a rank's three steps with
+    the state carried, against their plain versions, bf16 inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
+    from ring_flash_attn_tpu_torch.parallel.fused_ring_cuda import (
+        fused_ring_bwd_cuda, fused_ring_fwd_cuda)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+
+    hq, hkv, ll = 8, 2, 200
+    slopes = (torch.tensor([2.0 ** (-i - 1) for i in range(hq)], device=dev)
+              if alibi else None)
+    kw = dict(scale=d ** -0.5, causal=causal, softcap=cap,
+              alibi_slopes=slopes, bwd_mode="fused")
+    q, k, v, dout = rnd(1, hq, ll, d), rnd(1, hkv, ll, d), rnd(1, hkv, ll, d), \
+        rnd(1, hq, ll, d)
+    before = fused_ring_fwd_cuda.launches, fused_ring_bwd_cuda.launches
+    res = {}
+    for backend in (None, "plain"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out, lse = fr.fused_ring_attention(*leaves, backend=backend, **kw)
+        res[backend] = (out, lse, *torch.autograd.grad(out, leaves, dout))
+    assert (fused_ring_fwd_cuda.launches, fused_ring_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    got, ref = res[None], res["plain"]
+    # out and the gradients within 2e-2 of max|plain|, lse within 1e-3
+    assert float((got[1] - ref[1]).abs().max()) <= 1e-3
+    for a, b in zip((got[0], *got[2:]), (ref[0], *ref[2:])):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 2e-2 * float(b.float().abs().max())
+
+    # rank 2 of 3: the diagonal, then the shards of ranks 1 and 0
+    qs = fr._prescale(q, kw["scale"] * fr.LOG2E)
+    tk = fr._transforms(q, causal, cap, slopes)
+    shards = [(rnd(1, hkv, ll, d), rnd(1, hkv, ll, d)) for _ in range(3)]
+    outs = {}
+    for backend in (None, "plain"):
+        state = fr.new_state(qs)
+        for step, (ks, vs) in enumerate(shards):
+            r = fr.fwd_step(qs, ks, vs, state, backend=backend,
+                            diagonal=causal and step == 0, first=step == 0,
+                            last=step == 2, q_pos0=2 * ll,
+                            kv_pos0=(2 - step) * ll, **tk)
+        outs[backend] = r
+    plain_out = outs["plain"][0].float()
+    assert float((outs[None][0].float() - plain_out).abs().max()) \
+        <= 2e-2 * float(plain_out.abs().max())
+    assert float((outs[None][1] - outs["plain"][1]).abs().max()) <= 1e-3

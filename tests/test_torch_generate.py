@@ -155,6 +155,18 @@ def test_mesh_helpers(world):
                                       x[(r - 1) % world])
         np.testing.assert_array_equal(out["collectives/rotate_rev"],
                                       np.asarray(jrev)[r])
+        # posted and waited for later, two in flight at once
+        np.testing.assert_array_equal(out["collectives/posted"],
+                                      x[(r - 1) % world])
+        np.testing.assert_array_equal(out["collectives/posted_rev"],
+                                      2.0 * x[(r + 1) % world])
+        # RingBuffer: one hop, then the full circle with W additions. At
+        # step s rank r adds r + 1 to the value of rank r - s - 1
+        np.testing.assert_array_equal(out["collectives/buffer_hop"],
+                                      x[(r - 1) % world])
+        np.testing.assert_allclose(
+            out["collectives/buffer_home"],
+            x[r] + np.float32(world * (world + 1) / 2), rtol=1e-6)
         np.testing.assert_array_equal(out["collectives/gather"],
                                       np.concatenate(list(x), axis=1))
         np.testing.assert_allclose(out["collectives/sum"], x.sum(0),

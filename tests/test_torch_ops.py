@@ -29,7 +29,8 @@ from ring_flash_attn_tpu_torch.ops import paged as tpaged
 from ring_flash_attn_tpu_torch.ops.flash import (
     block_bwd, block_fwd, compute_delta, flash_attention)
 from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import fused_bwd_supported
-from ring_flash_attn_tpu_torch.ops.mask import NEG_INF, MaskArgs
+from ring_flash_attn_tpu_torch.ops.mask import (
+    NEG_INF, MaskArgs, check_kernel_supported)
 from ring_flash_attn_tpu_torch.ops.naive import (
     naive_block_bwd, naive_block_fwd)
 
@@ -96,17 +97,26 @@ def test_block_fwd_cpu_uses_plain_version_and_narrows():
 
 def test_unported_mask_fields_and_grad_raise():
     """Unported MaskArgs fields raise in block_fwd and block_bwd alike;
-    flash_attention, forward-only before the training slice, now
-    differentiates."""
+    softcap and ALiBi, which the plain versions have since the ring slice,
+    raise in the block kernels' own check only; flash_attention,
+    forward-only before the training slice, now differentiates."""
     q = torch.zeros((1, 1, 4, 8))
     lse = torch.zeros((1, 1, 4))
-    for field in ({"softcap": 5.0}, {"window_left": 2}, {"dropout_p": 0.1},
-                  {"q_segids": np.zeros(4)}, {"alibi_slopes": np.ones(1)}):
+    for field in ({"window_left": 2}, {"dropout_p": 0.1},
+                  {"q_segids": np.zeros(4)}, {"q_pos": np.zeros(4)}):
         mask = MaskArgs(causal=True, **field)
         with pytest.raises(NotImplementedError):
             block_fwd(q, q, q, 1.0, mask)
         with pytest.raises(NotImplementedError):
             block_bwd(q, q, q, q, lse, lse, 1.0, mask)
+        with pytest.raises(NotImplementedError):
+            check_kernel_supported(mask)
+    for field in ({"softcap": 5.0}, {"alibi_slopes": np.ones(1)}):
+        mask = MaskArgs(causal=True, **field)
+        with pytest.raises(NotImplementedError):
+            check_kernel_supported(mask)
+        out, _ = block_fwd(q, q, q, 1.0, mask)  # the plain version has them
+        assert torch.isfinite(out).all()
     x = torch.from_numpy(_np((1, 2, 8, 8), 0)).requires_grad_()
     out, lse = flash_attention(x, x, x, 1.0, MaskArgs(causal=True))
     assert out.requires_grad and not lse.requires_grad

@@ -100,13 +100,40 @@ def test_flash_attn_func_return_attn_probs():
 
 
 @pytest.mark.parametrize("kw", [
-    {"window_size": (8, 0)}, {"window_size": (4, 4)}, {"softcap": 5.0},
-    {"alibi_slopes": np.ones(HQ, np.float32)}, {"dropout_p": 0.1},
+    {"window_size": (8, 0)}, {"window_size": (4, 4)}, {"dropout_p": 0.1},
 ])
 def test_flash_attn_func_unported_arguments_raise(kw):
     xs = [torch.from_numpy(x) for x in _api_inputs("func")]
     with pytest.raises(NotImplementedError):
         api.flash_attn_func(*xs, causal=True, **kw)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kw", [
+    {"softcap": 5.0}, {"alibi_slopes": np.linspace(0.1, 0.8, HQ,
+                                                   dtype=np.float32)},
+], ids=["softcap", "alibi"])
+def test_flash_attn_func_softcap_alibi_match_jax(kw, causal):
+    """softcap and ALiBi, which the plain versions have since the ring
+    slice (the block kernels raise for them on the card): forward and
+    gradients on CPU tensors."""
+    xs = _api_inputs("func")
+    dout = _np((B, SQ, HQ, D), 3)
+    jkw = {k: jnp.asarray(x) if isinstance(x, np.ndarray) else x
+           for k, x in kw.items()}
+
+    def jloss(*args):
+        return jnp.sum(japi.flash_attn_func(*args, causal=causal, **jkw)
+                       * dout)
+
+    jout = japi.flash_attn_func(*map(jnp.asarray, xs), causal=causal, **jkw)
+    jgrads = jax.grad(jloss, (0, 1, 2))(*map(jnp.asarray, xs))
+    ts = [torch.from_numpy(x.copy()).requires_grad_() for x in xs]
+    out = api.flash_attn_func(*ts, causal=causal, **kw)
+    tgrads = torch.autograd.grad((out * torch.from_numpy(dout)).sum(), ts)
+    _close(out, jout, TOL)
+    for t, j in zip(tgrads, jgrads):
+        _close(t, j, GRAD_TOL)
 
 
 @pytest.mark.parametrize("deterministic,fused", [(True, False),

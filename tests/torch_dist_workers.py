@@ -18,14 +18,18 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ring_flash_attn_tpu_torch import api
 from ring_flash_attn_tpu_torch.models import (
-    ModelConfig, decode_step, generate, params_from_jax, prefill)
+    ModelConfig, decode_step, generate, params_from_jax, prefill, train_step)
 from ring_flash_attn_tpu_torch.ops.quant import (
     as_bytes, make_cache, quantized_kv_from_jax)
 from ring_flash_attn_tpu_torch.parallel import (
-    llama3_attention, merge_across_axis, psum_exact, ring_rank, ring_rotate,
-    ring_size, sharded_cache_update, sharded_quant_decode)
-from ring_flash_attn_tpu_torch.parallel.mesh import all_gather, all_reduce
+    fused_ring_attention, layouts, llama3_attention, merge_across_axis,
+    psum_exact, ring_attention, ring_rank, ring_rotate, ring_rotate_start,
+    ring_size, sharded_cache_update, sharded_quant_decode,
+    zigzag_ring_attention)
+from ring_flash_attn_tpu_torch.parallel.mesh import (
+    RingBuffer, all_gather, all_reduce)
 
 START_TIMEOUT = 120  # seconds for all ranks to import torch and report
 JOIN_TIMEOUT = 20
@@ -54,6 +58,27 @@ def task_collectives(rank, world, p):
         "gather": _np(all_gather(x, 1)),
         "sum": _np(all_reduce(x, "sum")), "max": _np(all_reduce(x, "max")),
     }
+    # two rotations posted before either is waited for, into given buffers
+    buf = torch.empty_like(x)
+    first = ring_rotate_start(x, out=buf)
+    second = ring_rotate_start(x * 2.0, reverse=True)
+    out["posted"], out["posted_rev"] = _np(first.wait()), _np(second.wait())
+    assert first.wait() is (buf if world > 1 else x)  # W=1: nothing posted
+    # the step loops' two-buffer circle: every rank adds to what it holds
+    # and passes it on; after W hops each value is home with all W additions
+    travelling = RingBuffer(x.clone())
+    buffers = set()
+    for step in range(world):
+        travelling.start()
+        held = travelling.value.clone()  # read while the message travels
+        travelling.wait()
+        if step == 0:
+            out["buffer_hop"] = _np(travelling.value)
+        assert world == 1 or not torch.equal(held, travelling.value)
+        travelling.value.add_(rank + 1.0)
+        buffers.add(travelling.value.data_ptr())
+    out["buffer_home"] = _np(travelling.value)
+    assert len(buffers) == min(world, 2)
     leaf = x.clone().requires_grad_()
     y = psum_exact(leaf * (rank + 1.0))
     (y * torch.from_numpy(p["ct"])).sum().backward()
@@ -125,8 +150,97 @@ def task_generate(rank, world, p):
     return out
 
 
+def _local(a, rank, world, layout, axis):
+    """Rank's shard of the global numpy array in the schedule's layout."""
+    extract = (layouts.extract_local_zigzag if layout == "zigzag"
+               else layouts.extract_local_contiguous)
+    return extract(torch.from_numpy(a), rank, world, axis).contiguous()
+
+
+_SCHEDULES = {"ring": (ring_attention, "contiguous"),
+              "zigzag": (zigzag_ring_attention, "zigzag"),
+              "fused_ring": (fused_ring_attention, "contiguous")}
+
+
+def task_schedules(rank, world, p):
+    """Each variant's (out, lse) and gradients on this rank's shards of the
+    global (B, H, S, D) inputs."""
+    out = {}
+    for name, (kind, dtype, kw) in p["variants"].items():
+        fn, layout = _SCHEDULES[kind]
+        q, k, v, dout = (
+            _local(p[n], rank, world, layout, 2).to(getattr(torch, dtype))
+            for n in ("q", "k", "v", "dout"))
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        o, lse = fn(*leaves, scale=p["scale"], **kw)
+        assert o.dtype == q.dtype and not lse.requires_grad
+        grads = torch.autograd.grad(o, leaves, dout)
+        for key, x in zip(("out", "lse", "dq", "dk", "dv"),
+                          (o, lse, *grads)):
+            out[f"{name}/{key}"] = _np(x.float())
+    return out
+
+
+def task_api(rank, world, p):
+    """The distributed api functions and their packed forms on (B, S, H,
+    D); ``ring_func`` also with gradients and with return_attn_probs."""
+    out = {}
+    for kind, layout in (("ring", "contiguous"), ("zigzag_ring", "zigzag")):
+        q, k, v, dout = (_local(p[n], rank, world, layout, 1)
+                         for n in ("q", "k", "v", "dout"))
+        kw = dict(causal=True, softmax_scale=p["scale"])
+        func = getattr(api, f"{kind}_flash_attn_func")
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = func(*leaves, **kw)
+        grads = torch.autograd.grad(o, leaves, dout)
+        out[f"{kind}/func"] = _np(o)
+        for key, g in zip(("dq", "dk", "dv"), grads):
+            out[f"{kind}/{key}"] = _np(g)
+        o2, lse, probs = func(q, k, v, return_attn_probs=True, **kw)
+        assert probs is None and torch.equal(o2, o.detach())
+        out[f"{kind}/lse"] = _np(lse)
+        kv = torch.stack([k, v], dim=2)
+        out[f"{kind}/kvpacked"] = _np(getattr(
+            api, f"{kind}_flash_attn_kvpacked_func")(q, kv, **kw))
+        if k.shape[2] == q.shape[2]:
+            qkv = torch.stack([q, k, v], dim=2)
+            out[f"{kind}/qkvpacked"] = _np(getattr(
+                api, f"{kind}_flash_attn_qkvpacked_func")(qkv, **kw))
+    return out
+
+
+def task_train(rank, world, p):
+    """One ``train_step`` over the sequence group for each attention kind;
+    with ``dp`` > 1 the ranks form a (dp, sp) grid, sp innermost, with a
+    process group per row (the sequence) and per column (the data)."""
+    dp = p["dp"]
+    sp = world // dp
+    sp_group, data_group = None, False
+    if dp > 1:
+        rows = [dist.new_group([d * sp + s for s in range(sp)])
+                for d in range(dp)]
+        cols = [dist.new_group([d * sp + s for d in range(dp)])
+                for s in range(sp)]
+        sp_group, data_group = rows[rank // sp], cols[rank % sp]
+    out = {}
+    for kind, (tokens, labels, pos) in p["batches"].items():
+        cfg = ModelConfig(attention=kind, **p["cfg"])
+        model = params_from_jax(p["params"], cfg, device="cpu")
+        toks, labs = (torch.from_numpy(
+            _shard(_shard(a, rank // sp, dp, 0), rank % sp, sp, 1)).long()
+            for a in (tokens, labels))
+        positions = torch.from_numpy(_shard(pos, rank % sp, sp, 0))
+        _, loss = train_step(model, toks, labs, positions, lr=p["lr"],
+                             sp_group=sp_group, data_group=data_group)
+        out[f"{kind}/loss"] = _np(loss)
+        for name, param in model.named_parameters():
+            out[f"{kind}/{name}"] = _np(param.float())
+    return out
+
+
 TASKS = {"collectives": task_collectives, "decode": task_decode,
-         "llama3": task_llama3, "generate": task_generate}
+         "llama3": task_llama3, "generate": task_generate,
+         "schedules": task_schedules, "api": task_api, "train": task_train}
 
 
 def _worker(rank, world, port, task, payload, results):
