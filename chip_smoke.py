@@ -26,10 +26,14 @@ Phases, each of which raises on failure:
    their plain version in bf16, in the single-call mode (delta=None, bf16
    gradients) and the ring mode (delta given, fp32 gradients), at the
    training path's shapes among others (S=8192 whole; the last 512 q rows
-   of S=36864); B3 bitwise reproducible; ``flash_attention`` picking B3
-   past the fused limit (Skv = 36864, D = 128); timed at the causal S=8192
-   shape beside their flop bounds, the plain version and the backward of
-   ``F.scaled_dot_product_attention`` (timed only, never used by the port).
+   of S=36864) and at the kv-major loop's tile edges (Skv 127 to 257, Sq 63
+   to 65, GQA groups 1 and 8, head_dim 64 and 128, dead rows); every call
+   twice, B3 and B2's dk/dv bitwise reproducible; the HGMMA count of each
+   instantiation of the loop (``cuobjdump -sass``, none may be 0);
+   ``flash_attention`` picking B3 past the fused limit (Skv = 36864, D =
+   128); timed at the causal S=8192 shape beside their flop bounds (TFLOP/s),
+   the plain version and the backward of ``F.scaled_dot_product_attention``
+   (timed only, never used by the port).
 6. Training at the same widths (4 layers, seeded random weights): loss and
    every parameter's gradient of the kernels against the plain versions at
    S=2048, then the main path: 3 ``train_step``s at S=8192 and one at
@@ -57,10 +61,11 @@ Phases, each of which raises on failure:
 10. Kernels B7 and B8 (the fused ring's forward and backward steps) against
    their plain versions, step by step with the state carried over: diagonal
    and off-diagonal steps, ALiBi on global positions, softcap, non-causal,
-   D 64 and 128, group 1 and 4, ragged lengths, and the headline shape
-   (8192 tokens a rank at 32/8 heads) on its last 512 q rows; B8's dk/dv
-   bitwise reproducible; both timed at the headline step beside their flop
-   bounds and ``F.scaled_dot_product_attention`` (timed only).
+   D 64 and 128, group 1, 4 and 8, ragged lengths at B8's tile edges, and
+   the headline shape (8192 tokens a rank at 32/8 heads) on its last 512 q
+   rows; B8's dk/dv bitwise reproducible, HGMMA in its SASS; both timed at
+   the headline step beside their flop bounds and
+   ``F.scaled_dot_product_attention`` (timed only).
 11. The W-rank fused ring on one card: one process holds the shards of all
    W ranks (W=4 at S=32768, and W=1) and drives every rank's steps, forward
    and backward, causal and not, against B1 and B2/B3 on the whole sequence
@@ -81,7 +86,9 @@ call's launches take less device time than the host needs to issue them
 (B4, B6).
 
 Prints the card's name and power limit, then one JSON line with every
-kernel's numbers, then ``{"ok": true, "device": {...}}`` as the last line.
+kernel's numbers (with ptxas's registers, spills and static shared memory
+of its head_dim-128 instantiation), then ``{"ok": true, "device": {...}}``
+as the last line.
 Exits non-zero, printing no result, without CUDA or without the package.
 """
 
@@ -200,8 +207,14 @@ def kernel_ms(torch, fn, iters, flush):
                              for key, n in per_flush.items()):
             break
     else:
-        raise AssertionError(f"torch.profiler lost kernels of the timed "
-                             f"loop: flush {per_flush}, loop {seen}")
+        # the profiler has come back empty three times over (seen once on
+        # the H100 machine, for B7, in a run that passed the next time):
+        # the device time goes unmeasured (NaN here, null in the JSON
+        # line), the events' time still stands
+        log(f"    torch.profiler lost kernels of the timed loop three times "
+            f"(flush {per_flush}, loop {seen}): device time not measured")
+        return {"ms": cuda_ms(torch, fn, iters, flush),
+                "device_ms": float("nan")}
     parts = [(t / iters, key) for t, key, _ in prof if key not in per_flush]
     device = sum(t for t, _ in parts) / 1e3
     log("    device time of a call: " + ", ".join(
@@ -209,8 +222,104 @@ def kernel_ms(torch, fn, iters, flush):
     return {"ms": cuda_ms(torch, fn, iters, flush), "device_ms": device}
 
 
+def _json_safe(x):
+    """x with every NaN (a reading not measured) as None."""
+    if isinstance(x, float) and x != x:
+        return None
+    if isinstance(x, dict):
+        return {k: _json_safe(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_json_safe(v) for v in x]
+    return x
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+# each kernel's instantiation at the timed shape (head_dim 128): its library
+# (csrc/<lib>.cu) and a piece of its mangled name; the largest over the
+# instantiations that match where a kernel has several (B4, B5, B6, B7)
+INSTANTIATIONS = {
+    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0E"),
+    "B5 paged_decode": ("paged_decode", "paged_decode_kernel"),
+    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0E"),
+    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128E"),
+    "B3b flash_bwd_dkv": ("flash_bwd_split", "bwd_kv_kernelILi128ELb0ELb0E"),
+    "B4 quant_decode": ("quant_decode", "quant_decode_kernel"),
+    "B6 paged_quant_decode": ("paged_quant_decode",
+                              "paged_quant_decode_kernel"),
+    "B7 fused_ring_fwd": ("fused_ring_fwd", "flash_fwd_kernelILi128ELb1E"),
+    "B8 fused_ring_bwd": ("fused_ring_bwd", "bwd_kv_kernelILi128ELb1ELb1E"),
+}
+
+
+def ptxas_facts(log_path):
+    """{mangled kernel name: {"registers", "spill_bytes",
+    "smem_static_bytes"}} from the nvcc log (``-Xptxas -v``) that
+    ``_build`` keeps beside a library. A kernel launched with more threads
+    than it keeps registers for (``setmaxnreg``) reports its launch count;
+    dynamic shared memory is not in the log."""
+    import re
+
+    facts, cur = {}, None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = facts.setdefault(m.group(1), {
+                    "registers": 0, "spill_bytes": 0, "smem_static_bytes": 0})
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["smem_static_bytes"] = int(m.group(1)) if m else 0
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                cur["spill_bytes"] = int(m.group(1))
+    return facts
+
+
+def kernel_ptxas(paths, name):
+    """ptxas's facts of a kernel entry's instantiation (INSTANTIATIONS)."""
+    lib, piece = INSTANTIATIONS[name]
+    found = [f for k, f in ptxas_facts(paths[lib][:-3] + ".log").items()
+             if piece in k]
+    if not found:
+        raise AssertionError(f"no ptxas record of {piece} in {lib}'s log")
+    return {key: max(f[key] for f in found) for key in found[0]}
+
+
+def hgmma_counts(path, piece):
+    """{mangled name: HGMMA instructions} of a library's kernels whose name
+    holds ``piece``, from ``cuobjdump -sass``."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, check=True).stdout
+    return {func.split("\n")[0].strip(): len(re.findall(r"\bHGMMA\.", func))
+            for func in re.split(r"\n\s*Function : ", out)[1:]
+            if piece in func.split("\n")[0]}
+
+
+def check_hgmma(what, lib):
+    """Log and check the HGMMA count of each instantiation of the
+    kv-major backward loop in csrc/<lib>.cu: the loop runs on wgmma."""
+    from ring_flash_attn_tpu_torch.ops import _build
+
+    counts = hgmma_counts(_build.build_all()[lib], "bwd_kv_kernel")
+    log(f"  {what}: HGMMA in the SASS of bwd_kv_kernel " + ", ".join(
+        f"{'D=128' if 'ILi128' in n else 'D=64'} {c}"
+        for n, c in sorted(counts.items())))
+    if not counts or min(counts.values()) == 0:
+        raise AssertionError(f"{what}: an instantiation of the loop has no "
+                             f"HGMMA: {counts}")
+    return counts
 
 
 def phase_env(torch):
@@ -239,7 +348,8 @@ def phase_env(torch):
     for name, path in sorted(paths.items()):
         with open(path[:-3] + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("registers", "spill", "wgmma",
+                                           "setmaxnreg")):
                     log(f"  ptxas {name}: {line.strip()}")
     return smi
 
@@ -622,7 +732,8 @@ def phase_bwd(torch, flush):
 
     def check(name, q, k, v, dout, out, lse, mask, names):
         """The kernels ``names`` in both modes against naive_block_bwd on
-        the same inputs."""
+        the same inputs, each twice: all of B3 and B2's dk, dv must give
+        the same bits (B2's dq sums through atomics)."""
         scale = q.shape[-1] ** -0.5
         delta = compute_delta(dout, out)
         ref = naive_block_bwd(dout, q, k, v, lse, delta, scale, mask)
@@ -631,18 +742,24 @@ def phase_bwd(torch, flush):
                  ("delta given, fp32 grads", delta, {}, torch.float32)]
         for kname in names:
             for mode, d_arg, kw, dtype in modes:
-                got = kernels[kname](dout, q, k, v, lse, d_arg, scale, mask,
-                                     **kw)
+                got, again = (kernels[kname](dout, q, k, v, lse, d_arg,
+                                             scale, mask, **kw)
+                              for _ in range(2))
                 torch.cuda.synchronize()
                 rel = [_rel_err(x, r) for x, r in zip(got, ref)]
                 ab = [max_err(x, r) for x, r in zip(got, ref)]
+                same = [torch.equal(x, y) for x, y in zip(got, again)]
+                del again
                 log(f"  {name}, {kname}, {mode}: rel err dq {rel[0]:.2e} "
                     f"dk {rel[1]:.2e} dv {rel[2]:.2e} (tol {BWD_REL_TOL}); "
-                    f"abs max {max(ab):.2e}")
+                    f"abs max {max(ab):.2e}; two runs bitwise equal {same}")
                 if not (max(rel) <= BWD_REL_TOL
                         and all(x.dtype == dtype for x in got)):
                     raise AssertionError(f"{kname} disagrees with its plain "
                                          f"version: {name}, {mode}")
+                if not all(same[1:]) or (kname == "B3" and not same[0]):
+                    raise AssertionError(f"{kname} is not bitwise "
+                                         f"reproducible: {name}, {mode}")
                 worst[kname][0] = max(worst[kname][0], max(ab))
                 worst[kname][1] = max(worst[kname][1], max(rel))
                 if mask.offset is not None and mask.offset < 0:
@@ -651,16 +768,32 @@ def phase_bwd(torch, flush):
                                              f"gradient")
                 del got
 
+    check_hgmma("B2", "flash_bwd")
+    check_hgmma("B3b", "flash_bwd_split")
+    causal = MaskArgs(causal=True)
     cases = [
-        ("causal 4096", (1, 32, 8, 4096, 4096), MaskArgs(causal=True)),
+        ("causal 4096", (1, 32, 8, 4096, 4096), causal, 128),
         ("prefix Sq=1024 Skv=3072 offset=2048", (1, 32, 8, 1024, 3072),
-         MaskArgs(causal=True, offset=2048)),
-        ("non-causal 1000x1500", (2, 8, 2, 1000, 1500), MaskArgs()),
+         MaskArgs(causal=True, offset=2048), 128),
+        ("non-causal 1000x1500", (2, 8, 2, 1000, 1500), MaskArgs(), 128),
         ("ragged, dead rows: offset=-5, Sq=100 Skv=70", (1, 4, 2, 100, 70),
-         MaskArgs(causal=True, offset=-5)),
+         MaskArgs(causal=True, offset=-5), 128),
+        # the kv-major loop's tile edges: 128 keys a block, 64 q rows a step
+        ("edge Sq=63 Skv=127 group 8", (1, 32, 4, 63, 127),
+         MaskArgs(causal=True, offset=64), 128),
+        ("edge Sq=64 Skv=128 group 1 D=64 non-causal", (1, 8, 8, 64, 128),
+         MaskArgs(), 64),
+        ("edge Sq=65 Skv=129 group 4 B=2", (2, 4, 1, 65, 129),
+         MaskArgs(causal=True, offset=64), 128),
+        ("edge Sq=64 Skv=255 group 8 D=64", (1, 32, 4, 64, 255),
+         MaskArgs(causal=True, offset=191), 64),
+        ("edge Sq=65 Skv=257 group 1, dead rows: offset=-20",
+         (1, 8, 8, 65, 257), MaskArgs(causal=True, offset=-20), 128),
+        ("edge Sq=129 Skv=257 group 8 D=64 non-causal", (1, 8, 1, 129, 257),
+         MaskArgs(), 64),
     ]
-    for name, shape, mask in cases:
-        check(name, *inputs(*shape, mask), mask, ("B2", "B3"))
+    for name, shape, mask, d in cases:
+        check(name, *inputs(*shape, mask, d=d), mask, ("B2", "B3"))
 
     # B3 is bitwise reproducible; B2's atomic dq need not be
     mask = MaskArgs(causal=True)
@@ -756,15 +889,19 @@ def phase_bwd(torch, flush):
     }
     bound_ms = {n: max(f / H100_BF16_FLOPS, b / H100_BYTES_PER_S) * 1e3
                 for n, (f, b) in bounds.items()}
+    tflops = {n: bounds[n][0] / t / 1e9
+              for n, t in (("B2", b2_ms), ("B3a", b3a_ms), ("B3b", b3b_ms))}
     log(f"  S=8192 causal bf16, single-call mode: B2 {b2_ms:.3f} ms "
-        f"({bounds['B2'][0] / b2_ms / 1e9:.1f} TFLOP/s of its 5 products, "
-        f"bound {bound_ms['B2']:.3f} ms); B3a+B3b with delta pre-pass "
-        f"{split_ms:.3f} ms; B3a {b3a_ms:.3f} ms (bound "
-        f"{bound_ms['B3a']:.3f}); B3b {b3b_ms:.3f} ms (bound "
-        f"{bound_ms['B3b']:.3f}); plain {plain_ms:.3f} ms; "
-        f"SDPA backward {lib_ms:.3f} ms (operations bound all); device "
-        f"time B2 {b2['device_ms']:.3f}, B3a {b3a['device_ms']:.3f}, B3b "
-        f"{b3b['device_ms']:.3f} ms")
+        f"({tflops['B2']:.1f} TFLOP/s of its 5 products, "
+        f"{b2_ms / lib_ms:.2f}x SDPA's backward, bound "
+        f"{bound_ms['B2']:.3f} ms); B3a+B3b with delta pre-pass "
+        f"{split_ms:.3f} ms ({split_ms / lib_ms:.2f}x SDPA's backward); B3a "
+        f"{b3a_ms:.3f} ms ({tflops['B3a']:.1f} TFLOP/s of 3 products, bound "
+        f"{bound_ms['B3a']:.3f}); B3b {b3b_ms:.3f} ms ({tflops['B3b']:.1f} "
+        f"TFLOP/s of 4 products, bound {bound_ms['B3b']:.3f}); plain "
+        f"{plain_ms:.3f} ms; SDPA backward {lib_ms:.3f} ms (operations bound "
+        f"all); device time B2 {b2['device_ms']:.3f}, B3a "
+        f"{b3a['device_ms']:.3f}, B3b {b3b['device_ms']:.3f} ms")
     shape = "q (1,32,8192,128) kv (1,8,8192,128) bf16 causal"
     common = {"route": "cuda", "shape": shape, "plain_ms": plain_ms,
               "bound_by": "operations",
@@ -776,17 +913,19 @@ def phase_bwd(torch, flush):
              source="ring_flash_attn_tpu_torch/csrc/flash_bwd.cu",
              replaces="ring_flash_attn_tpu/ops/pallas_bwd_fused.py:59",
              max_abs_err=worst["B2"][0], max_rel_err=worst["B2"][1],
-             **b2, bound_ms=bound_ms["B2"]),
+             **b2, bound_ms=bound_ms["B2"], tflops=tflops["B2"]),
         dict(common, name="B3a flash_bwd_dq",
              source="ring_flash_attn_tpu_torch/csrc/flash_bwd_split.cu",
              replaces="ring_flash_attn_tpu/ops/pallas_bwd.py:56",
              max_abs_err=worst["B3"][0], max_rel_err=worst["B3"][1],
-             **b3a, bound_ms=bound_ms["B3a"], pair_ms=split_ms),
+             **b3a, bound_ms=bound_ms["B3a"], pair_ms=split_ms,
+             tflops=tflops["B3a"]),
         dict(common, name="B3b flash_bwd_dkv",
              source="ring_flash_attn_tpu_torch/csrc/flash_bwd_split.cu",
              replaces="ring_flash_attn_tpu/ops/pallas_bwd.py:256",
              max_abs_err=worst["B3"][0], max_rel_err=worst["B3"][1],
-             **b3b, bound_ms=bound_ms["B3b"], pair_ms=split_ms),
+             **b3b, bound_ms=bound_ms["B3b"], pair_ms=split_ms,
+             tflops=tflops["B3b"]),
     ]
 
 
@@ -1368,6 +1507,7 @@ def phase_fused_ring(torch, flush):
 
     log("== phase 10: kernels B7, B8 (fused ring steps) vs their plain "
         "versions")
+    check_hgmma("B8", "fused_ring_bwd")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(10)
     bf16 = torch.bfloat16
@@ -1474,6 +1614,17 @@ def phase_fused_ring(torch, flush):
              q_row0=64)
     run_case("dead rows: q_row0=-5, then an earlier shard", 1, 8, 2, 100, 70,
              128, [diag, off(0, 0)], q_row0=-5)
+    # the loop's tile edges: 128 keys a block, 64 q rows a step
+    run_case("edge L=129, group 8, ALiBi", 1, 32, 4, 129, 129, 128,
+             [dict(diag, q_pos0=129, kv_pos0=129), off(129, 0)], alibi=True)
+    run_case("edge L=257, group 1, D=64, softcap 30", 1, 8, 8, 257, 257, 64,
+             [dict(diag, q_pos0=257, kv_pos0=257), off(257, 0)], cap=30.0)
+    run_case("edge L=127, group 8, D=64, non-causal", 1, 8, 1, 127, 127, 64,
+             [off(127, 0), off(127, 127)], causal=False)
+    run_case("edge Sq=65 Skv=255, group 4, softcap and ALiBi, q_row0=190", 1,
+             8, 2, 65, 255, 128,
+             [dict(diag, q_pos0=255, kv_pos0=255), off(255, 0)], cap=20.0,
+             alibi=True, q_row0=190)
     # the headline shape: a diagonal and an earlier shard, plain on the last
     # 512 q rows (its fp32 scores of all 8192 would take tens of GB)
     ll, hq, hkv, d = 8192, 32, 8, 128
@@ -1538,7 +1689,8 @@ def phase_fused_ring(torch, flush):
         f"{t7['device_ms']:.3f}), diagonal {t7d['ms']:.3f} ms (device "
         f"{t7d['device_ms']:.3f}), plain {plain7:.3f} ms, SDPA forward "
         f"{lib7:.3f} ms, bound {bound7:.3f} ms; B8 off-diagonal "
-        f"{t8['ms']:.3f} ms ({b8[0] / t8['ms'] / 1e9:.1f} TFLOP/s; device "
+        f"{t8['ms']:.3f} ms ({b8[0] / t8['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{t8['ms'] / lib8:.2f}x SDPA's backward; device "
         f"{t8['device_ms']:.3f}), diagonal {t8d['ms']:.3f} ms (device "
         f"{t8d['device_ms']:.3f}), plain {plain8:.3f} ms, SDPA backward "
         f"{lib8:.3f} ms, bound {bound8:.3f} ms (operations bound both; a "
@@ -1560,7 +1712,7 @@ def phase_fused_ring(torch, flush):
              replaces="ring_flash_attn_tpu/parallel/fused_ring.py:474",
              max_abs_err=worst["B8"][0], max_rel_err=worst["B8"][1], **t8,
              diagonal=t8d, plain_ms=plain8, bound_ms=bound8,
-             library_ms=lib8,
+             library_ms=lib8, tflops=b8[0] / t8["ms"] / 1e9,
              library="F.scaled_dot_product_attention backward, not causal, "
                      "kv repeated to 32 heads"),
     ]
@@ -1816,6 +1968,8 @@ def main():
         return result
 
     smi = run("env+build", phase_env, torch)
+    from ring_flash_attn_tpu_torch.ops import _build
+    built = _build.build_all()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = [run("B1", phase_b1, torch, flush),
                run("B5", phase_b5, torch, flush)]
@@ -1859,10 +2013,11 @@ def main():
             if k["name"] in c}
         k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths
+        k["ptxas"] = kernel_ptxas(built, k["name"])
     log(f"phase seconds {seconds}; phases took "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": _json_safe(kernels)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

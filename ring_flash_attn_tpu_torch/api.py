@@ -19,7 +19,7 @@ CUDA tensors. A non-default ``window_size`` or ``dropout_p`` raises
 entry points are not ported yet (see ROADMAP.md).
 
 ``deterministic=True`` asks for the split backward kernels B3a/B3b, which
-are bitwise reproducible; the default fused kernel B2 sums dq with atomics
+are bitwise reproducible; the default fused kernel B2 sums dq by reduce-adds
 whose order varies from run to run (the JAX package accepts the flag and
 ignores it: every path there is deterministic).
 """

@@ -12,25 +12,20 @@
 // 5 products of 2 * D flops per allowed (q, k) pair and head, about
 // 10 * pairs * Hq * D flops, on inputs of a few tens of MB: far above the
 // ~295 flop/byte ridge of bf16, so the bound is the 989 TFLOP/s dense bf16
-// rate. The TPU kernel keeps the whole (Skv, D) dk/dv of a head resident in
-// VMEM while one program walks every block pair in order; CUDA blocks run
-// in parallel and in no order, so this is the FlashAttention-2 design
-// instead (csrc/flash_bwd.cuh has the loop):
+// rate (1.390 ms at q (1, 32, 8192, 128), kv (1, 8, 8192, 128) causal). The
+// TPU kernel keeps a head's whole (Skv, D) dk/dv resident in VMEM while one
+// program walks every block pair in order; CUDA blocks run in parallel and
+// in no order, so the loop is kv-major (csrc/flash_bwd.cuh): a block keeps
+// its 128 keys' dk and dv in registers and walks the q tiles, TMA feeds a
+// producer/consumer ring, wgmma does the products, and dq, which every kv
+// tile adds to, leaves by TMA reduce-adds from a warp of its own. The first
+// port of this kernel (mma.sync, 64-key tiles, float2 atomicAdd for dq) ran
+// 8.84 ms there, 156 TFLOP/s; this loop 3.26 to 3.45 ms, about 420 TFLOP/s,
+// level with SDPA's backward (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
-//  - one block per (batch, kv head, 64-key tile), heaviest causal tiles
-//    first, walking the GQA group's q heads and q tiles from the causal
-//    lower bound; dk and dv stay in registers and are written once, already
-//    summed over the group;
-//  - p, dp and ds are recomputed per block pair in fp32 (5 mma.sync
-//    products), and dq, which every kv tile adds to, goes by float2
-//    atomicAdd into an fp32 accumulator: its sum order changes from run to
-//    run, so dq is not bitwise reproducible (B3a/B3b, the split kernels,
-//    are: ops/flash.py routes deterministic calls there);
-//  - delta comes from a pre-pass (rfa_bwd_delta) when the caller has none,
-//    rather than being folded into the kv-major loop, which would read the
-//    forward output once per kv tile.
-//
-// wgmma, TMA and larger tiles are the next steps for this kernel.
+// delta comes from a pre-pass (rfa_bwd_delta) when the caller has none,
+// rather than being folded into the kv-major loop, which would read the
+// forward output once per kv tile.
 
 #include "flash_bwd.cuh"
 

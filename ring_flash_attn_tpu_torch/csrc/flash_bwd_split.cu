@@ -18,17 +18,52 @@
 //    causal tiles first, as B1. It loops over 64-key tiles up to the causal
 //    bound (K and V double-buffered with cp.async), recomputes p and dp,
 //    keeps dq in fp32 registers and writes it once, in fp32 or bf16.
-//  - B3b: the kv-major loop of B2 (csrc/flash_bwd.cuh) without the dq
-//    atomics: one block per (batch, kv head, 64-key tile) walks the GQA
-//    group's q heads and q tiles, keeps dk and dv in registers and writes
-//    them once, summed over the group.
+//  - B3b: the kv-major loop of B2 (csrc/flash_bwd.cuh) without dq, its
+//    fourth product or its writer warp: one block per (batch, kv head,
+//    128-key tile) walks the GQA group's q heads and 64-row q tiles, Q and
+//    dout fed by TMA, the products on wgmma, and keeps dk and dv in
+//    registers, written once and summed over the group. Measured at q (1,
+//    32, 8192, 128), kv (1, 8, 8192, 128) causal (profile_torch_bwd.py,
+//    NVIDIA H100 80GB HBM3, 700 W): 2.16 to 2.28 ms, about 500 TFLOP/s of
+//    its 4 products and faster than SDPA's whole backward; the mma.sync
+//    loop before it 6.07 to 6.50 ms. B3a keeps its mma.sync loop.
 
 #include "flash_bwd.cuh"
 
 namespace {
 
 using rfa_bwd::bf16;
-using rfa_bwd::Strides;
+
+// 12 strides in elements: (b, h, s) of q, k, v and dout; last dim contiguous
+struct Strides {
+  long long q[3], k[3], v[3], o[3];
+};
+
+inline Strides make_strides(const long long* st) {
+  Strides s;
+  for (int i = 0; i < 3; ++i) {
+    s.q[i] = st[i];
+    s.k[i] = st[3 + i];
+    s.v[i] = st[6 + i];
+    s.o[i] = st[9 + i];
+  }
+  return s;
+}
+
+// Copy ROWS rows of D bf16 (row r at src + r * stride) into shared memory
+// with leading dimension D + 8; rows at or past `valid` are zero-filled.
+template <int D, int ROWS, int NTHREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          long long stride, int valid) {
+  constexpr int LD = D + 8;
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NTHREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = r < valid;
+    const bf16* g = ok ? src + r * stride + c * 8 : src;
+    rfa::cp_async16(dst + r * LD + c * 8, g, ok ? 16 : 0);
+  }
+}
 
 constexpr int BM = 64;  // q rows per block, 16 per warp
 constexpr int BN = 64;  // keys per tile
@@ -76,15 +111,15 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto ks = [&](int s) { return smem + S::KV + s * 2 * BN * LD; };
   auto vs = [&](int s) { return ks(s) + BN * LD; };
 
-  rfa_bwd::load_rows<D, BM, NTHREADS>(
+  load_rows<D, BM, NTHREADS>(
       qs, q + b * st.q[0] + h * st.q[1] + (long long)m0 * st.q[2], st.q[2],
       Sq - m0);
-  rfa_bwd::load_rows<D, BM, NTHREADS>(
+  load_rows<D, BM, NTHREADS>(
       dos, dout + b * st.o[0] + h * st.o[1] + (long long)m0 * st.o[2],
       st.o[2], Sq - m0);
   if (n_tiles > 0) {
-    rfa_bwd::load_rows<D, BN, NTHREADS>(ks(0), kb, st.k[2], Skv);
-    rfa_bwd::load_rows<D, BN, NTHREADS>(vs(0), vb, st.v[2], Skv);
+    load_rows<D, BN, NTHREADS>(ks(0), kb, st.k[2], Skv);
+    load_rows<D, BN, NTHREADS>(vs(0), vb, st.v[2], Skv);
   }
   rfa::cp_async_commit();
 
@@ -109,9 +144,9 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int n0 = j * BN;
     if (j + 1 < n_tiles) {
       const int s = (j + 1) & 1;
-      rfa_bwd::load_rows<D, BN, NTHREADS>(
+      load_rows<D, BN, NTHREADS>(
           ks(s), kb + (long long)(n0 + BN) * st.k[2], st.k[2], Skv - n0 - BN);
-      rfa_bwd::load_rows<D, BN, NTHREADS>(
+      load_rows<D, BN, NTHREADS>(
           vs(s), vb + (long long)(n0 + BN) * st.v[2], st.v[2], Skv - n0 - BN);
       rfa::cp_async_commit();
       rfa::cp_async_wait<1>();
@@ -243,7 +278,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, NTHREADS, DqSmem<D>::BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      dq, Hq, Hkv, Sq, Skv, rfa_bwd::make_strides(strides), scale, causal,
+      dq, Hq, Hkv, Sq, Skv, make_strides(strides), scale, causal,
       offset, dq_bf16);
   return cudaGetLastError();
 }

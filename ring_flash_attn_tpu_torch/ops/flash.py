@@ -14,7 +14,8 @@ Layout is (B, H, S, D).
 import torch
 
 from ..config import use_kernel
-from .flash_bwd_cuda import flash_bwd_cuda, fused_bwd_supported
+from .flash_bwd_cuda import (
+    flash_bwd_cuda, fused_bwd_supported, tma_layout_error)
 from .flash_bwd_split_cuda import flash_bwd_split_cuda
 from .flash_fwd_cuda import flash_fwd_cuda
 from .mask import MaskArgs
@@ -45,7 +46,8 @@ def block_bwd(dout, q, k, v, lse, delta, scale, mask: MaskArgs, backend=None,
     On the card, ``fused=None`` picks the fused kernel B2 while
     ``fused_bwd_supported(Skv, D)`` holds (the JAX package's selector, same
     limit) and the split kernels B3a/B3b past it; ``fused=False`` asks for
-    B3a/B3b, which are bitwise reproducible where B2's atomic dq is not.
+    B3a/B3b, which are bitwise reproducible where B2's dq, summed by
+    reduce-adds in a varying order, is not.
     """
     if delta is None and out is None:
         raise ValueError("delta=None requires the forward out")
@@ -70,10 +72,11 @@ def compute_delta(dout, out):
 
 def _kernel_layout(x):
     """x itself if the kernels take its layout (last dim contiguous, other
-    strides multiples of 8, 16-byte aligned), else a contiguous copy. An
-    incoming gradient may be an expanded or sliced view."""
+    strides multiples of 8, 16-byte aligned, and what the backward's TMA
+    maps read: ``tma_layout_error``), else a contiguous copy. An incoming
+    gradient may be an expanded or sliced view."""
     if (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:-1])
-            and x.data_ptr() % 16 == 0):
+            and x.data_ptr() % 16 == 0 and tma_layout_error(x) is None):
         return x
     return x.clone(memory_format=torch.contiguous_format)
 

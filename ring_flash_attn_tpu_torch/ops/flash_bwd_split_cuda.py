@@ -6,8 +6,9 @@ _dq_kernel`` (B3a) and ``::_dkv_kernel`` (B3b). ``ops/flash.py::block_bwd``
 sends CUDA tensors here when ``fused_bwd_supported`` is false or the
 caller passes ``fused=False`` (``flash_attn_func(deterministic=True)``
 does), and CPU tensors to the kernels' plain version,
-``ops/naive.py::naive_block_bwd``. Neither kernel uses atomics, so their
-results are bitwise reproducible. See the source's header for what bounds
+``ops/naive.py::naive_block_bwd``. Each output element is summed by one
+thread in a fixed order (no atomics or reduce-adds), so their results are
+bitwise reproducible. See the source's header for what bounds
 them on the H100.
 """
 

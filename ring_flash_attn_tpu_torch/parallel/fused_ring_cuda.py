@@ -14,7 +14,8 @@ import ctypes
 import torch
 
 from ..ops import _build
-from ..ops.flash_bwd_cuda import _check_rows, bwd_strides
+from ..ops.flash_bwd_cuda import (
+    _check_rows, bwd_strides, check_tma_operands)
 from ..ops.flash_fwd_cuda import _check_operand, check_qkv
 
 # rfa_fused_ring_fwd(q, k, v, m, l, acc, slopes, out, lse, B, Hq, Hkv, Sq,
@@ -116,7 +117,7 @@ def fused_ring_bwd_cuda(qs, k, vs, dout, lse2, delta, dq, dk, dv, *, diagonal,
     qs is q * scale * log2(e), vs is v * scale, k raw, dout (B, Hq, Sq, D),
     all bf16; lse2 = max(lse * log2 e, NEG_INF / 2) and delta = scale *
     rowsum(dout * out), fp32 (B, Hq, Sq). dq fp32 (B, Hq, Sq, D) is added
-    to (through atomics: its last bits vary from run to run); dk, dv fp32
+    to (by TMA reduce-adds: its last bits vary from run to run); dk, dv fp32
     (B, Hkv, Skv, D) are added to when ``accumulate``, else written, dk in
     units of scale * log2(e). Mask and transform arguments as
     ``fused_ring_fwd_cuda``."""
@@ -126,6 +127,7 @@ def fused_ring_bwd_cuda(qs, k, vs, dout, lse2, delta, dq, dk, dv, *, diagonal,
     if dout.shape != qs.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must match q "
                          f"{tuple(qs.shape)}")
+    check_tma_operands(q=qs, k=k, v=vs, dout=dout)
     _check_rows("lse2", lse2, (b, hq, sq), dev)
     _check_rows("delta", delta, (b, hq, sq), dev)
     _check_rows("dq", dq, (b, hq, sq, d), dev)

@@ -112,7 +112,9 @@ def _rel_err(a, ref):
 # (B, Hq, Hkv, Sq, Skv, D, causal, offset): causal with an offset and GQA
 # over ragged tiles; non-causal at head_dim 64; a negative offset whose
 # first rows see no key (dead rows); one query row; three batches of odd
-# tiles; 200 dead rows over fewer keys than rows
+# tiles; 200 dead rows over fewer keys than rows; then the kv-major loop's
+# tile edges (128 keys a block, 64 q rows a step): Skv 127, 128, 129, 255,
+# 257 against Sq 63, 64, 65, GQA groups of 8 and 1, both head dims, dead rows
 BWD_CASES = [
     (1, 8, 2, 200, 300, 128, True, 100),
     (2, 4, 4, 130, 77, 64, False, None),
@@ -120,6 +122,12 @@ BWD_CASES = [
     (1, 2, 1, 1, 5, 64, True, 4),
     (3, 6, 2, 33, 129, 128, True, 96),
     (1, 4, 1, 257, 64, 64, True, -200),
+    (1, 32, 4, 63, 127, 128, True, 64),
+    (1, 8, 8, 64, 128, 64, False, None),
+    (2, 4, 1, 65, 129, 128, True, 64),
+    (1, 32, 4, 64, 255, 64, True, 191),
+    (1, 8, 8, 65, 257, 128, True, -20),
+    (1, 8, 1, 129, 257, 64, False, None),
 ]
 
 
@@ -127,7 +135,9 @@ BWD_CASES = [
 @pytest.mark.parametrize("case", range(len(BWD_CASES)))
 def test_cuda_bwd_kernels_match_plain_version(case):
     """B2 and B3a/B3b against naive_block_bwd, in the single-call mode
-    (delta=None, bf16 gradients) and the ring mode (delta given, fp32)."""
+    (delta=None, bf16 gradients) and the ring mode (delta given, fp32);
+    a second run gives the same bits: all of B3's gradients, B2's dk and dv
+    (B2's dq sums through atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from ring_flash_attn_tpu_torch.ops.flash import compute_delta
@@ -154,6 +164,10 @@ def test_cuda_bwd_kernels_match_plain_version(case):
         assert all(x.dtype == torch.float32 for x in got)
         for x, r in zip(got, ref):
             assert _rel_err(x, r) <= 2e-2, bwd.__name__
+        again = bwd(dout, q, k, v, lse, delta, scale, mask)
+        same = [torch.equal(x, y) for x, y in zip(got, again)]
+        assert same[1:] == [True, True], bwd.__name__
+        assert same[0] or bwd is flash_bwd_cuda
     if offset is not None and offset < 0:  # dead rows get no gradient
         assert torch.all(got[0][:, :, :-offset] == 0)
 
@@ -401,13 +415,19 @@ def test_cuda_generate_matches_plain():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("causal,cap,alibi,d", [
-    (True, None, False, 128), (True, 20.0, True, 128), (False, 25.0, True, 64),
+@pytest.mark.parametrize("causal,cap,alibi,d,ll,hq,hkv", [
+    (True, None, False, 128, 200, 8, 2), (True, 20.0, True, 128, 200, 8, 2),
+    (False, 25.0, True, 64, 200, 8, 2),
+    # B8's tile edges (128 keys a block, 64 q rows a step), groups 8 and 1
+    (True, None, True, 128, 129, 32, 4), (True, 30.0, False, 64, 257, 8, 8),
+    (False, None, False, 128, 127, 8, 1), (True, 20.0, True, 64, 65, 8, 1),
 ])
-def test_fused_ring_kernels_match_plain_versions(causal, cap, alibi, d):
+def test_fused_ring_kernels_match_plain_versions(causal, cap, alibi, d, ll,
+                                                 hq, hkv):
     """B7 and B8 through ``fused_ring_attention`` (one process: a ring of
     one, first and last step at once) and through a rank's three steps with
-    the state carried, against their plain versions, bf16 inputs."""
+    the state carried, against their plain versions, bf16 inputs; B8's dk
+    and dv are the same bits over two runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
@@ -420,7 +440,6 @@ def test_fused_ring_kernels_match_plain_versions(causal, cap, alibi, d):
     def rnd(*s):
         return torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
 
-    hq, hkv, ll = 8, 2, 200
     slopes = (torch.tensor([2.0 ** (-i - 1) for i in range(hq)], device=dev)
               if alibi else None)
     kw = dict(scale=d ** -0.5, causal=causal, softcap=cap,
@@ -429,13 +448,16 @@ def test_fused_ring_kernels_match_plain_versions(causal, cap, alibi, d):
         rnd(1, hq, ll, d)
     before = fused_ring_fwd_cuda.launches, fused_ring_bwd_cuda.launches
     res = {}
-    for backend in (None, "plain"):
+    for backend in (None, "plain", "again"):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        out, lse = fr.fused_ring_attention(*leaves, backend=backend, **kw)
+        out, lse = fr.fused_ring_attention(
+            *leaves, backend=None if backend == "again" else backend, **kw)
         res[backend] = (out, lse, *torch.autograd.grad(out, leaves, dout))
     assert (fused_ring_fwd_cuda.launches, fused_ring_bwd_cuda.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 2, before[1] + 2)
     got, ref = res[None], res["plain"]
+    assert torch.equal(got[3], res["again"][3])  # dk
+    assert torch.equal(got[4], res["again"][4])  # dv
     # out and the gradients within 2e-2 of max|plain|, lse within 1e-3
     assert float((got[1] - ref[1]).abs().max()) <= 1e-3
     for a, b in zip((got[0], *got[2:]), (ref[0], *ref[2:])):

@@ -27,8 +27,9 @@ from ring_flash_attn_tpu.ops.pallas_bwd_fused import (
     fused_bwd_supported as jax_fused_bwd_supported)
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
 from ring_flash_attn_tpu_torch.ops.flash import (
-    block_bwd, block_fwd, compute_delta, flash_attention)
-from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import fused_bwd_supported
+    _kernel_layout, block_bwd, block_fwd, compute_delta, flash_attention)
+from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import (
+    fused_bwd_supported, tma_layout_error)
 from ring_flash_attn_tpu_torch.ops.mask import (
     NEG_INF, MaskArgs, check_kernel_supported)
 from ring_flash_attn_tpu_torch.ops.naive import (
@@ -195,6 +196,52 @@ def test_fused_bwd_supported_matches_jax(skv, d):
     """Same selector, same limit: the same shapes pick B2 or B3 in both
     packages (tests/test_ops.py::test_bwd_fused_gate_long_kv)."""
     assert fused_bwd_supported(skv, d) == jax_fused_bwd_supported(skv, d)
+
+
+def _bf16(*shape):
+    n = int(np.prod(shape))
+    return (torch.arange(n, dtype=torch.float32) % 251).to(
+        torch.bfloat16).reshape(shape)
+
+
+# (view, whether the kv-major backward's TMA maps read it in place): the
+# maps need a contiguous last dim, a 16-byte aligned base and, along dims
+# of more than one element, positive strides of multiples of 16 bytes
+TMA_LAYOUTS = {
+    "contiguous": (lambda: _bf16(2, 4, 64, 128), True),
+    "(B, S, H, D) transposed": (
+        lambda: _bf16(2, 64, 4, 128).transpose(1, 2), True),
+    "half shard along S": (lambda: _bf16(2, 4, 128, 64)[:, :, 64:], True),
+    "odd stride on a dim of one": (
+        lambda: _bf16(40000).as_strided((1, 4, 64, 128), (3, 8192, 128, 1)),
+        True),
+    "head expanded": (
+        lambda: _bf16(2, 1, 64, 128).expand(2, 4, 64, 128), False),
+    "rows of 136 bytes": (lambda: _bf16(2, 4, 64, 68)[..., :64], False),
+    "base 2 bytes off": (
+        lambda: _bf16(65536 + 8)[1:65537].view(2, 4, 64, 128), False),
+    "last dim strided": (lambda: _bf16(2, 4, 64, 256)[..., ::2], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TMA_LAYOUTS))
+def test_tma_layout_error_on_views(name):
+    make, readable = TMA_LAYOUTS[name]
+    err = tma_layout_error(make())
+    assert (err is None) == readable, err
+
+
+@pytest.mark.parametrize("name", sorted(TMA_LAYOUTS))
+def test_kernel_layout_gives_what_the_tma_maps_read(name):
+    """_kernel_layout keeps a view the maps read (and B1 takes) and copies
+    any other into a contiguous tensor of the same values."""
+    x = TMA_LAYOUTS[name][0]()
+    y = _kernel_layout(x)
+    assert tma_layout_error(y) is None
+    assert torch.equal(y, x)
+    kept = y.data_ptr() == x.data_ptr() and y.stride() == x.stride()
+    assert kept == (TMA_LAYOUTS[name][1] and not any(
+        st % 8 for st in x.stride()[:-1]))
 
 
 @pytest.mark.parametrize("case", ["causal", "gqa_noncausal", "dead_rows"])
