@@ -10,8 +10,11 @@ Phases, each of which raises on failure:
 1. Environment (torch, CUDA, nvcc, triton, the card's name and power limit)
    and the build of every ``csrc/*.cu`` with nvcc for sm_90a.
 2. Kernel B1 (flash forward) against its plain version in bf16, at the
-   serving and training paths' shapes among others, then timed at the
-   causal S=8192 shape beside its flop bound and
+   serving and training paths' shapes among others and at the forward
+   loop's tile edges (Sq and Skv 1 to 257, head_dim 64 and 128, GQA groups
+   1 to 8, fp32 and bf16 out, whole q tiles without a key); the HGMMA
+   count of each instantiation of the loop (none may be 0); then timed at
+   the causal S=8192 shape beside its flop bound and
    ``F.scaled_dot_product_attention`` (timed only, never used by the port).
 3. Kernel B5 (paged decode) against its plain version: 8 lanes of ragged
    lengths over shuffled block tables, plain, with softcap, and with
@@ -61,9 +64,11 @@ Phases, each of which raises on failure:
 10. Kernels B7 and B8 (the fused ring's forward and backward steps) against
    their plain versions, step by step with the state carried over: diagonal
    and off-diagonal steps, ALiBi on global positions, softcap, non-causal,
-   D 64 and 128, group 1, 4 and 8, ragged lengths at B8's tile edges, and
-   the headline shape (8192 tokens a rank at 32/8 heads) on its last 512 q
-   rows; B8's dk/dv bitwise reproducible, HGMMA in its SASS; both timed at
+   D 64 and 128, group 1, 4 and 8, ragged lengths at B8's and at the
+   forward loop's tile edges (every pair of B7's first and last flags, with
+   and without softcap/ALiBi), and the headline shape (8192 tokens a rank
+   at 32/8 heads) on its last 512 q rows; B8's dk/dv bitwise reproducible,
+   HGMMA in both kernels' SASS; both timed at
    the headline step beside their flop bounds and
    ``F.scaled_dot_product_attention`` (timed only).
 11. The W-rank fused ring on one card: one process holds the shards of all
@@ -126,12 +131,56 @@ RING_LSE_TOL = 1e-2
 # pass any value at all. Causal rows near the start of the sequence are O(1)
 # and would hide the late rows behind their maximum, so the sequence is cut
 # into parts (a rank's shard each) and the worst part counts. One bf16 ulp
-# of out is at most 7.8e-3 of its value
+# of out is at most 7.8e-3 of its value. B1's out is held to it as well,
+# row by row (``rel_err_rows``), beside its absolute B1_OUT_TOL
 RING_OUT_REL_TOL = 2e-2
 LOSS_TOL = 1e-2  # |loss kernels - loss plain|, 4 bf16 layers
 GRAD_REL_TOL = 5e-2  # ||g kernels - g plain|| / ||g plain|| per parameter
 FULL_WIDTH = dict(vocab=32000, dim=4096, layers=4, heads=32, kv_heads=8,
                   head_dim=128, mlp_dim=14336, dtype="bfloat16")
+
+# the forward loop's tile edges (128 q rows a block, 128 keys a tile), held
+# here (phases 2 and 10) and in tests/test_torch_cuda.py. B1: (B, Hq, Hkv,
+# Sq, Skv, D, causal, offset, out dtype): Sq and Skv in {1, 127, 128, 129,
+# 255, 257}, both head dims, GQA groups 1 to 8, fp32 and bf16 out, and
+# offsets that leave whole q tiles without a key (their blocks load nothing
+# and write (0, NEG_INF))
+B1_EDGE_CASES = [
+    (1, 4, 2, 1, 1, 128, True, 0, "bfloat16"),
+    (1, 4, 1, 127, 127, 64, True, 0, "float32"),
+    (1, 8, 2, 128, 128, 128, True, 0, "bfloat16"),
+    (2, 4, 4, 129, 129, 64, False, None, "float32"),
+    (1, 8, 8, 255, 257, 128, True, 2, "bfloat16"),
+    (1, 8, 2, 257, 255, 64, True, -2, "float32"),
+    (1, 4, 2, 257, 1, 128, False, None, "bfloat16"),
+    (1, 4, 2, 1, 257, 64, True, 256, "float32"),
+    (1, 4, 2, 257, 129, 128, True, -200, "float32"),
+    (1, 4, 2, 300, 128, 64, True, -256, "bfloat16"),
+    (1, 8, 1, 129, 255, 128, False, None, "float32"),
+    (1, 2, 1, 128, 257, 64, True, 129, "bfloat16"),
+]
+# B7: (Hq, Hkv, Sq, Skv, D, causal, softcap, ALiBi, steps), the steps of the
+# last rank of a ring of ``steps`` (``ring_steps``): one step is first and
+# last at once; three give (first, not last), (neither), (last, not first)
+B7_EDGE_CASES = [
+    (4, 2, 1, 1, 128, True, None, False, 1),
+    (8, 2, 127, 129, 64, True, None, False, 3),
+    (8, 8, 128, 128, 128, False, None, False, 3),
+    (8, 1, 129, 127, 128, True, 20.0, True, 3),
+    (4, 2, 255, 257, 64, False, 30.0, True, 1),
+    (8, 2, 257, 255, 128, True, None, True, 3),
+    (4, 4, 1, 257, 64, True, 25.0, False, 3),
+    (8, 2, 257, 1, 128, False, None, False, 3),
+]
+
+
+def ring_steps(n, skv, causal):
+    """The fused-ring steps of the last rank of a ring of ``n``, shards of
+    ``skv`` keys: the diagonal (if causal) first, then the earlier
+    shards."""
+    rank = n - 1
+    return [dict(diagonal=causal and i == 0, q_pos0=rank * skv,
+                 kv_pos0=(rank - i) * skv) for i in range(n)]
 
 
 def log(*a):
@@ -237,6 +286,15 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def rel_err_rows(a, ref):
+    """The worst over rows (every index but the last) of max|a - ref| /
+    max|ref| within the row: a row of many keys, whose |out| is 1e-2, is
+    judged on its own scale; a row whose ref is all zero (no key) must be
+    zero."""
+    err = (a.float() - ref.float()).abs().amax(-1)
+    return float((err / ref.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
 # each kernel's instantiation at the timed shape (head_dim 128): its library
 # (csrc/<lib>.cu) and a piece of its mangled name; the largest over the
 # instantiations that match where a kernel has several (B4, B5, B6, B7)
@@ -307,19 +365,70 @@ def hgmma_counts(path, piece):
             if piece in func.split("\n")[0]}
 
 
-def check_hgmma(what, lib):
-    """Log and check the HGMMA count of each instantiation of the
-    kv-major backward loop in csrc/<lib>.cu: the loop runs on wgmma."""
+def check_hgmma(what, lib, piece):
+    """Log and check the HGMMA count of each instantiation of a tile loop
+    (kernels whose mangled name holds ``piece``: ``flash_fwd_kernel``, the
+    forward loop, or ``bwd_kv_kernel``, the kv-major backward loop) in
+    csrc/<lib>.cu: the loop runs on wgmma."""
     from ring_flash_attn_tpu_torch.ops import _build
 
-    counts = hgmma_counts(_build.build_all()[lib], "bwd_kv_kernel")
-    log(f"  {what}: HGMMA in the SASS of bwd_kv_kernel " + ", ".join(
-        f"{'D=128' if 'ILi128' in n else 'D=64'} {c}"
-        for n, c in sorted(counts.items())))
+    def label(name):  # head_dim, and the forward's softcap/ALiBi build
+        xform = piece == "flash_fwd_kernel" and "ELb1ELb1E" in name
+        return ("D=128" if "ILi128" in name else "D=64") + (
+            " XFORM" if xform else "")
+
+    counts = hgmma_counts(_build.build_all()[lib], piece)
+    log(f"  {what}: HGMMA in the SASS of {piece} " + ", ".join(
+        f"{label(n)} {c}" for n, c in sorted(counts.items())))
     if not counts or min(counts.values()) == 0:
         raise AssertionError(f"{what}: an instantiation of the loop has no "
                              f"HGMMA: {counts}")
     return counts
+
+
+def profile_loop(tool, loop, piece, timings):
+    """The command line of profile_torch_fwd.py and profile_torch_bwd.py:
+    ``[--root DIR] [--rounds N]``. Imports the package from ``--root``,
+    builds it, logs the card, then ptxas's facts, its wgmma/setmaxnreg
+    notes and the HGMMA count of every kernel whose name holds ``piece`` in
+    the libraries of ``loop`` (INSTANTIATIONS names), then runs
+    ``timings(torch, rounds)``. Returns the exit code."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog=tool)
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"{tool}: CUDA is not available", file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)  # ahead of this checkout
+    from ring_flash_attn_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"card: {smi}; tree {root}")
+    paths = _build.build_all()
+    for name in loop:
+        lib = INSTANTIATIONS[name][0]
+        facts = ptxas_facts(paths[lib][:-3] + ".log")
+        for fn, f in sorted(facts.items()):
+            if piece in fn:
+                log(f"  ptxas {name} {fn[:48]}: {f}")
+        with open(paths[lib][:-3] + ".log") as f:
+            for line in f:
+                if "wgmma" in line or "setmaxnreg" in line:
+                    log(f"  ptxas {name} note: {line.strip()[:200]}")
+        for fn, n in sorted(hgmma_counts(paths[lib], piece).items()):
+            log(f"  SASS {name} {fn[:48]}: {n} HGMMA")
+    timings(torch, args.rounds)
+    return 0
 
 
 def phase_env(torch):
@@ -362,6 +471,7 @@ def phase_b1(torch, flush):
     from ring_flash_attn_tpu_torch.ops.naive import naive_block_fwd
 
     log("== phase 2: kernel B1 (flash forward) vs its plain version")
+    check_hgmma("B1", "flash_fwd", "flash_fwd_kernel")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -370,6 +480,12 @@ def phase_b1(torch, flush):
             return torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
         return rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, d)
 
+    edges = [
+        (f"edge B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+         f"causal={causal} offset={off} {odt} out",
+         (b, hq, hkv, sq, skv, d), MaskArgs(causal=causal, offset=off),
+         getattr(torch, odt))
+        for b, hq, hkv, sq, skv, d, causal, off, odt in B1_EDGE_CASES]
     cases = [
         ("causal 4096", (1, 32, 8, 4096, 4096), MaskArgs(causal=True),
          torch.bfloat16),
@@ -385,6 +501,7 @@ def phase_b1(torch, flush):
          MaskArgs(causal=True, offset=2048), torch.bfloat16),
         ("ragged, dead rows: offset=-5, f32 out", (1, 4, 2, 100, 70),
          MaskArgs(causal=True, offset=-5), torch.float32),
+        *edges,  # B1_EDGE_CASES, the loop's tile edges
         # the training path's long step, its last 512 q rows over all
         # 36864 keys (the plain version's fp32 scores of the full
         # sequence would not fit)
@@ -398,7 +515,7 @@ def phase_b1(torch, flush):
         ("training causal 8192", (1, 32, 8, 8192, 8192),
          MaskArgs(causal=True), torch.bfloat16),
     ]
-    worst = 0.0
+    worst = [0.0, 0.0]
     for name, shape, mask, odt in cases:
         q, k, v = inputs(*shape)
         scale = q.shape[-1] ** -0.5
@@ -406,11 +523,14 @@ def phase_b1(torch, flush):
         ref_out, ref_lse = naive_block_fwd(q, k, v, scale, mask)
         torch.cuda.synchronize()
         eo, el = max_err(out, ref_out), max_err(lse, ref_lse)
-        log(f"  {name}: max|out| err {eo:.3e} (tol {B1_OUT_TOL}), "
-            f"max|lse| err {el:.3e} (tol {B1_LSE_TOL})")
-        if not (eo <= B1_OUT_TOL and el <= B1_LSE_TOL):
+        ro = rel_err_rows(out, ref_out)
+        log(f"  {name}: max|out| err {eo:.3e} (tol {B1_OUT_TOL}), of its "
+            f"row's max|plain| {ro:.3e} (tol {RING_OUT_REL_TOL}), max|lse| "
+            f"err {el:.3e} (tol {B1_LSE_TOL})")
+        if not (eo <= B1_OUT_TOL and ro <= RING_OUT_REL_TOL
+                and el <= B1_LSE_TOL):
             raise AssertionError(f"B1 disagrees with its plain version: {name}")
-        worst = max(worst, eo)
+        worst = [max(worst[0], eo), max(worst[1], ro)]
         del out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
 
@@ -441,8 +561,9 @@ def phase_b1(torch, flush):
         "source": "ring_flash_attn_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ring_flash_attn_tpu/ops/pallas_fwd.py:161",
         "shape": "q (1,32,8192,128) kv (1,8,8192,128) bf16 causal",
-        "max_abs_err": worst, **t, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms,
+        "max_abs_err": worst[0], "max_rel_err": worst[1], **t,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "operations",
+        "library_ms": lib_ms,
     }
 
 
@@ -768,8 +889,8 @@ def phase_bwd(torch, flush):
                                              f"gradient")
                 del got
 
-    check_hgmma("B2", "flash_bwd")
-    check_hgmma("B3b", "flash_bwd_split")
+    check_hgmma("B2", "flash_bwd", "bwd_kv_kernel")
+    check_hgmma("B3b", "flash_bwd_split", "bwd_kv_kernel")
     causal = MaskArgs(causal=True)
     cases = [
         ("causal 4096", (1, 32, 8, 4096, 4096), causal, 128),
@@ -1507,7 +1628,8 @@ def phase_fused_ring(torch, flush):
 
     log("== phase 10: kernels B7, B8 (fused ring steps) vs their plain "
         "versions")
-    check_hgmma("B8", "fused_ring_bwd")
+    check_hgmma("B7", "fused_ring_fwd", "flash_fwd_kernel")
+    check_hgmma("B8", "fused_ring_bwd", "bwd_kv_kernel")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(10)
     bf16 = torch.bfloat16
@@ -1625,6 +1747,13 @@ def phase_fused_ring(torch, flush):
              8, 2, 65, 255, 128,
              [dict(diag, q_pos0=255, kv_pos0=255), off(255, 0)], cap=20.0,
              alibi=True, q_row0=190)
+    # the forward loop's tile edges (B7_EDGE_CASES): every pair of the
+    # first and last flags, with and without softcap/ALiBi (XFORM)
+    for hq, hkv, sq, skv, d, causal, cap, alibi, n in B7_EDGE_CASES:
+        run_case(f"fwd edge Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+                 f"causal={causal} softcap={cap} ALiBi={alibi}, {n} steps",
+                 1, hq, hkv, sq, skv, d, ring_steps(n, skv, causal),
+                 causal=causal, cap=cap, alibi=alibi)
     # the headline shape: a diagonal and an earlier shard, plain on the last
     # 512 q rows (its fp32 scores of all 8192 would take tens of GB)
     ll, hq, hkv, d = 8192, 32, 8, 128

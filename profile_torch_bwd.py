@@ -28,17 +28,14 @@ The loop's correctness is ``chip_smoke.py``'s (phases 5, 10 to 12) and
 first.
 """
 
-import argparse
 import collections
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    H100_BF16_FLOPS, INSTANTIATIONS, cuda_ms, hgmma_counts, log,
-    ptxas_facts)
+    H100_BF16_FLOPS, cuda_ms, log, profile_loop)
 
 LOOP = ("B2 flash_bwd", "B3b flash_bwd_dkv", "B8 fused_ring_bwd")
 
@@ -126,42 +123,6 @@ def timings(torch, rounds):
     return {name: min(ts) for name, ts in times.items()}
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=ROOT)
-    ap.add_argument("--rounds", type=int, default=2)
-    args = ap.parse_args()
-    import torch
-
-    if not torch.cuda.is_available():
-        print("profile_torch_bwd: CUDA is not available", file=sys.stderr)
-        return 1
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)  # ahead of this checkout
-    from ring_flash_attn_tpu_torch.ops import _build
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    log(f"card: {smi}; tree {root}")
-    paths = _build.build_all()
-    for name in LOOP:
-        lib = INSTANTIATIONS[name][0]
-        facts = ptxas_facts(paths[lib][:-3] + ".log")
-        for fn, f in sorted(facts.items()):
-            if "bwd_kv_kernel" in fn:
-                log(f"  ptxas {name} {fn[:48]}: {f}")
-        with open(paths[lib][:-3] + ".log") as f:
-            for line in f:
-                if "wgmma" in line or "setmaxnreg" in line:
-                    log(f"  ptxas {name} note: {line.strip()[:200]}")
-        for fn, n in sorted(hgmma_counts(paths[lib], "bwd_kv_kernel").items()):
-            log(f"  SASS {name} {fn[:48]}: {n} HGMMA")
-    timings(torch, args.rounds)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_loop("profile_torch_bwd.py", LOOP, "bwd_kv_kernel",
+                          timings))

@@ -18,10 +18,12 @@ CUDA tensors. A non-default ``window_size`` or ``dropout_p`` raises
 ``NotImplementedError`` until its slice ports it. The stripe and varlen
 entry points are not ported yet (see ROADMAP.md).
 
-``deterministic=True`` asks for the split backward kernels B3a/B3b, which
-are bitwise reproducible; the default fused kernel B2 sums dq by reduce-adds
-whose order varies from run to run (the JAX package accepts the flag and
-ignores it: every path there is deterministic).
+``deterministic=True`` asks every entry point here, the ring and zigzag
+ones included, for the split backward kernels B3a/B3b, which are bitwise
+reproducible; the default fused kernel B2 sums dq by reduce-adds whose
+order varies from run to run (the JAX package accepts the flag and ignores
+it: every path there is deterministic). On the CPU the plain backward is
+deterministic either way.
 """
 
 from .ops.flash import flash_attention
@@ -113,6 +115,7 @@ def _batch_variant(kind):
                 softcap=_cap(softcap), alibi_slopes=alibi_slopes,
                 dropout_p=dropout_p or None, dropout_seed=dropout_seed,
                 window_left=window_left, window_right=window_right,
+                deterministic=deterministic,
             )
         else:
             if not causal:
@@ -125,15 +128,16 @@ def _batch_variant(kind):
                 qi, ki, vi, scale=scale, group=group,
                 softcap=_cap(softcap), alibi_slopes=alibi_slopes,
                 dropout_p=dropout_p or None, dropout_seed=dropout_seed,
-                window_left=window_left,
+                window_left=window_left, deterministic=deterministic,
             )
         return _ret(out, lse, return_attn_probs)
 
     func.__doc__ = (
         f"{kind} attention over ``group``, per process: q (B, S_local, Hq, "
         f"D), k and v (B, S_local, Hkv, D) in the schedule's layout; "
-        f"returns as ``flash_attn_func``. ``deterministic`` is accepted "
-        f"and ignored, as in the JAX package.")
+        f"returns as ``flash_attn_func``. ``deterministic=True`` runs "
+        f"every step's backward on the bitwise reproducible split kernels "
+        f"B3a/B3b on the card, as ``flash_attn_func`` does.")
     return func
 
 

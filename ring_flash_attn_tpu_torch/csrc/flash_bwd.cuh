@@ -157,17 +157,6 @@ __device__ __forceinline__ void kv_accumulate(float (&acc)[D / 2],
   }
 }
 
-// The m64nN accumulator of a warpgroup as A fragments of 16 columns each:
-// fragment kc holds columns [16 kc, 16 kc + 16) in bf16.
-__device__ __forceinline__ void pack_fragments(uint32_t (&a)[4][4],
-                                               const float (&x)[32]) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kc][r] = rfa::pack_bf16(x[8 * kc + 2 * r], x[8 * kc + 2 * r + 1]);
-}
-
 template <int D, bool DQ, bool RING>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 bwd_kv_kernel(const __grid_constant__ Maps maps,
@@ -370,7 +359,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
 
       // dV += P^T dout
       uint32_t pa[4][4];
-      pack_fragments(pa, sc);
+      hop::pack_fragments(pa, sc);
       hop::wgmma_fence();
       kv_accumulate<D>(dv_acc, pa, dot);
       hop::wgmma_commit();
@@ -389,7 +378,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         dpt[i] = sc[i] * (dpt[i] - dls[(i / 4) * 8 + tq * 2 + i % 2]) *
                  ds_scale;
       uint32_t da[4][4];
-      pack_fragments(da, dpt);
+      hop::pack_fragments(da, dpt);
       if constexpr (DQ) {
         // dS^T to shared memory, [key][q row] in the swizzled panel layout
         // (fragment kc, register r: key row g + 8 (r % 2), q columns 16 kc

@@ -10,17 +10,21 @@
 // What bounds it on the H100: tensor-core operations. A causal call does
 // 2 * 2 * B * Hq * Sq * Skv * D / 2 flops on inputs of a few MB, far above
 // the ~295 flop/byte ridge of bf16, so the bound is the 989 TFLOP/s dense
-// bf16 rate. This first version is the simple FlashAttention-2 shape; its
-// tile loop is csrc/flash_fwd.cuh (which says how it is laid out), shared
-// with kernel B7, the ring step of csrc/fused_ring_fwd.cu. The scale stays
-// in fp32 (the Pallas wrapper folds scale * log2 e into bf16 k instead).
-//
-// wgmma, TMA and warp specialisation are the next steps for this kernel.
+// bf16 rate (0.556 ms at q (1, 32, 8192, 128), kv (1, 8, 8192, 128)
+// causal). The tile loop is csrc/flash_fwd.cuh's, shared with kernel B7,
+// the ring step of csrc/fused_ring_fwd.cu: the FlashAttention-3 shape, a
+// TMA producer warpgroup feeding two wgmma consumer warpgroups over
+// 128-row q tiles that overlap their softmax with their products and take
+// turns to issue them; its measured time is in that header and in
+// PERF.md. The scale stays in fp32 (the Pallas wrapper folds scale * log2 e
+// into bf16 k instead).
 
 #include "flash_fwd.cuh"
 
-// strides: q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s in elements; the
-// last dimension of q, k and v is contiguous. Returns cudaGetLastError().
+// strides: q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s in elements,
+// 16-byte multiples; the last dimension of q, k and v is contiguous and
+// every base 16-byte aligned (the TMA maps' terms). Returns 0 or a
+// cudaError_t.
 extern "C" int rfa_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int Hq, int Hkv,
                              int Sq, int Skv, int D, const long long* strides,

@@ -38,14 +38,17 @@
 // at the headline shape (q (1, 32, 8192, 128), kv (1, 8, 8192, 128)) is
 // 4 * B * Hq * L^2 * D = 1.10e12 flops, 1.11 ms at 989 TFLOP/s, a diagonal
 // step half of that; the state's 2 * 134 MB of fp32 acc traffic is 0.08 ms
-// at 3.35 TB/s. The tile loop is B1's (csrc/flash_fwd.cuh) with the ring
-// additions compiled in.
+// at 3.35 TB/s. The tile loop is B1's (csrc/flash_fwd.cuh: TMA producer,
+// wgmma consumers on 128-row q tiles) with the ring additions compiled in;
+// the state joins in the epilogue, so the loop is B1's to the instruction.
+// That step's measured time is in flash_fwd.cuh's header and PERF.md.
 
 #include "flash_fwd.cuh"
 
-// strides: q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s in elements. out and
-// lse are written only when `last`; m, l, acc are read unless `first` and
-// written unless `last`. slopes may be null. Returns cudaGetLastError().
+// strides: q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s in elements, on the
+// TMA maps' terms as B1's. out and lse are written only when `last`; m, l,
+// acc are read unless `first` and written unless `last`. slopes may be
+// null. Returns 0 or a cudaError_t.
 extern "C" int rfa_fused_ring_fwd(
     const void* q, const void* k, const void* v, float* m, float* l,
     float* acc, const float* slopes, void* out, float* lse, int B, int Hq,

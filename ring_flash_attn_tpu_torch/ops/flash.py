@@ -14,10 +14,9 @@ Layout is (B, H, S, D).
 import torch
 
 from ..config import use_kernel
-from .flash_bwd_cuda import (
-    flash_bwd_cuda, fused_bwd_supported, tma_layout_error)
+from .flash_bwd_cuda import flash_bwd_cuda, fused_bwd_supported
 from .flash_bwd_split_cuda import flash_bwd_split_cuda
-from .flash_fwd_cuda import flash_fwd_cuda
+from .flash_fwd_cuda import flash_fwd_cuda, tma_layout_error
 from .mask import MaskArgs
 from .naive import naive_block_bwd, naive_block_fwd
 
@@ -25,8 +24,11 @@ from .naive import naive_block_bwd, naive_block_fwd
 def block_fwd(q, k, v, scale, mask: MaskArgs, backend=None, out_dtype=None):
     """One attention block: returns (out (B,Hq,Sq,D), lse f32 (B,Hq,Sq)).
 
-    out is fp32 (the mergeable contract) unless out_dtype narrows it."""
+    out is fp32 (the mergeable contract) unless out_dtype narrows it. On
+    the card q, k and v go to B1 in a layout its TMA maps read
+    (``_kernel_layout``: the views every caller passes are kept)."""
     if use_kernel(q, backend):
+        q, k, v = map(_kernel_layout, (q, k, v))
         return flash_fwd_cuda(q, k, v, scale, mask,
                               out_dtype=out_dtype or torch.float32)
     out, lse = naive_block_fwd(q, k, v, scale, mask)
@@ -71,12 +73,10 @@ def compute_delta(dout, out):
 
 
 def _kernel_layout(x):
-    """x itself if the kernels take its layout (last dim contiguous, other
-    strides multiples of 8, 16-byte aligned, and what the backward's TMA
-    maps read: ``tma_layout_error``), else a contiguous copy. An incoming
-    gradient may be an expanded or sliced view."""
-    if (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:-1])
-            and x.data_ptr() % 16 == 0 and tma_layout_error(x) is None):
+    """x itself if the kernels' TMA maps read its layout
+    (``tma_layout_error``), else a contiguous copy. An incoming gradient
+    may be an expanded or sliced view."""
+    if tma_layout_error(x) is None:
         return x
     return x.clone(memory_format=torch.contiguous_format)
 

@@ -10,7 +10,8 @@ their design answers that.
 This module also holds what B2 and B3a/B3b share: the operand checks, the
 delta pre-pass launcher and the selector between them,
 ``fused_bwd_supported``. The kv-major loop of B2, B3b and B8 reads q, k, v
-and dout through TMA tensor maps, whose terms ``tma_layout_error`` states.
+and dout through TMA tensor maps, whose terms ``tma_layout_error``
+(``flash_fwd_cuda``) states.
 """
 
 import ctypes
@@ -25,7 +26,6 @@ from .mask import MaskArgs, causal_offset, check_kernel_supported
 # TPU's VMEM budget for a head's resident fp32 dk/dv, not a Hopper limit.
 # Kept so that the same shapes pick the same kernel in both packages.
 FUSED_MAX_KV_BYTES = 32 * 1024 * 1024
-TMA_MAX_STRIDE = 2**40  # bytes: the limit on a TMA tensor map's strides
 
 _STRIDES = ctypes.c_longlong * 12
 _DELTA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
@@ -42,35 +42,6 @@ _OUT_DTYPES = (None, torch.float32, torch.bfloat16)
 def fused_bwd_supported(skv, d):
     """True when the fused backward (B2) takes Skv keys of head_dim d."""
     return 2 * skv * d * 4 <= FUSED_MAX_KV_BYTES
-
-
-def tma_layout_error(x):
-    """Why the kv-major loop's TMA tensor maps cannot read the (B, H, S, D)
-    tensor x in place, or None. A map needs the last dim contiguous, a
-    16-byte aligned base, and along every other dim of more than one
-    element a positive stride that is a multiple of 16 bytes below 2^40 (a
-    dim of one element is never stepped along, so its stride is free).
-    Views of a shard along S, like the zigzag ring's halves, keep their
-    parent's strides and pass."""
-    if x.stride(-1) != 1:
-        return f"the last dim is not contiguous (strides {x.stride()})"
-    if x.data_ptr() % 16:
-        return "the base address is not 16-byte aligned"
-    for n, st in zip(x.shape[:-1], x.stride()[:-1]):
-        nbytes = st * x.element_size()
-        if n > 1 and not (0 < nbytes < TMA_MAX_STRIDE and nbytes % 16 == 0):
-            return (f"a stride of {nbytes} bytes along a dim of {n} is not a "
-                    f"positive multiple of 16 below 2^40 (strides "
-                    f"{x.stride()})")
-    return None
-
-
-def check_tma_operands(**tensors):
-    """Raise ValueError for an operand the TMA tensor maps cannot read."""
-    for name, x in tensors.items():
-        err = tma_layout_error(x)
-        if err:
-            raise ValueError(f"{name}: {err}")
 
 
 def _lib():
@@ -108,7 +79,6 @@ def check_bwd(dout, q, k, v, lse, delta, mask: MaskArgs, out, dtypes):
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must match q "
                          f"{tuple(q.shape)}")
-    check_tma_operands(q=q, k=k, v=v, dout=dout)
     _check_rows("lse", lse, (b, hq, sq), dev)
     if delta is None:
         if out is None:

@@ -165,9 +165,13 @@ def new_state(qs):
 def fwd_step(qs, k, v, state, *, backend=None, **kw):
     """One forward ring step on the resident (k, v); ``state`` = (m, l,
     acc) is updated in place. Returns (out, lse) from the step given
-    ``last=True``, else None. Keywords as ``fused_ring_fwd_cuda``."""
-    step = fused_ring_fwd_cuda if use_kernel(qs, backend) else _plain_fwd_step
-    return step(qs, k, v, *state, **kw)
+    ``last=True``, else None. Keywords as ``fused_ring_fwd_cuda``; on the
+    card qs, k and v go to B7 in a layout its TMA maps read
+    (``_kernel_layout``)."""
+    if use_kernel(qs, backend):
+        qs, k, v = map(_kernel_layout, (qs, k, v))
+        return fused_ring_fwd_cuda(qs, k, v, *state, **kw)
+    return _plain_fwd_step(qs, k, v, *state, **kw)
 
 
 def bwd_step(qs, k, vs, dout, lse2, delta, dq, dk, dv, *, backend=None, **kw):

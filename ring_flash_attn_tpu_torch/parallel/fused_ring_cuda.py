@@ -14,9 +14,8 @@ import ctypes
 import torch
 
 from ..ops import _build
-from ..ops.flash_bwd_cuda import (
-    _check_rows, bwd_strides, check_tma_operands)
-from ..ops.flash_fwd_cuda import _check_operand, check_qkv
+from ..ops.flash_bwd_cuda import _check_rows, bwd_strides
+from ..ops.flash_fwd_cuda import _check_operand, check_q_tiles, check_qkv
 
 # rfa_fused_ring_fwd(q, k, v, m, l, acc, slopes, out, lse, B, Hq, Hkv, Sq,
 #                    Skv, D, strides, diagonal, q_row0, cap2, q_pos0, kv_pos0,
@@ -87,6 +86,7 @@ def fused_ring_fwd_cuda(qs, k, v, m, l, acc, *, diagonal, first, last,
     _check_rows("m", m, (b, hq, sq), dev)
     _check_rows("l", l, (b, hq, sq), dev)
     _check_rows("acc", acc, (b, hq, sq, d), dev)
+    check_q_tiles(sq)
     row0, qp, kp = _positions(q_row0, q_pos0, kv_pos0, sq, skv)
     out = lse = None
     if last:
@@ -127,7 +127,6 @@ def fused_ring_bwd_cuda(qs, k, vs, dout, lse2, delta, dq, dk, dv, *, diagonal,
     if dout.shape != qs.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must match q "
                          f"{tuple(qs.shape)}")
-    check_tma_operands(q=qs, k=k, v=vs, dout=dout)
     _check_rows("lse2", lse2, (b, hq, sq), dev)
     _check_rows("delta", delta, (b, hq, sq), dev)
     _check_rows("dq", dq, (b, hq, sq, d), dev)

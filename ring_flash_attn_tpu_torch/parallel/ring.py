@@ -70,8 +70,9 @@ def _ring_fwd(q, k, v, scale, causal, group, backend, extras):
 
 
 def _ring_bwd(q, k, v, out, lse, dout, scale, causal, group, backend,
-              extras):
-    """(dq, dk, dv) fp32 of this rank's shards."""
+              extras, deterministic=False):
+    """(dq, dk, dv) fp32 of this rank's shards. ``deterministic`` asks
+    ``block_bwd`` for the bitwise reproducible split kernels."""
     w = ring_size(group)
     rank = ring_rank(group)
     l_kv = k.shape[2]
@@ -86,8 +87,9 @@ def _ring_bwd(q, k, v, out, lse, dout, scale, causal, group, backend,
             kv.start()
         if not causal or step <= rank:
             mask = _step_mask(step, rank, w, l_kv, causal, extras)
-            b_dq, b_dk, b_dv = block_bwd(dout, q, kv.value[0], kv.value[1],
-                                         lse, delta, scale, mask, backend)
+            b_dq, b_dk, b_dv = block_bwd(
+                dout, q, kv.value[0], kv.value[1], lse, delta, scale, mask,
+                backend, fused=False if deterministic else None)
             b_dkv = torch.stack([b_dk, b_dv])
             dq = b_dq if dq is None else dq.add_(b_dq)
             if dkv is None:  # step 0, which every rank computes
@@ -110,38 +112,43 @@ def check_ring_options(name, **unported):
 
 class _RingAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, group, backend, extras):
+    def forward(ctx, q, k, v, scale, causal, group, backend, extras,
+                deterministic):
         out, lse = _ring_fwd(q, k, v, scale, causal, group, backend, extras)
         out = out.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
-        ctx.args = (scale, causal, group, backend, extras)
+        ctx.args = (scale, causal, group, backend, extras, deterministic)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):  # no gradient path through lse
         q, k, v, out, lse = ctx.saved_tensors
-        scale, causal, group, backend, extras = ctx.args
+        scale, causal, group, backend, extras, deterministic = ctx.args
         if use_kernel(q, backend):
             dout = _kernel_layout(dout)
         dq, dk, dv = _ring_bwd(q, k, v, out, lse, dout, scale, causal,
-                               group, backend, extras)
+                               group, backend, extras, deterministic)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 def ring_attention(q, k, v, *, scale, causal, group=None, backend=None,
                    softcap=None, alibi_slopes=None, dropout_p=None,
-                   dropout_seed=None, window_left=None, window_right=None):
+                   dropout_seed=None, window_left=None, window_right=None,
+                   deterministic=False):
     """Differentiable basic ring attention on per-process (B, H, S, D)
     tensors, q/k/v sharded contiguously along S over ``group``. Returns
-    (out in q.dtype, lse fp32 (B, H, S)); lse carries no gradient."""
+    (out in q.dtype, lse fp32 (B, H, S)); lse carries no gradient.
+    ``deterministic=True`` runs the backward's steps on the bitwise
+    reproducible split kernels B3a/B3b on the card (``block_bwd``'s
+    ``fused=False``)."""
     check_ring_options("ring_attention", dropout_p=dropout_p,
                        window_left=window_left is not None,
                        window_right=window_right is not None)
     extras = dict(softcap=softcap, alibi_slopes=alibi_slopes)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _RingAttention.apply(q, k, v, scale, causal, group, backend,
-                                    extras)
+                                    extras, deterministic)
     out, lse = _ring_fwd(q, k, v, scale, causal, group, backend, extras)
     return out.to(q.dtype), lse

@@ -24,9 +24,10 @@ versions only: on CUDA tensors the block kernels raise
 raise.
 
 The half slices are views. The block kernels take them as they are where
-their layout allows (last dim contiguous, 16-byte aligned); the fp32 row
-vectors lse and delta must be contiguous for the kernels and are copied
-then, and only then.
+their TMA maps read them (``_kernel_layout``, which ``block_fwd`` applies
+and the backward calls), as they do every half this schedule makes; the
+fp32 row vectors lse and delta must be contiguous for the kernels and are
+copied then, and only then.
 """
 
 import torch
@@ -43,7 +44,6 @@ def _zigzag_fwd(q, k, v, scale, group, backend, extras):
     w = ring_size(group)
     rank = ring_rank(group)
     half = q.shape[2] // 2
-    kernel = use_kernel(q, backend)
     plain = MaskArgs(**extras)
     kv = RingBuffer(torch.stack([k, v]) if w > 1 else (k, v), group)
     out = lse = None
@@ -59,18 +59,14 @@ def _zigzag_fwd(q, k, v, scale, group, backend, extras):
         elif step <= rank:
             # kv of an earlier rank: its first half lies before every local
             # token, its second half after
-            kk, vv = kk[:, :, :half], vv[:, :, :half]
-            if kernel:
-                kk, vv = _kernel_layout(kk), _kernel_layout(vv)
-            b_out, b_lse = block_fwd(q, kk, vv, scale, plain, backend)
+            b_out, b_lse = block_fwd(q, kk[:, :, :half], vv[:, :, :half],
+                                     scale, plain, backend)
             out, lse = merge_partials(out, lse, b_out, b_lse)
         else:
             # kv of a later rank: only the second half of q (chunk 2W-1-r,
             # after every received position) attends, to all of it
-            q1 = q[:, :, half:]
-            if kernel:
-                q1 = _kernel_layout(q1)
-            b_out, b_lse = block_fwd(q1, kk, vv, scale, plain, backend)
+            b_out, b_lse = block_fwd(q[:, :, half:], kk, vv, scale, plain,
+                                     backend)
             m_out, m_lse = merge_partials(out[:, :, half:], lse[:, :, half:],
                                           b_out, b_lse)
             out[:, :, half:] = m_out
@@ -79,13 +75,16 @@ def _zigzag_fwd(q, k, v, scale, group, backend, extras):
     return out, lse
 
 
-def _zigzag_bwd(q, k, v, out, lse, dout, scale, group, backend, extras):
-    """(dq, dk, dv) fp32 of this rank's shards."""
+def _zigzag_bwd(q, k, v, out, lse, dout, scale, group, backend, extras,
+                deterministic=False):
+    """(dq, dk, dv) fp32 of this rank's shards. ``deterministic`` asks
+    ``block_bwd`` for the bitwise reproducible split kernels."""
     w = ring_size(group)
     rank = ring_rank(group)
     half = q.shape[2] // 2
     kernel = use_kernel(q, backend)
     plain = MaskArgs(**extras)
+    fused = False if deterministic else None
     delta = compute_delta(dout, out)
 
     def view(x, rows=False):
@@ -107,18 +106,18 @@ def _zigzag_bwd(q, k, v, out, lse, dout, scale, group, backend, extras):
         if step == 0:
             dq, b_dk, b_dv = block_bwd(
                 dout, q, kk, vv, lse, delta, scale,
-                MaskArgs(causal=True, **extras), backend)
+                MaskArgs(causal=True, **extras), backend, fused=fused)
             dkv = RingBuffer(torch.stack([b_dk, b_dv]), group)
         elif step <= rank:
             b_dq, b_dk, b_dv = block_bwd(
                 dout, q, view(kk[:, :, :half]), view(vv[:, :, :half]), lse,
-                delta, scale, plain, backend)
+                delta, scale, plain, backend, fused=fused)
             dq += b_dq
             dkv.value[0, :, :, :half] += b_dk
             dkv.value[1, :, :, :half] += b_dv
         else:
             b_dq, b_dk, b_dv = block_bwd(dout1, q1, kk, vv, lse1, delta1,
-                                         scale, plain, backend)
+                                         scale, plain, backend, fused=fused)
             dq[:, :, half:] += b_dq
             dkv.value[0] += b_dk
             dkv.value[1] += b_dv
@@ -130,33 +129,36 @@ def _zigzag_bwd(q, k, v, out, lse, dout, scale, group, backend, extras):
 
 class _ZigzagRingAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, group, backend, extras):
+    def forward(ctx, q, k, v, scale, group, backend, extras, deterministic):
         out, lse = _zigzag_fwd(q, k, v, scale, group, backend, extras)
         out = out.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
-        ctx.args = (scale, group, backend, extras)
+        ctx.args = (scale, group, backend, extras, deterministic)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):  # no gradient path through lse
         q, k, v, out, lse = ctx.saved_tensors
-        scale, group, backend, extras = ctx.args
+        scale, group, backend, extras, deterministic = ctx.args
         if use_kernel(q, backend):
             dout = _kernel_layout(dout)
         dq, dk, dv = _zigzag_bwd(q, k, v, out, lse, dout, scale, group,
-                                 backend, extras)
+                                 backend, extras, deterministic)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
+                None, None, None)
 
 
 def zigzag_ring_attention(q, k, v, *, scale, group=None, backend=None,
                           softcap=None, alibi_slopes=None, dropout_p=None,
-                          dropout_seed=None, window_left=None):
+                          dropout_seed=None, window_left=None,
+                          deterministic=False):
     """Differentiable zigzag ring attention on per-process (B, H, S, D)
     tensors laid out per ``extract_local_zigzag`` over ``group`` (None: the
     default group, or one process when none is initialised). Causal only.
-    Returns (out in q.dtype, lse fp32 (B, H, S)); lse carries no gradient."""
+    Returns (out in q.dtype, lse fp32 (B, H, S)); lse carries no gradient.
+    ``deterministic=True`` runs the backward's steps on the bitwise
+    reproducible split kernels B3a/B3b on the card."""
     check_ring_options("zigzag_ring_attention",
                        alibi_slopes=alibi_slopes is not None,
                        dropout_p=dropout_p,
@@ -167,6 +169,6 @@ def zigzag_ring_attention(q, k, v, *, scale, group=None, backend=None,
     extras = dict(softcap=softcap)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _ZigzagRingAttention.apply(q, k, v, scale, group, backend,
-                                          extras)
+                                          extras, deterministic)
     out, lse = _zigzag_fwd(q, k, v, scale, group, backend, extras)
     return out.to(q.dtype), lse

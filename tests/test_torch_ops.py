@@ -28,8 +28,8 @@ from ring_flash_attn_tpu.ops.pallas_bwd_fused import (
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
 from ring_flash_attn_tpu_torch.ops.flash import (
     _kernel_layout, block_bwd, block_fwd, compute_delta, flash_attention)
-from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import (
-    fused_bwd_supported, tma_layout_error)
+from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import fused_bwd_supported
+from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import tma_layout_error
 from ring_flash_attn_tpu_torch.ops.mask import (
     NEG_INF, MaskArgs, check_kernel_supported)
 from ring_flash_attn_tpu_torch.ops.naive import (
@@ -233,15 +233,14 @@ def test_tma_layout_error_on_views(name):
 
 @pytest.mark.parametrize("name", sorted(TMA_LAYOUTS))
 def test_kernel_layout_gives_what_the_tma_maps_read(name):
-    """_kernel_layout keeps a view the maps read (and B1 takes) and copies
-    any other into a contiguous tensor of the same values."""
+    """_kernel_layout keeps a view the maps read (and every kernel takes)
+    and copies any other into a contiguous tensor of the same values."""
     x = TMA_LAYOUTS[name][0]()
     y = _kernel_layout(x)
     assert tma_layout_error(y) is None
     assert torch.equal(y, x)
     kept = y.data_ptr() == x.data_ptr() and y.stride() == x.stride()
-    assert kept == (TMA_LAYOUTS[name][1] and not any(
-        st % 8 for st in x.stride()[:-1]))
+    assert kept == TMA_LAYOUTS[name][1]
 
 
 @pytest.mark.parametrize("case", ["causal", "gqa_noncausal", "dead_rows"])

@@ -12,6 +12,7 @@ plain versions of kernels B1 and B2/B3; JAX runs its XLA path.
 """
 
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -254,6 +255,60 @@ def test_api_funcs_match_jax(kind):
     got = tfn(torch.from_numpy(qkv), causal=True)
     want = japi.flash_attn_qkvpacked_func(jnp.asarray(qkv), causal=True)
     assert _err(got, want) <= OUT_TOL
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+@pytest.mark.parametrize("form", ["func", "kvpacked_func", "qkvpacked_func"])
+@pytest.mark.parametrize("kind", ["ring", "zigzag_ring"])
+def test_deterministic_reaches_block_bwd(kind, form, deterministic,
+                                         monkeypatch):
+    """``deterministic=True`` on a ring entry point reaches every step's
+    ``block_bwd`` as ``fused=False`` (the split kernels B3a/B3b on the
+    card), the default as ``fused=None``; one process, no group (W=1),
+    where the gradient is the JAX flash function's."""
+    module = importlib.import_module(
+        "ring_flash_attn_tpu_torch.parallel."
+        + ("ring" if kind == "ring" else "zigzag"))
+    seen = []
+    real = module.block_bwd
+
+    def recorder(*args, fused=None, **kw):
+        seen.append(fused)
+        return real(*args, fused=fused, **kw)
+
+    monkeypatch.setattr(module, "block_bwd", recorder)
+    qkv = _np((1, 32, 3, 2, API_D), 30)
+    x = torch.from_numpy(qkv).requires_grad_()
+    func = getattr(api, f"{kind}_flash_attn_{form}")
+    kw = dict(causal=True, softmax_scale=0.3, deterministic=deterministic)
+    if form == "qkvpacked_func":
+        out = func(x, **kw)
+    elif form == "kvpacked_func":
+        out = func(x[:, :, 0], x[:, :, 1:], **kw)
+    else:
+        out = func(x[:, :, 0], x[:, :, 1], x[:, :, 2], **kw)
+    dout = _np(out.shape, 31)
+    (grad,) = torch.autograd.grad(out, x, torch.from_numpy(dout))
+    assert seen == [False if deterministic else None]
+    _, vjp = jax.vjp(lambda t: japi.flash_attn_qkvpacked_func(
+        t, causal=True, softmax_scale=0.3), jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(dout))
+    assert _err(grad, want) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("kind", ["ring", "zigzag_ring"])
+def test_deterministic_reaches_every_step_at_w4(kind):
+    """At W=4 over gloo, every backward step of ``{kind}_flash_attn_func``
+    and of its kv-packed form asks ``block_bwd`` for ``fused=False`` under
+    ``deterministic=True``, and for ``fused=None`` by default: the ring's
+    rank r computes r + 1 causal steps, the zigzag's every rank all 4
+    (step 0, then the earlier ranks' and the later ranks' halves)."""
+    res = _port_schedules(4)
+    for rank, r in enumerate(res):
+        seen = r[f"api/{kind}/fused"]
+        n = rank + 1 if kind == "ring" else 4
+        assert seen == {"default": [None] * n, "deterministic": [False] * n,
+                        "kvpacked deterministic": [False] * n}, rank
 
 
 # ---- registry ----

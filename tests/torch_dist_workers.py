@@ -9,6 +9,8 @@ wait has a time limit and a worker past it is killed, so a hang fails the
 test in seconds.
 """
 
+import contextlib
+import importlib
 import queue
 import socket
 import traceback
@@ -181,18 +183,55 @@ def task_schedules(rank, world, p):
     return out
 
 
+@contextlib.contextmanager
+def _fused_seen(kind):
+    """The list of the ``fused`` argument of every ``block_bwd`` call the
+    ring ("ring") or zigzag ("zigzag_ring") schedule makes in the block."""
+    module = importlib.import_module(
+        "ring_flash_attn_tpu_torch.parallel."
+        + ("ring" if kind == "ring" else "zigzag"))
+    real, seen = module.block_bwd, []
+
+    def recorder(*args, fused=None, **kw):
+        seen.append(fused)
+        return real(*args, fused=fused, **kw)
+
+    module.block_bwd = recorder
+    try:
+        yield seen
+    finally:
+        module.block_bwd = real
+
+
 def task_api(rank, world, p):
     """The distributed api functions and their packed forms on (B, S, H,
-    D); ``ring_func`` also with gradients and with return_attn_probs."""
+    D); ``ring_func`` also with gradients and with return_attn_probs, and
+    with ``deterministic=True`` (as the kv-packed form), recording what
+    each backward step asks ``block_bwd`` for."""
     out = {}
     for kind, layout in (("ring", "contiguous"), ("zigzag_ring", "zigzag")):
         q, k, v, dout = (_local(p[n], rank, world, layout, 1)
                          for n in ("q", "k", "v", "dout"))
         kw = dict(causal=True, softmax_scale=p["scale"])
         func = getattr(api, f"{kind}_flash_attn_func")
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        o = func(*leaves, **kw)
-        grads = torch.autograd.grad(o, leaves, dout)
+        kvfunc = getattr(api, f"{kind}_flash_attn_kvpacked_func")
+        fused = {}
+        with _fused_seen(kind) as fused["default"]:
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            o = func(*leaves, **kw)
+            grads = torch.autograd.grad(o, leaves, dout)
+        with _fused_seen(kind) as fused["deterministic"]:
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            det = torch.autograd.grad(
+                func(*leaves, deterministic=True, **kw), leaves, dout)
+        with _fused_seen(kind) as fused["kvpacked deterministic"]:
+            leaves = [q.clone().requires_grad_(),
+                      torch.stack([k, v], dim=2).requires_grad_()]
+            torch.autograd.grad(kvfunc(*leaves, deterministic=True, **kw),
+                                leaves, dout)
+        # on the CPU both take the plain backward: the same bits
+        assert all(torch.equal(a, b) for a, b in zip(grads, det))
+        out[f"{kind}/fused"] = fused
         out[f"{kind}/func"] = _np(o)
         for key, g in zip(("dq", "dk", "dv"), grads):
             out[f"{kind}/{key}"] = _np(g)
@@ -200,8 +239,7 @@ def task_api(rank, world, p):
         assert probs is None and torch.equal(o2, o.detach())
         out[f"{kind}/lse"] = _np(lse)
         kv = torch.stack([k, v], dim=2)
-        out[f"{kind}/kvpacked"] = _np(getattr(
-            api, f"{kind}_flash_attn_kvpacked_func")(q, kv, **kw))
+        out[f"{kind}/kvpacked"] = _np(kvfunc(q, kv, **kw))
         if k.shape[2] == q.shape[2]:
             qkv = torch.stack([q, k, v], dim=2)
             out[f"{kind}/qkvpacked"] = _np(getattr(
