@@ -18,7 +18,12 @@ Phases, each of which raises on failure:
    ``F.scaled_dot_product_attention`` (timed only, never used by the port).
 3. Kernel B5 (paged decode) against its plain version: 8 lanes of ragged
    lengths over shuffled block tables, plain, with softcap, and with
-   new_counts; timed beside its byte bound.
+   new_counts; the engine's 4 lanes; the split plan's edges
+   (``b5_edge_cases``: one 32768-token lane, a lane ending on a split
+   boundary, lanes of 0 and 1 token, 16-token pages, R = 16 with
+   new_counts, softcap with fp32 q); every call twice, bitwise equal;
+   timed beside its byte bound at the table's shape, the engine's 4 lanes
+   and R = 16.
 4. The ServingEngine at Llama-3-8B widths with 4 layers and seeded random
    weights: the first prefill and first decode-step logits of the kernels
    against the plain versions on the card, then 6 requests (two queue, one
@@ -30,9 +35,12 @@ Phases, each of which raises on failure:
    gradients) and the ring mode (delta given, fp32 gradients), at the
    training path's shapes among others (S=8192 whole; the last 512 q rows
    of S=36864) and at the kv-major loop's tile edges (Skv 127 to 257, Sq 63
-   to 65, GQA groups 1 and 8, head_dim 64 and 128, dead rows); every call
-   twice, B3 and B2's dk/dv bitwise reproducible; the HGMMA count of each
-   instantiation of the loop (``cuobjdump -sass``, none may be 0);
+   to 65, GQA groups 1 and 8, head_dim 64 and 128, dead rows) and the
+   q-major dq loop's (``B3A_EDGE_CASES``: Sq 127 to 255, Skv 63 to 127,
+   a first q tile with no key); every call twice, B3 and B2's dk/dv
+   bitwise reproducible; the HGMMA count of each instantiation of both
+   loops (``cuobjdump -sass``, none may be 0) and B3a's ptxas spills (none
+   may spill);
    ``flash_attention`` picking B3 past the fused limit (Skv = 36864, D =
    128); timed at the causal S=8192 shape beside their flop bounds (TFLOP/s),
    the plain version and the backward of ``F.scaled_dot_product_attention``
@@ -108,6 +116,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
+H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM
 B1_OUT_TOL, B1_LSE_TOL = 2e-2, 1e-3  # bf16 P in P@V, bf16 out
 B5_TOL = 2e-3  # fp32 math on both sides; only the summation order differs
 # B4 and B6 keep fp32 operands on CUDA cores, as their plain versions do
@@ -171,6 +180,27 @@ B7_EDGE_CASES = [
     (8, 2, 257, 255, 128, True, None, True, 3),
     (4, 4, 1, 257, 64, True, 25.0, False, 3),
     (8, 2, 257, 1, 128, False, None, False, 3),
+]
+
+# the q-major dq loop's tile edges (B3a: 128 q rows a block, 64 keys a
+# tile), held here (phase 5) and in tests/test_torch_cuda.py's BWD_CASES:
+# (B, Hq, Hkv, Sq, Skv, D, causal, offset) with Sq in {127, 128, 129, 191,
+# 255} against Skv in {63, 64, 65, 127}, GQA groups 1 and 8, both head
+# dims, and negative offsets whose first q tile sees no key (its block
+# loads nothing and writes zeros)
+B3A_EDGE_CASES = [
+    (1, 8, 1, 127, 63, 128, False, None),
+    (1, 8, 8, 128, 64, 64, True, -64),
+    (2, 16, 2, 129, 65, 128, True, 0),
+    (1, 8, 8, 191, 127, 64, True, 64),
+    (1, 8, 1, 255, 63, 128, True, -128),
+    (1, 4, 4, 127, 127, 64, True, 0),
+    (1, 8, 1, 128, 65, 64, False, None),
+    (1, 8, 8, 129, 64, 128, True, -1),
+    (1, 16, 2, 191, 63, 64, True, -100),
+    (1, 8, 8, 255, 65, 128, False, None),
+    (1, 8, 1, 191, 64, 128, True, 10),
+    (1, 8, 8, 255, 127, 64, True, -128),
 ]
 
 
@@ -368,8 +398,9 @@ def hgmma_counts(path, piece):
 def check_hgmma(what, lib, piece):
     """Log and check the HGMMA count of each instantiation of a tile loop
     (kernels whose mangled name holds ``piece``: ``flash_fwd_kernel``, the
-    forward loop, or ``bwd_kv_kernel``, the kv-major backward loop) in
-    csrc/<lib>.cu: the loop runs on wgmma."""
+    forward loop, ``bwd_kv_kernel``, the kv-major backward loop, or
+    ``bwd_dq_kernel``, the q-major dq loop) in csrc/<lib>.cu: the loop runs
+    on wgmma. Returns {label: count}."""
     from ring_flash_attn_tpu_torch.ops import _build
 
     def label(name):  # head_dim, and the forward's softcap/ALiBi build
@@ -377,9 +408,10 @@ def check_hgmma(what, lib, piece):
         return ("D=128" if "ILi128" in name else "D=64") + (
             " XFORM" if xform else "")
 
-    counts = hgmma_counts(_build.build_all()[lib], piece)
+    counts = {label(n): c for n, c in sorted(
+        hgmma_counts(_build.build_all()[lib], piece).items())}
     log(f"  {what}: HGMMA in the SASS of {piece} " + ", ".join(
-        f"{label(n)} {c}" for n, c in sorted(counts.items())))
+        f"{n} {c}" for n, c in counts.items()))
     if not counts or min(counts.values()) == 0:
         raise AssertionError(f"{what}: an instantiation of the loop has no "
                              f"HGMMA: {counts}")
@@ -387,12 +419,14 @@ def check_hgmma(what, lib, piece):
 
 
 def profile_loop(tool, loop, piece, timings):
-    """The command line of profile_torch_fwd.py and profile_torch_bwd.py:
-    ``[--root DIR] [--rounds N]``. Imports the package from ``--root``,
-    builds it, logs the card, then ptxas's facts, its wgmma/setmaxnreg
-    notes and the HGMMA count of every kernel whose name holds ``piece`` in
-    the libraries of ``loop`` (INSTANTIATIONS names), then runs
-    ``timings(torch, rounds)``. Returns the exit code."""
+    """The command line of profile_torch_fwd.py, profile_torch_bwd.py and
+    profile_torch_decode.py: ``[--root DIR] [--rounds N]``. Imports the
+    package from ``--root``, builds it, logs the card, then ptxas's facts,
+    its wgmma/setmaxnreg notes and the HGMMA count of every kernel whose
+    name holds ``piece`` (a string or a tuple of them) in the libraries of
+    ``loop`` (INSTANTIATIONS names), then runs ``timings(torch, rounds)``.
+    Returns the exit code."""
+    pieces = (piece,) if isinstance(piece, str) else tuple(piece)
     import argparse
 
     ap = argparse.ArgumentParser(prog=tool)
@@ -419,14 +453,15 @@ def profile_loop(tool, loop, piece, timings):
         lib = INSTANTIATIONS[name][0]
         facts = ptxas_facts(paths[lib][:-3] + ".log")
         for fn, f in sorted(facts.items()):
-            if piece in fn:
-                log(f"  ptxas {name} {fn[:48]}: {f}")
+            if any(p in fn for p in pieces):
+                log(f"  ptxas {name} {fn[:64]}: {f}")
         with open(paths[lib][:-3] + ".log") as f:
             for line in f:
                 if "wgmma" in line or "setmaxnreg" in line:
                     log(f"  ptxas {name} note: {line.strip()[:200]}")
-        for fn, n in sorted(hgmma_counts(paths[lib], piece).items()):
-            log(f"  SASS {name} {fn[:48]}: {n} HGMMA")
+        for p in pieces:
+            for fn, n in sorted(hgmma_counts(paths[lib], p).items()):
+                log(f"  SASS {name} {fn[:64]}: {n} HGMMA")
     timings(torch, args.rounds)
     return 0
 
@@ -567,11 +602,79 @@ def phase_b1(torch, flush):
     }
 
 
+def b5_edge_cases():
+    """The split plan's edges for B5 (phase 3 and tests/test_torch_cuda.py):
+    dicts of lens, page_size, npages (the table's width), hq, hkv, tq,
+    counts (new_counts or None), cap (softcap) and qdtype. Lane lengths
+    that end on a split boundary come from ``paged_num_splits``, so they
+    follow the plan."""
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        CHUNK, paged_num_splits)
+
+    # 4 lanes, 32 pages of 256: lane 0 ends on the last token of the
+    # splits' third chunk each (n_chunks = 3 * nsplit); lanes of 0 and 1
+    # token among long ones
+    split = paged_num_splits(4, 8, 32, 256)
+    return [
+        # B = 1, one lane of 32768 tokens: the most splits
+        dict(lens=[32768], page_size=256, npages=128, hq=32, hkv=8, tq=1,
+             counts=None, cap=None, qdtype="bfloat16"),
+        dict(lens=[3 * split * CHUNK, 0, 1, 8000], page_size=256, npages=32,
+             hq=32, hkv=8, tq=1, counts=None, cap=None, qdtype="bfloat16"),
+        # 16-token pages (a chunk per page, shorter than 64), 8 rows
+        dict(lens=[4096, 1000, 17], page_size=16, npages=256, hq=32, hkv=8,
+             tq=2, counts=[2, 1, 2], cap=None, qdtype="bfloat16"),
+        # R = 16: Tq = 4 speculative rows with new_counts
+        dict(lens=[3000, 17, 2, 4096], page_size=256, npages=16, hq=32,
+             hkv=8, tq=4, counts=[4, 3, 1, 4], cap=None, qdtype="bfloat16"),
+        # softcap with fp32 q, pages of 128
+        dict(lens=[5000, 300, 8192], page_size=128, npages=64, hq=32,
+             hkv=8, tq=1, counts=None, cap=30.0, qdtype="float32"),
+    ]
+
+
+def b5_case_inputs(torch, case, gen, seed):
+    """q, k_pages, v_pages, block_tables (shuffled), seq_lens, new_counts
+    of a ``b5_edge_cases`` case, on the card."""
+    dev = torch.device("cuda")
+    b, d = len(case["lens"]), 128
+    num_pages = b * case["npages"]
+    perm = np.random.default_rng(seed).permutation(num_pages).astype(
+        np.int32)
+    tables = torch.as_tensor(perm.reshape(b, case["npages"]), device=dev)
+    shape = (num_pages, case["hkv"], case["page_size"], d)
+    k_pages = torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v_pages = torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((b, case["hq"], case["tq"], d), generator=gen,
+                    device=dev).to(getattr(torch, case["qdtype"]))
+    lens = torch.tensor(case["lens"], dtype=torch.int32, device=dev)
+    counts = (None if case["counts"] is None else
+              torch.tensor(case["counts"], dtype=torch.int32, device=dev))
+    return q, k_pages, v_pages, tables, lens, counts
+
+
+def _b5_bound_ms(q, tokens, hkv, tables):
+    """B5's least time: the live K/V once, q, out, lse and the table
+    (bytes), or its fp32 FMAs on the CUDA cores (QK and PV, 2 flops each
+    per row, token and head-dim column), whichever is larger."""
+    b, hq, tq, d = q.shape
+    kv_bytes = 2 * tokens * hkv * d * 2
+    io_bytes = (q.element_size() * q.numel() + 4 * (q.numel() + b * hq * tq)
+                + 4 * tables.numel())
+    flops = 4 * tokens * hq * tq * d
+    return max((kv_bytes + io_bytes) / H100_BYTES_PER_S,
+               flops / H100_FP32_FLOPS) * 1e3
+
+
 def phase_b5(torch, flush):
     from ring_flash_attn_tpu_torch.ops.paged import (
         PagedKVCache, _plain_paged_decode)
     from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
         paged_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        paged_num_splits)
 
     log("== phase 3: kernel B5 (paged decode) vs its plain version")
     dev = torch.device("cuda")
@@ -593,6 +696,33 @@ def phase_b5(torch, flush):
         return torch.randn((b, hq, tq, d), generator=gen,
                            device=dev).to(dtype)
 
+    def check(name, q, kp, vp, tbl, sl, cap, cnt):
+        """The kernel twice against the plain version: within B5_TOL and
+        the same bits both times."""
+        got, again = (paged_decode_cuda(q, kp, vp, tbl, sl, scale,
+                                        softcap=cap, new_counts=cnt)
+                      for _ in range(2))
+        ref_out, ref_lse = _plain_paged_decode(
+            q, PagedKVCache(kp, vp, tbl, sl), scale, cap, cnt)
+        torch.cuda.synchronize()
+        eo, el = max_err(got[0], ref_out), max_err(got[1], ref_lse)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        nsplit = paged_num_splits(q.shape[0], kp.shape[1], tbl.shape[1],
+                                  kp.shape[2])
+        log(f"  {name}: max|out| err {eo:.3e}, max|lse| err {el:.3e} "
+            f"(tol {B5_TOL}); {nsplit} splits a lane; two runs bitwise "
+            f"equal {same}")
+        if not (eo <= B5_TOL and el <= B5_TOL):
+            raise AssertionError(f"B5 disagrees with its plain version: {name}")
+        if not same:
+            raise AssertionError(f"B5 is not bitwise reproducible: {name}")
+        dead = sl == 0
+        if not (bool((got[0][dead] == 0).all())
+                and bool((got[1][dead] == -1e30).all())):
+            raise AssertionError(f"B5: a dead lane must give out=0, "
+                                 f"lse=NEG_INF: {name}")
+        return max(eo, el)
+
     counts = torch.tensor([3, 1, 4, 4, 2, 4, 4, 4], dtype=torch.int32,
                           device=dev)
     cases = [
@@ -603,33 +733,25 @@ def phase_b5(torch, flush):
     # the engine's decode shape: 4 lanes at the smoke traffic's lengths
     eng_lens = torch.tensor([3016, 1216, 2616, 316], dtype=torch.int32,
                             device=dev)
-    eng_cache = PagedKVCache(k_pages, v_pages, tables[:4], eng_lens)
     q4 = torch.randn((4, hq, 1, d), generator=gen, device=dev).to(
         torch.bfloat16)
     worst = 0.0
     for name, q, cap, cnt in cases:
-        out, lse = paged_decode_cuda(q, k_pages, v_pages, tables, seq_lens,
-                                     scale, softcap=cap, new_counts=cnt)
-        ref_out, ref_lse = _plain_paged_decode(q, cache, scale, cap, cnt)
-        torch.cuda.synchronize()
-        eo, el = max_err(out, ref_out), max_err(lse, ref_lse)
-        log(f"  {name}: max|out| err {eo:.3e}, max|lse| err {el:.3e} "
-            f"(tol {B5_TOL})")
-        if not (eo <= B5_TOL and el <= B5_TOL):
-            raise AssertionError(f"B5 disagrees with its plain version: {name}")
-        worst = max(worst, eo, el)
-    out, lse = paged_decode_cuda(q4, k_pages, v_pages, tables[:4], eng_lens,
-                                 scale)
-    ref_out, ref_lse = _plain_paged_decode(q4, eng_cache, scale)
-    torch.cuda.synchronize()
-    eo, el = max_err(out, ref_out), max_err(lse, ref_lse)
-    log(f"  engine shape, 4 lanes: max|out| err {eo:.3e}, max|lse| err "
-        f"{el:.3e} (tol {B5_TOL})")
-    if not (eo <= B5_TOL and el <= B5_TOL):
-        raise AssertionError("B5 disagrees with its plain version at the "
-                             "engine's shape")
-    worst = max(worst, eo, el)
+        worst = max(worst, check(name, q, k_pages, v_pages, tables, seq_lens,
+                                 cap, cnt))
+    worst = max(worst, check("engine shape, 4 lanes", q4, k_pages, v_pages,
+                             tables[:4], eng_lens, None, None))
+    # the split plan's edges
+    for i, case in enumerate(b5_edge_cases()):
+        inp = b5_case_inputs(torch, case, gen, 20 + i)
+        name = (f"edge lens {case['lens']} page {case['page_size']} x "
+                f"{case['npages']}, Tq={case['tq']} counts {case['counts']}"
+                f" softcap {case['cap']} {case['qdtype']} q")
+        worst = max(worst, check(name, *inp[:5], case["cap"], inp[5]))
+        del inp
 
+    # timed at the table's shape (the kernel's JSON numbers), then beside
+    # it at the engine's 4 lanes and with R = 16 (Tq = 4, new_counts)
     q = cases[0][1]
     t = kernel_ms(torch, lambda: paged_decode_cuda(
         q, k_pages, v_pages, tables, seq_lens, scale), 20, flush)
@@ -638,14 +760,28 @@ def phase_b5(torch, flush):
         q, cache, scale), 5, flush)
     tokens = sum(lens)
     kv_bytes = 2 * tokens * hkv * d * 2  # K and V of every live token
-    io_bytes = 2 * q.numel() + 4 * (q.numel() + b * hq) + 4 * tables.numel()
-    flops = 4 * tokens * hq * d
-    bound_ms = max((kv_bytes + io_bytes) / H100_BYTES_PER_S,
-                   flops / H100_BF16_FLOPS) * 1e3
+    bound_ms = _b5_bound_ms(q, tokens, hkv, tables)
     log(f"  lens {lens}: kernel {ms:.4f} ms "
         f"({kv_bytes / ms / 1e6:.1f} GB/s of KV; {t['device_ms']:.4f} ms of "
-        f"device time), plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms (bytes)")
+        f"device time, {t['device_ms'] / bound_ms:.1f}x its bound), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes); "
+        f"{paged_num_splits(b, hkv, pps, ps)} splits a lane")
+    others = {
+        "engine 4 lanes": (q4, tables[:4], eng_lens, None,
+                           int(eng_lens.sum())),
+        "R=16 (Tq=4, new_counts)": (cases[2][1], tables, seq_lens, counts,
+                                    tokens),
+    }
+    extra = {}
+    for name, (qx, tbl, sl, cnt, toks) in others.items():
+        tx = kernel_ms(torch, lambda: paged_decode_cuda(
+            qx, k_pages, v_pages, tbl, sl, scale, new_counts=cnt), 20, flush)
+        bx = _b5_bound_ms(qx, toks, hkv, tbl)
+        extra[name] = dict(tx, bound_ms=bx, splits=paged_num_splits(
+            qx.shape[0], hkv, tbl.shape[1], ps))
+        log(f"  {name}: kernel {tx['ms']:.4f} ms, {tx['device_ms']:.4f} ms "
+            f"of device time ({tx['device_ms'] / bx:.1f}x its bound "
+            f"{bx:.4f} ms), {extra[name]['splits']} splits a lane")
     return {
         "name": "B5 paged_decode", "route": "cuda",
         "source": "ring_flash_attn_tpu_torch/csrc/paged_decode.cu",
@@ -654,6 +790,7 @@ def phase_b5(torch, flush):
                  f"lens {lens}",
         "max_abs_err": worst, **t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "other_shapes": extra,
     }
 
 
@@ -890,6 +1027,15 @@ def phase_bwd(torch, flush):
                 del got
 
     check_hgmma("B2", "flash_bwd", "bwd_kv_kernel")
+    b3a_hgmma = check_hgmma("B3a", "flash_bwd_split", "bwd_dq_kernel")
+    from ring_flash_attn_tpu_torch.ops import _build
+    log_path = _build.build_all()["flash_bwd_split"][:-3] + ".log"
+    b3a_ptxas = {n: f for n, f in ptxas_facts(log_path).items()
+                 if "bwd_dq_kernel" in n}
+    log(f"  B3a ptxas: {b3a_ptxas}")
+    if not b3a_ptxas or any(f["spill_bytes"] for f in b3a_ptxas.values()):
+        raise AssertionError(f"B3a: a build spills or is missing: "
+                             f"{b3a_ptxas}")
     check_hgmma("B3b", "flash_bwd_split", "bwd_kv_kernel")
     causal = MaskArgs(causal=True)
     cases = [
@@ -913,6 +1059,12 @@ def phase_bwd(torch, flush):
         ("edge Sq=129 Skv=257 group 8 D=64 non-causal", (1, 8, 1, 129, 257),
          MaskArgs(), 64),
     ]
+    # the q-major dq loop's tile edges (B3A_EDGE_CASES)
+    for b, hq, hkv, sq, skv, d, causal_, off in B3A_EDGE_CASES:
+        cases.append((f"B3a edge Sq={sq} Skv={skv} group {hq // hkv} D={d}"
+                      f" causal={causal_} offset={off}",
+                      (b, hq, hkv, sq, skv), MaskArgs(causal=causal_,
+                                                      offset=off), d))
     for name, shape, mask, d in cases:
         check(name, *inputs(*shape, mask, d=d), mask, ("B2", "B3"))
 
@@ -1040,7 +1192,7 @@ def phase_bwd(torch, flush):
              replaces="ring_flash_attn_tpu/ops/pallas_bwd.py:56",
              max_abs_err=worst["B3"][0], max_rel_err=worst["B3"][1],
              **b3a, bound_ms=bound_ms["B3a"], pair_ms=split_ms,
-             tflops=tflops["B3a"]),
+             tflops=tflops["B3a"], hgmma=b3a_hgmma),
         dict(common, name="B3b flash_bwd_dkv",
              source="ring_flash_attn_tpu_torch/csrc/flash_bwd_split.cu",
              replaces="ring_flash_attn_tpu/ops/pallas_bwd.py:256",

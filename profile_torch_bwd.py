@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""The kv-major backward loop (kernels B2, B3b, B8) on one NVIDIA H100.
+"""The backward loops (kernels B2, B3b, B8: kv-major; B3a: q-major dq) on
+one NVIDIA H100.
 
 Run from the root of a checkout:
 
@@ -12,16 +13,19 @@ parent.
 
 1. Builds the kernels and prints ptxas's registers, spills and shared memory
    of the three instantiations of ``csrc/flash_bwd.cuh``'s loop (B2 in
-   ``flash_bwd``, B3b in ``flash_bwd_split``, B8 in ``fused_ring_bwd``), any
-   wgmma serialisation notes, and the count of ``HGMMA`` instructions in
-   their SASS (``cuobjdump -sass``).
+   ``flash_bwd``, B3b in ``flash_bwd_split``, B8 in ``fused_ring_bwd``) and
+   of B3a's loop (``bwd_dq_kernel`` in ``flash_bwd_split``), any wgmma
+   serialisation notes, and the count of ``HGMMA`` instructions in their
+   SASS (``cuobjdump -sass``).
 2. Times, ``rounds`` times in turns, at q (1,32,8192,128), kv (1,8,8192,128)
-   bf16: B2 causal (single-call mode: delta pre-pass, bf16 gradients), B3b
-   causal (delta given, bf16), B8 one off-diagonal and one diagonal ring
-   step, and the backward of ``F.scaled_dot_product_attention`` (timed only,
-   never used by the port). Each time is the mean of 10 calls between CUDA
-   events, the L2 flushed before each. Prints TFLOP/s of the loop's 5 (B2,
-   B8) or 4 (B3b) products and the ratio to SDPA's backward.
+   bf16: B2 causal (single-call mode: delta pre-pass, bf16 gradients), B3a
+   and B3b causal (delta given, bf16), the pair B3a + B3b with the delta
+   pre-pass (single-call mode, bf16), B8 one off-diagonal and one diagonal
+   ring step, and the backward of ``F.scaled_dot_product_attention`` (timed
+   only, never used by the port). Each time is the mean of 10 calls between
+   CUDA events, the L2 flushed before each. Prints TFLOP/s of each kernel's
+   5 (B2, B8), 4 (B3b), 3 (B3a) or 7 (the pair) products and the ratio to
+   SDPA's backward.
 
 The loop's correctness is ``chip_smoke.py``'s (phases 5, 10 to 12) and
 ``tests/test_torch_cuda.py``'s. Prints the card's name and power limit
@@ -38,6 +42,7 @@ from chip_smoke import (  # noqa: E402
     H100_BF16_FLOPS, cuda_ms, log, profile_loop)
 
 LOOP = ("B2 flash_bwd", "B3b flash_bwd_dkv", "B8 fused_ring_bwd")
+PIECES = ("bwd_kv_kernel", "bwd_dq_kernel")
 
 
 def timings(torch, rounds):
@@ -47,7 +52,7 @@ def timings(torch, rounds):
     from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import (
         bwd_delta, flash_bwd_cuda)
     from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
-        flash_bwd_dkv_cuda)
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_split_cuda)
     from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
     from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
     from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
@@ -86,8 +91,13 @@ def timings(torch, rounds):
     fns = {
         "B2": lambda: flash_bwd_cuda(dout, q, k, v, lse, None, scale, mask,
                                      out=out, dq_dtype=bf16, dkv_dtype=bf16),
+        "B3a": lambda: flash_bwd_dq_cuda(dout, q, k, v, lse, delta, scale,
+                                         mask, dq_dtype=bf16),
         "B3b": lambda: flash_bwd_dkv_cuda(dout, q, k, v, lse, delta, scale,
                                           mask, dkv_dtype=bf16),
+        "B3a+B3b": lambda: flash_bwd_split_cuda(
+            dout, q, k, v, lse, None, scale, mask, out=out, dq_dtype=bf16,
+            dkv_dtype=bf16),
         "B8 off-diagonal": lambda: fr.bwd_step(
             qs, k, vsc, dout, lse2, rdelta, dq, dkv[0], dkv[1],
             diagonal=False, accumulate=True),
@@ -101,14 +111,17 @@ def timings(torch, rounds):
     }
     pairs = {"causal": s * (s + 1) // 2, "full": s * s}
     flops = {"B2": 5 * 2 * hq * d * pairs["causal"],
+             "B3a": 3 * 2 * hq * d * pairs["causal"],
              "B3b": 4 * 2 * hq * d * pairs["causal"],
+             "B3a+B3b": 7 * 2 * hq * d * pairs["causal"],
              "B8 off-diagonal": 5 * 2 * hq * d * pairs["full"],
              "B8 diagonal": 5 * 2 * hq * d * pairs["causal"]}
     times = collections.defaultdict(list)
     for _ in range(rounds):
         for name, fn in fns.items():
             times[name].append(cuda_ms(torch, fn, 10, flush))
-    lib = {"B2": "SDPA bwd causal", "B3b": "SDPA bwd causal",
+    lib = {"B2": "SDPA bwd causal", "B3a": "SDPA bwd causal",
+           "B3b": "SDPA bwd causal", "B3a+B3b": "SDPA bwd causal",
            "B8 off-diagonal": "SDPA bwd non-causal",
            "B8 diagonal": "SDPA bwd causal"}
     for name, ts in times.items():
@@ -124,5 +137,4 @@ def timings(torch, rounds):
 
 
 if __name__ == "__main__":
-    sys.exit(profile_loop("profile_torch_bwd.py", LOOP, "bwd_kv_kernel",
-                          timings))
+    sys.exit(profile_loop("profile_torch_bwd.py", LOOP, PIECES, timings))

@@ -12,259 +12,124 @@
 // What bounds it on the H100: bytes. Each K/V token is used by only the
 // G * Tq query rows of its kv head (4 at Llama-3-8B widths), about one
 // flop per byte, so the bound is reading the live K/V pages once at
-// 3.35 TB/s. The design serves that:
+// 3.35 TB/s. The design serves that with the loop of B4 and B6
+// (quant_decode.cuh's decode_split, given a bf16 value type with unit
+// scales and per-row bounds; B5 has no loop of its own):
 //
-//  - one block per (lane, kv head) serves all G * Tq rows of the head's
-//    group, so each K/V page is read from device memory once;
-//  - the block walks its own block-table entries, only up to
-//    ceil(seq_len / page_size) pages, in 64-token chunks that never span a
-//    page, double-buffered in shared memory with cp.async;
-//  - scores and P V are fp32 FMA (q stays fp32; no tensor cores: with 4 to
-//    16 rows the work is too thin for them to matter);
-//  - online softmax in fp32 across chunks, kept in shared memory.
+//  - one block per (lane, kv head, split) serves all G * Tq rows of the
+//    head's group, so each K/V page is read from device memory once;
+//  - a lane's live chunks (64 tokens, never spanning a page; PagedSrc)
+//    are split over gridDim.x blocks, chosen from shapes only
+//    (ops/quant_decode_cuda.py::num_splits), so that a few lanes fill the
+//    132 SMs; a block past its lane's length writes an empty partial, and
+//    merge_splits_kernel merges the partials in split order (bitwise
+//    reproducible);
+//  - scores and P V are fp32 FMAs (q stays fp32; no tensor cores: with 4
+//    to 16 rows the work is too thin for them to matter), each warp taking
+//    a quarter of a chunk's tokens in P V, so the warps' sums meet once a
+//    block.
 //
-// The TPU kernel's all-heads block-diagonal matmul answers the TPU's
-// vector-issue overhead and is not carried over. With B * Hkv blocks a
-// small batch fills few of the 132 SMs; splitting a lane's pages over
-// blocks with an lse merge is the next step for this kernel.
+// Measured (profile_torch_decode.py, NVIDIA H100 80GB HBM3, 700 W, device
+// time, in turns with the first port of this kernel, which ran one block
+// per (lane, kv head) over its chunks in turn with four barriers each): at
+// the serving table's shape, q (8, 32, 1, 128), lens 0 to 4096, pages of
+// 256, 0.049 ms, 4.0x its byte bound (0.261); at the engine's 4 lanes
+// 0.026 (0.196); with R = 16 rows (Tq = 4) 0.116 (1.21), 9.3x its bound,
+// the chunk's FMAs and q reads growing with the rows. The TPU kernel's all-heads block-diagonal
+// matmul answers the TPU's vector-issue overhead and is not carried over.
 
-#include "common.cuh"
+#include "quant_decode.cuh"
 
 namespace {
 
-constexpr int D = 128;         // head dim this kernel takes
-constexpr int C = 64;          // tokens per chunk
-constexpr int NTHREADS = 128;  // thread t owns output column d = t
-constexpr int KLD = D + 8;     // +16 B per K row: conflict-free 16-B reads
+using namespace rfa_qd;
 
-template <int RMAX>
-struct Smem {
-  static constexpr int K = 0;                          // bf16 [2][C][KLD]
-  static constexpr int V = K + 2 * C * KLD * 2;        // bf16 [2][C][D]
-  static constexpr int Q = V + 2 * C * D * 2;          // f32 [RMAX][D]
-  static constexpr int P = Q + RMAX * D * 4;           // f32 [RMAX][C]
-  static constexpr int STATS = P + RMAX * C * 4;       // f32 m, l, alpha
-  static constexpr int BYTES = STATS + 3 * RMAX * 4;
+// PagedSrc with B5's per-row bounds: row r (t = r % Tq) sees the first
+// len - max(0, cnt - 1 - t) positions of the lane.
+struct BoundedPagedSrc : PagedSrc {
+  int cnt, Tq;
+
+  __device__ __forceinline__ int bound(int r) const {
+    return len - max(0, cnt - 1 - r % Tq);
+  }
 };
 
 template <int RMAX>
 __global__ void __launch_bounds__(NTHREADS)
 paged_decode_kernel(const void* __restrict__ q, int q_bf16,
-                    const __nv_bfloat16* __restrict__ k_pages,
-                    const __nv_bfloat16* __restrict__ v_pages,
+                    const unsigned char* __restrict__ k_pages,
+                    const unsigned char* __restrict__ v_pages,
                     const int* __restrict__ block_tables,
                     const int* __restrict__ seq_lens,
-                    const int* __restrict__ new_counts,
-                    float* __restrict__ out, float* __restrict__ lse, int Hq,
-                    int Hkv, int Tq, int num_pages, int page_size,
-                    int npages, float scale, float softcap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + Smem<RMAX>::K);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + Smem<RMAX>::V);
-  float* qs = reinterpret_cast<float*>(smem + Smem<RMAX>::Q);
-  float* ps = reinterpret_cast<float*>(smem + Smem<RMAX>::P);
-  float* m_s = reinterpret_cast<float*>(smem + Smem<RMAX>::STATS);
-  float* l_s = m_s + RMAX;
-  float* a_s = l_s + RMAX;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = Hq / Hkv, R = G * Tq;
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const long long row0 = (long long)(b * Hq + h * G) * Tq;  // first q row
-  const int seq_len = seq_lens[b];
-  const int cnt = new_counts ? new_counts[b] : 1;
-
-  // chunks never span a page: cpp chunks per page, the last may be short
-  const int cpp = (page_size + C - 1) / C;
-  int n_chunks = 0;
-  if (seq_len > 0) {
-    const int n_pages = (seq_len + page_size - 1) / page_size;
-    const int last = seq_len - (n_pages - 1) * page_size;
-    n_chunks = (n_pages - 1) * cpp + (last + C - 1) / C;
-  }
-
-  auto load_chunk = [&](int stage, int j) {
-    const int pg = j / cpp, off = (j % cpp) * C;
-    const int base = pg * page_size + off;
-    const int valid = min(min(C, page_size - off), seq_len - base);
-    // out-of-range ids are clamped, as the plain version's gather does
-    int page = block_tables[(long long)b * npages + pg];
-    page = min(max(page, 0), num_pages - 1);
-    const long long src = ((long long)page * Hkv + h) * page_size + off;
-    for (int i = t; i < C * (D / 8); i += NTHREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const bool ok = r < valid;
-      const long long g = ok ? (src + r) * D + c : 0;
-      rfa::cp_async16(ks + (stage * C + r) * KLD + c, k_pages + g, ok ? 16 : 0);
-      rfa::cp_async16(vs + (stage * C + r) * D + c, v_pages + g, ok ? 16 : 0);
-    }
-    rfa::cp_async_commit();
-  };
-
-  if (n_chunks > 0) load_chunk(0, 0);
-  for (int i = t; i < R * D; i += NTHREADS) {
-    const float x = q_bf16
-        ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[row0 * D + i])
-        : static_cast<const float*>(q)[row0 * D + i];
-    qs[i] = x * scale;
-  }
-  if (t < R) {
-    m_s[t] = -INFINITY;
-    l_s[t] = 0.f;
-  }
-
-  float o[RMAX];
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) o[r] = 0.f;
-
-  const int c = t % C, rg = t / C;  // score phase: token c, rows rg + 2i
-  for (int j = 0; j < n_chunks; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_chunks) {
-      load_chunk(stage ^ 1, j + 1);
-      rfa::cp_async_wait<1>();
-    } else {
-      rfa::cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // scores: this thread's token c against rows rg, rg + 2, ...
-    const int base = (j / cpp) * page_size + (j % cpp) * C;
-    const int valid = min(min(C, page_size - (j % cpp) * C), seq_len - base);
-    float acc[RMAX / 2];
-#pragma unroll
-    for (int i = 0; i < RMAX / 2; ++i) acc[i] = 0.f;
-    const __nv_bfloat16* krow = ks + (stage * C + c) * KLD;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(krow + d);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      float kf[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(k2[e]);
-        kf[2 * e] = f.x;
-        kf[2 * e + 1] = f.y;
-      }
-#pragma unroll
-      for (int i = 0; i < RMAX / 2; ++i) {
-        const int r = rg + 2 * i;
-        if (r < R) {
-          const float4 q0 = *reinterpret_cast<const float4*>(qs + r * D + d);
-          const float4 q1 =
-              *reinterpret_cast<const float4*>(qs + r * D + d + 4);
-          acc[i] += q0.x * kf[0] + q0.y * kf[1] + q0.z * kf[2] +
-                    q0.w * kf[3] + q1.x * kf[4] + q1.y * kf[5] +
-                    q1.z * kf[6] + q1.w * kf[7];
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RMAX / 2; ++i) {
-      const int r = rg + 2 * i;
-      if (r < R) {
-        float s = acc[i];
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        const int bound = seq_len - max(0, cnt - 1 - r % Tq);
-        ps[r * C + c] = (c < valid && base + c < bound) ? s : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // online softmax, one warp per row
-    for (int r = warp; r < R; r += NTHREADS / 32) {
-      const float x0 = ps[r * C + lane], x1 = ps[r * C + lane + 32];
-      float mx = fmaxf(x0, x1);
-#pragma unroll
-      for (int sft = 16; sft > 0; sft /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, sft));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float p0 = __expf(x0 - m_use), p1 = __expf(x1 - m_use);
-      ps[r * C + lane] = p0;
-      ps[r * C + lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int sft = 16; sft > 0; sft /= 2)
-        sum += __shfl_xor_sync(0xffffffff, sum, sft);
-      if (lane == 0) {
-        const float alpha = __expf(m_old - m_use);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // O = O * alpha + P V, thread t owns column t of every row
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r)
-      if (r < R) o[r] *= a_s[r];
-    const __nv_bfloat16* vcol = vs + stage * C * D + t;
-    for (int cc = 0; cc < C; ++cc) {
-      const float vv = __bfloat162float(vcol[cc * D]);
-#pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < R) o[r] += ps[r * C + cc] * vv;
-    }
-    __syncthreads();  // ps and this stage are rewritten next
-  }
-  __syncthreads();  // l_s and m_s are visible even when n_chunks == 0
-
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) {
-    if (r < R) {
-      const float l = l_s[r];
-      out[(row0 + r) * D + t] = l > 0.f ? o[r] / l : 0.f;
-      if (t == 0) lse[row0 + r] = l > 0.f ? m_s[r] + logf(l) : RFA_NEG_INF;
-    }
-  }
+                    const int* __restrict__ new_counts, int Hkv, int Tq,
+                    int R, int num_pages, int page_size, int npages,
+                    float scale, float softcap, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long g = (long long)b * Hkv + h;
+  const BoundedPagedSrc src{
+      paged_src(k_pages, v_pages, nullptr, nullptr, block_tables, seq_lens,
+                b, h, Hkv, num_pages, page_size, npages),
+      new_counts ? new_counts[b] : 1, Tq};
+  decode_split<QT_BF16, false, RMAX, true>(src, q, q_bf16, g * R, R, scale,
+                                           softcap, part_acc, part_ml,
+                                           (g * gridDim.x + blockIdx.x) * R);
 }
 
 template <int RMAX>
-int launch(const void* q, int q_bf16, const void* k_pages, const void* v_pages,
-           const int* block_tables, const int* seq_lens, const int* new_counts,
-           float* out, float* lse, int B, int Hq, int Hkv, int Tq,
-           int num_pages, int page_size, int npages, float scale,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, int q_bf16, const void* k_pages,
+           const void* v_pages, const int* block_tables, const int* seq_lens,
+           const int* new_counts, float* out, float* lse, float* part_acc,
+           float* part_ml, int B, int Hkv, int Tq, int R, int num_pages,
+           int page_size, int npages, int nsplit, float scale, float softcap,
+           cudaStream_t stream) {
   auto kern = paged_decode_kernel<RMAX>;
+  constexpr int bytes = Smem<RMAX, value_bytes<QT_BF16>()>::BYTES;
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<RMAX>::BYTES);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     attr = true;
   }
-  kern<<<dim3(Hkv, B), NTHREADS, Smem<RMAX>::BYTES, stream>>>(
-      q, q_bf16, static_cast<const __nv_bfloat16*>(k_pages),
-      static_cast<const __nv_bfloat16*>(v_pages), block_tables, seq_lens,
-      new_counts, out, lse, Hq, Hkv, Tq, num_pages, page_size, npages, scale,
-      softcap);
-  return cudaGetLastError();
+  kern<<<dim3(nsplit, Hkv, B), NTHREADS, bytes, stream>>>(
+      q, q_bf16, static_cast<const unsigned char*>(k_pages),
+      static_cast<const unsigned char*>(v_pages), block_tables, seq_lens,
+      new_counts, Hkv, Tq, R, num_pages, page_size, npages, scale, softcap,
+      part_acc, part_ml);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return merge_splits(part_acc, part_ml, out, lse, nsplit, R, B * Hkv,
+                      stream);
 }
 
 }  // namespace
 
 // q (B, Hq, Tq, D) bf16 or fp32; pages (num_pages, Hkv, page_size, D) bf16;
 // block_tables (B, npages) int32; seq_lens, new_counts (B,) int32 (new_counts
-// may be null: every row sees the whole lane); all contiguous. out
+// may be null: every row sees the whole lane); all contiguous; any
+// page_size >= 1. part_acc (B * Hkv, nsplit, R, D) and part_ml
+// (B * Hkv, nsplit, R, 2) fp32 scratch, R = (Hq / Hkv) * Tq. out
 // (B, Hq, Tq, D) and lse (B, Hq, Tq) fp32. softcap <= 0 disables capping.
 // Returns cudaGetLastError().
 extern "C" int rfa_paged_decode(const void* q, int q_bf16,
                                 const void* k_pages, const void* v_pages,
                                 const int* block_tables, const int* seq_lens,
                                 const int* new_counts, float* out, float* lse,
-                                int B, int Hq, int Hkv, int Tq, int head_dim,
+                                float* part_acc, float* part_ml, int B,
+                                int Hq, int Hkv, int Tq, int head_dim,
                                 int num_pages, int page_size, int npages,
-                                float scale, float softcap, void* stream) {
-  if (head_dim != D) return cudaErrorInvalidValue;
+                                int nsplit, float scale, float softcap,
+                                void* stream) {
+  if (head_dim != D || Hkv <= 0 || Hq % Hkv || nsplit < 1 || num_pages < 1 ||
+      page_size < 1)
+    return cudaErrorInvalidValue;
   const int R = (Hq / Hkv) * Tq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RFA_LAUNCH(RM)                                                       \
   return launch<RM>(q, q_bf16, k_pages, v_pages, block_tables, seq_lens,     \
-                    new_counts, out, lse, B, Hq, Hkv, Tq, num_pages,         \
-                    page_size, npages, scale, softcap, st)
+                    new_counts, out, lse, part_acc, part_ml, B, Hkv, Tq, R,  \
+                    num_pages, page_size, npages, nsplit, scale, softcap, st)
   if (R <= 4) RFA_LAUNCH(4);
   if (R <= 8) RFA_LAUNCH(8);
   if (R <= 16) RFA_LAUNCH(16);

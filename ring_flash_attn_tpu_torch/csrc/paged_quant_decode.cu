@@ -16,7 +16,8 @@
 //
 // The loop, what bounds it on the H100 and the design are in
 // quant_decode.cuh: a lane's live chunks (64 tokens, never spanning a
-// page) are split over gridDim.x blocks and the partials merged in order.
+// page; PagedSrc) are split over gridDim.x blocks and the partials merged
+// in order.
 // The scale layout's unit dim exists for the TPU's tiling; the kernel
 // indexes (page, head, token) directly.
 
@@ -25,25 +26,6 @@
 namespace {
 
 using namespace rfa_qd;
-
-struct PagedSrc {
-  const unsigned char* k;
-  const unsigned char* v;
-  const float* ks;
-  const float* vs;
-  int n_chunks;
-  const int* table;  // this lane's block-table row
-  int h, Hkv, num_pages, page_size, cpp, len;
-
-  __device__ __forceinline__ void locate(int j, long long& tok0,
-                                         int& valid) const {
-    const int pg = j / cpp, off = (j % cpp) * C;
-    // out-of-range ids are clamped, as the plain version's gather does
-    const int page = min(max(table[pg], 0), num_pages - 1);
-    tok0 = ((long long)page * Hkv + h) * page_size + off;
-    valid = min(min(C, page_size - off), len - (pg * page_size + off));
-  }
-};
 
 template <int QT, int RMAX>
 __global__ void __launch_bounds__(NTHREADS)
@@ -60,18 +42,9 @@ paged_quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                           float* __restrict__ part_ml) {
   const int h = blockIdx.y, b = blockIdx.z;
   const long long g = (long long)b * Hkv + h;
-  const int len = min(max(seq_lens[b], 0), npages * page_size);
-  // chunks never span a page: cpp chunks per page, the last may be short
-  const int cpp = (page_size + C - 1) / C;
-  int n_chunks = 0;
-  if (len > 0) {
-    const int full = (len - 1) / page_size;  // pages before the last live
-    n_chunks = full * cpp + (len - full * page_size + C - 1) / C;
-  }
-  const PagedSrc src{k_pages,  v_pages,   k_scales, v_scales,
-                     n_chunks, block_tables + (long long)b * npages,
-                     h,        Hkv,       num_pages, page_size,
-                     cpp,      len};
+  const PagedSrc src =
+      paged_src(k_pages, v_pages, k_scales, v_scales, block_tables, seq_lens,
+                b, h, Hkv, num_pages, page_size, npages);
   decode_split<QT, QT == QT_INT8, RMAX>(src, q, q_bf16, g * R, R, scale,
                                         softcap, part_acc, part_ml,
                                         (g * gridDim.x + blockIdx.x) * R);
@@ -99,10 +72,8 @@ int launch(const void* q, int q_bf16, const void* k_pages,
       softcap, part_acc, part_ml);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  merge_splits_kernel<<<dim3(R, B * Hkv), NTHREADS, nsplit * sizeof(float),
-                        stream>>>(
-      part_acc, part_ml, out, lse, nsplit, R);
-  return cudaGetLastError();
+  return merge_splits(part_acc, part_ml, out, lse, nsplit, R, B * Hkv,
+                      stream);
 }
 
 template <int QT>

@@ -71,10 +71,8 @@ int launch(const void* q, int q_bf16, const void* k_q, const void* v_q,
       len_val, S, Hkv, R, scale, softcap, part_acc, part_ml);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  merge_splits_kernel<<<dim3(R, B * Hkv), NTHREADS, nsplit * sizeof(float),
-                        stream>>>(
-      part_acc, part_ml, out, lse, nsplit, R);
-  return cudaGetLastError();
+  return merge_splits(part_acc, part_ml, out, lse, nsplit, R, B * Hkv,
+                      stream);
 }
 
 template <int QT>

@@ -1,20 +1,24 @@
-// Decode attention over a quantized KV cache: the loop that kernels B4
-// (contiguous cache, quant_decode.cu) and B6 (paged cache,
-// paged_quant_decode.cu) share, and the kernel that merges their partials.
+// Decode attention over a KV cache split over blocks: the loop that kernels
+// B4 (contiguous quantized cache, quant_decode.cu), B5 (bf16 pages,
+// paged_decode.cu) and B6 (quantized pages, paged_quant_decode.cu) share,
+// and the kernel that merges their partials.
 //
 // They replace the TPU kernels ring_flash_attn_tpu/ops/
 // quant_decode_pallas.py::_kernel and ring_flash_attn_tpu/ops/paged.py::
-// _quant_paged_kernel. For the R = (Hq / Hkv) * Tq query rows of one
-// (batch, kv head) group: logits (q * scale) . k_q * k_scale over the live
-// tokens, optional tanh softcap, online softmax, (p * v_scale) @ v_q; fp32
-// (out, lse); a row with no live token gives out = 0, lse = NEG_INF. The
-// cache holds one byte per value (int8, fp8 e4m3 or e5m2) and one fp32
-// scale per token and head.
+// _paged_kernel and ::_quant_paged_kernel. For the R = (Hq / Hkv) * Tq
+// query rows of one (batch, kv head) group: logits (q * scale) . k * k_scale
+// over the live tokens, optional tanh softcap, online softmax,
+// (p * v_scale) @ v; fp32 (out, lse); a row with no live token gives
+// out = 0, lse = NEG_INF. A quantized cache holds one byte per value (int8,
+// fp8 e4m3 or e5m2) and one fp32 scale per token and head; a bf16 cache
+// (QT_BF16, B5) two bytes per value and no scales (unit scales, never
+// loaded or applied). With BOUNDS (B5's new_counts) each row has its own
+// last live token.
 //
 // What bounds it on the H100: bytes. A token's K and V are used by only
 // the R rows of its group (4 at Llama-3-8B widths), about two operations
-// per byte, so the least time is one read of the live cache and scales at
-// 3.35 TB/s. The design serves that:
+// per byte (one for bf16), so the least time is one read of the live cache
+// and scales at 3.35 TB/s. The design serves that:
 //
 //  - a group's tokens are split over gridDim.x blocks, so that a batch of
 //    one with 8 kv heads still fills the 132 SMs; each block walks its
@@ -26,15 +30,16 @@
 //    depend on which block finished first;
 //  - values are widened in registers: int8 by a byte permute into the
 //    mantissa of 2^23 and one subtraction (no integer-to-float
-//    conversion), fp8 through the hardware's fp8x2 -> half2 conversion;
+//    conversion), fp8 through the hardware's fp8x2 -> half2 conversion,
+//    bf16 by a shift;
 //  - QK and PV are fp32 FMAs on CUDA cores (with 4 to 16 rows the work is
 //    far below the memory time and too thin for tensor cores); with
 //    QK_INT8 (B6 on int8 pages) q is quantized per row to int8 in the
 //    block and QK is an exact s8 x s8 -> s32 product (__dp4a) times
 //    q_scale * k_scale, the function the TPU kernel computes;
 //  - in PV each thread owns 4 output columns and each warp a quarter of
-//    the chunk's tokens, so one 32-bit shared-memory load feeds 4 * R
-//    FMAs; the warps' sums meet once, at the end of the block.
+//    the chunk's tokens, so one 32-bit (bf16: 64-bit) shared-memory load
+//    feeds 4 * R FMAs; the warps' sums meet once, at the end of the block.
 //
 // The TPU kernels' sequential (B, n_blk) grid, all-heads block-diagonal
 // matmul, 128-multiple blocks and pages_per_step are shapes of that
@@ -53,13 +58,19 @@ constexpr int D = 128;         // head dim these kernels take
 constexpr int C = 64;          // tokens per chunk
 constexpr int NTHREADS = 128;  // 4 warps
 constexpr int NST = 2;         // cp.async stages (see above)
-constexpr int KLD = D + 16;    // bytes per K row: conflict-free 16-B reads
 
-enum { QT_INT8 = 0, QT_E4M3 = 1, QT_E5M2 = 2 };
+enum { QT_INT8 = 0, QT_E4M3 = 1, QT_E5M2 = 2, QT_BF16 = 3 };
+
+// bytes per cached value
+template <int QT>
+__host__ __device__ constexpr int value_bytes() {
+  return QT == QT_BF16 ? 2 : 1;
+}
 
 // Four quantized values packed in w (lowest byte first) as floats, exact.
 template <int QT>
 __device__ __forceinline__ void cvt4(uint32_t w, float (&f)[4]) {
+  static_assert(QT != QT_BF16, "bf16 values take cvt_bf16x4");
   if constexpr (QT == QT_INT8) {
     // byte x + 128 into the low mantissa bits of 2^23, minus (2^23 + 128)
     w ^= 0x80808080u;
@@ -83,11 +94,22 @@ __device__ __forceinline__ void cvt4(uint32_t w, float (&f)[4]) {
   }
 }
 
-template <int RMAX>
+// Four bf16 values packed in w (lowest first) as floats, exact.
+__device__ __forceinline__ void cvt_bf16x4(uint2 w, float (&f)[4]) {
+  f[0] = __uint_as_float(w.x << 16);
+  f[1] = __uint_as_float(w.x & 0xffff0000u);
+  f[2] = __uint_as_float(w.y << 16);
+  f[3] = __uint_as_float(w.y & 0xffff0000u);
+}
+
+// EB bytes per cached value
+template <int RMAX, int EB = 1>
 struct Smem {
+  static constexpr int KLD = D * EB + 16;  // bytes per K row: conflict-free
+                                           // 16-B reads
   static constexpr int K = 0;                       // u8 [NST][C][KLD]
-  static constexpr int V = K + NST * C * KLD;       // u8 [NST][C][D]
-  static constexpr int SC = V + NST * C * D;        // f32 [NST][2][C]
+  static constexpr int V = K + NST * C * KLD;       // u8 [NST][C][D * EB]
+  static constexpr int SC = V + NST * C * D * EB;   // f32 [NST][2][C]
   static constexpr int Q = SC + NST * 2 * C * 4;    // f32 [RMAX][D]
   static constexpr int Q8 = Q + RMAX * D * 4;       // s8 [RMAX][D]
   static constexpr int P = Q8 + RMAX * D;           // f32 [RMAX][C]
@@ -98,18 +120,23 @@ struct Smem {
 };
 
 // One block's share of one group. Src gives the group's live chunks:
-//   n_chunks; k, v (bytes), ks, vs (fp32 scales);
+//   n_chunks; k, v (bytes), ks, vs (fp32 scales; not read for QT_BF16);
 //   locate(j, tok0, valid): chunk j starts at token index tok0 of the k/v
-//   arrays (value offset tok0 * D, scale offset tok0) and holds `valid`
-//   live tokens (1..C).
+//   arrays (byte offset tok0 * D * value_bytes, scale offset tok0) and
+//   holds `valid` live tokens (1..C);
+//   with BOUNDS, pos(j): chunk j's first position in the group's sequence,
+//   and bound(r): row r sees positions below it only.
 // q rows row0 .. row0 + R of the (rows, D) query; the partial goes to
 // part_acc[(part0 + r) * D + d] and part_ml[(part0 + r) * 2 + {0, 1}].
-template <int QT, bool QK_INT8, int RMAX, class Src>
+template <int QT, bool QK_INT8, int RMAX, bool BOUNDS = false, class Src>
 __device__ __forceinline__ void decode_split(
     const Src& src, const void* __restrict__ q, int q_bf16, long long row0,
     int R, float scale, float softcap, float* __restrict__ part_acc,
     float* __restrict__ part_ml, long long part0) {
-  using S = Smem<RMAX>;
+  constexpr int EB = value_bytes<QT>();
+  constexpr bool SCALES = QT != QT_BF16;
+  using S = Smem<RMAX, EB>;
+  constexpr int KLD = S::KLD;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ks = smem + S::K;
   unsigned char* vs = smem + S::V;
@@ -132,14 +159,15 @@ __device__ __forceinline__ void decode_split(
     long long tok0;
     int valid;
     src.locate(j, tok0, valid);
-    for (int i = t; i < C * (D / 16); i += NTHREADS) {
-      const int r = i / (D / 16), c = (i % (D / 16)) * 16;
+    constexpr int RB = D * EB;  // bytes of a K or V row
+    for (int i = t; i < C * (RB / 16); i += NTHREADS) {
+      const int r = i / (RB / 16), c = (i % (RB / 16)) * 16;
       const bool ok = r < valid;
-      const long long g = ok ? (tok0 + r) * D + c : 0;
+      const long long g = ok ? (tok0 + r) * RB + c : 0;
       rfa::cp_async16(ks + (stage * C + r) * KLD + c, src.k + g, ok ? 16 : 0);
-      rfa::cp_async16(vs + (stage * C + r) * D + c, src.v + g, ok ? 16 : 0);
+      rfa::cp_async16(vs + (stage * C + r) * RB + c, src.v + g, ok ? 16 : 0);
     }
-    {  // threads 0..63 bring the K scales, 64..127 the V scales
+    if constexpr (SCALES) {  // threads 0..63 bring the K scales, 64..127 V's
       const int c = t % C;
       const bool ok = c < valid;
       const float* base = t < C ? src.ks : src.vs;
@@ -191,6 +219,11 @@ __device__ __forceinline__ void decode_split(
     for (int e = 0; e < 4; ++e) o[r][e] = 0.f;
 
   const int c = t % C, rg = t / C;  // score phase: token c, rows rg + 2i
+  int bnd[RMAX / 2];  // with BOUNDS: rows rg + 2 k see positions below
+  if constexpr (BOUNDS) {
+#pragma unroll
+    for (int k = 0; k < RMAX / 2; ++k) bnd[k] = src.bound(rg + 2 * k);
+  }
   for (int i = 0; i < n; ++i) {
     rfa::cp_async_wait<NST - 2>();
     __syncthreads();  // chunk i has landed; chunk i - 1's stage is free
@@ -235,6 +268,29 @@ __device__ __forceinline__ void decode_split(
         const int r = rg + 2 * k;
         sv[k] = r < R ? static_cast<float>(acc[k]) * qsc_s[r] * ksc[c] : 0.f;
       }
+    } else if constexpr (QT == QT_BF16) {
+#pragma unroll
+      for (int k = 0; k < RMAX / 2; ++k) sv[k] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 8) {
+        const uint4 kw = *reinterpret_cast<const uint4*>(krow + 2 * d);
+        float kf[2][4];
+        cvt_bf16x4(make_uint2(kw.x, kw.y), kf[0]);
+        cvt_bf16x4(make_uint2(kw.z, kw.w), kf[1]);
+#pragma unroll
+        for (int k = 0; k < RMAX / 2; ++k) {
+          const int r = rg + 2 * k;
+          if (r < R) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float4 q4 = *reinterpret_cast<const float4*>(
+                  qs + r * D + d + 4 * e);
+              sv[k] += q4.x * kf[e][0] + q4.y * kf[e][1] + q4.z * kf[e][2] +
+                       q4.w * kf[e][3];
+            }
+          }
+        }
+      }
     } else {
 #pragma unroll
       for (int k = 0; k < RMAX / 2; ++k) sv[k] = 0.f;
@@ -269,7 +325,9 @@ __device__ __forceinline__ void decode_split(
       if (r < R) {
         float s = sv[k];
         if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        ps[r * C + c] = c < valid ? s : -INFINITY;
+        bool live = c < valid;
+        if constexpr (BOUNDS) live = live && src.pos(j0 + i) + c < bnd[k];
+        ps[r * C + c] = live ? s : -INFINITY;
       }
     }
     __syncthreads();
@@ -282,16 +340,25 @@ __device__ __forceinline__ void decode_split(
       for (int sft = 16; sft > 0; sft /= 2)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, sft));
       const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: valid >= 1
-      const float p0 = __expf(x0 - m_new), p1 = __expf(x1 - m_new);
-      ps[r * C + lane] = p0 * vsc[lane];
-      ps[r * C + lane + 32] = p1 * vsc[lane + 32];
+      float m_new = fmaxf(m_old, mx);  // finite without BOUNDS: valid >= 1
+      float m_use = m_new;
+      // with BOUNDS a row may have no live token yet: exponentiate
+      // against 0, so that it keeps p = 0, alpha = 0 and m = -inf
+      if constexpr (BOUNDS) m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float p0 = __expf(x0 - m_use), p1 = __expf(x1 - m_use);
+      if constexpr (SCALES) {
+        ps[r * C + lane] = p0 * vsc[lane];
+        ps[r * C + lane + 32] = p1 * vsc[lane + 32];
+      } else {
+        ps[r * C + lane] = p0;
+        ps[r * C + lane + 32] = p1;
+      }
       float sum = p0 + p1;
 #pragma unroll
       for (int sft = 16; sft > 0; sft /= 2)
         sum += __shfl_xor_sync(0xffffffff, sum, sft);
       if (lane == 0) {
-        const float alpha = __expf(m_old - m_new);
+        const float alpha = __expf(m_old - m_use);
         a_s[r] = alpha;
         l_s[r] = l_s[r] * alpha + sum;
         m_s[r] = m_new;
@@ -308,13 +375,21 @@ __device__ __forceinline__ void decode_split(
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[r][e] *= alpha;
       }
-    const uint32_t* v32 =
-        reinterpret_cast<const uint32_t*>(vs + stage * C * D) + lane;
+    const unsigned char* vst = vs + stage * C * D * EB;
     for (int cc = warp * (C / 4); cc < (warp + 1) * (C / 4); cc += 4) {
       if (cc >= valid) break;  // the rest of the chunk is dead (p = 0)
       float vf[4][4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) cvt4<QT>(v32[(cc + k) * (D / 4)], vf[k]);
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (QT == QT_BF16)
+          cvt_bf16x4(reinterpret_cast<const uint2*>(vst)[(cc + k) * (D / 4) +
+                                                         lane],
+                     vf[k]);
+        else
+          cvt4<QT>(reinterpret_cast<const uint32_t*>(vst)[(cc + k) * (D / 4) +
+                                                          lane],
+                   vf[k]);
+      }
 #pragma unroll
       for (int r = 0; r < RMAX; ++r)
         if (r < R) {
@@ -348,6 +423,52 @@ __device__ __forceinline__ void decode_split(
       part_ml[(part0 + r) * 2 + 1] = l_s[r];
     }
   }
+}
+
+// A lane's live chunks in a paged cache (B5, B6): `len` tokens through
+// the lane's block-table row, 64-token chunks that never span a page (cpp
+// chunks per page, the last may be short).
+struct PagedSrc {
+  const unsigned char* k;
+  const unsigned char* v;
+  const float* ks;
+  const float* vs;
+  int n_chunks;
+  const int* table;  // this lane's block-table row
+  int h, Hkv, num_pages, page_size, cpp, len;
+
+  __device__ __forceinline__ void locate(int j, long long& tok0,
+                                         int& valid) const {
+    const int pg = j / cpp, off = (j % cpp) * C;
+    // out-of-range ids are clamped, as the plain version's gather does
+    const int page = min(max(table[pg], 0), num_pages - 1);
+    tok0 = ((long long)page * Hkv + h) * page_size + off;
+    valid = min(min(C, page_size - off), len - (pg * page_size + off));
+  }
+
+  // chunk j's first position in the lane
+  __device__ __forceinline__ int pos(int j) const {
+    return (j / cpp) * page_size + (j % cpp) * C;
+  }
+};
+
+// The source of kv head h of lane b: its length clamped to the pages the
+// table holds, and the number of live chunks that gives.
+__device__ __forceinline__ PagedSrc paged_src(
+    const unsigned char* k, const unsigned char* v, const float* ks,
+    const float* vs, const int* block_tables, const int* seq_lens, int b,
+    int h, int Hkv, int num_pages, int page_size, int npages) {
+  const int len = min(max(seq_lens[b], 0), npages * page_size);
+  const int cpp = (page_size + C - 1) / C;
+  int n_chunks = 0;
+  if (len > 0) {
+    const int full = (len - 1) / page_size;  // pages before the last live
+    n_chunks = full * cpp + (len - full * page_size + C - 1) / C;
+  }
+  return PagedSrc{k,        v,         ks,        vs,
+                  n_chunks, block_tables + (long long)b * npages,
+                  h,        Hkv,       num_pages, page_size,
+                  cpp,      len};
 }
 
 // Merge the nsplit partials of each row, in a fixed order. grid
@@ -421,6 +542,15 @@ merge_splits_kernel(const float* __restrict__ part_acc,
   const long long row = g * R + r;
   out[row * D + t] = l > 0.f ? sum / l : 0.f;
   if (t == 0) lse[row] = l > 0.f ? m + logf(l) : RFA_NEG_INF;
+}
+
+// Launch the merge of `groups` groups of R rows, nsplit partials each.
+inline cudaError_t merge_splits(const float* part_acc, const float* part_ml,
+                                float* out, float* lse, int nsplit, int R,
+                                int groups, cudaStream_t stream) {
+  merge_splits_kernel<<<dim3(R, groups), NTHREADS, nsplit * sizeof(float),
+                        stream>>>(part_acc, part_ml, out, lse, nsplit, R);
+  return cudaGetLastError();
 }
 
 }  // namespace rfa_qd

@@ -3,8 +3,11 @@
 It replaces the TPU kernel ``ring_flash_attn_tpu/ops/paged.py::
 _paged_kernel``. ``ops/paged.py::paged_decode_attention`` sends CUDA
 tensors here and CPU tensors to the kernel's plain version,
-``ops/paged.py::_plain_paged_decode``. See the source's header for what
-bounds the kernel on the H100 and how its design answers that.
+``ops/paged.py::_plain_paged_decode``. A lane's tokens are split over
+``paged_num_splits`` blocks (shapes only: no host sync, the same plan
+every call) and the partials merged in split order; see the source's
+header for what bounds the kernel on the H100 and how its design answers
+that.
 """
 
 import ctypes
@@ -12,15 +15,15 @@ import ctypes
 import torch
 
 from . import _build
-
-MAX_ROWS = 16  # G * Tq query rows per kv head that one block serves
-HEAD_DIM = 128
+from .quant_decode_cuda import (check_operand, check_rows, paged_num_splits,
+                                partials)
 
 # rfa_paged_decode(q, q_bf16, k_pages, v_pages, block_tables, seq_lens,
-#                  new_counts, out, lse, B, Hq, Hkv, Tq, head_dim,
-#                  num_pages, page_size, npages, scale, softcap, stream)
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
-    ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+#                  new_counts, out, lse, part_acc, part_ml, B, Hq, Hkv, Tq,
+#                  head_dim, num_pages, page_size, npages, nsplit, scale,
+#                  softcap, stream)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+    ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
 def _lib():
@@ -28,17 +31,6 @@ def _lib():
     lib.rfa_paged_decode.argtypes = _ARGTYPES
     lib.rfa_paged_decode.restype = ctypes.c_int
     return lib
-
-
-def _check(name, x, dev, dtypes, ndim):
-    if not x.is_cuda or x.device != dev:
-        raise ValueError(f"{name} must be a CUDA tensor on {dev}, got {x.device}")
-    if x.dtype not in dtypes:
-        raise TypeError(f"{name} must be one of {dtypes} for the kernel, "
-                        f"got {x.dtype}")
-    if x.dim() != ndim or not x.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {ndim}-D tensor, got "
-                         f"shape {tuple(x.shape)} strides {x.stride()}")
 
 
 def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
@@ -50,32 +42,33 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     (B,) int32; (Hq / Hkv) * Tq <= 16. Out-of-range page ids are clamped
     into the pool, as the plain version's gather does."""
     dev = q.device
-    _check("q", q, dev, (torch.bfloat16, torch.float32), 4)
-    _check("k_pages", k_pages, dev, (torch.bfloat16,), 4)
-    _check("v_pages", v_pages, dev, (torch.bfloat16,), 4)
-    _check("block_tables", block_tables, dev, (torch.int32,), 2)
-    _check("seq_lens", seq_lens, dev, (torch.int32,), 1)
+    check_operand("q", q, dev, (torch.bfloat16, torch.float32), 4)
+    check_operand("k_pages", k_pages, dev, (torch.bfloat16,), 4)
+    check_operand("v_pages", v_pages, dev, (torch.bfloat16,), 4)
+    check_operand("block_tables", block_tables, dev, (torch.int32,), 2)
+    check_operand("seq_lens", seq_lens, dev, (torch.int32,), 1)
     if new_counts is not None:
-        _check("new_counts", new_counts, dev, (torch.int32,), 1)
+        check_operand("new_counts", new_counts, dev, (torch.int32,), 1)
     b, hq, tq, d = q.shape
     num_pages, hkv, page_size, _ = k_pages.shape
     npages = block_tables.shape[1]
     if v_pages.shape != k_pages.shape or k_pages.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and pages "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} differ")
-    if d != HEAD_DIM:
-        raise ValueError(f"head_dim must be {HEAD_DIM}, got {d}")
-    if hq % hkv or (hq // hkv) * tq > MAX_ROWS:
-        raise ValueError(f"(Hq/Hkv)*Tq must divide evenly and be <= {MAX_ROWS}"
-                         f", got Hq={hq} Hkv={hkv} Tq={tq}")
+    check_rows(hq, hkv, tq, d)
     if block_tables.shape[0] != b or seq_lens.shape != (b,) or (
             new_counts is not None and new_counts.shape != (b,)):
         raise ValueError("block_tables, seq_lens and new_counts must have "
                          f"one row per lane ({b})")
+    if num_pages < 1 or page_size < 1:
+        raise ValueError("the cache holds no page")
     out = torch.empty((b, hq, tq, d), dtype=torch.float32, device=dev)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
+    rows = (hq // hkv) * tq
+    nsplit = paged_num_splits(b, hkv, npages, page_size)
+    part_acc, part_ml = partials(b * hkv, nsplit, rows, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -83,8 +76,9 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
             None if new_counts is None else new_counts.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, hq, hkv, tq, d, num_pages,
-            page_size, npages, float(scale), float(softcap or 0.0), stream,
+            out.data_ptr(), lse.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), b, hq, hkv, tq, d, num_pages, page_size,
+            npages, nsplit, float(scale), float(softcap or 0.0), stream,
         )
         paged_decode_cuda.launches += 1
     _build.check_launch(lib, rc, "paged_decode")

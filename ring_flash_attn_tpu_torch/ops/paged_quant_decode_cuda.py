@@ -13,8 +13,8 @@ import ctypes
 import torch
 
 from . import _build
-from .quant_decode_cuda import (CHUNK, QTYPES, check_operand, check_rows,
-                                num_splits, partials)
+from .quant_decode_cuda import (QTYPES, check_operand, check_rows,
+                                paged_num_splits, partials)
 
 # rfa_paged_quant_decode(q, q_bf16, k_pages, v_pages, k_scales, v_scales,
 #                        block_tables, seq_lens, out, lse, part_acc, part_ml,
@@ -72,7 +72,7 @@ def paged_quant_decode_cuda(q, k_pages, k_scales, v_pages, v_scales,
     if out.numel() == 0:
         return out, lse
     rows = (hq // hkv) * tq
-    nsplit = num_splits(b * hkv, npages * -(-page_size // CHUNK))
+    nsplit = paged_num_splits(b, hkv, npages, page_size)
     part_acc, part_ml = partials(b * hkv, nsplit, rows, dev)
     lib = _lib()
     with torch.cuda.device(dev):

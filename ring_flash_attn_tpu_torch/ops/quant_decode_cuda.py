@@ -1,5 +1,5 @@
 """Launcher of kernel B4, decode over a contiguous quantized cache
-(``csrc/quant_decode.cu``).
+(``csrc/quant_decode.cu``), and the split plan that B4, B5 and B6 share.
 
 It replaces the TPU kernel ``ring_flash_attn_tpu/ops/quant_decode_pallas.py
 ::_kernel``. ``ops/quant.py::quant_decode_attention`` sends CUDA tensors
@@ -61,10 +61,17 @@ def check_rows(hq, hkv, tq, d):
 def num_splits(groups, max_chunks):
     """Blocks that share one (batch, kv head) group's tokens: enough to
     fill the card, each with at least MIN_CHUNKS chunks of the longest
-    possible sequence. Depends on shapes only, so results are reproducible
-    (the partials merge in split order)."""
+    possible sequence (a block takes ceil(max_chunks / splits) chunks of
+    it). Depends on shapes only, so results are reproducible (the partials
+    merge in split order)."""
     want = -(-TARGET_BLOCKS // groups)
-    return max(1, min(want, -(-max_chunks // MIN_CHUNKS)))
+    return max(1, min(want, max_chunks // MIN_CHUNKS))
+
+
+def paged_num_splits(b, hkv, npages, page_size):
+    """``num_splits`` of a paged cache (B5, B6): B * Hkv groups, each lane
+    at most npages pages of ceil(page_size / CHUNK) chunks."""
+    return num_splits(b * hkv, npages * -(-page_size // CHUNK))
 
 
 def partials(groups, nsplit, rows, dev):

@@ -12,8 +12,10 @@ The full check, at the serving shapes and with timings, is chip_smoke.py.
 import pytest
 import torch
 
-from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B7_EDGE_CASES,
-                        RING_OUT_REL_TOL, rel_err_rows, ring_steps)
+from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B3A_EDGE_CASES,
+                        B5_TOL, B7_EDGE_CASES, RING_OUT_REL_TOL,
+                        b5_case_inputs, b5_edge_cases, rel_err_rows,
+                        ring_steps)
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
 from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
 from ring_flash_attn_tpu_torch.ops.naive import naive_block_fwd
@@ -118,7 +120,9 @@ def _rel_err(a, ref):
 # first rows see no key (dead rows); one query row; three batches of odd
 # tiles; 200 dead rows over fewer keys than rows; then the kv-major loop's
 # tile edges (128 keys a block, 64 q rows a step): Skv 127, 128, 129, 255,
-# 257 against Sq 63, 64, 65, GQA groups of 8 and 1, both head dims, dead rows
+# 257 against Sq 63, 64, 65, GQA groups of 8 and 1, both head dims, dead
+# rows; then the q-major dq loop's (B3a: 128 q rows a block, 64 keys a
+# tile), chip_smoke's B3A_EDGE_CASES
 BWD_CASES = [
     (1, 8, 2, 200, 300, 128, True, 100),
     (2, 4, 4, 130, 77, 64, False, None),
@@ -132,7 +136,7 @@ BWD_CASES = [
     (1, 32, 4, 64, 255, 64, True, 191),
     (1, 8, 8, 65, 257, 128, True, -20),
     (1, 8, 1, 129, 257, 64, False, None),
-]
+] + B3A_EDGE_CASES
 
 
 @pytest.mark.cuda
@@ -174,6 +178,37 @@ def test_cuda_bwd_kernels_match_plain_version(case):
         assert same[0] or bwd is flash_bwd_cuda
     if offset is not None and offset < 0:  # dead rows get no gradient
         assert torch.all(got[0][:, :, :-offset] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(b5_edge_cases())))
+def test_cuda_paged_decode_split_edges(case):
+    """B5 at the split plan's edges (chip_smoke's b5_edge_cases: one
+    32768-token lane, a lane ending on a split boundary, lanes of 0 and 1
+    token, 16-token pages, R = 16 with new_counts, softcap with fp32 q)
+    against its plain version within B5_TOL; two calls give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+
+    spec = b5_edge_cases()[case]
+    g = torch.Generator(device="cuda").manual_seed(300 + case)
+    q, kp, vp, tables, lens, counts = b5_case_inputs(torch, spec, g, case)
+    n = paged_decode_cuda.launches
+    got, again = (paged_decode_cuda(q, kp, vp, tables, lens, 0.088,
+                                    softcap=spec["cap"], new_counts=counts)
+                  for _ in range(2))
+    assert paged_decode_cuda.launches == n + 2
+    ref_out, ref_lse = tpaged._plain_paged_decode(
+        q, tpaged.PagedKVCache(kp, vp, tables, lens), 0.088, spec["cap"],
+        counts)
+    assert float((got[0] - ref_out).abs().max()) <= B5_TOL
+    assert float((got[1] - ref_lse).abs().max()) <= B5_TOL
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    dead = lens == 0
+    assert torch.all(got[0][dead] == 0) and torch.all(got[1][dead] == -1e30)
 
 
 @pytest.mark.cuda
