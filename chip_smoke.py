@@ -53,10 +53,13 @@ Phases, each of which raises on failure:
 7. Kernel B4 (decode over a contiguous int8/fp8 cache) against its plain
    version: S=32768 at lengths 32768, 30001 and 0, both fp8 types,
    softcap, B=2, Tq=2, S=1280, a 32-token tail cache, ``length`` as a CUDA
-   tensor; timed at B=1, S=32768 int8 beside its byte bound.
+   tensor, the decode loop's pipeline edges and 16 rows; bitwise the same
+   call after call, also after calls of other shapes; timed at B=1,
+   S=32768 int8 beside its byte bound, and on the 32-token tail cache.
 8. Kernel B6 (decode over int8/fp8 pages) against its plain version: 8
    lanes of ragged lengths over shuffled block tables, the three types,
-   softcap; then its path through the op-level entry points
+   softcap, bitwise the same call after call, the pipeline edges and 16
+   rows; then its path through the op-level entry points
    (``paged_quant_prefill``, 8 steps of ``paged_quant_append`` and
    ``paged_quant_decode_attention``) with its launch count; timed at B=4,
    context 8192, pages of 256 and 512, beside its byte bound and B5 in
@@ -118,12 +121,16 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM
 B1_OUT_TOL, B1_LSE_TOL = 2e-2, 1e-3  # bf16 P in P@V, bf16 out
-B5_TOL = 2e-3  # fp32 math on both sides; only the summation order differs
-# B4 and B6 keep fp32 operands on CUDA cores, as their plain versions do
-# (the int8 QK product of B6 is exact on both sides): only the summation
-# order, __expf and tanhf differ, a few ulps of fp32 (out is O(1e-2) and
-# lse O(10) at S=32768). One 64-token chunk dropped of 32768 would move
-# out by about 4e-4 and lse by about 2e-3, far past this limit
+# B5: fp32 on the plain side; the kernel's tensor-core products take q and
+# p in two bf16 halves (16 bits) against the exact bf16 cache
+B5_TOL = 2e-3
+# B4 and B6 take q and p in two fp16 halves (~22 bits, after a power-of-two
+# prescale) against cache values that are exact in fp16, so they stay
+# within a few ulps of the plain versions' fp32 (the int8 QK product of
+# B6 is exact on both sides); the summation order, __expf and tanhf
+# differ too (out is O(1e-2) and lse O(10) at S=32768). One 64-token chunk
+# dropped of 32768 would move out by about 4e-4 and lse by about 2e-3, far
+# past this limit
 QUANT_TOL = 1e-5
 LOGITS_REL_TOL = 5e-2  # |kernel - plain| / max|plain| after 4 bf16 layers
 # |kernel - plain| / max|plain| of dq, dk, dv: p and ds enter bf16 tensor-core
@@ -327,16 +334,16 @@ def rel_err_rows(a, ref):
 
 # each kernel's instantiation at the timed shape (head_dim 128): its library
 # (csrc/<lib>.cu) and a piece of its mangled name; the largest over the
-# instantiations that match where a kernel has several (B4, B5, B6, B7)
+# instantiations that match where a kernel has several (B7)
 INSTANTIATIONS = {
     "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0E"),
-    "B5 paged_decode": ("paged_decode", "paged_decode_kernel"),
+    "B5 paged_decode": ("paged_decode", "paged_decode_kernelILi4E"),
     "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0E"),
     "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128E"),
     "B3b flash_bwd_dkv": ("flash_bwd_split", "bwd_kv_kernelILi128ELb0ELb0E"),
-    "B4 quant_decode": ("quant_decode", "quant_decode_kernel"),
+    "B4 quant_decode": ("quant_decode", "quant_decode_kernelILi0ELi4E"),
     "B6 paged_quant_decode": ("paged_quant_decode",
-                              "paged_quant_decode_kernel"),
+                              "paged_quant_decode_kernelILi0ELi4E"),
     "B7 fused_ring_fwd": ("fused_ring_fwd", "flash_fwd_kernelILi128ELb1E"),
     "B8 fused_ring_bwd": ("fused_ring_bwd", "bwd_kv_kernelILi128ELb1ELb1E"),
 }
@@ -453,8 +460,9 @@ def profile_loop(tool, loop, piece, timings):
         lib = INSTANTIATIONS[name][0]
         facts = ptxas_facts(paths[lib][:-3] + ".log")
         for fn, f in sorted(facts.items()):
-            if any(p in fn for p in pieces):
-                log(f"  ptxas {name} {fn[:64]}: {f}")
+            for p in pieces:
+                if p in fn:  # the name from the piece on: its template
+                    log(f"  ptxas {name} {fn[fn.index(p):][:72]}: {f}")
         with open(paths[lib][:-3] + ".log") as f:
             for line in f:
                 if "wgmma" in line or "setmaxnreg" in line:
@@ -611,9 +619,9 @@ def b5_edge_cases():
     from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
         CHUNK, paged_num_splits)
 
-    # 4 lanes, 32 pages of 256: lane 0 ends on the last token of the
-    # splits' third chunk each (n_chunks = 3 * nsplit); lanes of 0 and 1
-    # token among long ones
+    # 4 lanes, 32 pages of 256: lane 0 ends on the last token of its
+    # 3 * nsplit-th chunk (one chunk for each pipeline of each split);
+    # lanes of 0 and 1 token among long ones
     split = paged_num_splits(4, 8, 32, 256)
     return [
         # B = 1, one lane of 32768 tokens: the most splits
@@ -1376,6 +1384,23 @@ def phase_b4(torch, flush):
         ("int8 tail cache S=32 length 7", q1, cache_of(1, 32, "int8"), 7,
          None),
     ]
+    # the pipelines' edges (quant_decode.cuh: 64-token chunks dealt out in
+    # turn to 3 pipelines a block, 3 stages a ring): one split over
+    # C * NP * NST - 1, C * NP * NST, C * NP * NST + 1 tokens (the last
+    # wraps pipeline 0's ring); S = 1; 14 of 16 splits with no chunk;
+    # R = 16 (Tq = 4) in int8 and fp8
+    edge = cache_of(1, 640, "fp8_e4m3")
+    cases += [
+        (f"fp8_e4m3 S=640 length {n} (one split)", q1, edge, n, None)
+        for n in (575, 576, 577)]
+    cases += [
+        ("int8 S=1", q1, cache_of(1, 1, "int8"), 1, None),
+        ("int8 S=32768 length 100 (14 empty splits)", q1, big, 100, None),
+        ("int8 Tq=4 (16 rows) S=32768 length 32000", q_of(1, tq=4), big,
+         32000, 30.0),
+        ("fp8_e5m2 Tq=4 (16 rows) S=3000", q_of(1, tq=4),
+         cache_of(1, 3000, "fp8_e5m2"), 2999, None),
+    ]
     worst = 0.0
     for name, q, c, length, cap in cases:
         got = run(q, c, length, cap)
@@ -1385,15 +1410,26 @@ def phase_b4(torch, flush):
         if name.endswith("length 0") and not (
                 bool((got[0] == 0).all()) and bool((got[1] == -1e30).all())):
             raise AssertionError("B4: length 0 must give out=0, lse=NEG_INF")
+    # the same bits call after call, also after calls of other shapes on
+    # the same workspace (its group counters are back at zero each time)
     again = run(q1, big, 32768)
-    if not (torch.equal(again[0], run(q1, big, 32768)[0])):
-        raise AssertionError("B4 is not bitwise reproducible")
+    for q, c, length, cap in ((q1, big, 32768, None),
+                              (cases[-1][1], cases[-1][2], 2999, None),
+                              (q1, edge, 577, None)):
+        if not torch.equal(again[0], run(q1, big, 32768)[0]):
+            raise AssertionError("B4 is not bitwise reproducible")
+        run(q, c, length, cap)
+    del edge
 
-    # the two launches take less device time than the host needs to issue
-    # them, so ms (CUDA events around the call) holds the launcher's host
-    # work and device_ms is what the card spends
+    # the launch takes less device time than the host needs to issue it,
+    # so ms (CUDA events around the call) holds the launcher's host work
+    # and device_ms is what the card spends
     t = kernel_ms(torch, lambda: run(q1, big, 32768), 20, flush)
     ms, dev_ms = t["ms"], t["device_ms"]
+    # the other half of generate's B4 launches: its 32-token tail cache
+    tail_c = next(c for name, _, c, _, _ in cases
+                  if name.startswith("int8 tail cache"))
+    tail = kernel_ms(torch, lambda: run(q1, tail_c, 32), 20, flush)
     plain_ms = cuda_ms(torch, lambda: _plain_quant_decode(
         q1, big, 32768, scale), 5, flush)
     cache_bytes = 2 * big.k_q.numel() + 2 * 4 * big.k_scale.numel()
@@ -1406,7 +1442,9 @@ def phase_b4(torch, flush):
         f"device time ({dev_ms / bound_ms:.1f}x; "
         f"{cache_bytes / dev_ms / 1e6:.1f} GB/s of cache), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes: "
-        f"{cache_bytes / 1e6:.1f} MB of cache and scales)")
+        f"{cache_bytes / 1e6:.1f} MB of cache and scales); the 32-token "
+        f"tail cache: {tail['ms']:.4f} ms, {tail['device_ms']:.4f} ms of "
+        f"device time")
     return {
         "name": "B4 quant_decode", "route": "cuda",
         "source": "ring_flash_attn_tpu_torch/csrc/quant_decode.cu",
@@ -1415,6 +1453,7 @@ def phase_b4(torch, flush):
                  "length 32768",
         "max_abs_err": worst, **t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "tail_s32": tail,
     }
 
 
@@ -1458,7 +1497,32 @@ def phase_b6(torch, flush):
                     and bool((got[1][0] == -1e30).all())):
                 raise AssertionError("B6: a dead lane must give out=0, "
                                      "lse=NEG_INF")
-    del c, k, v
+    # the same bits call after call, also after a call of another shape
+    again = kernel(q1, c)
+    for other in (q2, q1[:, :8].contiguous(), q1):
+        if not all(torch.equal(x, y) for x, y in zip(again, kernel(q1, c))):
+            raise AssertionError("B6 is not bitwise reproducible")
+        kernel(other, c)
+    # the pipelines' edges: pages of one chunk, 10 a lane (one split),
+    # lanes of C * NP * NST - 1, C * NP * NST and C * NP * NST + 1 tokens
+    # (the last wraps pipeline 0's ring) and of 1 token; R = 16 (Tq = 4)
+    elens = [0, 575, 576, 577, 1]
+    ke = rnd(len(elens), hkv, 640, d)
+    q16 = rnd(len(elens), hq, 4, d).to(torch.bfloat16)
+    for qdtype in ("int8", "fp8_e5m2"):
+        ce = P.paged_quant_prefill(P.paged_quant_init(
+            len(elens), hkv, 10 * len(elens), 64, 10, d, qdtype=qdtype,
+            block_tables=np.random.default_rng(9).permutation(
+                10 * len(elens)).astype(np.int32).reshape(-1, 10)),
+            ke, ke.flip(-1), elens)
+        for name, q in ((f"{qdtype}, pages of 64, lens {elens}",
+                         q16[:, :, :1].contiguous()),
+                        (f"{qdtype}, pages of 64, Tq=4 (16 rows)", q16)):
+            got = kernel(q, ce)
+            ref = P._plain_quant_paged_decode(q, ce, scale, None)
+            torch.cuda.synchronize()
+            worst = max(worst, _check_pair("B6", name, got, ref, QUANT_TOL))
+    del c, k, v, ke, ce
 
     # its path through the op-level entry points: prefill, then 8 steps of
     # append + decode; a second cache, filled the same way, goes to the

@@ -12,18 +12,23 @@ timed by the same code in one machine session: run parent, change, change,
 parent.
 
 1. Builds the kernels and prints ptxas's registers, spills and shared memory
-   of the decode kernels and of the merge kernel they share.
+   of every instantiation of the decode kernels.
 2. Prints a sha256 digest of B4's (out, lse) on ``chip_smoke.py`` phase 7's
-   inputs and of B6's on phase 8's (the same seeds and the same order of
-   draws): two trees whose digests agree give the same bits.
+   inputs, of B6's on phase 8's (the same seeds and the same order of
+   draws) and of B5's on the serving table's shape with and without
+   new_counts: two trees whose digests agree give the same bits.
 3. Times, ``rounds`` times in turns: B5 at the serving table's shape (q
    (8,32,1,128) bf16, lens 0 to 4096, pages of 256), at the engine's 4
    lanes, with R = 16 (Tq = 4, new_counts) and on 4 x 8192 tokens in pages
-   of 256; B6 on the same 4 x 8192 tokens in int8; B4 at B=1, S=32768 int8.
+   of 256; B6 on the same 4 x 8192 tokens in int8; B4 at B=1, S=32768 int8
+   (the prompt cache of ``generate``'s decode step) and on its 32-token
+   tail cache at length 32 (the other half of B4's launches there).
    Each reading is ``chip_smoke.kernel_ms``'s: ``ms`` between CUDA events
    around the call and ``dev``, the profiler's device time of what the call
-   launches, the L2 flushed before each call; beside each, the least time
-   the card could take (bytes).
+   launches, the L2 flushed before each call by writing 256 MB; B4 and B6
+   once more with the L2 flushed by reading them (ReadFlush), which leaves
+   no dirty line whose write-back lands in the kernel's time; beside each,
+   the least time the card could take (bytes).
 
 Correctness is ``chip_smoke.py``'s (phases 3, 7, 8) and
 ``tests/test_torch_cuda.py``'s. Prints the card's name and power limit
@@ -43,7 +48,7 @@ from chip_smoke import (  # noqa: E402
     H100_BYTES_PER_S, _b5_bound_ms, kernel_ms, log, profile_loop)
 
 LOOP = ("B5 paged_decode", "B6 paged_quant_decode", "B4 quant_decode")
-PIECES = ("decode_kernel", "merge_splits_kernel")
+PIECES = ("decode_kernel",)
 
 
 def _digest(torch, pairs):
@@ -60,6 +65,8 @@ def digests(torch):
     """B4 on phase 7's inputs and B6 on phase 8's (chip_smoke.py): the
     same generators, seeds and order of draws."""
     from ring_flash_attn_tpu_torch.ops import paged as P
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
     from ring_flash_attn_tpu_torch.ops.paged_quant_decode_cuda import (
         paged_quant_decode_cuda)
     from ring_flash_attn_tpu_torch.ops.quant import quantize_kv
@@ -118,9 +125,39 @@ def digests(torch):
                 q, c.k_pages, c.k_scales, c.v_pages, c.v_scales,
                 c.block_tables, c.seq_lens, scale, softcap=cap))
     b6 = _digest(torch, outs)
+    del outs, c, k, v
+
+    # B5 at the serving table's shape, bf16 q, then Tq = 4 with new_counts
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tables = torch.as_tensor(perm.reshape(b, pps), device=dev)
+    seq = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kp = rnd(b * pps, hkv, ps, d).to(torch.bfloat16)
+    vp = rnd(b * pps, hkv, ps, d).to(torch.bfloat16)
+    counts = torch.tensor([3, 1, 4, 4, 2, 4, 4, 4], dtype=torch.int32,
+                          device=dev)
+    b5 = _digest(torch, [
+        paged_decode_cuda(rnd(b, hq, 1, d).to(torch.bfloat16), kp, vp,
+                          tables, seq, scale),
+        paged_decode_cuda(rnd(b, hq, 4, d).to(torch.bfloat16), kp, vp,
+                          tables, seq, scale, new_counts=counts)])
     log(f"  digests of (out, lse): B4 on phase 7's inputs {b4}, B6 on "
-        f"phase 8's inputs {b6}")
-    return b4, b6
+        f"phase 8's inputs {b6}, B5 at the table's shape {b5}")
+    return b4, b6, b5
+
+
+class ReadFlush:
+    """A flush for kernel_ms that leaves the L2 clean: its zero_() reads
+    256 MB. The usual flush, a 256 MB tensor whose zero_() writes them,
+    leaves dirty lines in the L2 whose write-back lands in the next
+    kernel's time, which weighs on the decode kernels (tens of
+    microseconds) alone."""
+
+    def __init__(self, torch):
+        self.buf = torch.empty(64 * 2**20, dtype=torch.float32,
+                               device="cuda")
+
+    def zero_(self):
+        self.buf.sum()
 
 
 def timings(torch, rounds):
@@ -174,6 +211,11 @@ def timings(torch, rounds):
     # B4 at B=1, S=32768 int8 (phase 7's timed shape)
     big = quantize_kv(rnd(1, hkv, 32768, d), rnd(1, hkv, 32768, d), "int8")
     q1 = rnd(1, hq, 1, d).to(torch.bfloat16)
+    tail = quantize_kv(rnd(1, hkv, 32, d), rnd(1, hkv, 32, d), "int8")
+
+    def b4_bound(tokens):
+        return ((2 * tokens * hkv * d + 8 * tokens * hkv)
+                / H100_BYTES_PER_S * 1e3)
 
     fns = {
         "B5 table shape": (lambda: paged_decode_cuda(
@@ -195,20 +237,26 @@ def timings(torch, rounds):
             / H100_BYTES_PER_S * 1e3),
         "B4 S=32768 int8": (lambda: quant_decode_cuda(
             q1, big.k_q, big.k_scale, big.v_q, big.v_scale, 32768, scale),
-            (2 * big.k_q.numel() + 8 * big.k_scale.numel())
-            / H100_BYTES_PER_S * 1e3),
+            b4_bound(32768)),
+        "B4 tail S=32 int8": (lambda: quant_decode_cuda(
+            q1, tail.k_q, tail.k_scale, tail.v_q, tail.v_scale, 32, scale),
+            b4_bound(32)),
     }
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    clean = ReadFlush(torch)
+    for name in ("B4 S=32768 int8", "B6 4 x 8192 int8"):
+        fns[name + ", L2 flushed by reading"] = fns[name]
     times = collections.defaultdict(list)
     for _ in range(rounds):
         for name, (fn, _) in fns.items():
-            times[name].append(kernel_ms(torch, fn, 20, flush))
+            times[name].append(kernel_ms(
+                torch, fn, 20, clean if "by reading" in name else flush))
     for name, ts in times.items():
         bound = fns[name][1]
         best = min(t["device_ms"] for t in ts)
         log(f"  {name}: ms " + ", ".join(f"{t['ms']:.4f}" for t in ts)
             + "; dev " + ", ".join(f"{t['device_ms']:.4f}" for t in ts)
-            + f"; bound {bound:.4f} ms, dev {best / bound:.1f}x it")
+            + f"; bound {bound:.5f} ms, dev {best / bound:.1f}x it")
     return times
 
 

@@ -298,6 +298,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory by the copy engine, completing
+// on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(rfa::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(rfa::smem_u32(bar))
+      : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread has issued so far has
+// landed. The arrival is not counted in advance (.noinc): the barrier's
+// count must include it.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   rfa::smem_u32(bar))
+               : "memory");
+}
+
 // global += shared, one box of a 4-D fp32 tensor map at coordinates (c0
 // the innermost), added by the copy engine as one bulk group of this
 // thread; elements outside the tensor are dropped.

@@ -1,7 +1,7 @@
 // Decode attention over a KV cache split over blocks: the loop that kernels
 // B4 (contiguous quantized cache, quant_decode.cu), B5 (bf16 pages,
 // paged_decode.cu) and B6 (quantized pages, paged_quant_decode.cu) share,
-// and the kernel that merges their partials.
+// with the merge of a group's partials in the same launch.
 //
 // They replace the TPU kernels ring_flash_attn_tpu/ops/
 // quant_decode_pallas.py::_kernel and ring_flash_attn_tpu/ops/paged.py::
@@ -15,31 +15,41 @@
 // loaded or applied). With BOUNDS (B5's new_counts) each row has its own
 // last live token.
 //
-// What bounds it on the H100: bytes. A token's K and V are used by only
-// the R rows of its group (4 at Llama-3-8B widths), about two operations
-// per byte (one for bf16), so the least time is one read of the live cache
-// and scales at 3.35 TB/s. The design serves that:
+// What bounds it on the H100: bytes. A token's K and V are used by only the
+// R rows of its group (4 at Llama-3-8B widths), about two operations per
+// byte (one for bf16), so the least time is one read of the live cache and
+// scales at 3.35 TB/s. The design keeps cache bytes in flight all the time
+// and the arithmetic well below them:
 //
-//  - a group's tokens are split over gridDim.x blocks, so that a batch of
-//    one with 8 kv heads still fills the 132 SMs; each block walks its
-//    range in 64-token chunks, double-buffered with cp.async (shared
-//    memory is what limits the blocks an SM holds, and a third stage cost
-//    more in occupancy than it hid in latency: measured), and
-//    writes an unnormalised partial (acc, m, l); a second small kernel
-//    merges a row's partials in a fixed order, so the result does not
-//    depend on which block finished first;
-//  - values are widened in registers: int8 by a byte permute into the
-//    mantissa of 2^23 and one subtraction (no integer-to-float
-//    conversion), fp8 through the hardware's fp8x2 -> half2 conversion,
-//    bf16 by a shift;
-//  - QK and PV are fp32 FMAs on CUDA cores (with 4 to 16 rows the work is
-//    far below the memory time and too thin for tensor cores); with
+//  - one block an SM, each running NP pipelines side by side (pipes());
+//    a group's 64-token chunks are dealt out in turn to its splits'
+//    pipelines (the plan, ops/quant_decode_cuda.py::num_splits, fills the
+//    SMs from shapes alone), so a short lane still spreads;
+//  - a pipeline is a producer warp and NCW consumer warps over a ring of
+//    NST stages in shared memory. One producer thread issues a chunk's K
+//    and V rows as two bulk copies (contiguous in both sources: ContigSrc,
+//    and PagedSrc, whose chunk never spans a page) that complete on the
+//    stage's full mbarrier; the warp's lanes copy the 2 x 64 scales with
+//    cp.async (zero past the live tokens), arriving on the same barrier
+//    when they land, and look up 32 chunks' pages at once. It waits only
+//    for a stage's empty barrier;
+//  - consumer warps never meet inside the loop: each owns 16 tokens of a
+//    chunk and keeps its own online-softmax state per row, waits on the
+//    full barrier and arrives on the empty one. QK and PV run on tensor
+//    cores (mma.sync): the cached values are exact in the operand type
+//    (int8 and fp8 in fp16, bf16 in bf16), and q and p are each split in
+//    two 16-bit halves (fp16 after a power-of-two prescale, ~22 bits; bf16,
+//    16 bits, for B5), so the results stay within fp32 rounding of
+//    CUDA-core arithmetic, which had set the loop's time (PERF.md). With
 //    QK_INT8 (B6 on int8 pages) q is quantized per row to int8 in the
-//    block and QK is an exact s8 x s8 -> s32 product (__dp4a) times
+//    block and QK is an exact s8 x s8 -> s32 product times
 //    q_scale * k_scale, the function the TPU kernel computes;
-//  - in PV each thread owns 4 output columns and each warp a quarter of
-//    the chunk's tokens, so one 32-bit (bf16: 64-bit) shared-memory load
-//    feeds 4 * R FMAs; the warps' sums meet once, at the end of the block.
+//  - the warps' states merge once, at the end of the block, in a fixed
+//    order; with one split the block writes (out, lse), otherwise its
+//    partial, and the group's last block to finish (a counter per group,
+//    after a fence; the last block resets it to 0) merges the partials in
+//    split order, all its loads issued at once: the result does not depend
+//    on which block finished first, and there is no second launch.
 //
 // The TPU kernels' sequential (B, n_blk) grid, all-heads block-diagonal
 // matmul, 128-multiple blocks and pages_per_step are shapes of that
@@ -50,14 +60,15 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace rfa_qd {
 
-constexpr int D = 128;         // head dim these kernels take
-constexpr int C = 64;          // tokens per chunk
-constexpr int NTHREADS = 128;  // 4 warps
-constexpr int NST = 2;         // cp.async stages (see above)
+constexpr int D = 128;           // head dim these kernels take
+constexpr int C = 64;            // tokens per chunk
+constexpr int NCW = 4;           // consumer warps of a pipeline
+constexpr int CT = C / NCW;      // tokens a consumer warp owns (16)
+constexpr int CONSUMER_BAR = 1;  // named barrier of the consumer warps
 
 enum { QT_INT8 = 0, QT_E4M3 = 1, QT_E5M2 = 2, QT_BF16 = 3 };
 
@@ -67,362 +78,818 @@ __host__ __device__ constexpr int value_bytes() {
   return QT == QT_BF16 ? 2 : 1;
 }
 
-// Four quantized values packed in w (lowest byte first) as floats, exact.
-template <int QT>
-__device__ __forceinline__ void cvt4(uint32_t w, float (&f)[4]) {
-  static_assert(QT != QT_BF16, "bf16 values take cvt_bf16x4");
-  if constexpr (QT == QT_INT8) {
-    // byte x + 128 into the low mantissa bits of 2^23, minus (2^23 + 128)
-    w ^= 0x80808080u;
+// Stages of a pipeline's chunk ring: a stage is 16 KB of int8/fp8 K+V or
+// 32 KB of bf16, and the rings of an SM's pipelines keep far more than
+// the ~38 KB in flight that 3.35 TB/s needs at ~1.5 us of loaded latency.
+template <int EB>
+__host__ __device__ constexpr int stages() {
+  return EB == 1 ? 3 : 2;
+}
+
+// Pipelines a block runs side by side, each a producer warp and NCW
+// consumer warps over its own ring and its own share of the block's
+// chunks; one block an SM. As many as the registers allow at RMAX rows
+// (65536 / threads: 136 a thread at 3 pipelines, 204 at 2; 4 pipelines,
+// at 96, spilled and lost) and the shared memory (3 pipelines of int8/fp8
+// at ~51 KB, of bf16 at ~67 KB). Their states meet in shared memory at
+// the end of the block, so a group has a third as many partials to merge
+// as with a block a pipeline.
+template <int RMAX, int EB>
+__host__ __device__ constexpr int pipes() {
+  return RMAX <= 8 ? 3 : 2;
+}
+
+template <int RMAX, int EB>
+__host__ __device__ constexpr int nthreads() {
+  return 32 * (NCW + 1) * pipes<RMAX, EB>();
+}
+
+template <int RMAX, int EB>
+struct Smem {
+  static constexpr int NST = stages<EB>();
+  static constexpr int NP = pipes<RMAX, EB>();
+  static constexpr int RB = D * EB;                 // bytes of a K or V row
+  // a pipeline's part, PIPE bytes, NP of them one after the other
+  static constexpr int BAR = 0;                     // u64 full[NST], empty[NST]
+  static constexpr int K = 128;                     // u8 [NST][C][RB]
+  static constexpr int V = K + NST * C * RB;        // u8 [NST][C][RB]
+  static constexpr int SC = V + NST * C * RB;       // f32 [NST][2][C]
+  static constexpr int P = SC + NST * 2 * C * 4;    // f32 [NCW][RMAX][CT]
+  static constexpr int ML = P + NCW * RMAX * CT * 4;  // f32 [2][NCW][RMAX]
+  static constexpr int PIPE = (ML + 2 * NCW * RMAX * 4 + 127) / 128 * 128;
+  // the block's part
+  static constexpr int Q = NP * PIPE;               // f32 [RMAX][D]
+  static constexpr int Q8 = Q + RMAX * D * 4;       // s8 [RMAX][D]
+  static constexpr int QSC = Q8 + RMAX * D;         // f32 [RMAX]
+  static constexpr int PRE = QSC + RMAX * 4;        // f32 [RMAX]
+  static constexpr int BND = PRE + RMAX * 4;        // s32 [RMAX]
+  static constexpr int QF = BND + RMAX * 4;         // u32x2 [8][RMAX/4][32]
+  static constexpr int LAST = QF + 8 * (RMAX / 4) * 32 * 8;  // s32
+  static constexpr int BYTES = LAST + 16;
+  // the end of the block reuses each pipeline's K and V stages for its
+  // warps' sums [NCW][RMAX][D], and the first's for the merge's m values
+  // [nsplit][R]
+  static constexpr int KV_BYTES = 2 * NST * C * RB;
+  static_assert(NCW * RMAX * D * 4 <= KV_BYTES, "reduction must fit");
+  static_assert(2 * NST * 8 <= K, "barriers must fit");
+  static_assert(BYTES <= 227 * 1024, "one block an SM");
+};
+
+// Where a group's result goes: (out, lse) rows g * R + r when the group
+// has one split; otherwise each split's partial (acc, (m, l)) at
+// part_acc[((g * nsplit + split) * R + r) * D + d] and
+// part_ml[((g * nsplit + split) * R + r) * 2 + {0, 1}], merged into
+// (out, lse) by the group's last block, which counters[g] (0 between
+// launches) tells.
+struct Dest {
+  float* out;
+  float* lse;
+  float* part_acc;
+  float* part_ml;
+  int* counters;
+};
+
+__device__ __forceinline__ float warp_max(float x, int from, int to = 32) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      f[i] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + i)) -
-             8388736.f;
+  for (int sft = from; sft < to; sft *= 2)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, sft));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x, int from) {
+#pragma unroll
+  for (int sft = from; sft < 32; sft *= 2)
+    x += __shfl_xor_sync(0xffffffff, x, sft);
+  return x;
+}
+
+// d += a b: mma.sync m16n8k16 with fp16 (BF: bf16) operands and fp32
+// accumulators. Fragments (g = lane / 4, t = lane % 4): a holds A rows g,
+// g + 8 at columns 2t, 2t + 1 and 2t + 8, 2t + 9; b holds B rows 2t,
+// 2t + 1 and 2t + 8, 2t + 9 at column g; d holds D rows g, g + 8 at
+// columns 2t, 2t + 1. The lower element of a pair is in the low half.
+template <bool BF>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (BF)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+        "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, "
+        "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b exactly: mma.sync m16n8k32, s8 operands, s32 accumulators (a:
+// rows g, g + 8 at columns 4t .. 4t + 3 and 16 + 4t ..; b: rows 4t .. and
+// 16 + 4t .. at column g).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bytes 2 pair and 2 pair + 1 of w, int8 or fp8 values, as an fp16 pair,
+// exactly: int8 by a byte permute into the mantissa of 1024 and one
+// subtraction of 1152, fp8 by the hardware's fp8x2 -> half2 conversion.
+template <int QT>
+__device__ __forceinline__ uint32_t half2_of(uint32_t w, int pair) {
+  if constexpr (QT == QT_INT8) {
+    const uint32_t h = __byte_perm(w ^ 0x80808080u, 0x64646464u,
+                                   pair ? 0x4342 : 0x4140);
+    const __half2 v = __hsub2(*reinterpret_cast<const __half2*>(&h),
+                              __half2(__ushort_as_half(0x6480),
+                                      __ushort_as_half(0x6480)));
+    return *reinterpret_cast<const uint32_t*>(&v);
   } else {
     constexpr __nv_fp8_interpretation_t kind =
         QT == QT_E4M3 ? __NV_E4M3 : __NV_E5M2;
-    const __half2_raw lo = __nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), kind);
-    const __half2_raw hi = __nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(w >> 16), kind);
-    const float2 a = __half22float2(__half2(lo));
-    const float2 b = __half22float2(__half2(hi));
-    f[0] = a.x;
-    f[1] = a.y;
-    f[2] = b.x;
-    f[3] = b.y;
+    const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(pair ? w >> 16 : w & 0xffffu),
+        kind);
+    return static_cast<uint32_t>(r.x) | (static_cast<uint32_t>(r.y) << 16);
   }
 }
 
-// Four bf16 values packed in w (lowest first) as floats, exact.
-__device__ __forceinline__ void cvt_bf16x4(uint2 w, float (&f)[4]) {
-  f[0] = __uint_as_float(w.x << 16);
-  f[1] = __uint_as_float(w.x & 0xffff0000u);
-  f[2] = __uint_as_float(w.y << 16);
-  f[3] = __uint_as_float(w.y & 0xffff0000u);
+// The pair (a, b) as 16-bit halves: part 0 the nearest fp16 (BF: bf16),
+// part 1 what is left of it.
+template <bool BF>
+__device__ __forceinline__ uint32_t split_pair(float a, float b, int part) {
+  if constexpr (BF) {
+    __nv_bfloat16 x = __float2bfloat16_rn(a), y = __float2bfloat16_rn(b);
+    if (part) {
+      x = __float2bfloat16_rn(a - __bfloat162float(x));
+      y = __float2bfloat16_rn(b - __bfloat162float(y));
+    }
+    return static_cast<uint32_t>(__bfloat16_as_ushort(x)) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(y)) << 16);
+  } else {
+    __half x = __float2half_rn(a), y = __float2half_rn(b);
+    if (part) {
+      x = __float2half_rn(a - __half2float(x));
+      y = __float2half_rn(b - __half2float(y));
+    }
+    return static_cast<uint32_t>(__half_as_ushort(x)) |
+           (static_cast<uint32_t>(__half_as_ushort(y)) << 16);
+  }
 }
 
-// EB bytes per cached value
-template <int RMAX, int EB = 1>
-struct Smem {
-  static constexpr int KLD = D * EB + 16;  // bytes per K row: conflict-free
-                                           // 16-B reads
-  static constexpr int K = 0;                       // u8 [NST][C][KLD]
-  static constexpr int V = K + NST * C * KLD;       // u8 [NST][C][D * EB]
-  static constexpr int SC = V + NST * C * D * EB;   // f32 [NST][2][C]
-  static constexpr int Q = SC + NST * 2 * C * 4;    // f32 [RMAX][D]
-  static constexpr int Q8 = Q + RMAX * D * 4;       // s8 [RMAX][D]
-  static constexpr int P = Q8 + RMAX * D;           // f32 [RMAX][C]
-  static constexpr int STATS = P + RMAX * C * 4;    // m, l, alpha, q_scale
-  static constexpr int BYTES = STATS + 4 * RMAX * 4;
-  // the end-of-block reduction reuses the K and V stages
-  static_assert(4 * RMAX * D * 4 <= SC, "reduction buffer must fit");
-};
+// The o-th row whose scores and output columns lane 4 g + t holds: at 4
+// rows rows 2 (t % 2), + 1 (lanes t and t ^ 2 hold the hi and lo halves),
+// else rows 8 (o / 2) + 2t + o % 2 (the hi n-tiles first, the lo after).
+template <int RMAX>
+__device__ __forceinline__ int own_row(int o, int t) {
+  return RMAX == 4 ? 2 * (t & 1) + o : 8 * (o / 2) + 2 * t + o % 2;
+}
 
-// One block's share of one group. Src gives the group's live chunks:
+// Warp w's sums [RMAX][D] at the end of the block: in its pipeline's K
+// and V stages.
+template <int RMAX, int EB>
+__device__ __forceinline__ float* red_of(unsigned char* smem, int w) {
+  using S = Smem<RMAX, EB>;
+  return reinterpret_cast<float*>(smem + (w / NCW) * S::PIPE + S::K) +
+         (w % NCW) * RMAX * D;
+}
+
+// Merge the nsplit partials of group g into (out, lse), in split order:
+// the group's last block, consumer threads only. All loads are issued at
+// once: every (split, row)'s m into ms, and warp w's splits w, w + NW, ...
+// (UNR of them) into registers, 4 columns a lane. Then warp r takes row
+// r's maximum, each warp weighs and adds its splits, and the warps' sums
+// meet in shared memory, in a fixed order. m_s holds RMAX floats, l_w
+// NW * RMAX.
+template <int RMAX, int EB>
+__device__ __forceinline__ void merge_group(const Dest& dst, long long g,
+                                            int nsplit, int R,
+                                            unsigned char* smem, float* m_s,
+                                            float* l_w) {
+  constexpr int NW = NCW * pipes<RMAX, EB>();
+  constexpr int UNR = RMAX <= 8 ? 2 : 1;
+  float* ms = reinterpret_cast<float*>(smem + Smem<RMAX, EB>::K);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const long long first = g * nsplit * R;  // + sp * R + r
+  for (int i = t; i < nsplit * R; i += 32 * NW)
+    ms[i] = __ldcg(dst.part_ml + (first + i) * 2);
+  float4 acc[RMAX];
+  float l[RMAX];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    l[r] = 0.f;
+  }
+  for (int sp0 = warp; sp0 < nsplit; sp0 += NW * UNR) {
+    float4 a[UNR][RMAX];
+    float li[UNR][RMAX];
+#pragma unroll
+    for (int u = 0; u < UNR; ++u)
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r)
+        if (r < R && sp0 + NW * u < nsplit) {
+          const long long row = first + (long long)(sp0 + NW * u) * R + r;
+          a[u][r] = __ldcg(
+              reinterpret_cast<const float4*>(dst.part_acc + row * D) + lane);
+          li[u][r] = __ldcg(dst.part_ml + row * 2 + 1);
+        }
+    if (sp0 == warp) {  // the row maxima, once every m has landed
+      hop::bar_sync(CONSUMER_BAR, 32 * NW);
+      for (int r = warp; r < R; r += NW) {
+        float m = -INFINITY;
+        for (int sp = lane; sp < nsplit; sp += 32) m = fmaxf(m, ms[sp * R + r]);
+        m = warp_max(m, 1);
+        if (lane == 0) m_s[r] = m;
+      }
+      hop::bar_sync(CONSUMER_BAR, 32 * NW);
+    }
+#pragma unroll
+    for (int u = 0; u < UNR; ++u)
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r)
+        if (r < R && sp0 + NW * u < nsplit) {
+          const float m_i = ms[(sp0 + NW * u) * R + r];
+          // an empty split, or a row with no live token, weighs nothing
+          const float w = m_i > -INFINITY ? __expf(m_i - m_s[r]) : 0.f;
+          acc[r].x += a[u][r].x * w;
+          acc[r].y += a[u][r].y * w;
+          acc[r].z += a[u][r].z * w;
+          acc[r].w += a[u][r].w * w;
+          l[r] += li[u][r] * w;
+        }
+  }
+  if (warp >= nsplit) {  // no split of its own: it still takes the maxima
+    hop::bar_sync(CONSUMER_BAR, 32 * NW);
+    for (int r = warp; r < R; r += NW) {
+      float m = -INFINITY;
+      for (int sp = lane; sp < nsplit; sp += 32) m = fmaxf(m, ms[sp * R + r]);
+      m = warp_max(m, 1);
+      if (lane == 0) m_s[r] = m;
+    }
+    hop::bar_sync(CONSUMER_BAR, 32 * NW);
+  }
+  hop::bar_sync(CONSUMER_BAR, 32 * NW);  // ms is read; sums may overlap it
+  float* red = red_of<RMAX, EB>(smem, warp);
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r)
+    if (r < R) {
+      reinterpret_cast<float4*>(red + r * D)[lane] = acc[r];
+      if (lane == 0) l_w[warp * RMAX + r] = l[r];
+    }
+  hop::bar_sync(CONSUMER_BAR, 32 * NW);
+  if (t < D) {
+    for (int r = 0; r < R; ++r) {
+      float sum = 0.f, lsum = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        sum += red_of<RMAX, EB>(smem, w)[r * D + t];
+        lsum += l_w[w * RMAX + r];
+      }
+      const long long row = g * R + r;
+      dst.out[row * D + t] = lsum > 0.f ? sum / lsum : 0.f;
+      if (t == 0)
+        dst.lse[row] = lsum > 0.f ? m_s[r] + logf(lsum) : RFA_NEG_INF;
+    }
+  }
+  if (t == 0) dst.counters[g] = 0;  // no other block of the group is left
+}
+
+// One block's share of group g (gridDim.x blocks share it), nthreads()
+// threads: NP pipelines. Src gives the group's live chunks:
 //   n_chunks; k, v (bytes), ks, vs (fp32 scales; not read for QT_BF16);
 //   locate(j, tok0, valid): chunk j starts at token index tok0 of the k/v
 //   arrays (byte offset tok0 * D * value_bytes, scale offset tok0) and
-//   holds `valid` live tokens (1..C);
+//   holds `valid` live tokens (1..C); count(j): that `valid` alone;
 //   with BOUNDS, pos(j): chunk j's first position in the group's sequence,
 //   and bound(r): row r sees positions below it only.
-// q rows row0 .. row0 + R of the (rows, D) query; the partial goes to
-// part_acc[(part0 + r) * D + d] and part_ml[(part0 + r) * 2 + {0, 1}].
+// q rows g * R .. g * R + R of the (rows, D) query.
 template <int QT, bool QK_INT8, int RMAX, bool BOUNDS = false, class Src>
-__device__ __forceinline__ void decode_split(
-    const Src& src, const void* __restrict__ q, int q_bf16, long long row0,
-    int R, float scale, float softcap, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, long long part0) {
+__device__ __forceinline__ void decode_split(const Src& src,
+                                             const void* __restrict__ q,
+                                             int q_bf16, long long g, int R,
+                                             float scale, float softcap,
+                                             const Dest& dst) {
   constexpr int EB = value_bytes<QT>();
   constexpr bool SCALES = QT != QT_BF16;
   using S = Smem<RMAX, EB>;
-  constexpr int KLD = S::KLD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ks = smem + S::K;
-  unsigned char* vs = smem + S::V;
-  float* sc = reinterpret_cast<float*>(smem + S::SC);
+  constexpr int NST = S::NST, RB = S::RB, NP = S::NP;
+  constexpr int NW = NCW * NP, NCONS = 32 * NW;  // consumer warps, threads
+  constexpr bool BF = QT == QT_BF16;
+  constexpr int NT = RMAX / 4;                    // n-tiles of 8 columns
+  constexpr int NKT = QK_INT8 ? D / 32 : D / 16;  // k-tiles of QK
+  constexpr int NO = RMAX == 4 ? 2 : RMAX / 4;    // rows a lane owns
+  extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + S::Q);
   signed char* q8 = reinterpret_cast<signed char*>(smem + S::Q8);
-  float* ps = reinterpret_cast<float*>(smem + S::P);
-  float* m_s = reinterpret_cast<float*>(smem + S::STATS);
-  float* l_s = m_s + RMAX;
-  float* a_s = l_s + RMAX;
-  float* qsc_s = a_s + RMAX;
+  float* qsc_s = reinterpret_cast<float*>(smem + S::QSC);
+  float* pre_s = reinterpret_cast<float*>(smem + S::PRE);
+  uint2* qf = reinterpret_cast<uint2*>(smem + S::QF);
+  int* bnd_s = reinterpret_cast<int*>(smem + S::BND);
+  int* last_s = reinterpret_cast<int*>(smem + S::LAST);
 
+  // warps 0 .. NW - 1 consume, pipeline w / NCW; warps NW .. NW + NP - 1
+  // produce, pipeline w - NW
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int pipe = warp < NW ? warp / NCW : warp - NW;
+  unsigned char* ps = smem + pipe * S::PIPE;  // this pipeline's part
+  uint64_t* full = reinterpret_cast<uint64_t*>(ps + S::BAR);
+  uint64_t* empty = full + NST;
+  unsigned char* ks = ps + S::K;
+  unsigned char* vs = ps + S::V;
+  float* sc = reinterpret_cast<float*>(ps + S::SC);
+  float* m_w = reinterpret_cast<float*>(ps + S::ML);  // [NCW][RMAX]
+  float* l_w = m_w + NCW * RMAX;
+
+  // the group's chunks are dealt out in turn over the splits' pipelines:
+  // this pipeline takes chunks j0, j0 + js, j0 + 2 js, ... (n of them), so
+  // a short lane still spreads over all its blocks
   const int nsplit = gridDim.x;
-  const int per = (src.n_chunks + nsplit - 1) / nsplit;
-  const int j0 = blockIdx.x * per;
-  const int n = max(0, min(src.n_chunks - j0, per));
+  const int j0 = blockIdx.x + nsplit * pipe, js = nsplit * NP;
+  const int n = max(0, (src.n_chunks - j0 + js - 1) / js);
 
-  auto load_chunk = [&](int stage, int j) {
-    long long tok0;
-    int valid;
-    src.locate(j, tok0, valid);
-    constexpr int RB = D * EB;  // bytes of a K or V row
-    for (int i = t; i < C * (RB / 16); i += NTHREADS) {
-      const int r = i / (RB / 16), c = (i % (RB / 16)) * 16;
-      const bool ok = r < valid;
-      const long long g = ok ? (tok0 + r) * RB + c : 0;
-      rfa::cp_async16(ks + (stage * C + r) * KLD + c, src.k + g, ok ? 16 : 0);
-      rfa::cp_async16(vs + (stage * C + r) * RB + c, src.v + g, ok ? 16 : 0);
-    }
-    if constexpr (SCALES) {  // threads 0..63 bring the K scales, 64..127 V's
-      const int c = t % C;
-      const bool ok = c < valid;
-      const float* base = t < C ? src.ks : src.vs;
-      rfa::cp_async4(sc + (stage * 2 + t / C) * C + c,
-                     base + (ok ? tok0 + c : 0), ok ? 4 : 0);
-    }
-  };
-
-  for (int s = 0; s < NST - 1; ++s) {
-    if (s < n) load_chunk(s, j0 + s);
-    rfa::cp_async_commit();
+  if (t == 0) {
+    for (int p = 0; p < NP; ++p)
+      for (int s = 0; s < NST; ++s) {
+        uint64_t* bar = reinterpret_cast<uint64_t*>(smem + p * S::PIPE);
+        hop::mbar_init(&bar[s], 1 + (SCALES ? 32 : 0));
+        hop::mbar_init(&bar[NST + s], NCW);
+      }
+    hop::mbar_fence_init();
   }
-  for (int i = t; i < R * D; i += NTHREADS) {
+  __syncthreads();
+
+  if (warp >= NW) {  // a producer
+    long long tok0_l = 0;  // lane l: where chunk 32 (i / 32) + l lies
+    int valid_l = 0;
+    for (int i = 0; i < n; ++i) {
+      const int st = i % NST;
+      // the lanes look up 32 chunks at once (a paged chunk's page id is a
+      // load from the block table), ahead of the wait for the stage
+      if (i % 32 == 0 && i + lane < n)
+        src.locate(j0 + (i + lane) * js, tok0_l, valid_l);
+      const long long tok0 = __shfl_sync(0xffffffff, tok0_l, i % 32);
+      const int valid = __shfl_sync(0xffffffff, valid_l, i % 32);
+      if (i >= NST) hop::mbar_wait(&empty[st], ((i / NST) + 1) & 1);
+      if (lane == 0) {
+        const uint32_t bytes = valid * RB;
+        hop::mbar_arrive_tx(&full[st], 2 * bytes);
+        hop::bulk_load(ks + st * C * RB, src.k + tok0 * RB, bytes, &full[st]);
+        hop::bulk_load(vs + st * C * RB, src.v + tok0 * RB, bytes, &full[st]);
+      }
+      if constexpr (SCALES) {
+#pragma unroll
+        for (int c = lane; c < C; c += 32) {
+          const bool ok = c < valid;
+          const long long at = ok ? tok0 + c : 0;
+          rfa::cp_async4(sc + st * 2 * C + c, src.ks + at, ok ? 4 : 0);
+          rfa::cp_async4(sc + (st * 2 + 1) * C + c, src.vs + at, ok ? 4 : 0);
+        }
+        hop::cp_async_mbar_arrive(&full[st]);
+      }
+    }
+    if constexpr (SCALES) rfa::cp_async_wait_all();  // none outlives us
+    return;
+  }
+
+  // consumers, on tensor cores (mma.sync, lane = 4 g4 + t4): QK is S^T
+  // (a warp's 16 tokens x 8 NT columns) = K q^T and PV is O^T (128 dims x
+  // 8 NT columns) = V^T P^T. A column x is half `x / RMAX` (hi or lo) of
+  // row x % RMAX: q and p are each split into two 16-bit halves whose sum
+  // holds ~22 bits (fp16, after a power-of-two prescale) or 16 (bf16, B5),
+  // against values that are exact in the operand type (int8 and fp8 in
+  // fp16, bf16 in bf16), so the products stay within fp32 rounding of the
+  // CUDA-core arithmetic. With QK_INT8, QK is an exact s8 x s8 product
+  // (m16n8k32), the lo half zero.
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int wl = warp % NCW;  // the warp in its pipeline
+  for (int i = t; i < R * D; i += NCONS) {
     const float x = q_bf16
-        ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[row0 * D + i])
-        : static_cast<const float*>(q)[row0 * D + i];
+        ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[g * R * D + i])
+        : static_cast<const float*>(q)[g * R * D + i];
     qs[i] = x * scale;
   }
-  if (t < R) {
-    m_s[t] = -INFINITY;
-    l_s[t] = 0.f;
+  if constexpr (BOUNDS) {
+    if (t < R) bnd_s[t] = src.bound(t);
   }
-  if constexpr (QK_INT8) {
-    // q rows to int8: scale max|q| / 127 (floor 1e-20), round half to even
-    __syncthreads();
-    for (int r = warp; r < R; r += NTHREADS / 32) {
-      float amax = 0.f;
+  hop::bar_sync(CONSUMER_BAR, NCONS);
+  for (int r = warp; r < R; r += NW) {
+    float x[D / 32];
+    float amax = 0.f;
 #pragma unroll
-      for (int e = 0; e < D / 32; ++e)
-        amax = fmaxf(amax, fabsf(qs[r * D + lane + 32 * e]));
-#pragma unroll
-      for (int sft = 16; sft > 0; sft /= 2)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffff, amax, sft));
+    for (int e = 0; e < D / 32; ++e) {
+      x[e] = qs[r * D + lane + 32 * e];
+      amax = fmaxf(amax, fabsf(x[e]));
+    }
+    amax = warp_max(amax, 1);
+    if constexpr (QK_INT8) {
+      // q rows to int8: scale max|q| / 127 (floor 1e-20), round half to
+      // even
       const float qsc = fmaxf(amax / 127.f, 1e-20f);
 #pragma unroll
       for (int e = 0; e < D / 32; ++e) {
-        const float v = rintf(qs[r * D + lane + 32 * e] / qsc);
+        const float v = rintf(x[e] / qsc);
         q8[r * D + lane + 32 * e] =
             static_cast<signed char>(fminf(fmaxf(v, -127.f), 127.f));
       }
       if (lane == 0) qsc_s[r] = qsc;
+    } else if (lane == 0) {
+      // fp16 halves: max|q| * 2^e in [2^14, 2^15), so that the lo half
+      // stays a normal number; bf16 halves need no prescale
+      int ex = 0;
+      frexpf(amax, &ex);
+      const float pre = (BF || amax == 0.f) ? 1.f : ldexpf(1.f, 15 - ex);
+      pre_s[r] = pre;
+      qsc_s[r] = 1.f / pre;  // exact: a power of two
     }
   }
-
-  float o[RMAX][4];
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[r][e] = 0.f;
-
-  const int c = t % C, rg = t / C;  // score phase: token c, rows rg + 2i
-  int bnd[RMAX / 2];  // with BOUNDS: rows rg + 2 k see positions below
-  if constexpr (BOUNDS) {
-#pragma unroll
-    for (int k = 0; k < RMAX / 2; ++k) bnd[k] = src.bound(rg + 2 * k);
-  }
-  for (int i = 0; i < n; ++i) {
-    rfa::cp_async_wait<NST - 2>();
-    __syncthreads();  // chunk i has landed; chunk i - 1's stage is free
-    if (i + NST - 1 < n) load_chunk((i + NST - 1) % NST, j0 + i + NST - 1);
-    rfa::cp_async_commit();
-
-    const int stage = i % NST;
-    long long tok0;
-    int valid;
-    src.locate(j0 + i, tok0, valid);
-    const float* ksc = sc + stage * 2 * C;
-    const float* vsc = ksc + C;
-
-    // scores: this thread's token c against rows rg, rg + 2, ...
-    const unsigned char* krow = ks + (stage * C + c) * KLD;
-    float sv[RMAX / 2];
-    if constexpr (QK_INT8) {
-      int acc[RMAX / 2];
-#pragma unroll
-      for (int k = 0; k < RMAX / 2; ++k) acc[k] = 0;
-#pragma unroll 2
-      for (int d = 0; d < D; d += 16) {
-        const uint4 kw = *reinterpret_cast<const uint4*>(krow + d);
-#pragma unroll
-        for (int k = 0; k < RMAX / 2; ++k) {
-          const int r = rg + 2 * k;
-          if (r < R) {
-            const uint4 qw = *reinterpret_cast<const uint4*>(q8 + r * D + d);
-            acc[k] = __dp4a(static_cast<int>(kw.x), static_cast<int>(qw.x),
-                            acc[k]);
-            acc[k] = __dp4a(static_cast<int>(kw.y), static_cast<int>(qw.y),
-                            acc[k]);
-            acc[k] = __dp4a(static_cast<int>(kw.z), static_cast<int>(qw.z),
-                            acc[k]);
-            acc[k] = __dp4a(static_cast<int>(kw.w), static_cast<int>(qw.w),
-                            acc[k]);
-          }
+  hop::bar_sync(CONSUMER_BAR, NCONS);
+  // q's B fragments, once a block: kt, n-tile, lane
+  for (int i = t; i < NKT * NT * 32; i += NCONS) {
+    const int kt = i / (NT * 32), nt = (i / 32) % NT, ln = i % 32;
+    const int gg = ln >> 2, tt = ln & 3;
+    const int x = 8 * nt + gg, part = x / RMAX, row = x % RMAX;
+    uint2 b = make_uint2(0u, 0u);
+    if (row < R) {
+      if constexpr (QK_INT8) {
+        if (part == 0) {
+          const int d0 = 64 * (kt / 2) + 16 * tt + 8 * (kt % 2);
+          b.x = *reinterpret_cast<const uint32_t*>(q8 + row * D + d0);
+          b.y = *reinterpret_cast<const uint32_t*>(q8 + row * D + d0 + 4);
         }
-      }
-#pragma unroll
-      for (int k = 0; k < RMAX / 2; ++k) {
-        const int r = rg + 2 * k;
-        sv[k] = r < R ? static_cast<float>(acc[k]) * qsc_s[r] * ksc[c] : 0.f;
-      }
-    } else if constexpr (QT == QT_BF16) {
-#pragma unroll
-      for (int k = 0; k < RMAX / 2; ++k) sv[k] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; d += 8) {
-        const uint4 kw = *reinterpret_cast<const uint4*>(krow + 2 * d);
-        float kf[2][4];
-        cvt_bf16x4(make_uint2(kw.x, kw.y), kf[0]);
-        cvt_bf16x4(make_uint2(kw.z, kw.w), kf[1]);
-#pragma unroll
-        for (int k = 0; k < RMAX / 2; ++k) {
-          const int r = rg + 2 * k;
-          if (r < R) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float4 q4 = *reinterpret_cast<const float4*>(
-                  qs + r * D + d + 4 * e);
-              sv[k] += q4.x * kf[e][0] + q4.y * kf[e][1] + q4.z * kf[e][2] +
-                       q4.w * kf[e][3];
-            }
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < RMAX / 2; ++k) sv[k] = 0.f;
-#pragma unroll 2
-      for (int d = 0; d < D; d += 16) {
-        const uint4 kw = *reinterpret_cast<const uint4*>(krow + d);
-        float kf[4][4];
-        cvt4<QT>(kw.x, kf[0]);
-        cvt4<QT>(kw.y, kf[1]);
-        cvt4<QT>(kw.z, kf[2]);
-        cvt4<QT>(kw.w, kf[3]);
-#pragma unroll
-        for (int k = 0; k < RMAX / 2; ++k) {
-          const int r = rg + 2 * k;
-          if (r < R) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float4 q4 = *reinterpret_cast<const float4*>(
-                  qs + r * D + d + 4 * e);
-              sv[k] += q4.x * kf[e][0] + q4.y * kf[e][1] + q4.z * kf[e][2] +
-                       q4.w * kf[e][3];
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < RMAX / 2; ++k) sv[k] *= ksc[c];
-    }
-#pragma unroll
-    for (int k = 0; k < RMAX / 2; ++k) {
-      const int r = rg + 2 * k;
-      if (r < R) {
-        float s = sv[k];
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        bool live = c < valid;
-        if constexpr (BOUNDS) live = live && src.pos(j0 + i) + c < bnd[k];
-        ps[r * C + c] = live ? s : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // online softmax, one warp per row; ps becomes p * v_scale
-    for (int r = warp; r < R; r += NTHREADS / 32) {
-      const float x0 = ps[r * C + lane], x1 = ps[r * C + lane + 32];
-      float mx = fmaxf(x0, x1);
-#pragma unroll
-      for (int sft = 16; sft > 0; sft /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, sft));
-      const float m_old = m_s[r];
-      float m_new = fmaxf(m_old, mx);  // finite without BOUNDS: valid >= 1
-      float m_use = m_new;
-      // with BOUNDS a row may have no live token yet: exponentiate
-      // against 0, so that it keeps p = 0, alpha = 0 and m = -inf
-      if constexpr (BOUNDS) m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float p0 = __expf(x0 - m_use), p1 = __expf(x1 - m_use);
-      if constexpr (SCALES) {
-        ps[r * C + lane] = p0 * vsc[lane];
-        ps[r * C + lane + 32] = p1 * vsc[lane + 32];
       } else {
-        ps[r * C + lane] = p0;
-        ps[r * C + lane + 32] = p1;
-      }
-      float sum = p0 + p1;
-#pragma unroll
-      for (int sft = 16; sft > 0; sft /= 2)
-        sum += __shfl_xor_sync(0xffffffff, sum, sft);
-      if (lane == 0) {
-        const float alpha = __expf(m_old - m_use);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
+        const int d0 = BF ? 32 * tt + 8 * (kt / 2) + 4 * (kt % 2)
+                          : 64 * (kt / 4) + 16 * tt + 4 * (kt % 4);
+        const float* qr = qs + row * D + d0;
+        const float pre = pre_s[row];
+        b.x = split_pair<BF>(qr[0] * pre, qr[1] * pre, part);
+        b.y = split_pair<BF>(qr[2] * pre, qr[3] * pre, part);
       }
     }
-    __syncthreads();
+    qf[i] = b;
+  }
+  hop::bar_sync(CONSUMER_BAR, NCONS);
 
-    // O = O * alpha + (p * v_scale) V: this thread's columns 4 * lane ..
-    // + 3, this warp's tokens warp * 16 .. + 15 of the chunk
+  float oacc[8][NT][4];  // O^T: m-tile, n-tile, fragment
 #pragma unroll
-    for (int r = 0; r < RMAX; ++r)
-      if (r < R) {
-        const float alpha = a_s[r];
+  for (int mt = 0; mt < 8; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[r][e] *= alpha;
-      }
-    const unsigned char* vst = vs + stage * C * D * EB;
-    for (int cc = warp * (C / 4); cc < (warp + 1) * (C / 4); cc += 4) {
-      if (cc >= valid) break;  // the rest of the chunk is dead (p = 0)
-      float vf[4][4];
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if constexpr (QT == QT_BF16)
-          cvt_bf16x4(reinterpret_cast<const uint2*>(vst)[(cc + k) * (D / 4) +
-                                                         lane],
-                     vf[k]);
-        else
-          cvt4<QT>(reinterpret_cast<const uint32_t*>(vst)[(cc + k) * (D / 4) +
-                                                          lane],
-                   vf[k]);
-      }
+      for (int e = 0; e < 4; ++e) oacc[mt][nt][e] = 0.f;
+  float m[NO], l[NO];
 #pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < R) {
-          const float4 p4 = *reinterpret_cast<const float4*>(ps + r * C + cc);
+  for (int o = 0; o < NO; ++o) {
+    m[o] = -INFINITY;
+    l[o] = 0.f;
+  }
+  float U = 1.f;  // oacc holds O / U (1-byte caches: p carries v_scale / U)
+  const bool writer = RMAX != 4 || t4 < 2;  // at 4 rows t4 ^ 2 agrees
+  float* pw = reinterpret_cast<float*>(ps + S::P) + wl * RMAX * CT;
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i % NST;
+    hop::mbar_wait(&full[st], (i / NST) & 1);
+    const int valid = src.count(j0 + i * js);
+    const int tok0 = CT * wl;  // this warp's tokens: tok0 .. tok0 + 15
+    if (tok0 < valid) {
+      const unsigned char* kst = ks + st * C * RB;
+      const unsigned char* vst = vs + st * C * RB;
+      const float* ksc = sc + st * 2 * C;
+      const float* vsc = ksc + C;
+      int pos0 = 0;
+      if constexpr (BOUNDS) pos0 = src.pos(j0 + i * js);
+
+      // QK: rows g4 and g4 + 8 of the warp's tokens, 16 bytes a load
+      const unsigned char* kr0 = kst + (tok0 + g4) * RB;
+      const unsigned char* kr1 = kr0 + 8 * RB;
+      float sacc[NT][4];
+      int iacc[NT][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            o[r][e] += p4.x * vf[0][e] + p4.y * vf[1][e] + p4.z * vf[2][e] +
-                       p4.w * vf[3][e];
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sacc[nt][e] = 0.f;
+          iacc[nt][e] = 0;
         }
-    }
-    // the next iteration's first barrier protects ps, a_s and this stage
-  }
-  rfa::cp_async_wait<0>();
-  __syncthreads();
+      auto qfrag = [&](int kt, int nt) {
+        return qf[(kt * NT + nt) * 32 + lane];
+      };
+      if constexpr (BF) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int at = 64 * t4 + 16 * p;
+          const uint4 w0 = *reinterpret_cast<const uint4*>(kr0 + at);
+          const uint4 w1 = *reinterpret_cast<const uint4*>(kr1 + at);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const uint32_t a[4] = {jj ? w0.z : w0.x, jj ? w1.z : w1.x,
+                                   jj ? w0.w : w0.y, jj ? w1.w : w1.y};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const uint2 b = qfrag(2 * p + jj, nt);
+              mma16<true>(sacc[nt], a, b.x, b.y);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = 64 * h + 16 * t4;
+          const uint4 w0 = *reinterpret_cast<const uint4*>(kr0 + at);
+          const uint4 w1 = *reinterpret_cast<const uint4*>(kr1 + at);
+          const uint32_t c0[4] = {w0.x, w0.y, w0.z, w0.w};
+          const uint32_t c1[4] = {w1.x, w1.y, w1.z, w1.w};
+          if constexpr (QK_INT8) {
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const uint32_t a[4] = {c0[2 * jj], c1[2 * jj], c0[2 * jj + 1],
+                                     c1[2 * jj + 1]};
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                const uint2 b = qfrag(2 * h + jj, nt);
+                mma_s8(iacc[nt], a, b.x, b.y);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const uint32_t a[4] = {
+                  half2_of<QT>(c0[j], 0), half2_of<QT>(c1[j], 0),
+                  half2_of<QT>(c0[j], 1), half2_of<QT>(c1[j], 1)};
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                const uint2 b = qfrag(4 * h + j, nt);
+                mma16<false>(sacc[nt], a, b.x, b.y);
+              }
+            }
+          }
+        }
+      }
 
-  // the four warps' sums meet in shared memory (the K and V stages)
-  float* red = reinterpret_cast<float*>(smem);
+      // the owned rows' scores: o-th row, tokens g4 (k = 0) and g4 + 8
+      float sv[NO][2];
 #pragma unroll
-  for (int r = 0; r < RMAX; ++r)
-    if (r < R)
-      *reinterpret_cast<float4*>(red + (warp * RMAX + r) * D + 4 * lane) =
-          make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
-  __syncthreads();
-  for (int r = 0; r < R; ++r) {
-    float sum = 0.f;
+      for (int o = 0; o < NO; ++o)
 #pragma unroll
-    for (int w = 0; w < NTHREADS / 32; ++w) sum += red[(w * RMAX + r) * D + t];
-    part_acc[(part0 + r) * D + t] = sum;
-    if (t == 0) {
-      part_ml[(part0 + r) * 2] = m_s[r];
-      part_ml[(part0 + r) * 2 + 1] = l_s[r];
+        for (int k = 0; k < 2; ++k) {
+          const int e = 2 * k + o % 2;
+          float v;
+          if constexpr (RMAX == 4) {
+            if constexpr (QK_INT8) {
+              const int x = iacc[0][e];
+              v = static_cast<float>(x + __shfl_xor_sync(0xffffffff, x, 2));
+            } else {
+              v = sacc[0][e];
+              v += __shfl_xor_sync(0xffffffff, v, 2);
+            }
+          } else {
+            const int nt = o / 2;
+            if constexpr (QK_INT8)
+              v = static_cast<float>(iacc[nt][e] + iacc[nt + NT / 2][e]);
+            else
+              v = sacc[nt][e] + sacc[nt + NT / 2][e];
+          }
+          sv[o][k] = v;
+        }
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        const int r = own_row<RMAX>(o, t4);
+        const float rs = qsc_s[min(r, R - 1)];  // q_scale, or 2^-e
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int c = tok0 + g4 + 8 * k;
+          float s = sv[o][k];
+          if constexpr (QK_INT8)
+            s = s * rs * ksc[c];
+          else if constexpr (SCALES)
+            s = s * rs * ksc[c];
+          if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+          bool live = c < valid && r < R;
+          if constexpr (BOUNDS) live = live && pos0 + c < bnd_s[r];
+          sv[o][k] = live ? s : -INFINITY;
+        }
+      }
+
+      // online softmax of the owned rows; pw holds p (1-byte caches:
+      // p * v_scale / smax * 2^14, and U = smax * 2^-14 carries the rest)
+      float pscale = 1.f, u_new = 1.f;
+      if constexpr (SCALES) {
+        const float smax =
+            fmaxf(warp_max(vsc[tok0 + (lane & 15)], 1, 16), 1e-30f);
+        pscale = 16384.f / smax;
+        u_new = smax * (1.f / 16384.f);
+      }
+      float f[NO];  // what oacc's columns of each owned row are scaled by
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        const int r = own_row<RMAX>(o, t4);
+        const float mx = warp_max(fmaxf(sv[o][0], sv[o][1]), 4);
+        const float m_new = fmaxf(m[o], mx);
+        // a row may have no live token yet (BOUNDS, or past R):
+        // exponentiate against 0, so that it keeps p = 0, alpha = 0 and
+        // m = -inf
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = __expf(m[o] - m_use);
+        const float p0 = __expf(sv[o][0] - m_use);
+        const float p1 = __expf(sv[o][1] - m_use);
+        l[o] = l[o] * alpha + (p0 + p1);
+        m[o] = m_new;
+        f[o] = alpha * (U / u_new);
+        if (writer && r < R) {
+          float w0 = p0, w1 = p1;
+          if constexpr (SCALES) {
+            w0 *= vsc[tok0 + g4] * pscale;
+            w1 *= vsc[tok0 + g4 + 8] * pscale;
+          }
+          pw[r * CT + g4] = w0;
+          pw[r * CT + g4 + 8] = w1;
+        }
+      }
+      U = u_new;
+      __syncwarp();
+
+      // PV: oacc = oacc * f + V^T P^T
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int o0 = RMAX == 4 ? 0 : 2 * (nt % (NT / 2 > 0 ? NT / 2 : 1));
+#pragma unroll
+        for (int mt = 0; mt < 8; ++mt) {
+          oacc[mt][nt][0] *= f[o0];
+          oacc[mt][nt][2] *= f[o0];
+          oacc[mt][nt][1] *= f[o0 + 1];
+          oacc[mt][nt][3] *= f[o0 + 1];
+        }
+      }
+      uint32_t pb[NT][2];  // P^T's B fragments: tokens 4 t4 .. + 3
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int x = 8 * nt + g4, part = x / RMAX, row = x % RMAX;
+        float4 pv = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row < R)
+          pv = *reinterpret_cast<const float4*>(pw + row * CT + 4 * t4);
+        pb[nt][0] = split_pair<BF>(pv.x, pv.y, part);
+        pb[nt][1] = split_pair<BF>(pv.z, pv.w, part);
+      }
+      // a dead token's row may hold anything: its values are zero here
+      bool vlive[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) vlive[k] = tok0 + 4 * t4 + k < valid;
+      const unsigned char* vr = vst + (tok0 + 4 * t4) * RB + 4 * g4;
+      if constexpr (BF) {
+#pragma unroll
+        for (int mt = 0; mt < 8; ++mt) {  // dims 16 mt + 2 g4, + 1
+          uint32_t u[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            u[k] = vlive[k] ? *reinterpret_cast<const uint32_t*>(
+                                  vr + k * RB + 32 * mt)
+                            : 0u;
+          const uint32_t a[4] = {__byte_perm(u[0], u[1], 0x5410),
+                                 __byte_perm(u[0], u[1], 0x7632),
+                                 __byte_perm(u[2], u[3], 0x5410),
+                                 __byte_perm(u[2], u[3], 0x7632)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma16<true>(oacc[mt][nt], a, pb[nt][0], pb[nt][1]);
+        }
+      } else {
+#pragma unroll
+        for (int qd = 0; qd < 4; ++qd) {  // dims 32 qd + 4 g4 .. + 3
+          uint32_t u[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            u[k] = vlive[k] ? *reinterpret_cast<const uint32_t*>(
+                                  vr + k * RB + 32 * qd)
+                            : 0u;
+#pragma unroll
+          for (int sb = 0; sb < 2; ++sb) {
+            const uint32_t sel = sb ? 0x7362 : 0x5140;
+            const uint32_t p01 = __byte_perm(u[0], u[1], sel);
+            const uint32_t p23 = __byte_perm(u[2], u[3], sel);
+            const uint32_t a[4] = {half2_of<QT>(p01, 0), half2_of<QT>(p01, 1),
+                                   half2_of<QT>(p23, 0), half2_of<QT>(p23, 1)};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma16<false>(oacc[2 * qd + sb][nt], a, pb[nt][0], pb[nt][1]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the stage and pw are read
+    if (lane == 0) hop::mbar_arrive(&empty[st]);
+  }
+
+  // the block's warps' states meet in a fixed order (each pipeline's K
+  // and V stages hold its warps' sums: every copy has landed, since every
+  // chunk was waited for). oacc * U is O; the hi and lo columns add up.
+#pragma unroll
+  for (int mt = 0; mt < 8; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = oacc[mt][nt][e] * U;
+        if constexpr (RMAX == 4) v += __shfl_xor_sync(0xffffffff, v, 2);
+        oacc[mt][nt][e] = v;
+      }
+  hop::bar_sync(CONSUMER_BAR, NCONS);
+  float* red = red_of<RMAX, EB>(smem, warp);
+  if (writer) {
+#pragma unroll
+    for (int nt = 0; nt < (RMAX == 4 ? 1 : NT / 2); ++nt)
+#pragma unroll
+      for (int cp = 0; cp < 2; ++cp) {
+        const int row = (8 * nt + 2 * t4 + cp) % RMAX;
+        if (row >= R) continue;
+        float v[8][2];  // m-tile, fragment row (g4 or g4 + 8)
+#pragma unroll
+        for (int mt = 0; mt < 8; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float x = oacc[mt][nt][2 * hh + cp];
+            if constexpr (RMAX != 4) x += oacc[mt][nt + NT / 2][2 * hh + cp];
+            v[mt][hh] = x;
+          }
+        float* rr = red + row * D;
+        if constexpr (BF) {
+#pragma unroll
+          for (int mt = 0; mt < 8; ++mt)
+            *reinterpret_cast<float2*>(rr + 16 * mt + 2 * g4) =
+                make_float2(v[mt][0], v[mt][1]);
+        } else {
+#pragma unroll
+          for (int qd = 0; qd < 4; ++qd)
+            *reinterpret_cast<float4*>(rr + 32 * qd + 4 * g4) =
+                make_float4(v[2 * qd][0], v[2 * qd][1], v[2 * qd + 1][0],
+                            v[2 * qd + 1][1]);
+        }
+      }
+  }
+#pragma unroll
+  for (int o = 0; o < NO; ++o) {
+    const float lsum = warp_sum(l[o], 4);
+    const int r = own_row<RMAX>(o, t4);
+    if (writer && g4 == 0 && r < R) {
+      m_w[wl * RMAX + r] = m[o];
+      l_w[wl * RMAX + r] = lsum;
     }
   }
+  hop::bar_sync(CONSUMER_BAR, NCONS);
+  // warp w's m and l: in pipeline w / NCW's part
+  auto ml_of = [&](int w, int r, int which) {
+    return reinterpret_cast<const float*>(smem + (w / NCW) * S::PIPE +
+                                          S::ML)[(which * NCW + w % NCW) *
+                                                     RMAX +
+                                                 r];
+  };
+  const long long part0 = (g * nsplit + blockIdx.x) * R;
+  if (t < D) {
+    for (int r = 0; r < R; ++r) {
+      float mb = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) mb = fmaxf(mb, ml_of(w, r, 0));
+      float acc = 0.f, lb = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float m_i = ml_of(w, r, 0);
+        const float wt = m_i > -INFINITY ? __expf(m_i - mb) : 0.f;
+        acc += red_of<RMAX, EB>(smem, w)[r * D + t] * wt;
+        lb += ml_of(w, r, 1) * wt;
+      }
+      if (nsplit == 1) {
+        const long long row = g * R + r;
+        dst.out[row * D + t] = lb > 0.f ? acc / lb : 0.f;
+        if (t == 0) dst.lse[row] = lb > 0.f ? mb + logf(lb) : RFA_NEG_INF;
+      } else {
+        dst.part_acc[(part0 + r) * D + t] = acc;
+        if (t == 0) {
+          dst.part_ml[(part0 + r) * 2] = mb;
+          dst.part_ml[(part0 + r) * 2 + 1] = lb;
+        }
+      }
+    }
+  }
+  if (nsplit == 1) return;
+
+  // the group's last block to get here merges its partials
+  __threadfence();
+  hop::bar_sync(CONSUMER_BAR, NCONS);
+  if (t == 0) *last_s = atomicAdd(dst.counters + g, 1) == nsplit - 1;
+  hop::bar_sync(CONSUMER_BAR, NCONS);
+  if (!*last_s) return;
+  __threadfence();
+  merge_group<RMAX, EB>(dst, g, nsplit, R, smem,
+                        reinterpret_cast<float*>(smem + S::ML),
+                        reinterpret_cast<float*>(smem + S::P));
+}
+
+// The most splits a group may have at R rows: the merge keeps one m
+// per (split, row) in the K and V stages.
+template <int RMAX, int EB>
+__host__ __device__ constexpr bool merge_fits(int nsplit, int R) {
+  return (long long)nsplit * R * 4 <= Smem<RMAX, EB>::KV_BYTES;
 }
 
 // A lane's live chunks in a paged cache (B5, B6): `len` tokens through
@@ -437,13 +904,18 @@ struct PagedSrc {
   const int* table;  // this lane's block-table row
   int h, Hkv, num_pages, page_size, cpp, len;
 
+  __device__ __forceinline__ int count(int j) const {
+    const int pg = j / cpp, off = (j % cpp) * C;
+    return min(min(C, page_size - off), len - (pg * page_size + off));
+  }
+
   __device__ __forceinline__ void locate(int j, long long& tok0,
                                          int& valid) const {
     const int pg = j / cpp, off = (j % cpp) * C;
     // out-of-range ids are clamped, as the plain version's gather does
     const int page = min(max(table[pg], 0), num_pages - 1);
     tok0 = ((long long)page * Hkv + h) * page_size + off;
-    valid = min(min(C, page_size - off), len - (pg * page_size + off));
+    valid = count(j);
   }
 
   // chunk j's first position in the lane
@@ -469,88 +941,6 @@ __device__ __forceinline__ PagedSrc paged_src(
                   n_chunks, block_tables + (long long)b * npages,
                   h,        Hkv,       num_pages, page_size,
                   cpp,      len};
-}
-
-// Merge the nsplit partials of each row, in a fixed order. grid
-// (R, groups), NTHREADS threads, nsplit floats of dynamic shared memory.
-// Row r of group g is row g * R + r of out (q's (B, Hq, Tq) rows are
-// g-major within a kv head). Threads first share the splits (max of m,
-// the weights exp(m_i - m) and the sum l); then warp w adds splits w,
-// w + 4, ... for 4 columns a lane, and the four warps' sums meet in shared
-// memory: no chain of dependent loads as long as nsplit.
-__device__ __forceinline__ float block_reduce(float x, bool is_max,
-                                              float* scratch) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int sft = 16; sft > 0; sft /= 2) {
-    const float y = __shfl_xor_sync(0xffffffff, x, sft);
-    x = is_max ? fmaxf(x, y) : x + y;
-  }
-  __syncthreads();  // scratch may still be read from the last call
-  if (t % 32 == 0) scratch[t / 32] = x;
-  __syncthreads();
-  x = scratch[0];
-#pragma unroll
-  for (int w = 1; w < NTHREADS / 32; ++w)
-    x = is_max ? fmaxf(x, scratch[w]) : x + scratch[w];
-  return x;
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-merge_splits_kernel(const float* __restrict__ part_acc,
-                    const float* __restrict__ part_ml,
-                    float* __restrict__ out, float* __restrict__ lse,
-                    int nsplit, int R) {
-  extern __shared__ __align__(16) float w_s[];  // [nsplit] weights
-  __shared__ float scratch[NTHREADS / 32];
-  __shared__ __align__(16) float red[NTHREADS / 32][D];
-  const int r = blockIdx.x, t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const long long g = blockIdx.y;
-  const long long first = g * nsplit * R + r;  // + sp * R per split
-
-  float m = -INFINITY;
-  for (int sp = t; sp < nsplit; sp += NTHREADS)
-    m = fmaxf(m, part_ml[(first + (long long)sp * R) * 2]);
-  m = block_reduce(m, true, scratch);
-  float l = 0.f;
-  for (int sp = t; sp < nsplit; sp += NTHREADS) {
-    const long long p = first + (long long)sp * R;
-    const float m_i = part_ml[p * 2];
-    // an empty split, or a row with no live token at all, weighs nothing
-    const float w = m_i > -INFINITY ? __expf(m_i - m) : 0.f;
-    w_s[sp] = w;
-    l += part_ml[p * 2 + 1] * w;
-  }
-  l = block_reduce(l, false, scratch);  // its barriers publish w_s too
-
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-  for (int sp = warp; sp < nsplit; sp += NTHREADS / 32) {
-    const float4 a = *reinterpret_cast<const float4*>(
-        part_acc + (first + (long long)sp * R) * D + 4 * lane);
-    const float w = w_s[sp];
-    acc.x += a.x * w;
-    acc.y += a.y * w;
-    acc.z += a.z * w;
-    acc.w += a.w * w;
-  }
-  *reinterpret_cast<float4*>(&red[warp][4 * lane]) = acc;
-  __syncthreads();
-  float sum = 0.f;
-#pragma unroll
-  for (int w = 0; w < NTHREADS / 32; ++w) sum += red[w][t];
-  const long long row = g * R + r;
-  out[row * D + t] = l > 0.f ? sum / l : 0.f;
-  if (t == 0) lse[row] = l > 0.f ? m + logf(l) : RFA_NEG_INF;
-}
-
-// Launch the merge of `groups` groups of R rows, nsplit partials each.
-inline cudaError_t merge_splits(const float* part_acc, const float* part_ml,
-                                float* out, float* lse, int nsplit, int R,
-                                int groups, cudaStream_t stream) {
-  merge_splits_kernel<<<dim3(R, groups), NTHREADS, nsplit * sizeof(float),
-                        stream>>>(part_acc, part_ml, out, lse, nsplit, R);
-  return cudaGetLastError();
 }
 
 }  // namespace rfa_qd

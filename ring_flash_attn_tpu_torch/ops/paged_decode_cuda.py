@@ -11,21 +11,23 @@ that.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .quant_decode_cuda import (check_operand, check_rows, paged_num_splits,
-                                partials)
+                                scratch_ptrs)
 
 # rfa_paged_decode(q, q_bf16, k_pages, v_pages, block_tables, seq_lens,
-#                  new_counts, out, lse, part_acc, part_ml, B, Hq, Hkv, Tq,
-#                  head_dim, num_pages, page_size, npages, nsplit, scale,
-#                  softcap, stream)
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+#                  new_counts, out, lse, part_acc, part_ml, counters, B, Hq,
+#                  Hkv, Tq, head_dim, num_pages, page_size, npages, nsplit,
+#                  scale, softcap, stream)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
     ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
+@functools.cache
 def _lib():
     lib = _build.library("paged_decode")
     lib.rfa_paged_decode.argtypes = _ARGTYPES
@@ -68,16 +70,17 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
         return out, lse
     rows = (hq // hkv) * tq
     nsplit = paged_num_splits(b, hkv, npages, page_size)
-    part_acc, part_ml = partials(b * hkv, nsplit, rows, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        part_acc, part_ml, counters = scratch_ptrs(b * hkv, nsplit, rows,
+                                                   dev, stream)
         rc = lib.rfa_paged_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
             None if new_counts is None else new_counts.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), b, hq, hkv, tq, d, num_pages, page_size,
+            out.data_ptr(), lse.data_ptr(), part_acc,
+            part_ml, counters, b, hq, hkv, tq, d, num_pages, page_size,
             npages, nsplit, float(scale), float(softcap or 0.0), stream,
         )
         paged_decode_cuda.launches += 1

@@ -9,21 +9,24 @@ for what bounds the kernel on the H100 and how its design answers that.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .quant_decode_cuda import (QTYPES, check_operand, check_rows,
-                                paged_num_splits, partials)
+                                paged_num_splits, scratch_ptrs)
 
 # rfa_paged_quant_decode(q, q_bf16, k_pages, v_pages, k_scales, v_scales,
 #                        block_tables, seq_lens, out, lse, part_acc, part_ml,
-#                        B, Hq, Hkv, Tq, head_dim, num_pages, page_size,
-#                        npages, qtype, nsplit, scale, softcap, stream)
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+#                        counters, B, Hq, Hkv, Tq, head_dim, num_pages,
+#                        page_size, npages, qtype, nsplit, scale, softcap,
+#                        stream)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11 + [
     ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
+@functools.cache
 def _lib():
     lib = _build.library("paged_quant_decode")
     lib.rfa_paged_quant_decode.argtypes = _ARGTYPES
@@ -73,15 +76,16 @@ def paged_quant_decode_cuda(q, k_pages, k_scales, v_pages, v_scales,
         return out, lse
     rows = (hq // hkv) * tq
     nsplit = paged_num_splits(b, hkv, npages, page_size)
-    part_acc, part_ml = partials(b * hkv, nsplit, rows, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        part_acc, part_ml, counters = scratch_ptrs(b * hkv, nsplit, rows,
+                                                   dev, stream)
         rc = lib.rfa_paged_quant_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
             v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, hq,
+            lse.data_ptr(), part_acc, part_ml, counters, b, hq,
             hkv, tq, d, num_pages, page_size, npages, QTYPES[k_pages.dtype],
             nsplit, float(scale), float(softcap or 0.0), stream,
         )

@@ -9,6 +9,7 @@ what bounds the kernel on the H100 and how its design answers that.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,19 +18,21 @@ from . import _build
 MAX_ROWS = 16  # G * Tq query rows per kv head that one block serves
 HEAD_DIM = 128
 CHUNK = 64  # tokens per chunk in the kernels (C in quant_decode.cuh)
-# Blocks to aim for (4 per SM of 132) and the fewest chunks worth a block.
-TARGET_BLOCKS = 528
-MIN_CHUNKS = 4
+# Blocks to aim for (one per SM of 132: a block runs 2 or 3 pipelines
+# side by side, quant_decode.cuh) and the fewest chunks worth a block.
+TARGET_BLOCKS = 132
+MIN_CHUNKS = 8
 QTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
 # rfa_quant_decode(q, q_bf16, k_q, v_q, k_scale, v_scale, len_ptr, len_val,
-#                  out, lse, part_acc, part_ml, B, Hq, Hkv, Tq, head_dim, S,
-#                  qtype, nsplit, scale, softcap, stream)
+#                  out, lse, part_acc, part_ml, counters, B, Hq, Hkv, Tq,
+#                  head_dim, S, qtype, nsplit, scale, softcap, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-    ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
+@functools.cache
 def _lib():
     lib = _build.library("quant_decode")
     lib.rfa_quant_decode.argtypes = _ARGTYPES
@@ -59,13 +62,12 @@ def check_rows(hq, hkv, tq, d):
 
 
 def num_splits(groups, max_chunks):
-    """Blocks that share one (batch, kv head) group's tokens: enough to
-    fill the card, each with at least MIN_CHUNKS chunks of the longest
-    possible sequence (a block takes ceil(max_chunks / splits) chunks of
-    it). Depends on shapes only, so results are reproducible (the partials
-    merge in split order)."""
-    want = -(-TARGET_BLOCKS // groups)
-    return max(1, min(want, max_chunks // MIN_CHUNKS))
+    """Blocks that share one (batch, kv head) group's tokens: as many as
+    fill the card's SMs without a second wave, each with at least
+    MIN_CHUNKS chunks of the longest possible sequence (a block takes
+    ceil(max_chunks / splits) chunks of it). Depends on shapes only, so
+    results are reproducible (the partials merge in split order)."""
+    return max(1, min(TARGET_BLOCKS // groups, max_chunks // MIN_CHUNKS))
 
 
 def paged_num_splits(b, hkv, npages, page_size):
@@ -74,13 +76,40 @@ def paged_num_splits(b, hkv, npages, page_size):
     return num_splits(b * hkv, npages * -(-page_size // CHUNK))
 
 
-def partials(groups, nsplit, rows, dev):
-    """Scratch for the per-split (acc, (m, l)) partials."""
-    acc = torch.empty((groups, nsplit, rows, HEAD_DIM), dtype=torch.float32,
-                      device=dev)
-    ml = torch.empty((groups, nsplit, rows, 2), dtype=torch.float32,
-                     device=dev)
-    return acc, ml
+_WORKSPACES = {}  # (device, stream) -> (fp32 partials, int32 counters)
+
+
+def _buffers(floats, groups, dev, stream):
+    """The (device, stream)'s workspace, grown to at least ``floats``
+    partial floats and ``groups`` counters. Counters are zeroed once, when
+    allocated: a launch leaves them zero (each group's last block resets
+    its own). Launches on one stream run in order, so they share it; two
+    streams never do."""
+    ws = _WORKSPACES.get((dev, stream))
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < groups:
+        old_f, old_g = (0, 0) if ws is None else (ws[0].numel(),
+                                                  ws[1].numel())
+        ws = (torch.empty(max(floats, old_f), dtype=torch.float32,
+                          device=dev),
+              torch.zeros(max(groups, old_g), dtype=torch.int32, device=dev))
+        _WORKSPACES[(dev, stream)] = ws
+    return ws
+
+
+def scratch_ptrs(groups, nsplit, rows, dev, stream):
+    """The scratch of a split launch of B4, B5 or B6 on ``stream``, as the
+    kernels take it: part_acc (groups, nsplit, rows, D) and part_ml
+    (groups, nsplit, rows, 2) fp32, the partials that each group's last
+    block merges, one after the other in the workspace, and counters
+    (groups,) int32. Three nulls with one split: the block then writes
+    (out, lse) itself."""
+    if nsplit == 1:
+        return None, None, None
+    n_acc = groups * nsplit * rows * HEAD_DIM
+    part, counters = _buffers(n_acc + groups * nsplit * rows * 2, groups,
+                              dev, stream)
+    ptr = part.data_ptr()
+    return ptr, ptr + 4 * n_acc, counters.data_ptr()
 
 
 def quant_decode_cuda(q, k_q, k_scale, v_q, v_scale, length, scale,
@@ -125,16 +154,17 @@ def quant_decode_cuda(q, k_q, k_scale, v_q, v_scale, length, scale,
         return out, lse
     rows = (hq // hkv) * tq
     nsplit = num_splits(b * hkv, -(-s // CHUNK))
-    part_acc, part_ml = partials(b * hkv, nsplit, rows, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        part_acc, part_ml, counters = scratch_ptrs(b * hkv, nsplit, rows,
+                                                   dev, stream)
         rc = lib.rfa_quant_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
             v_q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), len_ptr,
-            len_val, out.data_ptr(), lse.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), b, hq, hkv, tq, d, s, QTYPES[k_q.dtype],
-            nsplit, float(scale), float(softcap or 0.0), stream,
+            len_val, out.data_ptr(), lse.data_ptr(), part_acc, part_ml,
+            counters, b, hq, hkv, tq, d, s, QTYPES[k_q.dtype], nsplit,
+            float(scale), float(softcap or 0.0), stream,
         )
         quant_decode_cuda.launches += 1
     _build.check_launch(lib, rc, "quant_decode")

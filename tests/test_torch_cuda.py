@@ -265,8 +265,9 @@ def test_cuda_train_step_matches_plain():
 
 QDTYPE = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn,
           "fp8_e5m2": torch.float8_e5m2}
-# fp32 math on both sides; only the summation order, __expf and tanhf
-# differ: a few ulps of fp32
+# the kernels' q and p in two fp16 halves (~22 bits) against exact cache
+# values, fp32 on the plain side; the summation order, __expf and tanhf
+# differ too: a few ulps of fp32
 QUANT_TOL = 1e-5
 
 
@@ -299,12 +300,33 @@ def test_cuda_quantize_tensor_is_bitwise_the_cpu_one(qdtype):
 
 # (qdtype, B, Hq, Hkv, Tq, S, length, softcap, q dtype): a ragged last
 # chunk with a length as a CUDA tensor; fp8 with softcap, 8 rows, S not a
-# multiple of anything; a tail-like cache; length 0
+# multiple of anything; a tail-like cache; length 0. Then the pipelines'
+# edges (quant_decode.cuh: 64-token chunks dealt out in turn to 3
+# pipelines a block at 4 and 8 rows, 3 stages a ring): a few chunks; one
+# split (S = 640) over C * NP * NST - 1, C * NP * NST and C * NP * NST + 1
+# tokens, so that pipeline 0's last chunk (1 token) wraps its ring; S = 1;
+# blocks with no chunk (100 tokens of 4096 over 8 splits); 2 splits of 32
+# chunks each (64 groups), so every ring wraps and the merge runs; R = 8
+# and 16 in every qtype.
 B4_CASES = [
     ("int8", 2, 8, 2, 1, 1280, "tensor:1001", None, torch.bfloat16),
     ("fp8_e4m3", 1, 8, 2, 2, 333, 333, 12.0, torch.float32),
     ("fp8_e5m2", 1, 4, 4, 1, 32, 7, None, torch.bfloat16),
     ("int8", 1, 32, 2, 1, 200, 0, None, torch.bfloat16),
+    ("int8", 1, 8, 2, 1, 257, 255, None, torch.bfloat16),
+    ("fp8_e4m3", 1, 8, 2, 1, 257, 256, None, torch.bfloat16),
+    ("fp8_e5m2", 1, 8, 2, 1, 257, 257, None, torch.bfloat16),
+    ("int8", 1, 8, 2, 1, 640, 575, None, torch.bfloat16),
+    ("fp8_e4m3", 1, 8, 2, 1, 640, 576, 15.0, torch.float32),
+    ("fp8_e5m2", 1, 8, 2, 1, 640, 577, None, torch.bfloat16),
+    ("int8", 1, 8, 2, 1, 1, 1, None, torch.bfloat16),
+    ("int8", 1, 8, 2, 1, 4096, "tensor:100", None, torch.bfloat16),
+    ("int8", 8, 32, 8, 1, 4096, 4000, None, torch.bfloat16),
+    ("int8", 1, 32, 4, 1, 3000, 2999, 20.0, torch.float32),
+    ("fp8_e4m3", 1, 32, 4, 1, 3000, 3000, None, torch.bfloat16),
+    ("fp8_e5m2", 2, 16, 2, 2, 700, 650, None, torch.bfloat16),
+    ("int8", 1, 8, 2, 4, 5000, 4999, None, torch.bfloat16),
+    ("fp8_e4m3", 1, 8, 2, 4, 129, 129, 10.0, torch.float32),
 ]
 
 
@@ -338,33 +360,47 @@ def test_cuda_quant_decode_matches_plain_version(case):
         assert torch.all(out == 0) and torch.all(lse == -1e30)
 
 
-# (qdtype, page size, Tq, softcap): int8 (q quantized in the kernel) with
-# pages longer than a chunk and not a multiple of it; fp8 with short pages
+# (qdtype, page size, Tq, softcap[, Hq, pages a lane, lens]): int8 (q
+# quantized in the kernel) with pages longer than a chunk and not a
+# multiple of it; fp8 with short pages. Then the pipelines' edges, each
+# with a dead lane first: pages of one chunk, 10 a lane (one split), lanes
+# of C * NP * NST - 1, C * NP * NST and C * NP * NST + 1 tokens (as in
+# B4_CASES); lanes of 1 token; R = 8 (int8, s8 products) and R = 16
+# (Tq = 2 or 4) in every qtype. By default Hq = 8, 4 pages a lane and
+# lens [0, the whole lane, two pages and a third].
 B6_CASES = [("int8", 80, 1, None), ("int8", 16, 2, 20.0),
-            ("fp8_e4m3", 16, 1, None), ("fp8_e5m2", 128, 2, 15.0)]
+            ("fp8_e4m3", 16, 1, None), ("fp8_e5m2", 128, 2, 15.0),
+            ("int8", 64, 1, None, 8, 10, [0, 575, 576, 577]),
+            ("fp8_e4m3", 64, 1, 30.0, 8, 10, [0, 577, 575, 576]),
+            ("fp8_e5m2", 16, 1, None, 8, 4, [0, 1, 64, 1]),
+            ("int8", 16, 1, 30.0, 16, 40, [0, 640, 333, 1]),
+            ("int8", 80, 2, None, 16, 8, [0, 640, 257, 81]),
+            ("fp8_e4m3", 256, 4, None, 8, 4, [0, 1024, 1000, 3]),
+            ("fp8_e5m2", 100, 2, None, 16, 3, [0, 300, 299, 1])]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", range(len(B6_CASES)))
 def test_cuda_paged_quant_decode_matches_plain_version(case):
     """B6 against _plain_quant_paged_decode: shuffled tables, a dead lane,
-    a full lane, a lane ending inside a page."""
+    a full lane, a lane ending inside a page, the pipeline's edges."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from ring_flash_attn_tpu_torch.ops.paged_quant_decode_cuda import (
         paged_quant_decode_cuda)
 
-    qdtype, ps, tq, softcap = B6_CASES[case]
+    qdtype, ps, tq, softcap, *rest = B6_CASES[case]
+    hq, pps, lens = rest or (8, 4, None)
+    lens = lens or [0, pps * ps, 2 * ps + ps // 3]
     g = torch.Generator(device="cuda").manual_seed(case)
-    b, hq, hkv, pps = 3, 8, 2, 4
+    b, hkv = len(lens), 2
     tables = torch.randperm(b * pps + 3, generator=g, device="cuda")[
         :b * pps].reshape(b, pps).to(torch.int32)
     cache = tpaged.paged_quant_init(b, hkv, b * pps + 3, ps, pps, 128,
                                     qdtype=qdtype, block_tables=tables)
     k = torch.randn((b, hkv, pps * ps, 128), generator=g, device="cuda")
     v = torch.randn((b, hkv, pps * ps, 128), generator=g, device="cuda")
-    cache = tpaged.paged_quant_prefill(cache, k, v,
-                                       [0, pps * ps, 2 * ps + ps // 3])
+    cache = tpaged.paged_quant_prefill(cache, k, v, lens)
     q = torch.randn((b, hq, tq, 128), generator=g, device="cuda").to(
         torch.bfloat16)
     out, lse = paged_quant_decode_cuda(
@@ -375,6 +411,67 @@ def test_cuda_paged_quant_decode_matches_plain_version(case):
     assert float((out - ref_out).abs().max()) <= QUANT_TOL
     assert float((lse - ref_lse).abs().max()) <= QUANT_TOL
     assert torch.all(out[0] == 0) and torch.all(lse[0] == -1e30)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_decode_is_bitwise_reproducible_across_shapes():
+    """B4 and B6 give the same bits call after call, also after a call of
+    another shape (other groups, other splits) on the same workspace: the
+    group counters are back at zero after every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.paged_quant_decode_cuda import (
+        paged_quant_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.quant import _plain_quant_decode
+    from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as qd
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        num_splits, quant_decode_cuda)
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    big, small = _quant_cache(g, 1, 8, 8192, "int8"), _quant_cache(
+        g, 2, 2, 700, "fp8_e4m3")
+    q1 = torch.randn((1, 32, 1, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+    q2 = torch.randn((2, 8, 2, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+
+    def b4(q, c, n):
+        return quant_decode_cuda(q, c.k_q, c.k_scale, c.v_q, c.v_scale, n,
+                                 0.088)
+
+    first = b4(q1, big, 8000)
+    other = b4(q2, small, 650)
+    again = b4(q1, big, 8000)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    ref = _plain_quant_decode(q2, small, 650, 0.088, None)
+    assert float((other[0] - ref[0]).abs().max()) <= QUANT_TOL
+    torch.cuda.synchronize()
+    assert num_splits(8, 128) > 1 and num_splits(4, 11) == 1
+    _, counters = qd._WORKSPACES[(q1.device,
+                                  torch.cuda.current_stream().cuda_stream)]
+    assert torch.all(counters == 0)
+
+    b, hkv, ps, pps = 4, 8, 256, 16
+    tables = torch.randperm(b * pps, generator=g, device="cuda").reshape(
+        b, pps).to(torch.int32)
+    cache = tpaged.paged_quant_init(b, hkv, b * pps, ps, pps, 128,
+                                    block_tables=tables)
+    k = torch.randn((b, hkv, pps * ps, 128), generator=g, device="cuda")
+    cache = tpaged.paged_quant_prefill(cache, k, k.flip(-1),
+                                       [4096, 3000, 0, 17])
+    q4 = torch.randn((b, 32, 1, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+
+    def b6(q):
+        return paged_quant_decode_cuda(
+            q, cache.k_pages, cache.k_scales, cache.v_pages, cache.v_scales,
+            cache.block_tables, cache.seq_lens, 0.088)
+
+    first = b6(q4)
+    b4(q2, small, 700)
+    b6(q4[:, :8].contiguous())  # R = 1: another plan
+    again = b6(q4)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.cuda

@@ -1,15 +1,19 @@
 """The split plan that the decode kernels B4, B5 and B6 share
 (``ops/quant_decode_cuda.py::num_splits``, ``paged_num_splits``): how many
-blocks take one (batch, kv head) group's tokens. It runs on the host from
-shapes alone, so it is checked here without a card."""
+blocks take one (batch, kv head) group's tokens; and the scratch those
+blocks write their partials and group counters into
+(``scratch_ptrs``). Both run on the host from shapes alone, so they are
+checked here without a card."""
 
 import pytest
 import torch
 
-from ring_flash_attn_tpu_torch.ops import paged_decode_cuda
+from ring_flash_attn_tpu_torch.ops import (paged_decode_cuda,
+                                           paged_quant_decode_cuda)
+from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as qd
 from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
     CHUNK, HEAD_DIM, MIN_CHUNKS, TARGET_BLOCKS, num_splits, paged_num_splits,
-    partials)
+    scratch_ptrs)
 
 # (groups, chunks of the longest possible lane): one lane to a full batch,
 # lanes shorter than MIN_CHUNKS chunks, counts that are not multiples of
@@ -21,12 +25,26 @@ PLANS = [(1, 1), (1, 3), (1, 5), (1, 512), (8, 7), (8, 512), (24, 128),
 @pytest.mark.parametrize("groups,max_chunks", PLANS)
 def test_num_splits_fills_the_card_where_the_chunks_allow(groups,
                                                           max_chunks):
+    """One block an SM (a block runs several pipelines side by side): as
+    many splits as fill the SMs without a second wave, unless the chunks
+    run out first."""
     n = num_splits(groups, max_chunks)
     assert n >= 1
-    if max_chunks // MIN_CHUNKS * groups >= TARGET_BLOCKS:
-        assert n * groups >= TARGET_BLOCKS
-    # no more blocks than the target needs: one split fewer would not do
-    assert n == 1 or (n - 1) * groups < TARGET_BLOCKS
+    assert n == 1 or n * groups <= TARGET_BLOCKS  # never a second wave
+    if max_chunks // MIN_CHUNKS >= TARGET_BLOCKS // groups:
+        # one split more would not fit in one wave
+        assert n == 1 or (n + 1) * groups > TARGET_BLOCKS
+    else:
+        assert n == max(1, max_chunks // MIN_CHUNKS)
+
+
+@pytest.mark.parametrize("groups,max_chunks", PLANS)
+def test_num_splits_never_needs_a_second_wave(groups, max_chunks):
+    """The decode kernels hold one block an SM: a plan of more blocks than
+    TARGET_BLOCKS would run a second, mostly idle wave."""
+    assert TARGET_BLOCKS == 132
+    n = num_splits(groups, max_chunks)
+    assert n * groups <= max(TARGET_BLOCKS, groups)
 
 
 @pytest.mark.parametrize("groups,max_chunks", PLANS)
@@ -46,12 +64,12 @@ def test_num_splits_is_one_when_the_groups_fill_the_card(groups):
 def test_paged_num_splits_is_the_plan_of_the_table_shape():
     """B5 and B6 split a lane of npages pages of page_size tokens
     (64-token chunks that never span a page): at the serving table's
-    shape (8 lanes, 16 pages of 256) 9 splits, 576 blocks; at the engine's
-    4 lanes 16 splits, 512 blocks; 16-token pages count a chunk a page."""
+    shape (8 lanes, 16 pages of 256) 2 splits, 128 blocks; at the engine's
+    4 lanes 4 splits, 128 blocks; 16-token pages count a chunk a page."""
     assert CHUNK == 64
-    assert paged_num_splits(8, 8, 16, 256) == 9
-    assert paged_num_splits(4, 8, 16, 256) == 16
-    assert paged_num_splits(1, 8, 128, 256) == num_splits(8, 512)
+    assert paged_num_splits(8, 8, 16, 256) == 2
+    assert paged_num_splits(4, 8, 16, 256) == 4
+    assert paged_num_splits(1, 8, 128, 256) == num_splits(8, 512) == 16
     assert paged_num_splits(2, 8, 256, 16) == num_splits(16, 256)
     assert paged_num_splits(3, 8, 64, 100) == num_splits(24, 128)
 
@@ -71,12 +89,59 @@ def test_paged_num_splits_depends_on_shapes_only():
 
 
 def test_partials_hold_one_row_per_split():
-    acc, ml = partials(6, 9, 4, "cpu")
-    assert acc.shape == (6, 9, 4, HEAD_DIM) and acc.dtype == torch.float32
-    assert ml.shape == (6, 9, 4, 2) and ml.dtype == torch.float32
+    """The workspace holds one (acc, (m, l)) partial per group, split and
+    row, fp32, and one int32 counter per group, zero when allocated."""
+    qd._WORKSPACES.clear()
+    scratch_ptrs(6, 9, 4, "cpu", 101)
+    part, counters = qd._WORKSPACES[("cpu", 101)]
+    assert part.dtype == torch.float32 and counters.dtype == torch.int32
+    assert part.numel() == 6 * 9 * 4 * (HEAD_DIM + 2)
+    assert counters.numel() == 6 and torch.all(counters == 0)
+
+
+def test_workspace_is_kept_per_stream_and_grows_on_demand():
+    """A second launch of the same or a smaller shape on a stream reuses
+    its workspace (no allocation); a larger one grows it; another stream
+    has its own, so two streams never share counters."""
+    qd._WORKSPACES.clear()
+    acc, ml, cnt = scratch_ptrs(8, 66, 4, "cpu", 7)
+    assert scratch_ptrs(8, 66, 4, "cpu", 7) == (acc, ml, cnt)
+    assert scratch_ptrs(2, 9, 4, "cpu", 7)[0] == acc
+    other, _, cnt_other = scratch_ptrs(8, 66, 4, "cpu", 8)
+    assert other != acc and cnt_other != cnt
+    scratch_ptrs(64, 9, 16, "cpu", 7)
+    part, counters = qd._WORKSPACES[("cpu", 7)]
+    # grown, never shrunk: the earlier shape fits what is kept now
+    assert part.numel() == 64 * 9 * 16 * (HEAD_DIM + 2)
+    assert counters.numel() == 64 and torch.all(counters == 0)
+    assert len(qd._WORKSPACES) == 2
+
+
+@pytest.mark.parametrize("groups,nsplit,rows", [(8, 66, 4), (4, 16, 16),
+                                                (1, 3, 8)])
+def test_scratch_ptrs_lay_the_partials_out(groups, nsplit, rows):
+    """The kernels' pointers: part_acc (groups, nsplit, rows, D) at the
+    workspace's start, part_ml (groups, nsplit, rows, 2) right after it,
+    and the counters."""
+    qd._WORKSPACES.clear()
+    acc, ml, cnt = scratch_ptrs(groups, nsplit, rows, "cpu", 11)
+    part, counters = qd._WORKSPACES[("cpu", 11)]
+    assert acc == part.data_ptr() and cnt == counters.data_ptr()
+    assert ml == acc + 4 * groups * nsplit * rows * HEAD_DIM
+    assert part.numel() == groups * nsplit * rows * (HEAD_DIM + 2)
+
+
+def test_scratch_ptrs_are_null_with_one_split():
+    """With one split a block writes (out, lse) itself: no workspace."""
+    qd._WORKSPACES.clear()
+    assert scratch_ptrs(8, 1, 4, "cpu", 5) == (None, None, None)
+    assert not qd._WORKSPACES
 
 
 def test_b5_wrapper_takes_the_shared_plan():
-    """B5's launcher imports the plan B6 uses (no plan of its own)."""
+    """B5's and B6's launchers import the plan and the scratch B4 uses (no
+    plan of their own)."""
     assert paged_decode_cuda.paged_num_splits is paged_num_splits
-    assert paged_decode_cuda.partials is partials
+    assert paged_decode_cuda.scratch_ptrs is scratch_ptrs
+    assert paged_quant_decode_cuda.paged_num_splits is paged_num_splits
+    assert paged_quant_decode_cuda.scratch_ptrs is scratch_ptrs
