@@ -94,6 +94,18 @@ Phases, each of which raises on failure:
    ``train_step`` with ``attention="ring"`` and ``"zigzag"`` over
    ``sp_group=None`` for two steps at S=8192, whose losses equal phase 6's;
    each kernel's launch count over the phase.
+13. Stripe and Ulysses: every W=4 rank's stripe steps of a 32768-token
+   causal sequence in one process (stripe's masks, offset -1 on the steps
+   after the rank; B1 + ``merge_partials``, B2) against B1 and B2 on the
+   whole sequence after ``restore_stripe`` and against the plain versions
+   on the last 512 rows (out, lse, dq) and the first 512 keys (dk, dv);
+   each rank's forward and backward time beside the ring's on the same
+   tensors, in turns; then at W=1 ``RingAttentionLayer`` with "stripe" and
+   "ulysses" against the "flash" entry, the three
+   ``stripe_flash_attn_*`` forms with ``deterministic=True`` (the same
+   bits twice), ``train_step`` with ``attention="stripe"`` and ``"usp"``
+   for two steps (phase 6's losses), and each kernel's launch count over
+   the entry points.
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -2063,14 +2075,69 @@ def phase_fused_ring(torch, flush):
     ]
 
 
+def _rank_fwd(qs, ks, vs, rank, scale, step_mask):
+    """Rank ``rank``'s forward of a ring-loop schedule (``ring.ring_loop_fwd``
+    without the hop): at step t the kv shard of rank (rank - t) % W under
+    ``step_mask(t, rank, W)`` (None: skipped), merged. (out bf16, lse)."""
+    from ring_flash_attn_tpu_torch.ops.flash import block_fwd
+    from ring_flash_attn_tpu_torch.ops.merge import merge_partials
+
+    world = len(qs)
+    out = lse = None
+    for step in range(world):
+        src = (rank - step) % world
+        mask = step_mask(step, rank, world)
+        if mask is not None:
+            b_out, b_lse = block_fwd(qs[rank], ks[src], vs[src], scale, mask)
+            out, lse = merge_partials(out, lse, b_out, b_lse)
+    return out.to(qs[rank].dtype), lse
+
+
+def _rank_bwd(qs, ks, vs, douts, outs, lses, dkvs, rank, scale, step_mask):
+    """Rank ``rank``'s backward of a ring-loop schedule
+    (``ring.ring_loop_bwd`` without the hop): returns its dq (fp32) and
+    adds its dk, dv of kv shard src into ``dkvs[src]``, the accumulator
+    that visits it on the ring."""
+    from ring_flash_attn_tpu_torch.ops.flash import block_bwd, compute_delta
+
+    world = len(qs)
+    delta = compute_delta(douts[rank], outs[rank])
+    dq = None
+    for step in range(world):
+        src = (rank - step) % world
+        mask = step_mask(step, rank, world)
+        if mask is not None:
+            b_dq, b_dk, b_dv = block_bwd(douts[rank], qs[rank], ks[src],
+                                         vs[src], lses[rank], delta, scale,
+                                         mask)
+            dq = b_dq if dq is None else dq.add_(b_dq)
+            dkvs[src][0].add_(b_dk)
+            dkvs[src][1].add_(b_dv)
+    return dq
+
+
+def _events_ms(torch, fn, reps):
+    """Mean ms of fn() between CUDA events over ``reps`` calls, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def phase_ring_one_device(torch):
     from ring_flash_attn_tpu_torch.ops.flash import (
         block_bwd, block_fwd, compute_delta)
     from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
-    from ring_flash_attn_tpu_torch.ops.merge import merge_partials
     from ring_flash_attn_tpu_torch.ops.naive import (
         naive_block_bwd, naive_block_fwd)
-    from ring_flash_attn_tpu_torch.parallel.ring import _step_mask
+    from ring_flash_attn_tpu_torch.parallel.ring import _ring_masks
 
     log("== phase 11: the W-rank fused ring on one card vs the "
         "whole-sequence kernels")
@@ -2147,38 +2214,18 @@ def phase_ring_one_device(torch):
             # what carrying the state saves: the same causal ring through
             # ring_attention's step calls, B1 and merge_partials
             def schedule_ring():
-                outs = []
-                qr = q.chunk(world, dim=2)
-                kr, vr = k.chunk(world, dim=2), v.chunk(world, dim=2)
-                for rank in range(world):
-                    o = l = None
-                    for step in range(rank + 1):
-                        src = (rank - step) % world
-                        bo, bl = block_fwd(
-                            qr[rank], kr[src], vr[src], scale,
-                            _step_mask(step, rank, world, ll, True, {}))
-                        o, l = merge_partials(o, l, bo, bl)
-                    outs.append(o.to(bf16))
-                return outs
+                qr, kr, vr = (x.chunk(world, dim=2) for x in (q, k, v))
+                step_mask = _ring_masks(True, ll, {})
+                return [_rank_fwd(qr, kr, vr, rank, scale, step_mask)[0]
+                        for rank in range(world)]
 
             def fused_ring():
                 return ring_forward_one_device(q, k, v, world, scale, True)
 
-            times = {}
-            for name, fn in (("fused", fused_ring), ("schedule",
-                                                     schedule_ring),
-                             ("fused again", fused_ring),
-                             ("schedule again", schedule_ring)):
-                fn()
-                torch.cuda.synchronize()
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                for _ in range(3):
-                    fn()
-                e1.record()
-                e1.synchronize()
-                times[name] = e0.elapsed_time(e1) / 3
+            times = {name: _events_ms(torch, fn, 3) for name, fn in (
+                ("fused", fused_ring), ("schedule", schedule_ring),
+                ("fused again", fused_ring),
+                ("schedule again", schedule_ring))}
             eo = _rel_err_parts(out_causal,
                                 torch.cat(schedule_ring(), dim=2), world)
             log(f"  W=4 causal forward of all 4 ranks (10 computing steps): "
@@ -2196,28 +2243,15 @@ def phase_ring_one_device(torch):
     return compare
 
 
-def phase_ring_entry_points(torch, flash_losses):
+def _entries_vs_flash(torch, gen, plan):
+    """Registry entries through ``RingAttentionLayer`` on (1, 8192, 32,
+    128) bf16, forward and backward, against the "flash" entry (B1 and B2,
+    held against plain in phases 2 and 5). ``plan``: ((causal, impls),
+    ...)."""
     from ring_flash_attn_tpu_torch import RingAttentionLayer
-    from ring_flash_attn_tpu_torch.models import (
-        ModelConfig, init_params, prepare_zigzag_batch, train_step)
-    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
-    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
-    from ring_flash_attn_tpu_torch.parallel.fused_ring_cuda import (
-        fused_ring_bwd_cuda, fused_ring_fwd_cuda)
 
-    log("== phase 12: the ring entry points at W=1 (no process group) at "
-        "Llama-3-8B widths")
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(12)
-    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda,
-                "B7 fused_ring_fwd": fused_ring_fwd_cuda,
-                "B8 fused_ring_bwd": fused_ring_bwd_cuda}
-    for fn in counters.values():
-        fn.launches = 0
-
-    # the registry's entries on (B, S, H, D), forward and backward, against
-    # the "flash" entry (B1 and B2, held against plain in phases 2 and 5)
     s, hq, hkv, d = 8192, 32, 8, 128
+    dev = torch.device("cuda")
 
     def rnd(h):
         return torch.randn((1, s, h, d), generator=gen, device=dev).to(
@@ -2230,8 +2264,7 @@ def phase_ring_entry_points(torch, flash_losses):
         out = RingAttentionLayer(impl, causal=causal)(q, k, v)
         return (out.detach(), *torch.autograd.grad(out, (q, k, v), dout))
 
-    for causal, impls in ((True, ("fused_ring", "ring", "zigzag")),
-                          (False, ("fused_ring",))):
+    for causal, impls in plan:
         ref = run("flash", causal)
         for impl in impls:
             got = run(impl, causal)
@@ -2252,33 +2285,60 @@ def phase_ring_entry_points(torch, flash_losses):
     del q, k, v, dout
     torch.cuda.empty_cache()
 
+
+def _train_two_steps(torch, attention, batch, flash_losses, **groups):
+    """Two ``train_step``s at FULL_WIDTH over process groups of one
+    process (``groups``): their losses must equal the single-device flash
+    path's on the same batch (phase 6)."""
+    from ring_flash_attn_tpu_torch.models import (
+        ModelConfig, init_params, train_step)
+
+    cfg = ModelConfig(**FULL_WIDTH, attention=attention)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    losses = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = train_step(model, *batch, **groups)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    diffs = [abs(a - b) for a, b in zip(losses, flash_losses)]
+    named = ", ".join(f"{g}=None" for g in groups)
+    log(f"  train_step(attention={attention!r}, {named}) S=8192: "
+        f"losses {losses}, flash path {flash_losses[:2]} (max |diff| "
+        f"{max(diffs):.2e}, tol {LOSS_TOL}); second step {dt:.3f} s")
+    if not (max(diffs) <= LOSS_TOL and all(np.isfinite(losses))):
+        raise AssertionError(f"train_step over the {attention} schedule "
+                             f"left the flash path's losses")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_ring_entry_points(torch, flash_losses):
+    from ring_flash_attn_tpu_torch.models import prepare_zigzag_batch
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.parallel.fused_ring_cuda import (
+        fused_ring_bwd_cuda, fused_ring_fwd_cuda)
+
+    log("== phase 12: the ring entry points at W=1 (no process group) at "
+        "Llama-3-8B widths")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda,
+                "B7 fused_ring_fwd": fused_ring_fwd_cuda,
+                "B8 fused_ring_bwd": fused_ring_bwd_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+
+    _entries_vs_flash(torch, gen, ((True, ("fused_ring", "ring", "zigzag")),
+                                   (False, ("fused_ring",))))
     # train_step over a sequence group of one process: the same losses as
     # the single-device flash path took on the same batch (phase 6)
-    tokens, labels, positions = _train_batch(torch, FULL_WIDTH["vocab"],
-                                             8192, 2)
-    for attention in ("ring", "zigzag"):
-        cfg = ModelConfig(**FULL_WIDTH, attention=attention)
-        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-        batch = (tokens, labels, positions)
-        if attention == "zigzag":
-            batch = prepare_zigzag_batch(tokens, 1)
-        losses = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, loss = train_step(model, *batch, sp_group=None)
-            losses.append(float(loss))
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        diffs = [abs(a - b) for a, b in zip(losses, flash_losses)]
-        log(f"  train_step(attention={attention!r}, sp_group=None) S=8192: "
-            f"losses {losses}, flash path {flash_losses[:2]} (max |diff| "
-            f"{max(diffs):.2e}, tol {LOSS_TOL}); second step {dt:.3f} s")
-        if not (max(diffs) <= LOSS_TOL and all(np.isfinite(losses))):
-            raise AssertionError(f"train_step over the {attention} schedule "
-                                 f"left the flash path's losses")
-        del model
-        torch.cuda.empty_cache()
+    batch = _train_batch(torch, FULL_WIDTH["vocab"], 8192, 2)
+    _train_two_steps(torch, "ring", batch, flash_losses, sp_group=None)
+    _train_two_steps(torch, "zigzag", prepare_zigzag_batch(batch[0], 1),
+                     flash_losses, sp_group=None)
 
     launches = {name: fn.launches for name, fn in counters.items()}
     layers = FULL_WIDTH["layers"]
@@ -2290,6 +2350,198 @@ def phase_ring_entry_points(torch, flash_losses):
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     return launches
+
+
+def phase_stripe_ulysses(torch, flash_losses):
+    from ring_flash_attn_tpu_torch import api
+    from ring_flash_attn_tpu_torch.ops.flash import block_bwd, block_fwd
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+    from ring_flash_attn_tpu_torch.parallel import layouts, ring, stripe
+
+    log("== phase 13: stripe and Ulysses: the W=4 stripe schedule on one "
+        "card vs the whole-sequence kernels, and the entry points at W=1")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf16 = torch.bfloat16
+    world, hq, hkv, d, ll, tail = 4, 32, 8, 128, 8192, 512
+    s = world * ll
+    scale = d ** -0.5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q, k, v, dout = (rnd(1, hq, s, d), rnd(1, hkv, s, d), rnd(1, hkv, s, d),
+                     rnd(1, hq, s, d))
+    # (a) every rank's stripe steps in one process, as _stripe_fwd and
+    # _stripe_bwd run them: the masks of stripe._step_masks (offset -1 on
+    # the steps after the rank), B1 + merge_partials, B2
+    schedules = {"stripe": (layouts.extract_local_stripe,
+                            layouts.restore_stripe,
+                            stripe._step_masks(dict(softcap=None))),
+                 "ring": (layouts.extract_local_contiguous, None,
+                          ring._ring_masks(True, ll, {}))}
+
+    def shards(name):
+        extract = schedules[name][0]
+        return [[extract(x, r, world, axis=2).contiguous()
+                 for r in range(world)] for x in (q, k, v, dout)]
+
+    qs, ks, vs, douts = shards("stripe")
+    step_mask = schedules["stripe"][2]
+    res = [_rank_fwd(qs, ks, vs, r, scale, step_mask) for r in range(world)]
+    outs, lses = [o for o, _ in res], [x for _, x in res]
+
+    def restore(parts):
+        return layouts.restore_stripe(torch.cat(parts, dim=2), world, axis=2)
+
+    out, lse = restore(outs), restore(lses)
+    mask = MaskArgs(causal=True)
+    ref_out, ref_lse = block_fwd(q, k, v, scale, mask, out_dtype=bf16)
+    row_mask = MaskArgs(causal=True, offset=s - tail)
+    p_out, p_lse = naive_block_fwd(q[:, :, -tail:], k, v, scale, row_mask)
+    torch.cuda.synchronize()
+    ro, el = _rel_err_parts(out, ref_out, 4), max_err(lse, ref_lse)
+    rp = _rel_err(out[:, :, -tail:], p_out)
+    pl = max_err(lse[:, :, -tail:], p_lse)
+    log(f"  stripe W={world} S={s} causal forward: vs B1 on the whole "
+        f"sequence |out| err of max|B1| by quarters {ro:.3e}, max|lse| err "
+        f"{el:.3e}; vs plain on the last {tail} rows |out| err of "
+        f"max|plain| {rp:.3e}, lse {pl:.3e} (tol {RING_OUT_REL_TOL} "
+        f"relative, lse {RING_LSE_TOL})")
+    if not (max(ro, rp) <= RING_OUT_REL_TOL
+            and max(el, pl) <= RING_LSE_TOL):
+        raise AssertionError("the stripe schedule's forward is wrong")
+    del ref_out, ref_lse, p_out, p_lse
+    dkvs = [torch.zeros((2,) + tuple(x.shape), dtype=torch.float32,
+                        device=dev) for x in ks]
+    dqs = [_rank_bwd(qs, ks, vs, douts, outs, lses, dkvs, r, scale,
+                     step_mask) for r in range(world)]
+    got = (restore(dqs), restore([a[0] for a in dkvs]),
+           restore([a[1] for a in dkvs]))
+    ref = block_bwd(dout, q, k, v, lse, None, scale, mask, out=out)
+    delta = (dout.float() * out.float()).sum(-1)
+    p_dq = naive_block_bwd(dout[:, :, -tail:], q[:, :, -tail:], k, v,
+                           lse[:, :, -tail:], delta[:, :, -tail:], scale,
+                           row_mask)[0]
+    keys = slice(0, tail)
+    _, p_dk, p_dv = naive_block_bwd(dout, q, k[:, :, keys], v[:, :, keys],
+                                    lse, delta, scale, mask)
+    torch.cuda.synchronize()
+    rel = [_rel_err(x, r) for x, r in zip(got, ref)]
+    prel = [_rel_err(got[0][:, :, -tail:], p_dq),
+            _rel_err(got[1][:, :, keys], p_dk),
+            _rel_err(got[2][:, :, keys], p_dv)]
+    log(f"  stripe W={world} S={s} causal backward: vs B2 on the whole "
+        f"sequence rel err dq {rel[0]:.2e} dk {rel[1]:.2e} dv {rel[2]:.2e}; "
+        f"vs plain: dq of the last {tail} rows {prel[0]:.2e}, dk and dv of "
+        f"the first {tail} keys over all q rows {prel[1]:.2e} {prel[2]:.2e} "
+        f"(tol {BWD_REL_TOL})")
+    if max(*rel, *prel) > BWD_REL_TOL:
+        raise AssertionError("the stripe schedule's backward is wrong")
+    del got, ref, delta, p_dq, p_dk, p_dv, dqs, out, lse
+    torch.cuda.empty_cache()
+
+    # each rank's time between CUDA events (10 forward, 5 backward calls),
+    # stripe and ring on the same tensors in turns (stripe, ring, ring,
+    # stripe): on W cards the slowest rank is the critical path
+    times = {}
+    for turn, name in enumerate(("stripe", "ring", "ring", "stripe")):
+        qs, ks, vs, douts = shards(name)
+        step_mask = schedules[name][2]
+        res = [_rank_fwd(qs, ks, vs, r, scale, step_mask)
+               for r in range(world)]
+        outs, lses = [o for o, _ in res], [x for _, x in res]
+        dkvs = [torch.zeros((2,) + tuple(x.shape), dtype=torch.float32,
+                            device=dev) for x in ks]
+        fwd = [_events_ms(torch, lambda r=r: _rank_fwd(
+            qs, ks, vs, r, scale, step_mask), 10) for r in range(world)]
+        bwd = [_events_ms(torch, lambda r=r: _rank_bwd(
+            qs, ks, vs, douts, outs, lses, dkvs, r, scale, step_mask), 5)
+            for r in range(world)]
+        times.setdefault(name, []).append({"fwd_ms": fwd, "bwd_ms": bwd})
+        log(f"  {name} W={world} S={s} causal, per rank (ranks 0 to "
+            f"{world - 1}): forward "
+            + " ".join(f"{t:.3f}" for t in fwd) + " ms, backward "
+            + " ".join(f"{t:.3f}" for t in bwd) + f" ms; largest {max(fwd):.3f}"
+            f" and {max(bwd):.3f} ms")
+        del qs, ks, vs, douts, res, outs, lses, dkvs
+        torch.cuda.empty_cache()
+    worst = {name: [(max(t["fwd_ms"]), max(t["bwd_ms"])) for t in turns]
+             for name, turns in times.items()}
+    log(f"  largest rank (forward, backward) ms: stripe {worst['stripe']}, "
+        f"ring {worst['ring']}")
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+
+    # (b) the entry points at W=1, each kernel's launches counted from 0
+    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda,
+                "B3a flash_bwd_dq": flash_bwd_dq_cuda,
+                "B3b flash_bwd_dkv": flash_bwd_dkv_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    _entries_vs_flash(torch, gen, ((True, ("stripe", "ulysses")),
+                                   (False, ("ulysses",))))
+    # stripe_flash_attn_* with deterministic=True: the split kernels, the
+    # same bits call after call
+    ql, hl = 8192, (hq, hkv, hkv)
+    qb, kb, vb = (rnd(1, ql, h, d) for h in hl)
+    qkv = rnd(1, ql, 3, hq, d)
+    forms = {"func": (api.stripe_flash_attn_func, (qb, kb, vb)),
+             "kvpacked_func": (api.stripe_flash_attn_kvpacked_func,
+                               (qb, torch.stack([kb, vb], dim=2))),
+             "qkvpacked_func": (api.stripe_flash_attn_qkvpacked_func,
+                                (qkv,))}
+    for form, (func, args) in forms.items():
+        g_out = torch.randn(qb.shape, generator=gen, device=dev).to(bf16)
+        if form == "qkvpacked_func":
+            ref = api.flash_attn_func(*qkv.unbind(2), causal=True)
+        else:
+            ref = api.flash_attn_func(qb, kb, vb, causal=True)
+        grads = []
+        for _ in range(2):
+            leaves = [x.clone().requires_grad_() for x in args]
+            o = func(*leaves, causal=True, deterministic=True)
+            grads.append(torch.autograd.grad(o, leaves, g_out))
+        torch.cuda.synchronize()
+        eo = _rel_err_parts(o.detach(), ref, 4, dim=1)
+        same = all(torch.equal(a, b) for a, b in zip(*grads))
+        log(f"  stripe_flash_attn_{form}(deterministic=True) on "
+            f"{tuple(args[0].shape)}: |out - flash| of max|flash| by "
+            f"quarters {eo:.3e} (tol {RING_OUT_REL_TOL}); gradients of two "
+            f"calls bitwise equal: {same}")
+        if not (eo <= RING_OUT_REL_TOL and same):
+            raise AssertionError(f"stripe_flash_attn_{form} is wrong or not "
+                                 f"reproducible")
+        del grads, ref, o
+    del qb, kb, vb, qkv
+    torch.cuda.empty_cache()
+    batch = _train_batch(torch, FULL_WIDTH["vocab"], 8192, 2)
+    stripe_batch = (layouts.all_local_stripe(batch[0], 1),
+                    layouts.all_local_stripe(batch[1], 1),
+                    torch.as_tensor(layouts.stripe_position_ids(0, 1, 8192),
+                                    device=dev).long())
+    _train_two_steps(torch, "stripe", stripe_batch, flash_losses,
+                     sp_group=None)
+    _train_two_steps(torch, "usp", batch, flash_losses, sp_group=None,
+                     ulysses_group=None)
+
+    launches = {name: fn.launches for name, fn in counters.items()}
+    layers = FULL_WIDTH["layers"]
+    # entries: flash x 2, stripe, ulysses x 2 (B1 and B2 each); the three
+    # deterministic forms: the flash reference and 2 calls (B1, B3a, B3b)
+    # each; train_step: 2 schedules x 2 steps x layers (B1 and B2)
+    want = {"B1 flash_fwd": 5 + 9 + 4 * layers, "B2 flash_bwd": 5 + 4 * layers,
+            "B3a flash_bwd_dq": 6, "B3b flash_bwd_dkv": 6}
+    log(f"  launches over the entry points: {launches}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    return launches, times
 
 
 def main():
@@ -2344,17 +2596,23 @@ def main():
     torch.cuda.empty_cache()
     ring = run("ring entry points", phase_ring_entry_points, torch,
                flash_losses)
+    torch.cuda.empty_cache()
+    stripe, stripe_times = run("stripe and Ulysses", phase_stripe_ulysses,
+                               torch, flash_losses)
     next(k for k in kernels if k["name"].startswith("B7"))[
         "w4_causal_forward_ms"] = ring_compare
+    next(k for k in kernels if k["name"].startswith("B1"))[
+        "w4_per_rank_stripe_vs_ring_ms"] = stripe_times
     for k in kernels:
         # each kernel's count on the run of its own path: serving for B1
         # and B5, training for B2/B3a/B3b, generate for B4 (B1 runs on all
         # four), the op-level quantized paged path for B6, the ring entry
-        # points for B7/B8
+        # points for B7/B8; the stripe and Ulysses entry points for B1,
+        # B2 and B3a/B3b too
         paths = {p: c[k["name"]] for p, c in (
             ("serving", serving), ("training", training),
             ("generate", inference), ("paged_quant", paged_quant),
-            ("ring", ring))
+            ("ring", ring), ("stripe", stripe))
             if k["name"] in c}
         k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths

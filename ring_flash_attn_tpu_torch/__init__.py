@@ -8,10 +8,11 @@ training (``loss_fn``, ``train_step``, the differentiable
 long-context inference on a quantized KV cache (``models.generate`` over a
 ``torch.distributed`` process group, or one process on one card) and
 context-parallel attention and training over a process group (the ring,
-zigzag and fused-ring schedules of ``parallel``, their ``api`` functions,
-the attention registry of ``adapters`` and ``train_step`` with a sequence
-group), with nine kernels written by hand in CUDA C++ for ``sm_90a``
-(``csrc/``): the flash forward (B1), bf16 paged decode (B5), the fused
+zigzag, fused-ring, stripe, Ulysses and USP schedules of ``parallel``, the
+``api`` functions of the ring, zigzag and stripe schedules, the attention
+registry of ``adapters`` and ``train_step`` with a sequence group and a
+Ulysses group), with nine kernels written by hand in CUDA C++ for
+``sm_90a`` (``csrc/``): the flash forward (B1), bf16 paged decode (B5), the fused
 flash backward (B2), the split backward (B3a dq, B3b dk/dv), decode over
 an int8/fp8 cache, contiguous (B4) or paged (B6), and the fused ring's
 forward and backward steps (B7, B8). CUDA tensors go to the kernels,
@@ -34,6 +35,9 @@ from .api import (  # noqa: F401
     ring_flash_attn_func,
     ring_flash_attn_kvpacked_func,
     ring_flash_attn_qkvpacked_func,
+    stripe_flash_attn_func,
+    stripe_flash_attn_kvpacked_func,
+    stripe_flash_attn_qkvpacked_func,
     zigzag_ring_flash_attn_func,
     zigzag_ring_flash_attn_kvpacked_func,
     zigzag_ring_flash_attn_qkvpacked_func,
@@ -55,6 +59,9 @@ from .ops import MaskArgs, block_bwd, block_fwd, flash_attention  # noqa: F401
 from .parallel import (  # noqa: F401
     fused_ring_attention,
     ring_attention,
+    stripe_attention,
+    ulysses_attention,
+    usp_attention,
     zigzag_ring_attention,
 )
 
@@ -80,6 +87,9 @@ __all__ = [
     "ring_flash_attn_func",
     "ring_flash_attn_kvpacked_func",
     "ring_flash_attn_qkvpacked_func",
+    "stripe_flash_attn_func",
+    "stripe_flash_attn_kvpacked_func",
+    "stripe_flash_attn_qkvpacked_func",
     "zigzag_ring_flash_attn_func",
     "zigzag_ring_flash_attn_kvpacked_func",
     "zigzag_ring_flash_attn_qkvpacked_func",
@@ -89,5 +99,8 @@ __all__ = [
     "register_attention",
     "fused_ring_attention",
     "ring_attention",
+    "stripe_attention",
+    "ulysses_attention",
+    "usp_attention",
     "zigzag_ring_attention",
 ]

@@ -14,12 +14,13 @@ signature,
   ``torch.distributed`` process group (``None``: the default group, or one
   process when none is initialised). Distributed entries are per-process,
   with the sequence dim sharded in that entry's layout (contiguous for
-  ring, fused_ring and llama3, zigzag per ``parallel.layouts``).
+  ring, fused_ring, llama3 and ulysses, zigzag and stripe per
+  ``parallel.layouts``).
 - ``segment_ids`` and ``positions`` belong to the packed (varlen) entries,
   which are not ported yet; the batch entries take None only.
 
-Registered: flash, ring, zigzag, llama3 (forward only), fused_ring. The
-JAX package's stripe, ulysses, ring_varlen and zigzag_varlen are not
+Registered: flash, ring, zigzag, stripe, llama3 (forward only), ulysses,
+fused_ring. The JAX package's ring_varlen and zigzag_varlen are not
 ported yet: asking for one raises a ``KeyError`` that names ROADMAP.md.
 ``register_attention`` adds custom entries.
 
@@ -32,10 +33,12 @@ from ..ops.mask import MaskArgs
 from ..parallel.fused_ring import fused_ring_attention
 from ..parallel.llama3 import llama3_attention
 from ..parallel.ring import ring_attention
+from ..parallel.stripe import stripe_attention
+from ..parallel.ulysses import ulysses_attention
 from ..parallel.zigzag import zigzag_ring_attention
 
 _REGISTRY = {}
-_NOT_PORTED = ("stripe", "ulysses", "ring_varlen", "zigzag_varlen")
+_NOT_PORTED = ("ring_varlen", "zigzag_varlen")
 
 
 def register_attention(name, fn, overwrite=False):
@@ -127,6 +130,21 @@ def _impl_llama3(q, k, v, *, scale=None, causal=True, axis_name=None,
     return _bshd(out)
 
 
+def _impl_ulysses(q, k, v, *, scale=None, causal=True, axis_name=None,
+                  segment_ids=None, positions=None, softcap=None,
+                  alibi_slopes=None, dropout_p=None, dropout_seed=None,
+                  window_left=None, **kw):
+    _no_varlen("ulysses", segment_ids, positions)
+    if window_left is not None:
+        raise ValueError("ulysses takes no window")
+    out, _ = ulysses_attention(
+        _bshd(q), _bshd(k), _bshd(v), scale=_norm(q, scale), causal=causal,
+        group=axis_name, softcap=softcap, alibi_slopes=alibi_slopes,
+        dropout_p=dropout_p, dropout_seed=dropout_seed, **kw,
+    )
+    return _bshd(out)
+
+
 def _impl_fused_ring(q, k, v, *, scale=None, causal=True, axis_name=None,
                      segment_ids=None, positions=None, softcap=None,
                      alibi_slopes=None, dropout_p=None, dropout_seed=None,
@@ -150,7 +168,9 @@ register_attention("flash", _impl_flash)
 register_attention("ring", _batch_impl("ring", ring_attention, True))
 register_attention("zigzag",
                    _batch_impl("zigzag", zigzag_ring_attention, False))
+register_attention("stripe", _batch_impl("stripe", stripe_attention, False))
 register_attention("llama3", _impl_llama3)
+register_attention("ulysses", _impl_ulysses)
 register_attention("fused_ring", _impl_fused_ring)
 
 

@@ -2,8 +2,8 @@
 
 The port of ``ring_flash_attn_tpu/api.py`` with flash-attn's keyword
 surface: the single-device ``flash_attn_func`` and the distributed
-``ring_flash_attn_func`` and ``zigzag_ring_flash_attn_func``, each with its
-kv-packed and qkv-packed form. ``group`` is a ``torch.distributed`` process
+``ring_flash_attn_func``, ``zigzag_ring_flash_attn_func`` and
+``stripe_flash_attn_func``, each with its kv-packed and qkv-packed form. ``group`` is a ``torch.distributed`` process
 group where the JAX package takes a mesh axis name (None: the default
 group, or one process when none is initialised); the distributed functions
 are per-process, on tensors sharded along S in their schedule's layout
@@ -11,15 +11,16 @@ are per-process, on tensors sharded along S in their schedule's layout
 kernels B1 and B2 (or B3a/B3b) on the card, their plain versions on the
 CPU.
 
-Ported so far: causal or not, GQA, any ``softmax_scale``; ``softcap`` and
-``alibi_slopes`` (not on zigzag) in the plain versions only, so they run on
-CPU tensors and raise ``NotImplementedError`` from the block kernels on
-CUDA tensors. A non-default ``window_size`` or ``dropout_p`` raises
-``NotImplementedError`` until its slice ports it. The stripe and varlen
-entry points are not ported yet (see ROADMAP.md).
+Ported so far: causal or not (zigzag and stripe are causal-only), GQA,
+any ``softmax_scale``; ``softcap`` and ``alibi_slopes`` (not on zigzag or
+stripe) in the plain versions only, so they run on CPU tensors and raise
+``NotImplementedError`` from the block kernels on CUDA tensors. A
+non-default ``window_size`` or ``dropout_p`` raises ``NotImplementedError``
+until its slice ports it. The varlen entry points are not ported yet (see
+ROADMAP.md).
 
-``deterministic=True`` asks every entry point here, the ring and zigzag
-ones included, for the split backward kernels B3a/B3b, which are bitwise
+``deterministic=True`` asks every entry point here, the ring, zigzag and
+stripe ones included, for the split backward kernels B3a/B3b, which are bitwise
 reproducible; the default fused kernel B2 sums dq by reduce-adds whose
 order varies from run to run (the JAX package accepts the flag and ignores
 it: every path there is deterministic). On the CPU the plain backward is
@@ -29,6 +30,7 @@ deterministic either way.
 from .ops.flash import flash_attention
 from .ops.mask import MaskArgs
 from .parallel.ring import ring_attention
+from .parallel.stripe import stripe_attention
 from .parallel.zigzag import zigzag_ring_attention
 
 
@@ -119,12 +121,10 @@ def _batch_variant(kind):
             )
         else:
             if not causal:
-                raise ValueError("zigzag ring attention is causal-only")
-            if window_right is not None:
-                raise NotImplementedError(
-                    "window_size: zigzag takes causal sliding windows "
-                    "(left, 0) only")
-            out, lse = zigzag_ring_attention(
+                raise ValueError(f"{kind} attention is causal-only")
+            sched = (zigzag_ring_attention if kind == "zigzag"
+                     else stripe_attention)
+            out, lse = sched(
                 qi, ki, vi, scale=scale, group=group,
                 softcap=_cap(softcap), alibi_slopes=alibi_slopes,
                 dropout_p=dropout_p or None, dropout_seed=dropout_seed,
@@ -143,6 +143,7 @@ def _batch_variant(kind):
 
 ring_flash_attn_func = _batch_variant("ring")
 zigzag_ring_flash_attn_func = _batch_variant("zigzag")
+stripe_flash_attn_func = _batch_variant("stripe")
 
 
 def _kvpacked(func):
@@ -163,6 +164,8 @@ ring_flash_attn_kvpacked_func = _kvpacked(ring_flash_attn_func)
 ring_flash_attn_qkvpacked_func = _qkvpacked(ring_flash_attn_func)
 zigzag_ring_flash_attn_kvpacked_func = _kvpacked(zigzag_ring_flash_attn_func)
 zigzag_ring_flash_attn_qkvpacked_func = _qkvpacked(zigzag_ring_flash_attn_func)
+stripe_flash_attn_kvpacked_func = _kvpacked(stripe_flash_attn_func)
+stripe_flash_attn_qkvpacked_func = _qkvpacked(stripe_flash_attn_func)
 
 
 __all__ = [
@@ -175,4 +178,7 @@ __all__ = [
     "zigzag_ring_flash_attn_func",
     "zigzag_ring_flash_attn_kvpacked_func",
     "zigzag_ring_flash_attn_qkvpacked_func",
+    "stripe_flash_attn_func",
+    "stripe_flash_attn_kvpacked_func",
+    "stripe_flash_attn_qkvpacked_func",
 ]

@@ -3,7 +3,7 @@ SwiGLU MLP): forward, loss and SGD training step, on one device or with
 the sequence sharded over a process group.
 
 The port of ``ring_flash_attn_tpu/models/transformer.py`` for the dense
-MLP and the ``ring`` and ``zigzag`` schedules; stripe, llama3 and usp
+MLP and the ``ring``, ``zigzag``, ``stripe`` and ``usp`` schedules; llama3
 attention in training, tensor parallelism and MoE come with their slices.
 Weights keep the JAX orientation (d_in, d_out), used as ``x @ W``, so that
 ``params_from_jax`` is a copy and not a transpose. Parameters require grad;
@@ -11,12 +11,17 @@ the serving functions run under ``torch.no_grad()`` and build no graph.
 
 The sequence group. JAX's ``axis_name=None`` means single-device flash
 attention, while ``group=None`` means the default process group everywhere
-in this package (``parallel/mesh.py``). So ``sp_group`` and ``data_group``
-spell "none" as ``False``, their default, which keeps the single-device
-behaviour; ``None`` is the default group (or one process when
-``torch.distributed`` is not initialised), and anything else a process
-group. With a sequence group every process holds (B, S_local) tokens in the
-layout of ``cfg.attention`` and the weights are replicated.
+in this package (``parallel/mesh.py``). So ``sp_group``, ``ulysses_group``
+and ``data_group`` spell "none" as ``False``, their default, which keeps
+the single-device behaviour; ``None`` is the default group (or one process
+when ``torch.distributed`` is not initialised), and anything else a
+process group. With a sequence group every process holds (B, S_local)
+tokens in the layout of ``cfg.attention`` and the weights are replicated.
+``attention="usp"`` also takes a ``ulysses_group`` (JAX's
+``ulysses_axis``): the ring runs over ``sp_group``, the all-to-all over
+``ulysses_group``, and the sequence is contiguous over (sequence rank
+major, Ulysses rank minor). A stripe batch is laid out with
+``layouts.all_local_stripe`` and ``layouts.stripe_position_ids``.
 """
 
 import dataclasses
@@ -32,6 +37,8 @@ from ..ops.mask import MaskArgs
 from ..parallel import layouts
 from ..parallel.mesh import all_reduce, psum_exact, ring_size
 from ..parallel.ring import ring_attention
+from ..parallel.stripe import stripe_attention
+from ..parallel.ulysses import usp_attention
 from ..parallel.zigzag import zigzag_ring_attention
 
 
@@ -46,7 +53,8 @@ class ModelConfig:
     mlp_dim: int = 2816
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
-    attention: str = "zigzag"  # with a sequence group: ring | zigzag
+    # with a sequence group: ring | zigzag | stripe | usp (llama3 raises)
+    attention: str = "zigzag"
 
     @property
     def torch_dtype(self):
@@ -89,7 +97,8 @@ class Transformer(nn.Module):
     def device(self):
         return self.embed.device
 
-    def forward(self, tokens, positions, backend=None, sp_group=False):
+    def forward(self, tokens, positions, backend=None, sp_group=False,
+                ulysses_group=False):
         """tokens (B, S) int, positions (S,) int -> logits (B, S, vocab) f32.
 
         ``backend="plain"`` runs attention's plain versions on the card.
@@ -102,14 +111,14 @@ class Transformer(nn.Module):
             q, k, v = _proj_qkv(cfg, layer, _rmsnorm(x, layer.attn_norm), b, s)
             q = _rope(q, positions, cfg.rope_theta)
             k = _rope(k, positions, cfg.rope_theta)
-            out = _attend(cfg, q, k, v, backend, sp_group)
+            out = _attend(cfg, q, k, v, backend, sp_group, ulysses_group)
             x = x + out.transpose(1, 2).reshape(b, s, -1) @ layer.wo
             x = _mlp(x, layer)
         x = _rmsnorm(x, self.final_norm)
         return (x @ self.lm_head).float()
 
 
-def _attend(cfg, q, k, v, backend, sp_group):
+def _attend(cfg, q, k, v, backend, sp_group, ulysses_group):
     """Causal attention by the config's schedule; out (B, Hq, S, hd)."""
     scale = cfg.head_dim**-0.5
     if sp_group is False:
@@ -121,7 +130,19 @@ def _attend(cfg, q, k, v, backend, sp_group):
     elif cfg.attention == "zigzag":
         out, _ = zigzag_ring_attention(q, k, v, scale=scale, group=sp_group,
                                        backend=backend)
-    elif cfg.attention in ("stripe", "llama3", "usp"):
+    elif cfg.attention == "stripe":
+        out, _ = stripe_attention(q, k, v, scale=scale, group=sp_group,
+                                  backend=backend)
+    elif cfg.attention == "usp":
+        # the all-to-all over ulysses_group composed with a causal ring
+        # over sp_group
+        if ulysses_group is False:
+            raise ValueError("usp attention needs a ulysses_group")
+        out, _ = usp_attention(q, k, v, scale=scale, causal=True,
+                               ulysses_group=ulysses_group,
+                               ring_group=sp_group, variant="ring",
+                               backend=backend)
+    elif cfg.attention == "llama3":
         raise NotImplementedError(
             f"attention={cfg.attention!r} is not ported to the training "
             f"path yet (see ROADMAP.md)")
@@ -130,43 +151,49 @@ def _attend(cfg, q, k, v, backend, sp_group):
     return out
 
 
-def loss_fn(model, tokens, labels, positions, backend=None, sp_group=False):
+def loss_fn(model, tokens, labels, positions, backend=None, sp_group=False,
+            ulysses_group=False):
     """Mean next-token cross-entropy. labels (B, S) are already shifted and
     laid out like tokens; label -100 is ignored (padding). ``backend=
     "plain"`` runs attention's plain versions on the card (the reference
-    that the kernels' gradients are held against). With ``sp_group`` the
-    mean is over the whole sequence: the loss sum and the count are summed
-    over the group."""
-    logits = model(tokens, positions, backend=backend, sp_group=sp_group)
+    that the kernels' gradients are held against). With ``sp_group`` (and
+    ``ulysses_group``) the mean is over the whole sequence: the loss sum
+    and the count are summed over the groups."""
+    logits = model(tokens, positions, backend=backend, sp_group=sp_group,
+                   ulysses_group=ulysses_group)
     valid = labels >= 0
     safe = labels.long().masked_fill(~valid, -100)  # every label < 0 ignored
     loss_sum = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                safe.reshape(-1), ignore_index=-100,
                                reduction="sum")
     count = valid.sum()
-    if sp_group is not False:
-        # a sum whose backward is the identity: a plain all-reduce would
-        # scale every weight gradient by the group's size
-        loss_sum = psum_exact(loss_sum, sp_group)
-        count = all_reduce(count, "sum", sp_group)  # carries no gradient
+    for group in (sp_group, ulysses_group):
+        if group is not False:
+            # a sum whose backward is the identity: a plain all-reduce
+            # would scale every weight gradient by the group's size
+            loss_sum = psum_exact(loss_sum, group)
+            count = all_reduce(count, "sum", group)  # carries no gradient
     return loss_sum / count.clamp(min=1)
 
 
 def train_step(model, tokens, labels, positions, lr=1e-3, sp_group=False,
-               data_group=False):
+               data_group=False, ulysses_group=False):
     """One SGD step: p <- (p.f32 - lr * g.f32).to(p.dtype) on every
     parameter. Returns (model, loss).
 
-    With ``sp_group`` and/or ``data_group`` (see the module docstring; the
-    weights are replicated over both) the gradients are summed over them,
+    With ``sp_group``, ``ulysses_group`` and/or ``data_group`` (see the
+    module docstring; the weights are replicated over all three) the
+    gradients are summed over them,
     and the loss is averaged over ``data_group``, as in the JAX
     ``train_step``. Unlike it, which returns new parameters, this one
     updates the model's parameters in place (and returns the same model),
     so that a full-width step holds one copy of the weights."""
     params = list(model.parameters())
-    loss = loss_fn(model, tokens, labels, positions, sp_group=sp_group)
+    loss = loss_fn(model, tokens, labels, positions, sp_group=sp_group,
+                   ulysses_group=ulysses_group)
     grads = torch.autograd.grad(loss, params)
-    groups = [g for g in (sp_group, data_group) if g is not False]
+    groups = [g for g in (sp_group, ulysses_group, data_group)
+              if g is not False]
     with torch.no_grad():
         for p, g in zip(params, grads):
             for group in groups:

@@ -6,7 +6,15 @@ from .decode import (
 )
 from .fused_ring import fused_ring_attention, fused_ring_bwd_supported
 from .llama3 import llama3_attention
+from .layouts import (
+    extract_local_contiguous,
+    extract_local_stripe,
+    extract_local_zigzag,
+    stripe_position_ids,
+    zigzag_position_ids,
+)
 from .mesh import (
+    all_to_all,
     psum_exact,
     ring_rank,
     ring_rotate,
@@ -14,6 +22,8 @@ from .mesh import (
     ring_size,
 )
 from .ring import ring_attention
+from .stripe import stripe_attention
+from .ulysses import ulysses_attention, usp_attention
 from .zigzag import zigzag_ring_attention
 
 __all__ = [
@@ -24,11 +34,20 @@ __all__ = [
     "fused_ring_attention",
     "fused_ring_bwd_supported",
     "llama3_attention",
+    "extract_local_contiguous",
+    "extract_local_stripe",
+    "extract_local_zigzag",
+    "stripe_position_ids",
+    "zigzag_position_ids",
+    "all_to_all",
     "psum_exact",
     "ring_rank",
     "ring_rotate",
     "ring_rotate_start",
     "ring_size",
     "ring_attention",
+    "stripe_attention",
+    "ulysses_attention",
+    "usp_attention",
     "zigzag_ring_attention",
 ]

@@ -39,7 +39,7 @@ from ..ops.flash_bwd_cuda import bwd_delta
 from ..ops.mask import NEG_INF
 from .fused_ring_cuda import fused_ring_bwd_cuda, fused_ring_fwd_cuda
 from .mesh import RingBuffer, ring_rank, ring_size
-from .ring import _ring_bwd
+from .ring import _ring_masks, ring_loop_bwd
 
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
@@ -292,8 +292,9 @@ class _FusedRingAttention(torch.autograd.Function):
         else:
             if use_kernel(q, bwd_backend):
                 dout = _kernel_layout(dout)
-            dq, dk, dv = _ring_bwd(q, k, v, out, lse, dout, scale, causal,
-                                   group, bwd_backend, extras)
+            dq, dk, dv = ring_loop_bwd(
+                q, k, v, out, lse, dout, scale, group, bwd_backend,
+                _ring_masks(causal, k.shape[2], extras))
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None, None, None, None)
 
@@ -307,7 +308,7 @@ def fused_ring_attention(q, k, v, *, scale, causal, group=None,
     fp32 (B, Hq, L)); lse carries no gradient.
 
     Backward (``bwd_mode``): "fused" is the dual ring of B8 steps;
-    "schedule" the schedule-level dual ring (``ring._ring_bwd``: kernels
+    "schedule" the schedule-level dual ring (``ring.ring_loop_bwd``: kernels
     B2/B3, which lack softcap and ALiBi on the card), run with
     ``bwd_backend`` (default: ``backend``); "auto" takes the fused one
     where ``fused_ring_bwd_supported`` holds. ``backend="plain"`` runs the

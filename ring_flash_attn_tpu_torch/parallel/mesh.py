@@ -14,6 +14,7 @@ The ring is a batched isend/irecv pair to rank +- 1
 so that the next step's KV travels while this step's kernel runs. The step
 loops of ring, zigzag and fused ring all move their tensors through
 ``RingBuffer``: two buffers that take turns at sending and receiving.
+Ulysses moves its activations with ``all_to_all`` instead.
 """
 
 import torch
@@ -139,6 +140,46 @@ def all_gather(x, dim, group=None):
              for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+def _all_to_all(x, split_dim, concat_dim, group):
+    n = ring_size(group)
+    split_dim %= x.ndim
+    concat_dim %= x.ndim
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not split "
+                         f"into {n} equal chunks")
+    # chunk j (to rank j) on dim 0 of a contiguous tensor, as
+    # all_to_all_single splits and fills it
+    send = x.unflatten(split_dim, (n, -1)).movedim(split_dim, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # recv[i] came from rank i: rank order along concat_dim
+    return recv.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.args = (split_dim, concat_dim, group)
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim, group = ctx.args
+        # the inverse all-to-all sends every chunk's gradient home
+        return _all_to_all(grad, concat_dim, split_dim, group), None, None, \
+            None
+
+
+def all_to_all(x, split_dim, concat_dim, group=None):
+    """JAX's tiled ``all_to_all``: x splits into W equal chunks along
+    ``split_dim``, chunk j goes to rank j, and the chunks received are
+    concatenated along ``concat_dim`` in rank order. Differentiable (the
+    backward is the inverse all-to-all); x itself at world size 1."""
+    if ring_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
 
 
 class _PsumExact(torch.autograd.Function):

@@ -15,6 +15,9 @@ flight and arrives home after a full circle (W rotations).
 The rotation of step t + 1's KV is posted before step t's kernels are
 launched and waited for after (``mesh.RingBuffer``, two buffers that take
 turns): what XLA's scheduler gives the JAX code for free is explicit here.
+The step loops (``ring_loop_fwd``, ``ring_loop_bwd``, ``RingLoopAttention``)
+take the schedule as a function that gives each step's mask, and the stripe
+schedule (``stripe.py``) runs on them too.
 
 Ported: causal or not, softcap and ALiBi (ALiBi needs global coordinates,
 so those steps carry ``offset = rank * L`` and ``kv_offset = src * L``).
@@ -47,10 +50,26 @@ def _step_mask(step, rank, w, l_kv, causal, extras):
     return MaskArgs(causal=causal and step == 0, **kw)
 
 
-def _ring_fwd(q, k, v, scale, causal, group, backend, extras):
+def _ring_masks(causal, l_kv, extras):
+    """The basic ring's ``step_mask(step, rank, w)`` for ``ring_loop_fwd``
+    and ``ring_loop_bwd``: None where a causal rank skips the step (the kv
+    resident at step s came from rank r - s, and a rank attends only to
+    earlier shards)."""
+    def step_mask(step, rank, w):
+        if causal and step > rank:
+            return None
+        return _step_mask(step, rank, w, l_kv, causal, extras)
+
+    return step_mask
+
+
+def ring_loop_fwd(q, k, v, scale, group, backend, step_mask):
+    """The forward step loop that the ring and stripe schedules share: at
+    step s the kv of rank (r - s) % W is resident, and ``step_mask(s, r,
+    W)`` gives its block's MaskArgs, or None to skip the block. Step 0 must
+    compute. Returns the merged (out fp32, lse)."""
     w = ring_size(group)
     rank = ring_rank(group)
-    l_kv = k.shape[2]
     kv = RingBuffer(torch.stack([k, v]) if w > 1 else (k, v), group)
     out = lse = None
     for step in range(w):
@@ -58,10 +77,8 @@ def _ring_fwd(q, k, v, scale, causal, group, backend, extras):
         # message travels while this step's kernels run
         if step < w - 1:
             kv.start()
-        if not causal or step <= rank:
-            # causal: the kv resident at step s came from rank r - s, and a
-            # rank attends only to earlier shards
-            mask = _step_mask(step, rank, w, l_kv, causal, extras)
+        mask = step_mask(step, rank, w)
+        if mask is not None:
             b_out, b_lse = block_fwd(q, kv.value[0], kv.value[1], scale,
                                      mask, backend)
             out, lse = merge_partials(out, lse, b_out, b_lse)
@@ -69,13 +86,13 @@ def _ring_fwd(q, k, v, scale, causal, group, backend, extras):
     return out, lse
 
 
-def _ring_bwd(q, k, v, out, lse, dout, scale, causal, group, backend,
-              extras, deterministic=False):
-    """(dq, dk, dv) fp32 of this rank's shards. ``deterministic`` asks
-    ``block_bwd`` for the bitwise reproducible split kernels."""
+def ring_loop_bwd(q, k, v, out, lse, dout, scale, group, backend, step_mask,
+                  deterministic=False):
+    """The dual of ``ring_loop_fwd``: (dq, dk, dv) fp32 of this rank's
+    shards. ``deterministic`` asks ``block_bwd`` for the bitwise
+    reproducible split kernels."""
     w = ring_size(group)
     rank = ring_rank(group)
-    l_kv = k.shape[2]
     delta = compute_delta(dout, out)
     kv = RingBuffer(torch.stack([k, v]) if w > 1 else (k, v), group)
     dq = None
@@ -85,8 +102,8 @@ def _ring_bwd(q, k, v, out, lse, dout, scale, causal, group, backend,
     for step in range(w):
         if step < w - 1:
             kv.start()
-        if not causal or step <= rank:
-            mask = _step_mask(step, rank, w, l_kv, causal, extras)
+        mask = step_mask(step, rank, w)
+        if mask is not None:
             b_dq, b_dk, b_dv = block_bwd(
                 dout, q, kv.value[0], kv.value[1], lse, delta, scale, mask,
                 backend, fused=False if deterministic else None)
@@ -110,27 +127,31 @@ def check_ring_options(name, **unported):
                 f"{name}({option}=...) is not ported yet (see ROADMAP.md)")
 
 
-class _RingAttention(torch.autograd.Function):
+class RingLoopAttention(torch.autograd.Function):
+    """``ring_loop_fwd`` and ``ring_loop_bwd`` as one differentiable
+    function: apply(q, k, v, scale, group, backend, step_mask,
+    deterministic) -> (out in q.dtype, lse), lse with no gradient."""
+
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, group, backend, extras,
+    def forward(ctx, q, k, v, scale, group, backend, step_mask,
                 deterministic):
-        out, lse = _ring_fwd(q, k, v, scale, causal, group, backend, extras)
+        out, lse = ring_loop_fwd(q, k, v, scale, group, backend, step_mask)
         out = out.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
-        ctx.args = (scale, causal, group, backend, extras, deterministic)
+        ctx.args = (scale, group, backend, step_mask, deterministic)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):  # no gradient path through lse
         q, k, v, out, lse = ctx.saved_tensors
-        scale, causal, group, backend, extras, deterministic = ctx.args
+        scale, group, backend, step_mask, deterministic = ctx.args
         if use_kernel(q, backend):
             dout = _kernel_layout(dout)
-        dq, dk, dv = _ring_bwd(q, k, v, out, lse, dout, scale, causal,
-                               group, backend, extras, deterministic)
+        dq, dk, dv = ring_loop_bwd(q, k, v, out, lse, dout, scale, group,
+                                   backend, step_mask, deterministic)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None, None, None)
+                None, None, None)
 
 
 def ring_attention(q, k, v, *, scale, causal, group=None, backend=None,
@@ -146,9 +167,10 @@ def ring_attention(q, k, v, *, scale, causal, group=None, backend=None,
     check_ring_options("ring_attention", dropout_p=dropout_p,
                        window_left=window_left is not None,
                        window_right=window_right is not None)
-    extras = dict(softcap=softcap, alibi_slopes=alibi_slopes)
+    step_mask = _ring_masks(causal, k.shape[2],
+                            dict(softcap=softcap, alibi_slopes=alibi_slopes))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _RingAttention.apply(q, k, v, scale, causal, group, backend,
-                                    extras, deterministic)
-    out, lse = _ring_fwd(q, k, v, scale, causal, group, backend, extras)
+        return RingLoopAttention.apply(q, k, v, scale, group, backend,
+                                       step_mask, deterministic)
+    out, lse = ring_loop_fwd(q, k, v, scale, group, backend, step_mask)
     return out.to(q.dtype), lse

@@ -701,11 +701,11 @@ def test_cuda_fused_ring_fwd_tile_edges_match_plain_version(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["ring", "zigzag_ring"])
+@pytest.mark.parametrize("kind", ["ring", "zigzag_ring", "stripe"])
 def test_cuda_ring_deterministic_dq_is_bitwise_reproducible(kind):
-    """``deterministic=True`` on a ring entry point (W=1, no process group)
-    runs the split kernels: dq, dk and dv are the same bits over two
-    backward calls."""
+    """``deterministic=True`` on a ring, zigzag or stripe entry point (W=1,
+    no process group) runs the split kernels: dq, dk and dv are the same
+    bits over two backward calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from ring_flash_attn_tpu_torch import api
@@ -732,3 +732,60 @@ def test_cuda_ring_deterministic_dq_is_bitwise_reproducible(kind):
         n[0] + 2, n[1])
     for a, c in zip(*grads):
         assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_stripe_w4_in_one_process_matches_plain(d):
+    """Every rank's stripe steps at W=4 in one process (chip_smoke's
+    ``_rank_fwd`` / ``_rank_bwd``: B1 at offset 0 and -1, merge_partials,
+    B2) against the plain versions over the whole sequence after
+    ``restore_stripe``; S=1024, 4/2 heads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from chip_smoke import BWD_REL_TOL, _rank_bwd, _rank_fwd
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.naive import naive_block_bwd
+    from ring_flash_attn_tpu_torch.parallel import layouts, stripe
+
+    world, s, hq, hkv = 4, 1024, 4, 2
+    scale = d**-0.5
+    g = torch.Generator(device="cuda").manual_seed(d)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, dout = rnd(1, hq, s, d), rnd(1, hkv, s, d), rnd(1, hkv, s, d), \
+        rnd(1, hq, s, d)
+    qs, ks, vs, douts = ([layouts.extract_local_stripe(x, r, world, axis=2)
+                          .contiguous() for r in range(world)]
+                         for x in (q, k, v, dout))
+    step_mask = stripe._step_masks(dict(softcap=None))
+    n = flash_fwd_cuda.launches, flash_bwd_cuda.launches
+    res = [_rank_fwd(qs, ks, vs, r, scale, step_mask) for r in range(world)]
+    outs, lses = [o for o, _ in res], [x for _, x in res]
+    dkvs = [torch.zeros((2,) + tuple(x.shape), device="cuda") for x in ks]
+    dqs = [_rank_bwd(qs, ks, vs, douts, outs, lses, dkvs, r, scale,
+                     step_mask) for r in range(world)]
+    # every rank computes every step: W * W launches of each kernel
+    assert (flash_fwd_cuda.launches, flash_bwd_cuda.launches) == (
+        n[0] + world * world, n[1] + world * world)
+
+    def restore(parts):
+        return layouts.restore_stripe(torch.cat(parts, dim=2), world, axis=2)
+
+    out, lse = restore(outs), restore(lses)
+    mask = MaskArgs(causal=True)
+    ref_out, ref_lse = naive_block_fwd(q, k, v, scale, mask)
+    assert float((out.float() - ref_out).abs().max()) <= B1_OUT_TOL
+    assert rel_err_rows(out, ref_out) <= RING_OUT_REL_TOL
+    assert float((lse - ref_lse).abs().max()) <= B1_LSE_TOL
+    ref = naive_block_bwd(dout, q, k, v, lse, compute_delta(dout, out),
+                          scale, mask)
+    got = (restore(dqs), restore([a[0] for a in dkvs]),
+           restore([a[1] for a in dkvs]))
+    for a, r in zip(got, ref):
+        assert _rel_err(a, r) <= BWD_REL_TOL

@@ -316,8 +316,8 @@ def test_deterministic_reaches_every_step_at_w4(kind):
 
 def test_registry_and_layer():
     assert list_attention() == ["flash", "fused_ring", "llama3", "ring",
-                                "zigzag"]
-    for name in ("stripe", "ulysses", "ring_varlen", "zigzag_varlen"):
+                                "stripe", "ulysses", "zigzag"]
+    for name in ("ring_varlen", "zigzag_varlen"):
         with pytest.raises(KeyError, match="ROADMAP"):
             get_attention(name)
     with pytest.raises(KeyError, match="unknown"):
@@ -335,7 +335,8 @@ def test_registry_and_layer():
                for i, h in enumerate((HQ, HKV, HKV)))
     ref = RingAttentionLayer("flash")(q, k, v)
     assert ref.shape == q.shape
-    for impl in ("ring", "zigzag", "fused_ring", "llama3"):
+    for impl in ("ring", "zigzag", "fused_ring", "llama3", "stripe",
+                 "ulysses"):
         layer = RingAttentionLayer(impl, scale=16**-0.5)
         assert _err(layer(q, k, v), ref) <= OUT_TOL, impl
         assert impl in repr(layer)
@@ -492,11 +493,12 @@ def test_train_step_over_data_and_sequence_groups_matches_jax():
             _check_params(out, kind, new)
 
 
-@pytest.mark.parametrize("kind", ["ring", "zigzag"])
+@pytest.mark.parametrize("kind", ["ring", "zigzag", "stripe", "usp"])
 def test_sequence_group_of_one_process_equals_the_flash_path(kind):
-    """sp_group=None with no process group initialised is a ring of one:
-    the loss and the step equal the single-device path's (sp_group=False,
-    the default)."""
+    """sp_group=None (and for USP ulysses_group=None) with no process group
+    initialised is a ring of one: the loss and the step equal the
+    single-device path's (sp_group=False, the default). llama3 has no
+    backward yet and raises."""
     tokens = torch.from_numpy(_tokens(2)).long()
     toks, labels, pos = prepare_zigzag_batch(tokens, 1)
     assert torch.equal(toks, tokens) and torch.equal(
@@ -504,16 +506,19 @@ def test_sequence_group_of_one_process_equals_the_flash_path(kind):
     tree = jax.tree.map(np.asarray, _jparams())
     models = [params_from_jax(tree, ModelConfig(attention=kind, **CFG_KW),
                               device="cpu") for _ in range(2)]
+    groups = dict(sp_group=None)
+    if kind == "usp":
+        groups["ulysses_group"] = None
     flash = loss_fn(models[0], toks, labels, pos)
-    ring = loss_fn(models[1], toks, labels, pos, sp_group=None)
+    ring = loss_fn(models[1], toks, labels, pos, **groups)
     assert abs(float(flash.detach()) - float(ring.detach())) <= 1e-6
     _, l0 = train_step(models[0], toks, labels, pos, lr=LR)
-    _, l1 = train_step(models[1], toks, labels, pos, lr=LR, sp_group=None,
-                       data_group=None)
+    _, l1 = train_step(models[1], toks, labels, pos, lr=LR, data_group=None,
+                       **groups)
     assert abs(float(l0) - float(l1)) <= 1e-6
     for a, b in zip(models[0].parameters(), models[1].parameters()):
         assert _err(a.detach().float(), b.detach().float()) <= 1e-6
-    bad = params_from_jax(tree, ModelConfig(attention="stripe", **CFG_KW),
+    bad = params_from_jax(tree, ModelConfig(attention="llama3", **CFG_KW),
                           device="cpu")
     with pytest.raises(NotImplementedError):
         loss_fn(bad, toks, labels, pos, sp_group=None)

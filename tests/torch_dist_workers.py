@@ -20,7 +20,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ring_flash_attn_tpu_torch import api
+from ring_flash_attn_tpu_torch import RingAttentionLayer, api
 from ring_flash_attn_tpu_torch.models import (
     ModelConfig, decode_step, generate, params_from_jax, prefill, train_step)
 from ring_flash_attn_tpu_torch.ops.quant import (
@@ -28,10 +28,10 @@ from ring_flash_attn_tpu_torch.ops.quant import (
 from ring_flash_attn_tpu_torch.parallel import (
     fused_ring_attention, layouts, llama3_attention, merge_across_axis,
     psum_exact, ring_attention, ring_rank, ring_rotate, ring_rotate_start,
-    ring_size, sharded_cache_update, sharded_quant_decode,
-    zigzag_ring_attention)
+    ring_size, sharded_cache_update, sharded_quant_decode, stripe_attention,
+    ulysses_attention, usp_attention, zigzag_ring_attention)
 from ring_flash_attn_tpu_torch.parallel.mesh import (
-    RingBuffer, all_gather, all_reduce)
+    RingBuffer, all_gather, all_reduce, all_to_all)
 
 START_TIMEOUT = 120  # seconds for all ranks to import torch and report
 JOIN_TIMEOUT = 20
@@ -154,8 +154,9 @@ def task_generate(rank, world, p):
 
 def _local(a, rank, world, layout, axis):
     """Rank's shard of the global numpy array in the schedule's layout."""
-    extract = (layouts.extract_local_zigzag if layout == "zigzag"
-               else layouts.extract_local_contiguous)
+    extract = {"zigzag": layouts.extract_local_zigzag,
+               "stripe": layouts.extract_local_stripe}.get(
+        layout, layouts.extract_local_contiguous)
     return extract(torch.from_numpy(a), rank, world, axis).contiguous()
 
 
@@ -183,13 +184,17 @@ def task_schedules(rank, world, p):
     return out
 
 
+# the module whose step loop runs an api kind's block_bwd calls
+_BWD_MODULE = {"ring": "ring", "zigzag_ring": "zigzag", "stripe": "ring"}
+
+
 @contextlib.contextmanager
 def _fused_seen(kind):
     """The list of the ``fused`` argument of every ``block_bwd`` call the
-    ring ("ring") or zigzag ("zigzag_ring") schedule makes in the block."""
+    ring ("ring"), zigzag ("zigzag_ring") or stripe ("stripe") schedule
+    makes in the block."""
     module = importlib.import_module(
-        "ring_flash_attn_tpu_torch.parallel."
-        + ("ring" if kind == "ring" else "zigzag"))
+        "ring_flash_attn_tpu_torch.parallel." + _BWD_MODULE[kind])
     real, seen = module.block_bwd, []
 
     def recorder(*args, fused=None, **kw):
@@ -207,9 +212,11 @@ def task_api(rank, world, p):
     """The distributed api functions and their packed forms on (B, S, H,
     D); ``ring_func`` also with gradients and with return_attn_probs, and
     with ``deterministic=True`` (as the kv-packed form), recording what
-    each backward step asks ``block_bwd`` for."""
+    each backward step asks ``block_bwd`` for. ``p["kinds"]`` (default:
+    ring and zigzag) lists the (kind, layout) pairs."""
     out = {}
-    for kind, layout in (("ring", "contiguous"), ("zigzag_ring", "zigzag")):
+    kinds = p.get("kinds", (("ring", "contiguous"), ("zigzag_ring", "zigzag")))
+    for kind, layout in kinds:
         q, k, v, dout = (_local(p[n], rank, world, layout, 1)
                          for n in ("q", "k", "v", "dout"))
         kw = dict(causal=True, softmax_scale=p["scale"])
@@ -247,19 +254,34 @@ def task_api(rank, world, p):
     return out
 
 
+def _grid_groups(rank, world, inner):
+    """(outer group, inner group) of ``rank`` on a (world / inner, inner)
+    grid of processes, inner minor: the inner groups are runs of
+    ``inner`` consecutive ranks, an outer group takes every inner-th rank.
+    Every process creates every group, in the same order, as
+    ``dist.new_group`` requires."""
+    outer = world // inner
+    rows = [dist.new_group([o * inner + i for i in range(inner)])
+            for o in range(outer)]
+    cols = [dist.new_group([o * inner + i for o in range(outer)])
+            for i in range(inner)]
+    return cols[rank % inner], rows[rank // inner]
+
+
 def task_train(rank, world, p):
     """One ``train_step`` over the sequence group for each attention kind;
     with ``dp`` > 1 the ranks form a (dp, sp) grid, sp innermost, with a
-    process group per row (the sequence) and per column (the data)."""
+    process group per row (the sequence) and per column (the data). The
+    "usp" kind runs on a (world / ``wu``, ``wu``) grid instead: the ring
+    over the columns, the Ulysses all-to-all over the rows (runs of
+    consecutive ranks), the tokens contiguous over the ranks."""
     dp = p["dp"]
     sp = world // dp
     sp_group, data_group = None, False
     if dp > 1:
-        rows = [dist.new_group([d * sp + s for s in range(sp)])
-                for d in range(dp)]
-        cols = [dist.new_group([d * sp + s for d in range(dp)])
-                for s in range(sp)]
-        sp_group, data_group = rows[rank // sp], cols[rank % sp]
+        data_group, sp_group = _grid_groups(rank, world, sp)
+    if "usp" in p["batches"]:
+        usp_groups = _grid_groups(rank, world, p["wu"])
     out = {}
     for kind, (tokens, labels, pos) in p["batches"].items():
         cfg = ModelConfig(attention=kind, **p["cfg"])
@@ -268,17 +290,107 @@ def task_train(rank, world, p):
             _shard(_shard(a, rank // sp, dp, 0), rank % sp, sp, 1)).long()
             for a in (tokens, labels))
         positions = torch.from_numpy(_shard(pos, rank % sp, sp, 0))
+        groups = dict(sp_group=sp_group, data_group=data_group)
+        if kind == "usp":
+            groups = dict(zip(("sp_group", "ulysses_group"), usp_groups))
         _, loss = train_step(model, toks, labs, positions, lr=p["lr"],
-                             sp_group=sp_group, data_group=data_group)
+                             **groups)
         out[f"{kind}/loss"] = _np(loss)
         for name, param in model.named_parameters():
             out[f"{kind}/{name}"] = _np(param.float())
     return out
 
 
+def _cp_local(a, rank, world, case):
+    """Rank's shard of a context-parallel case's global (B, H, S, D) array:
+    in the schedule's layout over ``world`` ranks, or for USP in the ring
+    variant's layout over the ring group, then contiguous over the ranks
+    (ring major, Ulysses minor)."""
+    layout = case["layout"]
+    if "wu" in case:
+        x = torch.from_numpy(a)
+        wr = world // case["wu"]
+        if layout == "zigzag":
+            x = layouts.all_local_zigzag(x, wr, axis=2)
+        elif layout == "stripe":
+            x = layouts.all_local_stripe(x, wr, axis=2)
+        return layouts.extract_local_contiguous(x, rank, world,
+                                                axis=2).contiguous()
+    return _local(a, rank, world, layout, 2)
+
+
+def _registry_fn(name):
+    """A registry entry as a (B, H, S, D) function returning (out, None)."""
+    def fn(q, k, v, scale, causal, group):
+        layer = RingAttentionLayer(name, axis_name=group, scale=scale,
+                                   causal=causal)
+        out = layer(*(x.transpose(1, 2) for x in (q, k, v)))
+        return out.transpose(1, 2), None
+
+    return fn
+
+
+def task_cp(rank, world, p):
+    """The context-parallel cases of ``p["cases"]``: each one's (out, lse)
+    and gradients on this rank's shard (kinds "stripe", "ulysses", "usp"
+    with the ring variant ``case["variant"]`` on a (world / wu, wu) grid,
+    and "registry stripe" / "registry ulysses" through
+    ``RingAttentionLayer``); and ``all_to_all`` with its gradient on
+    ``p["a2a"]``'s per-rank inputs for each (split, concat) pair."""
+    grids = {wu: _grid_groups(rank, world, wu) for wu in sorted(
+        {c["wu"] for c in p["cases"].values() if "wu" in c})}
+    out = {}
+    for name, c in p["cases"].items():
+        kind, kw = c["kind"], dict(c["kw"])
+        q, k, v, dout = (_cp_local(c[n], rank, world, c)
+                         for n in ("q", "k", "v", "dout"))
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        if kind == "stripe":
+            o, lse = stripe_attention(*leaves, scale=p["scale"], **kw)
+        elif kind == "ulysses":
+            o, lse = ulysses_attention(*leaves, scale=p["scale"], **kw)
+        elif kind == "usp":
+            ring_group, ulysses_group = grids[c["wu"]]
+            o, lse = usp_attention(*leaves, scale=p["scale"],
+                                   ulysses_group=ulysses_group,
+                                   ring_group=ring_group, **kw)
+        else:
+            o, lse = _registry_fn(kind.split()[1])(
+                *leaves, p["scale"], kw["causal"], None)
+        assert o.dtype == q.dtype and (lse is None or not lse.requires_grad)
+        grads = torch.autograd.grad(o, leaves, dout)
+        for key, x in zip(("out", "lse", "dq", "dk", "dv"),
+                          (o, lse, *grads)):
+            if x is not None:
+                out[f"{name}/{key}"] = _np(x.float())
+    for split, concat in p["a2a"]["pairs"]:  # none at W=8
+        x = torch.from_numpy(p["a2a"]["x"][rank]).requires_grad_()
+        y = all_to_all(x, split, concat)
+        ct = torch.from_numpy(p["a2a"]["ct"][rank]).reshape(y.shape)
+        (grad,) = torch.autograd.grad(y, x, ct)
+        out[f"a2a/{split},{concat}"] = _np(y)
+        out[f"a2a/{split},{concat}/grad"] = _np(grad)
+    return out
+
+
+def task_ulysses_heads(rank, world, p):
+    """The messages of the ValueErrors that Ulysses raises for q heads not
+    divisible by the group's size (3 at W=4) and for kv heads that neither
+    divide nor are divided by it (3 kv heads of 12 q heads at W=4)."""
+    out = {}
+    for key, (hq, hkv) in (("hq", (3, 3)), ("hkv", (12, 3))):
+        q, kv = torch.zeros(1, hq, 8, 16), torch.zeros(1, hkv, 8, 16)
+        try:
+            ulysses_attention(q, kv, kv, scale=1.0, causal=True)
+        except ValueError as e:
+            out[key] = str(e)
+    return out
+
+
 TASKS = {"collectives": task_collectives, "decode": task_decode,
          "llama3": task_llama3, "generate": task_generate,
-         "schedules": task_schedules, "api": task_api, "train": task_train}
+         "schedules": task_schedules, "api": task_api, "train": task_train,
+         "cp": task_cp, "ulysses_heads": task_ulysses_heads}
 
 
 def _worker(rank, world, port, task, payload, results):
