@@ -106,6 +106,29 @@ Phases, each of which raises on failure:
    bits twice), ``train_step`` with ``attention="stripe"`` and ``"usp"``
    for two steps (phase 6's losses), and each kernel's launch count over
    the entry points.
+14. MoE and tensor parallelism: a switch-MoE model at Mixtral-8x7B's
+   widths (8 experts, top-1 routing, capacity factor 2, aux weight 0.01),
+   2 layers, seeded random weights, one process: the loss and every
+   gradient of the kernels against the plain versions at S=1024 (the plain
+   run routed as the kernels' run, the flipped routes printed), then the
+   main path: 3 ``train_step``s at S=4096 (s/step, tokens/s, peak memory,
+   the dropped share per layer, B1/B2 launches), one profiled step broken
+   down into fp32 expert GEMMs, dispatch/combine, attention kernels and
+   the rest; then one Llama-3-8B-width layer's attention and MLP branches
+   as tp=2 and tp=4 ranks compute them on their ``shard_params`` shards
+   (B1 and B2 at 16/4 and 8/2 heads), the ranks' partials summed in the
+   process against the unsharded layer (out and the sharded weights'
+   gradients).
+15. llama3 training: every W=4 rank of a 32768-token causal sequence in
+   one process as ``_llama3_fwd``/``_llama3_bwd`` run it (B1 at 8192 q
+   rows against the 32768 gathered keys at offset 8192 r; B2 with
+   gathered-size dk/dv, summed over the ranks as the reduce-scatter does)
+   against B1 and B2 on the whole sequence and the plain versions on the
+   last 512 rows and the first 512 keys; each rank timed beside the ring's
+   rank on the same tensors, in turns; the last rank of W=8 (65536 keys at
+   offset 57344: B1, then B3a/B3b) against the plain versions on its last
+   512 rows; then ``train_step(attention="llama3", sp_group=None)`` for
+   two steps at S=8192 (phase 6's losses), with its launch counts.
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -120,6 +143,7 @@ as the last line.
 Exits non-zero, printing no result, without CUDA or without the package.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2544,6 +2568,436 @@ def phase_stripe_ulysses(torch, flash_losses):
     return launches, times
 
 
+# Mixtral-8x7B's published widths (vocab 32000, dim 4096, 32/8 heads of
+# 128, mlp 14336, 8 experts, rope_theta 1e6), with the JAX package's switch
+# (top-1) routing where Mixtral routes top-2; cut to 2 layers
+MIXTRAL = dict(vocab=32000, dim=4096, layers=2, heads=32, kv_heads=8,
+               head_dim=128, mlp_dim=14336, rope_theta=1e6, dtype="bfloat16",
+               moe_experts=8, moe_capacity_factor=2.0, moe_aux_weight=0.01)
+# TP simulated in one process: |sum of the ranks' partials - unsharded| /
+# |unsharded| (L2), bf16 partial products summed in fp32
+TP_REL_TOL = 1e-2
+
+
+@contextlib.contextmanager
+def moe_routes(force=None):
+    """Record every ``moe_mlp`` call's expert choice ((T,) each, in call
+    order) in ``seen["experts"]``. With ``force`` (such a list), route the
+    calls by it instead and keep in ``seen["flips"]`` the number of tokens
+    whose own choice differed, a (1,) tensor a call: a kernel run and its
+    plain reference then compute the same function even where a token near
+    an argmax tie would flip."""
+    from ring_flash_attn_tpu_torch.models import moe
+
+    real, seen = moe.route, {"experts": [], "flips": []}
+
+    def recorder(xn, router):
+        probs, expert = real(xn, router)
+        if force is not None:
+            forced = force[len(seen["experts"])]
+            seen["flips"].append((forced != expert).sum().reshape(1))
+            expert = forced
+        seen["experts"].append(expert)
+        return probs, expert
+
+    moe.route = recorder
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def _grad_errs(names, got, ref):
+    """[(||got - ref|| / ||ref||, name)], worst first."""
+    return sorted(((float((a.float() - b.float()).norm()
+                          / b.float().norm().clamp_min(1e-30)), n)
+                   for n, a, b in zip(names, got, ref)), reverse=True)
+
+
+_TP_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _tp_layer(torch, gen):
+    """One Llama-3-8B-width layer, its input x, dout and positions at
+    S=4096."""
+    from ring_flash_attn_tpu_torch.models import ModelConfig, init_params
+
+    cfg = ModelConfig(**dict(FULL_WIDTH, layers=1))
+    full = init_params(cfg, gen)
+    s = 4096
+    x = (torch.randn((1, s, cfg.dim), generator=gen, device="cuda")
+         .to(torch.bfloat16).requires_grad_())
+    dout = torch.randn((1, s, cfg.dim), generator=gen, device="cuda")
+    return cfg, full, x, dout, torch.arange(s, device="cuda")
+
+
+def _tp_branches(torch, layer_args, tp, backend=None):
+    """The layer's attention and MLP branches as tp ranks compute them:
+    every rank's branch on its ``shard_params`` shard in this process with
+    no group, the partials summed here (what the group's psum does); tp=1
+    is the unsharded layer. Returns (out, dx, {weight: [each rank's
+    gradient]})."""
+    from ring_flash_attn_tpu_torch.models import shard_params
+    from ring_flash_attn_tpu_torch.models.transformer import (
+        _attn_branch, _mlp_branch)
+
+    cfg, full, x, dout, pos = layer_args
+    layers = [(full if tp == 1 else shard_params(
+        full, cfg, tp_rank=r, tp=tp)).layers[0] for r in range(tp)]
+    a = sum(_attn_branch(cfg, x, ly, pos, backend).float() for ly in layers)
+    h = (x.float() + a).to(torch.bfloat16)
+    out = h.float() + sum(_mlp_branch(h, ly).float() for ly in layers)
+    leaves = [getattr(ly, n) for n in _TP_WEIGHTS for ly in layers]
+    grads = torch.autograd.grad(out, [x, *leaves], dout)
+    shards = {n: list(grads[1 + i * tp:1 + (i + 1) * tp])
+              for i, n in enumerate(_TP_WEIGHTS)}
+    return out.detach(), grads[0], shards
+
+
+def phase_moe_tp(torch):
+    from ring_flash_attn_tpu_torch.models import (
+        ModelConfig, init_params, loss_fn, train_step)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+
+    log("== phase 14: MoE training at Mixtral-8x7B widths (2 layers, top-1) "
+        "and tensor parallelism simulated in one process")
+    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda}
+    cfg = ModelConfig(**MIXTRAL)
+    e = cfg.moe_experts
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(14))
+    named = list(model.named_parameters())
+    names, params = [n for n, _ in named], [p for _, p in named]
+    log(f"  {sum(p.numel() for p in params) / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # (a) kernels against plain at S=1024, the plain run routed as the
+    # kernels' run was
+    batch = _train_batch(torch, cfg.vocab, 1024, 14)
+    with moe_routes() as routes_k:
+        loss = loss_fn(model, *batch)
+        gk = torch.autograd.grad(loss, params)
+        lk = float(loss.detach())
+    with moe_routes(force=routes_k["experts"]) as routes_p:
+        loss = loss_fn(model, *batch, backend="plain")
+        gp = torch.autograd.grad(loss, params)
+        lp = float(loss.detach())
+    flips = [int(f) for f in torch.cat(routes_p["flips"])]
+    errs = _grad_errs(names, gk, gp)
+    finite = all(bool(torch.isfinite(g).all()) for g in gk)
+    log(f"  S=1024 loss: kernels {lk:.6f}, plain {lp:.6f} (|diff| "
+        f"{abs(lk - lp):.2e}, tol {LOSS_TOL}); routes the plain run would "
+        f"have chosen differently, per layer: {flips} of 1024; gradient "
+        f"||k - p|| / ||p||, worst 3 of {len(errs)}: "
+        + ", ".join(f"{n} {x:.2e}" for x, n in errs[:3])
+        + f" (tol {GRAD_REL_TOL}); finite {finite}")
+    if not (abs(lk - lp) <= LOSS_TOL and errs[0][0] <= GRAD_REL_TOL
+            and finite):
+        raise AssertionError("MoE training gradients disagree with the "
+                             "plain versions")
+    del gk, gp, loss, routes_k, routes_p
+    torch.cuda.empty_cache()
+
+    # (b) the main path: 3 steps at S=4096, counts from 0
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    s = 4096
+    cap = max(1, int(s / e * cfg.moe_capacity_factor))
+    batch = _train_batch(torch, cfg.vocab, s, 15)
+    with moe_routes() as routes:
+        steps = [_timed_step(torch, model, batch) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: fn.launches for name, fn in counters.items()}
+    drops = [float((torch.bincount(x, minlength=e) - cap).clamp(min=0).sum())
+             / s for x in routes["experts"]]
+    for i, (loss, dt) in enumerate(steps):
+        log(f"  S={s} step {i}: loss {loss:.6f}, {dt:.3f} s, {s / dt:.0f} "
+            f"tokens/s; dropped share per layer "
+            + ", ".join(f"{x:.4f}" for x in drops[i * cfg.layers:
+                                                   (i + 1) * cfg.layers])
+            + f" (capacity {cap} a expert)")
+    log(f"  S={s} peak memory {peak:.2f} GiB; launches over the 3 steps: "
+        f"{launches}")
+    want = {name: 3 * cfg.layers for name in counters}
+    if not all(np.isfinite(loss) for loss, _ in steps) or launches != want:
+        raise AssertionError(f"MoE steps: losses {steps}, launches "
+                             f"{launches}, expected {want}")
+
+    # (c) where the time of one step goes
+    torch.cuda.empty_cache()
+    wall = min(dt for _, dt in steps[1:])
+    dev = _device_profile(torch, lambda: train_step(model, *batch))
+    busy_us = sum(t for t, _, _ in dev)
+    groups = {
+        "fp32 expert GEMMs": ("sgemm", "f32f32", "simt", "nvjet_sss"),
+        "bf16 GEMMs": ("nvjet", "gemm", "cutlass", "xmma"),
+        "attention kernels (B1, B2)": ("rfa_bwd::", "flash_fwd_kernel"),
+        "dispatch/combine and embedding (index, gather, scatter)": (
+            "index", "gather", "scatter"),
+    }
+    other = "other (elementwise, casts, reductions)"
+    split = {g: 0.0 for g in (*groups, other)}
+    for t, key, _ in dev:
+        g = next((g for g, pre in groups.items()
+                  if any(p in key for p in pre)), other)
+        split[g] += t
+    log(f"  profiled S={s} step: device busy {busy_us / 1e3:.3f} ms of the "
+        f"unprofiled {wall * 1e3:.3f} ms step "
+        f"({100 * busy_us / 1e3 / wall / 1e3:.1f}% busy)")
+    log("  by kind: " + "; ".join(f"{g} {t / 1e3:.3f} ms "
+                                  f"({100 * t / busy_us:.1f}%)"
+                                  for g, t in split.items()))
+    log("  top 10 kernels by device time:")
+    for t, key, count in dev[:10]:
+        log(f"    {100 * t / busy_us:5.1f}%  {t / 1e3:9.3f} ms  x{count:<4d} "
+            f"{key[:90]}")
+    del model, params, named, batch, routes
+    torch.cuda.empty_cache()
+
+    # (d) tensor parallelism simulated in one process: the unsharded layer
+    # on the kernels, then each tp on the plain versions and on the
+    # kernels, counts from 0 for the kernels' TP runs only
+    from ring_flash_attn_tpu_torch.models import param_specs
+
+    layer_args = _tp_layer(torch,
+                           torch.Generator(device="cuda").manual_seed(16))
+    cfg = layer_args[0]
+    dims = {n: param_specs(cfg)[f"layers.0.{n}"][1] for n in _TP_WEIGHTS}
+    ref_out, ref_dx, ref_w = _tp_branches(torch, layer_args, 1)
+    ref_w = {n: g[0] for n, g in ref_w.items()}
+    plain = {tp: _tp_branches(torch, layer_args, tp, "plain")
+             for tp in (2, 4)}
+    for fn in counters.values():
+        fn.launches = 0
+    got = {tp: _tp_branches(torch, layer_args, tp) for tp in (2, 4)}
+    tp_counts = {name: fn.launches for name, fn in counters.items()}
+    for tp in (2, 4):
+        out, dx, shards = got[tp]
+        whole = {n: torch.cat(g, dim=dims[n]) for n, g in shards.items()}
+        errs = _grad_errs(["out", "dx", *whole],
+                          [out, dx, *whole.values()],
+                          [ref_out, ref_dx, *(ref_w[n] for n in whole)])
+        p_out, p_dx, p_shards = plain[tp]
+        perrs = _grad_errs(
+            ["out", "dx", *(f"{n}[{r}]" for n in shards for r in range(tp))],
+            [out, dx, *(g for n in shards for g in shards[n])],
+            [p_out, p_dx, *(g for n in shards for g in p_shards[n])])
+        log(f"  TP={tp} in one process (Llama-3-8B widths, S=4096, "
+            f"{32 // tp}/{8 // tp} heads a rank): sum of the ranks' branches "
+            f"vs the unsharded layer, ||err|| / ||ref||: "
+            + ", ".join(f"{n} {x:.2e}" for x, n in errs)
+            + f" (tol {TP_REL_TOL}); vs the same ranks on the plain "
+            f"versions, out, dx and each rank's weight gradients, worst 3 of "
+            f"{len(perrs)}: " + ", ".join(f"{n} {x:.2e}" for x, n in perrs[:3])
+            + f" (tol {GRAD_REL_TOL})")
+        if errs[0][0] > TP_REL_TOL:
+            raise AssertionError(f"TP={tp}: the ranks' partials disagree "
+                                 f"with the unsharded layer")
+        if perrs[0][0] > GRAD_REL_TOL:
+            raise AssertionError(f"TP={tp}: the kernels disagree with the "
+                                 f"plain versions at {32 // tp}/{8 // tp} "
+                                 f"heads")
+    log(f"  launches over the TP runs on the kernels: {tp_counts}")
+    if tp_counts != {name: 6 for name in counters}:  # 2 + 4 ranks
+        raise AssertionError(f"TP launches {tp_counts}")
+    del layer_args, ref_w, plain, got
+    torch.cuda.empty_cache()
+    return launches, tp_counts
+
+
+def phase_llama3(torch, flash_losses):
+    from ring_flash_attn_tpu_torch.ops.flash import (
+        block_bwd, block_fwd, compute_delta)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+    from ring_flash_attn_tpu_torch.parallel import llama3, ring
+
+    log("== phase 15: llama3 training: the W=4 ranks on one card vs the "
+        "whole-sequence kernels, W=8's last rank, train_step")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf16 = torch.bfloat16
+    world, hq, hkv, d, ll, tail = 4, 32, 8, 128, 8192, 512
+    s = world * ll
+    scale = d ** -0.5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q, k, v, dout = (rnd(1, hq, s, d), rnd(1, hkv, s, d), rnd(1, hkv, s, d),
+                     rnd(1, hq, s, d))
+    qs, ks, vs, douts = ([c.contiguous() for c in x.chunk(world, dim=2)]
+                         for x in (q, k, v, dout))
+
+    # (a) each rank through the module's own rank functions (those that
+    # _llama3_fwd / _llama3_bwd run), the gathered k and v handed in
+    # (heads_k_stride = Hkv: one chunk): B1 at offset r * L, then the delta
+    # and B2 with gathered-size fp32 dk/dv, summed over the ranks here where
+    # the group's reduce-scatter sums them
+    kv = torch.stack([k, v])
+
+    def l3_fwd(qq, kv_all, offset):
+        return llama3._rank_fwd(qq, lambda i: kv_all[:, :, i:i + hkv], hkv,
+                                scale, MaskArgs(causal=True, offset=offset),
+                                hkv, None)
+
+    def l3_bwd(qq, o, lse_q, dd, kv_all, offset):
+        (dq, dk, dv), = llama3._rank_bwd(
+            qq, o, lse_q, dd, lambda i: kv_all[:, :, i:i + hkv], hkv, scale,
+            MaskArgs(causal=True, offset=offset), hkv, None)
+        return dq, dk, dv
+
+    def l3_rank_bwd(r, outs, lses, dkv):
+        dq, dk, dv = l3_bwd(qs[r], outs[r], lses[r], douts[r], kv, r * ll)
+        dkv[0].add_(dk)
+        dkv[1].add_(dv)
+        return dq
+
+    res = [l3_fwd(qs[r], kv, r * ll) for r in range(world)]
+    outs, lses = [o for o, _ in res], [x for _, x in res]
+    out, lse = torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+    mask = MaskArgs(causal=True)
+    ref_out, ref_lse = block_fwd(q, k, v, scale, mask, out_dtype=bf16)
+    row_mask = MaskArgs(causal=True, offset=s - tail)
+    p_out, p_lse = naive_block_fwd(q[:, :, -tail:], k, v, scale, row_mask)
+    torch.cuda.synchronize()
+    ro, el = _rel_err_parts(out, ref_out, world), max_err(lse, ref_lse)
+    rp = _rel_err(out[:, :, -tail:], p_out)
+    pl = max_err(lse[:, :, -tail:], p_lse)
+    log(f"  llama3 W={world} S={s} causal forward: vs B1 on the whole "
+        f"sequence |out| err of max|B1| by quarters {ro:.3e}, max|lse| err "
+        f"{el:.3e}; vs plain on the last {tail} rows |out| err of "
+        f"max|plain| {rp:.3e}, lse {pl:.3e} (tol {RING_OUT_REL_TOL} "
+        f"relative, lse {RING_LSE_TOL})")
+    if not (max(ro, rp) <= RING_OUT_REL_TOL
+            and max(el, pl) <= RING_LSE_TOL):
+        raise AssertionError("llama3's forward is wrong")
+    del ref_out, ref_lse, p_out, p_lse
+    dkv = torch.zeros((2, 1, hkv, s, d), dtype=torch.float32, device=dev)
+    dqs = [l3_rank_bwd(r, outs, lses, dkv) for r in range(world)]
+    got = (torch.cat(dqs, dim=2), dkv[0], dkv[1])
+    ref = block_bwd(dout, q, k, v, lse, None, scale, mask, out=out)
+    delta = compute_delta(dout, out)
+    p_dq = naive_block_bwd(dout[:, :, -tail:], q[:, :, -tail:], k, v,
+                           lse[:, :, -tail:], delta[:, :, -tail:], scale,
+                           row_mask)[0]
+    keys = slice(0, tail)
+    _, p_dk, p_dv = naive_block_bwd(dout, q, k[:, :, keys], v[:, :, keys],
+                                    lse, delta, scale, mask)
+    torch.cuda.synchronize()
+    rel = [_rel_err(x, r) for x, r in zip(got, ref)]
+    prel = [_rel_err(got[0][:, :, -tail:], p_dq),
+            _rel_err(got[1][:, :, keys], p_dk),
+            _rel_err(got[2][:, :, keys], p_dv)]
+    log(f"  llama3 W={world} S={s} causal backward: vs B2 on the whole "
+        f"sequence rel err dq {rel[0]:.2e} dk {rel[1]:.2e} dv {rel[2]:.2e}; "
+        f"vs plain: dq of the last {tail} rows {prel[0]:.2e}, dk and dv of "
+        f"the first {tail} keys over all q rows {prel[1]:.2e} {prel[2]:.2e} "
+        f"(tol {BWD_REL_TOL})")
+    if max(*rel, *prel) > BWD_REL_TOL:
+        raise AssertionError("llama3's backward is wrong")
+    del got, ref, delta, p_dq, p_dk, p_dv, dqs, out, lse, res
+    torch.cuda.empty_cache()
+
+    # (b) each rank's time beside the ring's on the same tensors, in turns
+    # (llama3, ring, ring, llama3; 10 forward and 5 backward calls a rank)
+    ring_mask = ring._ring_masks(True, ll, {})
+    res = [_rank_fwd(qs, ks, vs, r, scale, ring_mask) for r in range(world)]
+    ring_outs, ring_lses = [o for o, _ in res], [x for _, x in res]
+    times = {}
+    for name in ("llama3", "ring", "ring", "llama3"):
+        dkvs = [torch.zeros((2,) + tuple(x.shape), dtype=torch.float32,
+                            device=dev) for x in ks]
+        if name == "llama3":
+            fwd = [_events_ms(torch, lambda r=r: l3_fwd(qs[r], kv, r * ll),
+                              10)
+                   for r in range(world)]
+            bwd = [_events_ms(torch, lambda r=r: l3_rank_bwd(
+                r, outs, lses, dkv), 5) for r in range(world)]
+        else:
+            fwd = [_events_ms(torch, lambda r=r: _rank_fwd(
+                qs, ks, vs, r, scale, ring_mask), 10) for r in range(world)]
+            bwd = [_events_ms(torch, lambda r=r: _rank_bwd(
+                qs, ks, vs, douts, ring_outs, ring_lses, dkvs, r, scale,
+                ring_mask), 5) for r in range(world)]
+        times.setdefault(name, []).append({"fwd_ms": fwd, "bwd_ms": bwd})
+        log(f"  {name} W={world} S={s} causal, per rank (ranks 0 to "
+            f"{world - 1}): forward " + " ".join(f"{t:.3f}" for t in fwd)
+            + " ms, backward " + " ".join(f"{t:.3f}" for t in bwd) + " ms")
+        del dkvs
+    ratio = [[l3["fwd_ms"][r] / rg["fwd_ms"][r] for r in range(world)]
+             for l3, rg in zip(times["llama3"], times["ring"])]
+    log("  llama3 over ring, forward, per rank, turn by turn: "
+        + "; ".join(" ".join(f"{x:.2f}" for x in t) for t in ratio))
+    del q, k, v, kv, dout, qs, ks, vs, douts, outs, lses, dkv, res
+    del ring_outs, ring_lses
+    torch.cuda.empty_cache()
+
+    # (c) the last rank of W=8: 65536 gathered keys at offset 57344, past
+    # the fused kernel's limit, so B3a/B3b
+    s8, rank = 8 * ll, 7
+    q7, dout7 = rnd(1, hq, ll, d), rnd(1, hq, ll, d)
+    k8, v8 = rnd(1, hkv, s8, d), rnd(1, hkv, s8, d)
+    offset = rank * ll
+    mask7 = MaskArgs(causal=True, offset=offset)
+    split = flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches
+    kv8 = torch.stack([k8, v8])
+    out7, lse7 = l3_fwd(q7, kv8, offset)
+    delta7 = compute_delta(dout7, out7)
+    dq7, dk7, dv7 = l3_bwd(q7, out7, lse7, dout7, kv8, offset)
+    ran_split = (flash_bwd_dq_cuda.launches - split[0],
+                 flash_bwd_dkv_cuda.launches - split[1])
+    rows = MaskArgs(causal=True, offset=offset + ll - tail)
+    p_out, p_lse = naive_block_fwd(q7[:, :, -tail:], k8, v8, scale, rows)
+    p_dq = naive_block_bwd(dout7[:, :, -tail:], q7[:, :, -tail:], k8, v8,
+                           lse7[:, :, -tail:], delta7[:, :, -tail:], scale,
+                           rows)[0]
+    _, p_dk, p_dv = naive_block_bwd(dout7, q7, k8[:, :, keys], v8[:, :, keys],
+                                    lse7, delta7, scale, mask7)
+    torch.cuda.synchronize()
+    errs = [_rel_err(out7[:, :, -tail:], p_out),
+            max_err(lse7[:, :, -tail:], p_lse),
+            _rel_err(dq7[:, :, -tail:], p_dq), _rel_err(dk7[:, :, keys], p_dk),
+            _rel_err(dv7[:, :, keys], p_dv)]
+    t_fwd = _events_ms(torch, lambda: l3_fwd(q7, kv8, offset), 3)
+    t_bwd = _events_ms(torch, lambda: block_bwd(
+        dout7, q7, k8, v8, lse7, delta7, scale, mask7), 2)
+    log(f"  llama3 W=8 rank 7 (q {tuple(q7.shape)}, {s8} keys, offset "
+        f"{offset}): B3a/B3b launched {ran_split}; vs plain on the last "
+        f"{tail} rows: |out| err of max|plain| {errs[0]:.3e}, lse "
+        f"{errs[1]:.3e}, dq {errs[2]:.2e}; dk, dv of the first {tail} keys "
+        f"{errs[3]:.2e} {errs[4]:.2e} (tol {RING_OUT_REL_TOL}, lse "
+        f"{RING_LSE_TOL}, gradients {BWD_REL_TOL}); forward {t_fwd:.3f} ms, "
+        f"backward {t_bwd:.3f} ms")
+    if not (ran_split == (1, 1) and errs[0] <= RING_OUT_REL_TOL
+            and errs[1] <= RING_LSE_TOL and max(errs[2:]) <= BWD_REL_TOL):
+        raise AssertionError("llama3's last rank of W=8 is wrong")
+    del q7, dout7, k8, v8, kv8, out7, lse7, delta7, dq7, dk7, dv7
+    del p_out, p_lse, p_dq, p_dk, p_dv
+    torch.cuda.empty_cache()
+
+    # (d) the main path: train_step(attention="llama3") over a sequence
+    # group of one process, counts from 0
+    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    batch = _train_batch(torch, FULL_WIDTH["vocab"], 8192, 2)
+    _train_two_steps(torch, "llama3", batch, flash_losses, sp_group=None)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 2 * FULL_WIDTH["layers"] for name in counters}
+    log(f"  launches over train_step(attention='llama3'): {launches}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    return launches, {"w4_per_rank_llama3_vs_ring_ms": times,
+                      "w8_rank7_ms": {"fwd_ms": t_fwd, "bwd_ms": t_bwd}}
+
+
 def main():
     import torch
 
@@ -2599,20 +3053,27 @@ def main():
     torch.cuda.empty_cache()
     stripe, stripe_times = run("stripe and Ulysses", phase_stripe_ulysses,
                                torch, flash_losses)
+    torch.cuda.empty_cache()
+    moe, tp = run("MoE and TP", phase_moe_tp, torch)
+    torch.cuda.empty_cache()
+    llama3, llama3_times = run("llama3", phase_llama3, torch, flash_losses)
     next(k for k in kernels if k["name"].startswith("B7"))[
         "w4_causal_forward_ms"] = ring_compare
-    next(k for k in kernels if k["name"].startswith("B1"))[
-        "w4_per_rank_stripe_vs_ring_ms"] = stripe_times
+    b1 = next(k for k in kernels if k["name"].startswith("B1"))
+    b1["w4_per_rank_stripe_vs_ring_ms"] = stripe_times
+    b1.update(llama3_times)
     for k in kernels:
         # each kernel's count on the run of its own path: serving for B1
         # and B5, training for B2/B3a/B3b, generate for B4 (B1 runs on all
         # four), the op-level quantized paged path for B6, the ring entry
         # points for B7/B8; the stripe and Ulysses entry points for B1,
-        # B2 and B3a/B3b too
+        # B2 and B3a/B3b too; the MoE steps, the TP simulation and
+        # train_step over llama3 for B1 and B2
         paths = {p: c[k["name"]] for p, c in (
             ("serving", serving), ("training", training),
             ("generate", inference), ("paged_quant", paged_quant),
-            ("ring", ring), ("stripe", stripe))
+            ("ring", ring), ("stripe", stripe), ("moe", moe), ("tp", tp),
+            ("llama3", llama3))
             if k["name"] in c}
         k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths

@@ -19,7 +19,7 @@ signature,
 - ``segment_ids`` and ``positions`` belong to the packed (varlen) entries,
   which are not ported yet; the batch entries take None only.
 
-Registered: flash, ring, zigzag, stripe, llama3 (forward only), ulysses,
+Registered: flash, ring, zigzag, stripe, llama3, ulysses,
 fused_ring. The JAX package's ring_varlen and zigzag_varlen are not
 ported yet: asking for one raises a ``KeyError`` that names ROADMAP.md.
 ``register_attention`` adds custom entries.

@@ -3,10 +3,13 @@ from .transformer import (
     Transformer,
     init_params,
     loss_fn,
+    param_specs,
     params_from_jax,
     prepare_zigzag_batch,
+    shard_params,
     train_step,
 )
+from .moe import MoELayer, init_moe_layer, moe_mlp
 from .generate import decode_step, generate, prefill
 from .serve import SamplingParams, ServingEngine
 
@@ -15,9 +18,14 @@ __all__ = [
     "Transformer",
     "init_params",
     "loss_fn",
+    "param_specs",
     "params_from_jax",
     "prepare_zigzag_batch",
+    "shard_params",
     "train_step",
+    "MoELayer",
+    "init_moe_layer",
+    "moe_mlp",
     "SamplingParams",
     "ServingEngine",
     "decode_step",

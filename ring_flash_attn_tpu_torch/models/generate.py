@@ -29,13 +29,13 @@ from ..ops.quant import make_cache, quant_decode_attention, update_cache
 from ..parallel.decode import merge_across_axis
 from ..parallel.llama3 import llama3_attention
 from ..parallel.mesh import all_reduce, ring_rank, ring_size
-from .transformer import (ModelConfig, Transformer, _mlp, _proj_qkv,
-                          _rmsnorm, _rope)
+from .norm import rmsnorm
+from .transformer import ModelConfig, Transformer, _mlp, _proj_qkv, _rope
 
 
 def _rotary_qkv(cfg, x, layer, positions):
     b, s, _ = x.shape
-    q, k, v = _proj_qkv(cfg, layer, _rmsnorm(x, layer.attn_norm), b, s)
+    q, k, v = _proj_qkv(cfg, layer, rmsnorm(x, layer.attn_norm), b, s)
     return (_rope(q, positions, cfg.rope_theta),
             _rope(k, positions, cfg.rope_theta), v)
 
@@ -65,7 +65,7 @@ def prefill(model: Transformer, tokens, group=None, backend=None):
         caches.append(update_cache(
             make_cache(b, cfg.kv_heads, s_local, cfg.head_dim, device=dev),
             k, v, 0))
-    x = _rmsnorm(x, model.final_norm)
+    x = rmsnorm(x, model.final_norm)
     return (x @ model.lm_head).float(), caches
 
 
@@ -96,7 +96,7 @@ def decode_step(model: Transformer, token, index, n_tail, caches, tails,
         out = out.to(x.dtype).transpose(1, 2).reshape(b, 1, -1)
         x = x + out @ layer.wo
         x = _mlp(x, layer)
-    x = _rmsnorm(x, model.final_norm)
+    x = rmsnorm(x, model.final_norm)
     return (x[:, 0] @ model.lm_head).float(), tails
 
 

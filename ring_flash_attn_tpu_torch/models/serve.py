@@ -36,7 +36,8 @@ from ..ops.flash import flash_attention
 from ..ops.mask import MaskArgs
 from ..serving import PageAllocator
 from ..serving.scheduler import DecodeScheduler
-from .transformer import _mlp, _proj_qkv, _rmsnorm, _rope
+from .norm import rmsnorm
+from .transformer import _mlp, _proj_qkv, _rope
 
 __all__ = ["ServingEngine", "SamplingParams"]
 
@@ -87,7 +88,7 @@ def _rope_batch(x, positions, theta):
 def _head(model, x, last_idx):
     if last_idx is not None:
         x = x[:, last_idx:last_idx + 1]
-    x = _rmsnorm(x, model.final_norm)
+    x = rmsnorm(x, model.final_norm)
     return (x @ model.lm_head).float()
 
 
@@ -107,7 +108,7 @@ def _prefill_fn(model, tokens, last_idx=None, backend=None):
     x = model.embed[tokens]
     ks, vs = [], []
     for layer in model.layers:
-        xn = _rmsnorm(x, layer.attn_norm)
+        xn = rmsnorm(x, layer.attn_norm)
         q, k, v = _proj_qkv(cfg, layer, xn, b, s)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
@@ -136,7 +137,7 @@ def _prefix_prefill_fn(model, tokens, prefix_ks, prefix_vs, last_idx=None,
     x = model.embed[tokens]
     ks, vs = [], []
     for layer, pk, pv in zip(model.layers, prefix_ks, prefix_vs):
-        xn = _rmsnorm(x, layer.attn_norm)
+        xn = rmsnorm(x, layer.attn_norm)
         q, k, v = _proj_qkv(cfg, layer, xn, b, s)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
@@ -176,7 +177,7 @@ def _decode_body(model, tokens, live, caches, backend=None):
     x = model.embed[tokens][:, None]  # (B, 1, d)
     new_caches = []
     for layer, cache in zip(model.layers, caches):
-        xn = _rmsnorm(x, layer.attn_norm)
+        xn = rmsnorm(x, layer.attn_norm)
         q, k, v = _proj_qkv(cfg, layer, xn, b, 1)
         q = _rope_batch(q, positions, cfg.rope_theta)
         k = _rope_batch(k, positions, cfg.rope_theta)
@@ -187,7 +188,7 @@ def _decode_body(model, tokens, live, caches, backend=None):
         x = x + out @ layer.wo
         x = _mlp(x, layer)
         new_caches.append(cache)
-    x = _rmsnorm(x, model.final_norm)
+    x = rmsnorm(x, model.final_norm)
     return (x[:, 0] @ model.lm_head).float(), new_caches
 
 

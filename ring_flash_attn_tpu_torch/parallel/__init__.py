@@ -16,6 +16,7 @@ from .layouts import (
 from .mesh import (
     all_to_all,
     psum_exact,
+    reduce_scatter,
     ring_rank,
     ring_rotate,
     ring_rotate_start,
@@ -41,6 +42,7 @@ __all__ = [
     "zigzag_position_ids",
     "all_to_all",
     "psum_exact",
+    "reduce_scatter",
     "ring_rank",
     "ring_rotate",
     "ring_rotate_start",

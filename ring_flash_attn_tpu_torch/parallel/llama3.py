@@ -1,65 +1,134 @@
-"""Llama-3 all-gather context parallelism: the forward.
+"""Llama-3 all-gather context parallelism, forward and backward.
 
-The port of the forward of ``ring_flash_attn_tpu/parallel/llama3.py``. Not
-a ring: the global sequence is sharded contiguously over the process
-group; each rank all-gathers K and V one chunk of ``heads_k_stride`` kv
-heads at a time and runs ONE full-row flash call per chunk (``block_fwd``,
-kernel B1 on the card), so no LSE merging is needed. Masking is causal in
-global positions: the q offset ``rank * L`` rides in ``MaskArgs.offset``
-and the gathered kv starts at global position 0.
+The port of ``ring_flash_attn_tpu/parallel/llama3.py``. Not a ring: the
+global sequence is sharded contiguously over the process group; each rank
+all-gathers K and V one chunk of ``heads_k_stride`` kv heads at a time and
+runs ONE full-row flash call per chunk (``block_fwd``, kernel B1 on the
+card), so no LSE merging is needed. Masking is causal in global positions:
+the q offset ``rank * L`` rides in ``MaskArgs.offset`` and the gathered kv
+starts at global position 0. The backward all-gathers K and V again, chunk
+by chunk, runs ``block_bwd`` (B2, or B3a/B3b past the fused kernel's
+limit) on the gathered keys with gathered-size fp32 dk/dv, and
+reduce-scatters them home along the token axis.
 
-Ported: causal or not, ``heads_k_stride``, GQA. Not ported yet, each
-raising ``NotImplementedError``: packed sequences (``q_segids``), softcap,
-ALiBi, dropout, ``window_left``, and the backward (all-gather again,
-gathered-size dk/dv, reduce-scatter home): call it under
-``torch.no_grad()`` or on tensors that do not require grad.
+Ported: causal or not, ``heads_k_stride``, GQA, the backward. Not ported
+yet, each raising ``NotImplementedError``: packed sequences
+(``q_segids``), softcap, ALiBi, dropout and ``window_left``.
 
 Functions are per-process. Internal layout (B, H, S, D).
 """
 
 import torch
 
-from ..ops.flash import block_fwd
+from ..config import use_kernel
+from ..ops.flash import _kernel_layout, block_bwd, block_fwd, compute_delta
 from ..ops.mask import MaskArgs
-from .mesh import all_gather, ring_rank
+from .mesh import all_gather, reduce_scatter, ring_rank
 
 
-def _gather_chunk(kv, i, stride, group):
-    """All-gather kv heads [i, i + stride) of the stacked (2, B, Hkv, L, D)
-    k and v along the token axis."""
-    return all_gather(kv[:, :, i:i + stride], 3, group)
+def _mask(causal, q, group):
+    return MaskArgs(causal=causal,
+                    offset=ring_rank(group) * q.shape[2] if causal else None)
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _chunks(q, hkv, heads_k_stride):
+    """(first kv head, q heads) of each chunk of ``heads_k_stride`` kv
+    heads."""
+    g = q.shape[1] // hkv
+    return [(i, slice(i * g, (i + heads_k_stride) * g))
+            for i in range(0, hkv, heads_k_stride)]
+
+
+def _rank_fwd(q, gather, hkv, scale, mask, heads_k_stride, backend):
+    """One rank's forward: q (B, Hq, L, D) its shard, ``gather(i)`` the
+    stacked (2, B, heads_k_stride, S, D) k and v of kv heads [i, i +
+    heads_k_stride) over the whole sequence, ``mask`` with the rank's
+    offset. Returns (out, lse)."""
+    outs, lses = [], []
+    for i, hs in _chunks(q, hkv, heads_k_stride):
+        kv = gather(i)
+        o_i, lse_i = block_fwd(q[:, hs], kv[0], kv[1], scale, mask, backend,
+                               out_dtype=q.dtype)
+        outs.append(o_i)
+        lses.append(lse_i)
+    return _cat(outs), _cat(lses)
+
+
+def _rank_bwd(q, out, lse, dout, gather, hkv, scale, mask, heads_k_stride,
+              backend):
+    """One rank's backward, chunk by chunk (arguments as ``_rank_fwd``'s):
+    yields (dq of the chunk's q heads in q.dtype, dk, dv), dk and dv fp32
+    over the whole sequence, this rank's share of the sum over ranks."""
+    kernel = use_kernel(q, backend)
+    delta = compute_delta(dout, out)
+    for i, hs in _chunks(q, hkv, heads_k_stride):
+        kv = gather(i)
+        dout_i, q_i = dout[:, hs], q[:, hs]
+        if kernel:
+            dout_i, q_i = _kernel_layout(dout_i), _kernel_layout(q_i)
+        yield block_bwd(dout_i, q_i, kv[0], kv[1], lse[:, hs].contiguous(),
+                        delta[:, hs].contiguous(), scale, mask, backend,
+                        dq_dtype=q.dtype)
+
+
+def _gather(k, v, heads_k_stride, group):
+    """``gather(i)`` for the rank functions: all-gathers kv heads [i, i +
+    heads_k_stride) of k and v along the token axis."""
+    kv = torch.stack([k, v])
+    return lambda i: all_gather(kv[:, :, i:i + heads_k_stride], 3, group)
 
 
 def _llama3_fwd(q, k, v, scale, causal, heads_k_stride, group, backend):
-    rank = ring_rank(group)
-    l = q.shape[2]
-    hkv = k.shape[1]
-    g = q.shape[1] // hkv
-    mask = MaskArgs(causal=causal, offset=rank * l if causal else None)
-    kv = torch.stack([k, v])
-    outs, lses = [], []
-    for i in range(0, hkv, heads_k_stride):
-        gathered = _gather_chunk(kv, i, heads_k_stride, group)
-        q_i = q[:, i * g:(i + heads_k_stride) * g]
-        o_i, lse_i = block_fwd(q_i, gathered[0], gathered[1], scale, mask,
-                               backend, out_dtype=q.dtype)
-        outs.append(o_i)
-        lses.append(lse_i)
-    if len(outs) == 1:
-        return outs[0], lses[0]
-    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+    return _rank_fwd(q, _gather(k, v, heads_k_stride, group), k.shape[1],
+                     scale, _mask(causal, q, group), heads_k_stride, backend)
+
+
+def _llama3_bwd(q, k, v, out, lse, dout, scale, causal, heads_k_stride,
+                group, backend):
+    """(dq, dk, dv) in the inputs' dtypes."""
+    dqs, dks, dvs = [], [], []
+    for dq_i, dk_g, dv_g in _rank_bwd(
+            q, out, lse, dout, _gather(k, v, heads_k_stride, group),
+            k.shape[1], scale, _mask(causal, q, group), heads_k_stride,
+            backend):
+        # gathered-size fp32 dk/dv, summed over the ranks and sharded home
+        dks.append(reduce_scatter(dk_g, 2, group).to(k.dtype))
+        dvs.append(reduce_scatter(dv_g, 2, group).to(v.dtype))
+        dqs.append(dq_i)
+    return _cat(dqs), _cat(dks), _cat(dvs)
+
+
+class _Llama3Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, heads_k_stride, group, backend):
+        out, lse = _llama3_fwd(q, k, v, scale, causal, heads_k_stride, group,
+                               backend)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.args = (scale, causal, heads_k_stride, group, backend)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):  # no gradient path through lse
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _llama3_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def llama3_attention(q, k, v, q_segids=None, *, scale, causal=True,
                      heads_k_stride=None, group=None, backend=None,
                      softcap=None, alibi_slopes=None, dropout_p=None,
                      dropout_seed=None, window_left=None):
-    """llama3 all-gather attention on per-process (B, H, S_local, D),
-    forward only.
+    """Differentiable llama3 all-gather attention on per-process (B, H,
+    S_local, D).
 
     q/k/v are sharded contiguously along S over ``group`` (None: the
     default group, or one process when none is initialised). Returns (out
-    in q.dtype, lse fp32 (B, H, S_local))."""
+    in q.dtype, lse fp32 (B, H, S_local)); lse carries no gradient."""
     unported = {"q_segids": q_segids is not None, "softcap": bool(softcap),
                 "alibi_slopes": alibi_slopes is not None,
                 "dropout_p": bool(dropout_p),
@@ -69,15 +138,14 @@ def llama3_attention(q, k, v, q_segids=None, *, scale, causal=True,
             raise NotImplementedError(
                 f"llama3_attention({name}=...) is not ported yet (see "
                 f"ROADMAP.md)")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "llama3_attention's backward is not ported yet (see ROADMAP.md):"
-            " call it under torch.no_grad()")
     hkv = k.shape[1]
     if heads_k_stride is None:
         heads_k_stride = hkv
     if hkv % heads_k_stride:
         raise ValueError(f"heads_k_stride={heads_k_stride} does not divide "
                          f"Hkv={hkv}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _Llama3Attention.apply(q, k, v, scale, causal, heads_k_stride,
+                                      group, backend)
     return _llama3_fwd(q, k, v, scale, causal, heads_k_stride, group,
                        backend)

@@ -142,6 +142,23 @@ def all_gather(x, dim, group=None):
     return torch.cat(parts, dim=dim)
 
 
+def reduce_scatter(x, dim, group=None):
+    """JAX's tiled ``psum_scatter``: x summed over the group, of which rank
+    r keeps the r-th of W equal chunks along ``dim``; x itself at world
+    size 1."""
+    n = ring_size(group)
+    if n == 1:
+        return x
+    dim %= x.ndim
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split into "
+                         f"{n} equal chunks")
+    parts = [c.contiguous() for c in x.chunk(n, dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
 def _all_to_all(x, split_dim, concat_dim, group):
     n = ring_size(group)
     split_dim %= x.ndim

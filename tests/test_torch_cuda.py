@@ -789,3 +789,121 @@ def test_cuda_stripe_w4_in_one_process_matches_plain(d):
            restore([a[1] for a in dkvs]))
     for a, r in zip(got, ref):
         assert _rel_err(a, r) <= BWD_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [192, 256, 320])
+def test_cuda_llama3_shapes_match_plain(length):
+    """B1, B2 and B3a/B3b at llama3's shapes: every rank r of W=4 holds
+    ``length`` q rows against all 4 * length keys at offset r * length
+    (the keys past the rank's last row have no row at all), against the
+    plain versions; lengths on and off the tiles' edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from chip_smoke import BWD_REL_TOL
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.naive import naive_block_bwd
+
+    world, hq, hkv, d = 4, 8, 2, 128
+    scale = d**-0.5
+    g = torch.Generator(device="cuda").manual_seed(length)
+    for rank in range(world):
+        mask = MaskArgs(causal=True, offset=rank * length)
+        q, k, v, dout, out, lse = _bwd_inputs(
+            g, 1, hq, hkv, length, world * length, d, mask, scale)
+        ref_out, ref_lse = naive_block_fwd(q, k, v, scale, mask)
+        assert float((out.float() - ref_out).abs().max()) <= B1_OUT_TOL
+        assert rel_err_rows(out, ref_out) <= RING_OUT_REL_TOL
+        assert float((lse - ref_lse).abs().max()) <= B1_LSE_TOL
+        f32, _ = flash_fwd_cuda(q, k, v, scale, mask)
+        assert rel_err_rows(f32, ref_out) <= RING_OUT_REL_TOL
+        delta = compute_delta(dout, out)
+        ref = naive_block_bwd(dout, q, k, v, lse, delta, scale, mask)
+        for bwd in (flash_bwd_cuda, flash_bwd_split_cuda):
+            got = bwd(dout, q, k, v, lse, delta, scale, mask)
+            for a, r in zip(got, ref):
+                assert _rel_err(a, r) <= BWD_REL_TOL, (bwd.__name__, rank)
+            # keys no row of this rank reaches get no gradient
+            assert torch.all(got[1][:, :, (rank + 1) * length:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [None, 1])
+def test_cuda_llama3_backward_matches_plain(stride):
+    """``llama3_attention``'s forward and backward at W=1 (no process
+    group) on the kernels against ``backend="plain"`` on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from chip_smoke import BWD_REL_TOL
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.parallel import llama3_attention
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+
+    q, k, v, dout = rnd(2, 8, 640, 128), rnd(2, 2, 640, 128), \
+        rnd(2, 2, 640, 128), rnd(2, 8, 640, 128)
+    res = {}
+    for backend in (None, "plain"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        n = flash_bwd_cuda.launches
+        out, lse = llama3_attention(*leaves, scale=128**-0.5, causal=True,
+                                    heads_k_stride=stride, backend=backend)
+        grads = torch.autograd.grad(out, leaves, dout)
+        launched = flash_bwd_cuda.launches - n
+        assert launched == (0 if backend else 2 // (stride or 2)), backend
+        assert all(x.dtype == torch.bfloat16 for x in (out, *grads))
+        res[backend] = (out.detach(), lse, *grads)
+    got, ref = res[None], res["plain"]
+    assert rel_err_rows(got[0], ref[0]) <= RING_OUT_REL_TOL
+    assert float((got[1] - ref[1]).abs().max()) <= B1_LSE_TOL
+    for a, r in zip(got[2:], ref[2:]):
+        assert _rel_err(a, r.float()) <= BWD_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_step_matches_plain():
+    """A 2-layer narrow MoE model on the card (B1 and B2 in attention, the
+    fp32 experts) against the same model with ``backend="plain"``: the loss
+    and every gradient, the plain run routed as the kernels' run was
+    (``chip_smoke.moe_routes``: a token near an argmax tie may flip, and
+    one flipped token moves its two experts' gradients by several per
+    cent); then ``train_step`` with lr 0, whose loss is the kernels'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from chip_smoke import GRAD_REL_TOL, LOSS_TOL, moe_routes
+    from ring_flash_attn_tpu_torch.models import (
+        ModelConfig, init_params, loss_fn, train_step)
+
+    cfg = ModelConfig(vocab=512, dim=256, layers=2, heads=4, kv_heads=2,
+                      head_dim=128, mlp_dim=512, moe_experts=4)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 512), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             2))
+    batch = (toks, torch.cat([toks[:, 1:], torch.full_like(toks[:, :1],
+                                                           -100)], 1),
+             torch.arange(512, device="cuda"))
+    params = list(model.parameters())
+    with moe_routes() as kernel_routes:
+        loss = loss_fn(model, *batch)
+        grads_k = torch.autograd.grad(loss, params)
+        loss_k = float(loss.detach())
+    with moe_routes(force=kernel_routes["experts"]) as plain_routes:
+        loss = loss_fn(model, *batch, backend="plain")
+        grads_p = torch.autograd.grad(loss, params)
+        loss_p = float(loss.detach())
+    assert len(plain_routes["experts"]) == cfg.layers
+    assert abs(loss_k - loss_p) <= LOSS_TOL
+    for a, r in zip(grads_k, grads_p):
+        assert torch.isfinite(a).all()
+        assert float((a.float() - r.float()).norm()
+                     / r.float().norm().clamp_min(1e-30)) <= GRAD_REL_TOL
+    _, loss = train_step(model, *batch, lr=0.0)
+    assert abs(float(loss) - loss_k) <= LOSS_TOL

@@ -493,12 +493,12 @@ def test_train_step_over_data_and_sequence_groups_matches_jax():
             _check_params(out, kind, new)
 
 
-@pytest.mark.parametrize("kind", ["ring", "zigzag", "stripe", "usp"])
+@pytest.mark.parametrize("kind", ["ring", "zigzag", "stripe", "usp",
+                                  "llama3"])
 def test_sequence_group_of_one_process_equals_the_flash_path(kind):
     """sp_group=None (and for USP ulysses_group=None) with no process group
     initialised is a ring of one: the loss and the step equal the
-    single-device path's (sp_group=False, the default). llama3 has no
-    backward yet and raises."""
+    single-device path's (sp_group=False, the default)."""
     tokens = torch.from_numpy(_tokens(2)).long()
     toks, labels, pos = prepare_zigzag_batch(tokens, 1)
     assert torch.equal(toks, tokens) and torch.equal(
@@ -518,7 +518,3 @@ def test_sequence_group_of_one_process_equals_the_flash_path(kind):
     assert abs(float(l0) - float(l1)) <= 1e-6
     for a, b in zip(models[0].parameters(), models[1].parameters()):
         assert _err(a.detach().float(), b.detach().float()) <= 1e-6
-    bad = params_from_jax(tree, ModelConfig(attention="llama3", **CFG_KW),
-                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        loss_fn(bad, toks, labels, pos, sp_group=None)

@@ -22,7 +22,8 @@ import torch.multiprocessing as mp
 
 from ring_flash_attn_tpu_torch import RingAttentionLayer, api
 from ring_flash_attn_tpu_torch.models import (
-    ModelConfig, decode_step, generate, params_from_jax, prefill, train_step)
+    ModelConfig, MoELayer, decode_step, generate, moe_mlp, params_from_jax,
+    prefill, shard_params, train_step)
 from ring_flash_attn_tpu_torch.ops.quant import (
     as_bytes, make_cache, quantized_kv_from_jax)
 from ring_flash_attn_tpu_torch.parallel import (
@@ -31,7 +32,7 @@ from ring_flash_attn_tpu_torch.parallel import (
     ring_size, sharded_cache_update, sharded_quant_decode, stripe_attention,
     ulysses_attention, usp_attention, zigzag_ring_attention)
 from ring_flash_attn_tpu_torch.parallel.mesh import (
-    RingBuffer, all_gather, all_reduce, all_to_all)
+    RingBuffer, all_gather, all_reduce, all_to_all, reduce_scatter)
 
 START_TIMEOUT = 120  # seconds for all ranks to import torch and report
 JOIN_TIMEOUT = 20
@@ -119,12 +120,107 @@ def task_decode(rank, world, p):
 
 
 def task_llama3(rank, world, p):
+    """Each variant's (out, lse) on this rank's contiguous shards; with
+    ``p["dout"]`` also the gradients of q, k and v."""
     q, k, v = (torch.from_numpy(_shard(p[n], rank, world, 2))
                for n in ("q", "k", "v"))
     out = {}
     for name, kw in p["variants"].items():
-        o, lse = llama3_attention(q, k, v, scale=p["scale"], **kw)
-        out[f"out_{name}"], out[f"lse_{name}"] = _np(o), _np(lse)
+        if "dout" not in p:
+            o, lse = llama3_attention(q, k, v, scale=p["scale"], **kw)
+            out[f"out_{name}"], out[f"lse_{name}"] = _np(o), _np(lse)
+            continue
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o, lse = llama3_attention(*leaves, scale=p["scale"], **kw)
+        assert o.dtype == q.dtype and not lse.requires_grad
+        dout = torch.from_numpy(_shard(p["dout"], rank, world, 2))
+        grads = torch.autograd.grad(o, leaves, dout)
+        for key, x in zip(("out", "lse", "dq", "dk", "dv"),
+                          (o, lse, *grads)):
+            out[f"{key}_{name}"] = _np(x)
+    return out
+
+
+def task_reduce_scatter(rank, world, p):
+    """reduce_scatter of this rank's ``p["x"][rank]`` along each of
+    ``p["dims"]``."""
+    x = torch.from_numpy(p["x"][rank])
+    return {f"dim{d}": _np(reduce_scatter(x, d)) for d in p["dims"]}
+
+
+def _moe_layer(p, e_local, rank):
+    """A MoELayer holding rank's experts of the numpy layer ``p``."""
+    layer = MoELayer(p["d"], p["mlp"], p["e"], torch.float32, "cpu", e_local)
+    with torch.no_grad():
+        for name, param in layer.named_parameters():
+            a = torch.from_numpy(p[name])
+            param.copy_(a if name == "router"
+                        else a.chunk(p["e"] // e_local)[rank])
+    return layer
+
+
+def task_moe_ep(rank, world, p):
+    """moe_mlp over an ep group of all ranks: each rank holds its batch
+    rows and its experts; out, the aux statistics and the gradients of x
+    and of the layer's (local) parameters."""
+    layer = _moe_layer(p, p["e"] // world, rank)
+    x = torch.from_numpy(_shard(p["x"], rank, world, 0)).requires_grad_()
+    y, (count, probsum) = moe_mlp(x, layer, torch.from_numpy(p["norm"]),
+                                  p["cap"], ep_group=None, return_aux=True)
+    dout = torch.from_numpy(_shard(p["dout"], rank, world, 0))
+    names = [n for n, _ in layer.named_parameters()]
+    grads = torch.autograd.grad(y, [x, *layer.parameters()], dout)
+    out = {"out": _np(y), "count": _np(count), "probsum": _np(probsum),
+           "dx": _np(grads[0])}
+    out.update({f"d{n}": _np(g) for n, g in zip(names, grads[1:])})
+    return out
+
+
+def _zz_local(a, sp_rank, sp):
+    """sp rank's chunk of a (B, S) array laid out (zigzag) along S."""
+    return torch.from_numpy(_shard(a, sp_rank, sp, 1)).long()
+
+
+def task_grid(rank, world, p):
+    """The 2 x 4 grid of (tp or ep) x sp, sp minor, as JAX's
+    ``Mesh(devices.reshape(2, 4), ("tp", "sp"))`` numbers it: sp groups
+    {0..3} and {4..7}, tp/ep groups {0,4}, {1,5}, {2,6}, {3,7}. With
+    ``p["tp"]``: the tensor-parallel forward's logits and one
+    ``train_step`` over (tp, sp) on rank's shards; with ``p["moe"]``: one
+    MoE ``train_step`` over (ep, sp), the batch split over ep. Returns the
+    losses and the updated (local) parameters."""
+    sp = 4
+    outer_group, sp_group = _grid_groups(rank, world, sp)
+    outer_rank, sp_rank = rank // sp, rank % sp
+    out = {}
+    if "tp" in p:
+        t = p["tp"]
+        cfg = ModelConfig(**t["cfg"])
+        toks, labs = (_zz_local(a, sp_rank, sp)
+                      for a in (t["tokens"], t["labels"]))
+        pos = torch.from_numpy(_shard(t["pos"], sp_rank, sp, 0))
+        model = shard_params(t["params"], cfg, tp_rank=outer_rank,
+                             tp=world // sp, device="cpu")
+        with torch.no_grad():
+            out["tp/logits"] = _np(model(toks, pos, sp_group=sp_group,
+                                         tp_group=outer_group))
+        _, loss = train_step(model, toks, labs, pos, lr=t["lr"],
+                             sp_group=sp_group, tp_group=outer_group)
+        out["tp/loss"] = _np(loss)
+        out.update({f"tp/{n}": _np(x) for n, x in model.named_parameters()})
+    if "moe" in p:
+        m = p["moe"]
+        cfg = ModelConfig(**m["cfg"])
+        toks, labs = (_zz_local(_shard(a, outer_rank, world // sp, 0),
+                                sp_rank, sp)
+                      for a in (m["tokens"], m["labels"]))
+        pos = torch.from_numpy(_shard(m["pos"], sp_rank, sp, 0))
+        model = shard_params(m["params"], cfg, ep_rank=outer_rank,
+                             ep=world // sp, device="cpu")
+        _, loss = train_step(model, toks, labs, pos, lr=m["lr"],
+                             sp_group=sp_group, ep_group=outer_group)
+        out["moe/loss"] = _np(loss)
+        out.update({f"moe/{n}": _np(x) for n, x in model.named_parameters()})
     return out
 
 
@@ -390,7 +486,9 @@ def task_ulysses_heads(rank, world, p):
 TASKS = {"collectives": task_collectives, "decode": task_decode,
          "llama3": task_llama3, "generate": task_generate,
          "schedules": task_schedules, "api": task_api, "train": task_train,
-         "cp": task_cp, "ulysses_heads": task_ulysses_heads}
+         "cp": task_cp, "ulysses_heads": task_ulysses_heads,
+         "reduce_scatter": task_reduce_scatter, "moe_ep": task_moe_ep,
+         "grid": task_grid}
 
 
 def _worker(rank, world, port, task, payload, results):
