@@ -129,6 +129,20 @@ Phases, each of which raises on failure:
    offset 57344: B1, then B3a/B3b) against the plain versions on its last
    512 rows; then ``train_step(attention="llama3", sp_group=None)`` for
    two steps at S=8192 (phase 6's losses), with its launch counts.
+16. Packed sequences: B1, B2 and B3a/B3b with segment ids and positions
+   (their segmented instantiations) against their plain versions at the
+   tile edges of ``SEG_EDGE_CASES`` and at q (1,32,8192,128), kv
+   (1,8,8192,128) on the reference's four packings, causal on positions,
+   segments alone and segments with causal by index at an offset; timed on
+   each packing beside the masked-flop bound, the mask-free kernels and
+   ``F.scaled_dot_product_attention`` with the dense boolean mask (timed
+   only); then the varlen path, whose launches are counted:
+   ``flash_attn_varlen_func`` and its qkvpacked form against
+   ``backend="plain"``, ring varlen's and llama3 varlen's W=4 ranks
+   (32768 packed tokens; the reference's packings scaled x4; llama3 at
+   ``heads_k_stride`` 4 and 8) in one process against
+   ``flash_attn_varlen_func`` on the whole packing, each rank timed, and
+   the entry points at W=1.
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -247,6 +261,97 @@ B3A_EDGE_CASES = [
 ]
 
 
+# packed sequences (phase 16): the reference's four packings of 8192 tokens
+# (benchmark/benchmark_varlen_kvpacked_func.py:45-50)
+VARLEN_PACKINGS = [
+    [0, 8192],
+    [0, 256, 7648, 8192],
+    [0, 4096, 8192],
+    [0, 3104, 6304, 7904, 8064, 8192],
+]
+# B1, B2, B3a/B3b with segment ids and positions at their tile edges, held
+# here (phase 16) and in tests/test_torch_cuda.py: (B, Hq, Hkv, Sq, Skv, D,
+# kind, cu) with kind "pos" (causal on positions, packed_self), "seg"
+# (segments only), "idx" (segments and causal by index at offset Skv - Sq,
+# llama3's form: q is the last Sq rows of the packing cu over Skv keys),
+# "shuffled" (shuffled segment ids and non-monotone positions, causal on
+# positions without packed_self: no bound by index may apply) and "absent"
+# (a q segment kv lacks: dead rows; kv rows no q row sees)
+SEG_EDGE_CASES = [
+    (1, 4, 2, 1, 1, 128, "pos", [0, 1]),
+    (1, 4, 2, 127, 127, 128, "pos", [0, 1, 60, 127]),
+    (1, 8, 1, 129, 129, 64, "pos", [0, 128, 129]),
+    (1, 4, 4, 257, 257, 128, "seg", [0, 100, 101, 257]),
+    (2, 4, 2, 257, 257, 64, "shuffled", [0, 257]),
+    (1, 8, 8, 129, 129, 128, "shuffled", [0, 129]),
+    (1, 4, 2, 200, 300, 128, "absent", [0, 70, 300]),
+    (1, 8, 2, 129, 257, 128, "idx", [0, 50, 200, 257]),
+    (1, 8, 1, 127, 255, 64, "idx", [0, 128, 255]),
+    (1, 16, 2, 300, 300, 64, "pos", [0, 3, 131, 132, 300]),
+]
+
+
+def varlen_pairs(cu, causal):
+    """The (q, key) pairs a packing computes, as the reference's varlen
+    benchmark counts them (benchmark_varlen_kvpacked_func.py:73-75): the
+    sum of each sequence's square, halved when causal."""
+    lens = np.diff(np.asarray(cu, np.float64))
+    return float(np.sum(lens ** 2)) * (0.5 if causal else 1.0)
+
+
+def varlen_mask(torch, cu, causal, dev):
+    """The MaskArgs ``flash_attn_varlen_func`` builds for the packing
+    ``cu``, and the dense (T, T) bool mask of the same function (for
+    ``F.scaled_dot_product_attention``, timed only)."""
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs, allowed_mask
+    from ring_flash_attn_tpu_torch.ops.varlen import (
+        cu_seqlens_to_positions, cu_seqlens_to_segids)
+
+    t = int(cu[-1])
+    seg = cu_seqlens_to_segids(cu, t, dev)
+    pos = cu_seqlens_to_positions(cu, t, dev) if causal else None
+    mask = MaskArgs(causal=causal, q_segids=seg, kv_segids=seg, q_pos=pos,
+                    kv_pos=pos, packed_self=True)
+    return mask, allowed_mask(mask, t, t, dev)
+
+def has_segments():
+    """True when the imported port has packed sequences (a parent tree
+    timed with ``--root`` may not)."""
+    import importlib.util
+
+    return importlib.util.find_spec(
+        "ring_flash_attn_tpu_torch.ops.block_meta") is not None
+
+def seg_case_mask(torch, kind, sq, skv, cu, dev, seed=0):
+    """The MaskArgs of a ``SEG_EDGE_CASES`` kind on ``dev``."""
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.varlen import (
+        cu_seqlens_to_positions, cu_seqlens_to_segids)
+
+    seg = cu_seqlens_to_segids(cu, skv, dev)
+    pos = cu_seqlens_to_positions(cu, skv, dev)
+    if kind == "pos":
+        return MaskArgs(causal=True, q_segids=seg, kv_segids=seg, q_pos=pos,
+                        kv_pos=pos, packed_self=True)
+    if kind == "seg":
+        return MaskArgs(q_segids=seg, kv_segids=seg)
+    if kind == "idx":
+        return MaskArgs(causal=True, offset=skv - sq, q_segids=seg[skv - sq:],
+                        kv_segids=seg)
+    rng = np.random.default_rng(seed)
+    if kind == "shuffled":
+        segs = torch.as_tensor(rng.integers(0, 3, skv), dtype=torch.int32,
+                               device=dev)
+        perm = torch.as_tensor(rng.permutation(skv), dtype=torch.int32,
+                               device=dev)
+        return MaskArgs(causal=True, q_segids=segs, kv_segids=segs,
+                        q_pos=perm, kv_pos=perm)
+    if kind == "absent":
+        q_seg = cu_seqlens_to_segids([0, sq // 3, sq], sq, dev)
+        q_seg[q_seg == 1] = 7  # a segment kv does not hold
+        return MaskArgs(q_segids=q_seg, kv_segids=seg)
+    raise ValueError(kind)
+
 def ring_steps(n, skv, causal):
     """The fused-ring steps of the last rank of a ring of ``n``, shards of
     ``skv`` keys: the diagonal (if causal) first, then the earlier
@@ -320,12 +425,17 @@ def kernel_ms(torch, fn, iters, flush):
             flush.zero_()
             fn()
 
+    def flushes():
+        # the flushes alone, as many: a profile of one flush came back
+        # empty every time late in a run (phase 16 on the H100)
+        for _ in range(iters):
+            flush.zero_()
+
     for _ in range(3):  # again if the profiler lost records of the loop
-        per_flush = {key: n for _, key, n in
-                     _device_profile(torch, flush.zero_)}
+        per_flush = {key: n for _, key, n in _device_profile(torch, flushes)}
         prof = _device_profile(torch, loop)
         seen = {key: n for _, key, n in prof}
-        if per_flush and all(seen.get(key) == n * iters
+        if per_flush and all(seen.get(key) == n
                              for key, n in per_flush.items()):
             break
     else:
@@ -372,16 +482,26 @@ def rel_err_rows(a, ref):
 # (csrc/<lib>.cu) and a piece of its mangled name; the largest over the
 # instantiations that match where a kernel has several (B7)
 INSTANTIATIONS = {
-    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0E"),
+    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb0E"),
     "B5 paged_decode": ("paged_decode", "paged_decode_kernelILi4E"),
-    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0E"),
-    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128E"),
-    "B3b flash_bwd_dkv": ("flash_bwd_split", "bwd_kv_kernelILi128ELb0ELb0E"),
+    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb0E"),
+    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb0E"),
+    "B3b flash_bwd_dkv": ("flash_bwd_split",
+                          "bwd_kv_kernelILi128ELb0ELb0ELb0E"),
     "B4 quant_decode": ("quant_decode", "quant_decode_kernelILi0ELi4E"),
     "B6 paged_quant_decode": ("paged_quant_decode",
                               "paged_quant_decode_kernelILi0ELi4E"),
     "B7 fused_ring_fwd": ("fused_ring_fwd", "flash_fwd_kernelILi128ELb1E"),
     "B8 fused_ring_bwd": ("fused_ring_bwd", "bwd_kv_kernelILi128ELb1ELb1E"),
+}
+# the segmented instantiations (packed sequences, csrc/segments.cuh) of the
+# four block kernels, head_dim 128
+SEG_INSTANTIATIONS = {
+    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb1E"),
+    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb1E"),
+    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb1E"),
+    "B3b flash_bwd_dkv": ("flash_bwd_split",
+                          "bwd_kv_kernelILi128ELb0ELb0ELb1E"),
 }
 
 
@@ -414,9 +534,10 @@ def ptxas_facts(log_path):
     return facts
 
 
-def kernel_ptxas(paths, name):
-    """ptxas's facts of a kernel entry's instantiation (INSTANTIATIONS)."""
-    lib, piece = INSTANTIATIONS[name]
+def kernel_ptxas(paths, name, table=None):
+    """ptxas's facts of a kernel entry's instantiation (INSTANTIATIONS, or
+    ``table``)."""
+    lib, piece = (table or INSTANTIATIONS)[name]
     found = [f for k, f in ptxas_facts(paths[lib][:-3] + ".log").items()
              if piece in k]
     if not found:
@@ -446,10 +567,12 @@ def check_hgmma(what, lib, piece):
     on wgmma. Returns {label: count}."""
     from ring_flash_attn_tpu_torch.ops import _build
 
-    def label(name):  # head_dim, and the forward's softcap/ALiBi build
+    def label(name):  # head_dim, the forward's softcap/ALiBi build, and
+        # the segmented build (its last template flag)
         xform = piece == "flash_fwd_kernel" and "ELb1ELb1E" in name
+        seg = "Lb1EEEv" in name
         return ("D=128" if "ILi128" in name else "D=64") + (
-            " XFORM" if xform else "")
+            " XFORM" if xform else "") + (" SEG" if seg else "")
 
     counts = {label(n): c for n, c in sorted(
         hgmma_counts(_build.build_all()[lib], piece).items())}
@@ -2998,6 +3121,423 @@ def phase_llama3(torch, flash_losses):
                       "w8_rank7_ms": {"fwd_ms": t_fwd, "bwd_ms": t_bwd}}
 
 
+def _varlen_check(what, got, ref, tol_out, tol_lse):
+    """Hold (out, lse) against the reference: out by rows and absolutely,
+    lse absolutely; raise past the limits. Returns (abs, rows, lse)."""
+    errs = (max_err(got[0], ref[0]), rel_err_rows(got[0], ref[0]),
+            max_err(got[1], ref[1]))
+    log(f"    {what}: |out| err {errs[0]:.3e}, of max|ref| by rows "
+        f"{errs[1]:.3e}, |lse| err {errs[2]:.3e}")
+    if errs[0] > tol_out or errs[1] > RING_OUT_REL_TOL or errs[2] > tol_lse:
+        raise AssertionError(f"{what}: out/lse past the limits")
+    return errs
+
+
+def _grads_check(what, got, ref):
+    """Hold (dq, dk, dv) to BWD_REL_TOL of max|ref|; returns the worst."""
+    rel = [_rel_err(x.float(), r.float()) for x, r in zip(got, ref)]
+    log(f"    {what}: rel err dq {rel[0]:.2e} dk {rel[1]:.2e} dv "
+        f"{rel[2]:.2e} (tol {BWD_REL_TOL})")
+    if max(rel) > BWD_REL_TOL:
+        raise AssertionError(f"{what}: gradients past the limit")
+    return max(rel)
+
+
+@contextlib.contextmanager
+def _uncounted(counters):
+    """Launches inside are not counted: a timing loop or a reference run
+    beside the path whose launches are read."""
+    saved = {name: fn.launches for name, fn in counters.items()}
+    try:
+        yield
+    finally:
+        for name, fn in counters.items():
+            fn.launches = saved[name]
+
+
+def phase_varlen(torch, flush):
+    """Phase 16: packed sequences. Returns ({kernel: its varlen readings},
+    the launches of the varlen path, the ring and llama3 times)."""
+    import torch.nn.functional as F
+
+    from ring_flash_attn_tpu_torch import api
+    from ring_flash_attn_tpu_torch.ops.flash import (
+        compute_delta, flash_attention)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+    from ring_flash_attn_tpu_torch.ops.varlen import (
+        cu_seqlens_to_segids, extract_local_ring_varlen, ring_varlen_info)
+    from ring_flash_attn_tpu_torch.parallel import llama3, ring_varlen
+
+    log("== phase 16: packed sequences: B1, B2, B3a/B3b with segment ids "
+        "and positions, the varlen, ring-varlen and llama3-varlen entry "
+        "points")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf16 = torch.bfloat16
+    hq, hkv, d, t = 32, 8, 128, 8192
+    scale = d ** -0.5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    # (a) the kernels against their plain versions: the tile edges, then the
+    # full width on each packing in three forms
+    for case in SEG_EDGE_CASES:
+        b, cq, ckv, sq, skv, cd, kind, cu = case
+        mask = seg_case_mask(torch, kind, sq, skv, cu, dev)
+        q, k, v, dout = (rnd(b, cq, sq, cd), rnd(b, ckv, skv, cd),
+                         rnd(b, ckv, skv, cd), rnd(b, cq, sq, cd))
+        out, lse = flash_fwd_cuda(q, k, v, cd ** -0.5, mask, out_dtype=bf16)
+        _varlen_check(f"edge {case[:7]} B1", (out, lse),
+                      naive_block_fwd(q, k, v, cd ** -0.5, mask),
+                      B1_OUT_TOL, B1_LSE_TOL)
+        delta = compute_delta(dout, out)
+        ref = naive_block_bwd(dout, q, k, v, lse, delta, cd ** -0.5, mask)
+        for bwd in (flash_bwd_cuda, flash_bwd_split_cuda):
+            got = bwd(dout, q, k, v, lse, delta, cd ** -0.5, mask)
+            if sq == skv == 1:  # one key a row: dq, dk vanish; dv holds
+                rel = _rel_err(got[2], ref[2])
+                if rel > BWD_REL_TOL:
+                    raise AssertionError(f"edge {case}: dv {rel}")
+                continue
+            _grads_check(f"edge {case[:7]} {bwd.__name__}", got, ref)
+
+    q, k, v, dout = (rnd(1, hq, t, d), rnd(1, hkv, t, d), rnd(1, hkv, t, d),
+                     rnd(1, hq, t, d))
+    kr = k.repeat_interleave(hq // hkv, dim=1)
+    vr = v.repeat_interleave(hq // hkv, dim=1)
+    worst = {"B1": [0.0, 0.0, 0.0], "B2": 0.0, "B3": 0.0}
+    timed = {}
+    for cu in VARLEN_PACKINGS:
+        seg = cu_seqlens_to_segids(cu, t, dev)
+        half = t // 2
+        forms = {
+            "causal": varlen_mask(torch, cu, True, dev)[0],
+            "segments": varlen_mask(torch, cu, False, dev)[0],
+            # llama3's form: the last half of the rows over every key,
+            # causal by index at offset T/2, segments
+            "index": MaskArgs(causal=True, offset=half,
+                              q_segids=seg[half:], kv_segids=seg),
+        }
+        for form, mask in forms.items():
+            rows = slice(half, None) if form == "index" else slice(None)
+            qq, dd = q[:, :, rows], dout[:, :, rows]
+            out, lse = flash_fwd_cuda(qq, k, v, scale, mask, out_dtype=bf16)
+            errs = _varlen_check(f"{cu} {form} B1", (out, lse),
+                                 naive_block_fwd(qq, k, v, scale, mask),
+                                 B1_OUT_TOL, B1_LSE_TOL)
+            worst["B1"] = [max(a, b_) for a, b_ in zip(worst["B1"], errs)]
+            delta = compute_delta(dd, out)
+            ref = naive_block_bwd(dd, qq, k, v, lse, delta, scale, mask)
+            for name, bwd in (("B2", flash_bwd_cuda),
+                              ("B3", flash_bwd_split_cuda)):
+                got = bwd(dd, qq, k, v, lse, delta, scale, mask)
+                worst[name] = max(worst[name], _grads_check(
+                    f"{cu} {form} {name}", got, ref))
+            del ref, got
+            torch.cuda.empty_cache()
+        # the times, causal on positions (flash_attn_varlen_func's mask),
+        # beside the masked-flop bound and SDPA with the dense mask
+        mask, dense = varlen_mask(torch, cu, True, dev)
+        out, lse = flash_fwd_cuda(q, k, v, scale, mask, out_dtype=bf16)
+        delta = compute_delta(dout, out)
+        fns = {
+            "B1": lambda: flash_fwd_cuda(q, k, v, scale, mask,
+                                         out_dtype=bf16),
+            "B2": lambda: flash_bwd_cuda(dout, q, k, v, lse, None, scale,
+                                         mask, out=out, dq_dtype=bf16,
+                                         dkv_dtype=bf16),
+            "B3a": lambda: flash_bwd_dq_cuda(dout, q, k, v, lse, delta,
+                                             scale, mask, dq_dtype=bf16),
+            "B3b": lambda: flash_bwd_dkv_cuda(dout, q, k, v, lse, delta,
+                                              scale, mask, dkv_dtype=bf16),
+        }
+        pairs = varlen_pairs(cu, True)
+        products = {"B1": 2, "B2": 5, "B3a": 3, "B3b": 4}
+        qr = q.detach().requires_grad_()
+        krr, vrr = kr.detach().requires_grad_(), vr.detach().requires_grad_()
+        o_m = F.scaled_dot_product_attention(qr, krr, vrr, attn_mask=dense)
+        lib = {"fwd": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q, kr, vr, attn_mask=dense), 5, flush),
+               "bwd": cuda_ms(torch, lambda: torch.autograd.grad(
+                   o_m, (qr, krr, vrr), dout, retain_graph=True), 5, flush)}
+        del o_m, qr, krr, vrr
+        for name, fn in fns.items():
+            r = kernel_ms(torch, fn, 10, flush)
+            bound = products[name] * 2 * hq * d * pairs / H100_BF16_FLOPS
+            timed.setdefault(name, []).append(dict(
+                cu_seqlens=cu, ms=r["ms"], device_ms=r["device_ms"],
+                bound_ms=bound * 1e3,
+                library_ms=lib["fwd" if name == "B1" else "bwd"]))
+            log(f"  {cu} causal {name}: {r['ms']:.3f} ms, device "
+                f"{r['device_ms']:.3f} ms, bound {bound * 1e3:.3f} ms "
+                f"({r['ms'] / (bound * 1e3):.2f}x), SDPA with the dense "
+                f"mask {timed[name][-1]['library_ms']:.3f} ms")
+        del dense, out, lse, delta
+        torch.cuda.empty_cache()
+    # the mask-free kernels at the same shape, for the [0, 8192] packing
+    causal = MaskArgs(causal=True)
+    out, lse = flash_fwd_cuda(q, k, v, scale, causal, out_dtype=bf16)
+    delta = compute_delta(dout, out)
+    free = {
+        "B1": kernel_ms(torch, lambda: flash_fwd_cuda(
+            q, k, v, scale, causal, out_dtype=bf16), 10, flush)["ms"],
+        "B2": kernel_ms(torch, lambda: flash_bwd_cuda(
+            dout, q, k, v, lse, None, scale, causal, out=out, dq_dtype=bf16,
+            dkv_dtype=bf16), 10, flush)["ms"],
+        "B3a": kernel_ms(torch, lambda: flash_bwd_dq_cuda(
+            dout, q, k, v, lse, delta, scale, causal, dq_dtype=bf16), 10,
+            flush)["ms"],
+        "B3b": kernel_ms(torch, lambda: flash_bwd_dkv_cuda(
+            dout, q, k, v, lse, delta, scale, causal, dkv_dtype=bf16), 10,
+            flush)["ms"],
+    }
+    log("  mask-free causal at the same shape: " + ", ".join(
+        f"{n} {m:.3f} ms" for n, m in free.items()))
+    del out, lse, delta, kr, vr
+    torch.cuda.empty_cache()
+
+    # the varlen path from here on: its launches are counted, the timing
+    # loops' and the reference runs' are not
+    counters = {"B1 flash_fwd": flash_fwd_cuda,
+                "B2 flash_bwd": flash_bwd_cuda,
+                "B3a flash_bwd_dq": flash_bwd_dq_cuda,
+                "B3b flash_bwd_dkv": flash_bwd_dkv_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+
+    # (b) flash_attn_varlen_func and its qkvpacked form at T=8192, forward
+    # and backward, against backend="plain" on the card
+    # (the plain side: flash_attention(backend="plain") under the mask the
+    # entry point builds, on the same (1, H, T, D) views)
+    qt, kt, vt, dt = (x[0].transpose(0, 1) for x in (q, k, v, dout))
+
+    def plain_varlen(leaves, cu, g):
+        views = [x.transpose(0, 1)[None] for x in leaves]
+        o, lse_p = flash_attention(*views, scale,
+                                   varlen_mask(torch, cu, True, dev)[0],
+                                   backend="plain")
+        o = o[0].transpose(0, 1)
+        return (o.detach(), lse_p[0], *torch.autograd.grad(o, leaves, g))
+
+    for cu in VARLEN_PACKINGS:
+        cu_t = torch.tensor(cu, dtype=torch.int32, device=dev)
+        ref = plain_varlen(
+            [x.detach().clone().requires_grad_() for x in (qt, kt, vt)], cu,
+            dt)
+        # the default backward (B2) and the reproducible one (B3a/B3b)
+        for det in (False, True):
+            leaves = [x.detach().clone().requires_grad_()
+                      for x in (qt, kt, vt)]
+            o, lse_v, _ = api.flash_attn_varlen_func(
+                *leaves, cu_t, causal=True, return_attn_probs=True,
+                deterministic=det)
+            got = (o.detach(), lse_v, *torch.autograd.grad(o, leaves, dt))
+            _varlen_check(f"flash_attn_varlen_func {cu}", got[:2],
+                          ref[:2], B1_OUT_TOL, B1_LSE_TOL)
+            _grads_check(f"flash_attn_varlen_func {cu} backward, "
+                         f"deterministic={det}", got[2:], ref[2:])
+        del got, ref, leaves
+        torch.cuda.empty_cache()
+    qkv = torch.stack([qt[:, :hkv], kt, vt], dim=1)
+    cu = VARLEN_PACKINGS[3]
+    leaf = qkv.detach().clone().requires_grad_()
+    o = api.flash_attn_varlen_qkvpacked_func(
+        leaf, torch.tensor(cu, dtype=torch.int32, device=dev), causal=True)
+    got = (o.detach(), torch.autograd.grad(o, leaf, dt[:, :hkv])[0])
+    leaf = qkv.detach().clone().requires_grad_()
+    ref = plain_varlen(list(leaf.unbind(1)), cu, dt[:, :hkv])
+    ref = (ref[0], torch.stack(ref[2:], dim=1))
+    errs = (_rel_err(got[0].float(), ref[0].float()),
+            _rel_err(got[1].float(), ref[1].float()))
+    log(f"    flash_attn_varlen_qkvpacked_func {VARLEN_PACKINGS[3]}: out "
+        f"{errs[0]:.2e}, dqkv {errs[1]:.2e} of max|plain|")
+    if max(errs) > BWD_REL_TOL:
+        raise AssertionError("flash_attn_varlen_qkvpacked_func is wrong")
+    del qkv, got, ref, leaf, q, k, v, dout, qt, kt, vt, dt
+    torch.cuda.empty_cache()
+
+    # (c) ring varlen at W=4 on one card: 32768 packed tokens, every rank's
+    # shards in one process through the module's step masks, against
+    # flash_attn_varlen_func on the whole packing
+    world, total = 4, 4 * t
+    packings = [[0, 8192, 16384, 24576, 32768]] + [
+        [4 * x for x in cu] for cu in VARLEN_PACKINGS[1:]]
+    q, k, v, dout = (rnd(total, hq, d), rnd(total, hkv, d),
+                     rnd(total, hkv, d), rnd(total, hq, d))
+    times = {"ring_varlen": {}, "llama3_varlen": {}}
+    for cu in packings:
+        cu_local = [x // world for x in cu]
+        loc = [[extract_local_ring_varlen(x, cu, r, world).transpose(
+            0, 1)[None].contiguous() for r in range(world)]
+            for x in (q, k, v, dout)]
+        qs, ks, vs, douts = loc
+        for causal in (True, False):
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            with _uncounted(counters):
+                ref_o, ref_lse, _ = api.flash_attn_varlen_func(
+                    *leaves, torch.tensor(cu, device=dev), causal=causal,
+                    return_attn_probs=True)
+                ref_g = torch.autograd.grad(ref_o, leaves, dout)
+            masks = [ring_varlen.varlen_step_masks(
+                *ring_varlen_info(cu_local, t, r, dev), causal, {})
+                for r in range(world)]
+            res = [_rank_fwd(qs, ks, vs, r, scale, masks[r])
+                   for r in range(world)]
+            outs, lses = [o for o, _ in res], [x for _, x in res]
+            dkvs = [torch.zeros((2,) + tuple(x.shape), dtype=torch.float32,
+                                device=dev) for x in ks]
+            dqs = [_rank_bwd(qs, ks, vs, douts, outs, lses, dkvs, r, scale,
+                             masks[r]) for r in range(world)]
+            for r in range(world):
+                want = [extract_local_ring_varlen(x, cu, r, world).transpose(
+                    0, 1)[None] for x in (ref_o, ref_g[0], ref_g[1],
+                                          ref_g[2])]
+                want_lse = extract_local_ring_varlen(ref_lse, cu, r, world,
+                                                     axis=1)[None]
+                ro = _rel_err(outs[r].float(), want[0].float())
+                el = max_err(lses[r], want_lse)
+                rel = [_rel_err(x, w.float()) for x, w in zip(
+                    (dqs[r], dkvs[r][0], dkvs[r][1]), want[1:])]
+                if (ro > RING_OUT_REL_TOL or el > RING_LSE_TOL
+                        or max(rel) > BWD_REL_TOL):
+                    raise AssertionError(
+                        f"ring varlen {cu} causal={causal} rank {r}: out "
+                        f"{ro:.2e} lse {el:.2e} grads {rel}")
+            log(f"    ring varlen W={world} {cu} causal={causal}: every "
+                f"rank's out, lse, dq, dk, dv within the limits of "
+                f"flash_attn_varlen_func on the whole packing")
+            key = f"{cu} causal={causal}"
+            with _uncounted(counters):
+                times["ring_varlen"][key] = {
+                    "fwd_ms": [_events_ms(torch, lambda r=r: _rank_fwd(
+                        qs, ks, vs, r, scale, masks[r]), 5)
+                        for r in range(world)],
+                    "bwd_ms": [_events_ms(torch, lambda r=r: _rank_bwd(
+                        qs, ks, vs, douts, outs, lses, dkvs, r, scale,
+                        masks[r]), 3) for r in range(world)]}
+            log(f"    ring varlen {key} per rank: forward " + " ".join(
+                f"{x:.3f}" for x in times["ring_varlen"][key]["fwd_ms"])
+                + " ms, backward " + " ".join(
+                f"{x:.3f}" for x in times["ring_varlen"][key]["bwd_ms"])
+                + " ms")
+            del res, outs, lses, dkvs, dqs, ref_o, ref_g, leaves
+            torch.cuda.empty_cache()
+
+        # (d) llama3 varlen at W=4, the rank's contiguous share of the same
+        # packing, from llama3_flash_attn_prepare_cu_seqlens, through the
+        # module's rank functions (the kv all-gathered, handed in)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        with _uncounted(counters):
+            ref_o, ref_lse, _ = api.flash_attn_varlen_func(
+                *leaves, torch.tensor(cu, device=dev), causal=True,
+                return_attn_probs=True)
+            ref_g = torch.autograd.grad(ref_o, leaves, dout)
+        kv_all = torch.stack([k.transpose(0, 1)[None],
+                              v.transpose(0, 1)[None]]).contiguous()
+        # each rank's globally consistent labels, as the entry point builds
+        # them from llama3_flash_attn_prepare_cu_seqlens (the group's
+        # all-gather concatenates them)
+        labels = []
+        for r in range(world):
+            cu_q, cu_k, _, _, sl = api.llama3_flash_attn_prepare_cu_seqlens(
+                cu, True, r, world)
+            seg_local = cu_seqlens_to_segids(cu_q, t, dev).long()
+            labels.append((sl.start + torch.as_tensor(cu_k, device=dev)[
+                seg_local]).to(torch.int32))
+        for stride in (4, 8):
+            key = f"{cu} stride={stride}"
+            fwd_ms, bwd_ms = [], []
+            dkv = torch.zeros((2, 1, hkv, total, d), dtype=torch.float32,
+                              device=dev)
+            for r in range(world):
+                mask = MaskArgs(causal=True, offset=r * t,
+                                q_segids=labels[r],
+                                kv_segids=torch.cat(labels))
+                rows = slice(r * t, (r + 1) * t)
+                qr_ = q[rows].transpose(0, 1)[None]
+                dr_ = dout[rows].transpose(0, 1)[None]
+
+                def fwd(qr_=qr_, mask=mask, stride=stride):
+                    return llama3._rank_fwd(
+                        qr_, lambda i: kv_all[:, :, i:i + stride], hkv,
+                        scale, mask, stride, None)
+
+                o, lse_r = fwd()
+                dq_parts = list(llama3._rank_bwd(
+                    qr_, o, lse_r, dr_, lambda i: kv_all[:, :, i:i + stride],
+                    hkv, scale, mask, stride, None))
+                dq = torch.cat([p[0] for p in dq_parts], dim=1)
+                for j, (_, dk_g, dv_g) in enumerate(dq_parts):
+                    dkv[0][:, j * stride:(j + 1) * stride].add_(dk_g)
+                    dkv[1][:, j * stride:(j + 1) * stride].add_(dv_g)
+                ro = _rel_err(o.float(), ref_o[rows].transpose(
+                    0, 1)[None].float())
+                el = max_err(lse_r, ref_lse[:, rows][None])
+                rq = _rel_err(dq.float(), ref_g[0][rows].transpose(
+                    0, 1)[None].float())
+                if (ro > RING_OUT_REL_TOL or el > RING_LSE_TOL
+                        or rq > BWD_REL_TOL):
+                    raise AssertionError(f"llama3 varlen {key} rank {r}: "
+                                         f"out {ro} lse {el} dq {rq}")
+                with _uncounted(counters):
+                    fwd_ms.append(_events_ms(torch, fwd, 5))
+                    bwd_ms.append(_events_ms(torch, lambda: list(
+                        llama3._rank_bwd(
+                            qr_, o, lse_r, dr_,
+                            lambda i: kv_all[:, :, i:i + stride], hkv,
+                            scale, mask, stride, None)), 3))
+            rel = [_rel_err(dkv[i], ref_g[1 + i].transpose(0, 1)[None].float())
+                   for i in (0, 1)]
+            if max(rel) > BWD_REL_TOL:
+                raise AssertionError(f"llama3 varlen {key}: dk, dv {rel}")
+            times["llama3_varlen"][key] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+            log(f"    llama3 varlen W={world} {key}: every rank's out, lse, "
+                f"dq and the summed dk, dv within the limits; per rank "
+                f"forward " + " ".join(f"{x:.3f}" for x in fwd_ms)
+                + " ms, backward " + " ".join(f"{x:.3f}" for x in bwd_ms)
+                + " ms")
+            del dkv
+        del ref_o, ref_g, leaves, kv_all, loc, qs, ks, vs, douts
+        torch.cuda.empty_cache()
+
+    # the entry points themselves at W=1 on the 32768-token packing
+    for cu in packings[:1]:
+        cu_t = torch.tensor(cu, dtype=torch.int32, device=dev)
+        with _uncounted(counters):
+            want = api.flash_attn_varlen_func(q, k, v, cu_t, causal=True)
+        got = api.ring_flash_attn_varlen_func(q, k, v, cu_t, causal=True)
+        pre = api.llama3_flash_attn_prepare_cu_seqlens(cu, True, 0, 1)
+        got3 = api.llama3_flash_attn_varlen_func(
+            q, k, v, pre[0], pre[1], heads_k_stride=4, local_k_slice=pre[4],
+            causal=True)
+        errs = (_rel_err(got.float(), want.float()),
+                _rel_err(got3.float(), want.float()))
+        log(f"    W=1 entry points on {cu}: ring varlen {errs[0]:.2e}, "
+            f"llama3 varlen {errs[1]:.2e} of max|flash_attn_varlen_func|")
+        if max(errs) > RING_OUT_REL_TOL:
+            raise AssertionError("a varlen entry point at W=1 is wrong")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"  launches on the varlen path: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the varlen path never ran: "
+                             f"{launches}")
+    readings = {name: dict(
+        varlen_causal=timed[key], varlen_mask_free_ms=free[key],
+        varlen_worst=(worst["B1"] if key == "B1" else
+                      worst["B2"] if key == "B2" else worst["B3"]))
+        for name, key in (("B1 flash_fwd", "B1"), ("B2 flash_bwd", "B2"),
+                          ("B3a flash_bwd_dq", "B3a"),
+                          ("B3b flash_bwd_dkv", "B3b"))}
+    return readings, launches, times
+
+
 def main():
     import torch
 
@@ -3057,11 +3597,17 @@ def main():
     moe, tp = run("MoE and TP", phase_moe_tp, torch)
     torch.cuda.empty_cache()
     llama3, llama3_times = run("llama3", phase_llama3, torch, flash_losses)
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    varlen_readings, varlen, varlen_times = run(
+        "packed sequences", phase_varlen, torch, flush)
+    del flush
     next(k for k in kernels if k["name"].startswith("B7"))[
         "w4_causal_forward_ms"] = ring_compare
     b1 = next(k for k in kernels if k["name"].startswith("B1"))
     b1["w4_per_rank_stripe_vs_ring_ms"] = stripe_times
     b1.update(llama3_times)
+    b1["w4_per_rank_varlen_ms"] = varlen_times
     for k in kernels:
         # each kernel's count on the run of its own path: serving for B1
         # and B5, training for B2/B3a/B3b, generate for B4 (B1 runs on all
@@ -3073,11 +3619,16 @@ def main():
             ("serving", serving), ("training", training),
             ("generate", inference), ("paged_quant", paged_quant),
             ("ring", ring), ("stripe", stripe), ("moe", moe), ("tp", tp),
-            ("llama3", llama3))
+            ("llama3", llama3), ("varlen", varlen))
             if k["name"] in c}
         k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths
         k["ptxas"] = kernel_ptxas(built, k["name"])
+        if k["name"] in SEG_INSTANTIATIONS:
+            # the segmented instantiation's facts and readings (phase 16)
+            k["ptxas_varlen"] = kernel_ptxas(built, k["name"],
+                                             SEG_INSTANTIATIONS)
+            k.update(varlen_readings[k["name"]])
     log(f"phase seconds {seconds}; phases took "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -23,9 +23,14 @@ parent.
    pre-pass (single-call mode, bf16), B8 one off-diagonal and one diagonal
    ring step, and the backward of ``F.scaled_dot_product_attention`` (timed
    only, never used by the port). Each time is the mean of 10 calls between
-   CUDA events, the L2 flushed before each. Prints TFLOP/s of each kernel's
+   CUDA events, the L2 flushed before each, and the profiler's device time
+   of the same calls (``chip_smoke.kernel_ms``). Prints TFLOP/s of each kernel's
    5 (B2, B8), 4 (B3b), 3 (B3a) or 7 (the pair) products and the ratio to
    SDPA's backward.
+   Where the tree has packed sequences, also the segmented instantiations
+   of B2, B3a and B3b (``csrc/segments.cuh``) causal on the reference's
+   five-sequence packing of 8192 tokens, beside SDPA's backward with the
+   same dense boolean mask; a parent without them times the rest.
 
 The loop's correctness is ``chip_smoke.py``'s (phases 5, 10 to 12) and
 ``tests/test_torch_cuda.py``'s. Prints the card's name and power limit
@@ -39,7 +44,8 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    H100_BF16_FLOPS, cuda_ms, log, profile_loop)
+    H100_BF16_FLOPS, VARLEN_PACKINGS, has_segments, kernel_ms, log,
+    profile_loop, varlen_mask, varlen_pairs)
 
 LOOP = ("B2 flash_bwd", "B3b flash_bwd_dkv", "B8 fused_ring_bwd")
 PIECES = ("bwd_kv_kernel", "bwd_dq_kernel")
@@ -116,16 +122,48 @@ def timings(torch, rounds):
              "B3a+B3b": 7 * 2 * hq * d * pairs["causal"],
              "B8 off-diagonal": 5 * 2 * hq * d * pairs["full"],
              "B8 diagonal": 5 * 2 * hq * d * pairs["causal"]}
-    times = collections.defaultdict(list)
-    for _ in range(rounds):
-        for name, fn in fns.items():
-            times[name].append(cuda_ms(torch, fn, 10, flush))
     lib = {"B2": "SDPA bwd causal", "B3a": "SDPA bwd causal",
            "B3b": "SDPA bwd causal", "B3a+B3b": "SDPA bwd causal",
            "B8 off-diagonal": "SDPA bwd non-causal",
            "B8 diagonal": "SDPA bwd causal"}
+    # the segmented instantiations on the five-sequence packing, in rounds
+    # of their own after the others, so that the mask-free kernels are
+    # timed in the same sequence in a tree with them and in one without
+    vfns = {}
+    if has_segments():
+        cu = VARLEN_PACKINGS[3]
+        vm, dense = varlen_mask(torch, cu, True, dev)
+        vout, vlse = flash_fwd_cuda(q, k, v, scale, vm, out_dtype=bf16)
+        vdelta = compute_delta(dout, vout)
+        o_m = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=dense)
+        vfns.update({
+            "B2 varlen": lambda: flash_bwd_cuda(
+                dout, q, k, v, vlse, None, scale, vm, out=vout,
+                dq_dtype=bf16, dkv_dtype=bf16),
+            "B3a varlen": lambda: flash_bwd_dq_cuda(
+                dout, q, k, v, vlse, vdelta, scale, vm, dq_dtype=bf16),
+            "B3b varlen": lambda: flash_bwd_dkv_cuda(
+                dout, q, k, v, vlse, vdelta, scale, vm, dkv_dtype=bf16),
+            "SDPA bwd varlen mask": lambda: torch.autograd.grad(
+                o_m, (qr, kr, vr), dout, retain_graph=True),
+        })
+        vp = varlen_pairs(cu, True)
+        for name, n in (("B2 varlen", 5), ("B3a varlen", 3),
+                        ("B3b varlen", 4)):
+            flops[name] = n * 2 * hq * d * vp
+            lib[name] = "SDPA bwd varlen mask"
+    times = collections.defaultdict(list)
+    device = collections.defaultdict(list)
+    for group in (fns, vfns):
+        for _ in range(rounds):
+            for name, fn in group.items():
+                r = kernel_ms(torch, fn, 10, flush)
+                times[name].append(r["ms"])
+                device[name].append(r["device_ms"])
     for name, ts in times.items():
-        line = f"  {name}: " + ", ".join(f"{t:.3f}" for t in ts) + " ms"
+        line = (f"  {name}: " + ", ".join(f"{t:.3f}" for t in ts)
+                + " ms; device " + ", ".join(f"{t:.3f}" for t in device[name])
+                + " ms")
         if name in flops:
             best = min(ts)
             line += (f"; {flops[name] / best / 1e9:.1f} TFLOP/s, "

@@ -19,7 +19,14 @@ parent.
    bf16: B1 causal and not (bf16 out, as ``flash_attention`` asks), B7 one
    off-diagonal ring step (state read and written) and one diagonal first
    step, and ``F.scaled_dot_product_attention``'s forward, causal and not
-   (timed only, never used by the port). Each time is the mean of 10 calls
+   (timed only, never used by the port), each between CUDA events and as
+   the profiler's device time (``chip_smoke.kernel_ms``: the events'
+   reading holds whatever host time a launch takes past the L2 flush's);
+   then B1's segmented
+   instantiation (packed sequences, ``csrc/segments.cuh``) causal on the
+   reference's five-sequence packing of 8192 tokens beside SDPA's forward
+   with the same dense boolean mask, where the tree has it (a parent
+   without packed sequences times the rest). Each time is the mean of 10 calls
    between CUDA events, the L2 flushed before each, and the host's time to
    issue one call (20 calls enqueued back to back: the launcher's checks,
    its tensor maps and the launch). Prints TFLOP/s of the loop's 2
@@ -39,7 +46,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    H100_BF16_FLOPS, cuda_ms, log, profile_loop)
+    H100_BF16_FLOPS, VARLEN_PACKINGS, has_segments, kernel_ms, log,
+    profile_loop, varlen_mask, varlen_pairs)
 
 LOOP = ("B1 flash_fwd", "B7 fused_ring_fwd")
 
@@ -101,19 +109,37 @@ def timings(torch, rounds):
              "B1 non-causal": 2 * 2 * hq * d * pairs["full"],
              "B7 off-diagonal": 2 * 2 * hq * d * pairs["full"],
              "B7 diagonal": 2 * 2 * hq * d * pairs["causal"]}
-    times = collections.defaultdict(list)
-    host = collections.defaultdict(list)
-    for _ in range(rounds):
-        for name, fn in fns.items():
-            times[name].append(cuda_ms(torch, fn, 10, flush))
-            host[name].append(host_us(torch, fn, 20))
     lib = {"B1 causal": "SDPA fwd causal",
            "B1 non-causal": "SDPA fwd non-causal",
            "B7 off-diagonal": "SDPA fwd non-causal",
            "B7 diagonal": "SDPA fwd causal"}
+    # the segmented instantiation, in rounds of its own after the others,
+    # so that the mask-free kernels are timed in the same sequence in a
+    # tree with it and in one without
+    vfns = {}
+    if has_segments():
+        cu = VARLEN_PACKINGS[3]
+        vmask, dense = varlen_mask(torch, cu, True, dev)
+        vfns["B1 varlen causal"] = lambda: flash_fwd_cuda(
+            q, k, v, scale, vmask, out_dtype=bf16)
+        vfns["SDPA fwd varlen mask"] = lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=dense)
+        flops["B1 varlen causal"] = 2 * 2 * hq * d * varlen_pairs(cu, True)
+        lib["B1 varlen causal"] = "SDPA fwd varlen mask"
+    times = collections.defaultdict(list)
+    device = collections.defaultdict(list)
+    host = collections.defaultdict(list)
+    for group in (fns, vfns):
+        for _ in range(rounds):
+            for name, fn in group.items():
+                r = kernel_ms(torch, fn, 10, flush)
+                times[name].append(r["ms"])
+                device[name].append(r["device_ms"])
+                host[name].append(host_us(torch, fn, 20))
     for name, ts in times.items():
         line = (f"  {name}: " + ", ".join(f"{t:.3f}" for t in ts) + " ms; "
-                f"host " + ", ".join(f"{t:.1f}" for t in host[name])
+                f"device " + ", ".join(f"{t:.3f}" for t in device[name])
+                + " ms; host " + ", ".join(f"{t:.1f}" for t in host[name])
                 + " us a call")
         if name in flops:
             best = min(ts)

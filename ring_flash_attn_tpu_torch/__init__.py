@@ -11,7 +11,9 @@ context-parallel attention and training over a process group (the ring,
 zigzag, fused-ring, stripe, Ulysses and USP schedules of ``parallel``, the
 ``api`` functions of the ring, zigzag and stripe schedules, the attention
 registry of ``adapters`` and ``train_step`` with a sequence group and a
-Ulysses group), with nine kernels written by hand in CUDA C++ for
+Ulysses group) and packed (varlen) sequences (``flash_attn_varlen_func``,
+``ring_flash_attn_varlen_func``, ``llama3_flash_attn_varlen_func``), with
+nine kernels written by hand in CUDA C++ for
 ``sm_90a`` (``csrc/``): the flash forward (B1), bf16 paged decode (B5), the fused
 flash backward (B2), the split backward (B3a dq, B3b dk/dv), decode over
 an int8/fp8 cache, contiguous (B4) or paged (B6), and the fused ring's
@@ -32,9 +34,19 @@ from .api import (  # noqa: F401
     flash_attn_func,
     flash_attn_kvpacked_func,
     flash_attn_qkvpacked_func,
+    flash_attn_varlen_func,
+    flash_attn_varlen_kvpacked_func,
+    flash_attn_varlen_qkvpacked_func,
+    llama3_flash_attn_prepare_cu_seqlens,
+    llama3_flash_attn_varlen_func,
+    llama3_flash_attn_varlen_kvpacked_func,
+    llama3_flash_attn_varlen_qkvpacked_func,
     ring_flash_attn_func,
     ring_flash_attn_kvpacked_func,
     ring_flash_attn_qkvpacked_func,
+    ring_flash_attn_varlen_func,
+    ring_flash_attn_varlen_kvpacked_func,
+    ring_flash_attn_varlen_qkvpacked_func,
     stripe_flash_attn_func,
     stripe_flash_attn_kvpacked_func,
     stripe_flash_attn_qkvpacked_func,
@@ -59,6 +71,7 @@ from .ops import MaskArgs, block_bwd, block_fwd, flash_attention  # noqa: F401
 from .parallel import (  # noqa: F401
     fused_ring_attention,
     ring_attention,
+    ring_attention_varlen,
     stripe_attention,
     ulysses_attention,
     usp_attention,
@@ -84,9 +97,19 @@ __all__ = [
     "flash_attn_func",
     "flash_attn_kvpacked_func",
     "flash_attn_qkvpacked_func",
+    "flash_attn_varlen_func",
+    "flash_attn_varlen_kvpacked_func",
+    "flash_attn_varlen_qkvpacked_func",
+    "llama3_flash_attn_prepare_cu_seqlens",
+    "llama3_flash_attn_varlen_func",
+    "llama3_flash_attn_varlen_kvpacked_func",
+    "llama3_flash_attn_varlen_qkvpacked_func",
     "ring_flash_attn_func",
     "ring_flash_attn_kvpacked_func",
     "ring_flash_attn_qkvpacked_func",
+    "ring_flash_attn_varlen_func",
+    "ring_flash_attn_varlen_kvpacked_func",
+    "ring_flash_attn_varlen_qkvpacked_func",
     "stripe_flash_attn_func",
     "stripe_flash_attn_kvpacked_func",
     "stripe_flash_attn_qkvpacked_func",
@@ -99,6 +122,7 @@ __all__ = [
     "register_attention",
     "fused_ring_attention",
     "ring_attention",
+    "ring_attention_varlen",
     "stripe_attention",
     "ulysses_attention",
     "usp_attention",

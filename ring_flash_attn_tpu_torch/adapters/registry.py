@@ -16,12 +16,15 @@ signature,
   with the sequence dim sharded in that entry's layout (contiguous for
   ring, fused_ring, llama3 and ulysses, zigzag and stripe per
   ``parallel.layouts``).
-- ``segment_ids`` and ``positions`` belong to the packed (varlen) entries,
-  which are not ported yet; the batch entries take None only.
+- ``segment_ids`` and ``positions`` ((S,) int32 on q's device) belong to
+  the packed (varlen) entries: flash takes them as its mask's, ring_varlen
+  needs them (``ops/varlen.py::ring_varlen_info``), llama3 takes
+  ``segment_ids`` as its globally consistent labels; the batch entries
+  refuse them.
 
-Registered: flash, ring, zigzag, stripe, llama3, ulysses,
-fused_ring. The JAX package's ring_varlen and zigzag_varlen are not
-ported yet: asking for one raises a ``KeyError`` that names ROADMAP.md.
+Registered: flash, ring, zigzag, stripe, llama3, ulysses, fused_ring,
+ring_varlen. The JAX package's zigzag_varlen is not ported yet: asking for
+it raises a ``KeyError`` that names ROADMAP.md.
 ``register_attention`` adds custom entries.
 
 ``RingAttentionLayer`` wraps an entry as a stateless callable that a model
@@ -33,12 +36,13 @@ from ..ops.mask import MaskArgs
 from ..parallel.fused_ring import fused_ring_attention
 from ..parallel.llama3 import llama3_attention
 from ..parallel.ring import ring_attention
+from ..parallel.ring_varlen import ring_attention_varlen
 from ..parallel.stripe import stripe_attention
 from ..parallel.ulysses import ulysses_attention
 from ..parallel.zigzag import zigzag_ring_attention
 
 _REGISTRY = {}
-_NOT_PORTED = ("ring_varlen", "zigzag_varlen")
+_NOT_PORTED = ("zigzag_varlen",)
 
 
 def register_attention(name, fn, overwrite=False):
@@ -74,8 +78,8 @@ def _norm(q, scale):
 def _no_varlen(name, segment_ids, positions):
     if segment_ids is not None or positions is not None:
         raise NotImplementedError(
-            f"{name}: segment_ids and positions belong to the varlen "
-            f"entries, which are not ported yet (see ROADMAP.md)")
+            f"{name} takes no varlen metadata (segment_ids, positions); use "
+            f"the varlen entries: ring_varlen, llama3 or flash")
 
 
 def _impl_flash(q, k, v, *, scale=None, causal=True, axis_name=None,
@@ -172,6 +176,26 @@ register_attention("stripe", _batch_impl("stripe", stripe_attention, False))
 register_attention("llama3", _impl_llama3)
 register_attention("ulysses", _impl_ulysses)
 register_attention("fused_ring", _impl_fused_ring)
+
+
+def _impl_ring_varlen(q, k, v, *, scale=None, causal=True, axis_name=None,
+                      segment_ids=None, positions=None, softcap=None,
+                      alibi_slopes=None, dropout_p=None, dropout_seed=None,
+                      window_left=None, backend=None, deterministic=False):
+    if segment_ids is None or positions is None:
+        raise ValueError("ring_varlen needs the rank's segment_ids and "
+                         "positions (ops/varlen.py::ring_varlen_info)")
+    out, _ = ring_attention_varlen(
+        _bshd(q), _bshd(k), _bshd(v), segment_ids, positions,
+        scale=_norm(q, scale), causal=causal, group=axis_name,
+        backend=backend, softcap=softcap, alibi_slopes=alibi_slopes,
+        dropout_p=dropout_p, dropout_seed=dropout_seed,
+        window_left=window_left, deterministic=deterministic,
+    )
+    return _bshd(out)
+
+
+register_attention("ring_varlen", _impl_ring_varlen)
 
 
 class RingAttentionLayer:

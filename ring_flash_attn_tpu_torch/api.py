@@ -3,7 +3,11 @@
 The port of ``ring_flash_attn_tpu/api.py`` with flash-attn's keyword
 surface: the single-device ``flash_attn_func`` and the distributed
 ``ring_flash_attn_func``, ``zigzag_ring_flash_attn_func`` and
-``stripe_flash_attn_func``, each with its kv-packed and qkv-packed form. ``group`` is a ``torch.distributed`` process
+``stripe_flash_attn_func``, each with its kv-packed and qkv-packed form;
+and for packed sequences (q (T, H, D) with ``cu_seqlens``) the
+single-device ``flash_attn_varlen_func``, ``ring_flash_attn_varlen_func``
+and ``llama3_flash_attn_varlen_func`` (with
+``llama3_flash_attn_prepare_cu_seqlens``), each with its packed forms. ``group`` is a ``torch.distributed`` process
 group where the JAX package takes a mesh axis name (None: the default
 group, or one process when none is initialised); the distributed functions
 are per-process, on tensors sharded along S in their schedule's layout
@@ -16,7 +20,9 @@ any ``softmax_scale``; ``softcap`` and ``alibi_slopes`` (not on zigzag or
 stripe) in the plain versions only, so they run on CPU tensors and raise
 ``NotImplementedError`` from the block kernels on CUDA tensors. A
 non-default ``window_size`` or ``dropout_p`` raises ``NotImplementedError``
-until its slice ports it. The varlen entry points are not ported yet (see
+until its slice ports it. The varlen entry points turn ``cu_seqlens``
+into segment ids and positions (``ops/varlen.py``) on q's device, which
+the kernels B1, B2 and B3a/B3b take; zigzag varlen is not ported yet (see
 ROADMAP.md).
 
 ``deterministic=True`` asks every entry point here, the ring, zigzag and
@@ -27,9 +33,17 @@ it: every path there is deterministic). On the CPU the plain backward is
 deterministic either way.
 """
 
+import numpy as np
+import torch
+
 from .ops.flash import flash_attention
 from .ops.mask import MaskArgs
+from .ops.varlen import (as_cu_seqlens, cu_seqlens_to_positions,
+                         cu_seqlens_to_segids, ring_varlen_info)
+from .parallel.llama3 import llama3_attention
+from .parallel.mesh import ring_rank
 from .parallel.ring import ring_attention
+from .parallel.ring_varlen import ring_attention_varlen
 from .parallel.stripe import stripe_attention
 from .parallel.zigzag import zigzag_ring_attention
 
@@ -160,6 +174,194 @@ def _qkvpacked(func):
     return wrapper
 
 
+def _thd_to_bhsd(x):
+    """(T, H, D) packed tokens -> a (1, H, T, D) view."""
+    return x.transpose(0, 1)[None]
+
+
+def _varlen_ret(out_bhsd, lse, return_attn_probs):
+    out = out_bhsd[0].transpose(0, 1)
+    if return_attn_probs:
+        return out, lse[0], None
+    return out
+
+
+def _varlen_window(window_size, causal):
+    """window_size's left half, which the mask refuses for now (MaskArgs
+    raises NotImplementedError for it)."""
+    if tuple(window_size) == (-1, -1):
+        return None
+    if not causal:
+        raise NotImplementedError("sliding window requires causal=True")
+    return int(window_size[0]) if window_size[0] >= 0 else None
+
+
+def flash_attn_varlen_func(
+    q, k, v, cu_seqlens, max_seqlen=None,
+    dropout_p=0.0, softmax_scale=None, causal=False,
+    window_size=(-1, -1), softcap=0.0, alibi_slopes=None,
+    deterministic=False,
+    return_attn_probs=False, dropout_seed=None,
+):
+    """Single-device flash attention over packed sequences: q (T, Hq, D),
+    k and v (T, Hkv, D), cu_seqlens (N+1,) (a list, numpy array or
+    tensor); returns out (T, Hq, D) in q's dtype, or (out, lse (Hq, T)
+    fp32, None) with return_attn_probs. The packing becomes segment ids
+    and within-sequence positions on q's device, with ``packed_self``
+    (one packing on both sides), as in the JAX package."""
+    del max_seqlen  # the kernels bound their loops from the tiles' metadata
+    t = q.shape[0]
+    seg = cu_seqlens_to_segids(cu_seqlens, t, q.device)
+    pos = (cu_seqlens_to_positions(cu_seqlens, t, q.device)
+           if causal or alibi_slopes is not None else None)
+    mask = MaskArgs(
+        causal=causal, q_segids=seg, kv_segids=seg, q_pos=pos, kv_pos=pos,
+        window_left=_varlen_window(window_size, causal),
+        softcap=_cap(softcap), alibi_slopes=alibi_slopes,
+        dropout_p=dropout_p or None, dropout_seed=dropout_seed,
+        packed_self=True,
+    )
+    out, lse = flash_attention(
+        _thd_to_bhsd(q), _thd_to_bhsd(k), _thd_to_bhsd(v),
+        _scale(softmax_scale, q.shape[-1]), mask,
+        fused=False if deterministic else None)
+    return _varlen_ret(out, lse, return_attn_probs)
+
+
+def flash_attn_varlen_kvpacked_func(q, kv, cu_seqlens, max_seqlen=None,
+                                    **kw):
+    """kv (T, 2, Hkv, D)."""
+    return flash_attn_varlen_func(q, kv[:, 0], kv[:, 1], cu_seqlens,
+                                  max_seqlen, **kw)
+
+
+def flash_attn_varlen_qkvpacked_func(qkv, cu_seqlens, max_seqlen=None, **kw):
+    """qkv (T, 3, H, D)."""
+    return flash_attn_varlen_func(qkv[:, 0], qkv[:, 1], qkv[:, 2],
+                                  cu_seqlens, max_seqlen, **kw)
+
+
+def ring_flash_attn_varlen_func(
+    q, k, v, cu_seqlens, max_seqlen=None,
+    dropout_p=0.0, softmax_scale=None, causal=False,
+    window_size=(-1, -1), softcap=0.0, alibi_slopes=None,
+    deterministic=False,
+    return_attn_probs=False, group=None, dropout_seed=None,
+):
+    """Varlen ring attention over ``group``, per process: q (T_local, Hq,
+    D), k and v (T_local, Hkv, D) where rank r holds part r of every
+    sequence (``ops/varlen.py::extract_local_ring_varlen``), cu_seqlens the
+    LOCAL cu_seqlens (global // W), the same on every rank. Returns as
+    ``flash_attn_varlen_func``; ``deterministic=True`` runs every step's
+    backward on the bitwise reproducible split kernels B3a/B3b."""
+    del max_seqlen
+    t = q.shape[0]
+    seg, pos = ring_varlen_info(cu_seqlens, t, ring_rank(group), q.device)
+    out, lse = ring_attention_varlen(
+        _thd_to_bhsd(q), _thd_to_bhsd(k), _thd_to_bhsd(v), seg, pos,
+        scale=_scale(softmax_scale, q.shape[-1]), causal=causal, group=group,
+        softcap=_cap(softcap), alibi_slopes=alibi_slopes,
+        dropout_p=dropout_p or None, dropout_seed=dropout_seed,
+        window_left=_varlen_window(window_size, causal),
+        deterministic=deterministic,
+    )
+    return _varlen_ret(out, lse, return_attn_probs)
+
+
+def ring_flash_attn_varlen_kvpacked_func(q, kv, cu_seqlens, max_seqlen=None,
+                                         **kw):
+    return ring_flash_attn_varlen_func(q, kv[:, 0], kv[:, 1], cu_seqlens,
+                                       max_seqlen, **kw)
+
+
+def ring_flash_attn_varlen_qkvpacked_func(qkv, cu_seqlens, max_seqlen=None,
+                                          **kw):
+    return ring_flash_attn_varlen_func(qkv[:, 0], qkv[:, 1], qkv[:, 2],
+                                       cu_seqlens, max_seqlen, **kw)
+
+
+def llama3_flash_attn_prepare_cu_seqlens(cu_seqlens, causal, rank,
+                                         world_size):
+    """Host-side sharding metadata with the reference's semantics, exactly
+    as the JAX package computes it (numpy): from the GLOBAL cu_seqlens,
+    (cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+    local_k_slice) of rank ``rank``, which holds global tokens [rank L,
+    (rank + 1) L)."""
+    cu = np.asarray(cu_seqlens, np.int64)
+    total = int(cu[-1])
+    if total % world_size:
+        raise ValueError(f"{total} tokens do not split over {world_size} "
+                         f"ranks")
+    lpr = total // world_size
+    left = int(np.searchsorted(cu, rank * lpr))
+    right = int(np.searchsorted(cu, (rank + 1) * lpr))
+    if cu[left] != rank * lpr:
+        left -= 1
+    cu_q = cu[left:right + 1].copy()
+    cu_q -= rank * lpr
+    cu_q[0] = 0
+    cu_q[-1] = lpr
+    cu_k = cu[left:right + 1].copy()
+    if causal:
+        slice_right = (rank + 1) * lpr
+        cu_k[-1] = slice_right
+    else:
+        slice_right = int(cu[right])
+    slice_left = int(cu[left])
+    cu_k -= slice_left
+    max_q = int((cu_q[1:] - cu_q[:-1]).max())
+    max_k = int((cu_k[1:] - cu_k[:-1]).max())
+    return (cu_q.astype(np.int32), cu_k.astype(np.int32), max_q, max_k,
+            slice(slice_left, slice_right))
+
+
+def llama3_flash_attn_varlen_func(
+    q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q=None,
+    max_seqlen_k=None, heads_k_stride=None, local_k_slice=None,
+    dropout_p=0.0, softmax_scale=None, causal=True,
+    window_size=(-1, -1), softcap=0.0, alibi_slopes=None,
+    deterministic=False,
+    return_attn_probs=False, group=None, dropout_seed=None,
+):
+    """llama3 all-gather attention over packed sequences, per process: q,
+    k, v (T_local, H, D) the rank's contiguous share of the packed tokens,
+    metadata from ``llama3_flash_attn_prepare_cu_seqlens``. The sequences
+    become globally consistent segment labels, each the sequence's global
+    start token (``local_k_slice.start + cu_seqlens_k[segment]``), masked
+    with the causal mask by index at offset rank·L. Returns as
+    ``flash_attn_varlen_func``."""
+    del max_seqlen_q, max_seqlen_k
+    t = q.shape[0]
+    if local_k_slice is None:
+        slice_left = 0
+    elif isinstance(local_k_slice, slice):
+        slice_left = local_k_slice.start
+    else:
+        slice_left = local_k_slice[0]
+    seg_local = cu_seqlens_to_segids(cu_seqlens_q, t, q.device).long()
+    cu_k = as_cu_seqlens(cu_seqlens_k, q.device)
+    q_segids = (slice_left + cu_k[seg_local]).to(torch.int32)
+    out, lse = llama3_attention(
+        _thd_to_bhsd(q), _thd_to_bhsd(k), _thd_to_bhsd(v), q_segids,
+        scale=_scale(softmax_scale, q.shape[-1]), causal=causal,
+        heads_k_stride=heads_k_stride, group=group, softcap=_cap(softcap),
+        alibi_slopes=alibi_slopes, dropout_p=dropout_p or None,
+        dropout_seed=dropout_seed,
+        window_left=_varlen_window(window_size, causal),
+        deterministic=deterministic,
+    )
+    return _varlen_ret(out, lse, return_attn_probs)
+
+
+def llama3_flash_attn_varlen_kvpacked_func(q, kv, *args, **kw):
+    return llama3_flash_attn_varlen_func(q, kv[:, 0], kv[:, 1], *args, **kw)
+
+
+def llama3_flash_attn_varlen_qkvpacked_func(qkv, *args, **kw):
+    return llama3_flash_attn_varlen_func(qkv[:, 0], qkv[:, 1], qkv[:, 2],
+                                         *args, **kw)
+
+
 ring_flash_attn_kvpacked_func = _kvpacked(ring_flash_attn_func)
 ring_flash_attn_qkvpacked_func = _qkvpacked(ring_flash_attn_func)
 zigzag_ring_flash_attn_kvpacked_func = _kvpacked(zigzag_ring_flash_attn_func)
@@ -181,4 +383,14 @@ __all__ = [
     "stripe_flash_attn_func",
     "stripe_flash_attn_kvpacked_func",
     "stripe_flash_attn_qkvpacked_func",
+    "flash_attn_varlen_func",
+    "flash_attn_varlen_kvpacked_func",
+    "flash_attn_varlen_qkvpacked_func",
+    "ring_flash_attn_varlen_func",
+    "ring_flash_attn_varlen_kvpacked_func",
+    "ring_flash_attn_varlen_qkvpacked_func",
+    "llama3_flash_attn_prepare_cu_seqlens",
+    "llama3_flash_attn_varlen_func",
+    "llama3_flash_attn_varlen_kvpacked_func",
+    "llama3_flash_attn_varlen_qkvpacked_func",
 ]

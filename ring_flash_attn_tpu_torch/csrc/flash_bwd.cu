@@ -108,6 +108,30 @@ extern "C" int rfa_flash_bwd(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// B2 on packed sequences (csrc/segments.cuh), compiled apart: as
+// rfa_flash_bwd, with the segment ids, positions and tile bounds of `seg`
+// (at 64 q rows a step and 128 keys a block). `causal` is the causal mask
+// by index; a mask causal by positions passes causal = 0 and seg->q_pos.
+extern "C" int rfa_flash_bwd_seg(const void* q, const void* k, const void* v,
+                                 const void* dout, const float* lse,
+                                 const float* delta, float* dq_acc, void* dk,
+                                 void* dv, int B, int Hq, int Hkv, int Sq,
+                                 int Skv, int D, const long long* strides,
+                                 float scale, int causal, int offset,
+                                 int dkv_bf16, const rfa_seg_args* seg,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return rfa_bwd::launch_kv<128, true, false, true>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
+        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
+  if (D == 64)
+    return rfa_bwd::launch_kv<64, true, false, true>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
+        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
+  return cudaErrorInvalidValue;
+}
+
 // The pre-pass for both backward paths (ops/flash_bwd_cuda.py::bwd_delta):
 // B3a/B3b's launcher takes it from this library too.
 extern "C" int rfa_bwd_delta(const void* dout, const void* out, float* delta,

@@ -62,11 +62,20 @@
 // the launcher does not zero, and dk, dv add into the travelling fp32
 // accumulators instead of being written. Without RING all of that compiles
 // out.
+//
+// With SEG (B2 and B3b on packed sequences, csrc/segments.cuh) a block walks
+// the q steps [kv_meta[4], kv_meta[5]] of its kv tile, clamped by the index
+// bound where the mask is causal by index or packed_self, for each q head
+// of its group; the producer, the dQ writer and the consumers skip the
+// same steps, whose segments or positions cannot meet the tile, and the
+// consumers mask by segment and position the steps that straddle an edge.
+// Keys no q row reaches get dk = dv = 0.
 
 #pragma once
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "segments.cuh"
 
 namespace rfa_bwd {
 
@@ -157,13 +166,15 @@ __device__ __forceinline__ void kv_accumulate(float (&acc)[D / 2],
   }
 }
 
-template <int D, bool DQ, bool RING>
+template <int D, bool DQ, bool RING, bool SEG = false>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 bwd_kv_kernel(const __grid_constant__ Maps maps,
               const float* __restrict__ lse, const float* __restrict__ delta,
               void* __restrict__ dk, void* __restrict__ dv, int Hq, int Hkv,
               int Sq, int Skv, float scale, int causal, int offset,
-              int dkv_bf16, Ring ring) {
+              int dkv_bf16, Ring ring,
+              const __grid_constant__ rfa_seg_args seg) {
+  static_assert(!(SEG && RING), "a ring step takes no segments");
   using S = KvSmem<D, DQ>;
   constexpr int NA = D / 2;  // fp32 of a 64 x D accumulator a thread holds
   extern __shared__ __align__(16) char smem_raw[];
@@ -181,10 +192,33 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
 
   // q tiles [t0, nq) hold every row that sees a key of this tile; step
   // `it` is q head hk * group + it / per_head, q tile t0 + it % per_head
-  const int t0 = causal ? max(0, n0 - offset) / KV_BM : 0;
+  int t0 = causal ? max(0, n0 - offset) / KV_BM : 0;
+  if constexpr (SEG) {
+    if (seg.tri) t0 = n0 / KV_BM;
+  }
   const int nq = (Sq + KV_BM - 1) / KV_BM;
   const int per_head = nq > t0 ? nq - t0 : 0;
-  const int steps = group * per_head;
+  int steps = group * per_head;
+
+  // SEG: the classes of the q steps [t_lo, t_hi] against this kv tile, in
+  // shared memory past the barriers; every role walks the live ones alike,
+  // for each q head of the group (gi, tt: head and q step)
+  uint32_t* seg_bits = reinterpret_cast<uint32_t*>(smem + S::BYTES - 1024);
+  int t_lo = 0, t_hi = -1, t_first = 0;
+  auto step_class = [&](int t) {
+    return rfa_seg::class_of(seg_bits, t - t_lo);
+  };
+  auto next_live = [&](int t) {
+    while (t <= t_hi && step_class(t) == 0) ++t;
+    return t;
+  };
+  auto advance = [&](int& gi, int& tt) {
+    tt = next_live(tt + 1);
+    if (tt > t_hi) {
+      ++gi;
+      tt = t_first;
+    }
+  };
 
   char* ks = smem + S::K;
   char* vs = smem + S::V;
@@ -206,6 +240,15 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
     hop::mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (SEG) {
+    const int kt = blockIdx.y;
+    t_lo = max(t0, rfa_seg::range_lo(seg.kv_meta, seg.n_kv, kt));
+    t_hi = min(nq - 1, rfa_seg::range_hi(seg.kv_meta, seg.n_kv, kt));
+    steps = group * rfa_seg::fill_classes<KV_THREADS>(
+        seg_bits, rfa_seg::tile(seg.kv_meta, seg.n_kv, kt), seg.q_meta,
+        seg.n_q, t_lo, t_hi, seg.q_pos != nullptr, false);
+    t_first = next_live(t_lo);
+  }
 
   if (threadIdx.x >= KV_CONSUMERS) {
     hop::setmaxnreg_dec<24>();
@@ -220,10 +263,12 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
                            hk, b);
         }
       }
+      int gi = 0, tt = t_first;
       for (int it = 0; it < steps; ++it) {
         const int s = it % KV_STAGES;
-        const int h = hk * group + it / per_head;
-        const int m0 = (t0 + it % per_head) * KV_BM;
+        const int h = hk * group + (SEG ? gi : it / per_head);
+        const int m0 = (SEG ? tt : t0 + it % per_head) * KV_BM;
+        if constexpr (SEG) advance(gi, tt);
         hop::mbar_wait(&empty[s], ((it / KV_STAGES) & 1) ^ 1);
         for (int i = lane; i < KV_BM; i += 32) {
           const int row = m0 + i;
@@ -253,10 +298,12 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
     } else if (DQ && threadIdx.x < KV_CONSUMERS + 64) {
       // ---- dQ writer: the next warp adds each fp32 dQ tile into dq_acc
       // by TMA, off the consumers' path (the last two warps idle) ----
+      int gi = 0, tt = t_first;
       for (int it = 0; it < steps; ++it) {
         const int buf = it & 1;
-        const int h = hk * group + it / per_head;
-        const int m0 = (t0 + it % per_head) * KV_BM;
+        const int h = hk * group + (SEG ? gi : it / per_head);
+        const int m0 = (SEG ? tt : t0 + it % per_head) * KV_BM;
+        if constexpr (SEG) advance(gi, tt);
         hop::bar_sync(BAR_DQ_FULL + buf, DQ_PARTIES);
         if (lane == 0) {
           for (int p = 0; p < D / 32; ++p)
@@ -283,15 +330,36 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
     const float ds_scale = RING ? 1.f : scale;
     const float inv_cap2 = RING && ring.cap2 > 0.f ? 1.f / ring.cap2 : 0.f;
 
+    // SEG: segment ids and positions of this thread's keys
+    int kseg[2] = {0, 0}, kpos[2] = {0, 0};
+    if constexpr (SEG) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = nw + warp * 16 + g + r * 8;
+        if (key < Skv) {
+          if (seg.kv_seg) kseg[r] = __ldg(seg.kv_seg + key);
+          if (seg.kv_pos) kpos[r] = __ldg(seg.kv_pos + key);
+        }
+      }
+    }
+
     float dk_acc[NA], dv_acc[NA];
 #pragma unroll
     for (int i = 0; i < NA; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     hop::mbar_wait(kv_bar, 0);
 
+    int gi = 0, tt = t_first;
     for (int it = 0; it < steps; ++it) {
       const int s = it % KV_STAGES;
-      const int h = hk * group + it / per_head;
-      const int m0 = (t0 + it % per_head) * KV_BM;
+      const int h = hk * group + (SEG ? gi : it / per_head);
+      const int m0 = (SEG ? tt : t0 + it % per_head) * KV_BM;
+      const bool seg_masked = SEG && step_class(tt) == 1;
+      if constexpr (SEG) advance(gi, tt);
+      // SEG: the lane's share of the masked step's q rows m0 + 2 lane +
+      // {0, 1}, loaded before the products are waited for
+      rfa_seg::Pair qv{};
+      if (SEG && seg_masked)
+        qv = rfa_seg::load_pair(seg.q_seg, seg.q_pos, m0 + 2 * lane, Sq);
       const char* qt = qs(s);
       const char* dot = dos(s);
       const float* l2s = lses(s);
@@ -344,17 +412,42 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           }
         }
       }
+      if (SEG && seg_masked) {
+        // a loop of its own, so that the unmasked steps' code carries none
+        // of it: element 4 c + 2 r + e is q row 8 c + 2 tq + e of the step,
+        // held by lane 4 c + tq
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = (i / 4) * 8 + tq * 2 + i % 2;
-        float p = exp2f(sc[i] * scale_log2 - l2s[col]);
-        if (edge) {
-          const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
-          const int row = m0 + col;
-          if (row >= Sq || key >= Skv || (causal && row + offset < key))
-            p = 0.f;
+        for (int c = 0; c < 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int qs, qp;
+            rfa_seg::take(qv, 4 * c + tq, e, qs, qp);
+            const int col = 8 * c + 2 * tq + e;
+            const int row = m0 + col;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * c + 2 * r + e;
+              const int key = nw + warp * 16 + g + r * 8;
+              const bool out_ = row >= Sq || key >= Skv ||
+                                (causal && row + offset < key) ||
+                                rfa_seg::drop(seg, qs, qp, kseg[r], kpos[r]);
+              sc[i] = out_ ? 0.f : exp2f(sc[i] * scale_log2 - l2s[col]);
+            }
+          }
         }
-        sc[i] = p;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = (i / 4) * 8 + tq * 2 + i % 2;
+          float p = exp2f(sc[i] * scale_log2 - l2s[col]);
+          if (edge) {
+            const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
+            const int row = m0 + col;
+            if (row >= Sq || key >= Skv || (causal && row + offset < key))
+              p = 0.f;
+          }
+          sc[i] = p;
+        }
       }
 
       // dV += P^T dout
@@ -495,18 +588,23 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
 
 // strides: (b, h, s) of q, k, v and dout in elements, 16-byte multiples;
 // the last dim contiguous and every base 16-byte aligned (TMA's terms).
-template <int D, bool DQ, bool RING = false>
+template <int D, bool DQ, bool RING = false, bool SEG = false>
 int launch_kv(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, float* dq_acc, void* dk,
               void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
               const long long* strides, float scale, int causal, int offset,
-              int dkv_bf16, cudaStream_t stream, const Ring& ring = Ring{}) {
-  auto kern = bwd_kv_kernel<D, DQ, RING>;
-  constexpr int bytes = KvSmem<D, DQ>::BYTES;
+              int dkv_bf16, cudaStream_t stream, const Ring& ring = Ring{},
+              const rfa_seg_args& seg = rfa_seg_args{}) {
+  auto kern = bwd_kv_kernel<D, DQ, RING, SEG>;
+  // SEG: the q steps' classes past the barriers
+  const int bytes =
+      KvSmem<D, DQ>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_q) : 0);
+  if (bytes > rfa_seg::MAX_SMEM) return cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SEG ? rfa_seg::MAX_SMEM : KvSmem<D, DQ>::BYTES);
     if (e != cudaSuccess) return e;
     attr = true;
   }
@@ -530,7 +628,7 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid(B * Hkv, tiles);
   kern<<<grid, KV_THREADS, bytes, stream>>>(
       maps, lse, delta, dk, dv, Hq, Hkv, Sq, Skv, scale, causal, offset,
-      dkv_bf16, ring);
+      dkv_bf16, ring, seg);
   return cudaGetLastError();
 }
 

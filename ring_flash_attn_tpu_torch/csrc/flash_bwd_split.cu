@@ -53,6 +53,12 @@
 //    NVIDIA H100 80GB HBM3, 700 W): 2.16 to 2.28 ms, about 500 TFLOP/s of
 //    its 4 products and faster than SDPA's whole backward; the mma.sync
 //    loop before it 6.07 to 6.50 ms.
+//
+// Packed sequences (csrc/segments.cuh) are compiled apart (SEG): B3a walks
+// the kv tiles [q_meta[4], q_meta[5]] of its q tile and B3b the q steps
+// [kv_meta[4], kv_meta[5]] of its kv tile, each skipping the tiles whose
+// segments or positions cannot meet and masking those that straddle an
+// edge, exactly as the forward applied the mask.
 
 #include "flash_bwd.cuh"
 
@@ -105,12 +111,13 @@ __device__ __forceinline__ void dq_scores(float (&acc)[32], const char* a,
   }
 }
 
-template <int D>
+template <int D, bool SEG = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_dq_kernel(const __grid_constant__ DqMaps maps,
               const float* __restrict__ lse, const float* __restrict__ delta,
               void* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv,
-              float scale, int causal, int offset, int dq_bf16) {
+              float scale, int causal, int offset, int dq_bf16,
+              const __grid_constant__ rfa_seg_args seg) {
   using S = DqSmem<D>;
   constexpr int NQ = D / 2;  // fp32 of a 64 x D accumulator a thread holds
   extern __shared__ __align__(16) char smem_raw[];
@@ -126,7 +133,23 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
   // kv tiles [0, n_tiles): up to the causal bound of this q tile's last row
   int n_end = Skv;
   if (causal) n_end = min(Skv, max(0, m0 + BM + offset));
-  const int n_tiles = (n_end + BN - 1) / BN;
+  if constexpr (SEG) {
+    if (seg.tri) n_end = min(Skv, m0 + BM);
+  }
+  int n_tiles = (n_end + BN - 1) / BN;
+
+  // SEG: the classes of the kv tiles [t_lo, t_hi] against this q tile, in
+  // shared memory past the barriers; the walk visits the live ones in
+  // order and n_tiles counts them
+  uint32_t* seg_bits = reinterpret_cast<uint32_t*>(smem + S::BYTES - 1024);
+  int t_lo = 0, t_hi = 0;
+  auto tile_class = [&](int t) {
+    return rfa_seg::class_of(seg_bits, t - t_lo);
+  };
+  auto next_live = [&](int t) {
+    while (t <= t_hi && tile_class(t) == 0) ++t;
+    return t;
+  };
 
   char* qs = smem + S::Q;
   char* dos = smem + S::DO;
@@ -149,6 +172,14 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
     hop::mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (SEG) {
+    const int qt = m0 / BM;
+    t_lo = rfa_seg::range_lo(seg.q_meta, seg.n_q, qt);
+    t_hi = min(n_tiles - 1, rfa_seg::range_hi(seg.q_meta, seg.n_q, qt));
+    n_tiles = rfa_seg::fill_classes<NTHREADS>(
+        seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
+        seg.n_kv, t_lo, t_hi, seg.q_pos != nullptr, true);
+  }
 
   if (threadIdx.x >= CONSUMERS) {
     // ---- producer: one thread keeps the tiles in flight by TMA; a block
@@ -162,19 +193,23 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
         hop::tma_load_4d(dos + p * S::PANEL_Q, &maps.o, q_bar, 64 * p, m0, h,
                          b);
       }
+      int t = 0;
+      if constexpr (SEG) t = next_live(t_lo);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         const uint32_t parity = ((j / STAGES) & 1) ^ 1;
+        const int kt = SEG ? t : j;
         hop::mbar_wait(&empty_k[s], parity);
         hop::mbar_arrive_tx(&full_k[s], BN * D * 2);
         for (int p = 0; p < D / 64; ++p)
           hop::tma_load_4d(ks(s) + p * S::PANEL_KV, &maps.k, &full_k[s],
-                           64 * p, j * BN, hk, b);
+                           64 * p, kt * BN, hk, b);
         hop::mbar_wait(&empty_v[s], parity);
         hop::mbar_arrive_tx(&full_v[s], BN * D * 2);
         for (int p = 0; p < D / 64; ++p)
           hop::tma_load_4d(vs(s) + p * S::PANEL_KV, &maps.v, &full_v[s],
-                           64 * p, j * BN, hk, b);
+                           64 * p, kt * BN, hk, b);
+        if constexpr (SEG) t = next_live(t + 1);
       }
     }
     return;
@@ -203,6 +238,7 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
     // delta of rows r_lo and r_lo + 8; rows past Sq read zero Q and dout
     // and get dS = 0
     float l2[2], dl[2];
+    int qseg[2] = {0, 0}, qpos[2] = {0, 0};  // SEG
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r_lo + 8 * r;
@@ -211,6 +247,10 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
         const long long idx = (long long)(b * Hq + h) * Sq + row;
         l2[r] = fmaxf(lse[idx], RFA_NEG_INF / 2) * LOG2E;
         dl[r] = delta[idx];
+        if constexpr (SEG) {
+          if (seg.q_seg) qseg[r] = __ldg(seg.q_seg + row);
+          if (seg.q_pos) qpos[r] = __ldg(seg.q_pos + row);
+        }
       }
     }
     hop::mbar_wait(q_bar, 0);
@@ -219,10 +259,19 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
     // on to tile j + 1 without waiting for it: the wait for tile j + 1's S
     // (committed after it) covers it, and K of tile j is freed there
     uint32_t da[4][4];
+    int t = 0;  // SEG: the live kv tile of step j
+    if constexpr (SEG) t = next_live(t_lo);
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % STAGES;
       const uint32_t ph = (j / STAGES) & 1;
-      const int n0 = j * BN;
+      const int n0 = (SEG ? t : j) * BN;
+      const bool seg_masked = SEG && tile_class(t) == 1;
+      if constexpr (SEG) t = next_live(t + 1);
+      // SEG: the lane's share of the masked tile's keys n0 + 2 lane +
+      // {0, 1}, loaded before the products are waited for
+      rfa_seg::Pair kv{};
+      if (SEG && seg_masked)
+        kv = rfa_seg::load_pair(seg.kv_seg, seg.kv_pos, n0 + 2 * lane, Skv);
       float sc[32], dp[32];
       hop::mbar_wait(&full_k[s], ph);
       hop::mbar_wait(&full_v[s], ph);
@@ -236,19 +285,43 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       hop::fence_regs(dqa);
       if (j > 0) hop::mbar_arrive(&empty_k[(j - 1) % STAGES]);
 
-      // P; zero past the ragged key edge and the causal diagonal
+      // P; zero past the ragged key edge and the causal diagonal (and,
+      // SEG, outside the segments and the positions' diagonal)
       const bool edge =
           n0 + BN > Skv || (causal && n0 + BN - 1 > mw + offset);
+      if (SEG && seg_masked) {
+        // a loop of its own, so that the unmasked tiles' code carries none
+        // of it: element 4 c + 2 r + e is key 8 c + 2 tq + e, held by lane
+        // 4 c + tq
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = (i % 4) / 2;
-        float p = exp2f(sc[i] * scale_log2 - l2[r]);
-        if (edge) {
-          const int row = r_lo + 8 * r;
-          const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
-          if (col >= Skv || (causal && row + offset < col)) p = 0.f;
+        for (int c = 0; c < 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int ks, kp;
+            rfa_seg::take(kv, 4 * c + tq, e, ks, kp);
+            const int col = n0 + 8 * c + 2 * tq + e;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * c + 2 * r + e;
+              const bool out_ = col >= Skv ||
+                                (causal && r_lo + 8 * r + offset < col) ||
+                                rfa_seg::drop(seg, qseg[r], qpos[r], ks, kp);
+              sc[i] = out_ ? 0.f : exp2f(sc[i] * scale_log2 - l2[r]);
+            }
+          }
         }
-        sc[i] = p;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i % 4) / 2;
+          float p = exp2f(sc[i] * scale_log2 - l2[r]);
+          if (edge) {
+            const int row = r_lo + 8 * r;
+            const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
+            if (col >= Skv || (causal && row + offset < col)) p = 0.f;
+          }
+          sc[i] = p;
+        }
       }
 
       // dS = P (dP - delta) * scale, in place of dP
@@ -301,17 +374,22 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
 
 // strides: (b, h, s) of q, k, v and dout in elements, 16-byte multiples;
 // the last dim contiguous and every base 16-byte aligned (TMA's terms).
-template <int D>
+template <int D, bool SEG = false>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int Hq,
               int Hkv, int Sq, int Skv, const long long* strides, float scale,
-              int causal, int offset, int dq_bf16, cudaStream_t stream) {
-  auto kern = bwd_dq_kernel<D>;
-  constexpr int bytes = DqSmem<D>::BYTES;
+              int causal, int offset, int dq_bf16, cudaStream_t stream,
+              const rfa_seg_args& seg = rfa_seg_args{}) {
+  auto kern = bwd_dq_kernel<D, SEG>;
+  // SEG: the kv tiles' classes past the barriers
+  const int bytes =
+      DqSmem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
+  if (bytes > rfa_seg::MAX_SMEM) return cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SEG ? rfa_seg::MAX_SMEM : DqSmem<D>::BYTES);
     if (e != cudaSuccess) return e;
     attr = true;
   }
@@ -330,7 +408,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid(B * Hq, tiles);
   kern<<<grid, NTHREADS, bytes, stream>>>(maps, lse, delta, dq, Hq, Hkv, Sq,
                                           Skv, scale, causal, offset,
-                                          dq_bf16);
+                                          dq_bf16, seg);
   return cudaGetLastError();
 }
 
@@ -372,5 +450,50 @@ extern "C" int rfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return rfa_bwd::launch_kv<64, false>(q, k, v, dout, lse, delta, nullptr,
                                          dk, dv, B, Hq, Hkv, Sq, Skv, strides,
                                          scale, causal, offset, dkv_bf16, st);
+  return cudaErrorInvalidValue;
+}
+
+// B3a and B3b on packed sequences (csrc/segments.cuh), compiled apart:
+// arguments as above with the segment ids, positions and tile bounds of
+// `seg` (B3a's at 128 q rows and 64 keys a tile, B3b's at 64 q rows a step
+// and 128 keys a block). `causal` is the causal mask by index; a mask
+// causal by positions passes causal = 0 and seg->q_pos.
+extern "C" int rfa_flash_bwd_dq_seg(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* lse, const float* delta,
+                                    void* dq, int B, int Hq, int Hkv, int Sq,
+                                    int Skv, int D, const long long* strides,
+                                    float scale, int causal, int offset,
+                                    int dq_bf16, const rfa_seg_args* seg,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch_dq<128, true>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq,
+                                Skv, strides, scale, causal, offset, dq_bf16,
+                                st, *seg);
+  if (D == 64)
+    return launch_dq<64, true>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq,
+                               Skv, strides, scale, causal, offset, dq_bf16,
+                               st, *seg);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int rfa_flash_bwd_dkv_seg(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     void* dk, void* dv, int B, int Hq,
+                                     int Hkv, int Sq, int Skv, int D,
+                                     const long long* strides, float scale,
+                                     int causal, int offset, int dkv_bf16,
+                                     const rfa_seg_args* seg, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return rfa_bwd::launch_kv<128, false, false, true>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
+        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
+  if (D == 64)
+    return rfa_bwd::launch_kv<64, false, false, true>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
+        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
   return cudaErrorInvalidValue;
 }

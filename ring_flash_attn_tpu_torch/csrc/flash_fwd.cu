@@ -43,3 +43,27 @@ extern "C" int rfa_flash_fwd(const void* q, const void* k, const void* v,
                                       out_bf16, none, st);
   return cudaErrorInvalidValue;
 }
+
+// B1 on packed sequences (csrc/segments.cuh): as rfa_flash_fwd, with the
+// segment ids, positions and tile bounds of `seg`. `causal` is the causal
+// mask by index (at `offset`); a mask causal by positions passes causal = 0
+// and seg->q_pos. Compiled apart from the mask-free instantiations.
+extern "C" int rfa_flash_fwd_seg(const void* q, const void* k, const void* v,
+                                 void* out, float* lse, int B, int Hq,
+                                 int Hkv, int Sq, int Skv, int D,
+                                 const long long* strides, float scale,
+                                 int causal, int offset, int out_bf16,
+                                 const rfa_seg_args* seg, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const rfa_fwd::Ring none{};
+  if (D == 128)
+    return rfa_fwd::launch<128, false, false, true>(
+        q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2, causal,
+        offset, out_bf16, none, st, *seg);
+  if (D == 64)
+    return rfa_fwd::launch<64, false, false, true>(
+        q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2, causal,
+        offset, out_bf16, none, st, *seg);
+  return cudaErrorInvalidValue;
+}

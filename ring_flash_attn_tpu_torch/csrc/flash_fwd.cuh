@@ -53,11 +53,18 @@
 // port of this loop (loaded values at the loop's entry cost the compiler
 // its schedule). Without RING all of that compiles out and the kernel is
 // B1's.
+//
+// With SEG (B1 on packed sequences, csrc/segments.cuh) the block walks the
+// kv tiles [q_meta[4], q_meta[5]] of its q tile, clamped by the index
+// bound where the mask is causal by index or packed_self, skips the tiles
+// whose segments or positions cannot meet it (producer and consumers alike)
+// and masks by segment and position the tiles that straddle an edge.
 
 #pragma once
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "segments.cuh"
 
 namespace rfa_fwd {
 
@@ -117,12 +124,13 @@ struct Maps {
 // uniform run-time branch around the transform, the headline off-diagonal
 // step of the first port of this loop took 5.3 ms on the H100 where the
 // split took 5.0.
-template <int D, bool RING, bool XFORM = false>
+template <int D, bool RING, bool XFORM = false, bool SEG = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
                  float scale_log2, int causal, int offset, int out_bf16,
-                 Ring ring) {
+                 Ring ring, const __grid_constant__ rfa_seg_args seg) {
+  static_assert(!(SEG && RING), "a ring step takes no segments");
   using S = Smem<D>;
   constexpr int NO = D / 2;  // fp32 of a 64 x D accumulator a thread holds
   extern __shared__ __align__(16) char smem_raw[];
@@ -138,7 +146,23 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   // kv tiles [0, n_tiles): up to the causal bound of this q tile's last row
   int n_end = Skv;
   if (causal) n_end = min(Skv, max(0, m0 + BM + offset));
-  const int n_tiles = (n_end + BN - 1) / BN;
+  if constexpr (SEG) {
+    if (seg.tri) n_end = min(Skv, m0 + BM);
+  }
+  int n_tiles = (n_end + BN - 1) / BN;
+
+  // SEG: the classes of the kv tiles [t_lo, t_hi] against this q tile, in
+  // shared memory past the barriers; the walk visits the live ones in
+  // order and n_tiles counts them
+  uint32_t* seg_bits = reinterpret_cast<uint32_t*>(smem + S::BYTES - 1024);
+  int t_lo = 0, t_hi = 0;
+  auto tile_class = [&](int t) {
+    return rfa_seg::class_of(seg_bits, t - t_lo);
+  };
+  auto next_live = [&](int t) {
+    while (t <= t_hi && tile_class(t) == 0) ++t;
+    return t;
+  };
 
   char* qs = smem + S::Q;
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + S::BAR);
@@ -160,6 +184,14 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     hop::mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (SEG) {
+    const int qt = m0 / BM;
+    t_lo = rfa_seg::range_lo(seg.q_meta, seg.n_q, qt);
+    t_hi = min(n_tiles - 1, rfa_seg::range_hi(seg.q_meta, seg.n_q, qt));
+    n_tiles = rfa_seg::fill_classes<NTHREADS>(
+        seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
+        seg.n_kv, t_lo, t_hi, seg.q_pos != nullptr, true);
+  }
 
   if (threadIdx.x >= CONSUMERS) {
     // ---- producer: one thread keeps the tiles in flight by TMA; a block
@@ -169,19 +201,23 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       hop::mbar_arrive_tx(q_bar, BM * D * 2);
       for (int p = 0; p < D / 64; ++p)
         hop::tma_load_4d(qs + p * S::PANEL, &maps.q, q_bar, 64 * p, m0, h, b);
+      int t = 0;
+      if constexpr (SEG) t = next_live(t_lo);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         const uint32_t parity = ((j / STAGES) & 1) ^ 1;
+        const int kt = SEG ? t : j;
         hop::mbar_wait(&empty_k[s], parity);
         hop::mbar_arrive_tx(&full_k[s], BN * D * 2);
         for (int p = 0; p < D / 64; ++p)
           hop::tma_load_4d(ks(s) + p * S::PANEL, &maps.k, &full_k[s], 64 * p,
-                           j * BN, hk, b);
+                           kt * BN, hk, b);
         hop::mbar_wait(&empty_v[s], parity);
         hop::mbar_arrive_tx(&full_v[s], BN * D * 2);
         for (int p = 0; p < D / 64; ++p)
           hop::tma_load_4d(vs(s) + p * S::PANEL, &maps.v, &full_v[s], 64 * p,
-                           j * BN, hk, b);
+                           kt * BN, hk, b);
+        if constexpr (SEG) t = next_live(t + 1);
       }
     }
     return;
@@ -204,6 +240,19 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
+
+  // SEG: segment ids and positions of this thread's rows r_lo, r_lo + 8
+  int qseg[2] = {0, 0}, qpos[2] = {0, 0};
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_lo + 8 * r;
+      if (row < Sq) {
+        if (seg.q_seg) qseg[r] = __ldg(seg.q_seg + row);
+        if (seg.q_pos) qpos[r] = __ldg(seg.q_pos + row);
+      }
+    }
+  }
 
   float slope = 0.f, inv_cap2 = 0.f;
   if constexpr (XFORM) {
@@ -238,8 +287,13 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   };
 
   // the softmax of the S tile of keys n0 + [0, 128) in place: P = exp2(S -
-  // m) in sc, (m, l) updated, alpha the factor O still has to take
-  auto softmax = [&](float (&sc)[64], int n0, float (&alpha)[2]) {
+  // m) in sc, (m, l) updated, alpha the factor O still has to take;
+  // seg_masked: the tile straddles a segment edge or the positions'
+  // diagonal (SEG); lo and hi the lane's keys n0 + 2 lane + {0, 1} and
+  // n0 + 64 + 2 lane + {0, 1}
+  auto softmax = [&](float (&sc)[64], int n0, float (&alpha)[2],
+                     bool seg_masked, const rfa_seg::Pair& lo,
+                     const rfa_seg::Pair& hi) {
     // a ring step's q arrives pre-scaled to base 2 (scale_log2 is 1): its
     // logits go through softcap, then ALiBi on global positions, where
     // the ring has them
@@ -261,15 +315,38 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
 
     // scale to base-2 logits; mask the ragged edge and the causal diagonal
     const bool edge = n0 + BN > Skv || (causal && n0 + BN - 1 > mw + offset);
+    if (SEG && seg_masked) {
+      // a loop of its own, so that the unmasked tiles' code carries none
+      // of it: element 4 c + 2 r + e is key 8 c + 2 tq + e, held by lane
+      // 4 (c % 8) + tq of lo (c < 8) or hi
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      float x = sc[i] * scale_log2;
-      if (edge) {
-        const int row = r_lo + 8 * ((i % 4) / 2);
-        const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
-        if (col >= Skv || (causal && row + offset < col)) x = -INFINITY;
+      for (int c = 0; c < 16; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          int ks, kp;
+          rfa_seg::take(c < 8 ? lo : hi, 4 * (c % 8) + tq, e, ks, kp);
+          const int col = n0 + 8 * c + 2 * tq + e;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 4 * c + 2 * r + e;
+            const bool out_ = col >= Skv ||
+                              (causal && r_lo + 8 * r + offset < col) ||
+                              rfa_seg::drop(seg, qseg[r], qpos[r], ks, kp);
+            sc[i] = out_ ? -INFINITY : sc[i] * scale_log2;
+          }
+        }
       }
-      sc[i] = x;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        float x = sc[i] * scale_log2;
+        if (edge) {
+          const int row = r_lo + 8 * ((i % 4) / 2);
+          const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
+          if (col >= Skv || (causal && row + offset < col)) x = -INFINITY;
+        }
+        sc[i] = x;
+      }
     }
 
     // rows r_lo (r = 0) and r_lo + 8 (r = 1); the four threads of a quad
@@ -315,6 +392,20 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   if (n_tiles > 0) {
     float sc[64], alpha[2];
     uint32_t pa[8][4];
+    // SEG: the live kv tile t of pipeline step j, whether it is masked,
+    // and then the lane's share of its keys' segment ids and positions
+    int t = 0;
+    if constexpr (SEG) t = next_live(t_lo);
+    auto masked = [&](int tt) { return SEG && tile_class(tt) == 1; };
+    rfa_seg::Pair lo{}, hi{};
+    auto share = [&](int tt) {
+      if (SEG && masked(tt)) {
+        lo = rfa_seg::load_pair(seg.kv_seg, seg.kv_pos, tt * BN + 2 * lane,
+                                Skv);
+        hi = rfa_seg::load_pair(seg.kv_seg, seg.kv_pos,
+                                tt * BN + 64 + 2 * lane, Skv);
+      }
+    };
     if (wg == 1) hop::bar_arrive(BAR_TURN, CONSUMERS);
     hop::mbar_wait(q_bar, 0);
     hop::mbar_wait(&full_k[0], 0);
@@ -322,12 +413,15 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     hop::wgmma_fence();
     scores(sc, 0);
     next_turn();
+    share(t);
     hop::wgmma_wait<0>();
     hop::fence_regs(sc);
     hop::mbar_arrive(&empty_k[0]);
-    softmax(sc, 0, alpha);  // O is still 0: nothing to rescale
+    // O is still 0: nothing to rescale
+    softmax(sc, t * BN, alpha, masked(t), lo, hi);
     hop::pack_fragments(pa, sc);
     for (int j = 1; j < n_tiles; ++j) {
+      if constexpr (SEG) t = next_live(t + 1);
       const int s = j % STAGES, sp = (j - 1) % STAGES;
       hop::mbar_wait(&full_k[s], (j / STAGES) & 1);
       hop::mbar_wait(&full_v[sp], ((j - 1) / STAGES) & 1);
@@ -336,10 +430,11 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       scores(sc, s);
       accumulate(pa, sp);
       next_turn();
+      share(t);
       hop::wgmma_wait<1>();
       hop::fence_regs(sc);
       hop::mbar_arrive(&empty_k[s]);  // K of stage s is read
-      softmax(sc, j * BN, alpha);
+      softmax(sc, (SEG ? t : j) * BN, alpha, masked(t), lo, hi);
       hop::wgmma_wait<0>();
       hop::fence_regs(o);
       hop::mbar_arrive(&empty_v[sp]);  // V of stage sp is read
@@ -429,17 +524,22 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
 // strides: (b, h, s) of q, k and v in elements, 16-byte multiples; the last
 // dim contiguous and every base 16-byte aligned (TMA's terms). Returns 0 or
 // a cudaError_t.
-template <int D, bool RING, bool XFORM = false>
+template <int D, bool RING, bool XFORM = false, bool SEG = false>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int B, int Hq, int Hkv, int Sq, int Skv, const long long* st,
            float scale_log2, int causal, int offset, int out_bf16,
-           const Ring& ring, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<D, RING, XFORM>;
-  constexpr int bytes = Smem<D>::BYTES;
+           const Ring& ring, cudaStream_t stream,
+           const rfa_seg_args& seg = rfa_seg_args{}) {
+  auto kern = flash_fwd_kernel<D, RING, XFORM, SEG>;
+  // SEG: the kv tiles' classes past the barriers
+  const int bytes =
+      Smem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
+  if (bytes > rfa_seg::MAX_SMEM) return cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SEG ? rfa_seg::MAX_SMEM : Smem<D>::BYTES);
     if (e != cudaSuccess) return e;
     attr = true;
   }
@@ -455,7 +555,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   dim3 grid(B * Hq, tiles);
   kern<<<grid, NTHREADS, bytes, stream>>>(maps, out, lse, Hq, Hkv, Sq, Skv,
                                           scale_log2, causal, offset,
-                                          out_bf16, ring);
+                                          out_bf16, ring, seg);
   return cudaGetLastError();
 }
 

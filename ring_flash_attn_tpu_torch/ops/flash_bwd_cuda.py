@@ -11,7 +11,9 @@ This module also holds what B2 and B3a/B3b share: the operand checks, the
 delta pre-pass launcher and the selector between them,
 ``fused_bwd_supported``. The kv-major loop of B2, B3b and B8 reads q, k, v
 and dout through TMA tensor maps, whose terms ``tma_layout_error``
-(``flash_fwd_cuda``) states.
+(``flash_fwd_cuda``) states. A mask with segment ids, or causal on
+explicit positions, goes to the kernels' segmented instantiations
+(``csrc/segments.cuh``) with the tile bounds of ``ops/block_meta.py``.
 """
 
 import ctypes
@@ -19,8 +21,9 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_fwd_cuda import _check_operand, check_qkv
-from .mask import MaskArgs, causal_offset, check_kernel_supported
+from .block_meta import SegArgs, index_causal, launch_masked
+from .flash_fwd_cuda import _check_operand, check_qkv, kernel_offset
+from .mask import MaskArgs, check_kernel_supported
 
 # The JAX package's limit for the fused kernel (pallas_bwd_fused.py:56): the
 # TPU's VMEM budget for a head's resident fp32 dk/dv, not a Hopper limit.
@@ -36,7 +39,11 @@ _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
+_SEG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.POINTER(SegArgs), ctypes.c_void_p]
 _OUT_DTYPES = (None, torch.float32, torch.bfloat16)
+# the kv-major loop of B2 and B3b (csrc/flash_bwd.cuh): 64 q rows a step,
+# 128 keys a block
+KV_MAJOR_TILES = (64, 128)
 
 
 def fused_bwd_supported(skv, d):
@@ -50,6 +57,8 @@ def _lib():
     lib.rfa_bwd_delta.restype = ctypes.c_int
     lib.rfa_flash_bwd.argtypes = _ARGTYPES
     lib.rfa_flash_bwd.restype = ctypes.c_int
+    lib.rfa_flash_bwd_seg.argtypes = _SEG_ARGTYPES
+    lib.rfa_flash_bwd_seg.restype = ctypes.c_int
     return lib
 
 
@@ -70,9 +79,7 @@ def check_bwd(dout, q, k, v, lse, delta, mask: MaskArgs, out, dtypes):
     ``dtypes`` are the requested output dtypes (None, float32 or bfloat16).
     """
     check_kernel_supported(mask)
-    offset = causal_offset(mask)
-    if not isinstance(offset, int) or abs(offset) >= 2**30:
-        raise TypeError(f"the kernel takes a static int offset, got {offset!r}")
+    offset = kernel_offset(mask)
     dev = q.device
     b, hq, _, sq, _, _ = check_qkv(q, k, v)
     _check_operand("dout", dout, dev)
@@ -145,16 +152,16 @@ def flash_bwd_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
             delta = bwd_delta(dout, out)
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.rfa_flash_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
                 bwd_strides(q, k, v, dout), float(scale),
-                int(bool(mask.causal)), offset,
-                int(dkv_dtype == torch.bfloat16), stream,
-            )
+                int(index_causal(mask)), offset,
+                int(dkv_dtype == torch.bfloat16))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = launch_masked(lib.rfa_flash_bwd, lib.rfa_flash_bwd_seg, args,
+                               mask, q, k, KV_MAJOR_TILES, stream)
             flash_bwd_cuda.launches += 1
         _build.check_launch(lib, rc, "flash_bwd")
     if dq_dtype not in (None, torch.float32):

@@ -9,7 +9,8 @@ does), and CPU tensors to the kernels' plain version,
 ``ops/naive.py::naive_block_bwd``. Each output element is summed by one
 thread in a fixed order (no atomics or reduce-adds), so their results are
 bitwise reproducible. See the source's header for what bounds
-them on the H100.
+them on the H100. Segmented masks go to their segmented instantiations
+(``launch_masked``).
 """
 
 import ctypes
@@ -17,7 +18,8 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_bwd_cuda import bwd_delta, bwd_strides, check_bwd
+from .block_meta import SegArgs, index_causal, launch_masked
+from .flash_bwd_cuda import KV_MAJOR_TILES, bwd_delta, bwd_strides, check_bwd
 from .mask import MaskArgs
 
 # rfa_flash_bwd_dq(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv, D,
@@ -32,6 +34,8 @@ _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
+_SEG_TAIL = [ctypes.POINTER(SegArgs), ctypes.c_void_p]
+DQ_TILES = (128, 64)  # B3a: 128 q rows a block, 64 keys a tile
 
 
 def _lib():
@@ -40,6 +44,10 @@ def _lib():
     lib.rfa_flash_bwd_dq.restype = ctypes.c_int
     lib.rfa_flash_bwd_dkv.argtypes = _DKV_ARGTYPES
     lib.rfa_flash_bwd_dkv.restype = ctypes.c_int
+    lib.rfa_flash_bwd_dq_seg.argtypes = _DQ_ARGTYPES[:-1] + _SEG_TAIL
+    lib.rfa_flash_bwd_dq_seg.restype = ctypes.c_int
+    lib.rfa_flash_bwd_dkv_seg.argtypes = _DKV_ARGTYPES[:-1] + _SEG_TAIL
+    lib.rfa_flash_bwd_dkv_seg.restype = ctypes.c_int
     return lib
 
 
@@ -48,7 +56,7 @@ def _dims(q, k):
     return b, hq, k.shape[1], sq, k.shape[2], d
 
 
-def _dq(dout, q, k, v, lse, delta, scale, causal, offset, dq_dtype):
+def _dq(dout, q, k, v, lse, delta, scale, mask, offset, dq_dtype):
     """Launch B3a on checked operands."""
     dq_dtype = dq_dtype or torch.float32
     if not k.numel():
@@ -57,20 +65,20 @@ def _dq(dout, q, k, v, lse, delta, scale, causal, offset, dq_dtype):
     if not q.numel():
         return dq
     lib = _lib()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_dims(q, k),
+            bwd_strides(q, k, v, dout), float(scale),
+            int(index_causal(mask)), offset, int(dq_dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.rfa_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_dims(q, k),
-            bwd_strides(q, k, v, dout), float(scale), causal, offset,
-            int(dq_dtype == torch.bfloat16), stream,
-        )
+        rc = launch_masked(lib.rfa_flash_bwd_dq, lib.rfa_flash_bwd_dq_seg,
+                           args, mask, q, k, DQ_TILES, stream)
         flash_bwd_dq_cuda.launches += 1
     _build.check_launch(lib, rc, "flash_bwd_dq")
     return dq
 
 
-def _dkv(dout, q, k, v, lse, delta, scale, causal, offset, dkv_dtype):
+def _dkv(dout, q, k, v, lse, delta, scale, mask, offset, dkv_dtype):
     """Launch B3b on checked operands."""
     dkv_dtype = dkv_dtype or torch.float32
     launch = q.numel() > 0 and k.numel() > 0
@@ -80,14 +88,15 @@ def _dkv(dout, q, k, v, lse, delta, scale, causal, offset, dkv_dtype):
     if not launch:
         return dk, dv
     lib = _lib()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_dims(q, k), bwd_strides(q, k, v, dout), float(scale),
+            int(index_causal(mask)), offset,
+            int(dkv_dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.rfa_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_dims(q, k), bwd_strides(q, k, v, dout), float(scale), causal,
-            offset, int(dkv_dtype == torch.bfloat16), stream,
-        )
+        rc = launch_masked(lib.rfa_flash_bwd_dkv, lib.rfa_flash_bwd_dkv_seg,
+                           args, mask, q, k, KV_MAJOR_TILES, stream)
         flash_bwd_dkv_cuda.launches += 1
     _build.check_launch(lib, rc, "flash_bwd_dkv")
     return dk, dv
@@ -98,8 +107,7 @@ def flash_bwd_dq_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
     """B3a: dq (B, Hq, Sq, D), fp32 unless dq_dtype narrows it (written so
     by the kernel). Operands as ``flash_bwd_cuda``, with delta given."""
     offset = check_bwd(dout, q, k, v, lse, delta, mask, None, (dq_dtype,))
-    return _dq(dout, q, k, v, lse, delta, scale, int(bool(mask.causal)),
-               offset, dq_dtype)
+    return _dq(dout, q, k, v, lse, delta, scale, mask, offset, dq_dtype)
 
 
 def flash_bwd_dkv_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
@@ -108,8 +116,7 @@ def flash_bwd_dkv_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
     unless dkv_dtype narrows them. Operands as ``flash_bwd_cuda``, with
     delta given."""
     offset = check_bwd(dout, q, k, v, lse, delta, mask, None, (dkv_dtype,))
-    return _dkv(dout, q, k, v, lse, delta, scale, int(bool(mask.causal)),
-                offset, dkv_dtype)
+    return _dkv(dout, q, k, v, lse, delta, scale, mask, offset, dkv_dtype)
 
 
 def flash_bwd_split_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
@@ -122,10 +129,8 @@ def flash_bwd_split_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
                        (dq_dtype, dkv_dtype))
     if delta is None:
         delta = bwd_delta(dout, out)
-    causal = int(bool(mask.causal))
-    dq = _dq(dout, q, k, v, lse, delta, scale, causal, offset, dq_dtype)
-    dk, dv = _dkv(dout, q, k, v, lse, delta, scale, causal, offset,
-                  dkv_dtype)
+    dq = _dq(dout, q, k, v, lse, delta, scale, mask, offset, dq_dtype)
+    dk, dv = _dkv(dout, q, k, v, lse, delta, scale, mask, offset, dkv_dtype)
     return dq, dk, dv
 
 

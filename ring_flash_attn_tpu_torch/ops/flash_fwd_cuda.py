@@ -4,7 +4,10 @@ It replaces the TPU kernel ``ring_flash_attn_tpu/ops/pallas_fwd.py::
 _fwd_kernel``. ``ops/flash.py::block_fwd`` sends CUDA tensors here and CPU
 tensors to the kernel's plain version, ``ops/naive.py::naive_block_fwd``.
 See the source's header for what bounds
-the kernel on the H100 and how its design answers that.
+the kernel on the H100 and how its design answers that. A mask with
+segment ids, or causal on explicit positions, goes to the segmented
+instantiation (``rfa_flash_fwd_seg``, ``csrc/segments.cuh``) with the
+tile bounds of ``ops/block_meta.py``; the mask-free one stays as it was.
 
 This module also holds the operand checks of every kernel that reads its
 bf16 operands through TMA tensor maps (B1 and B7 here, B2, B3b and B8 in
@@ -16,10 +19,12 @@ import ctypes
 import torch
 
 from . import _build
+from .block_meta import SegArgs, index_causal, launch_masked
 from .mask import MaskArgs, causal_offset, check_kernel_supported
 
 TMA_MAX_STRIDE = 2**40  # bytes: the limit on a TMA tensor map's strides
 Q_TILE = 128  # q rows a block of B1 and B7 (csrc/flash_fwd.cuh)
+KV_TILE = 128  # keys a tile of B1 and B7
 MAX_GRID_Y = 65535  # the q tiles ride in gridDim.y
 
 # rfa_flash_fwd(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, strides, scale,
@@ -30,11 +35,30 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
 ]
 
 
+# rfa_flash_fwd_seg(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, strides,
+#                   scale, causal, offset, out_bf16, seg, stream)
+_SEG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.POINTER(SegArgs), ctypes.c_void_p]
+
+
 def _lib():
     lib = _build.library("flash_fwd")
     lib.rfa_flash_fwd.argtypes = _ARGTYPES
     lib.rfa_flash_fwd.restype = ctypes.c_int
+    lib.rfa_flash_fwd_seg.argtypes = _SEG_ARGTYPES
+    lib.rfa_flash_fwd_seg.restype = ctypes.c_int
     return lib
+
+
+def kernel_offset(mask: MaskArgs):
+    """The static int offset of the kernels' causal mask by index (0 where
+    the mask is not causal by index), or raise."""
+    if not index_causal(mask):
+        return 0
+    offset = causal_offset(mask)
+    if not isinstance(offset, int) or abs(offset) >= 2**30:
+        raise TypeError(
+            f"the kernel takes a static int offset, got {offset!r}")
+    return offset
 
 
 def _check_operand(name, x, dev):
@@ -102,12 +126,12 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
     q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) in bf16 with D in {64, 128}
     and Hq % Hkv == 0, each in a layout the TMA maps read
     (``tma_layout_error``: ``ops/flash.py::_kernel_layout`` gives one);
-    ``mask`` causal or not, with a static int offset. out_dtype is float32
-    (the mergeable contract) or bfloat16."""
+    ``mask`` causal or not, with a static int offset, and with segment ids
+    and explicit positions ((Sq,)/(Skv,) int32 on the card, or int64
+    narrowed). out_dtype is float32 (the mergeable contract) or
+    bfloat16."""
     check_kernel_supported(mask)
-    offset = causal_offset(mask)
-    if not isinstance(offset, int) or abs(offset) >= 2**30:
-        raise TypeError(f"the kernel takes a static int offset, got {offset!r}")
+    offset = kernel_offset(mask)
     dev = q.device
     b, hq, hkv, sq, skv, d = check_qkv(q, k, v)
     check_q_tiles(sq)
@@ -122,14 +146,14 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
     lib = _lib()
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, hq, hkv, sq, skv, d, strides, float(scale),
+            int(index_causal(mask)), offset,
+            int(out_dtype == torch.bfloat16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rfa_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, hq, hkv, sq, skv, d, strides, float(scale),
-            int(bool(mask.causal)), offset, int(out_dtype == torch.bfloat16),
-            stream,
-        )
+        rc = launch_masked(lib.rfa_flash_fwd, lib.rfa_flash_fwd_seg, args,
+                           mask, q, k, (Q_TILE, KV_TILE), stream)
         flash_fwd_cuda.launches += 1
     _build.check_launch(lib, rc, "flash_fwd")
     return out, lse

@@ -3,12 +3,21 @@
 The port of ``ring_flash_attn_tpu/ops/mask.py``. ``MaskArgs`` keeps every
 field of the JAX version so that call sites read the same. Ported: the
 position model of ``causal``, ``offset`` and ``kv_offset`` (attend iff
-``iq + offset >= ik + kv_offset``) everywhere, and ``softcap`` and
-``alibi_slopes`` in the plain versions (``ops/naive.py``) and the fused
-ring's kernels B7/B8; the block kernels B1, B2 and B3a/B3b raise
-``NotImplementedError`` for those two (``check_kernel_supported``). The
-other constraints (segment ids, explicit positions, windows, dropout) raise
+``iq + offset >= ik + kv_offset``) and packed sequences, segment ids
+``q_segids``/``kv_segids`` (attend only within a segment) and explicit
+positions ``q_pos``/``kv_pos`` (which override the offsets: attend iff
+``q_pos >= kv_pos`` when causal), everywhere, the block kernels B1, B2 and
+B3a/B3b included; ``softcap`` and ``alibi_slopes`` in the plain versions
+(``ops/naive.py``) and the fused ring's kernels B7/B8, while B1, B2 and
+B3a/B3b raise ``NotImplementedError`` for those two
+(``check_kernel_supported``). Windows and dropout raise
 ``NotImplementedError`` everywhere until their slice ports them.
+
+Segment ids and positions are (Sq,)/(Skv,) integer tensors (or arrays),
+shared over batch and heads, as in the JAX package. ``packed_self`` keeps
+JAX's meaning: q and kv are the same packing and positions rise along it
+within each segment, so every allowed pair has ``iq >= ik``; the kernels
+use it to bound their causal loops by index.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -37,9 +46,12 @@ class MaskArgs(NamedTuple):
     packed_self: bool = False
     window_right: Optional[int] = None
 
+    @property
+    def has_segment_mask(self):
+        return self.q_segids is not None
 
-_UNPORTED = ("q_segids", "kv_segids", "q_pos", "kv_pos", "window_left",
-             "window_right")
+
+_UNPORTED = ("window_left", "window_right")
 _KERNEL_UNPORTED = ("softcap", "alibi_slopes")
 
 
@@ -54,6 +66,9 @@ def check_supported(mask: MaskArgs):
         raise NotImplementedError(
             "MaskArgs.dropout_p is not ported yet (see ROADMAP.md)"
         )
+    for a, b in (("q_segids", "kv_segids"), ("q_pos", "kv_pos")):
+        if (getattr(mask, a) is None) != (getattr(mask, b) is None):
+            raise ValueError(f"MaskArgs.{a} and MaskArgs.{b} go together")
 
 
 def check_kernel_supported(mask: MaskArgs):
@@ -76,9 +91,17 @@ def causal_offset(mask: MaskArgs):
     return off
 
 
+def _ids(x, device):
+    return torch.as_tensor(x, device=device).long()
+
+
 def positions(mask: MaskArgs, sq: int, skv: int, device=None):
-    """((Sq,), (Skv,)) int64 absolute positions per the mask's model."""
+    """((Sq,), (Skv,)) int64 absolute positions per the mask's model:
+    the explicit ``q_pos``/``kv_pos`` when given, else the index plus the
+    offsets."""
     check_supported(mask)
+    if mask.q_pos is not None:
+        return _ids(mask.q_pos, device), _ids(mask.kv_pos, device)
     qp = torch.arange(sq, device=device)
     kp = torch.arange(skv, device=device)
     if mask.offset is not None:
@@ -89,12 +112,18 @@ def positions(mask: MaskArgs, sq: int, skv: int, device=None):
 
 
 def allowed_mask(mask: MaskArgs, sq: int, skv: int, device=None):
-    """Dense bool (Sq, Skv) mask, or None if unconstrained."""
+    """Dense bool (Sq, Skv) mask, or None if unconstrained: the causal
+    comparison of positions AND, with segment ids, segment equality."""
     check_supported(mask)
-    if not mask.causal:
-        return None
-    qp, kp = positions(mask, sq, skv, device)
-    return qp[:, None] >= kp[None, :]
+    allowed = None
+    if mask.causal:
+        qp, kp = positions(mask, sq, skv, device)
+        allowed = qp[:, None] >= kp[None, :]
+    if mask.q_segids is not None:
+        seg = (_ids(mask.q_segids, device)[:, None]
+               == _ids(mask.kv_segids, device)[None, :])
+        allowed = seg if allowed is None else allowed & seg
+    return allowed
 
 
 def position_diff(mask: MaskArgs, sq: int, skv: int, device=None):

@@ -6,8 +6,10 @@ The port of ``naive_block_fwd`` and ``naive_block_bwd`` from
 (``csrc/flash_fwd.cu``) and of kernels B2, B3a and B3b
 (``csrc/flash_bwd.cu``, ``csrc/flash_bwd_split.cu``). They compute the same
 quantities as the kernels (fp32 accumulation, natural-log lse, NEG_INF
-sentinel masking) with O(Sq*Skv) memory, and beyond them softcap and
-ALiBi on the scaled logits (softcap, then ALiBi, then the mask). The CPU tests hold them against
+sentinel masking, segment ids and explicit positions) with O(Sq*Skv)
+memory, and beyond them softcap and ALiBi on the scaled logits (softcap,
+then ALiBi, then the mask). A q row with no allowed key gives out = 0 and
+lse = NEG_INF, and no gradient; a key no row may see gets dk = dv = 0. The CPU tests hold them against
 the JAX package; ``chip_smoke.py`` holds the kernels against them on the
 card.
 

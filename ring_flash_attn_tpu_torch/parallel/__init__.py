@@ -23,6 +23,7 @@ from .mesh import (
     ring_size,
 )
 from .ring import ring_attention
+from .ring_varlen import ring_attention_varlen
 from .stripe import stripe_attention
 from .ulysses import ulysses_attention, usp_attention
 from .zigzag import zigzag_ring_attention
@@ -48,6 +49,7 @@ __all__ = [
     "ring_rotate_start",
     "ring_size",
     "ring_attention",
+    "ring_attention_varlen",
     "stripe_attention",
     "ulysses_attention",
     "usp_attention",

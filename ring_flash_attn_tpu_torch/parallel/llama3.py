@@ -11,9 +11,15 @@ by chunk, runs ``block_bwd`` (B2, or B3a/B3b past the fused kernel's
 limit) on the gathered keys with gathered-size fp32 dk/dv, and
 reduce-scatters them home along the token axis.
 
-Ported: causal or not, ``heads_k_stride``, GQA, the backward. Not ported
-yet, each raising ``NotImplementedError``: packed sequences
-(``q_segids``), softcap, ALiBi, dropout and ``window_left``.
+Packed sequences: ``q_segids`` are the rank's tokens' globally consistent
+segment labels; the kv labels are all-gathered once (``mesh.all_gather``)
+and every head chunk's mask, forward and backward, is segments plus the
+causal mask by index at offset rank·L (no positions), which the kernels'
+segmented instantiations take on the card.
+
+Ported: causal or not, ``heads_k_stride``, GQA, the backward, packed
+sequences. Not ported yet, each raising ``NotImplementedError``: softcap,
+ALiBi, dropout and ``window_left``.
 
 Functions are per-process. Internal layout (B, H, S, D).
 """
@@ -26,9 +32,14 @@ from ..ops.mask import MaskArgs
 from .mesh import all_gather, reduce_scatter, ring_rank
 
 
-def _mask(causal, q, group):
+def _mask(causal, q, q_segids, group):
+    """The rank's mask: causal by index at offset rank·L, and with packed
+    sequences the segments of the rank's rows against the gathered
+    labels of every rank's."""
+    kv_segids = None if q_segids is None else all_gather(q_segids, 0, group)
     return MaskArgs(causal=causal,
-                    offset=ring_rank(group) * q.shape[2] if causal else None)
+                    offset=ring_rank(group) * q.shape[2] if causal else None,
+                    q_segids=q_segids, kv_segids=kv_segids)
 
 
 def _cat(parts):
@@ -59,10 +70,11 @@ def _rank_fwd(q, gather, hkv, scale, mask, heads_k_stride, backend):
 
 
 def _rank_bwd(q, out, lse, dout, gather, hkv, scale, mask, heads_k_stride,
-              backend):
+              backend, fused=None):
     """One rank's backward, chunk by chunk (arguments as ``_rank_fwd``'s):
     yields (dq of the chunk's q heads in q.dtype, dk, dv), dk and dv fp32
-    over the whole sequence, this rank's share of the sum over ranks."""
+    over the whole sequence, this rank's share of the sum over ranks.
+    ``fused`` goes to ``block_bwd`` (False: the reproducible B3a/B3b)."""
     kernel = use_kernel(q, backend)
     delta = compute_delta(dout, out)
     for i, hs in _chunks(q, hkv, heads_k_stride):
@@ -72,7 +84,7 @@ def _rank_bwd(q, out, lse, dout, gather, hkv, scale, mask, heads_k_stride,
             dout_i, q_i = _kernel_layout(dout_i), _kernel_layout(q_i)
         yield block_bwd(dout_i, q_i, kv[0], kv[1], lse[:, hs].contiguous(),
                         delta[:, hs].contiguous(), scale, mask, backend,
-                        dq_dtype=q.dtype)
+                        dq_dtype=q.dtype, fused=fused)
 
 
 def _gather(k, v, heads_k_stride, group):
@@ -82,19 +94,21 @@ def _gather(k, v, heads_k_stride, group):
     return lambda i: all_gather(kv[:, :, i:i + heads_k_stride], 3, group)
 
 
-def _llama3_fwd(q, k, v, scale, causal, heads_k_stride, group, backend):
+def _llama3_fwd(q, k, v, q_segids, scale, causal, heads_k_stride, group,
+                backend):
     return _rank_fwd(q, _gather(k, v, heads_k_stride, group), k.shape[1],
-                     scale, _mask(causal, q, group), heads_k_stride, backend)
+                     scale, _mask(causal, q, q_segids, group),
+                     heads_k_stride, backend)
 
 
-def _llama3_bwd(q, k, v, out, lse, dout, scale, causal, heads_k_stride,
-                group, backend):
+def _llama3_bwd(q, k, v, q_segids, out, lse, dout, scale, causal,
+                heads_k_stride, group, backend, fused=None):
     """(dq, dk, dv) in the inputs' dtypes."""
     dqs, dks, dvs = [], [], []
     for dq_i, dk_g, dv_g in _rank_bwd(
             q, out, lse, dout, _gather(k, v, heads_k_stride, group),
-            k.shape[1], scale, _mask(causal, q, group), heads_k_stride,
-            backend):
+            k.shape[1], scale, _mask(causal, q, q_segids, group),
+            heads_k_stride, backend, fused):
         # gathered-size fp32 dk/dv, summed over the ranks and sharded home
         dks.append(reduce_scatter(dk_g, 2, group).to(k.dtype))
         dvs.append(reduce_scatter(dv_g, 2, group).to(v.dtype))
@@ -104,32 +118,41 @@ def _llama3_bwd(q, k, v, out, lse, dout, scale, causal, heads_k_stride,
 
 class _Llama3Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, heads_k_stride, group, backend):
-        out, lse = _llama3_fwd(q, k, v, scale, causal, heads_k_stride, group,
-                               backend)
+    def forward(ctx, q, k, v, q_segids, scale, causal, heads_k_stride, group,
+                backend, fused):
+        out, lse = _llama3_fwd(q, k, v, q_segids, scale, causal,
+                               heads_k_stride, group, backend)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
-        ctx.args = (scale, causal, heads_k_stride, group, backend)
+        ctx.q_segids = q_segids
+        ctx.args = (scale, causal, heads_k_stride, group, backend, fused)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):  # no gradient path through lse
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _llama3_bwd(q, k, v, out, lse, dout, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        dq, dk, dv = _llama3_bwd(q, k, v, ctx.q_segids, out, lse, dout,
+                                 *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def llama3_attention(q, k, v, q_segids=None, *, scale, causal=True,
                      heads_k_stride=None, group=None, backend=None,
                      softcap=None, alibi_slopes=None, dropout_p=None,
-                     dropout_seed=None, window_left=None):
+                     dropout_seed=None, window_left=None,
+                     deterministic=False):
     """Differentiable llama3 all-gather attention on per-process (B, H,
     S_local, D).
 
     q/k/v are sharded contiguously along S over ``group`` (None: the
-    default group, or one process when none is initialised). Returns (out
-    in q.dtype, lse fp32 (B, H, S_local)); lse carries no gradient."""
-    unported = {"q_segids": q_segids is not None, "softcap": bool(softcap),
+    default group, or one process when none is initialised); with packed
+    sequences ``q_segids`` (S_local,) int32 on q's device holds the rank's
+    tokens' globally consistent segment labels. Returns (out in q.dtype,
+    lse fp32 (B, H, S_local)); lse carries no gradient.
+    ``deterministic=True`` runs the backward on the bitwise reproducible
+    split kernels B3a/B3b on the card."""
+    del dropout_seed  # dropout is not ported: dropout_p raises
+    unported = {"softcap": bool(softcap),
                 "alibi_slopes": alibi_slopes is not None,
                 "dropout_p": bool(dropout_p),
                 "window_left": window_left is not None}
@@ -145,7 +168,8 @@ def llama3_attention(q, k, v, q_segids=None, *, scale, causal=True,
         raise ValueError(f"heads_k_stride={heads_k_stride} does not divide "
                          f"Hkv={hkv}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _Llama3Attention.apply(q, k, v, scale, causal, heads_k_stride,
-                                      group, backend)
-    return _llama3_fwd(q, k, v, scale, causal, heads_k_stride, group,
-                       backend)
+        return _Llama3Attention.apply(q, k, v, q_segids, scale, causal,
+                                      heads_k_stride, group, backend,
+                                      False if deterministic else None)
+    return _llama3_fwd(q, k, v, q_segids, scale, causal, heads_k_stride,
+                       group, backend)

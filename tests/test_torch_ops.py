@@ -97,14 +97,17 @@ def test_block_fwd_cpu_uses_plain_version_and_narrows():
 
 
 def test_unported_mask_fields_and_grad_raise():
-    """Unported MaskArgs fields raise in block_fwd and block_bwd alike;
-    softcap and ALiBi, which the plain versions have since the ring slice,
-    raise in the block kernels' own check only; flash_attention,
-    forward-only before the training slice, now differentiates."""
+    """Unported MaskArgs fields (windows, dropout) raise in block_fwd and
+    block_bwd alike; segment ids and explicit positions, ported with the
+    packed-sequence slice, compute (here: one segment and positions equal
+    to the index give the plain causal mask's result) and pass the block
+    kernels' check; softcap and ALiBi, which the plain versions have since
+    the ring slice, raise in the block kernels' own check only;
+    flash_attention, forward-only before the training slice, now
+    differentiates."""
     q = torch.zeros((1, 1, 4, 8))
     lse = torch.zeros((1, 1, 4))
-    for field in ({"window_left": 2}, {"dropout_p": 0.1},
-                  {"q_segids": np.zeros(4)}, {"q_pos": np.zeros(4)}):
+    for field in ({"window_left": 2}, {"dropout_p": 0.1}):
         mask = MaskArgs(causal=True, **field)
         with pytest.raises(NotImplementedError):
             block_fwd(q, q, q, 1.0, mask)
@@ -112,6 +115,22 @@ def test_unported_mask_fields_and_grad_raise():
             block_bwd(q, q, q, q, lse, lse, 1.0, mask)
         with pytest.raises(NotImplementedError):
             check_kernel_supported(mask)
+    x = torch.from_numpy(_np((1, 2, 4, 8), 1))
+    dout = torch.from_numpy(_np((1, 2, 4, 8), 2))
+    causal = MaskArgs(causal=True)
+    want_out, want_lse = block_fwd(x, x, x, 1.0, causal)
+    want = block_bwd(dout, x, x, x, want_lse, None, 1.0, causal,
+                     out=want_out)
+    for field in ({"q_segids": np.zeros(4), "kv_segids": np.zeros(4)},
+                  {"q_pos": np.arange(4), "kv_pos": np.arange(4)}):
+        mask = MaskArgs(causal=True, **field)
+        check_kernel_supported(mask)
+        out, lse_m = block_fwd(x, x, x, 1.0, mask)
+        _close(out, want_out.numpy(), TOL)
+        _close(lse_m, want_lse.numpy(), TOL)
+        for g, w in zip(block_bwd(dout, x, x, x, lse_m, None, 1.0, mask,
+                                  out=out), want):
+            _close(g, w.numpy(), TOL)
     for field in ({"softcap": 5.0}, {"alibi_slopes": np.ones(1)}):
         mask = MaskArgs(causal=True, **field)
         with pytest.raises(NotImplementedError):

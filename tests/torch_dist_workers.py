@@ -483,12 +483,92 @@ def task_ulysses_heads(rank, world, p):
     return out
 
 
+def _varlen_call(kind, kw, rank, world, p):
+    """(entry point's out, lse or None, leaves, this rank's dout) of one
+    varlen variant on this rank's tokens."""
+    from ring_flash_attn_tpu_torch.ops.varlen import (
+        extract_local_ring_varlen, ring_varlen_info)
+
+    cu = p["cu"]
+    # the qkv-packed form takes as many kv heads as q heads
+    names = (("q", "k_qkv", "v_qkv", "dout") if kind == "ring_qkvpacked"
+             else ("q", "k", "v", "dout"))
+    if kind == "llama3":
+        n = p["q"].shape[0] // world
+        local = [torch.from_numpy(p[x][rank * n:(rank + 1) * n])
+                 for x in names]
+    else:
+        local = [torch.from_numpy(extract_local_ring_varlen(p[x], cu, rank,
+                                                            world))
+                 for x in names]
+    leaves = [x.clone().requires_grad_() for x in local[:3]]
+    causal = kw["causal"]
+    if kind == "ring":
+        out, lse, _ = api.ring_flash_attn_varlen_func(
+            *leaves, np.asarray(cu) // world, return_attn_probs=True, **kw)
+    elif kind == "ring_kvpacked":
+        out, lse, _ = api.ring_flash_attn_varlen_kvpacked_func(
+            leaves[0], torch.stack(leaves[1:], 1),
+            torch.as_tensor(np.asarray(cu) // world),
+            return_attn_probs=True, **kw)
+    elif kind == "ring_qkvpacked":
+        out, lse, _ = api.ring_flash_attn_varlen_qkvpacked_func(
+            torch.stack(leaves, 1), list(np.asarray(cu) // world),
+            return_attn_probs=True, **kw)
+    elif kind == "registry":
+        seg, pos = ring_varlen_info(np.asarray(cu) // world,
+                                    leaves[0].shape[0], rank)
+        out = RingAttentionLayer("ring_varlen")(
+            *(x[None] for x in leaves), segment_ids=seg, positions=pos,
+            **kw)[0]
+        lse = None
+    else:  # llama3
+        cu_q, cu_k, mq, mk, sl = api.llama3_flash_attn_prepare_cu_seqlens(
+            cu, causal, rank, world)
+        out, lse, _ = api.llama3_flash_attn_varlen_func(
+            *leaves, cu_q, cu_k, mq, mk, local_k_slice=sl,
+            return_attn_probs=True, **kw)
+    return out, lse, leaves, local[3]
+
+
+def task_varlen(rank, world, p):
+    """Each varlen variant's out, lse and the gradients of q, k and v on
+    this rank's tokens (ring layout: part r of every sequence; llama3: the
+    rank's contiguous share); records the ``fused`` argument of every
+    block_bwd call under "fused_<name>"."""
+    from ring_flash_attn_tpu_torch.ops import flash
+    from ring_flash_attn_tpu_torch.parallel import llama3 as l3, ring
+
+    out = {}
+    for name, (kind, kw) in p["variants"].items():
+        seen, real = [], flash.block_bwd
+
+        def recorder(*args, fused=None, **k):
+            seen.append(fused)
+            return real(*args, fused=fused, **k)
+
+        ring.block_bwd = l3.block_bwd = recorder
+        try:
+            o, lse, leaves, dout = _varlen_call(kind, kw, rank, world, p)
+            grads = torch.autograd.grad(o, leaves, dout)
+        finally:
+            ring.block_bwd = l3.block_bwd = real
+        out[f"out_{name}"] = _np(o)
+        if lse is not None:
+            out[f"lse_{name}"] = _np(lse)
+        for key, g in zip(("dq", "dk", "dv"), grads):
+            out[f"{key}_{name}"] = _np(g)
+        out[f"fused_{name}"] = np.array([-1 if f is None else int(f)
+                                         for f in seen])
+    return out
+
+
 TASKS = {"collectives": task_collectives, "decode": task_decode,
          "llama3": task_llama3, "generate": task_generate,
          "schedules": task_schedules, "api": task_api, "train": task_train,
          "cp": task_cp, "ulysses_heads": task_ulysses_heads,
          "reduce_scatter": task_reduce_scatter, "moe_ep": task_moe_ep,
-         "grid": task_grid}
+         "grid": task_grid, "varlen": task_varlen}
 
 
 def _worker(rank, world, port, task, payload, results):
