@@ -143,6 +143,29 @@ Phases, each of which raises on failure:
    ``heads_k_stride`` 4 and 8) in one process against
    ``flash_attn_varlen_func`` on the whole packing, each rank timed, and
    the entry points at W=1.
+17. Softcap and ALiBi: B1, B2 and B3a/B3b in their XFORM instantiations
+   against their plain versions at the tile edges of ``XFORM_EDGE_CASES``
+   and at q (1,32,8192,128), kv (1,8,8192,128) with softcap 50, with ALiBi
+   on the standard slopes of 32 heads and with both, causal, not causal, at
+   an offset, and segmented on the reference's four packings (and the
+   five-sequence packing without a causal mask), softcap also on q x 4,
+   whose logits the cap bends (the edge cases' caps of 2 to 5 do the same
+   at their sizes); each instantiation timed
+   causal and on the five-sequence packing beside its flop bound, the same
+   kernel without the transform and, for ALiBi, SDPA with the bias as a
+   dense float mask (timed only); then the xform path, whose launches are
+   counted: ``flash_attn_func`` and ``flash_attn_varlen_func`` with both
+   transforms against ``backend="plain"``, the ring, zigzag and stripe
+   schedules' W=4 ranks of S=32768 with ALiBi and llama3's with softcap and
+   ALiBi in one process through the modules' per-rank functions and step
+   masks (against the
+   kernels on the whole sequence and plain on its last rows), llama3's
+   W=8 last rank with ALiBi at 65536 keys (B3a/B3b); then the
+   zigzag_varlen path: zigzag varlen's W=4 ranks on 32768 tokens (4 x
+   8192 and the reference's packings x 4), forward and backward, without a
+   transform and with ALiBi, against ``flash_attn_varlen_func`` on the
+   whole packing and plain on each rank's last rows, and the entry point
+   at W=1.
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -289,6 +312,74 @@ SEG_EDGE_CASES = [
     (1, 8, 1, 127, 255, 64, "idx", [0, 128, 255]),
     (1, 16, 2, 300, 300, 64, "pos", [0, 3, 131, 132, 300]),
 ]
+
+
+# B1, B2, B3a/B3b with softcap and/or ALiBi (their XFORM instantiations)
+# at the tile edges, held here (phase 17) and in tests/test_torch_cuda.py:
+# (B, Hq, Hkv, Sq, Skv, D, kind, cu, softcap, ALiBi) with kind "causal"
+# (causal by index at offset Skv - Sq), "full" (no mask; ALiBi on
+# |distance| at the offsets Sq and 3), "posfull" (segments and explicit
+# positions without a causal mask: ALiBi on their |distance|, the varlen
+# rings' off-diagonal steps), "strided" (causal on positions 4 i + 1 and
+# 4 j + 2, stripe's form: tiles whose positions step by 4) or a kind of
+# SEG_EDGE_CASES ("shuffled": no tile has a step); ALiBi on the standard
+# slopes of Hq heads (``alibi_slopes``). The caps of 2 to 5 bend the
+# inputs' N(0, 1) logits, so that a build without the cap, or without its
+# 1 - tanh^2 in the backward, fails them (at caps of 20 to 50 such a build
+# moves dS by 0.5% or less); one of them for every build: with and
+# without SEG, both head dims, unmasked and masked bodies
+XFORM_EDGE_CASES = [
+    (1, 4, 1, 1, 1, 128, "causal", None, 50.0, True),
+    (1, 8, 2, 127, 129, 64, "causal", None, 50.0, False),
+    (1, 8, 2, 129, 257, 128, "causal", None, None, True),
+    (2, 4, 4, 128, 255, 64, "full", None, 30.0, True),
+    (1, 8, 2, 257, 129, 128, "full", None, None, True),
+    (1, 4, 2, 127, 127, 128, "pos", [0, 1, 60, 127], 50.0, True),
+    (1, 8, 2, 129, 129, 64, "posfull", [0, 128, 129], None, True),
+    (1, 4, 1, 257, 257, 128, "seg", [0, 100, 101, 257], 20.0, True),
+    (2, 4, 2, 257, 257, 64, "shuffled", [0, 257], 50.0, True),
+    (1, 4, 2, 200, 300, 128, "absent", [0, 70, 300], None, True),
+    (1, 8, 2, 129, 257, 128, "idx", [0, 50, 200, 257], 50.0, True),
+    (1, 16, 4, 300, 300, 128, "posfull", [0, 3, 131, 132, 300], 30.0, True),
+    (1, 8, 2, 257, 255, 128, "strided", None, None, True),
+    (1, 4, 1, 129, 300, 64, "strided", None, 50.0, True),
+    (1, 8, 2, 129, 257, 128, "causal", None, 4.0, False),
+    (2, 4, 4, 128, 255, 64, "full", None, 2.0, True),
+    (1, 4, 2, 127, 127, 128, "pos", [0, 1, 60, 127], 3.0, False),
+    (1, 8, 2, 129, 129, 64, "posfull", [0, 128, 129], 4.0, True),
+    (2, 4, 2, 257, 257, 64, "shuffled", [0, 257], 2.0, False),
+    (1, 8, 2, 129, 257, 128, "idx", [0, 50, 200, 257], 3.0, True),
+    (1, 8, 2, 257, 255, 128, "strided", None, 5.0, True),
+]
+
+
+def alibi_slopes(torch, hq, dev):
+    """The standard ALiBi slopes of ``hq`` heads, 2^(-8 (h + 1) / hq),
+    float32 on ``dev``."""
+    return torch.tensor([2.0 ** (-8.0 * (h + 1) / hq) for h in range(hq)],
+                        dtype=torch.float32, device=dev)
+
+
+def xform_case_mask(torch, case, dev, seed=0):
+    """The MaskArgs of an ``XFORM_EDGE_CASES`` case on ``dev``."""
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+
+    _, hq, _, sq, skv, _, kind, cu, softcap, alibi = case
+    if kind == "causal":
+        mask = MaskArgs(causal=True, offset=skv - sq)
+    elif kind == "full":
+        mask = MaskArgs(offset=sq, kv_offset=3)
+    elif kind == "posfull":
+        mask = seg_case_mask(torch, "pos", sq, skv, cu, dev)._replace(
+            causal=False, packed_self=False)
+    elif kind == "strided":
+        mask = MaskArgs(causal=True, q_pos=torch.arange(
+            sq, dtype=torch.int32, device=dev) * 4 + 1, kv_pos=torch.arange(
+                skv, dtype=torch.int32, device=dev) * 4 + 2)
+    else:
+        mask = seg_case_mask(torch, kind, sq, skv, cu, dev, seed)
+    return mask._replace(softcap=softcap, alibi_slopes=alibi_slopes(
+        torch, hq, dev) if alibi else None)
 
 
 def varlen_pairs(cu, causal):
@@ -480,28 +571,45 @@ def rel_err_rows(a, ref):
 
 # each kernel's instantiation at the timed shape (head_dim 128): its library
 # (csrc/<lib>.cu) and a piece of its mangled name; the largest over the
-# instantiations that match where a kernel has several (B7)
+# instantiations that match where a kernel has several (B7). The last
+# template flag of bwd_kv_kernel and bwd_dq_kernel is XFORM (softcap and
+# ALiBi, phase 17)
 INSTANTIATIONS = {
     "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb0E"),
     "B5 paged_decode": ("paged_decode", "paged_decode_kernelILi4E"),
-    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb0E"),
-    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb0E"),
+    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb0ELb0EE"),
+    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb0ELb0EE"),
     "B3b flash_bwd_dkv": ("flash_bwd_split",
-                          "bwd_kv_kernelILi128ELb0ELb0ELb0E"),
+                          "bwd_kv_kernelILi128ELb0ELb0ELb0ELb0EE"),
     "B4 quant_decode": ("quant_decode", "quant_decode_kernelILi0ELi4E"),
     "B6 paged_quant_decode": ("paged_quant_decode",
                               "paged_quant_decode_kernelILi0ELi4E"),
     "B7 fused_ring_fwd": ("fused_ring_fwd", "flash_fwd_kernelILi128ELb1E"),
     "B8 fused_ring_bwd": ("fused_ring_bwd", "bwd_kv_kernelILi128ELb1ELb1E"),
+    # the softcap/ALiBi instantiations (phase 17), without segments
+    "B1 flash_fwd XFORM": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb1ELb0E"),
+    "B2 flash_bwd XFORM": ("flash_bwd",
+                           "bwd_kv_kernelILi128ELb1ELb0ELb0ELb1EE"),
+    "B3a flash_bwd_dq XFORM": ("flash_bwd_split",
+                               "bwd_dq_kernelILi128ELb0ELb1EE"),
+    "B3b flash_bwd_dkv XFORM": ("flash_bwd_split",
+                                "bwd_kv_kernelILi128ELb0ELb0ELb0ELb1EE"),
 }
 # the segmented instantiations (packed sequences, csrc/segments.cuh) of the
 # four block kernels, head_dim 128
 SEG_INSTANTIATIONS = {
     "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb1E"),
-    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb1E"),
-    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb1E"),
+    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb1ELb0EE"),
+    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb1ELb0EE"),
     "B3b flash_bwd_dkv": ("flash_bwd_split",
-                          "bwd_kv_kernelILi128ELb0ELb0ELb1E"),
+                          "bwd_kv_kernelILi128ELb0ELb0ELb1ELb0EE"),
+    "B1 flash_fwd XFORM": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb1ELb1E"),
+    "B2 flash_bwd XFORM": ("flash_bwd",
+                           "bwd_kv_kernelILi128ELb1ELb0ELb1ELb1EE"),
+    "B3a flash_bwd_dq XFORM": ("flash_bwd_split",
+                               "bwd_dq_kernelILi128ELb1ELb1EE"),
+    "B3b flash_bwd_dkv XFORM": ("flash_bwd_split",
+                                "bwd_kv_kernelILi128ELb0ELb0ELb1ELb1EE"),
 }
 
 
@@ -565,14 +673,24 @@ def check_hgmma(what, lib, piece):
     forward loop, ``bwd_kv_kernel``, the kv-major backward loop, or
     ``bwd_dq_kernel``, the q-major dq loop) in csrc/<lib>.cu: the loop runs
     on wgmma. Returns {label: count}."""
+    import re
+
     from ring_flash_attn_tpu_torch.ops import _build
 
-    def label(name):  # head_dim, the forward's softcap/ALiBi build, and
-        # the segmented build (its last template flag)
-        xform = piece == "flash_fwd_kernel" and "ELb1ELb1E" in name
-        seg = "Lb1EEEv" in name
-        return ("D=128" if "ILi128" in name else "D=64") + (
-            " XFORM" if xform else "") + (" SEG" if seg else "")
+    def label(name):  # head_dim, the softcap/ALiBi build (XFORM: B7's and
+        # B8's are their ring builds) and the segmented build, from the
+        # template flags: flash_fwd_kernel <D, RING, XFORM, SEG>,
+        # bwd_kv_kernel <D, DQ, RING, SEG, XFORM>, bwd_dq_kernel <D, SEG,
+        # XFORM> (a tree without the last flag has no XFORM build)
+        m = re.search(piece + r"I((?:L[ib]\d+E)+)E", name)
+        args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(1))]
+        flags = dict(zip({"flash_fwd_kernel": ("D", "ring", "xform", "seg"),
+                          "bwd_kv_kernel": ("D", "dq", "ring", "seg",
+                                            "xform"),
+                          "bwd_dq_kernel": ("D", "seg", "xform")}[piece],
+                         args))
+        return f"D={flags['D']}" + (" XFORM" if flags.get("xform") else "") \
+            + (" SEG" if flags.get("seg") else "")
 
     counts = {label(n): c for n, c in sorted(
         hgmma_counts(_build.build_all()[lib], piece).items())}
@@ -3146,13 +3264,17 @@ def _grads_check(what, got, ref):
 @contextlib.contextmanager
 def _uncounted(counters):
     """Launches inside are not counted: a timing loop or a reference run
-    beside the path whose launches are read."""
-    saved = {name: fn.launches for name, fn in counters.items()}
+    beside the path whose launches are read (the XFORM launches of the
+    block kernels' launchers too)."""
+    saved = {name: (fn.launches, getattr(fn, "xform_launches", None))
+             for name, fn in counters.items()}
     try:
         yield
     finally:
         for name, fn in counters.items():
-            fn.launches = saved[name]
+            fn.launches, xform = saved[name]
+            if xform is not None:
+                fn.xform_launches = xform
 
 
 def phase_varlen(torch, flush):
@@ -3538,6 +3660,728 @@ def phase_varlen(torch, flush):
     return readings, launches, times
 
 
+def _zigzag_rank_fwd(qs, ks, vs, rank, scale, step_masks):
+    """Rank ``rank``'s forward through ``zigzag.zigzag_rank_fwd``, the kv
+    shard of rank (rank - t) % W handed in at step t. (out bf16, lse)."""
+    from ring_flash_attn_tpu_torch.parallel.zigzag import zigzag_rank_fwd
+
+    world = len(qs)
+    out, lse = zigzag_rank_fwd(
+        qs[rank], lambda t: (ks[(rank - t) % world], vs[(rank - t) % world]),
+        rank, world, scale, None, step_masks)
+    return out.to(qs[rank].dtype), lse
+
+
+def _zigzag_rank_bwd(qs, ks, vs, douts, outs, lses, dkvs, rank, scale,
+                     step_masks):
+    """Rank ``rank``'s backward through ``zigzag.zigzag_rank_bwd``: returns
+    its dq (fp32) and adds its dk, dv of kv shard src into ``dkvs[src]``,
+    the accumulator that visits it on the ring."""
+    from ring_flash_attn_tpu_torch.parallel.zigzag import zigzag_rank_bwd
+
+    world = len(qs)
+
+    def add_dkv(t, b_dk, b_dv, rows):
+        acc = dkvs[(rank - t) % world]
+        acc[0][:, :, rows].add_(b_dk)
+        acc[1][:, :, rows].add_(b_dv)
+
+    return zigzag_rank_bwd(
+        qs[rank], outs[rank], lses[rank], douts[rank],
+        lambda t: (ks[(rank - t) % world], vs[(rank - t) % world]), add_dkv,
+        rank, world, scale, None, step_masks)
+
+
+# phase 17's transforms: softcap (Gemma 2's 50.0) and ALiBi on the standard
+# slopes, alone and together
+XFORMS = {"softcap": (50.0, False), "alibi": (None, True),
+          "both": (50.0, True)}
+XFORM_KERNELS = ("B1 flash_fwd", "B2 flash_bwd", "B3a flash_bwd_dq",
+                 "B3b flash_bwd_dkv")
+
+
+def _alibi_bias(torch, mask, hq, sq, skv, dev):
+    """The dense (1, Hq, Sq, Skv) bf16 float mask of ``mask``: ALiBi's bias
+    where allowed, -inf elsewhere, for F.scaled_dot_product_attention
+    (timed only)."""
+    from ring_flash_attn_tpu_torch.ops.mask import alibi_bias, allowed_mask
+
+    bias = alibi_bias(mask, hq, 1, sq, skv, dev).reshape(1, hq, sq, skv)
+    allowed = allowed_mask(mask, sq, skv, dev)
+    if allowed is not None:
+        bias = bias.masked_fill(~allowed, float("-inf"))
+    return bias.to(torch.bfloat16)
+
+
+def xform_kernel_checks(torch, q, k, v, dout, slopes):
+    """Phase 17 (a) and (b): B1, B2 and B3a/B3b with softcap and/or ALiBi
+    against their plain versions at ``XFORM_EDGE_CASES`` and at the full
+    width of q (1, Hq, T, D), k, v (1, Hkv, T, D) bf16 on the card, with
+    ``slopes`` the (Hq,) ALiBi slopes. Raises past the limits; returns the
+    worst errors {kernel: [abs, rel(, lse)]}."""
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+    from ring_flash_attn_tpu_torch.ops.varlen import (
+        cu_seqlens_to_positions, cu_seqlens_to_segids)
+
+    dev = q.device
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    bf16 = torch.bfloat16
+    t, d = q.shape[2], q.shape[3]
+    scale = d ** -0.5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def with_xf(mask, kind):
+        cap, alibi = XFORMS[kind]
+        return mask._replace(softcap=cap,
+                             alibi_slopes=slopes if alibi else None)
+
+    # (a) the tile edges
+    for case in XFORM_EDGE_CASES:
+        b, cq, ckv, sq, skv, cd = case[:6]
+        mask = xform_case_mask(torch, case, dev)
+        eq, ek, ev, edo = (rnd(b, cq, sq, cd), rnd(b, ckv, skv, cd),
+                           rnd(b, ckv, skv, cd), rnd(b, cq, sq, cd))
+        out, lse = flash_fwd_cuda(eq, ek, ev, cd ** -0.5, mask,
+                                  out_dtype=bf16)
+        _varlen_check(f"edge {case} B1", (out, lse),
+                      naive_block_fwd(eq, ek, ev, cd ** -0.5, mask),
+                      B1_OUT_TOL, B1_LSE_TOL)
+        delta = compute_delta(edo, out)
+        ref = naive_block_bwd(edo, eq, ek, ev, lse, delta, cd ** -0.5, mask)
+        for bwd in (flash_bwd_cuda, flash_bwd_split_cuda):
+            got = bwd(edo, eq, ek, ev, lse, delta, cd ** -0.5, mask)
+            if sq == skv == 1:  # one key a row: dq, dk vanish; dv holds
+                if _rel_err(got[2], ref[2]) > BWD_REL_TOL:
+                    raise AssertionError(f"edge {case}: dv")
+                continue
+            _grads_check(f"edge {case} {bwd.__name__}", got, ref)
+
+    # (b) the full width (Llama-3-8B's attention widths) against the plain
+    # versions: each transform causal, not causal, at an offset (the last
+    # half of the rows over every key) and segmented on the reference's four
+    # packings, causal on positions, and on the five-sequence packing
+    # without a causal mask (ALiBi on |distance| of the positions)
+    half = t // 2
+    five = VARLEN_PACKINGS[3]
+    seg5 = cu_seqlens_to_segids(five, t, dev)
+    pos5 = cu_seqlens_to_positions(five, t, dev)
+    forms = {"causal": (MaskArgs(causal=True), slice(None)),
+             "not causal": (MaskArgs(), slice(None)),
+             "offset": (MaskArgs(causal=True, offset=half),
+                        slice(half, None))}
+    for cu in VARLEN_PACKINGS:
+        forms[f"packed {cu}"] = (varlen_mask(torch, cu, True, dev)[0],
+                                 slice(None))
+    forms[f"packed {five} not causal"] = (
+        MaskArgs(q_segids=seg5, kv_segids=seg5, q_pos=pos5, kv_pos=pos5),
+        slice(None))
+    # the worst (absolute, relative) error of each kernel; B1's relative
+    # error by rows, with lse's absolute one beside it
+    worst = {"B1": [0.0, 0.0, 0.0], "B2": [0.0, 0.0], "B3a": [0.0, 0.0],
+             "B3b": [0.0, 0.0]}
+
+    def note(name, got, ref):
+        abs_, rel = (max(max_err(x, r) for x, r in zip(got, ref)),
+                     max(_rel_err(x.float(), r.float())
+                         for x, r in zip(got, ref)))
+        worst[name] = [max(worst[name][0], abs_), max(worst[name][1], rel)]
+
+    # softcap where it bends the logits: q times 4 (exact in bf16) gives
+    # logits of about N(0, 16), the largest of a row some 0.3 of the cap
+    # 50, so that a kernel without the cap, or without its 1 - tanh^2 in
+    # the backward, moves lse and the gradients past the limits
+    # (check_xform_faults.py); at q's own N(0, 1) logits the cap moves dS
+    # by some 0.1%, which the limits cannot see
+    hot = q * 4
+    runs = [(kind, kind, q) for kind in XFORMS] + [
+        (f"{kind}, q x 4", kind, hot) for kind in XFORMS if XFORMS[kind][0]]
+    for form, (base, rows) in forms.items():
+        for label, kind, q_in in runs:
+            mask = with_xf(base, kind)
+            qq, dd = q_in[:, :, rows], dout[:, :, rows]
+            out, lse = flash_fwd_cuda(qq, k, v, scale, mask, out_dtype=bf16)
+            errs = _varlen_check(f"{form} {label} B1", (out, lse),
+                                 naive_block_fwd(qq, k, v, scale, mask),
+                                 B1_OUT_TOL, B1_LSE_TOL)
+            worst["B1"] = [max(a, b_) for a, b_ in zip(worst["B1"], errs)]
+            delta = compute_delta(dd, out)
+            ref = naive_block_bwd(dd, qq, k, v, lse, delta, scale, mask)
+            for name, bwd in (("B2", flash_bwd_cuda),
+                              ("B3", flash_bwd_split_cuda)):
+                got = bwd(dd, qq, k, v, lse, delta, scale, mask)
+                _grads_check(f"{form} {label} {name}", got, ref)
+                if name == "B2":
+                    note("B2", got, ref)
+                else:
+                    note("B3a", got[:1], ref[:1])
+                    note("B3b", got[1:], ref[1:])
+            del ref, got, out, lse, delta
+            torch.cuda.empty_cache()
+
+    return worst
+
+
+def phase_xform(torch, flush):
+    """Phase 17: softcap and ALiBi in B1, B2, B3a/B3b, and zigzag varlen.
+    Returns (the XFORM instantiations' kernel entries, {path: {kernel:
+    launches}} of the xform and zigzag_varlen paths, times)."""
+    import torch.nn.functional as F
+
+    from ring_flash_attn_tpu_torch import api
+    from ring_flash_attn_tpu_torch.ops.flash import (
+        block_bwd, block_fwd, compute_delta, flash_attention)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+    from ring_flash_attn_tpu_torch.ops.varlen import (
+        cu_seqlens_to_positions, cu_seqlens_to_segids,
+        extract_local_zigzag_varlen, zigzag_varlen_info)
+    from ring_flash_attn_tpu_torch.parallel import (
+        layouts, llama3, ring, stripe, zigzag, zigzag_varlen)
+
+    log("== phase 17: softcap and ALiBi in B1, B2, B3a/B3b (XFORM), the "
+        "entry points with them, and zigzag varlen")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bf16 = torch.bfloat16
+    hq, hkv, d, t = 32, 8, 128, 8192
+    scale = d ** -0.5
+    slopes = alibi_slopes(torch, hq, dev)
+    counters = {"B1 flash_fwd": flash_fwd_cuda,
+                "B2 flash_bwd": flash_bwd_cuda,
+                "B3a flash_bwd_dq": flash_bwd_dq_cuda,
+                "B3b flash_bwd_dkv": flash_bwd_dkv_cuda}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def with_xf(mask, kind, sl=slopes):
+        cap, alibi = XFORMS[kind]
+        return mask._replace(softcap=cap, alibi_slopes=sl if alibi else None)
+
+    q, k, v, dout = (rnd(1, hq, t, d), rnd(1, hkv, t, d), rnd(1, hkv, t, d),
+                     rnd(1, hq, t, d))
+    worst = xform_kernel_checks(torch, q, k, v, dout, slopes)
+    five = VARLEN_PACKINGS[3]
+
+    # (c) the times: each instantiation causal and on the five-sequence
+    # packing (causal on positions), each transform and none (the same
+    # kernel without the transform), beside the flop bound of its products
+    # and, for ALiBi, SDPA with the bias as a dense float mask (timed only;
+    # no single PyTorch call computes softcap)
+    kr = k.repeat_interleave(hq // hkv, dim=1)
+    vr = v.repeat_interleave(hq // hkv, dim=1)
+    products = {"B1": 2, "B2": 5, "B3a": 3, "B3b": 4}
+    timed = {}
+    for form, base in (("causal", MaskArgs(causal=True)),
+                       (f"packed {five}", varlen_mask(torch, five, True,
+                                                      dev)[0])):
+        pairs = (t * (t + 1) // 2 if form == "causal"
+                 else varlen_pairs(five, True))
+        for kind in ("none",) + tuple(XFORMS):
+            mask = base if kind == "none" else with_xf(base, kind)
+            out, lse = flash_fwd_cuda(q, k, v, scale, mask, out_dtype=bf16)
+            delta = compute_delta(dout, out)
+            fns = {
+                "B1": lambda: flash_fwd_cuda(q, k, v, scale, mask,
+                                             out_dtype=bf16),
+                "B2": lambda: flash_bwd_cuda(dout, q, k, v, lse, None, scale,
+                                             mask, out=out, dq_dtype=bf16,
+                                             dkv_dtype=bf16),
+                "B3a": lambda: flash_bwd_dq_cuda(dout, q, k, v, lse, delta,
+                                                 scale, mask, dq_dtype=bf16),
+                "B3b": lambda: flash_bwd_dkv_cuda(dout, q, k, v, lse, delta,
+                                                  scale, mask,
+                                                  dkv_dtype=bf16),
+            }
+            lib = {"fwd": None, "bwd": None}
+            if kind == "alibi":
+                dense = _alibi_bias(torch, mask, hq, t, t, dev)
+                qr = q.detach().requires_grad_()
+                krr = kr.detach().requires_grad_()
+                vrr = vr.detach().requires_grad_()
+                o_m = F.scaled_dot_product_attention(qr, krr, vrr,
+                                                     attn_mask=dense)
+                lib = {"fwd": cuda_ms(
+                           torch, lambda: F.scaled_dot_product_attention(
+                               q, kr, vr, attn_mask=dense), 5, flush),
+                       "bwd": cuda_ms(torch, lambda: torch.autograd.grad(
+                           o_m, (qr, krr, vrr), dout, retain_graph=True), 5,
+                           flush)}
+                del o_m, qr, krr, vrr, dense
+                torch.cuda.empty_cache()
+            for name, fn in fns.items():
+                r = kernel_ms(torch, fn, 10, flush)
+                bound = products[name] * 2 * hq * d * pairs / H100_BF16_FLOPS
+                entry = dict(ms=r["ms"], device_ms=r["device_ms"],
+                             bound_ms=bound * 1e3,
+                             library_ms=lib["fwd" if name == "B1" else "bwd"])
+                timed.setdefault(name, {}).setdefault(form, {})[kind] = entry
+                libtxt = ("none (no PyTorch call computes softcap)"
+                          if XFORMS.get(kind, (None,))[0] else
+                          f"{entry['library_ms']:.3f} ms"
+                          if entry["library_ms"] else "-")
+                log(f"  {form} {kind} {name}: {r['ms']:.3f} ms, device "
+                    f"{r['device_ms']:.3f} ms, bound {bound * 1e3:.3f} ms "
+                    f"({r['ms'] / (bound * 1e3):.2f}x), SDPA with the ALiBi "
+                    f"bias as a dense float mask {libtxt}")
+            del out, lse, delta
+            torch.cuda.empty_cache()
+    # the plain versions' times, causal with both transforms
+    mask = with_xf(MaskArgs(causal=True), "both")
+    out, lse = flash_fwd_cuda(q, k, v, scale, mask, out_dtype=bf16)
+    delta = compute_delta(dout, out)
+    plain = {"fwd": cuda_ms(torch, lambda: naive_block_fwd(
+        q, k, v, scale, mask), 2, flush),
+        "bwd": cuda_ms(torch, lambda: naive_block_bwd(
+            dout, q, k, v, lse, delta, scale, mask), 2, flush)}
+    log(f"  plain versions, causal, softcap and ALiBi: forward "
+        f"{plain['fwd']:.3f} ms, backward {plain['bwd']:.3f} ms")
+    del out, lse, delta, kr, vr
+    torch.cuda.empty_cache()
+
+    # the xform path from here on: its launches are counted, the reference
+    # runs' are not
+    def zero():
+        for fn in counters.values():
+            fn.launches = fn.xform_launches = 0
+
+    def read():
+        return ({n: fn.launches for n, fn in counters.items()},
+                {n + " XFORM": fn.xform_launches
+                 for n, fn in counters.items()})
+
+    def uncounted():
+        return _uncounted(counters)
+
+    zero()
+    # (d1) flash_attn_func, causal, softcap and ALiBi, forward and backward
+    # (B2, and B3a/B3b with deterministic) against backend="plain"
+    qt, kt, vt, dt = (x.transpose(1, 2) for x in (q, k, v, dout))
+    mask = with_xf(MaskArgs(causal=True), "both")
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o_p, lse_p = flash_attention(*leaves, scale, mask, backend="plain")
+    ref = (o_p.detach(), lse_p, *torch.autograd.grad(o_p, leaves, dout))
+    del o_p, lse_p, leaves
+    for det in (False, True):
+        leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+        o, lse_f, _ = api.flash_attn_func(
+            *leaves, causal=True, softcap=50.0, alibi_slopes=slopes,
+            return_attn_probs=True, deterministic=det)
+        got = (o.detach().transpose(1, 2), lse_f,
+               *(g.transpose(1, 2) for g in torch.autograd.grad(
+                   o, leaves, dt)))
+        _varlen_check(f"flash_attn_func softcap ALiBi deterministic={det}",
+                      got[:2], ref[:2], B1_OUT_TOL, B1_LSE_TOL)
+        _grads_check(f"flash_attn_func softcap ALiBi backward, "
+                     f"deterministic={det}", got[2:], ref[2:])
+    del got, ref, leaves, o
+    torch.cuda.empty_cache()
+    # (d2) flash_attn_varlen_func on the five-sequence packing, softcap and
+    # ALiBi on the within-sequence positions
+    vmask = with_xf(varlen_mask(torch, five, True, dev)[0], "both")
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o_p, lse_p = flash_attention(*leaves, scale, vmask, backend="plain")
+    ref = (o_p.detach()[0].transpose(0, 1), lse_p[0],
+           *(g[0].transpose(0, 1)
+             for g in torch.autograd.grad(o_p, leaves, dout)))
+    del o_p, lse_p
+    leaves = [x.detach()[0].transpose(0, 1).clone().requires_grad_()
+              for x in (q, k, v)]
+    o, lse_v, _ = api.flash_attn_varlen_func(
+        *leaves, torch.tensor(five, dtype=torch.int32, device=dev),
+        causal=True, softcap=50.0, alibi_slopes=slopes,
+        return_attn_probs=True)
+    got = (o.detach(), lse_v, *torch.autograd.grad(
+        o, leaves, dout[0].transpose(0, 1)))
+    _varlen_check(f"flash_attn_varlen_func {five} softcap ALiBi", got[:2],
+                  ref[:2], B1_OUT_TOL, B1_LSE_TOL)
+    _grads_check(f"flash_attn_varlen_func {five} softcap ALiBi backward",
+                 got[2:], ref[2:])
+    del got, ref, leaves, o, q, k, v, dout, qt, kt, vt, dt
+    torch.cuda.empty_cache()
+
+    # (d3) ring, zigzag and stripe at W=4 on one card with ALiBi: every
+    # rank's steps through the modules' own step masks (the kv of each
+    # source rank handed in), against B1/B2 with ALiBi on the whole
+    # sequence and the plain versions on its last 512 rows (out, lse, dq)
+    # and first 512 keys (dk, dv); then llama3 at W=4 with softcap and
+    # ALiBi (heads_k_stride 4: the slopes sliced a chunk at a time)
+    world, tail = 4, 512
+    s = world * t
+    q, k, v, dout = (rnd(1, hq, s, d), rnd(1, hkv, s, d), rnd(1, hkv, s, d),
+                     rnd(1, hq, s, d))
+    keys = slice(0, tail)
+
+    def whole(kind):
+        """The references on the whole sequence with transform ``kind``:
+        (mask, out, lse, (dq, dk, dv), plain on the tails)."""
+        mask = with_xf(MaskArgs(causal=True), kind)
+        with uncounted():
+            out, lse = block_fwd(q, k, v, scale, mask, out_dtype=bf16)
+            grads = block_bwd(dout, q, k, v, lse, None, scale, mask, out=out)
+        row_mask = mask._replace(offset=s - tail)
+        delta = compute_delta(dout, out)
+        p_out, p_lse = naive_block_fwd(q[:, :, -tail:], k, v, scale,
+                                       row_mask)
+        p_dq = naive_block_bwd(dout[:, :, -tail:], q[:, :, -tail:], k, v,
+                               lse[:, :, -tail:], delta[:, :, -tail:], scale,
+                               row_mask)[0]
+        _, p_dk, p_dv = naive_block_bwd(dout, q, k[:, :, keys], v[:, :, keys],
+                                        lse, delta, scale, mask)
+        return mask, out, lse, grads, (p_out, p_lse, p_dq, p_dk, p_dv)
+
+    def hold(what, got, ref):
+        """Hold a schedule's (out, lse, dq, dk, dv) in global order."""
+        _, out, lse, grads, p = ref
+        errs = [_rel_err_parts(got[0], out, world), max_err(got[1], lse),
+                _rel_err(got[0][:, :, -tail:], p[0]),
+                max_err(got[1][:, :, -tail:], p[1])]
+        rel = [_rel_err(x, r) for x, r in zip(got[2:], grads)] + [
+            _rel_err(got[2][:, :, -tail:], p[2]),
+            _rel_err(got[3][:, :, keys], p[3]),
+            _rel_err(got[4][:, :, keys], p[4])]
+        log(f"    {what}: out of max|ref| by quarters {errs[0]:.3e}, lse "
+            f"{errs[1]:.3e}; plain tail out {errs[2]:.3e} lse {errs[3]:.3e}; "
+            f"gradients vs the whole sequence and plain "
+            + " ".join(f"{x:.2e}" for x in rel))
+        if (max(errs[0], errs[2]) > RING_OUT_REL_TOL
+                or max(errs[1], errs[3]) > RING_LSE_TOL
+                or max(rel) > BWD_REL_TOL):
+            raise AssertionError(f"{what} is wrong")
+
+    layouts_of = {
+        "ring": (lambda x: [c.contiguous() for c in x.chunk(world, dim=2)],
+                 lambda parts: torch.cat(parts, dim=2)),
+        "zigzag": (lambda x: [layouts.extract_local_zigzag(
+            x, r, world, axis=2).contiguous() for r in range(world)],
+            lambda parts: layouts.restore_zigzag(
+                torch.cat(parts, dim=2), world, axis=2)),
+        "stripe": (lambda x: [layouts.extract_local_stripe(
+            x, r, world, axis=2).contiguous() for r in range(world)],
+            lambda parts: layouts.restore_stripe(
+                torch.cat(parts, dim=2), world, axis=2)),
+    }
+    times = {}
+    ref = whole("alibi")
+    extras = dict(alibi_slopes=slopes)
+    for sched, (split, join) in layouts_of.items():
+        qs, ks, vs, douts = (split(x) for x in (q, k, v, dout))
+        ll = qs[0].shape[2]
+        if sched == "zigzag":
+            step_masks = zigzag._batch_masks(ll // 2, extras, dev)
+            rank_fwd, rank_bwd = _zigzag_rank_fwd, _zigzag_rank_bwd
+        else:
+            step_masks = (ring._ring_masks(True, ll, extras)
+                          if sched == "ring"
+                          else stripe._step_masks(extras, ll, dev))
+            rank_fwd, rank_bwd = _rank_fwd, _rank_bwd
+
+        def fwd(r):
+            return rank_fwd(qs, ks, vs, r, scale, step_masks)
+
+        def bwd(r, outs, lses, dkvs):
+            return rank_bwd(qs, ks, vs, douts, outs, lses, dkvs, r, scale,
+                            step_masks)
+        res = [fwd(r) for r in range(world)]
+        outs, lses = [o for o, _ in res], [x for _, x in res]
+        dkvs = [torch.zeros((2,) + tuple(x.shape), dtype=torch.float32,
+                            device=dev) for x in ks]
+        dqs = [bwd(r, outs, lses, dkvs) for r in range(world)]
+        got = (join(outs), join(lses), join(dqs), join([x[0] for x in dkvs]),
+               join([x[1] for x in dkvs]))
+        hold(f"{sched} W={world} S={s} causal ALiBi", got, ref)
+        with uncounted():
+            times[f"{sched} alibi"] = {
+                "fwd_ms": [_events_ms(torch, lambda r=r: fwd(r), 3)
+                           for r in range(world)],
+                "bwd_ms": [_events_ms(torch, lambda r=r: bwd(
+                    r, outs, lses, dkvs), 2) for r in range(world)]}
+        log(f"    {sched} ALiBi per rank: forward " + " ".join(
+            f"{x:.3f}" for x in times[f"{sched} alibi"]["fwd_ms"])
+            + " ms, backward " + " ".join(
+            f"{x:.3f}" for x in times[f"{sched} alibi"]["bwd_ms"]) + " ms")
+        del res, outs, lses, dkvs, dqs, got, qs, ks, vs, douts
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+
+    # llama3 at W=4 with softcap and ALiBi, through the module's rank
+    # functions (the gathered kv handed in) at heads_k_stride 4
+    ref = whole("both")
+    l3_mask = ref[0]
+    stride = 4
+    kv = torch.stack([k, v])
+    qs, douts = ([c.contiguous() for c in x.chunk(world, dim=2)]
+                 for x in (q, dout))
+
+    def l3_fwd(qq, kv_all, m):
+        return llama3._rank_fwd(qq, lambda i: kv_all[:, :, i:i + stride],
+                                hkv, scale, m, stride, None)
+
+    def l3_bwd(qq, o, lse_q, dd, kv_all, m):
+        parts = list(llama3._rank_bwd(
+            qq, o, lse_q, dd, lambda i: kv_all[:, :, i:i + stride], hkv,
+            scale, m, stride, None))
+        return (torch.cat([p[0] for p in parts], dim=1),
+                torch.cat([p[1] for p in parts], dim=1),
+                torch.cat([p[2] for p in parts], dim=1))
+
+    outs, lses, dqs = [], [], []
+    dkv = torch.zeros((2, 1, hkv, s, d), dtype=torch.float32, device=dev)
+    for r in range(world):
+        m = l3_mask._replace(offset=r * t)
+        o, lse_r = l3_fwd(qs[r], kv, m)
+        dq_r, dk_r, dv_r = l3_bwd(qs[r], o, lse_r, douts[r], kv, m)
+        outs.append(o)
+        lses.append(lse_r)
+        dqs.append(dq_r)
+        dkv[0].add_(dk_r)
+        dkv[1].add_(dv_r)
+    got = (torch.cat(outs, dim=2), torch.cat(lses, dim=2),
+           torch.cat(dqs, dim=2), dkv[0], dkv[1])
+    hold(f"llama3 W={world} S={s} causal softcap ALiBi, heads_k_stride "
+         f"{stride}", got, ref)
+    with uncounted():
+        times["llama3 softcap alibi"] = {
+            "fwd_ms": [_events_ms(torch, lambda r=r: l3_fwd(
+                qs[r], kv, l3_mask._replace(offset=r * t)), 3)
+                for r in range(world)]}
+    del ref, got, outs, lses, dqs, dkv, kv, qs, douts, q, k, v, dout
+    torch.cuda.empty_cache()
+
+    # llama3's last rank of W=8 with ALiBi: 65536 gathered keys at offset
+    # 57344 (B1, then B3a/B3b past the fused kernel's limit); ALiBi's bias
+    # reaches some 8e4 there, against the plain versions on the last rows
+    s8, rank = 8 * t, 7
+    q7, dout7 = rnd(1, hq, t, d), rnd(1, hq, t, d)
+    k8, v8 = rnd(1, hkv, s8, d), rnd(1, hkv, s8, d)
+    offset = rank * t
+    mask7 = MaskArgs(causal=True, offset=offset, alibi_slopes=slopes)
+    kv8 = torch.stack([k8, v8])
+    split = flash_bwd_dq_cuda.xform_launches, flash_bwd_dkv_cuda.xform_launches
+    out7, lse7 = l3_fwd(q7, kv8, mask7)
+    dq7, dk7, dv7 = l3_bwd(q7, out7, lse7, dout7, kv8, mask7)
+    ran_split = (flash_bwd_dq_cuda.xform_launches - split[0],
+                 flash_bwd_dkv_cuda.xform_launches - split[1])
+    delta7 = compute_delta(dout7, out7)
+    rows = mask7._replace(offset=offset + t - tail)
+    p_out, p_lse = naive_block_fwd(q7[:, :, -tail:], k8, v8, scale, rows)
+    p_dq = naive_block_bwd(dout7[:, :, -tail:], q7[:, :, -tail:], k8, v8,
+                           lse7[:, :, -tail:], delta7[:, :, -tail:], scale,
+                           rows)[0]
+    _, p_dk, p_dv = naive_block_bwd(dout7, q7, k8[:, :, keys], v8[:, :, keys],
+                                    lse7, delta7, scale, mask7)
+    errs = [_rel_err(out7[:, :, -tail:], p_out),
+            max_err(lse7[:, :, -tail:], p_lse),
+            _rel_err(dq7[:, :, -tail:], p_dq), _rel_err(dk7[:, :, keys], p_dk),
+            _rel_err(dv7[:, :, keys], p_dv)]
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (out7, lse7, dq7, dk7, dv7))
+    log(f"  llama3 W=8 rank 7 with ALiBi ({s8} keys, offset {offset}): "
+        f"B3a/B3b XFORM launched {ran_split}; vs plain on the last {tail} "
+        f"rows: out {errs[0]:.3e}, lse {errs[1]:.3e}, dq {errs[2]:.2e}; dk, "
+        f"dv of the first {tail} keys {errs[3]:.2e} {errs[4]:.2e}; finite "
+        f"{finite}")
+    if not (finite and ran_split == (hkv // stride,) * 2
+            and errs[0] <= RING_OUT_REL_TOL and errs[1] <= RING_LSE_TOL
+            and max(errs[2:]) <= BWD_REL_TOL):
+        raise AssertionError("llama3's last rank of W=8 with ALiBi is wrong")
+    del q7, dout7, k8, v8, kv8, out7, lse7, delta7, dq7, dk7, dv7
+    del p_out, p_lse, p_dq, p_dk, p_dv
+    torch.cuda.empty_cache()
+    xform_path = read()
+    log(f"  launches on the xform path: {xform_path}")
+    if min(xform_path[0].values()) == 0 or min(xform_path[1].values()) == 0:
+        raise AssertionError(f"a kernel of the xform path never ran: "
+                             f"{xform_path}")
+
+    # (e) zigzag varlen at W=4 on 32768 packed tokens: 4 x 8192 and the
+    # reference's packings x 4 (every length divisible by 2W), without a
+    # transform and with ALiBi: every rank's steps through the module's
+    # step masks, forward and backward, against flash_attn_varlen_func on
+    # the whole packing (the ranks' results put back in global order) and
+    # the plain versions on each rank's last 512 local rows against every
+    # key
+    zero()
+    packings = [[0, 8192, 16384, 24576, 32768]] + [
+        [4 * x for x in cu] for cu in VARLEN_PACKINGS]
+    q, k, v, dout = (rnd(s, hq, d), rnd(s, hkv, d), rnd(s, hkv, d),
+                     rnd(s, hq, d))
+    zz_times = {}
+    for cu in packings:
+        cu_local = [x // world for x in cu]
+        seg_all = cu_seqlens_to_segids(cu, s, dev)
+        pos_all = cu_seqlens_to_positions(cu, s, dev)
+        index = [extract_local_zigzag_varlen(
+            torch.arange(s, device=dev), cu, r, world) for r in range(world)]
+        loc = [[x[idx].transpose(0, 1)[None].contiguous() for idx in index]
+               for x in (q, k, v, dout)]
+        qs, ks, vs, douts = loc
+        for kind in ("none", "alibi"):
+            extras = dict(alibi_slopes=slopes if kind == "alibi" else None)
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            with uncounted():
+                ref_o, ref_lse, _ = api.flash_attn_varlen_func(
+                    *leaves, torch.tensor(cu, device=dev), causal=True,
+                    return_attn_probs=True, **extras)
+                ref_g = torch.autograd.grad(ref_o, leaves, dout)
+            masks = [zigzag_varlen.varlen_step_masks(
+                *zigzag_varlen_info([x // 2 for x in cu_local], s // world,
+                                    r, world, dev), extras)
+                for r in range(world)]
+            res = [_zigzag_rank_fwd(qs, ks, vs, r, scale, masks[r])
+                   for r in range(world)]
+            outs, lses = [o for o, _ in res], [x for _, x in res]
+            dkvs = [torch.zeros((2,) + tuple(x.shape), dtype=torch.float32,
+                                device=dev) for x in ks]
+            dqs = [_zigzag_rank_bwd(qs, ks, vs, douts, outs, lses, dkvs, r,
+                                    scale, masks[r]) for r in range(world)]
+            worst_r = [0.0] * 6
+            for r in range(world):
+                idx = index[r]
+                want = [x[idx].transpose(0, 1)[None] for x in (
+                    ref_o, ref_g[0], ref_g[1], ref_g[2])]
+                ro = _rel_err(outs[r].float(), want[0].float())
+                el = max_err(lses[r], ref_lse[:, idx][None])
+                rel = [_rel_err(x, w.float()) for x, w in zip(
+                    (dqs[r], dkvs[r][0], dkvs[r][1]), want[1:])]
+                # the plain versions: the rank's last local rows against
+                # every key of the packing
+                rows = idx[-tail:]
+                pmask = MaskArgs(causal=True, q_segids=seg_all[rows],
+                                 kv_segids=seg_all, q_pos=pos_all[rows],
+                                 kv_pos=pos_all, **extras)
+                qr_ = q[rows].transpose(0, 1)[None]
+                dr_ = dout[rows].transpose(0, 1)[None]
+                kk_, vv_ = (x.transpose(0, 1)[None] for x in (k, v))
+                p_out, p_lse = naive_block_fwd(qr_, kk_, vv_, scale, pmask)
+                p_dq = naive_block_bwd(
+                    dr_, qr_, kk_, vv_, lses[r][:, :, -tail:],
+                    compute_delta(douts[r][:, :, -tail:],
+                                  outs[r][:, :, -tail:]),
+                    scale, pmask)[0]
+                po = _rel_err(outs[r][:, :, -tail:].float(), p_out)
+                pl = max_err(lses[r][:, :, -tail:], p_lse)
+                pq = _rel_err(dqs[r][:, :, -tail:], p_dq)
+                worst_r = [max(a, b_) for a, b_ in zip(
+                    worst_r, (max(ro, po), max(el, pl), max(rel[0], pq),
+                              rel[1], rel[2], 0.0))]
+                if (max(ro, po) > RING_OUT_REL_TOL
+                        or max(el, pl) > RING_LSE_TOL
+                        or max(*rel, pq) > BWD_REL_TOL):
+                    raise AssertionError(
+                        f"zigzag varlen {cu} {kind} rank {r}: out {ro:.2e} "
+                        f"/{po:.2e} lse {el:.2e}/{pl:.2e} grads {rel} "
+                        f"plain dq {pq:.2e}")
+                if not bool(torch.isfinite(outs[r]).all()):
+                    raise AssertionError(f"zigzag varlen {cu}: non-finite")
+            log(f"    zigzag varlen W={world} {cu} {kind}: every rank within "
+                f"the limits of flash_attn_varlen_func on the whole packing "
+                f"and of the plain versions on its last {tail} rows (worst "
+                f"out {worst_r[0]:.2e}, lse {worst_r[1]:.2e}, dq "
+                f"{worst_r[2]:.2e}, dk {worst_r[3]:.2e}, dv {worst_r[4]:.2e})")
+            key = f"{cu} {kind}"
+            with uncounted():
+                zz_times[key] = {
+                    "fwd_ms": [_events_ms(torch, lambda r=r: _zigzag_rank_fwd(
+                        qs, ks, vs, r, scale, masks[r]), 3)
+                        for r in range(world)],
+                    "bwd_ms": [_events_ms(torch, lambda r=r: _zigzag_rank_bwd(
+                        qs, ks, vs, douts, outs, lses, dkvs, r, scale,
+                        masks[r]), 2) for r in range(world)]}
+            log(f"    zigzag varlen {key} per rank: forward " + " ".join(
+                f"{x:.3f}" for x in zz_times[key]["fwd_ms"])
+                + " ms, backward " + " ".join(
+                f"{x:.3f}" for x in zz_times[key]["bwd_ms"]) + " ms")
+            del res, outs, lses, dkvs, dqs, ref_o, ref_lse, ref_g, leaves
+            torch.cuda.empty_cache()
+        del loc, qs, ks, vs, douts
+    # the entry point itself at W=1 on the first packing, with ALiBi,
+    # forward and backward with deterministic (B3a/B3b)
+    cu = packings[0]
+    cu_t = torch.tensor(cu, dtype=torch.int32, device=dev)
+    idx = extract_local_zigzag_varlen(torch.arange(s, device=dev), cu, 0, 1)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    with uncounted():
+        want = api.flash_attn_varlen_func(*leaves, cu_t, causal=True,
+                                          alibi_slopes=slopes)
+        want = [x[idx] for x in (want.detach(), *torch.autograd.grad(
+            want, leaves, dout))]
+    leaves = [x[idx].detach().clone().requires_grad_() for x in (q, k, v)]
+    got = api.zigzag_ring_flash_attn_varlen_func(
+        *leaves, cu_t, causal=True, alibi_slopes=slopes, deterministic=True)
+    got = (got.detach(), *torch.autograd.grad(got, leaves, dout[idx]))
+    errs = [_rel_err(x.float(), w.float()) for x, w in zip(got, want)]
+    log(f"    zigzag_ring_flash_attn_varlen_func W=1 on {cu} with ALiBi, "
+        f"deterministic: out, dq, dk, dv " + " ".join(
+            f"{x:.2e}" for x in errs) + " of max|flash_attn_varlen_func|")
+    if errs[0] > RING_OUT_REL_TOL or max(errs[1:]) > BWD_REL_TOL:
+        raise AssertionError("zigzag varlen's entry point at W=1 is wrong")
+    del leaves
+    zz_path = read()
+    log(f"  launches on the zigzag_varlen path: {zz_path}")
+    if min(zz_path[0].values()) == 0 or min(zz_path[1].values()) == 0:
+        raise AssertionError(f"a kernel of the zigzag_varlen path never "
+                             f"ran: {zz_path}")
+    del q, k, v, dout, got, want
+    torch.cuda.empty_cache()
+
+    # the XFORM instantiations' entries: the headline reading is causal
+    # with ALiBi (SDPA with the bias computes the same function), with the
+    # softcap and both-transform readings, the packing's and the same
+    # kernel without a transform beside it
+    sources = {"B1": "flash_fwd.cuh", "B2": "flash_bwd.cuh",
+               "B3a": "flash_bwd_split.cu", "B3b": "flash_bwd.cuh"}
+    replaces = {"B1": "ring_flash_attn_tpu/ops/pallas_fwd.py:161",
+                "B2": "ring_flash_attn_tpu/ops/pallas_bwd_fused.py:59",
+                "B3a": "ring_flash_attn_tpu/ops/pallas_bwd.py:56",
+                "B3b": "ring_flash_attn_tpu/ops/pallas_bwd.py:256"}
+    entries = []
+    for base in XFORM_KERNELS:
+        short = base.split()[0]
+        name = base + " XFORM"
+        tk = timed[short]
+        head = tk["causal"]["alibi"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "ring_flash_attn_tpu_torch/csrc/" + sources[short],
+            "replaces": replaces[short],
+            "shape": "q (1,32,8192,128) kv (1,8,8192,128) bf16 causal, "
+                     "ALiBi on the standard slopes of 32 heads",
+            "launches": xform_path[1][name],
+            "launches_by_path": {"xform": xform_path[1][name],
+                                 "zigzag_varlen": zz_path[1][name]},
+            "max_abs_err": worst[short][0], "max_rel_err": worst[short][1],
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": plain["fwd" if short == "B1" else "bwd"],
+            "bound_ms": head["bound_ms"], "bound_by": "operations",
+            "library_ms": head["library_ms"],
+            "library": "F.scaled_dot_product_attention with the ALiBi bias "
+                       "as a dense float mask, kv repeated to 32 heads",
+            "softcap_library_ms": "none",
+            "by_transform": tk,
+        })
+        if short == "B1":
+            entries[-1]["max_lse_err"] = worst["B1"][2]
+    return (entries, {"xform": xform_path[0], "zigzag_varlen": zz_path[0]},
+            {"w4_per_rank_xform_ms": times,
+             "w4_per_rank_zigzag_varlen_ms": zz_times})
+
+
 def main():
     import torch
 
@@ -3601,6 +4445,9 @@ def main():
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     varlen_readings, varlen, varlen_times = run(
         "packed sequences", phase_varlen, torch, flush)
+    torch.cuda.empty_cache()
+    xform_entries, xform_paths, xform_times = run(
+        "softcap and ALiBi, zigzag varlen", phase_xform, torch, flush)
     del flush
     next(k for k in kernels if k["name"].startswith("B7"))[
         "w4_causal_forward_ms"] = ring_compare
@@ -3608,6 +4455,12 @@ def main():
     b1["w4_per_rank_stripe_vs_ring_ms"] = stripe_times
     b1.update(llama3_times)
     b1["w4_per_rank_varlen_ms"] = varlen_times
+    b1.update(xform_times)
+    for k in xform_entries:
+        # the XFORM instantiations' counts come from phase 17's paths
+        k["ptxas"] = kernel_ptxas(built, k["name"])
+        k["ptxas_varlen"] = kernel_ptxas(built, k["name"],
+                                         SEG_INSTANTIATIONS)
     for k in kernels:
         # each kernel's count on the run of its own path: serving for B1
         # and B5, training for B2/B3a/B3b, generate for B4 (B1 runs on all
@@ -3619,7 +4472,9 @@ def main():
             ("serving", serving), ("training", training),
             ("generate", inference), ("paged_quant", paged_quant),
             ("ring", ring), ("stripe", stripe), ("moe", moe), ("tp", tp),
-            ("llama3", llama3), ("varlen", varlen))
+            ("llama3", llama3), ("varlen", varlen),
+            ("xform", xform_paths["xform"]),
+            ("zigzag_varlen", xform_paths["zigzag_varlen"]))
             if k["name"] in c}
         k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths
@@ -3629,6 +4484,7 @@ def main():
             k["ptxas_varlen"] = kernel_ptxas(built, k["name"],
                                              SEG_INSTANTIATIONS)
             k.update(varlen_readings[k["name"]])
+    kernels += xform_entries
     log(f"phase seconds {seconds}; phases took "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

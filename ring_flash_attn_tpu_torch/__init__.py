@@ -12,7 +12,8 @@ zigzag, fused-ring, stripe, Ulysses and USP schedules of ``parallel``, the
 ``api`` functions of the ring, zigzag and stripe schedules, the attention
 registry of ``adapters`` and ``train_step`` with a sequence group and a
 Ulysses group) and packed (varlen) sequences (``flash_attn_varlen_func``,
-``ring_flash_attn_varlen_func``, ``llama3_flash_attn_varlen_func``), with
+``ring_flash_attn_varlen_func``, ``zigzag_ring_flash_attn_varlen_func``,
+``llama3_flash_attn_varlen_func``), softcap and ALiBi on all of them, with
 nine kernels written by hand in CUDA C++ for
 ``sm_90a`` (``csrc/``): the flash forward (B1), bf16 paged decode (B5), the fused
 flash backward (B2), the split backward (B3a dq, B3b dk/dv), decode over
@@ -53,6 +54,9 @@ from .api import (  # noqa: F401
     zigzag_ring_flash_attn_func,
     zigzag_ring_flash_attn_kvpacked_func,
     zigzag_ring_flash_attn_qkvpacked_func,
+    zigzag_ring_flash_attn_varlen_func,
+    zigzag_ring_flash_attn_varlen_kvpacked_func,
+    zigzag_ring_flash_attn_varlen_qkvpacked_func,
 )
 from .config import resolve_device  # noqa: F401
 from .models import (  # noqa: F401
@@ -76,6 +80,7 @@ from .parallel import (  # noqa: F401
     ulysses_attention,
     usp_attention,
     zigzag_ring_attention,
+    zigzag_ring_attention_varlen,
 )
 
 __all__ = [
@@ -116,6 +121,9 @@ __all__ = [
     "zigzag_ring_flash_attn_func",
     "zigzag_ring_flash_attn_kvpacked_func",
     "zigzag_ring_flash_attn_qkvpacked_func",
+    "zigzag_ring_flash_attn_varlen_func",
+    "zigzag_ring_flash_attn_varlen_kvpacked_func",
+    "zigzag_ring_flash_attn_varlen_qkvpacked_func",
     "RingAttentionLayer",
     "get_attention",
     "list_attention",
@@ -127,4 +135,5 @@ __all__ = [
     "ulysses_attention",
     "usp_attention",
     "zigzag_ring_attention",
+    "zigzag_ring_attention_varlen",
 ]

@@ -18,13 +18,12 @@ signature,
   ``parallel.layouts``).
 - ``segment_ids`` and ``positions`` ((S,) int32 on q's device) belong to
   the packed (varlen) entries: flash takes them as its mask's, ring_varlen
-  needs them (``ops/varlen.py::ring_varlen_info``), llama3 takes
-  ``segment_ids`` as its globally consistent labels; the batch entries
-  refuse them.
+  and zigzag_varlen need them (``ops/varlen.py::ring_varlen_info``,
+  ``zigzag_varlen_info``), llama3 takes ``segment_ids`` as its globally
+  consistent labels; the batch entries refuse them.
 
 Registered: flash, ring, zigzag, stripe, llama3, ulysses, fused_ring,
-ring_varlen. The JAX package's zigzag_varlen is not ported yet: asking for
-it raises a ``KeyError`` that names ROADMAP.md.
+ring_varlen, zigzag_varlen: every entry of the JAX package's registry.
 ``register_attention`` adds custom entries.
 
 ``RingAttentionLayer`` wraps an entry as a stateless callable that a model
@@ -40,9 +39,9 @@ from ..parallel.ring_varlen import ring_attention_varlen
 from ..parallel.stripe import stripe_attention
 from ..parallel.ulysses import ulysses_attention
 from ..parallel.zigzag import zigzag_ring_attention
+from ..parallel.zigzag_varlen import zigzag_ring_attention_varlen
 
 _REGISTRY = {}
-_NOT_PORTED = ("zigzag_varlen",)
 
 
 def register_attention(name, fn, overwrite=False):
@@ -56,9 +55,6 @@ def register_attention(name, fn, overwrite=False):
 def get_attention(name):
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise KeyError(f"attention impl {name!r} is not ported yet (see "
-                       f"ROADMAP.md); available: {sorted(_REGISTRY)}")
     raise KeyError(f"unknown attention impl {name!r}; available: "
                    f"{sorted(_REGISTRY)}")
 
@@ -178,24 +174,30 @@ register_attention("ulysses", _impl_ulysses)
 register_attention("fused_ring", _impl_fused_ring)
 
 
-def _impl_ring_varlen(q, k, v, *, scale=None, causal=True, axis_name=None,
-                      segment_ids=None, positions=None, softcap=None,
-                      alibi_slopes=None, dropout_p=None, dropout_seed=None,
-                      window_left=None, backend=None, deterministic=False):
-    if segment_ids is None or positions is None:
-        raise ValueError("ring_varlen needs the rank's segment_ids and "
-                         "positions (ops/varlen.py::ring_varlen_info)")
-    out, _ = ring_attention_varlen(
-        _bshd(q), _bshd(k), _bshd(v), segment_ids, positions,
-        scale=_norm(q, scale), causal=causal, group=axis_name,
-        backend=backend, softcap=softcap, alibi_slopes=alibi_slopes,
-        dropout_p=dropout_p, dropout_seed=dropout_seed,
-        window_left=window_left, deterministic=deterministic,
-    )
-    return _bshd(out)
+def _varlen_impl(name, sched, info):
+    def impl(q, k, v, *, scale=None, causal=True, axis_name=None,
+             segment_ids=None, positions=None, softcap=None,
+             alibi_slopes=None, dropout_p=None, dropout_seed=None,
+             window_left=None, backend=None, deterministic=False):
+        if segment_ids is None or positions is None:
+            raise ValueError(f"{name} needs the rank's segment_ids and "
+                             f"positions (ops/varlen.py::{info})")
+        out, _ = sched(
+            _bshd(q), _bshd(k), _bshd(v), segment_ids, positions,
+            scale=_norm(q, scale), group=axis_name, backend=backend,
+            softcap=softcap, alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+            dropout_seed=dropout_seed, window_left=window_left,
+            causal=causal, deterministic=deterministic,
+        )
+        return _bshd(out)
+
+    return impl
 
 
-register_attention("ring_varlen", _impl_ring_varlen)
+register_attention("ring_varlen", _varlen_impl(
+    "ring_varlen", ring_attention_varlen, "ring_varlen_info"))
+register_attention("zigzag_varlen", _varlen_impl(
+    "zigzag_varlen", zigzag_ring_attention_varlen, "zigzag_varlen_info"))
 
 
 class RingAttentionLayer:

@@ -5,9 +5,11 @@ surface: the single-device ``flash_attn_func`` and the distributed
 ``ring_flash_attn_func``, ``zigzag_ring_flash_attn_func`` and
 ``stripe_flash_attn_func``, each with its kv-packed and qkv-packed form;
 and for packed sequences (q (T, H, D) with ``cu_seqlens``) the
-single-device ``flash_attn_varlen_func``, ``ring_flash_attn_varlen_func``
-and ``llama3_flash_attn_varlen_func`` (with
-``llama3_flash_attn_prepare_cu_seqlens``), each with its packed forms. ``group`` is a ``torch.distributed`` process
+single-device ``flash_attn_varlen_func``, ``ring_flash_attn_varlen_func``,
+``zigzag_ring_flash_attn_varlen_func`` and
+``llama3_flash_attn_varlen_func`` (with
+``llama3_flash_attn_prepare_cu_seqlens``), each with its packed forms.
+``group`` is a ``torch.distributed`` process
 group where the JAX package takes a mesh axis name (None: the default
 group, or one process when none is initialised); the distributed functions
 are per-process, on tensors sharded along S in their schedule's layout
@@ -15,15 +17,13 @@ are per-process, on tensors sharded along S in their schedule's layout
 kernels B1 and B2 (or B3a/B3b) on the card, their plain versions on the
 CPU.
 
-Ported so far: causal or not (zigzag and stripe are causal-only), GQA,
-any ``softmax_scale``; ``softcap`` and ``alibi_slopes`` (not on zigzag or
-stripe) in the plain versions only, so they run on CPU tensors and raise
-``NotImplementedError`` from the block kernels on CUDA tensors. A
-non-default ``window_size`` or ``dropout_p`` raises ``NotImplementedError``
-until its slice ports it. The varlen entry points turn ``cu_seqlens``
-into segment ids and positions (``ops/varlen.py``) on q's device, which
-the kernels B1, B2 and B3a/B3b take; zigzag varlen is not ported yet (see
-ROADMAP.md).
+Ported so far: causal or not (zigzag, stripe and zigzag varlen are
+causal-only), GQA, any ``softmax_scale``, ``softcap`` and
+``alibi_slopes`` on every entry point, which the kernels B1, B2 and
+B3a/B3b take on the card. A non-default ``window_size`` or ``dropout_p``
+raises ``NotImplementedError`` until its slice ports it. The varlen entry
+points turn ``cu_seqlens`` into segment ids and positions
+(``ops/varlen.py``) on q's device, which the kernels take too.
 
 ``deterministic=True`` asks every entry point here, the ring, zigzag and
 stripe ones included, for the split backward kernels B3a/B3b, which are bitwise
@@ -39,13 +39,15 @@ import torch
 from .ops.flash import flash_attention
 from .ops.mask import MaskArgs
 from .ops.varlen import (as_cu_seqlens, cu_seqlens_to_positions,
-                         cu_seqlens_to_segids, ring_varlen_info)
+                         cu_seqlens_to_segids, ring_varlen_info,
+                         zigzag_varlen_info)
 from .parallel.llama3 import llama3_attention
-from .parallel.mesh import ring_rank
+from .parallel.mesh import ring_rank, ring_size
 from .parallel.ring import ring_attention
 from .parallel.ring_varlen import ring_attention_varlen
 from .parallel.stripe import stripe_attention
 from .parallel.zigzag import zigzag_ring_attention
+from .parallel.zigzag_varlen import zigzag_ring_attention_varlen
 
 
 def _bshd_to_bhsd(x):
@@ -280,6 +282,51 @@ def ring_flash_attn_varlen_qkvpacked_func(qkv, cu_seqlens, max_seqlen=None,
                                        cu_seqlens, max_seqlen, **kw)
 
 
+def zigzag_ring_flash_attn_varlen_func(
+    q, k, v, cu_seqlens, max_seqlen=None,
+    dropout_p=0.0, softmax_scale=None, causal=True,
+    window_size=(-1, -1), softcap=0.0, alibi_slopes=None,
+    deterministic=False,
+    return_attn_probs=False, group=None, dropout_seed=None,
+):
+    """Zigzag varlen ring attention over ``group``, per process, in the
+    JAX package's grouped layout (``parallel/zigzag_varlen.py``): q
+    (T_local, Hq, D), k and v (T_local, Hkv, D) where rank r packs chunk r
+    of every sequence, then chunk 2W-1-r of every sequence
+    (``ops/varlen.py::extract_local_zigzag_varlen``), cu_seqlens the
+    LOCAL cu_seqlens (global // W), the same on every rank, every
+    sequence's length divisible by 2W. Causal only. Returns as
+    ``flash_attn_varlen_func``; ``deterministic=True`` runs every step's
+    backward on the bitwise reproducible split kernels B3a/B3b."""
+    del max_seqlen
+    t = q.shape[0]
+    cu_half = as_cu_seqlens(cu_seqlens, q.device) // 2
+    seg, pos = zigzag_varlen_info(cu_half, t, ring_rank(group),
+                                  ring_size(group))
+    out, lse = zigzag_ring_attention_varlen(
+        _thd_to_bhsd(q), _thd_to_bhsd(k), _thd_to_bhsd(v), seg, pos,
+        scale=_scale(softmax_scale, q.shape[-1]), causal=causal,
+        group=group, softcap=_cap(softcap), alibi_slopes=alibi_slopes,
+        dropout_p=dropout_p or None, dropout_seed=dropout_seed,
+        window_left=_varlen_window(window_size, causal),
+        deterministic=deterministic,
+    )
+    return _varlen_ret(out, lse, return_attn_probs)
+
+
+def zigzag_ring_flash_attn_varlen_kvpacked_func(q, kv, cu_seqlens,
+                                                max_seqlen=None, **kw):
+    return zigzag_ring_flash_attn_varlen_func(q, kv[:, 0], kv[:, 1],
+                                              cu_seqlens, max_seqlen, **kw)
+
+
+def zigzag_ring_flash_attn_varlen_qkvpacked_func(qkv, cu_seqlens,
+                                                 max_seqlen=None, **kw):
+    return zigzag_ring_flash_attn_varlen_func(qkv[:, 0], qkv[:, 1],
+                                              qkv[:, 2], cu_seqlens,
+                                              max_seqlen, **kw)
+
+
 def llama3_flash_attn_prepare_cu_seqlens(cu_seqlens, causal, rank,
                                          world_size):
     """Host-side sharding metadata with the reference's semantics, exactly
@@ -389,6 +436,9 @@ __all__ = [
     "ring_flash_attn_varlen_func",
     "ring_flash_attn_varlen_kvpacked_func",
     "ring_flash_attn_varlen_qkvpacked_func",
+    "zigzag_ring_flash_attn_varlen_func",
+    "zigzag_ring_flash_attn_varlen_kvpacked_func",
+    "zigzag_ring_flash_attn_varlen_qkvpacked_func",
     "llama3_flash_attn_prepare_cu_seqlens",
     "llama3_flash_attn_varlen_func",
     "llama3_flash_attn_varlen_kvpacked_func",

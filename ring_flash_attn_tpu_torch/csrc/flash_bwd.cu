@@ -3,7 +3,9 @@
 // Replaces the TPU kernel ring_flash_attn_tpu/ops/pallas_bwd_fused.py::
 // _bwd_fused_kernel (wrapper pallas_block_bwd_fused), for the mask model
 // the port carries: causal with a static integer offset (attend iff
-// iq + offset >= ik) or no mask, GQA (q head h reads kv head h / (Hq/Hkv)),
+// iq + offset >= ik) or no mask, segment ids and explicit positions
+// (csrc/segments.cuh), softcap and ALiBi (csrc/xform.cuh), GQA (q head h
+// reads kv head h / (Hq/Hkv)),
 // head_dim 64 or 128, bf16 q, k, v and dout. Contract of
 // ops/flash.py::block_bwd: dq fp32 (B, Hq, Sq, D); dk, dv (B, Hkv, Skv, D)
 // in fp32 or bf16, summed over the GQA group.
@@ -129,6 +131,34 @@ extern "C" int rfa_flash_bwd_seg(const void* q, const void* k, const void* v,
     return rfa_bwd::launch_kv<64, true, false, true>(
         q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
         strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
+  return cudaErrorInvalidValue;
+}
+
+// B2 with softcap or ALiBi (csrc/xform.cuh): as rfa_flash_bwd, or with a
+// non-null `seg` as rfa_flash_bwd_seg, with the transform of `xf`. Compiled
+// apart from the instantiations without it.
+extern "C" int rfa_flash_bwd_xf(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse,
+                                const float* delta, float* dq_acc, void* dk,
+                                void* dv, int B, int Hq, int Hkv, int Sq,
+                                int Skv, int D, const long long* strides,
+                                float scale, int causal, int offset,
+                                int dkv_bf16, const rfa_seg_args* seg,
+                                const rfa_xform_args* xf, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rfa_bwd::Ring ring{xf->slopes, xf->cap2, xf->pos_off, 0,
+                           xf->alibi_abs, 0};
+  const rfa_seg_args none{};
+  auto go = [&](auto fn, const rfa_seg_args& sg) {
+    return fn(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
+              strides, scale, causal, offset, dkv_bf16, st, ring, sg);
+  };
+  if (D == 128)
+    return seg ? go(rfa_bwd::launch_kv<128, true, false, true, true>, *seg)
+               : go(rfa_bwd::launch_kv<128, true, false, false, true>, none);
+  if (D == 64)
+    return seg ? go(rfa_bwd::launch_kv<64, true, false, true, true>, *seg)
+               : go(rfa_bwd::launch_kv<64, true, false, false, true>, none);
   return cudaErrorInvalidValue;
 }
 

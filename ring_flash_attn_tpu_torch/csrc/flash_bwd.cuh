@@ -63,6 +63,15 @@
 // accumulators instead of being written. Without RING all of that compiles
 // out.
 //
+// The transform is its own flag, XFORM (on by default with RING): B2 and B3b
+// with softcap or ALiBi (csrc/xform.cuh) compile it without RING, scale the
+// logits to base 2 first and transform after, as the TPU kernels do, and
+// take ALiBi's distance from the index and the offsets, or (SEG) from the
+// explicit positions: its keys' own, and a q step's first position and step
+// where the step's positions have one, else the masked body's. Their
+// segmented builds make P and P (1 - tanh^2) in one pass, element by
+// element, with no array of the softcap's factor (see the loop).
+//
 // With SEG (B2 and B3b on packed sequences, csrc/segments.cuh) a block walks
 // the q steps [kv_meta[4], kv_meta[5]] of its kv tile, clamped by the index
 // bound where the mask is causal by index or packed_self, for each q head
@@ -76,6 +85,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "segments.cuh"
+#include "xform.cuh"
 
 namespace rfa_bwd {
 
@@ -86,7 +96,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 // ---------------------------------------------------------------------------
 // kv-major loop (B2 with DQ, B3b without, B8 with DQ and RING)
 
-// What a ring step adds to a block call (B8).
+// What a ring step adds to a block call (B8). B2 and B3b with XFORM read
+// the transform's fields (slopes, cap2, q_pos0 - kv_pos0 the offset of
+// positions by index, alibi_abs) and nothing else.
 struct Ring {
   const float* slopes;  // (Hq,) ALiBi slopes * log2(e), or null
   float cap2;           // softcap * log2(e); 0 = no capping
@@ -166,7 +178,7 @@ __device__ __forceinline__ void kv_accumulate(float (&acc)[D / 2],
   }
 }
 
-template <int D, bool DQ, bool RING, bool SEG = false>
+template <int D, bool DQ, bool RING, bool SEG = false, bool XFORM = RING>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 bwd_kv_kernel(const __grid_constant__ Maps maps,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -246,7 +258,12 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
     t_hi = min(nq - 1, rfa_seg::range_hi(seg.kv_meta, seg.n_kv, kt));
     steps = group * rfa_seg::fill_classes<KV_THREADS>(
         seg_bits, rfa_seg::tile(seg.kv_meta, seg.n_kv, kt), seg.q_meta,
-        seg.n_q, t_lo, t_hi, seg.q_pos != nullptr, false);
+        seg.n_q, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg), false);
+    if constexpr (XFORM) {
+      if (seg.q_pos && ring.slopes)
+        rfa_seg::keep_affine<KV_THREADS>(seg_bits, seg.q_step + t_lo,
+                                         t_hi - t_lo + 1);
+    }
     t_first = next_live(t_lo);
   }
 
@@ -328,7 +345,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
     const int g = lane / 4, tq = lane % 4;
     const float scale_log2 = RING ? 1.f : scale * LOG2E;
     const float ds_scale = RING ? 1.f : scale;
-    const float inv_cap2 = RING && ring.cap2 > 0.f ? 1.f / ring.cap2 : 0.f;
+    const float inv_cap2 = XFORM && ring.cap2 > 0.f ? 1.f / ring.cap2 : 0.f;
 
     // SEG: segment ids and positions of this thread's keys
     int kseg[2] = {0, 0}, kpos[2] = {0, 0};
@@ -341,6 +358,14 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           if (seg.kv_pos) kpos[r] = __ldg(seg.kv_pos + key);
         }
       }
+    }
+    // XFORM on packed sequences: each key's position for ALiBi (explicit,
+    // or its index)
+    int akey[2] = {0, 0};
+    if constexpr (XFORM && SEG && !RING) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        akey[r] = seg.q_pos ? kpos[r] : nw + warp * 16 + g + r * 8;
     }
 
     float dk_acc[NA], dv_acc[NA];
@@ -360,6 +385,21 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       rfa_seg::Pair qv{};
       if (SEG && seg_masked)
         qv = rfa_seg::load_pair(seg.q_seg, seg.q_pos, m0 + 2 * lane, Sq);
+      // XFORM on packed sequences: ALiBi's distance is (qb + qsk row) -
+      // akey[r] on every step it applies to: akey the key's position
+      // (explicit, or its index), qb and qsk the step's rows' (the offset
+      // and 1 by index; on explicit positions an unmasked step's rows sit
+      // at q_pos[m0] + qsk (row - m0); a masked step's ALiBi is the masked
+      // body's)
+      int qb = ring.q_pos0, qsk = 1;
+      bool alibi = false;
+      if constexpr (XFORM && SEG && !RING) {
+        alibi = ring.slopes && !(seg.q_pos && seg_masked);
+        if (seg.q_pos && alibi) {
+          qsk = __ldg(seg.q_step + m0 / KV_BM);
+          qb = __ldg(seg.q_pos + m0) - qsk * m0;
+        }
+      }
       const char* qt = qs(s);
       const char* dot = dos(s);
       const float* l2s = lses(s);
@@ -381,85 +421,213 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       hop::wgmma_wait<1>();
       hop::fence_regs(sc);
 
-      // P^T; zero outside the mask and on the ragged edges. A ring step
-      // recomputes the forward's softcap and ALiBi first and keeps the
-      // softcap's derivative 1 - tanh^2 for dS.
+      // P^T; zero outside the mask and on the ragged edges
       const bool edge = m0 + KV_BM > Sq || nw + 64 > Skv ||
                         (causal && m0 + offset < nw + 63);
-      float dcap[RING ? 32 : 1];
-      if constexpr (RING) {
-        // one uniform branch around the whole tile
-        if (ring.cap2 > 0.f || ring.slopes) {
-          const float slope = ring.slopes ? ring.slopes[h] : 0.f;
+      uint32_t pa[4][4];
+      if constexpr (XFORM && !RING && SEG) {
+        // B2 and B3b on packed sequences with softcap or ALiBi: each logit
+        // scaled to base 2, capped and given its ALiBi bias (by index, or on
+        // the explicit positions in the masked body), P made into dV's bf16
+        // fragments as it is made and kept times the softcap's 1 - tanh^2
+        // for dS, so that the transform holds no register array: the
+        // segmented build with the array below spilled 650 bytes and ran
+        // 1.5x this one on the five-sequence packing, while without
+        // segments this form ran 1.15x the array's (80 to 120 bytes of
+        // spills; NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 17)
+        const float slope = ring.slopes ? ring.slopes[h] : 0.f;
+        // the logits in base 2, capped, in place: a loop of their own under
+        // one uniform branch (tanh inside the P loops' branches ran B2 with
+        // softcap on the five-sequence packing 1.17x slower); tanh comes
+        // back below as the capped logit / cap2
+        if (ring.cap2 > 0.f) {
+          const float k2 = scale_log2 * inv_cap2;
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
-            float x = sc[i];
-            dcap[i] = 1.f;
-            if (ring.cap2 > 0.f) {
-              const float t = tanhf(x * inv_cap2);
-              x = ring.cap2 * t;
-              dcap[i] = 1.f - t * t;
-            }
-            if (ring.slopes) {
-              const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
-              const int row = m0 + (i / 4) * 8 + tq * 2 + i % 2;
-              float dist =
-                  (float)((ring.q_pos0 + row) - (ring.kv_pos0 + key));
-              if (ring.alibi_abs) dist = fabsf(dist);
-              x -= slope * dist;
-            }
-            sc[i] = x;
-          }
+          for (int i = 0; i < 32; ++i)
+            sc[i] = ring.cap2 * tanh_fast(sc[i] * k2);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
         }
-      }
-      if (SEG && seg_masked) {
-        // a loop of its own, so that the unmasked steps' code carries none
-        // of it: element 4 c + 2 r + e is q row 8 c + 2 tq + e of the step,
-        // held by lane 4 c + tq
+        auto logit = [&](int i, int row, int key, float& dc) {
+          float x = sc[i];
+          const float t = x * inv_cap2;  // 0 without softcap: dc = 1
+          dc = 1.f - t * t;
+          if (alibi) {
+            float dist = (float)((qb + qsk * row) - akey[(i % 4) / 2]);
+            if (ring.alibi_abs) dist = fabsf(dist);
+            x -= slope * dist;
+          }
+          return x;
+        };
+        if (SEG && seg_masked) {
+          // element 4 c + 2 r + e is q row 8 c + 2 tq + e of the step, held
+          // by lane 4 c + tq; the pair e = 0, 1 is fragment 2 c + r
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            int qs, qp;
-            rfa_seg::take(qv, 4 * c + tq, e, qs, qp);
-            const int col = 8 * c + 2 * tq + e;
-            const int row = m0 + col;
+          for (int c = 0; c < 8; ++c) {
+            int qsg[2], qps[2];
+            rfa_seg::take(qv, 4 * c + tq, 0, qsg[0], qps[0]);
+            rfa_seg::take(qv, 4 * c + tq, 1, qsg[1], qps[1]);
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
-              const int i = 4 * c + 2 * r + e;
-              const int key = nw + warp * 16 + g + r * 8;
-              const bool out_ = row >= Sq || key >= Skv ||
-                                (causal && row + offset < key) ||
-                                rfa_seg::drop(seg, qs, qp, kseg[r], kpos[r]);
-              sc[i] = out_ ? 0.f : exp2f(sc[i] * scale_log2 - l2s[col]);
+              float pe[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * c + 2 * r + e;
+                const int col = 8 * c + 2 * tq + e;
+                const int row = m0 + col;
+                const int key = nw + warp * 16 + g + r * 8;
+                float dc;
+                float x = logit(i, row, key, dc);
+                if (ring.slopes && seg.q_pos) {
+                  float dist = (float)(qps[e] - kpos[r]);
+                  if (ring.alibi_abs) dist = fabsf(dist);
+                  x -= slope * dist;
+                }
+                const bool out_ =
+                    row >= Sq || key >= Skv ||
+                    (causal && row + offset < key) ||
+                    rfa_seg::drop<true>(seg, qsg[e], qps[e], kseg[r],
+                                        kpos[r]);
+                pe[e] = out_ ? 0.f : exp2f(x - l2s[col]);
+                sc[i] = pe[e] * dc;
+              }
+              pa[(2 * c + r) / 4][(2 * c + r) % 4] =
+                  rfa::pack_bf16(pe[0], pe[1]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < 16; ++m) {
+            float pe[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 2 * m + e;
+              const int col = (i / 4) * 8 + tq * 2 + i % 2;
+              const int row = m0 + col;
+              const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
+              float dc;
+              float p = exp2f(logit(i, row, key, dc) - l2s[col]);
+              if (edge) {
+                if (row >= Sq || key >= Skv || (causal && row + offset < key))
+                  p = 0.f;
+              }
+              pe[e] = p;
+              sc[i] = p * dc;
+            }
+            pa[m / 4][m % 4] = rfa::pack_bf16(pe[0], pe[1]);
+          }
+        }
+        hop::wgmma_fence();
+        kv_accumulate<D>(dv_acc, pa, dot);  // dV += P^T dout
+        hop::wgmma_commit();
+      } else {
+        // XFORM recomputes the forward's softcap and ALiBi first (B2 and
+        // B3b scale to base 2 ahead of them, and P below scales by 1; a
+        // ring step's q arrives in base 2) and keeps the softcap's
+        // derivative 1 - tanh^2 for dS
+        float dcap[XFORM ? 32 : 1];
+        if constexpr (XFORM && !RING) {
+          // the cap, then ALiBi by index, each a loop of its own under one
+          // uniform branch
+          const float slope = ring.slopes ? ring.slopes[h] : 0.f;
+          if (ring.cap2 > 0.f) {
+            const float k2 = scale_log2 * inv_cap2;
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              const float t = tanh_fast(sc[i] * k2);
+              sc[i] = ring.cap2 * t;
+              dcap[i] = 1.f - t * t;
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+          }
+          if (ring.slopes) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
+              const int row = m0 + (i / 4) * 8 + tq * 2 + i % 2;
+              float dist = (float)((ring.q_pos0 + row) - key);
+              if (ring.alibi_abs) dist = fabsf(dist);
+              sc[i] -= slope * dist;
             }
           }
         }
-      } else {
+        if constexpr (XFORM && RING) {
+          // one uniform branch around the whole tile
+          if (ring.cap2 > 0.f || ring.slopes) {
+            const float slope = ring.slopes ? ring.slopes[h] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int col = (i / 4) * 8 + tq * 2 + i % 2;
-          float p = exp2f(sc[i] * scale_log2 - l2s[col]);
-          if (edge) {
-            const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
-            const int row = m0 + col;
-            if (row >= Sq || key >= Skv || (causal && row + offset < key))
-              p = 0.f;
+            for (int i = 0; i < 32; ++i) {
+              float x = sc[i];
+              dcap[i] = 1.f;
+              if (ring.cap2 > 0.f) {
+                const float t = tanhf(x * inv_cap2);
+                x = ring.cap2 * t;
+                dcap[i] = 1.f - t * t;
+              }
+              if (ring.slopes) {
+                const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
+                const int row = m0 + (i / 4) * 8 + tq * 2 + i % 2;
+                float dist =
+                    (float)((ring.q_pos0 + row) - (ring.kv_pos0 + key));
+                if (ring.alibi_abs) dist = fabsf(dist);
+                x -= slope * dist;
+              }
+              sc[i] = x;
+            }
           }
-          sc[i] = p;
         }
-      }
-
-      // dV += P^T dout
-      uint32_t pa[4][4];
-      hop::pack_fragments(pa, sc);
-      hop::wgmma_fence();
-      kv_accumulate<D>(dv_acc, pa, dot);
-      hop::wgmma_commit();
-      if constexpr (RING) {
-        if (ring.cap2 > 0.f) {
+        if (SEG && seg_masked) {
+          // a loop of its own, so that the unmasked steps' code carries none
+          // of it: element 4 c + 2 r + e is q row 8 c + 2 tq + e of the step,
+          // held by lane 4 c + tq
 #pragma unroll
-          for (int i = 0; i < 32; ++i) sc[i] *= dcap[i];  // p (1 - tanh^2)
+          for (int c = 0; c < 8; ++c) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              int qs, qp;
+              rfa_seg::take(qv, 4 * c + tq, e, qs, qp);
+              const int col = 8 * c + 2 * tq + e;
+              const int row = m0 + col;
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int i = 4 * c + 2 * r + e;
+                const int key = nw + warp * 16 + g + r * 8;
+                const bool out_ = row >= Sq || key >= Skv ||
+                                  (causal && row + offset < key) ||
+                                  rfa_seg::drop(seg, qs, qp, kseg[r], kpos[r]);
+                sc[i] = out_ ? 0.f : exp2f(sc[i] * scale_log2 - l2s[col]);
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = (i / 4) * 8 + tq * 2 + i % 2;
+            float p = exp2f(sc[i] * (XFORM && !RING ? 1.f : scale_log2) -
+                            l2s[col]);
+            if (edge) {
+              const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
+              const int row = m0 + col;
+              if (row >= Sq || key >= Skv || (causal && row + offset < key))
+                p = 0.f;
+            }
+            sc[i] = p;
+          }
+        }
+
+        // dV += P^T dout
+        hop::pack_fragments(pa, sc);
+        hop::wgmma_fence();
+        kv_accumulate<D>(dv_acc, pa, dot);
+        hop::wgmma_commit();
+        if constexpr (XFORM) {
+          if (ring.cap2 > 0.f) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) sc[i] *= dcap[i];  // p (1 - tanh^2)
+          }
         }
       }
 
@@ -588,14 +756,15 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
 
 // strides: (b, h, s) of q, k, v and dout in elements, 16-byte multiples;
 // the last dim contiguous and every base 16-byte aligned (TMA's terms).
-template <int D, bool DQ, bool RING = false, bool SEG = false>
+template <int D, bool DQ, bool RING = false, bool SEG = false,
+          bool XFORM = RING>
 int launch_kv(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, float* dq_acc, void* dk,
               void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
               const long long* strides, float scale, int causal, int offset,
               int dkv_bf16, cudaStream_t stream, const Ring& ring = Ring{},
               const rfa_seg_args& seg = rfa_seg_args{}) {
-  auto kern = bwd_kv_kernel<D, DQ, RING, SEG>;
+  auto kern = bwd_kv_kernel<D, DQ, RING, SEG, XFORM>;
   // SEG: the q steps' classes past the barriers
   const int bytes =
       KvSmem<D, DQ>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_q) : 0);

@@ -59,6 +59,15 @@
 // [kv_meta[4], kv_meta[5]] of its kv tile, each skipping the tiles whose
 // segments or positions cannot meet and masking those that straddle an
 // edge, exactly as the forward applied the mask.
+//
+// Softcap and ALiBi (csrc/xform.cuh) are compiled apart too (XFORM): B3a
+// scales its logits to base 2, caps them, takes ALiBi from the index and
+// the offsets (or, SEG, from the explicit positions: its rows' own, and a kv
+// tile's first position and step where it has one, else the masked
+// body's) and masks, as the forward did; P, which
+// B3a needs only for dS, is stored already times the softcap's 1 - tanh^2,
+// so that the transform costs no register array. B3b is the kv-major
+// loop's XFORM instantiation (csrc/flash_bwd.cuh).
 
 #include "flash_bwd.cuh"
 
@@ -111,13 +120,14 @@ __device__ __forceinline__ void dq_scores(float (&acc)[32], const char* a,
   }
 }
 
-template <int D, bool SEG = false>
+template <int D, bool SEG = false, bool XFORM = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_dq_kernel(const __grid_constant__ DqMaps maps,
               const float* __restrict__ lse, const float* __restrict__ delta,
               void* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv,
               float scale, int causal, int offset, int dq_bf16,
-              const __grid_constant__ rfa_seg_args seg) {
+              const __grid_constant__ rfa_seg_args seg,
+              const rfa_xform_args xf) {
   using S = DqSmem<D>;
   constexpr int NQ = D / 2;  // fp32 of a 64 x D accumulator a thread holds
   extern __shared__ __align__(16) char smem_raw[];
@@ -178,7 +188,12 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
     t_hi = min(n_tiles - 1, rfa_seg::range_hi(seg.q_meta, seg.n_q, qt));
     n_tiles = rfa_seg::fill_classes<NTHREADS>(
         seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
-        seg.n_kv, t_lo, t_hi, seg.q_pos != nullptr, true);
+        seg.n_kv, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg), true);
+    if constexpr (XFORM) {
+      if (seg.q_pos && xf.slopes)
+        rfa_seg::keep_affine<NTHREADS>(seg_bits, seg.kv_step + t_lo,
+                                       t_hi - t_lo + 1);
+    }
   }
 
   if (threadIdx.x >= CONSUMERS) {
@@ -228,6 +243,12 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
   const char* qa = qs + wg * 64 * 128;  // this warpgroup's rows of a panel
   const char* doa = dos + wg * 64 * 128;
   const float scale_log2 = scale * LOG2E;
+  // XFORM: this head's ALiBi slope and the cap's reciprocal (base 2)
+  float slope = 0.f, inv_cap2 = 0.f;
+  if constexpr (XFORM) {
+    if (xf.slopes) slope = xf.slopes[h];
+    if (xf.cap2 > 0.f) inv_cap2 = 1.f / xf.cap2;
+  }
 
   float dqa[NQ];
 #pragma unroll
@@ -253,6 +274,15 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
         }
       }
     }
+    // XFORM: ALiBi's distance is arow[r] - (kb + ks col) on every tile it
+    // applies to: arow the row's position (explicit, or the index plus the
+    // offset), kb and ks the tile's keys' (0 and 1 by index)
+    int arow[2] = {0, 0};
+    if constexpr (XFORM) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        arow[r] = SEG && seg.q_pos ? qpos[r] : xf.pos_off + r_lo + 8 * r;
+    }
     hop::mbar_wait(q_bar, 0);
 
     // tile j: issue S and dP; P while dP runs; dS; issue dQ += dS K and go
@@ -272,6 +302,18 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       rfa_seg::Pair kv{};
       if (SEG && seg_masked)
         kv = rfa_seg::load_pair(seg.kv_seg, seg.kv_pos, n0 + 2 * lane, Skv);
+      // XFORM: the tile's kb and ks (on explicit positions, an unmasked
+      // tile's keys sit at kp0 + ksk (col - n0); a masked tile's ALiBi is
+      // the masked body's)
+      int kb = 0, ksk = 1;
+      bool alibi = false;
+      if constexpr (XFORM) {
+        alibi = xf.slopes && !(SEG && seg.q_pos && seg_masked);
+        if (SEG && seg.q_pos && alibi) {
+          ksk = __ldg(seg.kv_step + n0 / BN);
+          kb = __ldg(seg.kv_pos + n0) - ksk * n0;
+        }
+      }
       float sc[32], dp[32];
       hop::mbar_wait(&full_k[s], ph);
       hop::mbar_wait(&full_v[s], ph);
@@ -284,6 +326,36 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       hop::fence_regs(sc);
       hop::fence_regs(dqa);
       if (j > 0) hop::mbar_arrive(&empty_k[(j - 1) % STAGES]);
+
+      // XFORM: logit i in base 2 through softcap and ALiBi (one formula
+      // for every tile it applies to: an extra branch for the explicit
+      // positions' case ran B3a with softcap on the five-sequence packing
+      // 1.2x slower), and in dc the softcap's 1 - tanh^2, folded into P
+      // where P is made
+      if constexpr (XFORM) {
+        // the logits in base 2, capped, in place: a loop of their own under
+        // one uniform branch; tanh comes back below as capped logit / cap2
+        if (xf.cap2 > 0.f) {
+          const float k2 = scale_log2 * inv_cap2;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sc[i] = xf.cap2 * tanh_fast(sc[i] * k2);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+        }
+      }
+      auto transform = [&](int i, float& dc) {
+        float x = sc[i];
+        const float t = x * inv_cap2;  // 0 without softcap: dc = 1
+        dc = 1.f - t * t;
+        if (alibi) {
+          const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
+          float dist = (float)(arow[(i % 4) / 2] - (kb + ksk * col));
+          if (xf.alibi_abs) dist = fabsf(dist);
+          x -= slope * dist;
+        }
+        return x;
+      };
 
       // P; zero past the ragged key edge and the causal diagonal (and,
       // SEG, outside the segments and the positions' diagonal)
@@ -305,8 +377,20 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
               const int i = 4 * c + 2 * r + e;
               const bool out_ = col >= Skv ||
                                 (causal && r_lo + 8 * r + offset < col) ||
-                                rfa_seg::drop(seg, qseg[r], qpos[r], ks, kp);
-              sc[i] = out_ ? 0.f : exp2f(sc[i] * scale_log2 - l2[r]);
+                                rfa_seg::drop<XFORM>(seg, qseg[r], qpos[r],
+                                                     ks, kp);
+              if constexpr (XFORM) {
+                float dc;
+                float x = transform(i, dc);
+                if (xf.slopes && seg.q_pos) {
+                  float dist = (float)(qpos[r] - kp);
+                  if (xf.alibi_abs) dist = fabsf(dist);
+                  x -= slope * dist;
+                }
+                sc[i] = out_ ? 0.f : exp2f(x - l2[r]) * dc;
+              } else {
+                sc[i] = out_ ? 0.f : exp2f(sc[i] * scale_log2 - l2[r]);
+              }
             }
           }
         }
@@ -314,7 +398,13 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int r = (i % 4) / 2;
-          float p = exp2f(sc[i] * scale_log2 - l2[r]);
+          float p;
+          if constexpr (XFORM) {
+            float dc;
+            p = exp2f(transform(i, dc) - l2[r]) * dc;
+          } else {
+            p = exp2f(sc[i] * scale_log2 - l2[r]);
+          }
           if (edge) {
             const int row = r_lo + 8 * r;
             const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
@@ -374,13 +464,14 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
 
 // strides: (b, h, s) of q, k, v and dout in elements, 16-byte multiples;
 // the last dim contiguous and every base 16-byte aligned (TMA's terms).
-template <int D, bool SEG = false>
+template <int D, bool SEG = false, bool XFORM = false>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int Hq,
               int Hkv, int Sq, int Skv, const long long* strides, float scale,
               int causal, int offset, int dq_bf16, cudaStream_t stream,
-              const rfa_seg_args& seg = rfa_seg_args{}) {
-  auto kern = bwd_dq_kernel<D, SEG>;
+              const rfa_seg_args& seg = rfa_seg_args{},
+              const rfa_xform_args& xf = rfa_xform_args{}) {
+  auto kern = bwd_dq_kernel<D, SEG, XFORM>;
   // SEG: the kv tiles' classes past the barriers
   const int bytes =
       DqSmem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
@@ -408,7 +499,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid(B * Hq, tiles);
   kern<<<grid, NTHREADS, bytes, stream>>>(maps, lse, delta, dq, Hq, Hkv, Sq,
                                           Skv, scale, causal, offset,
-                                          dq_bf16, seg);
+                                          dq_bf16, seg, xf);
   return cudaGetLastError();
 }
 
@@ -495,5 +586,58 @@ extern "C" int rfa_flash_bwd_dkv_seg(const void* q, const void* k,
     return rfa_bwd::launch_kv<64, false, false, true>(
         q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
         strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
+  return cudaErrorInvalidValue;
+}
+
+// B3a and B3b with softcap or ALiBi (csrc/xform.cuh): as rfa_flash_bwd_dq
+// and rfa_flash_bwd_dkv, or with a non-null `seg` as their segmented forms,
+// with the transform of `xf`. Compiled apart from the instantiations
+// without it.
+extern "C" int rfa_flash_bwd_dq_xf(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const float* lse, const float* delta,
+                                   void* dq, int B, int Hq, int Hkv, int Sq,
+                                   int Skv, int D, const long long* strides,
+                                   float scale, int causal, int offset,
+                                   int dq_bf16, const rfa_seg_args* seg,
+                                   const rfa_xform_args* xf, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rfa_seg_args none{};
+  auto go = [&](auto fn, const rfa_seg_args& sg) {
+    return fn(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv, strides,
+              scale, causal, offset, dq_bf16, st, sg, *xf);
+  };
+  if (D == 128)
+    return seg ? go(launch_dq<128, true, true>, *seg)
+               : go(launch_dq<128, false, true>, none);
+  if (D == 64)
+    return seg ? go(launch_dq<64, true, true>, *seg)
+               : go(launch_dq<64, false, true>, none);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int rfa_flash_bwd_dkv_xf(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* lse, const float* delta,
+                                    void* dk, void* dv, int B, int Hq,
+                                    int Hkv, int Sq, int Skv, int D,
+                                    const long long* strides, float scale,
+                                    int causal, int offset, int dkv_bf16,
+                                    const rfa_seg_args* seg,
+                                    const rfa_xform_args* xf, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rfa_bwd::Ring ring{xf->slopes, xf->cap2, xf->pos_off, 0,
+                           xf->alibi_abs, 0};
+  const rfa_seg_args none{};
+  auto go = [&](auto fn, const rfa_seg_args& sg) {
+    return fn(q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
+              strides, scale, causal, offset, dkv_bf16, st, ring, sg);
+  };
+  if (D == 128)
+    return seg ? go(rfa_bwd::launch_kv<128, false, false, true, true>, *seg)
+               : go(rfa_bwd::launch_kv<128, false, false, false, true>, none);
+  if (D == 64)
+    return seg ? go(rfa_bwd::launch_kv<64, false, false, true, true>, *seg)
+               : go(rfa_bwd::launch_kv<64, false, false, false, true>, none);
   return cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 // Kernel B1: blockwise flash-attention forward with online softmax.
 //
 // Replaces the TPU kernel ring_flash_attn_tpu/ops/pallas_fwd.py::_fwd_kernel
-// (wrapper pallas_block_fwd), for the mask model this slice ports: causal
+// (wrapper pallas_block_fwd), for the mask model the port carries: causal
 // with a static integer offset (attend iff iq + offset >= ik) or no mask,
-// GQA (q head h reads kv head h / (Hq / Hkv)). Contract of
+// segment ids and explicit positions (csrc/segments.cuh), softcap and ALiBi
+// (csrc/xform.cuh), GQA (q head h reads kv head h / (Hq / Hkv)). Contract of
 // ops/flash.py::block_fwd: out (B, Hq, Sq, D) in fp32 or bf16, lse fp32
 // (B, Hq, Sq) in natural log; dead rows give out = 0 and lse = NEG_INF.
 //
@@ -65,5 +66,34 @@ extern "C" int rfa_flash_fwd_seg(const void* q, const void* k, const void* v,
     return rfa_fwd::launch<64, false, false, true>(
         q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2, causal,
         offset, out_bf16, none, st, *seg);
+  return cudaErrorInvalidValue;
+}
+
+// B1 with softcap or ALiBi (csrc/xform.cuh): as rfa_flash_fwd, or with a
+// non-null `seg` as rfa_flash_fwd_seg, with the transform of `xf`. Compiled
+// apart from the instantiations without it.
+extern "C" int rfa_flash_fwd_xf(const void* q, const void* k, const void* v,
+                                void* out, float* lse, int B, int Hq, int Hkv,
+                                int Sq, int Skv, int D,
+                                const long long* strides, float scale,
+                                int causal, int offset, int out_bf16,
+                                const rfa_seg_args* seg,
+                                const rfa_xform_args* xf, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  // the Ring's transform fields alone: its state is never read without RING
+  const rfa_fwd::Ring ring{nullptr, nullptr, nullptr, xf->slopes, xf->cap2,
+                           xf->pos_off, 0, xf->alibi_abs, 1, 1};
+  const rfa_seg_args none{};
+  auto go = [&](auto fn, const rfa_seg_args& sg) {
+    return fn(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2,
+              causal, offset, out_bf16, ring, st, sg);
+  };
+  if (D == 128)
+    return seg ? go(rfa_fwd::launch<128, false, true, true>, *seg)
+               : go(rfa_fwd::launch<128, false, true, false>, none);
+  if (D == 64)
+    return seg ? go(rfa_fwd::launch<64, false, true, true>, *seg)
+               : go(rfa_fwd::launch<64, false, true, false>, none);
   return cudaErrorInvalidValue;
 }

@@ -54,6 +54,13 @@
 // its schedule). Without RING all of that compiles out and the kernel is
 // B1's.
 //
+// With XFORM and without RING (B1 with softcap or ALiBi, csrc/xform.cuh) the
+// block scales the logits to base 2 first and then applies the transform,
+// as the TPU kernel does; ALiBi takes its distance from the index and the
+// offsets, or (SEG) from the explicit positions: its rows' own, and a kv
+// tile's first position and step where the tile's positions have one, else
+// the masked body's shuffled ones.
+//
 // With SEG (B1 on packed sequences, csrc/segments.cuh) the block walks the
 // kv tiles [q_meta[4], q_meta[5]] of its q tile, clamped by the index
 // bound where the mask is causal by index or packed_self, skips the tiles
@@ -65,6 +72,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "segments.cuh"
+#include "xform.cuh"
 
 namespace rfa_fwd {
 
@@ -87,7 +95,9 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// What a ring step adds to a block call (B7).
+// What a ring step adds to a block call (B7). B1 with XFORM reads the
+// transform's fields (slopes, cap2, q_pos0 - kv_pos0 the offset of
+// positions by index, alibi_abs) and nothing else.
 struct Ring {
   float* m;             // (B, Hq, Sq) running max, base 2; NEG_INF = no key yet
   float* l;             // (B, Hq, Sq) running sum
@@ -119,11 +129,11 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
-// XFORM: the ring step has softcap or ALiBi. Compiled apart so that the
-// common step keeps B1's straight-line tile body: with one kernel and a
-// uniform run-time branch around the transform, the headline off-diagonal
-// step of the first port of this loop took 5.3 ms on the H100 where the
-// split took 5.0.
+// XFORM: the ring step, or B1's call, has softcap or ALiBi. Compiled apart
+// so that the common step keeps B1's straight-line tile body: with one
+// kernel and a uniform run-time branch around the transform, the headline
+// off-diagonal step of the first port of this loop took 5.3 ms on the H100
+// where the split took 5.0.
 template <int D, bool RING, bool XFORM = false, bool SEG = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
@@ -190,7 +200,12 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     t_hi = min(n_tiles - 1, rfa_seg::range_hi(seg.q_meta, seg.n_q, qt));
     n_tiles = rfa_seg::fill_classes<NTHREADS>(
         seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
-        seg.n_kv, t_lo, t_hi, seg.q_pos != nullptr, true);
+        seg.n_kv, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg), true);
+    if constexpr (XFORM) {
+      if (seg.q_pos && ring.slopes)
+        rfa_seg::keep_affine<NTHREADS>(seg_bits, seg.kv_step + t_lo,
+                                       t_hi - t_lo + 1);
+    }
   }
 
   if (threadIdx.x >= CONSUMERS) {
@@ -260,6 +275,10 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     if (ring.cap2 > 0.f) inv_cap2 = 1.f / ring.cap2;
   }
 
+  // XFORM, SEG with ALiBi on positions: an unmasked kv tile's first key
+  // position and step (its keys sit at kp0 + ksk (col - n0))
+  int kp0 = 0, ksk = 0;
+
   // issue S = Q K^T of stage s: 64 q rows x 128 keys
   auto scores = [&](float (&sc)[64], int s) {
 #pragma unroll
@@ -297,7 +316,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     // a ring step's q arrives pre-scaled to base 2 (scale_log2 is 1): its
     // logits go through softcap, then ALiBi on global positions, where
     // the ring has them
-    if constexpr (XFORM) {
+    if constexpr (XFORM && RING) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
         float x = sc[i];
@@ -310,6 +329,40 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
           x -= slope * dist;
         }
         sc[i] = x;
+      }
+    }
+    // B1 scales first (the mask below then scales by 1), each step a loop
+    // of its own under one uniform branch: the cap, then ALiBi by index, or
+    // on an unmasked tile's explicit positions (its keys' have a step; on
+    // a masked tile ALiBi is the masked body's). One loop with the branches
+    // inside ran B1 with softcap 1.3x slower causal, 1.5x on the
+    // five-sequence packing (NVIDIA H100 80GB HBM3, 700 W, phase 17).
+    if constexpr (XFORM && !RING) {
+      if (ring.cap2 > 0.f) {
+        const float k2 = scale_log2 * inv_cap2;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] = ring.cap2 * tanh_fast(sc[i] * k2);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+      }
+      if (ring.slopes && !(SEG && seg.q_pos)) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int row = r_lo + 8 * ((i % 4) / 2);
+          const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
+          float dist = (float)((ring.q_pos0 + row) - col);
+          if (ring.alibi_abs) dist = fabsf(dist);
+          sc[i] -= slope * dist;
+        }
+      } else if (SEG && ring.slopes && !seg_masked) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int col = 8 * (i / 4) + 2 * tq + i % 2;
+          float dist = (float)(qpos[(i % 4) / 2] - (kp0 + ksk * col));
+          if (ring.alibi_abs) dist = fabsf(dist);
+          sc[i] -= slope * dist;
+        }
       }
     }
 
@@ -331,15 +384,27 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
             const int i = 4 * c + 2 * r + e;
             const bool out_ = col >= Skv ||
                               (causal && r_lo + 8 * r + offset < col) ||
-                              rfa_seg::drop(seg, qseg[r], qpos[r], ks, kp);
-            sc[i] = out_ ? -INFINITY : sc[i] * scale_log2;
+                              rfa_seg::drop<XFORM>(seg, qseg[r], qpos[r], ks,
+                                                   kp);
+            if constexpr (XFORM) {
+              // scaled and capped above; ALiBi on the explicit positions
+              float x = sc[i];
+              if (ring.slopes && seg.q_pos) {
+                float dist = (float)(qpos[r] - kp);
+                if (ring.alibi_abs) dist = fabsf(dist);
+                x -= slope * dist;
+              }
+              sc[i] = out_ ? -INFINITY : x;
+            } else {
+              sc[i] = out_ ? -INFINITY : sc[i] * scale_log2;
+            }
           }
         }
       }
     } else {
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
-        float x = sc[i] * scale_log2;
+        float x = sc[i] * (XFORM && !RING ? 1.f : scale_log2);
         if (edge) {
           const int row = r_lo + 8 * ((i % 4) / 2);
           const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
@@ -404,6 +469,12 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
                                 Skv);
         hi = rfa_seg::load_pair(seg.kv_seg, seg.kv_pos,
                                 tt * BN + 64 + 2 * lane, Skv);
+      }
+      if constexpr (XFORM && SEG) {
+        if (!masked(tt) && seg.q_pos && ring.slopes) {
+          kp0 = __ldg(seg.kv_pos + tt * BN);
+          ksk = __ldg(seg.kv_step + tt);
+        }
       }
     };
     if (wg == 1) hop::bar_arrive(BAR_TURN, CONSUMERS);

@@ -31,20 +31,41 @@
 // 80GB HBM3, 700 W, chip_smoke.py phase 16.) The q side's own rows are read
 // once a block. Compiled apart, as a template flag, so that the mask-free
 // instantiations keep their code.
+//
+// With softcap or ALiBi (the XFORM instantiations, csrc/xform.cuh) positions
+// may reach a kernel without a causal mask: ALiBi takes its distance from
+// them. Such a kernel tests `pos_causal` where the others test q_pos (they
+// get positions only when causal). Where ALiBi meets explicit positions a
+// thread knows its own side's positions (its rows, or its keys), and an
+// unmasked tile of the other side keeps the unmasked body only where that
+// tile's positions run first + step i (q_step, kv_step from
+// ops/block_meta.py::tile_steps; keep_affine): the distance is then
+// arithmetic. Other tiles take the masked body, whose shuffles hand each
+// element its position. (Every live tile in the masked body ran B1 with
+// ALiBi at 2.8x the segmented build without XFORM on the five-sequence
+// packing; with the steps, 1.5x: NVIDIA H100 80GB HBM3, 700 W, phase 17.)
 
 #pragma once
+
+#include <climits>
 
 // What a segmented call adds (the C interface passes it by pointer).
 struct rfa_seg_args {
   const int* q_seg;   // (Sq,) segment ids, or null: no segments
   const int* kv_seg;  // (Skv,)
-  const int* q_pos;   // (Sq,) positions, or null: not causal by positions
+  const int* q_pos;   // (Sq,) positions, or null: none reach the kernel
   const int* kv_pos;  // (Skv,)
   const int* q_meta;  // (6, n_q) block_meta rows at the kernel's q tiles
   const int* kv_meta; // (6, n_kv) at its kv tiles
   int n_q, n_kv;
   int tri;  // causal by positions with packed_self: keys past the q tile's
             // last row by index are never needed (offset 0)
+  int pos_causal;  // causal by positions (read by the XFORM instantiations;
+                   // the others take a non-null q_pos to mean it)
+  // XFORM with ALiBi on positions: each tile's step (n_q,) / (n_kv,), or
+  // INT_MIN where its positions are not first + step i
+  const int* q_step;
+  const int* kv_step;
 };
 
 namespace rfa_seg {
@@ -135,6 +156,25 @@ __device__ __forceinline__ Pair load_pair(const int* seg, const int* pos,
   return v;
 }
 
+// The unmasked classes of the other side's tiles [t_lo, t_lo + len) made
+// "masked" where the tile's positions have no step (steps: the other
+// side's q_step or kv_step from t_lo on), by all NT threads of the block,
+// after fill_classes.
+template <int NT>
+__device__ void keep_affine(uint32_t* bits, const int* steps, int len) {
+  const int words = len > 0 ? (len + 15) / 16 : 0;
+  __syncthreads();
+  for (int w = threadIdx.x; w < words; w += NT) {
+    uint32_t x = bits[w];
+    for (int j = 0; j < 16 && 16 * w + j < len; ++j)
+      if (((x >> (2 * j)) & 3u) == 2u &&
+          __ldg(steps + 16 * w + j) == INT_MIN)
+        x ^= 3u << (2 * j);  // class 2 -> 1
+    bits[w] = x;
+  }
+  __syncthreads();
+}
+
 // entry e of lane src's Pair, to every lane (all 32 lanes take part)
 __device__ __forceinline__ void take(const Pair& v, int src, int e, int& s,
                                      int& p) {
@@ -143,10 +183,20 @@ __device__ __forceinline__ void take(const Pair& v, int src, int e, int& s,
 }
 
 // is the pair (q row of segment qs, position qp; key of segment ks,
-// position kp) dropped by segments or by the positions' diagonal?
+// position kp) dropped by segments or by the positions' diagonal? (XF: an
+// XFORM instantiation, which may hold positions without causal)
+template <bool XF = false>
 __device__ __forceinline__ bool drop(const rfa_seg_args& sg, int qs, int qp,
                                      int ks, int kp) {
-  return (sg.q_seg && qs != ks) || (sg.q_pos && qp < kp);
+  return (sg.q_seg && qs != ks) ||
+         ((XF ? sg.pos_causal != 0 : sg.q_pos != nullptr) && qp < kp);
+}
+
+// the `pos` argument of fill_classes: tiles are skipped on positions only
+// under a causal mask on them
+template <bool XF = false>
+__device__ __forceinline__ bool skip_on_positions(const rfa_seg_args& sg) {
+  return XF ? sg.pos_causal != 0 : sg.q_pos != nullptr;
 }
 
 }  // namespace rfa_seg

@@ -8,7 +8,15 @@ last tile bounded over its valid entries only. The kernels B1, B2,
 B3a and B3b read the rows to skip a tile whose segments cannot meet or
 whose positions lie wholly above the diagonal, to run their unmasked body
 where one segment covers both sides below the diagonal, and their masked
-body otherwise; rows 4 and 5 bound the loop.
+body otherwise; rows 4 and 5 bound the loop. Positions reach the kernels
+under a causal mask on them or under ALiBi (``mask.kernel_positions``),
+whose distance they give; tiles are skipped on positions only under the
+causal mask.
+
+This module also holds what every launch of the four kernels passes
+beside the tensors: ``launch_masked`` picks the instantiation (mask-free,
+segmented, or with softcap/ALiBi, ``csrc/xform.cuh``) and builds its
+arguments.
 
 Tile sizes of the kernels (``csrc/flash_fwd.cuh``, ``csrc/flash_bwd.cuh``,
 ``csrc/flash_bwd_split.cu``): B1 128 q rows and 128 keys, B3a 128 q rows
@@ -20,9 +28,10 @@ import ctypes
 
 import torch
 
-from .mask import MaskArgs
+from .mask import MaskArgs, causal_offset, kernel_positions
 
 INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+LOG2E = 1.4426950408889634
 
 
 def _tile_bounds(x, blk):
@@ -36,6 +45,28 @@ def _tile_bounds(x, blk):
         lo = torch.cat([x, x.new_full((pad,), INT32_MAX)])
         hi = torch.cat([x, x.new_full((pad,), INT32_MIN)])
     return lo.view(-1, blk).amin(1), hi.view(-1, blk).amax(1)
+
+
+def tile_steps(x, blk):
+    """(n_tiles,) int32 of the 1-D x in tiles of ``blk``: the step s where
+    a tile's valid entries run x[first] + s i (0 for one entry), else
+    INT32_MIN. The XFORM instantiations take ALiBi's distance on such a
+    tile from its first position and step, without the masked body."""
+    x = x.to(torch.int32)
+    n = x.shape[0]
+    n_t = -(-n // blk)
+    pad = n_t * blk - n
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad)])
+    v = x.view(n_t, blk)
+    if blk == 1:
+        return torch.zeros(n_t, dtype=torch.int32, device=x.device)
+    d = v[:, 1:] - v[:, :-1]
+    valid = (torch.arange(n_t * blk, device=x.device) < n).view(
+        n_t, blk)[:, 1:]
+    step = torch.where(valid[:, 0], d[:, 0], torch.zeros_like(d[:, 0]))
+    ok = ((d == step[:, None]) | ~valid).all(1)
+    return torch.where(ok, step, torch.full_like(step, INT32_MIN))
 
 
 def _needed_range(needed, dim):
@@ -107,14 +138,27 @@ class SegArgs(ctypes.Structure):
                 ("q_pos", ctypes.c_void_p), ("kv_pos", ctypes.c_void_p),
                 ("q_meta", ctypes.c_void_p), ("kv_meta", ctypes.c_void_p),
                 ("n_q", ctypes.c_int), ("n_kv", ctypes.c_int),
-                ("tri", ctypes.c_int)]
+                ("tri", ctypes.c_int), ("pos_causal", ctypes.c_int),
+                ("q_step", ctypes.c_void_p), ("kv_step", ctypes.c_void_p)]
+
+
+class XformArgs(ctypes.Structure):
+    """``rfa_xform_args`` of ``csrc/xform.cuh``."""
+    _fields_ = [("slopes", ctypes.c_void_p), ("cap2", ctypes.c_float),
+                ("pos_off", ctypes.c_int), ("alibi_abs", ctypes.c_int)]
 
 
 def segmented(mask: MaskArgs):
     """True when the mask needs the kernels' segmented instantiations:
-    segment ids, or a causal mask on explicit positions (positions without
-    causal constrain nothing)."""
-    return mask.has_segment_mask or (mask.causal and mask.q_pos is not None)
+    segment ids, or explicit positions that reach the kernels
+    (``kernel_positions``: causal on them, or ALiBi)."""
+    return mask.has_segment_mask or kernel_positions(mask)
+
+
+def has_xform(mask: MaskArgs):
+    """True when the mask has softcap or ALiBi: the kernels' XFORM
+    instantiations."""
+    return bool(mask.softcap) or mask.alibi_slopes is not None
 
 
 def index_causal(mask: MaskArgs):
@@ -158,14 +202,16 @@ def kernel_segments(mask: MaskArgs, dev, sq, skv, blk_q, blk_kv):
     """(SegArgs, the tensors it points at) for a segmented launch at the
     kernel's tiles of ``blk_q`` q rows and ``blk_kv`` keys. The caller
     holds the tensors until the launch is queued."""
-    pos = mask.causal and mask.q_pos is not None
+    pos = kernel_positions(mask)
     fields = (mask.q_segids, mask.kv_segids) + (
         (mask.q_pos, mask.kv_pos) if pos else (None, None))
     key = None
     if all(x is None or isinstance(x, torch.Tensor) for x in fields):
         key = (tuple(None if x is None else (id(x), x._version)
                      for x in fields),
-               pos and mask.packed_self, str(dev), sq, skv, blk_q, blk_kv)
+               pos and bool(mask.causal), pos and mask.packed_self,
+               pos and mask.alibi_slopes is not None, str(dev), sq, skv,
+               blk_q, blk_kv)
         if key in _CACHE:
             _CACHE.move_to_end(key)
             return _CACHE[key][:2]
@@ -177,16 +223,72 @@ def kernel_segments(mask: MaskArgs, dev, sq, skv, blk_q, blk_kv):
     return args, keep
 
 
-def launch_masked(plain_fn, seg_fn, args, mask, q, k, tiles, stream):
-    """Launch ``plain_fn(*args, stream)``, or for a segmented mask
-    ``seg_fn(*args, seg, stream)`` with the tile bounds at ``tiles`` (q
-    rows, keys) of the kernel, for q (B, Hq, Sq, D) and k (B, Hkv, Skv,
-    D). Returns the launch's code."""
-    if not segmented(mask):
+# the slopes times log2(e) on the device, by the source tensor's identity
+# and version (the entry holds the source, so its id is not reused): a
+# schedule's steps pass the same slopes to every launch
+_SLOPES = collections.OrderedDict()
+
+
+def _kernel_slopes(alibi_slopes, hq, dev):
+    key = None
+    if isinstance(alibi_slopes, torch.Tensor):
+        key = (id(alibi_slopes), alibi_slopes._version, hq, str(dev))
+        if key in _SLOPES:
+            _SLOPES.move_to_end(key)
+            return _SLOPES[key][0]
+    slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                             device=dev).reshape(-1)
+    if slopes.shape[0] != hq:
+        raise ValueError(f"alibi_slopes must hold one slope per q head "
+                         f"({hq}), got {slopes.shape[0]}")
+    slopes = (slopes * LOG2E).contiguous()
+    if key is not None:
+        _SLOPES[key] = (slopes, alibi_slopes)
+        if len(_SLOPES) > _CACHE_SIZE:
+            _SLOPES.popitem(last=False)
+    return slopes
+
+
+def kernel_xform(mask: MaskArgs, hq, dev):
+    """(XformArgs, the slopes tensor it points at or None) for a launch
+    with softcap or ALiBi: the slopes (Hq,) float32 on ``dev`` times
+    log2(e), cap2 = softcap * log2(e), the offset of positions by index
+    and whether ALiBi takes |distance| (not causal). The caller holds the
+    tensor until the launch is queued."""
+    slopes = None
+    if mask.alibi_slopes is not None:
+        slopes = _kernel_slopes(mask.alibi_slopes, hq, dev)
+    pos_off = 0
+    if mask.q_pos is None:
+        pos_off = causal_offset(mask)
+        if not isinstance(pos_off, int) or abs(pos_off) >= 2**30:
+            raise TypeError(f"the kernel takes a static int offset, got "
+                            f"{pos_off!r}")
+    cap2 = float(mask.softcap) * LOG2E if mask.softcap else 0.0
+    args = XformArgs(None if slopes is None else slopes.data_ptr(), cap2,
+                     pos_off, int(not mask.causal))
+    return args, slopes
+
+
+def launch_masked(fns, args, mask, q, k, tiles, stream):
+    """Launch the instantiation the mask needs, for q (B, Hq, Sq, D) and k
+    (B, Hkv, Skv, D); ``fns`` are the kernel's (mask-free, segmented,
+    softcap/ALiBi) entry points: ``plain(*args, stream)``, ``seg(*args,
+    seg, stream)`` with the tile bounds at ``tiles`` (q rows, keys) of the
+    kernel, ``xform(*args, seg or None, xform, stream)``. Returns the
+    launch's code."""
+    plain_fn, seg_fn, xform_fn = fns
+    seg = None
+    if segmented(mask):
+        seg, _held = kernel_segments(mask, q.device, q.shape[2], k.shape[2],
+                                     *tiles)
+        seg = ctypes.byref(seg)
+    if has_xform(mask):
+        xf, _slopes = kernel_xform(mask, q.shape[1], q.device)
+        return xform_fn(*args, seg, ctypes.byref(xf), stream)
+    if seg is None:
         return plain_fn(*args, stream)
-    seg, _held = kernel_segments(mask, q.device, q.shape[2], k.shape[2],
-                                 *tiles)
-    return seg_fn(*args, ctypes.byref(seg), stream)
+    return seg_fn(*args, seg, stream)
 
 
 def _kernel_segments(mask, pos, dev, sq, skv, blk_q, blk_kv):
@@ -197,15 +299,21 @@ def _kernel_segments(mask, pos, dev, sq, skv, blk_q, blk_kv):
     if pos:
         q_pos = _id_operand("q_pos", mask.q_pos, sq, dev)
         kv_pos = _id_operand("kv_pos", mask.kv_pos, skv, dev)
-    meta_mask = MaskArgs(causal=pos, q_segids=q_seg, kv_segids=kv_seg,
-                         q_pos=q_pos, kv_pos=kv_pos)
+    pos_causal = pos and bool(mask.causal)
+    meta_mask = MaskArgs(causal=pos_causal, q_segids=q_seg,
+                         kv_segids=kv_seg, q_pos=q_pos, kv_pos=kv_pos)
     q_meta, kv_meta = block_meta(meta_mask, blk_q, blk_kv, sq, skv, dev)
     keep = (q_seg, kv_seg, q_pos, kv_pos, q_meta, kv_meta)
+    q_step = kv_step = None
+    if pos and mask.alibi_slopes is not None:
+        q_step, kv_step = tile_steps(q_pos, blk_q), tile_steps(kv_pos, blk_kv)
+        keep += (q_step, kv_step)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     args = SegArgs(ptr(q_seg), ptr(kv_seg), ptr(q_pos), ptr(kv_pos),
                    ptr(q_meta), ptr(kv_meta), q_meta.shape[1],
-                   kv_meta.shape[1], int(pos and mask.packed_self))
+                   kv_meta.shape[1], int(pos_causal and mask.packed_self),
+                   int(pos_causal), ptr(q_step), ptr(kv_step))
     return args, keep

@@ -11,9 +11,12 @@ This module also holds what B2 and B3a/B3b share: the operand checks, the
 delta pre-pass launcher and the selector between them,
 ``fused_bwd_supported``. The kv-major loop of B2, B3b and B8 reads q, k, v
 and dout through TMA tensor maps, whose terms ``tma_layout_error``
-(``flash_fwd_cuda``) states. A mask with segment ids, or causal on
-explicit positions, goes to the kernels' segmented instantiations
-(``csrc/segments.cuh``) with the tile bounds of ``ops/block_meta.py``.
+(``flash_fwd_cuda``) states. A mask with segment ids, or with explicit
+positions that reach the kernels (causal on them, or ALiBi), goes to the
+kernels' segmented instantiations (``csrc/segments.cuh``) with the tile
+bounds of ``ops/block_meta.py``; a mask with softcap or ALiBi to their
+XFORM instantiations (``csrc/xform.cuh``). Each launcher's ``launches``
+counts every launch, ``xform_launches`` those with softcap or ALiBi.
 """
 
 import ctypes
@@ -21,9 +24,10 @@ import ctypes
 import torch
 
 from . import _build
-from .block_meta import SegArgs, index_causal, launch_masked
-from .flash_fwd_cuda import _check_operand, check_qkv, kernel_offset
-from .mask import MaskArgs, check_kernel_supported
+from .block_meta import SegArgs, has_xform, index_causal, launch_masked
+from .flash_fwd_cuda import (XFORM_TAIL, _check_operand, check_qkv,
+                             kernel_offset)
+from .mask import MaskArgs, check_supported
 
 # The JAX package's limit for the fused kernel (pallas_bwd_fused.py:56): the
 # TPU's VMEM budget for a head's resident fp32 dk/dv, not a Hopper limit.
@@ -40,6 +44,7 @@ _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 _SEG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.POINTER(SegArgs), ctypes.c_void_p]
+_XF_ARGTYPES = _ARGTYPES[:-1] + XFORM_TAIL
 _OUT_DTYPES = (None, torch.float32, torch.bfloat16)
 # the kv-major loop of B2 and B3b (csrc/flash_bwd.cuh): 64 q rows a step,
 # 128 keys a block
@@ -59,6 +64,8 @@ def _lib():
     lib.rfa_flash_bwd.restype = ctypes.c_int
     lib.rfa_flash_bwd_seg.argtypes = _SEG_ARGTYPES
     lib.rfa_flash_bwd_seg.restype = ctypes.c_int
+    lib.rfa_flash_bwd_xf.argtypes = _XF_ARGTYPES
+    lib.rfa_flash_bwd_xf.restype = ctypes.c_int
     return lib
 
 
@@ -78,7 +85,7 @@ def check_bwd(dout, q, k, v, lse, delta, mask: MaskArgs, out, dtypes):
     ``delta`` may be None when ``out`` (the forward output, bf16) is given.
     ``dtypes`` are the requested output dtypes (None, float32 or bfloat16).
     """
-    check_kernel_supported(mask)
+    check_supported(mask)
     offset = kernel_offset(mask)
     dev = q.device
     b, hq, _, sq, _, _ = check_qkv(q, k, v)
@@ -160,9 +167,12 @@ def flash_bwd_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
                 int(dkv_dtype == torch.bfloat16))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = launch_masked(lib.rfa_flash_bwd, lib.rfa_flash_bwd_seg, args,
-                               mask, q, k, KV_MAJOR_TILES, stream)
+            rc = launch_masked(
+                (lib.rfa_flash_bwd, lib.rfa_flash_bwd_seg,
+                 lib.rfa_flash_bwd_xf),
+                args, mask, q, k, KV_MAJOR_TILES, stream)
             flash_bwd_cuda.launches += 1
+            flash_bwd_cuda.xform_launches += has_xform(mask)
         _build.check_launch(lib, rc, "flash_bwd")
     if dq_dtype not in (None, torch.float32):
         dq = dq.to(dq_dtype)
@@ -170,3 +180,4 @@ def flash_bwd_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
 
 
 flash_bwd_cuda.launches = 0
+flash_bwd_cuda.xform_launches = 0

@@ -9,8 +9,10 @@ does), and CPU tensors to the kernels' plain version,
 ``ops/naive.py::naive_block_bwd``. Each output element is summed by one
 thread in a fixed order (no atomics or reduce-adds), so their results are
 bitwise reproducible. See the source's header for what bounds
-them on the H100. Segmented masks go to their segmented instantiations
-(``launch_masked``).
+them on the H100. Segmented masks go to their segmented instantiations,
+masks with softcap or ALiBi to their XFORM ones (``launch_masked``).
+``launches`` counts every launch, ``xform_launches`` those with softcap or
+ALiBi.
 """
 
 import ctypes
@@ -18,8 +20,9 @@ import ctypes
 import torch
 
 from . import _build
-from .block_meta import SegArgs, index_causal, launch_masked
+from .block_meta import SegArgs, has_xform, index_causal, launch_masked
 from .flash_bwd_cuda import KV_MAJOR_TILES, bwd_delta, bwd_strides, check_bwd
+from .flash_fwd_cuda import XFORM_TAIL
 from .mask import MaskArgs
 
 # rfa_flash_bwd_dq(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv, D,
@@ -48,6 +51,10 @@ def _lib():
     lib.rfa_flash_bwd_dq_seg.restype = ctypes.c_int
     lib.rfa_flash_bwd_dkv_seg.argtypes = _DKV_ARGTYPES[:-1] + _SEG_TAIL
     lib.rfa_flash_bwd_dkv_seg.restype = ctypes.c_int
+    lib.rfa_flash_bwd_dq_xf.argtypes = _DQ_ARGTYPES[:-1] + XFORM_TAIL
+    lib.rfa_flash_bwd_dq_xf.restype = ctypes.c_int
+    lib.rfa_flash_bwd_dkv_xf.argtypes = _DKV_ARGTYPES[:-1] + XFORM_TAIL
+    lib.rfa_flash_bwd_dkv_xf.restype = ctypes.c_int
     return lib
 
 
@@ -71,9 +78,12 @@ def _dq(dout, q, k, v, lse, delta, scale, mask, offset, dq_dtype):
             int(index_causal(mask)), offset, int(dq_dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = launch_masked(lib.rfa_flash_bwd_dq, lib.rfa_flash_bwd_dq_seg,
-                           args, mask, q, k, DQ_TILES, stream)
+        rc = launch_masked(
+            (lib.rfa_flash_bwd_dq, lib.rfa_flash_bwd_dq_seg,
+             lib.rfa_flash_bwd_dq_xf),
+            args, mask, q, k, DQ_TILES, stream)
         flash_bwd_dq_cuda.launches += 1
+        flash_bwd_dq_cuda.xform_launches += has_xform(mask)
     _build.check_launch(lib, rc, "flash_bwd_dq")
     return dq
 
@@ -95,9 +105,12 @@ def _dkv(dout, q, k, v, lse, delta, scale, mask, offset, dkv_dtype):
             int(dkv_dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = launch_masked(lib.rfa_flash_bwd_dkv, lib.rfa_flash_bwd_dkv_seg,
-                           args, mask, q, k, KV_MAJOR_TILES, stream)
+        rc = launch_masked(
+            (lib.rfa_flash_bwd_dkv, lib.rfa_flash_bwd_dkv_seg,
+             lib.rfa_flash_bwd_dkv_xf),
+            args, mask, q, k, KV_MAJOR_TILES, stream)
         flash_bwd_dkv_cuda.launches += 1
+        flash_bwd_dkv_cuda.xform_launches += has_xform(mask)
     _build.check_launch(lib, rc, "flash_bwd_dkv")
     return dk, dv
 
@@ -136,3 +149,5 @@ def flash_bwd_split_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dq_cuda.xform_launches = 0
+flash_bwd_dkv_cuda.xform_launches = 0

@@ -5,9 +5,13 @@ _fwd_kernel``. ``ops/flash.py::block_fwd`` sends CUDA tensors here and CPU
 tensors to the kernel's plain version, ``ops/naive.py::naive_block_fwd``.
 See the source's header for what bounds
 the kernel on the H100 and how its design answers that. A mask with
-segment ids, or causal on explicit positions, goes to the segmented
-instantiation (``rfa_flash_fwd_seg``, ``csrc/segments.cuh``) with the
-tile bounds of ``ops/block_meta.py``; the mask-free one stays as it was.
+segment ids, or with explicit positions that reach the kernel (causal on
+them, or ALiBi), goes to the segmented instantiation (``rfa_flash_fwd_seg``,
+``csrc/segments.cuh``) with the tile bounds of ``ops/block_meta.py``; a
+mask with softcap or ALiBi to the XFORM instantiations
+(``rfa_flash_fwd_xf``, ``csrc/xform.cuh``), with or without segments; the
+mask-free one stays as it was. ``launches`` counts every launch,
+``xform_launches`` those with softcap or ALiBi.
 
 This module also holds the operand checks of every kernel that reads its
 bf16 operands through TMA tensor maps (B1 and B7 here, B2, B3b and B8 in
@@ -19,8 +23,9 @@ import ctypes
 import torch
 
 from . import _build
-from .block_meta import SegArgs, index_causal, launch_masked
-from .mask import MaskArgs, causal_offset, check_kernel_supported
+from .block_meta import (SegArgs, XformArgs, has_xform, index_causal,
+                         launch_masked)
+from .mask import MaskArgs, causal_offset, check_supported
 
 TMA_MAX_STRIDE = 2**40  # bytes: the limit on a TMA tensor map's strides
 Q_TILE = 128  # q rows a block of B1 and B7 (csrc/flash_fwd.cuh)
@@ -38,6 +43,11 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
 # rfa_flash_fwd_seg(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, strides,
 #                   scale, causal, offset, out_bf16, seg, stream)
 _SEG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.POINTER(SegArgs), ctypes.c_void_p]
+# rfa_flash_fwd_xf(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, strides,
+#                  scale, causal, offset, out_bf16, seg or NULL, xform, stream)
+XFORM_TAIL = [ctypes.POINTER(SegArgs), ctypes.POINTER(XformArgs),
+              ctypes.c_void_p]
+_XF_ARGTYPES = _ARGTYPES[:-1] + XFORM_TAIL
 
 
 def _lib():
@@ -46,6 +56,8 @@ def _lib():
     lib.rfa_flash_fwd.restype = ctypes.c_int
     lib.rfa_flash_fwd_seg.argtypes = _SEG_ARGTYPES
     lib.rfa_flash_fwd_seg.restype = ctypes.c_int
+    lib.rfa_flash_fwd_xf.argtypes = _XF_ARGTYPES
+    lib.rfa_flash_fwd_xf.restype = ctypes.c_int
     return lib
 
 
@@ -126,11 +138,11 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
     q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) in bf16 with D in {64, 128}
     and Hq % Hkv == 0, each in a layout the TMA maps read
     (``tma_layout_error``: ``ops/flash.py::_kernel_layout`` gives one);
-    ``mask`` causal or not, with a static int offset, and with segment ids
+    ``mask`` causal or not, with a static int offset, with segment ids
     and explicit positions ((Sq,)/(Skv,) int32 on the card, or int64
-    narrowed). out_dtype is float32 (the mergeable contract) or
-    bfloat16."""
-    check_kernel_supported(mask)
+    narrowed), softcap and ALiBi (Hq slopes). out_dtype is float32 (the
+    mergeable contract) or bfloat16."""
+    check_supported(mask)
     offset = kernel_offset(mask)
     dev = q.device
     b, hq, hkv, sq, skv, d = check_qkv(q, k, v)
@@ -152,11 +164,14 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
             int(out_dtype == torch.bfloat16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch_masked(lib.rfa_flash_fwd, lib.rfa_flash_fwd_seg, args,
-                           mask, q, k, (Q_TILE, KV_TILE), stream)
+        rc = launch_masked(
+            (lib.rfa_flash_fwd, lib.rfa_flash_fwd_seg, lib.rfa_flash_fwd_xf),
+            args, mask, q, k, (Q_TILE, KV_TILE), stream)
         flash_fwd_cuda.launches += 1
+        flash_fwd_cuda.xform_launches += has_xform(mask)
     _build.check_launch(lib, rc, "flash_fwd")
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.xform_launches = 0

@@ -6,12 +6,11 @@ position model of ``causal``, ``offset`` and ``kv_offset`` (attend iff
 ``iq + offset >= ik + kv_offset``) and packed sequences, segment ids
 ``q_segids``/``kv_segids`` (attend only within a segment) and explicit
 positions ``q_pos``/``kv_pos`` (which override the offsets: attend iff
-``q_pos >= kv_pos`` when causal), everywhere, the block kernels B1, B2 and
-B3a/B3b included; ``softcap`` and ``alibi_slopes`` in the plain versions
-(``ops/naive.py``) and the fused ring's kernels B7/B8, while B1, B2 and
-B3a/B3b raise ``NotImplementedError`` for those two
-(``check_kernel_supported``). Windows and dropout raise
-``NotImplementedError`` everywhere until their slice ports them.
+``q_pos >= kv_pos`` when causal), and the logit transforms ``softcap``
+and ``alibi_slopes``, everywhere: the plain versions (``ops/naive.py``),
+the block kernels B1, B2 and B3a/B3b and the fused ring's kernels B7/B8.
+Windows and dropout raise ``NotImplementedError`` everywhere until their
+slice ports them.
 
 Segment ids and positions are (Sq,)/(Skv,) integer tensors (or arrays),
 shared over batch and heads, as in the JAX package. ``packed_self`` keeps
@@ -52,7 +51,6 @@ class MaskArgs(NamedTuple):
 
 
 _UNPORTED = ("window_left", "window_right")
-_KERNEL_UNPORTED = ("softcap", "alibi_slopes")
 
 
 def check_supported(mask: MaskArgs):
@@ -71,16 +69,12 @@ def check_supported(mask: MaskArgs):
             raise ValueError(f"MaskArgs.{a} and MaskArgs.{b} go together")
 
 
-def check_kernel_supported(mask: MaskArgs):
-    """``check_supported``, and the logit transforms that only the plain
-    versions have so far: for the block kernels B1, B2 and B3a/B3b."""
-    check_supported(mask)
-    for name in _KERNEL_UNPORTED:
-        if getattr(mask, name) is not None:
-            raise NotImplementedError(
-                f"MaskArgs.{name} is not ported to the block kernels yet "
-                f"(see ROADMAP.md); backend='plain' has it"
-            )
+def kernel_positions(mask: MaskArgs):
+    """True when the explicit positions reach the block kernels: a causal
+    mask on them, or ALiBi, whose distance they give. Without either,
+    positions change nothing."""
+    return mask.q_pos is not None and (
+        bool(mask.causal) or mask.alibi_slopes is not None)
 
 
 def causal_offset(mask: MaskArgs):
@@ -130,6 +124,16 @@ def position_diff(mask: MaskArgs, sq: int, skv: int, device=None):
     """(Sq, Skv) int64 q_pos - kv_pos per the mask's position model."""
     qp, kp = positions(mask, sq, skv, device)
     return qp[:, None] - kp[None, :]
+
+
+def slopes_on(alibi_slopes, device):
+    """The ALiBi slopes as a (Hq,) float32 tensor on ``device`` (None
+    stays None): a schedule puts them there once a call, and its steps'
+    launches then take the same tensor."""
+    if alibi_slopes is None:
+        return None
+    return torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                           device=device).reshape(-1)
 
 
 def alibi_bias(mask: MaskArgs, hkv: int, group: int, sq: int, skv: int,

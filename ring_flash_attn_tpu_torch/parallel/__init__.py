@@ -27,6 +27,7 @@ from .ring_varlen import ring_attention_varlen
 from .stripe import stripe_attention
 from .ulysses import ulysses_attention, usp_attention
 from .zigzag import zigzag_ring_attention
+from .zigzag_varlen import zigzag_ring_attention_varlen
 
 __all__ = [
     "layouts",
@@ -54,4 +55,5 @@ __all__ = [
     "ulysses_attention",
     "usp_attention",
     "zigzag_ring_attention",
+    "zigzag_ring_attention_varlen",
 ]

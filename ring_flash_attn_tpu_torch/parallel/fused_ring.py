@@ -309,9 +309,9 @@ def fused_ring_attention(q, k, v, *, scale, causal, group=None,
 
     Backward (``bwd_mode``): "fused" is the dual ring of B8 steps;
     "schedule" the schedule-level dual ring (``ring.ring_loop_bwd``: kernels
-    B2/B3, which lack softcap and ALiBi on the card), run with
-    ``bwd_backend`` (default: ``backend``); "auto" takes the fused one
-    where ``fused_ring_bwd_supported`` holds. ``backend="plain"`` runs the
+    B2/B3, which take softcap and ALiBi in their XFORM instantiations),
+    run with ``bwd_backend`` (default: ``backend``); "auto" takes the
+    fused one where ``fused_ring_bwd_supported`` holds. ``backend="plain"`` runs the
     plain versions of the steps on whatever device the tensors are on."""
     if bwd_mode not in ("auto", "fused", "schedule"):
         raise ValueError(f"bwd_mode must be auto, fused or schedule, got "

@@ -17,9 +17,14 @@ and every head chunk's mask, forward and backward, is segments plus the
 causal mask by index at offset rank·L (no positions), which the kernels'
 segmented instantiations take on the card.
 
+softcap rides every chunk; ALiBi takes the global q offset rank·L even
+when the mask is not causal (the gathered kv starts at position 0), with
+the slopes sliced a head chunk at a time (``_chunk_mask``); on the card
+both go to the kernels' XFORM instantiations.
+
 Ported: causal or not, ``heads_k_stride``, GQA, the backward, packed
-sequences. Not ported yet, each raising ``NotImplementedError``: softcap,
-ALiBi, dropout and ``window_left``.
+sequences, softcap and ALiBi. Not ported yet, each raising
+``NotImplementedError``: dropout and ``window_left``.
 
 Functions are per-process. Internal layout (B, H, S, D).
 """
@@ -28,18 +33,33 @@ import torch
 
 from ..config import use_kernel
 from ..ops.flash import _kernel_layout, block_bwd, block_fwd, compute_delta
-from ..ops.mask import MaskArgs
+from ..ops.mask import MaskArgs, slopes_on
 from .mesh import all_gather, reduce_scatter, ring_rank
 
 
-def _mask(causal, q, q_segids, group):
-    """The rank's mask: causal by index at offset rank·L, and with packed
-    sequences the segments of the rank's rows against the gathered
-    labels of every rank's."""
+def _mask(causal, q, q_segids, group, extras):
+    """The rank's mask: causal by index at offset rank·L (the offset also
+    where ALiBi needs it without causal), with packed sequences the
+    segments of the rank's rows against the gathered labels of every
+    rank's, and softcap and ALiBi (the slopes of every q head, as a
+    tensor on q's device)."""
     kv_segids = None if q_segids is None else all_gather(q_segids, 0, group)
-    return MaskArgs(causal=causal,
-                    offset=ring_rank(group) * q.shape[2] if causal else None,
-                    q_segids=q_segids, kv_segids=kv_segids)
+    alibi = slopes_on(extras.get("alibi_slopes"), q.device)
+    offset = None
+    if causal or alibi is not None:
+        offset = ring_rank(group) * q.shape[2]
+    return MaskArgs(causal=causal, offset=offset, q_segids=q_segids,
+                    kv_segids=kv_segids, softcap=extras.get("softcap"),
+                    alibi_slopes=alibi)
+
+
+def _chunk_mask(mask, hs, device):
+    """``mask`` for the q heads ``hs`` of a head chunk: its ALiBi slopes
+    sliced to them."""
+    if mask.alibi_slopes is None:
+        return mask
+    return mask._replace(alibi_slopes=slopes_on(mask.alibi_slopes,
+                                                 device)[hs])
 
 
 def _cat(parts):
@@ -62,7 +82,8 @@ def _rank_fwd(q, gather, hkv, scale, mask, heads_k_stride, backend):
     outs, lses = [], []
     for i, hs in _chunks(q, hkv, heads_k_stride):
         kv = gather(i)
-        o_i, lse_i = block_fwd(q[:, hs], kv[0], kv[1], scale, mask, backend,
+        o_i, lse_i = block_fwd(q[:, hs], kv[0], kv[1], scale,
+                               _chunk_mask(mask, hs, q.device), backend,
                                out_dtype=q.dtype)
         outs.append(o_i)
         lses.append(lse_i)
@@ -83,7 +104,8 @@ def _rank_bwd(q, out, lse, dout, gather, hkv, scale, mask, heads_k_stride,
         if kernel:
             dout_i, q_i = _kernel_layout(dout_i), _kernel_layout(q_i)
         yield block_bwd(dout_i, q_i, kv[0], kv[1], lse[:, hs].contiguous(),
-                        delta[:, hs].contiguous(), scale, mask, backend,
+                        delta[:, hs].contiguous(), scale,
+                        _chunk_mask(mask, hs, q.device), backend,
                         dq_dtype=q.dtype, fused=fused)
 
 
@@ -95,19 +117,19 @@ def _gather(k, v, heads_k_stride, group):
 
 
 def _llama3_fwd(q, k, v, q_segids, scale, causal, heads_k_stride, group,
-                backend):
+                backend, extras):
     return _rank_fwd(q, _gather(k, v, heads_k_stride, group), k.shape[1],
-                     scale, _mask(causal, q, q_segids, group),
+                     scale, _mask(causal, q, q_segids, group, extras),
                      heads_k_stride, backend)
 
 
 def _llama3_bwd(q, k, v, q_segids, out, lse, dout, scale, causal,
-                heads_k_stride, group, backend, fused=None):
+                heads_k_stride, group, backend, extras, fused=None):
     """(dq, dk, dv) in the inputs' dtypes."""
     dqs, dks, dvs = [], [], []
     for dq_i, dk_g, dv_g in _rank_bwd(
             q, out, lse, dout, _gather(k, v, heads_k_stride, group),
-            k.shape[1], scale, _mask(causal, q, q_segids, group),
+            k.shape[1], scale, _mask(causal, q, q_segids, group, extras),
             heads_k_stride, backend, fused):
         # gathered-size fp32 dk/dv, summed over the ranks and sharded home
         dks.append(reduce_scatter(dk_g, 2, group).to(k.dtype))
@@ -119,13 +141,14 @@ def _llama3_bwd(q, k, v, q_segids, out, lse, dout, scale, causal,
 class _Llama3Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_segids, scale, causal, heads_k_stride, group,
-                backend, fused):
+                backend, extras, fused):
         out, lse = _llama3_fwd(q, k, v, q_segids, scale, causal,
-                               heads_k_stride, group, backend)
+                               heads_k_stride, group, backend, extras)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
         ctx.q_segids = q_segids
-        ctx.args = (scale, causal, heads_k_stride, group, backend, fused)
+        ctx.args = (scale, causal, heads_k_stride, group, backend, extras,
+                    fused)
         return out, lse
 
     @staticmethod
@@ -133,7 +156,7 @@ class _Llama3Attention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _llama3_bwd(q, k, v, ctx.q_segids, out, lse, dout,
                                  *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def llama3_attention(q, k, v, q_segids=None, *, scale, causal=True,
@@ -152,9 +175,7 @@ def llama3_attention(q, k, v, q_segids=None, *, scale, causal=True,
     ``deterministic=True`` runs the backward on the bitwise reproducible
     split kernels B3a/B3b on the card."""
     del dropout_seed  # dropout is not ported: dropout_p raises
-    unported = {"softcap": bool(softcap),
-                "alibi_slopes": alibi_slopes is not None,
-                "dropout_p": bool(dropout_p),
+    unported = {"dropout_p": bool(dropout_p),
                 "window_left": window_left is not None}
     for name, given in unported.items():
         if given:
@@ -167,9 +188,10 @@ def llama3_attention(q, k, v, q_segids=None, *, scale, causal=True,
     if hkv % heads_k_stride:
         raise ValueError(f"heads_k_stride={heads_k_stride} does not divide "
                          f"Hkv={hkv}")
+    extras = dict(softcap=softcap, alibi_slopes=alibi_slopes)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _Llama3Attention.apply(q, k, v, q_segids, scale, causal,
-                                      heads_k_stride, group, backend,
+                                      heads_k_stride, group, backend, extras,
                                       False if deterministic else None)
     return _llama3_fwd(q, k, v, q_segids, scale, causal, heads_k_stride,
-                       group, backend)
+                       group, backend, extras)

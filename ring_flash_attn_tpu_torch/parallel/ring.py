@@ -20,11 +20,10 @@ take the schedule as a function that gives each step's mask, and the stripe
 schedule (``stripe.py``) runs on them too.
 
 Ported: causal or not, softcap and ALiBi (ALiBi needs global coordinates,
-so those steps carry ``offset = rank * L`` and ``kv_offset = src * L``).
-softcap and ALiBi run in the plain versions only: on CUDA tensors the block
-kernels raise ``NotImplementedError`` for them (``backend="plain"`` runs
-them on the card). ``dropout_p``, ``window_left`` and ``window_right`` are
-not ported yet and raise.
+so those steps carry ``offset = rank * L`` and ``kv_offset = src * L``),
+on the card in the block kernels' XFORM instantiations (``backend="plain"``
+runs the plain versions there). ``dropout_p``, ``window_left`` and
+``window_right`` are not ported yet and raise.
 
 Functions are per-process, on tensors sharded contiguously along S over
 ``group`` (None: the default group, or one process when none is
@@ -35,7 +34,7 @@ import torch
 
 from ..config import use_kernel
 from ..ops.flash import _kernel_layout, block_bwd, block_fwd, compute_delta
-from ..ops.mask import MaskArgs
+from ..ops.mask import MaskArgs, slopes_on
 from ..ops.merge import merge_partials
 from .mesh import RingBuffer, ring_rank, ring_size
 
@@ -167,8 +166,8 @@ def ring_attention(q, k, v, *, scale, causal, group=None, backend=None,
     check_ring_options("ring_attention", dropout_p=dropout_p,
                        window_left=window_left is not None,
                        window_right=window_right is not None)
-    step_mask = _ring_masks(causal, k.shape[2],
-                            dict(softcap=softcap, alibi_slopes=alibi_slopes))
+    step_mask = _ring_masks(causal, k.shape[2], dict(
+        softcap=softcap, alibi_slopes=slopes_on(alibi_slopes, q.device)))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return RingLoopAttention.apply(q, k, v, scale, group, backend,
                                        step_mask, deterministic)

@@ -21,15 +21,18 @@ derived, ``src * lens + local`` with src = (rank - step) mod W
 the batch ring does. On the card every block goes to the kernels' segmented
 instantiations (B1; B2, or B3a/B3b with ``deterministic``).
 
-Ported: causal or not, ``deterministic``, softcap and ALiBi in the plain
-versions (the block kernels raise ``NotImplementedError`` for them on CUDA
-tensors). ``dropout_p`` and ``window_left`` raise ``NotImplementedError``.
-Per-process, internal layout (B, H, T_local, D), B = 1 for packed tokens.
+Ported: causal or not, ``deterministic``, softcap and ALiBi (on the card
+in the kernels' XFORM instantiations; with ALiBi on explicit positions a
+tile whose positions step arithmetically, as a packing's do, keeps the
+unmasked body and takes the distance from its first position and step,
+and only the other tiles take the masked body). ``dropout_p`` and
+``window_left`` raise ``NotImplementedError``. Per-process, internal
+layout (B, H, T_local, D), B = 1 for packed tokens.
 """
 
 import torch
 
-from ..ops.mask import MaskArgs
+from ..ops.mask import MaskArgs, slopes_on
 from ..ops.varlen import local_chunk_info
 from .ring import (RingLoopAttention, check_ring_options, ring_loop_fwd)
 
@@ -83,7 +86,8 @@ def ring_attention_varlen(q, k, v, segids, positions, *, scale, causal,
                        window_left=window_left is not None)
     step_mask = varlen_step_masks(
         segids, positions, causal,
-        dict(softcap=softcap, alibi_slopes=alibi_slopes))
+        dict(softcap=softcap,
+             alibi_slopes=slopes_on(alibi_slopes, q.device)))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return RingLoopAttention.apply(q, k, v, scale, group, backend,
                                        step_mask, deterministic)

@@ -22,24 +22,46 @@ Python choice of mask. The step loops are the ring's (``ring.ring_loop_fwd``,
 ``ring_loop_bwd``: the posted KV rotation, and the fp32 dk/dv accumulator
 co-rotating W times, the last step included).
 
-Ported: softcap, which rides every step (in the plain versions only: on
-CUDA tensors the block kernels raise ``NotImplementedError`` for it, as in
-``ring.py``). ``alibi_slopes``, ``dropout_p`` and ``window_left`` need the
-layout's explicit global positions (``q_pos``/``kv_pos``), which are not
-ported yet (ROADMAP.md queue A item 4), and raise.
+Ported: softcap, which rides every step, and ALiBi on the layout's
+global positions (token i of rank r sits at i·W + r), passed as explicit
+q_pos/kv_pos (of the resident shard's source rank) causal on them, which
+also stands in for both offset forms. On the card both go to the block
+kernels' XFORM instantiations. ``dropout_p`` and ``window_left`` raise
+(ROADMAP.md).
 """
 
 import torch
 
-from ..ops.mask import MaskArgs
-from .ring import RingLoopAttention, ring_loop_fwd
+from ..ops.mask import MaskArgs, slopes_on
+from .ring import RingLoopAttention, check_ring_options, ring_loop_fwd
 
 
-def _step_masks(extras):
+def stripe_positions(rank, w, l_local, device=None):
+    """(l_local,) int32 global positions of rank ``rank``'s strided tokens
+    (token i at i·W + rank)."""
+    return (torch.arange(l_local, dtype=torch.int32, device=device) * w
+            + rank).to(torch.int32)
+
+
+def _step_masks(extras, l_local=None, device=None):
     """The stripe schedule's ``step_mask(step, rank, w)`` for the ring's
     step loops: every step computes, plain causal where the kv came from a
     rank at or before this one (step <= rank), the shifted diagonal after
-    it."""
+    it; with ALiBi causal on the global positions of ``l_local`` tokens a
+    rank instead, made once a step and reused by the backward."""
+    if extras.get("alibi_slopes") is not None:
+        made = {}
+
+        def step_mask(step, rank, w):
+            if (step, rank, w) not in made:
+                made[step, rank, w] = MaskArgs(
+                    causal=True, q_pos=stripe_positions(rank, w, l_local,
+                                                        device),
+                    kv_pos=stripe_positions((rank - step) % w, w, l_local,
+                                            device), **extras)
+            return made[step, rank, w]
+
+        return step_mask
     behind = MaskArgs(causal=True, **extras)
     ahead = MaskArgs(causal=True, offset=-1, **extras)
 
@@ -60,15 +82,11 @@ def stripe_attention(q, k, v, *, scale, group=None, backend=None,
     ``deterministic=True`` runs the backward's steps on the bitwise
     reproducible split kernels B3a/B3b on the card."""
     del dropout_seed  # dropout raises below
-    for option, value in (("alibi_slopes", alibi_slopes is not None),
-                          ("dropout_p", dropout_p),
-                          ("window_left", window_left is not None)):
-        if value:
-            raise NotImplementedError(
-                f"stripe_attention({option}=...) needs the stripe layout's "
-                f"explicit global positions, which are not ported yet "
-                f"(ROADMAP.md queue A item 4)")
-    step_mask = _step_masks(dict(softcap=softcap))
+    check_ring_options("stripe_attention", dropout_p=dropout_p,
+                       window_left=window_left is not None)
+    step_mask = _step_masks(dict(
+        softcap=softcap, alibi_slopes=slopes_on(alibi_slopes, q.device)),
+        q.shape[2], q.device)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return RingLoopAttention.apply(q, k, v, scale, group, backend,
                                        step_mask, deterministic)

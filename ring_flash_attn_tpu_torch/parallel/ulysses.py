@@ -14,8 +14,8 @@ GQA: when Hkv is not a multiple of W, the kv heads are repeated up to W
 process keeps whole kv head groups.
 
 Ported: causal or not; softcap and ALiBi (each process takes the slopes of
-its heads) in the plain versions only, as everywhere on the block kernels
-(``ops/mask.py``). ``dropout_p`` is not ported yet and raises. Functions are
+its heads), on the card in the block kernels' XFORM instantiations.
+``dropout_p`` is not ported yet and raises. Functions are
 per-process, on tensors sharded contiguously along S over ``group`` (None:
 the default group, or one process when none is initialised).
 """

@@ -17,11 +17,21 @@ Causal only. Backward mirrors the three cases with half-buffer
 accumulations, using the same co-rotating fp32 dk/dv accumulator as
 ``ring.py``, and the same posted rotation.
 
-Ported: softcap, which is mask-free and rides every step (in the plain
-versions only: on CUDA tensors the block kernels raise
-``NotImplementedError`` for it). ``alibi_slopes``, ``dropout_p`` and
-``window_left`` need explicit q/kv positions, which are not ported yet, and
-raise.
+Ported: softcap, which is mask-free and rides every step, and ALiBi, which
+needs the layout's global positions: local token i of rank r sits at
+r·C + i (first chunk) or (2W-1-r)·C + (i - C) (second chunk), C = L/2, so
+with ALiBi every step passes explicit q_pos/kv_pos (of the resident shard's
+source rank), causal on them on the diagonal. On the card both go to the
+block kernels' XFORM instantiations (B1; B2, or B3a/B3b). ``dropout_p`` and
+``window_left`` raise.
+
+The step loops take the masks from a hook, ``step_masks(step, rank, w)``
+-> (diagonal, earlier, later), so that zigzag varlen (``zigzag_varlen.py``)
+runs on them with its own. A rank's work is ``zigzag_rank_fwd`` /
+``zigzag_rank_bwd``, which take the resident kv from ``kv_at(step)`` and
+hand dk, dv to ``add_dkv``; ``zigzag_loop_fwd`` / ``_bwd`` give them the
+ring, and a caller holding every rank's shards in one process may give
+them its own.
 
 The half slices are views. The block kernels take them as they are where
 their TMA maps read them (``_kernel_layout``, which ``block_fwd`` applies
@@ -34,56 +44,82 @@ import torch
 
 from ..config import use_kernel
 from ..ops.flash import _kernel_layout, block_bwd, block_fwd, compute_delta
-from ..ops.mask import MaskArgs
+from ..ops.mask import MaskArgs, slopes_on
 from ..ops.merge import merge_partials
 from .mesh import RingBuffer, ring_rank, ring_size
 from .ring import check_ring_options
 
 
-def _zigzag_fwd(q, k, v, scale, group, backend, extras):
-    w = ring_size(group)
-    rank = ring_rank(group)
+def zigzag_positions(rank, w, half, device=None):
+    """(2 half,) int32 global positions of rank ``rank``'s local tokens
+    (chunks [rank, 2W-1-rank] of C = half tokens each)."""
+    i = torch.arange(2 * half, dtype=torch.int32, device=device)
+    return torch.where(i < half, rank * half + i,
+                       (2 * w - 1 - rank) * half + (i - half)).to(
+                           torch.int32)
+
+
+def _batch_masks(half, extras, device):
+    """The zigzag schedule's ``step_masks(step, rank, w)``: (diagonal,
+    earlier, later) masks; with ALiBi on the layout's global positions,
+    made once a step and reused by the backward (the kernels' tile bounds
+    are cached by tensor)."""
+    diag, plain = MaskArgs(causal=True, **extras), MaskArgs(**extras)
+    if extras.get("alibi_slopes") is None:
+        return lambda step, rank, w: (diag, plain, plain)
+    made = {}
+
+    def step_masks(step, rank, w):
+        if (step, rank, w) not in made:
+            qpos = zigzag_positions(rank, w, half, device)
+            kvpos = zigzag_positions((rank - step) % w, w, half, device)
+            made[step, rank, w] = (
+                MaskArgs(causal=True, q_pos=qpos, kv_pos=qpos, **extras),
+                MaskArgs(q_pos=qpos, kv_pos=kvpos[:half], **extras),
+                MaskArgs(q_pos=qpos[half:], kv_pos=kvpos, **extras))
+        return made[step, rank, w]
+
+    return step_masks
+
+
+def zigzag_rank_fwd(q, kv_at, rank, w, scale, backend, step_masks):
+    """One rank's zigzag forward (module docstring): ``kv_at(step)`` gives
+    the (k, v) resident at ``step``, the shards of rank (rank - step) % w,
+    and ``step_masks`` the masks. Returns the merged (out fp32, lse)."""
     half = q.shape[2] // 2
-    plain = MaskArgs(**extras)
-    kv = RingBuffer(torch.stack([k, v]) if w > 1 else (k, v), group)
     out = lse = None
     for step in range(w):
-        # post the rotation before this step's kernels
-        if step < w - 1:
-            kv.start()
-        kk, vv = kv.value[0], kv.value[1]
+        kk, vv = kv_at(step)
+        diag, earlier, later = step_masks(step, rank, w)
         if step == 0:
-            b_out, b_lse = block_fwd(q, kk, vv, scale,
-                                     MaskArgs(causal=True, **extras), backend)
+            b_out, b_lse = block_fwd(q, kk, vv, scale, diag, backend)
             out, lse = merge_partials(None, None, b_out, b_lse)
         elif step <= rank:
             # kv of an earlier rank: its first half lies before every local
             # token, its second half after
             b_out, b_lse = block_fwd(q, kk[:, :, :half], vv[:, :, :half],
-                                     scale, plain, backend)
+                                     scale, earlier, backend)
             out, lse = merge_partials(out, lse, b_out, b_lse)
         else:
             # kv of a later rank: only the second half of q (chunk 2W-1-r,
             # after every received position) attends, to all of it
-            b_out, b_lse = block_fwd(q[:, :, half:], kk, vv, scale, plain,
+            b_out, b_lse = block_fwd(q[:, :, half:], kk, vv, scale, later,
                                      backend)
             m_out, m_lse = merge_partials(out[:, :, half:], lse[:, :, half:],
                                           b_out, b_lse)
             out[:, :, half:] = m_out
             lse[:, :, half:] = m_lse
-        kv.wait()
     return out, lse
 
 
-def _zigzag_bwd(q, k, v, out, lse, dout, scale, group, backend, extras,
-                deterministic=False):
-    """(dq, dk, dv) fp32 of this rank's shards. ``deterministic`` asks
-    ``block_bwd`` for the bitwise reproducible split kernels."""
-    w = ring_size(group)
-    rank = ring_rank(group)
+def zigzag_rank_bwd(q, out, lse, dout, kv_at, add_dkv, rank, w, scale,
+                    backend, step_masks, deterministic=False):
+    """The dual of ``zigzag_rank_fwd``: returns this rank's dq (fp32) and
+    hands each step's fp32 dk, dv of the resident kv to ``add_dkv(step,
+    dk, dv, rows)``, ``rows`` the kv rows they cover. ``deterministic``
+    asks ``block_bwd`` for the bitwise reproducible split kernels."""
     half = q.shape[2] // 2
     kernel = use_kernel(q, backend)
-    plain = MaskArgs(**extras)
     fused = False if deterministic else None
     delta = compute_delta(dout, out)
 
@@ -97,56 +133,111 @@ def _zigzag_bwd(q, k, v, out, lse, dout, scale, group, backend, extras,
         dout1, q1 = view(dout[:, :, half:]), view(q[:, :, half:])
         lse1 = view(lse[:, :, half:], rows=True)
         delta1 = view(delta[:, :, half:], rows=True)
-    kv = RingBuffer(torch.stack([k, v]) if w > 1 else (k, v), group)
-    dq = dkv = None
+    dq = None
     for step in range(w):
-        if step < w - 1:
-            kv.start()
-        kk, vv = kv.value[0], kv.value[1]
+        kk, vv = kv_at(step)
+        diag, earlier, later = step_masks(step, rank, w)
         if step == 0:
-            dq, b_dk, b_dv = block_bwd(
-                dout, q, kk, vv, lse, delta, scale,
-                MaskArgs(causal=True, **extras), backend, fused=fused)
-            dkv = RingBuffer(torch.stack([b_dk, b_dv]), group)
+            dq, b_dk, b_dv = block_bwd(dout, q, kk, vv, lse, delta, scale,
+                                       diag, backend, fused=fused)
+            add_dkv(step, b_dk, b_dv, slice(None))
         elif step <= rank:
             b_dq, b_dk, b_dv = block_bwd(
                 dout, q, view(kk[:, :, :half]), view(vv[:, :, :half]), lse,
-                delta, scale, plain, backend, fused=fused)
+                delta, scale, earlier, backend, fused=fused)
             dq += b_dq
-            dkv.value[0, :, :, :half] += b_dk
-            dkv.value[1, :, :, :half] += b_dv
+            add_dkv(step, b_dk, b_dv, slice(None, half))
         else:
             b_dq, b_dk, b_dv = block_bwd(dout1, q1, kk, vv, lse1, delta1,
-                                         scale, plain, backend, fused=fused)
+                                         scale, later, backend, fused=fused)
             dq[:, :, half:] += b_dq
-            dkv.value[0] += b_dk
-            dkv.value[1] += b_dv
+            add_dkv(step, b_dk, b_dv, slice(None))
+    return dq
+
+
+def _ring_kv(k, v, group):
+    """``kv_at(step)`` of the ring: k and v travel as one stacked array,
+    the rotation posted before each step's kernels and awaited before the
+    next step's."""
+    w = ring_size(group)
+    kv = RingBuffer(torch.stack([k, v]) if w > 1 else (k, v), group)
+
+    def kv_at(step):
+        if step:
+            kv.wait()
+        if step < w - 1:
+            kv.start()
+        return kv.value[0], kv.value[1]
+
+    return kv_at
+
+
+def zigzag_loop_fwd(q, k, v, scale, group, backend, step_masks):
+    """The zigzag forward over ``group``: ``zigzag_rank_fwd`` with the
+    ring's kv. Returns the merged (out fp32, lse)."""
+    return zigzag_rank_fwd(q, _ring_kv(k, v, group), ring_rank(group),
+                           ring_size(group), scale, backend, step_masks)
+
+
+def zigzag_loop_bwd(q, k, v, out, lse, dout, scale, group, backend,
+                    step_masks, deterministic=False):
+    """The zigzag backward over ``group``: ``zigzag_rank_bwd`` with the
+    ring's kv and the co-rotating fp32 dk/dv accumulator. Returns (dq, dk,
+    dv) fp32 of this rank's shards."""
+    dkv = None
+
+    def add_dkv(step, b_dk, b_dv, rows):
+        nonlocal dkv
+        if step == 0:
+            dkv = RingBuffer(torch.stack([b_dk, b_dv]), group)
+        else:
+            dkv.value[0, :, :, rows] += b_dk
+            dkv.value[1, :, :, rows] += b_dv
         # dkv rotates after every step: W rotations bring it home
         dkv.rotate()
-        kv.wait()
+
+    dq = zigzag_rank_bwd(q, out, lse, dout, _ring_kv(k, v, group), add_dkv,
+                         ring_rank(group), ring_size(group), scale, backend,
+                         step_masks, deterministic)
     return dq, dkv.value[0], dkv.value[1]
 
 
-class _ZigzagRingAttention(torch.autograd.Function):
+class ZigzagLoopAttention(torch.autograd.Function):
+    """``zigzag_loop_fwd`` and ``zigzag_loop_bwd`` as one differentiable
+    function: apply(q, k, v, scale, group, backend, step_masks,
+    deterministic) -> (out in q.dtype, lse), lse with no gradient."""
+
     @staticmethod
-    def forward(ctx, q, k, v, scale, group, backend, extras, deterministic):
-        out, lse = _zigzag_fwd(q, k, v, scale, group, backend, extras)
+    def forward(ctx, q, k, v, scale, group, backend, step_masks,
+                deterministic):
+        out, lse = zigzag_loop_fwd(q, k, v, scale, group, backend,
+                                   step_masks)
         out = out.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
-        ctx.args = (scale, group, backend, extras, deterministic)
+        ctx.args = (scale, group, backend, step_masks, deterministic)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):  # no gradient path through lse
         q, k, v, out, lse = ctx.saved_tensors
-        scale, group, backend, extras, deterministic = ctx.args
+        scale, group, backend, step_masks, deterministic = ctx.args
         if use_kernel(q, backend):
             dout = _kernel_layout(dout)
-        dq, dk, dv = _zigzag_bwd(q, k, v, out, lse, dout, scale, group,
-                                 backend, extras, deterministic)
+        dq, dk, dv = zigzag_loop_bwd(q, k, v, out, lse, dout, scale, group,
+                                     backend, step_masks, deterministic)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None, None)
+
+
+def zigzag_loop(q, k, v, scale, group, backend, step_masks, deterministic):
+    """The zigzag step loops on ``step_masks``, differentiable where q, k
+    or v asks for a gradient: (out in q.dtype, lse)."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return ZigzagLoopAttention.apply(q, k, v, scale, group, backend,
+                                         step_masks, deterministic)
+    out, lse = zigzag_loop_fwd(q, k, v, scale, group, backend, step_masks)
+    return out.to(q.dtype), lse
 
 
 def zigzag_ring_attention(q, k, v, *, scale, group=None, backend=None,
@@ -159,16 +250,14 @@ def zigzag_ring_attention(q, k, v, *, scale, group=None, backend=None,
     Returns (out in q.dtype, lse fp32 (B, H, S)); lse carries no gradient.
     ``deterministic=True`` runs the backward's steps on the bitwise
     reproducible split kernels B3a/B3b on the card."""
-    check_ring_options("zigzag_ring_attention",
-                       alibi_slopes=alibi_slopes is not None,
-                       dropout_p=dropout_p,
+    check_ring_options("zigzag_ring_attention", dropout_p=dropout_p,
                        window_left=window_left is not None)
     if q.shape[2] % 2:
         raise ValueError(f"the local length {q.shape[2]} must be even: a "
                          f"rank holds two chunks")
-    extras = dict(softcap=softcap)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _ZigzagRingAttention.apply(q, k, v, scale, group, backend,
-                                          extras, deterministic)
-    out, lse = _zigzag_fwd(q, k, v, scale, group, backend, extras)
-    return out.to(q.dtype), lse
+    step_masks = _batch_masks(
+        q.shape[2] // 2, dict(softcap=softcap,
+                              alibi_slopes=slopes_on(alibi_slopes, q.device)),
+        q.device)
+    return zigzag_loop(q, k, v, scale, group, backend, step_masks,
+                       deterministic)

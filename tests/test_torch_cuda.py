@@ -14,8 +14,9 @@ import torch
 
 from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B3A_EDGE_CASES,
                         B5_TOL, B7_EDGE_CASES, BWD_REL_TOL, RING_OUT_REL_TOL,
-                        SEG_EDGE_CASES, b5_case_inputs, b5_edge_cases,
-                        rel_err_rows, ring_steps, seg_case_mask)
+                        SEG_EDGE_CASES, XFORM_EDGE_CASES, b5_case_inputs,
+                        b5_edge_cases, rel_err_rows, ring_steps,
+                        seg_case_mask, xform_case_mask)
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
 from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
 from ring_flash_attn_tpu_torch.ops.naive import naive_block_fwd
@@ -966,3 +967,70 @@ def test_cuda_segmented_kernels_match_plain_versions(case):
         same = [torch.equal(x, y) for x, y in zip(got, again)]
         assert same[1:] == [True, True], bwd.__name__
         assert same[0] or bwd is flash_bwd_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(XFORM_EDGE_CASES)))
+def test_cuda_xform_kernels_match_plain_versions(case):
+    """B1, B2 and B3a/B3b with softcap and/or ALiBi (their XFORM
+    instantiations) against their plain versions at the tile edges of
+    chip_smoke's XFORM_EDGE_CASES: causal by index at an offset, no mask
+    at offsets (ALiBi on |distance|), segments and explicit positions
+    causal or not (ALiBi on their distance, from a tile's position step
+    or in the masked body), shuffled positions, dead rows (0, NEG_INF)
+    and unseen keys (dk = dv = 0), GQA groups 1 to 4, both head dims,
+    caps of 2 to 5 that bend the logits on every build; every launch
+    counted as an XFORM launch; B3 bitwise the same twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import NEG_INF, allowed_mask
+    from ring_flash_attn_tpu_torch.ops.naive import naive_block_bwd
+
+    b, hq, hkv, sq, skv, d = XFORM_EDGE_CASES[case][:6]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(case)
+    mask = xform_case_mask(torch, XFORM_EDGE_CASES[case], dev, seed=case)
+    scale = d**-0.5
+    counters = (flash_fwd_cuda, flash_bwd_cuda, flash_bwd_dq_cuda,
+                flash_bwd_dkv_cuda)
+    before = [f.xform_launches for f in counters]
+    q, k, v, dout, out, lse = _bwd_inputs(g, b, hq, hkv, sq, skv, d, mask,
+                                          scale)
+    got_out, got_lse = flash_fwd_cuda(q, k, v, scale, mask)
+    ref_out, ref_lse = naive_block_fwd(q, k, v, scale, mask)
+    errs = (float((got_out - ref_out).abs().max()),
+            rel_err_rows(got_out, ref_out),
+            float((got_lse - ref_lse).abs().max()))
+    assert errs[0] <= B1_OUT_TOL and errs[1] <= RING_OUT_REL_TOL, errs
+    assert errs[2] <= B1_LSE_TOL, errs
+    allowed = allowed_mask(mask, sq, skv, dev)
+    if allowed is None:
+        allowed = torch.ones(sq, skv, dtype=torch.bool, device=dev)
+    dead_rows, dead_keys = ~allowed.any(1), ~allowed.any(0)
+    assert torch.all(got_lse[:, :, dead_rows] == NEG_INF)
+    assert torch.all(got_out[:, :, dead_rows] == 0)
+    delta = compute_delta(dout, out)
+    ref = naive_block_bwd(dout, q, k, v, lse, delta, scale, mask)
+    one_key = bool((allowed.sum(1) <= 1).all())
+    floor = float(ref[2].abs().max()) if one_key else 0.0
+    for bwd in (flash_bwd_cuda, flash_bwd_split_cuda):
+        got = bwd(dout, q, k, v, lse, delta, scale, mask)
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            err = float((x.float() - r).abs().max()) / max(
+                float(r.abs().max()), floor, 1e-6)
+            assert err <= BWD_REL_TOL, (bwd.__name__, name, err)
+        assert torch.all(got[0][:, :, dead_rows] == 0)
+        assert torch.all(got[1][:, :, dead_keys] == 0)
+        assert torch.all(got[2][:, :, dead_keys] == 0)
+        again = bwd(dout, q, k, v, lse, delta, scale, mask)
+        same = [torch.equal(x, y) for x, y in zip(got, again)]
+        assert same[1:] == [True, True], bwd.__name__
+        assert same[0] or bwd is flash_bwd_cuda
+    # two forwards, two B2 and two B3a/B3b: every one an XFORM launch
+    assert [f.xform_launches - n for f, n in zip(counters, before)] == [
+        2, 2, 2, 2]

@@ -31,7 +31,7 @@ from ring_flash_attn_tpu_torch.ops.flash import (
 from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import fused_bwd_supported
 from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import tma_layout_error
 from ring_flash_attn_tpu_torch.ops.mask import (
-    NEG_INF, MaskArgs, check_kernel_supported)
+    NEG_INF, MaskArgs, check_supported)
 from ring_flash_attn_tpu_torch.ops.naive import (
     naive_block_bwd, naive_block_fwd)
 
@@ -100,9 +100,9 @@ def test_unported_mask_fields_and_grad_raise():
     """Unported MaskArgs fields (windows, dropout) raise in block_fwd and
     block_bwd alike; segment ids and explicit positions, ported with the
     packed-sequence slice, compute (here: one segment and positions equal
-    to the index give the plain causal mask's result) and pass the block
-    kernels' check; softcap and ALiBi, which the plain versions have since
-    the ring slice, raise in the block kernels' own check only;
+    to the index give the plain causal mask's result) and pass the check;
+    softcap and ALiBi, which the plain versions have since the ring slice
+    and the block kernels since the softcap/ALiBi slice, pass it too;
     flash_attention, forward-only before the training slice, now
     differentiates."""
     q = torch.zeros((1, 1, 4, 8))
@@ -114,7 +114,7 @@ def test_unported_mask_fields_and_grad_raise():
         with pytest.raises(NotImplementedError):
             block_bwd(q, q, q, q, lse, lse, 1.0, mask)
         with pytest.raises(NotImplementedError):
-            check_kernel_supported(mask)
+            check_supported(mask)
     x = torch.from_numpy(_np((1, 2, 4, 8), 1))
     dout = torch.from_numpy(_np((1, 2, 4, 8), 2))
     causal = MaskArgs(causal=True)
@@ -124,7 +124,7 @@ def test_unported_mask_fields_and_grad_raise():
     for field in ({"q_segids": np.zeros(4), "kv_segids": np.zeros(4)},
                   {"q_pos": np.arange(4), "kv_pos": np.arange(4)}):
         mask = MaskArgs(causal=True, **field)
-        check_kernel_supported(mask)
+        check_supported(mask)
         out, lse_m = block_fwd(x, x, x, 1.0, mask)
         _close(out, want_out.numpy(), TOL)
         _close(lse_m, want_lse.numpy(), TOL)
@@ -133,8 +133,7 @@ def test_unported_mask_fields_and_grad_raise():
             _close(g, w.numpy(), TOL)
     for field in ({"softcap": 5.0}, {"alibi_slopes": np.ones(1)}):
         mask = MaskArgs(causal=True, **field)
-        with pytest.raises(NotImplementedError):
-            check_kernel_supported(mask)
+        check_supported(mask)
         out, _ = block_fwd(q, q, q, 1.0, mask)  # the plain version has them
         assert torch.isfinite(out).all()
     x = torch.from_numpy(_np((1, 2, 8, 8), 0)).requires_grad_()

@@ -316,9 +316,12 @@ def test_deterministic_reaches_every_step_at_w4(kind):
 
 def test_registry_and_layer():
     assert list_attention() == ["flash", "fused_ring", "llama3", "ring",
-                                "ring_varlen", "stripe", "ulysses", "zigzag"]
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_attention("zigzag_varlen")
+                                "ring_varlen", "stripe", "ulysses", "zigzag",
+                                "zigzag_varlen"]
+    # every entry of the JAX package's registry is ported: zigzag_varlen
+    # too, which needs the layout's segment ids and positions
+    with pytest.raises(ValueError, match="zigzag_varlen_info"):
+        get_attention("zigzag_varlen")(*(torch.zeros(1, 8, 2, 16),) * 3)
     with pytest.raises(KeyError, match="unknown"):
         get_attention("nope")
     with pytest.raises(ValueError):
@@ -367,8 +370,9 @@ def test_registry_and_layer():
     lambda q: ring_attention(q, q, q, scale=1.0, causal=True, window_left=4),
     lambda q: ring_attention(q, q, q, scale=1.0, causal=False,
                              window_right=4),
+    # ALiBi on zigzag is ported (softcap/ALiBi slice): dropout with it
     lambda q: zigzag_ring_attention(q, q, q, scale=1.0,
-                                    alibi_slopes=np.ones(2)),
+                                    alibi_slopes=np.ones(2), dropout_p=0.1),
     lambda q: zigzag_ring_attention(q, q, q, scale=1.0, dropout_p=0.1),
     lambda q: zigzag_ring_attention(q, q, q, scale=1.0, window_left=4),
     lambda q: api.ring_flash_attn_func(
@@ -379,7 +383,7 @@ def test_registry_and_layer():
         dropout_p=0.1),
     lambda q: api.zigzag_ring_flash_attn_func(
         q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
-        causal=True, alibi_slopes=np.ones(2)),
+        causal=True, alibi_slopes=np.ones(2), dropout_p=0.1),
     lambda q: api.zigzag_ring_flash_attn_func(
         q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
         causal=True, window_size=(4, 0)),

@@ -369,7 +369,9 @@ def test_registry_entry_of_one_process_equals_flash(impl):
 @pytest.mark.parametrize("call,error,match", [
     (lambda q: api.stripe_flash_attn_func(q, q, q, causal=False),
      ValueError, "causal"),
-    (lambda q: stripe_attention(q, q, q, scale=1.0, alibi_slopes=np.ones(2)),
+    # ALiBi on stripe is ported (softcap/ALiBi slice): dropout with it
+    (lambda q: stripe_attention(q, q, q, scale=1.0, alibi_slopes=np.ones(2),
+                                dropout_p=0.1),
      NotImplementedError, "ROADMAP"),
     (lambda q: stripe_attention(q, q, q, scale=1.0, dropout_p=0.1),
      NotImplementedError, "ROADMAP"),

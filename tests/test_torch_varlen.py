@@ -26,7 +26,7 @@ from ring_flash_attn_tpu_torch.ops.block_meta import (
 from ring_flash_attn_tpu_torch.ops.flash import (
     block_bwd, block_fwd, compute_delta)
 from ring_flash_attn_tpu_torch.ops.mask import (
-    MaskArgs, allowed_mask, check_kernel_supported)
+    MaskArgs, allowed_mask, check_supported)
 
 OUT_TOL, GRAD_TOL = 2e-5, 1e-4  # f32, JAX's tests/test_varlen.py limits
 
@@ -286,7 +286,9 @@ def test_positions_override_the_offset():
     assert torch.equal(allowed, want)
     assert bool((allowed & (torch.arange(24)[:, None]
                             < torch.arange(24)[None, :])).any())
-    # softcap and ALiBi still go to the plain versions only
+    # softcap and ALiBi pass the check with positions (the block kernels
+    # take them since the softcap/ALiBi slice); a window still raises
     for field in ({"softcap": 5.0}, {"alibi_slopes": np.ones(2)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_kernel_supported(mask._replace(**field))
+        check_supported(mask._replace(**field))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_supported(mask._replace(window_left=3))

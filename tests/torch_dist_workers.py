@@ -563,12 +563,79 @@ def task_varlen(rank, world, p):
     return out
 
 
+def _zigzag_varlen_call(kind, kw, rank, world, p):
+    """(out, lse or None, leaves, this rank's dout) of one zigzag-varlen
+    variant on this rank's tokens in the grouped layout."""
+    from ring_flash_attn_tpu_torch.ops.varlen import (
+        extract_local_zigzag_varlen, zigzag_varlen_info)
+
+    cu = np.asarray(p["packings"][kw.pop("packing")])
+    names = (("q", "k_qkv", "v_qkv", "dout") if kind == "qkvpacked"
+             else ("q", "k", "v", "dout"))
+    local = [torch.from_numpy(extract_local_zigzag_varlen(p[x], cu, rank,
+                                                          world))
+             for x in names]
+    leaves = [x.clone().requires_grad_() for x in local[:3]]
+    cu_local = cu // world
+    if kind == "func":
+        out, lse, _ = api.zigzag_ring_flash_attn_varlen_func(
+            *leaves, list(cu_local), return_attn_probs=True, **kw)
+    elif kind == "kvpacked":
+        out, lse, _ = api.zigzag_ring_flash_attn_varlen_kvpacked_func(
+            leaves[0], torch.stack(leaves[1:], 1),
+            torch.as_tensor(cu_local), return_attn_probs=True, **kw)
+    elif kind == "qkvpacked":
+        out, lse, _ = api.zigzag_ring_flash_attn_varlen_qkvpacked_func(
+            torch.stack(leaves, 1), cu_local, return_attn_probs=True, **kw)
+    else:  # the registry's entry, on the layout's segment ids and positions
+        seg, pos = zigzag_varlen_info(cu_local // 2, leaves[0].shape[0],
+                                      rank, world)
+        out = RingAttentionLayer("zigzag_varlen")(
+            *(x[None] for x in leaves), segment_ids=seg, positions=pos,
+            **kw)[0]
+        lse = None
+    return out, lse, leaves, local[3]
+
+
+def task_zigzag_varlen(rank, world, p):
+    """Each zigzag-varlen variant's out, lse and the gradients of q, k and
+    v on this rank's tokens (chunk r, then chunk 2W-1-r, of every
+    sequence); records the ``fused`` argument of every block_bwd call of
+    the step loops under "fused_<name>"."""
+    from ring_flash_attn_tpu_torch.parallel import zigzag
+
+    out = {}
+    for name, (kind, kw) in p["variants"].items():
+        seen, real = [], zigzag.block_bwd
+
+        def recorder(*args, fused=None, **k):
+            seen.append(fused)
+            return real(*args, fused=fused, **k)
+
+        zigzag.block_bwd = recorder
+        try:
+            o, lse, leaves, dout = _zigzag_varlen_call(kind, dict(kw), rank,
+                                                       world, p)
+            grads = torch.autograd.grad(o, leaves, dout)
+        finally:
+            zigzag.block_bwd = real
+        out[f"out_{name}"] = _np(o)
+        if lse is not None:
+            out[f"lse_{name}"] = _np(lse)
+        for key, g in zip(("dq", "dk", "dv"), grads):
+            out[f"{key}_{name}"] = _np(g)
+        out[f"fused_{name}"] = np.array([-1 if f is None else int(f)
+                                         for f in seen])
+    return out
+
+
 TASKS = {"collectives": task_collectives, "decode": task_decode,
          "llama3": task_llama3, "generate": task_generate,
          "schedules": task_schedules, "api": task_api, "train": task_train,
          "cp": task_cp, "ulysses_heads": task_ulysses_heads,
          "reduce_scatter": task_reduce_scatter, "moe_ep": task_moe_ep,
-         "grid": task_grid, "varlen": task_varlen}
+         "grid": task_grid, "varlen": task_varlen,
+         "zigzag_varlen": task_zigzag_varlen}
 
 
 def _worker(rank, world, port, task, payload, results):
