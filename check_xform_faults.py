@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Plant softcap faults in a copy of the port and show that the card's
-checks fail each one.
+"""Plant softcap, window and dropout faults in a copy of the port and show
+that the card's checks fail each one.
 
 Run from the root of a checkout on a machine with the CUDA toolkit and an
 H100:
@@ -9,11 +9,14 @@ H100:
 
 Copies the repository (without what .gitignore lists) into DIR (by default a new
 temporary directory), once a fault and once without one, edits the copy's
-kernel sources, and runs in each copy what holds the kernels' softcap on
-the card: ``tests/test_torch_cuda.py -k xform`` (the XFORM_EDGE_CASES of
-``chip_smoke.py``) and ``chip_smoke.xform_kernel_checks`` at Llama-3-8B's
-attention widths (phase 17 (a) and (b), every check run and each failure
-recorded instead of the first one raised). The faults:
+kernel sources, and runs in each copy what holds the kernels there: for a
+softcap fault ``tests/test_torch_cuda.py -k xform`` (the XFORM_EDGE_CASES
+of ``chip_smoke.py``) and ``chip_smoke.xform_kernel_checks`` at
+Llama-3-8B's attention widths (phase 17 (a) and (b), every check run and
+each failure recorded instead of the first one raised); for a window or
+dropout fault ``tests/test_torch_cuda.py -k band`` (the BAND_EDGE_CASES
+and the keep mask bit for bit, phase 18 (a) and (b)); the copy without a
+fault runs both. The faults:
 
   b1_no_cap     B1's XFORM builds scale the logits to base 2 and skip the
                 cap (``csrc/flash_fwd.cuh``)
@@ -21,11 +24,22 @@ recorded instead of the first one raised). The faults:
                 factor and the others' dcap array, ``csrc/flash_bwd.cuh``)
                 and B3a's (``csrc/flash_bwd_split.cu``) take dS without
                 the softcap's 1 - tanh^2
+  b1_window_off_by_one
+                B1's window test on the tiles that cross a band edge
+                (``csrc/flash_fwd.cuh``) takes >= for >: the key at the
+                window's far edge is dropped
+  b2_dv_undropped
+                B2's dV (the kv-major loop with dq, ``csrc/flash_bwd.cuh``)
+                takes the undropped p
+  mix32_short   the kernels' mix32 (``csrc/band.cuh``) without its second
+                shift step
 
 Prints, for the copy without a fault and for each fault, the edge cases
 that failed and the full-width checks that failed, and exits 1 unless the
-copy without a fault passes every check and each fault fails some edge
-case and some full-width check. The repository itself is never edited.
+copy without a fault passes every check and each fault fails what its
+family runs (a softcap fault: some edge case and some full-width check; a
+window or dropout fault: some band test). The repository itself is never
+edited.
 """
 
 import argparse
@@ -42,6 +56,21 @@ CSRC = "ring_flash_attn_tpu_torch/csrc"
 # fault -> [(source, the line as written, the line with the fault)]
 FAULTS = {
     "none": [],
+    "b1_window_off_by_one": [
+        ("flash_fwd.cuh",
+         "(win && rfa_band::outside(band, row - col + ring.q_pos0)))",
+         "(win && (row - col + ring.q_pos0 >= band.wl ||\n"
+         "                         row - col + ring.q_pos0 < -band.wr)))"),
+    ],
+    "b2_dv_undropped": [
+        ("flash_bwd.cuh", "\n                pe[e] = kept ? p : 0.f;",
+         "\n                pe[e] = kept || DQ ? p : 0.f;"),
+        ("flash_bwd.cuh", "\n              pe[e] = kept ? p : 0.f;",
+         "\n              pe[e] = kept || DQ ? p : 0.f;"),
+    ],
+    "mix32_short": [
+        ("band.cuh", "  x ^= x >> 15;\n", ""),
+    ],
     "b1_no_cap": [
         ("flash_fwd.cuh",
          "for (int i = 0; i < 64; ++i) sc[i] = ring.cap2 * "
@@ -49,7 +78,13 @@ FAULTS = {
          "for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;"),
     ],
     "bwd_no_dcap": [
-        ("flash_bwd.cuh", "dc = 1.f - t * t;", "dc = 1.f; (void)t;"),
+        ("flash_bwd.cuh", "int key, float& dc) {\n"
+         "          float x = sc[i];\n"
+         "          const float t = x * inv_cap2;  // 0 without softcap: dc = "
+         "1\n          dc = 1.f - t * t;",
+         "int key, float& dc) {\n          float x = sc[i];\n"
+         "          const float t = x * inv_cap2;\n"
+         "          dc = 1.f; (void)t;"),
         ("flash_bwd.cuh", "sc[i] = ring.cap2 * t;\n"
          "              dcap[i] = 1.f - t * t;",
          "sc[i] = ring.cap2 * t;\n              dcap[i] = 1.f;"),
@@ -110,6 +145,37 @@ def make_copy(workdir, fault):
     return dst
 
 
+def family(fault):
+    """The checks a fault's copy runs: "xform", "band", or both."""
+    if fault == "none":
+        return ("xform", "band")
+    return ("band",) if fault in BAND_FAULTS else ("xform",)
+
+
+BAND_FAULTS = ("b1_window_off_by_one", "b2_dv_undropped", "mix32_short")
+
+
+def run_band(dst):
+    """The band tests that failed in one copy: the BAND_EDGE_CASES by
+    index, and "keep" for the keep mask bit for bit."""
+    env = dict(os.environ, PYTHONDONTWRITEBYTECODE="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-rf",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py", "-k",
+         "band"], cwd=dst, env=env, capture_output=True, text=True,
+        timeout=900)
+    if not re.search(r"\d+ (passed|failed)", res.stdout):
+        sys.stderr.write(res.stdout[-4000:] + res.stderr[-4000:])
+        raise SystemExit(f"{dst}: the band tests did not run")
+    failed = sorted(set(re.findall(
+        r"FAILED \S+test_cuda_band_kernels_match_plain_versions\[(\d+)\]",
+        res.stdout)), key=int)
+    failed = [int(x) for x in failed]
+    if "FAILED tests/test_torch_cuda.py::test_cuda_band_keep" in res.stdout:
+        failed.append("keep")
+    return failed
+
+
 def run_copy(dst):
     """(failed edge cases, failed full-width checks) of one copy."""
     env = dict(os.environ, PYTHONDONTWRITEBYTECODE="1")
@@ -143,13 +209,27 @@ def main():
     ok = True
     try:
         for fault in FAULTS:
-            edges, wide = run_copy(make_copy(workdir, fault))
-            print(f"{fault}: {len(edges)} edge cases failed {edges}; "
-                  f"{len(wide)} full-width checks failed")
-            for what in wide:
-                print(f"  {what}")
-            caught = bool(edges) and bool(wide)
-            ok &= not edges and not wide if fault == "none" else caught
+            dst = make_copy(workdir, fault)
+            clean = True
+            if "xform" in family(fault):
+                edges, wide = run_copy(dst)
+                print(f"{fault}: {len(edges)} softcap/ALiBi edge cases "
+                      f"failed {edges}; {len(wide)} full-width checks "
+                      f"failed")
+                for what in wide:
+                    print(f"  {what}")
+                clean &= not edges and not wide
+                if fault != "none":
+                    ok &= bool(edges) and bool(wide)
+            if "band" in family(fault):
+                band = run_band(dst)
+                print(f"{fault}: {len(band)} band tests failed (edge cases "
+                      f"by index, keep: the keep mask bit for bit) {band}")
+                clean &= not band
+                if fault != "none":
+                    ok &= bool(band)
+            if fault == "none":
+                ok &= clean
             sys.stdout.flush()
     finally:
         if not args.workdir:

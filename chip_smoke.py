@@ -353,6 +353,223 @@ XFORM_EDGE_CASES = [
 ]
 
 
+# B1, B2, B3a/B3b with a window and/or dropout (their BAND instantiations)
+# at the tile edges, held here (phase 18) and in tests/test_torch_cuda.py:
+# (B, Hq, Hkv, Sq, Skv, D, kind, cu, window_left, window_right, dropout_p,
+# softcap, ALiBi) with the kinds of XFORM_EDGE_CASES: causal windows whose
+# left side wl in {0, 63, 64, 127, 128, 4095} sits on and beside the tiles'
+# edges (64 and 128 keys or rows), non-causal (wl, wr) windows at offsets
+# Sq and 3 (so that whole tiles fall outside the band on either side),
+# windows with softcap and ALiBi, dropout with and without segments (and
+# with explicit positions: shuffled, strided), windows on explicit
+# positions, a window on segments by index with dead rows, window and
+# dropout together; both head dims, with and without SEG. Dropout cases
+# take the seed 1000 + case and head offset 5
+BAND_EDGE_CASES = [
+    (1, 4, 2, 257, 257, 128, "causal", None, 0, None, None, None, False),
+    (1, 8, 2, 255, 300, 64, "causal", None, 63, None, None, None, False),
+    (1, 4, 1, 257, 257, 128, "causal", None, 64, None, None, None, False),
+    (2, 4, 2, 300, 300, 64, "causal", None, 127, None, None, None, False),
+    (1, 8, 8, 129, 257, 128, "causal", None, 128, None, None, None, False),
+    (1, 4, 2, 300, 300, 128, "causal", None, 4095, None, None, None, False),
+    (1, 4, 2, 257, 255, 128, "full", None, 63, 64, None, None, False),
+    (1, 8, 2, 129, 300, 64, "full", None, 0, 127, None, None, False),
+    (1, 4, 2, 255, 257, 128, "full", None, None, 128, None, None, False),
+    (1, 8, 2, 257, 257, 128, "causal", None, 100, None, None, 4.0, True),
+    (1, 4, 2, 257, 255, 64, "full", None, 70, 30, None, 3.0, True),
+    (2, 4, 2, 257, 257, 128, "causal", None, None, None, 0.1, None, False),
+    (1, 8, 2, 129, 300, 64, "full", None, None, None, 0.3, None, False),
+    (1, 4, 2, 257, 257, 128, "pos", [0, 100, 101, 257], None, None, 0.2,
+     None, False),
+    (2, 4, 2, 257, 257, 64, "shuffled", [0, 257], None, None, 0.1, None,
+     True),
+    (1, 8, 2, 257, 255, 128, "strided", None, None, None, 0.1, None, False),
+    (1, 8, 2, 129, 257, 128, "idx", [0, 50, 200, 257], 64, None, 0.1, None,
+     False),
+    (1, 4, 2, 300, 300, 128, "pos", [0, 3, 131, 132, 300], 64, None, None,
+     None, False),
+    (1, 4, 2, 200, 300, 64, "absent", [0, 70, 300], 63, None, None, None,
+     False),
+    (1, 4, 1, 257, 257, 128, "posfull", [0, 128, 129, 257], 40, 40, 0.1,
+     None, True),
+    (1, 8, 2, 129, 129, 64, "seg", [0, 128, 129], 10, 5, 0.2, 2.0, False),
+    (1, 4, 2, 257, 257, 128, "causal", None, 64, None, 0.1, None, False),
+    (1, 4, 2, 257, 257, 64, "shuffled", [0, 257], 90, None, 0.15, 3.0,
+     False),
+    (1, 4, 2, 257, 255, 128, "full", None, None, 0, None, None, False),
+    (1, 8, 2, 255, 300, 64, "full", None, 4095, 63, None, None, False),
+    (2, 4, 4, 129, 257, 128, "full", None, 127, 4095, None, None, False),
+]
+
+
+def band_case_mask(torch, case, dev, seed=0):
+    """The MaskArgs of a ``BAND_EDGE_CASES`` case on ``dev``."""
+    b, hq, hkv, sq, skv, d, kind, cu, wl, wr, p, softcap, alibi = case
+    mask = xform_case_mask(torch, (b, hq, hkv, sq, skv, d, kind, cu, softcap,
+                                   alibi), dev, seed)
+    if p:
+        mask = mask._replace(dropout_p=p, dropout_seed=1000 + seed,
+                             head_offset=5)
+    return mask._replace(window_left=wl, window_right=wr)
+
+
+def band_case_check(torch, case):
+    """B1, B2 and B3a/B3b (both calling modes) with BAND_EDGE_CASES[case]
+    against their plain versions: out and lse (B1_OUT_TOL, by rows
+    RING_OUT_REL_TOL, B1_LSE_TOL), dq, dk, dv (BWD_REL_TOL), dead rows (0,
+    NEG_INF, dq = 0) and unseen keys (dk = dv = 0), B3 bitwise the same
+    twice, every launch a BAND launch. Raises past the limits; returns the
+    worst errors {kernel: [abs, rel(, lse)]}."""
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import NEG_INF, allowed_mask
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+
+    b, hq, hkv, sq, skv, d = BAND_EDGE_CASES[case][:6]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(case)
+    mask = band_case_mask(torch, BAND_EDGE_CASES[case], dev, seed=case)
+    scale = d**-0.5
+    counters = (flash_fwd_cuda, flash_bwd_cuda, flash_bwd_dq_cuda,
+                flash_bwd_dkv_cuda)
+    before = [f.band_launches for f in counters]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v, dout = (rnd(b, hq, sq, d), rnd(b, hkv, skv, d),
+                     rnd(b, hkv, skv, d), rnd(b, hq, sq, d))
+    out, lse = flash_fwd_cuda(q, k, v, scale, mask, out_dtype=torch.bfloat16)
+    got_out, got_lse = flash_fwd_cuda(q, k, v, scale, mask)
+    ref_out, ref_lse = naive_block_fwd(q, k, v, scale, mask)
+    worst = {"B1": [max_err(got_out, ref_out), rel_err_rows(got_out, ref_out),
+                    max_err(got_lse, ref_lse)]}
+    what = f"BAND_EDGE_CASES[{case}] {BAND_EDGE_CASES[case]}"
+    if (worst["B1"][0] > B1_OUT_TOL or worst["B1"][1] > RING_OUT_REL_TOL
+            or worst["B1"][2] > B1_LSE_TOL):
+        raise AssertionError(f"{what}: B1 {worst['B1']}")
+    allowed = allowed_mask(mask, sq, skv, dev)
+    if allowed is None:
+        allowed = torch.ones(sq, skv, dtype=torch.bool, device=dev)
+    dead_rows, dead_keys = ~allowed.any(1), ~allowed.any(0)
+    if not (torch.all(got_lse[:, :, dead_rows] == NEG_INF)
+            and torch.all(got_out[:, :, dead_rows] == 0)):
+        raise AssertionError(f"{what}: B1's dead rows are not (0, NEG_INF)")
+    delta = compute_delta(dout, out)
+    ref = naive_block_bwd(dout, q, k, v, lse, delta, scale, mask)
+    # where every row sees one key the softmax has no gradient: dq and dk
+    # are rounding noise on both sides, held on dv's scale
+    one_key = bool((allowed.sum(1) <= 1).all())
+    floor = float(ref[2].abs().max()) if one_key else 0.0
+    for name, bwd in (("B2", flash_bwd_cuda), ("B3", flash_bwd_split_cuda)):
+        got = bwd(dout, q, k, v, lse, delta, scale, mask)
+        rel = [max_err(x, r) / max(float(r.abs().max()), floor, 1e-6)
+               for x, r in zip(got, ref)]
+        if name == "B2":
+            worst["B2"] = [max(max_err(x, r) for x, r in zip(got, ref)),
+                           max(rel)]
+        else:
+            worst["B3a"] = [max_err(got[0], ref[0]), rel[0]]
+            worst["B3b"] = [max(max_err(got[1], ref[1]),
+                                max_err(got[2], ref[2])), max(rel[1:])]
+        if max(rel) > BWD_REL_TOL:
+            raise AssertionError(f"{what}: {name} dq, dk, dv {rel}")
+        if not (torch.all(got[0][:, :, dead_rows] == 0)
+                and torch.all(got[1][:, :, dead_keys] == 0)
+                and torch.all(got[2][:, :, dead_keys] == 0)):
+            raise AssertionError(f"{what}: {name} dead rows or unseen keys")
+        again = bwd(dout, q, k, v, lse, delta, scale, mask)
+        same = [torch.equal(x, y) for x, y in zip(got, again)]
+        if same[1:] != [True, True] or not (same[0] or name == "B2"):
+            raise AssertionError(f"{what}: {name} not reproducible {same}")
+    ran = [f.band_launches - n for f, n in zip(counters, before)]
+    if ran != [2, 2, 2, 2]:
+        raise AssertionError(f"{what}: BAND launches {ran}, not 2 each")
+    return worst
+
+
+# the keep mask's cases (phase 18 (b)): (B, H, q offset, kv offset, head
+# offset, form) at Sq = Skv = D = 128 with q = 0: by index at offsets up
+# to and past 2^31 (kv positions that cross 2^31, and offsets past 2^32
+# that wrap), batch 2, segments, explicit positions that step by 3 (an
+# unmasked tile's first position and step) or are shuffled (the masked
+# body's), near 2^31
+BAND_KEEP_CASES = [
+    (1, 4, 0, 0, 0, "index"),
+    (2, 4, 5, 2**31 - 64, 3, "index"),
+    (1, 2, 2**31 + 100, 2**32 + 2**31 - 50, 7, "index"),
+    (2, 8, 17, 300, 11, "segments"),
+    (1, 4, 2**31 - 1000, 2**31 - 700, 2, "strided"),
+    (2, 2, 0, 0, 9, "shuffled"),
+]
+
+
+def band_keep_mask(torch, case, dev):
+    """The MaskArgs of a BAND_KEEP_CASES case (dropout 0.3, not causal)."""
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+
+    b, h, qo, ko, ho, form = case
+    n = 128
+    mask = MaskArgs(dropout_p=0.3, dropout_seed=12345 + ho, head_offset=ho)
+    if form == "index":
+        return mask._replace(offset=qo, kv_offset=ko)
+    if form == "segments":
+        rng = np.random.default_rng(ho)
+        seg = torch.as_tensor(rng.integers(0, 3, n), dtype=torch.int32,
+                              device=dev)
+        return mask._replace(offset=qo, kv_offset=ko, q_segids=seg,
+                             kv_segids=seg)
+    i = torch.arange(n, dtype=torch.int32, device=dev)
+    if form == "strided":
+        return mask._replace(q_pos=i + qo, kv_pos=i * 3 + ko)
+    perm = torch.as_tensor(np.random.default_rng(ho).permutation(n),
+                           dtype=torch.int32, device=dev)
+    return mask._replace(q_pos=perm * 2, kv_pos=i * 5 + 7)
+
+
+def band_keep_checks(torch):
+    """Phase 18 (b): the kernels' dropout keep mask bit for bit against the
+    plain one (``ops/mask.py::dropout_keep_dense``, the JAX package's). With
+    q = 0 every allowed p is the same, so B1 with v the 128 x 128 identity
+    gives out = 0 exactly at the dropped (or masked) pairs, and B2 and B3b
+    with dout the identity give that pattern transposed in dv (one q head a
+    kv head). Returns [(what, agrees)]."""
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import (allowed_mask,
+                                                    dropout_keep_dense)
+
+    dev = torch.device("cuda")
+    n = 128
+    eye = torch.eye(n, dtype=torch.bfloat16, device=dev)
+    results = []
+    for case in BAND_KEEP_CASES:
+        b, h = case[:2]
+        mask = band_keep_mask(torch, case, dev)
+        q = torch.zeros(b, h, n, n, dtype=torch.bfloat16, device=dev)
+        k = torch.randn(b, h, n, n, device=dev).to(torch.bfloat16)
+        v = eye.expand(b, h, n, n).contiguous()
+        want = dropout_keep_dense(mask, b, h, 1, n, n, dev).reshape(
+            b, h, n, n)
+        allowed = allowed_mask(mask, n, n, dev)
+        if allowed is not None:
+            want = want & allowed
+        out, lse = flash_fwd_cuda(q, k, v, 1.0, mask)
+        results.append((f"B1 {case}", bool(torch.equal(out != 0, want))))
+        delta = torch.zeros_like(lse)
+        for name, fn in (("B2", flash_bwd_cuda), ("B3b", flash_bwd_dkv_cuda)):
+            _, dv = fn(v, q, k, v, lse, delta, 1.0, mask)[-2:]
+            results.append((f"{name} {case}", bool(torch.equal(
+                dv.transpose(-1, -2) != 0, want))))
+    return results
+
+
 def alibi_slopes(torch, hq, dev):
     """The standard ALiBi slopes of ``hq`` heads, 2^(-8 (h + 1) / hq),
     float32 on ``dev``."""
@@ -571,45 +788,65 @@ def rel_err_rows(a, ref):
 
 # each kernel's instantiation at the timed shape (head_dim 128): its library
 # (csrc/<lib>.cu) and a piece of its mangled name; the largest over the
-# instantiations that match where a kernel has several (B7). The last
-# template flag of bwd_kv_kernel and bwd_dq_kernel is XFORM (softcap and
-# ALiBi, phase 17)
+# instantiations that match where a kernel has several (B7). The last two
+# template arguments of the block kernels are XFORM (softcap and ALiBi,
+# phase 17) and BAND (0; windows and dropout, phase 18: 1 the build of a
+# window alone, 2 the build for dropout, softcap and ALiBi with or without
+# one, csrc/band.cuh); the BAND entries name the window builds, the
+# kernel line adds the others' facts
 INSTANTIATIONS = {
-    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb0E"),
+    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb0ELi0EE"),
     "B5 paged_decode": ("paged_decode", "paged_decode_kernelILi4E"),
-    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb0ELb0EE"),
-    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb0ELb0EE"),
+    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb0ELb0ELi0EE"),
+    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb0ELb0ELi0EE"),
     "B3b flash_bwd_dkv": ("flash_bwd_split",
-                          "bwd_kv_kernelILi128ELb0ELb0ELb0ELb0EE"),
+                          "bwd_kv_kernelILi128ELb0ELb0ELb0ELb0ELi0EE"),
     "B4 quant_decode": ("quant_decode", "quant_decode_kernelILi0ELi4E"),
     "B6 paged_quant_decode": ("paged_quant_decode",
                               "paged_quant_decode_kernelILi0ELi4E"),
     "B7 fused_ring_fwd": ("fused_ring_fwd", "flash_fwd_kernelILi128ELb1E"),
     "B8 fused_ring_bwd": ("fused_ring_bwd", "bwd_kv_kernelILi128ELb1ELb1E"),
     # the softcap/ALiBi instantiations (phase 17), without segments
-    "B1 flash_fwd XFORM": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb1ELb0E"),
+    "B1 flash_fwd XFORM": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb1ELb0ELi0EE"),
     "B2 flash_bwd XFORM": ("flash_bwd",
-                           "bwd_kv_kernelILi128ELb1ELb0ELb0ELb1EE"),
+                           "bwd_kv_kernelILi128ELb1ELb0ELb0ELb1ELi0EE"),
     "B3a flash_bwd_dq XFORM": ("flash_bwd_split",
-                               "bwd_dq_kernelILi128ELb0ELb1EE"),
+                               "bwd_dq_kernelILi128ELb0ELb1ELi0EE"),
     "B3b flash_bwd_dkv XFORM": ("flash_bwd_split",
-                                "bwd_kv_kernelILi128ELb0ELb0ELb0ELb1EE"),
+                                "bwd_kv_kernelILi128ELb0ELb0ELb0ELb1ELi0EE"),
+    # the window/dropout instantiations (phase 18), without segments
+    "B1 flash_fwd BAND": ("flash_fwd",
+                          "flash_fwd_kernelILi128ELb0ELb1ELb0ELi1EE"),
+    "B2 flash_bwd BAND": ("flash_bwd",
+                          "bwd_kv_kernelILi128ELb1ELb0ELb0ELb1ELi1EE"),
+    "B3a flash_bwd_dq BAND": ("flash_bwd_split",
+                              "bwd_dq_kernelILi128ELb0ELb1ELi1EE"),
+    "B3b flash_bwd_dkv BAND": ("flash_bwd_split",
+                               "bwd_kv_kernelILi128ELb0ELb0ELb0ELb1ELi1EE"),
 }
 # the segmented instantiations (packed sequences, csrc/segments.cuh) of the
 # four block kernels, head_dim 128
 SEG_INSTANTIATIONS = {
-    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb1E"),
-    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb1ELb0EE"),
-    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb1ELb0EE"),
+    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb1ELi0EE"),
+    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb1ELb0ELi0EE"),
+    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb1ELb0ELi0EE"),
     "B3b flash_bwd_dkv": ("flash_bwd_split",
-                          "bwd_kv_kernelILi128ELb0ELb0ELb1ELb0EE"),
-    "B1 flash_fwd XFORM": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb1ELb1E"),
+                          "bwd_kv_kernelILi128ELb0ELb0ELb1ELb0ELi0EE"),
+    "B1 flash_fwd XFORM": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb1ELb1ELi0EE"),
     "B2 flash_bwd XFORM": ("flash_bwd",
-                           "bwd_kv_kernelILi128ELb1ELb0ELb1ELb1EE"),
+                           "bwd_kv_kernelILi128ELb1ELb0ELb1ELb1ELi0EE"),
     "B3a flash_bwd_dq XFORM": ("flash_bwd_split",
-                               "bwd_dq_kernelILi128ELb1ELb1EE"),
+                               "bwd_dq_kernelILi128ELb1ELb1ELi0EE"),
     "B3b flash_bwd_dkv XFORM": ("flash_bwd_split",
-                                "bwd_kv_kernelILi128ELb0ELb0ELb1ELb1EE"),
+                                "bwd_kv_kernelILi128ELb0ELb0ELb1ELb1ELi0EE"),
+    "B1 flash_fwd BAND": ("flash_fwd",
+                          "flash_fwd_kernelILi128ELb0ELb1ELb1ELi1EE"),
+    "B2 flash_bwd BAND": ("flash_bwd",
+                          "bwd_kv_kernelILi128ELb1ELb0ELb1ELb1ELi1EE"),
+    "B3a flash_bwd_dq BAND": ("flash_bwd_split",
+                              "bwd_dq_kernelILi128ELb1ELb1ELi1EE"),
+    "B3b flash_bwd_dkv BAND": ("flash_bwd_split",
+                               "bwd_kv_kernelILi128ELb0ELb0ELb1ELb1ELi1EE"),
 }
 
 
@@ -678,18 +915,21 @@ def check_hgmma(what, lib, piece):
     from ring_flash_attn_tpu_torch.ops import _build
 
     def label(name):  # head_dim, the softcap/ALiBi build (XFORM: B7's and
-        # B8's are their ring builds) and the segmented build, from the
-        # template flags: flash_fwd_kernel <D, RING, XFORM, SEG>,
-        # bwd_kv_kernel <D, DQ, RING, SEG, XFORM>, bwd_dq_kernel <D, SEG,
-        # XFORM> (a tree without the last flag has no XFORM build)
+        # B8's are their ring builds), the window/dropout build and the
+        # segmented build, from the template flags: flash_fwd_kernel <D,
+        # RING, XFORM, SEG, BAND>, bwd_kv_kernel <D, DQ, RING, SEG, XFORM,
+        # BAND>, bwd_dq_kernel <D, SEG, XFORM, BAND> (a tree without the
+        # last flags has no such builds)
         m = re.search(piece + r"I((?:L[ib]\d+E)+)E", name)
         args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(1))]
-        flags = dict(zip({"flash_fwd_kernel": ("D", "ring", "xform", "seg"),
+        flags = dict(zip({"flash_fwd_kernel": ("D", "ring", "xform", "seg",
+                                               "band"),
                           "bwd_kv_kernel": ("D", "dq", "ring", "seg",
-                                            "xform"),
-                          "bwd_dq_kernel": ("D", "seg", "xform")}[piece],
-                         args))
+                                            "xform", "band"),
+                          "bwd_dq_kernel": ("D", "seg", "xform",
+                                            "band")}[piece], args))
         return f"D={flags['D']}" + (" XFORM" if flags.get("xform") else "") \
+            + (f" BAND={flags['band']}" if flags.get("band") else "") \
             + (" SEG" if flags.get("seg") else "")
 
     counts = {label(n): c for n, c in sorted(
@@ -3264,17 +3504,20 @@ def _grads_check(what, got, ref):
 @contextlib.contextmanager
 def _uncounted(counters):
     """Launches inside are not counted: a timing loop or a reference run
-    beside the path whose launches are read (the XFORM launches of the
-    block kernels' launchers too)."""
-    saved = {name: (fn.launches, getattr(fn, "xform_launches", None))
+    beside the path whose launches are read (the XFORM and BAND launches
+    of the block kernels' launchers too)."""
+    saved = {name: (fn.launches, getattr(fn, "xform_launches", None),
+                    getattr(fn, "band_launches", None))
              for name, fn in counters.items()}
     try:
         yield
     finally:
         for name, fn in counters.items():
-            fn.launches, xform = saved[name]
+            fn.launches, xform, band = saved[name]
             if xform is not None:
                 fn.xform_launches = xform
+            if band is not None:
+                fn.band_launches = band
 
 
 def phase_varlen(torch, flush):
@@ -4382,6 +4625,575 @@ def phase_xform(torch, flush):
              "w4_per_rank_zigzag_varlen_ms": zz_times})
 
 
+# Mistral-7B-v0.1's attention, from its published config.json: hidden_size
+# 4096 over num_attention_heads 32 (head_dim 128), num_key_value_heads 8,
+# sliding_window 4096: the widths of the window/dropout slice's path
+MISTRAL_ATTN = dict(heads=32, kv_heads=8, head_dim=128, sliding_window=4096)
+# the attention dropout of the GPT-2 (attn_pdrop) and BERT
+# (attention_probs_dropout_prob) configs
+ATTN_PDROP = 0.1
+
+
+def band_pairs(s, wl):
+    """The (q, key) pairs of one head that a causal window of ``wl`` keeps
+    over ``s`` tokens: row i sees min(i, wl) + 1 keys."""
+    w = min(wl, s - 1)
+    return w * (w + 1) // 2 + (s - w) * (w + 1)
+
+
+def phase_band(torch, flush):
+    """Phase 18: windows and dropout in B1, B2, B3a/B3b (their BAND
+    instantiations) and on every entry point that takes them. Returns (the
+    BAND instantiations' kernel entries, {"band": {kernel: launches}},
+    times)."""
+    import torch.nn.functional as F
+
+    from ring_flash_attn_tpu_torch import api
+    from ring_flash_attn_tpu_torch.ops.flash import (
+        block_bwd, block_fwd, compute_delta, flash_attention)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+    from ring_flash_attn_tpu_torch.ops.varlen import (
+        extract_local_ring_varlen, extract_local_zigzag_varlen,
+        ring_varlen_info, zigzag_varlen_info)
+    from ring_flash_attn_tpu_torch.parallel import (
+        layouts, llama3, ring, ring_varlen, stripe, zigzag, zigzag_varlen)
+
+    log("== phase 18: windows and dropout in B1, B2, B3a/B3b (BAND) and "
+        "the entry points with them")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    bf16 = torch.bfloat16
+    hq, hkv, d = (MISTRAL_ATTN[x] for x in ("heads", "kv_heads", "head_dim"))
+    wl = MISTRAL_ATTN["sliding_window"]
+    s, sd, tail, world = 32768, 8192, 512, 4
+    scale = d ** -0.5
+    counters = {"B1 flash_fwd": flash_fwd_cuda,
+                "B2 flash_bwd": flash_bwd_cuda,
+                "B3a flash_bwd_dq": flash_bwd_dq_cuda,
+                "B3b flash_bwd_dkv": flash_bwd_dkv_cuda}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def uncounted():
+        return _uncounted(counters)
+
+    # (a) the tile edges, then the full width's last 512 rows over every
+    # key (causal window at offset S - 512) and dropout's at S = 8192
+    worst = {"B1": [0.0, 0.0, 0.0], "B2": [0.0, 0.0], "B3a": [0.0, 0.0],
+             "B3b": [0.0, 0.0]}
+
+    def keep_worst(w):
+        for key, errs in w.items():
+            worst[key] = [max(a, b) for a, b in zip(worst[key], errs)]
+
+    with uncounted():
+        for case in range(len(BAND_EDGE_CASES)):
+            keep_worst(band_case_check(torch, case))
+    log(f"  (a) {len(BAND_EDGE_CASES)} tile-edge cases (both calling modes, "
+        f"D 64 and 128, with and without segments) within the limits; "
+        f"worst {worst}")
+
+    def tail_check(what, q, k, v, dout, mask):
+        """B1, B2 and B3a/B3b on the last ``tail`` rows of q over every key
+        against the plain versions; returns the plain (out, lse, dq)."""
+        n = q.shape[2]
+        m = mask._replace(offset=k.shape[2] - tail)
+        qt, dt = (x[:, :, -tail:].contiguous() for x in (q, dout))
+        with uncounted():
+            out, lse = flash_fwd_cuda(qt, k, v, scale, m, out_dtype=bf16)
+            o32, l32 = flash_fwd_cuda(qt, k, v, scale, m)
+        ro, rl = naive_block_fwd(qt, k, v, scale, m)
+        w = {"B1": [max_err(o32, ro), rel_err_rows(o32, ro),
+                    max_err(l32, rl)]}
+        delta = compute_delta(dt, out)
+        ref = naive_block_bwd(dt, qt, k, v, lse, delta, scale, m)
+        for name, bwd in (("B2", flash_bwd_cuda),
+                          ("B3", flash_bwd_split_cuda)):
+            with uncounted():
+                got = bwd(dt, qt, k, v, lse, delta, scale, m)
+            rel = [_rel_err(x, r) for x, r in zip(got, ref)]
+            if name == "B2":
+                w["B2"] = [max(max_err(x, r) for x, r in zip(got, ref)),
+                           max(rel)]
+            else:
+                w["B3a"] = [max_err(got[0], ref[0]), rel[0]]
+                w["B3b"] = [max(max_err(got[1], ref[1]),
+                                max_err(got[2], ref[2])), max(rel[1:])]
+            del got
+        log(f"    {what}, last {tail} rows of {n} over {k.shape[2]} keys: "
+            f"B1 out {w['B1'][0]:.3e} (by rows {w['B1'][1]:.3e}) lse "
+            f"{w['B1'][2]:.3e}; rel dq, dk, dv: B2 {w['B2'][1]:.2e}, B3a "
+            f"{w['B3a'][1]:.2e}, B3b {w['B3b'][1]:.2e}")
+        if (w["B1"][0] > B1_OUT_TOL or w["B1"][1] > RING_OUT_REL_TOL
+                or w["B1"][2] > B1_LSE_TOL
+                or max(w[x][1] for x in ("B2", "B3a", "B3b")) > BWD_REL_TOL):
+            raise AssertionError(f"{what}: past the limits {w}")
+        keep_worst(w)
+        plain = (ro, rl, ref[0])
+        del out, lse, o32, l32, delta, ref
+        torch.cuda.empty_cache()
+        return plain
+
+    q, k, v, dout = (rnd(1, hq, s, d), rnd(1, hkv, s, d), rnd(1, hkv, s, d),
+                     rnd(1, hq, s, d))
+    win = MaskArgs(causal=True, window_left=wl)
+    plain_win = tail_check(f"window ({wl}, 0) S={s}", q, k, v, dout, win)
+    qd, kd, vd, dd = (x[:, :, :sd].contiguous() for x in (q, k, v, dout))
+    drop = MaskArgs(causal=True, dropout_p=ATTN_PDROP, dropout_seed=1234)
+    plain_drop = tail_check(f"dropout {ATTN_PDROP} S={sd}", qd, kd, vd, dd,
+                            drop)
+    tail_check(f"window ({wl}, 0) and dropout S={sd}", qd, kd, vd, dd,
+               drop._replace(window_left=wl))
+
+    # (b) the keep mask bit for bit: B1 with v the identity, B2 and B3b
+    # with dout the identity
+    with uncounted():
+        keep = band_keep_checks(torch)
+    bad = [what for what, ok in keep if not ok]
+    log(f"  (b) keep mask bit for bit against the plain one: "
+        f"{len(keep) - len(bad)} of {len(keep)} checks agree")
+    if bad:
+        raise AssertionError(f"the kernels' keep mask differs: {bad}")
+
+    # (c) the times: each kernel windowed at the full width beside its band
+    # bound and the causal mask-free kernel at the same shape; with dropout
+    # at S = 8192 beside the same kernel without it; SDPA with the dense
+    # band mask and with dropout (its own random bits: the same work, not
+    # the same mask)
+    products = {"B1": 2, "B2": 5, "B3a": 3, "B3b": 4}
+
+    def time_set(q, k, v, dout, mask, pairs):
+        out, lse = flash_fwd_cuda(q, k, v, scale, mask, out_dtype=bf16)
+        delta = compute_delta(dout, out)
+        fns = {
+            "B1": lambda: flash_fwd_cuda(q, k, v, scale, mask,
+                                         out_dtype=bf16),
+            "B2": lambda: flash_bwd_cuda(dout, q, k, v, lse, None, scale,
+                                         mask, out=out, dq_dtype=bf16,
+                                         dkv_dtype=bf16),
+            "B3a": lambda: flash_bwd_dq_cuda(dout, q, k, v, lse, delta,
+                                             scale, mask, dq_dtype=bf16),
+            "B3b": lambda: flash_bwd_dkv_cuda(dout, q, k, v, lse, delta,
+                                              scale, mask, dkv_dtype=bf16),
+        }
+        res = {}
+        for name, fn in fns.items():
+            r = kernel_ms(torch, fn, 5, flush)
+            bound = products[name] * 2 * hq * d * pairs / H100_BF16_FLOPS
+            res[name] = dict(ms=r["ms"], device_ms=r["device_ms"],
+                             bound_ms=bound * 1e3)
+        del out, lse, delta
+        torch.cuda.empty_cache()
+        return res
+
+    timed = {}
+    with uncounted():
+        timed["window"] = time_set(q, k, v, dout, win, band_pairs(s, wl))
+        timed["causal"] = time_set(q, k, v, dout, MaskArgs(causal=True),
+                                   s * (s + 1) // 2)
+        timed["dropout"] = time_set(qd, kd, vd, dd, drop, sd * (sd + 1) // 2)
+        timed["causal 8192"] = time_set(qd, kd, vd, dd, MaskArgs(causal=True),
+                                        sd * (sd + 1) // 2)
+    for name in products:
+        w_, c_, dr, c8 = (timed[x][name] for x in (
+            "window", "causal", "dropout", "causal 8192"))
+        log(f"  {name}: window ({wl}, 0) S={s} {w_['ms']:.3f} ms (device "
+            f"{w_['device_ms']:.3f}), band bound {w_['bound_ms']:.3f} ms "
+            f"({w_['ms'] / w_['bound_ms']:.2f}x), causal without the window "
+            f"{c_['ms']:.3f} ms ({w_['ms'] / c_['ms']:.2f} of it); dropout "
+            f"{ATTN_PDROP} S={sd} {dr['ms']:.3f} ms against "
+            f"{c8['ms']:.3f} without ({dr['ms'] / c8['ms']:.2f}x), bound "
+            f"{dr['bound_ms']:.3f} ms")
+    # SDPA with the dense band mask, kv repeated to 32 heads, at the
+    # largest S of 32768, 16384, 8192 that it runs at; and SDPA causal with
+    # dropout at S = 8192
+    library = {"band_S": None, "band_fwd": None, "band_bwd": None}
+    for n in (s, s // 2, s // 4):
+        try:
+            qn, kn, vn = (x[:, :, :n].repeat_interleave(hq // x.shape[1],
+                                                        dim=1)
+                          for x in (q, k, v))
+            i = torch.arange(n, dtype=torch.int32, device=dev)
+            band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                                 <= wl)
+            lf = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qn, kn, vn, attn_mask=band), 3, flush)
+            leaves = [x.detach().requires_grad_() for x in (qn, kn, vn)]
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=band)
+            dn = dout[:, :, :n]
+            lb = cuda_ms(torch, lambda: torch.autograd.grad(
+                o, leaves, dn, retain_graph=True), 3, flush)
+            library = {"band_S": n, "band_fwd": lf, "band_bwd": lb}
+            del o, leaves
+            break
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+            log(f"  SDPA with the dense band mask at S={n}: "
+                f"{str(e).splitlines()[0][:120]}")
+        finally:
+            qn = kn = vn = band = i = None
+            torch.cuda.empty_cache()
+    qr, kr, vr = (x.repeat_interleave(hq // x.shape[1], dim=1)
+                  for x in (qd, kd, vd))
+    library["dropout_fwd"] = cuda_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=True, dropout_p=ATTN_PDROP), 3, flush)
+    leaves = [x.detach().requires_grad_() for x in (qr, kr, vr)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                       dropout_p=ATTN_PDROP)
+    library["dropout_bwd"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        o, leaves, dd, retain_graph=True), 3, flush)
+    del o, leaves, qr, kr, vr
+    torch.cuda.empty_cache()
+    log(f"  SDPA with the dense band mask at S={library['band_S']}: forward "
+        f"{library['band_fwd']} ms, backward {library['band_bwd']} ms; SDPA "
+        f"causal with dropout {ATTN_PDROP} at S={sd}: forward "
+        f"{library['dropout_fwd']:.3f} ms, backward "
+        f"{library['dropout_bwd']:.3f} ms")
+    # the plain versions' times, window (4096, 0) at S = 8192
+    wm = win
+    out, lse = flash_fwd_cuda(qd, kd, vd, scale, wm, out_dtype=bf16)
+    delta = compute_delta(dd, out)
+    plain_ms = {"fwd": cuda_ms(torch, lambda: naive_block_fwd(
+        qd, kd, vd, scale, wm), 2, flush),
+        "bwd": cuda_ms(torch, lambda: naive_block_bwd(
+            dd, qd, kd, vd, lse, delta, scale, wm), 2, flush)}
+    log(f"  plain versions, window ({wl}, 0) at S={sd}: forward "
+        f"{plain_ms['fwd']:.3f} ms, backward {plain_ms['bwd']:.3f} ms")
+    del out, lse, delta
+    torch.cuda.empty_cache()
+
+    # (d) the band path: the entry points and the schedules' ranks, their
+    # launches counted, the references' not
+    for fn in counters.values():
+        fn.launches = fn.band_launches = 0
+
+    def hold(what, got, ref, parts=world):
+        """(out, lse, dq, dk, dv) against the whole-sequence kernel's."""
+        errs = [_rel_err_parts(got[0], ref[0], parts), max_err(got[1],
+                                                              ref[1])]
+        rel = [_rel_err(x, r) for x, r in zip(got[2:], ref[2:])]
+        log(f"    {what}: out of max|ref| by parts {errs[0]:.3e}, lse "
+            f"{errs[1]:.3e}, rel dq dk dv " + " ".join(
+                f"{x:.2e}" for x in rel))
+        if (errs[0] > RING_OUT_REL_TOL or errs[1] > RING_LSE_TOL
+                or max(rel) > BWD_REL_TOL):
+            raise AssertionError(f"{what} is wrong")
+
+    # (d1) flash_attn_func with the window at the full width, forward and
+    # backward (B2, and B3a/B3b with deterministic), and with dropout at S
+    # = 8192: the last rows against the plain versions of (a)
+    for det in (False, True):
+        for (x, dx, kw, plain, n) in (
+                ((q, k, v), dout, dict(window_size=(wl, 0)), plain_win, s),
+                ((qd, kd, vd), dd, dict(dropout_p=ATTN_PDROP,
+                                        dropout_seed=1234), plain_drop, sd)):
+            leaves = [y.transpose(1, 2).detach().clone().requires_grad_()
+                      for y in x]
+            o, lse_a, _ = api.flash_attn_func(
+                *leaves, causal=True, return_attn_probs=True,
+                deterministic=det, **kw)
+            g = torch.autograd.grad(o, leaves, dx.transpose(1, 2))
+            got = (o.detach().transpose(1, 2)[:, :, -tail:],
+                   lse_a[:, :, -tail:], g[0].transpose(1, 2)[:, :, -tail:])
+            errs = (max_err(got[0], plain[0]), rel_err_rows(got[0], plain[0]),
+                    max_err(got[1], plain[1]), _rel_err(got[2], plain[2]))
+            log(f"    flash_attn_func {kw} S={n} deterministic={det}: last "
+                f"{tail} rows against the plain versions: out {errs[0]:.3e} "
+                f"(rows {errs[1]:.3e}), lse {errs[2]:.3e}, dq {errs[3]:.2e}")
+            if (errs[0] > B1_OUT_TOL or errs[1] > RING_OUT_REL_TOL
+                    or errs[2] > B1_LSE_TOL or errs[3] > BWD_REL_TOL
+                    or not all(bool(torch.isfinite(y).all()) for y in g)):
+                raise AssertionError(f"flash_attn_func {kw} is wrong")
+            del leaves, o, lse_a, g, got
+    torch.cuda.empty_cache()
+
+    # (d2) ring, zigzag and stripe at W=4 on one card, window (4096, 0):
+    # every rank's steps through the modules' own step masks (the kv of
+    # each source rank handed in), against B1/B2 with the window on the
+    # whole sequence; the ring's steps 2 and 3 launch nothing
+    with uncounted():
+        ref_o, ref_l = block_fwd(q, k, v, scale, win, out_dtype=bf16)
+        ref_g = block_bwd(dout, q, k, v, ref_l, None, scale, win, out=ref_o)
+    ref = (ref_o, ref_l, *ref_g)
+    extras = dict(window_left=wl)
+    layouts_of = {
+        "ring": (lambda x: [c.contiguous() for c in x.chunk(world, dim=2)],
+                 lambda parts: torch.cat(parts, dim=2)),
+        "zigzag": (lambda x: [layouts.extract_local_zigzag(
+            x, r, world, axis=2).contiguous() for r in range(world)],
+            lambda parts: layouts.restore_zigzag(
+                torch.cat(parts, dim=2), world, axis=2)),
+        "stripe": (lambda x: [layouts.extract_local_stripe(
+            x, r, world, axis=2).contiguous() for r in range(world)],
+            lambda parts: layouts.restore_stripe(
+                torch.cat(parts, dim=2), world, axis=2)),
+    }
+    ring_blocks = []
+    for sched, (split, join) in layouts_of.items():
+        qs, ks, vs, douts = (split(x) for x in (q, k, v, dout))
+        ll = qs[0].shape[2]
+        if sched == "zigzag":
+            step_masks = zigzag._batch_masks(ll // 2, extras, dev)
+            rank_fwd, rank_bwd = _zigzag_rank_fwd, _zigzag_rank_bwd
+        else:
+            step_masks = (ring._ring_masks(True, ll, extras)
+                          if sched == "ring"
+                          else stripe._step_masks(extras, ll, dev))
+            rank_fwd, rank_bwd = _rank_fwd, _rank_bwd
+        res = []
+        for r in range(world):
+            before = (flash_fwd_cuda.launches, flash_bwd_cuda.launches)
+            res.append(rank_fwd(qs, ks, vs, r, scale, step_masks))
+            if sched == "ring":
+                ring_blocks.append([flash_fwd_cuda.launches - before[0]])
+        outs, lses = [o for o, _ in res], [x for _, x in res]
+        dkvs = [torch.zeros((2,) + tuple(x.shape), dtype=torch.float32,
+                            device=dev) for x in ks]
+        dqs = []
+        for r in range(world):
+            before = flash_bwd_cuda.launches
+            dqs.append(rank_bwd(qs, ks, vs, douts, outs, lses, dkvs, r,
+                                scale, step_masks))
+            if sched == "ring":
+                ring_blocks[r].append(flash_bwd_cuda.launches - before)
+        got = (join(outs), join(lses), join(dqs), join([x[0] for x in dkvs]),
+               join([x[1] for x in dkvs]))
+        hold(f"{sched} W={world} S={s} window ({wl}, 0)", got, ref)
+        del res, outs, lses, dkvs, dqs, got, qs, ks, vs, douts
+        torch.cuda.empty_cache()
+    want_blocks = [[min(r, 1) + 1] * 2 for r in range(world)]
+    log(f"    ring's blocks launched per rank (forward, backward): "
+        f"{ring_blocks}; steps 2 and 3 lie past the window")
+    if ring_blocks != want_blocks:
+        raise AssertionError(f"the ring launched {ring_blocks}, not "
+                             f"{want_blocks}")
+
+    # (d3) llama3 at W=4 (heads_k_stride 4) and its last rank of W=8 at
+    # 65536 keys (B3a/B3b past the fused kernel's limit) with the window
+    stride, t = 4, s // world
+    kv = torch.stack([k, v])
+    qs, douts = ([c.contiguous() for c in x.chunk(world, dim=2)]
+                 for x in (q, dout))
+
+    def l3_fwd(qq, kv_all, m):
+        return llama3._rank_fwd(qq, lambda i: kv_all[:, :, i:i + stride],
+                                hkv, scale, m, stride, None)
+
+    def l3_bwd(qq, o, lse_q, dd_, kv_all, m):
+        parts = list(llama3._rank_bwd(
+            qq, o, lse_q, dd_, lambda i: kv_all[:, :, i:i + stride], hkv,
+            scale, m, stride, None))
+        return [torch.cat([p[i] for p in parts], dim=1) for i in range(3)]
+
+    outs, lses, dqs = [], [], []
+    dkv = torch.zeros((2, 1, hkv, s, d), dtype=torch.float32, device=dev)
+    for r in range(world):
+        m = win._replace(offset=r * t)
+        o, lse_r = l3_fwd(qs[r], kv, m)
+        dq_r, dk_r, dv_r = l3_bwd(qs[r], o, lse_r, douts[r], kv, m)
+        outs.append(o)
+        lses.append(lse_r)
+        dqs.append(dq_r)
+        dkv[0].add_(dk_r)
+        dkv[1].add_(dv_r)
+    hold(f"llama3 W={world} S={s} window ({wl}, 0), heads_k_stride {stride}",
+         (torch.cat(outs, dim=2), torch.cat(lses, dim=2),
+          torch.cat(dqs, dim=2), dkv[0], dkv[1]), ref)
+    del outs, lses, dqs, dkv, kv, qs, douts, ref, ref_o, ref_l, ref_g
+    torch.cuda.empty_cache()
+    s8 = 8 * sd
+    q7, d7 = rnd(1, hq, sd, d), rnd(1, hq, sd, d)
+    k8, v8 = rnd(1, hkv, s8, d), rnd(1, hkv, s8, d)
+    m7 = win._replace(offset=7 * sd)
+    split = flash_bwd_dq_cuda.band_launches, flash_bwd_dkv_cuda.band_launches
+    o7, l7 = l3_fwd(q7, torch.stack([k8, v8]), m7)
+    g7 = l3_bwd(q7, o7, l7, d7, torch.stack([k8, v8]), m7)
+    ran_split = (flash_bwd_dq_cuda.band_launches - split[0],
+                 flash_bwd_dkv_cuda.band_launches - split[1])
+    with uncounted():
+        r7o, r7l = block_fwd(q7, k8, v8, scale, m7, out_dtype=bf16)
+        r7g = block_bwd(d7, q7, k8, v8, r7l, None, scale, m7, out=r7o,
+                        fused=False)
+    hold(f"llama3 W=8 rank 7 ({s8} keys) window ({wl}, 0), B3a/B3b "
+         f"launched {ran_split}", (o7, l7, *g7), (r7o, r7l, *r7g), parts=1)
+    if ran_split != (hkv // stride,) * 2:
+        raise AssertionError(f"llama3's last rank ran B3a/B3b {ran_split}")
+    del q7, d7, k8, v8, o7, l7, g7, r7o, r7l, r7g
+    torch.cuda.empty_cache()
+
+    # (d4) ring varlen and zigzag varlen at W=4 on the four packings x 4
+    # with the window on the sequences' positions, every rank through the
+    # modules' step masks, against flash_attn_varlen_func on the whole
+    # packing (the ranks' results put back in global order)
+    qv, kv_, vv, dv_ = (x[0].transpose(0, 1).contiguous()
+                        for x in (q, k, v, dout))
+    for cu in ([4 * x for x in c] for c in VARLEN_PACKINGS):
+        cu_t = torch.tensor(cu, dtype=torch.int32, device=dev)
+        leaves = [x.detach().clone().requires_grad_() for x in (qv, kv_, vv)]
+        with uncounted():
+            r_o, r_l, _ = api.flash_attn_varlen_func(
+                *leaves, cu_t, causal=True, window_size=(wl, 0),
+                return_attn_probs=True)
+            r_g = torch.autograd.grad(r_o, leaves, dv_)
+        for sched in ("ring_varlen", "zigzag_varlen"):
+            if sched == "ring_varlen":
+                index = [extract_local_ring_varlen(
+                    torch.arange(s, device=dev), cu, r, world)
+                    for r in range(world)]
+                masks = [ring_varlen.varlen_step_masks(
+                    *ring_varlen_info([x // world for x in cu], s // world,
+                                      r, dev), True, extras)
+                    for r in range(world)]
+                fwd_, bwd_ = _rank_fwd, _rank_bwd
+            else:
+                index = [extract_local_zigzag_varlen(
+                    torch.arange(s, device=dev), cu, r, world)
+                    for r in range(world)]
+                masks = [zigzag_varlen.varlen_step_masks(
+                    *zigzag_varlen_info([x // (2 * world) for x in cu],
+                                        s // world, r, world, dev), extras)
+                    for r in range(world)]
+                fwd_, bwd_ = _zigzag_rank_fwd, _zigzag_rank_bwd
+            qs, ks, vs, douts = ([x[idx].transpose(0, 1)[None].contiguous()
+                                  for idx in index]
+                                 for x in (qv, kv_, vv, dv_))
+            res = [fwd_(qs, ks, vs, r, scale, masks[r]) for r in range(world)]
+            outs, lses = [o for o, _ in res], [x for _, x in res]
+            dkvs = [torch.zeros((2,) + tuple(x.shape), dtype=torch.float32,
+                                device=dev) for x in ks]
+            dqs = [bwd_(qs, ks, vs, douts, outs, lses, dkvs, r, scale,
+                        masks[r]) for r in range(world)]
+            perm = torch.cat(index)
+
+            def back(parts):
+                x = torch.cat([p[0].transpose(0, 1) for p in parts])
+                y = torch.empty_like(x)
+                y[perm] = x
+                return y
+
+            got = (back(outs), back([l_[..., None]
+                                     for l_ in lses])[:, :, 0].t()[None],
+                   back(dqs), back([x[0] for x in dkvs]),
+                   back([x[1] for x in dkvs]))
+            hold(f"{sched} W={world} {cu} window ({wl}, 0)", got,
+                 (r_o.detach(), r_l[None], *r_g), parts=1)
+            del res, outs, lses, dkvs, dqs, got, qs, ks, vs, douts
+        del leaves, r_o, r_l, r_g
+        torch.cuda.empty_cache()
+    # (d5) Ulysses (4 head groups) and USP (2 head groups x a ring of 2)
+    # with dropout at S = 32768, each process's heads with its global head
+    # offset, against flash_attention with dropout on every head
+    del qv, kv_, vv, dv_, qd, kd, vd, dd
+    torch.cuda.empty_cache()
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    with uncounted():
+        r_o, r_l = flash_attention(*leaves, scale, drop)
+        r_g = torch.autograd.grad(r_o, leaves, dout)
+    ref = (r_o.detach(), r_l, *r_g)
+    gq, gk = hq // world, hkv // world
+    outs, lses, dqs, dks, dvs = [], [], [], [], []
+    for u in range(world):
+        hs, ks_ = slice(u * gq, (u + 1) * gq), slice(u * gk, (u + 1) * gk)
+        lv = [x[:, h].detach().clone().requires_grad_()
+              for x, h in ((q, hs), (k, ks_), (v, ks_))]
+        o, lse_u = flash_attention(*lv, scale,
+                                   drop._replace(head_offset=u * gq))
+        g = torch.autograd.grad(o, lv, dout[:, hs])
+        outs.append(o.detach())
+        lses.append(lse_u)
+        dqs.append(g[0])
+        dks.append(g[1])
+        dvs.append(g[2])
+    hold(f"Ulysses W={world} S={s} dropout {ATTN_PDROP}",
+         tuple(torch.cat(x, dim=1) for x in (outs, lses, dqs, dks, dvs)),
+         ref, parts=1)
+    wu, wr = 2, 2
+    gq, gk, ll = hq // wu, hkv // wu, s // wr
+    outs, lses, dqs, dks, dvs = [], [], [], [], []
+    for u in range(wu):
+        hs, ks_ = slice(u * gq, (u + 1) * gq), slice(u * gk, (u + 1) * gk)
+        qs, ks, vs, douts = ([c.contiguous() for c in x[:, h].chunk(wr, 2)]
+                             for x, h in ((q, hs), (k, ks_), (v, ks_),
+                                          (dout, hs)))
+        step_mask = ring._ring_masks(True, ll, dict(
+            dropout_p=ATTN_PDROP, dropout_seed=1234, head_offset=u * gq))
+        res = [_rank_fwd(qs, ks, vs, r, scale, step_mask) for r in range(wr)]
+        o_u, l_u = [o for o, _ in res], [x for _, x in res]
+        dkvs = [torch.zeros((2,) + tuple(x.shape), dtype=torch.float32,
+                            device=dev) for x in ks]
+        dq_u = [_rank_bwd(qs, ks, vs, douts, o_u, l_u, dkvs, r, scale,
+                          step_mask) for r in range(wr)]
+        outs.append(torch.cat(o_u, dim=2))
+        lses.append(torch.cat(l_u, dim=2))
+        dqs.append(torch.cat(dq_u, dim=2))
+        dks.append(torch.cat([x[0] for x in dkvs], dim=2))
+        dvs.append(torch.cat([x[1] for x in dkvs], dim=2))
+    hold(f"USP {wu} x {wr} (ring) S={s} dropout {ATTN_PDROP}",
+         tuple(torch.cat(x, dim=1) for x in (outs, lses, dqs, dks, dvs)),
+         ref, parts=wr)
+    del leaves, ref, r_o, r_l, r_g, outs, lses, dqs, dks, dvs, qs, ks, vs
+    del douts, res, dkvs, q, k, v, dout
+    torch.cuda.empty_cache()
+
+    band_path = ({n: fn.launches for n, fn in counters.items()},
+                 {n + " BAND": fn.band_launches
+                  for n, fn in counters.items()})
+    log(f"  launches on the band path: {band_path}")
+    if min(band_path[1].values()) == 0:
+        raise AssertionError(f"a BAND kernel of the path never ran: "
+                             f"{band_path}")
+
+    sources = {"B1": "flash_fwd.cuh", "B2": "flash_bwd.cuh",
+               "B3a": "flash_bwd_split.cu", "B3b": "flash_bwd.cuh"}
+    replaces = {"B1": "ring_flash_attn_tpu/ops/pallas_fwd.py:161",
+                "B2": "ring_flash_attn_tpu/ops/pallas_bwd_fused.py:59",
+                "B3a": "ring_flash_attn_tpu/ops/pallas_bwd.py:56",
+                "B3b": "ring_flash_attn_tpu/ops/pallas_bwd.py:256"}
+    entries = []
+    for base in XFORM_KERNELS:
+        short = base.split()[0]
+        name = base + " BAND"
+        w_ = timed["window"][short]
+        lib = library["band_fwd" if short == "B1" else "band_bwd"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "ring_flash_attn_tpu_torch/csrc/" + sources[short],
+            "replaces": replaces[short],
+            "shape": f"q (1,32,{s},128) kv (1,8,{s},128) bf16 causal, "
+                     f"window ({wl}, 0): Mistral-7B-v0.1's attention",
+            "launches": band_path[1][name],
+            "max_abs_err": worst[short][0], "max_rel_err": worst[short][1],
+            "ms": w_["ms"], "device_ms": w_["device_ms"],
+            "plain_ms": plain_ms["fwd" if short == "B1" else "bwd"],
+            "plain_shape": f"window ({wl}, 0) at S={sd}",
+            "bound_ms": w_["bound_ms"], "bound_by": "operations",
+            "library_ms": lib if library["band_S"] == s else None,
+            "library": "F.scaled_dot_product_attention with the dense band "
+                       "mask, kv repeated to 32 heads",
+            "library_band_S": library["band_S"],
+            "library_band_ms": lib,
+            "causal_without_window_ms": timed["causal"][short]["ms"],
+            "dropout": {"S": sd, "p": ATTN_PDROP,
+                        "ms": timed["dropout"][short]["ms"],
+                        "without_ms": timed["causal 8192"][short]["ms"],
+                        "bound_ms": timed["dropout"][short]["bound_ms"],
+                        "sdpa_dropout_ms": library[
+                            "dropout_fwd" if short == "B1"
+                            else "dropout_bwd"]},
+        })
+        if short == "B1":
+            entries[-1]["max_lse_err"] = worst["B1"][2]
+    return entries, {"band": band_path[0]}, {"band_times": timed,
+                                             "band_library": library}
+
+
 def main():
     import torch
 
@@ -4448,6 +5260,9 @@ def main():
     torch.cuda.empty_cache()
     xform_entries, xform_paths, xform_times = run(
         "softcap and ALiBi, zigzag varlen", phase_xform, torch, flush)
+    torch.cuda.empty_cache()
+    band_entries, band_paths, band_times = run(
+        "windows and dropout", phase_band, torch, flush)
     del flush
     next(k for k in kernels if k["name"].startswith("B7"))[
         "w4_causal_forward_ms"] = ring_compare
@@ -4456,11 +5271,21 @@ def main():
     b1.update(llama3_times)
     b1["w4_per_rank_varlen_ms"] = varlen_times
     b1.update(xform_times)
-    for k in xform_entries:
-        # the XFORM instantiations' counts come from phase 17's paths
+    b1.update(band_times)
+    for k in xform_entries + band_entries:
+        # the XFORM and BAND instantiations' counts come from phase 17's
+        # and phase 18's paths
         k["ptxas"] = kernel_ptxas(built, k["name"])
         k["ptxas_varlen"] = kernel_ptxas(built, k["name"],
                                          SEG_INSTANTIATIONS)
+    for k in band_entries:
+        # the builds for dropout, softcap and ALiBi (BAND 2) beside the
+        # window builds the names give
+        for key, table in (("ptxas_all", INSTANTIATIONS),
+                           ("ptxas_all_varlen", SEG_INSTANTIATIONS)):
+            lib, piece = table[k["name"]]
+            k[key] = kernel_ptxas(built, k["name"], {k["name"]: (
+                lib, piece.replace("Li1EE", "Li2EE"))})
     for k in kernels:
         # each kernel's count on the run of its own path: serving for B1
         # and B5, training for B2/B3a/B3b, generate for B4 (B1 runs on all
@@ -4474,7 +5299,8 @@ def main():
             ("ring", ring), ("stripe", stripe), ("moe", moe), ("tp", tp),
             ("llama3", llama3), ("varlen", varlen),
             ("xform", xform_paths["xform"]),
-            ("zigzag_varlen", xform_paths["zigzag_varlen"]))
+            ("zigzag_varlen", xform_paths["zigzag_varlen"]),
+            ("band", band_paths["band"]))
             if k["name"] in c}
         k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths
@@ -4484,7 +5310,7 @@ def main():
             k["ptxas_varlen"] = kernel_ptxas(built, k["name"],
                                              SEG_INSTANTIATIONS)
             k.update(varlen_readings[k["name"]])
-    kernels += xform_entries
+    kernels += xform_entries + band_entries
     log(f"phase seconds {seconds}; phases took "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -13,13 +13,16 @@ the forward and backward loops (``flash_fwd``, ``flash_bwd``,
 ``cuobjdump -sass`` and holds every instantiation of ``flash_fwd_kernel``,
 ``bwd_kv_kernel``, ``bwd_dq_kernel`` and ``bwd_delta_kernel`` in PARENT
 against the same instantiation here. An instantiation is known by its
-kernel and template arguments; the XFORM flag (softcap and ALiBi,
-``csrc/xform.cuh``) that ``bwd_kv_kernel`` and ``bwd_dq_kernel`` take
-last is dropped where it has its default (off; on with RING, the fused
-ring's B8), so that a tree without the flag and one with it name the same
-instantiation alike. Instructions are compared as written, operands,
-constant-bank offsets and immediates included; only the branch labels are
-renumbered in their order of first use within a kernel.
+kernel and template arguments; the BAND parameter (windows and dropout,
+``csrc/band.cuh``: 0 none, 1 the build of a window alone, 2 the build for
+the rest) that the three loops take last, and the XFORM flag (softcap and
+ALiBi, ``csrc/xform.cuh``) that ``bwd_kv_kernel`` and ``bwd_dq_kernel``
+take before it, are dropped where they have their defaults (off; XFORM
+on with RING, the fused ring's B8), so that a tree without them and one
+with them name the same instantiation alike. Instructions are compared
+as written, operands, constant-bank offsets and immediates included;
+only the branch labels are renumbered in their order of first use within
+a kernel.
 
 Prints one line an instantiation (identical, or how many instructions
 differ and the first that does), then those that are new here; exits 1
@@ -51,14 +54,23 @@ def build(root):
     return json.loads(out.strip().splitlines()[-1])
 
 
+# the number of template arguments with the BAND parameter, the last
+BAND_ARGS = {"flash_fwd_kernel": 5, "bwd_kv_kernel": 6, "bwd_dq_kernel": 4}
+
+
 def key(name):
-    """(kernel, template arguments) of a mangled name, the XFORM flag
-    dropped where it has its default; None for another kernel."""
+    """(kernel, template arguments) of a mangled name, the BAND and XFORM
+    flags dropped where they have their defaults; None for another
+    kernel."""
     m = re.search(r"(%s)I((?:L[ib]\d+E)+)E" % "|".join(KERNELS), name)
     if not m:
         return None
     kernel = m.group(1)
     args = tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2)))
+    if len(args) == BAND_ARGS.get(kernel):
+        if args[-1]:
+            return kernel, args + ("band",)
+        args = args[:-1]
     if kernel == "bwd_kv_kernel" and len(args) == 5:
         # <D, DQ, RING, SEG, XFORM = RING>
         args = args[:4] if args[4] == args[2] else args + ("new",)

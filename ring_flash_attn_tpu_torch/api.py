@@ -17,13 +17,22 @@ are per-process, on tensors sharded along S in their schedule's layout
 kernels B1 and B2 (or B3a/B3b) on the card, their plain versions on the
 CPU.
 
-Ported so far: causal or not (zigzag, stripe and zigzag varlen are
-causal-only), GQA, any ``softmax_scale``, ``softcap`` and
-``alibi_slopes`` on every entry point, which the kernels B1, B2 and
-B3a/B3b take on the card. A non-default ``window_size`` or ``dropout_p``
-raises ``NotImplementedError`` until its slice ports it. The varlen entry
-points turn ``cu_seqlens`` into segment ids and positions
-(``ops/varlen.py``) on q's device, which the kernels take too.
+Ported: causal or not (zigzag, stripe and zigzag varlen are causal-only),
+GQA, any ``softmax_scale``, ``softcap``, ``alibi_slopes``, ``window_size``
+and ``dropout_p`` (with ``dropout_seed``) on every entry point, as the JAX
+package takes them, which the kernels B1, B2 and B3a/B3b take on the card.
+``window_size`` is flash-attn's (left, right), either side -1 for
+unbounded: ``flash_attn_*`` and the ring batch functions take a causal
+(left, 0) window and a non-causal (left, right) one; zigzag, stripe and
+the varlen functions take causal windows only, as the JAX package does.
+The window is the JAX package's global band on absolute positions, where
+the reference, zhuzilin's ring_flash_attn, hands ``window_size`` to each
+ring step's flash call as it is (a window local to the shard). Dropout
+drops by a stateless hash of absolute coordinates (``ops/mask.py``), so
+that every schedule drops the same pairs as the single-device call and
+the JAX package. The varlen entry points turn ``cu_seqlens`` into segment
+ids and positions (``ops/varlen.py``) on q's device, which the kernels
+take too.
 
 ``deterministic=True`` asks every entry point here, the ring, zigzag and
 stripe ones included, for the split backward kernels B3a/B3b, which are bitwise
@@ -71,6 +80,34 @@ def _cap(softcap):
     return float(softcap) if softcap else None
 
 
+def _window(window_size, causal):
+    """(window_left, window_right) of flash-attn's window_size, -1 for an
+    unbounded side; with causal=True causality already caps the right side
+    at 0, so window_size[1] is a no-op there."""
+    window_left = window_right = None
+    if tuple(window_size) != (-1, -1):
+        if window_size[0] >= 0:
+            window_left = int(window_size[0])
+        if window_size[1] >= 0 and not causal:
+            window_right = int(window_size[1])
+    return window_left, window_right
+
+
+def _causal_window(window_size, causal):
+    """window_size's left side where only causal sliding windows (left, 0)
+    are taken (zigzag, stripe, the varlen functions), as the JAX package
+    takes them: anything else raises NotImplementedError."""
+    if tuple(window_size) == (-1, -1):
+        return None
+    if window_size[0] < 0 or window_size[1] not in (0, -1):
+        raise NotImplementedError(
+            "window_size: only causal sliding windows (left, 0) are taken "
+            "here")
+    if not causal:
+        raise NotImplementedError("sliding window requires causal=True")
+    return int(window_size[0])
+
+
 def flash_attn_func(
     q, k, v,
     dropout_p=0.0, softmax_scale=None, causal=False,
@@ -80,15 +117,12 @@ def flash_attn_func(
 ):
     """Single-device flash attention, q (B, Sq, Hq, D), k and v
     (B, Skv, Hkv, D); returns out (B, Sq, Hq, D) in q's dtype, or
-    (out, lse (B, Hq, Sq) fp32, None) with return_attn_probs."""
-    window_left = window_right = None
-    if tuple(window_size) != (-1, -1):
-        if window_size[0] >= 0:
-            window_left = int(window_size[0])
-        # flash-attn convention: with causal=True causality already caps
-        # the right side at 0, so window_size[1] is a no-op there
-        if window_size[1] >= 0 and not causal:
-            window_right = int(window_size[1])
+    (out, lse (B, Hq, Sq) fp32, None) with return_attn_probs.
+    ``window_size`` (left, right) is the causal (left, 0) or non-causal
+    (left, right) sliding window; ``dropout_p`` drops by the hash of
+    ``dropout_seed`` (an int or a one-element tensor) and the pairs'
+    coordinates."""
+    window_left, window_right = _window(window_size, causal)
     out, lse = flash_attention(
         _bshd_to_bhsd(q), _bshd_to_bhsd(k), _bshd_to_bhsd(v),
         _scale(softmax_scale, q.shape[-1]),
@@ -119,12 +153,10 @@ def _batch_variant(kind):
         deterministic=False,
         return_attn_probs=False, group=None, dropout_seed=None,
     ):
-        window_left = window_right = None
-        if tuple(window_size) != (-1, -1):
-            if window_size[0] >= 0:
-                window_left = int(window_size[0])
-            if window_size[1] >= 0 and not causal:
-                window_right = int(window_size[1])
+        if kind == "ring":
+            window_left, window_right = _window(window_size, causal)
+        else:
+            window_left = _causal_window(window_size, causal)
         scale = _scale(softmax_scale, q.shape[-1])
         qi, ki, vi = map(_bshd_to_bhsd, (q, k, v))
         if kind == "ring":
@@ -151,9 +183,12 @@ def _batch_variant(kind):
     func.__doc__ = (
         f"{kind} attention over ``group``, per process: q (B, S_local, Hq, "
         f"D), k and v (B, S_local, Hkv, D) in the schedule's layout; "
-        f"returns as ``flash_attn_func``. ``deterministic=True`` runs "
-        f"every step's backward on the bitwise reproducible split kernels "
-        f"B3a/B3b on the card, as ``flash_attn_func`` does.")
+        f"returns as ``flash_attn_func``. ``window_size`` is the global "
+        f"band on absolute positions (the module docstring), "
+        f"{'causal (left, 0) or not (left, right)' if kind == 'ring' else 'causal (left, 0) only'}; "
+        f"``deterministic=True`` runs every step's backward on the bitwise "
+        f"reproducible split kernels B3a/B3b on the card, as "
+        f"``flash_attn_func`` does.")
     return func
 
 
@@ -188,16 +223,6 @@ def _varlen_ret(out_bhsd, lse, return_attn_probs):
     return out
 
 
-def _varlen_window(window_size, causal):
-    """window_size's left half, which the mask refuses for now (MaskArgs
-    raises NotImplementedError for it)."""
-    if tuple(window_size) == (-1, -1):
-        return None
-    if not causal:
-        raise NotImplementedError("sliding window requires causal=True")
-    return int(window_size[0]) if window_size[0] >= 0 else None
-
-
 def flash_attn_varlen_func(
     q, k, v, cu_seqlens, max_seqlen=None,
     dropout_p=0.0, softmax_scale=None, causal=False,
@@ -215,10 +240,10 @@ def flash_attn_varlen_func(
     t = q.shape[0]
     seg = cu_seqlens_to_segids(cu_seqlens, t, q.device)
     pos = (cu_seqlens_to_positions(cu_seqlens, t, q.device)
-           if causal or alibi_slopes is not None else None)
+           if causal or alibi_slopes is not None or dropout_p else None)
     mask = MaskArgs(
         causal=causal, q_segids=seg, kv_segids=seg, q_pos=pos, kv_pos=pos,
-        window_left=_varlen_window(window_size, causal),
+        window_left=_causal_window(window_size, causal),
         softcap=_cap(softcap), alibi_slopes=alibi_slopes,
         dropout_p=dropout_p or None, dropout_seed=dropout_seed,
         packed_self=True,
@@ -264,7 +289,7 @@ def ring_flash_attn_varlen_func(
         scale=_scale(softmax_scale, q.shape[-1]), causal=causal, group=group,
         softcap=_cap(softcap), alibi_slopes=alibi_slopes,
         dropout_p=dropout_p or None, dropout_seed=dropout_seed,
-        window_left=_varlen_window(window_size, causal),
+        window_left=_causal_window(window_size, causal),
         deterministic=deterministic,
     )
     return _varlen_ret(out, lse, return_attn_probs)
@@ -308,7 +333,7 @@ def zigzag_ring_flash_attn_varlen_func(
         scale=_scale(softmax_scale, q.shape[-1]), causal=causal,
         group=group, softcap=_cap(softcap), alibi_slopes=alibi_slopes,
         dropout_p=dropout_p or None, dropout_seed=dropout_seed,
-        window_left=_varlen_window(window_size, causal),
+        window_left=_causal_window(window_size, causal),
         deterministic=deterministic,
     )
     return _varlen_ret(out, lse, return_attn_probs)
@@ -394,7 +419,7 @@ def llama3_flash_attn_varlen_func(
         heads_k_stride=heads_k_stride, group=group, softcap=_cap(softcap),
         alibi_slopes=alibi_slopes, dropout_p=dropout_p or None,
         dropout_seed=dropout_seed,
-        window_left=_varlen_window(window_size, causal),
+        window_left=_causal_window(window_size, causal),
         deterministic=deterministic,
     )
     return _varlen_ret(out, lse, return_attn_probs)

@@ -4,7 +4,8 @@
 // _bwd_fused_kernel (wrapper pallas_block_bwd_fused), for the mask model
 // the port carries: causal with a static integer offset (attend iff
 // iq + offset >= ik) or no mask, segment ids and explicit positions
-// (csrc/segments.cuh), softcap and ALiBi (csrc/xform.cuh), GQA (q head h
+// (csrc/segments.cuh), softcap and ALiBi (csrc/xform.cuh), sliding windows
+// and dropout (csrc/band.cuh), GQA (q head h
 // reads kv head h / (Hq/Hkv)),
 // head_dim 64 or 128, bf16 q, k, v and dout. Contract of
 // ops/flash.py::block_bwd: dq fp32 (B, Hq, Sq, D); dk, dv (B, Hkv, Skv, D)
@@ -151,7 +152,8 @@ extern "C" int rfa_flash_bwd_xf(const void* q, const void* k, const void* v,
   const rfa_seg_args none{};
   auto go = [&](auto fn, const rfa_seg_args& sg) {
     return fn(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
-              strides, scale, causal, offset, dkv_bf16, st, ring, sg);
+              strides, scale, causal, offset, dkv_bf16, st, ring, sg,
+              rfa_band_args{});
   };
   if (D == 128)
     return seg ? go(rfa_bwd::launch_kv<128, true, false, true, true>, *seg)
@@ -159,6 +161,51 @@ extern "C" int rfa_flash_bwd_xf(const void* q, const void* k, const void* v,
   if (D == 64)
     return seg ? go(rfa_bwd::launch_kv<64, true, false, true, true>, *seg)
                : go(rfa_bwd::launch_kv<64, true, false, false, true>, none);
+  return cudaErrorInvalidValue;
+}
+
+// B2 with a window or dropout (csrc/band.cuh): as rfa_flash_bwd_xf, with the
+// window and dropout of `bd`. Compiled apart from the instantiations
+// without it.
+extern "C" int rfa_flash_bwd_band(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const float* lse, const float* delta,
+                                  float* dq_acc, void* dk, void* dv, int B,
+                                  int Hq, int Hkv, int Sq, int Skv, int D,
+                                  const long long* strides, float scale,
+                                  int causal, int offset, int dkv_bf16,
+                                  const rfa_seg_args* seg,
+                                  const rfa_xform_args* xf,
+                                  const rfa_band_args* bd, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rfa_bwd::Ring ring{xf->slopes, xf->cap2, xf->pos_off, 0,
+                           xf->alibi_abs, 0};
+  const rfa_seg_args none{};
+  auto go = [&](auto fn, const rfa_seg_args& sg) {
+    return fn(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
+              strides, scale, causal, offset, dkv_bf16, st, ring, sg, *bd);
+  };
+  // the build of a window alone, or the one for the rest (csrc/band.cuh)
+  constexpr int W = rfa_band::WINDOW, A = rfa_band::ALL;
+  const bool all = bd->thr != 0 || xf->cap2 > 0.f || xf->slopes;
+  if (D == 128) {
+    if (seg)
+      return all
+          ? go(rfa_bwd::launch_kv<128, true, false, true, true, A>, *seg)
+          : go(rfa_bwd::launch_kv<128, true, false, true, true, W>, *seg);
+    return all
+        ? go(rfa_bwd::launch_kv<128, true, false, false, true, A>, none)
+        : go(rfa_bwd::launch_kv<128, true, false, false, true, W>, none);
+  }
+  if (D == 64) {
+    if (seg)
+      return all
+          ? go(rfa_bwd::launch_kv<64, true, false, true, true, A>, *seg)
+          : go(rfa_bwd::launch_kv<64, true, false, true, true, W>, *seg);
+    return all
+        ? go(rfa_bwd::launch_kv<64, true, false, false, true, A>, none)
+        : go(rfa_bwd::launch_kv<64, true, false, false, true, W>, none);
+  }
   return cudaErrorInvalidValue;
 }
 

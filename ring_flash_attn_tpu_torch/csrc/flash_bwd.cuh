@@ -79,11 +79,22 @@
 // same steps, whose segments or positions cannot meet the tile, and the
 // consumers mask by segment and position the steps that straddle an edge.
 // Keys no q row reaches get dk = dv = 0.
+//
+// With BAND (B2 and B3b with a window or dropout, csrc/band.cuh; always with
+// XFORM, without RING) a block's q steps narrow to the window's band where
+// the positions are the index, the steps that cross a band edge are masked
+// (with SEG and explicit positions the classes take the band), and the
+// producer warp hashes each q row of a step beside its lse and delta. P is
+// made element by element, as the XFORM segmented build makes it: the
+// dropped p leave dV's operand, the keep bits of a thread's 32 elements
+// wait in one register for dS, which masks and scales dP and takes the
+// undropped p; dV is scaled by 1 / (1 - p) once, at the end.
 
 #pragma once
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "band.cuh"
 #include "segments.cuh"
 #include "xform.cuh"
 
@@ -115,7 +126,7 @@ constexpr int KV_STAGES = 2;
 
 // Byte offsets from a 1024-aligned base; bf16 tiles in 128B-swizzled panels
 // of 64 columns, the fp32 dQ tile in 128B-swizzled boxes of 32 columns.
-template <int D, bool DQ = false>
+template <int D, bool DQ = false, int BAND = 0>
 struct KvSmem {
   static constexpr int PANEL_KV = KV_BN * 128;  // one 64-column panel of K
   static constexpr int PANEL_Q = KV_BM * 128;   // of a Q or dout tile
@@ -127,8 +138,10 @@ struct KvSmem {
   static constexpr int DS_BYTES = KV_BN * KV_BM * 2;
   static constexpr int DQT = DS + 2 * DS_BYTES;  // 2 x the fp32 dQ tile
   static constexpr int DQ_BYTES = KV_BM * D * 4;
-  static constexpr int ROWS = DQT + (DQ ? 2 * DQ_BYTES : 0);  // lse2, delta
-  static constexpr int BAR = ROWS + KV_STAGES * 2 * KV_BM * 4;
+  // lse2, delta (BAND: and the rows' dropout hashes)
+  static constexpr int ROWS = DQT + (DQ ? 2 * DQ_BYTES : 0);
+  static constexpr int BAR =
+      ROWS + KV_STAGES * (BAND == rfa_band::ALL ? 3 : 2) * KV_BM * 4;
   // mbarriers: full[KV_STAGES], empty[KV_STAGES], kv
   static constexpr int BYTES = BAR + (2 * KV_STAGES + 1) * 8 + 1024;
 };
@@ -178,16 +191,19 @@ __device__ __forceinline__ void kv_accumulate(float (&acc)[D / 2],
   }
 }
 
-template <int D, bool DQ, bool RING, bool SEG = false, bool XFORM = RING>
+template <int D, bool DQ, bool RING, bool SEG = false, bool XFORM = RING,
+          int BAND = 0>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 bwd_kv_kernel(const __grid_constant__ Maps maps,
               const float* __restrict__ lse, const float* __restrict__ delta,
               void* __restrict__ dk, void* __restrict__ dv, int Hq, int Hkv,
               int Sq, int Skv, float scale, int causal, int offset,
               int dkv_bf16, Ring ring,
-              const __grid_constant__ rfa_seg_args seg) {
+              const __grid_constant__ rfa_seg_args seg,
+              const rfa_band_args band) {
   static_assert(!(SEG && RING), "a ring step takes no segments");
-  using S = KvSmem<D, DQ>;
+  static_assert(!BAND || (XFORM && !RING), "BAND comes with XFORM, no ring");
+  using S = KvSmem<D, DQ, BAND>;
   constexpr int NA = D / 2;  // fp32 of a 64 x D accumulator a thread holds
   extern __shared__ __align__(16) char smem_raw[];
   char* smem =
@@ -208,7 +224,18 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
   if constexpr (SEG) {
     if (seg.tri) t0 = n0 / KV_BM;
   }
-  const int nq = (Sq + KV_BM - 1) / KV_BM;
+  int nq = (Sq + KV_BM - 1) / KV_BM;
+  // BAND with positions by index: the window's q tiles (the offset of
+  // positions is ring.q_pos0, the XFORM field)
+  if constexpr (BAND) {
+    if (!(SEG && seg.q_pos)) {
+      int w_lo, w_hi;
+      rfa_band::index_tiles(band, n0, KV_BN, ring.q_pos0, KV_BM, nq, false,
+                            w_lo, w_hi);
+      t0 = max(t0, w_lo);
+      nq = w_hi;
+    }
+  }
   const int per_head = nq > t0 ? nq - t0 : 0;
   int steps = group * per_head;
 
@@ -240,8 +267,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
   uint64_t* kv_bar = empty + KV_STAGES;
   auto qs = [&](int s) { return smem + S::Q + s * S::STAGE; };
   auto dos = [&](int s) { return qs(s) + KV_BM * D * 2; };
-  auto lses = [&](int s) { return fs + s * 2 * KV_BM; };
+  auto lses = [&](int s) {
+    return fs + s * (BAND == rfa_band::ALL ? 3 : 2) * KV_BM;
+  };
   auto dels = [&](int s) { return lses(s) + KV_BM; };
+  auto rhs = [&](int s) {
+    return reinterpret_cast<uint32_t*>(dels(s) + KV_BM);
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < KV_STAGES; ++s) {
@@ -256,9 +288,17 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
     const int kt = blockIdx.y;
     t_lo = max(t0, rfa_seg::range_lo(seg.kv_meta, seg.n_kv, kt));
     t_hi = min(nq - 1, rfa_seg::range_hi(seg.kv_meta, seg.n_kv, kt));
-    steps = group * rfa_seg::fill_classes<KV_THREADS>(
-        seg_bits, rfa_seg::tile(seg.kv_meta, seg.n_kv, kt), seg.q_meta,
-        seg.n_q, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg), false);
+    if constexpr (BAND) {
+      steps = group * rfa_band::fill_classes<KV_THREADS>(
+          seg_bits, rfa_seg::tile(seg.kv_meta, seg.n_kv, kt), seg.q_meta,
+          seg.n_q, t_lo, t_hi, seg.pos_causal != 0, seg.q_pos != nullptr,
+          false, band);
+    } else {
+      steps = group * rfa_seg::fill_classes<KV_THREADS>(
+          seg_bits, rfa_seg::tile(seg.kv_meta, seg.n_kv, kt), seg.q_meta,
+          seg.n_q, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg),
+          false);
+    }
     if constexpr (XFORM) {
       if (seg.q_pos && ring.slopes)
         rfa_seg::keep_affine<KV_THREADS>(seg_bits, seg.q_step + t_lo,
@@ -287,18 +327,35 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         const int m0 = (SEG ? tt : t0 + it % per_head) * KV_BM;
         if constexpr (SEG) advance(gi, tt);
         hop::mbar_wait(&empty[s], ((it / KV_STAGES) & 1) ^ 1);
+        // BAND with dropout: the hash part of the step's head
+        uint32_t hb = 0u;
+        if constexpr (BAND == rfa_band::ALL) {
+          if (band.thr) hb = rfa_band::head_base(band, h, b);
+        }
         for (int i = lane; i < KV_BM; i += 32) {
           const int row = m0 + i;
           float l2 = 0.f, dl = 0.f;
+          uint32_t rhv = 0u;
           if (row < Sq) {
             const long long idx = (long long)(b * Hq + h) * Sq + row;
             // dead rows (lse = NEG_INF) clamp so that p underflows to 0
             // (a ring step's lse arrives in base 2, already clamped)
             l2 = RING ? lse[idx] : fmaxf(lse[idx], RFA_NEG_INF / 2) * LOG2E;
             dl = delta[idx];
+            if constexpr (BAND == rfa_band::ALL) {
+              if (band.thr) {
+                const uint32_t qp = SEG && seg.q_pos
+                                        ? (uint32_t)__ldg(seg.q_pos + row)
+                                        : band.q_pos0 + (uint32_t)row;
+                const uint32_t qs =
+                    SEG && seg.q_seg ? (uint32_t)__ldg(seg.q_seg + row) : 0u;
+                rhv = rfa_band::row_hash(hb, qp, qs);
+              }
+            }
           }
           lses(s)[i] = l2;
           dels(s)[i] = dl;
+          if constexpr (BAND == rfa_band::ALL) rhs(s)[i] = rhv;
         }
         if (lane == 0) {
           hop::mbar_arrive_tx(&full[s], 2 * KV_BM * D * 2);
@@ -368,6 +425,21 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         akey[r] = seg.q_pos ? kpos[r] : nw + warp * 16 + g + r * 8;
     }
 
+    // BAND: ALiBi by index (the segmented builds set akey above) and the
+    // hashes kv_pos * H_K of this thread's keys for dropout
+    uint32_t kh[2] = {0u, 0u};
+    if constexpr (BAND) {
+      const bool idx_pos = !(SEG && seg.q_pos);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = nw + warp * 16 + g + r * 8;
+        if constexpr (!SEG) akey[r] = key;
+        if constexpr (BAND == rfa_band::ALL)
+          kh[r] = (idx_pos ? band.kv_pos0 + (uint32_t)key
+                           : (uint32_t)kpos[r]) * rfa_band::H_K;
+      }
+    }
+
     float dk_acc[NA], dv_acc[NA];
 #pragma unroll
     for (int i = 0; i < NA; ++i) dk_acc[i] = dv_acc[i] = 0.f;
@@ -393,6 +465,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       // body's)
       int qb = ring.q_pos0, qsk = 1;
       bool alibi = false;
+      if constexpr (BAND && !SEG) alibi = ring.slopes != nullptr;
       if constexpr (XFORM && SEG && !RING) {
         alibi = ring.slopes && !(seg.q_pos && seg_masked);
         if (seg.q_pos && alibi) {
@@ -425,7 +498,168 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       const bool edge = m0 + KV_BM > Sq || nw + 64 > Skv ||
                         (causal && m0 + offset < nw + 63);
       uint32_t pa[4][4];
-      if constexpr (XFORM && !RING && SEG) {
+      uint32_t kbits = ~0u;  // BAND: the keep bits of the 32 elements
+      // BAND: a step crosses a band edge by index where some pair of this
+      // warpgroup's keys lies outside it
+      bool win = false;
+      if constexpr (BAND) {
+        const long long d_hi = (long long)m0 + KV_BM - 1 - nw + ring.q_pos0;
+        const long long d_lo = (long long)m0 - (nw + 63) + ring.q_pos0;
+        win = !(SEG && seg.q_pos) && (d_hi > band.wl || d_lo < -band.wr);
+      }
+      if constexpr (BAND == rfa_band::WINDOW) {
+        // a window alone (the launcher sends dropout, softcap and ALiBi to
+        // the ALL build): the mask-free body's P, with the band's test on
+        // the steps that cross an edge, and on a step masked by segments
+        // or positions the segmented body's, with the band on the explicit
+        // positions
+        if (SEG && seg_masked) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              int qsg, qps;
+              rfa_seg::take(qv, 4 * c + tq, e, qsg, qps);
+              const int col = 8 * c + 2 * tq + e;
+              const int row = m0 + col;
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int i = 4 * c + 2 * r + e;
+                const int key = nw + warp * 16 + g + r * 8;
+                const int d = seg.q_pos ? rfa_band::diff(qps, kpos[r])
+                                        : row - key + ring.q_pos0;
+                const bool out_ =
+                    row >= Sq || key >= Skv ||
+                    (causal && row + offset < key) ||
+                    rfa_seg::drop<true>(seg, qsg, qps, kseg[r], kpos[r]) ||
+                    rfa_band::outside(band, d);
+                sc[i] = out_ ? 0.f : exp2f(sc[i] * scale_log2 - l2s[col]);
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = (i / 4) * 8 + tq * 2 + i % 2;
+            float p = exp2f(sc[i] * scale_log2 - l2s[col]);
+            if (edge || win) {
+              const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
+              const int row = m0 + col;
+              if (row >= Sq || key >= Skv || (causal && row + offset < key) ||
+                  (win && rfa_band::outside(band, row - key + ring.q_pos0)))
+                p = 0.f;
+            }
+            sc[i] = p;
+          }
+        }
+        hop::pack_fragments(pa, sc);
+        hop::wgmma_fence();
+        kv_accumulate<D>(dv_acc, pa, dot);  // dV += P^T dout
+        hop::wgmma_commit();
+      } else if constexpr (BAND) {
+        // B2 and B3b with dropout, softcap or ALiBi (the ALL build): as the
+        // XFORM segmented build below, P element by
+        // element into dV's fragments, with the band by index (or, masked,
+        // on the explicit positions) and the keep bits; dV's operand takes
+        // the kept p, sc the undropped p (1 - tanh^2) for dS
+        const float slope = ring.slopes ? ring.slopes[h] : 0.f;
+        if (ring.cap2 > 0.f) {
+          const float k2 = scale_log2 * inv_cap2;
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            sc[i] = ring.cap2 * tanh_fast(sc[i] * k2);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+        }
+        auto logit = [&](int i, int row, float& dc) {
+          float x = sc[i];
+          const float t = x * inv_cap2;  // 0 without softcap: dc = 1
+          dc = 1.f - t * t;
+          if (alibi) {
+            float dist = (float)((qb + qsk * row) - akey[(i % 4) / 2]);
+            if (ring.alibi_abs) dist = fabsf(dist);
+            x -= slope * dist;
+          }
+          return x;
+        };
+        const bool idx_pos = !(SEG && seg.q_pos);
+        const bool drop = BAND == rfa_band::ALL && band.thr != 0;
+        const uint32_t* rhs_s = rhs(s);
+        if (SEG && seg_masked) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            int qsg[2], qps[2];
+            rfa_seg::take(qv, 4 * c + tq, 0, qsg[0], qps[0]);
+            rfa_seg::take(qv, 4 * c + tq, 1, qsg[1], qps[1]);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float pe[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * c + 2 * r + e;
+                const int col = 8 * c + 2 * tq + e;
+                const int row = m0 + col;
+                const int key = nw + warp * 16 + g + r * 8;
+                float dc;
+                float x = logit(i, row, dc);
+                if (ring.slopes && seg.q_pos) {
+                  float dist = (float)(qps[e] - kpos[r]);
+                  if (ring.alibi_abs) dist = fabsf(dist);
+                  x -= slope * dist;
+                }
+                const int d = idx_pos ? row - key + ring.q_pos0
+                                      : rfa_band::diff(qps[e], kpos[r]);
+                const bool out_ =
+                    row >= Sq || key >= Skv ||
+                    (causal && row + offset < key) ||
+                    rfa_seg::drop<true>(seg, qsg[e], qps[e], kseg[r],
+                                        kpos[r]) ||
+                    rfa_band::outside(band, d);
+                const float p = out_ ? 0.f : exp2f(x - l2s[col]);
+                const bool kept =
+                    !drop || rfa_band::keep(rhs_s[col], kh[r], band.thr);
+                if (!kept) kbits &= ~(1u << i);
+                pe[e] = kept ? p : 0.f;
+                sc[i] = p * dc;
+              }
+              pa[(2 * c + r) / 4][(2 * c + r) % 4] =
+                  rfa::pack_bf16(pe[0], pe[1]);
+            }
+          }
+        } else {
+          const bool edge_b = edge || win;
+#pragma unroll
+          for (int m = 0; m < 16; ++m) {
+            float pe[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 2 * m + e;
+              const int col = (i / 4) * 8 + tq * 2 + i % 2;
+              const int row = m0 + col;
+              const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
+              float dc;
+              float p = exp2f(logit(i, row, dc) - l2s[col]);
+              if (edge_b) {
+                if (row >= Sq || key >= Skv ||
+                    (causal && row + offset < key) ||
+                    (win && rfa_band::outside(band, row - key + ring.q_pos0)))
+                  p = 0.f;
+              }
+              const bool kept = !drop || rfa_band::keep(
+                                             rhs_s[col], kh[(i % 4) / 2],
+                                             band.thr);
+              if (!kept) kbits &= ~(1u << i);
+              pe[e] = kept ? p : 0.f;
+              sc[i] = p * dc;
+            }
+            pa[m / 4][m % 4] = rfa::pack_bf16(pe[0], pe[1]);
+          }
+        }
+        hop::wgmma_fence();
+        kv_accumulate<D>(dv_acc, pa, dot);  // dV += P^T dout, kept p
+        hop::wgmma_commit();
+      } else if constexpr (XFORM && !RING && SEG) {
         // B2 and B3b on packed sequences with softcap or ALiBi: each logit
         // scaled to base 2, capped and given its ALiBi bias (by index, or on
         // the explicit positions in the masked body), P made into dV's bf16
@@ -631,13 +865,24 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         }
       }
 
-      // dS^T = P^T (dP^T - delta) * scale, in place of dP^T
+      // dS^T = P^T (dP^T - delta) * scale, in place of dP^T (BAND with
+      // dropout: dP^T masked by the keep bits and scaled by 1 / (1 - p))
       hop::wgmma_wait<1>();
       hop::fence_regs(dpt);
+      if (BAND == rfa_band::ALL && band.thr) {
+        const float ik = band.inv_keep;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float dp = (kbits >> i) & 1u ? dpt[i] * ik : 0.f;
+          dpt[i] = sc[i] * (dp - dls[(i / 4) * 8 + tq * 2 + i % 2]) *
+                   ds_scale;
+        }
+      } else {
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         dpt[i] = sc[i] * (dpt[i] - dls[(i / 4) * 8 + tq * 2 + i % 2]) *
                  ds_scale;
+      }
       uint32_t da[4][4];
       hop::pack_fragments(da, dpt);
       if constexpr (DQ) {
@@ -726,6 +971,10 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
                                 dk_acc[4 * j + 2 * r + 1]);
         float2 va = make_float2(dv_acc[4 * j + 2 * r],
                                 dv_acc[4 * j + 2 * r + 1]);
+        if constexpr (BAND == rfa_band::ALL) {  // dV: the kept p unscaled
+          va.x *= band.inv_keep;
+          va.y *= band.inv_keep;
+        }
         if constexpr (RING) {
           // this block is the only writer of its keys: a plain read, add
           // and write, in the same order every run
@@ -757,23 +1006,24 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
 // strides: (b, h, s) of q, k, v and dout in elements, 16-byte multiples;
 // the last dim contiguous and every base 16-byte aligned (TMA's terms).
 template <int D, bool DQ, bool RING = false, bool SEG = false,
-          bool XFORM = RING>
+          bool XFORM = RING, int BAND = 0>
 int launch_kv(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, float* dq_acc, void* dk,
               void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
               const long long* strides, float scale, int causal, int offset,
               int dkv_bf16, cudaStream_t stream, const Ring& ring = Ring{},
-              const rfa_seg_args& seg = rfa_seg_args{}) {
-  auto kern = bwd_kv_kernel<D, DQ, RING, SEG, XFORM>;
+              const rfa_seg_args& seg = rfa_seg_args{},
+              const rfa_band_args& band = rfa_band_args{}) {
+  auto kern = bwd_kv_kernel<D, DQ, RING, SEG, XFORM, BAND>;
+  using Sm = KvSmem<D, DQ, BAND>;
   // SEG: the q steps' classes past the barriers
-  const int bytes =
-      KvSmem<D, DQ>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_q) : 0);
+  const int bytes = Sm::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_q) : 0);
   if (bytes > rfa_seg::MAX_SMEM) return cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SEG ? rfa_seg::MAX_SMEM : KvSmem<D, DQ>::BYTES);
+        SEG ? rfa_seg::MAX_SMEM : Sm::BYTES);
     if (e != cudaSuccess) return e;
     attr = true;
   }
@@ -797,7 +1047,7 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid(B * Hkv, tiles);
   kern<<<grid, KV_THREADS, bytes, stream>>>(
       maps, lse, delta, dk, dv, Hq, Hkv, Sq, Skv, scale, causal, offset,
-      dkv_bf16, ring, seg);
+      dkv_bf16, ring, seg, band);
   return cudaGetLastError();
 }
 

@@ -68,6 +68,14 @@
 // B3a needs only for dS, is stored already times the softcap's 1 - tanh^2,
 // so that the transform costs no register array. B3b is the kv-major
 // loop's XFORM instantiation (csrc/flash_bwd.cuh).
+//
+// Windows and dropout (csrc/band.cuh) are compiled apart as well (BAND,
+// always with XFORM): B3a narrows its kv tiles to the window's band where
+// the positions are the index and masks the tiles that cross a band edge
+// (with SEG and explicit positions the classes take the band); its rows'
+// dropout hashes are made once, the keep bits of a thread's 32 elements
+// of a tile wait in one register for dS, which masks and scales dP and
+// takes the undropped p. B3b is the kv-major loop's BAND instantiation.
 
 #include "flash_bwd.cuh"
 
@@ -120,14 +128,15 @@ __device__ __forceinline__ void dq_scores(float (&acc)[32], const char* a,
   }
 }
 
-template <int D, bool SEG = false, bool XFORM = false>
+template <int D, bool SEG = false, bool XFORM = false, int BAND = 0>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_dq_kernel(const __grid_constant__ DqMaps maps,
               const float* __restrict__ lse, const float* __restrict__ delta,
               void* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv,
               float scale, int causal, int offset, int dq_bf16,
               const __grid_constant__ rfa_seg_args seg,
-              const rfa_xform_args xf) {
+              const rfa_xform_args xf, const rfa_band_args band) {
+  static_assert(!BAND || XFORM, "BAND comes with XFORM");
   using S = DqSmem<D>;
   constexpr int NQ = D / 2;  // fp32 of a 64 x D accumulator a thread holds
   extern __shared__ __align__(16) char smem_raw[];
@@ -147,6 +156,17 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
     if (seg.tri) n_end = min(Skv, m0 + BM);
   }
   int n_tiles = (n_end + BN - 1) / BN;
+  // BAND with positions by index: the window's kv tiles [k_lo, k_hi);
+  // without SEG the walk counts n_tiles from k_lo
+  int k_lo = 0;
+  if constexpr (BAND) {
+    if (!(SEG && seg.q_pos)) {
+      int k_hi;
+      rfa_band::index_tiles(band, m0, BM, xf.pos_off, BN, n_tiles, true,
+                            k_lo, k_hi);
+      n_tiles = SEG ? k_hi : max(0, k_hi - k_lo);
+    }
+  }
 
   // SEG: the classes of the kv tiles [t_lo, t_hi] against this q tile, in
   // shared memory past the barriers; the walk visits the live ones in
@@ -185,12 +205,24 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
   if constexpr (SEG) {
     const int qt = m0 / BM;
     t_lo = rfa_seg::range_lo(seg.q_meta, seg.n_q, qt);
+    if constexpr (BAND) t_lo = max(t_lo, k_lo);
     t_hi = min(n_tiles - 1, rfa_seg::range_hi(seg.q_meta, seg.n_q, qt));
-    n_tiles = rfa_seg::fill_classes<NTHREADS>(
-        seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
-        seg.n_kv, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg), true);
+    if constexpr (BAND) {
+      n_tiles = rfa_band::fill_classes<NTHREADS>(
+          seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
+          seg.n_kv, t_lo, t_hi, seg.pos_causal != 0, seg.q_pos != nullptr,
+          true, band);
+    } else {
+      n_tiles = rfa_seg::fill_classes<NTHREADS>(
+          seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
+          seg.n_kv, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg),
+          true);
+    }
     if constexpr (XFORM) {
-      if (seg.q_pos && xf.slopes)
+      // BAND: dropout on explicit positions hashes each key's, which an
+      // unmasked tile gives by its first position and step too
+      if (seg.q_pos &&
+          (xf.slopes || (BAND == rfa_band::ALL && band.thr)))
         rfa_seg::keep_affine<NTHREADS>(seg_bits, seg.kv_step + t_lo,
                                        t_hi - t_lo + 1);
     }
@@ -213,7 +245,7 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         const uint32_t parity = ((j / STAGES) & 1) ^ 1;
-        const int kt = SEG ? t : j;
+        const int kt = SEG ? t : k_lo + j;
         hop::mbar_wait(&empty_k[s], parity);
         hop::mbar_arrive_tx(&full_k[s], BN * D * 2);
         for (int p = 0; p < D / 64; ++p)
@@ -283,18 +315,32 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       for (int r = 0; r < 2; ++r)
         arow[r] = SEG && seg.q_pos ? qpos[r] : xf.pos_off + r_lo + 8 * r;
     }
+    // BAND with dropout: the hashes of this thread's rows
+    uint32_t rh[2] = {0u, 0u};
+    if constexpr (BAND == rfa_band::ALL) {
+      if (band.thr) {
+        const uint32_t base = rfa_band::head_base(band, h, b);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t qp = SEG && seg.q_pos
+                                  ? (uint32_t)qpos[r]
+                                  : band.q_pos0 + (uint32_t)(r_lo + 8 * r);
+          rh[r] = rfa_band::row_hash(base, qp, (uint32_t)qseg[r]);
+        }
+      }
+    }
     hop::mbar_wait(q_bar, 0);
 
     // tile j: issue S and dP; P while dP runs; dS; issue dQ += dS K and go
     // on to tile j + 1 without waiting for it: the wait for tile j + 1's S
     // (committed after it) covers it, and K of tile j is freed there
     uint32_t da[4][4];
-    int t = 0;  // SEG: the live kv tile of step j
+    int t = k_lo;  // SEG: the live kv tile of step j
     if constexpr (SEG) t = next_live(t_lo);
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % STAGES;
       const uint32_t ph = (j / STAGES) & 1;
-      const int n0 = (SEG ? t : j) * BN;
+      const int n0 = (SEG ? t : k_lo + j) * BN;
       const bool seg_masked = SEG && tile_class(t) == 1;
       if constexpr (SEG) t = next_live(t + 1);
       // SEG: the lane's share of the masked tile's keys n0 + 2 lane +
@@ -309,7 +355,9 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       bool alibi = false;
       if constexpr (XFORM) {
         alibi = xf.slopes && !(SEG && seg.q_pos && seg_masked);
-        if (SEG && seg.q_pos && alibi) {
+        if (SEG && seg.q_pos &&
+            (alibi ||
+             (BAND == rfa_band::ALL && band.thr && !seg_masked))) {
           ksk = __ldg(seg.kv_step + n0 / BN);
           kb = __ldg(seg.kv_pos + n0) - ksk * n0;
         }
@@ -361,7 +409,126 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       // SEG, outside the segments and the positions' diagonal)
       const bool edge =
           n0 + BN > Skv || (causal && n0 + BN - 1 > mw + offset);
-      if (SEG && seg_masked) {
+      uint32_t kbits = ~0u;  // BAND: the keep bits of the 32 elements
+      // BAND: a tile crosses a band edge by index where some pair of this
+      // warpgroup's rows lies outside it
+      bool win = false;
+      if constexpr (BAND) {
+        const long long d_hi = (long long)mw + 63 - n0 + xf.pos_off;
+        const long long d_lo = (long long)mw - (n0 + BN - 1) + xf.pos_off;
+        win = !(SEG && seg.q_pos) && (d_hi > band.wl || d_lo < -band.wr);
+      }
+      if constexpr (BAND == rfa_band::WINDOW) {
+        // a window alone (the launcher sends dropout, softcap and ALiBi to
+        // the ALL build): the mask-free body's P (the logits already in
+        // base 2), with the band's test on the tiles that cross an edge,
+        // and on a tile masked by segments or positions the segmented
+        // body's, with the band on the explicit positions
+        if (SEG && seg_masked) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              int ks, kp;
+              rfa_seg::take(kv, 4 * c + tq, e, ks, kp);
+              const int col = n0 + 8 * c + 2 * tq + e;
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int i = 4 * c + 2 * r + e;
+                const int row = r_lo + 8 * r;
+                const int d = seg.q_pos ? rfa_band::diff(qpos[r], kp)
+                                        : row - col + xf.pos_off;
+                const bool out_ = col >= Skv ||
+                                  (causal && row + offset < col) ||
+                                  rfa_seg::drop<true>(seg, qseg[r], qpos[r],
+                                                      ks, kp) ||
+                                  rfa_band::outside(band, d);
+                sc[i] = out_ ? 0.f : exp2f(sc[i] - l2[r]);
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int r = (i % 4) / 2;
+            float p = exp2f(sc[i] - l2[r]);
+            if (edge || win) {
+              const int row = r_lo + 8 * r;
+              const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
+              if (col >= Skv || (causal && row + offset < col) ||
+                  (win && rfa_band::outside(band, row - col + xf.pos_off)))
+                p = 0.f;
+            }
+            sc[i] = p;
+          }
+        }
+      } else if constexpr (BAND) {
+        // the window, on the explicit positions in the masked body, else
+        // on the index, and dropout's keep bits; sc keeps the undropped p
+        const bool idx_pos = !(SEG && seg.q_pos);
+        const bool drop = BAND == rfa_band::ALL && band.thr != 0;
+        if (SEG && seg_masked) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              int ks, kp;
+              rfa_seg::take(kv, 4 * c + tq, e, ks, kp);
+              const int col = n0 + 8 * c + 2 * tq + e;
+              const uint32_t kh =
+                  (idx_pos ? band.kv_pos0 + (uint32_t)col : (uint32_t)kp) *
+                  rfa_band::H_K;
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int i = 4 * c + 2 * r + e;
+                const int row = r_lo + 8 * r;
+                const int d = idx_pos ? row - col + xf.pos_off
+                                      : rfa_band::diff(qpos[r], kp);
+                const bool out_ = col >= Skv ||
+                                  (causal && row + offset < col) ||
+                                  rfa_seg::drop<true>(seg, qseg[r], qpos[r],
+                                                      ks, kp) ||
+                                  rfa_band::outside(band, d);
+                float dc;
+                float x = transform(i, dc);
+                if (xf.slopes && seg.q_pos) {
+                  float dist = (float)(qpos[r] - kp);
+                  if (xf.alibi_abs) dist = fabsf(dist);
+                  x -= slope * dist;
+                }
+                sc[i] = out_ ? 0.f : exp2f(x - l2[r]) * dc;
+                if (drop && !rfa_band::keep(rh[r], kh, band.thr))
+                  kbits &= ~(1u << i);
+              }
+            }
+          }
+        } else {
+          const bool edge_b = edge || win;
+          // the keys' positions: the index plus kv_pos0, or an unmasked
+          // tile's kb + ksk col
+          const uint32_t kb0 = idx_pos ? band.kv_pos0 : (uint32_t)kb;
+          const uint32_t kst = idx_pos ? 1u : (uint32_t)ksk;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int r = (i % 4) / 2;
+            const int row = r_lo + 8 * r;
+            const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
+            float dc;
+            float p = exp2f(transform(i, dc) - l2[r]) * dc;
+            if (edge_b) {
+              if (col >= Skv || (causal && row + offset < col) ||
+                  (win && rfa_band::outside(band, row - col + xf.pos_off)))
+                p = 0.f;
+            }
+            sc[i] = p;
+            if (drop && !rfa_band::keep(rh[r],
+                                        (kb0 + kst * (uint32_t)col) *
+                                            rfa_band::H_K,
+                                        band.thr))
+              kbits &= ~(1u << i);
+          }
+        }
+      } else if (SEG && seg_masked) {
         // a loop of its own, so that the unmasked tiles' code carries none
         // of it: element 4 c + 2 r + e is key 8 c + 2 tq + e, held by lane
         // 4 c + tq
@@ -418,9 +585,19 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       hop::wgmma_wait<0>();
       hop::fence_regs(dp);
       hop::mbar_arrive(&empty_v[s]);  // V of stage s is read
+      if (BAND == rfa_band::ALL && band.thr) {
+        // dropout: dP masked by the keep bits and scaled by 1 / (1 - p)
+        const float ik = band.inv_keep;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float d = (kbits >> i) & 1u ? dp[i] * ik : 0.f;
+          dp[i] = sc[i] * (d - dl[(i % 4) / 2]) * scale;
+        }
+      } else {
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         dp[i] = sc[i] * (dp[i] - dl[(i % 4) / 2]) * scale;
+      }
       hop::pack_fragments(da, dp);
 
       // dQ += dS K: K MN-major (its rows, the keys, are the reduction),
@@ -464,14 +641,15 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
 
 // strides: (b, h, s) of q, k, v and dout in elements, 16-byte multiples;
 // the last dim contiguous and every base 16-byte aligned (TMA's terms).
-template <int D, bool SEG = false, bool XFORM = false>
+template <int D, bool SEG = false, bool XFORM = false, int BAND = 0>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int Hq,
               int Hkv, int Sq, int Skv, const long long* strides, float scale,
               int causal, int offset, int dq_bf16, cudaStream_t stream,
               const rfa_seg_args& seg = rfa_seg_args{},
-              const rfa_xform_args& xf = rfa_xform_args{}) {
-  auto kern = bwd_dq_kernel<D, SEG, XFORM>;
+              const rfa_xform_args& xf = rfa_xform_args{},
+              const rfa_band_args& band = rfa_band_args{}) {
+  auto kern = bwd_dq_kernel<D, SEG, XFORM, BAND>;
   // SEG: the kv tiles' classes past the barriers
   const int bytes =
       DqSmem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
@@ -499,7 +677,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid(B * Hq, tiles);
   kern<<<grid, NTHREADS, bytes, stream>>>(maps, lse, delta, dq, Hq, Hkv, Sq,
                                           Skv, scale, causal, offset,
-                                          dq_bf16, seg, xf);
+                                          dq_bf16, seg, xf, band);
   return cudaGetLastError();
 }
 
@@ -605,7 +783,7 @@ extern "C" int rfa_flash_bwd_dq_xf(const void* q, const void* k,
   const rfa_seg_args none{};
   auto go = [&](auto fn, const rfa_seg_args& sg) {
     return fn(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv, strides,
-              scale, causal, offset, dq_bf16, st, sg, *xf);
+              scale, causal, offset, dq_bf16, st, sg, *xf, rfa_band_args{});
   };
   if (D == 128)
     return seg ? go(launch_dq<128, true, true>, *seg)
@@ -631,7 +809,8 @@ extern "C" int rfa_flash_bwd_dkv_xf(const void* q, const void* k,
   const rfa_seg_args none{};
   auto go = [&](auto fn, const rfa_seg_args& sg) {
     return fn(q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
-              strides, scale, causal, offset, dkv_bf16, st, ring, sg);
+              strides, scale, causal, offset, dkv_bf16, st, ring, sg,
+              rfa_band_args{});
   };
   if (D == 128)
     return seg ? go(rfa_bwd::launch_kv<128, false, false, true, true>, *seg)
@@ -639,5 +818,88 @@ extern "C" int rfa_flash_bwd_dkv_xf(const void* q, const void* k,
   if (D == 64)
     return seg ? go(rfa_bwd::launch_kv<64, false, false, true, true>, *seg)
                : go(rfa_bwd::launch_kv<64, false, false, false, true>, none);
+  return cudaErrorInvalidValue;
+}
+
+// B3a and B3b with a window or dropout (csrc/band.cuh): as their _xf forms,
+// with the window and dropout of `bd`. Compiled apart from the
+// instantiations without it.
+extern "C" int rfa_flash_bwd_dq_band(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     void* dq, int B, int Hq, int Hkv,
+                                     int Sq, int Skv, int D,
+                                     const long long* strides, float scale,
+                                     int causal, int offset, int dq_bf16,
+                                     const rfa_seg_args* seg,
+                                     const rfa_xform_args* xf,
+                                     const rfa_band_args* bd, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rfa_seg_args none{};
+  auto go = [&](auto fn, const rfa_seg_args& sg) {
+    return fn(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv, strides,
+              scale, causal, offset, dq_bf16, st, sg, *xf, *bd);
+  };
+  // the build of a window alone, or the one for the rest (csrc/band.cuh)
+  constexpr int W = rfa_band::WINDOW, A = rfa_band::ALL;
+  const bool all = bd->thr != 0 || xf->cap2 > 0.f || xf->slopes;
+  if (D == 128) {
+    if (seg)
+      return all ? go(launch_dq<128, true, true, A>, *seg)
+                  : go(launch_dq<128, true, true, W>, *seg);
+    return all ? go(launch_dq<128, false, true, A>, none)
+                : go(launch_dq<128, false, true, W>, none);
+  }
+  if (D == 64) {
+    if (seg)
+      return all ? go(launch_dq<64, true, true, A>, *seg)
+                  : go(launch_dq<64, true, true, W>, *seg);
+    return all ? go(launch_dq<64, false, true, A>, none)
+                : go(launch_dq<64, false, true, W>, none);
+  }
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int rfa_flash_bwd_dkv_band(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const float* lse, const float* delta,
+                                      void* dk, void* dv, int B, int Hq,
+                                      int Hkv, int Sq, int Skv, int D,
+                                      const long long* strides, float scale,
+                                      int causal, int offset, int dkv_bf16,
+                                      const rfa_seg_args* seg,
+                                      const rfa_xform_args* xf,
+                                      const rfa_band_args* bd,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rfa_bwd::Ring ring{xf->slopes, xf->cap2, xf->pos_off, 0,
+                           xf->alibi_abs, 0};
+  const rfa_seg_args none{};
+  auto go = [&](auto fn, const rfa_seg_args& sg) {
+    return fn(q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq,
+              Skv, strides, scale, causal, offset, dkv_bf16, st, ring, sg,
+              *bd);
+  };
+  // the build of a window alone, or the one for the rest (csrc/band.cuh)
+  constexpr int W = rfa_band::WINDOW, A = rfa_band::ALL;
+  const bool all = bd->thr != 0 || xf->cap2 > 0.f || xf->slopes;
+  if (D == 128) {
+    if (seg)
+      return all
+          ? go(rfa_bwd::launch_kv<128, false, false, true, true, A>, *seg)
+          : go(rfa_bwd::launch_kv<128, false, false, true, true, W>, *seg);
+    return all
+        ? go(rfa_bwd::launch_kv<128, false, false, false, true, A>, none)
+        : go(rfa_bwd::launch_kv<128, false, false, false, true, W>, none);
+  }
+  if (D == 64) {
+    if (seg)
+      return all
+          ? go(rfa_bwd::launch_kv<64, false, false, true, true, A>, *seg)
+          : go(rfa_bwd::launch_kv<64, false, false, true, true, W>, *seg);
+    return all
+        ? go(rfa_bwd::launch_kv<64, false, false, false, true, A>, none)
+        : go(rfa_bwd::launch_kv<64, false, false, false, true, W>, none);
+  }
   return cudaErrorInvalidValue;
 }

@@ -4,9 +4,10 @@
 // (wrapper pallas_block_fwd), for the mask model the port carries: causal
 // with a static integer offset (attend iff iq + offset >= ik) or no mask,
 // segment ids and explicit positions (csrc/segments.cuh), softcap and ALiBi
-// (csrc/xform.cuh), GQA (q head h reads kv head h / (Hq / Hkv)). Contract of
-// ops/flash.py::block_fwd: out (B, Hq, Sq, D) in fp32 or bf16, lse fp32
-// (B, Hq, Sq) in natural log; dead rows give out = 0 and lse = NEG_INF.
+// (csrc/xform.cuh), sliding windows and dropout (csrc/band.cuh), GQA (q
+// head h reads kv head h / (Hq / Hkv)). Contract of ops/flash.py::block_fwd:
+// out (B, Hq, Sq, D) in fp32 or bf16, lse fp32 (B, Hq, Sq) in natural log;
+// dead rows give out = 0 and lse = NEG_INF.
 //
 // What bounds it on the H100: tensor-core operations. A causal call does
 // 2 * 2 * B * Hq * Sq * Skv * D / 2 flops on inputs of a few MB, far above
@@ -87,7 +88,7 @@ extern "C" int rfa_flash_fwd_xf(const void* q, const void* k, const void* v,
   const rfa_seg_args none{};
   auto go = [&](auto fn, const rfa_seg_args& sg) {
     return fn(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2,
-              causal, offset, out_bf16, ring, st, sg);
+              causal, offset, out_bf16, ring, st, sg, rfa_band_args{});
   };
   if (D == 128)
     return seg ? go(rfa_fwd::launch<128, false, true, true>, *seg)
@@ -95,5 +96,46 @@ extern "C" int rfa_flash_fwd_xf(const void* q, const void* k, const void* v,
   if (D == 64)
     return seg ? go(rfa_fwd::launch<64, false, true, true>, *seg)
                : go(rfa_fwd::launch<64, false, true, false>, none);
+  return cudaErrorInvalidValue;
+}
+
+// B1 with a window or dropout (csrc/band.cuh): as rfa_flash_fwd_xf, with the
+// window and dropout of `bd` (and the softcap and ALiBi of `xf`, cap2 0 and
+// null slopes where the call has neither). Compiled apart from the
+// instantiations without it.
+extern "C" int rfa_flash_fwd_band(const void* q, const void* k,
+                                  const void* v, void* out, float* lse,
+                                  int B, int Hq, int Hkv, int Sq, int Skv,
+                                  int D, const long long* strides,
+                                  float scale, int causal, int offset,
+                                  int out_bf16, const rfa_seg_args* seg,
+                                  const rfa_xform_args* xf,
+                                  const rfa_band_args* bd, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const rfa_fwd::Ring ring{nullptr, nullptr, nullptr, xf->slopes, xf->cap2,
+                           xf->pos_off, 0, xf->alibi_abs, 1, 1};
+  const rfa_seg_args none{};
+  auto go = [&](auto fn, const rfa_seg_args& sg) {
+    return fn(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2,
+              causal, offset, out_bf16, ring, st, sg, *bd);
+  };
+  // the build of a window alone, or the one for the rest (csrc/band.cuh)
+  constexpr int W = rfa_band::WINDOW, A = rfa_band::ALL;
+  const bool all = bd->thr != 0 || xf->cap2 > 0.f || xf->slopes;
+  if (D == 128) {
+    if (seg)
+      return all ? go(rfa_fwd::launch<128, false, true, true, A>, *seg)
+                  : go(rfa_fwd::launch<128, false, true, true, W>, *seg);
+    return all ? go(rfa_fwd::launch<128, false, true, false, A>, none)
+                : go(rfa_fwd::launch<128, false, true, false, W>, none);
+  }
+  if (D == 64) {
+    if (seg)
+      return all ? go(rfa_fwd::launch<64, false, true, true, A>, *seg)
+                  : go(rfa_fwd::launch<64, false, true, true, W>, *seg);
+    return all ? go(rfa_fwd::launch<64, false, true, false, A>, none)
+                : go(rfa_fwd::launch<64, false, true, false, W>, none);
+  }
   return cudaErrorInvalidValue;
 }

@@ -66,11 +66,19 @@
 // bound where the mask is causal by index or packed_self, skips the tiles
 // whose segments or positions cannot meet it (producer and consumers alike)
 // and masks by segment and position the tiles that straddle an edge.
+//
+// With BAND (B1 with a window or dropout, csrc/band.cuh; always with
+// XFORM, without RING) the kv tiles narrow to the window's band where the
+// positions are the index, and the tiles that cross a band edge are masked
+// (with SEG and explicit positions the classes take the band); the dropped
+// p leave the operand of P V after l has summed them, and the epilogue
+// scales out by 1 / (1 - p).
 
 #pragma once
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "band.cuh"
 #include "segments.cuh"
 #include "xform.cuh"
 
@@ -134,13 +142,16 @@ struct Maps {
 // kernel and a uniform run-time branch around the transform, the headline
 // off-diagonal step of the first port of this loop took 5.3 ms on the H100
 // where the split took 5.0.
-template <int D, bool RING, bool XFORM = false, bool SEG = false>
+template <int D, bool RING, bool XFORM = false, bool SEG = false,
+          int BAND = 0>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
                  float scale_log2, int causal, int offset, int out_bf16,
-                 Ring ring, const __grid_constant__ rfa_seg_args seg) {
+                 Ring ring, const __grid_constant__ rfa_seg_args seg,
+                 const rfa_band_args band) {
   static_assert(!(SEG && RING), "a ring step takes no segments");
+  static_assert(!BAND || (XFORM && !RING), "BAND comes with XFORM, no ring");
   using S = Smem<D>;
   constexpr int NO = D / 2;  // fp32 of a 64 x D accumulator a thread holds
   extern __shared__ __align__(16) char smem_raw[];
@@ -160,6 +171,18 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     if (seg.tri) n_end = min(Skv, m0 + BM);
   }
   int n_tiles = (n_end + BN - 1) / BN;
+  // BAND with positions by index: the window's kv tiles [k_lo, k_hi) (the
+  // offset of positions is ring.q_pos0, B1's XFORM field); without SEG the
+  // walk counts n_tiles from k_lo
+  int k_lo = 0;
+  if constexpr (BAND) {
+    if (!(SEG && seg.q_pos)) {
+      int k_hi;
+      rfa_band::index_tiles(band, m0, BM, ring.q_pos0, BN, n_tiles, true,
+                            k_lo, k_hi);
+      n_tiles = SEG ? k_hi : max(0, k_hi - k_lo);
+    }
+  }
 
   // SEG: the classes of the kv tiles [t_lo, t_hi] against this q tile, in
   // shared memory past the barriers; the walk visits the live ones in
@@ -197,12 +220,24 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   if constexpr (SEG) {
     const int qt = m0 / BM;
     t_lo = rfa_seg::range_lo(seg.q_meta, seg.n_q, qt);
+    if constexpr (BAND) t_lo = max(t_lo, k_lo);
     t_hi = min(n_tiles - 1, rfa_seg::range_hi(seg.q_meta, seg.n_q, qt));
-    n_tiles = rfa_seg::fill_classes<NTHREADS>(
-        seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
-        seg.n_kv, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg), true);
+    if constexpr (BAND) {
+      n_tiles = rfa_band::fill_classes<NTHREADS>(
+          seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
+          seg.n_kv, t_lo, t_hi, seg.pos_causal != 0, seg.q_pos != nullptr,
+          true, band);
+    } else {
+      n_tiles = rfa_seg::fill_classes<NTHREADS>(
+          seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
+          seg.n_kv, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg),
+          true);
+    }
     if constexpr (XFORM) {
-      if (seg.q_pos && ring.slopes)
+      // BAND: dropout on explicit positions hashes each key's, which an
+      // unmasked tile gives by its first position and step too
+      if (seg.q_pos &&
+          (ring.slopes || (BAND == rfa_band::ALL && band.thr)))
         rfa_seg::keep_affine<NTHREADS>(seg_bits, seg.kv_step + t_lo,
                                        t_hi - t_lo + 1);
     }
@@ -221,7 +256,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         const uint32_t parity = ((j / STAGES) & 1) ^ 1;
-        const int kt = SEG ? t : j;
+        const int kt = SEG ? t : k_lo + j;
         hop::mbar_wait(&empty_k[s], parity);
         hop::mbar_arrive_tx(&full_k[s], BN * D * 2);
         for (int p = 0; p < D / 64; ++p)
@@ -273,6 +308,21 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   if constexpr (XFORM) {
     if (ring.slopes) slope = ring.slopes[h];
     if (ring.cap2 > 0.f) inv_cap2 = 1.f / ring.cap2;
+  }
+
+  // BAND with dropout: the hashes of this thread's rows r_lo, r_lo + 8
+  uint32_t rh[2] = {0u, 0u};
+  if constexpr (BAND == rfa_band::ALL) {
+    if (band.thr) {
+      const uint32_t base = rfa_band::head_base(band, h, b);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t qp = SEG && seg.q_pos
+                                ? (uint32_t)qpos[r]
+                                : band.q_pos0 + (uint32_t)(r_lo + 8 * r);
+        rh[r] = rfa_band::row_hash(base, qp, (uint32_t)qseg[r]);
+      }
+    }
   }
 
   // XFORM, SEG with ALiBi on positions: an unmasked kv tile's first key
@@ -366,6 +416,81 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       }
     }
 
+    // BAND: the keep bits of the tile's 64 elements (dropout)
+    uint32_t kbits[2] = {~0u, ~0u};
+    if constexpr (BAND) {
+      // the window, on the explicit positions in the masked body, else on
+      // the index; then dropout's keep bits
+      const bool idx_pos = !(SEG && seg.q_pos);
+      const bool drop = BAND == rfa_band::ALL && band.thr != 0;
+      auto kill = [&](int i) { kbits[i >> 5] &= ~(1u << (i & 31)); };
+      if (SEG && seg_masked) {
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int ks, kp;
+            rfa_seg::take(c < 8 ? lo : hi, 4 * (c % 8) + tq, e, ks, kp);
+            const int col = n0 + 8 * c + 2 * tq + e;
+            const uint32_t kh =
+                (idx_pos ? band.kv_pos0 + (uint32_t)col : (uint32_t)kp) *
+                rfa_band::H_K;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * c + 2 * r + e;
+              const int row = r_lo + 8 * r;
+              const int d = idx_pos ? row - col + ring.q_pos0
+                                    : rfa_band::diff(qpos[r], kp);
+              const bool out_ = col >= Skv ||
+                                (causal && row + offset < col) ||
+                                rfa_seg::drop<true>(seg, qseg[r], qpos[r], ks,
+                                                    kp) ||
+                                rfa_band::outside(band, d);
+              float x = sc[i];
+              if (ring.slopes && seg.q_pos) {
+                float dist = (float)(qpos[r] - kp);
+                if (ring.alibi_abs) dist = fabsf(dist);
+                x -= slope * dist;
+              }
+              sc[i] = out_ ? -INFINITY : x;
+              if (drop && !rfa_band::keep(rh[r], kh, band.thr)) kill(i);
+            }
+          }
+        }
+      } else {
+        // a tile crosses a band edge by index where some pair of this
+        // warpgroup's rows lies outside it
+        const long long d_hi = (long long)mw + 63 - n0 + ring.q_pos0;
+        const long long d_lo = (long long)mw - (n0 + BN - 1) + ring.q_pos0;
+        const bool win = idx_pos && (d_hi > band.wl || d_lo < -band.wr);
+        const bool edge = n0 + BN > Skv ||
+                          (causal && n0 + BN - 1 > mw + offset) || win;
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int row = r_lo + 8 * ((i % 4) / 2);
+            const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
+            if (col >= Skv || (causal && row + offset < col) ||
+                (win && rfa_band::outside(band, row - col + ring.q_pos0)))
+              sc[i] = -INFINITY;
+          }
+        }
+        if (drop) {
+          // the keys' positions: the index plus kv_pos0, or an unmasked
+          // tile's first position and step
+          const uint32_t kb = idx_pos ? band.kv_pos0 + (uint32_t)n0
+                                      : (uint32_t)kp0;
+          const uint32_t kst = idx_pos ? 1u : (uint32_t)ksk;
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const uint32_t cl = 8 * (i / 4) + 2 * tq + i % 2;
+            if (!rfa_band::keep(rh[(i % 4) / 2],
+                                (kb + kst * cl) * rfa_band::H_K, band.thr))
+              kill(i);
+          }
+        }
+      }
+    } else {
     // scale to base-2 logits; mask the ragged edge and the causal diagonal
     const bool edge = n0 + BN > Skv || (causal && n0 + BN - 1 > mw + offset);
     if (SEG && seg_masked) {
@@ -413,6 +538,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
         sc[i] = x;
       }
     }
+    }
 
     // rows r_lo (r = 0) and r_lo + 8 (r = 1); the four threads of a quad
     // hold a row's 128 columns
@@ -438,6 +564,14 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       l_run[r] = l_run[r] * alpha[r] + rs;  // per-thread partial
       m_run[r] = m_new;
     }
+    // BAND: l has summed every p; the dropped ones leave P V's operand
+    if constexpr (BAND == rfa_band::ALL) {
+      if (band.thr) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (!((kbits[i >> 5] >> (i & 31)) & 1u)) sc[i] = 0.f;
+      }
+    }
   };
 
   // the two warpgroups take turns to issue their products (named barriers
@@ -459,7 +593,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     uint32_t pa[8][4];
     // SEG: the live kv tile t of pipeline step j, whether it is masked,
     // and then the lane's share of its keys' segment ids and positions
-    int t = 0;
+    int t = k_lo;
     if constexpr (SEG) t = next_live(t_lo);
     auto masked = [&](int tt) { return SEG && tile_class(tt) == 1; };
     rfa_seg::Pair lo{}, hi{};
@@ -471,7 +605,9 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
                                 tt * BN + 64 + 2 * lane, Skv);
       }
       if constexpr (XFORM && SEG) {
-        if (!masked(tt) && seg.q_pos && ring.slopes) {
+        if (!masked(tt) && seg.q_pos &&
+            (ring.slopes ||
+             (BAND == rfa_band::ALL && band.thr))) {
           kp0 = __ldg(seg.kv_pos + tt * BN);
           ksk = __ldg(seg.kv_step + tt);
         }
@@ -505,7 +641,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       hop::wgmma_wait<1>();
       hop::fence_regs(sc);
       hop::mbar_arrive(&empty_k[s]);  // K of stage s is read
-      softmax(sc, (SEG ? t : j) * BN, alpha, masked(t), lo, hi);
+      softmax(sc, (SEG ? t : k_lo + j) * BN, alpha, masked(t), lo, hi);
       hop::wgmma_wait<0>();
       hop::fence_regs(o);
       hop::mbar_arrive(&empty_v[sp]);  // V of stage sp is read
@@ -573,7 +709,9 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       }
     }
     const bool dead = !(l > 0.f);
-    const float inv = dead ? 0.f : 1.f / l;
+    // BAND: the kept p scaled by 1 / (1 - p), out only
+    const float inv =
+        dead ? 0.f : (BAND == rfa_band::ALL ? band.inv_keep : 1.f) / l;
     const long long orow = idx * D;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
@@ -595,13 +733,15 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
 // strides: (b, h, s) of q, k and v in elements, 16-byte multiples; the last
 // dim contiguous and every base 16-byte aligned (TMA's terms). Returns 0 or
 // a cudaError_t.
-template <int D, bool RING, bool XFORM = false, bool SEG = false>
+template <int D, bool RING, bool XFORM = false, bool SEG = false,
+          int BAND = 0>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int B, int Hq, int Hkv, int Sq, int Skv, const long long* st,
            float scale_log2, int causal, int offset, int out_bf16,
            const Ring& ring, cudaStream_t stream,
-           const rfa_seg_args& seg = rfa_seg_args{}) {
-  auto kern = flash_fwd_kernel<D, RING, XFORM, SEG>;
+           const rfa_seg_args& seg = rfa_seg_args{},
+           const rfa_band_args& band = rfa_band_args{}) {
+  auto kern = flash_fwd_kernel<D, RING, XFORM, SEG, BAND>;
   // SEG: the kv tiles' classes past the barriers
   const int bytes =
       Smem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
@@ -626,7 +766,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   dim3 grid(B * Hq, tiles);
   kern<<<grid, NTHREADS, bytes, stream>>>(maps, out, lse, Hq, Hkv, Sq, Skv,
                                           scale_log2, causal, offset,
-                                          out_bf16, ring, seg);
+                                          out_bf16, ring, seg, band);
   return cudaGetLastError();
 }
 

@@ -61,7 +61,7 @@ extern "C" int rfa_fused_ring_fwd(
   const bool xform = cap2 > 0.f || slopes;
   auto go = [&](auto fn) {
     return fn(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, 1.f, diagonal,
-              q_row0, 1, ring, st, rfa_seg_args{});
+              q_row0, 1, ring, st, rfa_seg_args{}, rfa_band_args{});
   };
   if (D == 128)
     return xform ? go(rfa_fwd::launch<128, true, true>)

@@ -6,17 +6,19 @@ The port of ``ring_flash_attn_tpu/ops/pallas_fwd.py::_block_bounds`` and
 ``nonzero``, no host sync), at a kernel's own tile sizes, with a ragged
 last tile bounded over its valid entries only. The kernels B1, B2,
 B3a and B3b read the rows to skip a tile whose segments cannot meet or
-whose positions lie wholly above the diagonal, to run their unmasked body
-where one segment covers both sides below the diagonal, and their masked
-body otherwise; rows 4 and 5 bound the loop. Positions reach the kernels
-under a causal mask on them or under ALiBi (``mask.kernel_positions``),
-whose distance they give; tiles are skipped on positions only under the
-causal mask.
+whose positions lie wholly above the diagonal or, under a causal window,
+wholly left of it, to run their unmasked body where one segment covers
+both sides inside the mask, and their masked body otherwise; rows 4 and 5
+bound the loop. Positions reach the kernels under a causal mask on them,
+under ALiBi, a window or dropout (``mask.kernel_positions``), whose
+distance, band or hash they give; rows 4 and 5 skip on positions only
+under the causal mask, as the JAX package's do (the kernels' own classes
+also take a non-causal window's band, ``csrc/band.cuh``).
 
 This module also holds what every launch of the four kernels passes
 beside the tensors: ``launch_masked`` picks the instantiation (mask-free,
-segmented, or with softcap/ALiBi, ``csrc/xform.cuh``) and builds its
-arguments.
+segmented, with softcap/ALiBi, ``csrc/xform.cuh``, or with a window or
+dropout, ``csrc/band.cuh``) and builds its arguments.
 
 Tile sizes of the kernels (``csrc/flash_fwd.cuh``, ``csrc/flash_bwd.cuh``,
 ``csrc/flash_bwd_split.cu``): B1 128 q rows and 128 keys, B3a 128 q rows
@@ -28,7 +30,8 @@ import ctypes
 
 import torch
 
-from .mask import MaskArgs, causal_offset, kernel_positions
+from .mask import (MaskArgs, as_int, causal_offset, dropout_threshold,
+                   kernel_positions)
 
 INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
 LOG2E = 1.4426950408889634
@@ -93,7 +96,8 @@ def block_meta(mask: MaskArgs, blk_q, blk_kv, sq, skv, device=None):
 
     A (q tile, kv tile) pair is not needed when its segment ranges are
     disjoint, or, causal with positions, when every q position is below
-    every kv position. Rows of a field the mask lacks are 0. The causal
+    every kv position or, with ``window_left``, every distance is past
+    it. Rows of a field the mask lacks are 0. The causal
     bound by index is the kernels' own arithmetic, not here."""
     use_seg = mask.q_segids is not None
     use_pos = mask.q_pos is not None
@@ -121,6 +125,8 @@ def block_meta(mask: MaskArgs, blk_q, blk_kv, sq, skv, device=None):
         kpmin, kpmax = _tile_bounds(ids(mask.kv_pos, skv), blk_kv)
         if mask.causal:
             skip |= qpmax[:, None] < kpmin[None, :]
+            if mask.window_left is not None:
+                skip |= (qpmin[:, None] - kpmax[None, :]) > mask.window_left
     needed = ~skip
     kv_first, kv_last = _needed_range(needed, 1)
     q_first, q_last = _needed_range(needed, 0)
@@ -148,6 +154,18 @@ class XformArgs(ctypes.Structure):
                 ("pos_off", ctypes.c_int), ("alibi_abs", ctypes.c_int)]
 
 
+class BandArgs(ctypes.Structure):
+    """``rfa_band_args`` of ``csrc/band.cuh``."""
+    _fields_ = [("wl", ctypes.c_int), ("wr", ctypes.c_int),
+                ("thr", ctypes.c_uint32), ("inv_keep", ctypes.c_float),
+                ("seed", ctypes.c_uint32), ("seed_ptr", ctypes.c_void_p),
+                ("head_offset", ctypes.c_uint32),
+                ("q_pos0", ctypes.c_uint32), ("kv_pos0", ctypes.c_uint32)]
+
+
+NO_BOUND = INT32_MAX  # a window side without a bound
+
+
 def segmented(mask: MaskArgs):
     """True when the mask needs the kernels' segmented instantiations:
     segment ids, or explicit positions that reach the kernels
@@ -159,6 +177,12 @@ def has_xform(mask: MaskArgs):
     """True when the mask has softcap or ALiBi: the kernels' XFORM
     instantiations."""
     return bool(mask.softcap) or mask.alibi_slopes is not None
+
+
+def has_band(mask: MaskArgs):
+    """True when the mask has a window or dropout: the kernels' BAND
+    instantiations (``csrc/band.cuh``), which carry softcap and ALiBi too."""
+    return mask.has_window or bool(mask.dropout_p)
 
 
 def index_causal(mask: MaskArgs):
@@ -210,8 +234,8 @@ def kernel_segments(mask: MaskArgs, dev, sq, skv, blk_q, blk_kv):
         key = (tuple(None if x is None else (id(x), x._version)
                      for x in fields),
                pos and bool(mask.causal), pos and mask.packed_self,
-               pos and mask.alibi_slopes is not None, str(dev), sq, skv,
-               blk_q, blk_kv)
+               pos and _needs_steps(mask), pos and mask.window_left,
+               str(dev), sq, skv, blk_q, blk_kv)
         if key in _CACHE:
             _CACHE.move_to_end(key)
             return _CACHE[key][:2]
@@ -249,17 +273,25 @@ def _kernel_slopes(alibi_slopes, hq, dev):
     return slopes
 
 
+def _needs_steps(mask: MaskArgs):
+    """ALiBi or dropout on explicit positions: each tile's position step
+    (``tile_steps``), which keeps an arithmetic tile in the unmasked body."""
+    return mask.alibi_slopes is not None or bool(mask.dropout_p)
+
+
 def kernel_xform(mask: MaskArgs, hq, dev):
     """(XformArgs, the slopes tensor it points at or None) for a launch
-    with softcap or ALiBi: the slopes (Hq,) float32 on ``dev`` times
-    log2(e), cap2 = softcap * log2(e), the offset of positions by index
-    and whether ALiBi takes |distance| (not causal). The caller holds the
-    tensor until the launch is queued."""
+    with softcap or ALiBi (or a window or dropout, whose instantiations
+    carry both): the slopes (Hq,) float32 on ``dev`` times log2(e), cap2 =
+    softcap * log2(e), the offset of positions by index (where ALiBi or a
+    window reads it) and whether ALiBi takes |distance| (not causal). The
+    caller holds the tensor until the launch is queued."""
     slopes = None
     if mask.alibi_slopes is not None:
         slopes = _kernel_slopes(mask.alibi_slopes, hq, dev)
     pos_off = 0
-    if mask.q_pos is None:
+    if mask.q_pos is None and (slopes is not None or mask.has_window
+                               or index_causal(mask)):
         pos_off = causal_offset(mask)
         if not isinstance(pos_off, int) or abs(pos_off) >= 2**30:
             raise TypeError(f"the kernel takes a static int offset, got "
@@ -270,19 +302,61 @@ def kernel_xform(mask: MaskArgs, hq, dev):
     return args, slopes
 
 
+def _u32(x):
+    return x & 0xFFFFFFFF
+
+
+def kernel_band(mask: MaskArgs, dev):
+    """(BandArgs, the seed tensor it points at or None) for a launch with
+    a window or dropout: the window's sides (``NO_BOUND`` where unbounded;
+    the right side only when not causal), the dropout threshold (0: none),
+    1 / (1 - p), the seed (an int, or a one-element tensor on ``dev`` that
+    the kernel reads), the head offset and the absolute positions of q row
+    0 and of key 0 (the offsets), the last four as uint32 bits."""
+    wl = NO_BOUND if mask.window_left is None else int(mask.window_left)
+    wr = NO_BOUND
+    if mask.window_right is not None and not mask.causal:
+        wr = int(mask.window_right)
+    if not (0 <= wl <= NO_BOUND and 0 <= wr <= NO_BOUND):
+        raise ValueError(f"window sides must be >= 0, got {wl}, {wr}")
+    thr, inv_keep, seed, seed_t = 0, 1.0, 0, None
+    if mask.dropout_p:
+        thr = dropout_threshold(mask.dropout_p)
+        inv_keep = 1.0 / (1.0 - mask.dropout_p)
+        if isinstance(mask.dropout_seed, torch.Tensor):
+            seed_t = mask.dropout_seed.reshape(-1)
+            if seed_t.numel() != 1:
+                raise ValueError("dropout_seed must be a scalar")
+            seed_t = seed_t.to(device=dev, dtype=torch.int32)
+        else:
+            seed = as_int(mask.dropout_seed, "dropout_seed")
+    args = BandArgs(wl, wr, thr, inv_keep, _u32(seed),
+                    None if seed_t is None else seed_t.data_ptr(),
+                    _u32(as_int(mask.head_offset, "head_offset")),
+                    _u32(as_int(mask.offset, "offset")),
+                    _u32(as_int(mask.kv_offset, "kv_offset")))
+    return args, seed_t
+
+
 def launch_masked(fns, args, mask, q, k, tiles, stream):
     """Launch the instantiation the mask needs, for q (B, Hq, Sq, D) and k
     (B, Hkv, Skv, D); ``fns`` are the kernel's (mask-free, segmented,
-    softcap/ALiBi) entry points: ``plain(*args, stream)``, ``seg(*args,
-    seg, stream)`` with the tile bounds at ``tiles`` (q rows, keys) of the
-    kernel, ``xform(*args, seg or None, xform, stream)``. Returns the
+    softcap/ALiBi, window/dropout) entry points: ``plain(*args, stream)``,
+    ``seg(*args, seg, stream)`` with the tile bounds at ``tiles`` (q rows,
+    keys) of the kernel, ``xform(*args, seg or None, xform, stream)``,
+    ``band(*args, seg or None, xform, band, stream)``. Returns the
     launch's code."""
-    plain_fn, seg_fn, xform_fn = fns
+    plain_fn, seg_fn, xform_fn, band_fn = fns
     seg = None
     if segmented(mask):
         seg, _held = kernel_segments(mask, q.device, q.shape[2], k.shape[2],
                                      *tiles)
         seg = ctypes.byref(seg)
+    if has_band(mask):
+        xf, _slopes = kernel_xform(mask, q.shape[1], q.device)
+        band, _seed = kernel_band(mask, q.device)
+        return band_fn(*args, seg, ctypes.byref(xf), ctypes.byref(band),
+                       stream)
     if has_xform(mask):
         xf, _slopes = kernel_xform(mask, q.shape[1], q.device)
         return xform_fn(*args, seg, ctypes.byref(xf), stream)
@@ -301,11 +375,12 @@ def _kernel_segments(mask, pos, dev, sq, skv, blk_q, blk_kv):
         kv_pos = _id_operand("kv_pos", mask.kv_pos, skv, dev)
     pos_causal = pos and bool(mask.causal)
     meta_mask = MaskArgs(causal=pos_causal, q_segids=q_seg,
-                         kv_segids=kv_seg, q_pos=q_pos, kv_pos=kv_pos)
+                         kv_segids=kv_seg, q_pos=q_pos, kv_pos=kv_pos,
+                         window_left=mask.window_left if pos else None)
     q_meta, kv_meta = block_meta(meta_mask, blk_q, blk_kv, sq, skv, dev)
     keep = (q_seg, kv_seg, q_pos, kv_pos, q_meta, kv_meta)
     q_step = kv_step = None
-    if pos and mask.alibi_slopes is not None:
+    if pos and _needs_steps(mask):
         q_step, kv_step = tile_steps(q_pos, blk_q), tile_steps(kv_pos, blk_kv)
         keep += (q_step, kv_step)
 

@@ -8,6 +8,13 @@ The port of ``ring_flash_attn_tpu/ops/flash.py``. ``block_fwd`` and
 the plain versions on any device (reference runs on the card).
 ``flash_attention`` wraps them in a ``torch.autograd.Function``.
 
+The mask carries every feature to the kernels' instantiations
+(``block_meta.launch_masked``): a window or dropout goes to their BAND
+builds. The dropout seed (a Python int or a one-element tensor) rides in
+the mask, which the autograd function keeps for the backward, so that
+the backward recomputes the forward's keep mask; delta stays rowsum(dout
+* out) on the dropped out.
+
 Layout is (B, H, S, D).
 """
 

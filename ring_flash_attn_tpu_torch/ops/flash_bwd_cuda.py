@@ -15,8 +15,10 @@ and dout through TMA tensor maps, whose terms ``tma_layout_error``
 positions that reach the kernels (causal on them, or ALiBi), goes to the
 kernels' segmented instantiations (``csrc/segments.cuh``) with the tile
 bounds of ``ops/block_meta.py``; a mask with softcap or ALiBi to their
-XFORM instantiations (``csrc/xform.cuh``). Each launcher's ``launches``
-counts every launch, ``xform_launches`` those with softcap or ALiBi.
+XFORM instantiations (``csrc/xform.cuh``), a mask with a window or
+dropout to their BAND ones (``csrc/band.cuh``). Each launcher counts
+``launches``, ``xform_launches`` and ``band_launches``
+(``flash_fwd_cuda.count_launch``).
 """
 
 import ctypes
@@ -24,9 +26,9 @@ import ctypes
 import torch
 
 from . import _build
-from .block_meta import SegArgs, has_xform, index_causal, launch_masked
-from .flash_fwd_cuda import (XFORM_TAIL, _check_operand, check_qkv,
-                             kernel_offset)
+from .block_meta import SegArgs, index_causal, launch_masked
+from .flash_fwd_cuda import (BAND_TAIL, XFORM_TAIL, _check_operand,
+                             check_qkv, count_launch, kernel_offset)
 from .mask import MaskArgs, check_supported
 
 # The JAX package's limit for the fused kernel (pallas_bwd_fused.py:56): the
@@ -45,6 +47,7 @@ _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
 ]
 _SEG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.POINTER(SegArgs), ctypes.c_void_p]
 _XF_ARGTYPES = _ARGTYPES[:-1] + XFORM_TAIL
+_BAND_ARGTYPES = _ARGTYPES[:-1] + BAND_TAIL
 _OUT_DTYPES = (None, torch.float32, torch.bfloat16)
 # the kv-major loop of B2 and B3b (csrc/flash_bwd.cuh): 64 q rows a step,
 # 128 keys a block
@@ -66,6 +69,8 @@ def _lib():
     lib.rfa_flash_bwd_seg.restype = ctypes.c_int
     lib.rfa_flash_bwd_xf.argtypes = _XF_ARGTYPES
     lib.rfa_flash_bwd_xf.restype = ctypes.c_int
+    lib.rfa_flash_bwd_band.argtypes = _BAND_ARGTYPES
+    lib.rfa_flash_bwd_band.restype = ctypes.c_int
     return lib
 
 
@@ -169,10 +174,9 @@ def flash_bwd_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = launch_masked(
                 (lib.rfa_flash_bwd, lib.rfa_flash_bwd_seg,
-                 lib.rfa_flash_bwd_xf),
+                 lib.rfa_flash_bwd_xf, lib.rfa_flash_bwd_band),
                 args, mask, q, k, KV_MAJOR_TILES, stream)
-            flash_bwd_cuda.launches += 1
-            flash_bwd_cuda.xform_launches += has_xform(mask)
+            count_launch(flash_bwd_cuda, mask)
         _build.check_launch(lib, rc, "flash_bwd")
     if dq_dtype not in (None, torch.float32):
         dq = dq.to(dq_dtype)
@@ -181,3 +185,4 @@ def flash_bwd_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
 
 flash_bwd_cuda.launches = 0
 flash_bwd_cuda.xform_launches = 0
+flash_bwd_cuda.band_launches = 0

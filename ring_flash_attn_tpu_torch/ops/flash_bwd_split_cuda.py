@@ -10,9 +10,10 @@ does), and CPU tensors to the kernels' plain version,
 thread in a fixed order (no atomics or reduce-adds), so their results are
 bitwise reproducible. See the source's header for what bounds
 them on the H100. Segmented masks go to their segmented instantiations,
-masks with softcap or ALiBi to their XFORM ones (``launch_masked``).
-``launches`` counts every launch, ``xform_launches`` those with softcap or
-ALiBi.
+masks with softcap or ALiBi to their XFORM ones, masks with a window or
+dropout to their BAND ones (``launch_masked``). Each launcher counts
+``launches``, ``xform_launches`` and ``band_launches``
+(``flash_fwd_cuda.count_launch``).
 """
 
 import ctypes
@@ -20,9 +21,9 @@ import ctypes
 import torch
 
 from . import _build
-from .block_meta import SegArgs, has_xform, index_causal, launch_masked
+from .block_meta import SegArgs, index_causal, launch_masked
 from .flash_bwd_cuda import KV_MAJOR_TILES, bwd_delta, bwd_strides, check_bwd
-from .flash_fwd_cuda import XFORM_TAIL
+from .flash_fwd_cuda import BAND_TAIL, XFORM_TAIL, count_launch
 from .mask import MaskArgs
 
 # rfa_flash_bwd_dq(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv, D,
@@ -55,6 +56,10 @@ def _lib():
     lib.rfa_flash_bwd_dq_xf.restype = ctypes.c_int
     lib.rfa_flash_bwd_dkv_xf.argtypes = _DKV_ARGTYPES[:-1] + XFORM_TAIL
     lib.rfa_flash_bwd_dkv_xf.restype = ctypes.c_int
+    lib.rfa_flash_bwd_dq_band.argtypes = _DQ_ARGTYPES[:-1] + BAND_TAIL
+    lib.rfa_flash_bwd_dq_band.restype = ctypes.c_int
+    lib.rfa_flash_bwd_dkv_band.argtypes = _DKV_ARGTYPES[:-1] + BAND_TAIL
+    lib.rfa_flash_bwd_dkv_band.restype = ctypes.c_int
     return lib
 
 
@@ -80,10 +85,9 @@ def _dq(dout, q, k, v, lse, delta, scale, mask, offset, dq_dtype):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch_masked(
             (lib.rfa_flash_bwd_dq, lib.rfa_flash_bwd_dq_seg,
-             lib.rfa_flash_bwd_dq_xf),
+             lib.rfa_flash_bwd_dq_xf, lib.rfa_flash_bwd_dq_band),
             args, mask, q, k, DQ_TILES, stream)
-        flash_bwd_dq_cuda.launches += 1
-        flash_bwd_dq_cuda.xform_launches += has_xform(mask)
+        count_launch(flash_bwd_dq_cuda, mask)
     _build.check_launch(lib, rc, "flash_bwd_dq")
     return dq
 
@@ -107,10 +111,9 @@ def _dkv(dout, q, k, v, lse, delta, scale, mask, offset, dkv_dtype):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch_masked(
             (lib.rfa_flash_bwd_dkv, lib.rfa_flash_bwd_dkv_seg,
-             lib.rfa_flash_bwd_dkv_xf),
+             lib.rfa_flash_bwd_dkv_xf, lib.rfa_flash_bwd_dkv_band),
             args, mask, q, k, KV_MAJOR_TILES, stream)
-        flash_bwd_dkv_cuda.launches += 1
-        flash_bwd_dkv_cuda.xform_launches += has_xform(mask)
+        count_launch(flash_bwd_dkv_cuda, mask)
     _build.check_launch(lib, rc, "flash_bwd_dkv")
     return dk, dv
 
@@ -151,3 +154,5 @@ flash_bwd_dq_cuda.launches = 0
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dq_cuda.xform_launches = 0
 flash_bwd_dkv_cuda.xform_launches = 0
+flash_bwd_dq_cuda.band_launches = 0
+flash_bwd_dkv_cuda.band_launches = 0

@@ -9,9 +9,12 @@ segment ids, or with explicit positions that reach the kernel (causal on
 them, or ALiBi), goes to the segmented instantiation (``rfa_flash_fwd_seg``,
 ``csrc/segments.cuh``) with the tile bounds of ``ops/block_meta.py``; a
 mask with softcap or ALiBi to the XFORM instantiations
-(``rfa_flash_fwd_xf``, ``csrc/xform.cuh``), with or without segments; the
-mask-free one stays as it was. ``launches`` counts every launch,
-``xform_launches`` those with softcap or ALiBi.
+(``rfa_flash_fwd_xf``, ``csrc/xform.cuh``), with or without segments; a
+mask with a window or dropout to the BAND instantiations
+(``rfa_flash_fwd_band``, ``csrc/band.cuh``), which carry softcap and ALiBi
+too; the mask-free one stays as it was. ``launches`` counts every launch,
+``xform_launches`` those with softcap or ALiBi (and no window or dropout),
+``band_launches`` those with a window or dropout.
 
 This module also holds the operand checks of every kernel that reads its
 bf16 operands through TMA tensor maps (B1 and B7 here, B2, B3b and B8 in
@@ -23,8 +26,8 @@ import ctypes
 import torch
 
 from . import _build
-from .block_meta import (SegArgs, XformArgs, has_xform, index_causal,
-                         launch_masked)
+from .block_meta import (BandArgs, SegArgs, XformArgs, has_band, has_xform,
+                         index_causal, launch_masked)
 from .mask import MaskArgs, causal_offset, check_supported
 
 TMA_MAX_STRIDE = 2**40  # bytes: the limit on a TMA tensor map's strides
@@ -48,6 +51,9 @@ _SEG_ARGTYPES = _ARGTYPES[:-1] + [ctypes.POINTER(SegArgs), ctypes.c_void_p]
 XFORM_TAIL = [ctypes.POINTER(SegArgs), ctypes.POINTER(XformArgs),
               ctypes.c_void_p]
 _XF_ARGTYPES = _ARGTYPES[:-1] + XFORM_TAIL
+# rfa_flash_fwd_band(..., seg or NULL, xform, band, stream)
+BAND_TAIL = XFORM_TAIL[:-1] + [ctypes.POINTER(BandArgs), ctypes.c_void_p]
+_BAND_ARGTYPES = _ARGTYPES[:-1] + BAND_TAIL
 
 
 def _lib():
@@ -58,6 +64,8 @@ def _lib():
     lib.rfa_flash_fwd_seg.restype = ctypes.c_int
     lib.rfa_flash_fwd_xf.argtypes = _XF_ARGTYPES
     lib.rfa_flash_fwd_xf.restype = ctypes.c_int
+    lib.rfa_flash_fwd_band.argtypes = _BAND_ARGTYPES
+    lib.rfa_flash_fwd_band.restype = ctypes.c_int
     return lib
 
 
@@ -140,8 +148,8 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
     (``tma_layout_error``: ``ops/flash.py::_kernel_layout`` gives one);
     ``mask`` causal or not, with a static int offset, with segment ids
     and explicit positions ((Sq,)/(Skv,) int32 on the card, or int64
-    narrowed), softcap and ALiBi (Hq slopes). out_dtype is float32 (the
-    mergeable contract) or bfloat16."""
+    narrowed), softcap and ALiBi (Hq slopes), a window and dropout.
+    out_dtype is float32 (the mergeable contract) or bfloat16."""
     check_supported(mask)
     offset = kernel_offset(mask)
     dev = q.device
@@ -165,13 +173,23 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch_masked(
-            (lib.rfa_flash_fwd, lib.rfa_flash_fwd_seg, lib.rfa_flash_fwd_xf),
+            (lib.rfa_flash_fwd, lib.rfa_flash_fwd_seg, lib.rfa_flash_fwd_xf,
+             lib.rfa_flash_fwd_band),
             args, mask, q, k, (Q_TILE, KV_TILE), stream)
-        flash_fwd_cuda.launches += 1
-        flash_fwd_cuda.xform_launches += has_xform(mask)
+        count_launch(flash_fwd_cuda, mask)
     _build.check_launch(lib, rc, "flash_fwd")
     return out, lse
 
 
+def count_launch(fn, mask):
+    """One launch of the kernel ``fn`` wraps: ``launches``, and
+    ``band_launches`` or ``xform_launches`` by its instantiation."""
+    fn.launches += 1
+    band = has_band(mask)
+    fn.band_launches += band
+    fn.xform_launches += has_xform(mask) and not band
+
+
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.xform_launches = 0
+flash_fwd_cuda.band_launches = 0

@@ -6,9 +6,12 @@ The port of ``naive_block_fwd`` and ``naive_block_bwd`` from
 (``csrc/flash_fwd.cu``) and of kernels B2, B3a and B3b
 (``csrc/flash_bwd.cu``, ``csrc/flash_bwd_split.cu``). They compute the same
 quantities as the kernels (fp32 accumulation, natural-log lse, NEG_INF
-sentinel masking, segment ids and explicit positions) with O(Sq*Skv)
-memory, and beyond them softcap and ALiBi on the scaled logits (softcap,
-then ALiBi, then the mask). A q row with no allowed key gives out = 0 and
+sentinel masking, segment ids and explicit positions, sliding windows)
+with O(Sq*Skv) memory, and beyond them softcap and ALiBi on the scaled
+logits (softcap, then ALiBi, then the mask), and dropout: the normalised
+probabilities are dropped by the hash of ``ops/mask.py`` (the JAX
+package's keep mask bit for bit) and the kept ones scaled by 1 / (1 - p),
+on the P V product only; lse stays undropped. A q row with no allowed key gives out = 0 and
 lse = NEG_INF, and no gradient; a key no row may see gets dk = dv = 0. The CPU tests hold them against
 the JAX package; ``chip_smoke.py`` holds the kernels against them on the
 card.
@@ -24,7 +27,7 @@ Shapes:
 import torch
 
 from .mask import (NEG_INF, MaskArgs, alibi_bias, check_supported,
-                   mask_logits)
+                   dropout_keep_dense, mask_logits)
 
 
 def _logits(qf, kf, scale, mask: MaskArgs):
@@ -52,6 +55,10 @@ def naive_block_fwd(q, k, v, scale, mask: MaskArgs):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    keep = dropout_keep_dense(mask, b, hkv, g, sq, skv, q.device)
+    if keep is not None:
+        # dropout on the normalised probabilities: l stays undropped
+        p = p.masked_fill(~keep, 0.0) * (1.0 / (1.0 - mask.dropout_p))
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / l
     lse = (m + torch.log(l)).squeeze(-1)
     # rows whose every key is masked ("dead" rows) give out=0 and
@@ -68,8 +75,10 @@ def naive_block_bwd(dout, q, k, v, lse, delta, scale, mask: MaskArgs):
     p is recomputed from the (merged) lse: p = exp(s - lse) with s the
     logits as the forward transformed them; dv = p^T dout; ds = p *
     (dout v^T - delta) * scale, times 1 - tanh^2 under softcap (ALiBi is
-    additive and leaves ds alone); dq = ds k; dk = ds^T q. delta =
-    rowsum(dout * out) (``ops/flash.py::compute_delta``)."""
+    additive and leaves ds alone); dq = ds k; dk = ds^T q. With dropout
+    dv takes the dropped, scaled p, dout v^T is dropped and scaled the same
+    way and ds takes the undropped p. delta = rowsum(dout * out) on the
+    dropped out (``ops/flash.py::compute_delta``)."""
     check_supported(mask)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -84,8 +93,15 @@ def naive_block_bwd(dout, q, k, v, lse, delta, scale, mask: MaskArgs):
     kf, vf = k.float(), v.float()
     s, dcap = _logits(qf, kf, scale, mask)
     p = torch.exp(s - lsef)
-    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, doutf)
+    keep = dropout_keep_dense(mask, b, hkv, g, sq, skv, q.device)
+    p_v = p
+    if keep is not None:
+        inv = 1.0 / (1.0 - mask.dropout_p)
+        p_v = p.masked_fill(~keep, 0.0) * inv
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p_v, doutf)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", doutf, vf)
+    if keep is not None:
+        dp = dp.masked_fill(~keep, 0.0) * inv
     ds = p * (dp - deltaf) * scale
     if dcap is not None:
         ds = ds * dcap

@@ -17,14 +17,17 @@ and every head chunk's mask, forward and backward, is segments plus the
 causal mask by index at offset rank·L (no positions), which the kernels'
 segmented instantiations take on the card.
 
-softcap rides every chunk; ALiBi takes the global q offset rank·L even
-when the mask is not causal (the gathered kv starts at position 0), with
-the slopes sliced a head chunk at a time (``_chunk_mask``); on the card
-both go to the kernels' XFORM instantiations.
+softcap rides every chunk; ALiBi and dropout take the global q offset
+rank·L even when the mask is not causal (the gathered kv starts at
+position 0), ALiBi with the slopes sliced a head chunk at a time and
+dropout with the chunk's first global q head as ``head_offset``
+(``_chunk_mask``), so that the hash drops the same pairs as the
+single-device call; ``window_left`` bounds every chunk's mask at the same
+offset. On the card they go to the kernels' XFORM and BAND
+instantiations.
 
 Ported: causal or not, ``heads_k_stride``, GQA, the backward, packed
-sequences, softcap and ALiBi. Not ported yet, each raising
-``NotImplementedError``: dropout and ``window_left``.
+sequences, softcap, ALiBi, dropout and ``window_left``.
 
 Functions are per-process. Internal layout (B, H, S, D).
 """
@@ -39,23 +42,29 @@ from .mesh import all_gather, reduce_scatter, ring_rank
 
 def _mask(causal, q, q_segids, group, extras):
     """The rank's mask: causal by index at offset rank·L (the offset also
-    where ALiBi needs it without causal), with packed sequences the
-    segments of the rank's rows against the gathered labels of every
-    rank's, and softcap and ALiBi (the slopes of every q head, as a
-    tensor on q's device)."""
+    where ALiBi or dropout needs it without causal), with packed sequences
+    the segments of the rank's rows against the gathered labels of every
+    rank's, softcap and ALiBi (the slopes of every q head, as a tensor on
+    q's device), dropout and ``window_left``."""
     kv_segids = None if q_segids is None else all_gather(q_segids, 0, group)
     alibi = slopes_on(extras.get("alibi_slopes"), q.device)
+    dropout_p = extras.get("dropout_p")
     offset = None
-    if causal or alibi is not None:
+    if causal or alibi is not None or dropout_p:
         offset = ring_rank(group) * q.shape[2]
     return MaskArgs(causal=causal, offset=offset, q_segids=q_segids,
                     kv_segids=kv_segids, softcap=extras.get("softcap"),
-                    alibi_slopes=alibi)
+                    alibi_slopes=alibi, dropout_p=dropout_p or None,
+                    dropout_seed=extras.get("dropout_seed"),
+                    window_left=extras.get("window_left"))
 
 
-def _chunk_mask(mask, hs, device):
-    """``mask`` for the q heads ``hs`` of a head chunk: its ALiBi slopes
-    sliced to them."""
+def _chunk_mask(mask, first, hs, device):
+    """``mask`` for the q heads ``hs`` of a head chunk, ``first`` their
+    first global id: its ALiBi slopes sliced to them, and with dropout
+    ``first`` as the head offset."""
+    if mask.dropout_p:
+        mask = mask._replace(head_offset=first)
     if mask.alibi_slopes is None:
         return mask
     return mask._replace(alibi_slopes=slopes_on(mask.alibi_slopes,
@@ -67,10 +76,10 @@ def _cat(parts):
 
 
 def _chunks(q, hkv, heads_k_stride):
-    """(first kv head, q heads) of each chunk of ``heads_k_stride`` kv
-    heads."""
+    """(first kv head, first q head, q heads) of each chunk of
+    ``heads_k_stride`` kv heads."""
     g = q.shape[1] // hkv
-    return [(i, slice(i * g, (i + heads_k_stride) * g))
+    return [(i, i * g, slice(i * g, (i + heads_k_stride) * g))
             for i in range(0, hkv, heads_k_stride)]
 
 
@@ -80,11 +89,11 @@ def _rank_fwd(q, gather, hkv, scale, mask, heads_k_stride, backend):
     heads_k_stride) over the whole sequence, ``mask`` with the rank's
     offset. Returns (out, lse)."""
     outs, lses = [], []
-    for i, hs in _chunks(q, hkv, heads_k_stride):
+    for i, first, hs in _chunks(q, hkv, heads_k_stride):
         kv = gather(i)
         o_i, lse_i = block_fwd(q[:, hs], kv[0], kv[1], scale,
-                               _chunk_mask(mask, hs, q.device), backend,
-                               out_dtype=q.dtype)
+                               _chunk_mask(mask, first, hs, q.device),
+                               backend, out_dtype=q.dtype)
         outs.append(o_i)
         lses.append(lse_i)
     return _cat(outs), _cat(lses)
@@ -98,14 +107,14 @@ def _rank_bwd(q, out, lse, dout, gather, hkv, scale, mask, heads_k_stride,
     ``fused`` goes to ``block_bwd`` (False: the reproducible B3a/B3b)."""
     kernel = use_kernel(q, backend)
     delta = compute_delta(dout, out)
-    for i, hs in _chunks(q, hkv, heads_k_stride):
+    for i, first, hs in _chunks(q, hkv, heads_k_stride):
         kv = gather(i)
         dout_i, q_i = dout[:, hs], q[:, hs]
         if kernel:
             dout_i, q_i = _kernel_layout(dout_i), _kernel_layout(q_i)
         yield block_bwd(dout_i, q_i, kv[0], kv[1], lse[:, hs].contiguous(),
                         delta[:, hs].contiguous(), scale,
-                        _chunk_mask(mask, hs, q.device), backend,
+                        _chunk_mask(mask, first, hs, q.device), backend,
                         dq_dtype=q.dtype, fused=fused)
 
 
@@ -174,21 +183,15 @@ def llama3_attention(q, k, v, q_segids=None, *, scale, causal=True,
     lse fp32 (B, H, S_local)); lse carries no gradient.
     ``deterministic=True`` runs the backward on the bitwise reproducible
     split kernels B3a/B3b on the card."""
-    del dropout_seed  # dropout is not ported: dropout_p raises
-    unported = {"dropout_p": bool(dropout_p),
-                "window_left": window_left is not None}
-    for name, given in unported.items():
-        if given:
-            raise NotImplementedError(
-                f"llama3_attention({name}=...) is not ported yet (see "
-                f"ROADMAP.md)")
     hkv = k.shape[1]
     if heads_k_stride is None:
         heads_k_stride = hkv
     if hkv % heads_k_stride:
         raise ValueError(f"heads_k_stride={heads_k_stride} does not divide "
                          f"Hkv={hkv}")
-    extras = dict(softcap=softcap, alibi_slopes=alibi_slopes)
+    extras = dict(softcap=softcap, alibi_slopes=alibi_slopes,
+                  dropout_p=dropout_p, dropout_seed=dropout_seed,
+                  window_left=window_left)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _Llama3Attention.apply(q, k, v, q_segids, scale, causal,
                                       heads_k_stride, group, backend, extras,

@@ -19,11 +19,23 @@ The step loops (``ring_loop_fwd``, ``ring_loop_bwd``, ``RingLoopAttention``)
 take the schedule as a function that gives each step's mask, and the stripe
 schedule (``stripe.py``) runs on them too.
 
-Ported: causal or not, softcap and ALiBi (ALiBi needs global coordinates,
-so those steps carry ``offset = rank * L`` and ``kv_offset = src * L``),
-on the card in the block kernels' XFORM instantiations (``backend="plain"``
-runs the plain versions there). ``dropout_p``, ``window_left`` and
-``window_right`` are not ported yet and raise.
+Ported: causal or not, softcap and ALiBi, sliding windows (causal
+``window_left``; not causal, ``window_left`` and ``window_right``) and
+dropout. ALiBi and dropout need global coordinates, so those steps carry
+``offset = rank * L`` and ``kv_offset = src * L``; the dropout hash of
+absolute coordinates then drops the same pairs as the single-device call,
+bit for bit. On the card they go to the block kernels' XFORM and BAND
+instantiations (``backend="plain"`` runs the plain versions there).
+
+The window is the JAX package's global band on absolute positions: a step
+sees the true distance of its rows to the resident shard. That is where
+this port (and the JAX package) departs from the reference, zhuzilin's
+ring_flash_attn, which hands ``window_size`` to each step's flash call as
+it is, a window local to the shard. A causal window needs the position
+comparison on every step it computes; a step whose resident shard lies
+wholly outside the window launches nothing (``_window_skip``, and for
+non-causal windows ``_window_need`` on the rank), while its rotation, and
+in the backward the fp32 dk/dv accumulator's, still runs.
 
 Functions are per-process, on tensors sharded contiguously along S over
 ``group`` (None: the default group, or one process when none is
@@ -40,22 +52,63 @@ from .mesh import RingBuffer, ring_rank, ring_size
 
 
 def _step_mask(step, rank, w, l_kv, causal, extras):
-    """MaskArgs for ring step ``step``. ALiBi forces global coordinates;
-    otherwise the offsets stay None and only the diagonal step is masked."""
+    """MaskArgs for ring step ``step``. Position-dependent extras (ALiBi,
+    dropout, a window) force global coordinates; otherwise the offsets
+    stay None and only the diagonal step is masked.
+
+    A causal window needs the position comparison on every step (the
+    resident shard may lie partly outside it), so those steps are causal
+    at the step's offset: the causal half holds trivially off the
+    diagonal, and the window bounds. A non-causal window takes both
+    absolute offsets, the true signed distance of the resident shard."""
     kw = dict(extras)
-    if kw.get("alibi_slopes") is not None:
-        kw.update(offset=rank * l_kv,
-                  kv_offset=((rank - step) % w) * l_kv)
+    wl = kw.pop("window_left", None)
+    wr = kw.pop("window_right", None)
+    need_abs = kw.get("alibi_slopes") is not None or bool(kw.get("dropout_p"))
+    if need_abs or (not causal and (wl is not None or wr is not None)):
+        kw.update(offset=rank * l_kv, kv_offset=((rank - step) % w) * l_kv)
+    if wl is not None or wr is not None:
+        if causal:
+            if not need_abs and step > 0:
+                kw.update(offset=(rank - (rank - step) % w) * l_kv)
+            return MaskArgs(causal=True, window_left=wl, **kw)
+        return MaskArgs(causal=False, window_left=wl, window_right=wr, **kw)
     return MaskArgs(causal=causal and step == 0, **kw)
+
+
+def _window_skip(step, l_kv, causal, extras):
+    """True when ring step ``step``'s resident shard lies wholly outside a
+    causal window: its nearest pair is (step - 1) L + 1 apart."""
+    wl = extras.get("window_left")
+    return (causal and wl is not None and step > 0
+            and step * l_kv - (l_kv - 1) > wl)
+
+
+def _window_need(step, rank, w, l_kv, extras):
+    """False when the resident shard at ring step ``step`` lies wholly
+    outside a non-causal (left, right) window: its signed offset is
+    (rank - src) L, src = (rank - step) mod W, which the rank decides."""
+    wl = extras.get("window_left")
+    wr = extras.get("window_right")
+    if step == 0:
+        return True
+    rel = (rank - (rank - step) % w) * l_kv
+    return ((wl is None or rel - (l_kv - 1) <= wl)
+            and (wr is None or rel + (l_kv - 1) >= -wr))
 
 
 def _ring_masks(causal, l_kv, extras):
     """The basic ring's ``step_mask(step, rank, w)`` for ``ring_loop_fwd``
-    and ``ring_loop_bwd``: None where a causal rank skips the step (the kv
-    resident at step s came from rank r - s, and a rank attends only to
-    earlier shards)."""
+    and ``ring_loop_bwd``: None where the step launches nothing: a causal
+    rank's later shards (the kv resident at step s came from rank r - s,
+    and a rank attends only to earlier shards), and shards outside a
+    window."""
     def step_mask(step, rank, w):
         if causal and step > rank:
+            return None
+        if _window_skip(step, l_kv, causal, extras):
+            return None
+        if not causal and not _window_need(step, rank, w, l_kv, extras):
             return None
         return _step_mask(step, rank, w, l_kv, causal, extras)
 
@@ -118,14 +171,6 @@ def ring_loop_bwd(q, k, v, out, lse, dout, scale, group, backend, step_mask,
     return dq, dkv.value[0], dkv.value[1]
 
 
-def check_ring_options(name, **unported):
-    """Raise NotImplementedError for an option the ring schedules lack."""
-    for option, value in unported.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}({option}=...) is not ported yet (see ROADMAP.md)")
-
-
 class RingLoopAttention(torch.autograd.Function):
     """``ring_loop_fwd`` and ``ring_loop_bwd`` as one differentiable
     function: apply(q, k, v, scale, group, backend, step_mask,
@@ -156,18 +201,23 @@ class RingLoopAttention(torch.autograd.Function):
 def ring_attention(q, k, v, *, scale, causal, group=None, backend=None,
                    softcap=None, alibi_slopes=None, dropout_p=None,
                    dropout_seed=None, window_left=None, window_right=None,
-                   deterministic=False):
+                   head_offset=None, deterministic=False):
     """Differentiable basic ring attention on per-process (B, H, S, D)
     tensors, q/k/v sharded contiguously along S over ``group``. Returns
     (out in q.dtype, lse fp32 (B, H, S)); lse carries no gradient.
-    ``deterministic=True`` runs the backward's steps on the bitwise
-    reproducible split kernels B3a/B3b on the card (``block_bwd``'s
-    ``fused=False``)."""
-    check_ring_options("ring_attention", dropout_p=dropout_p,
-                       window_left=window_left is not None,
-                       window_right=window_right is not None)
-    step_mask = _ring_masks(causal, k.shape[2], dict(
-        softcap=softcap, alibi_slopes=slopes_on(alibi_slopes, q.device)))
+    ``window_left``/``window_right`` are the global band on absolute
+    positions (module docstring); ``head_offset`` is the global id of q
+    head 0 for the dropout hash (USP passes it). ``deterministic=True``
+    runs the backward's steps on the bitwise reproducible split kernels
+    B3a/B3b on the card (``block_bwd``'s ``fused=False``)."""
+    extras = dict(softcap=softcap,
+                  alibi_slopes=slopes_on(alibi_slopes, q.device),
+                  window_left=window_left,
+                  window_right=None if causal else window_right)
+    if dropout_p:
+        extras.update(dropout_p=dropout_p, dropout_seed=dropout_seed,
+                      head_offset=head_offset)
+    step_mask = _ring_masks(causal, k.shape[2], extras)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return RingLoopAttention.apply(q, k, v, scale, group, backend,
                                        step_mask, deterministic)

@@ -22,18 +22,20 @@ Python choice of mask. The step loops are the ring's (``ring.ring_loop_fwd``,
 ``ring_loop_bwd``: the posted KV rotation, and the fp32 dk/dv accumulator
 co-rotating W times, the last step included).
 
-Ported: softcap, which rides every step, and ALiBi on the layout's
-global positions (token i of rank r sits at i·W + r), passed as explicit
-q_pos/kv_pos (of the resident shard's source rank) causal on them, which
-also stands in for both offset forms. On the card both go to the block
-kernels' XFORM instantiations. ``dropout_p`` and ``window_left`` raise
-(ROADMAP.md).
+Ported: softcap, which rides every step, and ALiBi, dropout and a causal
+``window_left`` on the layout's global positions (token i of rank r sits
+at i·W + r), passed as explicit q_pos/kv_pos (of the resident shard's
+source rank) causal on them, which also stands in for both offset forms;
+the dropout hash of global positions drops the same pairs as the
+single-device call, bit for bit. Every step computes, with or without a
+window: the tiles' classes skip what lies outside the band. On the card
+they go to the block kernels' XFORM and BAND instantiations.
 """
 
 import torch
 
 from ..ops.mask import MaskArgs, slopes_on
-from .ring import RingLoopAttention, check_ring_options, ring_loop_fwd
+from .ring import RingLoopAttention, ring_loop_fwd
 
 
 def stripe_positions(rank, w, l_local, device=None):
@@ -48,8 +50,10 @@ def _step_masks(extras, l_local=None, device=None):
     step loops: every step computes, plain causal where the kv came from a
     rank at or before this one (step <= rank), the shifted diagonal after
     it; with ALiBi causal on the global positions of ``l_local`` tokens a
-    rank instead, made once a step and reused by the backward."""
-    if extras.get("alibi_slopes") is not None:
+    rank instead (ALiBi, dropout or a window: what needs global positions),
+    made once a step and reused by the backward."""
+    if (extras.get("alibi_slopes") is not None or extras.get("dropout_p")
+            or extras.get("window_left") is not None):
         made = {}
 
         def step_mask(step, rank, w):
@@ -73,20 +77,22 @@ def _step_masks(extras, l_local=None, device=None):
 
 def stripe_attention(q, k, v, *, scale, group=None, backend=None,
                      softcap=None, alibi_slopes=None, dropout_p=None,
-                     dropout_seed=None, window_left=None,
+                     dropout_seed=None, window_left=None, head_offset=None,
                      deterministic=False):
     """Differentiable stripe attention on per-process (B, H, S, D) tensors
     laid out per ``extract_local_stripe`` over ``group`` (None: the default
     group, or one process when none is initialised). Causal only. Returns
     (out in q.dtype, lse fp32 (B, H, S)); lse carries no gradient.
-    ``deterministic=True`` runs the backward's steps on the bitwise
-    reproducible split kernels B3a/B3b on the card."""
-    del dropout_seed  # dropout raises below
-    check_ring_options("stripe_attention", dropout_p=dropout_p,
-                       window_left=window_left is not None)
-    step_mask = _step_masks(dict(
-        softcap=softcap, alibi_slopes=slopes_on(alibi_slopes, q.device)),
-        q.shape[2], q.device)
+    ``head_offset`` is the global id of q head 0 for the dropout hash (USP
+    passes it). ``deterministic=True`` runs the backward's steps on the
+    bitwise reproducible split kernels B3a/B3b on the card."""
+    extras = dict(softcap=softcap,
+                  alibi_slopes=slopes_on(alibi_slopes, q.device),
+                  window_left=window_left)
+    if dropout_p:
+        extras.update(dropout_p=dropout_p, dropout_seed=dropout_seed,
+                      head_offset=head_offset)
+    step_mask = _step_masks(extras, q.shape[2], q.device)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return RingLoopAttention.apply(q, k, v, scale, group, backend,
                                        step_mask, deterministic)

@@ -14,9 +14,11 @@ GQA: when Hkv is not a multiple of W, the kv heads are repeated up to W
 process keeps whole kv head groups.
 
 Ported: causal or not; softcap and ALiBi (each process takes the slopes of
-its heads), on the card in the block kernels' XFORM instantiations.
-``dropout_p`` is not ported yet and raises. Functions are
-per-process, on tensors sharded contiguously along S over ``group`` (None:
+its heads), on the card in the block kernels' XFORM instantiations; and
+dropout, with ``head_offset = rank * Hq / W`` so that the hash sees the
+global ids of the heads a process holds after the all-to-all and drops
+the same pairs as the unsharded call (the kernels' BAND instantiations).
+Functions are per-process, on tensors sharded contiguously along S over ``group`` (None:
 the default group, or one process when none is initialised).
 """
 
@@ -75,11 +77,13 @@ def _lse_to_seq(lse, group):
     return _a2a_heads_to_seq(lse.detach()[..., None], group)[..., 0]
 
 
-def _check_dropout(name, dropout_p):
-    if dropout_p:
-        raise NotImplementedError(
-            f"{name}(dropout_p=...) is not ported yet (ROADMAP.md queue A "
-            f"item 4)")
+def _dropout(dropout_p, dropout_seed, group, hq, w):
+    """The dropout fields of the head-sharded call (none without dropout):
+    the hash sees global head ids from ``rank * Hq / W``."""
+    if not dropout_p:
+        return {}
+    return dict(dropout_p=dropout_p, dropout_seed=dropout_seed,
+                head_offset=ring_rank(group) * (hq // w))
 
 
 def ulysses_attention(q, k, v, *, scale, causal, group=None, backend=None,
@@ -90,14 +94,13 @@ def ulysses_attention(q, k, v, *, scale, causal, group=None, backend=None,
     q.dtype, lse fp32 (B, H, S_local)); lse carries no gradient.
     ``deterministic=True`` runs the dense call's backward on the bitwise
     reproducible split kernels B3a/B3b on the card."""
-    del dropout_seed
-    _check_dropout("ulysses_attention", dropout_p)
     w, hq = ring_size(group), q.shape[1]
     qh, kh, vh = _to_heads(q, k, v, group)
     out, lse = flash_attention(
         qh, kh, vh, scale,
         MaskArgs(causal=causal, softcap=softcap,
-                 alibi_slopes=_shard_slopes(alibi_slopes, group, hq, w)),
+                 alibi_slopes=_shard_slopes(alibi_slopes, group, hq, w),
+                 **_dropout(dropout_p, dropout_seed, group, hq, w)),
         backend, fused=False if deterministic else None)
     return _a2a_heads_to_seq(out, group), _lse_to_seq(lse, group)
 
@@ -117,8 +120,6 @@ def usp_attention(q, k, v, *, scale, causal, ulysses_group=None,
     Ulysses sharding into head sharding; the ring variant then runs over
     ``ring_group`` per head group. q, k, v per process (B, H, S_local, D);
     returns as ``ulysses_attention``."""
-    del dropout_seed
-    _check_dropout("usp_attention", dropout_p)
     if variant not in ("ring", "zigzag", "stripe"):
         raise ValueError(f"variant must be ring, zigzag or stripe, got "
                          f"{variant!r}")
@@ -129,7 +130,8 @@ def usp_attention(q, k, v, *, scale, causal, ulysses_group=None,
     qh, kh, vh = _to_heads(q, k, v, ulysses_group)
     kw = dict(scale=scale, group=ring_group, backend=backend, softcap=softcap,
               alibi_slopes=_shard_slopes(alibi_slopes, ulysses_group, hq, w),
-              deterministic=deterministic)
+              deterministic=deterministic,
+              **_dropout(dropout_p, dropout_seed, ulysses_group, hq, w))
     if variant == "ring":
         out, lse = ring_attention(qh, kh, vh, causal=causal, **kw)
     elif variant == "zigzag":

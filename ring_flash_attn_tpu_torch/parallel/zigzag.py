@@ -20,10 +20,12 @@ accumulations, using the same co-rotating fp32 dk/dv accumulator as
 Ported: softcap, which is mask-free and rides every step, and ALiBi, which
 needs the layout's global positions: local token i of rank r sits at
 r·C + i (first chunk) or (2W-1-r)·C + (i - C) (second chunk), C = L/2, so
-with ALiBi every step passes explicit q_pos/kv_pos (of the resident shard's
-source rank), causal on them on the diagonal. On the card both go to the
-block kernels' XFORM instantiations (B1; B2, or B3a/B3b). ``dropout_p`` and
-``window_left`` raise.
+with ALiBi, dropout or a causal ``window_left`` every step passes explicit
+q_pos/kv_pos (of the resident shard's source rank), causal on them on the
+diagonal and, with a window, off it too (the causal half holds trivially
+there, the window bounds); the dropout hash of global positions drops the
+same pairs as the single-device call, bit for bit. On the card they go to
+the block kernels' XFORM and BAND instantiations (B1; B2, or B3a/B3b).
 
 The step loops take the masks from a hook, ``step_masks(step, rank, w)``
 -> (diagonal, earlier, later), so that zigzag varlen (``zigzag_varlen.py``)
@@ -47,7 +49,6 @@ from ..ops.flash import _kernel_layout, block_bwd, block_fwd, compute_delta
 from ..ops.mask import MaskArgs, slopes_on
 from ..ops.merge import merge_partials
 from .mesh import RingBuffer, ring_rank, ring_size
-from .ring import check_ring_options
 
 
 def zigzag_positions(rank, w, half, device=None):
@@ -61,11 +62,13 @@ def zigzag_positions(rank, w, half, device=None):
 
 def _batch_masks(half, extras, device):
     """The zigzag schedule's ``step_masks(step, rank, w)``: (diagonal,
-    earlier, later) masks; with ALiBi on the layout's global positions,
-    made once a step and reused by the backward (the kernels' tile bounds
-    are cached by tensor)."""
-    diag, plain = MaskArgs(causal=True, **extras), MaskArgs(**extras)
-    if extras.get("alibi_slopes") is None:
+    earlier, later) masks; with ALiBi, dropout or a window on the layout's
+    global positions, made once a step and reused by the backward (the
+    kernels' tile bounds are cached by tensor)."""
+    window = extras.get("window_left") is not None
+    if (extras.get("alibi_slopes") is None and not extras.get("dropout_p")
+            and not window):
+        diag, plain = MaskArgs(causal=True, **extras), MaskArgs(**extras)
         return lambda step, rank, w: (diag, plain, plain)
     made = {}
 
@@ -75,8 +78,10 @@ def _batch_masks(half, extras, device):
             kvpos = zigzag_positions((rank - step) % w, w, half, device)
             made[step, rank, w] = (
                 MaskArgs(causal=True, q_pos=qpos, kv_pos=qpos, **extras),
-                MaskArgs(q_pos=qpos, kv_pos=kvpos[:half], **extras),
-                MaskArgs(q_pos=qpos[half:], kv_pos=kvpos, **extras))
+                MaskArgs(causal=window, q_pos=qpos, kv_pos=kvpos[:half],
+                         **extras),
+                MaskArgs(causal=window, q_pos=qpos[half:], kv_pos=kvpos,
+                         **extras))
         return made[step, rank, w]
 
     return step_masks
@@ -243,21 +248,23 @@ def zigzag_loop(q, k, v, scale, group, backend, step_masks, deterministic):
 def zigzag_ring_attention(q, k, v, *, scale, group=None, backend=None,
                           softcap=None, alibi_slopes=None, dropout_p=None,
                           dropout_seed=None, window_left=None,
-                          deterministic=False):
+                          head_offset=None, deterministic=False):
     """Differentiable zigzag ring attention on per-process (B, H, S, D)
     tensors laid out per ``extract_local_zigzag`` over ``group`` (None: the
     default group, or one process when none is initialised). Causal only.
     Returns (out in q.dtype, lse fp32 (B, H, S)); lse carries no gradient.
-    ``deterministic=True`` runs the backward's steps on the bitwise
-    reproducible split kernels B3a/B3b on the card."""
-    check_ring_options("zigzag_ring_attention", dropout_p=dropout_p,
-                       window_left=window_left is not None)
+    ``head_offset`` is the global id of q head 0 for the dropout hash (USP
+    passes it). ``deterministic=True`` runs the backward's steps on the
+    bitwise reproducible split kernels B3a/B3b on the card."""
     if q.shape[2] % 2:
         raise ValueError(f"the local length {q.shape[2]} must be even: a "
                          f"rank holds two chunks")
-    step_masks = _batch_masks(
-        q.shape[2] // 2, dict(softcap=softcap,
-                              alibi_slopes=slopes_on(alibi_slopes, q.device)),
-        q.device)
+    extras = dict(softcap=softcap,
+                  alibi_slopes=slopes_on(alibi_slopes, q.device),
+                  window_left=window_left)
+    if dropout_p:
+        extras.update(dropout_p=dropout_p, dropout_seed=dropout_seed,
+                      head_offset=head_offset)
+    step_masks = _batch_masks(q.shape[2] // 2, extras, q.device)
     return zigzag_loop(q, k, v, scale, group, backend, step_masks,
                        deterministic)

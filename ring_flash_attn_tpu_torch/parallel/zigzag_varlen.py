@@ -18,7 +18,7 @@ half of the local q is ``q[:, :, T/2:]``, and the three cases of
 
 No metadata travels with kv: every rank's segment ids are the same (they
 come from the shared per-half cu_seqlens), and where a step needs the
-resident kv's positions (ALiBi) they are derived from its source rank src
+resident kv's positions (ALiBi, dropout, a window) they are derived from its source rank src
 = (r - step) mod W, ``src * lens + off`` and ``(2W-1-src) * lens + off``
 (``ops/varlen.py::local_chunk_info``), so the ring rotates one array. dk
 and dv co-rotate in fp32 as in the zigzag ring. On the card every block
@@ -26,16 +26,17 @@ goes to the kernels' segmented instantiations (B1; B2, or B3a/B3b with
 ``deterministic``), with softcap or ALiBi to their XFORM ones.
 
 Causal only; every sequence's length divisible by 2W. Ported: softcap,
-ALiBi, ``deterministic``. ``dropout_p`` and ``window_left`` raise
-``NotImplementedError``. Per-process, internal layout (B, H, T_local, D),
-B = 1 for packed tokens.
+ALiBi, ``deterministic``, ``window_left`` (off the diagonal causal on
+positions, which bounds by the window alone) and dropout (the hash of the
+sequences' positions and segments, the same pairs as
+``flash_attn_varlen_func`` drops). Per-process, internal layout (B, H,
+T_local, D), B = 1 for packed tokens.
 """
 
 import torch
 
 from ..ops.mask import MaskArgs, slopes_on
 from ..ops.varlen import local_chunk_info
-from .ring import check_ring_options
 from .zigzag import zigzag_loop
 
 
@@ -59,7 +60,9 @@ def varlen_step_masks(segids, positions, extras):
     once and reused by the backward (the kernels' tile bounds are cached
     by tensor)."""
     half = segids.shape[0] // 2
-    need_pos = extras.get("alibi_slopes") is not None
+    win = extras.get("window_left") is not None
+    need_pos = (extras.get("alibi_slopes") is not None
+                or bool(extras.get("dropout_p")) or win)
     kpos_at = _kpos_fn(segids, half, need_pos)
     seg0, seg1 = segids[:half], segids[half:]
     pos1 = positions[half:] if need_pos else None
@@ -75,12 +78,12 @@ def varlen_step_masks(segids, positions, extras):
             kpos = kpos_at((rank - step) % w, w)
             made[step, rank, w] = (
                 diag,
-                MaskArgs(q_segids=segids, kv_segids=seg0,
+                MaskArgs(causal=win, q_segids=segids, kv_segids=seg0,
                          q_pos=positions if need_pos else None,
                          kv_pos=None if kpos is None else kpos[:half],
                          **extras),
-                MaskArgs(q_segids=seg1, kv_segids=segids, q_pos=pos1,
-                         kv_pos=kpos, **extras))
+                MaskArgs(causal=win, q_segids=seg1, kv_segids=segids,
+                         q_pos=pos1, kv_pos=kpos, **extras))
         return made[step, rank, w]
 
     return step_masks
@@ -98,16 +101,16 @@ def zigzag_ring_attention_varlen(q, k, v, segids, positions, *, scale,
     in q.dtype, lse fp32 (B, H, T_local)); lse carries no gradient.
     ``deterministic=True`` runs the backward's steps on the bitwise
     reproducible split kernels B3a/B3b on the card."""
-    del dropout_seed  # dropout is not ported: dropout_p raises
     if not causal:
         raise ValueError("zigzag varlen is causal-only")
-    check_ring_options("zigzag_ring_attention_varlen", dropout_p=dropout_p,
-                       window_left=window_left is not None)
     if q.shape[2] % 2:
         raise ValueError(f"the local length {q.shape[2]} must be even: a "
                          f"rank holds two chunks of every sequence")
-    step_masks = varlen_step_masks(
-        segids, positions, dict(
-            softcap=softcap, alibi_slopes=slopes_on(alibi_slopes, q.device)))
+    extras = dict(softcap=softcap,
+                  alibi_slopes=slopes_on(alibi_slopes, q.device),
+                  window_left=window_left)
+    if dropout_p:
+        extras.update(dropout_p=dropout_p, dropout_seed=dropout_seed)
+    step_masks = varlen_step_masks(segids, positions, extras)
     return zigzag_loop(q, k, v, scale, group, backend, step_masks,
                        deterministic)

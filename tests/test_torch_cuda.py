@@ -13,9 +13,10 @@ import pytest
 import torch
 
 from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B3A_EDGE_CASES,
-                        B5_TOL, B7_EDGE_CASES, BWD_REL_TOL, RING_OUT_REL_TOL,
-                        SEG_EDGE_CASES, XFORM_EDGE_CASES, b5_case_inputs,
-                        b5_edge_cases, rel_err_rows, ring_steps,
+                        B5_TOL, B7_EDGE_CASES, BAND_EDGE_CASES, BWD_REL_TOL,
+                        RING_OUT_REL_TOL, SEG_EDGE_CASES, XFORM_EDGE_CASES,
+                        b5_case_inputs, b5_edge_cases, band_case_check,
+                        band_keep_checks, rel_err_rows, ring_steps,
                         seg_case_mask, xform_case_mask)
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
 from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
@@ -1034,3 +1035,34 @@ def test_cuda_xform_kernels_match_plain_versions(case):
     # two forwards, two B2 and two B3a/B3b: every one an XFORM launch
     assert [f.xform_launches - n for f, n in zip(counters, before)] == [
         2, 2, 2, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(BAND_EDGE_CASES)))
+def test_cuda_band_kernels_match_plain_versions(case):
+    """B1, B2 and B3a/B3b with a window and/or dropout (their BAND
+    instantiations) against their plain versions at the tile edges of
+    chip_smoke's BAND_EDGE_CASES (``band_case_check``, phase 18 (a)):
+    causal windows on and beside the tiles' edges, non-causal (left,
+    right) windows that leave whole tiles out on either side, windows
+    with softcap and ALiBi, dropout with and without segments and on
+    explicit positions, windows on explicit positions, dead rows (0,
+    NEG_INF, dq = 0) and unseen keys (dk = dv = 0); every launch counted
+    as a BAND launch; B3 bitwise the same twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    band_case_check(torch, case)
+
+
+@pytest.mark.cuda
+def test_cuda_band_keep_mask_is_the_plain_one_bitwise():
+    """The kernels' dropout keep mask bit for bit against the plain one:
+    B1 with v the identity (q = 0, so every kept p is 1/Skv) gives out = 0
+    exactly where a key was dropped; B2 and B3b with dout the identity give
+    the same pattern in dv; over kv offsets up to and past 2^31, heads
+    with a head offset, batch 2, segments, explicit positions
+    (chip_smoke.band_keep_checks, phase 18 (b))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    failed = [what for what, ok in band_keep_checks(torch) if not ok]
+    assert not failed, failed

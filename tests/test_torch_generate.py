@@ -279,22 +279,25 @@ def test_generate_matches_jax(world):
 
 
 def test_llama3_attention_refuses_what_is_not_ported():
-    """dropout and window_left raise; softcap and ALiBi (ported with the
-    softcap/ALiBi slice) compute: at one process, the flash entry's
-    result; packed sequences (q_segids, ported with the varlen slice)
-    compute: at one process, two segments equal the two halves attended
-    apart."""
+    """dropout and window_left, which raised before the window/dropout
+    slice, compute: at one process, the flash entry's result (each head
+    chunk's dropout with its global head ids); softcap and ALiBi (ported
+    with the softcap/ALiBi slice) too; packed sequences (q_segids, ported
+    with the varlen slice) compute: at one process, two segments equal
+    the two halves attended apart."""
     import torch
 
     from ring_flash_attn_tpu_torch.ops import MaskArgs, flash_attention
     from ring_flash_attn_tpu_torch.parallel import llama3_attention
 
     q = torch.zeros(1, 2, 8, 16)
-    for kw in ({"dropout_p": 0.1}, {"window_left": 4}):
-        with pytest.raises(NotImplementedError):
-            llama3_attention(q, q, q, scale=1.0, **kw)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (1, 2, 8, 16)).astype(np.float32))
+    for kw in ({"dropout_p": 0.1, "dropout_seed": 3}, {"window_left": 4}):
+        got, _ = llama3_attention(x, x, x, scale=0.25, heads_k_stride=1,
+                                  **kw)
+        want, _ = flash_attention(x, x, x, 0.25, MaskArgs(causal=True, **kw))
+        assert float((got - want).abs().max()) <= 1e-6, kw
     for kw in ({"softcap": 10.0}, {"alibi_slopes": torch.tensor([0.5, 2.0])},
                {"softcap": 3.0, "alibi_slopes": torch.tensor([0.5, 2.0])}):
         for causal in (True, False):

@@ -97,24 +97,33 @@ def test_block_fwd_cpu_uses_plain_version_and_narrows():
 
 
 def test_unported_mask_fields_and_grad_raise():
-    """Unported MaskArgs fields (windows, dropout) raise in block_fwd and
-    block_bwd alike; segment ids and explicit positions, ported with the
-    packed-sequence slice, compute (here: one segment and positions equal
-    to the index give the plain causal mask's result) and pass the check;
-    softcap and ALiBi, which the plain versions have since the ring slice
-    and the block kernels since the softcap/ALiBi slice, pass it too;
-    flash_attention, forward-only before the training slice, now
+    """Every MaskArgs field computes now. Windows and dropout, which raised
+    before their slice, pass the check and give JAX's values in block_fwd
+    and block_bwd alike; segment ids and explicit positions, ported with
+    the packed-sequence slice, compute (here: one segment and positions
+    equal to the index give the plain causal mask's result) and pass the
+    check; softcap and ALiBi, which the plain versions have since the ring
+    slice and the block kernels since the softcap/ALiBi slice, pass it
+    too; flash_attention, forward-only before the training slice, now
     differentiates."""
     q = torch.zeros((1, 1, 4, 8))
-    lse = torch.zeros((1, 1, 4))
+    xq, xd = _np((1, 2, 8, 8), 3), _np((1, 2, 8, 8), 4)
     for field in ({"window_left": 2}, {"dropout_p": 0.1}):
-        mask = MaskArgs(causal=True, **field)
-        with pytest.raises(NotImplementedError):
-            block_fwd(q, q, q, 1.0, mask)
-        with pytest.raises(NotImplementedError):
-            block_bwd(q, q, q, q, lse, lse, 1.0, mask)
-        with pytest.raises(NotImplementedError):
-            check_supported(mask)
+        mask, jmask = MaskArgs(causal=True, **field), JMask(causal=True,
+                                                           **field)
+        check_supported(mask)
+        jo, jl = jax_naive_fwd(*(jnp.asarray(xq),) * 3, 1.0, jmask)
+        out, lse_b = block_fwd(*(torch.from_numpy(xq),) * 3, 1.0, mask)
+        _close(out, jo, TOL)
+        _close(lse_b, jl, TOL)
+        jdelta = jax_compute_delta(jnp.asarray(xd), jo)
+        want_g = jax_naive_bwd(jnp.asarray(xd), *(jnp.asarray(xq),) * 3, jl,
+                               jdelta, 1.0, jmask)
+        got_g = block_bwd(torch.from_numpy(xd), *(torch.from_numpy(xq),) * 3,
+                          lse_b, torch.from_numpy(np.asarray(jdelta)), 1.0,
+                          mask)
+        for g, w in zip(got_g, want_g):
+            _close(g, w, TOL)
     x = torch.from_numpy(_np((1, 2, 4, 8), 1))
     dout = torch.from_numpy(_np((1, 2, 4, 8), 2))
     causal = MaskArgs(causal=True)

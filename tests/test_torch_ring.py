@@ -362,35 +362,56 @@ def test_registry_and_layer():
             assert _err(a, b) <= GRAD_TOL, kw
 
 
-# ---- what is not ported raises ----
+# ---- what raised before its slice computes ----
 
 
-@pytest.mark.parametrize("call", [
-    lambda q: ring_attention(q, q, q, scale=1.0, causal=True, dropout_p=0.1),
-    lambda q: ring_attention(q, q, q, scale=1.0, causal=True, window_left=4),
-    lambda q: ring_attention(q, q, q, scale=1.0, causal=False,
-                             window_right=4),
+def _bhsd_out(fn):
+    """A schedule call on (B, H, S, D) tensors as a (B, S, H, D) out."""
+    return lambda q, k, v: fn(*(x.transpose(1, 2) for x in (q, k, v)))[
+        0].transpose(1, 2)
+
+
+@pytest.mark.parametrize("call,jax_kw", [
+    (_bhsd_out(lambda q, k, v: ring_attention(
+        q, k, v, scale=1.0, causal=True, dropout_p=0.1)),
+     dict(causal=True, softmax_scale=1.0, dropout_p=0.1)),
+    (_bhsd_out(lambda q, k, v: ring_attention(
+        q, k, v, scale=1.0, causal=True, window_left=4)),
+     dict(causal=True, softmax_scale=1.0, window_size=(4, 0))),
+    (_bhsd_out(lambda q, k, v: ring_attention(
+        q, k, v, scale=1.0, causal=False, window_right=4)),
+     dict(causal=False, softmax_scale=1.0, window_size=(-1, 4))),
     # ALiBi on zigzag is ported (softcap/ALiBi slice): dropout with it
-    lambda q: zigzag_ring_attention(q, q, q, scale=1.0,
-                                    alibi_slopes=np.ones(2), dropout_p=0.1),
-    lambda q: zigzag_ring_attention(q, q, q, scale=1.0, dropout_p=0.1),
-    lambda q: zigzag_ring_attention(q, q, q, scale=1.0, window_left=4),
-    lambda q: api.ring_flash_attn_func(
-        q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
-        causal=True, window_size=(4, 0)),
-    lambda q: api.ring_flash_attn_func(
-        q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
-        dropout_p=0.1),
-    lambda q: api.zigzag_ring_flash_attn_func(
-        q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
-        causal=True, alibi_slopes=np.ones(2), dropout_p=0.1),
-    lambda q: api.zigzag_ring_flash_attn_func(
-        q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
-        causal=True, window_size=(4, 0)),
+    (_bhsd_out(lambda q, k, v: zigzag_ring_attention(
+        q, k, v, scale=1.0, alibi_slopes=np.ones(2), dropout_p=0.1)),
+     dict(causal=True, softmax_scale=1.0, alibi_slopes=np.ones(2),
+          dropout_p=0.1)),
+    (_bhsd_out(lambda q, k, v: zigzag_ring_attention(
+        q, k, v, scale=1.0, dropout_p=0.1)),
+     dict(causal=True, softmax_scale=1.0, dropout_p=0.1)),
+    (_bhsd_out(lambda q, k, v: zigzag_ring_attention(
+        q, k, v, scale=1.0, window_left=4)),
+     dict(causal=True, softmax_scale=1.0, window_size=(4, 0))),
+    (lambda q, k, v: api.ring_flash_attn_func(
+        q, k, v, causal=True, window_size=(4, 0)),
+     dict(causal=True, window_size=(4, 0))),
+    (lambda q, k, v: api.ring_flash_attn_func(q, k, v, dropout_p=0.1),
+     dict(dropout_p=0.1)),
+    (lambda q, k, v: api.zigzag_ring_flash_attn_func(
+        q, k, v, causal=True, alibi_slopes=np.ones(2), dropout_p=0.1),
+     dict(causal=True, alibi_slopes=np.ones(2), dropout_p=0.1)),
+    (lambda q, k, v: api.zigzag_ring_flash_attn_func(
+        q, k, v, causal=True, window_size=(4, 0)),
+     dict(causal=True, window_size=(4, 0))),
 ])
-def test_unported_ring_options_raise(call):
-    with pytest.raises(NotImplementedError):
-        call(torch.zeros(1, 2, 8, 16))
+def test_unported_ring_options_raise(call, jax_kw):
+    """The ring and zigzag options that raised before the window/dropout
+    slice (dropout, causal and non-causal windows, dropout with ALiBi)
+    compute now, in one process (W=1), JAX's flash_attn_func's values."""
+    q, k, v = (_np((1, 8, 2, 16), s) for s in range(3))
+    want = japi.flash_attn_func(*map(jnp.asarray, (q, k, v)), **jax_kw)
+    got = call(*map(torch.from_numpy, (q, k, v)))
+    assert _err(got, want) <= OUT_TOL
 
 
 def test_zigzag_is_causal_only_and_needs_an_even_length():

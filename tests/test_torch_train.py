@@ -103,9 +103,25 @@ def test_flash_attn_func_return_attn_probs():
     {"window_size": (8, 0)}, {"window_size": (4, 4)}, {"dropout_p": 0.1},
 ])
 def test_flash_attn_func_unported_arguments_raise(kw):
-    xs = [torch.from_numpy(x) for x in _api_inputs("func")]
-    with pytest.raises(NotImplementedError):
-        api.flash_attn_func(*xs, causal=True, **kw)
+    """The arguments that raised before the window/dropout slice compute:
+    out, lse and the gradients against JAX's flash_attn_func (with
+    causal=True a window's right side is a no-op in both)."""
+    xs = _api_inputs("func")
+    jout, jlse, _ = japi.flash_attn_func(*map(jnp.asarray, xs), causal=True,
+                                         return_attn_probs=True, **kw)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in xs]
+    out, lse, _ = api.flash_attn_func(*leaves, causal=True,
+                                      return_attn_probs=True, **kw)
+    _close(out.detach(), jout, TOL)
+    _close(lse, jlse, TOL)
+    dout = np.random.default_rng(9).standard_normal(out.shape).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: japi.flash_attn_func(
+        q, k, v, causal=True, **kw), *map(jnp.asarray, xs))
+    want = vjp(jnp.asarray(dout))
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+    for g, w in zip(got, want):
+        _close(g, w, GRAD_TOL)
 
 
 @pytest.mark.parametrize("causal", [True, False])

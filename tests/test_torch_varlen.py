@@ -287,8 +287,22 @@ def test_positions_override_the_offset():
     assert bool((allowed & (torch.arange(24)[:, None]
                             < torch.arange(24)[None, :])).any())
     # softcap and ALiBi pass the check with positions (the block kernels
-    # take them since the softcap/ALiBi slice); a window still raises
+    # take them since the softcap/ALiBi slice); a window, which raised
+    # before its slice, passes it and bounds on the positions as JAX's does
     for field in ({"softcap": 5.0}, {"alibi_slopes": np.ones(2)}):
         check_supported(mask._replace(**field))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(mask._replace(window_left=3))
+    windowed = mask._replace(window_left=3)
+    check_supported(windowed)
+    jmask = JMask(causal=True, q_segids=jnp.asarray(seg.numpy()),
+                  kv_segids=jnp.asarray(seg.numpy()),
+                  q_pos=jnp.asarray(pos.numpy()),
+                  kv_pos=jnp.asarray(pos.numpy()), window_left=3)
+    jo, jl = jax_block_fwd(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                           0.3, jmask, backend="xla")
+    got = block_fwd(q, k, v, 0.3, windowed)
+    assert float((got[0] - torch.from_numpy(np.asarray(jo))).abs().max()) \
+        <= 1e-5
+    assert float((got[1] - torch.from_numpy(np.asarray(jl))).abs().max()) \
+        <= 1e-5
+    assert torch.equal(allowed_mask(windowed, 24, 24),
+                       want & (pos[:, None] - pos[None, :] <= 3))

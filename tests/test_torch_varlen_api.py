@@ -106,12 +106,32 @@ def test_deterministic_reaches_block_bwd(monkeypatch):
 
 
 def test_varlen_options_not_ported_raise():
-    q = torch.zeros(16, HQ, D)
+    """The varlen options that raised before the window/dropout slice
+    compute, against JAX's flash_attn_varlen_func: a causal window, and
+    dropout without a causal mask (its hash on the sequences' positions
+    and segments), out, lse and the gradients; a non-causal window raises
+    in both packages."""
+    cu = [0, 97, 197, 247, 252, 256]
+    q, k, v, dout = _inputs(256)
+    for kw in (dict(causal=True, window_size=(40, 0)),
+               dict(dropout_p=0.1, dropout_seed=3)):
+        def jf(*xs):
+            return japi.flash_attn_varlen_func(
+                *xs, np.asarray(cu, np.int32), return_attn_probs=True,
+                **kw)[:2]
+
+        (jo, jl), vjp = jax.vjp(jf, *map(jnp.asarray, (q, k, v)))
+        jgrads = vjp((jnp.asarray(dout), jnp.zeros_like(jl)))
+        leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        to, tl, _ = api.flash_attn_varlen_func(*leaves, cu,
+                                               return_attn_probs=True, **kw)
+        assert _err(to.detach(), jo) <= OUT_TOL and _err(tl, jl) <= OUT_TOL
+        tgrads = torch.autograd.grad(to, leaves, torch.from_numpy(dout))
+        for g, w in zip(tgrads, jgrads):
+            assert _err(g, w) <= GRAD_TOL
+    x = torch.zeros(16, HQ, D)
     with pytest.raises(NotImplementedError):
-        api.flash_attn_varlen_func(q, q, q, [0, 16], causal=True,
-                                   window_size=(4, 0))
-    with pytest.raises(NotImplementedError):
-        api.flash_attn_varlen_func(q, q, q, [0, 16], dropout_p=0.1)
+        api.flash_attn_varlen_func(x, x, x, [0, 16], window_size=(4, 0))
 
 
 @pytest.mark.parametrize("causal", [True, False])

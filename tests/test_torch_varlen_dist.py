@@ -3,8 +3,9 @@ against the JAX package's under ``shard_map``, on the CPU: the ring-varlen
 api in its three forms, ``get_attention("ring_varlen")`` and
 ``llama3_flash_attn_varlen_func`` (metadata from
 ``llama3_flash_attn_prepare_cu_seqlens``, ``heads_k_stride`` 1 and Hkv),
-causal and not, out, lse and the gradients of q, k and v, with
-``deterministic`` reaching every step's ``block_bwd``.
+causal and not, with causal windows and dropout, out, lse and the
+gradients of q, k and v, with ``deterministic`` reaching every step's
+``block_bwd``.
 
 The port runs in spawned gloo processes (``torch_dist_workers.py``), one
 set per world size (W=2 and W=4); JAX runs its XLA path over as many
@@ -44,6 +45,19 @@ VARIANTS = {
     "llama3_full": ("llama3", dict(causal=False, heads_k_stride=HKV)),
     "llama3_deterministic": ("llama3", dict(causal=True, heads_k_stride=1,
                                             deterministic=True)),
+    # windows (the global band on the sequences' positions) and dropout
+    # (the hash of their positions and segments)
+    "ring_window": ("ring", dict(causal=True, window_size=(30, 0))),
+    "ring_dropout": ("ring", dict(causal=True, dropout_p=0.1,
+                                  dropout_seed=5)),
+    "ring_full_dropout": ("ring", dict(causal=False, dropout_p=0.2,
+                                       dropout_seed=6)),
+    "llama3_window_stride1": ("llama3", dict(causal=True, heads_k_stride=1,
+                                             window_size=(30, 0))),
+    "llama3_dropout": ("llama3", dict(causal=True, heads_k_stride=HKV,
+                                      dropout_p=0.1, dropout_seed=7)),
+    "registry_window_dropout": ("registry", dict(
+        causal=True, window_left=30, dropout_p=0.1, dropout_seed=8)),
 }
 
 
@@ -80,9 +94,10 @@ def _mesh(world):
     return Mesh(np.array(jax.devices("cpu")[:world]), ("sp",))
 
 
-def _jax_ring(world, causal, data):
+def _jax_ring(world, causal, data, **kw):
     """JAX's ring-varlen api under shard_map on the ring layout: (out, lse,
-    dq, dk, dv), each rank's tokens in rank order."""
+    dq, dk, dv), each rank's tokens in rank order; ``kw`` a window or
+    dropout."""
     cu = np.asarray(data["cu"])
     loc = {x: np.concatenate([jvarlen.extract_local_ring_varlen(
         data[x], cu, r, world) for r in range(world)])
@@ -94,7 +109,7 @@ def _jax_ring(world, causal, data):
     def f(q, k, v):
         out, lse, _ = japi.ring_flash_attn_varlen_func(
             q, k, v, cu_local, causal=causal, return_attn_probs=True,
-            group="sp")
+            group="sp", **kw)
         return out, lse
 
     (out, lse), vjp = jax.vjp(jax.jit(f), *(jnp.asarray(loc[x])
@@ -103,10 +118,13 @@ def _jax_ring(world, causal, data):
     return [np.asarray(x) for x in (out, lse, *grads)]
 
 
-def _jax_llama3(world, causal, stride, data):
+def _jax_llama3(world, causal, stride, data, window_size=(-1, -1), **kw):
     """JAX's llama3 attention under shard_map with each rank's segment
     labels as its varlen api builds them from
-    llama3_flash_attn_prepare_cu_seqlens: (out, lse, dq, dk, dv)."""
+    llama3_flash_attn_prepare_cu_seqlens: (out, lse, dq, dk, dv); ``kw``
+    dropout, ``window_size`` a causal window."""
+    if window_size[0] >= 0:
+        kw["window_left"] = window_size[0]
     cu = np.asarray(data["cu"])
     n = cu[-1] // world
     labels = []
@@ -124,7 +142,7 @@ def _jax_llama3(world, causal, stride, data):
                        check_vma=False)
     def f(q, k, v, seg):
         return llama3_attention(q, k, v, seg, scale=D**-0.5, causal=causal,
-                                heads_k_stride=stride, axis_name="sp")
+                                heads_k_stride=stride, axis_name="sp", **kw)
 
     bhsd = [jnp.asarray(data[x]).transpose(1, 0, 2)[None]
             for x in ("q", "k", "v", "dout")]
@@ -147,10 +165,14 @@ def test_varlen_schedules_match_jax(world, name):
     data = _data(world)
     if kind == "ring_qkvpacked":
         data = dict(data, k=data["k_qkv"], v=data["v_qkv"])
+    band = {k: x for k, x in kw.items()
+            if k in ("window_size", "dropout_p", "dropout_seed")}
+    if "window_left" in kw:  # the registry's keyword
+        band["window_size"] = (kw["window_left"], 0)
     if kind == "llama3":
-        want = _jax_llama3(world, causal, kw["heads_k_stride"], data)
+        want = _jax_llama3(world, causal, kw["heads_k_stride"], data, **band)
     else:
-        want = _jax_ring(world, causal, data)
+        want = _jax_ring(world, causal, data, **band)
     res = _port(world)
     keys = ("out", "lse", "dq", "dk", "dv")
     for key, ref, tol in zip(keys, want, (OUT_TOL,) * 2 + (GRAD_TOL,) * 3):

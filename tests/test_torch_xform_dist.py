@@ -1,5 +1,6 @@
-"""The port's schedules with softcap and ALiBi, and zigzag varlen, over a
-process group against the JAX package's under ``shard_map``, on the CPU:
+"""The port's schedules with softcap and ALiBi, with windows and dropout,
+and zigzag varlen, over a process group against the JAX package's under
+``shard_map``, on the CPU:
 
 - zigzag varlen: ``zigzag_ring_flash_attn_varlen_func`` in its three forms
   and the registry's ``zigzag_varlen``, causal, with softcap, with ALiBi,
@@ -7,7 +8,11 @@ process group against the JAX package's under ``shard_map``, on the CPU:
   step's ``block_bwd``, at W=2 and W=4;
 - ALiBi on the zigzag and stripe schedules (the layouts' global
   positions), softcap and ALiBi on llama3 (the slopes sliced a head chunk
-  at a time, ``heads_k_stride`` 1 and Hkv) and on llama3 varlen, at W=4.
+  at a time, ``heads_k_stride`` 1 and Hkv) and on llama3 varlen, at W=4;
+- sliding windows (the global band) and dropout on the ring (causal, and
+  not causal with both sides; the steps outside the window launch no
+  block), zigzag, stripe and llama3 schedules and zigzag varlen at W=4,
+  and the distributed dropout against the port's single-device call.
 
 Out, lse and the gradients of q, k and v. The port runs in spawned gloo
 processes (``torch_dist_workers.py``), one set per world size; JAX runs
@@ -30,6 +35,7 @@ from ring_flash_attn_tpu.ops import varlen as jvarlen
 from ring_flash_attn_tpu.parallel import layouts as jlayouts
 from ring_flash_attn_tpu.parallel.llama3 import (
     llama3_attention as jax_llama3)
+from ring_flash_attn_tpu.parallel.ring import ring_attention as jax_ring
 from ring_flash_attn_tpu.parallel.stripe import (
     stripe_attention as jax_stripe)
 from ring_flash_attn_tpu.parallel.zigzag import (
@@ -64,6 +70,12 @@ ZIGZAG_VARLEN = {
         packing="unequal", alibi_slopes=SLOPES)),
     "alibi_equal": ((4,), "func", dict(packing="equal",
                                        alibi_slopes=SLOPES)),
+    "window": ((4,), "func", dict(packing="unequal", window_size=(24, 0))),
+    "dropout": ((2, 4), "func", dict(packing="unequal", dropout_p=0.1,
+                                     dropout_seed=4)),
+    "window_dropout_kvpacked": ((4,), "kvpacked", dict(
+        packing="unequal", window_size=(24, 0), dropout_p=0.2,
+        dropout_seed=5)),
 }
 # the batch schedules at W=4: name -> (schedule, keywords)
 SCHEDULES = {
@@ -80,7 +92,32 @@ SCHEDULES = {
     "llama3 full softcap alibi": ("llama3", dict(
         causal=False, softcap=CAP, alibi_slopes=SLOPES,
         heads_k_stride=HKV)),
+    # windows (global bands) and dropout; shards of 64 tokens: a causal
+    # window of 40 leaves steps 2 and 3 of the ring out, (50, 30) not
+    # causal the shards two away
+    "ring causal window": ("ring", dict(causal=True, window_left=40)),
+    "ring full window": ("ring", dict(causal=False, window_left=50,
+                                      window_right=30)),
+    "ring dropout": ("ring", dict(causal=True, dropout_p=0.1,
+                                  dropout_seed=7)),
+    "ring full window dropout alibi": ("ring", dict(
+        causal=False, window_left=70, dropout_p=0.2, dropout_seed=8,
+        alibi_slopes=SLOPES)),
+    "zigzag window": ("zigzag", dict(window_left=40)),
+    "zigzag dropout": ("zigzag", dict(dropout_p=0.1, dropout_seed=9)),
+    "stripe window dropout": ("stripe", dict(window_left=40, dropout_p=0.1,
+                                             dropout_seed=10)),
+    "llama3 causal window": ("llama3", dict(
+        causal=True, window_left=40, heads_k_stride=1)),
+    "llama3 dropout": ("llama3", dict(
+        causal=True, dropout_p=0.1, dropout_seed=11, heads_k_stride=1)),
+    "llama3 full dropout": ("llama3", dict(
+        causal=False, dropout_p=0.2, dropout_seed=12, heads_k_stride=HKV)),
 }
+# the blocks each rank's ring forward launches (the backward the same):
+# causal, steps 0 to min(rank, 1); not causal, the shards at most one away
+RING_BLOCKS = {"ring causal window": [1, 2, 2, 2],
+               "ring full window": [2, 3, 3, 2]}
 # llama3 varlen at W=4 on the unequal packing: name -> keywords
 LLAMA3_VARLEN = {
     "llama3_causal_softcap_alibi": dict(causal=True, heads_k_stride=1,
@@ -130,8 +167,9 @@ def _port(world):
     if world == 4:
         batch = _batch()
         payloads["schedules"] = dict(batch, scale=SCALE, variants={
-            name: ("zigzag", "float32", kw)
-            for name, (kind, kw) in SCHEDULES.items() if kind == "zigzag"})
+            name: (kind, "float32", kw)
+            for name, (kind, kw) in SCHEDULES.items()
+            if kind in ("zigzag", "ring")})
         payloads["cp"] = {"scale": SCALE, "a2a": {"pairs": []},
                           "cases": {
             name: dict(batch, kind="stripe", layout="stripe", kw=kw)
@@ -152,21 +190,19 @@ def _ranks(res, key, axis=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_zigzag_varlen(world, packing, softcap, alibi, qkv):
+def _jax_zigzag_varlen(world, name):
     """JAX's zigzag-varlen api under shard_map on the grouped layout:
     (out, lse, dq, dk, dv), each rank's tokens in rank order."""
+    _, form, kw = ZIGZAG_VARLEN[name]
+    kw = {k: jnp.asarray(x) if isinstance(x, np.ndarray) else x
+          for k, x in kw.items() if k not in ("packing", "deterministic")}
     data = _tokens(world)
-    if qkv:
+    if form == "qkvpacked":
         data = dict(data, k=data["k_qkv"], v=data["v_qkv"])
-    cu = np.asarray(PACKINGS[world][packing])
+    cu = np.asarray(PACKINGS[world][ZIGZAG_VARLEN[name][2]["packing"]])
     loc = {x: np.concatenate([jvarlen.extract_local_zigzag_varlen(
         data[x], cu, r, world) for r in range(world)])
         for x in ("q", "k", "v", "dout")}
-    kw = {}
-    if softcap:
-        kw["softcap"] = CAP
-    if alibi:
-        kw["alibi_slopes"] = jnp.asarray(SLOPES)
 
     @functools.partial(shard_map, mesh=_mesh(world), in_specs=(P("sp"),) * 3,
                        out_specs=(P("sp"), P(None, "sp")), check_vma=False)
@@ -187,8 +223,7 @@ def _jax_zigzag_varlen(world, packing, softcap, alibi, qkv):
     for w in worlds])
 def test_zigzag_varlen_matches_jax(world, name):
     _, form, kw = ZIGZAG_VARLEN[name]
-    want = _jax_zigzag_varlen(world, kw["packing"], "softcap" in kw,
-                              "alibi_slopes" in kw, form == "qkvpacked")
+    want = _jax_zigzag_varlen(world, name)
     res = _port(world)
     for key, ref, tol in zip(("out", "lse", "dq", "dk", "dv"), want,
                              (OUT_TOL,) * 2 + (GRAD_TOL,) * 3):
@@ -205,7 +240,10 @@ def test_zigzag_varlen_matches_jax(world, name):
 
 
 def test_zigzag_varlen_refuses_what_it_lacks():
-    """Causal only; dropout and windows raise NotImplementedError."""
+    """Causal only; dropout and causal windows, which raised before their
+    slice, compute: in one process (W=1) the grouped layout is the
+    sequences in order, so the values are JAX's flash_attn_varlen_func's,
+    the dropout hash included."""
     import torch
 
     from ring_flash_attn_tpu_torch import api, get_attention
@@ -228,9 +266,14 @@ def test_zigzag_varlen_refuses_what_it_lacks():
             torch.arange(16, dtype=torch.int32), scale=1.0, causal=False)
     with pytest.raises(ValueError, match="zigzag_varlen_info"):
         get_attention("zigzag_varlen")(x[None], x[None], x[None])
+    xs = [_np((16, 2, 8), s) for s in range(3)]
     for kw in (dict(dropout_p=0.1), dict(window_size=(4, 0))):
-        with pytest.raises(NotImplementedError):
-            api.zigzag_ring_flash_attn_varlen_func(x, x, x, [0, 16], **kw)
+        want = japi.flash_attn_varlen_func(
+            *map(jnp.asarray, xs), np.array([0, 16], np.int32), causal=True,
+            **kw)
+        got = api.zigzag_ring_flash_attn_varlen_func(
+            *map(torch.from_numpy, xs), [0, 16], **kw)
+        assert _err(got, want) <= OUT_TOL, kw
 
 
 # ---- zigzag, stripe and llama3 with softcap and ALiBi at W=4 ----
@@ -249,7 +292,7 @@ def _jax_schedule(name):
     elif kind == "stripe":
         arrs = [jlayouts.all_local_stripe(x, 4, axis=2) for x in arrs]
     fn = {"zigzag": jax_zigzag, "stripe": jax_stripe,
-          "llama3": jax_llama3}[kind]
+          "llama3": jax_llama3, "ring": jax_ring}[kind]
     q, k, v, dout = arrs
 
     @functools.partial(shard_map, mesh=_mesh(4), in_specs=(SPEC4,) * 3,
@@ -271,9 +314,46 @@ def test_schedules_with_xform_match_jax(name):
                              (OUT_TOL,) * 2 + (GRAD_TOL,) * 3):
         # every result is sharded along axis 2, in the layout's order
         got = _ranks(res, {"zigzag": f"schedules/{name}/{key}",
+                           "ring": f"schedules/{name}/{key}",
                            "stripe": f"cp/{name}/{key}",
                            "llama3": f"llama3/{key}_{name}"}[kind], axis=2)
         assert _err(got, ref) <= tol, key
+    if name in RING_BLOCKS:
+        # the steps outside the window launch nothing, forward or backward
+        blocks = [list(r[f"schedules/{name}/blocks"]) for r in res]
+        assert blocks == [[n, n] for n in RING_BLOCKS[name]], blocks
+
+
+_LAYOUT = {"zigzag": jlayouts.all_local_zigzag,
+           "stripe": jlayouts.all_local_stripe}
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, (_, kw) in SCHEDULES.items() if kw.get("dropout_p")))
+def test_distributed_dropout_is_the_single_device_dropout(name):
+    """The port's distributed dropout against its own single-device call
+    on the whole sequence (the same hash of global coordinates drops the
+    same pairs): out and lse, to floating-point tolerance."""
+    import torch
+
+    from ring_flash_attn_tpu_torch.ops.flash import flash_attention
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+
+    kind, kw = SCHEDULES[name]
+    kw = dict(kw)
+    kw.pop("heads_k_stride", None)
+    batch = _batch()
+    mask = MaskArgs(causal=kw.pop("causal", True), **kw)
+    out, lse = flash_attention(*(torch.from_numpy(batch[x])
+                                 for x in ("q", "k", "v")), SCALE, mask)
+    res = _port(4)
+    key = {"zigzag": "schedules/{}/{}", "ring": "schedules/{}/{}",
+           "stripe": "cp/{}/{}", "llama3": "llama3/{1}_{0}"}[kind]
+    for what, ref in (("out", out.numpy()), ("lse", lse.numpy())):
+        got = _ranks(res, key.format(name, what), axis=2)
+        if kind in _LAYOUT:  # the layout's order of the whole sequence
+            ref = np.asarray(_LAYOUT[kind](jnp.asarray(ref), 4, axis=2))
+        assert _err(got, ref) <= OUT_TOL, what
 
 
 @functools.lru_cache(maxsize=None)

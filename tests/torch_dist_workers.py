@@ -261,9 +261,36 @@ _SCHEDULES = {"ring": (ring_attention, "contiguous"),
               "fused_ring": (fused_ring_attention, "contiguous")}
 
 
+@contextlib.contextmanager
+def _block_calls(kind):
+    """The steps at which the ring ("ring") or zigzag ("zigzag") step
+    loops call ``block_fwd`` and ``block_bwd`` in the block: {"fwd": [...],
+    "bwd": [...]}, a step counted by its call's place in the loop."""
+    module = importlib.import_module(
+        "ring_flash_attn_tpu_torch.parallel." + kind)
+    real = module.block_fwd, module.block_bwd
+    calls = {"fwd": 0, "bwd": 0}
+
+    def counted(what, fn):
+        def call(*args, **kw):
+            calls[what] += 1
+            return fn(*args, **kw)
+
+        return call
+
+    module.block_fwd = counted("fwd", real[0])
+    module.block_bwd = counted("bwd", real[1])
+    try:
+        yield calls
+    finally:
+        module.block_fwd, module.block_bwd = real
+
+
 def task_schedules(rank, world, p):
     """Each variant's (out, lse) and gradients on this rank's shards of the
-    global (B, H, S, D) inputs."""
+    global (B, H, S, D) inputs, and for the ring and zigzag schedules the
+    number of blocks their forward and backward launched
+    ("<name>/blocks": fwd, bwd)."""
     out = {}
     for name, (kind, dtype, kw) in p["variants"].items():
         fn, layout = _SCHEDULES[kind]
@@ -271,9 +298,13 @@ def task_schedules(rank, world, p):
             _local(p[n], rank, world, layout, 2).to(getattr(torch, dtype))
             for n in ("q", "k", "v", "dout"))
         leaves = [x.requires_grad_() for x in (q, k, v)]
-        o, lse = fn(*leaves, scale=p["scale"], **kw)
-        assert o.dtype == q.dtype and not lse.requires_grad
-        grads = torch.autograd.grad(o, leaves, dout)
+        counter = (_block_calls(kind) if kind in ("ring", "zigzag")
+                   else contextlib.nullcontext({"fwd": -1, "bwd": -1}))
+        with counter as calls:
+            o, lse = fn(*leaves, scale=p["scale"], **kw)
+            assert o.dtype == q.dtype and not lse.requires_grad
+            grads = torch.autograd.grad(o, leaves, dout)
+        out[f"{name}/blocks"] = np.array([calls["fwd"], calls["bwd"]])
         for key, x in zip(("out", "lse", "dq", "dk", "dv"),
                           (o, lse, *grads)):
             out[f"{name}/{key}"] = _np(x.float())
