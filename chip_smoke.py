@@ -166,6 +166,44 @@ Phases, each of which raises on failure:
    transform and with ALiBi, against ``flash_attn_varlen_func`` on the
    whole packing and plain on each rank's last rows, and the entry point
    at W=1.
+18. Windows and dropout: B1, B2 and B3a/B3b in their BAND instantiations
+   at the tile edges of ``BAND_EDGE_CASES``, the keep mask bit for bit,
+   Mistral-7B-v0.1's attention (window 4096) at S = 32768 and dropout 0.1
+   at S = 8192, timed; then the band path through every entry point that
+   takes a window or dropout.
+19. The ServingEngine's options on phase 4's model and pool: (a)
+   ``prefill_chunk=512`` against the dense engine on phase 4's traffic,
+   every chunk's B1 (causal at offset p_len over the lane's gathered
+   pages) against its plain version and against itself with the keys and
+   values past the chunk's last kv tile set to NaN (those tiles must be
+   skipped), B1 at ragged chunks of 320, 192 and 64 rows, and the first
+   token of a 256-token request behind a 3840-token prompt, dense and
+   chunked; (b) ``speculate_k`` 4 (16 rows a kv head) and 8 (two launches
+   of B5 a layer) on repetitive prompts against the plain greedy engine,
+   every verify's B5 against ``_plain_paged_decode``, drafts proposed and
+   accepted, tokens a decode step, and one verify forward's wall and
+   device time beside a plain decode step's; (c) ``mesh=`` over a gloo
+   group of one (the same tokens as without it) and a tp=2 decode step in
+   one process, the ranks' partials (``transformer._attn_branch``) summed,
+   against the unsharded ``_decode_body`` and the plain versions. Where
+   an engine's tokens part from the reference engine's, the reference's
+   top-two logit margin there must be under phase 4's 5e-2 (the share of
+   the reference's tokens under it is logged). The path's launches are
+   those of the engine runs with the options, (a) to (c).
+20. The HF adapter's ``ring_attention_forward`` at Llama-3-8B attention
+   widths on phase 16's packings of 32768 tokens: at W=1 through
+   ``position_ids`` and through DATA_PARAMS, forward and backward, against
+   ``flash_attn_varlen_func`` on the whole packing and against the plain
+   versions (out and dq of the last 512 rows, dk and dv of the first 512
+   keys); the W=4 ranks' labels from both paths (equal), each rank
+   through llama3's rank functions (out, lse, dq, the summed dk and dv),
+   each rank timed on two packings. The path's launches are those of the
+   W=1 calls.
+21. The GPipe pipeline: ``train_step_pp`` with one stage (no pp group) and
+   2 microbatches of 4096 tokens at phase 6's widths against
+   ``train_step`` on the same batch (loss, gradients, the updated
+   weights) and its loss against ``loss_fn`` on the plain versions, both
+   steps timed.
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -3520,6 +3558,23 @@ def _uncounted(counters):
                 fn.band_launches = band
 
 
+@contextlib.contextmanager
+def _path_run(counters, totals):
+    """One run of a path through its entry points: the counts set to 0
+    just before it and added to ``totals`` just after (launches under
+    ``_uncounted`` inside it left out); the counts outside it stay as they
+    were."""
+    saved = {name: fn.launches for name, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        yield
+    finally:
+        for name, fn in counters.items():
+            totals[name] = totals.get(name, 0) + fn.launches
+            fn.launches = saved[name]
+
+
 def phase_varlen(torch, flush):
     """Phase 16: packed sequences. Returns ({kernel: its varlen readings},
     the launches of the varlen path, the ring and llama3 times)."""
@@ -5194,6 +5249,724 @@ def phase_band(torch, flush):
                                              "band_library": library}
 
 
+# ---------------------------------------------------------------------------
+# Phases 19 to 21: the serving engine's options, the HF adapter's attention
+# override and the GPipe pipeline, at full width
+# ---------------------------------------------------------------------------
+
+# phase 4's page pool: 64 pages of 256 tokens, 16 a lane, 4 lanes
+SERVE_POOL = dict(num_pages=64, page_size=256, pages_per_seq=16, max_batch=4)
+
+
+def _engine_run(torch, model, prompts, new_tokens, prefix_of=None, **kw):
+    """Serve ``prompts`` ({rid: tokens}) on phase 4's pool with the
+    engine's options ``kw``. Returns (outputs, {rid: the top-two logit
+    margin over max|logit| of each token sampled for it}, [each step's
+    wall s], the engine's stats with "lane_steps": the decode steps summed
+    over the lanes). The margins line up with a request's tokens in an
+    engine without speculation."""
+    from ring_flash_attn_tpu_torch.models import ServingEngine
+
+    eng = ServingEngine(model, device="cuda", **SERVE_POOL, **kw)
+    for rid, p in prompts.items():
+        eng.submit(rid, p, new_tokens, prefix_of=(prefix_of or {}).get(rid))
+    margins = {}
+    sample = eng._sample
+
+    def recording(req_id, logits):
+        top = np.partition(logits, -2)[-2:]
+        margins.setdefault(req_id, []).append(
+            float((top[1] - top[0]) / max(float(np.abs(logits).max()),
+                                          1e-30)))
+        return sample(req_id, logits)
+
+    eng._sample = recording
+    steps, lane_steps = [], 0
+    while not eng.sched.idle:
+        lane_steps += len(eng._pending)  # the lanes this step decodes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        if len(steps) > 400:
+            raise RuntimeError("serving loop did not converge")
+    return eng.outputs, margins, steps, dict(eng.stats,
+                                             lane_steps=lane_steps)
+
+
+def _parted(what, ref, margins, got):
+    """Hold an engine's tokens against a reference engine's: where a
+    request's tokens first part, the reference's top-two margin there must
+    be under LOGITS_REL_TOL (phase 4's limit on |kernel - plain| /
+    max|plain|: a near tie that the kernels' rounding may flip), else
+    raise. Returns {rid: (index, margin)} of the requests that part."""
+    parted = {}
+    for rid, want in ref.items():
+        have = got[rid]
+        if len(have) != len(want):
+            raise AssertionError(f"{what}: request {rid} has {len(have)} "
+                                 f"tokens, the reference {len(want)}")
+        i = next((i for i, (a, b) in enumerate(zip(want, have)) if a != b),
+                 None)
+        if i is not None:
+            m = margins[rid]
+            j = i - (len(want) - len(m))
+            parted[rid] = (i, m[j] if 0 <= j < len(m) else float("inf"))
+    same = sum(len(t) for t in got.values()) - sum(
+        len(got[r]) - i for r, (i, _) in parted.items())
+    # how often a parting could be excused at all: the reference's tokens
+    # whose top-two margin is under the limit
+    ties = [x < LOGITS_REL_TOL for m in margins.values() for x in m]
+    log(f"    {what}: {same} of {sum(len(t) for t in got.values())} tokens "
+        f"as the reference's before any parting; parted (request: index, "
+        f"the reference's top-two margin there) {parted}; {sum(ties)} of "
+        f"the reference's {len(ties)} sampled tokens have a margin under "
+        f"{LOGITS_REL_TOL} (a parting there is excused)")
+    bad = {r: x for r, x in parted.items() if not x[1] < LOGITS_REL_TOL}
+    if bad:
+        raise AssertionError(f"{what}: tokens part from the reference where "
+                             f"its top two logits are apart: {bad}")
+    return parted
+
+
+@contextlib.contextmanager
+def _checked_chunks(torch, counters, seen):
+    """The serving module's flash_attention (each chunk of a chunked
+    prefill: B1 causal at offset p_len over the lane's gathered pages)
+    also held against its plain version, and against itself with the keys
+    and values past the chunk's last kv tile set to NaN: those tiles lie
+    past p_len + C and must be skipped, not computed."""
+    from ring_flash_attn_tpu_torch.models import serve
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import KV_TILE
+    from ring_flash_attn_tpu_torch.ops.naive import naive_block_fwd
+
+    real = serve.flash_attention
+
+    def checked(q, k, v, scale, mask, backend=None):
+        out, lse = real(q, k, v, scale, mask, backend=backend)
+        with _uncounted(counters):
+            ref_o, ref_l = naive_block_fwd(q, k, v, scale, mask)
+            end = -(-((mask.offset or 0) + q.shape[2]) // KV_TILE) * KV_TILE
+            skipped = None
+            if end < k.shape[2] and q.is_cuda:  # the kernel's tiles
+                kn, vn = k.clone(), v.clone()
+                kn[:, :, end:] = float("nan")
+                vn[:, :, end:] = float("nan")
+                po, pl = real(q, kn, vn, scale, mask, backend=backend)
+                skipped = bool(torch.equal(po, out) and torch.equal(pl, lse))
+        errs = (max_err(out, ref_o), rel_err_rows(out, ref_o),
+                max_err(lse, ref_l))
+        seen.append((q.shape[2], k.shape[2], mask.offset, errs, skipped))
+        if (errs[0] > B1_OUT_TOL or errs[1] > RING_OUT_REL_TOL
+                or errs[2] > B1_LSE_TOL or skipped is False):
+            raise AssertionError(
+                f"chunk B1 (q {tuple(q.shape)}, {k.shape[2]} keys, offset "
+                f"{mask.offset}): errors {errs}, NaN tiles skipped {skipped}")
+        return out, lse
+
+    serve.flash_attention = checked
+    try:
+        yield
+    finally:
+        serve.flash_attention = real
+
+
+@contextlib.contextmanager
+def _checked_verify(torch, seen):
+    """paged_decode_attention's calls with new_counts (the speculative
+    verify: B5, in groups of 16 // G rows past 16 rows) also held against
+    ``_plain_paged_decode`` on all rows at once."""
+    from ring_flash_attn_tpu_torch.ops import paged
+
+    real = paged.paged_decode_attention
+
+    def checked(q, cache, scale, softcap=None, backend=None,
+                new_counts=None):
+        out, lse = real(q, cache, scale, softcap=softcap, backend=backend,
+                        new_counts=new_counts)
+        if new_counts is not None:
+            ref_o, ref_l = paged._plain_paged_decode(q, cache, scale,
+                                                     softcap, new_counts)
+            errs = (max_err(out, ref_o), max_err(lse, ref_l))
+            seen.append((q.shape[2], errs))
+            if max(errs) > B5_TOL:
+                raise AssertionError(f"verify B5 at {q.shape[2]} rows: "
+                                     f"errors {errs} (tol {B5_TOL})")
+        return out, lse
+
+    paged.paged_decode_attention = checked
+    try:
+        yield
+    finally:
+        paged.paged_decode_attention = real
+
+
+def _first_tokens(torch, model, vocab, **kw):
+    """A 3840-token prompt and a 256-token one behind it, submitted
+    together: (the short one's first token s, the long one's s, prompt
+    tokens/s until both have their first token). The second of two runs
+    (the first warms cuBLAS and the allocator)."""
+    from ring_flash_attn_tpu_torch.models import ServingEngine
+
+    rng = np.random.default_rng(191)
+    long_p, short_p = (rng.integers(0, vocab, size=n).astype(np.int32)
+                       for n in (3840, 256))
+    for _ in range(2):
+        eng = ServingEngine(model, device="cuda", **SERVE_POOL, **kw)
+        eng.submit(0, long_p, 2)
+        eng.submit(1, short_p, 2)
+        first = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while len(first) < 2:
+            eng.step()
+            torch.cuda.synchronize()
+            for rid in (0, 1):
+                if rid not in first and eng.outputs[rid]:
+                    first[rid] = time.perf_counter() - t0
+    return first[1], first[0], (3840 + 256) / max(first.values())
+
+
+def _prefilled_lanes(torch, model, prompts):
+    """Phase 4's pool after one step over four prompts: (the pages, the
+    lanes' pending tokens (4,), live (4,), block tables (4, 16), rewound
+    lengths (4,)), as a decode step would see them."""
+    from ring_flash_attn_tpu_torch.models import ServingEngine
+    from ring_flash_attn_tpu_torch.serving import gather_block_tables
+
+    eng = ServingEngine(model, device="cuda", **SERVE_POOL)
+    for rid, p in prompts.items():
+        eng.submit(rid, p, 8)
+    eng.step()
+    lanes = [r for r in eng.sched.lanes if r is not None]
+    tables, lens = gather_block_tables(eng.alloc, [r.seq for r in lanes], 16)
+    toks, live = np.zeros(4, np.int64), np.zeros(4, bool)
+    bt, ln = np.zeros((4, 16), np.int32), np.zeros(4, np.int32)
+    for i, r in enumerate(lanes):
+        live[r.lane], toks[r.lane] = True, eng._pending[r.req_id]
+        bt[r.lane], ln[r.lane] = tables[i], lens[i] - 1
+    dev = torch.device("cuda")
+    return ([(c.k_pages, c.v_pages) for c in eng.caches],
+            torch.as_tensor(toks, device=dev),
+            torch.as_tensor(live, device=dev), torch.as_tensor(bt, device=dev),
+            torch.as_tensor(ln, device=dev))
+
+
+def _caches(torch, pages, tables, lens, heads=None):
+    """PagedKVCaches over copies of ``pages`` (kv heads ``heads``)."""
+    from ring_flash_attn_tpu_torch.ops.paged import PagedKVCache
+
+    hs = slice(None) if heads is None else heads
+    return [PagedKVCache(k[:, hs].clone(), v[:, hs].clone(), tables, lens)
+            for k, v in pages]
+
+
+def _tp_decode(torch, model, shards, tokens, live, pages, tables, lens,
+               backend=None):
+    with torch.no_grad():
+        return _tp_decode_body(torch, model, shards, tokens, live, pages,
+                               tables, lens, backend)
+
+
+def _tp_decode_body(torch, model, shards, tokens, live, pages, tables, lens,
+                    backend):
+    """One decode step as the ranks of a tensor-parallel group compute
+    it, in one process: rank r's attention (its kv heads' pages, its rows
+    of wo; ``transformer._attn_branch`` with no group) and MLP partials,
+    summed here (what the group's psum does). Returns the logits (B,
+    vocab)."""
+    from ring_flash_attn_tpu_torch.models.serve import _head
+    from ring_flash_attn_tpu_torch.models.transformer import (
+        _attn_branch, _mlp_branch)
+    from ring_flash_attn_tpu_torch.ops import paged
+
+    cfg = model.cfg
+    tp = len(shards)
+    h = cfg.kv_heads // tp
+    caches = [_caches(torch, pages, tables, lens, slice(r * h, (r + 1) * h))
+              for r in range(tp)]
+    scale = cfg.head_dim**-0.5
+    positions = lens[:, None, None]
+    x = model.embed[tokens][:, None]
+    for i in range(cfg.layers):
+        parts = []
+        for r in range(tp):
+            def attend(q, k, v, r=r):
+                caches[r][i] = paged.paged_append(caches[r][i], k, v,
+                                                  mask=live)
+                return paged.paged_decode_attention(
+                    q, caches[r][i], scale, backend=backend)[0]
+            parts.append(_attn_branch(cfg, x, shards[r].layers[i],
+                                      positions, attend=attend).float())
+        x = (x.float() + sum(parts)).to(x.dtype)
+        x = (x.float() + sum(_mlp_branch(x, s.layers[i]).float()
+                             for s in shards)).to(x.dtype)
+    return _head(model, x)[:, 0]
+
+
+def _step_times(torch, fn):
+    """(median wall ms of fn() over 5 synchronised calls after a warm-up,
+    its device ms under torch.profiler)."""
+    fn()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    dev = _device_profile(torch, fn)
+    return float(np.median(walls)), sum(t for t, _, _ in dev) / 1e3
+
+
+def phase_serving_options(torch):
+    """Phase 19. Returns (the launches of the serving_options path, its
+    readings)."""
+    import torch.distributed as dist
+
+    from ring_flash_attn_tpu_torch.models import (
+        ModelConfig, init_params, shard_params)
+    from ring_flash_attn_tpu_torch.models.serve import (
+        _decode_body, _spec_verify_body)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+
+    log("== phase 19: the ServingEngine's options at Llama-3-8B widths, "
+        "4 layers: chunked prefill, speculative decoding, mesh=")
+    cfg = ModelConfig(**FULL_WIDTH)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    # the path's launches: the engine runs with the options, each counted
+    # from 0 (_path_run); the references, the direct kernel checks, the
+    # timings and the tp=2 simulation lie outside them
+    counters = {"B1 flash_fwd": flash_fwd_cuda,
+                "B5 paged_decode": paged_decode_cuda}
+    launches = {}
+    readings = {}
+
+    # (a) prefill_chunk=512 against the dense engine on phase 4's traffic
+    # (the prefix-cached request included; phase 4 forks)
+    prompts = _traffic(cfg.vocab)
+    dense, dense_m, _, _ = _engine_run(torch, model, prompts, 16,
+                                       prefix_of={2: 0})
+    chunks = []
+    with _path_run(counters, launches), _checked_chunks(torch, counters,
+                                                        chunks):
+        out, _, _, stats = _engine_run(torch, model, prompts, 16,
+                                       prefix_of={2: 0}, prefill_chunk=512)
+    worst = [max(c[3][i] for c in chunks) for i in range(3)]
+    log(f"  (a) prefill_chunk=512: {stats['prefill_chunks']} chunks; each "
+        f"chunk's B1 against its plain version: worst |out| {worst[0]:.2e} "
+        f"(tol {B1_OUT_TOL}), by rows {worst[1]:.2e} (tol "
+        f"{RING_OUT_REL_TOL}), |lse| {worst[2]:.2e} (tol {B1_LSE_TOL}); "
+        f"the tiles past p_len + C with NaN keys and values: "
+        f"{sum(c[4] is True for c in chunks)} of "
+        f"{sum(c[4] is not None for c in chunks)} chunks the same bits")
+    readings["chunked_parted"] = _parted("chunked vs dense", dense, dense_m,
+                                         out)
+    # B1 at ragged chunks (C not a multiple of its 128-row q tile) over a
+    # lane's 4096 gathered keys, at page-aligned offsets
+    ragged = []
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    with _checked_chunks(torch, counters, ragged):
+        from ring_flash_attn_tpu_torch.models import serve
+        from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+        for c, p_len in ((320, 1280), (192, 3840), (64, 0)):
+            q = torch.randn((1, 32, c, 128), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            kv = torch.randn((2, 1, 8, 4096, 128), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            serve.flash_attention(q, kv[0], kv[1], 128**-0.5,
+                                  MaskArgs(causal=True, offset=p_len))
+    log("    B1 at ragged chunks (C, keys, offset, (|out|, rows, |lse|), "
+        "NaN tiles skipped): " + "; ".join(
+            f"{c[0]}, {c[1]}, {c[2]}, ({c[3][0]:.2e}, {c[3][1]:.2e}, "
+            f"{c[3][2]:.2e}), {c[4]}" for c in ragged))
+    ttft = {name: _first_tokens(torch, model, cfg.vocab, **kw)
+            for name, kw in (("dense", {}),
+                             ("chunked", {"prefill_chunk": 512}))}
+    for name, (short, long_, tps) in ttft.items():
+        log(f"    {name}: a 256-token request's first token {short:.4f} s "
+            f"behind a 3840-token prompt (its first token {long_:.4f} s); "
+            f"{tps:.0f} prompt tokens/s until both")
+    readings["first_token_s"] = {n: {"short": s, "long": l, "tokens_per_s": t}
+                                 for n, (s, l, t) in ttft.items()}
+
+    # (b) speculate_k=4 (16 rows at G=4) and 8 (32 rows: two launches of
+    # B5 a layer) on repetitive prompts, against the plain greedy engine
+    rng = np.random.default_rng(19)
+    rep = {rid: np.tile(rng.integers(0, cfg.vocab, size=u),
+                        -(-n // u))[:n].astype(np.int32)
+           for rid, (u, n) in enumerate(((50, 1000), (17, 600), (120, 1500),
+                                         (33, 800)))}
+    plain, plain_m, _, plain_st = _engine_run(torch, model, rep, 32)
+    readings["spec"] = {}
+    for k in (4, 8):
+        rows = []
+        with _path_run(counters, launches), _checked_verify(torch, rows):
+            out, _, _, st = _engine_run(torch, model, rep, 32,
+                                        speculate_k=k)
+        _parted(f"speculate_k={k} vs plain greedy", plain, plain_m, out)
+        # tokens a lane a decode step: the prefill samples each request's
+        # first token, the decode steps the rest
+        per_lane = (st["tokens"] - st["prefills"]) / st["lane_steps"]
+        log(f"  (b) speculate_k={k}: {st['spec_proposed']} drafts proposed, "
+            f"{st['spec_accepted']} accepted "
+            f"({100 * st['spec_accepted'] / max(st['spec_proposed'], 1):.1f}"
+            f"%), {per_lane:.3f} tokens a lane a decode step over "
+            f"{st['decode_steps']} steps (plain greedy "
+            f"{plain_st['decode_steps']} steps, 1 token a lane a step); B5 "
+            f"held on {len(rows)} verify calls of {rows[0][0]} rows, worst "
+            f"|out| {max(r[1][0] for r in rows):.2e}, |lse| "
+            f"{max(r[1][1] for r in rows):.2e} (tol {B5_TOL})")
+        if st["spec_proposed"] <= 0:
+            raise AssertionError(f"speculate_k={k}: no draft was proposed")
+        readings["spec"][f"k{k}"] = {
+            "proposed": st["spec_proposed"], "accepted": st["spec_accepted"],
+            "tokens_per_lane_step": per_lane,
+            "decode_steps": st["decode_steps"],
+            "plain_decode_steps": plain_st["decode_steps"]}
+    # one verify forward against one plain decode step on the same lanes
+    pages, toks, live, tables, lens = _prefilled_lanes(torch, model, rep)
+    times = {"decode": _step_times(torch, lambda: _decode_body(
+        model, toks, live, _caches(torch, pages, tables, lens)))}
+    for k in (4, 8):
+        cand = torch.cat([toks[:, None], torch.as_tensor(
+            rng.integers(0, cfg.vocab, size=(4, k - 1)), device="cuda")],
+            dim=1)
+        n_valid = torch.where(live, k, 0).to(torch.int32)
+        times[f"verify k={k}"] = _step_times(
+            torch, lambda cand=cand, n_valid=n_valid: _spec_verify_body(
+                model, cand, n_valid, _caches(torch, pages, tables, lens)))
+    log("    one step on 4 lanes, wall ms (median of 5) / device ms: "
+        + "; ".join(f"{n} {w:.3f} / {d:.3f}" for n, (w, d) in times.items()))
+    readings["spec"]["step_wall_device_ms"] = times
+
+    # (c) mesh=: a tp group of one on this card runs the TP code path
+    port = _free_port()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        kw = dict(prefill_chunk=512, speculate_k=4)
+        ref, _, _, _ = _engine_run(torch, model, rep, 16, **kw)
+        with _path_run(counters, launches):
+            got, _, _, _ = _engine_run(torch, model, rep, 16,
+                                       mesh=dist.group.WORLD, **kw)
+    finally:
+        dist.destroy_process_group()
+    log(f"  (c) mesh= (a gloo group of one) with prefill_chunk=512 and "
+        f"speculate_k=4: the same tokens as without it: {got == ref}")
+    if got != ref:
+        raise AssertionError("the mesh= engine's tokens differ")
+    # tp=2: each rank's shards and kv heads, its partials summed, against
+    # the unsharded _decode_body (the kernels and the plain versions)
+    shards = [shard_params(model, cfg, tp_rank=r, tp=2) for r in range(2)]
+    got = _tp_decode(torch, model, shards, toks, live, pages, tables, lens)
+    want, _ = _decode_body(model, toks, live,
+                           _caches(torch, pages, tables, lens))
+    plain_tp = _tp_decode(torch, model, shards, toks, live, pages, tables,
+                          lens, backend="plain")
+    errs = (_rel_err(got, want), _rel_err(got, plain_tp))
+    log(f"    tp=2 decode step in one process (16/4 heads a rank): the "
+        f"ranks' partials summed vs the unsharded _decode_body "
+        f"{errs[0]:.2e}, vs the same ranks on the plain versions "
+        f"{errs[1]:.2e} of max|logit| (tol {LOGITS_REL_TOL}); argmax equal "
+        f"{(got.argmax(-1) == want.argmax(-1)).tolist()}")
+    if max(errs) > LOGITS_REL_TOL or not torch.isfinite(got).all():
+        raise AssertionError("the tp=2 decode partials disagree")
+    del shards, pages, model
+    torch.cuda.empty_cache()
+    log(f"  launches on the serving_options path (the engine runs with "
+        f"the options): {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the serving options never ran: "
+                             f"{launches}")
+    return launches, readings
+
+
+def _free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _adapter_plain_check(torch, what, out, grads, inputs, cu, ref_o,
+                         ref_lse, tail=512):
+    """Hold the adapter's out (T, Hq, D) and (dq, dk, dv) on a packing
+    against the plain versions on the card, as phase 15 does: out and dq
+    on the last ``tail`` rows (plain forward and backward over all keys),
+    dk and dv of the first ``tail`` keys over every q row (with the lse and
+    delta of ``flash_attn_varlen_func``'s result ``ref_o``, ``ref_lse``).
+    The mask is the packing's own: causal by index, equal segment ids."""
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (naive_block_bwd,
+                                                     naive_block_fwd)
+    from ring_flash_attn_tpu_torch.ops.varlen import cu_seqlens_to_segids
+
+    def heads(x):  # (T, H, D) -> (1, H, T, D)
+        return x.transpose(0, 1)[None]
+
+    q, k, v, dout = (heads(x) for x in inputs)
+    total, scale = q.shape[2], q.shape[3]**-0.5
+    seg = cu_seqlens_to_segids(cu, total, q.device)
+    rows = MaskArgs(causal=True, offset=total - tail, q_segids=seg[-tail:],
+                    kv_segids=seg)
+    p_out, p_lse = naive_block_fwd(q[:, :, -tail:], k, v, scale, rows)
+    p_dq = naive_block_bwd(dout[:, :, -tail:], q[:, :, -tail:], k, v, p_lse,
+                           compute_delta(dout[:, :, -tail:], p_out), scale,
+                           rows)[0]
+    keys = MaskArgs(causal=True, q_segids=seg, kv_segids=seg[:tail])
+    _, p_dk, p_dv = naive_block_bwd(dout, q, k[:, :, :tail], v[:, :, :tail],
+                                    ref_lse[None],
+                                    compute_delta(dout, heads(ref_o)), scale,
+                                    keys)
+    got = heads(out)[:, :, -tail:]
+    errs = (max_err(got, p_out), rel_err_rows(got, p_out),
+            _rel_err(heads(grads[0])[:, :, -tail:], p_dq),
+            _rel_err(heads(grads[1])[:, :, :tail], p_dk),
+            _rel_err(heads(grads[2])[:, :, :tail], p_dv))
+    log(f"    {what} vs plain: out of the last {tail} rows |err| "
+        f"{errs[0]:.2e} (tol {B1_OUT_TOL}), of max|plain| by rows "
+        f"{errs[1]:.2e} (tol {RING_OUT_REL_TOL}); dq of the last {tail} "
+        f"rows {errs[2]:.2e}, dk and dv of the first {tail} keys "
+        f"{errs[3]:.2e} {errs[4]:.2e} (tol {BWD_REL_TOL})")
+    if (errs[0] > B1_OUT_TOL or errs[1] > RING_OUT_REL_TOL
+            or max(errs[2:]) > BWD_REL_TOL):
+        raise AssertionError(f"{what}: the adapter disagrees with the plain "
+                             f"versions")
+
+
+def phase_adapter(torch):
+    """Phase 20: ``ring_attention_forward`` at Llama-3-8B attention widths
+    on the reference's packings. Returns (the launches of the adapter
+    path, each W=4 rank's forward and backward ms)."""
+    from ring_flash_attn_tpu_torch import api
+    from ring_flash_attn_tpu_torch.adapters import adapter
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.varlen import cu_seqlens_to_positions
+    from ring_flash_attn_tpu_torch.parallel import llama3
+
+    log("== phase 20: the HF adapter's ring_attention_forward, 32/8 heads "
+        "of 128, on the reference's packings")
+    # the path's launches: ring_attention_forward's runs at W=1, forward
+    # and backward, each counted from 0; the references and the W=4 ranks
+    # (llama3's rank functions, called here directly) are not counted
+    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda,
+                "B3a flash_bwd_dq": flash_bwd_dq_cuda,
+                "B3b flash_bwd_dkv": flash_bwd_dkv_cuda}
+    launches = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    hq, hkv, d, world, t = 32, 8, 128, 4, 8192
+    total, scale = world * t, d**-0.5
+
+    def rnd(h):
+        return torch.randn((total, h, d), generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    q, k, v, dout = rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
+    packings = [[0, 8192, 16384, 24576, 32768]] + [
+        [4 * x for x in cu] for cu in VARLEN_PACKINGS[1:]]
+    times = {}
+    kv_all = torch.stack([k.transpose(0, 1)[None],
+                          v.transpose(0, 1)[None]]).contiguous()
+    for n, cu in enumerate(packings):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        ref_o, ref_lse, _ = api.flash_attn_varlen_func(
+            *leaves, torch.tensor(cu, device=dev), causal=True,
+            return_attn_probs=True)
+        ref_g = torch.autograd.grad(ref_o, leaves, dout)
+        pos = cu_seqlens_to_positions(cu, total, dev)[None]
+        # (a) the entry point itself at W=1 (a world of one): position_ids,
+        # then DATA_PARAMS, forward and backward
+        for path in ("position_ids", "DATA_PARAMS"):
+            adapter.DATA_PARAMS.clear()
+            kw = {"position_ids": pos}
+            if path == "DATA_PARAMS":
+                adapter.update_ring_flash_attn_params(cu)
+                kw = {}
+            leaves = [x.detach()[None].requires_grad_() for x in (q, k, v)]
+            with _path_run(counters, launches):
+                o = adapter.ring_attention_forward(*leaves, causal=True,
+                                                   **kw)
+                g = torch.autograd.grad(o, leaves, dout[None])
+            o = o.detach()
+            errs = (_rel_err(o[0].float(), ref_o.float()),
+                    rel_err_rows(o[0].transpose(0, 1), ref_o.transpose(0, 1)))
+            log(f"    {cu} W=1 through {path}: out {errs[0]:.2e} of "
+                f"max|ref|, by rows {errs[1]:.2e}")
+            if max(errs) > RING_OUT_REL_TOL:
+                raise AssertionError(f"ring_attention_forward {path} {cu}")
+            _grads_check(f"{cu} W=1 {path} backward", [x[0] for x in g],
+                         ref_g)
+            _adapter_plain_check(torch, f"{cu} W=1 {path}", o[0],
+                                 [x[0] for x in g], (q, k, v, dout), cu,
+                                 ref_o, ref_lse)
+            del o, g, leaves
+        # (b) W=4: each rank's labels from its position_ids and from
+        # DATA_PARAMS, then llama3's rank functions on the gathered kv
+        adapter.update_ring_flash_attn_params(cu)
+        labels = []
+        for r in range(world):
+            a = adapter.segment_labels(t, r, position_ids=pos[:, r * t:(r + 1)
+                                                              * t],
+                                       device=dev)
+            b = adapter.segment_labels(t, r, device=dev)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{cu} rank {r}: the position_ids and "
+                                     f"DATA_PARAMS labels differ")
+            labels.append(a)
+        adapter.DATA_PARAMS.clear()
+        dkv = torch.zeros((2, 1, hkv, total, d), dtype=torch.float32,
+                          device=dev)
+        fwd_ms, bwd_ms = [], []
+        for r in range(world):
+            mask = MaskArgs(causal=True, offset=r * t, q_segids=labels[r],
+                            kv_segids=torch.cat(labels))
+            rows = slice(r * t, (r + 1) * t)
+            qr, dr = (x[rows].transpose(0, 1)[None] for x in (q, dout))
+
+            def fwd(qr=qr, mask=mask):
+                return llama3._rank_fwd(qr, lambda i: kv_all, hkv, scale,
+                                        mask, hkv, None)
+
+            def bwd(o, lse_r, qr=qr, dr=dr, mask=mask):
+                return list(llama3._rank_bwd(qr, o, lse_r, dr,
+                                             lambda i: kv_all, hkv, scale,
+                                             mask, hkv, None))
+
+            o, lse_r = fwd()
+            (dq, dk_g, dv_g), = bwd(o, lse_r)
+            dkv[0].add_(dk_g)
+            dkv[1].add_(dv_g)
+            _varlen_check(f"{cu} W=4 rank {r}", (o, lse_r),
+                          (ref_o[rows].transpose(0, 1)[None],
+                           ref_lse[:, rows][None]), B1_OUT_TOL, RING_LSE_TOL)
+            rq = _rel_err(dq.float(), ref_g[0][rows].transpose(0, 1)[None])
+            if rq > BWD_REL_TOL:
+                raise AssertionError(f"{cu} W=4 rank {r}: dq {rq:.2e}")
+            if n in (0, len(packings) - 1):
+                fwd_ms.append(_events_ms(torch, fwd, 5))
+                bwd_ms.append(_events_ms(torch, lambda: bwd(o, lse_r), 3))
+        rel = [_rel_err(dkv[i], ref_g[1 + i].transpose(0, 1)[None].float())
+               for i in (0, 1)]
+        log(f"    {cu} W=4: dk, dv summed over the ranks {rel[0]:.2e}, "
+            f"{rel[1]:.2e} of max|ref| (tol {BWD_REL_TOL})"
+            + (f"; per rank forward " + " ".join(f"{x:.3f}" for x in fwd_ms)
+               + " ms, backward " + " ".join(f"{x:.3f}" for x in bwd_ms)
+               + " ms" if fwd_ms else ""))
+        if max(rel) > BWD_REL_TOL:
+            raise AssertionError(f"{cu} W=4: dk, dv {rel}")
+        if fwd_ms:
+            times[str(cu)] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+        del dkv, ref_o, ref_g
+        torch.cuda.empty_cache()
+    log(f"  launches on the adapter path (ring_attention_forward at W=1, "
+        f"forward and backward): {launches}")
+    if min(launches["B1 flash_fwd"], launches["B2 flash_bwd"]) <= 0:
+        raise AssertionError(f"a kernel of the adapter path never ran: "
+                             f"{launches}")
+    return launches, times
+
+
+def phase_pipeline(torch):
+    """Phase 21: ``train_step_pp`` with one stage (no pp group) and 2
+    microbatches at phase 6's widths against ``train_step`` on the same
+    batch. Returns (the launches of the pipeline path, its readings)."""
+    from ring_flash_attn_tpu_torch.models import (
+        ModelConfig, init_params, loss_fn, loss_fn_pp, stack_layers,
+        train_step, train_step_pp)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+
+    log("== phase 21: the GPipe pipeline, one stage, 2 microbatches, at "
+        "Llama-3-8B widths, 4 layers")
+    cfg = ModelConfig(**FULL_WIDTH)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    stage = stack_layers(model, cfg)
+    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda}
+    s, m = 4096, 2
+    toks = torch.as_tensor(np.random.default_rng(21).integers(
+        0, cfg.vocab, size=(m, s)), device="cuda").long()
+    labels = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], -100)],
+                       dim=1)
+    pos = torch.arange(s, device="cuda")
+    names = [n for n, _ in stage.named_parameters()]
+    lp = loss_fn_pp(stage, toks, labels, pos, False, m)
+    gp = torch.autograd.grad(lp, list(stage.parameters()))
+    lr_ = loss_fn(model, toks, labels, pos)
+    gr = torch.autograd.grad(lr_, list(model.parameters()))
+    with torch.no_grad():  # attention's plain versions on the card
+        l_plain = float(loss_fn(model, toks, labels, pos, backend="plain"))
+    errs = _grad_errs(names, gp, gr)
+    gmax = [float(g.abs().max()) for g in gr]
+    lp, lr_ = float(lp.detach()), float(lr_.detach())
+    log(f"  loss_fn_pp {lp:.6f} vs loss_fn {lr_:.6f}, vs loss_fn on the "
+        f"plain versions {l_plain:.6f} (tol {LOSS_TOL}); gradients "
+        f"||pp - ref|| / ||ref||, worst 3 of {len(errs)}: "
+        + ", ".join(f"{n} {e:.2e}" for e, n in errs[:3])
+        + f" (tol {GRAD_REL_TOL})")
+    if (max(abs(lp - lr_), abs(lp - l_plain)) > LOSS_TOL
+            or errs[0][0] > GRAD_REL_TOL):
+        raise AssertionError("the pipeline's loss or gradients disagree")
+    del gp, gr, lp, lr_
+    torch.cuda.empty_cache()
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = fn(*args)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        return loss, time.perf_counter() - t0
+
+    lr = 1e-3
+    launches = {}
+    with _path_run(counters, launches):
+        loss_pp, _ = timed(train_step_pp, stage, toks, labels, pos, False, m,
+                           lr)
+    loss_ref, _ = timed(train_step, model, toks, labels, pos, lr)
+    # the updated bf16 weights: each within one or two ulps (2^-7 of the
+    # weight) plus lr times GRAD_REL_TOL of the parameter's largest
+    # gradient (the gradients' own limit, which a weight near 0 shows
+    # whole) of train_step's
+    off = [float(((a.float() - b.float()).abs() - b.float().abs() * 2**-7
+                  - lr * GRAD_REL_TOL * g).clamp_min(0).max())
+           for a, b, g in zip(stage.parameters(), model.parameters(), gmax)]
+    differ = sum(int((a != b).sum()) for a, b in zip(stage.parameters(),
+                                                     model.parameters()))
+    log(f"  one step: train_step_pp loss {loss_pp:.6f}, train_step "
+        f"{loss_ref:.6f}; updated weights: {differ} of "
+        f"{sum(p.numel() for p in model.parameters())} differ, all within "
+        f"2^-7 of the weight + lr * {GRAD_REL_TOL} * max|g|: "
+        f"{max(off) == 0.0}; launches {launches}")
+    if (abs(loss_pp - loss_ref) > LOSS_TOL or max(off) > 0.0
+            or not np.isfinite(loss_pp)):
+        raise AssertionError("train_step_pp disagrees with train_step")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the pipeline never ran: "
+                             f"{launches}")
+    # a second and a third step each, timed in turns
+    dt_pp = timed(train_step_pp, stage, toks, labels, pos, False, m, lr)[1]
+    dt_ref = timed(train_step, model, toks, labels, pos, lr)[1]
+    dt_pp2 = timed(train_step_pp, stage, toks, labels, pos, False, m, lr)[1]
+    dt_ref2 = timed(train_step, model, toks, labels, pos, lr)[1]
+    log(f"  a step of 2 x 4096 tokens (second and third, in turns): "
+        f"train_step_pp {dt_pp:.4f}, {dt_pp2:.4f} s; train_step "
+        f"{dt_ref:.4f}, {dt_ref2:.4f} s")
+    del model, stage
+    torch.cuda.empty_cache()
+    return launches, {"step_s": [dt_pp, dt_pp2],
+                      "train_step_s": [dt_ref, dt_ref2]}
+
+
 def main():
     import torch
 
@@ -5264,6 +6037,13 @@ def main():
     band_entries, band_paths, band_times = run(
         "windows and dropout", phase_band, torch, flush)
     del flush
+    torch.cuda.empty_cache()
+    serving_options, serving_readings = run(
+        "serving options", phase_serving_options, torch)
+    torch.cuda.empty_cache()
+    adapter_paths, adapter_times = run("adapter", phase_adapter, torch)
+    torch.cuda.empty_cache()
+    pipeline, pipeline_readings = run("pipeline", phase_pipeline, torch)
     next(k for k in kernels if k["name"].startswith("B7"))[
         "w4_causal_forward_ms"] = ring_compare
     b1 = next(k for k in kernels if k["name"].startswith("B1"))
@@ -5272,6 +6052,11 @@ def main():
     b1["w4_per_rank_varlen_ms"] = varlen_times
     b1.update(xform_times)
     b1.update(band_times)
+    b1["chunked_prefill_first_token_s"] = serving_readings["first_token_s"]
+    b1["adapter_w4_per_rank_ms"] = adapter_times
+    b1["pipeline_step_s"] = pipeline_readings
+    next(k for k in kernels if k["name"].startswith("B5"))[
+        "speculative_verify"] = serving_readings["spec"]
     for k in xform_entries + band_entries:
         # the XFORM and BAND instantiations' counts come from phase 17's
         # and phase 18's paths
@@ -5292,7 +6077,8 @@ def main():
         # four), the op-level quantized paged path for B6, the ring entry
         # points for B7/B8; the stripe and Ulysses entry points for B1,
         # B2 and B3a/B3b too; the MoE steps, the TP simulation and
-        # train_step over llama3 for B1 and B2
+        # train_step over llama3 for B1 and B2; the serving options for B1
+        # and B5, the adapter for B1 to B3b, the pipeline for B1 and B2
         paths = {p: c[k["name"]] for p, c in (
             ("serving", serving), ("training", training),
             ("generate", inference), ("paged_quant", paged_quant),
@@ -5300,7 +6086,9 @@ def main():
             ("llama3", llama3), ("varlen", varlen),
             ("xform", xform_paths["xform"]),
             ("zigzag_varlen", xform_paths["zigzag_varlen"]),
-            ("band", band_paths["band"]))
+            ("band", band_paths["band"]),
+            ("serving_options", serving_options), ("adapter", adapter_paths),
+            ("pipeline", pipeline))
             if k["name"] in c}
         k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths

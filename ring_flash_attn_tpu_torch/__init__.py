@@ -13,8 +13,11 @@ zigzag, fused-ring, stripe, Ulysses and USP schedules of ``parallel``, the
 registry of ``adapters`` and ``train_step`` with a sequence group and a
 Ulysses group) and packed (varlen) sequences (``flash_attn_varlen_func``,
 ``ring_flash_attn_varlen_func``, ``zigzag_ring_flash_attn_varlen_func``,
-``llama3_flash_attn_varlen_func``), softcap and ALiBi on all of them, with
-nine kernels written by hand in CUDA C++ for
+``llama3_flash_attn_varlen_func``), softcap, ALiBi, sliding windows and
+dropout on all of them, the serving engine's options (chunked prefill,
+speculative decoding, tensor-parallel serving), the HF transformers adapter
+(``substitute_hf_flash_attn``) and the GPipe pipeline
+(``models.train_step_pp``), with nine kernels written by hand in CUDA C++ for
 ``sm_90a`` (``csrc/``): the flash forward (B1), bf16 paged decode (B5), the fused
 flash backward (B2), the split backward (B3a dq, B3b dk/dv), decode over
 an int8/fp8 cache, contiguous (B4) or paged (B6), and the fused ring's
@@ -26,10 +29,16 @@ JAX nor the JAX package.
 __version__ = "0.1.0"
 
 from .adapters import (  # noqa: F401
+    DATA_PARAMS,
     RingAttentionLayer,
+    current_ring_params,
     get_attention,
     list_attention,
     register_attention,
+    ring_attention_forward,
+    substitute_hf_flash_attn,
+    update_ring_flash_attn_params,
+    use_ring_attn,
 )
 from .api import (  # noqa: F401
     flash_attn_func,
@@ -124,10 +133,16 @@ __all__ = [
     "zigzag_ring_flash_attn_varlen_func",
     "zigzag_ring_flash_attn_varlen_kvpacked_func",
     "zigzag_ring_flash_attn_varlen_qkvpacked_func",
+    "DATA_PARAMS",
     "RingAttentionLayer",
+    "current_ring_params",
     "get_attention",
     "list_attention",
     "register_attention",
+    "ring_attention_forward",
+    "substitute_hf_flash_attn",
+    "update_ring_flash_attn_params",
+    "use_ring_attn",
     "fused_ring_attention",
     "ring_attention",
     "ring_attention_varlen",

@@ -12,6 +12,13 @@ from .transformer import (
 from .moe import MoELayer, init_moe_layer, moe_mlp
 from .generate import decode_step, generate, prefill
 from .serve import SamplingParams, ServingEngine
+from .pipeline import (
+    forward_pp,
+    loss_fn_pp,
+    pipeline_specs,
+    stack_layers,
+    train_step_pp,
+)
 
 __all__ = [
     "ModelConfig",
@@ -31,4 +38,9 @@ __all__ = [
     "decode_step",
     "generate",
     "prefill",
+    "forward_pp",
+    "loss_fn_pp",
+    "pipeline_specs",
+    "stack_layers",
+    "train_step_pp",
 ]

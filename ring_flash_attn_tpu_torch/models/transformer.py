@@ -211,11 +211,14 @@ def _check_tp_heads(cfg, layer, tp_group):
 
 
 def _attn_branch(cfg, x, layer, positions, backend=None, sp_group=False,
-                 ulysses_group=False, tp_group=False):
+                 ulysses_group=False, tp_group=False, attend=None):
     """The attention branch's output (B, S, D); with ``tp_group`` over
     this rank's heads (its shards of wq/wk/wv by columns, wo by rows), the
     partial products of wo summed over the group. With a shard and no
-    group it is the rank's partial product."""
+    group it is the rank's partial product. ``attend(q, k, v)``, given,
+    takes the config's schedule's place (the serving engine's attention
+    over its pages): q (B, Hq, S, hd), k and v (B, Hkv, S, hd) after
+    rotary -> out (B, Hq, S, hd), cast to x's dtype."""
     b, s, _ = x.shape
     if tp_group is not False:
         _check_tp_heads(cfg, layer, tp_group)
@@ -223,7 +226,10 @@ def _attn_branch(cfg, x, layer, positions, backend=None, sp_group=False,
     q, k, v = _proj_qkv(cfg, layer, xn, b, s)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    out = _attend(cfg, q, k, v, backend, sp_group, ulysses_group)
+    if attend is None:
+        out = _attend(cfg, q, k, v, backend, sp_group, ulysses_group)
+    else:
+        out = attend(q, k, v).to(x.dtype)
     proj = out.transpose(1, 2).reshape(b, s, -1) @ layer.wo
     if tp_group is not False:
         # the cotangent is not summed again: _tp_copy at the input does it
@@ -441,10 +447,7 @@ def shard_params(src, cfg: ModelConfig, tp_rank=0, tp=1, ep_rank=0, ep=1,
     (d_in, d_out) orientation)."""
     device = resolve_device(device)
     model = Transformer(cfg, device, tp, ep)
-    if isinstance(src, nn.Module):
-        whole = dict(src.named_parameters())
-    else:
-        whole = {n: _to_torch(a) for n, a in _jax_leaves(src, cfg).items()}
+    whole = whole_params(src, cfg)
     ranks = {"tp": (tp_rank, tp), "ep": (ep_rank, ep)}
     specs = param_specs(cfg)
     params = dict(model.named_parameters())
@@ -463,6 +466,15 @@ def shard_params(src, cfg: ModelConfig, tp_rank=0, tp=1, ep_rank=0, ep=1,
                                  f"{tuple(p.shape)}")
             p.copy_(t)
     return model
+
+
+def whole_params(src, cfg: ModelConfig):
+    """{parameter name: tensor} of ``src``: a whole Transformer, or the JAX
+    package's parameter tree with numpy leaves (copied as they are: both
+    packages use the (d_in, d_out) orientation)."""
+    if isinstance(src, nn.Module):
+        return dict(src.named_parameters())
+    return {n: _to_torch(a) for n, a in _jax_leaves(src, cfg).items()}
 
 
 def _to_torch(a):

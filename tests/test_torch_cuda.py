@@ -1066,3 +1066,69 @@ def test_cuda_band_keep_mask_is_the_plain_one_bitwise():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     failed = [what for what, ok in band_keep_checks(torch) if not ok]
     assert not failed, failed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [4, 9, 16])
+def test_cuda_verify_row_groups_match_plain(tq):
+    """The speculative verify's B5 at G = 4 (32/8 heads): Tq rows with
+    new_counts, one launch per group of 4 rows past 16 rows a kv head,
+    against the plain version over all rows at once (a dead lane, lanes
+    whose counts end before, inside and after a group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(tq)
+    b, pps, ps = 4, 8, 64
+    pages = [torch.randn((b * pps, 8, ps, 128), generator=g,
+                         device=dev).to(torch.bfloat16) for _ in range(2)]
+    tables = torch.randperm(b * pps, generator=g, device=dev).reshape(
+        b, pps).to(torch.int32)
+    cache = tpaged.PagedKVCache(pages[0], pages[1], tables, torch.tensor(
+        [300, 0, 512, 45], dtype=torch.int32, device=dev))
+    counts = torch.tensor([tq, 0, max(1, tq // 2), min(tq, 5)],
+                          dtype=torch.int32, device=dev)
+    q = torch.randn((b, 32, tq, 128), generator=g,
+                    device=dev).to(torch.bfloat16)
+    before = paged_decode_cuda.launches
+    out, lse = tpaged.paged_decode_attention(q, cache, 0.088,
+                                             new_counts=counts)
+    assert paged_decode_cuda.launches - before == -(-tq // 4)
+    ref_out, ref_lse = tpaged._plain_paged_decode(q, cache, 0.088, None,
+                                                  counts)
+    assert float((out - ref_out).abs().max()) <= B5_TOL
+    assert float((lse - ref_lse).abs().max()) <= B5_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,p_len", [(320, 1280), (192, 3840), (512, 0)])
+def test_cuda_chunk_b1_skips_tiles_past_the_chunk(c, p_len):
+    """A chunked prefill's B1: C rows (not always a multiple of the
+    128-row q tile) causal at offset p_len over 4096 gathered keys,
+    against the plain version, and bit for bit itself with the keys and
+    values past the chunk's last kv tile set to NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import (KV_TILE,
+                                                              flash_fwd_cuda)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(c)
+    q = torch.randn((1, 32, c, 128), generator=g,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, 8, 4096, 128), generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    mask = MaskArgs(causal=True, offset=p_len)
+    out, lse = flash_fwd_cuda(q, k, v, 128**-0.5, mask)
+    ref_out, ref_lse = naive_block_fwd(q, k, v, 128**-0.5, mask)
+    assert float((out - ref_out).abs().max()) <= B1_OUT_TOL
+    assert rel_err_rows(out, ref_out) <= RING_OUT_REL_TOL
+    assert float((lse - ref_lse).abs().max()) <= B1_LSE_TOL
+    end = -(-(p_len + c) // KV_TILE) * KV_TILE
+    k[:, :, end:] = float("nan")
+    v[:, :, end:] = float("nan")
+    out2, lse2 = flash_fwd_cuda(q, k, v, 128**-0.5, mask)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)

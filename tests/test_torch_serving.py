@@ -183,7 +183,3 @@ def test_serving_engine_needs_cuda_unless_told_cpu(models):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(tmodel, num_pages=8, page_size=8, pages_per_seq=2,
                       max_batch=1)
-    for kw in ({"prefill_chunk": 8}, {"speculate_k": 4}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(tmodel, num_pages=8, page_size=8, pages_per_seq=2,
-                          max_batch=1, device="cpu", **kw)

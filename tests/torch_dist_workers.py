@@ -22,8 +22,11 @@ import torch.multiprocessing as mp
 
 from ring_flash_attn_tpu_torch import RingAttentionLayer, api
 from ring_flash_attn_tpu_torch.models import (
-    ModelConfig, MoELayer, decode_step, generate, moe_mlp, params_from_jax,
-    prefill, shard_params, train_step)
+    ModelConfig, MoELayer, ServingEngine, decode_step, forward_pp, generate,
+    moe_mlp, params_from_jax, prefill, shard_params, stack_layers,
+    train_step, train_step_pp)
+from ring_flash_attn_tpu_torch.models.serve import _decode_body
+from ring_flash_attn_tpu_torch.ops.paged import PagedKVCache
 from ring_flash_attn_tpu_torch.ops.quant import (
     as_bytes, make_cache, quantized_kv_from_jax)
 from ring_flash_attn_tpu_torch.parallel import (
@@ -660,13 +663,138 @@ def task_zigzag_varlen(rank, world, p):
     return out
 
 
+def task_serve_tp(rank, world, p):
+    """Tensor-parallel serving over a tp group of all ranks:
+    ``_decode_body(tp_group=)`` on rank's shards of the weights and of the
+    caches' kv heads, fed ``p["decode"]["feed"]`` step by step (its logits
+    and final caches); with ``p["engines"]`` ({name: (engine keywords,
+    requests)}) the ``ServingEngine(mesh=)`` outputs of each."""
+    group = dist.group.WORLD
+    cfg = ModelConfig(**p["cfg"])
+    d = p["decode"]
+    model = shard_params(p["params"], cfg, tp_rank=rank, tp=world,
+                         device="cpu")
+    caches = [PagedKVCache(torch.from_numpy(_shard(k, rank, world, 1)),
+                           torch.from_numpy(_shard(v, rank, world, 1)),
+                           torch.from_numpy(bt), torch.from_numpy(lens))
+              for k, v, bt, lens in d["caches"]]
+    live = torch.from_numpy(d["live"])
+    out = {}
+    for step, toks in enumerate(d["feed"]):
+        logits, caches = _decode_body(model, torch.from_numpy(toks).long(),
+                                      live, caches, tp_group=group)
+        out[f"decode/logits{step}"] = _np(logits)
+    for i, c in enumerate(caches):
+        out[f"decode/k{i}"], out[f"decode/v{i}"] = _np(c.k_pages), _np(
+            c.v_pages)
+        out[f"decode/lens{i}"] = _np(c.seq_lens)
+    whole = params_from_jax(p["params"], cfg, device="cpu")
+    for name, (kw, requests) in p.get("engines", {}).items():
+        eng = ServingEngine(whole, mesh=group, device="cpu", **kw)
+        for rid, prompt, n, prefix_of in requests:
+            eng.submit(rid, prompt, n, prefix_of=prefix_of)
+        for rid, toks in eng.run(max_steps=120).items():
+            out[f"engine/{name}/{rid}"] = np.asarray(toks)
+    return out
+
+
+def _hf_model(case):
+    """A torch transformers causal LM of ``case["family"]`` from its config
+    dict and numpy state dict, float32, in eval mode."""
+    import os
+
+    os.environ.setdefault("USE_TF", "0")  # transformers' import, faster
+    import transformers
+
+    family = case["family"]
+    cfg = getattr(transformers, f"{family}Config").from_dict(case["config"])
+    model = getattr(transformers, f"{family}ForCausalLM")(cfg).float()
+    model.load_state_dict({n: torch.from_numpy(a)
+                           for n, a in case["state"].items()})
+    return model.eval()
+
+
+def task_hf(rank, world, p):
+    """The HF adapter over a group of all ranks, each on its contiguous
+    shard of the tokens: with ``p["models"]`` ({name: case}) the patched
+    model's logits on the shard with its global position_ids; with
+    ``p["forward"]`` ({name: (q, k, v, dout, keywords)}) the out of
+    ``ring_attention_forward`` and the gradients of q, k and v; a keyword
+    "cu_seqlens" is given to ``update_ring_flash_attn_params`` first, and
+    "global_segids": True passes ``current_ring_params()``'s labels."""
+    from ring_flash_attn_tpu_torch import adapters
+
+    out = {}
+    if "models" in p:
+        adapters.substitute_hf_flash_attn()
+    for name, case in p.get("models", {}).items():
+        model = _hf_model(case)
+        toks = torch.from_numpy(_shard(case["tokens"], rank, world, 1))
+        pos = torch.from_numpy(_shard(case["pos"], rank, world, 1))
+        with torch.no_grad():
+            logits = model(toks.long(), position_ids=pos.long(),
+                           use_cache=False).logits
+        out[f"{name}/logits"] = _np(logits)
+    for name, (q, k, v, dout, kw) in p.get("forward", {}).items():
+        kw = dict(kw)
+        if "cu_seqlens" in kw:
+            adapters.update_ring_flash_attn_params(kw.pop("cu_seqlens"))
+        if kw.pop("global_segids", False):
+            kw["global_segids"] = adapters.current_ring_params()[
+                "global_segids"]
+        if "position_ids" in kw:
+            kw["position_ids"] = torch.from_numpy(
+                _shard(kw["position_ids"], rank, world, 1))
+        leaves = [torch.from_numpy(_shard(a, rank, world, 1)).requires_grad_()
+                  for a in (q, k, v)]
+        o = adapters.ring_attention_forward(*leaves, causal=True, **kw)
+        grads = torch.autograd.grad(
+            o, leaves, torch.from_numpy(_shard(dout, rank, world, 1)))
+        for key, x in zip(("out", "dq", "dk", "dv"), (o, *grads)):
+            out[f"{name}/{key}"] = _np(x)
+    return out
+
+
+def task_pipeline(rank, world, p):
+    """The GPipe pipeline on a (pp, sp) grid of ``p["sp"]`` sequence ranks,
+    sp minor, as JAX's ``Mesh(devices.reshape(pp, sp), ("pp", "sp"))``
+    numbers it (sp 1: no sequence group): rank's stage of the layers
+    (``stack_layers``) and its sequence chunk of the zigzag batch;
+    ``forward_pp``'s logits (on the last stage), then one
+    ``train_step_pp``'s loss and the stage's updated parameters."""
+    sp = p["sp"]
+    if sp == 1:
+        pp_group, sp_group = dist.group.WORLD, False
+    else:
+        pp_group, sp_group = _grid_groups(rank, world, sp)
+    stage, sp_rank = rank // sp, rank % sp
+    cfg = ModelConfig(**p["cfg"])
+    model = stack_layers(p["params"], cfg, pp_rank=stage, pp=world // sp,
+                         device="cpu")
+    toks, labs = (_zz_local(a, sp_rank, sp)
+                  for a in (p["tokens"], p["labels"]))
+    pos = torch.from_numpy(_shard(p["pos"], sp_rank, sp, 0))
+    out = {}
+    with torch.no_grad():
+        logits = forward_pp(model, toks, pos, pp_group, p["m"],
+                            sp_group=sp_group)
+    if logits is not None:
+        out["logits"] = _np(logits)
+    _, loss = train_step_pp(model, toks, labs, pos, pp_group, p["m"],
+                            lr=p["lr"], sp_group=sp_group)
+    out["loss"] = _np(loss)
+    out.update({n: _np(x) for n, x in model.named_parameters()})
+    return out
+
+
 TASKS = {"collectives": task_collectives, "decode": task_decode,
          "llama3": task_llama3, "generate": task_generate,
          "schedules": task_schedules, "api": task_api, "train": task_train,
          "cp": task_cp, "ulysses_heads": task_ulysses_heads,
          "reduce_scatter": task_reduce_scatter, "moe_ep": task_moe_ep,
          "grid": task_grid, "varlen": task_varlen,
-         "zigzag_varlen": task_zigzag_varlen}
+         "zigzag_varlen": task_zigzag_varlen, "serve_tp": task_serve_tp,
+         "hf": task_hf, "pipeline": task_pipeline}
 
 
 def _worker(rank, world, port, task, payload, results):
