@@ -204,6 +204,29 @@ Phases, each of which raises on failure:
    ``train_step`` on the same batch (loss, gradients, the updated
    weights) and its loss against ``loss_fn`` on the plain versions, both
    steps timed.
+22. The utils and the entry points: ``entry()``'s flagship logits against
+   ``backend="plain"`` (on its zero tokens and on random ones); ``dryrun_multichip(1, "cuda")`` (a spawned NCCL
+   process of one, JAX's first configuration in bf16 at head_dim 64, its
+   kernel launches reported back); a checkpoint round trip of the
+   flagship model (the restored tensors bit-identical on the card, the
+   resumed step's loss equal to the uninterrupted one); ``timed`` on B1
+   at q (1,32,8192,128) causal within 10% of the profiler's device time
+   of the same chain (``trace_device_time``; ``cuda_ms``, one call at a
+   time, read beside);
+   ``trace_device_time`` and ``trace_device_busy`` on phase 4's engine's
+   decode step, its busy share beside PERF.md's 22 to 25%.
+23. Head_dim 256 (Gemma): B1, B2, B3a and B3b in their head_dim 256
+   instantiations, mask-free and segmented, against their plain versions
+   at the head_dim 128 phases' limits, at the tile edges of
+   ``D256_EDGE_CASES`` and at Gemma-7B's (16/16 heads) and Gemma-2B's
+   (8/1) attention at S = 8192, causal and on the reference's four
+   packings; timed at Gemma-7B's beside the flop bound (equal to the
+   head_dim 128 table's), the head_dim 128 kernels at equal flops and
+   SDPA at head_dim 256 (timed only); then the gemma path, whose launches
+   are counted: ``flash_attn_func`` (and with ``deterministic=True``) and
+   ``flash_attn_varlen_func`` on the four packings against the plain
+   versions, and phase 20 at Gemma-7B's widths (``ring_attention_forward``
+   at W=1 on 32768 tokens, past B2's limit: B3a and B3b; the W=4 ranks).
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -713,7 +736,9 @@ def log(*a):
 
 def cuda_ms(torch, fn, iters, flush):
     """Mean device time of fn() in ms, CUDA events around each call, with
-    the 50 MB L2 flushed before each so every call reads from HBM."""
+    the 50 MB L2 flushed before each so every call reads from HBM. Not
+    ``utils.timing.timed``: a chain cannot flush the L2 between its calls
+    without timing the flush, so each call is timed alone here."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -730,27 +755,13 @@ def cuda_ms(torch, fn, iters, flush):
 
 
 def _device_profile(torch, fn):
-    """fn() under torch.profiler: [(self device us, kernel name, count)],
-    largest first. fn() runs twice: the first run is the profiler's
-    warm-up cycle, whose records are dropped (tracing starts late and
-    misses the first kernels after it is switched on), the second is
-    recorded."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    """fn() under torch.profiler (``utils.trace_timing.trace_device_events``:
+    a warm-up cycle, whose records are dropped, then the recorded call):
+    [(device us, event name, count)], largest first."""
+    from ring_flash_attn_tpu_torch.utils.trace_timing import (
+        trace_device_events)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        fn()
-        torch.cuda.synchronize()
-    return sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0
-                   and not e.key.startswith("ProfilerStep")), reverse=True)
+    return [(t * 1e6, key, n) for t, key, n in trace_device_events(fn)]
 
 
 def _short(key):
@@ -983,11 +994,12 @@ def check_hgmma(what, lib, piece):
 def profile_loop(tool, loop, piece, timings):
     """The command line of profile_torch_fwd.py, profile_torch_bwd.py and
     profile_torch_decode.py: ``[--root DIR] [--rounds N]``. Imports the
-    package from ``--root``, builds it, logs the card, then ptxas's facts,
-    its wgmma/setmaxnreg notes and the HGMMA count of every kernel whose
-    name holds ``piece`` (a string or a tuple of them) in the libraries of
-    ``loop`` (INSTANTIATIONS names), then runs ``timings(torch, rounds)``.
-    Returns the exit code."""
+    package from ``--root`` (a tree with ``utils/``: ``kernel_ms`` reads
+    the profiler through its ``utils.trace_timing``), builds it, logs the
+    card, then ptxas's facts, its wgmma/setmaxnreg notes and the HGMMA
+    count of every kernel whose name holds ``piece`` (a string or a tuple
+    of them) in the libraries of ``loop`` (INSTANTIATIONS names), then
+    runs ``timings(torch, rounds)``. Returns the exit code."""
     pieces = (piece,) if isinstance(piece, str) else tuple(piece)
     import argparse
 
@@ -2660,18 +2672,16 @@ def _rank_bwd(qs, ks, vs, douts, outs, lses, dkvs, rank, scale, step_mask):
 
 
 def _events_ms(torch, fn, reps):
-    """Mean ms of fn() between CUDA events over ``reps`` calls, after one
-    warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
+    """ms a call of fn(), back to back without flushing the L2:
+    ``utils.timing.timed``'s slope between chains of 1 and 1 + ``reps``
+    calls, between CUDA events."""
+    from ring_flash_attn_tpu_torch.utils.timing import timed
+
+    def step(x):
         fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / reps
+        return x
+
+    return timed(step, torch.empty(1, device="cuda"), n=reps, n0=1) * 1e3
 
 
 def phase_ring_one_device(torch):
@@ -5740,13 +5750,15 @@ def _adapter_plain_check(torch, what, out, grads, inputs, cu, ref_o,
                              f"versions")
 
 
-def phase_adapter(torch):
+def phase_adapter(torch, hq=32, hkv=8, d=128):
     """Phase 20: ``ring_attention_forward`` at Llama-3-8B attention widths
-    on the reference's packings. Returns (the launches of the adapter
-    path, each W=4 rank's forward and backward ms)."""
+    (or, from phase 23, ``hq``/``hkv`` heads of ``d``) on the reference's
+    packings. Returns (the launches of the adapter path, each W=4 rank's
+    forward and backward ms)."""
     from ring_flash_attn_tpu_torch import api
     from ring_flash_attn_tpu_torch.adapters import adapter
-    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import (
+        flash_bwd_cuda, fused_bwd_supported)
     from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
         flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
     from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
@@ -5754,8 +5766,9 @@ def phase_adapter(torch):
     from ring_flash_attn_tpu_torch.ops.varlen import cu_seqlens_to_positions
     from ring_flash_attn_tpu_torch.parallel import llama3
 
-    log("== phase 20: the HF adapter's ring_attention_forward, 32/8 heads "
-        "of 128, on the reference's packings")
+    log(f"== phase {20 if d == 128 else 23}: the HF adapter's "
+        f"ring_attention_forward, {hq}/{hkv} heads of {d}, on the "
+        f"reference's packings")
     # the path's launches: ring_attention_forward's runs at W=1, forward
     # and backward, each counted from 0; the references and the W=4 ranks
     # (llama3's rank functions, called here directly) are not counted
@@ -5765,7 +5778,7 @@ def phase_adapter(torch):
     launches = {}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20)
-    hq, hkv, d, world, t = 32, 8, 128, 4, 8192
+    world, t = 4, 8192
     total, scale = world * t, d**-0.5
 
     def rnd(h):
@@ -5871,7 +5884,11 @@ def phase_adapter(torch):
         torch.cuda.empty_cache()
     log(f"  launches on the adapter path (ring_attention_forward at W=1, "
         f"forward and backward): {launches}")
-    if min(launches["B1 flash_fwd"], launches["B2 flash_bwd"]) <= 0:
+    # the backward of the whole packing: B2, or B3a and B3b past its limit
+    # (head_dim 256: Skv <= 16384)
+    need = ("B2 flash_bwd",) if fused_bwd_supported(total, d) else (
+        "B3a flash_bwd_dq", "B3b flash_bwd_dkv")
+    if min(launches[n] for n in ("B1 flash_fwd",) + need) <= 0:
         raise AssertionError(f"a kernel of the adapter path never ran: "
                              f"{launches}")
     return launches, times
@@ -5967,6 +5984,540 @@ def phase_pipeline(torch):
                       "train_step_s": [dt_ref, dt_ref2]}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the utils and the entry points on the card
+
+UTILS_TIMED_TOL = 0.10  # timed's per-call slope against the profiler's
+# device time of the same chain, relative
+SERVING_BUSY_PERF = (0.22, 0.25)  # PERF.md section 5: PR 8's busy share
+# of the engine's decode step
+
+
+def phase_utils_entry(torch):
+    """Phase 22: ``entry()``, ``dryrun_multichip(1, "cuda")``, a checkpoint
+    round trip of the flagship model, ``utils.timing.timed`` on B1 and
+    ``utils.trace_timing`` on the engine's decode step. Returns (the
+    launches of the entry, dryrun and checkpoint paths, the readings)."""
+    import tempfile
+
+    from ring_flash_attn_tpu_torch.entry import dryrun_multichip, entry
+    from ring_flash_attn_tpu_torch.models import (ModelConfig, ServingEngine,
+                                                  init_params, train_step)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+    from ring_flash_attn_tpu_torch.utils import (abstract_like,
+                                                 restore_checkpoint,
+                                                 save_checkpoint)
+    from ring_flash_attn_tpu_torch.utils.timing import timed
+    from ring_flash_attn_tpu_torch.utils.trace_timing import (
+        trace_device_busy, trace_device_time)
+
+    log("== phase 22: the utils and the entry points on the card")
+    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda,
+                "B3a flash_bwd_dq": flash_bwd_dq_cuda,
+                "B3b flash_bwd_dkv": flash_bwd_dkv_cuda,
+                "B5 paged_decode": paged_decode_cuda}
+    paths = {"entry": {}, "dryrun": {}, "checkpoint": {}}
+    readings = {}
+    dev = torch.device("cuda")
+
+    # (a) entry(): the flagship forward, kernels against backend="plain",
+    # on entry()'s zero tokens (every key's v is the same row: attention
+    # gives it back whatever p is) and on random tokens
+    fn, (model, tokens, positions) = entry()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rand = torch.randint(0, model.cfg.vocab, tokens.shape, generator=gen,
+                         device=dev)
+    rels = []
+    for toks in (tokens, rand):
+        with torch.no_grad():
+            with _path_run(counters, paths["entry"]):
+                logits = fn(model, toks, positions)
+            ref = model(toks, positions, backend="plain")
+        rels.append(_rel_err(logits, ref))
+        if rels[-1] > LOGITS_REL_TOL or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError("entry(): the logits disagree with plain")
+    log(f"  entry(): logits {tuple(logits.shape)}, |kernels - plain| "
+        f"{rels[0]:.2e} of max|plain| on its zero tokens, {rels[1]:.2e} on "
+        f"random ones (tol {LOGITS_REL_TOL}); launches {paths['entry']}")
+    readings["entry_logits_rel_err"] = rels
+
+    # (b) the dry run in one process on this card (NCCL, a group of one):
+    # JAX's first configuration, dp 1 x sp 1, in the kernels' operands
+    t0 = time.perf_counter()
+    values, launches = dryrun_multichip(1, "cuda", return_launches=True)
+    readings["dryrun_s"] = time.perf_counter() - t0
+    readings["dryrun_loss"] = values["zigzag"]
+    paths["dryrun"] = {k: v for k, v in launches.items() if k in counters}
+    log(f"  dryrun_multichip(1, 'cuda'): {values} in "
+        f"{readings['dryrun_s']:.1f} s; the process's launches {launches}")
+    if not np.isfinite(values["zigzag"]) or min(
+            launches["B1 flash_fwd"], launches["B2 flash_bwd"]) <= 0:
+        raise AssertionError("the dry run did not run B1 and B2 on the card")
+
+    # (c) checkpoint round trip of the flagship model: a step, save,
+    # restore into a fresh model, the next step's loss on both
+    toks = torch.randint(0, model.cfg.vocab, (1, 1025), generator=gen,
+                         device=dev)
+    batch = (toks[:, :-1], toks[:, 1:], positions)
+    with _path_run(counters, paths["checkpoint"]):
+        _, loss1 = train_step(model, *batch, lr=1e-2)
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, model.state_dict(), step=1,
+                        metadata={"seed": 22})
+        state, step, meta = restore_checkpoint(d, like=abstract_like(model))
+    same = all(torch.equal(state[n], t) and state[n].device == t.device
+               for n, t in model.state_dict().items())
+    fresh = init_params(model.cfg, torch.Generator().manual_seed(1))
+    fresh.load_state_dict(state)
+    with _path_run(counters, paths["checkpoint"]):
+        _, loss_a = train_step(model, *batch, lr=1e-2)
+        _, loss_b = train_step(fresh, *batch, lr=1e-2)
+    log(f"  checkpoint: step {step}, metadata {meta}, restored tensors "
+        f"bit-identical on the card {same}; the next step's loss "
+        f"uninterrupted {float(loss_a):.6f}, resumed {float(loss_b):.6f} "
+        f"(step 1 {float(loss1):.6f}); launches {paths['checkpoint']}")
+    if not (same and step == 1 and meta == {"seed": 22}
+            and float(loss_a) == float(loss_b)):
+        raise AssertionError("checkpoint: the resumed step differs")
+    readings["checkpoint_losses"] = [float(loss1), float(loss_a),
+                                     float(loss_b)]
+    del model, fresh, state, logits, ref
+    torch.cuda.empty_cache()
+
+    # (d) timed on B1 at the table's shape (no L2 flush), held against a
+    # witness of another mechanism: the profiler's device time of the same
+    # feedback chain (trace_device_time, CUPTI's kernel records, no CUDA
+    # events). cuda_ms, which times one call at a time with the launcher's
+    # host work inside its events, is read beside them
+    q, k, v = (torch.randn((1, h, 8192, 128), generator=gen, device=dev)
+               .to(torch.bfloat16) for h in (32, 8, 8))
+    mask = MaskArgs(causal=True)
+    with _uncounted(counters):
+        def b1(x):
+            return flash_fwd_cuda(x, k, v, 128 ** -0.5, mask,
+                                  out_dtype=torch.bfloat16)[0]
+
+        per_call = timed(b1, q, n=20, n0=3) * 1e3
+        traced_s, traced_by = trace_device_time(b1, q, 20)
+        traced = traced_s * 1e3
+        alone = cuda_ms(torch, lambda: b1(q), 20, torch.empty(1, device=dev))
+    gap = abs(per_call - traced) / traced
+    log(f"  timed(B1) at q (1,32,8192,128) causal: {per_call:.4f} ms a "
+        f"call; the profiler's device time of the same chain {traced:.4f} "
+        f"ms ({100 * gap:.1f}% apart; tol {100 * UTILS_TIMED_TOL:.0f}%; "
+        + ", ".join(f"{_short(n)} {t * 1e3:.4f} ms"
+                    for n, t in traced_by.items())
+        + f"); cuda_ms, a call at a time, {alone:.4f} ms")
+    if gap > UTILS_TIMED_TOL:
+        raise AssertionError("timed disagrees with the profiler's device "
+                             "time")
+    readings["timed_b1_ms"], readings["traced_b1_ms"] = per_call, traced
+    readings["cuda_ms_b1_ms"] = alone
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # (e) trace_device_time / trace_device_busy on the engine's decode step
+    # at phase 4's widths, 4 lanes (profile_torch_serving.py's)
+    cfg = ModelConfig(**FULL_WIDTH)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (3000, 1200, 2600, 300)]
+    n_iters = 8
+    eng = ServingEngine(model, num_pages=64, page_size=256,
+                        pages_per_seq=16, max_batch=4)
+    for rid, p in enumerate(prompts):
+        eng.submit(rid, p, 8 * n_iters)
+    with _uncounted(counters):
+        eng.step()  # the prefill
+        eng.step()
+
+        def decode(x):
+            eng.step()
+            return x
+
+        flag = torch.zeros(1, device=dev)
+        wall = timed(decode, flag, n=n_iters, n0=1)
+        dev_s, by_name = trace_device_time(decode, flag, n_iters)
+        busy_s, _ = trace_device_busy(decode, flag, n_iters)
+    share = busy_s / wall
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  the engine's decode step (4 lanes): wall {wall * 1e3:.3f} ms, "
+        f"device compute {dev_s * 1e3:.3f} ms, busy {busy_s * 1e3:.3f} ms = "
+        f"{100 * share:.1f}% of wall (PERF.md section 5: "
+        f"{100 * SERVING_BUSY_PERF[0]:.0f} to "
+        f"{100 * SERVING_BUSY_PERF[1]:.0f}%)"
+        f"; top " + ", ".join(f"{_short(n)} {t * 1e3:.3f} ms"
+                              for n, t in top))
+    if not (0 < busy_s and dev_s > 0 and share <= 1.0 + 1e-6):
+        raise AssertionError("trace_timing read no device time")
+    readings["decode_step"] = {"wall_ms": wall * 1e3,
+                               "device_ms": dev_s * 1e3,
+                               "busy_ms": busy_s * 1e3, "busy_share": share}
+    del eng, model
+    torch.cuda.empty_cache()
+    return paths, readings
+
+
+# ---------------------------------------------------------------------------
+# phase 23: head_dim 256 (Gemma) in B1, B2, B3a and B3b
+
+# the attention of the published Gemma 1 configurations: transformers'
+# GemmaConfig() is Gemma-7B (16 q and 16 kv heads of 256); Gemma-2B has 8
+# q heads and one kv head of 256
+GEMMA_ATTN = {"Gemma-7B": (16, 16), "Gemma-2B": (8, 1)}
+GEMMA_HEAD_DIM = 256
+# head_dim 256 at its tiles' edges (B1 128 q rows x 64 keys, B3a 64 q rows
+# x 64 keys, B2 and B3b 64 keys a block x 64 q rows a step), held here
+# (phase 23) and in tests/test_torch_cuda.py: (B, Hq, Hkv, Sq, Skv, kind,
+# arg) with kind "mask" (arg: (causal, offset)) or a SEG_EDGE_CASES kind
+# (arg: cu); Sq and Skv at 1, 63 to 65, 127 to 129, 257, dead rows and
+# GQA groups 1 to 8
+D256_EDGE_CASES = [
+    (1, 2, 2, 1, 1, "mask", (True, 0)),
+    (1, 4, 1, 63, 65, "mask", (True, 2)),
+    (1, 8, 1, 129, 127, "mask", (False, None)),
+    (2, 2, 1, 64, 64, "mask", (True, 0)),
+    (1, 4, 2, 200, 300, "mask", (True, 100)),
+    (1, 4, 4, 100, 70, "mask", (True, -5)),
+    (1, 16, 16, 257, 257, "mask", (True, 0)),
+    (1, 4, 2, 127, 127, "pos", [0, 1, 60, 127]),
+    (1, 8, 1, 129, 129, "pos", [0, 64, 65, 129]),
+    (1, 4, 4, 257, 257, "seg", [0, 100, 101, 257]),
+    (2, 4, 2, 130, 130, "shuffled", [0, 130]),
+    (1, 4, 2, 200, 300, "absent", [0, 70, 300]),
+    (1, 8, 2, 129, 257, "idx", [0, 50, 200, 257]),
+]
+
+
+def d256_case_mask(torch, case, dev):
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+
+    _, _, _, sq, skv, kind, arg = case
+    if kind == "mask":
+        return MaskArgs(causal=arg[0], offset=arg[1])
+    return seg_case_mask(torch, kind, sq, skv, arg, dev)
+
+
+def d256_check(torch, what, q, k, v, dout, mask, modes=False):
+    """B1, then B2 and B3a/B3b (``flash_bwd_split_cuda``) at head_dim 256
+    against their plain versions on the same bf16 inputs, at the head_dim
+    128 phases' limits (2, 5, 16): out absolutely and by rows, lse, and the
+    gradients relative to max|plain|. With ``modes`` the backward also
+    runs in the single-call mode (delta=None, bf16 gradients). Returns
+    (max|out| err, out by rows, max rel err of B2, of B3)."""
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.naive import (naive_block_bwd,
+                                                     naive_block_fwd)
+
+    bf16 = torch.bfloat16
+    scale = q.shape[-1] ** -0.5
+    out, lse = flash_fwd_cuda(q, k, v, scale, mask, out_dtype=bf16)
+    errs = _varlen_check(f"{what} B1", (out, lse),
+                         naive_block_fwd(q, k, v, scale, mask), B1_OUT_TOL,
+                         B1_LSE_TOL)
+    delta = compute_delta(dout, out)
+    ref = naive_block_bwd(dout, q, k, v, lse, delta, scale, mask)
+    one_key = q.shape[2] == k.shape[2] == 1  # dq, dk vanish; dv holds
+    worst = []
+    for name, bwd in (("B2", flash_bwd_cuda), ("B3", flash_bwd_split_cuda)):
+        runs = [(f"{name}", delta, {})]
+        if modes:
+            runs.append((f"{name} delta=None bf16", None,
+                         dict(out=out, dq_dtype=bf16, dkv_dtype=bf16)))
+        w = 0.0
+        for label, d_arg, kw in runs:
+            got = bwd(dout, q, k, v, lse, d_arg, scale, mask, **kw)
+            if one_key:
+                rel = _rel_err(got[2].float(), ref[2])
+                if rel > BWD_REL_TOL:
+                    raise AssertionError(f"{what} {label}: dv {rel}")
+                w = max(w, rel)
+                continue
+            w = max(w, _grads_check(f"{what} {label}", got, ref))
+            del got
+        worst.append(w)
+    return errs[0], errs[1], worst[0], worst[1]
+
+
+def d256_case_check(torch, case, seed=0):
+    """One ``D256_EDGE_CASES`` case through ``d256_check``, both modes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, hq, hkv, sq, skv = case[:5]
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+
+    d = GEMMA_HEAD_DIM
+    return d256_check(torch, f"D=256 edge {case}", rnd(b, hq, sq, d),
+                      rnd(b, hkv, skv, d), rnd(b, hkv, skv, d),
+                      rnd(b, hq, sq, d), d256_case_mask(torch, case, dev),
+                      modes=True)
+
+
+# the head_dim 256 instantiations (mask-free, segmented) of the four block
+# kernels: their libraries and a piece of their mangled names
+D256_INSTANTIATIONS = {
+    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi256ELb0ELb0ELb0ELi0EE"),
+    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi256ELb1ELb0ELb0ELb0ELi0EE"),
+    "B3a flash_bwd_dq": ("flash_bwd_split",
+                         "bwd_dq_kernelILi256ELb0ELb0ELi0EE"),
+    "B3b flash_bwd_dkv": ("flash_bwd_split",
+                          "bwd_kv_kernelILi256ELb0ELb0ELb0ELb0ELi0EE"),
+}
+D256_SEG_INSTANTIATIONS = {
+    "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi256ELb0ELb0ELb1ELi0EE"),
+    "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi256ELb1ELb0ELb1ELb0ELi0EE"),
+    "B3a flash_bwd_dq": ("flash_bwd_split",
+                         "bwd_dq_kernelILi256ELb1ELb0ELi0EE"),
+    "B3b flash_bwd_dkv": ("flash_bwd_split",
+                          "bwd_kv_kernelILi256ELb0ELb0ELb1ELb0ELi0EE"),
+}
+
+
+def phase_d256(torch, flush):
+    """Phase 23: head_dim 256 in B1, B2, B3a and B3b. Returns (the kernel
+    entries of the head_dim 256 instantiations, the launches of the gemma
+    path)."""
+    import torch.nn.functional as F
+
+    from ring_flash_attn_tpu_torch import api
+    from ring_flash_attn_tpu_torch.ops import _build
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (naive_block_bwd,
+                                                     naive_block_fwd)
+
+    log("== phase 23: head_dim 256 (Gemma) in B1, B2, B3a and B3b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf16 = torch.bfloat16
+    d, s = GEMMA_HEAD_DIM, 8192
+    built = _build.build_all()
+    spills = {}
+    for name in D256_INSTANTIATIONS:
+        spills[name] = {
+            "mask_free": kernel_ptxas(built, name, D256_INSTANTIATIONS),
+            "segmented": kernel_ptxas(built, name, D256_SEG_INSTANTIATIONS)}
+        log(f"  ptxas {name} D=256: {spills[name]}")
+    for what, lib, piece in (("B1", "flash_fwd", "flash_fwd_kernel"),
+                             ("B2", "flash_bwd", "bwd_kv_kernel"),
+                             ("B3a", "flash_bwd_split", "bwd_dq_kernel"),
+                             ("B3b", "flash_bwd_split", "bwd_kv_kernel")):
+        counts = check_hgmma(what, lib, piece)
+        if not any(k.startswith("D=256") for k in counts):
+            raise AssertionError(f"{what}: no head_dim 256 build")
+
+    # (a) the tile edges, mask-free and segmented, both backward modes
+    worst = {"B1": [0.0, 0.0], "B2": 0.0, "B3": 0.0}
+
+    def keep(errs):
+        worst["B1"] = [max(worst["B1"][0], errs[0]),
+                       max(worst["B1"][1], errs[1])]
+        worst["B2"] = max(worst["B2"], errs[2])
+        worst["B3"] = max(worst["B3"], errs[3])
+
+    for i, case in enumerate(D256_EDGE_CASES):
+        keep(d256_case_check(torch, case, seed=i))
+    torch.cuda.empty_cache()
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    # (b) Gemma-7B's and Gemma-2B's attention at S = 8192: causal (both
+    # backward modes), then causal on positions on the four packings
+    for model, (hq, hkv) in GEMMA_ATTN.items():
+        q, k, v, dout = (rnd(1, hq, s, d), rnd(1, hkv, s, d),
+                         rnd(1, hkv, s, d), rnd(1, hq, s, d))
+        keep(d256_check(torch, f"{model} causal {s}", q, k, v, dout,
+                        MaskArgs(causal=True), modes=True))
+        torch.cuda.empty_cache()
+        for cu in VARLEN_PACKINGS:
+            keep(d256_check(torch, f"{model} {cu}", q, k, v, dout,
+                            varlen_mask(torch, cu, True, dev)[0]))
+            torch.cuda.empty_cache()
+        del q, k, v, dout
+
+    # (c) times at Gemma-7B's attention, causal: each kernel beside its
+    # flop bound (the same flops as q (1,32,8192,128), kv (1,8,8192,128):
+    # Hq D equal), the head_dim 128 kernel at those equal flops, the plain
+    # version and SDPA at head_dim 256 (timed only)
+    hq, hkv = GEMMA_ATTN["Gemma-7B"]
+    mask = MaskArgs(causal=True)
+
+    def kernel_fns(q, k, v, dout, out, lse, delta):
+        sc = q.shape[-1] ** -0.5
+        return {
+            "B1 flash_fwd": lambda: flash_fwd_cuda(q, k, v, sc, mask,
+                                                   out_dtype=bf16),
+            "B2 flash_bwd": lambda: flash_bwd_cuda(
+                dout, q, k, v, lse, None, sc, mask, out=out, dq_dtype=bf16,
+                dkv_dtype=bf16),
+            "B3a flash_bwd_dq": lambda: flash_bwd_dq_cuda(
+                dout, q, k, v, lse, delta, sc, mask, dq_dtype=bf16),
+            "B3b flash_bwd_dkv": lambda: flash_bwd_dkv_cuda(
+                dout, q, k, v, lse, delta, sc, mask, dkv_dtype=bf16),
+        }
+
+    def operands(hq_, hkv_, d_):
+        q, k, v, dout = (rnd(1, hq_, s, d_), rnd(1, hkv_, s, d_),
+                         rnd(1, hkv_, s, d_), rnd(1, hq_, s, d_))
+        out, lse = flash_fwd_cuda(q, k, v, d_ ** -0.5, mask, out_dtype=bf16)
+        return q, k, v, dout, out, lse, compute_delta(dout, out)
+
+    ops128 = operands(32, 8, 128)
+    d128 = {n: kernel_ms(torch, fn, 10, flush)
+            for n, fn in kernel_fns(*ops128).items()}
+    del ops128
+    ops = operands(hq, hkv, d)
+    q, k, v, dout, out, lse, delta = ops
+    times = {n: kernel_ms(torch, fn, 10, flush)
+             for n, fn in kernel_fns(*ops).items()}
+    plain = {"fwd": cuda_ms(torch, lambda: naive_block_fwd(
+                 q, k, v, d ** -0.5, mask), 2, flush),
+             "bwd": cuda_ms(torch, lambda: naive_block_bwd(
+                 dout, q, k, v, lse, delta, d ** -0.5, mask), 2, flush)}
+    torch.cuda.empty_cache()
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    o_s = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa = {"fwd": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 10, flush),
+            "bwd": cuda_ms(torch, lambda: torch.autograd.grad(
+                o_s, leaves, dout, retain_graph=True), 10, flush)}
+    del o_s, leaves
+    pairs = s * (s + 1) // 2
+    products = {"B1 flash_fwd": 2, "B2 flash_bwd": 5, "B3a flash_bwd_dq": 3,
+                "B3b flash_bwd_dkv": 4}
+    in_bytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, dout, k, v bf16
+    out_bytes = {"B1 flash_fwd": 2 * q.numel() + 4 * lse.numel(),
+                 "B2 flash_bwd": 2 * (q.numel() + 2 * k.numel()),
+                 "B3a flash_bwd_dq": 2 * q.numel(),
+                 "B3b flash_bwd_dkv": 2 * 2 * k.numel()}
+    entries = []
+    for name, t in times.items():
+        flops = products[name] * 2 * hq * d * pairs
+        nbytes = (in_bytes if name != "B1 flash_fwd"
+                  else 2 * (q.numel() + 2 * k.numel())) + out_bytes[name]
+        bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+        lib = sdpa["fwd" if name == "B1 flash_fwd" else "bwd"]
+        log(f"  Gemma-7B causal {name} D=256: {t['ms']:.3f} ms (device "
+            f"{t['device_ms']:.3f}), bound {bound:.3f} ms "
+            f"({t['ms'] / bound:.2f}x); D=128 at equal flops "
+            f"{d128[name]['ms']:.3f} ms; SDPA D=256 {lib:.3f} ms")
+        b1 = name == "B1 flash_fwd"
+        entries.append({
+            "name": f"{name} D256", "route": "cuda",
+            "source": "ring_flash_attn_tpu_torch/csrc/" + {
+                "B1 flash_fwd": "flash_fwd.cu", "B2 flash_bwd": "flash_bwd.cu",
+            }.get(name, "flash_bwd_split.cu"),
+            "replaces": {
+                "B1 flash_fwd": "ring_flash_attn_tpu/ops/pallas_fwd.py:161",
+                "B2 flash_bwd":
+                    "ring_flash_attn_tpu/ops/pallas_bwd_fused.py:59",
+                "B3a flash_bwd_dq": "ring_flash_attn_tpu/ops/pallas_bwd.py:56",
+                "B3b flash_bwd_dkv":
+                    "ring_flash_attn_tpu/ops/pallas_bwd.py:256"}[name],
+            "shape": f"q (1,{hq},{s},{d}) kv (1,{hkv},{s},{d}) bf16 causal "
+                     f"(Gemma-7B attention)",
+            "max_abs_err": worst["B1"][0] if b1 else None,
+            "max_rel_err": worst["B1"][1] if b1 else worst[
+                "B2" if name == "B2 flash_bwd" else "B3"],
+            **t, "plain_ms": plain["fwd" if b1 else "bwd"],
+            "bound_ms": bound,
+            "bound_by": "operations" if flops / H100_BF16_FLOPS
+            >= nbytes / H100_BYTES_PER_S else "bytes",
+            "library_ms": lib, "d128_equal_flops_ms": d128[name]["ms"],
+            "d128_equal_flops_device_ms": d128[name]["device_ms"],
+            "ptxas": spills[name]["mask_free"],
+            "ptxas_varlen": spills[name]["segmented"]})
+    del ops, q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+
+    # (d) the gemma path, whose launches are counted: flash_attn_func at
+    # Gemma-7B's attention (B1, B2; deterministic: B3a, B3b),
+    # flash_attn_varlen_func on the four packings (segmented B1, B2), then
+    # the HF adapter's ring_attention_forward at Gemma-7B widths on 32768
+    # tokens (segmented B1; B3a and B3b past B2's limit at head_dim 256)
+    counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda,
+                "B3a flash_bwd_dq": flash_bwd_dq_cuda,
+                "B3b flash_bwd_dkv": flash_bwd_dkv_cuda}
+    launches = {}
+    q, k, v, dout = (rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d),
+                     rnd(1, s, hq, d))
+    def plain_ref(qb, kb, vb, db, m):
+        """The plain versions' (out, lse) and gradients, (B, H, S, D)."""
+        ro, rl = naive_block_fwd(qb, kb, vb, d ** -0.5, m)
+        rg = naive_block_bwd(db, qb, kb, vb, rl, compute_delta(db, ro),
+                             d ** -0.5, m)
+        return ro, rl, rg
+
+    def bhsd(x):
+        return x.transpose(1, 2)
+
+    for det in (False, True):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        with _path_run(counters, launches):
+            o, lse_o, _ = api.flash_attn_func(*leaves, causal=True,
+                                              deterministic=det,
+                                              return_attn_probs=True)
+            g = torch.autograd.grad(o, leaves, dout)
+        ro, rl, rg = plain_ref(*(bhsd(x) for x in (q, k, v, dout)),
+                               MaskArgs(causal=True))
+        _varlen_check(f"flash_attn_func deterministic={det}",
+                      (bhsd(o), lse_o), (ro, rl), B1_OUT_TOL, B1_LSE_TOL)
+        _grads_check(f"flash_attn_func deterministic={det} backward",
+                     [bhsd(x) for x in g], rg)
+        del o, g, ro, rg, leaves
+        torch.cuda.empty_cache()
+    t3 = [x[0] for x in (q, k, v, dout)]  # (T, H, D)
+    for cu in VARLEN_PACKINGS:
+        leaves = [x.detach().requires_grad_() for x in t3[:3]]
+        cu_t = torch.tensor(cu, device=dev, dtype=torch.int32)
+        with _path_run(counters, launches):
+            o, lse_o, _ = api.flash_attn_varlen_func(
+                *leaves, cu_t, causal=True, return_attn_probs=True)
+            g = torch.autograd.grad(o, leaves, t3[3])
+        ro, rl, rg = plain_ref(*(bhsd(x[None]) for x in (*t3[:3], t3[3])),
+                               varlen_mask(torch, cu, True, dev)[0])
+        _varlen_check(f"flash_attn_varlen_func {cu}", (bhsd(o[None]),
+                                                       lse_o[None]),
+                      (ro, rl), B1_OUT_TOL, B1_LSE_TOL)
+        _grads_check(f"flash_attn_varlen_func {cu} backward",
+                     [bhsd(x[None]) for x in g], rg)
+        del o, g, ro, rg, leaves
+        torch.cuda.empty_cache()
+    del q, k, v, dout, t3
+    torch.cuda.empty_cache()
+    adapter_launches, adapter_times = phase_adapter(torch, hq, hkv, d)
+    for name, n in adapter_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"  launches on the gemma path: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a head_dim 256 kernel of the gemma path never "
+                             f"ran: {launches}")
+    for e in entries:
+        e["launches"] = launches[e["name"][:-5]]
+        e["launches_by_path"] = {"gemma": launches[e["name"][:-5]]}
+    entries[0]["adapter_w4_per_rank_ms"] = adapter_times
+    return entries, launches
+
+
 def main():
     import torch
 
@@ -6044,6 +6595,13 @@ def main():
     adapter_paths, adapter_times = run("adapter", phase_adapter, torch)
     torch.cuda.empty_cache()
     pipeline, pipeline_readings = run("pipeline", phase_pipeline, torch)
+    torch.cuda.empty_cache()
+    utils_paths, utils_readings = run("utils and entry", phase_utils_entry,
+                                      torch)
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    d256_entries, gemma = run("head_dim 256", phase_d256, torch, flush)
+    del flush
     next(k for k in kernels if k["name"].startswith("B7"))[
         "w4_causal_forward_ms"] = ring_compare
     b1 = next(k for k in kernels if k["name"].startswith("B1"))
@@ -6055,6 +6613,7 @@ def main():
     b1["chunked_prefill_first_token_s"] = serving_readings["first_token_s"]
     b1["adapter_w4_per_rank_ms"] = adapter_times
     b1["pipeline_step_s"] = pipeline_readings
+    b1["utils_and_entry"] = utils_readings
     next(k for k in kernels if k["name"].startswith("B5"))[
         "speculative_verify"] = serving_readings["spec"]
     for k in xform_entries + band_entries:
@@ -6088,7 +6647,9 @@ def main():
             ("zigzag_varlen", xform_paths["zigzag_varlen"]),
             ("band", band_paths["band"]),
             ("serving_options", serving_options), ("adapter", adapter_paths),
-            ("pipeline", pipeline))
+            ("pipeline", pipeline), ("entry", utils_paths["entry"]),
+            ("dryrun", utils_paths["dryrun"]),
+            ("checkpoint", utils_paths["checkpoint"]))
             if k["name"] in c}
         k["launches"] = next(iter(paths.values()))
         k["launches_by_path"] = paths
@@ -6098,7 +6659,7 @@ def main():
             k["ptxas_varlen"] = kernel_ptxas(built, k["name"],
                                              SEG_INSTANTIATIONS)
             k.update(varlen_readings[k["name"]])
-    kernels += xform_entries + band_entries
+    kernels += xform_entries + band_entries + d256_entries
     log(f"phase seconds {seconds}; phases took "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

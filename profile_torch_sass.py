@@ -124,7 +124,9 @@ def main():
     parent = sass(build(os.path.abspath(args.root)))
     change = sass(build(ROOT))
     bad = 0
-    for k in sorted(parent):
+    # the keys mix ints and the flags' names at one place ("band", "new"):
+    # sorted by their text
+    for k in sorted(parent, key=str):
         name = f"{k[0]} {k[1]}<{', '.join(map(str, k[2]))}>"
         if k not in change:
             print(f"  {name}: MISSING here")
@@ -142,7 +144,7 @@ def main():
               f"instructions; first at {first}: "
               f"{a[first] if first < len(a) else '-'} | "
               f"{b[first] if first < len(b) else '-'}")
-    for k in sorted(set(change) - set(parent)):
+    for k in sorted(set(change) - set(parent), key=str):
         print(f"  {k[0]} {k[1]}<{', '.join(map(str, k[2]))}>: new here, "
               f"{len(change[k])} instructions")
     print(f"SASS: {len(parent) - bad} of {len(parent)} instantiations of "

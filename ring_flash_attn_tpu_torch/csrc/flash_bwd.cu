@@ -7,7 +7,10 @@
 // (csrc/segments.cuh), softcap and ALiBi (csrc/xform.cuh), sliding windows
 // and dropout (csrc/band.cuh), GQA (q head h
 // reads kv head h / (Hq/Hkv)),
-// head_dim 64 or 128, bf16 q, k, v and dout. Contract of
+// head_dim 64, 128 or 256 (256: the mask-free and segmented builds only,
+// 64 keys a block with dK's and dV's columns split over the consumer
+// warpgroups and dq added by atomics from the registers, see
+// csrc/flash_bwd.cuh), bf16 q, k, v and dout. Contract of
 // ops/flash.py::block_bwd: dq fp32 (B, Hq, Sq, D); dk, dv (B, Hkv, Skv, D)
 // in fp32 or bf16, summed over the GQA group.
 //
@@ -83,6 +86,9 @@ inline int launch_delta(const void* dout, const void* out, float* delta, int B,
   else if (D == 64)
     bwd_delta_kernel<64><<<grid, DELTA_WARPS * 32, 0, stream>>>(
         go, y, delta, H, S, rows, st[0], st[1], st[2], st[3], st[4], st[5]);
+  else if (D == 256)
+    bwd_delta_kernel<256><<<grid, DELTA_WARPS * 32, 0, stream>>>(
+        go, y, delta, H, S, rows, st[0], st[1], st[2], st[3], st[4], st[5]);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -108,6 +114,10 @@ extern "C" int rfa_flash_bwd(const void* q, const void* k, const void* v,
     return rfa_bwd::launch_kv<64, true>(q, k, v, dout, lse, delta, dq_acc, dk,
                                         dv, B, Hq, Hkv, Sq, Skv, strides,
                                         scale, causal, offset, dkv_bf16, st);
+  if (D == 256)
+    return rfa_bwd::launch_kv<256, true>(q, k, v, dout, lse, delta, dq_acc,
+                                         dk, dv, B, Hq, Hkv, Sq, Skv, strides,
+                                         scale, causal, offset, dkv_bf16, st);
   return cudaErrorInvalidValue;
 }
 
@@ -130,6 +140,10 @@ extern "C" int rfa_flash_bwd_seg(const void* q, const void* k, const void* v,
         strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
   if (D == 64)
     return rfa_bwd::launch_kv<64, true, false, true>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
+        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
+  if (D == 256)
+    return rfa_bwd::launch_kv<256, true, false, true>(
         q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
         strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
   return cudaErrorInvalidValue;

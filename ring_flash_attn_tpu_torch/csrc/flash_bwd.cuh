@@ -80,6 +80,17 @@
 // consumers mask by segment and position the steps that straddle an edge.
 // Keys no q row reaches get dk = dv = 0.
 //
+// At head_dim 256 (Gemma; the mask-free and SEG builds of B2 and B3b) a
+// 64 x 256 fp32 dK and dV would take 256 registers a thread and 128-key
+// K and V tiles with two stages of Q and dout 384 KB, so a block takes 64
+// keys, which both consumer warpgroups share: each computes S^T and dP^T
+// over the whole head dim (the two products done twice) and owns half of
+// dK's and dV's columns (64 + 64 fp32 a thread). dQ's fp32 tile would not
+// fit beside the operands either: each warpgroup computes its half of dQ a
+// 64-column panel at a time and adds it into the accumulator by atomic
+// adds from the registers (no writer warp), in an order that varies, as
+// the reduce-adds' does.
+//
 // With BAND (B2 and B3b with a window or dropout, csrc/band.cuh; always with
 // XFORM, without RING) a block's q steps narrow to the window's band where
 // the positions are the index, the steps that cross a band edge are masked
@@ -118,7 +129,12 @@ struct Ring {
   int accumulate;       // dk, dv: add to what is there (else write)
 };
 
-constexpr int KV_BN = 128;  // keys per block, 64 per consumer warpgroup
+// keys per block: 128, 64 per consumer warpgroup; at head_dim 256, 64,
+// which both consumer warpgroups share, each owning half of dK's and dV's
+// columns (a 64 x 256 fp32 dK and dV would take 256 registers a thread;
+// K, V and two stages of Q and dout take 192 KB of the block's 227)
+template <int D>
+constexpr int kv_keys = D > 128 ? 64 : 128;
 constexpr int KV_BM = 64;   // q rows per step
 constexpr int KV_CONSUMERS = 256;  // warpgroups 0 and 1
 constexpr int KV_THREADS = KV_CONSUMERS + 128;  // + the producer warpgroup
@@ -128,6 +144,9 @@ constexpr int KV_STAGES = 2;
 // of 64 columns, the fp32 dQ tile in 128B-swizzled boxes of 32 columns.
 template <int D, bool DQ = false, int BAND = 0>
 struct KvSmem {
+  static constexpr int KV_BN = kv_keys<D>;
+  // head_dim 256: dQ leaves by atomic adds from the registers, no tile here
+  static constexpr bool SPLIT = D > 128;
   static constexpr int PANEL_KV = KV_BN * 128;  // one 64-column panel of K
   static constexpr int PANEL_Q = KV_BM * 128;   // of a Q or dout tile
   static constexpr int K = 0;
@@ -139,7 +158,7 @@ struct KvSmem {
   static constexpr int DQT = DS + 2 * DS_BYTES;  // 2 x the fp32 dQ tile
   static constexpr int DQ_BYTES = KV_BM * D * 4;
   // lse2, delta (BAND: and the rows' dropout hashes)
-  static constexpr int ROWS = DQT + (DQ ? 2 * DQ_BYTES : 0);
+  static constexpr int ROWS = DQT + (DQ && !SPLIT ? 2 * DQ_BYTES : 0);
   static constexpr int BAR =
       ROWS + KV_STAGES * (BAND == rfa_band::ALL ? 3 : 2) * KV_BM * 4;
   // mbarriers: full[KV_STAGES], empty[KV_STAGES], kv
@@ -174,17 +193,18 @@ __device__ __forceinline__ void kv_scores(float (&acc)[32], const char* kv,
   }
 }
 
-// acc (64 keys x D) += A (64 keys x 64 q rows, bf16 fragments) * T (64 q
-// rows x D, the Q or dout tile, MN-major: its rows are the reduction).
-template <int D>
-__device__ __forceinline__ void kv_accumulate(float (&acc)[D / 2],
+// acc (64 keys x N) += A (64 keys x 64 q rows, bf16 fragments) * T (64 q
+// rows x N, N = 2 NA columns of the Q or dout tile from t on, MN-major: its
+// rows are the reduction).
+template <int D, int NA>
+__device__ __forceinline__ void kv_accumulate(float (&acc)[NA],
                                               const uint32_t (&a)[4][4],
                                               const char* t) {
   using S = KvSmem<D>;
 #pragma unroll
   for (int kc = 0; kc < KV_BM / 16; ++kc) {
     const uint64_t db = hop::desc_sw128(t + kc * 16 * 128, S::PANEL_Q);
-    if constexpr (D == 128)
+    if constexpr (NA == 64)
       hop::wgmma_rs_n128<1>(acc, a[kc], db, 1);
     else
       hop::wgmma_rs_n64<1>(acc, a[kc], db, 1);
@@ -200,11 +220,18 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
               int Sq, int Skv, float scale, int causal, int offset,
               int dkv_bf16, Ring ring,
               const __grid_constant__ rfa_seg_args seg,
-              const rfa_band_args band) {
+              const rfa_band_args band, float* __restrict__ dq_acc) {
   static_assert(!(SEG && RING), "a ring step takes no segments");
   static_assert(!BAND || (XFORM && !RING), "BAND comes with XFORM, no ring");
   using S = KvSmem<D, DQ, BAND>;
-  constexpr int NA = D / 2;  // fp32 of a 64 x D accumulator a thread holds
+  constexpr int KV_BN = S::KV_BN;
+  // head_dim 256: both consumer warpgroups take the same 64 keys, warpgroup
+  // wg dK's and dV's columns [wg D / 2, (wg + 1) D / 2)
+  constexpr bool SPLIT = S::SPLIT;
+  static_assert(!SPLIT || !(RING || XFORM), "head_dim 256: no ring step, no "
+                "softcap/ALiBi/window/dropout build");
+  // fp32 of a 64 x D (SPLIT: 64 x D / 2) accumulator a thread holds
+  constexpr int NA = SPLIT ? D / 4 : D / 2;
   extern __shared__ __align__(16) char smem_raw[];
   char* smem =
       smem_raw + ((1024 - (rfa::smem_u32(smem_raw) & 1023)) & 1023);
@@ -369,7 +396,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           hop::mbar_arrive(&full[s]);
         }
       }
-    } else if (DQ && threadIdx.x < KV_CONSUMERS + 64) {
+    } else if (DQ && !SPLIT && threadIdx.x < KV_CONSUMERS + 64) {
       // ---- dQ writer: the next warp adds each fp32 dQ tile into dq_acc
       // by TMA, off the consumers' path (the last two warps idle) ----
       int gi = 0, tt = t_first;
@@ -397,7 +424,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
     // ---- consumers: warpgroup wg owns keys nw + [0, 64) ----
     hop::setmaxnreg_inc<240>();
     const int wg = threadIdx.x / 128;
-    const int nw = n0 + 64 * wg;
+    const int nw = n0 + (SPLIT ? 0 : 64 * wg);
     const int warp = (threadIdx.x / 32) % 4;
     const int g = lane / 4, tq = lane % 4;
     const float scale_log2 = RING ? 1.f : scale * LOG2E;
@@ -475,6 +502,9 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       }
       const char* qt = qs(s);
       const char* dot = dos(s);
+      // SPLIT: the warpgroup's two panels of Q and dout for dK and dV
+      const char* qh = SPLIT ? qt + wg * 2 * S::PANEL_Q : qt;
+      const char* doh = SPLIT ? dot + wg * 2 * S::PANEL_Q : dot;
       const float* l2s = lses(s);
       const float* dls = dels(s);
       // dS^T alternates between two buffers: one barrier a step keeps a
@@ -487,9 +517,9 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       // of the warpgroup's and q row 8 (i / 4) + 2 tq + i % 2 of the tile.
       float sc[32], dpt[32];
       hop::wgmma_fence();
-      kv_scores<D>(sc, ks + wg * 64 * 128, qt);
+      kv_scores<D>(sc, ks + (SPLIT ? 0 : wg * 64 * 128), qt);
       hop::wgmma_commit();
-      kv_scores<D>(dpt, vs + wg * 64 * 128, dot);
+      kv_scores<D>(dpt, vs + (SPLIT ? 0 : wg * 64 * 128), dot);
       hop::wgmma_commit();
       hop::wgmma_wait<1>();
       hop::fence_regs(sc);
@@ -855,7 +885,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         // dV += P^T dout
         hop::pack_fragments(pa, sc);
         hop::wgmma_fence();
-        kv_accumulate<D>(dv_acc, pa, dot);
+        kv_accumulate<D>(dv_acc, pa, doh);
         hop::wgmma_commit();
         if constexpr (XFORM) {
           if (ring.cap2 > 0.f) {
@@ -888,25 +918,66 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       if constexpr (DQ) {
         // dS^T to shared memory, [key][q row] in the swizzled panel layout
         // (fragment kc, register r: key row g + 8 (r % 2), q columns 16 kc
-        // + 8 (r / 2) + 2 tq, i.e. 16-byte chunk 2 kc + r / 2)
+        // + 8 (r / 2) + 2 tq, i.e. 16-byte chunk 2 kc + r / 2); SPLIT: both
+        // warpgroups hold the same dS^T, warpgroup 0 stores it
+        if (!SPLIT || wg == 0) {
 #pragma unroll
-        for (int kc = 0; kc < 4; ++kc)
+          for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int row = wg * 64 + warp * 16 + g + (r % 2) * 8;
-            const int chunk = 2 * kc + r / 2;
-            *reinterpret_cast<uint32_t*>(
-                dss + row * 128 + ((chunk ^ (row % 8)) << 4) + tq * 4) =
-                da[kc][r];
-          }
+            for (int r = 0; r < 4; ++r) {
+              const int row =
+                  (SPLIT ? 0 : wg * 64) + warp * 16 + g + (r % 2) * 8;
+              const int chunk = 2 * kc + r / 2;
+              *reinterpret_cast<uint32_t*>(
+                  dss + row * 128 + ((chunk ^ (row % 8)) << 4) + tq * 4) =
+                  da[kc][r];
+            }
+        }
       }
 
       // dK += dS^T Q
       hop::wgmma_fence();
-      kv_accumulate<D>(dk_acc, da, qt);
+      kv_accumulate<D>(dk_acc, da, qh);
       hop::wgmma_commit();
 
-      if constexpr (DQ) {
+      if constexpr (DQ && SPLIT) {
+        // dQ = dS K over the block's 64 keys; warpgroup wg takes head-dim
+        // columns [wg D / 2, (wg + 1) D / 2), a 64-column panel of K at a
+        // time (as D = 128's 32 fp32 a thread), and adds each into dq_acc by
+        // atomic adds from the registers: no staged fp32 tile fits in the
+        // shared memory beside the operands
+        hop::fence_proxy_async();
+        hop::bar_sync(BAR_DS, KV_CONSUMERS);
+        float dqa[32];
+#pragma unroll
+        for (int pn = 0; pn < 2; ++pn) {
+          const char* kb = ks + (wg * 2 + pn) * S::PANEL_KV;
+          hop::wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < KV_BN / 16; ++kc)
+            hop::wgmma_ss_n64<1, 1>(dqa, hop::desc_sw128(dss + kc * 2048, 16),
+                                    hop::desc_sw128(kb + kc * 2048, 16),
+                                    kc > 0);
+          hop::wgmma_commit();
+          hop::wgmma_wait<0>();
+          // stage s is read: dK, its last reader, was waited for too
+          if (pn == 0) hop::mbar_arrive(&empty[s]);
+          hop::fence_regs(dqa);
+          // element 4 j + 2 r + c is q row m0 + 16 warp + g + 8 r, column
+          // (2 wg + pn) 64 + 8 j + 2 tq + c
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = m0 + warp * 16 + g + r * 8;
+            if (row >= Sq) continue;
+            float* dst = dq_acc + ((long long)(b * Hq + h) * Sq + row) * D +
+                         (wg * 2 + pn) * 64 + tq * 2;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              atomicAdd(reinterpret_cast<float2*>(dst + j * 8),
+                        make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]));
+          }
+        }
+      } else if constexpr (DQ) {
         // dQ = dS K over all 128 keys; warpgroup wg takes head-dim columns
         // [wg D / 2, (wg + 1) D / 2). A is dS (M = q rows contiguous in the
         // stored dS^T: MN-major), B the K tile (N = head dim contiguous:
@@ -958,14 +1029,16 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
     hop::fence_regs(dv_acc);
 
     // dK, dV of this warpgroup's 64 keys, written once: accumulator element
-    // 4 j + 2 r + c is key 16 warp + g + 8 r, column 8 j + 2 tq + c
+    // 4 j + 2 r + c is key 16 warp + g + 8 r, column 8 j + 2 tq + c (SPLIT:
+    // of the warpgroup's columns)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = nw + warp * 16 + g + r * 8;
       if (key >= Skv) continue;
-      const long long base = ((long long)(b * Hkv + hk) * Skv + key) * D;
+      const long long base = ((long long)(b * Hkv + hk) * Skv + key) * D +
+                             (SPLIT ? wg * (D / 2) : 0);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < NA / 4; ++j) {
         const long long o = base + j * 8 + tq * 2;
         float2 ka = make_float2(dk_acc[4 * j + 2 * r],
                                 dk_acc[4 * j + 2 * r + 1]);
@@ -1016,6 +1089,7 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout,
               const rfa_band_args& band = rfa_band_args{}) {
   auto kern = bwd_kv_kernel<D, DQ, RING, SEG, XFORM, BAND>;
   using Sm = KvSmem<D, DQ, BAND>;
+  constexpr int KV_BN = Sm::KV_BN;
   // SEG: the q steps' classes past the barriers
   const int bytes = Sm::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_q) : 0);
   if (bytes > rfa_seg::MAX_SMEM) return cudaErrorInvalidValue;
@@ -1036,7 +1110,7 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout,
                                 strides + 6, 64, KV_BN);
   if (!e) e = hop_host::tmap_4d(&maps.o, dout, false, B, Hq, Sq, D,
                                 strides + 9, 64, KV_BM);
-  if (DQ && !e) {
+  if (DQ && !Sm::SPLIT && !e) {
     const long long dq_st[3] = {(long long)Hq * Sq * D, (long long)Sq * D, D};
     e = hop_host::tmap_4d(&maps.dq, dq_acc, true, B, Hq, Sq, D, dq_st, 32,
                           KV_BM);
@@ -1047,7 +1121,7 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid(B * Hkv, tiles);
   kern<<<grid, KV_THREADS, bytes, stream>>>(
       maps, lse, delta, dk, dv, Hq, Hkv, Sq, Skv, scale, causal, offset,
-      dkv_bf16, ring, seg, band);
+      dkv_bf16, ring, seg, band, dq_acc);
   return cudaGetLastError();
 }
 

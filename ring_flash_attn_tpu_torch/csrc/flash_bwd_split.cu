@@ -54,6 +54,11 @@
 //    its 4 products and faster than SDPA's whole backward; the mma.sync
 //    loop before it 6.07 to 6.50 ms.
 //
+// At head_dim 256 (Gemma; the mask-free and SEG builds) B3a takes 64-row q
+// tiles, which both consumer warpgroups share: each computes S and dP over
+// the whole head dim (done twice) and owns half of dQ's columns; B3b is the
+// kv-major loop's 64-key build (csrc/flash_bwd.cuh).
+//
 // Packed sequences (csrc/segments.cuh) are compiled apart (SEG): B3a walks
 // the kv tiles [q_meta[4], q_meta[5]] of its q tile and B3b the q steps
 // [kv_meta[4], kv_meta[5]] of its kv tile, each skipping the tiles whose
@@ -84,7 +89,12 @@ namespace {
 using rfa_bwd::bf16;
 using rfa_bwd::LOG2E;
 
-constexpr int BM = 128;  // q rows per block, 64 per consumer warpgroup
+// q rows per block: 128, 64 per consumer warpgroup; at head_dim 256, 64,
+// which both consumer warpgroups share, each owning half of dQ's columns
+// (Q, dout and two stages of K and V tiles then take 192 KB of the 227 a
+// block has, and dQ 64 fp32 a thread)
+template <int D>
+constexpr int dq_rows = D > 128 ? 64 : 128;
 constexpr int BN = 64;   // keys per tile
 constexpr int CONSUMERS = 256;  // warpgroups 0 and 1
 constexpr int NTHREADS = CONSUMERS + 128;  // + the producer warpgroup
@@ -94,6 +104,7 @@ constexpr int STAGES = 2;
 // of 64 columns.
 template <int D>
 struct DqSmem {
+  static constexpr int BM = dq_rows<D>;
   static constexpr int PANEL_Q = BM * 128;  // a 64-column panel of Q or dout
   static constexpr int PANEL_KV = BN * 128;  // of a K or V tile
   static constexpr int TILE_KV = BN * D * 2;
@@ -138,7 +149,12 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
               const rfa_xform_args xf, const rfa_band_args band) {
   static_assert(!BAND || XFORM, "BAND comes with XFORM");
   using S = DqSmem<D>;
-  constexpr int NQ = D / 2;  // fp32 of a 64 x D accumulator a thread holds
+  constexpr int BM = dq_rows<D>;
+  // head_dim 256: both warpgroups take the same 64 rows, warpgroup wg dQ's
+  // columns [wg D / 2, (wg + 1) D / 2)
+  constexpr bool SPLIT = D > 128;
+  // fp32 of a 64 x D (SPLIT: 64 x D / 2) accumulator a thread holds
+  constexpr int NQ = SPLIT ? D / 4 : D / 2;
   extern __shared__ __align__(16) char smem_raw[];
   char* smem =
       smem_raw + ((1024 - (rfa::smem_u32(smem_raw) & 1023)) & 1023);
@@ -268,12 +284,13 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
   const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int mw = m0 + 64 * wg;
+  const int mw = m0 + (SPLIT ? 0 : 64 * wg);
   // accumulator element i of S or dP (64 rows x 64 keys) or dQ (64 rows x
   // D) is row r_lo + 8 ((i % 4) / 2) and column 8 (i / 4) + 2 tq + i % 2
   const int r_lo = mw + 16 * warp + g;
-  const char* qa = qs + wg * 64 * 128;  // this warpgroup's rows of a panel
-  const char* doa = dos + wg * 64 * 128;
+  // this warpgroup's rows of a panel
+  const char* qa = qs + (SPLIT ? 0 : wg * 64 * 128);
+  const char* doa = dos + (SPLIT ? 0 : wg * 64 * 128);
   const float scale_log2 = scale * LOG2E;
   // XFORM: this head's ALiBi slope and the cap's reciprocal (base 2)
   float slope = 0.f, inv_cap2 = 0.f;
@@ -606,7 +623,13 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
 #pragma unroll
       for (int kc = 0; kc < BN / 16; ++kc) {
         const uint64_t db = hop::desc_sw128(ks(s) + kc * 2048, S::PANEL_KV);
-        if constexpr (D == 128)
+        if constexpr (SPLIT)  // the warpgroup's two panels of K
+          hop::wgmma_rs_n128<1>(
+              dqa, da[kc],
+              hop::desc_sw128(ks(s) + wg * 2 * S::PANEL_KV + kc * 2048,
+                              S::PANEL_KV),
+              1);
+        else if constexpr (D == 128)
           hop::wgmma_rs_n128<1>(dqa, da[kc], db, 1);
         else
           hop::wgmma_rs_n64<1>(dqa, da[kc], db, 1);
@@ -625,8 +648,8 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
     if (row >= Sq) continue;
     const long long orow = ((long long)(b * Hq + h) * Sq + row) * D;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      const int col = i * 8 + tq * 2;
+    for (int i = 0; i < NQ / 4; ++i) {
+      const int col = (SPLIT ? wg * (D / 2) : 0) + i * 8 + tq * 2;
       const float x0 = dqa[4 * i + 2 * r], x1 = dqa[4 * i + 2 * r + 1];
       if (dq_bf16) {
         *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dq) + orow + col) =
@@ -650,6 +673,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const rfa_xform_args& xf = rfa_xform_args{},
               const rfa_band_args& band = rfa_band_args{}) {
   auto kern = bwd_dq_kernel<D, SEG, XFORM, BAND>;
+  constexpr int BM = dq_rows<D>;
   // SEG: the kv tiles' classes past the barriers
   const int bytes =
       DqSmem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
@@ -699,6 +723,9 @@ extern "C" int rfa_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv,
                          strides, scale, causal, offset, dq_bf16, st);
+  if (D == 256)
+    return launch_dq<256>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv,
+                          strides, scale, causal, offset, dq_bf16, st);
   return cudaErrorInvalidValue;
 }
 
@@ -719,13 +746,18 @@ extern "C" int rfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return rfa_bwd::launch_kv<64, false>(q, k, v, dout, lse, delta, nullptr,
                                          dk, dv, B, Hq, Hkv, Sq, Skv, strides,
                                          scale, causal, offset, dkv_bf16, st);
+  if (D == 256)
+    return rfa_bwd::launch_kv<256, false>(q, k, v, dout, lse, delta, nullptr,
+                                          dk, dv, B, Hq, Hkv, Sq, Skv, strides,
+                                          scale, causal, offset, dkv_bf16, st);
   return cudaErrorInvalidValue;
 }
 
 // B3a and B3b on packed sequences (csrc/segments.cuh), compiled apart:
 // arguments as above with the segment ids, positions and tile bounds of
 // `seg` (B3a's at 128 q rows and 64 keys a tile, B3b's at 64 q rows a step
-// and 128 keys a block). `causal` is the causal mask by index; a mask
+// and 128 keys a block; at head_dim 256, 64 q rows a tile and 64 keys a
+// block). `causal` is the causal mask by index; a mask
 // causal by positions passes causal = 0 and seg->q_pos.
 extern "C" int rfa_flash_bwd_dq_seg(const void* q, const void* k,
                                     const void* v, const void* dout,
@@ -744,6 +776,10 @@ extern "C" int rfa_flash_bwd_dq_seg(const void* q, const void* k,
     return launch_dq<64, true>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq,
                                Skv, strides, scale, causal, offset, dq_bf16,
                                st, *seg);
+  if (D == 256)
+    return launch_dq<256, true>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq,
+                                Skv, strides, scale, causal, offset, dq_bf16,
+                                st, *seg);
   return cudaErrorInvalidValue;
 }
 
@@ -762,6 +798,10 @@ extern "C" int rfa_flash_bwd_dkv_seg(const void* q, const void* k,
         strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
   if (D == 64)
     return rfa_bwd::launch_kv<64, false, false, true>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
+        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
+  if (D == 256)
+    return rfa_bwd::launch_kv<256, false, false, true>(
         q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
         strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
   return cudaErrorInvalidValue;

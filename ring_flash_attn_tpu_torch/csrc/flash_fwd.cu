@@ -18,7 +18,9 @@
 // TMA producer warpgroup feeding two wgmma consumer warpgroups over
 // 128-row q tiles that overlap their softmax with their products and take
 // turns to issue them; its measured time is in that header and in
-// PERF.md. The scale stays in fp32 (the Pallas wrapper folds scale * log2 e
+// PERF.md. Head_dim 64, 128 and 256 (256: 64-key tiles, mask-free and
+// segmented builds only; the softcap/ALiBi and window/dropout builds take
+// 64 and 128). The scale stays in fp32 (the Pallas wrapper folds scale * log2 e
 // into bf16 k instead).
 
 #include "flash_fwd.cuh"
@@ -43,6 +45,10 @@ extern "C" int rfa_flash_fwd(const void* q, const void* k, const void* v,
     return rfa_fwd::launch<64, false>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv,
                                       strides, scale_log2, causal, offset,
                                       out_bf16, none, st);
+  if (D == 256)
+    return rfa_fwd::launch<256, false>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv,
+                                       strides, scale_log2, causal, offset,
+                                       out_bf16, none, st);
   return cudaErrorInvalidValue;
 }
 
@@ -65,6 +71,10 @@ extern "C" int rfa_flash_fwd_seg(const void* q, const void* k, const void* v,
         offset, out_bf16, none, st, *seg);
   if (D == 64)
     return rfa_fwd::launch<64, false, false, true>(
+        q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2, causal,
+        offset, out_bf16, none, st, *seg);
+  if (D == 256)
+    return rfa_fwd::launch<256, false, false, true>(
         q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2, causal,
         offset, out_bf16, none, st, *seg);
   return cudaErrorInvalidValue;

@@ -87,7 +87,11 @@ namespace rfa_fwd {
 using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128;  // q rows per block, 64 per consumer warpgroup
-constexpr int BN = 128;  // keys per tile
+// keys per tile: 128, or 64 at head_dim 256, where Q (64 KB) and two stages
+// of 128-key K and V tiles (256 KB) would pass the 227 KB of a block and
+// the S tile's 64 fp32 beside O's 128 a consumer thread's 240 registers
+template <int D>
+constexpr int kv_tile = D > 128 ? 64 : 128;
 constexpr int CONSUMERS = 256;  // warpgroups 0 and 1
 constexpr int NTHREADS = CONSUMERS + 128;  // + the producer warpgroup
 constexpr int STAGES = 2;
@@ -122,10 +126,12 @@ struct Ring {
 // of 64 columns by 128 rows.
 template <int D>
 struct Smem {
-  static constexpr int PANEL = 128 * 128;  // 128 rows of 64 bf16
-  static constexpr int TILE = BN * D * 2;  // a K or V tile (BM = BN)
+  static constexpr int PANEL = BM * 128;  // a panel of Q: BM rows of 64 bf16
+  static constexpr int PANEL_KV = kv_tile<D> * 128;  // of a K or V tile
+  static constexpr int TILE = kv_tile<D> * D * 2;    // a K or V tile
   static constexpr int Q = 0;
-  static constexpr int KV = Q + TILE;  // stage s: K at KV + 2 s TILE, then V
+  static constexpr int KV = Q + BM * D * 2;  // stage s: K at KV + 2 s TILE,
+                                             // then V
   static constexpr int BAR = KV + STAGES * 2 * TILE;
   // mbarriers: q, full_k[STAGES], full_v[STAGES], empty_k[STAGES],
   // empty_v[STAGES]
@@ -153,7 +159,9 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   static_assert(!(SEG && RING), "a ring step takes no segments");
   static_assert(!BAND || (XFORM && !RING), "BAND comes with XFORM, no ring");
   using S = Smem<D>;
+  constexpr int BN = kv_tile<D>;
   constexpr int NO = D / 2;  // fp32 of a 64 x D accumulator a thread holds
+  constexpr int NS = BN / 2;  // fp32 of the 64 x BN S tile a thread holds
   extern __shared__ __align__(16) char smem_raw[];
   char* smem =
       smem_raw + ((1024 - (rfa::smem_u32(smem_raw) & 1023)) & 1023);
@@ -260,13 +268,13 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
         hop::mbar_wait(&empty_k[s], parity);
         hop::mbar_arrive_tx(&full_k[s], BN * D * 2);
         for (int p = 0; p < D / 64; ++p)
-          hop::tma_load_4d(ks(s) + p * S::PANEL, &maps.k, &full_k[s], 64 * p,
-                           kt * BN, hk, b);
+          hop::tma_load_4d(ks(s) + p * S::PANEL_KV, &maps.k, &full_k[s],
+                           64 * p, kt * BN, hk, b);
         hop::mbar_wait(&empty_v[s], parity);
         hop::mbar_arrive_tx(&full_v[s], BN * D * 2);
         for (int p = 0; p < D / 64; ++p)
-          hop::tma_load_4d(vs(s) + p * S::PANEL, &maps.v, &full_v[s], 64 * p,
-                           kt * BN, hk, b);
+          hop::tma_load_4d(vs(s) + p * S::PANEL_KV, &maps.v, &full_v[s],
+                           64 * p, kt * BN, hk, b);
         if constexpr (SEG) t = next_live(t + 1);
       }
     }
@@ -280,7 +288,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
   const int mw = m0 + 64 * wg;
-  // accumulator element i of S (64 rows x 128 keys) or O (64 rows x D) is
+  // accumulator element i of S (64 rows x BN keys) or O (64 rows x D) is
   // row r_lo + 8 ((i % 4) / 2) and column 8 (i / 4) + 2 tq + i % 2
   const int r_lo = mw + 16 * warp + g;
   const char* qa = qs + wg * 64 * 128;  // this warpgroup's rows of a panel
@@ -329,38 +337,53 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   // position and step (its keys sit at kp0 + ksk (col - n0))
   int kp0 = 0, ksk = 0;
 
-  // issue S = Q K^T of stage s: 64 q rows x 128 keys
-  auto scores = [&](float (&sc)[64], int s) {
+  // issue S = Q K^T of stage s: 64 q rows x BN keys
+  auto scores = [&](float (&sc)[NS], int s) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int ko = (kk % 4) * 32;  // 16 columns = 32 bytes into the panel
-      hop::wgmma_ss_n128<0, 0>(
-          sc, hop::desc_sw128(qa + (kk / 4) * S::PANEL + ko, 16),
-          hop::desc_sw128(ks(s) + (kk / 4) * S::PANEL + ko, 16), kk > 0);
+      if constexpr (BN == 128)
+        hop::wgmma_ss_n128<0, 0>(
+            sc, hop::desc_sw128(qa + (kk / 4) * S::PANEL + ko, 16),
+            hop::desc_sw128(ks(s) + (kk / 4) * S::PANEL_KV + ko, 16), kk > 0);
+      else
+        hop::wgmma_ss_n64<0, 0>(
+            sc, hop::desc_sw128(qa + (kk / 4) * S::PANEL + ko, 16),
+            hop::desc_sw128(ks(s) + (kk / 4) * S::PANEL_KV + ko, 16), kk > 0);
     }
     hop::wgmma_commit();
   };
 
   // issue O += P V of stage s: P as bf16 A fragments, V MN-major (its
-  // rows, the keys, are the reduction), stepping 16 keys = 2048 B
-  auto accumulate = [&](const uint32_t (&pa)[8][4], int s) {
+  // rows, the keys, are the reduction), stepping 16 keys = 2048 B; at
+  // head_dim 256 as two products of 128 columns, O's two halves
+  auto accumulate = [&](const uint32_t (&pa)[BN / 16][4], int s) {
 #pragma unroll
     for (int kc = 0; kc < BN / 16; ++kc) {
-      const uint64_t db = hop::desc_sw128(vs(s) + kc * 2048, S::PANEL);
-      if constexpr (D == 128)
+      const uint64_t db = hop::desc_sw128(vs(s) + kc * 2048, S::PANEL_KV);
+      if constexpr (D == 256) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          hop::wgmma_rs_n128<1>(
+              *reinterpret_cast<float(*)[64]>(o + 64 * half), pa[kc],
+              hop::desc_sw128(vs(s) + 2 * half * S::PANEL_KV + kc * 2048,
+                              S::PANEL_KV),
+              1);
+      } else if constexpr (D == 128) {
         hop::wgmma_rs_n128<1>(o, pa[kc], db, 1);
-      else
+      } else {
         hop::wgmma_rs_n64<1>(o, pa[kc], db, 1);
+      }
     }
     hop::wgmma_commit();
   };
 
-  // the softmax of the S tile of keys n0 + [0, 128) in place: P = exp2(S -
+  // the softmax of the S tile of keys n0 + [0, BN) in place: P = exp2(S -
   // m) in sc, (m, l) updated, alpha the factor O still has to take;
   // seg_masked: the tile straddles a segment edge or the positions'
   // diagonal (SEG); lo and hi the lane's keys n0 + 2 lane + {0, 1} and
-  // n0 + 64 + 2 lane + {0, 1}
-  auto softmax = [&](float (&sc)[64], int n0, float (&alpha)[2],
+  // n0 + 64 + 2 lane + {0, 1} (the latter at BN = 128 only)
+  auto softmax = [&](float (&sc)[NS], int n0, float (&alpha)[2],
                      bool seg_masked, const rfa_seg::Pair& lo,
                      const rfa_seg::Pair& hi) {
     // a ring step's q arrives pre-scaled to base 2 (scale_log2 is 1): its
@@ -368,7 +391,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     // the ring has them
     if constexpr (XFORM && RING) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < NS; ++i) {
         float x = sc[i];
         if (ring.cap2 > 0.f) x = ring.cap2 * tanhf(x * inv_cap2);
         if (ring.slopes) {
@@ -391,14 +414,14 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       if (ring.cap2 > 0.f) {
         const float k2 = scale_log2 * inv_cap2;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) sc[i] = ring.cap2 * tanh_fast(sc[i] * k2);
+        for (int i = 0; i < NS; ++i) sc[i] = ring.cap2 * tanh_fast(sc[i] * k2);
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+        for (int i = 0; i < NS; ++i) sc[i] *= scale_log2;
       }
       if (ring.slopes && !(SEG && seg.q_pos)) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < NS; ++i) {
           const int row = r_lo + 8 * ((i % 4) / 2);
           const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
           float dist = (float)((ring.q_pos0 + row) - col);
@@ -407,7 +430,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
         }
       } else if (SEG && ring.slopes && !seg_masked) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < NS; ++i) {
           const int col = 8 * (i / 4) + 2 * tq + i % 2;
           float dist = (float)(qpos[(i % 4) / 2] - (kp0 + ksk * col));
           if (ring.alibi_abs) dist = fabsf(dist);
@@ -426,7 +449,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       auto kill = [&](int i) { kbits[i >> 5] &= ~(1u << (i & 31)); };
       if (SEG && seg_masked) {
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
+        for (int c = 0; c < BN / 8; ++c) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             int ks, kp;
@@ -467,7 +490,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
                           (causal && n0 + BN - 1 > mw + offset) || win;
         if (edge) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < NS; ++i) {
             const int row = r_lo + 8 * ((i % 4) / 2);
             const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
             if (col >= Skv || (causal && row + offset < col) ||
@@ -482,7 +505,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
                                       : (uint32_t)kp0;
           const uint32_t kst = idx_pos ? 1u : (uint32_t)ksk;
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < NS; ++i) {
             const uint32_t cl = 8 * (i / 4) + 2 * tq + i % 2;
             if (!rfa_band::keep(rh[(i % 4) / 2],
                                 (kb + kst * cl) * rfa_band::H_K, band.thr))
@@ -498,7 +521,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       // of it: element 4 c + 2 r + e is key 8 c + 2 tq + e, held by lane
       // 4 (c % 8) + tq of lo (c < 8) or hi
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
+      for (int c = 0; c < BN / 8; ++c) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           int ks, kp;
@@ -528,7 +551,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       }
     } else {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < NS; ++i) {
         float x = sc[i] * (XFORM && !RING ? 1.f : scale_log2);
         if (edge) {
           const int row = r_lo + 8 * ((i % 4) / 2);
@@ -541,12 +564,12 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     }
 
     // rows r_lo (r = 0) and r_lo + 8 (r = 1); the four threads of a quad
-    // hold a row's 128 columns
+    // hold a row's BN columns
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
+      for (int i = 0; i < BN / 8; ++i)
         mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
@@ -556,7 +579,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       alpha[r] = exp2f(m_run[r] - m_use);
       float rs = 0.f;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < BN / 8; ++i) {
         sc[4 * i + 2 * r] = ex2(sc[4 * i + 2 * r] - m_use);
         sc[4 * i + 2 * r + 1] = ex2(sc[4 * i + 2 * r + 1] - m_use);
         rs += sc[4 * i + 2 * r] + sc[4 * i + 2 * r + 1];
@@ -568,7 +591,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     if constexpr (BAND == rfa_band::ALL) {
       if (band.thr) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < NS; ++i)
           if (!((kbits[i >> 5] >> (i & 31)) & 1u)) sc[i] = 0.f;
       }
     }
@@ -589,8 +612,8 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   // (P V) are issued together and tile j's softmax runs while P V does;
   // O takes tile j's alpha once P V of j - 1 has landed
   if (n_tiles > 0) {
-    float sc[64], alpha[2];
-    uint32_t pa[8][4];
+    float sc[NS], alpha[2];
+    uint32_t pa[BN / 16][4];
     // SEG: the live kv tile t of pipeline step j, whether it is masked,
     // and then the lane's share of its keys' segment ids and positions
     int t = k_lo;
@@ -601,8 +624,9 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       if (SEG && masked(tt)) {
         lo = rfa_seg::load_pair(seg.kv_seg, seg.kv_pos, tt * BN + 2 * lane,
                                 Skv);
-        hi = rfa_seg::load_pair(seg.kv_seg, seg.kv_pos,
-                                tt * BN + 64 + 2 * lane, Skv);
+        if constexpr (BN == 128)
+          hi = rfa_seg::load_pair(seg.kv_seg, seg.kv_pos,
+                                  tt * BN + 64 + 2 * lane, Skv);
       }
       if constexpr (XFORM && SEG) {
         if (!masked(tt) && seg.q_pos &&
@@ -759,9 +783,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   Maps maps = {};
   int e = hop_host::tmap_4d(&maps.q, q, false, B, Hq, Sq, D, st, 64, BM);
   if (!e) e = hop_host::tmap_4d(&maps.k, k, false, B, Hkv, Skv, D, st + 3,
-                                64, BN);
+                                64, kv_tile<D>);
   if (!e) e = hop_host::tmap_4d(&maps.v, v, false, B, Hkv, Skv, D, st + 6,
-                                64, BN);
+                                64, kv_tile<D>);
   if (e) return e;
   dim3 grid(B * Hq, tiles);
   kern<<<grid, NTHREADS, bytes, stream>>>(maps, out, lse, Hq, Hkv, Sq, Skv,

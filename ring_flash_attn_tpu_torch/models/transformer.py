@@ -441,10 +441,10 @@ def shard_params(src, cfg: ModelConfig, tp_rank=0, tp=1, ep_rank=0, ep=1,
                  device="cuda"):
     """A Transformer holding the shards of tensor-parallel rank ``tp_rank``
     of ``tp`` and expert-parallel rank ``ep_rank`` of ``ep``
-    (``param_specs``), cut from ``src``: a whole Transformer, or the JAX
-    package's parameter tree with numpy leaves (``jax.tree.map(np.asarray,
-    params)``), whose leaves are copied as they are (both packages use the
-    (d_in, d_out) orientation)."""
+    (``param_specs``), cut from ``src``: a whole Transformer, its state
+    dict, or the JAX package's parameter tree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``), whose leaves are copied as they
+    are (both packages use the (d_in, d_out) orientation)."""
     device = resolve_device(device)
     model = Transformer(cfg, device, tp, ep)
     whole = whole_params(src, cfg)
@@ -469,11 +469,14 @@ def shard_params(src, cfg: ModelConfig, tp_rank=0, tp=1, ep_rank=0, ep=1,
 
 
 def whole_params(src, cfg: ModelConfig):
-    """{parameter name: tensor} of ``src``: a whole Transformer, or the JAX
-    package's parameter tree with numpy leaves (copied as they are: both
-    packages use the (d_in, d_out) orientation)."""
+    """{parameter name: tensor} of ``src``: a whole Transformer, its
+    ``state_dict()`` (as ``utils.restore_checkpoint`` gives it back), or
+    the JAX package's parameter tree with numpy leaves (copied as they
+    are: both packages use the (d_in, d_out) orientation)."""
     if isinstance(src, nn.Module):
         return dict(src.named_parameters())
+    if isinstance(src, dict) and "layers" not in src:  # a state dict
+        return dict(src)
     return {n: _to_torch(a) for n, a in _jax_leaves(src, cfg).items()}
 
 

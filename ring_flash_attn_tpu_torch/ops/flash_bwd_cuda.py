@@ -28,7 +28,8 @@ import torch
 from . import _build
 from .block_meta import SegArgs, index_causal, launch_masked
 from .flash_fwd_cuda import (BAND_TAIL, XFORM_TAIL, _check_operand,
-                             check_qkv, count_launch, kernel_offset)
+                             check_block_head_dim, check_qkv, count_launch,
+                             kernel_offset)
 from .mask import MaskArgs, check_supported
 
 # The JAX package's limit for the fused kernel (pallas_bwd_fused.py:56): the
@@ -52,6 +53,12 @@ _OUT_DTYPES = (None, torch.float32, torch.bfloat16)
 # the kv-major loop of B2 and B3b (csrc/flash_bwd.cuh): 64 q rows a step,
 # 128 keys a block
 KV_MAJOR_TILES = (64, 128)
+
+
+def kv_major_tiles(d):
+    """(q rows a step, keys a block) of the kv-major loop of B2 and B3b at
+    head_dim d: 64 keys a block at 256 (``csrc/flash_bwd.cuh::kv_keys``)."""
+    return (64, 64) if d > 128 else KV_MAJOR_TILES
 
 
 def fused_bwd_supported(skv, d):
@@ -93,7 +100,8 @@ def check_bwd(dout, q, k, v, lse, delta, mask: MaskArgs, out, dtypes):
     check_supported(mask)
     offset = kernel_offset(mask)
     dev = q.device
-    b, hq, _, sq, _, _ = check_qkv(q, k, v)
+    b, hq, _, sq, _, d = check_qkv(q, k, v)
+    check_block_head_dim(d, mask)
     _check_operand("dout", dout, dev)
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must match q "
@@ -142,7 +150,8 @@ def flash_bwd_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
     """Fused block backward on the card: (dq, dk, dv).
 
     q, dout (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) in bf16, D in
-    {64, 128}, Hq % Hkv == 0; lse (and delta, or else the forward ``out``
+    {64, 128, 256} (256 without softcap, ALiBi, a window or dropout),
+    Hq % Hkv == 0; lse (and delta, or else the forward ``out``
     in bf16) fp32 (B, Hq, Sq). dq is fp32 unless dq_dtype narrows it (a
     cast of the kernel's fp32 accumulator); dk, dv fp32 unless dkv_dtype
     narrows them (written so by the kernel), summed over the GQA group.
@@ -175,7 +184,7 @@ def flash_bwd_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
             rc = launch_masked(
                 (lib.rfa_flash_bwd, lib.rfa_flash_bwd_seg,
                  lib.rfa_flash_bwd_xf, lib.rfa_flash_bwd_band),
-                args, mask, q, k, KV_MAJOR_TILES, stream)
+                args, mask, q, k, kv_major_tiles(d), stream)
             count_launch(flash_bwd_cuda, mask)
         _build.check_launch(lib, rc, "flash_bwd")
     if dq_dtype not in (None, torch.float32):

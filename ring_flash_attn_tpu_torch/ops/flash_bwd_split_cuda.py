@@ -22,7 +22,7 @@ import torch
 
 from . import _build
 from .block_meta import SegArgs, index_causal, launch_masked
-from .flash_bwd_cuda import KV_MAJOR_TILES, bwd_delta, bwd_strides, check_bwd
+from .flash_bwd_cuda import bwd_delta, bwd_strides, check_bwd, kv_major_tiles
 from .flash_fwd_cuda import BAND_TAIL, XFORM_TAIL, count_launch
 from .mask import MaskArgs
 
@@ -40,6 +40,12 @@ _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
 ]
 _SEG_TAIL = [ctypes.POINTER(SegArgs), ctypes.c_void_p]
 DQ_TILES = (128, 64)  # B3a: 128 q rows a block, 64 keys a tile
+
+
+def dq_tiles(d):
+    """(q rows a block, keys a tile) of B3a at head_dim d: 64-row q tiles
+    at 256 (``csrc/flash_bwd_split.cu::dq_rows``)."""
+    return (64, 64) if d > 128 else DQ_TILES
 
 
 def _lib():
@@ -86,7 +92,7 @@ def _dq(dout, q, k, v, lse, delta, scale, mask, offset, dq_dtype):
         rc = launch_masked(
             (lib.rfa_flash_bwd_dq, lib.rfa_flash_bwd_dq_seg,
              lib.rfa_flash_bwd_dq_xf, lib.rfa_flash_bwd_dq_band),
-            args, mask, q, k, DQ_TILES, stream)
+            args, mask, q, k, dq_tiles(q.shape[3]), stream)
         count_launch(flash_bwd_dq_cuda, mask)
     _build.check_launch(lib, rc, "flash_bwd_dq")
     return dq
@@ -112,7 +118,7 @@ def _dkv(dout, q, k, v, lse, delta, scale, mask, offset, dkv_dtype):
         rc = launch_masked(
             (lib.rfa_flash_bwd_dkv, lib.rfa_flash_bwd_dkv_seg,
              lib.rfa_flash_bwd_dkv_xf, lib.rfa_flash_bwd_dkv_band),
-            args, mask, q, k, KV_MAJOR_TILES, stream)
+            args, mask, q, k, kv_major_tiles(q.shape[3]), stream)
         count_launch(flash_bwd_dkv_cuda, mask)
     _build.check_launch(lib, rc, "flash_bwd_dkv")
     return dk, dv

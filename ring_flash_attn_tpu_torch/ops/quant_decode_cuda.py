@@ -14,6 +14,7 @@ import functools
 import torch
 
 from . import _build
+from .flash_fwd_cuda import head_dim_error
 
 MAX_ROWS = 16  # G * Tq query rows per kv head that one block serves
 HEAD_DIM = 128
@@ -55,7 +56,7 @@ def check_operand(name, x, dev, dtypes, ndim):
 
 def check_rows(hq, hkv, tq, d):
     if d != HEAD_DIM:
-        raise ValueError(f"head_dim must be {HEAD_DIM}, got {d}")
+        head_dim_error(d, "the decode kernels B4, B5 and B6", (HEAD_DIM,))
     if hq % hkv or (hq // hkv) * tq > MAX_ROWS:
         raise ValueError(f"(Hq/Hkv)*Tq must divide evenly and be <= {MAX_ROWS}"
                          f", got Hq={hq} Hkv={hkv} Tq={tq}")

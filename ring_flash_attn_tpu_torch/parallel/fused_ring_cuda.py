@@ -15,7 +15,8 @@ import torch
 
 from ..ops import _build
 from ..ops.flash_bwd_cuda import _check_rows, bwd_strides
-from ..ops.flash_fwd_cuda import _check_operand, check_q_tiles, check_qkv
+from ..ops.flash_fwd_cuda import (HEAD_DIMS, _check_operand, check_q_tiles,
+                                  check_qkv)
 
 # rfa_fused_ring_fwd(q, k, v, m, l, acc, slopes, out, lse, B, Hq, Hkv, Sq,
 #                    Skv, D, strides, diagonal, q_row0, cap2, q_pos0, kv_pos0,
@@ -42,7 +43,7 @@ def _lib(name, argtypes):
 def _check_shapes(q, k, v):
     """Operand checks shared by both kernels; returns (B, Hq, Hkv, Sq, Skv,
     D)."""
-    dims = check_qkv(q, k, v)
+    dims = check_qkv(q, k, v, HEAD_DIMS, "the fused ring's kernels B7 and B8")
     if 0 in dims:
         raise ValueError("a ring step needs at least one query and one key")
     return dims

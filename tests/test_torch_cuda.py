@@ -14,8 +14,9 @@ import torch
 
 from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B3A_EDGE_CASES,
                         B5_TOL, B7_EDGE_CASES, BAND_EDGE_CASES, BWD_REL_TOL,
-                        RING_OUT_REL_TOL, SEG_EDGE_CASES, XFORM_EDGE_CASES,
-                        b5_case_inputs, b5_edge_cases, band_case_check,
+                        D256_EDGE_CASES, RING_OUT_REL_TOL, SEG_EDGE_CASES,
+                        XFORM_EDGE_CASES, b5_case_inputs, b5_edge_cases,
+                        band_case_check, d256_case_check,
                         band_keep_checks, rel_err_rows, ring_steps,
                         seg_case_mask, xform_case_mask)
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
@@ -1132,3 +1133,37 @@ def test_cuda_chunk_b1_skips_tiles_past_the_chunk(c, p_len):
     v[:, :, end:] = float("nan")
     out2, lse2 = flash_fwd_cuda(q, k, v, 128**-0.5, mask)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(D256_EDGE_CASES)))
+def test_cuda_head_dim_256_kernels_match_plain_versions(case):
+    """B1, B2 and B3a/B3b at head_dim 256 (Gemma), mask-free and
+    segmented, at their tiles' edges (``chip_smoke.D256_EDGE_CASES``)
+    against their plain versions, both backward modes, at the head_dim
+    128 limits (``chip_smoke.d256_check``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    d256_case_check(torch, D256_EDGE_CASES[case], seed=case)
+
+
+@pytest.mark.cuda
+def test_cuda_timed_and_trace_timing():
+    """``utils.timing.timed`` and ``utils.trace_timing`` on a chain of
+    matrix products on the card: a positive per-call time, device time
+    read from the profiler's trace, busy time at most the summed time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from ring_flash_attn_tpu_torch.utils.timing import timed
+    from ring_flash_attn_tpu_torch.utils.trace_timing import (
+        trace_device_busy, trace_device_time)
+
+    x0 = torch.randn(1024, 1024, device="cuda") / 32
+
+    def step(x):
+        return torch.tanh(x @ x)
+
+    assert 0 < timed(step, x0, n=10, n0=2) < 1.0
+    dev_s, by_name = trace_device_time(step, x0, n_iters=4)
+    busy_s, _ = trace_device_busy(step, x0, n_iters=4)
+    assert dev_s > 0 and by_name and 0 < busy_s <= dev_s * (1 + 1e-6)

@@ -35,9 +35,16 @@ DOCS = (96, 160)  # the packed batch: two documents, across shards
 SMALL = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
              num_hidden_layers=2, num_attention_heads=4,
              num_key_value_heads=2, max_position_embeddings=S)
-# a sliding window shorter than both documents, so that it matters
+# a sliding window shorter than both documents, so that it matters; Gemma
+# at a small head_dim and at its published configurations' 256
 FAMILIES = {"Mistral": dict(SMALL, sliding_window=40),
-            "Gemma": dict(SMALL, head_dim=16)}
+            "Gemma": dict(SMALL, head_dim=16),
+            "Gemma-hd256": dict(SMALL, head_dim=256)}
+
+
+def _family(name):
+    """The transformers family of a FAMILIES entry."""
+    return name.split("-")[0]
 
 
 def _packed():
@@ -46,8 +53,8 @@ def _packed():
     return tokens.astype(np.int64), pos.astype(np.int64)
 
 
-def _case(family, model, tokens, pos):
-    return {"family": family, "config": model.config.to_dict(),
+def _case(name, model, tokens, pos):
+    return {"family": _family(name), "config": model.config.to_dict(),
             "state": {n: t.detach().numpy().copy()
                       for n, t in model.state_dict().items()},
             "tokens": tokens, "pos": pos}
@@ -128,8 +135,9 @@ def hf_run(devices8):
     models = {"Llama": transformers.LlamaForCausalLM(LlamaConfig(**SMALL))}
     load_flax_weights_in_pytorch_model(models["Llama"], flax_model.params)
     torch.manual_seed(0)
-    for family, kw in FAMILIES.items():
-        models[family] = getattr(transformers, f"{family}ForCausalLM")(
+    for name, kw in FAMILIES.items():
+        family = _family(name)
+        models[name] = getattr(transformers, f"{family}ForCausalLM")(
             getattr(transformers, f"{family}Config")(**kw))
     models = {n: m.float().eval() for n, m in models.items()}
     unpatched = {n: _unpatched(m, tokens, pos) for n, m in models.items()}
@@ -193,8 +201,9 @@ def test_patched_llama_matches_jax_and_unpatched(hf_run):
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_patched_families_match_unpatched(hf_run, family):
     """Mistral (a 40-token sliding window, which the route passes on as
-    window_left 39) and Gemma (head_dim 16) patched at W=4 against the
-    stock models on the whole packed sequence."""
+    window_left 39) and Gemma (head_dim 16, and 256 as Gemma-2B and
+    Gemma-7B have it) patched at W=4 against the stock models on the
+    whole packed sequence."""
     res, _, unpatched, _, _ = hf_run
     np.testing.assert_allclose(_cat(res, f"{family}/logits"),
                                unpatched[family], atol=2e-5)

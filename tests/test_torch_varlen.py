@@ -118,8 +118,9 @@ def _edge_pad(x, blk):
     return np.concatenate([x, np.repeat(x[-1:], n)])
 
 
-# each port kernel's tiles (q rows, keys): B1; B3a; B2 and B3b
-TILES = [(128, 128), (128, 64), (64, 128)]
+# each port kernel's tiles (q rows, keys): B1; B3a (and B1 at head_dim
+# 256); B2 and B3b; B2, B3a and B3b at head_dim 256
+TILES = [(128, 128), (128, 64), (64, 128), (64, 64)]
 
 
 @pytest.mark.parametrize("tiles", TILES)
