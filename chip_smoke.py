@@ -23,7 +23,11 @@ Phases, each of which raises on failure:
    boundary, lanes of 0 and 1 token, 16-token pages, R = 16 with
    new_counts, softcap with fp32 q); every call twice, bitwise equal;
    timed beside its byte bound at the table's shape, the engine's 4 lanes
-   and R = 16.
+   and R = 16. Then at head dims 64 and 256 and past the rows one block
+   serves (``DECODE_CASES``: Llama-3.2-1B's 32/8 heads of 64, Falcon-7B's
+   71/1, Gemma-7B's 16/16 and Gemma-2B's 8/1 of 256, StarCoder's 48/1 of
+   128, Tq 1 to 5 with new_counts, softcap, a dead lane), each case timed
+   beside its bound (this holds for phases 7 and 8 too).
 4. The ServingEngine at Llama-3-8B widths with 4 layers and seeded random
    weights: the first prefill and first decode-step logits of the kernels
    against the plain versions on the card, then 6 requests (two queue, one
@@ -55,7 +59,8 @@ Phases, each of which raises on failure:
    softcap, B=2, Tq=2, S=1280, a 32-token tail cache, ``length`` as a CUDA
    tensor, the decode loop's pipeline edges and 16 rows; bitwise the same
    call after call, also after calls of other shapes; timed at B=1,
-   S=32768 int8 beside its byte bound, and on the 32-token tail cache.
+   S=32768 int8 beside its byte bound, and on the 32-token tail cache;
+   then ``DECODE_CASES`` (phase 3), and a length of 0 in row groups.
 8. Kernel B6 (decode over int8/fp8 pages) against its plain version: 8
    lanes of ragged lengths over shuffled block tables, the three types,
    softcap, bitwise the same call after call, the pipeline edges and 16
@@ -63,7 +68,9 @@ Phases, each of which raises on failure:
    (``paged_quant_prefill``, 8 steps of ``paged_quant_append`` and
    ``paged_quant_decode_attention``) with its launch count; timed at B=4,
    context 8192, pages of 256 and 512, beside its byte bound and B5 in
-   bf16 at the same shape.
+   bf16 at the same shape; then ``DECODE_CASES`` (phase 3) and the
+   op-level path again at Llama-3.2-1B's, Gemma-2B's and StarCoder's
+   attention (``B6_WIDE_PATHS``), their launches counted.
 9. Long-context inference at the same widths (4 layers, seeded random
    weights, one process): at a 4096-token prompt the whole path of the
    kernels against the plain versions (prefill and first decode-step
@@ -178,8 +185,9 @@ Phases, each of which raises on failure:
    values past the chunk's last kv tile set to NaN (those tiles must be
    skipped), B1 at ragged chunks of 320, 192 and 64 rows, and the first
    token of a 256-token request behind a 3840-token prompt, dense and
-   chunked; (b) ``speculate_k`` 4 (16 rows a kv head) and 8 (two launches
-   of B5 a layer) on repetitive prompts against the plain greedy engine,
+   chunked; (b) ``speculate_k`` 4 (16 rows a kv head) and 8 (32 rows: one
+   launch of B5 a layer, two row groups of 16 on its grid) on repetitive
+   prompts against the plain greedy engine,
    every verify's B5 against ``_plain_paged_decode``, drafts proposed and
    accepted, tokens a decode step, and one verify forward's wall and
    device time beside a plain decode step's; (c) ``mesh=`` over a gloo
@@ -203,7 +211,8 @@ Phases, each of which raises on failure:
    2 microbatches of 4096 tokens at phase 6's widths against
    ``train_step`` on the same batch (loss, gradients, the updated
    weights) and its loss against ``loss_fn`` on the plain versions, both
-   steps timed.
+   steps timed; the counted step takes a data group (a gloo group of
+   one).
 22. The utils and the entry points: ``entry()``'s flagship logits against
    ``backend="plain"`` (on its zero tokens and on random ones); ``dryrun_multichip(1, "cuda")`` (a spawned NCCL
    process of one, JAX's first configuration in bf16 at head_dim 64, its
@@ -227,6 +236,19 @@ Phases, each of which raises on failure:
    ``flash_attn_varlen_func`` on the four packings against the plain
    versions, and phase 20 at Gemma-7B's widths (``ring_attention_forward``
    at W=1 on 32768 tokens, past B2's limit: B3a and B3b; the W=4 ranks).
+24. The engine and ``generate`` at the decode loop's new builds
+   (``DECODE_MODELS``, published widths, seeded random weights):
+   Llama-3.2-1B (head_dim 64, its 16 layers), Gemma-7B (head_dim 256, cut
+   to 4 layers) and StarCoder (48/1 heads of 128, cut to 2 layers): the
+   engine's first prefill and decode-step logits against the plain
+   versions, phase 4's traffic (prefill tokens/s, decode steps/s; for
+   StarCoder also a speculative run at k = 4 whose verifies, 192 rows a
+   kv head, are held against the plain version), a decode step's busy
+   share through ``utils.trace_timing``; then ``generate`` (32768 prompt
+   tokens for Llama-3.2-1B, 8192 for the others; 32 steps) with its
+   launches, and its first decode step's logits against the plain
+   versions over the same caches. The paths' launches of B4 and B5 give
+   the kernels line's entries of the new builds (B6's come from phase 8).
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -252,6 +274,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM
 B1_OUT_TOL, B1_LSE_TOL = 2e-2, 1e-3  # bf16 P in P@V, bf16 out
@@ -837,7 +860,9 @@ def rel_err_rows(a, ref):
 
 # each kernel's instantiation at the timed shape (head_dim 128): its library
 # (csrc/<lib>.cu) and a piece of its mangled name; the largest over the
-# instantiations that match where a kernel has several (B7). The last two
+# instantiations that match where a kernel has several (B7). The decode
+# kernels' last two template arguments are the head dim and RG (row
+# groups, csrc/quant_decode.cuh). The last two
 # template arguments of the block kernels are XFORM (softcap and ALiBi,
 # phase 17) and BAND (0; windows and dropout, phase 18: 1 the build of a
 # window alone, 2 the build for dropout, softcap and ALiBi with or without
@@ -845,14 +870,15 @@ def rel_err_rows(a, ref):
 # kernel line adds the others' facts
 INSTANTIATIONS = {
     "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb0ELi0EE"),
-    "B5 paged_decode": ("paged_decode", "paged_decode_kernelILi4E"),
+    "B5 paged_decode": ("paged_decode", "paged_decode_kernelILi4ELi128ELb0EE"),
     "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb0ELb0ELi0EE"),
     "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb0ELb0ELi0EE"),
     "B3b flash_bwd_dkv": ("flash_bwd_split",
                           "bwd_kv_kernelILi128ELb0ELb0ELb0ELb0ELi0EE"),
-    "B4 quant_decode": ("quant_decode", "quant_decode_kernelILi0ELi4E"),
+    "B4 quant_decode": ("quant_decode",
+                        "quant_decode_kernelILi0ELi4ELi128ELb0EE"),
     "B6 paged_quant_decode": ("paged_quant_decode",
-                              "paged_quant_decode_kernelILi0ELi4E"),
+                              "paged_quant_decode_kernelILi0ELi4ELi128ELb0EE"),
     "B7 fused_ring_fwd": ("fused_ring_fwd", "flash_fwd_kernelILi128ELb1E"),
     "B8 fused_ring_bwd": ("fused_ring_bwd", "bwd_kv_kernelILi128ELb1ELb1E"),
     # the softcap/ALiBi instantiations (phase 17), without segments
@@ -1366,7 +1392,7 @@ def phase_b5(torch, flush):
         "max_abs_err": worst, **t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
         "other_shapes": extra,
-    }
+    }, decode_wide(torch, "B5", flush)
 
 
 def _traffic(vocab):
@@ -1416,42 +1442,29 @@ def _serve(torch, model, prompts, backend, new_tokens):
     return eng.outputs, steps
 
 
-def phase_engine(torch):
-    from ring_flash_attn_tpu_torch.models import ModelConfig, init_params
+def _engine_logit_checks(torch, model, prompts, new_tokens):
+    """The engine's first prefill logits (prompt 0) and its first decode
+    step's logits over four lanes (prompts 0 to 3, the kernels' prefilled
+    pages) on the kernels against the plain versions, within
+    LOGITS_REL_TOL of max|plain|. Returns (prefill error, decode error)."""
     from ring_flash_attn_tpu_torch.models.serve import (
         _decode_body, _prefill_fn, ServingEngine)
-    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
     from ring_flash_attn_tpu_torch.ops.paged import PagedKVCache
-    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
-        paged_decode_cuda)
     from ring_flash_attn_tpu_torch.serving import gather_block_tables
 
-    log("== phase 4: ServingEngine at Llama-3-8B widths, 4 layers")
     dev = torch.device("cuda")
-    # benchmark/benchmark_serving.py's full-width configuration
-    cfg = ModelConfig(**FULL_WIDTH)
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                        device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"  init_params: {n_params / 1e9:.3f} B parameters in "
-        f"{time.perf_counter() - t0:.1f} s")
-    prompts = _traffic(cfg.vocab)
-    new_tokens = 16
-
     # first prefill logits: kernels vs plain versions
     p0 = prompts[0]
     padded = torch.as_tensor(np.pad(p0, (0, -len(p0) % 256))[None],
                              device=dev).long()
     lk, _, _ = _prefill_fn(model, padded, len(p0) - 1)
     lp, _, _ = _prefill_fn(model, padded, len(p0) - 1, backend="plain")
-    err = max_err(lk, lp) / float(lp.abs().max())
+    pre_err = max_err(lk, lp) / float(lp.abs().max())
     log(f"  first prefill logits: max|kernel - plain| / max|plain| = "
-        f"{err:.3e} (tol {LOGITS_REL_TOL}), finite "
+        f"{pre_err:.3e} (tol {LOGITS_REL_TOL}), finite "
         f"{bool(torch.isfinite(lk).all())}, argmax equal "
         f"{int(lk.argmax()) == int(lp.argmax())}")
-    if not (err <= LOGITS_REL_TOL and torch.isfinite(lk).all()):
+    if not (pre_err <= LOGITS_REL_TOL and torch.isfinite(lk).all()):
         raise AssertionError("prefill logits disagree")
 
     # first decode step: both versions from the same kernel-prefilled pages
@@ -1487,6 +1500,30 @@ def phase_engine(torch):
         f"{(lk.argmax(-1) == lp.argmax(-1)).tolist()}")
     if not (err <= LOGITS_REL_TOL and torch.isfinite(lk).all()):
         raise AssertionError("decode logits disagree")
+    return pre_err, err
+
+
+def phase_engine(torch):
+    from ring_flash_attn_tpu_torch.models import ModelConfig, init_params
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+
+    log("== phase 4: ServingEngine at Llama-3-8B widths, 4 layers")
+    dev = torch.device("cuda")
+    # benchmark/benchmark_serving.py's full-width configuration
+    cfg = ModelConfig(**FULL_WIDTH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  init_params: {n_params / 1e9:.3f} B parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = _traffic(cfg.vocab)
+    new_tokens = 16
+
+    _engine_logit_checks(torch, model, prompts, new_tokens)
 
     # the main path: count launches over this run only
     flash_fwd_cuda.launches = 0
@@ -2021,7 +2058,60 @@ def phase_b4(torch, flush):
         "max_abs_err": worst, **t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
         "tail_s32": tail,
-    }
+    }, decode_wide(torch, "B4", flush)
+
+
+def _quant_paged_path(torch, rnd, hq, hkv, d, tables, num_pages,
+                      what="B6"):
+    """B6's path through the op-level entry points (phase 8): 4 lanes of
+    ``tables`` (4, 16) in pages of 256 over a pool of ``num_pages``,
+    ``paged_quant_prefill`` of 2048, 1000, 0 and 513 tokens, then 8 steps
+    of ``paged_quant_append`` (lane 2 masked) and
+    ``paged_quant_decode_attention`` at Hq / Hkv heads of d; a second
+    cache, filled the same way, goes to the plain version. Returns (the
+    worst error, the kernel's launches over the 8 steps)."""
+    from ring_flash_attn_tpu_torch.ops import paged as P
+    from ring_flash_attn_tpu_torch.ops.paged_quant_decode_cuda import (
+        paged_quant_decode_cuda)
+
+    b2, ctx, ps, pps = 4, 2048, 256, tables.shape[1]
+    scale = d ** -0.5
+    k, v = rnd(b2, hkv, ctx, d), rnd(b2, hkv, ctx, d)
+    start = [2048, 1000, 0, 513]
+    mask = torch.tensor([True, True, False, True], device="cuda")
+    caches = [P.paged_quant_prefill(
+        P.paged_quant_init(b2, hkv, num_pages, ps, pps, d,
+                           block_tables=tables), k, v, start)
+        for _ in range(2)]
+    saved = paged_quant_decode_cuda.launches
+    paged_quant_decode_cuda.launches = 0
+    step_worst = 0.0
+    for step in range(8):
+        k_new, v_new = rnd(b2, hkv, 1, d), rnd(b2, hkv, 1, d)
+        caches = [P.paged_quant_append(c, k_new, v_new, mask=mask)
+                  for c in caches]
+        q = rnd(b2, hq, 1, d).to(torch.bfloat16)
+        got = P.paged_quant_decode_attention(q, caches[0], scale)
+        ref = P.paged_quant_decode_attention(q, caches[1], scale,
+                                             backend="plain")
+        torch.cuda.synchronize()
+        eo, el = max_err(got[0], ref[0]), max_err(got[1], ref[1])
+        step_worst = max(step_worst, eo, el)
+        if not (eo <= QUANT_TOL and el <= QUANT_TOL):
+            raise AssertionError(f"{what} disagrees with its plain version "
+                                 f"at append step {step}: {eo:.3e} {el:.3e}")
+    path_launches = paged_quant_decode_cuda.launches
+    paged_quant_decode_cuda.launches = saved
+    end = caches[0].seq_lens.tolist()
+    same = all(torch.equal(x, y)
+               for x, y in zip(caches[0][:4], caches[1][:4]))
+    log(f"  {what}: prefill {start} + 8 x (append, decode) at {hq}/{hkv} "
+        f"heads of {d}: worst err {step_worst:.3e} (tol {QUANT_TOL}); lens "
+        f"now {end}; the two caches bitwise equal {same}; launches "
+        f"{path_launches}")
+    if end != [2056, 1008, 0, 521] or not same or path_launches != 8:
+        raise AssertionError(f"{what}: the quantized paged path went wrong")
+    return step_worst, path_launches
 
 
 def phase_b6(torch, flush):
@@ -2094,41 +2184,9 @@ def phase_b6(torch, flush):
     # its path through the op-level entry points: prefill, then 8 steps of
     # append + decode; a second cache, filled the same way, goes to the
     # plain version. Launches are counted over the kernel's calls only.
-    b2, ctx = 4, 2048
-    tables = perm[:b2 * pps].reshape(b2, pps)
-    k, v = rnd(b2, hkv, ctx, d), rnd(b2, hkv, ctx, d)
-    start = [2048, 1000, 0, 513]
-    mask = torch.tensor([True, True, False, True], device=dev)
-    caches = [P.paged_quant_prefill(
-        P.paged_quant_init(b2, hkv, b * pps, ps, pps, d, block_tables=tables),
-        k, v, start) for _ in range(2)]
-    paged_quant_decode_cuda.launches = 0
-    step_worst = 0.0
-    for step in range(8):
-        k_new, v_new = rnd(b2, hkv, 1, d), rnd(b2, hkv, 1, d)
-        caches = [P.paged_quant_append(c, k_new, v_new, mask=mask)
-                  for c in caches]
-        q = rnd(b2, hq, 1, d).to(torch.bfloat16)
-        got = P.paged_quant_decode_attention(q, caches[0], scale)
-        ref = P.paged_quant_decode_attention(q, caches[1], scale,
-                                             backend="plain")
-        torch.cuda.synchronize()
-        eo, el = max_err(got[0], ref[0]), max_err(got[1], ref[1])
-        step_worst = max(step_worst, eo, el)
-        if not (eo <= QUANT_TOL and el <= QUANT_TOL):
-            raise AssertionError(f"B6 disagrees with its plain version at "
-                                 f"append step {step}: {eo:.3e} {el:.3e}")
-    path_launches = paged_quant_decode_cuda.launches
-    end = caches[0].seq_lens.tolist()
-    same = all(torch.equal(x, y)
-               for x, y in zip(caches[0][:4], caches[1][:4]))
-    log(f"  prefill {start} + 8 x (append, decode): worst err "
-        f"{step_worst:.3e} (tol {QUANT_TOL}); lens now {end}; the two "
-        f"caches bitwise equal {same}; launches {path_launches}")
-    if end != [2056, 1008, 0, 521] or not same or path_launches != 8:
-        raise AssertionError("the quantized paged path went wrong")
+    step_worst, path_launches = _quant_paged_path(
+        torch, rnd, hq, hkv, d, perm[:4 * pps].reshape(4, pps), b * pps)
     worst = max(worst, step_worst)
-    del caches, k, v
 
     # timing: 4 lanes of 8192 tokens, pages of 256 and 512, int8; B5 on the
     # same tokens in bf16 pages of 256
@@ -2180,7 +2238,222 @@ def phase_b6(torch, flush):
         "max_abs_err": worst, **t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
         "page_512": t512, "b5_bf16": b5,
-    }, {"B6 paged_quant_decode": path_launches}
+    }, {"B6 paged_quant_decode": path_launches}, _b6_wide(torch, rnd, flush)
+
+
+def _b6_wide(torch, rnd, flush):
+    """Phase 8 at the decode loop's new builds: B6 on every DECODE_CASES
+    case, then its op-level path at each family's attention
+    (B6_WIDE_PATHS). Returns ({family: readings}, {family: the path's
+    launches})."""
+    wide = decode_wide(torch, "B6", flush)
+    launches = {}
+    tables = np.random.default_rng(80).permutation(64).astype(
+        np.int32).reshape(4, 16)
+    for fam, (hq, hkv, d) in B6_WIDE_PATHS.items():
+        err, launches[fam] = _quant_paged_path(torch, rnd, hq, hkv, d, tables,
+                                               64, what=f"B6 {fam}")
+        wide[fam][0]["path_max_abs_err"] = err
+    return wide, launches
+
+
+# ---------------------------------------------------------------------------
+# the decode loop (B4, B5, B6) at head dims 64 and 256 and past the rows one
+# block serves (csrc/quant_decode.cuh::max_rows: 16, 8 at 256), held in
+# phases 3, 7 and 8 and in tests/test_torch_cuda.py: the attention of the
+# models phase 24 serves (Llama-3.2-1B 32/8 heads of 64, Gemma-7B 16/16 and
+# Gemma-2B 8/1 of 256, StarCoder 48/1 of 128) and Falcon-7B's odd group
+# (71/1 of 64). (name, head dim, Hq, Hkv, Tq, B4/B6 cache type, softcap,
+# the paged kernels' page size): Tq > 1 is a speculative verify (B5 with
+# new_counts); every D's instantiations at 4, 8 and 16 rows and in row
+# groups (RG) are met, each of the three cache types at each head dim,
+# and pages shorter than a 64-token chunk (16, as the serving example's)
+# beside 64, 128 and 256
+DECODE_CASES = [
+    ("Llama-3.2-1B", 64, 32, 8, 1, "int8", None, 256),
+    ("Llama-3.2-1B Tq=2", 64, 32, 8, 2, "fp8_e4m3", 20.0, 16),
+    ("Llama-3.2-1B Tq=4", 64, 32, 8, 4, "fp8_e5m2", None, 256),
+    ("Llama-3.2-1B Tq=5 (20 rows)", 64, 32, 8, 5, "int8", None, 256),
+    ("Falcon-7B (71 rows)", 64, 71, 1, 1, "fp8_e4m3", None, 64),
+    ("Falcon-7B Tq=5 (355 rows)", 64, 71, 1, 5, "int8", 20.0, 256),
+    ("Gemma-7B", 256, 16, 16, 1, "int8", 30.0, 256),
+    ("Gemma-2B (8 rows)", 256, 8, 1, 1, "fp8_e5m2", None, 256),
+    ("Gemma-2B Tq=5 (40 rows)", 256, 8, 1, 5, "int8", None, 16),
+    ("G=48 at 256", 256, 48, 1, 1, "fp8_e4m3", None, 256),
+    ("StarCoder (48 rows)", 128, 48, 1, 1, "int8", None, 256),
+    ("StarCoder Tq=5 (240 rows)", 128, 48, 1, 5, "fp8_e5m2", 30.0, 128),
+]
+# B6's op-level path (phase 8) at each family's attention, (Hq, Hkv, D):
+# Llama-3.2-1B's, Gemma-2B's and StarCoder's
+B6_WIDE_PATHS = {"D64": (32, 8, 64), "D256": (8, 1, 256),
+                 "G>16": (48, 1, 128)}
+# the paged kernels' lanes (a dead lane, one token, a ragged and a long
+# one) in shuffled pages; B4's cache of DECODE_S positions
+# at length DECODE_S - 192 (a CUDA tensor in every other case)
+DECODE_LENS = [0, 1, 3000, 8192]
+DECODE_S = 8192
+
+
+def _decode_bound_ms(q, tokens, hkv, value_bytes, scales, table_ints=0,
+                     qk_int8=False):
+    """The least time of a decode over ``tokens`` live tokens a kv head:
+    the cache's K and V (and fp32 scales) once, q, out, lse and the table
+    (bytes), or the operations of QK and PV, 2 * tokens * rows * D each a
+    kv head, at the peak of their type, whichever is larger: PV at the bf16
+    tensor-core peak, QK there too or, with ``qk_int8`` (B6 on int8 pages:
+    an exact s8 product), at the int8 peak. Returns (ms, "bytes" or
+    "operations")."""
+    b, hq, tq, d = q.shape
+    nbytes = (2 * tokens * hkv * d * value_bytes + 2 * 4 * tokens * hkv * scales
+              + q.element_size() * q.numel() + 4 * (q.numel() + b * hq * tq)
+              + 4 * table_ints)
+    ops = 2 * tokens * hq * tq * d  # QK's, and PV's
+    by_bytes = nbytes / H100_BYTES_PER_S
+    by_ops = ops / (H100_INT8_OPS if qk_int8 else H100_BF16_FLOPS) + (
+        ops / H100_BF16_FLOPS)
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def decode_case_inputs(torch, case, kernel, seed=0):
+    """The inputs of a DECODE_CASES case for ``kernel`` ("B4", "B5" or
+    "B6") on the card: (the kernel's call, the plain version's call, its
+    tolerance, (the bound ms, what bounds it), a description)."""
+    from ring_flash_attn_tpu_torch.ops import paged as P
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.paged_quant_decode_cuda import (
+        paged_quant_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.quant import (
+        _plain_quant_decode, quantize_kv)
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    name, d, hq, hkv, tq, qdtype, cap, page = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1000 + seed)
+    scale = d ** -0.5
+    bf16 = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if kernel == "B4":
+        b, length = 2, DECODE_S - 192
+        c = quantize_kv(rnd(b, hkv, DECODE_S, d), rnd(b, hkv, DECODE_S, d),
+                        qdtype)
+        q = rnd(b, hq, tq, d).to(bf16 if seed % 2 else torch.float32)
+        arg = (torch.tensor([length], dtype=torch.int32, device=dev)
+               if seed % 2 else length)
+        return (lambda: quant_decode_cuda(
+                    q, c.k_q, c.k_scale, c.v_q, c.v_scale, arg, scale,
+                    softcap=cap),
+                lambda: _plain_quant_decode(q, c, arg, scale, cap),
+                QUANT_TOL,
+                _decode_bound_ms(q, b * length, hkv, 1, True),
+                f"B=2 S={DECODE_S} length {length} {qdtype}")
+    b, pps = len(DECODE_LENS), DECODE_S // page
+    perm = np.random.default_rng(seed).permutation(b * pps).astype(np.int32)
+    tables = perm.reshape(b, pps)
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    q = rnd(b, hq, tq, d).to(bf16)
+    tokens = sum(DECODE_LENS)
+    what = f"lanes {DECODE_LENS} in pages of {page}"
+    if kernel == "B5":
+        shape = (b * pps, hkv, page, d)
+        cache = P.PagedKVCache(rnd(*shape).to(bf16), rnd(*shape).to(bf16),
+                               torch.as_tensor(tables, device=dev), lens)
+        counts = None if tq == 1 else torch.tensor(
+            [0, 1, tq, tq], dtype=torch.int32, device=dev)
+        return (lambda: paged_decode_cuda(
+                    q, cache.k_pages, cache.v_pages, cache.block_tables,
+                    cache.seq_lens, scale, softcap=cap, new_counts=counts),
+                lambda: P._plain_paged_decode(q, cache, scale, cap, counts),
+                B5_TOL,
+                _decode_bound_ms(q, tokens, hkv, 2, False, tables.size),
+                what + ("" if counts is None else
+                        f", new_counts {counts.tolist()}"))
+    c = P.paged_quant_prefill(
+        P.paged_quant_init(b, hkv, b * pps, page, pps, d,
+                           qdtype=qdtype, block_tables=tables, device=dev),
+        rnd(b, hkv, DECODE_S, d), rnd(b, hkv, DECODE_S, d), DECODE_LENS)
+    return (lambda: paged_quant_decode_cuda(
+                q, c.k_pages, c.k_scales, c.v_pages, c.v_scales,
+                c.block_tables, c.seq_lens, scale, softcap=cap),
+            lambda: P._plain_quant_paged_decode(q, c, scale, cap),
+            QUANT_TOL,
+            _decode_bound_ms(q, tokens, hkv, 1, True, tables.size,
+                             qk_int8=qdtype == "int8"),
+            f"{what}, {qdtype}")
+
+
+def decode_case_check(torch, case, kernel, seed=0):
+    """A DECODE_CASES case through ``kernel``: twice, the same bits, within
+    the kernel's tolerance of its plain version, and a dead lane (B5, B6)
+    or a length of 0 (B4, a third call) at out = 0, lse = NEG_INF. Returns
+    (the worst error, the kernel's call, the plain version's call, (the
+    bound ms, what bounds it), a description)."""
+    run, plain, tol, bound, what = decode_case_inputs(torch, case, kernel,
+                                                      seed)
+    got, again = run(), run()
+    ref = plain()
+    torch.cuda.synchronize()
+    eo, el = max_err(got[0], ref[0]), max_err(got[1], ref[1])
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    label = f"{kernel} {case[0]} (D={case[1]}, {case[2]}/{case[3]} heads, " \
+        f"Tq={case[4]}, softcap {case[6]}; {what})"
+    if not (eo <= tol and el <= tol):
+        raise AssertionError(f"{label}: out {eo:.3e}, lse {el:.3e} against "
+                             f"the plain version (tol {tol})")
+    if not same:
+        raise AssertionError(f"{label}: two calls differ")
+    if kernel != "B4" and not (bool((got[0][0] == 0).all())
+                               and bool((got[1][0] == -1e30).all())):
+        raise AssertionError(f"{label}: the dead lane is not (0, NEG_INF)")
+    log(f"  {label}: max|out| err {eo:.3e}, max|lse| err {el:.3e} (tol "
+        f"{tol}); two calls bitwise equal")
+    return max(eo, el), run, plain, bound, what
+
+
+def decode_wide(torch, kernel, flush):
+    """Phases 3, 7 and 8: ``kernel`` on every DECODE_CASES case against its
+    plain version, each timed beside its bound; B4 also at length 0 in row
+    groups. Returns {family: [its readings]}, the first case of each
+    family with the plain version's time."""
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    log(f"  {kernel} at head dims 64 and 256 and past one block's rows:")
+    out = {}
+    for i, case in enumerate(DECODE_CASES):
+        err, run, plain, (bound, by), what = decode_case_check(
+            torch, case, kernel, seed=i)
+        t = kernel_ms(torch, run, 10, flush)
+        # its family in the kernels line: "D64", "D256", or "G>16" (the
+        # cases at 128 all pass the 16 rows a block serves: row groups)
+        fam = "G>16" if case[1] == 128 else f"D{case[1]}"
+        entry = {"case": case[0], "d": case[1], "heads": case[2:4],
+                 "tq": case[4], "shape": what, "max_abs_err": err, **t,
+                 "bound_ms": bound, "bound_by": by}
+        if fam not in out:
+            entry["plain_ms"] = cuda_ms(torch, plain, 3, flush)
+        log(f"    {case[0]}: {t['ms']:.4f} ms, device {t['device_ms']:.4f} "
+            f"ms, bound {bound:.4f} ms ({by}); "
+            f"{t['device_ms'] / bound:.1f}x")
+        out.setdefault(fam, []).append(entry)
+        del run, plain
+    if kernel == "B4":  # length 0 in row groups: every row dead
+        _, d, hq, hkv, tq, _, _, _ = DECODE_CASES[5]
+        dev = torch.device("cuda")
+        z = torch.zeros((1, hkv, 64, d), dtype=torch.int8, device=dev)
+        s = torch.ones((1, hkv, 64), device=dev)
+        o, l = quant_decode_cuda(torch.ones((1, hq, tq, d), device=dev),
+                                 z, s, z, s, 0, 0.125)
+        if not (bool((o == 0).all()) and bool((l == -1e30).all())):
+            raise AssertionError("B4 at length 0 in row groups: not "
+                                 "(0, NEG_INF)")
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_generate(torch):
@@ -5385,8 +5658,9 @@ def _checked_chunks(torch, counters, seen):
 @contextlib.contextmanager
 def _checked_verify(torch, seen):
     """paged_decode_attention's calls with new_counts (the speculative
-    verify: B5, in groups of 16 // G rows past 16 rows) also held against
-    ``_plain_paged_decode`` on all rows at once."""
+    verify: B5, one launch whose grid takes row groups past the rows one
+    block serves) also held against ``_plain_paged_decode``. Records
+    (Tq, (|out| error, |lse| error)) of each call in ``seen``."""
     from ring_flash_attn_tpu_torch.ops import paged
 
     real = paged.paged_decode_attention
@@ -5603,8 +5877,9 @@ def phase_serving_options(torch):
     readings["first_token_s"] = {n: {"short": s, "long": l, "tokens_per_s": t}
                                  for n, (s, l, t) in ttft.items()}
 
-    # (b) speculate_k=4 (16 rows at G=4) and 8 (32 rows: two launches of
-    # B5 a layer) on repetitive prompts, against the plain greedy engine
+    # (b) speculate_k=4 (16 rows at G=4) and 8 (32 rows: one launch of B5
+    # a layer, two row groups of 16) on repetitive prompts, against the
+    # plain greedy engine
     rng = np.random.default_rng(19)
     rep = {rid: np.tile(rng.integers(0, cfg.vocab, size=u),
                         -(-n // u))[:n].astype(np.int32)
@@ -5897,7 +6172,10 @@ def phase_adapter(torch, hq=32, hkv=8, d=128):
 def phase_pipeline(torch):
     """Phase 21: ``train_step_pp`` with one stage (no pp group) and 2
     microbatches at phase 6's widths against ``train_step`` on the same
-    batch. Returns (the launches of the pipeline path, its readings)."""
+    batch, its counted step with a data group of one. Returns (the
+    launches of the pipeline path, its readings)."""
+    import torch.distributed as dist
+
     from ring_flash_attn_tpu_torch.models import (
         ModelConfig, init_params, loss_fn, loss_fn_pp, stack_layers,
         train_step, train_step_pp)
@@ -5946,9 +6224,17 @@ def phase_pipeline(torch):
 
     lr = 1e-3
     launches = {}
-    with _path_run(counters, launches):
-        loss_pp, _ = timed(train_step_pp, stage, toks, labels, pos, False, m,
-                           lr)
+    # the counted step with a data group (a gloo group of one on this card:
+    # its sums and mean are the identity, the data replicas' code path runs)
+    port = _free_port()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        with _path_run(counters, launches):
+            loss_pp, _ = timed(train_step_pp, stage, toks, labels, pos, False,
+                               m, lr, False, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
     loss_ref, _ = timed(train_step, model, toks, labels, pos, lr)
     # the updated bf16 weights: each within one or two ulps (2^-7 of the
     # weight) plus lr times GRAD_REL_TOL of the parameter's largest
@@ -6001,8 +6287,8 @@ def phase_utils_entry(torch):
     import tempfile
 
     from ring_flash_attn_tpu_torch.entry import dryrun_multichip, entry
-    from ring_flash_attn_tpu_torch.models import (ModelConfig, ServingEngine,
-                                                  init_params, train_step)
+    from ring_flash_attn_tpu_torch.models import (ModelConfig, init_params,
+                                                  train_step)
     from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
     from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
         flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
@@ -6014,8 +6300,7 @@ def phase_utils_entry(torch):
                                                  restore_checkpoint,
                                                  save_checkpoint)
     from ring_flash_attn_tpu_torch.utils.timing import timed
-    from ring_flash_attn_tpu_torch.utils.trace_timing import (
-        trace_device_busy, trace_device_time)
+    from ring_flash_attn_tpu_torch.utils.trace_timing import trace_device_time
 
     log("== phase 22: the utils and the entry points on the card")
     counters = {"B1 flash_fwd": flash_fwd_cuda, "B2 flash_bwd": flash_bwd_cuda,
@@ -6127,26 +6412,9 @@ def phase_utils_entry(torch):
     # at phase 4's widths, 4 lanes (profile_torch_serving.py's)
     cfg = ModelConfig(**FULL_WIDTH)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
-               for n in (3000, 1200, 2600, 300)]
-    n_iters = 8
-    eng = ServingEngine(model, num_pages=64, page_size=256,
-                        pages_per_seq=16, max_batch=4)
-    for rid, p in enumerate(prompts):
-        eng.submit(rid, p, 8 * n_iters)
     with _uncounted(counters):
-        eng.step()  # the prefill
-        eng.step()
-
-        def decode(x):
-            eng.step()
-            return x
-
-        flag = torch.zeros(1, device=dev)
-        wall = timed(decode, flag, n=n_iters, n0=1)
-        dev_s, by_name = trace_device_time(decode, flag, n_iters)
-        busy_s, _ = trace_device_busy(decode, flag, n_iters)
+        wall, dev_s, busy_s, by_name = _decode_step_busy(torch, model,
+                                                         cfg.vocab)
     share = busy_s / wall
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     log(f"  the engine's decode step (4 lanes): wall {wall * 1e3:.3f} ms, "
@@ -6161,7 +6429,7 @@ def phase_utils_entry(torch):
     readings["decode_step"] = {"wall_ms": wall * 1e3,
                                "device_ms": dev_s * 1e3,
                                "busy_ms": busy_s * 1e3, "busy_share": share}
-    del eng, model
+    del model
     torch.cuda.empty_cache()
     return paths, readings
 
@@ -6518,6 +6786,262 @@ def phase_d256(torch, flush):
     return entries, launches
 
 
+# the decode loop's new builds in the kernels line: the library, the TPU
+# kernel each replaces, and the family's instantiations by a piece of
+# their mangled names (<..., RMAX, D, RG>)
+DECODE_KERNELS = {
+    "B4": ("quant_decode",
+           "ring_flash_attn_tpu/ops/quant_decode_pallas.py:28"),
+    "B5": ("paged_decode", "ring_flash_attn_tpu/ops/paged.py:257"),
+    "B6": ("paged_quant_decode", "ring_flash_attn_tpu/ops/paged.py:615"),
+}
+DECODE_FAMILY_PIECES = {"D64": "ELi64ELb", "D256": "ELi256ELb",
+                        "G>16": "ELi128ELb1EE"}
+
+
+def decode_entries(built, kernel, wide, launches):
+    """The kernels line's entries of ``kernel``'s new builds: one a family
+    of ``decode_wide``'s readings ``wide``, timed at its first case, with
+    the worst error over its cases, the launches of its path
+    (``launches``: {family: {path: n}}) and ptxas's facts of each of its
+    instantiations."""
+    lib, replaces = DECODE_KERNELS[kernel]
+    facts = ptxas_facts(built[lib][:-3] + ".log")
+    entries = []
+    for fam, cases in wide.items():
+        first = cases[0]
+        by_path = launches[fam]
+        entries.append({
+            "name": f"{kernel} {lib} {fam}", "route": "cuda",
+            "source": f"ring_flash_attn_tpu_torch/csrc/{lib}.cu",
+            "replaces": replaces,
+            "shape": f"{first['case']}: {first['heads'][0]}/"
+                     f"{first['heads'][1]} heads of {first['d']}, Tq="
+                     f"{first['tq']}, {first['shape']}",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": first["ms"], "device_ms": first["device_ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None,
+            "launches": next(iter(by_path.values())),
+            "launches_by_path": by_path,
+            "ptxas": {n[n.index("decode_kernel"):][:40]: f
+                      for n, f in sorted(facts.items())
+                      if DECODE_FAMILY_PIECES[fam] in n},
+            "cases": cases})
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the engine and generate at the decode loop's new head dims and
+# groups
+
+# the models that phase 24 serves, at their published widths with seeded
+# random weights (no weight or config is downloaded); depth cut where
+# named. "prompt": generate's prompt tokens; "speculate_k": the engine's
+# speculative run on repetitive prompts (a verify of k candidates, the
+# pending token and k - 1 drafts: StarCoder's takes 4 x 48 = 192 rows a kv
+# head); "family": the entries of the kernels line whose launches its
+# paths give
+DECODE_MODELS = {
+    "Llama-3.2-1B": dict(
+        source="meta-llama/Llama-3.2-1B config.json (16 layers, whole)",
+        cfg=dict(vocab=128256, dim=2048, layers=16, heads=32, kv_heads=8,
+                 head_dim=64, mlp_dim=8192, rope_theta=500000.0,
+                 dtype="bfloat16"),
+        prompt=32768, speculate_k=None, family="D64"),
+    "Gemma-7B": dict(
+        source="google/gemma-7b config.json (28 layers cut to 4)",
+        cfg=dict(vocab=256000, dim=3072, layers=4, heads=16, kv_heads=16,
+                 head_dim=256, mlp_dim=24576, dtype="bfloat16"),
+        prompt=8192, speculate_k=None, family="D256"),
+    "StarCoder": dict(
+        source="bigcode/starcoder config.json (40 layers cut to 2)",
+        cfg=dict(vocab=49152, dim=6144, layers=2, heads=48, kv_heads=1,
+                 head_dim=128, mlp_dim=24576, dtype="bfloat16"),
+        prompt=8192, speculate_k=4, family="G>16"),
+}
+
+
+def _repetitive(vocab, seed=19):
+    """Phase 19's four repetitive prompts (a unit repeated), on which
+    prompt-lookup drafting proposes drafts."""
+    rng = np.random.default_rng(seed)
+    return {rid: np.tile(rng.integers(0, vocab, size=u),
+                         -(-n // u))[:n].astype(np.int32)
+            for rid, (u, n) in enumerate(((50, 1000), (17, 600), (120, 1500),
+                                          (33, 800)))}
+
+
+def _decode_step_busy(torch, model, vocab, n_iters=8):
+    """The engine's decode step over 4 lanes (3000, 1200, 2600, 300 tokens
+    of context) on phase 4's pool (phases 22 and 24): (wall s, device
+    compute s, busy s, {kernel: device s}) a step through
+    ``utils.timing.timed`` and ``utils.trace_timing``."""
+    from ring_flash_attn_tpu_torch.models import ServingEngine
+    from ring_flash_attn_tpu_torch.utils.timing import timed
+    from ring_flash_attn_tpu_torch.utils.trace_timing import (
+        trace_device_busy, trace_device_time)
+
+    rng = np.random.default_rng(0)
+    eng = ServingEngine(model, device="cuda", **SERVE_POOL)
+    for rid, n in enumerate((3000, 1200, 2600, 300)):
+        eng.submit(rid, rng.integers(0, vocab, n).astype(np.int32),
+                   8 * n_iters)
+    eng.step()  # the prefill
+    eng.step()
+
+    def decode(x):
+        eng.step()
+        return x
+
+    flag = torch.zeros(1, device="cuda")
+    wall = timed(decode, flag, n=n_iters, n0=1)
+    dev_s, by_name = trace_device_time(decode, flag, n_iters)
+    busy_s, _ = trace_device_busy(decode, flag, n_iters)
+    return wall, dev_s, busy_s, by_name
+
+
+def phase_decode_models(torch):
+    """Phase 24. Returns ({model: {"serving": launches, "generate":
+    launches}}, {model: readings})."""
+    from ring_flash_attn_tpu_torch.models import (
+        ModelConfig, decode_step, generate, init_params, prefill)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.quant import make_cache
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    log("== phase 24: the engine and generate at head dims 64 and 256 and "
+        "at 48 q heads a kv head")
+    counters = {"B1 flash_fwd": flash_fwd_cuda,
+                "B4 quant_decode": quant_decode_cuda,
+                "B5 paged_decode": paged_decode_cuda}
+    paths, readings = {}, {}
+    for name, spec in DECODE_MODELS.items():
+        cfg = ModelConfig(**spec["cfg"])
+        t0 = time.perf_counter()
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        log(f"  {name} ({spec['source']}): "
+            f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+            f"parameters, {cfg.heads}/{cfg.kv_heads} heads of "
+            f"{cfg.head_dim}, {cfg.layers} layers, init "
+            f"{time.perf_counter() - t0:.1f} s")
+        rd = readings[name] = {"source": spec["source"], "config": spec["cfg"]}
+        serving, gen_launches = {}, {}
+        paths[name] = {"serving": serving, "generate": gen_launches}
+
+        # (a) the engine: logits of the kernels against the plain versions,
+        # then phase 4's traffic (and, with speculate_k, a speculative run
+        # whose every verify is held against the plain version)
+        prompts = _traffic(cfg.vocab)
+        with _uncounted(counters):
+            rd["engine_logits_rel_err"] = _engine_logit_checks(
+                torch, model, prompts, 16)
+        with _path_run(counters, serving):
+            out, steps = _serve(torch, model, prompts, None, 16)
+        for rid, toks in out.items():
+            if len(toks) != 16 or not all(0 <= t < cfg.vocab for t in toks):
+                raise AssertionError(f"{name}: request {rid} gave {toks}")
+        pre = [(dt, n) for dt, n, _ in steps if n]
+        dec = [dt for dt, n, decoded in steps if decoded and not n]
+        rd["prefill_tokens_per_s"] = sum(n for _, n in pre) / sum(
+            dt for dt, _ in pre)
+        rd["decode_steps_per_s"] = len(dec) / sum(dec)
+        if spec["speculate_k"]:
+            k, rows = spec["speculate_k"], []
+            with _path_run(counters, serving), _checked_verify(torch, rows):
+                _, _, _, st = _engine_run(torch, model, _repetitive(cfg.vocab),
+                                          32, speculate_k=k)
+            widest = max(r[0] for r in rows) * cfg.heads // cfg.kv_heads
+            log(f"    speculate_k={k}: {st['spec_proposed']} drafts "
+                f"proposed, {st['spec_accepted']} accepted; {len(rows)} "
+                f"verify calls held against the plain version, up to "
+                f"{widest} rows a kv head, worst |out| "
+                f"{max(r[1][0] for r in rows):.2e}, |lse| "
+                f"{max(r[1][1] for r in rows):.2e} (tol {B5_TOL})")
+            if (st["spec_proposed"] <= 0
+                    or widest != k * (cfg.heads // cfg.kv_heads)):
+                raise AssertionError(f"{name}: no verify of {k} rows a "
+                                     f"q head ran")
+            rd["speculative"] = {"proposed": st["spec_proposed"],
+                                 "accepted": st["spec_accepted"],
+                                 "verify_calls": len(rows),
+                                 "rows_a_kv_head": widest}
+        with _uncounted(counters):
+            wall, dev_s, busy_s, _ = _decode_step_busy(torch, model,
+                                                       cfg.vocab)
+        rd["decode_step"] = {"wall_ms": wall * 1e3, "device_ms": dev_s * 1e3,
+                             "busy_ms": busy_s * 1e3,
+                             "busy_share": busy_s / wall}
+        log(f"    engine: prefill {rd['prefill_tokens_per_s']:.0f} tokens/s,"
+            f" {rd['decode_steps_per_s']:.1f} decode steps/s; a decode step "
+            f"(4 lanes) {wall * 1e3:.3f} ms wall, {dev_s * 1e3:.3f} ms of "
+            f"device compute, busy {100 * busy_s / wall:.1f}%; launches "
+            f"{serving}")
+        torch.cuda.empty_cache()
+
+        # (b) generate: the counted run, then its parts, the first decode
+        # step's logits against the plain versions over the same caches
+        n, steps_ = spec["prompt"], 32
+        prompt = torch.as_tensor(np.random.default_rng(24).integers(
+            0, cfg.vocab, size=(1, n)), device="cuda")
+        with _path_run(counters, gen_launches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = generate(model, prompt, steps_, max_new=steps_)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        want = {"B1 flash_fwd": cfg.layers,
+                "B4 quant_decode": cfg.layers * steps_ * 2,
+                "B5 paged_decode": 0}
+        if gen_launches != want or tuple(toks.shape) != (1, steps_):
+            raise AssertionError(f"{name}: generate gave {tuple(toks.shape)}"
+                                 f" tokens, launches {gen_launches} (expected"
+                                 f" {want})")
+        with _uncounted(counters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill(model, prompt)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            token = logits[:, -1].argmax(-1)
+            del logits
+
+            def tails():
+                return [make_cache(1, cfg.kv_heads, steps_, cfg.head_dim)
+                        for _ in model.layers]
+
+            first, _ = decode_step(model, token, n, 0, caches, tails())
+            plain, _ = decode_step(model, token, n, 0, caches, tails(),
+                                   backend="plain")
+            err = _rel_err(first, plain)
+            tl = tails()
+            decode_step(model, token, n, 0, caches, tl)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for step in range(1, 9):
+                decode_step(model, token, n + step, step, caches, tl)
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) / 8 * 1e3
+        log(f"    generate: {n}-token prompt, {steps_} steps in {gen_s:.3f} s "
+            f"(launches {gen_launches}); prefill {pre_s:.3f} s "
+            f"({n / pre_s:.0f} tokens/s), decode {dec_ms:.3f} ms a step; "
+            f"first decode-step logits kernels vs plain {err:.3e} of "
+            f"max|plain| (tol {LOGITS_REL_TOL})")
+        if not (err <= LOGITS_REL_TOL and bool(torch.isfinite(first).all())):
+            raise AssertionError(f"{name}: generate's decode step disagrees "
+                                 f"with the plain versions")
+        rd["generate"] = {"prompt": n, "steps": steps_, "wall_s": gen_s,
+                          "prefill_s": pre_s, "decode_step_ms": dec_ms,
+                          "logits_rel_err": err}
+        del model, caches, tl, first, plain
+        torch.cuda.empty_cache()
+    return paths, readings
+
+
 def main():
     import torch
 
@@ -6542,8 +7066,8 @@ def main():
     from ring_flash_attn_tpu_torch.ops import _build
     built = _build.build_all()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    kernels = [run("B1", phase_b1, torch, flush),
-               run("B5", phase_b5, torch, flush)]
+    b5, b5_wide = run("B5", phase_b5, torch, flush)
+    kernels = [run("B1", phase_b1, torch, flush), b5]
     del flush
     torch.cuda.empty_cache()
     serving = run("serving", phase_engine, torch)
@@ -6555,8 +7079,10 @@ def main():
     training, flash_losses = run("training", phase_train, torch)
     torch.cuda.empty_cache()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    kernels.append(run("B4", phase_b4, torch, flush))
-    b6, paged_quant = run("B6", phase_b6, torch, flush)
+    b4, b4_wide = run("B4", phase_b4, torch, flush)
+    kernels.append(b4)
+    b6, paged_quant, (b6_wide, b6_wide_paths) = run("B6", phase_b6, torch,
+                                                    flush)
     kernels.append(b6)
     del flush
     torch.cuda.empty_cache()
@@ -6602,6 +7128,29 @@ def main():
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     d256_entries, gemma = run("head_dim 256", phase_d256, torch, flush)
     del flush
+    torch.cuda.empty_cache()
+    decode_paths, decode_readings = run("decode models", phase_decode_models,
+                                        torch)
+    # the decode loop's new builds, each family's launches from its path:
+    # B5 the engine's, B4 generate's (phase 24), B6 its op-level path's
+    # (phase 8)
+    by_model = {spec["family"]: name for name, spec in DECODE_MODELS.items()}
+    decode_new = []
+    for kernel, wide, path in (("B4", b4_wide, "generate"),
+                               ("B5", b5_wide, "serving")):
+        decode_new += decode_entries(built, kernel, wide, {
+            fam: {f"{by_model[fam]} {path}": decode_paths[by_model[fam]][
+                path][f"{kernel} {DECODE_KERNELS[kernel][0]}"]}
+            for fam in wide})
+    decode_new += decode_entries(built, "B6", b6_wide, {
+        fam: {f"paged_quant {fam}": n} for fam, n in b6_wide_paths.items()})
+    for e in decode_new:
+        if e["launches"] <= 0:
+            raise AssertionError(f"{e['name']} never ran on its path: "
+                                 f"{e['launches_by_path']}")
+    for k in kernels:
+        if k["name"] in ("B4 quant_decode", "B5 paged_decode"):
+            k["decode_models"] = decode_readings
     next(k for k in kernels if k["name"].startswith("B7"))[
         "w4_causal_forward_ms"] = ring_compare
     b1 = next(k for k in kernels if k["name"].startswith("B1"))
@@ -6659,7 +7208,7 @@ def main():
             k["ptxas_varlen"] = kernel_ptxas(built, k["name"],
                                              SEG_INSTANTIATIONS)
             k.update(varlen_readings[k["name"]])
-    kernels += xform_entries + band_entries + d256_entries
+    kernels += xform_entries + band_entries + d256_entries + decode_new
     log(f"phase seconds {seconds}; phases took "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

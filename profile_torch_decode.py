@@ -30,6 +30,15 @@ parent.
    no dirty line whose write-back lands in the kernel's time; beside each,
    the least time the card could take (bytes).
 
+4. Where the tree has row groups (past the rows one block serves): traces
+   B6 at Falcon-7B's 355 rows and B5 at StarCoder's 240 rows
+   (``chip_smoke.DECODE_CASES``, lanes of 0, 1, 3000 and 8192 tokens) at
+   the split plan's number of splits and at others forced on the
+   launcher: each held against the plain version, with the launch as
+   torch.profiler records it (grid, threads, registers, shared memory,
+   its estimate of occupancy), the blocks an SM can hold by those, the
+   chunks a pipeline walks on the longest lane, and the kernel's time.
+
 Correctness is ``chip_smoke.py``'s (phases 3, 7, 8) and
 ``tests/test_torch_cuda.py``'s. Prints the card's name and power limit
 first.
@@ -37,7 +46,10 @@ first.
 
 import collections
 import hashlib
+import importlib
+import json
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -49,6 +61,14 @@ from chip_smoke import (  # noqa: E402
 
 LOOP = ("B5 paged_decode", "B6 paged_quant_decode", "B4 quant_decode")
 PIECES = ("decode_kernel",)
+# step 4: (kernel, its launcher's module, a DECODE_CASES case) and the
+# splits forced beside the plan's
+ROW_GROUP_CASES = (("B6", "paged_quant_decode_cuda",
+                    "Falcon-7B Tq=5 (355 rows)"),
+                   ("B5", "paged_decode_cuda", "StarCoder Tq=5 (240 rows)"))
+FORCED_SPLITS = (1, 2, 4, 8, 16, 32)
+LAUNCH_ARGS = ("grid", "block", "registers per thread", "shared memory",
+               "blocks per SM", "warps per SM", "est. achieved occupancy %")
 
 
 def _digest(torch, pairs):
@@ -160,6 +180,95 @@ class ReadFlush:
         self.buf.sum()
 
 
+def _launch_args(torch, fn):
+    """The decode kernel's launch in fn() as torch.profiler's Chrome trace
+    records it: {LAUNCH_ARGS key: value} of its first such event."""
+    from ring_flash_attn_tpu_torch.utils.trace_timing import (
+        _profiled, _trace_files)
+
+    def cycle():
+        fn()
+        torch.cuda.synchronize()
+
+    logdir = _profiled(cycle)
+    try:
+        for file in _trace_files(logdir):
+            with open(file) as f:
+                trace = json.load(f)
+            for ev in trace["traceEvents"]:
+                if (ev.get("cat") == "kernel"
+                        and "decode_kernel" in ev.get("name", "")):
+                    args = ev.get("args") or {}
+                    return {k: args[k] for k in LAUNCH_ARGS if k in args}
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    return {}
+
+
+def _lane_chunks(tokens, page):
+    """The 64-token chunks of a lane of ``tokens`` tokens in pages of
+    ``page`` (a chunk never spans a page: csrc/quant_decode.cuh::
+    paged_src)."""
+    if tokens <= 0:
+        return 0
+    full = (tokens - 1) // page
+    return full * -(-page // 64) + -(-(tokens - full * page) // 64)
+
+
+def row_group_trace(torch, flush):
+    """Step 4: each ROW_GROUP_CASES case at the plan's splits and at
+    FORCED_SPLITS (the launcher's ``paged_num_splits`` replaced for the
+    call), held against its plain version and timed."""
+    from chip_smoke import (
+        DECODE_CASES, DECODE_LENS, DECODE_S, decode_case_inputs, max_err)
+    from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as Q
+
+    for kernel, module, name in ROW_GROUP_CASES:
+        mod = importlib.import_module("ring_flash_attn_tpu_torch.ops."
+                                      + module)
+        case = next(c for c in DECODE_CASES if c[0] == name)
+        _, d, hq, hkv, tq, _, _, page = case
+        nrg, rows = Q.row_groups(hq // hkv * tq, d)
+        b = len(DECODE_LENS)
+        plan = Q.paged_num_splits(b, hkv, DECODE_S // page, page, nrg)
+        chunks = [_lane_chunks(n, page) for n in DECODE_LENS]
+        run, plain, tol, (bound, by), what = decode_case_inputs(
+            torch, case, kernel)
+        log(f"  row groups: {kernel} {name} (D={d}, {what}): {nrg} row "
+            f"groups of {rows} rows a kv head, {b * hkv * nrg} groups; the "
+            f"lanes' chunks {chunks}; the plan's splits {plan}; bound "
+            f"{bound:.5f} ms ({by})")
+        real = mod.paged_num_splits
+        try:
+            for n in sorted({plan, *FORCED_SPLITS}):
+                mod.paged_num_splits = lambda *_, n=n: n
+                got, ref = run(), plain()
+                err = max(max_err(x, y) for x, y in zip(got, ref))
+                if not err <= tol:
+                    raise AssertionError(f"{kernel} {name} at {n} splits: "
+                                         f"error {err:.3e} (tol {tol})")
+                args = _launch_args(torch, run)
+                threads = args.get("block", [0])[0]
+                regs = args.get("registers per thread", 0)
+                smem = args.get("shared memory", 0)
+                # an SM's 65536 registers and 228 KB of shared memory (1 KB
+                # of it reserved a block) over the block's; a pipeline is
+                # five warps (quant_decode.cuh::nthreads)
+                live = (min(65536 // (regs * threads),
+                            228 * 1024 // (smem + 1024))
+                        if regs and threads else None)
+                pipes = threads // 160 if threads else 1
+                t = kernel_ms(torch, run, 20, flush)
+                log(f"    {n} split(s){' (plan)' if n == plan else ''}: "
+                    f"dev {t['device_ms']:.4f} ms, ms {t['ms']:.4f} "
+                    f"({t['device_ms'] / bound:.1f}x the bound); error "
+                    f"{err:.2e}; launch {args}; blocks an SM can hold "
+                    f"{live}; chunks a pipeline walks on the longest lane "
+                    f"{-(-max(chunks) // (n * pipes))}")
+        finally:
+            mod.paged_num_splits = real
+
+
 def timings(torch, rounds):
     from ring_flash_attn_tpu_torch.ops import paged as P
     from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
@@ -257,6 +366,10 @@ def timings(torch, rounds):
         log(f"  {name}: ms " + ", ".join(f"{t['ms']:.4f}" for t in ts)
             + "; dev " + ", ".join(f"{t['device_ms']:.4f}" for t in ts)
             + f"; bound {bound:.5f} ms, dev {best / bound:.1f}x it")
+    from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as Q
+
+    if hasattr(Q, "row_groups"):  # the tree serves past one block's rows
+        row_group_trace(torch, flush)
     return times
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The block kernels' SASS in two trees, instruction for instruction.
+"""The kernels' SASS in two trees, instruction for instruction.
 
 Run from the root of a checkout on a machine with the CUDA toolkit:
 
@@ -9,11 +9,16 @@ Builds this checkout's kernels and those of the tree at PARENT (for
 example the parent commit unpacked beside this one), each in a process of
 its own since each imports its own package, disassembles the libraries of
 the forward and backward loops (``flash_fwd``, ``flash_bwd``,
-``flash_bwd_split``, ``fused_ring_fwd``, ``fused_ring_bwd``) with
-``cuobjdump -sass`` and holds every instantiation of ``flash_fwd_kernel``,
-``bwd_kv_kernel``, ``bwd_dq_kernel`` and ``bwd_delta_kernel`` in PARENT
-against the same instantiation here. An instantiation is known by its
-kernel and template arguments; the BAND parameter (windows and dropout,
+``flash_bwd_split``, ``fused_ring_fwd``, ``fused_ring_bwd``) and of the
+decode loop (``quant_decode``, ``paged_decode``, ``paged_quant_decode``)
+with ``cuobjdump -sass`` and holds every instantiation of
+``flash_fwd_kernel``, ``bwd_kv_kernel``, ``bwd_dq_kernel``,
+``bwd_delta_kernel``, ``quant_decode_kernel``, ``paged_decode_kernel`` and
+``paged_quant_decode_kernel`` in PARENT against the same instantiation
+here. An instantiation is known by its kernel and template arguments; the
+decode kernels' head dim D and row-group flag RG, their last two, are
+dropped where they are 128 and off, as a tree built for D = 128 alone
+names them; the BAND parameter (windows and dropout,
 ``csrc/band.cuh``: 0 none, 1 the build of a window alone, 2 the build for
 the rest) that the three loops take last, and the XFORM flag (softcap and
 ALiBi, ``csrc/xform.cuh``) that ``bwd_kv_kernel`` and ``bwd_dq_kernel``
@@ -39,9 +44,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LIBS = ("flash_fwd", "flash_bwd", "flash_bwd_split", "fused_ring_fwd",
-        "fused_ring_bwd")
+        "fused_ring_bwd", "quant_decode", "paged_decode", "paged_quant_decode")
 KERNELS = ("flash_fwd_kernel", "bwd_kv_kernel", "bwd_dq_kernel",
-           "bwd_delta_kernel")
+           "bwd_delta_kernel", "paged_quant_decode_kernel",
+           "quant_decode_kernel", "paged_decode_kernel")
 
 
 def build(root):
@@ -56,6 +62,10 @@ def build(root):
 
 # the number of template arguments with the BAND parameter, the last
 BAND_ARGS = {"flash_fwd_kernel": 5, "bwd_kv_kernel": 6, "bwd_dq_kernel": 4}
+# the decode kernels' template arguments with D and RG, the last two:
+# <QT, RMAX, D, RG>, paged_decode_kernel <RMAX, D, RG>
+DECODE_ARGS = {"quant_decode_kernel": 4, "paged_quant_decode_kernel": 4,
+               "paged_decode_kernel": 3}
 
 
 def key(name):
@@ -67,6 +77,8 @@ def key(name):
         return None
     kernel = m.group(1)
     args = tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2)))
+    if len(args) == DECODE_ARGS.get(kernel):
+        return kernel, (args[:-2] if args[-2:] == (128, 0) else args)
     if len(args) == BAND_ARGS.get(kernel):
         if args[-1]:
             return kernel, args + ("band",)

@@ -17,9 +17,11 @@
 // scales and per-row bounds; B5 has no loop of its own):
 //
 //  - one block per (lane, kv head, split) serves all G * Tq rows of the
-//    head's group, so each K/V page is read from device memory once;
+//    head's group, so each K/V page is read from device memory once (past
+//    max_rows(D) rows, one block per row group, whose reads of a page
+//    meet in L2);
 //  - a lane's live chunks (64 tokens, never spanning a page; PagedSrc)
-//    are dealt out to gridDim.x blocks of 3 pipelines each, chosen from
+//    are dealt out to gridDim.x blocks of 1 to 3 pipelines, chosen from
 //    shapes only (ops/quant_decode_cuda.py::num_splits), so that a few
 //    lanes fill the 132 SMs; the lane's last block merges the partials in
 //    split order (bitwise reproducible);
@@ -46,8 +48,8 @@ struct BoundedPagedSrc : PagedSrc {
   }
 };
 
-template <int RMAX>
-__global__ void __launch_bounds__(nthreads<RMAX, 2>(), 1)
+template <int RMAX, int D, bool RG>
+__global__ void __launch_bounds__(nthreads<D, RMAX, 2>(), 1)
 paged_decode_kernel(const void* __restrict__ q, int q_bf16,
                     const unsigned char* __restrict__ k_pages,
                     const unsigned char* __restrict__ v_pages,
@@ -56,52 +58,67 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16,
                     const int* __restrict__ new_counts, int Hkv, int Tq,
                     int R, int num_pages, int page_size, int npages,
                     float scale, float softcap, Dest dst) {
-  const int h = blockIdx.y, b = blockIdx.z;
+  // with row groups blockIdx.y is kv head * nrg + row group
+  const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
+  const int h = RG ? blockIdx.y / nrg : blockIdx.y, b = blockIdx.z;
   const BoundedPagedSrc src{
       paged_src(k_pages, v_pages, nullptr, nullptr, block_tables, seq_lens,
                 b, h, Hkv, num_pages, page_size, npages),
       new_counts ? new_counts[b] : 1, Tq};
-  decode_split<QT_BF16, false, RMAX, true>(src, q, q_bf16,
-                                           (long long)b * Hkv + h, R, scale,
-                                           softcap, dst);
+  decode_split<QT_BF16, false, D, RMAX, true, RG>(
+      src, q, q_bf16, (long long)b * Hkv + h, R, scale, softcap, dst,
+      RG ? blockIdx.y % nrg : 0);
 }
 
-template <int RMAX>
-int launch(const void* q, int q_bf16, const void* k_pages,
-           const void* v_pages, const int* block_tables, const int* seq_lens,
-           const int* new_counts, const Dest& dst, int B, int Hkv, int Tq,
-           int R, int num_pages, int page_size, int npages, int nsplit,
-           float scale, float softcap, cudaStream_t stream) {
-  auto kern = paged_decode_kernel<RMAX>;
-  constexpr int EB = value_bytes<QT_BF16>();
-  constexpr int bytes = Smem<RMAX, EB>::BYTES;
-  if (nsplit > 1 && !merge_fits<RMAX, EB>(nsplit, R))
-    return cudaErrorInvalidValue;
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    attr = true;
+// rfa_paged_decode's launch: run<QT_BF16, RMAX, D, RG>() launches that
+// build (rfa_qd::dispatch picks it)
+struct Launch {
+  const void* q;
+  int q_bf16;
+  const void* k_pages;
+  const void* v_pages;
+  const int* block_tables;
+  const int* seq_lens;
+  const int* new_counts;
+  Dest dst;
+  int B, Hkv, Tq, R, num_pages, page_size, npages, nsplit;
+  float scale, softcap;
+  cudaStream_t stream;
+
+  template <int QT, int RMAX, int D, bool RG>
+  int run() const {
+    static_assert(QT == QT_BF16, "B5 reads bf16 pages");
+    auto kern = paged_decode_kernel<RMAX, D, RG>;
+    constexpr int EB = value_bytes<QT_BF16>();
+    constexpr int bytes = Smem<D, RMAX, EB>::BYTES;
+    if (nsplit > 1 && !merge_fits<D, RMAX, EB>(nsplit, RG ? RMAX : R))
+      return cudaErrorInvalidValue;
+    static bool attr = false;
+    if (!attr) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+      attr = true;
+    }
+    const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
+    kern<<<dim3(nsplit, Hkv * nrg, B), nthreads<D, RMAX, EB>(), bytes,
+           stream>>>(q, q_bf16, static_cast<const unsigned char*>(k_pages),
+                     static_cast<const unsigned char*>(v_pages),
+                     block_tables, seq_lens, new_counts, Hkv, Tq, R,
+                     num_pages, page_size, npages, scale, softcap, dst);
+    return cudaGetLastError();
   }
-  kern<<<dim3(nsplit, Hkv, B), nthreads<RMAX, EB>(), bytes, stream>>>(
-      q, q_bf16, static_cast<const unsigned char*>(k_pages),
-      static_cast<const unsigned char*>(v_pages), block_tables, seq_lens,
-      new_counts, Hkv, Tq, R, num_pages, page_size, npages, scale, softcap,
-      dst);
-  return cudaGetLastError();
-}
+};
 
 }  // namespace
 
 // q (B, Hq, Tq, D) bf16 or fp32; pages (num_pages, Hkv, page_size, D) bf16;
 // block_tables (B, npages) int32; seq_lens, new_counts (B,) int32 (new_counts
 // may be null: every row sees the whole lane); all contiguous; any
-// page_size >= 1. out (B, Hq, Tq, D) and lse (B, Hq, Tq) fp32. With
-// nsplit > 1: part_acc (B * Hkv, nsplit, R, D) and part_ml
-// (B * Hkv, nsplit, R, 2) fp32 scratch, R = (Hq / Hkv) * Tq, and counters
-// (B * Hkv) int32, zero before the launch and zero after it (not read with
-// nsplit = 1). softcap <= 0 disables capping. Returns cudaGetLastError().
+// page_size >= 1; head_dim D 64, 128 or 256. out (B, Hq, Tq, D) and lse
+// (B, Hq, Tq) fp32. With nsplit > 1: part_acc, part_ml and counters laid
+// out by rp as rfa_quant_decode (quant_decode.cu) takes them. softcap <= 0
+// disables capping. Returns cudaGetLastError().
 extern "C" int rfa_paged_decode(const void* q, int q_bf16,
                                 const void* k_pages, const void* v_pages,
                                 const int* block_tables, const int* seq_lens,
@@ -109,21 +126,14 @@ extern "C" int rfa_paged_decode(const void* q, int q_bf16,
                                 float* part_acc, float* part_ml,
                                 int* counters, int B, int Hq, int Hkv, int Tq,
                                 int head_dim, int num_pages, int page_size,
-                                int npages, int nsplit, float scale,
+                                int npages, int nsplit, int rp, float scale,
                                 float softcap, void* stream) {
-  if (head_dim != D || Hkv <= 0 || Hq % Hkv || nsplit < 1 || num_pages < 1 ||
-      page_size < 1)
+  if (Hkv <= 0 || Hq % Hkv || nsplit < 1 || num_pages < 1 || page_size < 1)
     return cudaErrorInvalidValue;
   const int R = (Hq / Hkv) * Tq;
-  const Dest dst{out, lse, part_acc, part_ml, counters};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RFA_LAUNCH(RM)                                                      \
-  return launch<RM>(q, q_bf16, k_pages, v_pages, block_tables, seq_lens,    \
-                    new_counts, dst, B, Hkv, Tq, R, num_pages, page_size,   \
-                    npages, nsplit, scale, softcap, st)
-  if (R <= 4) RFA_LAUNCH(4);
-  if (R <= 8) RFA_LAUNCH(8);
-  if (R <= 16) RFA_LAUNCH(16);
-#undef RFA_LAUNCH
-  return cudaErrorInvalidValue;
+  const Launch launch{q, q_bf16, k_pages, v_pages, block_tables, seq_lens,
+                      new_counts, Dest{out, lse, part_acc, part_ml, counters},
+                      B, Hkv, Tq, R, num_pages, page_size, npages, nsplit,
+                      scale, softcap, static_cast<cudaStream_t>(stream)};
+  return dispatch<QT_BF16>(QT_BF16, head_dim, R, rp, launch);
 }

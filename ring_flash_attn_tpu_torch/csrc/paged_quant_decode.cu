@@ -28,8 +28,8 @@ namespace {
 
 using namespace rfa_qd;
 
-template <int QT, int RMAX>
-__global__ void __launch_bounds__(nthreads<RMAX, 1>(), 1)
+template <int QT, int RMAX, int D, bool RG>
+__global__ void __launch_bounds__(nthreads<D, RMAX, 1>(), 1)
 paged_quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                           const unsigned char* __restrict__ k_pages,
                           const unsigned char* __restrict__ v_pages,
@@ -39,89 +39,80 @@ paged_quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                           const int* __restrict__ seq_lens, int Hkv, int R,
                           int num_pages, int page_size, int npages,
                           float scale, float softcap, Dest dst) {
-  const int h = blockIdx.y, b = blockIdx.z;
+  // with row groups blockIdx.y is kv head * nrg + row group
+  const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
+  const int h = RG ? blockIdx.y / nrg : blockIdx.y, b = blockIdx.z;
   const PagedSrc src =
       paged_src(k_pages, v_pages, k_scales, v_scales, block_tables, seq_lens,
                 b, h, Hkv, num_pages, page_size, npages);
-  decode_split<QT, QT == QT_INT8, RMAX>(src, q, q_bf16,
-                                        (long long)b * Hkv + h, R, scale,
-                                        softcap, dst);
+  decode_split<QT, QT == QT_INT8, D, RMAX, false, RG>(
+      src, q, q_bf16, (long long)b * Hkv + h, R, scale, softcap, dst,
+      RG ? blockIdx.y % nrg : 0);
 }
 
-template <int QT, int RMAX>
-int launch(const void* q, int q_bf16, const void* k_pages,
-           const void* v_pages, const float* k_scales, const float* v_scales,
-           const int* block_tables, const int* seq_lens, const Dest& dst,
-           int B, int Hkv, int R, int num_pages, int page_size, int npages,
-           int nsplit, float scale, float softcap, cudaStream_t stream) {
-  auto kern = paged_quant_decode_kernel<QT, RMAX>;
-  constexpr int bytes = Smem<RMAX, 1>::BYTES;
-  if (nsplit > 1 && !merge_fits<RMAX, 1>(nsplit, R))
-    return cudaErrorInvalidValue;
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    attr = true;
+// rfa_paged_quant_decode's launch: run<QT, RMAX, D, RG>() launches that
+// build (rfa_qd::dispatch picks it)
+struct Launch {
+  const void* q;
+  int q_bf16;
+  const void* k_pages;
+  const void* v_pages;
+  const float* k_scales;
+  const float* v_scales;
+  const int* block_tables;
+  const int* seq_lens;
+  Dest dst;
+  int B, Hkv, R, num_pages, page_size, npages, nsplit;
+  float scale, softcap;
+  cudaStream_t stream;
+
+  template <int QT, int RMAX, int D, bool RG>
+  int run() const {
+    auto kern = paged_quant_decode_kernel<QT, RMAX, D, RG>;
+    constexpr int bytes = Smem<D, RMAX, 1>::BYTES;
+    if (nsplit > 1 && !merge_fits<D, RMAX, 1>(nsplit, RG ? RMAX : R))
+      return cudaErrorInvalidValue;
+    static bool attr = false;
+    if (!attr) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+      attr = true;
+    }
+    const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
+    kern<<<dim3(nsplit, Hkv * nrg, B), nthreads<D, RMAX, 1>(), bytes,
+           stream>>>(q, q_bf16, static_cast<const unsigned char*>(k_pages),
+                     static_cast<const unsigned char*>(v_pages), k_scales,
+                     v_scales, block_tables, seq_lens, Hkv, R, num_pages,
+                     page_size, npages, scale, softcap, dst);
+    return cudaGetLastError();
   }
-  kern<<<dim3(nsplit, Hkv, B), nthreads<RMAX, 1>(), bytes, stream>>>(
-      q, q_bf16, static_cast<const unsigned char*>(k_pages),
-      static_cast<const unsigned char*>(v_pages), k_scales, v_scales,
-      block_tables, seq_lens, Hkv, R, num_pages, page_size, npages, scale,
-      softcap, dst);
-  return cudaGetLastError();
-}
-
-template <int QT>
-int launch_rows(const void* q, int q_bf16, const void* k_pages,
-                const void* v_pages, const float* k_scales,
-                const float* v_scales, const int* block_tables,
-                const int* seq_lens, const Dest& dst, int B, int Hkv, int R,
-                int num_pages, int page_size, int npages, int nsplit,
-                float scale, float softcap, cudaStream_t stream) {
-#define RFA_LAUNCH(RM)                                                      \
-  return launch<QT, RM>(q, q_bf16, k_pages, v_pages, k_scales, v_scales,    \
-                        block_tables, seq_lens, dst, B, Hkv, R, num_pages,  \
-                        page_size, npages, nsplit, scale, softcap, stream)
-  if (R <= 4) RFA_LAUNCH(4);
-  if (R <= 8) RFA_LAUNCH(8);
-  if (R <= 16) RFA_LAUNCH(16);
-#undef RFA_LAUNCH
-  return cudaErrorInvalidValue;
-}
+};
 
 }  // namespace
 
 // q (B, Hq, Tq, D) bf16 or fp32; pages (num_pages, Hkv, page_size, D) one
 // byte per value, qtype 0 int8, 1 fp8 e4m3, 2 fp8 e5m2; scales
 // (num_pages, Hkv, 1, page_size) fp32; block_tables (B, npages) and
-// seq_lens (B,) int32; all contiguous; any page_size >= 1. out
-// (B, Hq, Tq, D) and lse (B, Hq, Tq) fp32. With nsplit > 1: part_acc
-// (B * Hkv, nsplit, R, D) and part_ml (B * Hkv, nsplit, R, 2) fp32
-// scratch, R = (Hq / Hkv) * Tq, and counters (B * Hkv) int32, zero before
-// the launch and zero after it (not read with nsplit = 1). softcap <= 0
-// disables capping. Returns cudaGetLastError().
+// seq_lens (B,) int32; all contiguous; any page_size >= 1; head_dim D
+// 64, 128 or 256. out (B, Hq, Tq, D) and lse (B, Hq, Tq) fp32. With
+// nsplit > 1: part_acc, part_ml and counters laid out by rp as
+// rfa_quant_decode (quant_decode.cu) takes them. softcap <= 0 disables
+// capping. Returns cudaGetLastError().
 extern "C" int rfa_paged_quant_decode(
     const void* q, int q_bf16, const void* k_pages, const void* v_pages,
     const float* k_scales, const float* v_scales, const int* block_tables,
     const int* seq_lens, float* out, float* lse, float* part_acc,
     float* part_ml, int* counters, int B, int Hq, int Hkv, int Tq,
     int head_dim, int num_pages, int page_size, int npages, int qtype,
-    int nsplit, float scale, float softcap, void* stream) {
-  if (head_dim != D || Hkv <= 0 || Hq % Hkv || nsplit < 1 || num_pages < 1 ||
-      page_size < 1)
+    int nsplit, int rp, float scale, float softcap, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || nsplit < 1 || num_pages < 1 || page_size < 1)
     return cudaErrorInvalidValue;
   const int R = (Hq / Hkv) * Tq;
-  const Dest dst{out, lse, part_acc, part_ml, counters};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RFA_QT(QT)                                                         \
-  return launch_rows<QT>(q, q_bf16, k_pages, v_pages, k_scales, v_scales,  \
-                         block_tables, seq_lens, dst, B, Hkv, R, num_pages, \
-                         page_size, npages, nsplit, scale, softcap, st)
-  if (qtype == QT_INT8) RFA_QT(QT_INT8);
-  if (qtype == QT_E4M3) RFA_QT(QT_E4M3);
-  if (qtype == QT_E5M2) RFA_QT(QT_E5M2);
-#undef RFA_QT
-  return cudaErrorInvalidValue;
+  const Launch launch{q, q_bf16, k_pages, v_pages, k_scales, v_scales,
+                      block_tables, seq_lens,
+                      Dest{out, lse, part_acc, part_ml, counters}, B, Hkv, R,
+                      num_pages, page_size, npages, nsplit, scale, softcap,
+                      static_cast<cudaStream_t>(stream)};
+  return dispatch<QT_INT8, QT_E4M3, QT_E5M2>(qtype, head_dim, R, rp, launch);
 }

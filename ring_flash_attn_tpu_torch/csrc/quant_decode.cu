@@ -35,8 +35,8 @@ struct ContigSrc {
   }
 };
 
-template <int QT, int RMAX>
-__global__ void __launch_bounds__(nthreads<RMAX, 1>(), 1)
+template <int QT, int RMAX, int D, bool RG>
+__global__ void __launch_bounds__(nthreads<D, RMAX, 1>(), 1)
 quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                     const unsigned char* __restrict__ k_q,
                     const unsigned char* __restrict__ v_q,
@@ -44,63 +44,69 @@ quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ len_ptr, int len_val, int S,
                     int Hkv, int R, float scale, float softcap, Dest dst) {
-  const long long g = (long long)blockIdx.z * Hkv + blockIdx.y;
+  // with row groups blockIdx.y is kv head * nrg + row group
+  const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
+  const long long g =
+      (long long)blockIdx.z * Hkv + (RG ? blockIdx.y / nrg : blockIdx.y);
   const int len = min(max(len_ptr ? *len_ptr : len_val, 0), S);
   const ContigSrc src{k_q, v_q, k_scale, v_scale, (len + C - 1) / C, g * S,
                       len};
-  decode_split<QT, false, RMAX>(src, q, q_bf16, g, R, scale, softcap, dst);
+  decode_split<QT, false, D, RMAX, false, RG>(
+      src, q, q_bf16, g, R, scale, softcap, dst, RG ? blockIdx.y % nrg : 0);
 }
 
-template <int QT, int RMAX>
-int launch(const void* q, int q_bf16, const void* k_q, const void* v_q,
-           const float* k_scale, const float* v_scale, const int* len_ptr,
-           int len_val, const Dest& dst, int B, int Hkv, int R, int S,
-           int nsplit, float scale, float softcap, cudaStream_t stream) {
-  auto kern = quant_decode_kernel<QT, RMAX>;
-  constexpr int bytes = Smem<RMAX, 1>::BYTES;
-  if (nsplit > 1 && !merge_fits<RMAX, 1>(nsplit, R))
-    return cudaErrorInvalidValue;
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    attr = true;
+// rfa_quant_decode's launch: run<QT, RMAX, D, RG>() launches that build
+// (rfa_qd::dispatch picks it)
+struct Launch {
+  const void* q;
+  int q_bf16;
+  const void* k_q;
+  const void* v_q;
+  const float* k_scale;
+  const float* v_scale;
+  const int* len_ptr;
+  int len_val;
+  Dest dst;
+  int B, Hkv, R, S, nsplit;
+  float scale, softcap;
+  cudaStream_t stream;
+
+  template <int QT, int RMAX, int D, bool RG>
+  int run() const {
+    auto kern = quant_decode_kernel<QT, RMAX, D, RG>;
+    constexpr int bytes = Smem<D, RMAX, 1>::BYTES;
+    if (nsplit > 1 && !merge_fits<D, RMAX, 1>(nsplit, RG ? RMAX : R))
+      return cudaErrorInvalidValue;
+    static bool attr = false;
+    if (!attr) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+      attr = true;
+    }
+    const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
+    kern<<<dim3(nsplit, Hkv * nrg, B), nthreads<D, RMAX, 1>(), bytes,
+           stream>>>(q, q_bf16, static_cast<const unsigned char*>(k_q),
+                     static_cast<const unsigned char*>(v_q), k_scale,
+                     v_scale, len_ptr, len_val, S, Hkv, R, scale, softcap,
+                     dst);
+    return cudaGetLastError();
   }
-  kern<<<dim3(nsplit, Hkv, B), nthreads<RMAX, 1>(), bytes, stream>>>(
-      q, q_bf16, static_cast<const unsigned char*>(k_q),
-      static_cast<const unsigned char*>(v_q), k_scale, v_scale, len_ptr,
-      len_val, S, Hkv, R, scale, softcap, dst);
-  return cudaGetLastError();
-}
-
-template <int QT>
-int launch_rows(const void* q, int q_bf16, const void* k_q, const void* v_q,
-                const float* k_scale, const float* v_scale,
-                const int* len_ptr, int len_val, const Dest& dst, int B,
-                int Hkv, int R, int S, int nsplit, float scale,
-                float softcap, cudaStream_t stream) {
-#define RFA_LAUNCH(RM)                                                    \
-  return launch<QT, RM>(q, q_bf16, k_q, v_q, k_scale, v_scale, len_ptr,   \
-                        len_val, dst, B, Hkv, R, S, nsplit, scale, softcap, \
-                        stream)
-  if (R <= 4) RFA_LAUNCH(4);
-  if (R <= 8) RFA_LAUNCH(8);
-  if (R <= 16) RFA_LAUNCH(16);
-#undef RFA_LAUNCH
-  return cudaErrorInvalidValue;
-}
+};
 
 }  // namespace
 
 // q (B, Hq, Tq, D) bf16 or fp32; k_q, v_q (B, Hkv, S, D) one byte per
 // value, qtype 0 int8, 1 fp8 e4m3, 2 fp8 e5m2; k_scale, v_scale
 // (B, Hkv, S) fp32; len_ptr a device int32 or null (then len_val); all
-// contiguous. out (B, Hq, Tq, D) and lse (B, Hq, Tq) fp32. With nsplit > 1:
-// part_acc (B * Hkv, nsplit, R, D) and part_ml (B * Hkv, nsplit, R, 2)
-// fp32 scratch, R = (Hq / Hkv) * Tq, and counters (B * Hkv) int32, zero
-// before the launch and zero after it (not read with nsplit = 1). softcap
-// <= 0 disables capping. Returns cudaGetLastError().
+// contiguous; head_dim D 64, 128 or 256. out (B, Hq, Tq, D) and lse
+// (B, Hq, Tq) fp32. With nsplit > 1: part_acc (G, nsplit, rp, D) and
+// part_ml (G, nsplit, rp, 2) fp32 scratch and counters (G) int32, zero
+// before the launch and zero after it (not read with nsplit = 1): with
+// R = (Hq / Hkv) * Tq rows a kv head, G = B * Hkv and rp = R when R <=
+// max_rows(D), else G = B * Hkv * ceil(R / max_rows(D)) row groups and
+// rp = max_rows(D); any other rp is refused. softcap <= 0 disables
+// capping. Returns cudaGetLastError().
 extern "C" int rfa_quant_decode(const void* q, int q_bf16, const void* k_q,
                                 const void* v_q, const float* k_scale,
                                 const float* v_scale, const int* len_ptr,
@@ -108,19 +114,14 @@ extern "C" int rfa_quant_decode(const void* q, int q_bf16, const void* k_q,
                                 float* part_acc, float* part_ml,
                                 int* counters, int B, int Hq, int Hkv, int Tq,
                                 int head_dim, int S, int qtype, int nsplit,
-                                float scale, float softcap, void* stream) {
-  if (head_dim != D || Hkv <= 0 || Hq % Hkv || S < 1 || nsplit < 1)
+                                int rp, float scale, float softcap,
+                                void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || S < 1 || nsplit < 1)
     return cudaErrorInvalidValue;
   const int R = (Hq / Hkv) * Tq;
-  const Dest dst{out, lse, part_acc, part_ml, counters};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RFA_QT(QT)                                                       \
-  return launch_rows<QT>(q, q_bf16, k_q, v_q, k_scale, v_scale, len_ptr, \
-                         len_val, dst, B, Hkv, R, S, nsplit, scale,      \
-                         softcap, st)
-  if (qtype == QT_INT8) RFA_QT(QT_INT8);
-  if (qtype == QT_E4M3) RFA_QT(QT_E4M3);
-  if (qtype == QT_E5M2) RFA_QT(QT_E5M2);
-#undef RFA_QT
-  return cudaErrorInvalidValue;
+  const Launch launch{q, q_bf16, k_q, v_q, k_scale, v_scale, len_ptr,
+                      len_val, Dest{out, lse, part_acc, part_ml, counters},
+                      B, Hkv, R, S, nsplit, scale, softcap,
+                      static_cast<cudaStream_t>(stream)};
+  return dispatch<QT_INT8, QT_E4M3, QT_E5M2>(qtype, head_dim, R, rp, launch);
 }

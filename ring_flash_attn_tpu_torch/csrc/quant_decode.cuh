@@ -54,17 +54,25 @@
 // The TPU kernels' sequential (B, n_blk) grid, all-heads block-diagonal
 // matmul, 128-multiple blocks and pages_per_step are shapes of that
 // machine and are not carried over: any length S >= 1 is taken.
+//
+// Head dims D 64, 128 and 256 (a template constant), and any number of
+// rows: a block serves at most max_rows(D) of a group's R rows (16; 8 at
+// D = 256, where the PV accumulator of 16 rows would take 256 registers a
+// lane); past it (RG) the launch's grid takes one block row per row
+// group, the row groups of a (batch, kv head) group side by side in
+// launch order, so that their reads of a chunk meet in L2.
 
 #pragma once
 
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace rfa_qd {
 
-constexpr int D = 128;           // head dim these kernels take
 constexpr int C = 64;            // tokens per chunk
 constexpr int NCW = 4;           // consumer warps of a pipeline
 constexpr int CT = C / NCW;      // tokens a consumer warp owns (16)
@@ -78,36 +86,111 @@ __host__ __device__ constexpr int value_bytes() {
   return QT == QT_BF16 ? 2 : 1;
 }
 
-// Stages of a pipeline's chunk ring: a stage is 16 KB of int8/fp8 K+V or
-// 32 KB of bf16, and the rings of an SM's pipelines keep far more than
-// the ~38 KB in flight that 3.35 TB/s needs at ~1.5 us of loaded latency.
-template <int EB>
+// The most rows a block serves at head dim D: a consumer lane keeps
+// D * RMAX / 16 fp32 of O (the hi and lo columns of each row), 128 at
+// 16 x 128 and at 8 x 256.
+__host__ __device__ constexpr int max_rows(int D) { return D > 128 ? 8 : 16; }
+
+// Stages of a pipeline's chunk ring: a stage is 2 x 64 rows of D values
+// (16 KB of int8/fp8 K+V at D = 128, 32 KB of bf16), and the rings of an
+// SM's pipelines keep far more than the ~38 KB in flight that 3.35 TB/s
+// needs at ~1.5 us of loaded latency: 3 stages up to 16 KB, else 2.
+template <int D, int EB>
 __host__ __device__ constexpr int stages() {
-  return EB == 1 ? 3 : 2;
+  return D * EB <= 128 ? 3 : 2;
 }
 
 // Pipelines a block runs side by side, each a producer warp and NCW
 // consumer warps over its own ring and its own share of the block's
 // chunks; one block an SM. As many as the registers allow at RMAX rows
 // (65536 / threads: 136 a thread at 3 pipelines, 204 at 2; 4 pipelines,
-// at 96, spilled and lost) and the shared memory (3 pipelines of int8/fp8
-// at ~51 KB, of bf16 at ~67 KB). Their states meet in shared memory at
-// the end of the block, so a group has a third as many partials to merge
-// as with a block a pipeline.
-template <int RMAX, int EB>
+// at 96, spilled and lost): 3 up to 8 rows and 64 fp32 of O a lane, else
+// 2 (16 rows at 64 spill at 3: their QK tiles and p fragments are those
+// of 16 rows whatever D); and the shared memory (at D = 128, 3 pipelines
+// of int8/fp8 at ~51 KB, of bf16 at ~67 KB; a bf16 ring at D = 256, 2
+// stages of 64 KB, leaves room for one). Their states meet in shared
+// memory at the end of the block, so a group has a third as many
+// partials to merge as with a block a pipeline.
+template <int D, int RMAX, int EB>
 __host__ __device__ constexpr int pipes() {
-  return RMAX <= 8 ? 3 : 2;
+  return D * EB >= 512 ? 1 : RMAX <= 8 && D * RMAX <= 1024 ? 3 : 2;
 }
 
-template <int RMAX, int EB>
+template <int D, int RMAX, int EB>
 __host__ __device__ constexpr int nthreads() {
-  return 32 * (NCW + 1) * pipes<RMAX, EB>();
+  return 32 * (NCW + 1) * pipes<D, RMAX, EB>();
 }
 
-template <int RMAX, int EB>
+// A lane's share of a D-wide fp32 row in the merge, D / 32 floats: a
+// float2 at 64, a float4 at 128, two float4s (columns 4 lane .. and
+// 128 + 4 lane ..) at 256; loaded, zeroed, weighed and stored by the
+// functions below.
+struct float4x2 {
+  float4 lo, hi;
+};
+template <int D>
+using Part = std::conditional_t<D == 64, float2,
+                                std::conditional_t<D == 128, float4,
+                                                   float4x2>>;
+
+__device__ __forceinline__ void part_ld(float2& a, const float* row,
+                                        int lane) {
+  a = __ldcg(reinterpret_cast<const float2*>(row) + lane);
+}
+__device__ __forceinline__ void part_ld(float4& a, const float* row,
+                                        int lane) {
+  a = __ldcg(reinterpret_cast<const float4*>(row) + lane);
+}
+__device__ __forceinline__ void part_ld(float4x2& a, const float* row,
+                                        int lane) {
+  a.lo = __ldcg(reinterpret_cast<const float4*>(row) + lane);
+  a.hi = __ldcg(reinterpret_cast<const float4*>(row) + lane + 32);
+}
+__device__ __forceinline__ void part_st(float* row, int lane,
+                                        const float2& a) {
+  reinterpret_cast<float2*>(row)[lane] = a;
+}
+__device__ __forceinline__ void part_st(float* row, int lane,
+                                        const float4& a) {
+  reinterpret_cast<float4*>(row)[lane] = a;
+}
+__device__ __forceinline__ void part_st(float* row, int lane,
+                                        const float4x2& a) {
+  reinterpret_cast<float4*>(row)[lane] = a.lo;
+  reinterpret_cast<float4*>(row)[lane + 32] = a.hi;
+}
+__device__ __forceinline__ void part_zero(float2& a) {
+  a = make_float2(0.f, 0.f);
+}
+__device__ __forceinline__ void part_zero(float4& a) {
+  a = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void part_zero(float4x2& a) {
+  part_zero(a.lo);
+  part_zero(a.hi);
+}
+__device__ __forceinline__ void part_axpy(float2& a, const float2& x,
+                                          float w) {
+  a.x += x.x * w;
+  a.y += x.y * w;
+}
+__device__ __forceinline__ void part_axpy(float4& a, const float4& x,
+                                          float w) {
+  a.x += x.x * w;
+  a.y += x.y * w;
+  a.z += x.z * w;
+  a.w += x.w * w;
+}
+__device__ __forceinline__ void part_axpy(float4x2& a, const float4x2& x,
+                                          float w) {
+  part_axpy(a.lo, x.lo, w);
+  part_axpy(a.hi, x.hi, w);
+}
+
+template <int D, int RMAX, int EB>
 struct Smem {
-  static constexpr int NST = stages<EB>();
-  static constexpr int NP = pipes<RMAX, EB>();
+  static constexpr int NST = stages<D, EB>();
+  static constexpr int NP = pipes<D, RMAX, EB>();
   static constexpr int RB = D * EB;                 // bytes of a K or V row
   // a pipeline's part, PIPE bytes, NP of them one after the other
   static constexpr int BAR = 0;                     // u64 full[NST], empty[NST]
@@ -123,8 +206,8 @@ struct Smem {
   static constexpr int QSC = Q8 + RMAX * D;         // f32 [RMAX]
   static constexpr int PRE = QSC + RMAX * 4;        // f32 [RMAX]
   static constexpr int BND = PRE + RMAX * 4;        // s32 [RMAX]
-  static constexpr int QF = BND + RMAX * 4;         // u32x2 [8][RMAX/4][32]
-  static constexpr int LAST = QF + 8 * (RMAX / 4) * 32 * 8;  // s32
+  static constexpr int QF = BND + RMAX * 4;  // u32x2 [D/16][RMAX/4][32]
+  static constexpr int LAST = QF + D / 16 * (RMAX / 4) * 32 * 8;  // s32
   static constexpr int BYTES = LAST + 16;
   // the end of the block reuses each pipeline's K and V stages for its
   // warps' sums [NCW][RMAX][D], and the first's for the merge's m values
@@ -140,7 +223,9 @@ struct Smem {
 // part_acc[((g * nsplit + split) * R + r) * D + d] and
 // part_ml[((g * nsplit + split) * R + r) * 2 + {0, 1}], merged into
 // (out, lse) by the group's last block, which counters[g] (0 between
-// launches) tells.
+// launches) tells. With row groups (RG) g is the row group's own index,
+// (batch, kv head) group * ceil(R / RMAX) + row group, and its partials
+// take RMAX rows, the last row group's too.
 struct Dest {
   float* out;
   float* lse;
@@ -249,50 +334,64 @@ __device__ __forceinline__ int own_row(int o, int t) {
 
 // Warp w's sums [RMAX][D] at the end of the block: in its pipeline's K
 // and V stages.
-template <int RMAX, int EB>
+template <int D, int RMAX, int EB>
 __device__ __forceinline__ float* red_of(unsigned char* smem, int w) {
-  using S = Smem<RMAX, EB>;
+  using S = Smem<D, RMAX, EB>;
   return reinterpret_cast<float*>(smem + (w / NCW) * S::PIPE + S::K) +
          (w % NCW) * RMAX * D;
 }
 
-// Merge the nsplit partials of group g into (out, lse), in split order:
-// the group's last block, consumer threads only. All loads are issued at
-// once: every (split, row)'s m into ms, and warp w's splits w, w + NW, ...
-// (UNR of them) into registers, 4 columns a lane. Then warp r takes row
-// r's maximum, each warp weighs and adds its splits, and the warps' sums
-// meet in shared memory, in a fixed order. m_s holds RMAX floats, l_w
-// NW * RMAX.
-template <int RMAX, int EB>
+// body(c) for each of the D columns c over n threads, thread t taking
+// columns t, t + n, ...
+template <int D, int N, class F>
+__device__ __forceinline__ void each_column(int t, F body) {
+  if constexpr (N >= D) {
+    if (t < D) body(t);
+  } else {
+    for (int c = t; c < D; c += N) body(c);
+  }
+}
+
+// Merge the nsplit partials of group g into (out, lse) rows row0 ..
+// row0 + R - 1, in split order: the group's last block, consumer threads
+// only. A split's partial rows are PS apart (PS = R but with row groups).
+// All loads are issued at once: every (split, row)'s m into ms, and warp
+// w's splits w, w + NW, ... (UNR of them) into registers, D / 32 columns
+// a lane. Then warp r takes row r's maximum, each warp weighs and adds
+// its splits, and the warps' sums meet in shared memory, in a fixed
+// order. m_s holds RMAX floats, l_w NW * RMAX.
+template <int D, int RMAX, int EB, bool RG>
 __device__ __forceinline__ void merge_group(const Dest& dst, long long g,
-                                            int nsplit, int R,
+                                            long long row0, int nsplit,
+                                            int R, int PS,
                                             unsigned char* smem, float* m_s,
                                             float* l_w) {
-  constexpr int NW = NCW * pipes<RMAX, EB>();
-  constexpr int UNR = RMAX <= 8 ? 2 : 1;
-  float* ms = reinterpret_cast<float*>(smem + Smem<RMAX, EB>::K);
+  constexpr int NW = NCW * pipes<D, RMAX, EB>();
+  constexpr int UNR = D * RMAX <= 1024 ? 2 : 1;
+  float* ms = reinterpret_cast<float*>(smem + Smem<D, RMAX, EB>::K);
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const long long first = g * nsplit * R;  // + sp * R + r
+  const long long first = g * nsplit * PS;  // + sp * PS + r
   for (int i = t; i < nsplit * R; i += 32 * NW)
-    ms[i] = __ldcg(dst.part_ml + (first + i) * 2);
-  float4 acc[RMAX];
+    ms[i] = __ldcg(dst.part_ml +
+                   (RG ? first + (long long)(i / R) * PS + i % R : first + i) *
+                       2);
+  Part<D> acc[RMAX];
   float l[RMAX];
 #pragma unroll
   for (int r = 0; r < RMAX; ++r) {
-    acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    part_zero(acc[r]);
     l[r] = 0.f;
   }
   for (int sp0 = warp; sp0 < nsplit; sp0 += NW * UNR) {
-    float4 a[UNR][RMAX];
+    Part<D> a[UNR][RMAX];
     float li[UNR][RMAX];
 #pragma unroll
     for (int u = 0; u < UNR; ++u)
 #pragma unroll
       for (int r = 0; r < RMAX; ++r)
         if (r < R && sp0 + NW * u < nsplit) {
-          const long long row = first + (long long)(sp0 + NW * u) * R + r;
-          a[u][r] = __ldcg(
-              reinterpret_cast<const float4*>(dst.part_acc + row * D) + lane);
+          const long long row = first + (long long)(sp0 + NW * u) * PS + r;
+          part_ld(a[u][r], dst.part_acc + row * D, lane);
           li[u][r] = __ldcg(dst.part_ml + row * 2 + 1);
         }
     if (sp0 == warp) {  // the row maxima, once every m has landed
@@ -313,10 +412,7 @@ __device__ __forceinline__ void merge_group(const Dest& dst, long long g,
           const float m_i = ms[(sp0 + NW * u) * R + r];
           // an empty split, or a row with no live token, weighs nothing
           const float w = m_i > -INFINITY ? __expf(m_i - m_s[r]) : 0.f;
-          acc[r].x += a[u][r].x * w;
-          acc[r].y += a[u][r].y * w;
-          acc[r].z += a[u][r].z * w;
-          acc[r].w += a[u][r].w * w;
+          part_axpy(acc[r], a[u][r], w);
           l[r] += li[u][r] * w;
         }
   }
@@ -331,28 +427,28 @@ __device__ __forceinline__ void merge_group(const Dest& dst, long long g,
     hop::bar_sync(CONSUMER_BAR, 32 * NW);
   }
   hop::bar_sync(CONSUMER_BAR, 32 * NW);  // ms is read; sums may overlap it
-  float* red = red_of<RMAX, EB>(smem, warp);
+  float* red = red_of<D, RMAX, EB>(smem, warp);
 #pragma unroll
   for (int r = 0; r < RMAX; ++r)
     if (r < R) {
-      reinterpret_cast<float4*>(red + r * D)[lane] = acc[r];
+      part_st(red + r * D, lane, acc[r]);
       if (lane == 0) l_w[warp * RMAX + r] = l[r];
     }
   hop::bar_sync(CONSUMER_BAR, 32 * NW);
-  if (t < D) {
+  each_column<D, 32 * NW>(t, [&](int c) {
     for (int r = 0; r < R; ++r) {
       float sum = 0.f, lsum = 0.f;
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
-        sum += red_of<RMAX, EB>(smem, w)[r * D + t];
+        sum += red_of<D, RMAX, EB>(smem, w)[r * D + c];
         lsum += l_w[w * RMAX + r];
       }
-      const long long row = g * R + r;
-      dst.out[row * D + t] = lsum > 0.f ? sum / lsum : 0.f;
-      if (t == 0)
+      const long long row = row0 + r;
+      dst.out[row * D + c] = lsum > 0.f ? sum / lsum : 0.f;
+      if (c == 0)
         dst.lse[row] = lsum > 0.f ? m_s[r] + logf(lsum) : RFA_NEG_INF;
     }
-  }
+  });
   if (t == 0) dst.counters[g] = 0;  // no other block of the group is left
 }
 
@@ -363,23 +459,37 @@ __device__ __forceinline__ void merge_group(const Dest& dst, long long g,
 //   arrays (byte offset tok0 * D * value_bytes, scale offset tok0) and
 //   holds `valid` live tokens (1..C); count(j): that `valid` alone;
 //   with BOUNDS, pos(j): chunk j's first position in the group's sequence,
-//   and bound(r): row r sees positions below it only.
-// q rows g * R .. g * R + R of the (rows, D) query.
-template <int QT, bool QK_INT8, int RMAX, bool BOUNDS = false, class Src>
+//   and bound(r): row r of the group sees positions below it only.
+// q rows g * R .. g * R + R of the (rows, D) query; with RG (R > RMAX)
+// the block takes row group rg of them, rows rg * RMAX .. + RMAX.
+template <int QT, bool QK_INT8, int D, int RMAX, bool BOUNDS = false,
+          bool RG = false, class Src>
 __device__ __forceinline__ void decode_split(const Src& src,
                                              const void* __restrict__ q,
-                                             int q_bf16, long long g, int R,
-                                             float scale, float softcap,
-                                             const Dest& dst) {
+                                             int q_bf16, long long g,
+                                             int R_group, float scale,
+                                             float softcap, const Dest& dst,
+                                             int rg = 0) {
   constexpr int EB = value_bytes<QT>();
   constexpr bool SCALES = QT != QT_BF16;
-  using S = Smem<RMAX, EB>;
+  using S = Smem<D, RMAX, EB>;
   constexpr int NST = S::NST, RB = S::RB, NP = S::NP;
   constexpr int NW = NCW * NP, NCONS = 32 * NW;  // consumer warps, threads
   constexpr bool BF = QT == QT_BF16;
   constexpr int NT = RMAX / 4;                    // n-tiles of 8 columns
   constexpr int NKT = QK_INT8 ? D / 32 : D / 16;  // k-tiles of QK
   constexpr int NO = RMAX == 4 ? 2 : RMAX / 4;    // rows a lane owns
+  constexpr int MT = D / 16;                      // m-tiles of PV
+  // bf16 K rows are read in blocks of BK elements, BP pieces of 8 a lane
+  constexpr int BK = D < 128 ? D : 128, BP = BK / 32;
+  // the block's rows: R of them from the group's row r0, q and out rows
+  // from g * R_group + r0 (spelled out where used, so that a build
+  // without row groups computes g * R there as it always has); its
+  // partials and counter are group gd's, PS rows a split
+  const int r0 = RG ? rg * RMAX : 0;
+  const int R = RG ? min(RMAX, R_group - r0) : R_group;
+  const long long gd = RG ? g * ((R_group + RMAX - 1) / RMAX) + rg : g;
+  const int PS = RG ? RMAX : R_group;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + S::Q);
   signed char* q8 = reinterpret_cast<signed char*>(smem + S::Q8);
@@ -454,7 +564,7 @@ __device__ __forceinline__ void decode_split(const Src& src,
   }
 
   // consumers, on tensor cores (mma.sync, lane = 4 g4 + t4): QK is S^T
-  // (a warp's 16 tokens x 8 NT columns) = K q^T and PV is O^T (128 dims x
+  // (a warp's 16 tokens x 8 NT columns) = K q^T and PV is O^T (D dims x
   // 8 NT columns) = V^T P^T. A column x is half `x / RMAX` (hi or lo) of
   // row x % RMAX: q and p are each split into two 16-bit halves whose sum
   // holds ~22 bits (fp16, after a power-of-two prescale) or 16 (bf16, B5),
@@ -465,13 +575,15 @@ __device__ __forceinline__ void decode_split(const Src& src,
   const int g4 = lane >> 2, t4 = lane & 3;
   const int wl = warp % NCW;  // the warp in its pipeline
   for (int i = t; i < R * D; i += NCONS) {
-    const float x = q_bf16
-        ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[g * R * D + i])
-        : static_cast<const float*>(q)[g * R * D + i];
+    const float x =
+        q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(
+                     q)[(RG ? g * R_group + r0 : g * R) * D + i])
+               : static_cast<const float*>(
+                     q)[(RG ? g * R_group + r0 : g * R) * D + i];
     qs[i] = x * scale;
   }
   if constexpr (BOUNDS) {
-    if (t < R) bnd_s[t] = src.bound(t);
+    if (t < R) bnd_s[t] = src.bound(r0 + t);
   }
   hop::bar_sync(CONSUMER_BAR, NCONS);
   for (int r = warp; r < R; r += NW) {
@@ -519,7 +631,11 @@ __device__ __forceinline__ void decode_split(const Src& src,
           b.y = *reinterpret_cast<const uint32_t*>(q8 + row * D + d0 + 4);
         }
       } else {
-        const int d0 = BF ? 32 * tt + 8 * (kt / 2) + 4 * (kt % 2)
+        // (BF: lane t4 holds elements BK / 4 * t4 .. of each block of BK;
+        // see the QK loads below)
+        const int d0 = BF ? (D == 128 ? 32 * tt + 8 * (kt / 2) + 4 * (kt % 2)
+                                      : BK * (kt / 2 / BP) + BK / 4 * tt +
+                                            8 * (kt / 2 % BP) + 4 * (kt % 2))
                           : 64 * (kt / 4) + 16 * tt + 4 * (kt % 4);
         const float* qr = qs + row * D + d0;
         const float pre = pre_s[row];
@@ -531,9 +647,9 @@ __device__ __forceinline__ void decode_split(const Src& src,
   }
   hop::bar_sync(CONSUMER_BAR, NCONS);
 
-  float oacc[8][NT][4];  // O^T: m-tile, n-tile, fragment
+  float oacc[MT][NT][4];  // O^T: m-tile, n-tile, fragment
 #pragma unroll
-  for (int mt = 0; mt < 8; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -578,8 +694,12 @@ __device__ __forceinline__ void decode_split(const Src& src,
       };
       if constexpr (BF) {
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const int at = 64 * t4 + 16 * p;
+        for (int p = 0; p < D / 32; ++p) {
+          // lane t4's 8 elements of piece p: BK / 4 * t4 + 8 p within a
+          // block of BK, so that at 256 the banks meet as they do at 128
+          const int at = D == 128 ? 64 * t4 + 16 * p
+                                  : 2 * (BK * (p / BP) + BK / 4 * t4 +
+                                         8 * (p % BP));
           const uint4 w0 = *reinterpret_cast<const uint4*>(kr0 + at);
           const uint4 w1 = *reinterpret_cast<const uint4*>(kr1 + at);
 #pragma unroll
@@ -595,7 +715,7 @@ __device__ __forceinline__ void decode_split(const Src& src,
         }
       } else {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < D / 64; ++h) {
           const int at = 64 * h + 16 * t4;
           const uint4 w0 = *reinterpret_cast<const uint4*>(kr0 + at);
           const uint4 w1 = *reinterpret_cast<const uint4*>(kr1 + at);
@@ -715,7 +835,7 @@ __device__ __forceinline__ void decode_split(const Src& src,
       for (int nt = 0; nt < NT; ++nt) {
         const int o0 = RMAX == 4 ? 0 : 2 * (nt % (NT / 2 > 0 ? NT / 2 : 1));
 #pragma unroll
-        for (int mt = 0; mt < 8; ++mt) {
+        for (int mt = 0; mt < MT; ++mt) {
           oacc[mt][nt][0] *= f[o0];
           oacc[mt][nt][2] *= f[o0];
           oacc[mt][nt][1] *= f[o0 + 1];
@@ -739,7 +859,7 @@ __device__ __forceinline__ void decode_split(const Src& src,
       const unsigned char* vr = vst + (tok0 + 4 * t4) * RB + 4 * g4;
       if constexpr (BF) {
 #pragma unroll
-        for (int mt = 0; mt < 8; ++mt) {  // dims 16 mt + 2 g4, + 1
+        for (int mt = 0; mt < MT; ++mt) {  // dims 16 mt + 2 g4, + 1
           uint32_t u[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k)
@@ -756,7 +876,7 @@ __device__ __forceinline__ void decode_split(const Src& src,
         }
       } else {
 #pragma unroll
-        for (int qd = 0; qd < 4; ++qd) {  // dims 32 qd + 4 g4 .. + 3
+        for (int qd = 0; qd < D / 32; ++qd) {  // dims 32 qd + 4 g4 .. + 3
           uint32_t u[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k)
@@ -785,7 +905,7 @@ __device__ __forceinline__ void decode_split(const Src& src,
   // and V stages hold its warps' sums: every copy has landed, since every
   // chunk was waited for). oacc * U is O; the hi and lo columns add up.
 #pragma unroll
-  for (int mt = 0; mt < 8; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -795,7 +915,7 @@ __device__ __forceinline__ void decode_split(const Src& src,
         oacc[mt][nt][e] = v;
       }
   hop::bar_sync(CONSUMER_BAR, NCONS);
-  float* red = red_of<RMAX, EB>(smem, warp);
+  float* red = red_of<D, RMAX, EB>(smem, warp);
   if (writer) {
 #pragma unroll
     for (int nt = 0; nt < (RMAX == 4 ? 1 : NT / 2); ++nt)
@@ -803,9 +923,9 @@ __device__ __forceinline__ void decode_split(const Src& src,
       for (int cp = 0; cp < 2; ++cp) {
         const int row = (8 * nt + 2 * t4 + cp) % RMAX;
         if (row >= R) continue;
-        float v[8][2];  // m-tile, fragment row (g4 or g4 + 8)
+        float v[MT][2];  // m-tile, fragment row (g4 or g4 + 8)
 #pragma unroll
-        for (int mt = 0; mt < 8; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             float x = oacc[mt][nt][2 * hh + cp];
@@ -815,12 +935,12 @@ __device__ __forceinline__ void decode_split(const Src& src,
         float* rr = red + row * D;
         if constexpr (BF) {
 #pragma unroll
-          for (int mt = 0; mt < 8; ++mt)
+          for (int mt = 0; mt < MT; ++mt)
             *reinterpret_cast<float2*>(rr + 16 * mt + 2 * g4) =
                 make_float2(v[mt][0], v[mt][1]);
         } else {
 #pragma unroll
-          for (int qd = 0; qd < 4; ++qd)
+          for (int qd = 0; qd < D / 32; ++qd)
             *reinterpret_cast<float4*>(rr + 32 * qd + 4 * g4) =
                 make_float4(v[2 * qd][0], v[2 * qd][1], v[2 * qd + 1][0],
                             v[2 * qd + 1][1]);
@@ -844,8 +964,8 @@ __device__ __forceinline__ void decode_split(const Src& src,
                                                      RMAX +
                                                  r];
   };
-  const long long part0 = (g * nsplit + blockIdx.x) * R;
-  if (t < D) {
+  const long long part0 = (gd * nsplit + blockIdx.x) * PS;
+  each_column<D, NCONS>(t, [&](int c) {
     for (int r = 0; r < R; ++r) {
       float mb = -INFINITY;
 #pragma unroll
@@ -855,41 +975,42 @@ __device__ __forceinline__ void decode_split(const Src& src,
       for (int w = 0; w < NW; ++w) {
         const float m_i = ml_of(w, r, 0);
         const float wt = m_i > -INFINITY ? __expf(m_i - mb) : 0.f;
-        acc += red_of<RMAX, EB>(smem, w)[r * D + t] * wt;
+        acc += red_of<D, RMAX, EB>(smem, w)[r * D + c] * wt;
         lb += ml_of(w, r, 1) * wt;
       }
       if (nsplit == 1) {
-        const long long row = g * R + r;
-        dst.out[row * D + t] = lb > 0.f ? acc / lb : 0.f;
-        if (t == 0) dst.lse[row] = lb > 0.f ? mb + logf(lb) : RFA_NEG_INF;
+        const long long row = (RG ? g * R_group + r0 : g * R) + r;
+        dst.out[row * D + c] = lb > 0.f ? acc / lb : 0.f;
+        if (c == 0) dst.lse[row] = lb > 0.f ? mb + logf(lb) : RFA_NEG_INF;
       } else {
-        dst.part_acc[(part0 + r) * D + t] = acc;
-        if (t == 0) {
+        dst.part_acc[(part0 + r) * D + c] = acc;
+        if (c == 0) {
           dst.part_ml[(part0 + r) * 2] = mb;
           dst.part_ml[(part0 + r) * 2 + 1] = lb;
         }
       }
     }
-  }
+  });
   if (nsplit == 1) return;
 
   // the group's last block to get here merges its partials
   __threadfence();
   hop::bar_sync(CONSUMER_BAR, NCONS);
-  if (t == 0) *last_s = atomicAdd(dst.counters + g, 1) == nsplit - 1;
+  if (t == 0) *last_s = atomicAdd(dst.counters + gd, 1) == nsplit - 1;
   hop::bar_sync(CONSUMER_BAR, NCONS);
   if (!*last_s) return;
   __threadfence();
-  merge_group<RMAX, EB>(dst, g, nsplit, R, smem,
-                        reinterpret_cast<float*>(smem + S::ML),
-                        reinterpret_cast<float*>(smem + S::P));
+  merge_group<D, RMAX, EB, RG>(dst, gd, RG ? g * R_group + r0 : g * R,
+                               nsplit, R, PS, smem,
+                               reinterpret_cast<float*>(smem + S::ML),
+                               reinterpret_cast<float*>(smem + S::P));
 }
 
 // The most splits a group may have at R rows: the merge keeps one m
 // per (split, row) in the K and V stages.
-template <int RMAX, int EB>
+template <int D, int RMAX, int EB>
 __host__ __device__ constexpr bool merge_fits(int nsplit, int R) {
-  return (long long)nsplit * R * 4 <= Smem<RMAX, EB>::KV_BYTES;
+  return (long long)nsplit * R * 4 <= Smem<D, RMAX, EB>::KV_BYTES;
 }
 
 // A lane's live chunks in a paged cache (B5, B6): `len` tokens through
@@ -941,6 +1062,44 @@ __device__ __forceinline__ PagedSrc paged_src(
                   n_chunks, block_tables + (long long)b * npages,
                   h,        Hkv,       num_pages, page_size,
                   cpp,      len};
+}
+
+// The host side's choice of a build, which B4, B5 and B6 share. The build
+// for R rows a kv head at head dim D: RMAX 4, 8 or 16 rows up to
+// max_rows(D), else row groups (RG) of max_rows(D) rows. rp is the rows a
+// split's partial holds in the caller's workspace (R, or max_rows(D) with
+// row groups: ops/quant_decode_cuda.py::row_groups); a build that would
+// lay its partials out otherwise is refused, not launched past the
+// workspace.
+template <int QT, int D, class F>
+int dispatch_rows(int R, int rp, const F& f) {
+  constexpr int MR = max_rows(D);
+  if (rp != (R > MR ? MR : R)) return cudaErrorInvalidValue;
+  if (R > MR) return f.template run<QT, MR, D, true>();
+  if (R <= 4) return f.template run<QT, 4, D, false>();
+  if (R <= 8) return f.template run<QT, 8, D, false>();
+  if constexpr (MR >= 16) return f.template run<QT, 16, D, false>();
+  return cudaErrorInvalidValue;
+}
+
+template <int QT, class F>
+int dispatch_dim(int head_dim, int R, int rp, const F& f) {
+  if (head_dim == 64) return dispatch_rows<QT, 64>(R, rp, f);
+  if (head_dim == 128) return dispatch_rows<QT, 128>(R, rp, f);
+  if (head_dim == 256) return dispatch_rows<QT, 256>(R, rp, f);
+  return cudaErrorInvalidValue;
+}
+
+// f.template run<QT, RMAX, D, RG>() (a launch) for cache type qtype, one
+// of QTS, head dim 64, 128 or 256 and R rows a kv head, as above;
+// cudaErrorInvalidValue where no build serves them.
+template <int... QTS, class F>
+int dispatch(int qtype, int head_dim, int R, int rp, const F& f) {
+  int rc = cudaErrorInvalidValue;
+  (void)((qtype == QTS &&
+          (rc = dispatch_dim<QTS>(head_dim, R, rp, f), true)) ||
+         ...);
+  return rc;
 }
 
 }  // namespace rfa_qd

@@ -285,14 +285,11 @@ def _dryrun_rank(rank, world, device, inputs):
         out[f"llama3/{name}"] = all_gather(g.detach().float(), 2).cpu().numpy()
 
     # (7) a tensor-parallel paged decode step over tp = 2 (ranks 0 and 1):
-    # sharded weights, the caches' kv heads split (on the card at B5's
-    # head_dim, 128)
+    # sharded weights, the caches' kv heads split
     tp8 = 2
     group = dist.new_group(list(range(tp8)))
     if rank < tp8:
         cfg = _cfg(device, **DECODE)
-        if dev.type == "cuda":
-            cfg = dataclasses.replace(cfg, head_dim=128)
         b8, ps, pps = 2, 8, 4
         caches = []
         if inputs is not None:

@@ -48,10 +48,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
-    # B5 takes head_dim 128: the card's config has it, at a small width
     dtype = "bfloat16" if args.device == "cuda" else "float32"
     cfg = ModelConfig(vocab=256, dim=256, layers=2, heads=4, kv_heads=2,
-                      head_dim=128, mlp_dim=512, dtype=dtype)
+                      mlp_dim=512, dtype=dtype)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     model = init_params(cfg, gen, device=args.device)
 

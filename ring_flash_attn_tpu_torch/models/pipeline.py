@@ -187,27 +187,33 @@ def loss_fn_pp(model, tokens, labels, positions, pp_group, microbatches,
 
 
 def train_step_pp(model, tokens, labels, positions, pp_group, microbatches,
-                  lr=1e-3, sp_group=False):
+                  lr=1e-3, sp_group=False, data_group=False):
     """One SGD step of this rank's stage: p <- (p.f32 - lr * g.f32).to(
     p.dtype), in place. Returns (model, loss).
 
     The stage's layers' gradients stay stage-local; the embed, final_norm
     and lm_head (used on one stage each) get their gradients summed over
     pp so that every stage applies the same update. Every gradient is
-    summed over ``sp_group``, as in the JAX ``train_step_pp`` (whose
-    ``data_axis`` is not ported: no caller uses it)."""
+    summed over ``sp_group`` and over ``data_group`` (dp x pp x sp: the
+    data replicas of a stage hold the same weights and their own batch),
+    and the loss is averaged over ``data_group``, as the JAX
+    ``train_step_pp`` does with ``axis_name`` and ``data_axis``."""
     named = list(model.named_parameters())
     loss = loss_fn_pp(model, tokens, labels, positions, pp_group,
                       microbatches, sp_group)
     grads = torch.autograd.grad(loss, [p for _, p in named],
                                 allow_unused=True)
+    base = [g for g in (sp_group, data_group) if g is not False]
     with torch.no_grad():
         for (name, p), g in zip(named, grads):
             g = torch.zeros_like(p) if g is None else g
-            groups = [sp_group] if sp_group is not False else []
+            groups = list(base)
             if pp_group is not False and not name.startswith("layers."):
                 groups.append(pp_group)
             for group in groups:
                 g = all_reduce(g, "sum", group)
             p.copy_((p.float() - lr * g.float()).to(p.dtype))
-    return model, loss.detach()
+        loss = loss.detach()
+        if data_group is not False:
+            loss = all_reduce(loss, "sum", data_group) / ring_size(data_group)
+    return model, loss

@@ -242,9 +242,10 @@ def _spec_verify_body(model, tokens, n_valid, caches, backend=None,
     them inside already-allocated pages and rewinds the allocator to the
     accepted count), then attention is the multi-query paged decode
     (``paged_decode_attention`` with ``new_counts=n_valid``: row i attends
-    kv index j <= lens[b] + i; kernel B5, in groups of rows where
-    (Hq / Hkv) * K > 16). Returns (logits (B, K, vocab) f32, caches with
-    seq_lens advanced by n_valid)."""
+    kv index j <= lens[b] + i; kernel B5, in one launch whose grid takes
+    row groups where (Hq / Hkv) * K passes the rows one block serves).
+    Returns (logits (B, K, vocab) f32, caches with seq_lens advanced by
+    n_valid)."""
     b, kk = tokens.shape
     dev = tokens.device
     scale = model.cfg.head_dim**-0.5

@@ -37,7 +37,6 @@ from ..config import resolve_device, use_kernel
 from .mask import NEG_INF
 from .paged_decode_cuda import paged_decode_cuda
 from .paged_quant_decode_cuda import paged_quant_decode_cuda
-from .quant_decode_cuda import MAX_ROWS
 from .quant import (_QDTYPES, as_bytes, qdtype_of, quantize_tensor,
                     values_from_numpy)
 
@@ -152,39 +151,14 @@ def paged_decode_attention(q, cache: PagedKVCache, scale, softcap=None,
 
     Returns fp32 (out (B, Hq, Tq, D), lse (B, Hq, Tq)) partials.
 
-    Kernel B5 serves at most ``MAX_ROWS`` rows a kv head ((Hq / Hkv) * Tq);
-    more rows (a speculative verify of many candidates) take one launch
-    per group of rows (``by_row_groups``)."""
+    Kernel B5 takes any number of rows a kv head ((Hq / Hkv) * Tq): past
+    the rows one block serves, its grid takes the row groups side by
+    side, each row with its own bound."""
     if use_kernel(q, backend):
-        return by_row_groups(
-            lambda qg, counts: paged_decode_cuda(
-                qg, cache.k_pages, cache.v_pages, cache.block_tables,
-                cache.seq_lens, scale, softcap=softcap, new_counts=counts),
-            q, cache.k_pages.shape[1], new_counts)
+        return paged_decode_cuda(q, cache.k_pages, cache.v_pages,
+                                 cache.block_tables, cache.seq_lens, scale,
+                                 softcap=softcap, new_counts=new_counts)
     return _plain_paged_decode(q, cache, scale, softcap, new_counts)
-
-
-def by_row_groups(decode, q, hkv, new_counts=None):
-    """``decode(q_rows, counts)`` over groups of q's Tq rows, each group at
-    most ``MAX_ROWS`` rows a kv head (B5's limit), concatenated along Tq.
-
-    Row t of a lane sees ``seq_lens - max(0, new_counts - 1 - t)`` keys.
-    A group starting at row t0 keeps seq_lens and takes ``max(0,
-    new_counts - t0)`` as its counts: its row t' is row t0 + t' with the
-    same bound (and where new_counts <= t0 both bounds are seq_lens)."""
-    tq = q.shape[2]
-    per = max(1, MAX_ROWS // (q.shape[1] // hkv))
-    if tq <= per:
-        return decode(q, new_counts)
-    outs, lses = [], []
-    for t0 in range(0, tq, per):
-        counts = None if new_counts is None else (
-            torch.as_tensor(new_counts, device=q.device) - t0).clamp(
-                min=0).to(torch.int32)
-        o, l = decode(q[:, :, t0:t0 + per].contiguous(), counts)
-        outs.append(o)
-        lses.append(l)
-    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
 def _plain_paged_decode(q, cache, scale, softcap=None, new_counts=None):

@@ -17,14 +17,14 @@ import torch
 
 from . import _build
 from .quant_decode_cuda import (check_operand, check_rows, paged_num_splits,
-                                scratch_ptrs)
+                                row_groups, scratch_ptrs)
 
 # rfa_paged_decode(q, q_bf16, k_pages, v_pages, block_tables, seq_lens,
 #                  new_counts, out, lse, part_acc, part_ml, counters, B, Hq,
 #                  Hkv, Tq, head_dim, num_pages, page_size, npages, nsplit,
-#                  scale, softcap, stream)
+#                  rp, scale, softcap, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
-    ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.cache
@@ -40,8 +40,10 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     """Paged decode on the card: fp32 (out (B,Hq,Tq,D), lse (B,Hq,Tq)).
 
     q (B, Hq, Tq, D) bf16 or fp32; pages (num_pages, Hkv, page_size, D)
-    bf16 with D = 128; block_tables (B, npages) and seq_lens, new_counts
-    (B,) int32; (Hq / Hkv) * Tq <= 16. Out-of-range page ids are clamped
+    bf16 with D 64, 128 or 256; block_tables (B, npages) and seq_lens,
+    new_counts (B,) int32; any whole group Hq / Hkv and any Tq (past
+    MAX_ROWS[D] rows a kv head, one block row per row group, each row
+    keeping its own new_counts bound). Out-of-range page ids are clamped
     into the pool, as the plain version's gather does."""
     dev = q.device
     check_operand("q", q, dev, (torch.bfloat16, torch.float32), 4)
@@ -68,20 +70,21 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
-    rows = (hq // hkv) * tq
-    nsplit = paged_num_splits(b, hkv, npages, page_size)
+    nrg, rows = row_groups((hq // hkv) * tq, d)
+    nsplit = paged_num_splits(b, hkv, npages, page_size, nrg)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part_acc, part_ml, counters = scratch_ptrs(b * hkv, nsplit, rows,
-                                                   dev, stream)
+        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, nsplit,
+                                                   rows, d, dev, stream)
         rc = lib.rfa_paged_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
             None if new_counts is None else new_counts.data_ptr(),
             out.data_ptr(), lse.data_ptr(), part_acc,
             part_ml, counters, b, hq, hkv, tq, d, num_pages, page_size,
-            npages, nsplit, float(scale), float(softcap or 0.0), stream,
+            npages, nsplit, rows, float(scale), float(softcap or 0.0),
+            stream,
         )
         paged_decode_cuda.launches += 1
     _build.check_launch(lib, rc, "paged_decode")

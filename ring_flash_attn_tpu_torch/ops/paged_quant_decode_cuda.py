@@ -15,15 +15,15 @@ import torch
 
 from . import _build
 from .quant_decode_cuda import (QTYPES, check_operand, check_rows,
-                                paged_num_splits, scratch_ptrs)
+                                paged_num_splits, row_groups, scratch_ptrs)
 
 # rfa_paged_quant_decode(q, q_bf16, k_pages, v_pages, k_scales, v_scales,
 #                        block_tables, seq_lens, out, lse, part_acc, part_ml,
 #                        counters, B, Hq, Hkv, Tq, head_dim, num_pages,
-#                        page_size, npages, qtype, nsplit, scale, softcap,
-#                        stream)
+#                        page_size, npages, qtype, nsplit, rp, scale,
+#                        softcap, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11 + [
-    ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.cache
@@ -40,12 +40,13 @@ def paged_quant_decode_cuda(q, k_pages, k_scales, v_pages, v_scales,
     (B,Hq,Tq)).
 
     q (B, Hq, Tq, D) bf16 or fp32; pages (num_pages, Hkv, page_size, D)
-    int8, float8_e4m3fn or float8_e5m2 with D = 128; scales
+    int8, float8_e4m3fn or float8_e5m2 with D 64, 128 or 256; scales
     (num_pages, Hkv, 1, page_size) fp32; block_tables (B, npages) and
-    seq_lens (B,) int32; (Hq / Hkv) * Tq <= 16. On int8 pages q is
-    quantized per row to int8 inside the kernel (the int8-native QK of the
-    TPU kernel). Out-of-range page ids are clamped into the pool, as the
-    plain version's gather does."""
+    seq_lens (B,) int32; any whole group Hq / Hkv and any Tq (past
+    MAX_ROWS[D] rows a kv head, one block row per row group). On int8
+    pages q is quantized per row to int8 inside the kernel (the
+    int8-native QK of the TPU kernel). Out-of-range page ids are clamped
+    into the pool, as the plain version's gather does."""
     dev = q.device
     check_operand("q", q, dev, (torch.bfloat16, torch.float32), 4)
     check_operand("k_pages", k_pages, dev, tuple(QTYPES), 4)
@@ -74,20 +75,20 @@ def paged_quant_decode_cuda(q, k_pages, k_scales, v_pages, v_scales,
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
-    rows = (hq // hkv) * tq
-    nsplit = paged_num_splits(b, hkv, npages, page_size)
+    nrg, rows = row_groups((hq // hkv) * tq, d)
+    nsplit = paged_num_splits(b, hkv, npages, page_size, nrg)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part_acc, part_ml, counters = scratch_ptrs(b * hkv, nsplit, rows,
-                                                   dev, stream)
+        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, nsplit,
+                                                   rows, d, dev, stream)
         rc = lib.rfa_paged_quant_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
             v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             lse.data_ptr(), part_acc, part_ml, counters, b, hq,
             hkv, tq, d, num_pages, page_size, npages, QTYPES[k_pages.dtype],
-            nsplit, float(scale), float(softcap or 0.0), stream,
+            nsplit, rows, float(scale), float(softcap or 0.0), stream,
         )
         paged_quant_decode_cuda.launches += 1
     _build.check_launch(lib, rc, "paged_quant_decode")

@@ -16,10 +16,15 @@ import torch
 from . import _build
 from .flash_fwd_cuda import head_dim_error
 
-MAX_ROWS = 16  # G * Tq query rows per kv head that one block serves
-HEAD_DIM = 128
+HEAD_DIMS = (64, 128, 256)  # the head dims the decode loop is built for
+# the most of a kv head's G * Tq query rows that one block serves, by head
+# dim (csrc/quant_decode.cuh::max_rows); past it a launch takes one block
+# row per row group of that many rows. The workspace is laid out by it and
+# each launch passes its row group's rows (``row_groups``): a library whose
+# max_rows differs refuses the launch (rfa_qd::dispatch_rows)
+MAX_ROWS = {64: 16, 128: 16, 256: 8}
 CHUNK = 64  # tokens per chunk in the kernels (C in quant_decode.cuh)
-# Blocks to aim for (one per SM of 132: a block runs 2 or 3 pipelines
+# Blocks to aim for (one per SM of 132: a block runs 1 to 3 pipelines
 # side by side, quant_decode.cuh) and the fewest chunks worth a block.
 TARGET_BLOCKS = 132
 MIN_CHUNKS = 8
@@ -27,9 +32,9 @@ QTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
 # rfa_quant_decode(q, q_bf16, k_q, v_q, k_scale, v_scale, len_ptr, len_val,
 #                  out, lse, part_acc, part_ml, counters, B, Hq, Hkv, Tq,
-#                  head_dim, S, qtype, nsplit, scale, softcap, stream)
+#                  head_dim, S, qtype, nsplit, rp, scale, softcap, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-    ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
@@ -55,11 +60,24 @@ def check_operand(name, x, dev, dtypes, ndim):
 
 
 def check_rows(hq, hkv, tq, d):
-    if d != HEAD_DIM:
-        head_dim_error(d, "the decode kernels B4, B5 and B6", (HEAD_DIM,))
-    if hq % hkv or (hq // hkv) * tq > MAX_ROWS:
-        raise ValueError(f"(Hq/Hkv)*Tq must divide evenly and be <= {MAX_ROWS}"
-                         f", got Hq={hq} Hkv={hkv} Tq={tq}")
+    """The decode kernels take head dims HEAD_DIMS and any whole group of
+    q heads a kv head (any number of rows (Hq / Hkv) * Tq)."""
+    if d not in HEAD_DIMS:
+        head_dim_error(d, "the decode kernels B4, B5 and B6", HEAD_DIMS)
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"Hq must be a multiple of Hkv, got Hq={hq} "
+                         f"Hkv={hkv} Tq={tq}")
+
+
+def row_groups(rows, d):
+    """(row groups a kv head, rows a row group's partials hold) of a launch
+    with ``rows`` = (Hq / Hkv) * Tq rows a kv head at head dim d: one group
+    of all rows up to MAX_ROWS[d], else ceil(rows / MAX_ROWS[d]) groups of
+    MAX_ROWS[d] (the last may hold fewer)."""
+    per = MAX_ROWS[d]
+    if rows <= per:
+        return 1, rows
+    return -(-rows // per), per
 
 
 def num_splits(groups, max_chunks):
@@ -71,10 +89,11 @@ def num_splits(groups, max_chunks):
     return max(1, min(TARGET_BLOCKS // groups, max_chunks // MIN_CHUNKS))
 
 
-def paged_num_splits(b, hkv, npages, page_size):
-    """``num_splits`` of a paged cache (B5, B6): B * Hkv groups, each lane
-    at most npages pages of ceil(page_size / CHUNK) chunks."""
-    return num_splits(b * hkv, npages * -(-page_size // CHUNK))
+def paged_num_splits(b, hkv, npages, page_size, nrg=1):
+    """``num_splits`` of a paged cache (B5, B6): B * Hkv * nrg groups (nrg
+    row groups a kv head, ``row_groups``), each lane at most npages pages
+    of ceil(page_size / CHUNK) chunks."""
+    return num_splits(b * hkv * nrg, npages * -(-page_size // CHUNK))
 
 
 _WORKSPACES = {}  # (device, stream) -> (fp32 partials, int32 counters)
@@ -97,16 +116,17 @@ def _buffers(floats, groups, dev, stream):
     return ws
 
 
-def scratch_ptrs(groups, nsplit, rows, dev, stream):
-    """The scratch of a split launch of B4, B5 or B6 on ``stream``, as the
-    kernels take it: part_acc (groups, nsplit, rows, D) and part_ml
-    (groups, nsplit, rows, 2) fp32, the partials that each group's last
-    block merges, one after the other in the workspace, and counters
-    (groups,) int32. Three nulls with one split: the block then writes
-    (out, lse) itself."""
+def scratch_ptrs(groups, nsplit, rows, d, dev, stream):
+    """The scratch of a split launch of B4, B5 or B6 at head dim d on
+    ``stream``, as the kernels take it: part_acc (groups, nsplit, rows, d)
+    and part_ml (groups, nsplit, rows, 2) fp32, the partials that each
+    group's last block merges, one after the other in the workspace, and
+    counters (groups,) int32; with row groups, ``groups`` counts them and
+    ``rows`` is a row group's (``row_groups``). Three nulls with one split:
+    the block then writes (out, lse) itself."""
     if nsplit == 1:
         return None, None, None
-    n_acc = groups * nsplit * rows * HEAD_DIM
+    n_acc = groups * nsplit * rows * d
     part, counters = _buffers(n_acc + groups * nsplit * rows * 2, groups,
                               dev, stream)
     ptr = part.data_ptr()
@@ -119,8 +139,10 @@ def quant_decode_cuda(q, k_q, k_scale, v_q, v_scale, length, scale,
     (B,Hq,Tq)).
 
     q (B, Hq, Tq, D) bf16 or fp32; k_q, v_q (B, Hkv, S, D) int8,
-    float8_e4m3fn or float8_e5m2 with D = 128 and any S >= 1; scales
-    (B, Hkv, S) fp32; (Hq / Hkv) * Tq <= 16. ``length`` is a Python int or
+    float8_e4m3fn or float8_e5m2 with D 64, 128 or 256 and any S >= 1;
+    scales (B, Hkv, S) fp32; any whole group Hq / Hkv and any Tq (past
+    MAX_ROWS[D] rows a kv head, one block row per row group of them).
+    ``length`` is a Python int or
     a 1-element int32 CUDA tensor, which the kernel reads on the device
     (no host sync); it is clamped to [0, S]."""
     dev = q.device
@@ -153,18 +175,18 @@ def quant_decode_cuda(q, k_q, k_scale, v_q, v_scale, length, scale,
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
-    rows = (hq // hkv) * tq
-    nsplit = num_splits(b * hkv, -(-s // CHUNK))
+    nrg, rows = row_groups((hq // hkv) * tq, d)
+    nsplit = num_splits(b * hkv * nrg, -(-s // CHUNK))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part_acc, part_ml, counters = scratch_ptrs(b * hkv, nsplit, rows,
-                                                   dev, stream)
+        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, nsplit,
+                                                   rows, d, dev, stream)
         rc = lib.rfa_quant_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
             v_q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), len_ptr,
             len_val, out.data_ptr(), lse.data_ptr(), part_acc, part_ml,
-            counters, b, hq, hkv, tq, d, s, QTYPES[k_q.dtype], nsplit,
+            counters, b, hq, hkv, tq, d, s, QTYPES[k_q.dtype], nsplit, rows,
             float(scale), float(softcap or 0.0), stream,
         )
         quant_decode_cuda.launches += 1

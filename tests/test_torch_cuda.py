@@ -14,9 +14,10 @@ import torch
 
 from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B3A_EDGE_CASES,
                         B5_TOL, B7_EDGE_CASES, BAND_EDGE_CASES, BWD_REL_TOL,
-                        D256_EDGE_CASES, RING_OUT_REL_TOL, SEG_EDGE_CASES,
-                        XFORM_EDGE_CASES, b5_case_inputs, b5_edge_cases,
-                        band_case_check, d256_case_check,
+                        D256_EDGE_CASES, DECODE_CASES, RING_OUT_REL_TOL,
+                        SEG_EDGE_CASES, XFORM_EDGE_CASES, b5_case_inputs,
+                        b5_edge_cases, band_case_check, d256_case_check,
+                        decode_case_check,
                         band_keep_checks, rel_err_rows, ring_steps,
                         seg_case_mask, xform_case_mask)
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
@@ -1073,9 +1074,10 @@ def test_cuda_band_keep_mask_is_the_plain_one_bitwise():
 @pytest.mark.parametrize("tq", [4, 9, 16])
 def test_cuda_verify_row_groups_match_plain(tq):
     """The speculative verify's B5 at G = 4 (32/8 heads): Tq rows with
-    new_counts, one launch per group of 4 rows past 16 rows a kv head,
-    against the plain version over all rows at once (a dead lane, lanes
-    whose counts end before, inside and after a group)."""
+    new_counts, one launch whose grid takes row groups of 16 rows past 16
+    rows a kv head, against the plain version over all rows at once (a
+    dead lane, lanes whose counts end before, inside and after a row
+    group)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
@@ -1097,7 +1099,7 @@ def test_cuda_verify_row_groups_match_plain(tq):
     before = paged_decode_cuda.launches
     out, lse = tpaged.paged_decode_attention(q, cache, 0.088,
                                              new_counts=counts)
-    assert paged_decode_cuda.launches - before == -(-tq // 4)
+    assert paged_decode_cuda.launches - before == 1
     ref_out, ref_lse = tpaged._plain_paged_decode(q, cache, 0.088, None,
                                                   counts)
     assert float((out - ref_out).abs().max()) <= B5_TOL
@@ -1167,3 +1169,58 @@ def test_cuda_timed_and_trace_timing():
     dev_s, by_name = trace_device_time(step, x0, n_iters=4)
     busy_s, _ = trace_device_busy(step, x0, n_iters=4)
     assert dev_s > 0 and by_name and 0 < busy_s <= dev_s * (1 + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B4", "B5", "B6"])
+@pytest.mark.parametrize("case", range(len(DECODE_CASES)))
+def test_cuda_decode_head_dims_and_row_groups(case, kernel):
+    """B4, B5 and B6 at head dims 64 and 256 and past the rows one block
+    serves (chip_smoke.DECODE_CASES: Llama-3.2-1B, Falcon-7B's 71/1 heads,
+    Gemma-7B and Gemma-2B, StarCoder's 48/1, speculative rows with
+    new_counts, softcap, a dead lane, pages of 16 to 256 tokens) against
+    their plain versions, twice, the same bits
+    (chip_smoke.decode_case_check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    decode_case_check(torch, DECODE_CASES[case], kernel, seed=case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, rows", [(64, 20), (128, 12), (256, 40)])
+def test_cuda_decode_refuses_other_row_groups(d, rows):
+    """The decode libraries lay a split's partials out by their own
+    max_rows(D) (csrc/quant_decode.cuh::dispatch_rows, which B4, B5 and B6
+    share) and refuse a launch whose rows a row group, by which the caller
+    sized its workspace (ops/quant_decode_cuda.py::row_groups), differ:
+    B5's entry point returns cudaErrorInvalidValue (1) and launches
+    nothing; with the launcher's rows it runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops import paged_decode_cuda as b5
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import row_groups
+
+    dev = torch.device("cuda")
+    q = torch.ones((1, rows, 1, d), dtype=torch.bfloat16, device=dev)
+    pages = torch.ones((1, 1, 64, d), dtype=torch.bfloat16, device=dev)
+    tables = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    lens = torch.tensor([64], dtype=torch.int32, device=dev)
+    out = torch.zeros((1, rows, 1, d), dtype=torch.float32, device=dev)
+    lse = torch.zeros((1, rows, 1), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _, rp = row_groups(rows, d)
+
+    def launch(rp):  # B=1, Hq=rows, Hkv=1, Tq=1, one page, one split
+        return b5._lib().rfa_paged_decode(
+            q.data_ptr(), 1, pages.data_ptr(), pages.data_ptr(),
+            tables.data_ptr(), lens.data_ptr(), None, out.data_ptr(),
+            lse.data_ptr(), None, None, None, 1, rows, 1, 1, d, 1, 64, 1, 1,
+            rp, 0.1, 0.0, stream)
+
+    for other in (rp - 1, rp + 1, 2 * rp):
+        assert launch(other) == 1
+    assert float(out.abs().max()) == 0.0  # nothing ran
+    assert launch(rp) == 0
+    torch.cuda.synchronize()
+    # every key and value is 1: each row's output is 1
+    assert float((out - 1.0).abs().max()) <= B5_TOL

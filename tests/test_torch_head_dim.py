@@ -143,16 +143,16 @@ def test_head_dim_256_transforms_raise_f4b(cpu_operands, extra):
 
 
 def test_other_kernels_raise_f4b_at_new_head_dims(cpu_operands):
-    """The fused ring's B7 and B8 take 64 and 128, the decode loop of B4,
-    B5 and B6 takes 128: head_dim 256 there (and 64 for decode) raises
-    the F4(b) error; a head_dim no kernel has raises plainly."""
+    """The fused ring's B7 and B8 take 64 and 128: head_dim 256 there
+    raises the F4(b) error. The decode loop of B4, B5 and B6 takes 64,
+    128 and 256 at any whole group; a head_dim no kernel has raises
+    plainly."""
     with pytest.raises(ValueError, match=r"B7 and B8.*F4\(b\)"):
         frc._check_shapes(*cpu_operands(D))
     assert frc._check_shapes(*cpu_operands(128))[-1] == 128
-    for d in (64, 256):
-        with pytest.raises(ValueError, match=r"B4, B5 and B6.*F4\(b\)"):
-            qdc.check_rows(8, 8, 1, d)
-    qdc.check_rows(8, 8, 1, 128)
+    for d in (64, 128, 256):
+        qdc.check_rows(8, 8, 1, d)
+        qdc.check_rows(71, 1, 5, d)  # no raise
     with pytest.raises(ValueError, match="must be one of"):
         ffc.check_qkv(*cpu_operands(96))
     with pytest.raises(ValueError, match="must be one of"):

@@ -1,9 +1,9 @@
 """The port's GPipe pipeline (ring_flash_attn_tpu_torch.models.pipeline)
 against the JAX package's (tests/test_model.py's pipeline test): one
-``train_step_pp`` on a (pp 2, sp 2) grid and on 4 stages over gloo
-(tests/torch_dist_workers.py) against JAX's ``train_step_pp`` under
-shard_map on the same weights and batch, and one stage in process against
-the port's ``train_step``."""
+``train_step_pp`` on a (pp 2, sp 2) grid, on 4 stages and on a (dp 2, pp 2)
+grid with a data group over gloo (tests/torch_dist_workers.py) against
+JAX's ``train_step_pp`` under shard_map on the same weights and batch, and
+one stage in process against the port's ``train_step``."""
 
 from functools import partial
 
@@ -89,6 +89,52 @@ def test_train_step_pp_matches_jax(pp_runs, pp, sp):
     for rank, r in enumerate(res):
         assert abs(float(r["loss"]) - loss) < 1e-5, (rank, r["loss"], loss)
         stage = rank // sp
+        for name in ("embed", "final_norm", "lm_head"):
+            np.testing.assert_allclose(r[name], new[name], atol=2e-5)
+        for i in range(per):
+            for leaf, ref in new["layers"].items():
+                np.testing.assert_allclose(r[f"layers.{i}.{leaf}"],
+                                           ref[stage * per + i], atol=2e-5,
+                                           err_msg=f"rank {rank} {leaf}")
+
+
+def test_train_step_pp_data_group_matches_jax(devices8):
+    """``train_step_pp(data_group=)`` on a (dp 2, pp 2) grid, sp 1, the two
+    data replicas on different halves of the batch: each rank's loss (the
+    mean over dp) and its stage's updated parameters (gradients summed
+    over dp, and over pp for the embed, final_norm and lm_head) against
+    JAX's ``train_step_pp(data_axis="dp")`` on the same mesh."""
+    dp, pp, m = 2, 2, M
+    cfg = JaxConfig(**CFG_KW)
+    params = jax_init(jax.random.PRNGKey(0), cfg)
+    tokens = jax.random.randint(jax.random.PRNGKey(2), (dp * m * BMB, S), 0,
+                                CFG_KW["vocab"], jnp.int32)
+    labels = jnp.concatenate([tokens[:, 1:], jnp.full_like(tokens[:, :1],
+                                                           -100)], axis=1)
+    pos = jnp.arange(S, dtype=jnp.int32)
+    mesh = Mesh(np.array(devices8[:dp * pp]).reshape(dp, pp), ("dp", "pp"))
+    specs = jpipe.pipeline_specs(cfg, "pp")
+
+    @partial(shard_map, mesh=mesh,
+             in_specs=(specs, P("dp", None), P("dp", None), P()),
+             out_specs=(specs, P()), check_vma=False)
+    def step(params_, tokens_, labels_, pos_):
+        return jpipe.train_step_pp(params_, cfg, tokens_, labels_, pos_, "pp",
+                                   m, lr=LR, data_axis="dp")
+
+    new, loss = jax.jit(step)(jpipe.stack_layers(params, pp), tokens, labels,
+                              pos)
+    new, loss = jax.tree.map(np.asarray, new), float(loss)
+    res = run_ranks("pipeline", dp * pp, {
+        "cfg": CFG_KW, "params": jax.tree.map(np.asarray, params), "sp": 1,
+        "dp": dp, "m": m, "lr": LR, "tokens": np.asarray(tokens),
+        "labels": np.asarray(labels), "pos": np.asarray(pos)})
+    per = CFG_KW["layers"] // pp
+    # every rank reports the one loss, the mean over dp
+    assert len({round(float(r["loss"]), 6) for r in res}) == 1
+    for rank, r in enumerate(res):
+        assert abs(float(r["loss"]) - loss) < 1e-5, (rank, r["loss"], loss)
+        stage = rank % pp
         for name in ("embed", "final_norm", "lm_head"):
             np.testing.assert_allclose(r[name], new[name], atol=2e-5)
         for i in range(per):

@@ -318,29 +318,42 @@ def test_spec_verify_rows_c6(models, monkeypatch):
 
 @pytest.mark.parametrize("tq", [1, 9, 16])
 def test_b5_row_groups_equal_one_call(tq):
-    """``by_row_groups`` (B5's launches at (Hq / Hkv) * Tq > 16) on the
-    plain version equals the plain version over all rows at once: groups
-    of 16 // G rows with new_counts - t0 clamped at 0."""
+    """A speculative verify's B5 past 16 rows a kv head (G = 4, Tq rows
+    with new_counts: 4, 36 and 64 rows) is one call: on the card one
+    launch whose grid takes the row groups of ``row_groups``, each row
+    with its own bound; here the plain version over all rows at once,
+    against JAX's XLA path (1e-5: the same fp32 formula) and its kernel in
+    interpret mode (2e-2: that kernel rounds q * scale and p to bf16,
+    2^-9 of logits up to ~5, which lanes of 11 to 48 tokens do not
+    average out)."""
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import row_groups
+
     rng = np.random.default_rng(tq)
-    b, hq, hkv, d, ps, pps = 4, 8, 2, 32, 8, 6
+    b, hq, hkv, d, ps, pps = 4, 8, 2, 64, 8, 6
     num_pages = b * pps
-    cache = tpaged.PagedKVCache(
-        torch.from_numpy(rng.standard_normal((num_pages, hkv, ps, d))),
-        torch.from_numpy(rng.standard_normal((num_pages, hkv, ps, d))),
-        torch.from_numpy(rng.permutation(num_pages).reshape(b, pps).astype(
-            np.int32)),
-        torch.tensor([30, 0, 48, 11], dtype=torch.int32))
-    q = torch.from_numpy(rng.standard_normal((b, hq, tq, d)))
-    for counts in (None, torch.tensor([min(tq, 7), 0, tq, 1],
-                                      dtype=torch.int32)):
-        ref = tpaged._plain_paged_decode(q, cache, 0.2, None, counts)
-        got = tpaged.by_row_groups(
-            lambda qg, cg: tpaged._plain_paged_decode(qg, cache, 0.2, None,
-                                                      cg),
-            q, hkv, counts)
-        for a, r in zip(got, ref):
+    k, v = (rng.standard_normal((num_pages, hkv, ps, d)).astype(np.float32)
+            for _ in range(2))
+    tables = rng.permutation(num_pages).reshape(b, pps).astype(np.int32)
+    lens = np.asarray([30, 0, 48, 11], np.int32)
+    counts = np.asarray([min(tq, 7), 0, tq, 1], np.int32)
+    q = rng.standard_normal((b, hq, tq, d)).astype(np.float32)
+    cache = tpaged.PagedKVCache(*(torch.from_numpy(x)
+                                  for x in (k, v, tables, lens)))
+    jcache = jpaged.PagedKVCache(*(jnp.asarray(x)
+                                   for x in (k, v, tables, lens)))
+    rows = (hq // hkv) * tq
+    nrg, per = row_groups(rows, d)
+    assert (nrg, per) == ((1, rows) if rows <= 16 else (-(-rows // 16), 16))
+    got = tpaged.paged_decode_attention(torch.from_numpy(q), cache, 0.2,
+                                        new_counts=torch.from_numpy(counts))
+    for backend, tol in (("xla", 1e-5), ("pallas_interpret", 2e-2)):
+        want = jpaged.paged_decode_attention(
+            jnp.asarray(q), jcache, 0.2, backend=backend,
+            new_counts=jnp.asarray(counts))
+        for a, r in zip(got, want):
             assert a.shape == r.shape
-            torch.testing.assert_close(a, r, rtol=0, atol=1e-6)
+            np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=0,
+                                       atol=tol, err_msg=backend)
 
 
 # ---- tensor-parallel serving ----

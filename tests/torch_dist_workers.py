@@ -761,17 +761,29 @@ def task_pipeline(rank, world, p):
     numbers it (sp 1: no sequence group): rank's stage of the layers
     (``stack_layers``) and its sequence chunk of the zigzag batch;
     ``forward_pp``'s logits (on the last stage), then one
-    ``train_step_pp``'s loss and the stage's updated parameters."""
-    sp = p["sp"]
-    if sp == 1:
+    ``train_step_pp``'s loss and the stage's updated parameters. With
+    ``p["dp"]`` > 1 (and sp 1) the ranks form a (dp, pp) grid, pp minor,
+    as ``Mesh(devices.reshape(dp, pp), ("dp", "pp"))`` numbers it: a pp
+    group per row, a data group per column, and data replica r takes rows
+    [r B / dp, (r + 1) B / dp) of the batch."""
+    sp, dp = p["sp"], p.get("dp", 1)
+    data_group, rows = False, slice(None)
+    if dp > 1:
+        pp = world // dp
+        data_group, pp_group = _grid_groups(rank, world, pp)
+        sp_group, stage, sp_rank = False, rank % pp, 0
+        per = len(p["tokens"]) // dp
+        rows = slice(rank // pp * per, (rank // pp + 1) * per)
+    elif sp == 1:
         pp_group, sp_group = dist.group.WORLD, False
+        stage, sp_rank = rank, 0
     else:
         pp_group, sp_group = _grid_groups(rank, world, sp)
-    stage, sp_rank = rank // sp, rank % sp
+        stage, sp_rank = rank // sp, rank % sp
     cfg = ModelConfig(**p["cfg"])
-    model = stack_layers(p["params"], cfg, pp_rank=stage, pp=world // sp,
-                         device="cpu")
-    toks, labs = (_zz_local(a, sp_rank, sp)
+    model = stack_layers(p["params"], cfg, pp_rank=stage,
+                         pp=world // sp // dp, device="cpu")
+    toks, labs = (_zz_local(a[rows], sp_rank, sp)
                   for a in (p["tokens"], p["labels"]))
     pos = torch.from_numpy(_shard(p["pos"], sp_rank, sp, 0))
     out = {}
@@ -781,7 +793,8 @@ def task_pipeline(rank, world, p):
     if logits is not None:
         out["logits"] = _np(logits)
     _, loss = train_step_pp(model, toks, labs, pos, pp_group, p["m"],
-                            lr=p["lr"], sp_group=sp_group)
+                            lr=p["lr"], sp_group=sp_group,
+                            data_group=data_group)
     out["loss"] = _np(loss)
     out.update({n: _np(x) for n, x in model.named_parameters()})
     return out
