@@ -196,8 +196,11 @@ Phases, each of which raises on failure:
    against the unsharded ``_decode_body`` and the plain versions. Where
    an engine's tokens part from the reference engine's, the reference's
    top-two logit margin there must be under phase 4's 5e-2 (the share of
-   the reference's tokens under it is logged). The path's launches are
-   those of the engine runs with the options, (a) to (c).
+   the reference's tokens under it is logged), and the logits every token
+   of (a) and (b) was sampled from, up to that parting, must lie within
+   5e-2 of max|logit| of the reference engine's for the same token. The
+   path's launches are those of the engine runs with the options, (a) to
+   (c).
 20. The HF adapter's ``ring_attention_forward`` at Llama-3-8B attention
    widths on phase 16's packings of 32768 tokens: at W=1 through
    ``position_ids`` and through DATA_PARAMS, forward and backward, against
@@ -249,6 +252,29 @@ Phases, each of which raises on failure:
    launches, and its first decode step's logits against the plain
    versions over the same caches. The paths' launches of B4 and B5 give
    the kernels line's entries of the new builds (B6's come from phase 8).
+25. Gemma 2 at head_dim 256 (Gemma-2-9B's attention, 16/8 heads of 256,
+   softcap 50, the window (4096, 0) on its sliding layers): (a) the
+   softcap/ALiBi and window/dropout builds of B1, B2, B3a/B3b and B7/B8 at
+   256 against their plain versions at the tile edges
+   (``D256_XFORM_EDGE_CASES``, ``D256_BAND_EDGE_CASES``, ``D256_RING_CASES``:
+   caps of 2 to 5 that bend the logits among them), on the last 512 of
+   8192 rows, global and sliding, with q and q x 4, and B7/B8 on a rank's
+   diagonal step and an earlier shard of 8192 keys (softcap 50 and 5) on
+   its last 512 rows; (b) timed at S = 8192
+   beside the flop bound (causal pairs, or the window's band), the same
+   kernel without the softcap, the plain version and SDPA (is_causal, or
+   the dense band mask; without softcap); (c) B7 and B8 at 256 for an
+   off-diagonal and a diagonal step of 8192 rows, beside SDPA not causal;
+   (d) the gemma2 path, whose launches are counted by build:
+   ``flash_attn_func`` (and deterministic) and ``flash_attn_varlen_func``,
+   global and sliding, against the plain versions' last rows; ring and
+   zigzag at W=4 over 32768 tokens, global and sliding, and the fused ring
+   (``bwd_mode`` fused: B8; auto, which picks the schedule's B2 at these
+   widths) against the kernels on the whole sequence; the adapter's
+   ``ring_attention_forward(softcap=50)`` at W=1; (e) a decode step and a
+   verify step with ``append=False`` at phase 4's widths: no page written,
+   the logits against the plain versions', each timed beside
+   ``append=True``.
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -293,6 +319,10 @@ LOGITS_REL_TOL = 5e-2  # |kernel - plain| / max|plain| after 4 bf16 layers
 # |kernel - plain| / max|plain| of dq, dk, dv: p and ds enter bf16 tensor-core
 # products, and B2's dq sums through atomics in run-dependent order
 BWD_REL_TOL = 2e-2
+# the fused ring's backward where every row sees one key: the plain dq and
+# dk are exactly 0 and the kernel's are its rounding noise, held to this
+# share of max|dv| (the H100 reads 1.9e-7 at head_dim 256, 0 at 128)
+ONE_KEY_NOISE_TOL = 1e-5
 # lse of the fused ring against kernels that take q as it is: the ring's q
 # is pre-scaled by scale * log2(e) and rounded to bf16 before its steps, as
 # the JAX wrapper rounds it (2^-9 of each element), which moves a logit of
@@ -497,9 +527,9 @@ def band_case_mask(torch, case, dev, seed=0):
     return mask._replace(window_left=wl, window_right=wr)
 
 
-def band_case_check(torch, case):
-    """B1, B2 and B3a/B3b (both calling modes) with BAND_EDGE_CASES[case]
-    against their plain versions: out and lse (B1_OUT_TOL, by rows
+def band_case_check(torch, case, table=None):
+    """B1, B2 and B3a/B3b (both calling modes) with ``table[case]``
+    (BAND_EDGE_CASES by default) against their plain versions: out and lse (B1_OUT_TOL, by rows
     RING_OUT_REL_TOL, B1_LSE_TOL), dq, dk, dv (BWD_REL_TOL), dead rows (0,
     NEG_INF, dq = 0) and unseen keys (dk = dv = 0), B3 bitwise the same
     twice, every launch a BAND launch. Raises past the limits; returns the
@@ -513,10 +543,11 @@ def band_case_check(torch, case):
     from ring_flash_attn_tpu_torch.ops.naive import (
         naive_block_bwd, naive_block_fwd)
 
-    b, hq, hkv, sq, skv, d = BAND_EDGE_CASES[case][:6]
+    table = BAND_EDGE_CASES if table is None else table
+    b, hq, hkv, sq, skv, d = table[case][:6]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(case)
-    mask = band_case_mask(torch, BAND_EDGE_CASES[case], dev, seed=case)
+    mask = band_case_mask(torch, table[case], dev, seed=case)
     scale = d**-0.5
     counters = (flash_fwd_cuda, flash_bwd_cuda, flash_bwd_dq_cuda,
                 flash_bwd_dkv_cuda)
@@ -532,7 +563,7 @@ def band_case_check(torch, case):
     ref_out, ref_lse = naive_block_fwd(q, k, v, scale, mask)
     worst = {"B1": [max_err(got_out, ref_out), rel_err_rows(got_out, ref_out),
                     max_err(got_lse, ref_lse)]}
-    what = f"BAND_EDGE_CASES[{case}] {BAND_EDGE_CASES[case]}"
+    what = f"band edge case {case} {table[case]}"
     if (worst["B1"][0] > B1_OUT_TOL or worst["B1"][1] > RING_OUT_REL_TOL
             or worst["B1"][2] > B1_LSE_TOL):
         raise AssertionError(f"{what}: B1 {worst['B1']}")
@@ -681,6 +712,86 @@ def xform_case_mask(torch, case, dev, seed=0):
         mask = seg_case_mask(torch, kind, sq, skv, cu, dev, seed)
     return mask._replace(softcap=softcap, alibi_slopes=alibi_slopes(
         torch, hq, dev) if alibi else None)
+
+
+def xform_case_check(torch, case, seed=0):
+    """B1, B2 and B3a/B3b with the softcap and/or ALiBi of an
+    ``XFORM_EDGE_CASES``-form case against their plain versions: out and
+    lse (B1_OUT_TOL, by rows RING_OUT_REL_TOL, B1_LSE_TOL), dq, dk, dv
+    (BWD_REL_TOL of max|plain|), dead rows (0, NEG_INF, dq = 0) and unseen
+    keys (dk = dv = 0), B3 bitwise the same twice, every launch an XFORM
+    launch. Raises past the limits; returns the worst errors {kernel:
+    [abs, rel(, lse)]}."""
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import NEG_INF, allowed_mask
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+
+    b, hq, hkv, sq, skv, d = case[:6]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = xform_case_mask(torch, case, dev, seed=seed)
+    scale = d**-0.5
+    what = f"xform edge case {case}"
+    counters = (flash_fwd_cuda, flash_bwd_cuda, flash_bwd_dq_cuda,
+                flash_bwd_dkv_cuda)
+    before = [f.xform_launches for f in counters]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v, dout = (rnd(b, hq, sq, d), rnd(b, hkv, skv, d),
+                     rnd(b, hkv, skv, d), rnd(b, hq, sq, d))
+    out, lse = flash_fwd_cuda(q, k, v, scale, mask, out_dtype=torch.bfloat16)
+    got_out, got_lse = flash_fwd_cuda(q, k, v, scale, mask)
+    ref_out, ref_lse = naive_block_fwd(q, k, v, scale, mask)
+    worst = {"B1": [max_err(got_out, ref_out), rel_err_rows(got_out, ref_out),
+                    max_err(got_lse, ref_lse)]}
+    if (worst["B1"][0] > B1_OUT_TOL or worst["B1"][1] > RING_OUT_REL_TOL
+            or worst["B1"][2] > B1_LSE_TOL):
+        raise AssertionError(f"{what}: B1 {worst['B1']}")
+    allowed = allowed_mask(mask, sq, skv, dev)
+    if allowed is None:
+        allowed = torch.ones(sq, skv, dtype=torch.bool, device=dev)
+    dead_rows, dead_keys = ~allowed.any(1), ~allowed.any(0)
+    if not (torch.all(got_lse[:, :, dead_rows] == NEG_INF)
+            and torch.all(got_out[:, :, dead_rows] == 0)):
+        raise AssertionError(f"{what}: B1's dead rows are not (0, NEG_INF)")
+    delta = compute_delta(dout, out)
+    ref = naive_block_bwd(dout, q, k, v, lse, delta, scale, mask)
+    # where every row sees one key the softmax has no gradient: dq and dk
+    # are rounding noise on both sides, held on dv's scale
+    one_key = bool((allowed.sum(1) <= 1).all())
+    floor = float(ref[2].abs().max()) if one_key else 0.0
+    for name, bwd in (("B2", flash_bwd_cuda), ("B3", flash_bwd_split_cuda)):
+        got = bwd(dout, q, k, v, lse, delta, scale, mask)
+        rel = [max_err(x, r) / max(float(r.abs().max()), floor, 1e-6)
+               for x, r in zip(got, ref)]
+        if name == "B2":
+            worst["B2"] = [max(max_err(x, r) for x, r in zip(got, ref)),
+                           max(rel)]
+        else:
+            worst["B3a"] = [max_err(got[0], ref[0]), rel[0]]
+            worst["B3b"] = [max(max_err(got[1], ref[1]),
+                                max_err(got[2], ref[2])), max(rel[1:])]
+        if max(rel) > BWD_REL_TOL:
+            raise AssertionError(f"{what}: {name} dq, dk, dv {rel}")
+        if not (torch.all(got[0][:, :, dead_rows] == 0)
+                and torch.all(got[1][:, :, dead_keys] == 0)
+                and torch.all(got[2][:, :, dead_keys] == 0)):
+            raise AssertionError(f"{what}: {name} dead rows or unseen keys")
+        again = bwd(dout, q, k, v, lse, delta, scale, mask)
+        same = [torch.equal(x, y) for x, y in zip(got, again)]
+        if same[1:] != [True, True] or not (same[0] or name == "B2"):
+            raise AssertionError(f"{what}: {name} not reproducible {same}")
+    ran = [f.xform_launches - n for f, n in zip(counters, before)]
+    if ran != [2, 2, 2, 2]:
+        raise AssertionError(f"{what}: XFORM launches {ran}, not 2 each")
+    return worst
 
 
 def varlen_pairs(cu, causal):
@@ -979,30 +1090,37 @@ def hgmma_counts(path, piece):
             if piece in func.split("\n")[0]}
 
 
+# the template parameters of the three tile loops' kernels, in order (a
+# tree without the last flags has no such builds)
+LOOP_FLAGS = {"flash_fwd_kernel": ("D", "ring", "xform", "seg", "band"),
+              "bwd_kv_kernel": ("D", "dq", "ring", "seg", "xform", "band"),
+              "bwd_dq_kernel": ("D", "seg", "xform", "band")}
+
+
+def loop_flags(piece, name):
+    """{parameter: value} of a tile loop's instantiation (``piece``: its
+    kernel, a LOOP_FLAGS key) from a mangled name, or None."""
+    import re
+
+    m = re.search(piece + r"I((?:L[ib]\d+E)+)E", name)
+    if not m:
+        return None
+    args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(1))]
+    return dict(zip(LOOP_FLAGS[piece], args))
+
+
 def check_hgmma(what, lib, piece):
     """Log and check the HGMMA count of each instantiation of a tile loop
     (kernels whose mangled name holds ``piece``: ``flash_fwd_kernel``, the
     forward loop, ``bwd_kv_kernel``, the kv-major backward loop, or
     ``bwd_dq_kernel``, the q-major dq loop) in csrc/<lib>.cu: the loop runs
     on wgmma. Returns {label: count}."""
-    import re
-
     from ring_flash_attn_tpu_torch.ops import _build
 
     def label(name):  # head_dim, the softcap/ALiBi build (XFORM: B7's and
         # B8's are their ring builds), the window/dropout build and the
-        # segmented build, from the template flags: flash_fwd_kernel <D,
-        # RING, XFORM, SEG, BAND>, bwd_kv_kernel <D, DQ, RING, SEG, XFORM,
-        # BAND>, bwd_dq_kernel <D, SEG, XFORM, BAND> (a tree without the
-        # last flags has no such builds)
-        m = re.search(piece + r"I((?:L[ib]\d+E)+)E", name)
-        args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(1))]
-        flags = dict(zip({"flash_fwd_kernel": ("D", "ring", "xform", "seg",
-                                               "band"),
-                          "bwd_kv_kernel": ("D", "dq", "ring", "seg",
-                                            "xform", "band"),
-                          "bwd_dq_kernel": ("D", "seg", "xform",
-                                            "band")}[piece], args))
+        # segmented build, from the template flags
+        flags = loop_flags(piece, name)
         return f"D={flags['D']}" + (" XFORM" if flags.get("xform") else "") \
             + (f" BAND={flags['band']}" if flags.get("band") else "") \
             + (" SEG" if flags.get("seg") else "")
@@ -2676,6 +2794,102 @@ def _finish(torch, m, l, acc):
     return out, lse
 
 
+def fused_ring_case(torch, rnd, worst, name, b, hq, hkv, sq, skv, d, steps,
+                    causal=True, cap=None, alibi=False, q_row0=0,
+                    q_slice=None):
+    """B7 and B8 against their plain versions over a rank's steps (dicts
+    of diagonal, q_pos0, kv_pos0), each on its own kv shard from ``rnd``
+    (bf16 on the card): forward state after every step and (out, lse)
+    after the last, then the backward steps into shared accumulators.
+    With ``q_slice`` the kernels see all sq rows in the forward and the
+    plain versions (and both backwards) the last q_slice rows. Raises
+    past the limits; keeps the worst errors in ``worst`` {"B7": [abs,
+    rel], "B8": [abs, rel]}."""
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import bwd_delta
+    from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
+
+    dev = torch.device("cuda")
+    scale = d ** -0.5
+    slopes = (torch.tensor([2.0 ** (-8.0 * (i + 1) / hq)
+                            for i in range(hq)], device=dev)
+              if alibi else None)
+    q = rnd(b, hq, sq, d)
+    kw = fr._transforms(q, causal, cap, slopes)
+    qs = fr._prescale(q, scale * fr.LOG2E)
+    kvs = [(rnd(b, hkv, skv, d), rnd(b, hkv, skv, d)) for _ in steps]
+    rows = slice(sq - q_slice, sq) if q_slice else slice(None)
+    row0 = q_row0 + (sq - q_slice if q_slice else 0)
+    qs_p = qs[:, :, rows].contiguous()
+    st_k, st_p = fr.new_state(qs), fr.new_state(qs_p)
+    for i, (step, (k, v)) in enumerate(zip(steps, kvs)):
+        flags = dict(first=i == 0, last=i == len(steps) - 1, **step, **kw)
+        got = fr.fwd_step(qs, k, v, st_k, q_row0=q_row0, **flags)
+        ref = fr.fwd_step(qs_p, k, v, st_p, backend="plain", q_row0=row0,
+                          **flags)
+        torch.cuda.synchronize()
+        if got is None:
+            got = _finish(torch, *st_k)
+            ref = _finish(torch, *st_p)
+        eo = max_err(got[0][:, :, rows], ref[0])
+        ro = _rel_err(got[0][:, :, rows], ref[0])
+        el = max_err(got[1][:, :, rows], ref[1])
+        log(f"  {name}, forward step {i}: out err {eo:.3e}, of "
+            f"max|plain| {ro:.3e} (tol {RING_OUT_REL_TOL}), max|lse| err "
+            f"{el:.3e} (tol {B1_LSE_TOL})")
+        if not (ro <= RING_OUT_REL_TOL and el <= B1_LSE_TOL):
+            raise AssertionError(f"B7 disagrees with its plain version: "
+                                 f"{name}, step {i}")
+        worst["B7"] = [max(worst["B7"][0], eo), max(worst["B7"][1], ro)]
+    out, lse = got
+    # backward on the rows the plain version sees
+    out_p, lse_p = out[:, :, rows].contiguous(), lse[:, :, rows]
+    dout = rnd(b, hq, qs_p.shape[2], d)
+    lse2 = (lse_p * fr.LOG2E).clamp(min=-0.5e30).contiguous()
+    delta = bwd_delta(dout, out_p) * scale
+    res = {}
+    for tag, backend in (("kernel", None), ("again", None),
+                         ("plain", "plain")):
+        dq = torch.zeros(qs_p.shape, dtype=torch.float32, device=dev)
+        dkv = torch.empty((2, b, hkv, skv, d), dtype=torch.float32,
+                          device=dev)
+        for i, (step, (k, v)) in enumerate(zip(steps, kvs)):
+            fr.bwd_step(qs_p, k, fr._prescale(v, scale), dout, lse2,
+                        delta, dq, dkv[0], dkv[1], backend=backend,
+                        accumulate=i > 0, q_row0=row0, **step, **kw)
+        res[tag] = (dq, dkv[0], dkv[1])
+    torch.cuda.synchronize()
+    rel = [_rel_err(x, r) for x, r in zip(res["kernel"], res["plain"])]
+    if skv == 1 and len(steps) == 1:
+        # every row sees one key: the softmax has no gradient. Where the
+        # plain dq or dk is exactly 0, the kernel's is rounding noise, held
+        # to ONE_KEY_NOISE_TOL of max|dv|; elsewhere to max|plain| itself
+        dv_max = max(float(res["plain"][2].abs().max()), 1e-30)
+        for i in (0, 1):
+            plain_g = res["plain"][i]
+            if float(plain_g.abs().max()) == 0.0:
+                noise = max_err(res["kernel"][i], plain_g) / dv_max
+                log(f"  {name}: one key a row, plain {'dq' if i == 0 else 'dk'}"
+                    f" is 0; the kernel's {noise:.2e} of max|dv| (tol "
+                    f"{ONE_KEY_NOISE_TOL})")
+                if noise > ONE_KEY_NOISE_TOL:
+                    raise AssertionError(f"B8's one-key noise is too large: "
+                                         f"{name}")
+                rel[i] = noise
+    ab = max(max_err(x, r) for x, r in zip(res["kernel"], res["plain"]))
+    same = [torch.equal(x, y)
+            for x, y in zip(res["kernel"], res["again"])]
+    log(f"  {name}, backward: rel err dq {rel[0]:.2e} dk {rel[1]:.2e} "
+        f"dv {rel[2]:.2e} (tol {BWD_REL_TOL}); two runs bitwise equal "
+        f"(dq, dk, dv) {same}")
+    if max(rel) > BWD_REL_TOL:
+        raise AssertionError(f"B8 disagrees with its plain version: "
+                             f"{name}")
+    if not (same[1] and same[2]):
+        raise AssertionError(f"B8's dk/dv are not bitwise reproducible: "
+                             f"{name}")
+    worst["B8"] = [max(worst["B8"][0], ab), max(worst["B8"][1], max(rel))]
+
+
 def phase_fused_ring(torch, flush):
     import torch.nn.functional as F
 
@@ -2695,76 +2909,8 @@ def phase_fused_ring(torch, flush):
 
     worst = {"B7": [0.0, 0.0], "B8": [0.0, 0.0]}
 
-    def run_case(name, b, hq, hkv, sq, skv, d, steps, causal=True, cap=None,
-                 alibi=False, q_row0=0, q_slice=None):
-        """A rank's steps (dicts of diagonal, q_pos0, kv_pos0), each on its
-        own random kv shard: forward state after every step and (out, lse)
-        after the last, then the backward steps into shared accumulators.
-        With ``q_slice`` the kernels see all sq rows in the forward and the
-        plain versions (and both backwards) the last q_slice rows."""
-        scale = d ** -0.5
-        slopes = (torch.tensor([2.0 ** (-8.0 * (i + 1) / hq)
-                                for i in range(hq)], device=dev)
-                  if alibi else None)
-        q = rnd(b, hq, sq, d)
-        kw = fr._transforms(q, causal, cap, slopes)
-        qs = fr._prescale(q, scale * fr.LOG2E)
-        kvs = [(rnd(b, hkv, skv, d), rnd(b, hkv, skv, d)) for _ in steps]
-        rows = slice(sq - q_slice, sq) if q_slice else slice(None)
-        row0 = q_row0 + (sq - q_slice if q_slice else 0)
-        qs_p = qs[:, :, rows].contiguous()
-        st_k, st_p = fr.new_state(qs), fr.new_state(qs_p)
-        for i, (step, (k, v)) in enumerate(zip(steps, kvs)):
-            flags = dict(first=i == 0, last=i == len(steps) - 1, **step, **kw)
-            got = fr.fwd_step(qs, k, v, st_k, q_row0=q_row0, **flags)
-            ref = fr.fwd_step(qs_p, k, v, st_p, backend="plain", q_row0=row0,
-                              **flags)
-            torch.cuda.synchronize()
-            if got is None:
-                got = _finish(torch, *st_k)
-                ref = _finish(torch, *st_p)
-            eo = max_err(got[0][:, :, rows], ref[0])
-            ro = _rel_err(got[0][:, :, rows], ref[0])
-            el = max_err(got[1][:, :, rows], ref[1])
-            log(f"  {name}, forward step {i}: out err {eo:.3e}, of "
-                f"max|plain| {ro:.3e} (tol {RING_OUT_REL_TOL}), max|lse| err "
-                f"{el:.3e} (tol {B1_LSE_TOL})")
-            if not (ro <= RING_OUT_REL_TOL and el <= B1_LSE_TOL):
-                raise AssertionError(f"B7 disagrees with its plain version: "
-                                     f"{name}, step {i}")
-            worst["B7"] = [max(worst["B7"][0], eo), max(worst["B7"][1], ro)]
-        out, lse = got
-        # backward on the rows the plain version sees
-        out_p, lse_p = out[:, :, rows].contiguous(), lse[:, :, rows]
-        dout = rnd(b, hq, qs_p.shape[2], d)
-        lse2 = (lse_p * fr.LOG2E).clamp(min=-0.5e30).contiguous()
-        delta = bwd_delta(dout, out_p) * scale
-        res = {}
-        for tag, backend in (("kernel", None), ("again", None),
-                             ("plain", "plain")):
-            dq = torch.zeros(qs_p.shape, dtype=torch.float32, device=dev)
-            dkv = torch.empty((2, b, hkv, skv, d), dtype=torch.float32,
-                              device=dev)
-            for i, (step, (k, v)) in enumerate(zip(steps, kvs)):
-                fr.bwd_step(qs_p, k, fr._prescale(v, scale), dout, lse2,
-                            delta, dq, dkv[0], dkv[1], backend=backend,
-                            accumulate=i > 0, q_row0=row0, **step, **kw)
-            res[tag] = (dq, dkv[0], dkv[1])
-        torch.cuda.synchronize()
-        rel = [_rel_err(x, r) for x, r in zip(res["kernel"], res["plain"])]
-        ab = max(max_err(x, r) for x, r in zip(res["kernel"], res["plain"]))
-        same = [torch.equal(x, y)
-                for x, y in zip(res["kernel"], res["again"])]
-        log(f"  {name}, backward: rel err dq {rel[0]:.2e} dk {rel[1]:.2e} "
-            f"dv {rel[2]:.2e} (tol {BWD_REL_TOL}); two runs bitwise equal "
-            f"(dq, dk, dv) {same}")
-        if max(rel) > BWD_REL_TOL:
-            raise AssertionError(f"B8 disagrees with its plain version: "
-                                 f"{name}")
-        if not (same[1] and same[2]):
-            raise AssertionError(f"B8's dk/dv are not bitwise reproducible: "
-                                 f"{name}")
-        worst["B8"] = [max(worst["B8"][0], ab), max(worst["B8"][1], max(rel))]
+    def run_case(*args, **kw):
+        fused_ring_case(torch, rnd, worst, *args, **kw)
 
     diag = dict(diagonal=True, q_pos0=0, kv_pos0=0)
 
@@ -3842,20 +3988,24 @@ def _uncounted(counters):
 
 
 @contextlib.contextmanager
-def _path_run(counters, totals):
+def _path_run(counters, totals, kinds=("launches",)):
     """One run of a path through its entry points: the counts set to 0
     just before it and added to ``totals`` just after (launches under
     ``_uncounted`` inside it left out); the counts outside it stay as they
-    were."""
-    saved = {name: fn.launches for name, fn in counters.items()}
-    for fn in counters.values():
-        fn.launches = 0
+    were. ``kinds``: the counters read, ``launches`` under the kernel's
+    name, a build's (``xform_launches``, ``band_launches``, where the
+    launcher keeps one) under "<name> <kind>"."""
+    saved = {(name, a): getattr(fn, a) for name, fn in counters.items()
+             for a in kinds if hasattr(fn, a)}
+    for name, a in saved:
+        setattr(counters[name], a, 0)
     try:
         yield
     finally:
-        for name, fn in counters.items():
-            totals[name] = totals.get(name, 0) + fn.launches
-            fn.launches = saved[name]
+        for (name, a), x in saved.items():
+            key = name if a == "launches" else f"{name} {a}"
+            totals[key] = totals.get(key, 0) + getattr(counters[name], a)
+            setattr(counters[name], a, x)
 
 
 def phase_varlen(torch, flush):
@@ -4979,6 +5129,58 @@ def band_pairs(s, wl):
     return w * (w + 1) // 2 + (s - w) * (w + 1)
 
 
+def _tail_check(torch, what, q, k, v, dout, mask, scale, tail, counters):
+    """B1, B2 and B3a/B3b on the last ``tail`` rows of q (B, Hq, S, D) over
+    every key against the plain versions, bf16 on the card, their launches
+    left out of ``counters``; raises past the limits. Returns (the worst
+    errors {kernel: [abs, rel(, lse)]}, the plain (out, lse, dq))."""
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_split_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+
+    bf16 = torch.bfloat16
+    n = q.shape[2]
+    m = mask._replace(offset=k.shape[2] - tail)
+    qt, dt = (x[:, :, -tail:].contiguous() for x in (q, dout))
+    with _uncounted(counters):
+        out, lse = flash_fwd_cuda(qt, k, v, scale, m, out_dtype=bf16)
+        o32, l32 = flash_fwd_cuda(qt, k, v, scale, m)
+    ro, rl = naive_block_fwd(qt, k, v, scale, m)
+    w = {"B1": [max_err(o32, ro), rel_err_rows(o32, ro),
+                max_err(l32, rl)]}
+    delta = compute_delta(dt, out)
+    ref = naive_block_bwd(dt, qt, k, v, lse, delta, scale, m)
+    for name, bwd in (("B2", flash_bwd_cuda),
+                      ("B3", flash_bwd_split_cuda)):
+        with _uncounted(counters):
+            got = bwd(dt, qt, k, v, lse, delta, scale, m)
+        rel = [_rel_err(x, r) for x, r in zip(got, ref)]
+        if name == "B2":
+            w["B2"] = [max(max_err(x, r) for x, r in zip(got, ref)),
+                       max(rel)]
+        else:
+            w["B3a"] = [max_err(got[0], ref[0]), rel[0]]
+            w["B3b"] = [max(max_err(got[1], ref[1]),
+                            max_err(got[2], ref[2])), max(rel[1:])]
+        del got
+    log(f"    {what}, last {tail} rows of {n} over {k.shape[2]} keys: "
+        f"B1 out {w['B1'][0]:.3e} (by rows {w['B1'][1]:.3e}) lse "
+        f"{w['B1'][2]:.3e}; rel dq, dk, dv: B2 {w['B2'][1]:.2e}, B3a "
+        f"{w['B3a'][1]:.2e}, B3b {w['B3b'][1]:.2e}")
+    if (w["B1"][0] > B1_OUT_TOL or w["B1"][1] > RING_OUT_REL_TOL
+            or w["B1"][2] > B1_LSE_TOL
+            or max(w[x][1] for x in ("B2", "B3a", "B3b")) > BWD_REL_TOL):
+        raise AssertionError(f"{what}: past the limits {w}")
+    plain = (ro, rl, ref[0])
+    del out, lse, o32, l32, delta, ref
+    torch.cuda.empty_cache()
+    return w, plain
+
+
 def phase_band(torch, flush):
     """Phase 18: windows and dropout in B1, B2, B3a/B3b (their BAND
     instantiations) and on every entry point that takes them. Returns (the
@@ -4991,7 +5193,7 @@ def phase_band(torch, flush):
         block_bwd, block_fwd, compute_delta, flash_attention)
     from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import flash_bwd_cuda
     from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_split_cuda)
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
     from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
     from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
     from ring_flash_attn_tpu_torch.ops.naive import (
@@ -5039,44 +5241,9 @@ def phase_band(torch, flush):
         f"worst {worst}")
 
     def tail_check(what, q, k, v, dout, mask):
-        """B1, B2 and B3a/B3b on the last ``tail`` rows of q over every key
-        against the plain versions; returns the plain (out, lse, dq)."""
-        n = q.shape[2]
-        m = mask._replace(offset=k.shape[2] - tail)
-        qt, dt = (x[:, :, -tail:].contiguous() for x in (q, dout))
-        with uncounted():
-            out, lse = flash_fwd_cuda(qt, k, v, scale, m, out_dtype=bf16)
-            o32, l32 = flash_fwd_cuda(qt, k, v, scale, m)
-        ro, rl = naive_block_fwd(qt, k, v, scale, m)
-        w = {"B1": [max_err(o32, ro), rel_err_rows(o32, ro),
-                    max_err(l32, rl)]}
-        delta = compute_delta(dt, out)
-        ref = naive_block_bwd(dt, qt, k, v, lse, delta, scale, m)
-        for name, bwd in (("B2", flash_bwd_cuda),
-                          ("B3", flash_bwd_split_cuda)):
-            with uncounted():
-                got = bwd(dt, qt, k, v, lse, delta, scale, m)
-            rel = [_rel_err(x, r) for x, r in zip(got, ref)]
-            if name == "B2":
-                w["B2"] = [max(max_err(x, r) for x, r in zip(got, ref)),
-                           max(rel)]
-            else:
-                w["B3a"] = [max_err(got[0], ref[0]), rel[0]]
-                w["B3b"] = [max(max_err(got[1], ref[1]),
-                                max_err(got[2], ref[2])), max(rel[1:])]
-            del got
-        log(f"    {what}, last {tail} rows of {n} over {k.shape[2]} keys: "
-            f"B1 out {w['B1'][0]:.3e} (by rows {w['B1'][1]:.3e}) lse "
-            f"{w['B1'][2]:.3e}; rel dq, dk, dv: B2 {w['B2'][1]:.2e}, B3a "
-            f"{w['B3a'][1]:.2e}, B3b {w['B3b'][1]:.2e}")
-        if (w["B1"][0] > B1_OUT_TOL or w["B1"][1] > RING_OUT_REL_TOL
-                or w["B1"][2] > B1_LSE_TOL
-                or max(w[x][1] for x in ("B2", "B3a", "B3b")) > BWD_REL_TOL):
-            raise AssertionError(f"{what}: past the limits {w}")
+        w, plain = _tail_check(torch, what, q, k, v, dout, mask, scale, tail,
+                               counters)
         keep_worst(w)
-        plain = (ro, rl, ref[0])
-        del out, lse, o32, l32, delta, ref
-        torch.cuda.empty_cache()
         return plain
 
     q, k, v, dout = (rnd(1, hq, s, d), rnd(1, hkv, s, d), rnd(1, hkv, s, d),
@@ -5546,17 +5713,21 @@ def _engine_run(torch, model, prompts, new_tokens, prefix_of=None, **kw):
     engine's options ``kw``. Returns (outputs, {rid: the top-two logit
     margin over max|logit| of each token sampled for it}, [each step's
     wall s], the engine's stats with "lane_steps": the decode steps summed
-    over the lanes). The margins line up with a request's tokens in an
-    engine without speculation."""
+    over the lanes, and "logits": {rid: [the logits each token was
+    sampled from]}). Sample j of a request is its token j, with or
+    without speculation (a verify samples its accepted rows in order);
+    the margins line up with a request's tokens in an engine without
+    speculation."""
     from ring_flash_attn_tpu_torch.models import ServingEngine
 
     eng = ServingEngine(model, device="cuda", **SERVE_POOL, **kw)
     for rid, p in prompts.items():
         eng.submit(rid, p, new_tokens, prefix_of=(prefix_of or {}).get(rid))
-    margins = {}
+    margins, sampled = {}, {}
     sample = eng._sample
 
     def recording(req_id, logits):
+        sampled.setdefault(req_id, []).append(np.asarray(logits, np.float32))
         top = np.partition(logits, -2)[-2:]
         margins.setdefault(req_id, []).append(
             float((top[1] - top[0]) / max(float(np.abs(logits).max()),
@@ -5575,7 +5746,35 @@ def _engine_run(torch, model, prompts, new_tokens, prefix_of=None, **kw):
         if len(steps) > 400:
             raise RuntimeError("serving loop did not converge")
     return eng.outputs, margins, steps, dict(eng.stats,
-                                             lane_steps=lane_steps)
+                                             lane_steps=lane_steps,
+                                             logits=sampled)
+
+
+def _logits_agree(what, ref, ref_logits, got, got_logits):
+    """Hold an engine's sampled logits against a reference engine's on the
+    same requests: token j's logits against the reference's token j's, for
+    every j up to and including the first token where the two engines'
+    tokens part (their contexts are the same until there), within
+    LOGITS_REL_TOL of max|reference| (phase 4's limit); raise past it.
+    Returns (the worst error, the tokens held)."""
+    worst, held = 0.0, 0
+    for rid, want in ref.items():
+        have = got[rid]
+        part = next((i for i, (a, b) in enumerate(zip(want, have))
+                     if a != b), min(len(want), len(have)) - 1)
+        for j in range(min(part + 1, len(ref_logits[rid]),
+                           len(got_logits[rid]))):
+            a, b = got_logits[rid][j], ref_logits[rid][j]
+            worst = max(worst, float(np.abs(a - b).max()
+                                     / max(float(np.abs(b).max()), 1e-30)))
+            held += 1
+    log(f"    {what}: the logits of {held} sampled tokens (each request up "
+        f"to its first parting) within {worst:.2e} of max|reference| (tol "
+        f"{LOGITS_REL_TOL})")
+    if worst > LOGITS_REL_TOL or held == 0:
+        raise AssertionError(f"{what}: logits {worst} past the limit, or "
+                             f"none held ({held})")
+    return worst, held
 
 
 def _parted(what, ref, margins, got):
@@ -5832,8 +6031,8 @@ def phase_serving_options(torch):
     # (a) prefill_chunk=512 against the dense engine on phase 4's traffic
     # (the prefix-cached request included; phase 4 forks)
     prompts = _traffic(cfg.vocab)
-    dense, dense_m, _, _ = _engine_run(torch, model, prompts, 16,
-                                       prefix_of={2: 0})
+    dense, dense_m, _, dense_st = _engine_run(torch, model, prompts, 16,
+                                              prefix_of={2: 0})
     chunks = []
     with _path_run(counters, launches), _checked_chunks(torch, counters,
                                                         chunks):
@@ -5849,6 +6048,9 @@ def phase_serving_options(torch):
         f"{sum(c[4] is not None for c in chunks)} chunks the same bits")
     readings["chunked_parted"] = _parted("chunked vs dense", dense, dense_m,
                                          out)
+    readings["chunked_logits_rel_err"] = _logits_agree(
+        "chunked vs dense", dense, dense_st["logits"], out,
+        stats["logits"])[0]
     # B1 at ragged chunks (C not a multiple of its 128-row q tile) over a
     # lane's 4096 gathered keys, at page-aligned offsets
     ragged = []
@@ -5893,6 +6095,9 @@ def phase_serving_options(torch):
             out, _, _, st = _engine_run(torch, model, rep, 32,
                                         speculate_k=k)
         _parted(f"speculate_k={k} vs plain greedy", plain, plain_m, out)
+        spec_logits = _logits_agree(f"speculate_k={k} vs plain greedy",
+                                    plain, plain_st["logits"], out,
+                                    st["logits"])[0]
         # tokens a lane a decode step: the prefill samples each request's
         # first token, the decode steps the rest
         per_lane = (st["tokens"] - st["prefills"]) / st["lane_steps"]
@@ -5911,7 +6116,8 @@ def phase_serving_options(torch):
             "proposed": st["spec_proposed"], "accepted": st["spec_accepted"],
             "tokens_per_lane_step": per_lane,
             "decode_steps": st["decode_steps"],
-            "plain_decode_steps": plain_st["decode_steps"]}
+            "plain_decode_steps": plain_st["decode_steps"],
+            "logits_rel_err": spec_logits}
     # one verify forward against one plain decode step on the same lanes
     pages, toks, live, tables, lens = _prefilled_lanes(torch, model, rep)
     times = {"decode": _step_times(torch, lambda: _decode_body(
@@ -6465,6 +6671,91 @@ D256_EDGE_CASES = [
 ]
 
 
+# the softcap/ALiBi (XFORM) and window/dropout (BAND) builds of B1, B2, B3a
+# and B3b at head_dim 256, held here (phase 25) and in
+# tests/test_torch_cuda.py, in the forms of XFORM_EDGE_CASES and
+# BAND_EDGE_CASES at D256_EDGE_CASES' tile edges (Sq and Skv at 1, 63 to
+# 65, 127 to 130, 255 to 257, 300; GQA groups 1 to 8, dead rows, unseen
+# keys). The caps of 2 to 5 bend the N(0, 1) logits on every build (with
+# and without SEG, the unmasked and masked bodies), so that a build
+# without the cap or its 1 - tanh^2 fails; windows of 0, 63, 64, 65 and
+# 127 keys sit on and beside the 64-key and 64-row tiles' edges
+D256_XFORM_EDGE_CASES = [
+    (1, 2, 2, 1, 1, 256, "causal", None, 50.0, True),
+    (1, 4, 1, 63, 65, 256, "causal", None, 4.0, True),
+    (1, 8, 1, 129, 127, 256, "full", None, 3.0, True),
+    (2, 2, 1, 64, 64, 256, "full", None, None, True),
+    (1, 4, 2, 200, 300, 256, "causal", None, 2.0, False),
+    (1, 4, 2, 127, 127, 256, "pos", [0, 1, 60, 127], 5.0, True),
+    (1, 8, 1, 129, 129, 256, "posfull", [0, 64, 65, 129], 3.0, True),
+    (1, 4, 4, 257, 257, 256, "seg", [0, 100, 101, 257], 20.0, True),
+    (2, 4, 2, 130, 130, 256, "shuffled", [0, 130], 2.0, False),
+    (1, 4, 2, 200, 300, 256, "absent", [0, 70, 300], None, True),
+    (1, 8, 2, 129, 257, 256, "idx", [0, 50, 200, 257], 4.0, True),
+    (1, 8, 2, 257, 255, 256, "strided", None, 5.0, True),
+]
+D256_BAND_EDGE_CASES = [
+    (1, 4, 2, 257, 257, 256, "causal", None, 0, None, None, None, False),
+    (1, 8, 2, 255, 300, 256, "causal", None, 63, None, None, None, False),
+    (1, 4, 1, 257, 257, 256, "causal", None, 64, None, None, None, False),
+    (2, 4, 2, 130, 130, 256, "causal", None, 127, None, None, 3.0, False),
+    (1, 4, 2, 257, 255, 256, "full", None, 63, 64, None, None, False),
+    (1, 8, 2, 129, 300, 256, "full", None, 0, 65, None, 4.0, True),
+    (2, 4, 2, 257, 257, 256, "causal", None, None, None, 0.1, None, False),
+    (1, 8, 2, 129, 300, 256, "full", None, None, None, 0.3, 2.0, False),
+    (1, 4, 2, 257, 257, 256, "pos", [0, 100, 101, 257], None, None, 0.2,
+     None, False),
+    (2, 4, 2, 130, 130, 256, "shuffled", [0, 130], None, None, 0.1, 5.0,
+     True),
+    (1, 8, 2, 257, 255, 256, "strided", None, None, None, 0.1, None, True),
+    (1, 8, 2, 129, 257, 256, "idx", [0, 50, 200, 257], 64, None, 0.1, None,
+     False),
+    (1, 4, 2, 300, 300, 256, "pos", [0, 3, 131, 132, 300], 65, None, None,
+     None, False),
+    (1, 4, 2, 200, 300, 256, "absent", [0, 70, 300], 63, None, None, None,
+     False),
+    (1, 4, 1, 257, 257, 256, "posfull", [0, 128, 129, 257], 40, 40, 0.1,
+     None, True),
+    (1, 8, 2, 129, 129, 256, "seg", [0, 64, 129], 10, 5, 0.2, 2.0, False),
+    (1, 16, 8, 257, 257, 256, "causal", None, 4095, None, None, 50.0,
+     False),
+]
+# B7 and B8 at head_dim 256 (B7: 128 q rows x 64 keys a tile; B8: 64 keys a
+# block, 64 q rows a step), held here (phase 25) and in
+# tests/test_torch_cuda.py: (Hq, Hkv, Sq, Skv, causal, softcap, ALiBi,
+# steps), the steps of the last rank of a ring of ``steps``
+# (``ring_steps``), caps of 2 to 5 that bend the logits among them
+D256_RING_CASES = [
+    (2, 2, 1, 1, True, None, False, 1),
+    (4, 1, 63, 65, True, 4.0, True, 3),
+    (8, 1, 129, 127, False, 3.0, True, 3),
+    (4, 2, 64, 64, True, None, True, 2),
+    (4, 4, 200, 200, True, 50.0, False, 2),
+    (16, 8, 257, 257, True, 5.0, False, 3),
+    (4, 2, 255, 129, False, None, False, 3),
+    (8, 2, 130, 257, True, 2.0, True, 2),
+]
+
+
+def d256_ring_case_check(torch, case, seed=0):
+    """One ``D256_RING_CASES`` case through ``fused_ring_case`` (B7 after
+    every step, B8 over the steps, against the plain versions). Returns
+    the worst errors {"B7": [abs, rel], "B8": [abs, rel]}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    hq, hkv, sq, skv, causal, cap, alibi, n = case
+    worst = {"B7": [0.0, 0.0], "B8": [0.0, 0.0]}
+    fused_ring_case(torch, rnd, worst, f"D=256 ring {case}", 1, hq, hkv, sq,
+                    skv, GEMMA_HEAD_DIM, ring_steps(n, skv, causal),
+                    causal=causal, cap=cap, alibi=alibi)
+    return worst
+
+
 def d256_case_mask(torch, case, dev):
     from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
 
@@ -6783,6 +7074,616 @@ def phase_d256(torch, flush):
         e["launches"] = launches[e["name"][:-5]]
         e["launches_by_path"] = {"gemma": launches[e["name"][:-5]]}
     entries[0]["adapter_w4_per_rank_ms"] = adapter_times
+    return entries, launches
+
+
+# Gemma-2-9B's attention (google/gemma-2-9b config.json): 16 q heads and 8
+# kv heads of 256, attn_logit_softcapping 50.0, query_pre_attn_scalar 256
+# (scale 256^-0.5), sliding_window 4096 on every other layer (the window
+# (4096, 0) as phase 18 takes Mistral's)
+GEMMA2_ATTN = dict(heads=16, kv_heads=8, head_dim=256, softcap=50.0,
+                   sliding_window=4096)
+# the kernels line's entries of the head_dim 256 builds this phase adds:
+# the build the Gemma 2 path times (XFORM: the global layers, softcap;
+# BAND: the sliding layers, window and softcap, the ALL build) by its
+# library and a piece of its mangled name
+D256_NEW_INSTANTIATIONS = {
+    "B1 flash_fwd D256 XFORM": (
+        "flash_fwd", "flash_fwd_kernelILi256ELb0ELb1ELb0ELi0EE"),
+    "B1 flash_fwd D256 BAND": (
+        "flash_fwd", "flash_fwd_kernelILi256ELb0ELb1ELb0ELi2EE"),
+    "B2 flash_bwd D256 XFORM": (
+        "flash_bwd", "bwd_kv_kernelILi256ELb1ELb0ELb0ELb1ELi0EE"),
+    "B2 flash_bwd D256 BAND": (
+        "flash_bwd", "bwd_kv_kernelILi256ELb1ELb0ELb0ELb1ELi2EE"),
+    "B3a flash_bwd_dq D256 XFORM": (
+        "flash_bwd_split", "bwd_dq_kernelILi256ELb0ELb1ELi0EE"),
+    "B3a flash_bwd_dq D256 BAND": (
+        "flash_bwd_split", "bwd_dq_kernelILi256ELb0ELb1ELi2EE"),
+    "B3b flash_bwd_dkv D256 XFORM": (
+        "flash_bwd_split", "bwd_kv_kernelILi256ELb0ELb0ELb0ELb1ELi0EE"),
+    "B3b flash_bwd_dkv D256 BAND": (
+        "flash_bwd_split", "bwd_kv_kernelILi256ELb0ELb0ELb0ELb1ELi2EE"),
+    "B7 fused_ring_fwd D256": (
+        "fused_ring_fwd", "flash_fwd_kernelILi256ELb1ELb1ELb0ELi0EE"),
+    "B8 fused_ring_bwd D256": (
+        "fused_ring_bwd", "bwd_kv_kernelILi256ELb1ELb1ELb0ELb1ELi0EE"),
+}
+
+
+def d256_builds_ptxas(built, name):
+    """ptxas's facts of every head_dim 256 build of a kernel line entry's
+    family (the XFORM builds of its kernel, with and without SEG and
+    BAND): {template arguments: facts}."""
+    lib, piece = D256_NEW_INSTANTIATIONS[name]
+    kernel = piece[:piece.index("I")]
+    out = {}
+    for fn, f in ptxas_facts(built[lib][:-3] + ".log").items():
+        flags = loop_flags(kernel, fn)
+        if flags and flags["D"] == 256 and flags["xform"]:
+            out["<" + ", ".join(map(str, flags.values())) + ">"] = f
+    return out
+
+
+def phase_gemma2(torch, flush):
+    """Phase 25: Gemma 2's attention at head_dim 256: the softcap/ALiBi and
+    window/dropout builds of B1 to B3b and B7/B8 at 256. Returns (the
+    kernel entries of those builds, the gemma2 path's launches)."""
+    import torch.nn.functional as F
+
+    from ring_flash_attn_tpu_torch import api
+    from ring_flash_attn_tpu_torch.adapters import adapter
+    from ring_flash_attn_tpu_torch.models import ModelConfig, init_params
+    from ring_flash_attn_tpu_torch.models.serve import (
+        _decode_body, _spec_verify_body)
+    from ring_flash_attn_tpu_torch.ops import _build
+    from ring_flash_attn_tpu_torch.ops.flash import (
+        block_bwd, block_fwd, compute_delta)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import (
+        bwd_delta, flash_bwd_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+    from ring_flash_attn_tpu_torch.ops.varlen import (
+        cu_seqlens_to_positions, cu_seqlens_to_segids)
+    from ring_flash_attn_tpu_torch.parallel import (
+        fused_ring as fr, layouts, ring, zigzag)
+    from ring_flash_attn_tpu_torch.parallel.fused_ring_cuda import (
+        fused_ring_bwd_cuda, fused_ring_fwd_cuda)
+
+    log("== phase 25: Gemma 2's attention at head_dim 256: softcap, ALiBi, "
+        "windows and dropout in B1, B2, B3a/B3b, and B7/B8")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    bf16 = torch.bfloat16
+    hq, hkv, d, cap, wl = (GEMMA2_ATTN[x] for x in (
+        "heads", "kv_heads", "head_dim", "softcap", "sliding_window"))
+    s, big, tail, world = 8192, 32768, 512, 4
+    scale = d ** -0.5
+    counters = {"B1 flash_fwd": flash_fwd_cuda,
+                "B2 flash_bwd": flash_bwd_cuda,
+                "B3a flash_bwd_dq": flash_bwd_dq_cuda,
+                "B3b flash_bwd_dkv": flash_bwd_dkv_cuda,
+                "B7 fused_ring_fwd": fused_ring_fwd_cuda,
+                "B8 fused_ring_bwd": fused_ring_bwd_cuda}
+    built = _build.build_all()
+    for what, lib, piece in (("B1", "flash_fwd", "flash_fwd_kernel"),
+                             ("B2", "flash_bwd", "bwd_kv_kernel"),
+                             ("B3a", "flash_bwd_split", "bwd_dq_kernel"),
+                             ("B3b", "flash_bwd_split", "bwd_kv_kernel"),
+                             ("B7", "fused_ring_fwd", "flash_fwd_kernel"),
+                             ("B8", "fused_ring_bwd", "bwd_kv_kernel")):
+        counts = check_hgmma(what, lib, piece)
+        want = (["D=256 XFORM"] if what in ("B7", "B8") else
+                ["D=256 XFORM", "D=256 XFORM SEG", "D=256 XFORM BAND=1",
+                 "D=256 XFORM BAND=2", "D=256 XFORM BAND=1 SEG",
+                 "D=256 XFORM BAND=2 SEG"])
+        if what == "B7":
+            want.append("D=256")
+        if any(w not in counts for w in want):
+            raise AssertionError(f"{what}: a head_dim 256 build is missing: "
+                                 f"{sorted(counts)}")
+    ptx = {name: kernel_ptxas(built, name, D256_NEW_INSTANTIATIONS)
+           for name in D256_NEW_INSTANTIATIONS}
+    for name, f in ptx.items():
+        log(f"  ptxas {name}: {f}")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def uncounted():
+        return _uncounted(counters)
+
+    # (a) the tile edges of every new build, then the full width's last
+    # 512 rows over every key, global and sliding, q and q x 4 (logits of
+    # about N(0, 16), which the cap of 50 bends)
+    worst = {k: [0.0, 0.0] for k in ("B1", "B2", "B3a", "B3b", "B7", "B8")}
+
+    def keep_worst(w):
+        for key, errs in w.items():
+            worst[key] = [max(a, b) for a, b in zip(worst[key], errs)]
+
+    with uncounted():
+        for i, case in enumerate(D256_XFORM_EDGE_CASES):
+            keep_worst(xform_case_check(torch, case, seed=i))
+        for i in range(len(D256_BAND_EDGE_CASES)):
+            keep_worst(band_case_check(torch, i, D256_BAND_EDGE_CASES))
+        for i, case in enumerate(D256_RING_CASES):
+            keep_worst(d256_ring_case_check(torch, case, seed=i))
+        # B7 and B8 at the path's own shape: a rank's diagonal step and an
+        # earlier shard of 8192 keys each, plain on the last 512 q rows (as
+        # phase 10's headline case at 128), with the path's cap of 50 and a
+        # cap of 5 that bends the logits over all 128 key blocks
+        for c in (cap, 5.0):
+            fused_ring_case(
+                torch, rnd, worst, f"Gemma-2-9B q (1,{hq},{s},{d}) kv "
+                f"(1,{hkv},{s},{d}), softcap {c}, last {tail} rows", 1, hq,
+                hkv, s, s, d, [dict(diagonal=True, q_pos0=s, kv_pos0=s),
+                               dict(diagonal=False, q_pos0=s, kv_pos0=0)],
+                cap=c, q_slice=tail)
+        torch.cuda.empty_cache()
+    log(f"  (a) {len(D256_XFORM_EDGE_CASES)} softcap/ALiBi, "
+        f"{len(D256_BAND_EDGE_CASES)} window/dropout and "
+        f"{len(D256_RING_CASES)} ring tile-edge cases and B7/B8 at "
+        f"Gemma-2-9B's shard within the limits; worst {worst}")
+
+    glob = MaskArgs(causal=True, softcap=cap)
+    slide = glob._replace(window_left=wl)
+    layers = {"global": glob, "sliding": slide}
+    q, k, v, dout = (rnd(1, hq, big, d), rnd(1, hkv, big, d),
+                     rnd(1, hkv, big, d), rnd(1, hq, big, d))
+    q8, k8, v8, d8 = (x[:, :, :s].contiguous() for x in (q, k, v, dout))
+
+    def tail_check(what, qq, kk, vv, dd, mask):
+        w, plain = _tail_check(torch, what, qq, kk, vv, dd, mask, scale,
+                               tail, counters)
+        keep_worst(w)
+        return plain
+
+    plain_tail = {}
+    for layer, mask in layers.items():
+        plain_tail[layer] = tail_check(f"Gemma-2-9B {layer} S={s}", q8, k8,
+                                       v8, d8, mask)
+        tail_check(f"Gemma-2-9B {layer} S={s}, q x 4", q8 * 4, k8, v8, d8,
+                   mask)
+
+    # (b) the times at S = 8192, each layer kind beside its flop bound (the
+    # causal pairs, or the window's band), the same kernel without the
+    # transform, the plain version and SDPA (is_causal for the global
+    # layers, the dense band mask for the sliding ones; SDPA has no
+    # softcap: the same work without it)
+    products = {"B1": 2, "B2": 5, "B3a": 3, "B3b": 4}
+    pairs = {"global": s * (s + 1) // 2, "sliding": band_pairs(s, wl)}
+
+    def fns(mask, qq=q8):
+        out, lse = flash_fwd_cuda(qq, k8, v8, scale, mask, out_dtype=bf16)
+        delta = compute_delta(d8, out)
+        return {
+            "B1": lambda: flash_fwd_cuda(qq, k8, v8, scale, mask,
+                                         out_dtype=bf16),
+            "B2": lambda: flash_bwd_cuda(d8, qq, k8, v8, lse, None, scale,
+                                         mask, out=out, dq_dtype=bf16,
+                                         dkv_dtype=bf16),
+            "B3a": lambda: flash_bwd_dq_cuda(d8, qq, k8, v8, lse, delta,
+                                             scale, mask, dq_dtype=bf16),
+            "B3b": lambda: flash_bwd_dkv_cuda(d8, qq, k8, v8, lse, delta,
+                                              scale, mask, dkv_dtype=bf16)}
+
+    timed = {}
+    with uncounted():
+        for layer, mask in layers.items():
+            timed[layer] = {n: kernel_ms(torch, fn, 5, flush)
+                            for n, fn in fns(mask).items()}
+            base = mask._replace(softcap=None)
+            timed[layer + " without softcap"] = {
+                n: kernel_ms(torch, fn, 5, flush)
+                for n, fn in fns(base).items()}
+    plain_ms = {}
+    for layer, mask in layers.items():
+        out, lse = flash_fwd_cuda(q8, k8, v8, scale, mask, out_dtype=bf16)
+        delta = compute_delta(d8, out)
+        plain_ms[layer] = {
+            "fwd": cuda_ms(torch, lambda: naive_block_fwd(
+                q8, k8, v8, scale, mask), 1, flush),
+            "bwd": cuda_ms(torch, lambda: naive_block_bwd(
+                d8, q8, k8, v8, lse, delta, scale, mask), 1, flush)}
+        del out, lse, delta
+        torch.cuda.empty_cache()
+    library = {}
+    i = torch.arange(s, dtype=torch.int32, device=dev)
+    band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] <= wl)
+    qr, kr, vr = (x.repeat_interleave(hq // x.shape[1], dim=1)
+                  for x in (q8, k8, v8))
+    for layer, kw in (("global", dict(is_causal=True)),
+                      ("sliding", dict(attn_mask=band))):
+        leaves = [x.detach().requires_grad_() for x in (qr, kr, vr)]
+        o = F.scaled_dot_product_attention(*leaves, **kw)
+        library[layer] = {
+            "fwd": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qr, kr, vr, **kw), 5, flush),
+            "bwd": cuda_ms(torch, lambda: torch.autograd.grad(
+                o, leaves, d8, retain_graph=True), 3, flush)}
+        del o, leaves
+    del band, i
+    torch.cuda.empty_cache()
+    for layer in layers:
+        for name in products:
+            t = timed[layer][name]
+            bound = products[name] * 2 * hq * d * pairs[layer] \
+                / H100_BF16_FLOPS * 1e3
+            t["bound_ms"] = bound
+            lib = library[layer]["fwd" if name == "B1" else "bwd"]
+            log(f"  {name} {layer} (softcap {cap}"
+                + (f", window ({wl}, 0)" if layer == "sliding" else "")
+                + f") S={s}: {t['ms']:.3f} ms (device {t['device_ms']:.3f}), "
+                f"bound {bound:.3f} ms ({t['ms'] / bound:.2f}x), without "
+                f"softcap {timed[layer + ' without softcap'][name]['ms']:.3f}"
+                f" ms; SDPA {lib:.3f} ms; plain "
+                f"{plain_ms[layer]['fwd' if name == 'B1' else 'bwd']:.1f} ms")
+
+    # (c) B7 and B8 at 256 with the softcap: one off-diagonal and one
+    # diagonal step of a W = 4 ring of 32768 tokens (8192 a rank), beside
+    # SDPA not causal at 256
+    qs, vsc = fr._prescale(q8, scale * fr.LOG2E), fr._prescale(v8, scale)
+    tk = fr._transforms(q8, True, cap, None)
+    state = fr.new_state(qs)
+    with uncounted():
+        fr.fwd_step(qs, k8, v8, state, diagonal=True, first=True,
+                    last=False, **tk)
+        out, lse = fr.fwd_step(qs, k8, v8, state, diagonal=False,
+                               first=False, last=True, **tk)
+        lse2 = (lse * fr.LOG2E).contiguous()
+        delta = bwd_delta(d8, out) * scale
+    dq = torch.zeros(q8.shape, dtype=torch.float32, device=dev)
+    dkv = torch.zeros((2, 1, hkv, s, d), dtype=torch.float32, device=dev)
+
+    def fwd(diagonal, backend=None):
+        return fr.fwd_step(qs, k8, v8, state, backend=backend,
+                           diagonal=diagonal, first=diagonal, last=False,
+                           **tk)
+
+    def bwd(diagonal, backend=None):
+        return fr.bwd_step(qs, k8, vsc, d8, lse2, delta, dq, dkv[0], dkv[1],
+                           backend=backend, diagonal=diagonal,
+                           accumulate=not diagonal, **tk)
+
+    with uncounted():
+        ring_t = {"B7": kernel_ms(torch, lambda: fwd(False), 5, flush),
+                  "B7 diagonal": kernel_ms(torch, lambda: fwd(True), 5,
+                                           flush),
+                  "B8": kernel_ms(torch, lambda: bwd(False), 3, flush),
+                  "B8 diagonal": kernel_ms(torch, lambda: bwd(True), 3,
+                                           flush)}
+        ring_plain = {"B7": cuda_ms(torch, lambda: fwd(False, "plain"), 1,
+                                    flush)}
+        torch.cuda.empty_cache()
+        ring_plain["B8"] = cuda_ms(torch, lambda: bwd(False, "plain"), 1,
+                                   flush)
+    torch.cuda.empty_cache()
+    leaves = [x.detach().requires_grad_() for x in (qr, kr, vr)]
+    o = F.scaled_dot_product_attention(*leaves)
+    ring_lib = {"B7": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qr, kr, vr), 5, flush),
+                "B8": cuda_ms(torch, lambda: torch.autograd.grad(
+                    o, leaves, d8, retain_graph=True), 3, flush)}
+    del o, leaves, state, dq, dkv, qs, vsc, out, lse, lse2, delta, qr, kr, vr
+    torch.cuda.empty_cache()
+    n_q, n_kv, rows = q8.numel(), k8.numel(), hq * s
+    per_product = 2 * hq * d * s * s
+    ring_bound = {
+        "B7": max(2 * per_product / H100_BF16_FLOPS,
+                  (2 * (n_q + 2 * n_kv) + 2 * 4 * (n_q + 2 * rows))
+                  / H100_BYTES_PER_S) * 1e3,
+        "B8": max(5 * per_product / H100_BF16_FLOPS,
+                  (2 * (2 * n_q + 2 * n_kv) + 2 * 4 * rows
+                   + 2 * 4 * (n_q + 2 * n_kv)) / H100_BYTES_PER_S) * 1e3}
+    for name in ("B7", "B8"):
+        log(f"  {name} at 256 with softcap {cap}, one step of 8192 rows over "
+            f"8192 keys: off-diagonal {ring_t[name]['ms']:.3f} ms (device "
+            f"{ring_t[name]['device_ms']:.3f}), diagonal "
+            f"{ring_t[name + ' diagonal']['ms']:.3f} ms, bound "
+            f"{ring_bound[name]:.3f} ms ({ring_t[name]['ms'] / ring_bound[name]:.2f}x)"
+            f"; SDPA not causal {ring_lib[name]:.3f} ms; plain "
+            f"{ring_plain[name]:.1f} ms")
+
+    # (d) the gemma2 path, whose launches are counted: flash_attn_func
+    # (and deterministic: B3a/B3b) and flash_attn_varlen_func, global and
+    # sliding, at S = 8192 against the plain versions' last rows; ring and
+    # zigzag at W = 4 over 32768 tokens, global and sliding, against the
+    # kernels on the whole sequence; the fused ring (B7; bwd_mode "fused":
+    # B8, "auto": the schedule's B2 at these widths) on the global layers;
+    # the adapter's ring_attention_forward(softcap=50) at W = 1
+    launches = {}
+
+    def path_run():
+        return _path_run(counters, launches,
+                         ("launches", "xform_launches", "band_launches"))
+
+    def bhsd(x):
+        return x.transpose(1, 2)
+
+    for layer, mask in layers.items():
+        kw = dict(softcap=cap, window_size=(wl, 0) if layer == "sliding"
+                  else (-1, -1))
+        for det in (False, True):
+            leaves = [bhsd(x).detach().clone().requires_grad_()
+                      for x in (q8, k8, v8)]
+            with path_run():
+                o, lse_a, _ = api.flash_attn_func(
+                    *leaves, causal=True, return_attn_probs=True,
+                    deterministic=det, **kw)
+                g = torch.autograd.grad(o, leaves, bhsd(d8))
+            plain = plain_tail[layer]
+            got = (bhsd(o.detach())[:, :, -tail:], lse_a[:, :, -tail:],
+                   bhsd(g[0])[:, :, -tail:])
+            errs = (max_err(got[0], plain[0]), rel_err_rows(got[0], plain[0]),
+                    max_err(got[1], plain[1]), _rel_err(got[2], plain[2]))
+            log(f"    flash_attn_func {layer} deterministic={det}: last "
+                f"{tail} rows against the plain versions: out {errs[0]:.3e} "
+                f"(rows {errs[1]:.3e}), lse {errs[2]:.3e}, dq {errs[3]:.2e}")
+            if (errs[0] > B1_OUT_TOL or errs[1] > RING_OUT_REL_TOL
+                    or errs[2] > B1_LSE_TOL or errs[3] > BWD_REL_TOL
+                    or not all(bool(torch.isfinite(y).all()) for y in g)):
+                raise AssertionError(f"flash_attn_func {layer} is wrong")
+            del leaves, o, lse_a, g, got
+        # flash_attn_varlen_func on the five-sequence packing: the last
+        # 512 rows against the plain versions with the packing's mask
+        cu = VARLEN_PACKINGS[3]
+        leaves = [x[0].transpose(0, 1).detach().clone().requires_grad_()
+                  for x in (q8, k8, v8)]
+        with path_run():
+            o, lse_v, _ = api.flash_attn_varlen_func(
+                *leaves, torch.tensor(cu, device=dev), causal=True,
+                return_attn_probs=True, **kw)
+            g = torch.autograd.grad(o, leaves, d8[0].transpose(0, 1))
+        seg = cu_seqlens_to_segids(cu, s, dev)
+        pos = cu_seqlens_to_positions(cu, s, dev)
+        m = mask._replace(q_segids=seg[-tail:], kv_segids=seg,
+                          q_pos=pos[-tail:], kv_pos=pos, packed_self=False)
+        qt, dt = (x[:, :, -tail:].contiguous() for x in (q8, d8))
+        ro, rl = naive_block_fwd(qt, k8, v8, scale, m)
+        with uncounted():
+            ob = flash_fwd_cuda(qt, k8, v8, scale, m, out_dtype=bf16)[0]
+        rg = naive_block_bwd(dt, qt, k8, v8, rl, compute_delta(dt, ob),
+                             scale, m)
+        got_o = o.detach().transpose(0, 1)[None][:, :, -tail:]
+        errs = (max_err(got_o, ro), rel_err_rows(got_o, ro),
+                max_err(lse_v[None][:, :, -tail:], rl),
+                _rel_err(g[0].transpose(0, 1)[None][:, :, -tail:], rg[0]))
+        log(f"    flash_attn_varlen_func {layer} {cu}: last {tail} rows "
+            f"against the plain versions: out {errs[0]:.3e} (rows "
+            f"{errs[1]:.3e}), lse {errs[2]:.3e}, dq {errs[3]:.2e}")
+        if (errs[0] > B1_OUT_TOL or errs[1] > RING_OUT_REL_TOL
+                or errs[2] > B1_LSE_TOL or errs[3] > BWD_REL_TOL):
+            raise AssertionError(f"flash_attn_varlen_func {layer} is wrong")
+        del leaves, o, lse_v, g, ro, rl, rg, ob
+        torch.cuda.empty_cache()
+
+    def hold(what, got, ref, parts=world):
+        """(out, lse, dq, dk, dv) against the whole-sequence kernels'."""
+        errs = [_rel_err_parts(got[0], ref[0], parts), max_err(got[1],
+                                                              ref[1])]
+        rel = [_rel_err(x, r) for x, r in zip(got[2:], ref[2:])]
+        log(f"    {what}: out of max|ref| by parts {errs[0]:.3e}, lse "
+            f"{errs[1]:.3e}, rel dq dk dv " + " ".join(
+                f"{x:.2e}" for x in rel))
+        if (errs[0] > RING_OUT_REL_TOL or errs[1] > RING_LSE_TOL
+                or max(rel) > BWD_REL_TOL):
+            raise AssertionError(f"{what} is wrong")
+
+    layouts_of = {
+        "ring": (lambda x: [c.contiguous() for c in x.chunk(world, dim=2)],
+                 lambda parts: torch.cat(parts, dim=2)),
+        "zigzag": (lambda x: [layouts.extract_local_zigzag(
+            x, r, world, axis=2).contiguous() for r in range(world)],
+            lambda parts: layouts.restore_zigzag(
+                torch.cat(parts, dim=2), world, axis=2)),
+    }
+    for layer, mask in layers.items():
+        with uncounted():
+            ref_o, ref_l = block_fwd(q, k, v, scale, mask, out_dtype=bf16)
+            ref_g = block_bwd(dout, q, k, v, ref_l, None, scale, mask,
+                              out=ref_o)
+        ref = (ref_o, ref_l, *ref_g)
+        extras = dict(softcap=cap)
+        if layer == "sliding":
+            extras["window_left"] = wl
+        for sched, (split, join) in layouts_of.items():
+            qs_, ks_, vs_, ds_ = (split(x) for x in (q, k, v, dout))
+            ll = qs_[0].shape[2]
+            if sched == "zigzag":
+                step_masks = zigzag._batch_masks(ll // 2, extras, dev)
+                rank_fwd, rank_bwd = _zigzag_rank_fwd, _zigzag_rank_bwd
+            else:
+                step_masks = ring._ring_masks(True, ll, extras)
+                rank_fwd, rank_bwd = _rank_fwd, _rank_bwd
+            with path_run():
+                res = [rank_fwd(qs_, ks_, vs_, r, scale, step_masks)
+                       for r in range(world)]
+                outs, lses = [o for o, _ in res], [x for _, x in res]
+                dkvs = [torch.zeros((2,) + tuple(x.shape),
+                                    dtype=torch.float32, device=dev)
+                        for x in ks_]
+                dqs = [rank_bwd(qs_, ks_, vs_, ds_, outs, lses, dkvs, r,
+                                scale, step_masks) for r in range(world)]
+            got = (join(outs), join(lses), join(dqs),
+                   join([x[0] for x in dkvs]), join([x[1] for x in dkvs]))
+            hold(f"{sched} W={world} S={big} {layer}", got, ref)
+            del res, outs, lses, dkvs, dqs, got, qs_, ks_, vs_, ds_
+            torch.cuda.empty_cache()
+        if layer == "global":
+            # the fused ring: B7's forward, then bwd_mode "fused" (B8) and
+            # "auto", which at these widths picks the schedule (B2)
+            ll = big // world
+            auto = fr.fused_ring_bwd_supported(ll, d, hq // hkv, 2)
+            if auto:
+                raise AssertionError("bwd_mode='auto' picks the fused "
+                                     "backward at Gemma 2's widths")
+            with path_run():
+                fo, fl = ring_forward_one_device(q, k, v, world, scale, True,
+                                                 softcap=cap)
+            with path_run():
+                fg = ring_backward_one_device(q, k, v, dout, fo, fl, world,
+                                              scale, True, softcap=cap)
+            hold(f"fused ring W={world} S={big} global, bwd_mode fused",
+                 (fo, fl, *fg), ref)
+            del fg
+            qs_, ks_, vs_, ds_, os_, ls_ = (
+                [c.contiguous() for c in x.chunk(world, dim=2)]
+                for x in (q, k, v, dout, fo, fl))
+            with path_run():
+                dkvs = [torch.zeros((2,) + tuple(x.shape),
+                                    dtype=torch.float32, device=dev)
+                        for x in ks_]
+                dqs = [_rank_bwd(qs_, ks_, vs_, ds_, os_, ls_, dkvs, r,
+                                 scale, ring._ring_masks(True, ll, dict(
+                                     softcap=cap))) for r in range(world)]
+            hold(f"fused ring W={world} S={big} global, bwd_mode auto "
+                 f"(schedule)", (fo, fl, torch.cat(dqs, dim=2),
+                                 torch.cat([x[0] for x in dkvs], dim=2),
+                                 torch.cat([x[1] for x in dkvs], dim=2)),
+                 ref)
+            del fo, fl, dqs, dkvs, qs_, ks_, vs_, ds_, os_, ls_
+        # the adapter's ring_attention_forward at W = 1 (a world of one)
+        # on the five-sequence packing x 4 through position_ids
+        cu = [4 * x for x in VARLEN_PACKINGS[3]]
+        pos = cu_seqlens_to_positions(cu, big, dev)[None]
+        t3 = [x[0].transpose(0, 1) for x in (q, k, v, dout)]
+        leaves = [x.detach().clone().requires_grad_() for x in t3[:3]]
+        with uncounted():
+            ref_o2, _, _ = api.flash_attn_varlen_func(
+                *leaves, torch.tensor(cu, device=dev), causal=True,
+                return_attn_probs=True, softcap=cap,
+                window_size=(wl, 0) if layer == "sliding" else (-1, -1))
+            ref_g2 = torch.autograd.grad(ref_o2, leaves, t3[3])
+        leaves = [x.detach()[None].requires_grad_() for x in t3[:3]]
+        adapter.DATA_PARAMS.clear()
+        with path_run():
+            o = adapter.ring_attention_forward(
+                *leaves, causal=True, position_ids=pos, softcap=cap,
+                window_left=wl if layer == "sliding" else None)
+            g = torch.autograd.grad(o, leaves, t3[3][None])
+        err = _rel_err(o.detach()[0].float(), ref_o2.float())
+        log(f"    ring_attention_forward(softcap={cap}) {layer} W=1 on {cu}:"
+            f" out {err:.2e} of max|ref|")
+        if err > RING_OUT_REL_TOL:
+            raise AssertionError(f"ring_attention_forward {layer} is wrong")
+        _grads_check(f"ring_attention_forward {layer} backward",
+                     [x[0] for x in g], ref_g2)
+        del ref_o2, ref_g2, leaves, o, g, t3, ref, ref_o, ref_l, ref_g
+        torch.cuda.empty_cache()
+    del q, k, v, dout, q8, k8, v8, d8
+    torch.cuda.empty_cache()
+    log(f"  launches on the gemma2 path: {launches}")
+    need = [f"{n} {a}" for n in list(counters)[:4]
+            for a in ("xform_launches", "band_launches")] + [
+        "B7 fused_ring_fwd", "B8 fused_ring_bwd"]
+    if min(launches[n] for n in need) <= 0:
+        raise AssertionError(f"a head_dim 256 build of the gemma2 path "
+                             f"never ran: {launches}")
+
+    # (e) the serving read path alone: a decode step and a verify step with
+    # append=False at phase 4's widths, the caches as they were afterwards,
+    # the logits against the plain versions' with append=False, and each
+    # timed beside append=True
+    cfg = ModelConfig(**FULL_WIDTH)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    pages, toks, live, tables, lens = _prefilled_lanes(
+        torch, model, _traffic(cfg.vocab))
+    rng = np.random.default_rng(25)
+    cand = torch.cat([toks[:, None], torch.as_tensor(
+        rng.integers(0, cfg.vocab, size=(4, 3)), device="cuda")], dim=1)
+    n_valid = torch.where(live, 4, 0).to(torch.int32)
+    bodies = {
+        "decode": lambda caches, append, backend=None: _decode_body(
+            model, toks, live, caches, backend=backend, append=append),
+        "verify": lambda caches, append, backend=None: _spec_verify_body(
+            model, cand, n_valid, caches, backend=backend, append=append)}
+    serving = {}
+    for name, body in bodies.items():
+        caches = _caches(torch, pages, tables, lens)
+        before = [(c.k_pages.clone(), c.v_pages.clone()) for c in caches]
+        got, after = body(caches, False)
+        plain, _ = body(_caches(torch, pages, tables, lens), False, "plain")
+        appended, _ = body(_caches(torch, pages, tables, lens), True)
+        same = all(torch.equal(a.k_pages, b[0]) and torch.equal(a.v_pages,
+                                                                b[1])
+                   and torch.equal(a.seq_lens, lens)
+                   for a, b in zip(after, before))
+        err = _rel_err(got, plain)
+        moved = _rel_err(got, appended)
+        times = {f"append={a}": _step_times(
+            torch, lambda a=a: body(_caches(torch, pages, tables, lens), a))
+            for a in (False, True)}
+        log(f"  (e) {name} step with append=False: caches untouched {same}, "
+            f"logits against the plain versions {err:.2e} of max|logit| "
+            f"(tol {LOGITS_REL_TOL}), {moved:.2e} from append=True's; wall / "
+            f"device ms " + "; ".join(f"{n} {w:.3f} / {dv:.3f}"
+                                      for n, (w, dv) in times.items()))
+        if not same or err > LOGITS_REL_TOL or not torch.isfinite(got).all():
+            raise AssertionError(f"append=False {name} step is wrong")
+        serving[name] = {"rel_err_plain": err, "rel_from_append": moved,
+                         "wall_device_ms": times}
+    del model, pages, caches, before, after
+    torch.cuda.empty_cache()
+
+    # the kernels line's entries
+    sources = {"B1": "flash_fwd.cu", "B2": "flash_bwd.cu",
+               "B3a": "flash_bwd_split.cu", "B3b": "flash_bwd_split.cu",
+               "B7": "fused_ring_fwd.cu", "B8": "fused_ring_bwd.cu"}
+    replaces = {"B1": "ring_flash_attn_tpu/ops/pallas_fwd.py:161",
+                "B2": "ring_flash_attn_tpu/ops/pallas_bwd_fused.py:59",
+                "B3a": "ring_flash_attn_tpu/ops/pallas_bwd.py:56",
+                "B3b": "ring_flash_attn_tpu/ops/pallas_bwd.py:256",
+                "B7": "ring_flash_attn_tpu/parallel/fused_ring.py:74",
+                "B8": "ring_flash_attn_tpu/parallel/fused_ring.py:474"}
+    entries = []
+    for name in D256_NEW_INSTANTIATIONS:
+        short, base = name.split()[0], " ".join(name.split()[:2])
+        common = {"name": name, "route": "cuda",
+                  "source": "ring_flash_attn_tpu_torch/csrc/" + sources[short],
+                  "replaces": replaces[short],
+                  "max_abs_err": worst[short][0],
+                  "max_rel_err": worst[short][1],
+                  "ptxas": ptx[name],
+                  "ptxas_d256_builds": d256_builds_ptxas(built, name),
+                  "bound_by": "operations"}
+        if short in ("B7", "B8"):
+            t = ring_t[short]
+            entries.append(dict(
+                common, launches=launches[base],
+                ms=t["ms"], device_ms=t["device_ms"],
+                diagonal=ring_t[short + " diagonal"],
+                plain_ms=ring_plain[short], bound_ms=ring_bound[short],
+                library_ms=ring_lib[short],
+                library="F.scaled_dot_product_attention, not causal, kv "
+                        "repeated to 16 heads"
+                        + (", backward" if short == "B8" else ""),
+                shape=f"one off-diagonal ring step, q (1,{hq},{s},{d}) kv "
+                      f"(1,{hkv},{s},{d}) bf16, softcap {cap}, state read "
+                      f"and written (Gemma-2-9B attention, W=4 of {big})"))
+            continue
+        layer = "global" if name.endswith("XFORM") else "sliding"
+        attr = "xform_launches" if layer == "global" else "band_launches"
+        t = timed[layer][short]
+        entries.append(dict(
+            common, launches=launches[f"{base} {attr}"],
+            ms=t["ms"], device_ms=t["device_ms"],
+            plain_ms=plain_ms[layer]["fwd" if short == "B1" else "bwd"],
+            bound_ms=t["bound_ms"],
+            library_ms=library[layer]["fwd" if short == "B1" else "bwd"],
+            library="F.scaled_dot_product_attention, kv repeated to 16 "
+                    "heads, " + ("is_causal" if layer == "global"
+                       else "the dense band mask") + ", without softcap",
+            without_softcap_ms=timed[layer + " without softcap"][short]["ms"],
+            shape=f"q (1,{hq},{s},{d}) kv (1,{hkv},{s},{d}) bf16 causal, "
+                  f"softcap {cap}"
+                  + (f", window ({wl}, 0)" if layer == "sliding" else "")
+                  + f": Gemma-2-9B's {layer} layers"))
+    entries[0]["serving_append_false"] = serving
     return entries, launches
 
 
@@ -7131,6 +8032,12 @@ def main():
     torch.cuda.empty_cache()
     decode_paths, decode_readings = run("decode models", phase_decode_models,
                                         torch)
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    gemma2_entries, gemma2 = run("Gemma 2 at head_dim 256", phase_gemma2,
+                                 torch, flush)
+    del flush
+    torch.cuda.empty_cache()
     # the decode loop's new builds, each family's launches from its path:
     # B5 the engine's, B4 generate's (phase 24), B6 its op-level path's
     # (phase 8)
@@ -7208,7 +8115,10 @@ def main():
             k["ptxas_varlen"] = kernel_ptxas(built, k["name"],
                                              SEG_INSTANTIATIONS)
             k.update(varlen_readings[k["name"]])
-    kernels += xform_entries + band_entries + d256_entries + decode_new
+    for e in gemma2_entries:
+        e["launches_by_path"] = {"gemma2": e["launches"]}
+    kernels += (xform_entries + band_entries + d256_entries + decode_new
+                + gemma2_entries)
     log(f"phase seconds {seconds}; phases took "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

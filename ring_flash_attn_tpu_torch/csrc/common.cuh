@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // Masked-logit sentinel of the (out, lse) contract: dead rows report
 // lse = NEG_INF (never -inf) so a partial merge weights them zero.
 #define RFA_NEG_INF (-1e30f)
@@ -18,6 +20,18 @@ extern "C" const char* rfa_error_string(int code) {
 }
 
 namespace rfa {
+
+// The head dims every attention kernel is built for. An entry point names
+// its build once, for the constant head dim of `d`:
+//   by_head_dim(D, [&](auto d) { return launch<decltype(d)::value>(...); })
+// cudaErrorInvalidValue for any other D.
+template <class F>
+int by_head_dim(int D, const F& f) {
+  if (D == 128) return f(std::integral_constant<int, 128>{});
+  if (D == 64) return f(std::integral_constant<int, 64>{});
+  if (D == 256) return f(std::integral_constant<int, 256>{});
+  return cudaErrorInvalidValue;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -7,8 +7,7 @@
 // (csrc/segments.cuh), softcap and ALiBi (csrc/xform.cuh), sliding windows
 // and dropout (csrc/band.cuh), GQA (q head h
 // reads kv head h / (Hq/Hkv)),
-// head_dim 64, 128 or 256 (256: the mask-free and segmented builds only,
-// 64 keys a block with dK's and dV's columns split over the consumer
+// head_dim 64, 128 or 256 in every build (256: 64 keys a block with dK's and dV's columns split over the consumer
 // warpgroups and dq added by atomics from the registers, see
 // csrc/flash_bwd.cuh), bf16 q, k, v and dout. Contract of
 // ops/flash.py::block_bwd: dq fp32 (B, Hq, Sq, D); dk, dv (B, Hkv, Skv, D)
@@ -80,18 +79,12 @@ inline int launch_delta(const void* dout, const void* out, float* delta, int B,
   dim3 grid((unsigned)((rows + DELTA_WARPS - 1) / DELTA_WARPS));
   const bf16* go = static_cast<const bf16*>(dout);
   const bf16* y = static_cast<const bf16*>(out);
-  if (D == 128)
-    bwd_delta_kernel<128><<<grid, DELTA_WARPS * 32, 0, stream>>>(
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
+    bwd_delta_kernel<HD><<<grid, DELTA_WARPS * 32, 0, stream>>>(
         go, y, delta, H, S, rows, st[0], st[1], st[2], st[3], st[4], st[5]);
-  else if (D == 64)
-    bwd_delta_kernel<64><<<grid, DELTA_WARPS * 32, 0, stream>>>(
-        go, y, delta, H, S, rows, st[0], st[1], st[2], st[3], st[4], st[5]);
-  else if (D == 256)
-    bwd_delta_kernel<256><<<grid, DELTA_WARPS * 32, 0, stream>>>(
-        go, y, delta, H, S, rows, st[0], st[1], st[2], st[3], st[4], st[5]);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace rfa_bwd
@@ -106,19 +99,11 @@ extern "C" int rfa_flash_bwd(const void* q, const void* k, const void* v,
                              float scale, int causal, int offset,
                              int dkv_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return rfa_bwd::launch_kv<128, true>(q, k, v, dout, lse, delta, dq_acc,
-                                         dk, dv, B, Hq, Hkv, Sq, Skv, strides,
-                                         scale, causal, offset, dkv_bf16, st);
-  if (D == 64)
-    return rfa_bwd::launch_kv<64, true>(q, k, v, dout, lse, delta, dq_acc, dk,
-                                        dv, B, Hq, Hkv, Sq, Skv, strides,
-                                        scale, causal, offset, dkv_bf16, st);
-  if (D == 256)
-    return rfa_bwd::launch_kv<256, true>(q, k, v, dout, lse, delta, dq_acc,
-                                         dk, dv, B, Hq, Hkv, Sq, Skv, strides,
-                                         scale, causal, offset, dkv_bf16, st);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    return rfa_bwd::launch_kv<decltype(d)::value, true>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
+        strides, scale, causal, offset, dkv_bf16, st);
+  });
 }
 
 // B2 on packed sequences (csrc/segments.cuh), compiled apart: as
@@ -134,19 +119,11 @@ extern "C" int rfa_flash_bwd_seg(const void* q, const void* k, const void* v,
                                  int dkv_bf16, const rfa_seg_args* seg,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return rfa_bwd::launch_kv<128, true, false, true>(
+  return rfa::by_head_dim(D, [&](auto d) {
+    return rfa_bwd::launch_kv<decltype(d)::value, true, false, true>(
         q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
         strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
-  if (D == 64)
-    return rfa_bwd::launch_kv<64, true, false, true>(
-        q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
-        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
-  if (D == 256)
-    return rfa_bwd::launch_kv<256, true, false, true>(
-        q, k, v, dout, lse, delta, dq_acc, dk, dv, B, Hq, Hkv, Sq, Skv,
-        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
-  return cudaErrorInvalidValue;
+  });
 }
 
 // B2 with softcap or ALiBi (csrc/xform.cuh): as rfa_flash_bwd, or with a
@@ -169,13 +146,11 @@ extern "C" int rfa_flash_bwd_xf(const void* q, const void* k, const void* v,
               strides, scale, causal, offset, dkv_bf16, st, ring, sg,
               rfa_band_args{});
   };
-  if (D == 128)
-    return seg ? go(rfa_bwd::launch_kv<128, true, false, true, true>, *seg)
-               : go(rfa_bwd::launch_kv<128, true, false, false, true>, none);
-  if (D == 64)
-    return seg ? go(rfa_bwd::launch_kv<64, true, false, true, true>, *seg)
-               : go(rfa_bwd::launch_kv<64, true, false, false, true>, none);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
+    return seg ? go(rfa_bwd::launch_kv<HD, true, false, true, true>, *seg)
+               : go(rfa_bwd::launch_kv<HD, true, false, false, true>, none);
+  });
 }
 
 // B2 with a window or dropout (csrc/band.cuh): as rfa_flash_bwd_xf, with the
@@ -202,25 +177,16 @@ extern "C" int rfa_flash_bwd_band(const void* q, const void* k,
   // the build of a window alone, or the one for the rest (csrc/band.cuh)
   constexpr int W = rfa_band::WINDOW, A = rfa_band::ALL;
   const bool all = bd->thr != 0 || xf->cap2 > 0.f || xf->slopes;
-  if (D == 128) {
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
     if (seg)
       return all
-          ? go(rfa_bwd::launch_kv<128, true, false, true, true, A>, *seg)
-          : go(rfa_bwd::launch_kv<128, true, false, true, true, W>, *seg);
+          ? go(rfa_bwd::launch_kv<HD, true, false, true, true, A>, *seg)
+          : go(rfa_bwd::launch_kv<HD, true, false, true, true, W>, *seg);
     return all
-        ? go(rfa_bwd::launch_kv<128, true, false, false, true, A>, none)
-        : go(rfa_bwd::launch_kv<128, true, false, false, true, W>, none);
-  }
-  if (D == 64) {
-    if (seg)
-      return all
-          ? go(rfa_bwd::launch_kv<64, true, false, true, true, A>, *seg)
-          : go(rfa_bwd::launch_kv<64, true, false, true, true, W>, *seg);
-    return all
-        ? go(rfa_bwd::launch_kv<64, true, false, false, true, A>, none)
-        : go(rfa_bwd::launch_kv<64, true, false, false, true, W>, none);
-  }
-  return cudaErrorInvalidValue;
+        ? go(rfa_bwd::launch_kv<HD, true, false, false, true, A>, none)
+        : go(rfa_bwd::launch_kv<HD, true, false, false, true, W>, none);
+  });
 }
 
 // The pre-pass for both backward paths (ops/flash_bwd_cuda.py::bwd_delta):

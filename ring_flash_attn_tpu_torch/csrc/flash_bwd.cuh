@@ -80,16 +80,22 @@
 // consumers mask by segment and position the steps that straddle an edge.
 // Keys no q row reaches get dk = dv = 0.
 //
-// At head_dim 256 (Gemma; the mask-free and SEG builds of B2 and B3b) a
-// 64 x 256 fp32 dK and dV would take 256 registers a thread and 128-key
-// K and V tiles with two stages of Q and dout 384 KB, so a block takes 64
-// keys, which both consumer warpgroups share: each computes S^T and dP^T
-// over the whole head dim (the two products done twice) and owns half of
-// dK's and dV's columns (64 + 64 fp32 a thread). dQ's fp32 tile would not
+// At head_dim 256 (Gemma; every build of B2, B3b and B8) a 64 x 256 fp32
+// dK and dV would take 256 registers a thread and 128-key K and V tiles
+// with two stages of Q and dout 384 KB, so a block takes 64 keys, which
+// both consumer warpgroups share: each computes S^T and dP^T over the
+// whole head dim (the two products done twice) and owns half of dK's and
+// dV's columns (64 + 64 fp32 a thread). Both therefore make the same P^T
+// and dS^T: the transforms read only the logits, the rows, the keys and
+// the positions, never the warpgroup, so softcap, ALiBi, the window band
+// and the dropout keep bits agree element for element; each takes its own
+// half of dout (and Q) as the operand of dV (dK). dQ's fp32 tile would not
 // fit beside the operands either: each warpgroup computes its half of dQ a
 // 64-column panel at a time and adds it into the accumulator by atomic
 // adds from the registers (no writer warp), in an order that varies, as
-// the reduce-adds' does.
+// the reduce-adds' does; B8's dq, which the ring adds into across steps,
+// takes the same adds, while its dK and dV join the travelling fp32
+// accumulators in the epilogue as at 64 and 128.
 //
 // With BAND (B2 and B3b with a window or dropout, csrc/band.cuh; always with
 // XFORM, without RING) a block's q steps narrow to the window's band where
@@ -228,8 +234,6 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
   // head_dim 256: both consumer warpgroups take the same 64 keys, warpgroup
   // wg dK's and dV's columns [wg D / 2, (wg + 1) D / 2)
   constexpr bool SPLIT = S::SPLIT;
-  static_assert(!SPLIT || !(RING || XFORM), "head_dim 256: no ring step, no "
-                "softcap/ALiBi/window/dropout build");
   // fp32 of a 64 x D (SPLIT: 64 x D / 2) accumulator a thread holds
   constexpr int NA = SPLIT ? D / 4 : D / 2;
   extern __shared__ __align__(16) char smem_raw[];
@@ -584,7 +588,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         }
         hop::pack_fragments(pa, sc);
         hop::wgmma_fence();
-        kv_accumulate<D>(dv_acc, pa, dot);  // dV += P^T dout
+        kv_accumulate<D>(dv_acc, pa, doh);  // dV += P^T dout
         hop::wgmma_commit();
       } else if constexpr (BAND) {
         // B2 and B3b with dropout, softcap or ALiBi (the ALL build): as the
@@ -687,7 +691,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           }
         }
         hop::wgmma_fence();
-        kv_accumulate<D>(dv_acc, pa, dot);  // dV += P^T dout, kept p
+        kv_accumulate<D>(dv_acc, pa, doh);  // dV += P^T dout, kept p
         hop::wgmma_commit();
       } else if constexpr (XFORM && !RING && SEG) {
         // B2 and B3b on packed sequences with softcap or ALiBi: each logit
@@ -783,7 +787,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           }
         }
         hop::wgmma_fence();
-        kv_accumulate<D>(dv_acc, pa, dot);  // dV += P^T dout
+        kv_accumulate<D>(dv_acc, pa, doh);  // dV += P^T dout
         hop::wgmma_commit();
       } else {
         // XFORM recomputes the forward's softcap and ALiBi first (B2 and

@@ -54,10 +54,12 @@
 //    its 4 products and faster than SDPA's whole backward; the mma.sync
 //    loop before it 6.07 to 6.50 ms.
 //
-// At head_dim 256 (Gemma; the mask-free and SEG builds) B3a takes 64-row q
-// tiles, which both consumer warpgroups share: each computes S and dP over
-// the whole head dim (done twice) and owns half of dQ's columns; B3b is the
-// kv-major loop's 64-key build (csrc/flash_bwd.cuh).
+// At head_dim 256 (Gemma; every build) B3a takes 64-row q tiles, which both
+// consumer warpgroups share: each computes S and dP over the whole head dim
+// (done twice) and owns half of dQ's columns, so each makes the same P and
+// dS from the same logits, rows and keys, softcap, ALiBi, window and
+// dropout bits included; B3b is the kv-major loop's 64-key build
+// (csrc/flash_bwd.cuh).
 //
 // Packed sequences (csrc/segments.cuh) are compiled apart (SEG): B3a walks
 // the kv tiles [q_meta[4], q_meta[5]] of its q tile and B3b the q steps
@@ -717,16 +719,11 @@ extern "C" int rfa_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int causal, int offset, int dq_bf16,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv,
-                          strides, scale, causal, offset, dq_bf16, st);
-  if (D == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv,
-                         strides, scale, causal, offset, dq_bf16, st);
-  if (D == 256)
-    return launch_dq<256>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv,
-                          strides, scale, causal, offset, dq_bf16, st);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    return launch_dq<decltype(d)::value>(q, k, v, dout, lse, delta, dq, B,
+                                         Hq, Hkv, Sq, Skv, strides, scale,
+                                         causal, offset, dq_bf16, st);
+  });
 }
 
 // B3b. Same arguments as rfa_flash_bwd without dq.
@@ -738,19 +735,11 @@ extern "C" int rfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int causal, int offset, int dkv_bf16,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return rfa_bwd::launch_kv<128, false>(q, k, v, dout, lse, delta, nullptr,
-                                          dk, dv, B, Hq, Hkv, Sq, Skv, strides,
-                                          scale, causal, offset, dkv_bf16, st);
-  if (D == 64)
-    return rfa_bwd::launch_kv<64, false>(q, k, v, dout, lse, delta, nullptr,
-                                         dk, dv, B, Hq, Hkv, Sq, Skv, strides,
-                                         scale, causal, offset, dkv_bf16, st);
-  if (D == 256)
-    return rfa_bwd::launch_kv<256, false>(q, k, v, dout, lse, delta, nullptr,
-                                          dk, dv, B, Hq, Hkv, Sq, Skv, strides,
-                                          scale, causal, offset, dkv_bf16, st);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    return rfa_bwd::launch_kv<decltype(d)::value, false>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
+        strides, scale, causal, offset, dkv_bf16, st);
+  });
 }
 
 // B3a and B3b on packed sequences (csrc/segments.cuh), compiled apart:
@@ -768,19 +757,11 @@ extern "C" int rfa_flash_bwd_dq_seg(const void* q, const void* k,
                                     int dq_bf16, const rfa_seg_args* seg,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch_dq<128, true>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq,
-                                Skv, strides, scale, causal, offset, dq_bf16,
-                                st, *seg);
-  if (D == 64)
-    return launch_dq<64, true>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq,
-                               Skv, strides, scale, causal, offset, dq_bf16,
-                               st, *seg);
-  if (D == 256)
-    return launch_dq<256, true>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq,
-                                Skv, strides, scale, causal, offset, dq_bf16,
-                                st, *seg);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    return launch_dq<decltype(d)::value, true>(
+        q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv, strides, scale,
+        causal, offset, dq_bf16, st, *seg);
+  });
 }
 
 extern "C" int rfa_flash_bwd_dkv_seg(const void* q, const void* k,
@@ -792,19 +773,11 @@ extern "C" int rfa_flash_bwd_dkv_seg(const void* q, const void* k,
                                      int causal, int offset, int dkv_bf16,
                                      const rfa_seg_args* seg, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return rfa_bwd::launch_kv<128, false, false, true>(
+  return rfa::by_head_dim(D, [&](auto d) {
+    return rfa_bwd::launch_kv<decltype(d)::value, false, false, true>(
         q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
         strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
-  if (D == 64)
-    return rfa_bwd::launch_kv<64, false, false, true>(
-        q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
-        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
-  if (D == 256)
-    return rfa_bwd::launch_kv<256, false, false, true>(
-        q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv,
-        strides, scale, causal, offset, dkv_bf16, st, rfa_bwd::Ring{}, *seg);
-  return cudaErrorInvalidValue;
+  });
 }
 
 // B3a and B3b with softcap or ALiBi (csrc/xform.cuh): as rfa_flash_bwd_dq
@@ -825,13 +798,11 @@ extern "C" int rfa_flash_bwd_dq_xf(const void* q, const void* k,
     return fn(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv, strides,
               scale, causal, offset, dq_bf16, st, sg, *xf, rfa_band_args{});
   };
-  if (D == 128)
-    return seg ? go(launch_dq<128, true, true>, *seg)
-               : go(launch_dq<128, false, true>, none);
-  if (D == 64)
-    return seg ? go(launch_dq<64, true, true>, *seg)
-               : go(launch_dq<64, false, true>, none);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
+    return seg ? go(launch_dq<HD, true, true>, *seg)
+               : go(launch_dq<HD, false, true>, none);
+  });
 }
 
 extern "C" int rfa_flash_bwd_dkv_xf(const void* q, const void* k,
@@ -852,13 +823,11 @@ extern "C" int rfa_flash_bwd_dkv_xf(const void* q, const void* k,
               strides, scale, causal, offset, dkv_bf16, st, ring, sg,
               rfa_band_args{});
   };
-  if (D == 128)
-    return seg ? go(rfa_bwd::launch_kv<128, false, false, true, true>, *seg)
-               : go(rfa_bwd::launch_kv<128, false, false, false, true>, none);
-  if (D == 64)
-    return seg ? go(rfa_bwd::launch_kv<64, false, false, true, true>, *seg)
-               : go(rfa_bwd::launch_kv<64, false, false, false, true>, none);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
+    return seg ? go(rfa_bwd::launch_kv<HD, false, false, true, true>, *seg)
+               : go(rfa_bwd::launch_kv<HD, false, false, false, true>, none);
+  });
 }
 
 // B3a and B3b with a window or dropout (csrc/band.cuh): as their _xf forms,
@@ -883,21 +852,14 @@ extern "C" int rfa_flash_bwd_dq_band(const void* q, const void* k,
   // the build of a window alone, or the one for the rest (csrc/band.cuh)
   constexpr int W = rfa_band::WINDOW, A = rfa_band::ALL;
   const bool all = bd->thr != 0 || xf->cap2 > 0.f || xf->slopes;
-  if (D == 128) {
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
     if (seg)
-      return all ? go(launch_dq<128, true, true, A>, *seg)
-                  : go(launch_dq<128, true, true, W>, *seg);
-    return all ? go(launch_dq<128, false, true, A>, none)
-                : go(launch_dq<128, false, true, W>, none);
-  }
-  if (D == 64) {
-    if (seg)
-      return all ? go(launch_dq<64, true, true, A>, *seg)
-                  : go(launch_dq<64, true, true, W>, *seg);
-    return all ? go(launch_dq<64, false, true, A>, none)
-                : go(launch_dq<64, false, true, W>, none);
-  }
-  return cudaErrorInvalidValue;
+      return all ? go(launch_dq<HD, true, true, A>, *seg)
+                 : go(launch_dq<HD, true, true, W>, *seg);
+    return all ? go(launch_dq<HD, false, true, A>, none)
+               : go(launch_dq<HD, false, true, W>, none);
+  });
 }
 
 extern "C" int rfa_flash_bwd_dkv_band(const void* q, const void* k,
@@ -923,23 +885,14 @@ extern "C" int rfa_flash_bwd_dkv_band(const void* q, const void* k,
   // the build of a window alone, or the one for the rest (csrc/band.cuh)
   constexpr int W = rfa_band::WINDOW, A = rfa_band::ALL;
   const bool all = bd->thr != 0 || xf->cap2 > 0.f || xf->slopes;
-  if (D == 128) {
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
     if (seg)
       return all
-          ? go(rfa_bwd::launch_kv<128, false, false, true, true, A>, *seg)
-          : go(rfa_bwd::launch_kv<128, false, false, true, true, W>, *seg);
+          ? go(rfa_bwd::launch_kv<HD, false, false, true, true, A>, *seg)
+          : go(rfa_bwd::launch_kv<HD, false, false, true, true, W>, *seg);
     return all
-        ? go(rfa_bwd::launch_kv<128, false, false, false, true, A>, none)
-        : go(rfa_bwd::launch_kv<128, false, false, false, true, W>, none);
-  }
-  if (D == 64) {
-    if (seg)
-      return all
-          ? go(rfa_bwd::launch_kv<64, false, false, true, true, A>, *seg)
-          : go(rfa_bwd::launch_kv<64, false, false, true, true, W>, *seg);
-    return all
-        ? go(rfa_bwd::launch_kv<64, false, false, false, true, A>, none)
-        : go(rfa_bwd::launch_kv<64, false, false, false, true, W>, none);
-  }
-  return cudaErrorInvalidValue;
+        ? go(rfa_bwd::launch_kv<HD, false, false, false, true, A>, none)
+        : go(rfa_bwd::launch_kv<HD, false, false, false, true, W>, none);
+  });
 }

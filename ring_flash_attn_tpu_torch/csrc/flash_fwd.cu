@@ -18,9 +18,8 @@
 // TMA producer warpgroup feeding two wgmma consumer warpgroups over
 // 128-row q tiles that overlap their softmax with their products and take
 // turns to issue them; its measured time is in that header and in
-// PERF.md. Head_dim 64, 128 and 256 (256: 64-key tiles, mask-free and
-// segmented builds only; the softcap/ALiBi and window/dropout builds take
-// 64 and 128). The scale stays in fp32 (the Pallas wrapper folds scale * log2 e
+// PERF.md. Head_dim 64, 128 and 256 in every build (256: 64-key tiles).
+// The scale stays in fp32 (the Pallas wrapper folds scale * log2 e
 // into bf16 k instead).
 
 #include "flash_fwd.cuh"
@@ -37,19 +36,11 @@ extern "C" int rfa_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * 1.4426950408889634f;
   const rfa_fwd::Ring none{};
-  if (D == 128)
-    return rfa_fwd::launch<128, false>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv,
-                                       strides, scale_log2, causal, offset,
-                                       out_bf16, none, st);
-  if (D == 64)
-    return rfa_fwd::launch<64, false>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv,
-                                      strides, scale_log2, causal, offset,
-                                      out_bf16, none, st);
-  if (D == 256)
-    return rfa_fwd::launch<256, false>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv,
-                                       strides, scale_log2, causal, offset,
-                                       out_bf16, none, st);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    return rfa_fwd::launch<decltype(d)::value, false>(
+        q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2, causal,
+        offset, out_bf16, none, st);
+  });
 }
 
 // B1 on packed sequences (csrc/segments.cuh): as rfa_flash_fwd, with the
@@ -65,19 +56,11 @@ extern "C" int rfa_flash_fwd_seg(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * 1.4426950408889634f;
   const rfa_fwd::Ring none{};
-  if (D == 128)
-    return rfa_fwd::launch<128, false, false, true>(
+  return rfa::by_head_dim(D, [&](auto d) {
+    return rfa_fwd::launch<decltype(d)::value, false, false, true>(
         q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2, causal,
         offset, out_bf16, none, st, *seg);
-  if (D == 64)
-    return rfa_fwd::launch<64, false, false, true>(
-        q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2, causal,
-        offset, out_bf16, none, st, *seg);
-  if (D == 256)
-    return rfa_fwd::launch<256, false, false, true>(
-        q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2, causal,
-        offset, out_bf16, none, st, *seg);
-  return cudaErrorInvalidValue;
+  });
 }
 
 // B1 with softcap or ALiBi (csrc/xform.cuh): as rfa_flash_fwd, or with a
@@ -100,13 +83,11 @@ extern "C" int rfa_flash_fwd_xf(const void* q, const void* k, const void* v,
     return fn(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, scale_log2,
               causal, offset, out_bf16, ring, st, sg, rfa_band_args{});
   };
-  if (D == 128)
-    return seg ? go(rfa_fwd::launch<128, false, true, true>, *seg)
-               : go(rfa_fwd::launch<128, false, true, false>, none);
-  if (D == 64)
-    return seg ? go(rfa_fwd::launch<64, false, true, true>, *seg)
-               : go(rfa_fwd::launch<64, false, true, false>, none);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
+    return seg ? go(rfa_fwd::launch<HD, false, true, true>, *seg)
+               : go(rfa_fwd::launch<HD, false, true, false>, none);
+  });
 }
 
 // B1 with a window or dropout (csrc/band.cuh): as rfa_flash_fwd_xf, with the
@@ -133,19 +114,12 @@ extern "C" int rfa_flash_fwd_band(const void* q, const void* k,
   // the build of a window alone, or the one for the rest (csrc/band.cuh)
   constexpr int W = rfa_band::WINDOW, A = rfa_band::ALL;
   const bool all = bd->thr != 0 || xf->cap2 > 0.f || xf->slopes;
-  if (D == 128) {
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
     if (seg)
-      return all ? go(rfa_fwd::launch<128, false, true, true, A>, *seg)
-                  : go(rfa_fwd::launch<128, false, true, true, W>, *seg);
-    return all ? go(rfa_fwd::launch<128, false, true, false, A>, none)
-                : go(rfa_fwd::launch<128, false, true, false, W>, none);
-  }
-  if (D == 64) {
-    if (seg)
-      return all ? go(rfa_fwd::launch<64, false, true, true, A>, *seg)
-                  : go(rfa_fwd::launch<64, false, true, true, W>, *seg);
-    return all ? go(rfa_fwd::launch<64, false, true, false, A>, none)
-                : go(rfa_fwd::launch<64, false, true, false, W>, none);
-  }
-  return cudaErrorInvalidValue;
+      return all ? go(rfa_fwd::launch<HD, false, true, true, A>, *seg)
+                 : go(rfa_fwd::launch<HD, false, true, true, W>, *seg);
+    return all ? go(rfa_fwd::launch<HD, false, true, false, A>, none)
+               : go(rfa_fwd::launch<HD, false, true, false, W>, none);
+  });
 }

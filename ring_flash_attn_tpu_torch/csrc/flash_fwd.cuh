@@ -42,7 +42,11 @@
 // bf16: B1 causal 1.07 to 1.11 ms, about 500 TFLOP/s, 1.1 to 1.2x SDPA's
 // forward (0.88 to 0.97), against 0.556 ms at the bf16 peak; B7
 // off-diagonal 1.85 to 2.04 ms, diagonal 1.03 to 1.17 (SDPA's non-causal
-// forward 1.61 to 1.73), against 1.112 ms.
+// forward 1.61 to 1.73), against 1.112 ms. Every build takes head_dim 64,
+// 128 and 256 (kv_tile below): at 256 B1 with Gemma 2's softcap of 50 took
+// 1.162 ms at q (1, 16, 8192, 256), kv (1, 8, 8192, 256) causal, 2.1x the
+// 0.556 ms bound, and 0.971 with its window (4096, 0) too (chip_smoke.py
+// phase 25, NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6).
 //
 // With RING the block applies softcap and ALiBi to the base-2 logits (XFORM),
 // folds the state (m, l, acc) of the earlier steps into its own in the

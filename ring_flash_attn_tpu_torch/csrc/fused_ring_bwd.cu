@@ -39,11 +39,17 @@
 // TFLOP/s, a diagonal step half of that. The loop is B2's kv-major loop
 // (csrc/flash_bwd.cuh: TMA producer, wgmma consumers, dq by a writer warp)
 // with the ring additions compiled in; the softcap's 1 - tanh^2 factor
-// costs it 120 bytes of spills at 240 registers a consumer thread. Measured
+// costs it 120 bytes of spills at 240 registers a consumer thread (136 at
+// head_dim 256, where a block takes 64 keys, both consumer warpgroups make
+// the same P^T and dS^T and each owns half of dK's and dV's columns, and
+// dq leaves by atomic adds from the registers; ptxas). Measured
 // there (profile_torch_bwd.py, NVIDIA H100 80GB HBM3, 700 W): 6.55 to 6.83
 // ms off-diagonal, about 415 TFLOP/s and 1.2x SDPA's non-causal backward,
 // 3.36 to 3.51 ms diagonal; the mma.sync loop before it 15.40 to 15.67 and
-// 8.47 to 8.82.
+// 8.47 to 8.82. At head_dim 256, q (1, 16, 8192, 256), kv (1, 8, 8192, 256)
+// with softcap 50 (the same flops; chip_smoke.py phase 25, same card;
+// PERF.md section 6): 15.125 ms off-diagonal, 5.4x the 2.779 ms bound and
+// 1.9x SDPA's non-causal backward without the cap; 7.418 diagonal.
 
 #include "flash_bwd.cuh"
 
@@ -60,13 +66,9 @@ extern "C" int rfa_fused_ring_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const rfa_bwd::Ring ring{slopes, cap2, q_pos0, kv_pos0, alibi_abs,
                            accumulate};
-  if (D == 128)
-    return rfa_bwd::launch_kv<128, true, true>(
+  return rfa::by_head_dim(D, [&](auto d) {
+    return rfa_bwd::launch_kv<decltype(d)::value, true, true>(
         q, k, v, dout, lse2, delta, dq_acc, dk_acc, dv_acc, B, Hq, Hkv, Sq,
         Skv, strides, 1.f, diagonal, q_row0, 0, st, ring);
-  if (D == 64)
-    return rfa_bwd::launch_kv<64, true, true>(
-        q, k, v, dout, lse2, delta, dq_acc, dk_acc, dv_acc, B, Hq, Hkv, Sq,
-        Skv, strides, 1.f, diagonal, q_row0, 0, st, ring);
-  return cudaErrorInvalidValue;
+  });
 }

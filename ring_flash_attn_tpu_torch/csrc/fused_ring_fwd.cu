@@ -41,7 +41,12 @@
 // at 3.35 TB/s. The tile loop is B1's (csrc/flash_fwd.cuh: TMA producer,
 // wgmma consumers on 128-row q tiles) with the ring additions compiled in;
 // the state joins in the epilogue, so the loop is B1's to the instruction.
-// That step's measured time is in flash_fwd.cuh's header and PERF.md.
+// That step's measured time is in flash_fwd.cuh's header and PERF.md. Head
+// dims 64, 128 and 256 (256: B1's 64-key tiles, O in two 128-column halves,
+// the stored (m, l, acc) folded in over a thread's 128 fp32 of O; with
+// softcap 50 at q (1, 16, 8192, 256), kv (1, 8, 8192, 256) an off-diagonal
+// step takes 2.673 ms, 2.4x the 1.112 ms bound; chip_smoke.py phase 25,
+// NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6).
 
 #include "flash_fwd.cuh"
 
@@ -63,11 +68,9 @@ extern "C" int rfa_fused_ring_fwd(
     return fn(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, strides, 1.f, diagonal,
               q_row0, 1, ring, st, rfa_seg_args{}, rfa_band_args{});
   };
-  if (D == 128)
-    return xform ? go(rfa_fwd::launch<128, true, true>)
-                 : go(rfa_fwd::launch<128, true, false>);
-  if (D == 64)
-    return xform ? go(rfa_fwd::launch<64, true, true>)
-                 : go(rfa_fwd::launch<64, true, false>);
-  return cudaErrorInvalidValue;
+  return rfa::by_head_dim(D, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
+    return xform ? go(rfa_fwd::launch<HD, true, true>)
+                 : go(rfa_fwd::launch<HD, true, false>);
+  });
 }

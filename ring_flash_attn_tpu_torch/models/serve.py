@@ -205,11 +205,19 @@ def _chunk_prefill_body(model, tokens, p_len, write_table, lane_table,
 
 
 @torch.no_grad()
-def _decode_body(model, tokens, live, caches, backend=None, tp_group=False):
+def _decode_body(model, tokens, live, caches, backend=None, append=True,
+                 tp_group=False):
     """One decode step over all lanes. tokens (B,) int pending tokens; live
     (B,) bool; caches: per-layer PagedKVCache whose seq_lens are the
     REWOUND lengths (pending token not yet counted). Returns (logits
     (B, vocab) f32, caches with the pending token's K/V appended IN PLACE).
+
+    ``append=False`` writes no page and leaves the caches as they are: the
+    pending token attends to the lens[b] cached tokens and not to itself.
+    The JAX package has the switch so that its read-path benchmarks avoid
+    an undonated scatter's copy of the page pool; here the append works in
+    place, and no caller in the port sets it (the engine keeps the
+    default), so a step with it is not the engine's work.
 
     ``tp_group``: the model holds this rank's shards of the group
     (``transformer.shard_params``) and the caches its kv_heads / tp heads;
@@ -221,7 +229,8 @@ def _decode_body(model, tokens, live, caches, backend=None, tp_group=False):
     new = list(caches)
 
     def attend(i, q, k, v):
-        new[i] = paged.paged_append(new[i], k, v, mask=live)
+        if append:
+            new[i] = paged.paged_append(new[i], k, v, mask=live)
         return paged.paged_decode_attention(q, new[i], scale,
                                             backend=backend)[0]
 
@@ -232,7 +241,7 @@ def _decode_body(model, tokens, live, caches, backend=None, tp_group=False):
 
 @torch.no_grad()
 def _spec_verify_body(model, tokens, n_valid, caches, backend=None,
-                      tp_group=False):
+                      append=True, tp_group=False):
     """Speculative-decoding verification: one forward over K candidate
     tokens per lane. tokens (B, K) int: tokens[:, 0] is each lane's
     pending token, tokens[:, 1:] draft proposals; n_valid (B,) int32 in
@@ -245,7 +254,12 @@ def _spec_verify_body(model, tokens, n_valid, caches, backend=None,
     kv index j <= lens[b] + i; kernel B5, in one launch whose grid takes
     row groups where (Hq / Hkv) * K passes the rows one block serves).
     Returns (logits (B, K, vocab) f32, caches with seq_lens advanced by
-    n_valid)."""
+    n_valid). ``append=False``, as in ``_decode_body``, writes no page and
+    the caches come back as they were; the kernel still takes
+    ``new_counts=n_valid`` against the lengths not advanced, so row t
+    attends only kv j < lens[b] - (n_valid[b] - 1 - t): no candidate, and
+    the last n_valid[b] - 1 - t cached tokens are left out too (the JAX
+    package's semantics)."""
     b, kk = tokens.shape
     dev = tokens.device
     scale = model.cfg.head_dim**-0.5
@@ -256,7 +270,7 @@ def _spec_verify_body(model, tokens, n_valid, caches, backend=None,
     new = list(caches)
 
     def attend(i, q, k, v):
-        for t in range(kk):
+        for t in range(kk if append else 0):
             new[i] = paged.paged_append(new[i], k[:, :, t:t + 1],
                                         v[:, :, t:t + 1], mask=valid[:, t])
         return paged.paged_decode_attention(q, new[i], scale,

@@ -28,7 +28,7 @@ import torch
 from . import _build
 from .block_meta import SegArgs, index_causal, launch_masked
 from .flash_fwd_cuda import (BAND_TAIL, XFORM_TAIL, _check_operand,
-                             check_block_head_dim, check_qkv, count_launch,
+                             check_qkv, count_launch,
                              kernel_offset)
 from .mask import MaskArgs, check_supported
 
@@ -101,7 +101,6 @@ def check_bwd(dout, q, k, v, lse, delta, mask: MaskArgs, out, dtypes):
     offset = kernel_offset(mask)
     dev = q.device
     b, hq, _, sq, _, d = check_qkv(q, k, v)
-    check_block_head_dim(d, mask)
     _check_operand("dout", dout, dev)
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must match q "
@@ -150,7 +149,7 @@ def flash_bwd_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
     """Fused block backward on the card: (dq, dk, dv).
 
     q, dout (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) in bf16, D in
-    {64, 128, 256} (256 without softcap, ALiBi, a window or dropout),
+    {64, 128, 256},
     Hq % Hkv == 0; lse (and delta, or else the forward ``out``
     in bf16) fp32 (B, Hq, Sq). dq is fp32 unless dq_dtype narrows it (a
     cast of the kernel's fp32 accumulator); dk, dv fp32 unless dkv_dtype

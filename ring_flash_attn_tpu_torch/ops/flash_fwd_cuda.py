@@ -33,11 +33,8 @@ from .mask import MaskArgs, causal_offset, check_supported
 TMA_MAX_STRIDE = 2**40  # bytes: the limit on a TMA tensor map's strides
 Q_TILE = 128  # q rows a block of B1 and B7 (csrc/flash_fwd.cuh)
 KV_TILE = 128  # keys a tile of B1 and B7 (64 at head_dim 256: kv_tile)
-# head dims of the kernels' instantiations: B1, B2, B3a and B3b without
-# softcap, ALiBi, a window or dropout take 256 too (Gemma), everything else
-# 64 and 128 (ROADMAP F4(b))
-HEAD_DIMS = (64, 128)
-BLOCK_HEAD_DIMS = (64, 128, 256)
+# head dims of every build of B1, B2, B3a, B3b, B7 and B8 (256: Gemma)
+HEAD_DIMS = (64, 128, 256)
 MAX_GRID_Y = 65535  # the q tiles ride in gridDim.y
 
 # rfa_flash_fwd(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, strides, scale,
@@ -133,26 +130,11 @@ def kv_tile(d):
 
 
 def head_dim_error(d, what, dims=HEAD_DIMS):
-    """Raise the ValueError of a head_dim that ``what`` has no
-    instantiation for: at 64, 128 or 256 it names ROADMAP F4(b), the queue
-    of the head dims still to instantiate."""
-    if d in BLOCK_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} is not ported for {what} on the card "
-                         f"(it takes {', '.join(map(str, dims))}): ROADMAP "
-                         f"F4(b)")
-    raise ValueError(f"head_dim must be one of {BLOCK_HEAD_DIMS}, got {d}")
+    """Raise the ValueError of a head_dim that ``what`` has no build for."""
+    raise ValueError(f"head_dim must be one of {dims} for {what}, got {d}")
 
 
-def check_block_head_dim(d, mask: MaskArgs):
-    """Raise where the instantiation of B1, B2, B3a or B3b the mask picks
-    has no build at head_dim d: softcap, ALiBi, a window or dropout take 64
-    and 128 only."""
-    if d not in HEAD_DIMS and (has_xform(mask) or has_band(mask)):
-        head_dim_error(d, "softcap, ALiBi, windows or dropout in kernels B1, "
-                       "B2, B3a and B3b")
-
-
-def check_qkv(q, k, v, head_dims=BLOCK_HEAD_DIMS, what="this kernel"):
+def check_qkv(q, k, v, head_dims=HEAD_DIMS, what="this kernel"):
     """Operand checks of the attention kernels on q (B, Hq, Sq, D) and k, v
     (B, Hkv, Skv, D), D one of ``head_dims`` (else ``head_dim_error`` names
     ``what``); returns (B, Hq, Hkv, Sq, Skv, D)."""
@@ -175,7 +157,7 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
     """One attention block on the card: (out (B,Hq,Sq,D), lse f32 (B,Hq,Sq)).
 
     q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) in bf16 with D in {64, 128,
-    256} (256 without softcap, ALiBi, a window or dropout) and Hq % Hkv == 0, each in a layout the TMA maps read
+    256} and Hq % Hkv == 0, each in a layout the TMA maps read
     (``tma_layout_error``: ``ops/flash.py::_kernel_layout`` gives one);
     ``mask`` causal or not, with a static int offset, with segment ids
     and explicit positions ((Sq,)/(Skv,) int32 on the card, or int64
@@ -185,7 +167,6 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
     offset = kernel_offset(mask)
     dev = q.device
     b, hq, hkv, sq, skv, d = check_qkv(q, k, v)
-    check_block_head_dim(d, mask)
     check_q_tiles(sq)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")

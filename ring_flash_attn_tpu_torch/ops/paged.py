@@ -52,11 +52,25 @@ class PagedKVCache(NamedTuple):
         return self.k_pages.shape[2]
 
 
-def paged_init(hkv, num_pages, page_size, d, block_tables,
-               dtype=torch.bfloat16, device="cuda"):
+def paged_init(hkv, num_pages, page_size, d, block_tables=None,
+               dtype=torch.bfloat16, device="cuda", *, batch=None,
+               pages_per_seq=None):
     """Empty cache on ``device`` with the given (B, pages_per_seq) block
-    tables (the serving allocator owns them) and zero lengths."""
+    tables (the serving allocator owns them) and zero lengths. Without
+    tables, ``batch`` lanes of ``pages_per_seq`` pages each get the JAX
+    package's default: lane b the contiguous pages [b * pages_per_seq,
+    (b + 1) * pages_per_seq)."""
     device = resolve_device(device)
+    if block_tables is None:
+        if batch is None or pages_per_seq is None:
+            raise ValueError("paged_init without block_tables needs batch "
+                             "and pages_per_seq")
+        if num_pages < batch * pages_per_seq:
+            raise ValueError(f"{batch} lanes of {pages_per_seq} pages need "
+                             f"{batch * pages_per_seq} pages, got "
+                             f"{num_pages}")
+        block_tables = torch.arange(batch * pages_per_seq).reshape(
+            batch, pages_per_seq)
     z = torch.zeros((num_pages, hkv, page_size, d), dtype=dtype,
                     device=device)
     tables = torch.as_tensor(block_tables, dtype=torch.int32, device=device)

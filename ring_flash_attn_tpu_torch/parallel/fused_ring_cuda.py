@@ -75,7 +75,7 @@ def fused_ring_fwd_cuda(qs, k, v, m, l, acc, *, diagonal, first, last,
     """B7, one forward ring step on the card; updates (m, l, acc) in place.
 
     qs (B, Hq, Sq, D) is q * scale * log2(e) in bf16, k and v (B, Hkv, Skv,
-    D) the resident shard, D in {64, 128}; m, l fp32 (B, Hq, Sq) and acc
+    D) the resident shard, D in {64, 128, 256}; m, l fp32 (B, Hq, Sq) and acc
     fp32 (B, Hq, Sq, D) the running state in base 2 (not read when
     ``first``, not written when ``last``). ``diagonal``: mask keys past
     ``row + q_row0``. ``cap2`` is softcap * log2(e) (0: none), ``slopes2``

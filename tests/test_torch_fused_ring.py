@@ -70,9 +70,9 @@ def _np(shape, seed):
         np.float32)
 
 
-def _qkvd():
-    return (_np((B, HQ, S, D), 0), _np((B, HKV, S, D), 1),
-            _np((B, HKV, S, D), 2), _np((B, HQ, S, D), 3))
+def _qkvd(d=D, s=S):
+    return (_np((B, HQ, s, d), 0), _np((B, HKV, s, d), 1),
+            _np((B, HKV, s, d), 2), _np((B, HQ, s, d), 3))
 
 
 def _err(a, b):
@@ -81,18 +81,19 @@ def _err(a, b):
     return float(np.max(np.abs(a - b)))
 
 
-def _jax_fused(world, dtype, kw, grads):
+def _jax_fused(world, dtype, kw, grads, inputs=None, scale=SCALE):
     """JAX's (out, lse[, dq, dk, dv]) with its kernels in interpret mode."""
     mesh = Mesh(np.array(jax.devices("cpu")[:world]), ("sp",))
     kw = {k: jnp.asarray(x) if isinstance(x, np.ndarray) else x
           for k, x in kw.items()}
-    q, k, v, dout = (jnp.asarray(x).astype(dtype) for x in _qkvd())
+    q, k, v, dout = (jnp.asarray(x).astype(dtype)
+                     for x in (inputs or _qkvd()))
 
     @functools.partial(shard_map, mesh=mesh, in_specs=(SPEC4,) * 3,
                        out_specs=(SPEC4, SPEC3), check_vma=False)
     def sharded(q, k, v):
         return jfused.fused_ring_attention(
-            q, k, v, scale=SCALE, axis_name="sp", interpret=True, **kw)
+            q, k, v, scale=scale, axis_name="sp", interpret=True, **kw)
 
     if not grads:
         return [np.asarray(x.astype(jnp.float32))
@@ -131,10 +132,48 @@ def test_fused_ring_matches_jax(name):
         assert _err(got, ref) <= tol
 
 
+# head_dim 256 (Gemma 2: softcap 50), W = 4 over 128 tokens, float32: the
+# fused backward (B8's plain version) and the schedule-level one (B2/B3
+# with softcap and ALiBi); the softcap tolerances of CASES
+D256, S256 = 256, 128
+CASES256 = {
+    "D=256 causal softcap alibi fused": dict(
+        causal=True, softcap=50.0, alibi_slopes=SLOPES, bwd_mode="fused"),
+    "D=256 causal softcap alibi schedule": dict(
+        causal=True, softcap=50.0, alibi_slopes=SLOPES, bwd_mode="schedule"),
+    "D=256 full softcap fused": dict(causal=False, softcap=50.0,
+                                     bwd_mode="fused"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _port256():
+    """The head_dim 256 cases in one set of gloo processes at W = 4."""
+    q, k, v, dout = _qkvd(D256, S256)
+    return workers.run_ranks("schedules", 4, {
+        "q": q, "k": k, "v": v, "dout": dout, "scale": D256**-0.5,
+        "variants": {name: ("fused_ring", "float32", kw)
+                     for name, kw in CASES256.items()}})
+
+
+@pytest.mark.parametrize("name", CASES256)
+def test_fused_ring_head_dim_256_matches_jax(name):
+    """``fused_ring_attention`` at head_dim 256 with softcap (and ALiBi),
+    both backward modes, against JAX's (interpret mode under shard_map):
+    out and lse within 3e-5, the gradients within 2e-4."""
+    want = _jax_fused(4, "float32", CASES256[name], True,
+                      _qkvd(D256, S256), D256**-0.5)
+    res = _port256()
+    for key, ref in zip(("out", "lse", "dq", "dk", "dv"), want):
+        got = np.concatenate([r[f"{name}/{key}"] for r in res], axis=2)
+        assert _err(got, ref) <= (3e-5 if key in ("out", "lse") else 2e-4), \
+            key
+
+
 def test_bwd_selector_equals_jax():
     """bwd_mode="auto" picks the same backward in both packages."""
     for shape in itertools.product((1024, 4096, 8192, 16384, 32768),
-                                   (64, 128), (1, 2, 4, 8), (2, 4)):
+                                   (64, 128, 256), (1, 2, 4, 8), (2, 4)):
         assert (tfused.fused_ring_bwd_supported(*shape)
                 == jfused.fused_ring_bwd_supported(*shape)), shape
     assert not tfused.fused_ring_bwd_supported(16384, 128, 1, 2)

@@ -356,6 +356,101 @@ def test_b5_row_groups_equal_one_call(tq):
                                        atol=tol, err_msg=backend)
 
 
+# ---- the read-path switch append=False and paged_init's default tables ----
+
+# float32 on both sides, as the module's other bodies are held
+BODY_TOL = 1e-4
+
+
+def _default_table_caches(seed, b=3, ps=8, pps=4):
+    """JAX's and the port's per-layer caches from ``paged_init`` with the
+    default contiguous tables (two spare pages past the lanes'), random
+    pages, lengths [2 ps - 3, ps, 0] (a dead lane)."""
+    rng = np.random.default_rng(seed)
+    hkv, d, num_pages = CFG_KW["kv_heads"], CFG_KW["head_dim"], b * pps + 2
+    lens = np.asarray([2 * ps - 3, ps, 0], np.int32)
+    jc, tc = [], []
+    for _ in range(CFG_KW["layers"]):
+        j0 = jpaged.paged_init(b, hkv, num_pages, ps, pps, d, jnp.float32)
+        t0 = tpaged.paged_init(hkv, num_pages, ps, d, dtype=torch.float32,
+                               device="cpu", batch=b, pages_per_seq=pps)
+        assert np.array_equal(t0.block_tables.numpy(),
+                              np.asarray(j0.block_tables))
+        assert not t0.k_pages.any() and not t0.seq_lens.any()
+        k, v = (rng.standard_normal(t0.k_pages.shape).astype(np.float32)
+                for _ in range(2))
+        jc.append(j0._replace(k_pages=jnp.asarray(k), v_pages=jnp.asarray(v),
+                              seq_lens=jnp.asarray(lens)))
+        tc.append(t0._replace(k_pages=torch.from_numpy(k.copy()),
+                              v_pages=torch.from_numpy(v.copy()),
+                              seq_lens=torch.from_numpy(lens.copy())))
+    return jc, tc
+
+
+def _same_caches(tc, jc):
+    for a, r in zip(tc, jc):
+        for x, y in zip(a, r):
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("append", [False, True])
+def test_decode_and_verify_bodies_append_switch_match_jax(models, append):
+    """``_decode_body`` and ``_spec_verify_body`` with ``append`` off (no
+    page written: the pending token and the candidates do not attend to
+    themselves; the caches come back as they were) and on, over caches
+    from ``paged_init``'s default tables, against JAX's bodies: logits
+    within BODY_TOL, the caches' pages and lengths equal."""
+    jparams, tmodel = models
+    cfg = JaxConfig(**CFG_KW)
+    jc, tc = _default_table_caches(5)
+    before = [tuple(x.clone() for x in c) for c in tc]
+    tokens, live = np.asarray([5, 9, 0], np.int32), np.asarray(
+        [True, True, False])
+    jl, jc2 = jserve._decode_body(jparams, cfg, jnp.asarray(tokens),
+                                  jnp.asarray(live), jc, append=append)
+    tl, tc2 = tserve._decode_body(tmodel, torch.from_numpy(tokens).long(),
+                                  torch.from_numpy(live), tc, append=append)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=BODY_TOL)
+    _same_caches(tc2, jc2)
+    if not append:
+        _same_caches(tc2, [tuple(x.numpy() for x in c) for c in before])
+
+    jc, tc = _default_table_caches(6)
+    cand = np.asarray([[5, 9, 17], [3, 3, 0], [0, 0, 0]], np.int32)
+    n_valid = np.asarray([3, 2, 0], np.int32)
+    jl, jc2 = jserve._spec_verify_body(jparams, cfg, jnp.asarray(cand),
+                                       jnp.asarray(n_valid), jc,
+                                       append=append)
+    tl, tc2 = tserve._spec_verify_body(tmodel, torch.from_numpy(cand).long(),
+                                       torch.from_numpy(n_valid), tc,
+                                       append=append)
+    valid = np.arange(3)[None] < n_valid[:, None]
+    np.testing.assert_allclose(tl.numpy()[valid], np.asarray(jl)[valid],
+                               rtol=0, atol=BODY_TOL)
+    _same_caches(tc2, jc2)
+
+
+def test_paged_init_default_tables():
+    """Without tables ``paged_init`` gives lane b JAX's contiguous pages
+    [b pps, (b + 1) pps), as int32 on the device, and refuses a pool too
+    small for them or a call without ``batch`` and ``pages_per_seq``;
+    given tables are kept as they are."""
+    t = tpaged.paged_init(2, 9, 4, 8, device="cpu", batch=2,
+                          pages_per_seq=4)
+    j = jpaged.paged_init(2, 2, 9, 4, 4, 8)
+    assert t.block_tables.dtype == torch.int32
+    assert np.array_equal(t.block_tables.numpy(), np.asarray(j.block_tables))
+    assert t.seq_lens.tolist() == [0, 0] and t.k_pages.shape == (9, 2, 4, 8)
+    with pytest.raises(ValueError, match="need 12 pages"):
+        tpaged.paged_init(2, 9, 4, 8, device="cpu", batch=3, pages_per_seq=4)
+    with pytest.raises(ValueError, match="batch and pages_per_seq"):
+        tpaged.paged_init(2, 9, 4, 8, device="cpu")
+    own = tpaged.paged_init(2, 9, 4, 8, [[8, 1], [0, 2]], device="cpu")
+    assert own.block_tables.tolist() == [[8, 1], [0, 2]]
+
+
 # ---- tensor-parallel serving ----
 
 B, PS, PPS = 3, 8, 4
