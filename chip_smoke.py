@@ -1135,21 +1135,23 @@ def check_hgmma(what, lib, piece):
     return counts
 
 
-def profile_loop(tool, loop, piece, timings):
+def profile_loop(tool, loop, piece, timings, add_arguments=lambda ap: None):
     """The command line of profile_torch_fwd.py, profile_torch_bwd.py and
-    profile_torch_decode.py: ``[--root DIR] [--rounds N]``. Imports the
-    package from ``--root`` (a tree with ``utils/``: ``kernel_ms`` reads
-    the profiler through its ``utils.trace_timing``), builds it, logs the
-    card, then ptxas's facts, its wgmma/setmaxnreg notes and the HGMMA
-    count of every kernel whose name holds ``piece`` (a string or a tuple
-    of them) in the libraries of ``loop`` (INSTANTIATIONS names), then
-    runs ``timings(torch, rounds)``. Returns the exit code."""
+    profile_torch_decode.py: ``[--root DIR] [--rounds N]``, and whatever
+    ``add_arguments(parser)`` adds. Imports the package from ``--root`` (a
+    tree with ``utils/``: ``kernel_ms`` reads the profiler through its
+    ``utils.trace_timing``), builds it, logs the card, then ptxas's facts,
+    its wgmma/setmaxnreg notes and the HGMMA count of every kernel whose
+    name holds ``piece`` (a string or a tuple of them) in the libraries of
+    ``loop`` (INSTANTIATIONS names), then runs ``timings(torch, args)``.
+    Returns the exit code."""
     pieces = (piece,) if isinstance(piece, str) else tuple(piece)
     import argparse
 
     ap = argparse.ArgumentParser(prog=tool)
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--rounds", type=int, default=2)
+    add_arguments(ap)
     args = ap.parse_args()
     import torch
 
@@ -1181,7 +1183,7 @@ def profile_loop(tool, loop, piece, timings):
         for p in pieces:
             for fn, n in sorted(hgmma_counts(paths[lib], p).items()):
                 log(f"  SASS {name} {fn[:64]}: {n} HGMMA")
-    timings(torch, args.rounds)
+    timings(torch, args)
     return 0
 
 

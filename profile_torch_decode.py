@@ -269,7 +269,7 @@ def row_group_trace(torch, flush):
             mod.paged_num_splits = real
 
 
-def timings(torch, rounds):
+def timings(torch, args):
     from ring_flash_attn_tpu_torch.ops import paged as P
     from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
         paged_decode_cuda)
@@ -280,6 +280,7 @@ def timings(torch, rounds):
         quant_decode_cuda)
 
     digests(torch)
+    rounds = args.rounds
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     hq, hkv, d = 32, 8, 128

@@ -65,13 +65,14 @@ def host_us(torch, fn, n):
     return dt / n * 1e6
 
 
-def timings(torch, rounds):
+def timings(torch, args):
     import torch.nn.functional as F
 
     from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
     from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
     from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
 
+    rounds = args.rounds
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     bf16 = torch.bfloat16

@@ -31,7 +31,10 @@ a kernel.
 
 Prints one line an instantiation (identical, or how many instructions
 differ and the first that does), then those that are new here; exits 1
-if an instantiation of PARENT is missing here or differs.
+if an instantiation of PARENT is missing here or differs, unless its line
+holds a text given with ``--changed`` (an instantiation the change means
+to rewrite, for example ``--changed "bwd_kv_kernel<256,"``: shown as
+changed, not counted).
 """
 
 import argparse
@@ -127,6 +130,9 @@ def main():
     ap = argparse.ArgumentParser(prog="profile_torch_sass.py")
     ap.add_argument("--root", required=True,
                     help="the tree to compare with (e.g. the parent)")
+    ap.add_argument("--changed", action="append", default=[],
+                    metavar="TEXT", help="instantiations whose name holds "
+                    "TEXT are meant to differ (repeatable)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -135,7 +141,7 @@ def main():
           f"change {ROOT}", flush=True)
     parent = sass(build(os.path.abspath(args.root)))
     change = sass(build(ROOT))
-    bad = 0
+    bad = meant = 0
     # the keys mix ints and the flags' names at one place ("band", "new"):
     # sorted by their text
     for k in sorted(parent, key=str):
@@ -148,6 +154,11 @@ def main():
         if a == b:
             print(f"  {name}: identical, {len(a)} instructions")
             continue
+        if any(t in name for t in args.changed):
+            meant += 1
+            print(f"  {name}: changed, as meant, {len(a)} -> {len(b)} "
+                  f"instructions")
+            continue
         bad += 1
         first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                      min(len(a), len(b)))
@@ -159,8 +170,9 @@ def main():
     for k in sorted(set(change) - set(parent), key=str):
         print(f"  {k[0]} {k[1]}<{', '.join(map(str, k[2]))}>: new here, "
               f"{len(change[k])} instructions")
-    print(f"SASS: {len(parent) - bad} of {len(parent)} instantiations of "
-          f"the parent identical here", flush=True)
+    print(f"SASS: {len(parent) - bad - meant} of {len(parent)} "
+          f"instantiations of the parent identical here, {meant} changed "
+          f"as meant, {bad} otherwise", flush=True)
     return 1 if bad else 0
 
 

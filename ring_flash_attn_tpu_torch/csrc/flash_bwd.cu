@@ -7,8 +7,9 @@
 // (csrc/segments.cuh), softcap and ALiBi (csrc/xform.cuh), sliding windows
 // and dropout (csrc/band.cuh), GQA (q head h
 // reads kv head h / (Hq/Hkv)),
-// head_dim 64, 128 or 256 in every build (256: 64 keys a block with dK's and dV's columns split over the consumer
-// warpgroups and dq added by atomics from the registers, see
+// head_dim 64, 128 or 256 in every build (256: 64 keys a block; the
+// consumer warpgroups split S^T and dP^T by q rows and dK's, dV's and dQ's
+// columns, and dq leaves by TMA reduce-adds of staged fp32 panels, see
 // csrc/flash_bwd.cuh), bf16 q, k, v and dout. Contract of
 // ops/flash.py::block_bwd: dq fp32 (B, Hq, Sq, D); dk, dv (B, Hkv, Skv, D)
 // in fp32 or bf16, summed over the GQA group.

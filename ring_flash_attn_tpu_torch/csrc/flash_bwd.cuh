@@ -51,8 +51,12 @@
 // 8192, 128) bf16: B2 causal 3.26 to 3.45 ms (about 420 TFLOP/s, 1.0 to
 // 1.1x SDPA's backward; the mma.sync loop it replaces 8.67 to 9.19), B3b
 // 2.16 to 2.28 (6.07 to 6.50), B8 off-diagonal 6.55 to 6.83 (15.40 to
-// 15.67), diagonal 3.36 to 3.51 (8.47 to 8.82). What each step of the
-// design gave is in PERF.md.
+// 15.67), diagonal 3.36 to 3.51 (8.47 to 8.82). At head_dim 256 (the
+// SPLIT design below; the same card, parent and change in turns, device
+// ms): B2 at Gemma-7B's attention, q and kv (1, 16, 8192, 256) causal,
+// 4.10 to 4.12 (the design before it 5.47 to 5.58; SDPA's backward 3.37 to
+// 3.41), B3b 2.26 to 2.32 (2.71 to 2.76). What each step of the design gave
+// is in PERF.md.
 //
 // With RING (kernel B8) the same loop is one step of the fused ring
 // backward: q arrives pre-scaled by scale * log2 e, v pre-scaled by scale,
@@ -81,21 +85,26 @@
 // Keys no q row reaches get dk = dv = 0.
 //
 // At head_dim 256 (Gemma; every build of B2, B3b and B8) a 64 x 256 fp32
-// dK and dV would take 256 registers a thread and 128-key K and V tiles
-// with two stages of Q and dout 384 KB, so a block takes 64 keys, which
-// both consumer warpgroups share: each computes S^T and dP^T over the
-// whole head dim (the two products done twice) and owns half of dK's and
-// dV's columns (64 + 64 fp32 a thread). Both therefore make the same P^T
-// and dS^T: the transforms read only the logits, the rows, the keys and
-// the positions, never the warpgroup, so softcap, ALiBi, the window band
-// and the dropout keep bits agree element for element; each takes its own
-// half of dout (and Q) as the operand of dV (dK). dQ's fp32 tile would not
-// fit beside the operands either: each warpgroup computes its half of dQ a
-// 64-column panel at a time and adds it into the accumulator by atomic
-// adds from the registers (no writer warp), in an order that varies, as
-// the reduce-adds' does; B8's dq, which the ring adds into across steps,
-// takes the same adds, while its dK and dV join the travelling fp32
-// accumulators in the epilogue as at 64 and 128.
+// dK and dV would take 256 registers a thread, and K and V alone take 64 KB
+// of shared memory, so a block takes 64 keys, which both consumer
+// warpgroups share (SPLIT). Each product is made once a step:
+//  - warpgroup wg computes S^T and dP^T of the step's q rows [32 wg, 32 wg
+//    + 32) over the whole head dim, wgmma at N = 32, and makes their P^T
+//    and dS^T (16 fp32 a thread each: every transform reads only the
+//    logits, rows, keys and positions, so softcap, ALiBi, segments, the
+//    window band and the dropout keep bits are made once, by one thread);
+//  - both write their bf16 halves of P^T and dS^T into shared panels and
+//    meet at the dS^T barrier; then warpgroup wg owns dK's, dV's and dQ's
+//    columns [wg D / 2, (wg + 1) D / 2): dV += P^T dout and dK += dS^T Q
+//    by wgmma with both operands in shared memory over all 64 rows (64 + 64
+//    fp32 a thread), dQ = dS K a 64-column panel at a time;
+//  - each dQ panel is staged in fp32 in the warpgroup's own 16 KB buffer,
+//    which the warpgroup's lead thread adds into dq_acc by TMA reduce-adds
+//    (B8's dq too: the rank's accumulator; its dK and dV join the
+//    travelling fp32 accumulators in the epilogue as at 64 and 128);
+//  - to fit those buffers dout has one stage of its own (B3b too, which
+//    leaves SEG's classes their room); Q keeps two (KvSmem): one Q stage
+//    with a 32 KB buffer a warpgroup ran B2 1.25x slower (PERF.md).
 //
 // With BAND (B2 and B3b with a window or dropout, csrc/band.cuh; always with
 // XFORM, without RING) a block's q steps narrow to the window's band where
@@ -137,8 +146,8 @@ struct Ring {
 
 // keys per block: 128, 64 per consumer warpgroup; at head_dim 256, 64,
 // which both consumer warpgroups share, each owning half of dK's and dV's
-// columns (a 64 x 256 fp32 dK and dV would take 256 registers a thread;
-// K, V and two stages of Q and dout take 192 KB of the block's 227)
+// columns and half of a step's q rows (a 64 x 256 fp32 dK and dV would take
+// 256 registers a thread; K and V alone take 64 KB of the block's 227)
 template <int D>
 constexpr int kv_keys = D > 128 ? 64 : 128;
 constexpr int KV_BM = 64;   // q rows per step
@@ -148,27 +157,41 @@ constexpr int KV_STAGES = 2;
 
 // Byte offsets from a 1024-aligned base; bf16 tiles in 128B-swizzled panels
 // of 64 columns, the fp32 dQ tile in 128B-swizzled boxes of 32 columns.
+//
+// SPLIT (head_dim 256): Q has its stages and dout one of its own: the two
+// staged 64 x 64 fp32 dQ panels (one a consumer warpgroup) take the room
+// of dout's second stage, the choice FlashAttention-3 makes at this head
+// dim (K, V 64 KB, Q 64, dout 32, P^T and dS^T 2 x 8 each, dQ 32: 224 KB,
+// with SEG's classes of 1760 q tiles within the 227). B3b, without dQ,
+// has the same one stage: 192 KB, room for the classes of 120k q tiles.
 template <int D, bool DQ = false, int BAND = 0>
 struct KvSmem {
   static constexpr int KV_BN = kv_keys<D>;
-  // head_dim 256: dQ leaves by atomic adds from the registers, no tile here
   static constexpr bool SPLIT = D > 128;
   static constexpr int PANEL_KV = KV_BN * 128;  // one 64-column panel of K
   static constexpr int PANEL_Q = KV_BM * 128;   // of a Q or dout tile
   static constexpr int K = 0;
   static constexpr int V = K + KV_BN * D * 2;
-  static constexpr int Q = V + KV_BN * D * 2;  // stage s: Q, then dout
-  static constexpr int STAGE = 2 * KV_BM * D * 2;
-  static constexpr int DS = Q + KV_STAGES * STAGE;  // 2 x dS^T (keys x rows)
+  // stage s: Q, then dout (SPLIT: Q alone)
+  static constexpr int Q = V + KV_BN * D * 2;
+  static constexpr int STAGE = (SPLIT ? 1 : 2) * KV_BM * D * 2;
+  static constexpr int DO_STAGES = SPLIT ? 1 : KV_STAGES;
+  static constexpr int DO = Q + KV_STAGES * STAGE;  // SPLIT: dout's stages
+  static constexpr int DS =  // 2 x dS^T (keys x rows)
+      DO + (SPLIT ? DO_STAGES * KV_BM * D * 2 : 0);
   static constexpr int DS_BYTES = KV_BN * KV_BM * 2;
-  static constexpr int DQT = DS + 2 * DS_BYTES;  // 2 x the fp32 dQ tile
-  static constexpr int DQ_BYTES = KV_BM * D * 4;
+  static constexpr int PT = DS + 2 * DS_BYTES;  // SPLIT: 2 x P^T
+  static constexpr int DQT = PT + (SPLIT ? 2 * DS_BYTES : 0);
+  // 2 x the fp32 dQ tile (SPLIT: a 64-column panel a consumer warpgroup)
+  static constexpr int DQ_BYTES = SPLIT ? KV_BM * 64 * 4 : KV_BM * D * 4;
   // lse2, delta (BAND: and the rows' dropout hashes)
-  static constexpr int ROWS = DQT + (DQ && !SPLIT ? 2 * DQ_BYTES : 0);
+  static constexpr int ROWS = DQT + (DQ ? 2 * DQ_BYTES : 0);
   static constexpr int BAR =
       ROWS + KV_STAGES * (BAND == rfa_band::ALL ? 3 : 2) * KV_BM * 4;
-  // mbarriers: full[KV_STAGES], empty[KV_STAGES], kv
-  static constexpr int BYTES = BAR + (2 * KV_STAGES + 1) * 8 + 1024;
+  // mbarriers: full[KV_STAGES], empty[KV_STAGES], kv (SPLIT: and dout's
+  // full[DO_STAGES], empty[DO_STAGES])
+  static constexpr int BYTES =
+      BAR + (2 * KV_STAGES + 1 + (SPLIT ? 2 * DO_STAGES : 0)) * 8 + 1024;
 };
 
 // TMA maps of the four bf16 operands, boxes of 64 columns by KV_BM rows (q,
@@ -180,7 +203,8 @@ struct Maps {
 
 // Named barriers beside __syncthreads' 0: the consumers' dS^T (1), and for
 // each dQ buffer b the consumers' "tile written" (2 + b) and the dQ
-// writer's "tile read" (4 + b).
+// writer's "tile read" (4 + b). SPLIT: 2 + wg is consumer warpgroup wg's
+// own, around its dQ buffer.
 constexpr int BAR_DS = 1, BAR_DQ_FULL = 2, BAR_DQ_EMPTY = 4;
 constexpr int DQ_PARTIES = KV_CONSUMERS + 32;
 
@@ -197,6 +221,68 @@ __device__ __forceinline__ void kv_scores(float (&acc)[32], const char* kv,
         acc, hop::desc_sw128(kv + (kk / 4) * S::PANEL_KV + ko, 16),
         hop::desc_sw128(qt + (kk / 4) * S::PANEL_Q + ko, 16), kk > 0);
   }
+}
+
+// SPLIT: S^T or dP^T of this warpgroup's 32 q rows (64 keys x 32 rows): A
+// rows from the K or V tile, B the warpgroup's rows of the Q or dout tile
+// from qt on, both K-major over the head dim.
+template <int D>
+__device__ __forceinline__ void kv_scores_half(float (&acc)[16],
+                                               const char* kv,
+                                               const char* qt) {
+  using S = KvSmem<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int ko = (kk % 4) * 32;
+    hop::wgmma_ss_n32<0, 0>(
+        acc, hop::desc_sw128(kv + (kk / 4) * S::PANEL_KV + ko, 16),
+        hop::desc_sw128(qt + (kk / 4) * S::PANEL_Q + ko, 16), kk > 0);
+  }
+}
+
+// SPLIT: acc (64 keys x 128) += A (64 keys x 64 q rows, the bf16 P^T or
+// dS^T panel at a, K-major) * T (64 q rows x 128 columns of the Q or dout
+// tile from t on, MN-major).
+template <int D>
+__device__ __forceinline__ void kv_accumulate_ss(float (&acc)[64],
+                                                 const char* a,
+                                                 const char* t) {
+  using S = KvSmem<D>;
+#pragma unroll
+  for (int kc = 0; kc < KV_BM / 16; ++kc)
+    hop::wgmma_ss_n128<0, 1>(acc, hop::desc_sw128(a + kc * 32, 16),
+                             hop::desc_sw128(t + kc * 16 * 128, S::PANEL_Q),
+                             1);
+}
+
+// SPLIT: acc (64 q rows x 64 columns of dQ) = dS (64 q rows x 64 keys, A
+// MN-major in the stored dS^T at ds) * a 64-column panel kb of K (MN-major).
+template <int D>
+__device__ __forceinline__ void kv_dq_panel(float (&acc)[32], const char* ds,
+                                            const char* kb) {
+#pragma unroll
+  for (int kc = 0; kc < KvSmem<D>::KV_BN / 16; ++kc)
+    hop::wgmma_ss_n64<1, 1>(acc, hop::desc_sw128(ds + kc * 2048, 16),
+                            hop::desc_sw128(kb + kc * 2048, 16), kc > 0);
+}
+
+// SPLIT: bf16 fragments of a 64 x 32 accumulator (fragment kc, register r:
+// key 16 warp + g + 8 (r % 2), q row c0 + 16 kc + 8 (r / 2) + 2 tq and the
+// next) into a [key][q row] panel of 64 x 64 in the swizzled layout.
+__device__ __forceinline__ void store_half_panel(char* panel,
+                                                 const uint32_t (&a)[2][4],
+                                                 int c0, int warp, int g,
+                                                 int tq) {
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = warp * 16 + g + (r % 2) * 8;
+      const int chunk = c0 / 8 + 2 * kc + r / 2;
+      *reinterpret_cast<uint32_t*>(panel + row * 128 +
+                                   ((chunk ^ (row % 8)) << 4) + tq * 4) =
+          a[kc][r];
+    }
 }
 
 // acc (64 keys x N) += A (64 keys x 64 q rows, bf16 fragments) * T (64 q
@@ -232,10 +318,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
   using S = KvSmem<D, DQ, BAND>;
   constexpr int KV_BN = S::KV_BN;
   // head_dim 256: both consumer warpgroups take the same 64 keys, warpgroup
-  // wg dK's and dV's columns [wg D / 2, (wg + 1) D / 2)
+  // wg a step's q rows [32 wg, 32 wg + 32) for S^T and dP^T, and dK's, dV's
+  // and dQ's columns [wg D / 2, (wg + 1) D / 2)
   constexpr bool SPLIT = S::SPLIT;
   // fp32 of a 64 x D (SPLIT: 64 x D / 2) accumulator a thread holds
   constexpr int NA = SPLIT ? D / 4 : D / 2;
+  // fp32 of this warpgroup's S^T or dP^T a thread holds
+  constexpr int NS = SPLIT ? 16 : 32;
   extern __shared__ __align__(16) char smem_raw[];
   char* smem =
       smem_raw + ((1024 - (rfa::smem_u32(smem_raw) & 1023)) & 1023);
@@ -296,8 +385,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR);
   uint64_t* empty = full + KV_STAGES;
   uint64_t* kv_bar = empty + KV_STAGES;
+  // SPLIT: dout's own stages
+  uint64_t* do_full = kv_bar + 1;
+  uint64_t* do_empty = do_full + S::DO_STAGES;
   auto qs = [&](int s) { return smem + S::Q + s * S::STAGE; };
-  auto dos = [&](int s) { return qs(s) + KV_BM * D * 2; };
+  auto dos = [&](int s) {
+    return SPLIT ? smem + S::DO + s * KV_BM * D * 2 : qs(s) + KV_BM * D * 2;
+  };
   auto lses = [&](int s) {
     return fs + s * (BAND == rfa_band::ALL ? 3 : 2) * KV_BM;
   };
@@ -312,6 +406,12 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       hop::mbar_init(&empty[s], KV_CONSUMERS);
     }
     hop::mbar_init(kv_bar, 1);
+    if constexpr (SPLIT) {
+      for (int s = 0; s < S::DO_STAGES; ++s) {
+        hop::mbar_init(&do_full[s], 1);
+        hop::mbar_init(&do_empty[s], KV_CONSUMERS);
+      }
+    }
     hop::mbar_fence_init();
   }
   __syncthreads();
@@ -389,12 +489,22 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           if constexpr (BAND == rfa_band::ALL) rhs(s)[i] = rhv;
         }
         if (lane == 0) {
-          hop::mbar_arrive_tx(&full[s], 2 * KV_BM * D * 2);
+          hop::mbar_arrive_tx(&full[s], (SPLIT ? 1 : 2) * KV_BM * D * 2);
           for (int p = 0; p < D / 64; ++p) {
             hop::tma_load_4d(qs(s) + p * S::PANEL_Q, &maps.q, &full[s], 64 * p,
                              m0, h, b);
-            hop::tma_load_4d(dos(s) + p * S::PANEL_Q, &maps.o, &full[s],
-                             64 * p, m0, h, b);
+            if constexpr (!SPLIT)
+              hop::tma_load_4d(dos(s) + p * S::PANEL_Q, &maps.o, &full[s],
+                               64 * p, m0, h, b);
+          }
+          if constexpr (SPLIT) {
+            // dout into its own stage once the consumers' dV has read it
+            const int sd = it % S::DO_STAGES;
+            hop::mbar_wait(&do_empty[sd], ((it / S::DO_STAGES) & 1) ^ 1);
+            hop::mbar_arrive_tx(&do_full[sd], KV_BM * D * 2);
+            for (int p = 0; p < D / 64; ++p)
+              hop::tma_load_4d(dos(sd) + p * S::PANEL_Q, &maps.o,
+                               &do_full[sd], 64 * p, m0, h, b);
           }
         } else {
           hop::mbar_arrive(&full[s]);
@@ -425,12 +535,15 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       if (lane == 0) hop::bulk_wait<0>();
     }
   } else {
-    // ---- consumers: warpgroup wg owns keys nw + [0, 64) ----
+    // ---- consumers: warpgroup wg owns keys nw + [0, 64) (SPLIT: both
+    // take the block's 64 keys; wg makes P^T and dS^T of a step's q rows
+    // qo + [0, 32)) ----
     hop::setmaxnreg_inc<240>();
     const int wg = threadIdx.x / 128;
     const int nw = n0 + (SPLIT ? 0 : 64 * wg);
     const int warp = (threadIdx.x / 32) % 4;
     const int g = lane / 4, tq = lane % 4;
+    const int qo = SPLIT ? 32 * wg : 0;
     const float scale_log2 = RING ? 1.f : scale * LOG2E;
     const float ds_scale = RING ? 1.f : scale;
     const float inv_cap2 = XFORM && ring.cap2 > 0.f ? 1.f / ring.cap2 : 0.f;
@@ -479,8 +592,10 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
     int gi = 0, tt = t_first;
     for (int it = 0; it < steps; ++it) {
       const int s = it % KV_STAGES;
+      const int sd = it % S::DO_STAGES;  // SPLIT: dout's stage
       const int h = hk * group + (SEG ? gi : it / per_head);
       const int m0 = (SEG ? tt : t0 + it % per_head) * KV_BM;
+      const int mq = m0 + qo;  // the warpgroup's first q row
       const bool seg_masked = SEG && step_class(tt) == 1;
       if constexpr (SEG) advance(gi, tt);
       // SEG: the lane's share of the masked step's q rows m0 + 2 lane +
@@ -505,25 +620,37 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         }
       }
       const char* qt = qs(s);
-      const char* dot = dos(s);
+      const char* dot = dos(SPLIT ? sd : s);
       // SPLIT: the warpgroup's two panels of Q and dout for dK and dV
       const char* qh = SPLIT ? qt + wg * 2 * S::PANEL_Q : qt;
       const char* doh = SPLIT ? dot + wg * 2 * S::PANEL_Q : dot;
-      const float* l2s = lses(s);
-      const float* dls = dels(s);
-      // dS^T alternates between two buffers: one barrier a step keeps a
-      // warpgroup that runs ahead off the buffer the other still reads
+      // the warpgroup's rows' lse2 and delta
+      const float* l2s = lses(s) + qo;
+      const float* dls = dels(s) + qo;
+      // dS^T (SPLIT: and P^T) alternate between two buffers: one barrier a
+      // step keeps a warpgroup that runs ahead off the buffer the other
+      // still reads
       char* dss = smem + S::DS + (it & 1) * S::DS_BYTES;
+      char* pts = smem + S::PT + (it & 1) * S::DS_BYTES;
       hop::mbar_wait(&full[s], (it / KV_STAGES) & 1);
 
-      // S^T = K Q^T and dP^T = V dout^T: 64 keys x 64 q rows each. An
-      // element i of these accumulators is key 16 warp + g + 8 ((i % 4) / 2)
-      // of the warpgroup's and q row 8 (i / 4) + 2 tq + i % 2 of the tile.
-      float sc[32], dpt[32];
+      // S^T = K Q^T and dP^T = V dout^T: 64 keys x 64 q rows each (SPLIT:
+      // x the warpgroup's 32, by wgmma at N = 32: each product made once).
+      // An element i of these accumulators is key 16 warp + g + 8 ((i % 4)
+      // / 2) of the warpgroup's and q row qo + 8 (i / 4) + 2 tq + i % 2 of
+      // the tile.
+      float sc[NS], dpt[NS];
       hop::wgmma_fence();
-      kv_scores<D>(sc, ks + (SPLIT ? 0 : wg * 64 * 128), qt);
-      hop::wgmma_commit();
-      kv_scores<D>(dpt, vs + (SPLIT ? 0 : wg * 64 * 128), dot);
+      if constexpr (SPLIT) {
+        kv_scores_half<D>(sc, ks, qt + qo * 128);
+        hop::wgmma_commit();
+        hop::mbar_wait(&do_full[sd], (it / S::DO_STAGES) & 1);
+        kv_scores_half<D>(dpt, vs, dot + qo * 128);
+      } else {
+        kv_scores<D>(sc, ks + wg * 64 * 128, qt);
+        hop::wgmma_commit();
+        kv_scores<D>(dpt, vs + wg * 64 * 128, dot);
+      }
       hop::wgmma_commit();
       hop::wgmma_wait<1>();
       hop::fence_regs(sc);
@@ -531,7 +658,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
       // P^T; zero outside the mask and on the ragged edges
       const bool edge = m0 + KV_BM > Sq || nw + 64 > Skv ||
                         (causal && m0 + offset < nw + 63);
-      uint32_t pa[4][4];
+      uint32_t pa[NS / 8][4];
       uint32_t kbits = ~0u;  // BAND: the keep bits of the 32 elements
       // BAND: a step crosses a band edge by index where some pair of this
       // warpgroup's keys lies outside it
@@ -549,13 +676,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         // positions
         if (SEG && seg_masked) {
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
+          for (int c = 0; c < NS / 4; ++c) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               int qsg, qps;
-              rfa_seg::take(qv, 4 * c + tq, e, qsg, qps);
+              rfa_seg::take(qv, qo / 2 + 4 * c + tq, e, qsg, qps);
               const int col = 8 * c + 2 * tq + e;
-              const int row = m0 + col;
+              const int row = mq + col;
 #pragma unroll
               for (int r = 0; r < 2; ++r) {
                 const int i = 4 * c + 2 * r + e;
@@ -573,12 +700,12 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           }
         } else {
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
+          for (int i = 0; i < NS; ++i) {
             const int col = (i / 4) * 8 + tq * 2 + i % 2;
             float p = exp2f(sc[i] * scale_log2 - l2s[col]);
             if (edge || win) {
               const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
-              const int row = m0 + col;
+              const int row = mq + col;
               if (row >= Sq || key >= Skv || (causal && row + offset < key) ||
                   (win && rfa_band::outside(band, row - key + ring.q_pos0)))
                 p = 0.f;
@@ -587,9 +714,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           }
         }
         hop::pack_fragments(pa, sc);
-        hop::wgmma_fence();
-        kv_accumulate<D>(dv_acc, pa, doh);  // dV += P^T dout
-        hop::wgmma_commit();
+        if constexpr (SPLIT) {
+          store_half_panel(pts, pa, qo, warp, g, tq);
+        } else {
+          hop::wgmma_fence();
+          kv_accumulate<D>(dv_acc, pa, doh);  // dV += P^T dout
+          hop::wgmma_commit();
+        }
       } else if constexpr (BAND) {
         // B2 and B3b with dropout, softcap or ALiBi (the ALL build): as the
         // XFORM segmented build below, P element by
@@ -600,11 +731,11 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         if (ring.cap2 > 0.f) {
           const float k2 = scale_log2 * inv_cap2;
 #pragma unroll
-          for (int i = 0; i < 32; ++i)
+          for (int i = 0; i < NS; ++i)
             sc[i] = ring.cap2 * tanh_fast(sc[i] * k2);
         } else {
 #pragma unroll
-          for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+          for (int i = 0; i < NS; ++i) sc[i] *= scale_log2;
         }
         auto logit = [&](int i, int row, float& dc) {
           float x = sc[i];
@@ -619,13 +750,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         };
         const bool idx_pos = !(SEG && seg.q_pos);
         const bool drop = BAND == rfa_band::ALL && band.thr != 0;
-        const uint32_t* rhs_s = rhs(s);
+        const uint32_t* rhs_s = rhs(s) + qo;
         if (SEG && seg_masked) {
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
+          for (int c = 0; c < NS / 4; ++c) {
             int qsg[2], qps[2];
-            rfa_seg::take(qv, 4 * c + tq, 0, qsg[0], qps[0]);
-            rfa_seg::take(qv, 4 * c + tq, 1, qsg[1], qps[1]);
+            rfa_seg::take(qv, qo / 2 + 4 * c + tq, 0, qsg[0], qps[0]);
+            rfa_seg::take(qv, qo / 2 + 4 * c + tq, 1, qsg[1], qps[1]);
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               float pe[2];
@@ -633,7 +764,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
               for (int e = 0; e < 2; ++e) {
                 const int i = 4 * c + 2 * r + e;
                 const int col = 8 * c + 2 * tq + e;
-                const int row = m0 + col;
+                const int row = mq + col;
                 const int key = nw + warp * 16 + g + r * 8;
                 float dc;
                 float x = logit(i, row, dc);
@@ -664,13 +795,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         } else {
           const bool edge_b = edge || win;
 #pragma unroll
-          for (int m = 0; m < 16; ++m) {
+          for (int m = 0; m < NS / 2; ++m) {
             float pe[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int i = 2 * m + e;
               const int col = (i / 4) * 8 + tq * 2 + i % 2;
-              const int row = m0 + col;
+              const int row = mq + col;
               const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
               float dc;
               float p = exp2f(logit(i, row, dc) - l2s[col]);
@@ -690,9 +821,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
             pa[m / 4][m % 4] = rfa::pack_bf16(pe[0], pe[1]);
           }
         }
-        hop::wgmma_fence();
-        kv_accumulate<D>(dv_acc, pa, doh);  // dV += P^T dout, kept p
-        hop::wgmma_commit();
+        if constexpr (SPLIT) {
+          store_half_panel(pts, pa, qo, warp, g, tq);
+        } else {
+          hop::wgmma_fence();
+          kv_accumulate<D>(dv_acc, pa, doh);  // dV += P^T dout, kept p
+          hop::wgmma_commit();
+        }
       } else if constexpr (XFORM && !RING && SEG) {
         // B2 and B3b on packed sequences with softcap or ALiBi: each logit
         // scaled to base 2, capped and given its ALiBi bias (by index, or on
@@ -711,11 +846,11 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         if (ring.cap2 > 0.f) {
           const float k2 = scale_log2 * inv_cap2;
 #pragma unroll
-          for (int i = 0; i < 32; ++i)
+          for (int i = 0; i < NS; ++i)
             sc[i] = ring.cap2 * tanh_fast(sc[i] * k2);
         } else {
 #pragma unroll
-          for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+          for (int i = 0; i < NS; ++i) sc[i] *= scale_log2;
         }
         auto logit = [&](int i, int row, int key, float& dc) {
           float x = sc[i];
@@ -729,13 +864,14 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           return x;
         };
         if (SEG && seg_masked) {
-          // element 4 c + 2 r + e is q row 8 c + 2 tq + e of the step, held
-          // by lane 4 c + tq; the pair e = 0, 1 is fragment 2 c + r
+          // element 4 c + 2 r + e is q row qo + 8 c + 2 tq + e of the step,
+          // held by lane qo / 2 + 4 c + tq; the pair e = 0, 1 is fragment
+          // 2 c + r
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
+          for (int c = 0; c < NS / 4; ++c) {
             int qsg[2], qps[2];
-            rfa_seg::take(qv, 4 * c + tq, 0, qsg[0], qps[0]);
-            rfa_seg::take(qv, 4 * c + tq, 1, qsg[1], qps[1]);
+            rfa_seg::take(qv, qo / 2 + 4 * c + tq, 0, qsg[0], qps[0]);
+            rfa_seg::take(qv, qo / 2 + 4 * c + tq, 1, qsg[1], qps[1]);
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               float pe[2];
@@ -743,7 +879,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
               for (int e = 0; e < 2; ++e) {
                 const int i = 4 * c + 2 * r + e;
                 const int col = 8 * c + 2 * tq + e;
-                const int row = m0 + col;
+                const int row = mq + col;
                 const int key = nw + warp * 16 + g + r * 8;
                 float dc;
                 float x = logit(i, row, key, dc);
@@ -766,13 +902,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           }
         } else {
 #pragma unroll
-          for (int m = 0; m < 16; ++m) {
+          for (int m = 0; m < NS / 2; ++m) {
             float pe[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int i = 2 * m + e;
               const int col = (i / 4) * 8 + tq * 2 + i % 2;
-              const int row = m0 + col;
+              const int row = mq + col;
               const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
               float dc;
               float p = exp2f(logit(i, row, key, dc) - l2s[col]);
@@ -786,15 +922,19 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
             pa[m / 4][m % 4] = rfa::pack_bf16(pe[0], pe[1]);
           }
         }
-        hop::wgmma_fence();
-        kv_accumulate<D>(dv_acc, pa, doh);  // dV += P^T dout
-        hop::wgmma_commit();
+        if constexpr (SPLIT) {
+          store_half_panel(pts, pa, qo, warp, g, tq);
+        } else {
+          hop::wgmma_fence();
+          kv_accumulate<D>(dv_acc, pa, doh);  // dV += P^T dout
+          hop::wgmma_commit();
+        }
       } else {
         // XFORM recomputes the forward's softcap and ALiBi first (B2 and
         // B3b scale to base 2 ahead of them, and P below scales by 1; a
         // ring step's q arrives in base 2) and keeps the softcap's
         // derivative 1 - tanh^2 for dS
-        float dcap[XFORM ? 32 : 1];
+        float dcap[XFORM ? NS : 1];
         if constexpr (XFORM && !RING) {
           // the cap, then ALiBi by index, each a loop of its own under one
           // uniform branch
@@ -802,20 +942,20 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           if (ring.cap2 > 0.f) {
             const float k2 = scale_log2 * inv_cap2;
 #pragma unroll
-            for (int i = 0; i < 32; ++i) {
+            for (int i = 0; i < NS; ++i) {
               const float t = tanh_fast(sc[i] * k2);
               sc[i] = ring.cap2 * t;
               dcap[i] = 1.f - t * t;
             }
           } else {
 #pragma unroll
-            for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+            for (int i = 0; i < NS; ++i) sc[i] *= scale_log2;
           }
           if (ring.slopes) {
 #pragma unroll
-            for (int i = 0; i < 32; ++i) {
+            for (int i = 0; i < NS; ++i) {
               const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
-              const int row = m0 + (i / 4) * 8 + tq * 2 + i % 2;
+              const int row = mq + (i / 4) * 8 + tq * 2 + i % 2;
               float dist = (float)((ring.q_pos0 + row) - key);
               if (ring.alibi_abs) dist = fabsf(dist);
               sc[i] -= slope * dist;
@@ -827,7 +967,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           if (ring.cap2 > 0.f || ring.slopes) {
             const float slope = ring.slopes ? ring.slopes[h] : 0.f;
 #pragma unroll
-            for (int i = 0; i < 32; ++i) {
+            for (int i = 0; i < NS; ++i) {
               float x = sc[i];
               dcap[i] = 1.f;
               if (ring.cap2 > 0.f) {
@@ -837,7 +977,7 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
               }
               if (ring.slopes) {
                 const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
-                const int row = m0 + (i / 4) * 8 + tq * 2 + i % 2;
+                const int row = mq + (i / 4) * 8 + tq * 2 + i % 2;
                 float dist =
                     (float)((ring.q_pos0 + row) - (ring.kv_pos0 + key));
                 if (ring.alibi_abs) dist = fabsf(dist);
@@ -849,16 +989,16 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
         }
         if (SEG && seg_masked) {
           // a loop of its own, so that the unmasked steps' code carries none
-          // of it: element 4 c + 2 r + e is q row 8 c + 2 tq + e of the step,
-          // held by lane 4 c + tq
+          // of it: element 4 c + 2 r + e is q row qo + 8 c + 2 tq + e of the
+          // step, held by lane qo / 2 + 4 c + tq
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
+          for (int c = 0; c < NS / 4; ++c) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               int qs, qp;
-              rfa_seg::take(qv, 4 * c + tq, e, qs, qp);
+              rfa_seg::take(qv, qo / 2 + 4 * c + tq, e, qs, qp);
               const int col = 8 * c + 2 * tq + e;
-              const int row = m0 + col;
+              const int row = mq + col;
 #pragma unroll
               for (int r = 0; r < 2; ++r) {
                 const int i = 4 * c + 2 * r + e;
@@ -872,13 +1012,13 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           }
         } else {
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
+          for (int i = 0; i < NS; ++i) {
             const int col = (i / 4) * 8 + tq * 2 + i % 2;
             float p = exp2f(sc[i] * (XFORM && !RING ? 1.f : scale_log2) -
                             l2s[col]);
             if (edge) {
               const int key = nw + warp * 16 + g + ((i % 4) / 2) * 8;
-              const int row = m0 + col;
+              const int row = mq + col;
               if (row >= Sq || key >= Skv || (causal && row + offset < key))
                 p = 0.f;
             }
@@ -886,148 +1026,195 @@ bwd_kv_kernel(const __grid_constant__ Maps maps,
           }
         }
 
-        // dV += P^T dout
+        // dV += P^T dout (SPLIT: P^T to shared memory for it)
         hop::pack_fragments(pa, sc);
-        hop::wgmma_fence();
-        kv_accumulate<D>(dv_acc, pa, doh);
-        hop::wgmma_commit();
+        if constexpr (SPLIT) {
+          store_half_panel(pts, pa, qo, warp, g, tq);
+        } else {
+          hop::wgmma_fence();
+          kv_accumulate<D>(dv_acc, pa, doh);
+          hop::wgmma_commit();
+        }
         if constexpr (XFORM) {
           if (ring.cap2 > 0.f) {
 #pragma unroll
-            for (int i = 0; i < 32; ++i) sc[i] *= dcap[i];  // p (1 - tanh^2)
+            for (int i = 0; i < NS; ++i) sc[i] *= dcap[i];  // p (1 - tanh^2)
           }
         }
       }
 
       // dS^T = P^T (dP^T - delta) * scale, in place of dP^T (BAND with
-      // dropout: dP^T masked by the keep bits and scaled by 1 / (1 - p))
-      hop::wgmma_wait<1>();
+      // dropout: dP^T masked by the keep bits and scaled by 1 / (1 - p));
+      // SPLIT issued no dV, so dP^T is the last group in flight
+      if constexpr (SPLIT)
+        hop::wgmma_wait<0>();
+      else
+        hop::wgmma_wait<1>();
       hop::fence_regs(dpt);
       if (BAND == rfa_band::ALL && band.thr) {
         const float ik = band.inv_keep;
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
+        for (int i = 0; i < NS; ++i) {
           const float dp = (kbits >> i) & 1u ? dpt[i] * ik : 0.f;
           dpt[i] = sc[i] * (dp - dls[(i / 4) * 8 + tq * 2 + i % 2]) *
                    ds_scale;
         }
       } else {
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
+      for (int i = 0; i < NS; ++i)
         dpt[i] = sc[i] * (dpt[i] - dls[(i / 4) * 8 + tq * 2 + i % 2]) *
                  ds_scale;
       }
-      uint32_t da[4][4];
+      uint32_t da[NS / 8][4];
       hop::pack_fragments(da, dpt);
-      if constexpr (DQ) {
-        // dS^T to shared memory, [key][q row] in the swizzled panel layout
-        // (fragment kc, register r: key row g + 8 (r % 2), q columns 16 kc
-        // + 8 (r / 2) + 2 tq, i.e. 16-byte chunk 2 kc + r / 2); SPLIT: both
-        // warpgroups hold the same dS^T, warpgroup 0 stores it
-        if (!SPLIT || wg == 0) {
+      if constexpr (SPLIT) {
+        // the warpgroup's half of dS^T beside its half of P^T; once both
+        // warpgroups' halves are in, dV += P^T dout and dK += dS^T Q over
+        // all 64 rows of the step, on the warpgroup's columns, both
+        // operands from shared memory
+        store_half_panel(dss, da, qo, warp, g, tq);
+        hop::fence_proxy_async();
+        hop::bar_sync(BAR_DS, KV_CONSUMERS);
+        hop::wgmma_fence();
+        kv_accumulate_ss<D>(dv_acc, pts, doh);  // dV += P^T dout
+        hop::wgmma_commit();
+        kv_accumulate_ss<D>(dk_acc, dss, qh);  // dK += dS^T Q
+        hop::wgmma_commit();
+        if constexpr (DQ) {
+          // dQ = dS K over the block's 64 keys: warpgroup wg's columns [wg
+          // D / 2, (wg + 1) D / 2), a 64-column panel of K at a time, each
+          // staged in fp32 in the warpgroup's buffer, which its lead thread
+          // adds into dq_acc by TMA reduce-adds (a writer warp for each
+          // warpgroup, as at 128, ran B2 3 to 4% slower; staging panel 0
+          // behind panel 1's and dK's products no faster: PERF.md). Element
+          // 4 j + 2 r + c of a panel is q row 16 warp + g + 8 r, column 8 j
+          // + 2 tq + c, in box column / 32, 16-byte chunk (column % 32) / 4
+          // swizzled by row % 8
+          char* dqs = smem + S::DQT + wg * S::DQ_BYTES;
+          const bool lead = warp == 0 && lane == 0;
+          auto stage = [&](const float(&dqa)[32], int pn, bool wait_read) {
+            if (wait_read) {  // the buffer's last panel read
+              if (lead) hop::bulk_wait_read<0>();
+              hop::bar_sync(BAR_DQ_FULL + wg, 128);
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int row = warp * 16 + g + r * 8;
+                const int col = j * 8 + tq * 2;
+                *reinterpret_cast<float2*>(
+                    dqs + (col / 32) * KV_BM * 128 + row * 128 +
+                    ((((col % 32) / 4) ^ (row % 8)) << 4) + (col % 4) * 4) =
+                    make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
+              }
+            hop::fence_proxy_async();
+            hop::bar_sync(BAR_DQ_FULL + wg, 128);
+            if (lead) {
+#pragma unroll
+              for (int x = 0; x < 2; ++x)
+                hop::tma_reduce_add_4d(&maps.dq, dqs + x * KV_BM * 128,
+                                       wg * (D / 2) + 64 * pn + 32 * x, m0,
+                                       h, b);
+              hop::bulk_commit();
+            }
+          };
+          float dqa[32];
+#pragma unroll
+          for (int pn = 0; pn < 2; ++pn) {
+            hop::wgmma_fence();
+            kv_dq_panel<D>(dqa, dss, ks + (wg * 2 + pn) * S::PANEL_KV);
+            hop::wgmma_commit();
+            if (pn == 0) {
+              hop::wgmma_wait<2>();
+              hop::mbar_arrive(&do_empty[sd]);  // dout is read (dV)
+              hop::wgmma_wait<1>();
+              hop::mbar_arrive(&empty[s]);  // Q is read (dK)
+            }
+            hop::wgmma_wait<0>();
+            hop::fence_regs(dqa);
+            stage(dqa, pn, it > 0 || pn > 0);
+          }
+        } else {
+          hop::wgmma_wait<1>();
+          hop::mbar_arrive(&do_empty[sd]);  // dout is read (dV)
+          hop::wgmma_wait<0>();
+          hop::mbar_arrive(&empty[s]);  // Q is read (dK)
+        }
+      } else {
+        // head_dim 64 and 128
+        if constexpr (DQ) {
+          // dS^T to shared memory, [key][q row] in the swizzled panel layout
+          // (fragment kc, register r: key row g + 8 (r % 2), q columns 16 kc
+          // + 8 (r / 2) + 2 tq, i.e. 16-byte chunk 2 kc + r / 2)
 #pragma unroll
           for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
-              const int row =
-                  (SPLIT ? 0 : wg * 64) + warp * 16 + g + (r % 2) * 8;
+              const int row = wg * 64 + warp * 16 + g + (r % 2) * 8;
               const int chunk = 2 * kc + r / 2;
               *reinterpret_cast<uint32_t*>(
                   dss + row * 128 + ((chunk ^ (row % 8)) << 4) + tq * 4) =
                   da[kc][r];
             }
         }
-      }
 
-      // dK += dS^T Q
-      hop::wgmma_fence();
-      kv_accumulate<D>(dk_acc, da, qh);
-      hop::wgmma_commit();
+        // dK += dS^T Q
+        hop::wgmma_fence();
+        kv_accumulate<D>(dk_acc, da, qh);
+        hop::wgmma_commit();
 
-      if constexpr (DQ && SPLIT) {
-        // dQ = dS K over the block's 64 keys; warpgroup wg takes head-dim
-        // columns [wg D / 2, (wg + 1) D / 2), a 64-column panel of K at a
-        // time (as D = 128's 32 fp32 a thread), and adds each into dq_acc by
-        // atomic adds from the registers: no staged fp32 tile fits in the
-        // shared memory beside the operands
-        hop::fence_proxy_async();
-        hop::bar_sync(BAR_DS, KV_CONSUMERS);
-        float dqa[32];
-#pragma unroll
-        for (int pn = 0; pn < 2; ++pn) {
-          const char* kb = ks + (wg * 2 + pn) * S::PANEL_KV;
+        if constexpr (DQ) {
+          // dQ = dS K over all 128 keys; warpgroup wg takes head-dim columns
+          // [wg D / 2, (wg + 1) D / 2). A is dS (M = q rows contiguous in the
+          // stored dS^T: MN-major), B the K tile (N = head dim contiguous:
+          // MN-major), both stepping 16 keys = 2048 bytes at a time.
+          hop::fence_proxy_async();
+          hop::bar_sync(BAR_DS, KV_CONSUMERS);
+          constexpr int NQ = D / 4;  // fp32 of a 64 x D/2 accumulator
+          float dqa[NQ];
+          const char* kb = D == 128 ? ks + wg * S::PANEL_KV : ks + wg * 64;
           hop::wgmma_fence();
 #pragma unroll
-          for (int kc = 0; kc < KV_BN / 16; ++kc)
-            hop::wgmma_ss_n64<1, 1>(dqa, hop::desc_sw128(dss + kc * 2048, 16),
-                                    hop::desc_sw128(kb + kc * 2048, 16),
-                                    kc > 0);
+          for (int kc = 0; kc < KV_BN / 16; ++kc) {
+            const uint64_t da_ = hop::desc_sw128(dss + kc * 2048, 16);
+            const uint64_t db_ = hop::desc_sw128(kb + kc * 2048, 16);
+            if constexpr (D == 128)
+              hop::wgmma_ss_n64<1, 1>(dqa, da_, db_, kc > 0);
+            else
+              hop::wgmma_ss_n32<1, 1>(dqa, da_, db_, kc > 0);
+          }
           hop::wgmma_commit();
           hop::wgmma_wait<0>();
-          // stage s is read: dK, its last reader, was waited for too
-          if (pn == 0) hop::mbar_arrive(&empty[s]);
+          hop::mbar_arrive(&empty[s]);  // stage s is read
           hop::fence_regs(dqa);
-          // element 4 j + 2 r + c is q row m0 + 16 warp + g + 8 r, column
-          // (2 wg + pn) 64 + 8 j + 2 tq + c
+          // the tile to dQ buffer it % 2 once the writer has read what it
+          // held two steps ago; element (row, col) in box col / 32, 16-byte
+          // chunk (col % 32) / 4 swizzled by row % 8
+          const int buf = it & 1;
+          char* dqs = smem + S::DQT + buf * S::DQ_BYTES;
+          if (it >= 2) hop::bar_sync(BAR_DQ_EMPTY + buf, DQ_PARTIES);
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = m0 + warp * 16 + g + r * 8;
-            if (row >= Sq) continue;
-            float* dst = dq_acc + ((long long)(b * Hq + h) * Sq + row) * D +
-                         (wg * 2 + pn) * 64 + tq * 2;
+          for (int r = 0; r < 2; ++r)
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-              atomicAdd(reinterpret_cast<float2*>(dst + j * 8),
-                        make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]));
-          }
+            for (int j = 0; j < NQ / 4; ++j) {
+              const int row = warp * 16 + g + r * 8;
+              const int col = wg * (D / 2) + j * 8 + tq * 2;
+              *reinterpret_cast<float2*>(
+                  dqs + (col / 32) * KV_BM * 128 + row * 128 +
+                  ((((col % 32) / 4) ^ (row % 8)) << 4) + (col % 4) * 4) =
+                  make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
+            }
+          hop::fence_proxy_async();
+          hop::bar_arrive(BAR_DQ_FULL + buf, DQ_PARTIES);
+        } else {
+          hop::wgmma_wait<0>();
+          hop::mbar_arrive(&empty[s]);
         }
-      } else if constexpr (DQ) {
-        // dQ = dS K over all 128 keys; warpgroup wg takes head-dim columns
-        // [wg D / 2, (wg + 1) D / 2). A is dS (M = q rows contiguous in the
-        // stored dS^T: MN-major), B the K tile (N = head dim contiguous:
-        // MN-major), both stepping 16 keys = 2048 bytes at a time.
-        hop::fence_proxy_async();
-        hop::bar_sync(BAR_DS, KV_CONSUMERS);
-        constexpr int NQ = D / 4;  // fp32 of a 64 x D/2 accumulator
-        float dqa[NQ];
-        const char* kb = D == 128 ? ks + wg * S::PANEL_KV : ks + wg * 64;
-        hop::wgmma_fence();
-#pragma unroll
-        for (int kc = 0; kc < KV_BN / 16; ++kc) {
-          const uint64_t da_ = hop::desc_sw128(dss + kc * 2048, 16);
-          const uint64_t db_ = hop::desc_sw128(kb + kc * 2048, 16);
-          if constexpr (D == 128)
-            hop::wgmma_ss_n64<1, 1>(dqa, da_, db_, kc > 0);
-          else
-            hop::wgmma_ss_n32<1, 1>(dqa, da_, db_, kc > 0);
-        }
-        hop::wgmma_commit();
-        hop::wgmma_wait<0>();
-        hop::mbar_arrive(&empty[s]);  // stage s is read
-        hop::fence_regs(dqa);
-        // the tile to dQ buffer it % 2 once the writer has read what it
-        // held two steps ago; element (row, col) in box col / 32, 16-byte
-        // chunk (col % 32) / 4 swizzled by row % 8
-        const int buf = it & 1;
-        char* dqs = smem + S::DQT + buf * S::DQ_BYTES;
-        if (it >= 2) hop::bar_sync(BAR_DQ_EMPTY + buf, DQ_PARTIES);
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int j = 0; j < NQ / 4; ++j) {
-            const int row = warp * 16 + g + r * 8;
-            const int col = wg * (D / 2) + j * 8 + tq * 2;
-            *reinterpret_cast<float2*>(
-                dqs + (col / 32) * KV_BM * 128 + row * 128 +
-                ((((col % 32) / 4) ^ (row % 8)) << 4) + (col % 4) * 4) =
-                make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
-          }
-        hop::fence_proxy_async();
-        hop::bar_arrive(BAR_DQ_FULL + buf, DQ_PARTIES);
-      } else {
-        hop::wgmma_wait<0>();
-        hop::mbar_arrive(&empty[s]);
       }
+    }
+    if constexpr (DQ && SPLIT) {
+      if (warp == 0 && lane == 0) hop::bulk_wait<0>();  // dQ's last adds
     }
     hop::fence_regs(dk_acc);
     hop::fence_regs(dv_acc);
@@ -1114,7 +1301,7 @@ int launch_kv(const void* q, const void* k, const void* v, const void* dout,
                                 strides + 6, 64, KV_BN);
   if (!e) e = hop_host::tmap_4d(&maps.o, dout, false, B, Hq, Sq, D,
                                 strides + 9, 64, KV_BM);
-  if (DQ && !Sm::SPLIT && !e) {
+  if (DQ && !e) {
     const long long dq_st[3] = {(long long)Hq * Sq * D, (long long)Sq * D, D};
     e = hop_host::tmap_4d(&maps.dq, dq_acc, true, B, Hq, Sq, D, dq_st, 32,
                           KV_BM);

@@ -39,17 +39,18 @@
 // TFLOP/s, a diagonal step half of that. The loop is B2's kv-major loop
 // (csrc/flash_bwd.cuh: TMA producer, wgmma consumers, dq by a writer warp)
 // with the ring additions compiled in; the softcap's 1 - tanh^2 factor
-// costs it 120 bytes of spills at 240 registers a consumer thread (136 at
-// head_dim 256, where a block takes 64 keys, both consumer warpgroups make
-// the same P^T and dS^T and each owns half of dK's and dV's columns, and
-// dq leaves by atomic adds from the registers; ptxas). Measured
-// there (profile_torch_bwd.py, NVIDIA H100 80GB HBM3, 700 W): 6.55 to 6.83
-// ms off-diagonal, about 415 TFLOP/s and 1.2x SDPA's non-causal backward,
+// costs it 120 bytes of spills at 240 registers a consumer thread (at
+// head_dim 256, where a block takes 64 keys, its consumer warpgroups split
+// S^T and dP^T by q rows and dK, dV and dQ by columns, and dq leaves by the
+// same TMA reduce-adds from staged fp32 panels, 0; ptxas). Measured there
+// (profile_torch_bwd.py, NVIDIA H100 80GB HBM3, 700 W): 6.55 to 6.83 ms
+// off-diagonal, about 415 TFLOP/s and 1.2x SDPA's non-causal backward,
 // 3.36 to 3.51 ms diagonal; the mma.sync loop before it 15.40 to 15.67 and
 // 8.47 to 8.82. At head_dim 256, q (1, 16, 8192, 256), kv (1, 8, 8192, 256)
-// with softcap 50 (the same flops; chip_smoke.py phase 25, same card;
-// PERF.md section 6): 15.125 ms off-diagonal, 5.4x the 2.779 ms bound and
-// 1.9x SDPA's non-causal backward without the cap; 7.418 diagonal.
+// with softcap 50 (the same flops; same card, parent and change in turns,
+// device ms; PERF.md section 6): 9.02 off-diagonal, 3.2x the 2.779 ms bound
+// and 1.2x SDPA's non-causal backward without the cap (the design before it
+// 14.73 to 14.75); 4.35 to 4.36 diagonal; without the cap 7.75 to 7.84.
 
 #include "flash_bwd.cuh"
 

@@ -1130,6 +1130,41 @@ def test_cuda_head_dim_256_band_kernels_match_plain_versions(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("softcap, window", [(0.0, (-1, -1)),
+                                             (20.0, (16, 0))])
+def test_cuda_head_dim_256_long_packing_matches_plain_version(softcap,
+                                                              window):
+    """``flash_attn_varlen_func`` at head_dim 256 on 3840 sequences of 64
+    tokens: 3840 q tiles, whose segment classes B1 and B3a/B3b (past
+    ``FUSED_MAX_KV_BYTES``) keep in shared memory beside their tiles,
+    causal alone and with a window and softcap (the BAND ALL build). Out
+    and the gradients of the first, a middle and the last sequence against
+    the plain version on that sequence alone, within B1_OUT_TOL and
+    BWD_REL_TOL of their max|plain|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.api import flash_attn_varlen_func
+
+    n, seq, d = 3840, 64, 256
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, dout = (torch.randn(n * seq, 1, d, generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    kw = dict(causal=True, softcap=softcap, window_size=window)
+    dev = [t.cuda().requires_grad_() for t in (q, k, v)]
+    out = flash_attn_varlen_func(*dev, list(range(0, n * seq + 1, seq)), **kw)
+    got = (out, *torch.autograd.grad(out, dev, dout.cuda()))
+    for i in (0, n // 2, n - 1):
+        rows = slice(seq * i, seq * (i + 1))
+        cpu = [t[rows].float().requires_grad_() for t in (q, k, v)]
+        ref = flash_attn_varlen_func(*cpu, [0, seq], **kw)
+        want = (ref, *torch.autograd.grad(ref, cpu, dout[rows].float()))
+        for name, g, w, tol in zip(("out", "dq", "dk", "dv"), got, want,
+                                   (B1_OUT_TOL,) + (BWD_REL_TOL,) * 3):
+            err = float((g[rows].float().cpu() - w).abs().max())
+            assert err <= tol * float(w.abs().max()), (i, name, err)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", range(len(D256_RING_CASES)))
 def test_cuda_head_dim_256_fused_ring_matches_plain_versions(case):
     """B7 step by step and B8 over a rank's steps at head_dim 256, with
@@ -1147,12 +1182,19 @@ def test_cuda_head_dim_256_fused_ring_matches_plain_versions(case):
 def test_cuda_timed_and_trace_timing():
     """``utils.timing.timed`` and ``utils.trace_timing`` on a chain of
     matrix products on the card: a positive per-call time, device time
-    read from the profiler's trace, busy time at most the summed time."""
+    read from the profiler's trace, busy time at most the summed time of
+    the same trace's events (two traces of the chain differ by their
+    noise: busy time read from one against summed time read from another
+    failed by 2e-8 s), and, in one trace, busy time between its longest
+    event and the span from its first event's start to its last's end."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    import shutil
+
     from ring_flash_attn_tpu_torch.utils.timing import timed
     from ring_flash_attn_tpu_torch.utils.trace_timing import (
-        trace_device_busy, trace_device_time)
+        _device_events, _traced, parse_device_busy, trace_device_busy,
+        trace_device_time)
 
     x0 = torch.randn(1024, 1024, device="cuda") / 32
 
@@ -1161,8 +1203,20 @@ def test_cuda_timed_and_trace_timing():
 
     assert 0 < timed(step, x0, n=10, n0=2) < 1.0
     dev_s, by_name = trace_device_time(step, x0, n_iters=4)
-    busy_s, _ = trace_device_busy(step, x0, n_iters=4)
-    assert dev_s > 0 and by_name and 0 < busy_s <= dev_s * (1 + 1e-6)
+    assert dev_s > 0 and by_name
+    busy_s, busy_by_name = trace_device_busy(step, x0, n_iters=4)
+    summed_s = sum(busy_by_name.values())
+    assert 0 < busy_s <= summed_s * (1 + 1e-6)
+    logdir = _traced(step, x0, 4)
+    try:
+        busy_us = parse_device_busy(logdir) * 1e6
+        events = list(_device_events(logdir))
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    assert len({ev[2] for ev in events}) == 1
+    longest_us = max(end - start for *_, start, end in events)
+    span_us = max(ev[4] for ev in events) - min(ev[3] for ev in events)
+    assert longest_us * (1 - 1e-6) <= busy_us <= span_us * (1 + 1e-6)
 
 
 @pytest.mark.cuda
