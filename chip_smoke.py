@@ -6650,12 +6650,12 @@ def phase_utils_entry(torch):
 # q heads and one kv head of 256
 GEMMA_ATTN = {"Gemma-7B": (16, 16), "Gemma-2B": (8, 1)}
 GEMMA_HEAD_DIM = 256
-# head_dim 256 at its tiles' edges (B1 128 q rows x 64 keys, B3a 64 q rows
-# x 64 keys, B2 and B3b 64 keys a block x 64 q rows a step), held here
-# (phase 23) and in tests/test_torch_cuda.py: (B, Hq, Hkv, Sq, Skv, kind,
-# arg) with kind "mask" (arg: (causal, offset)) or a SEG_EDGE_CASES kind
-# (arg: cu); Sq and Skv at 1, 63 to 65, 127 to 129, 257, dead rows and
-# GQA groups 1 to 8
+# head_dim 256 at its tiles' edges (B1 and B3a 128 q rows x 64 keys, B2
+# and B3b 64 keys a block x 64 q rows a step), held here (phase 23) and in
+# tests/test_torch_cuda.py: (B, Hq, Hkv, Sq, Skv, kind, arg) with kind
+# "mask" (arg: (causal, offset)) or a SEG_EDGE_CASES kind (arg: cu); Sq and
+# Skv at 1, 63 to 65, 127 to 129, 192, 200, 256, 257, dead rows, a first q
+# tile that sees no key and GQA groups 1 to 8
 D256_EDGE_CASES = [
     (1, 2, 2, 1, 1, "mask", (True, 0)),
     (1, 4, 1, 63, 65, "mask", (True, 2)),
@@ -6670,6 +6670,13 @@ D256_EDGE_CASES = [
     (2, 4, 2, 130, 130, "shuffled", [0, 130]),
     (1, 4, 2, 200, 300, "absent", [0, 70, 300]),
     (1, 8, 2, 129, 257, "idx", [0, 50, 200, 257]),
+    # B3a's 128-row q tile: Sq one below, at and one above it, a first q
+    # tile that sees no key, a segment edge on the tile's
+    (1, 2, 1, 127, 200, "mask", (False, None)),
+    (1, 4, 2, 128, 128, "mask", (True, 0)),
+    (1, 4, 4, 129, 192, "mask", (True, 63)),
+    (1, 4, 2, 256, 128, "mask", (True, -128)),
+    (1, 4, 2, 256, 256, "seg", [0, 127, 128, 256]),
 ]
 
 

@@ -39,10 +39,11 @@ parent. ``--head-dim`` picks the shapes of step 2 (default both);
 
    head_dim 256: Gemma-7B's attention, q and kv (1,16,8192,256) causal,
    B2, B3a and B3b; Gemma-2-9B's, q (1,16,8192,256), kv (1,8,8192,256),
-   B2 and B3b causal without the cap, with softcap 50 (the XFORM build)
-   and with softcap 50 and the window (4096, 0) (the BAND ALL build, the
-   sliding layers), and the segmented builds of B2 and B3b without the
-   cap and with softcap 50 on the five-sequence packing; B8's
+   B2, B3a and B3b causal without the cap, with softcap 50 (the XFORM
+   build) and with softcap 50 and the window (4096, 0) (the BAND ALL
+   build, the sliding layers), and the segmented builds of B2, B3a and
+   B3b without the cap and with softcap 50 on the five-sequence packing;
+   B8's
    off-diagonal and diagonal ring step of 8192 rows over 8192 keys with
    softcap 50 and without. SDPA's backward causal, with the dense band
    mask, with the packing's dense mask, and not causal (beside B8).
@@ -281,7 +282,7 @@ def timings_256(torch, rounds, flush, only=()):
               "Gemma-2 softcap": glob,
               "Gemma-2 window+softcap": glob._replace(window_left=wl)}
     for name, mask in layers.items():
-        fns.update(kv_major(name, q2, k2, v2, dout2, mask))
+        fns.update(kv_major(name, q2, k2, v2, dout2, mask, split_dq=True))
     fns["SDPA bwd Gemma-2 causal"] = sdpa_bwd(q2, k2, v2, dout2,
                                               is_causal=True)
     i = torch.arange(s, device=dev)
@@ -292,7 +293,7 @@ def timings_256(torch, rounds, flush, only=()):
         pairs = band_pairs(s, wl) if "window" in name else causal_pairs
         sdpa = ("SDPA bwd Gemma-2 band mask" if "window" in name
                 else "SDPA bwd Gemma-2 causal")
-        for kern, n in (("B2", 5), ("B3b", 4)):
+        for kern, n in (("B2", 5), ("B3b", 4), ("B3a", 3)):
             flops[f"{kern} {name}"] = n * 2 * hq * d * pairs
             lib[f"{kern} {name}"] = sdpa
     # the segmented builds (SEG, SEG with XFORM) on the reference's
@@ -302,11 +303,11 @@ def timings_256(torch, rounds, flush, only=()):
     packed = {"Gemma-2 varlen": vm,
               "Gemma-2 varlen softcap": vm._replace(softcap=cap)}
     for name, mask in packed.items():
-        fns.update(kv_major(name, q2, k2, v2, dout2, mask))
+        fns.update(kv_major(name, q2, k2, v2, dout2, mask, split_dq=True))
     fns["SDPA bwd Gemma-2 varlen mask"] = sdpa_bwd(q2, k2, v2, dout2,
                                                    attn_mask=dense)
     for name in packed:
-        for kern, n in (("B2", 5), ("B3b", 4)):
+        for kern, n in (("B2", 5), ("B3b", 4), ("B3a", 3)):
             flops[f"{kern} {name}"] = n * 2 * hq * d * varlen_pairs(cu, True)
             lib[f"{kern} {name}"] = "SDPA bwd Gemma-2 varlen mask"
     # B8: one ring step of 8192 rows over 8192 keys at Gemma-2-9B's heads,

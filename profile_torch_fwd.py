@@ -26,7 +26,10 @@ parent.
    instantiation (packed sequences, ``csrc/segments.cuh``) causal on the
    reference's five-sequence packing of 8192 tokens beside SDPA's forward
    with the same dense boolean mask, where the tree has it (a parent
-   without packed sequences times the rest). Each time is the mean of 10 calls
+   without packed sequences times the rest); then B7 at head_dim 256 on
+   Gemma-2-9B's heads, q (1,16,8192,256), kv (1,8,8192,256), one
+   off-diagonal and one diagonal step without the cap and with softcap
+   50, beside SDPA's forward at 256, not causal and causal. Each time is the mean of 10 calls
    between CUDA events, the L2 flushed before each, and the host's time to
    issue one call (20 calls enqueued back to back: the launcher's checks,
    its tensor maps and the launch). Prints TFLOP/s of the loop's 2
@@ -46,8 +49,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    H100_BF16_FLOPS, VARLEN_PACKINGS, has_segments, kernel_ms, log,
-    profile_loop, varlen_mask, varlen_pairs)
+    GEMMA2_ATTN, H100_BF16_FLOPS, VARLEN_PACKINGS, has_segments, kernel_ms,
+    log, profile_loop, varlen_mask, varlen_pairs)
 
 LOOP = ("B1 flash_fwd", "B7 fused_ring_fwd")
 
@@ -127,10 +130,36 @@ def timings(torch, args):
             q, kr, vr, attn_mask=dense)
         flops["B1 varlen causal"] = 2 * 2 * hq * d * varlen_pairs(cu, True)
         lib["B1 varlen causal"] = "SDPA fwd varlen mask"
+    # B7 at head_dim 256 (Gemma-2-9B's 16/8 heads), with and without the
+    # softcap, in rounds of their own after the head_dim 128 kernels
+    hq2, hkv2, cap, d2 = (GEMMA2_ATTN["heads"], GEMMA2_ATTN["kv_heads"],
+                          GEMMA2_ATTN["softcap"], 256)
+    q2, k2, v2 = rnd(1, hq2, s, d2), rnd(1, hkv2, s, d2), rnd(1, hkv2, s, d2)
+    qs2 = fr._prescale(q2, d2 ** -0.5 * fr.LOG2E)
+    wfns = {}
+    for label, c in (("no cap", None), ("softcap", cap)):
+        tk = fr._transforms(q2, True, c, None)
+        st = fr.new_state(qs2)
+        fr.fwd_step(qs2, k2, v2, st, diagonal=True, first=True, last=False,
+                    **tk)
+        for diag in (False, True):
+            name = f"B7 256 {label} {'diagonal' if diag else 'off-diagonal'}"
+            wfns[name] = (lambda diag=diag, tk=tk, st=st: fr.fwd_step(
+                qs2, k2, v2, st, diagonal=diag, first=diag, last=False,
+                **tk))
+            flops[name] = 2 * 2 * hq2 * d2 * pairs[
+                "causal" if diag else "full"]
+            lib[name] = f"SDPA fwd 256 {'causal' if diag else 'non-causal'}"
+    kr2 = k2.repeat_interleave(hq2 // hkv2, dim=1)
+    vr2 = v2.repeat_interleave(hq2 // hkv2, dim=1)
+    wfns["SDPA fwd 256 non-causal"] = lambda: F.scaled_dot_product_attention(
+        q2, kr2, vr2)
+    wfns["SDPA fwd 256 causal"] = lambda: F.scaled_dot_product_attention(
+        q2, kr2, vr2, is_causal=True)
     times = collections.defaultdict(list)
     device = collections.defaultdict(list)
     host = collections.defaultdict(list)
-    for group in (fns, vfns):
+    for group in (fns, vfns, wfns):
         for _ in range(rounds):
             for name, fn in group.items():
                 r = kernel_ms(torch, fn, 10, flush)

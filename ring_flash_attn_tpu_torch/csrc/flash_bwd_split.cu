@@ -54,11 +54,20 @@
 //    its 4 products and faster than SDPA's whole backward; the mma.sync
 //    loop before it 6.07 to 6.50 ms.
 //
-// At head_dim 256 (Gemma; every build) B3a takes 64-row q tiles, which both
-// consumer warpgroups share: each computes S and dP over the whole head dim
-// (done twice) and owns half of dQ's columns, so each makes the same P and
-// dS from the same logits, rows and keys, softcap, ALiBi, window and
-// dropout bits included; B3b is the kv-major loop's 64-key build
+// At head_dim 256 (Gemma; every build) B3a keeps the 128-row q tile, each
+// consumer warpgroup its own 64 rows: S and dP are made once a tile, and
+// each warpgroup holds all 256 columns of its rows' dQ (128 fp32 a thread,
+// as B1 at 256 holds O), added as two 128-column products a 16-key step.
+// Q and dout (128 KB) leave room for two stages of K but one of V (224 KB
+// in all), so a tile issues S on K alone, waits for the previous tile's dQ,
+// then issues dP once V has come: V's next load runs under dS, dQ and the
+// next S (with SEG and XFORM, once P is made: see LATE_DP). The classes of
+// SEG then fit 7968 kv tiles (509,952 keys). Measured at Gemma-7B's q, kv
+// (1, 16, 8192, 256) causal (profile_torch_bwd.py, NVIDIA H100 80GB HBM3,
+// 700 W, in turns): 1.18 to 1.19 ms, about 650 TFLOP/s of its 3 products;
+// the 64-row tile both warpgroups shared, each making the same S and dP,
+// 2.29 to 2.37 (its duplicated products cost 0.51 ms and its K/V feed 0.40
+// by ablation). B3b is the kv-major loop's 64-key build
 // (csrc/flash_bwd.cuh).
 //
 // Packed sequences (csrc/segments.cuh) are compiled apart (SEG): B3a walks
@@ -91,33 +100,32 @@ namespace {
 using rfa_bwd::bf16;
 using rfa_bwd::LOG2E;
 
-// q rows per block: 128, 64 per consumer warpgroup; at head_dim 256, 64,
-// which both consumer warpgroups share, each owning half of dQ's columns
-// (Q, dout and two stages of K and V tiles then take 192 KB of the 227 a
-// block has, and dQ 64 fp32 a thread)
-template <int D>
-constexpr int dq_rows = D > 128 ? 64 : 128;
+constexpr int BM = 128;  // q rows per block, 64 per consumer warpgroup
 constexpr int BN = 64;   // keys per tile
 constexpr int CONSUMERS = 256;  // warpgroups 0 and 1
 constexpr int NTHREADS = CONSUMERS + 128;  // + the producer warpgroup
-constexpr int STAGES = 2;
+constexpr int STAGES = 2;  // of K, and of V below head_dim 256
+// stages of V: one at head_dim 256, where Q and dout take 128 KB
+template <int D>
+constexpr int v_stages = D > 128 ? 1 : STAGES;
 
 // Byte offsets from a 1024-aligned base; bf16 tiles in 128B-swizzled panels
 // of 64 columns.
 template <int D>
 struct DqSmem {
-  static constexpr int BM = dq_rows<D>;
+  static constexpr int V_ST = v_stages<D>;
   static constexpr int PANEL_Q = BM * 128;  // a 64-column panel of Q or dout
   static constexpr int PANEL_KV = BN * 128;  // of a K or V tile
   static constexpr int TILE_KV = BN * D * 2;
   static constexpr int Q = 0;
   static constexpr int DO = Q + BM * D * 2;
-  static constexpr int KV = DO + BM * D * 2;  // stage s: K at KV + 2 s
-                                              // TILE_KV, then V
-  static constexpr int BAR = KV + STAGES * 2 * TILE_KV;
-  // mbarriers: q, full_k[STAGES], full_v[STAGES], empty_k[STAGES],
-  // empty_v[STAGES]
-  static constexpr int BYTES = BAR + (1 + 4 * STAGES) * 8 + 1024;
+  // stage s: K at KV + 2 s TILE_KV, then V; with one V stage, K at KV + s
+  // TILE_KV and V after both
+  static constexpr int KV = DO + BM * D * 2;
+  static constexpr int BAR = KV + (STAGES + V_ST) * TILE_KV;
+  // mbarriers: q, full_k[STAGES], full_v[V_ST], empty_k[STAGES],
+  // empty_v[V_ST]
+  static constexpr int BYTES = BAR + (1 + 2 * STAGES + 2 * V_ST) * 8 + 1024;
 };
 
 // TMA maps of q and dout (boxes of 64 columns by BM rows) and of k and v
@@ -151,12 +159,12 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
               const rfa_xform_args xf, const rfa_band_args band) {
   static_assert(!BAND || XFORM, "BAND comes with XFORM");
   using S = DqSmem<D>;
-  constexpr int BM = dq_rows<D>;
-  // head_dim 256: both warpgroups take the same 64 rows, warpgroup wg dQ's
-  // columns [wg D / 2, (wg + 1) D / 2)
-  constexpr bool SPLIT = D > 128;
-  // fp32 of a 64 x D (SPLIT: 64 x D / 2) accumulator a thread holds
-  constexpr int NQ = SPLIT ? D / 4 : D / 2;
+  // head_dim 256: V in one stage, dP issued apart from S; with segments
+  // and a transform, once P is made (the masked body's P beside dP's
+  // accumulator and dQ's spilled past 240 registers)
+  constexpr bool V1 = S::V_ST == 1;
+  constexpr bool LATE_DP = V1 && SEG && XFORM;
+  constexpr int NQ = D / 2;  // fp32 of a 64 x D accumulator a thread holds
   extern __shared__ __align__(16) char smem_raw[];
   char* smem =
       smem_raw + ((1024 - (rfa::smem_u32(smem_raw) & 1023)) & 1023);
@@ -204,18 +212,22 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + S::BAR);
   uint64_t* full_k = q_bar + 1;
   uint64_t* full_v = full_k + STAGES;
-  uint64_t* empty_k = full_v + STAGES;
+  uint64_t* empty_k = full_v + S::V_ST;
   uint64_t* empty_v = empty_k + STAGES;
-  auto ks = [&](int s) { return smem + S::KV + s * 2 * S::TILE_KV; };
-  auto vs = [&](int s) { return ks(s) + S::TILE_KV; };
+  auto ks = [&](int s) {
+    return smem + S::KV + s * (V1 ? 1 : 2) * S::TILE_KV;
+  };
+  auto vs = [&](int s) {
+    return V1 ? smem + S::KV + STAGES * S::TILE_KV : ks(s) + S::TILE_KV;
+  };
 
   if (threadIdx.x == 0) {
     hop::mbar_init(q_bar, 1);
     for (int s = 0; s < STAGES; ++s) {
       hop::mbar_init(&full_k[s], 1);
-      hop::mbar_init(&full_v[s], 1);
+      if (s < S::V_ST) hop::mbar_init(&full_v[s], 1);
       hop::mbar_init(&empty_k[s], CONSUMERS);
-      hop::mbar_init(&empty_v[s], CONSUMERS);
+      if (s < S::V_ST) hop::mbar_init(&empty_v[s], CONSUMERS);
     }
     hop::mbar_fence_init();
   }
@@ -269,10 +281,12 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
         for (int p = 0; p < D / 64; ++p)
           hop::tma_load_4d(ks(s) + p * S::PANEL_KV, &maps.k, &full_k[s],
                            64 * p, kt * BN, hk, b);
-        hop::mbar_wait(&empty_v[s], parity);
-        hop::mbar_arrive_tx(&full_v[s], BN * D * 2);
+        const int sv = V1 ? 0 : s;  // V's stage and its parity
+        const uint32_t pv = V1 ? (j & 1) ^ 1 : parity;
+        hop::mbar_wait(&empty_v[sv], pv);
+        hop::mbar_arrive_tx(&full_v[sv], BN * D * 2);
         for (int p = 0; p < D / 64; ++p)
-          hop::tma_load_4d(vs(s) + p * S::PANEL_KV, &maps.v, &full_v[s],
+          hop::tma_load_4d(vs(sv) + p * S::PANEL_KV, &maps.v, &full_v[sv],
                            64 * p, kt * BN, hk, b);
         if constexpr (SEG) t = next_live(t + 1);
       }
@@ -286,13 +300,13 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
   const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int mw = m0 + (SPLIT ? 0 : 64 * wg);
+  const int mw = m0 + 64 * wg;
   // accumulator element i of S or dP (64 rows x 64 keys) or dQ (64 rows x
   // D) is row r_lo + 8 ((i % 4) / 2) and column 8 (i / 4) + 2 tq + i % 2
   const int r_lo = mw + 16 * warp + g;
   // this warpgroup's rows of a panel
-  const char* qa = qs + (SPLIT ? 0 : wg * 64 * 128);
-  const char* doa = dos + (SPLIT ? 0 : wg * 64 * 128);
+  const char* qa = qs + wg * 64 * 128;
+  const char* doa = dos + wg * 64 * 128;
   const float scale_log2 = scale * LOG2E;
   // XFORM: this head's ALiBi slope and the cap's reciprocal (base 2)
   float slope = 0.f, inv_cap2 = 0.f;
@@ -352,7 +366,8 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
 
     // tile j: issue S and dP; P while dP runs; dS; issue dQ += dS K and go
     // on to tile j + 1 without waiting for it: the wait for tile j + 1's S
-    // (committed after it) covers it, and K of tile j is freed there
+    // (committed after it) covers it, and K of tile j is freed there. With
+    // one V stage, dP is issued after that wait, once V has come.
     uint32_t da[4][4];
     int t = k_lo;  // SEG: the live kv tile of step j
     if constexpr (SEG) t = next_live(t_lo);
@@ -382,17 +397,37 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
         }
       }
       float sc[32], dp[32];
+      auto issue_dp = [&]() {  // one V stage: dP once V has come
+        hop::mbar_wait(&full_v[0], j & 1);
+        hop::wgmma_fence();
+        dq_scores<D>(dp, doa, vs(0));
+        hop::wgmma_commit();
+      };
       hop::mbar_wait(&full_k[s], ph);
-      hop::mbar_wait(&full_v[s], ph);
-      hop::wgmma_fence();
-      dq_scores<D>(sc, qa, ks(s));
-      hop::wgmma_commit();
-      dq_scores<D>(dp, doa, vs(s));
-      hop::wgmma_commit();
-      hop::wgmma_wait<1>();
-      hop::fence_regs(sc);
-      hop::fence_regs(dqa);
-      if (j > 0) hop::mbar_arrive(&empty_k[(j - 1) % STAGES]);
+      if constexpr (V1) {
+        hop::wgmma_fence();
+        dq_scores<D>(sc, qa, ks(s));
+        hop::wgmma_commit();
+        hop::wgmma_wait<LATE_DP ? 0 : 1>();  // tile j - 1's dQ (and S)
+        hop::fence_regs(dqa);
+        if (j > 0) hop::mbar_arrive(&empty_k[(j - 1) % STAGES]);
+        if constexpr (!LATE_DP) {
+          issue_dp();
+          hop::wgmma_wait<1>();
+        }
+        hop::fence_regs(sc);
+      } else {
+        hop::mbar_wait(&full_v[s], ph);
+        hop::wgmma_fence();
+        dq_scores<D>(sc, qa, ks(s));
+        hop::wgmma_commit();
+        dq_scores<D>(dp, doa, vs(s));
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();
+        hop::fence_regs(sc);
+        hop::fence_regs(dqa);
+        if (j > 0) hop::mbar_arrive(&empty_k[(j - 1) % STAGES]);
+      }
 
       // XFORM: logit i in base 2 through softcap and ALiBi (one formula
       // for every tile it applies to: an extra branch for the explicit
@@ -601,9 +636,10 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
       }
 
       // dS = P (dP - delta) * scale, in place of dP
+      if constexpr (LATE_DP) issue_dp();
       hop::wgmma_wait<0>();
       hop::fence_regs(dp);
-      hop::mbar_arrive(&empty_v[s]);  // V of stage s is read
+      hop::mbar_arrive(&empty_v[V1 ? 0 : s]);  // V of this tile is read
       if (BAND == rfa_band::ALL && band.thr) {
         // dropout: dP masked by the keep bits and scaled by 1 / (1 - p)
         const float ik = band.inv_keep;
@@ -625,13 +661,15 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
 #pragma unroll
       for (int kc = 0; kc < BN / 16; ++kc) {
         const uint64_t db = hop::desc_sw128(ks(s) + kc * 2048, S::PANEL_KV);
-        if constexpr (SPLIT)  // the warpgroup's two panels of K
-          hop::wgmma_rs_n128<1>(
-              dqa, da[kc],
-              hop::desc_sw128(ks(s) + wg * 2 * S::PANEL_KV + kc * 2048,
-                              S::PANEL_KV),
-              1);
-        else if constexpr (D == 128)
+        if constexpr (D == 256) {  // dQ's halves, two panels of K each
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            hop::wgmma_rs_n128<1>(
+                *reinterpret_cast<float(*)[64]>(dqa + 64 * half), da[kc],
+                hop::desc_sw128(ks(s) + 2 * half * S::PANEL_KV + kc * 2048,
+                                S::PANEL_KV),
+                1);
+        } else if constexpr (D == 128)
           hop::wgmma_rs_n128<1>(dqa, da[kc], db, 1);
         else
           hop::wgmma_rs_n64<1>(dqa, da[kc], db, 1);
@@ -651,7 +689,7 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
     const long long orow = ((long long)(b * Hq + h) * Sq + row) * D;
 #pragma unroll
     for (int i = 0; i < NQ / 4; ++i) {
-      const int col = (SPLIT ? wg * (D / 2) : 0) + i * 8 + tq * 2;
+      const int col = i * 8 + tq * 2;
       const float x0 = dqa[4 * i + 2 * r], x1 = dqa[4 * i + 2 * r + 1];
       if (dq_bf16) {
         *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dq) + orow + col) =
@@ -675,7 +713,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const rfa_xform_args& xf = rfa_xform_args{},
               const rfa_band_args& band = rfa_band_args{}) {
   auto kern = bwd_dq_kernel<D, SEG, XFORM, BAND>;
-  constexpr int BM = dq_rows<D>;
   // SEG: the kv tiles' classes past the barriers
   const int bytes =
       DqSmem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
@@ -745,8 +782,7 @@ extern "C" int rfa_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // B3a and B3b on packed sequences (csrc/segments.cuh), compiled apart:
 // arguments as above with the segment ids, positions and tile bounds of
 // `seg` (B3a's at 128 q rows and 64 keys a tile, B3b's at 64 q rows a step
-// and 128 keys a block; at head_dim 256, 64 q rows a tile and 64 keys a
-// block). `causal` is the causal mask by index; a mask
+// and 128 keys a block; at head_dim 256, 64 keys a block). `causal` is the causal mask by index; a mask
 // causal by positions passes causal = 0 and seg->q_pos.
 extern "C" int rfa_flash_bwd_dq_seg(const void* q, const void* k,
                                     const void* v, const void* dout,

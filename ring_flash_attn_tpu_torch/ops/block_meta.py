@@ -185,6 +185,25 @@ def has_band(mask: MaskArgs):
     return mask.has_window or bool(mask.dropout_p)
 
 
+def band_all(mask: MaskArgs):
+    """True when a BAND mask takes the kernels' ALL build (dropout,
+    softcap or ALiBi beside the window), not the build of a window alone;
+    the C entry points pick it by the same test."""
+    return has_band(mask) and (bool(mask.dropout_p) or has_xform(mask))
+
+
+# a block's shared memory on the H100 (csrc/segments.cuh::MAX_SMEM)
+MAX_SMEM = 232448
+
+
+def max_class_tiles(smem_bytes):
+    """The most tiles whose segment classes (two bits a tile, in 4-byte
+    words: ``csrc/segments.cuh::class_bytes``) fit in shared memory beside
+    a kernel's own ``smem_bytes`` (its tiles, barriers and 1024-byte
+    alignment pad)."""
+    return max(0, MAX_SMEM - smem_bytes) // 4 * 16
+
+
 def index_causal(mask: MaskArgs):
     """The kernels' ``causal`` flag: causal by index (at the mask's
     offset); a mask causal by positions passes 0 and its positions."""

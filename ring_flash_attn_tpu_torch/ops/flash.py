@@ -21,7 +21,7 @@ Layout is (B, H, S, D).
 import torch
 
 from ..config import use_kernel
-from .flash_bwd_cuda import flash_bwd_cuda, fused_bwd_supported
+from .flash_bwd_cuda import flash_bwd_cuda, fused_bwd_takes
 from .flash_bwd_split_cuda import flash_bwd_split_cuda
 from .flash_fwd_cuda import flash_fwd_cuda, tma_layout_error
 from .mask import MaskArgs
@@ -54,7 +54,9 @@ def block_bwd(dout, q, k, v, lse, delta, scale, mask: MaskArgs, backend=None,
 
     On the card, ``fused=None`` picks the fused kernel B2 while
     ``fused_bwd_supported(Skv, D)`` holds (the JAX package's selector, same
-    limit) and the split kernels B3a/B3b past it; ``fused=False`` asks for
+    limit) and a segmented mask's classes fit B2's shared memory
+    (``fused_bwd_takes``), and the split kernels B3a/B3b past either;
+    ``fused=False`` asks for
     B3a/B3b, which are bitwise reproducible where B2's dq, summed by
     reduce-adds in a varying order, is not.
     """
@@ -62,7 +64,8 @@ def block_bwd(dout, q, k, v, lse, delta, scale, mask: MaskArgs, backend=None,
         raise ValueError("delta=None requires the forward out")
     if use_kernel(q, backend):
         if fused is None:
-            fused = fused_bwd_supported(k.shape[2], q.shape[3])
+            fused = fused_bwd_takes(mask, q.shape[2], k.shape[2],
+                                    q.shape[3])
         bwd = flash_bwd_cuda if fused else flash_bwd_split_cuda
         return bwd(dout, q, k, v, lse, delta, scale, mask, out=out,
                    dq_dtype=dq_dtype, dkv_dtype=dkv_dtype)

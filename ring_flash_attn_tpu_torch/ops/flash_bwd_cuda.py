@@ -9,11 +9,12 @@ their design answers that.
 
 This module also holds what B2 and B3a/B3b share: the operand checks, the
 delta pre-pass launcher and the selector between them,
-``fused_bwd_supported``. The kv-major loop of B2, B3b and B8 reads q, k, v
-and dout through TMA tensor maps, whose terms ``tma_layout_error``
-(``flash_fwd_cuda``) states. A mask with segment ids, or with explicit
-positions that reach the kernels (causal on them, or ALiBi), goes to the
-kernels' segmented instantiations (``csrc/segments.cuh``) with the tile
+``fused_bwd_takes``: ``fused_bwd_supported``, and B2's room for the
+segment classes of a long packing. The kv-major loop of B2, B3b and B8
+reads q, k, v and dout through TMA tensor maps, whose terms
+``tma_layout_error`` (``flash_fwd_cuda``) states. A mask with segment
+ids, or with explicit positions that reach the kernels (causal on them, or
+ALiBi), goes to the kernels' segmented instantiations (``csrc/segments.cuh``) with the tile
 bounds of ``ops/block_meta.py``; a mask with softcap or ALiBi to their
 XFORM instantiations (``csrc/xform.cuh``), a mask with a window or
 dropout to their BAND ones (``csrc/band.cuh``). Each launcher counts
@@ -26,7 +27,8 @@ import ctypes
 import torch
 
 from . import _build
-from .block_meta import SegArgs, index_causal, launch_masked
+from .block_meta import (SegArgs, band_all, index_causal, launch_masked,
+                         max_class_tiles, segmented)
 from .flash_fwd_cuda import (BAND_TAIL, XFORM_TAIL, _check_operand,
                              check_qkv, count_launch,
                              kernel_offset)
@@ -64,6 +66,32 @@ def kv_major_tiles(d):
 def fused_bwd_supported(skv, d):
     """True when the fused backward (B2) takes Skv keys of head_dim d."""
     return 2 * skv * d * 4 <= FUSED_MAX_KV_BYTES
+
+
+def fused_bwd_seg_max_q_tiles(d, mask: MaskArgs):
+    """The most q tiles (of 64 rows) whose segment classes B2's segmented
+    builds hold at head_dim d in the build the mask picks: 1824 (116,736
+    rows) at 256 in the ALL build, 3872 in the others. The bytes before the
+    classes are ``csrc/flash_bwd.cuh::KvSmem``'s with dQ."""
+    bm, bn = kv_major_tiles(d)
+    split = d > 128  # Q in two stages, dout in one, P^T beside dS^T
+    tiles = 2 * bn * d * 2 + (3 if split else 4) * bm * d * 2
+    tiles += (4 if split else 2) * bn * bm * 2  # dS^T (and P^T), twice
+    tiles += 2 * bm * (64 if split else d) * 4  # two fp32 dQ tiles or panels
+    rows = 2 * (3 if band_all(mask) else 2) * bm * 4  # ALL: a third array
+    barriers = (5 + (2 if split else 0)) * 8
+    return max_class_tiles(tiles + rows + barriers + 1024)
+
+
+def fused_bwd_takes(mask: MaskArgs, sq, skv, d):
+    """The selector of ``ops/flash.py::block_bwd``: True when B2 takes the
+    call, ``fused_bwd_supported`` and, for a segmented mask, the classes
+    of its Sq rows' q tiles within B2's shared memory. The split kernels
+    B3a/B3b compute the same function past either limit."""
+    if not fused_bwd_supported(skv, d):
+        return False
+    return (not segmented(mask)
+            or -(-sq // 64) <= fused_bwd_seg_max_q_tiles(d, mask))
 
 
 def _lib():
@@ -172,6 +200,13 @@ def flash_bwd_cuda(dout, q, k, v, lse, delta, scale, mask: MaskArgs,
             delta = bwd_delta(dout, out)
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
+        n_q, n_max = -(-sq // 64), fused_bwd_seg_max_q_tiles(d, mask)
+        if segmented(mask) and n_q > n_max:
+            raise ValueError(
+                f"flash_bwd: the segmented build at head_dim {d} holds the "
+                f"classes of at most {n_max} q tiles of 64 rows in shared "
+                f"memory, Sq = {sq} needs {n_q}: the split kernels "
+                "(flash_bwd_split_cuda) take it")
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,

@@ -218,20 +218,117 @@ def test_cuda_paged_decode_split_edges(case):
 
 
 @pytest.mark.cuda
-def test_cuda_split_bwd_is_bitwise_reproducible():
+@pytest.mark.parametrize("build", ["mask-free", "seg", "xform", "all"])
+@pytest.mark.parametrize("d", [128, 256])
+def test_cuda_split_bwd_is_bitwise_reproducible(d, build):
+    """B3a's dq and B3b's dk, dv the same bits in two calls, at head_dim
+    128 and 256, in the mask-free, segmented, softcap (XFORM) and window
+    + softcap + dropout (BAND ALL) builds, each launch the build's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
-        flash_bwd_split_cuda)
+        flash_bwd_dq_cuda, flash_bwd_split_cuda)
 
     g = torch.Generator(device="cuda").manual_seed(7)
-    mask = MaskArgs(causal=True)
-    q, k, v, dout, out, lse = _bwd_inputs(g, 1, 8, 2, 512, 512, 128, mask,
-                                          0.088)
-    a = flash_bwd_split_cuda(dout, q, k, v, lse, None, 0.088, mask, out=out)
-    c = flash_bwd_split_cuda(dout, q, k, v, lse, None, 0.088, mask, out=out)
+    seg = (torch.arange(512, device="cuda") // 200).to(torch.int32)
+    mask = {"mask-free": MaskArgs(causal=True),
+            "seg": MaskArgs(causal=True, q_segids=seg, kv_segids=seg),
+            "xform": MaskArgs(causal=True, softcap=5.0),
+            "all": MaskArgs(causal=True, softcap=5.0, window_left=100,
+                            dropout_p=0.1, dropout_seed=3)}[build]
+    scale = d ** -0.5
+    q, k, v, dout, out, lse = _bwd_inputs(g, 1, 8, 2, 512, 512, d, mask,
+                                          scale)
+    counts = (flash_bwd_dq_cuda.xform_launches,
+              flash_bwd_dq_cuda.band_launches)
+    a = flash_bwd_split_cuda(dout, q, k, v, lse, None, scale, mask, out=out)
+    c = flash_bwd_split_cuda(dout, q, k, v, lse, None, scale, mask, out=out)
     for x, y in zip(a, c):
         assert torch.equal(x, y)
+    assert (flash_bwd_dq_cuda.xform_launches - counts[0],
+            flash_bwd_dq_cuda.band_launches - counts[1]) == (
+                2 * (build == "xform"), 2 * (build == "all"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", ["1761", "B2's ceiling", "past it"])
+def test_cuda_long_packing_past_b2_segment_classes(tiles):
+    """A segmented backward at head_dim 256 in the ALL build (softcap and
+    dropout) over 1024 keys, its q rows in 1761 q tiles of 64, in as many
+    as B2's shared memory holds the classes of
+    (``fused_bwd_seg_max_q_tiles``) or in one more: ``block_bwd`` gives
+    the first two to B2 and the last to B3a/B3b, whose launches it
+    counts, and B2's own launcher refuses the last with a ValueError.
+    dq, dk and dv within BWD_REL_TOL of max|plain|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.flash import block_bwd, compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_cuda import (
+        flash_bwd_cuda, fused_bwd_seg_max_q_tiles)
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.naive import naive_block_bwd
+
+    d, skv = 256, 1024
+    kv_seg = (torch.arange(skv, device="cuda") // 256).to(torch.int32)
+    mask = MaskArgs(kv_segids=kv_seg, softcap=20.0, dropout_p=0.1,
+                    dropout_seed=5)
+    most = fused_bwd_seg_max_q_tiles(d, mask)
+    n = {"1761": 1761, "B2's ceiling": most, "past it": most + 1}[tiles]
+    sq = 64 * n
+    q_seg = ((torch.arange(sq, device="cuda") // 64) % 4).to(torch.int32)
+    mask = mask._replace(q_segids=q_seg)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, dout, out, lse = _bwd_inputs(g, 1, 1, 1, sq, skv, d, mask,
+                                          d ** -0.5)
+    delta = compute_delta(dout, out)
+    before = (flash_bwd_cuda.launches, flash_bwd_dq_cuda.launches)
+    got = block_bwd(dout, q, k, v, lse, delta, d ** -0.5, mask)
+    split = n > most
+    assert (flash_bwd_cuda.launches - before[0],
+            flash_bwd_dq_cuda.launches - before[1]) == (int(not split),
+                                                        int(split))
+    if split:
+        with pytest.raises(ValueError, match=f"at most {most} q tiles"):
+            flash_bwd_cuda(dout, q, k, v, lse, delta, d ** -0.5, mask)
+    ref = naive_block_bwd(dout, q, k, v, lse, delta, d ** -0.5, mask)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_err(a, r) <= BWD_REL_TOL, (name, _rel_err(a, r))
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_256_dq_at_its_segment_class_ceiling():
+    """B3a's segmented build at head_dim 256 over as many kv tiles as its
+    shared memory holds the classes of (``dq_seg_max_kv_tiles``: 7968,
+    509,952 keys; the build before the 128-row q tiles held ~139k), one
+    q tile's segment over all but the last 512 keys, the other's over
+    those: dq within BWD_REL_TOL of max|plain|; one tile more raises a
+    ValueError that names the ceiling, not a launch error."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        dq_seg_max_kv_tiles, flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.naive import naive_block_bwd
+
+    d, sq = 256, 256
+    most = dq_seg_max_kv_tiles(d)
+    assert most == 7968
+    skv = 64 * most
+    q_seg = (torch.arange(sq, device="cuda") >= 128).to(torch.int32)
+    kv_seg = (torch.arange(skv, device="cuda") >= skv - 512).to(torch.int32)
+    mask = MaskArgs(q_segids=q_seg, kv_segids=kv_seg)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v, dout, out, lse = _bwd_inputs(g, 1, 2, 1, sq, skv, d, mask,
+                                          d ** -0.5)
+    delta = compute_delta(dout, out)
+    dq = flash_bwd_dq_cuda(dout, q, k, v, lse, delta, d ** -0.5, mask)
+    ref = naive_block_bwd(dout, q, k, v, lse, delta, d ** -0.5, mask)[0]
+    assert _rel_err(dq, ref) <= BWD_REL_TOL
+    more = torch.cat([k, k[:, :, :64]], dim=2)
+    longer = mask._replace(kv_segids=torch.cat([kv_seg, kv_seg[-64:]]))
+    with pytest.raises(ValueError, match=f"at most {most} kv tiles"):
+        flash_bwd_dq_cuda(dout, q, more, more, lse, delta, d ** -0.5, longer)
 
 
 @pytest.mark.cuda

@@ -247,8 +247,9 @@ def recorded(monkeypatch, cpu_operands):
 def test_block_kernels_take_head_dim_256(recorded, cpu_operands):
     """B1, B2, B3a and B3b take 64, 128 and 256, and at 256 their tiles
     are the head_dim 256 builds': B1 128 q rows x 64 keys, B2/B3b 64 keys
-    a block x 64 q rows a step, B3a 64 x 64; the mask-free and segmented
-    masks reach the mask-free and segmented entry points at 256."""
+    a block x 64 q rows a step, B3a 128 q rows x 64 keys, as at every
+    head_dim; the mask-free and segmented masks reach the mask-free and
+    segmented entry points at 256."""
     for d in (64, 128, 256):
         assert ffc.check_qkv(*cpu_operands(d))[-1] == d
     seg = torch.zeros(8, dtype=torch.int32)
@@ -259,12 +260,40 @@ def test_block_kernels_take_head_dim_256(recorded, cpu_operands):
         assert recorded(256, mask) == [
             ("rfa_flash_fwd" + tail, 256, (128, 64)),
             ("rfa_flash_bwd" + tail, 256, (64, 64)),
-            ("rfa_flash_bwd_dq" + tail, 256, (64, 64)),
+            ("rfa_flash_bwd_dq" + tail, 256, (128, 64)),
             ("rfa_flash_bwd_dkv" + tail, 256, (64, 64))]
     assert ffc.kv_tile(256) == 64 and ffc.kv_tile(128) == 128
     assert fbc.kv_major_tiles(256) == (64, 64)
     assert fbc.kv_major_tiles(64) == fbc.KV_MAJOR_TILES == (64, 128)
-    assert fbs.dq_tiles(256) == (64, 64) and fbs.dq_tiles(128) == (128, 64)
+    assert fbs.DQ_TILES == (128, 64)
+
+
+def test_segment_class_ceilings_and_the_backward_selector():
+    """The most tiles whose segment classes each segmented backward build
+    keeps beside its tiles in shared memory (the kernels' own layouts,
+    ``KvSmem`` and ``DqSmem``, held on the card at these numbers by
+    tests/test_torch_cuda.py), and ``block_bwd``'s selector: a segmented
+    call whose q tiles' classes B2 cannot hold goes to B3a/B3b, as one
+    past ``FUSED_MAX_KV_BYTES`` does."""
+    seg = torch.zeros(8, dtype=torch.int32)
+    packed = MaskArgs(causal=True, q_segids=seg, kv_segids=seg)
+    gemma2 = packed._replace(softcap=50.0, window_left=4096)  # ALL
+    window = packed._replace(window_left=4096)  # the WINDOW build
+    assert fbc.fused_bwd_seg_max_q_tiles(256, gemma2) == 1824
+    assert fbc.fused_bwd_seg_max_q_tiles(256, packed) == 3872
+    assert fbc.fused_bwd_seg_max_q_tiles(256, window) == 3872
+    assert fbc.fused_bwd_seg_max_q_tiles(128, gemma2) == 1888
+    assert fbc.fused_bwd_seg_max_q_tiles(128, packed) == 3936
+    assert fbs.dq_seg_max_kv_tiles(256) == 7968
+    assert fbs.dq_seg_max_kv_tiles(128) == 401120
+    for mask, n in ((gemma2, 1824), (packed, 3872)):
+        assert fbc.fused_bwd_takes(mask, 64 * n, 16384, 256)
+        assert not fbc.fused_bwd_takes(mask, 64 * n + 1, 16384, 256)
+        assert not fbc.fused_bwd_takes(mask, 64, 16385, 256)
+    # without segments only Skv decides, as in the JAX package
+    assert fbc.fused_bwd_takes(MaskArgs(causal=True), 2**20, 16384, 256)
+    assert not fbc.fused_bwd_takes(MaskArgs(causal=True), 64, 16385, 256)
+    assert fbc.fused_bwd_takes(MaskArgs(), 2**20, 32768, 128)
 
 
 @pytest.mark.parametrize("extra", [
@@ -282,7 +311,7 @@ def test_head_dim_256_transforms_raise_f4b(recorded, extra):
     assert recorded(D, mask) == [
         ("rfa_flash_fwd" + tail, D, (128, 64)),
         ("rfa_flash_bwd" + tail, D, (64, 64)),
-        ("rfa_flash_bwd_dq" + tail, D, (64, 64)),
+        ("rfa_flash_bwd_dq" + tail, D, (128, 64)),
         ("rfa_flash_bwd_dkv" + tail, D, (64, 64))]
     assert [c[1:] for c in recorded(128, mask)] == [
         (128, (128, 128)), (128, (64, 128)), (128, (128, 64)),
