@@ -73,9 +73,9 @@ FAULTS = {
     ],
     "b1_no_cap": [
         ("flash_fwd.cuh",
-         "for (int i = 0; i < 64; ++i) sc[i] = ring.cap2 * "
+         "for (int i = 0; i < NS; ++i) sc[i] = ring.cap2 * "
          "tanh_fast(sc[i] * k2);",
-         "for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;"),
+         "for (int i = 0; i < NS; ++i) sc[i] *= scale_log2;"),
     ],
     "bwd_no_dcap": [
         ("flash_bwd.cuh", "int key, float& dc) {\n"

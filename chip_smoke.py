@@ -257,7 +257,9 @@ Phases, each of which raises on failure:
    softcap/ALiBi and window/dropout builds of B1, B2, B3a/B3b and B7/B8 at
    256 against their plain versions at the tile edges
    (``D256_XFORM_EDGE_CASES``, ``D256_BAND_EDGE_CASES``, ``D256_RING_CASES``:
-   caps of 2 to 5 that bend the logits among them), on the last 512 of
+   caps of 2 to 5 that bend the logits among them), B1 and B7 on logits
+   that grow along the keys (``d256_growth_check``: the forward loop's
+   running max, which may lag by 2^8, catching up), on the last 512 of
    8192 rows, global and sliding, with q and q x 4, and B7/B8 on a rank's
    diagonal step and an earlier shard of 8192 keys (softcap 50 and 5) on
    its last 512 rows; (b) timed at S = 8192
@@ -374,6 +376,10 @@ B7_EDGE_CASES = [
     (8, 2, 257, 255, 128, True, None, True, 3),
     (4, 4, 1, 257, 64, True, 25.0, False, 3),
     (8, 2, 257, 1, 128, False, None, False, 3),
+    # caps of 2 to 5 that bend the N(0, 1) logits at 64 and 128
+    (8, 2, 129, 127, 128, True, 3.0, True, 3),
+    (4, 2, 127, 129, 64, False, 2.0, False, 2),
+    (4, 1, 200, 200, 128, False, 5.0, False, 3),
 ]
 
 # the q-major dq loop's tile edges (B3a: 128 q rows a block, 64 keys a
@@ -6650,8 +6656,9 @@ def phase_utils_entry(torch):
 # q heads and one kv head of 256
 GEMMA_ATTN = {"Gemma-7B": (16, 16), "Gemma-2B": (8, 1)}
 GEMMA_HEAD_DIM = 256
-# head_dim 256 at its tiles' edges (B1 and B3a 128 q rows x 64 keys, B2
-# and B3b 64 keys a block x 64 q rows a step), held here (phase 23) and in
+# head_dim 256 at its tiles' edges (B1 128 q rows x 80 keys, 64 keys with
+# segments; B3a 128 q rows x 64 keys; B2 and B3b 64 keys a block x 64 q
+# rows a step), held here (phase 23) and in
 # tests/test_torch_cuda.py: (B, Hq, Hkv, Sq, Skv, kind, arg) with kind
 # "mask" (arg: (causal, offset)) or a SEG_EDGE_CASES kind (arg: cu); Sq and
 # Skv at 1, 63 to 65, 127 to 129, 192, 200, 256, 257, dead rows, a first q
@@ -6677,6 +6684,18 @@ D256_EDGE_CASES = [
     (1, 4, 4, 129, 192, "mask", (True, 63)),
     (1, 4, 2, 256, 128, "mask", (True, -128)),
     (1, 4, 2, 256, 256, "seg", [0, 127, 128, 256]),
+    # the mask-free build's 80-key tile: Sq and Skv one below, at and one
+    # above 80, 160 and 256 keys; causal diagonals that cross a kv tile
+    # inside a 128-row q tile (keys 80 and 160 in q tiles 0 and 1)
+    (1, 4, 2, 79, 81, "mask", (True, 2)),
+    (1, 2, 1, 80, 80, "mask", (True, 0)),
+    (1, 4, 4, 81, 79, "mask", (False, None)),
+    (1, 4, 2, 159, 161, "mask", (True, 0)),
+    (1, 8, 2, 160, 160, "mask", (True, 0)),
+    (2, 4, 1, 161, 159, "mask", (False, None)),
+    (1, 4, 2, 255, 257, "mask", (True, 2)),
+    (1, 4, 4, 256, 255, "mask", (True, -1)),
+    (1, 16, 8, 257, 256, "mask", (True, 0)),
 ]
 
 
@@ -6702,6 +6721,19 @@ D256_XFORM_EDGE_CASES = [
     (1, 4, 2, 200, 300, 256, "absent", [0, 70, 300], None, True),
     (1, 8, 2, 129, 257, 256, "idx", [0, 50, 200, 257], 4.0, True),
     (1, 8, 2, 257, 255, 256, "strided", None, 5.0, True),
+    # the XFORM build without segments (64-key tiles, O rescaled only when
+    # a row's max outgrows its running one by 2^8) at the edges B7's and
+    # the mask-free B1's 80-key tiles take: Sq and Skv one below, at and
+    # one above 80, 160 and 256; caps of 2 to 5
+    (1, 4, 2, 79, 81, 256, "causal", None, 3.0, True),
+    (1, 8, 2, 80, 80, 256, "full", None, 2.0, False),
+    (1, 4, 1, 81, 79, 256, "causal", None, 5.0, False),
+    (1, 4, 2, 159, 161, 256, "full", None, 4.0, True),
+    (2, 4, 2, 160, 160, 256, "causal", None, 2.0, True),
+    (1, 8, 2, 161, 159, 256, "causal", None, None, True),
+    (1, 4, 2, 255, 257, 256, "full", None, 3.0, False),
+    (1, 16, 8, 256, 256, 256, "causal", None, 5.0, True),
+    (1, 4, 4, 257, 255, 256, "causal", None, 2.0, False),
 ]
 D256_BAND_EDGE_CASES = [
     (1, 4, 2, 257, 257, 256, "causal", None, 0, None, None, None, False),
@@ -6729,7 +6761,7 @@ D256_BAND_EDGE_CASES = [
     (1, 16, 8, 257, 257, 256, "causal", None, 4095, None, None, 50.0,
      False),
 ]
-# B7 and B8 at head_dim 256 (B7: 128 q rows x 64 keys a tile; B8: 64 keys a
+# B7 and B8 at head_dim 256 (B7: 128 q rows x 80 keys a tile; B8: 64 keys a
 # block, 64 q rows a step), held here (phase 25) and in
 # tests/test_torch_cuda.py: (Hq, Hkv, Sq, Skv, causal, softcap, ALiBi,
 # steps), the steps of the last rank of a ring of ``steps``
@@ -6743,6 +6775,16 @@ D256_RING_CASES = [
     (16, 8, 257, 257, True, 5.0, False, 3),
     (4, 2, 255, 129, False, None, False, 3),
     (8, 2, 130, 257, True, 2.0, True, 2),
+    # B7's 80-key tile: shards one below, at and one above 80, 160 and 256
+    # keys, rings of 2 and 3 steps (first, middle and last), caps of 2 to 5
+    (4, 2, 79, 81, True, 3.0, False, 3),
+    (8, 2, 80, 80, False, 2.0, True, 3),
+    (4, 1, 81, 79, True, None, True, 2),
+    (4, 2, 159, 161, False, 4.0, False, 2),
+    (8, 4, 160, 160, True, 5.0, True, 3),
+    (4, 4, 161, 159, True, 2.0, False, 3),
+    (16, 8, 256, 256, True, 3.0, True, 3),
+    (4, 2, 255, 257, False, None, False, 3),
 ]
 
 
@@ -6762,6 +6804,69 @@ def d256_ring_case_check(torch, case, seed=0):
     fused_ring_case(torch, rnd, worst, f"D=256 ring {case}", 1, hq, hkv, sq,
                     skv, GEMMA_HEAD_DIM, ring_steps(n, skv, causal),
                     causal=causal, cap=cap, alibi=alibi)
+    return worst
+
+
+def d256_growth_check(torch, seed=0):
+    """The running max of B1's and B7's head_dim 256 builds where it must
+    catch up: the forward loop (``csrc/flash_fwd.cuh``, LAZY) lets a row's
+    running max lag its true max by up to 8 (base 2) and rescales O only
+    past that, which N(0, 1) logits never reach after a row's first tile.
+    Here q and k grow along the sequence (scaled by 1 to 6), so the maxes
+    grow by far more from tile to tile: B1 causal and not, with softcap 50
+    and with ALiBi, and B7 over a ring of 3 steps without and with softcap
+    50 (the state of the first, middle and last step), at Sq = Skv = 1000,
+    against the plain versions (B1_OUT_TOL, RING_OUT_REL_TOL of max|plain|
+    by rows, B1_LSE_TOL). Raises past the limits; returns the worst errors
+    {"B1": [abs, rel, lse], "B7": [rel, lse]}."""
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import naive_block_fwd
+    from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hq, hkv, s, d = 8, 4, 1000, GEMMA_HEAD_DIM
+    scale = d ** -0.5
+
+    def rnd(h, grow=True):
+        x = torch.randn((1, h, s, d), generator=g, device=dev)
+        if grow:
+            x = x * torch.linspace(1.0, 6.0, s, device=dev)[:, None]
+        return x.to(torch.bfloat16)
+
+    q, k, v = rnd(hq), rnd(hkv), rnd(hkv, grow=False)
+    worst = {"B1": [0.0, 0.0, 0.0], "B7": [0.0, 0.0]}
+    for what, mask in (("causal", MaskArgs(causal=True)),
+                       ("not causal", MaskArgs()),
+                       ("softcap 50", MaskArgs(causal=True, softcap=50.0)),
+                       ("ALiBi", MaskArgs(alibi_slopes=alibi_slopes(
+                           torch, hq, dev)))):
+        errs = _varlen_check(f"growing logits, B1 {what}",
+                             flash_fwd_cuda(q, k, v, scale, mask),
+                             naive_block_fwd(q, k, v, scale, mask),
+                             B1_OUT_TOL, B1_LSE_TOL)
+        worst["B1"] = [max(a, b) for a, b in zip(worst["B1"], errs)]
+    qs = fr._prescale(q, scale * fr.LOG2E)
+    for cap in (None, 50.0):
+        kw = fr._transforms(q, True, cap, None)
+        shards = [(rnd(hkv), rnd(hkv, grow=False)) for _ in range(3)]
+        st_k, st_p = fr.new_state(qs), fr.new_state(qs)
+        for i, (step, (k, v)) in enumerate(zip(ring_steps(3, s, True),
+                                               shards)):
+            flags = dict(first=i == 0, last=i == 2, **step, **kw)
+            got = fr.fwd_step(qs, k, v, st_k, **flags)
+            ref = fr.fwd_step(qs, k, v, st_p, backend="plain", **flags)
+            if got is None:
+                got, ref = _finish(torch, *st_k), _finish(torch, *st_p)
+            errs = (_rel_err(got[0].float(), ref[0].float()),
+                    max_err(got[1], ref[1]))
+            log(f"    growing logits, B7 softcap {cap} step {i}: out "
+                f"{errs[0]:.3e} of max|plain|, |lse| err {errs[1]:.3e}")
+            if errs[0] > RING_OUT_REL_TOL or errs[1] > B1_LSE_TOL:
+                raise AssertionError(f"growing logits, B7 softcap {cap} "
+                                     f"step {i}: past the limits")
+            worst["B7"] = [max(a, b) for a, b in zip(worst["B7"], errs)]
     return worst
 
 
@@ -7222,6 +7327,9 @@ def phase_gemma2(torch, flush):
             keep_worst(band_case_check(torch, i, D256_BAND_EDGE_CASES))
         for i, case in enumerate(D256_RING_CASES):
             keep_worst(d256_ring_case_check(torch, case, seed=i))
+        grown = d256_growth_check(torch)
+        log(f"  growing logits (O rescaled past the running max's slack): "
+            f"worst {grown}")
         # B7 and B8 at the path's own shape: a rank's diagonal step and an
         # earlier shard of 8192 keys each, plain on the last 512 q rows (as
         # phase 10's headline case at 128), with the path's cap of 50 and a

@@ -4,11 +4,14 @@
 Run from the root of a checkout:
 
     python3 profile_torch_fwd.py [--root DIR] [--rounds N]
+        [--head-dim {128,256,both}] [--only TEXT]
 
 ``--root`` imports ``ring_flash_attn_tpu_torch`` from another checkout (for
 example the parent commit unpacked beside this one), so that two trees are
 timed by the same code in one machine session: run parent, change, change,
-parent.
+parent. ``--head-dim`` picks the shapes of step 2 (default both); ``--only
+TEXT`` (repeatable) keeps the kernels whose name holds TEXT, beside their
+SDPA yardsticks.
 
 1. Builds the kernels and prints ptxas's registers, spills and shared memory
    of every instantiation of ``csrc/flash_fwd.cuh``'s loop (B1 in
@@ -26,10 +29,15 @@ parent.
    instantiation (packed sequences, ``csrc/segments.cuh``) causal on the
    reference's five-sequence packing of 8192 tokens beside SDPA's forward
    with the same dense boolean mask, where the tree has it (a parent
-   without packed sequences times the rest); then B7 at head_dim 256 on
+   without packed sequences times the rest); B7 one off-diagonal step
+   with softcap 50 (the XFORM build at 128). At head_dim 256: B7 on
    Gemma-2-9B's heads, q (1,16,8192,256), kv (1,8,8192,256), one
    off-diagonal and one diagonal step without the cap and with softcap
-   50, beside SDPA's forward at 256, not causal and causal. Each time is the mean of 10 calls
+   50; B1 at the same heads causal without the cap and with softcap 50
+   (the XFORM build, Gemma 2's global layers) and not causal (the loop
+   B7's off-diagonal step runs, without the state); B1 at Gemma-7B's, q and kv
+   (1,16,8192,256), causal and not; beside SDPA's forward at each shape,
+   not causal and causal. Each time is the mean of 10 calls
    between CUDA events, the L2 flushed before each, and the host's time to
    issue one call (20 calls enqueued back to back: the launcher's checks,
    its tensor maps and the launch). Prints TFLOP/s of the loop's 2
@@ -49,8 +57,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    GEMMA2_ATTN, H100_BF16_FLOPS, VARLEN_PACKINGS, has_segments, kernel_ms,
-    log, profile_loop, varlen_mask, varlen_pairs)
+    GEMMA2_ATTN, GEMMA_ATTN, H100_BF16_FLOPS, VARLEN_PACKINGS, has_segments,
+    kernel_ms, log, profile_loop, varlen_mask, varlen_pairs)
 
 LOOP = ("B1 flash_fwd", "B7 fused_ring_fwd")
 
@@ -75,92 +83,135 @@ def timings(torch, args):
     from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
     from ring_flash_attn_tpu_torch.parallel import fused_ring as fr
 
-    rounds = args.rounds
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     bf16 = torch.bfloat16
-    s, hq, hkv, d = 8192, 32, 8, 128
-    scale = d ** -0.5
+    s = 8192
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    pairs = {"causal": s * (s + 1) // 2, "full": s * s}
+    causal, full = MaskArgs(causal=True), MaskArgs()
+    cap = GEMMA2_ATTN["softcap"]
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
-    q, k, v = rnd(1, hq, s, d), rnd(1, hkv, s, d), rnd(1, hkv, s, d)
-    qs = fr._prescale(q, scale * fr.LOG2E)
-    state = fr.new_state(qs)
-    fr.fwd_step(qs, k, v, state, diagonal=True, first=True, last=False)
-    kr = k.repeat_interleave(hq // hkv, dim=1)
-    vr = v.repeat_interleave(hq // hkv, dim=1)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    causal, full = MaskArgs(causal=True), MaskArgs()
+    def sdpa(q, k, v, **kw):
+        g = q.shape[1] // k.shape[1]
+        kr = k.repeat_interleave(g, dim=1)
+        vr = v.repeat_interleave(g, dim=1)
+        return lambda: F.scaled_dot_product_attention(q, kr, vr, **kw)
 
-    fns = {
-        "B1 causal": lambda: flash_fwd_cuda(q, k, v, scale, causal,
-                                            out_dtype=bf16),
-        "B1 non-causal": lambda: flash_fwd_cuda(q, k, v, scale, full,
+    def b7_steps(prefix, q, k, v, caps, diagonals=(False, True)):
+        """B7's off-diagonal (state read and written) and diagonal first
+        steps, {label: softcap} each, on a state the diagonal step made."""
+        d = q.shape[-1]
+        qs = fr._prescale(q, d ** -0.5 * fr.LOG2E)
+        out = {}
+        for label, c in caps.items():
+            tk = fr._transforms(q, True, c, None)
+            st = fr.new_state(qs)
+            fr.fwd_step(qs, k, v, st, diagonal=True, first=True, last=False,
+                        **tk)
+            for diag in diagonals:
+                name = (f"{prefix}{label}"
+                        f"{'diagonal' if diag else 'off-diagonal'}")
+                out[name] = (lambda diag=diag, tk=tk, st=st: fr.fwd_step(
+                    qs, k, v, st, diagonal=diag, first=diag, last=False,
+                    **tk))
+        return out
+
+    groups, flops, lib = [], {}, {}
+    if args.head_dim in ("128", "both"):
+        hq, hkv, d = 32, 8, 128
+        scale = d ** -0.5
+        q, k, v = rnd(1, hq, s, d), rnd(1, hkv, s, d), rnd(1, hkv, s, d)
+        fns = {
+            "B1 causal": lambda: flash_fwd_cuda(q, k, v, scale, causal,
                                                 out_dtype=bf16),
-        "B7 off-diagonal": lambda: fr.fwd_step(
-            qs, k, v, state, diagonal=False, first=False, last=False),
-        "B7 diagonal": lambda: fr.fwd_step(
-            qs, k, v, state, diagonal=True, first=True, last=False),
-        "SDPA fwd causal": lambda: F.scaled_dot_product_attention(
-            q, kr, vr, is_causal=True),
-        "SDPA fwd non-causal": lambda: F.scaled_dot_product_attention(
-            q, kr, vr),
-    }
-    pairs = {"causal": s * (s + 1) // 2, "full": s * s}
-    flops = {"B1 causal": 2 * 2 * hq * d * pairs["causal"],
-             "B1 non-causal": 2 * 2 * hq * d * pairs["full"],
-             "B7 off-diagonal": 2 * 2 * hq * d * pairs["full"],
-             "B7 diagonal": 2 * 2 * hq * d * pairs["causal"]}
-    lib = {"B1 causal": "SDPA fwd causal",
-           "B1 non-causal": "SDPA fwd non-causal",
-           "B7 off-diagonal": "SDPA fwd non-causal",
-           "B7 diagonal": "SDPA fwd causal"}
-    # the segmented instantiation, in rounds of its own after the others,
-    # so that the mask-free kernels are timed in the same sequence in a
-    # tree with it and in one without
-    vfns = {}
-    if has_segments():
-        cu = VARLEN_PACKINGS[3]
-        vmask, dense = varlen_mask(torch, cu, True, dev)
-        vfns["B1 varlen causal"] = lambda: flash_fwd_cuda(
-            q, k, v, scale, vmask, out_dtype=bf16)
-        vfns["SDPA fwd varlen mask"] = lambda: F.scaled_dot_product_attention(
-            q, kr, vr, attn_mask=dense)
-        flops["B1 varlen causal"] = 2 * 2 * hq * d * varlen_pairs(cu, True)
-        lib["B1 varlen causal"] = "SDPA fwd varlen mask"
-    # B7 at head_dim 256 (Gemma-2-9B's 16/8 heads), with and without the
-    # softcap, in rounds of their own after the head_dim 128 kernels
-    hq2, hkv2, cap, d2 = (GEMMA2_ATTN["heads"], GEMMA2_ATTN["kv_heads"],
-                          GEMMA2_ATTN["softcap"], 256)
-    q2, k2, v2 = rnd(1, hq2, s, d2), rnd(1, hkv2, s, d2), rnd(1, hkv2, s, d2)
-    qs2 = fr._prescale(q2, d2 ** -0.5 * fr.LOG2E)
-    wfns = {}
-    for label, c in (("no cap", None), ("softcap", cap)):
-        tk = fr._transforms(q2, True, c, None)
-        st = fr.new_state(qs2)
-        fr.fwd_step(qs2, k2, v2, st, diagonal=True, first=True, last=False,
-                    **tk)
-        for diag in (False, True):
-            name = f"B7 256 {label} {'diagonal' if diag else 'off-diagonal'}"
-            wfns[name] = (lambda diag=diag, tk=tk, st=st: fr.fwd_step(
-                qs2, k2, v2, st, diagonal=diag, first=diag, last=False,
-                **tk))
-            flops[name] = 2 * 2 * hq2 * d2 * pairs[
-                "causal" if diag else "full"]
-            lib[name] = f"SDPA fwd 256 {'causal' if diag else 'non-causal'}"
-    kr2 = k2.repeat_interleave(hq2 // hkv2, dim=1)
-    vr2 = v2.repeat_interleave(hq2 // hkv2, dim=1)
-    wfns["SDPA fwd 256 non-causal"] = lambda: F.scaled_dot_product_attention(
-        q2, kr2, vr2)
-    wfns["SDPA fwd 256 causal"] = lambda: F.scaled_dot_product_attention(
-        q2, kr2, vr2, is_causal=True)
+            "B1 non-causal": lambda: flash_fwd_cuda(q, k, v, scale, full,
+                                                    out_dtype=bf16),
+            **b7_steps("B7 ", q, k, v, {"": None}),
+            "SDPA fwd causal": sdpa(q, k, v, is_causal=True),
+            "SDPA fwd non-causal": sdpa(q, k, v),
+        }
+        for name, mask in (("B1 causal", "causal"),
+                           ("B1 non-causal", "full"),
+                           ("B7 off-diagonal", "full"),
+                           ("B7 diagonal", "causal")):
+            flops[name] = 2 * 2 * hq * d * pairs[mask]
+            lib[name] = ("SDPA fwd causal" if mask == "causal"
+                         else "SDPA fwd non-causal")
+        groups.append(fns)
+        # the segmented instantiation, in rounds of its own after the
+        # others, so that the mask-free kernels are timed in the same
+        # sequence in a tree with it and in one without
+        vfns = {}
+        if has_segments():
+            cu = VARLEN_PACKINGS[3]
+            vmask, dense = varlen_mask(torch, cu, True, dev)
+            vfns["B1 varlen causal"] = lambda: flash_fwd_cuda(
+                q, k, v, scale, vmask, out_dtype=bf16)
+            vfns["SDPA fwd varlen mask"] = sdpa(q, k, v, attn_mask=dense)
+            flops["B1 varlen causal"] = 2 * 2 * hq * d * varlen_pairs(cu,
+                                                                      True)
+            lib["B1 varlen causal"] = "SDPA fwd varlen mask"
+        # B7's XFORM build at 128 (softcap 50), in rounds of its own
+        xfns = b7_steps("B7 ", q, k, v, {"softcap ": cap}, (False,))
+        flops["B7 softcap off-diagonal"] = 2 * 2 * hq * d * pairs["full"]
+        lib["B7 softcap off-diagonal"] = "SDPA fwd non-causal"
+        groups += [vfns, xfns]
+    if args.head_dim in ("256", "both"):
+        # Gemma-2-9B's 16/8 heads: B7 with and without the softcap, B1
+        # causal with and without it; Gemma-7B's 16/16: B1 causal and not
+        hq, hkv, d = GEMMA2_ATTN["heads"], GEMMA2_ATTN["kv_heads"], 256
+        scale = d ** -0.5
+        q, k, v = rnd(1, hq, s, d), rnd(1, hkv, s, d), rnd(1, hkv, s, d)
+        wfns = b7_steps("B7 256 ", q, k, v,
+                          {"no cap ": None, "softcap ": cap})
+        for name in list(wfns):
+            diag = name.endswith(" diagonal")
+            flops[name] = 2 * 2 * hq * d * pairs["causal" if diag
+                                                 else "full"]
+            lib[name] = ("SDPA fwd 256 causal" if diag
+                         else "SDPA fwd 256 non-causal")
+        wfns["B1 256 Gemma-2 causal"] = lambda: flash_fwd_cuda(
+            q, k, v, scale, causal, out_dtype=bf16)
+        wfns["B1 256 Gemma-2 softcap causal"] = lambda: flash_fwd_cuda(
+            q, k, v, scale, causal._replace(softcap=cap), out_dtype=bf16)
+        wfns["B1 256 Gemma-2 non-causal"] = lambda: flash_fwd_cuda(
+            q, k, v, scale, full, out_dtype=bf16)
+        for name in ("B1 256 Gemma-2 causal",
+                     "B1 256 Gemma-2 softcap causal",
+                     "B1 256 Gemma-2 non-causal"):
+            mask = "full" if name.endswith("non-causal") else "causal"
+            flops[name] = 2 * 2 * hq * d * pairs[mask]
+            lib[name] = ("SDPA fwd 256 non-causal" if mask == "full"
+                         else "SDPA fwd 256 causal")
+        wfns["SDPA fwd 256 non-causal"] = sdpa(q, k, v)
+        wfns["SDPA fwd 256 causal"] = sdpa(q, k, v, is_causal=True)
+        g7 = GEMMA_ATTN["Gemma-7B"][0]
+        q7, k7, v7 = (rnd(1, g7, s, d) for _ in range(3))
+        for label, mask in (("causal", causal), ("non-causal", full)):
+            name = f"B1 256 Gemma-7B {label}"
+            wfns[name] = (lambda mask=mask: flash_fwd_cuda(
+                q7, k7, v7, scale, mask, out_dtype=bf16))
+            flops[name] = 2 * 2 * g7 * d * pairs[
+                "causal" if label == "causal" else "full"]
+            lib[name] = f"SDPA fwd 256 Gemma-7B {label}"
+        wfns["SDPA fwd 256 Gemma-7B causal"] = sdpa(q7, k7, v7,
+                                                    is_causal=True)
+        wfns["SDPA fwd 256 Gemma-7B non-causal"] = sdpa(q7, k7, v7)
+        groups.append(wfns)
+    if args.only:
+        keep = {n for n in flops if any(t in n for t in args.only)}
+        keep |= {lib[n] for n in keep}
+        groups = [{n: fn for n, fn in g.items() if n in keep}
+                  for g in groups]
     times = collections.defaultdict(list)
     device = collections.defaultdict(list)
     host = collections.defaultdict(list)
-    for group in (fns, vfns, wfns):
-        for _ in range(rounds):
+    for group in groups:
+        for _ in range(args.rounds):
             for name, fn in group.items():
                 r = kernel_ms(torch, fn, 10, flush)
                 times[name].append(r["ms"])
@@ -182,6 +233,14 @@ def timings(torch, args):
     return {name: min(ts) for name, ts in times.items()}
 
 
+def add_arguments(ap):
+    ap.add_argument("--head-dim", choices=("128", "256", "both"),
+                    default="both", help="the shapes of the timings")
+    ap.add_argument("--only", action="append", default=[], metavar="TEXT",
+                    help="time only the kernels whose name holds TEXT "
+                    "(repeatable), beside their SDPA yardsticks")
+
+
 if __name__ == "__main__":
     sys.exit(profile_loop("profile_torch_fwd.py", LOOP, "flash_fwd_kernel",
-                          timings))
+                          timings, add_arguments))

@@ -18,7 +18,8 @@
 // TMA producer warpgroup feeding two wgmma consumer warpgroups over
 // 128-row q tiles that overlap their softmax with their products and take
 // turns to issue them; its measured time is in that header and in
-// PERF.md. Head_dim 64, 128 and 256 in every build (256: 64-key tiles).
+// PERF.md. Head_dim 64, 128 and 256 in every build (256: 80-key tiles, or
+// 64 with segments, softcap/ALiBi or a band).
 // The scale stays in fp32 (the Pallas wrapper folds scale * log2 e
 // into bf16 k instead).
 

@@ -15,13 +15,16 @@
 //    consumers own 64 q rows each, the third is a producer (setmaxnreg: 240
 //    registers a consumer thread, 24 a producer thread).
 //  - Loads by TMA from one producer thread: the Q tile once, then 128-key
-//    K and V tiles into a two-stage ring, K and V each under mbarrier
+//    K and V tiles (at head_dim 256 80 keys, 64 in B1's builds with
+//    segments, softcap/ALiBi or a band: kv_tile below) into a two-stage
+//    ring, K and V each under mbarrier
 //    full/empty pairs of their own (a stage's K is free once S is computed,
 //    its V once P V is). 4-D tensor maps over the real strides,
 //    128B-swizzled panels of 64 columns; rows past S read zero.
 //  - Products by wgmma on each consumer warpgroup's 64 rows:
-//      S  = Q K^T  (64 x 128 fp32, both operands from shared memory,
-//                   K-major over the head dim)
+//      S  = Q K^T  (64 x 128 fp32, or 64 x 80 and 64 x 64 at head_dim
+//                   256; both operands from shared memory, K-major over
+//                   the head dim)
 //      O += P V    (P packed to bf16 from the S accumulators as the A
 //                   fragments; V read MN-major)
 //    the online softmax runs in base 2 on the accumulators, scale * log2 e
@@ -36,6 +39,13 @@
 //    other's products. Together they took up to 18% off the serial loop;
 //    the overlap alone moved it by -4 to +7%, and the turns without the
 //    overlap ran 12 to 25% behind both (NVIDIA H100, PERF.md).
+//  - At head_dim 256, where a thread holds O's 128 fp32 and Q is read from
+//    shared memory once for every kv tile: 80-key tiles (224 KB) spread a
+//    tile's fixed cost (barriers, waits, the row max and sum) over 25%
+//    more keys, and O is rescaled only when a row's max outgrows its
+//    running one by 2^8 (LAZY below). O's rescale had been 0.13 ms of B7's
+//    1.70 at Gemma-2-9B's 16/8 heads, the state's traffic 0.03 to 0.05,
+//    the softmax's exponentials 0.045 (ablations, PERF.md).
 //
 // Measured (profile_torch_fwd.py, NVIDIA H100 80GB HBM3, 700 W, in turns
 // with the loops before it) at q (1, 32, 8192, 128), kv (1, 8, 8192, 128)
@@ -43,10 +53,14 @@
 // forward (0.88 to 0.97), against 0.556 ms at the bf16 peak; B7
 // off-diagonal 1.85 to 2.04 ms, diagonal 1.03 to 1.17 (SDPA's non-causal
 // forward 1.61 to 1.73), against 1.112 ms. Every build takes head_dim 64,
-// 128 and 256 (kv_tile below): at 256 B1 with Gemma 2's softcap of 50 took
-// 1.162 ms at q (1, 16, 8192, 256), kv (1, 8, 8192, 256) causal, 2.1x the
-// 0.556 ms bound, and 0.971 with its window (4096, 0) too (chip_smoke.py
-// phase 25, NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6).
+// 128 and 256 (kv_tile below). At 256, device time in turns with the loop
+// before this one: B7's off-diagonal step at q (1, 16, 8192, 256), kv (1,
+// 8, 8192, 256) 1.512 to 1.513 ms (before: 1.734 to 1.740; SDPA's
+// non-causal forward 1.466 to 1.522), with softcap 50 2.035 to 2.061
+// (2.610 to 2.758); B1 causal at q, kv (1, 16, 8192, 256) 0.815 to 0.821
+// (0.888 to 0.896; SDPA 0.898 to 0.956), against 0.556; B1 with softcap 50
+// at the first shape 0.993 to 1.036 (1.116 to 1.239). B1 with the window
+// (4096, 0) and the cap took 0.971 ms (chip_smoke.py phase 25).
 //
 // With RING the block applies softcap and ALiBi to the base-2 logits (XFORM),
 // folds the state (m, l, acc) of the earlier steps into its own in the
@@ -91,17 +105,24 @@ namespace rfa_fwd {
 using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128;  // q rows per block, 64 per consumer warpgroup
-// keys per tile: 128, or 64 at head_dim 256, where Q (64 KB) and two stages
-// of 128-key K and V tiles (256 KB) would pass the 227 KB of a block and
-// the S tile's 64 fp32 beside O's 128 a consumer thread's 240 registers
-template <int D>
-constexpr int kv_tile = D > 128 ? 64 : 128;
+// keys per tile of a build: 128; at head_dim 256, where Q (64 KB) and two
+// stages of 128-key K and V tiles (256 KB) would pass the 227 KB of a block
+// and the S tile's 64 fp32 beside O's 128 a consumer thread's 240
+// registers, 80 (two stages of 80-key tiles: 224 KB; S 40 fp32 and P 20
+// registers), or 64 in B1's builds with segments, a band or softcap/ALiBi:
+// the first two lay their tile classes and band walk out for 64-key tiles,
+// and at 80 keys B1's softcap loop spilled (24 to 56 bytes)
+template <int D, bool RING, bool XFORM, bool SEG, int BAND>
+constexpr int kv_tile =
+    D <= 128 ? 128 : SEG || BAND || (XFORM && !RING) ? 64 : 80;
 constexpr int CONSUMERS = 256;  // warpgroups 0 and 1
 constexpr int NTHREADS = CONSUMERS + 128;  // + the producer warpgroup
 constexpr int STAGES = 2;
 // named barriers beside __syncthreads' 0: warpgroup wg's turn to issue its
 // products is BAR_TURN + wg
 constexpr int BAR_TURN = 1;
+// how far, base 2, a LAZY build's running max may lag a row's true max
+constexpr float MAX_SLACK = 8.f;
 
 // 2^x by the special-function unit alone (exp2f adds a range fix-up for
 // denormal results, which p in [0, 1] can spare: 2 to 7% of the loop)
@@ -127,12 +148,12 @@ struct Ring {
 };
 
 // Byte offsets from a 1024-aligned base; bf16 tiles in 128B-swizzled panels
-// of 64 columns by 128 rows.
-template <int D>
+// of 64 columns by BM (Q) or BN (K, V) rows.
+template <int D, int BN>
 struct Smem {
   static constexpr int PANEL = BM * 128;  // a panel of Q: BM rows of 64 bf16
-  static constexpr int PANEL_KV = kv_tile<D> * 128;  // of a K or V tile
-  static constexpr int TILE = kv_tile<D> * D * 2;    // a K or V tile
+  static constexpr int PANEL_KV = BN * 128;  // of a K or V tile
+  static constexpr int TILE = BN * D * 2;    // a K or V tile
   static constexpr int Q = 0;
   static constexpr int KV = Q + BM * D * 2;  // stage s: K at KV + 2 s TILE,
                                              // then V
@@ -162,10 +183,18 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
                  const rfa_band_args band) {
   static_assert(!(SEG && RING), "a ring step takes no segments");
   static_assert(!BAND || (XFORM && !RING), "BAND comes with XFORM, no ring");
-  using S = Smem<D>;
-  constexpr int BN = kv_tile<D>;
+  constexpr int BN = kv_tile<D, RING, XFORM, SEG, BAND>;
+  using S = Smem<D, BN>;
   constexpr int NO = D / 2;  // fp32 of a 64 x D accumulator a thread holds
   constexpr int NS = BN / 2;  // fp32 of the 64 x BN S tile a thread holds
+  // LAZY (head_dim 256 without segments or a band, where O is 128 fp32 a
+  // thread): a row's p are taken against a running max that may lag its
+  // true max by up to MAX_SLACK (base 2: p < 2^8, as exact in bf16 as below
+  // 1), so that O is rescaled only when some row of the warp outgrows that,
+  // a few tiles a row, and not whenever a max moves (FlashAttention-4's
+  // conditional rescaling). The same softmax: out and lse move by rounding
+  // alone.
+  constexpr bool LAZY = D == 256 && !SEG && !BAND;
   extern __shared__ __align__(16) char smem_raw[];
   char* smem =
       smem_raw + ((1024 - (rfa::smem_u32(smem_raw) & 1023)) & 1023);
@@ -337,6 +366,9 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     }
   }
 
+  // LAZY: whether this warp's last softmax moved its rows' maxes
+  bool rescale = true;
+
   // XFORM, SEG with ALiBi on positions: an unmasked kv tile's first key
   // position and step (its keys sit at kp0 + ksk (col - n0))
   int kp0 = 0, ksk = 0;
@@ -348,6 +380,10 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       const int ko = (kk % 4) * 32;  // 16 columns = 32 bytes into the panel
       if constexpr (BN == 128)
         hop::wgmma_ss_n128<0, 0>(
+            sc, hop::desc_sw128(qa + (kk / 4) * S::PANEL + ko, 16),
+            hop::desc_sw128(ks(s) + (kk / 4) * S::PANEL_KV + ko, 16), kk > 0);
+      else if constexpr (BN == 80)
+        hop::wgmma_ss_n80<0, 0>(
             sc, hop::desc_sw128(qa + (kk / 4) * S::PANEL + ko, 16),
             hop::desc_sw128(ks(s) + (kk / 4) * S::PANEL_KV + ko, 16), kk > 0);
       else
@@ -390,36 +426,21 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
   auto softmax = [&](float (&sc)[NS], int n0, float (&alpha)[2],
                      bool seg_masked, const rfa_seg::Pair& lo,
                      const rfa_seg::Pair& hi) {
-    // a ring step's q arrives pre-scaled to base 2 (scale_log2 is 1): its
-    // logits go through softcap, then ALiBi on global positions, where
-    // the ring has them
-    if constexpr (XFORM && RING) {
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        float x = sc[i];
-        if (ring.cap2 > 0.f) x = ring.cap2 * tanhf(x * inv_cap2);
-        if (ring.slopes) {
-          const int row = r_lo + 8 * ((i % 4) / 2);
-          const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
-          float dist = (float)((ring.q_pos0 + row) - (ring.kv_pos0 + col));
-          if (ring.alibi_abs) dist = fabsf(dist);
-          x -= slope * dist;
-        }
-        sc[i] = x;
-      }
-    }
-    // B1 scales first (the mask below then scales by 1), each step a loop
-    // of its own under one uniform branch: the cap, then ALiBi by index, or
-    // on an unmasked tile's explicit positions (its keys' have a step; on
-    // a masked tile ALiBi is the masked body's). One loop with the branches
-    // inside ran B1 with softcap 1.3x slower causal, 1.5x on the
-    // five-sequence packing (NVIDIA H100 80GB HBM3, 700 W, phase 17).
-    if constexpr (XFORM && !RING) {
+    // the transform, each step a loop of its own under one uniform
+    // branch: the cap (B1 scales first, the mask below then scales by 1; a
+    // ring step's q arrives pre-scaled to base 2), then ALiBi by index (on
+    // global positions in a ring step), or on an unmasked tile's explicit
+    // positions (its keys' have a step; on a masked tile ALiBi is the
+    // masked body's). One loop with the branches inside ran B1 with
+    // softcap 1.3x slower causal, 1.5x on the five-sequence packing (phase
+    // 17), and B7 with softcap 50 at head_dim 256 1.24x slower with CUDA's
+    // tanhf (profile_torch_fwd.py; NVIDIA H100 80GB HBM3, 700 W).
+    if constexpr (XFORM) {
       if (ring.cap2 > 0.f) {
-        const float k2 = scale_log2 * inv_cap2;
+        const float k2 = RING ? inv_cap2 : scale_log2 * inv_cap2;
 #pragma unroll
         for (int i = 0; i < NS; ++i) sc[i] = ring.cap2 * tanh_fast(sc[i] * k2);
-      } else {
+      } else if constexpr (!RING) {
 #pragma unroll
         for (int i = 0; i < NS; ++i) sc[i] *= scale_log2;
       }
@@ -428,7 +449,8 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
         for (int i = 0; i < NS; ++i) {
           const int row = r_lo + 8 * ((i % 4) / 2);
           const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
-          float dist = (float)((ring.q_pos0 + row) - col);
+          float dist = (float)((ring.q_pos0 + row) -
+                               (RING ? ring.kv_pos0 + col : col));
           if (ring.alibi_abs) dist = fabsf(dist);
           sc[i] -= slope * dist;
         }
@@ -556,7 +578,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     } else {
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
-        float x = sc[i] * (XFORM && !RING ? 1.f : scale_log2);
+        float x = sc[i] * (XFORM ? 1.f : scale_log2);
         if (edge) {
           const int row = r_lo + 8 * ((i % 4) / 2);
           const int col = n0 + 8 * (i / 4) + 2 * tq + i % 2;
@@ -567,18 +589,9 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
     }
     }
 
-    // rows r_lo (r = 0) and r_lo + 8 (r = 1); the four threads of a quad
-    // hold a row's BN columns
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < BN / 8; ++i)
-        mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
-      const float m_new = fmaxf(m_run[r], mx);
-      // a row with no live key yet keeps m = -inf; exponentiate against 0
+    // row r's p against its new max m_new (a row with no live key yet
+    // keeps m = -inf; it exponentiates against 0)
+    auto exponentiate = [&](int r, float m_new) {
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
       alpha[r] = exp2f(m_run[r] - m_use);
       float rs = 0.f;
@@ -590,6 +603,33 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       }
       l_run[r] = l_run[r] * alpha[r] + rs;  // per-thread partial
       m_run[r] = m_new;
+    };
+    // rows r_lo (r = 0) and r_lo + 8 (r = 1); the four threads of a quad
+    // hold a row's BN columns
+    float m_new[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+        mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
+      m_new[r] = fmaxf(m_run[r], mx);
+      if constexpr (!LAZY) exponentiate(r, m_new[r]);
+    }
+    if constexpr (LAZY) {
+      // the warp keeps its rows' maxes unless one grew past its own by
+      // more than MAX_SLACK; O then keeps its scale (alpha is 1, or 0 on a
+      // row that has seen no key and holds zeros)
+      rescale = __any_sync(0xffffffff, m_new[0] > m_run[0] + MAX_SLACK ||
+                                           m_new[1] > m_run[1] + MAX_SLACK);
+      if (!rescale) {
+        m_new[0] = m_run[0];
+        m_new[1] = m_run[1];
+      }
+      exponentiate(0, m_new[0]);
+      exponentiate(1, m_new[1]);
     }
     // BAND: l has summed every p; the dropped ones leave P V's operand
     if constexpr (BAND == rfa_band::ALL) {
@@ -673,10 +713,12 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, void* __restrict__ out,
       hop::wgmma_wait<0>();
       hop::fence_regs(o);
       hop::mbar_arrive(&empty_v[sp]);  // V of stage sp is read
+      if (!LAZY || rescale) {
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+        for (int i = 0; i < D / 8; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) o[4 * i + c] *= alpha[c / 2];
+          for (int c = 0; c < 4; ++c) o[4 * i + c] *= alpha[c / 2];
+      }
       hop::pack_fragments(pa, sc);
     }
     const int sl = (n_tiles - 1) % STAGES;
@@ -770,15 +812,16 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            const rfa_seg_args& seg = rfa_seg_args{},
            const rfa_band_args& band = rfa_band_args{}) {
   auto kern = flash_fwd_kernel<D, RING, XFORM, SEG, BAND>;
+  constexpr int BN = kv_tile<D, RING, XFORM, SEG, BAND>;
   // SEG: the kv tiles' classes past the barriers
   const int bytes =
-      Smem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
+      Smem<D, BN>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
   if (bytes > rfa_seg::MAX_SMEM) return cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SEG ? rfa_seg::MAX_SMEM : Smem<D>::BYTES);
+        SEG ? rfa_seg::MAX_SMEM : Smem<D, BN>::BYTES);
     if (e != cudaSuccess) return e;
     attr = true;
   }
@@ -787,9 +830,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   Maps maps = {};
   int e = hop_host::tmap_4d(&maps.q, q, false, B, Hq, Sq, D, st, 64, BM);
   if (!e) e = hop_host::tmap_4d(&maps.k, k, false, B, Hkv, Skv, D, st + 3,
-                                64, kv_tile<D>);
+                                64, BN);
   if (!e) e = hop_host::tmap_4d(&maps.v, v, false, B, Hkv, Skv, D, st + 6,
-                                64, kv_tile<D>);
+                                64, BN);
   if (e) return e;
   dim3 grid(B * Hq, tiles);
   kern<<<grid, NTHREADS, bytes, stream>>>(maps, out, lse, Hq, Hkv, Sq, Skv,

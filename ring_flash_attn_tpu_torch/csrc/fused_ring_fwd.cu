@@ -42,10 +42,13 @@
 // wgmma consumers on 128-row q tiles) with the ring additions compiled in;
 // the state joins in the epilogue, so the loop is B1's to the instruction.
 // That step's measured time is in flash_fwd.cuh's header and PERF.md. Head
-// dims 64, 128 and 256 (256: B1's 64-key tiles, O in two 128-column halves,
-// the stored (m, l, acc) folded in over a thread's 128 fp32 of O; with
-// softcap 50 at q (1, 16, 8192, 256), kv (1, 8, 8192, 256) an off-diagonal
-// step takes 2.673 ms, 2.4x the 1.112 ms bound; chip_smoke.py phase 25,
+// dims 64, 128 and 256 (256: 80-key tiles, O in two 128-column halves and
+// rescaled only when a row's max outgrows its running one by 2^8, the
+// stored (m, l, acc) folded in over a thread's 128 fp32 of O). At q (1, 16,
+// 8192, 256), kv (1, 8, 8192, 256) an off-diagonal step takes 1.512 to
+// 1.513 ms device (1.36x the 1.112 ms bound; SDPA's non-causal forward
+// 1.466 to 1.522), 2.035 to 2.061 with softcap 50, and 1.734 to 1.740 and
+// 2.610 to 2.758 in the loop before it (profile_torch_fwd.py in turns,
 // NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6).
 
 #include "flash_fwd.cuh"

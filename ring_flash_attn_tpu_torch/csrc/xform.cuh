@@ -16,12 +16,15 @@
 // do. Compiled apart (a template flag XFORM), so that the instantiations
 // without it keep their code.
 //
-// B1 to B3 take tanh from one exp2 and a fast division (tanh_fast below):
-// 2 to 7% off their time with softcap against CUDA's tanhf, which B7 and
-// B8 keep, at q (1, 32, 8192, 128), kv (1, 8, 8192, 128) causal (NVIDIA
-// H100 80GB HBM3, 700 W, chip_smoke.py phase 17). What counted more was
-// taking the transform out of the loops' per-element branches: each step
-// a loop of its own under one uniform branch (see the kernels).
+// B1 to B3 and B7 take tanh from one exp2 and a fast division (tanh_fast
+// below); B8 keeps CUDA's tanhf. In B1 to B3 it took 2 to 7% off their time
+// with softcap at q (1, 32, 8192, 128), kv (1, 8, 8192, 128) causal
+// (chip_smoke.py phase 17). What counted more was taking the transform out
+// of the loops' per-element branches: each step a loop of its own under one
+// uniform branch (see the kernels), which with tanh_fast took B7's
+// off-diagonal step with softcap 50 at q (1, 16, 8192, 256), kv (1, 8, 8192,
+// 256) from 2.699 to 2.732 ms to 2.173 to 2.196 (profile_torch_fwd.py;
+// NVIDIA H100 80GB HBM3, 700 W).
 
 #pragma once
 

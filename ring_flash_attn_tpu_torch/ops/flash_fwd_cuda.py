@@ -27,12 +27,12 @@ import torch
 
 from . import _build
 from .block_meta import (BandArgs, SegArgs, XformArgs, has_band, has_xform,
-                         index_causal, launch_masked)
+                         index_causal, launch_masked, segmented)
 from .mask import MaskArgs, causal_offset, check_supported
 
 TMA_MAX_STRIDE = 2**40  # bytes: the limit on a TMA tensor map's strides
 Q_TILE = 128  # q rows a block of B1 and B7 (csrc/flash_fwd.cuh)
-KV_TILE = 128  # keys a tile of B1 and B7 (64 at head_dim 256: kv_tile)
+KV_TILE = 128  # keys a tile of B1 and B7 (80 or 64 at head_dim 256: kv_tile)
 # head dims of every build of B1, B2, B3a, B3b, B7 and B8 (256: Gemma)
 HEAD_DIMS = (64, 128, 256)
 MAX_GRID_Y = 65535  # the q tiles ride in gridDim.y
@@ -124,9 +124,13 @@ def check_q_tiles(sq):
                          f"{Q_TILE} rows (gridDim.y)")
 
 
-def kv_tile(d):
-    """Keys a tile of B1 at head_dim d (``csrc/flash_fwd.cuh::kv_tile``)."""
-    return 64 if d > 128 else KV_TILE
+def kv_tile(d, tile64=False):
+    """Keys a tile of B1 and B7 at head_dim d (``csrc/flash_fwd.cuh::
+    kv_tile``): at 256 80, or 64 in B1's builds with segments, a band or
+    softcap/ALiBi (``tile64``)."""
+    if d <= 128:
+        return KV_TILE
+    return 64 if tile64 else 80
 
 
 def head_dim_error(d, what, dims=HEAD_DIMS):
@@ -188,7 +192,9 @@ def flash_fwd_cuda(q, k, v, scale, mask: MaskArgs, out_dtype=torch.float32):
         rc = launch_masked(
             (lib.rfa_flash_fwd, lib.rfa_flash_fwd_seg, lib.rfa_flash_fwd_xf,
              lib.rfa_flash_fwd_band),
-            args, mask, q, k, (Q_TILE, kv_tile(d)), stream)
+            args, mask, q, k,
+            (Q_TILE, kv_tile(d, segmented(mask) or has_xform(mask)
+                             or has_band(mask))), stream)
         count_launch(flash_fwd_cuda, mask)
     _build.check_launch(lib, rc, "flash_fwd")
     return out, lse

@@ -18,7 +18,8 @@ from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B3A_EDGE_CASES,
                         D256_RING_CASES, D256_XFORM_EDGE_CASES, DECODE_CASES,
                         RING_OUT_REL_TOL, SEG_EDGE_CASES, XFORM_EDGE_CASES,
                         b5_case_inputs, b5_edge_cases, band_case_check,
-                        d256_case_check, d256_ring_case_check,
+                        d256_case_check, d256_growth_check,
+                        d256_ring_case_check,
                         decode_case_check, xform_case_check,
                         band_keep_checks, rel_err_rows, ring_steps,
                         seg_case_mask)
@@ -1273,6 +1274,18 @@ def test_cuda_head_dim_256_fused_ring_matches_plain_versions(case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     d256_ring_case_check(torch, D256_RING_CASES[case], seed=case)
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_256_forward_catches_up_with_growing_maxes():
+    """B1 and B7 at head_dim 256 on logits that grow along the sequence,
+    so that a row's running max falls behind by more than the loop lets it
+    and O is rescaled in late tiles (``chip_smoke.d256_growth_check``: B1
+    causal, not, with softcap and with ALiBi, B7 over a ring of 3 steps
+    with and without softcap, against the plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    d256_growth_check(torch)
 
 
 @pytest.mark.cuda

@@ -246,10 +246,11 @@ def recorded(monkeypatch, cpu_operands):
 
 def test_block_kernels_take_head_dim_256(recorded, cpu_operands):
     """B1, B2, B3a and B3b take 64, 128 and 256, and at 256 their tiles
-    are the head_dim 256 builds': B1 128 q rows x 64 keys, B2/B3b 64 keys
-    a block x 64 q rows a step, B3a 128 q rows x 64 keys, as at every
-    head_dim; the mask-free and segmented masks reach the mask-free and
-    segmented entry points at 256."""
+    are the head_dim 256 builds': B1 128 q rows x 80 keys (64 keys in the
+    segmented, softcap/ALiBi and band builds), B2/B3b 64 keys a block x
+    64 q rows a step, B3a 128 q rows x 64 keys, as at every head_dim; the
+    mask-free and segmented masks reach the mask-free and segmented entry
+    points at 256."""
     for d in (64, 128, 256):
         assert ffc.check_qkv(*cpu_operands(d))[-1] == d
     seg = torch.zeros(8, dtype=torch.int32)
@@ -258,11 +259,12 @@ def test_block_kernels_take_head_dim_256(recorded, cpu_operands):
                        (MaskArgs(causal=True, q_pos=seg, kv_pos=seg),
                         "_seg")):
         assert recorded(256, mask) == [
-            ("rfa_flash_fwd" + tail, 256, (128, 64)),
+            ("rfa_flash_fwd" + tail, 256, (128, 64 if tail else 80)),
             ("rfa_flash_bwd" + tail, 256, (64, 64)),
             ("rfa_flash_bwd_dq" + tail, 256, (128, 64)),
             ("rfa_flash_bwd_dkv" + tail, 256, (64, 64))]
-    assert ffc.kv_tile(256) == 64 and ffc.kv_tile(128) == 128
+    assert ffc.kv_tile(256) == 80 and ffc.kv_tile(256, tile64=True) == 64
+    assert ffc.kv_tile(128) == ffc.kv_tile(128, tile64=True) == 128
     assert fbc.kv_major_tiles(256) == (64, 64)
     assert fbc.kv_major_tiles(64) == fbc.KV_MAJOR_TILES == (64, 128)
     assert fbs.DQ_TILES == (128, 64)
