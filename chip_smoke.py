@@ -18,16 +18,19 @@ Phases, each of which raises on failure:
    ``F.scaled_dot_product_attention`` (timed only, never used by the port).
 3. Kernel B5 (paged decode) against its plain version: 8 lanes of ragged
    lengths over shuffled block tables, plain, with softcap, and with
-   new_counts; the engine's 4 lanes; the split plan's edges
-   (``b5_edge_cases``: one 32768-token lane, a lane ending on a split
-   boundary, lanes of 0 and 1 token, 16-token pages, R = 16 with
-   new_counts, softcap with fp32 q); every call twice, bitwise equal;
+   new_counts; the engine's 4 lanes; the work plan's edges
+   (``b5_edge_cases``: one 32768-token lane, a lane one of whose groups
+   starts a block's run, lanes of 0 and 1 token, 16-token pages, R = 16
+   with new_counts, softcap with fp32 q); every call twice, bitwise equal;
    timed beside its byte bound at the table's shape, the engine's 4 lanes
    and R = 16. Then at head dims 64 and 256 and past the rows one block
    serves (``DECODE_CASES``: Llama-3.2-1B's 32/8 heads of 64, Falcon-7B's
    71/1, Gemma-7B's 16/16 and Gemma-2B's 8/1 of 256, StarCoder's 48/1 of
    128, Tq 1 to 5 with new_counts, softcap, a dead lane), each case timed
-   beside its bound (this holds for phases 7 and 8 too).
+   beside its bound, and the plan's edges at 64 and 256 (``PLAN_CASES``:
+   dead and full lanes, new_counts, row groups, 48 lanes; for B4
+   ``B4_PLAN_CASES``: one row a kv head at 256, the 32-token tails), each
+   twice, bitwise equal (this holds for phases 7 and 8 too).
 4. The ServingEngine at Llama-3-8B widths with 4 layers and seeded random
    weights: the first prefill and first decode-step logits of the kernels
    against the plain versions on the card, then 6 requests (two queue, one
@@ -1330,23 +1333,28 @@ def phase_b1(torch, flush):
 
 
 def b5_edge_cases():
-    """The split plan's edges for B5 (phase 3 and tests/test_torch_cuda.py):
+    """The work plan's edges for B5 (phase 3 and tests/test_torch_cuda.py):
     dicts of lens, page_size, npages (the table's width), hq, hkv, tq,
-    counts (new_counts or None), cap (softcap) and qdtype. Lane lengths
-    that end on a split boundary come from ``paged_num_splits``, so they
-    follow the plan."""
+    counts (new_counts or None), cap (softcap) and qdtype. The second
+    case's first lane is as long as puts a block's run start on the start
+    of one of its groups (``ops/quant_decode_cuda.work_plan``), among
+    lanes of 0 and 1 token, so it follows the plan."""
     from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
-        CHUNK, paged_num_splits)
+        lane_chunks, paged_plan_grid, piece_cost, work_plan)
 
-    # 4 lanes, 32 pages of 256: lane 0 ends on the last token of its
-    # 3 * nsplit-th chunk (one chunk for each pipeline of each split);
-    # lanes of 0 and 1 token among long ones
-    split = paged_num_splits(4, 8, 32, 256)
+    # 4 lanes, 32 pages of 256, 8 kv heads of 128 in bf16
+    grid, cost = paged_plan_grid(4, 8, 32, 256), piece_cost(128, 2)
+    first = next(
+        n for n in range(3000, 8192, 64)
+        if any(run and run[0]["first"] == 0 and run[0]["group"] < 8
+               for run in work_plan([lane_chunks(m, 256)
+                                     for m in (n, 0, 1, 8000)],
+                                    8, grid, cost)[1][1:]))
     return [
-        # B = 1, one lane of 32768 tokens: the most splits
+        # B = 1, one lane of 32768 tokens: the most blocks a lane
         dict(lens=[32768], page_size=256, npages=128, hq=32, hkv=8, tq=1,
              counts=None, cap=None, qdtype="bfloat16"),
-        dict(lens=[3 * split * CHUNK, 0, 1, 8000], page_size=256, npages=32,
+        dict(lens=[first, 0, 1, 8000], page_size=256, npages=32,
              hq=32, hkv=8, tq=1, counts=None, cap=None, qdtype="bfloat16"),
         # 16-token pages (a chunk per page, shorter than 64), 8 rows
         dict(lens=[4096, 1000, 17], page_size=16, npages=256, hq=32, hkv=8,
@@ -1401,7 +1409,7 @@ def phase_b5(torch, flush):
     from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
         paged_decode_cuda)
     from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
-        paged_num_splits)
+        paged_plan_grid)
 
     log("== phase 3: kernel B5 (paged decode) vs its plain version")
     dev = torch.device("cuda")
@@ -1434,10 +1442,10 @@ def phase_b5(torch, flush):
         torch.cuda.synchronize()
         eo, el = max_err(got[0], ref_out), max_err(got[1], ref_lse)
         same = all(torch.equal(x, y) for x, y in zip(got, again))
-        nsplit = paged_num_splits(q.shape[0], kp.shape[1], tbl.shape[1],
-                                  kp.shape[2])
+        grid = paged_plan_grid(q.shape[0], kp.shape[1], tbl.shape[1],
+                               kp.shape[2])
         log(f"  {name}: max|out| err {eo:.3e}, max|lse| err {el:.3e} "
-            f"(tol {B5_TOL}); {nsplit} splits a lane; two runs bitwise "
+            f"(tol {B5_TOL}); a grid of {grid} blocks; two runs bitwise "
             f"equal {same}")
         if not (eo <= B5_TOL and el <= B5_TOL):
             raise AssertionError(f"B5 disagrees with its plain version: {name}")
@@ -1491,8 +1499,8 @@ def phase_b5(torch, flush):
     log(f"  lens {lens}: kernel {ms:.4f} ms "
         f"({kv_bytes / ms / 1e6:.1f} GB/s of KV; {t['device_ms']:.4f} ms of "
         f"device time, {t['device_ms'] / bound_ms:.1f}x its bound), plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes); "
-        f"{paged_num_splits(b, hkv, pps, ps)} splits a lane")
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes); a grid of "
+        f"{paged_plan_grid(b, hkv, pps, ps)} blocks")
     others = {
         "engine 4 lanes": (q4, tables[:4], eng_lens, None,
                            int(eng_lens.sum())),
@@ -1504,11 +1512,11 @@ def phase_b5(torch, flush):
         tx = kernel_ms(torch, lambda: paged_decode_cuda(
             qx, k_pages, v_pages, tbl, sl, scale, new_counts=cnt), 20, flush)
         bx = _b5_bound_ms(qx, toks, hkv, tbl)
-        extra[name] = dict(tx, bound_ms=bx, splits=paged_num_splits(
+        extra[name] = dict(tx, bound_ms=bx, blocks=paged_plan_grid(
             qx.shape[0], hkv, tbl.shape[1], ps))
         log(f"  {name}: kernel {tx['ms']:.4f} ms, {tx['device_ms']:.4f} ms "
             f"of device time ({tx['device_ms'] / bx:.1f}x its bound "
-            f"{bx:.4f} ms), {extra[name]['splits']} splits a lane")
+            f"{bx:.4f} ms), a grid of {extra[name]['blocks']} blocks")
     return {
         "name": "B5 paged_decode", "route": "cuda",
         "source": "ring_flash_attn_tpu_torch/csrc/paged_decode.cu",
@@ -2114,18 +2122,19 @@ def phase_b4(torch, flush):
         ("int8 tail cache S=32 length 7", q1, cache_of(1, 32, "int8"), 7,
          None),
     ]
-    # the pipelines' edges (quant_decode.cuh: 64-token chunks dealt out in
-    # turn to 3 pipelines a block, 3 stages a ring): one split over
-    # C * NP * NST - 1, C * NP * NST, C * NP * NST + 1 tokens (the last
-    # wraps pipeline 0's ring); S = 1; 14 of 16 splits with no chunk;
-    # R = 16 (Tq = 4) in int8 and fp8
+    # the pipelines' edges (quant_decode.cuh: a piece's 64-token chunks
+    # dealt out in turn to 3 pipelines a block, 3 stages a ring): a block
+    # a group over C * NP * NST - 1, C * NP * NST, C * NP * NST + 1 tokens
+    # (the last wraps pipeline 0's ring); S = 1; 2 chunks a group on the
+    # long cache (a grid of 128 blocks, 8 used, most pipelines idle); R =
+    # 16 (Tq = 4) in int8 and fp8
     edge = cache_of(1, 640, "fp8_e4m3")
     cases += [
-        (f"fp8_e4m3 S=640 length {n} (one split)", q1, edge, n, None)
+        (f"fp8_e4m3 S=640 length {n} (a block a group)", q1, edge, n, None)
         for n in (575, 576, 577)]
     cases += [
         ("int8 S=1", q1, cache_of(1, 1, "int8"), 1, None),
-        ("int8 S=32768 length 100 (14 empty splits)", q1, big, 100, None),
+        ("int8 S=32768 length 100 (2 chunks a group)", q1, big, 100, None),
         ("int8 Tq=4 (16 rows) S=32768 length 32000", q_of(1, tq=4), big,
          32000, 30.0),
         ("fp8_e5m2 Tq=4 (16 rows) S=3000", q_of(1, tq=4),
@@ -2541,6 +2550,142 @@ def decode_case_check(torch, case, kernel, seed=0):
     return max(eo, el), run, plain, bound, what
 
 
+# The work plan's cases (csrc/quant_decode.cuh::Plan, which B4, B5 and B6
+# share) at head dims 64 and 256: (name, head dim, Hq, Hkv, Tq, lane
+# lengths, page size, pages a lane, new_counts (B5; None: every row sees
+# the whole lane), B6's cache type, softcap). Ragged lanes with a dead
+# lane and lanes that hold every token their table allows, speculative
+# rows, row groups (R past max_rows(D)), many one-chunk groups beside long
+# ones, more lanes than SMs a group would need. B4's: (name, head dim, Hq,
+# Hkv, B, S, lengths, cache type, softcap): one q row a kv head at 256,
+# generate's 32-token tail at 64 and 256.
+PLAN_CASES = [
+    ("D64 ragged, dead and full lanes", 64, 32, 8, 1,
+     [0, 8192, 1, 3000, 8192], 256, 32, None, "int8", None),
+    ("D64 Tq=3 with new_counts", 64, 32, 8, 3, [8192, 0, 17, 3000], 256, 32,
+     [3, 0, 1, 2], "fp8_e4m3", None),
+    ("D64 row groups (32 rows)", 64, 32, 1, 1, [3000, 0, 8192, 1], 64, 128,
+     None, "fp8_e5m2", 20.0),
+    ("D64 48 lanes", 64, 32, 8, 1, [(i * 997) % 2049 for i in range(48)],
+     256, 8, None, "int8", None),
+    ("D256 ragged, dead and full lanes", 256, 16, 16, 1,
+     [0, 1, 3000, 8192, 8192], 256, 32, None, "int8", 30.0),
+    ("D256 Tq=2 with new_counts", 256, 8, 4, 2, [4096, 2, 0, 777], 16, 256,
+     [2, 2, 0, 1], "fp8_e4m3", None),
+    ("D256 row groups (32 rows)", 256, 16, 1, 2, [0, 5000, 64, 8192], 256,
+     32, [0, 2, 1, 2], "int8", None),
+]
+B4_PLAN_CASES = [
+    ("B4 D256 one row a kv head", 256, 16, 16, 2, 8192, [8000, 1, 0],
+     "int8", 30.0),
+    ("B4 D64 tail", 64, 32, 8, 1, 32, [1, 17, 32], "int8", None),
+    ("B4 D256 tail", 256, 16, 16, 1, 32, [1, 31, 32], "fp8_e5m2", None),
+]
+
+
+def plan_case_check(torch, case, kernel, seed=0):
+    """A PLAN_CASES case through ``kernel`` ("B5" or "B6"): twice, the same
+    bits, within the kernel's tolerance of its plain version, every dead
+    lane at (0, NEG_INF). Returns the worst error."""
+    from ring_flash_attn_tpu_torch.ops import paged as P
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.paged_quant_decode_cuda import (
+        paged_quant_decode_cuda)
+
+    name, d, hq, hkv, tq, lens, page, pps, counts, qdtype, cap = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2100 + seed)
+    b, scale = len(lens), d ** -0.5
+    tables = torch.as_tensor(np.random.default_rng(seed).permutation(
+        b * pps).astype(np.int32).reshape(b, pps), device=dev)
+    seq = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((b, hq, tq, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    if kernel == "B5":
+        shape = (b * pps, hkv, page, d)
+        cache = P.PagedKVCache(
+            torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
+            tables, seq)
+        cnt = None if counts is None else torch.tensor(
+            counts, dtype=torch.int32, device=dev)
+
+        def run():
+            return paged_decode_cuda(q, cache.k_pages, cache.v_pages,
+                                     tables, seq, scale, softcap=cap,
+                                     new_counts=cnt)
+
+        ref = P._plain_paged_decode(q, cache, scale, cap, cnt)
+        tol = B5_TOL
+    else:
+        c = P.paged_quant_prefill(
+            P.paged_quant_init(b, hkv, b * pps, page, pps, d, qdtype=qdtype,
+                               block_tables=tables, device=dev),
+            torch.randn((b, hkv, pps * page, d), generator=gen, device=dev),
+            torch.randn((b, hkv, pps * page, d), generator=gen, device=dev),
+            lens)
+
+        def run():
+            return paged_quant_decode_cuda(
+                q, c.k_pages, c.k_scales, c.v_pages, c.v_scales,
+                c.block_tables, c.seq_lens, scale, softcap=cap)
+
+        ref = P._plain_quant_paged_decode(q, c, scale, cap)
+        tol = QUANT_TOL
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+    label = f"{kernel} {name} (lanes {lens} in pages of {page})"
+    if not err <= tol:
+        raise AssertionError(f"{label}: error {err:.3e} (tol {tol})")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{label}: two calls differ")
+    dead = seq == 0
+    if not (bool((got[0][dead] == 0).all())
+            and bool((got[1][dead] == -1e30).all())):
+        raise AssertionError(f"{label}: a dead lane is not (0, NEG_INF)")
+    return err
+
+
+def b4_plan_case_check(torch, case, seed=0):
+    """A B4_PLAN_CASES case: B4 at each length (a length of 0 at (0,
+    NEG_INF)) twice, the same bits, within QUANT_TOL of its plain version.
+    Returns the worst error."""
+    from ring_flash_attn_tpu_torch.ops.quant import (
+        _plain_quant_decode, quantize_kv)
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    name, d, hq, hkv, b, s, lengths, qdtype, cap = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2200 + seed)
+    c = quantize_kv(torch.randn((b, hkv, s, d), generator=gen, device=dev),
+                    torch.randn((b, hkv, s, d), generator=gen, device=dev),
+                    qdtype)
+    q = torch.randn((b, hq, 1, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    worst = 0.0
+    for n in lengths:
+        arg = torch.tensor([n], dtype=torch.int32, device=dev) if n % 2 \
+            else n
+        got, again = (quant_decode_cuda(q, c.k_q, c.k_scale, c.v_q,
+                                        c.v_scale, arg, d ** -0.5,
+                                        softcap=cap) for _ in range(2))
+        ref = _plain_quant_decode(q, c, n, d ** -0.5, cap)
+        torch.cuda.synchronize()
+        err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+        if not err <= QUANT_TOL:
+            raise AssertionError(f"{name} length {n}: error {err:.3e}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name} length {n}: two calls differ")
+        if n == 0 and not (bool((got[0] == 0).all())
+                           and bool((got[1] == -1e30).all())):
+            raise AssertionError(f"{name}: length 0 is not (0, NEG_INF)")
+        worst = max(worst, err)
+    return worst
+
+
 def decode_wide(torch, kernel, flush):
     """Phases 3, 7 and 8: ``kernel`` on every DECODE_CASES case against its
     plain version, each timed beside its bound; B4 also at length 0 in row
@@ -2568,6 +2713,13 @@ def decode_wide(torch, kernel, flush):
             f"{t['device_ms'] / bound:.1f}x")
         out.setdefault(fam, []).append(entry)
         del run, plain
+    # the work plan's edges
+    cases = B4_PLAN_CASES if kernel == "B4" else PLAN_CASES
+    worst = max(b4_plan_case_check(torch, case, i) if kernel == "B4" else
+                plan_case_check(torch, case, kernel, i)
+                for i, case in enumerate(cases))
+    log(f"    the plan's edges ({len(cases)} cases): worst error "
+        f"{worst:.3e}; two calls bitwise equal")
     if kernel == "B4":  # length 0 in row groups: every row dead
         _, d, hq, hkv, tq, _, _, _ = DECODE_CASES[5]
         dev = torch.device("cuda")

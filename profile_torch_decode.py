@@ -4,12 +4,14 @@ contiguous quantized cache) on one NVIDIA H100.
 
 Run from the root of a checkout:
 
-    python3 profile_torch_decode.py [--root DIR] [--rounds N]
+    python3 profile_torch_decode.py [--root DIR] [--rounds N] [--only TEXT]
 
 ``--root`` imports ``ring_flash_attn_tpu_torch`` from another checkout (for
 example the parent commit unpacked beside this one), so that two trees are
 timed by the same code in one machine session: run parent, change, change,
-parent.
+parent. ``--only TEXT`` (repeatable) times only the step-3 readings whose
+name holds TEXT, skips step 2 and skips step 4 unless a TEXT is "row
+groups".
 
 1. Builds the kernels and prints ptxas's registers, spills and shared memory
    of every instantiation of the decode kernels.
@@ -28,13 +30,22 @@ parent.
    launches, the L2 flushed before each call by writing 256 MB; B4 and B6
    once more with the L2 flushed by reading them (ReadFlush), which leaves
    no dirty line whose write-back lands in the kernel's time; beside each,
-   the least time the card could take (bytes).
+   the least time the card could take (bytes). Then the same at head dims
+   64 and 256 (``WIDE_ROWS``): B5 on the decode sub-table's ragged lanes
+   (0, 1, 3000 and 8192 tokens in pages of 256) at Llama-3.2-1B's 32/8
+   heads of 64 and Gemma-7B's 16/16 of 256, on the same tokens in four
+   equal lanes and on the engine's 4 lanes; B4 on the sub-table's cache
+   (B=2, S=8192, length 8000) at both, over ``generate``'s prompt cache at
+   64 (B=1, S=32768) and on the 32-token tail cache at both; B6 at
+   Gemma-2B's 8/1 heads of 256. A digest of their outputs is printed
+   before they are timed.
 
 4. Where the tree has row groups (past the rows one block serves): traces
    B6 at Falcon-7B's 355 rows and B5 at StarCoder's 240 rows
    (``chip_smoke.DECODE_CASES``, lanes of 0, 1, 3000 and 8192 tokens) at
-   the split plan's number of splits and at others forced on the
-   launcher: each held against the plain version, with the launch as
+   the launcher's grid (``paged_plan_grid``; splits a group,
+   ``paged_num_splits``, in a tree before the device's work plan) and at
+   others forced on the launcher: each held against the plain version, with the launch as
    torch.profiler records it (grid, threads, registers, shared memory,
    its estimate of occupancy), the blocks an SM can hold by those, the
    chunks a pipeline walks on the longest lane, and the kernel's time.
@@ -57,7 +68,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    H100_BYTES_PER_S, _b5_bound_ms, kernel_ms, log, profile_loop)
+    DECODE_CASES, DECODE_LENS, H100_BYTES_PER_S, _b5_bound_ms,
+    _decode_bound_ms, decode_case_inputs, kernel_ms, log, profile_loop)
 
 LOOP = ("B5 paged_decode", "B6 paged_quant_decode", "B4 quant_decode")
 PIECES = ("decode_kernel",)
@@ -217,12 +229,16 @@ def _lane_chunks(tokens, page):
 
 def row_group_trace(torch, flush):
     """Step 4: each ROW_GROUP_CASES case at the plan's splits and at
-    FORCED_SPLITS (the launcher's ``paged_num_splits`` replaced for the
-    call), held against its plain version and timed."""
+    FORCED_SPLITS (the launcher's grid function replaced for the call),
+    held against its plain version and timed."""
     from chip_smoke import (
         DECODE_CASES, DECODE_LENS, DECODE_S, decode_case_inputs, max_err)
     from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as Q
 
+    # the launcher's blocks (a tree before the device's work plan: its
+    # splits a group)
+    grid = ("paged_plan_grid" if hasattr(Q, "paged_plan_grid")
+            else "paged_num_splits")
     for kernel, module, name in ROW_GROUP_CASES:
         mod = importlib.import_module("ring_flash_attn_tpu_torch.ops."
                                       + module)
@@ -230,18 +246,18 @@ def row_group_trace(torch, flush):
         _, d, hq, hkv, tq, _, _, page = case
         nrg, rows = Q.row_groups(hq // hkv * tq, d)
         b = len(DECODE_LENS)
-        plan = Q.paged_num_splits(b, hkv, DECODE_S // page, page, nrg)
+        plan = getattr(Q, grid)(b, hkv, DECODE_S // page, page, nrg)
         chunks = [_lane_chunks(n, page) for n in DECODE_LENS]
         run, plain, tol, (bound, by), what = decode_case_inputs(
             torch, case, kernel)
         log(f"  row groups: {kernel} {name} (D={d}, {what}): {nrg} row "
             f"groups of {rows} rows a kv head, {b * hkv * nrg} groups; the "
-            f"lanes' chunks {chunks}; the plan's splits {plan}; bound "
+            f"lanes' chunks {chunks}; the launcher's {grid} {plan}; bound "
             f"{bound:.5f} ms ({by})")
-        real = mod.paged_num_splits
+        real = getattr(mod, grid)
         try:
             for n in sorted({plan, *FORCED_SPLITS}):
-                mod.paged_num_splits = lambda *_, n=n: n
+                setattr(mod, grid, lambda *_, n=n: n)
                 got, ref = run(), plain()
                 err = max(max_err(x, y) for x, y in zip(got, ref))
                 if not err <= tol:
@@ -266,7 +282,83 @@ def row_group_trace(torch, flush):
                     f"{live}; chunks a pipeline walks on the longest lane "
                     f"{-(-max(chunks) // (n * pipes))}")
         finally:
-            mod.paged_num_splits = real
+            setattr(mod, grid, real)
+
+
+# step 3 at head dims 64 and 256: (name, DECODE_CASES case, head dim, Hq,
+# Hkv) of the decode sub-table's cases (PERF.md) and the models they come
+# from; the engine's 4 lanes (phase 4's traffic after 16 tokens, as the
+# head_dim 128 reading) and the sub-table's tokens in four equal lanes
+WIDE_CASES = {"D64": 0, "D256": 6}  # Llama-3.2-1B, Gemma-7B
+ENGINE_LENS = [3016, 1216, 2616, 316]
+EQUAL_LENS = [2798, 2798, 2798, 2799]  # sum(DECODE_LENS) in four lanes
+
+
+def _b5_lanes(torch, gen, hq, hkv, d, lens, pps, page=256):
+    """B5's inputs on lanes of ``lens`` tokens, ``pps`` pages of ``page`` a
+    lane in shuffled pages: (q bf16, k_pages, v_pages, tables, seq_lens)."""
+    dev = torch.device("cuda")
+    b = len(lens)
+    tables = torch.as_tensor(np.random.default_rng(d).permutation(
+        b * pps).astype(np.int32).reshape(b, pps), device=dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    return (rnd(b, hq, 1, d), rnd(b * pps, hkv, page, d),
+            rnd(b * pps, hkv, page, d), tables,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def wide_rows(torch):
+    """Step 3's readings at head dims 64 and 256: {name: (call, bound
+    ms)}, the bound from ``chip_smoke._decode_bound_ms``."""
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.quant import quantize_kv
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    for fam, i in WIDE_CASES.items():
+        case = DECODE_CASES[i]
+        name, d, hq, hkv, _, _, cap, page = case
+        scale = d ** -0.5
+        run, _, _, (bound, _), _ = decode_case_inputs(torch, case, "B5", i)
+        rows[f"B5 {fam} {name} lanes {DECODE_LENS}"] = (run, bound)
+        for what, lens, pps in (("equal lanes", EQUAL_LENS, 32),
+                                ("engine 4 lanes", ENGINE_LENS, 16)):
+            q, kp, vp, tables, seq = _b5_lanes(torch, gen, hq, hkv, d, lens,
+                                               pps, page)
+            rows[f"B5 {fam} {what} {lens}"] = (
+                lambda q=q, kp=kp, vp=vp, t=tables, s=seq, sc=scale, c=cap:
+                paged_decode_cuda(q, kp, vp, t, s, sc, softcap=c),
+                _decode_bound_ms(q, sum(lens), hkv, 2, False,
+                                 tables.numel())[0])
+        run, _, _, (bound, _), what = decode_case_inputs(torch, case, "B4", i)
+        rows[f"B4 {fam} {name} {what}"] = (run, bound)
+        shapes = [(1, 32, 32)] if d == 256 else [(1, 32768, 32768),
+                                                 (1, 32, 32)]
+        for b, s, n in shapes:
+            c = quantize_kv(torch.randn((b, hkv, s, d), generator=gen,
+                                        device=dev),
+                            torch.randn((b, hkv, s, d), generator=gen,
+                                        device=dev), "int8")
+            q = torch.randn((b, hq, 1, d), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            label = "tail" if s == 32 else "prompt cache"
+            rows[f"B4 {fam} {label} B={b} S={s} int8"] = (
+                lambda q=q, c=c, n=n, sc=scale: quant_decode_cuda(
+                    q, c.k_q, c.k_scale, c.v_q, c.v_scale, n, sc),
+                _decode_bound_ms(q, b * n, hkv, 1, True)[0])
+    i = 7  # Gemma-2B (8 rows) at 256
+    run, _, _, (bound, _), what = decode_case_inputs(
+        torch, DECODE_CASES[i], "B6", i)
+    rows[f"B6 D256 {DECODE_CASES[i][0]} {what}"] = (run, bound)
+    return rows
 
 
 def timings(torch, args):
@@ -279,7 +371,8 @@ def timings(torch, args):
     from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
         quant_decode_cuda)
 
-    digests(torch)
+    if not args.only:  # head_dim 128's digests
+        digests(torch)
     rounds = args.rounds
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -327,7 +420,7 @@ def timings(torch, args):
         return ((2 * tokens * hkv * d + 8 * tokens * hkv)
                 / H100_BYTES_PER_S * 1e3)
 
-    fns = {
+    fns = {} if args.only else {
         "B5 table shape": (lambda: paged_decode_cuda(
             q8, kp, vp, tables, seq, scale), _b5_bound_ms(
             q8, sum(lens), hkv, tables)),
@@ -355,7 +448,14 @@ def timings(torch, args):
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     clean = ReadFlush(torch)
     for name in ("B4 S=32768 int8", "B6 4 x 8192 int8"):
-        fns[name + ", L2 flushed by reading"] = fns[name]
+        if name in fns:
+            fns[name + ", L2 flushed by reading"] = fns[name]
+    wide = wide_rows(torch)
+    log("  digest of (out, lse) at head dims 64 and 256: " + _digest(
+        torch, [fn() for fn, _ in wide.values()]))
+    fns.update(wide)
+    if args.only:
+        fns = {k: f for k, f in fns.items() if any(t in k for t in args.only)}
     times = collections.defaultdict(list)
     for _ in range(rounds):
         for name, (fn, _) in fns.items():
@@ -369,10 +469,19 @@ def timings(torch, args):
             + f"; bound {bound:.5f} ms, dev {best / bound:.1f}x it")
     from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as Q
 
-    if hasattr(Q, "row_groups"):  # the tree serves past one block's rows
+    # the tree serves past one block's rows
+    if hasattr(Q, "row_groups") and (
+            not args.only or any("row groups" in t for t in args.only)):
         row_group_trace(torch, flush)
     return times
 
 
+def _arguments(ap):
+    ap.add_argument("--only", action="append", default=[], metavar="TEXT",
+                    help="time only the step-3 readings whose name holds "
+                    "TEXT (step 4 only for 'row groups')")
+
+
 if __name__ == "__main__":
-    sys.exit(profile_loop("profile_torch_decode.py", LOOP, PIECES, timings))
+    sys.exit(profile_loop("profile_torch_decode.py", LOOP, PIECES, timings,
+                          _arguments))

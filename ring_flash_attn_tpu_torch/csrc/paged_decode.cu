@@ -13,18 +13,18 @@
 // G * Tq query rows of its kv head (4 at Llama-3-8B widths), about one
 // flop per byte, so the bound is reading the live K/V pages once at
 // 3.35 TB/s. The design serves that with the loop of B4 and B6
-// (quant_decode.cuh's decode_split, given a bf16 value type with unit
+// (quant_decode.cuh's decode_lanes, given a bf16 value type with unit
 // scales and per-row bounds; B5 has no loop of its own):
 //
-//  - one block per (lane, kv head, split) serves all G * Tq rows of the
-//    head's group, so each K/V page is read from device memory once (past
-//    max_rows(D) rows, one block per row group, whose reads of a page
+//  - a block's piece of a (lane, kv head) group serves all G * Tq rows of
+//    the head's group, so each K/V page is read from device memory once
+//    (past max_rows(D) rows, a piece per row group, whose reads of a page
 //    meet in L2);
-//  - a lane's live chunks (64 tokens, never spanning a page; PagedSrc)
-//    are dealt out to gridDim.x blocks of 1 to 3 pipelines, chosen from
-//    shapes only (ops/quant_decode_cuda.py::num_splits), so that a few
-//    lanes fill the 132 SMs; the lane's last block merges the partials in
-//    split order (bitwise reproducible);
+//  - the lanes' live chunks (64 tokens, never spanning a page; PagedSrc)
+//    are spread over the grid's blocks of 1 to 3 pipelines by a plan made
+//    on the device from seq_lens (quant_decode.cuh::Plan), so that a few
+//    ragged lanes fill the 132 SMs; a group's last block merges its
+//    pieces in order (bitwise reproducible);
 //  - QK and PV on tensor cores in bf16, q and p each in two bf16 halves
 //    against the exact bf16 cache.
 //
@@ -48,6 +48,17 @@ struct BoundedPagedSrc : PagedSrc {
   }
 };
 
+// PagedLanes whose groups carry the lane's new_counts.
+struct BoundedLanes : PagedLanes {
+  const int* new_counts;
+  int Tq;
+
+  __device__ __forceinline__ BoundedPagedSrc src(int b, int h) const {
+    return BoundedPagedSrc{PagedLanes::src(b, h),
+                           new_counts ? new_counts[b] : 1, Tq};
+  }
+};
+
 template <int RMAX, int D, bool RG>
 __global__ void __launch_bounds__(nthreads<D, RMAX, 2>(), 1)
 paged_decode_kernel(const void* __restrict__ q, int q_bf16,
@@ -55,19 +66,15 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16,
                     const unsigned char* __restrict__ v_pages,
                     const int* __restrict__ block_tables,
                     const int* __restrict__ seq_lens,
-                    const int* __restrict__ new_counts, int Hkv, int Tq,
-                    int R, int num_pages, int page_size, int npages,
+                    const int* __restrict__ new_counts, int B, int Hkv,
+                    int Tq, int R, int num_pages, int page_size, int npages,
                     float scale, float softcap, Dest dst) {
-  // with row groups blockIdx.y is kv head * nrg + row group
-  const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
-  const int h = RG ? blockIdx.y / nrg : blockIdx.y, b = blockIdx.z;
-  const BoundedPagedSrc src{
-      paged_src(k_pages, v_pages, nullptr, nullptr, block_tables, seq_lens,
-                b, h, Hkv, num_pages, page_size, npages),
-      new_counts ? new_counts[b] : 1, Tq};
-  decode_split<QT_BF16, false, D, RMAX, true, RG>(
-      src, q, q_bf16, (long long)b * Hkv + h, R, scale, softcap, dst,
-      RG ? blockIdx.y % nrg : 0);
+  const BoundedLanes lanes{
+      PagedLanes{k_pages, v_pages, nullptr, nullptr, block_tables, seq_lens,
+                 Hkv, num_pages, page_size, npages},
+      new_counts, Tq};
+  decode_lanes<QT_BF16, false, D, RMAX, true, RG>(lanes, B, Hkv, q, q_bf16,
+                                                  R, scale, softcap, dst);
 }
 
 // rfa_paged_decode's launch: run<QT_BF16, RMAX, D, RG>() launches that
@@ -81,7 +88,7 @@ struct Launch {
   const int* seq_lens;
   const int* new_counts;
   Dest dst;
-  int B, Hkv, Tq, R, num_pages, page_size, npages, nsplit;
+  int B, Hkv, Tq, R, num_pages, page_size, npages, grid;
   float scale, softcap;
   cudaStream_t stream;
 
@@ -91,7 +98,7 @@ struct Launch {
     auto kern = paged_decode_kernel<RMAX, D, RG>;
     constexpr int EB = value_bytes<QT_BF16>();
     constexpr int bytes = Smem<D, RMAX, EB>::BYTES;
-    if (nsplit > 1 && !merge_fits<D, RMAX, EB>(nsplit, RG ? RMAX : R))
+    if (grid > 1 && !merge_fits<D, RMAX, EB>(grid, RG ? RMAX : R))
       return cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {
@@ -100,12 +107,11 @@ struct Launch {
       if (e != cudaSuccess) return e;
       attr = true;
     }
-    const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
-    kern<<<dim3(nsplit, Hkv * nrg, B), nthreads<D, RMAX, EB>(), bytes,
-           stream>>>(q, q_bf16, static_cast<const unsigned char*>(k_pages),
-                     static_cast<const unsigned char*>(v_pages),
-                     block_tables, seq_lens, new_counts, Hkv, Tq, R,
-                     num_pages, page_size, npages, scale, softcap, dst);
+    kern<<<grid, nthreads<D, RMAX, EB>(), bytes, stream>>>(
+        q, q_bf16, static_cast<const unsigned char*>(k_pages),
+        static_cast<const unsigned char*>(v_pages), block_tables, seq_lens,
+        new_counts, B, Hkv, Tq, R, num_pages, page_size, npages, scale,
+        softcap, dst);
     return cudaGetLastError();
   }
 };
@@ -116,9 +122,10 @@ struct Launch {
 // block_tables (B, npages) int32; seq_lens, new_counts (B,) int32 (new_counts
 // may be null: every row sees the whole lane); all contiguous; any
 // page_size >= 1; head_dim D 64, 128 or 256. out (B, Hq, Tq, D) and lse
-// (B, Hq, Tq) fp32. With nsplit > 1: part_acc, part_ml and counters laid
-// out by rp as rfa_quant_decode (quant_decode.cu) takes them. softcap <= 0
-// disables capping. Returns cudaGetLastError().
+// (B, Hq, Tq) fp32. `grid` blocks share the work; with grid > 1,
+// part_acc, part_ml and counters laid out by rp as rfa_quant_decode
+// (quant_decode.cu) takes them. softcap <= 0 disables capping. Returns
+// cudaGetLastError().
 extern "C" int rfa_paged_decode(const void* q, int q_bf16,
                                 const void* k_pages, const void* v_pages,
                                 const int* block_tables, const int* seq_lens,
@@ -126,14 +133,14 @@ extern "C" int rfa_paged_decode(const void* q, int q_bf16,
                                 float* part_acc, float* part_ml,
                                 int* counters, int B, int Hq, int Hkv, int Tq,
                                 int head_dim, int num_pages, int page_size,
-                                int npages, int nsplit, int rp, float scale,
+                                int npages, int grid, int rp, float scale,
                                 float softcap, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || nsplit < 1 || num_pages < 1 || page_size < 1)
+  if (Hkv <= 0 || Hq % Hkv || grid < 1 || num_pages < 1 || page_size < 1)
     return cudaErrorInvalidValue;
   const int R = (Hq / Hkv) * Tq;
   const Launch launch{q, q_bf16, k_pages, v_pages, block_tables, seq_lens,
                       new_counts, Dest{out, lse, part_acc, part_ml, counters},
-                      B, Hkv, Tq, R, num_pages, page_size, npages, nsplit,
+                      B, Hkv, Tq, R, num_pages, page_size, npages, grid,
                       scale, softcap, static_cast<cudaStream_t>(stream)};
   return dispatch<QT_BF16>(QT_BF16, head_dim, R, rp, launch);
 }

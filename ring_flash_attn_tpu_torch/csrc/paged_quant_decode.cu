@@ -16,9 +16,10 @@
 // p * v_scale in two fp16 halves, in both cases.
 //
 // The loop, what bounds it on the H100 and the design are in
-// quant_decode.cuh: a lane's live chunks (64 tokens, never spanning a
-// page; PagedSrc) are dealt out to gridDim.x blocks and the partials
-// merged in order by the lane's last block.
+// quant_decode.cuh: the lanes' live chunks (64 tokens, never spanning a
+// page; PagedSrc) are spread over the grid's blocks by a plan made on the
+// device from seq_lens, and a group's pieces merged in order by its last
+// block.
 // The scale layout's unit dim exists for the TPU's tiling; the kernel
 // indexes (page, head, token) directly.
 
@@ -36,18 +37,14 @@ paged_quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                           const float* __restrict__ k_scales,
                           const float* __restrict__ v_scales,
                           const int* __restrict__ block_tables,
-                          const int* __restrict__ seq_lens, int Hkv, int R,
-                          int num_pages, int page_size, int npages,
+                          const int* __restrict__ seq_lens, int B, int Hkv,
+                          int R, int num_pages, int page_size, int npages,
                           float scale, float softcap, Dest dst) {
-  // with row groups blockIdx.y is kv head * nrg + row group
-  const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
-  const int h = RG ? blockIdx.y / nrg : blockIdx.y, b = blockIdx.z;
-  const PagedSrc src =
-      paged_src(k_pages, v_pages, k_scales, v_scales, block_tables, seq_lens,
-                b, h, Hkv, num_pages, page_size, npages);
-  decode_split<QT, QT == QT_INT8, D, RMAX, false, RG>(
-      src, q, q_bf16, (long long)b * Hkv + h, R, scale, softcap, dst,
-      RG ? blockIdx.y % nrg : 0);
+  const PagedLanes lanes{k_pages,      v_pages,  k_scales, v_scales,
+                         block_tables, seq_lens, Hkv,      num_pages,
+                         page_size,    npages};
+  decode_lanes<QT, QT == QT_INT8, D, RMAX, false, RG>(
+      lanes, B, Hkv, q, q_bf16, R, scale, softcap, dst);
 }
 
 // rfa_paged_quant_decode's launch: run<QT, RMAX, D, RG>() launches that
@@ -62,7 +59,7 @@ struct Launch {
   const int* block_tables;
   const int* seq_lens;
   Dest dst;
-  int B, Hkv, R, num_pages, page_size, npages, nsplit;
+  int B, Hkv, R, num_pages, page_size, npages, grid;
   float scale, softcap;
   cudaStream_t stream;
 
@@ -70,7 +67,7 @@ struct Launch {
   int run() const {
     auto kern = paged_quant_decode_kernel<QT, RMAX, D, RG>;
     constexpr int bytes = Smem<D, RMAX, 1>::BYTES;
-    if (nsplit > 1 && !merge_fits<D, RMAX, 1>(nsplit, RG ? RMAX : R))
+    if (grid > 1 && !merge_fits<D, RMAX, 1>(grid, RG ? RMAX : R))
       return cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {
@@ -79,12 +76,11 @@ struct Launch {
       if (e != cudaSuccess) return e;
       attr = true;
     }
-    const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
-    kern<<<dim3(nsplit, Hkv * nrg, B), nthreads<D, RMAX, 1>(), bytes,
-           stream>>>(q, q_bf16, static_cast<const unsigned char*>(k_pages),
-                     static_cast<const unsigned char*>(v_pages), k_scales,
-                     v_scales, block_tables, seq_lens, Hkv, R, num_pages,
-                     page_size, npages, scale, softcap, dst);
+    kern<<<grid, nthreads<D, RMAX, 1>(), bytes, stream>>>(
+        q, q_bf16, static_cast<const unsigned char*>(k_pages),
+        static_cast<const unsigned char*>(v_pages), k_scales, v_scales,
+        block_tables, seq_lens, B, Hkv, R, num_pages, page_size, npages,
+        scale, softcap, dst);
     return cudaGetLastError();
   }
 };
@@ -95,24 +91,24 @@ struct Launch {
 // byte per value, qtype 0 int8, 1 fp8 e4m3, 2 fp8 e5m2; scales
 // (num_pages, Hkv, 1, page_size) fp32; block_tables (B, npages) and
 // seq_lens (B,) int32; all contiguous; any page_size >= 1; head_dim D
-// 64, 128 or 256. out (B, Hq, Tq, D) and lse (B, Hq, Tq) fp32. With
-// nsplit > 1: part_acc, part_ml and counters laid out by rp as
-// rfa_quant_decode (quant_decode.cu) takes them. softcap <= 0 disables
-// capping. Returns cudaGetLastError().
+// 64, 128 or 256. out (B, Hq, Tq, D) and lse (B, Hq, Tq) fp32. `grid`
+// blocks share the work; with grid > 1, part_acc, part_ml and counters
+// laid out by rp as rfa_quant_decode (quant_decode.cu) takes them.
+// softcap <= 0 disables capping. Returns cudaGetLastError().
 extern "C" int rfa_paged_quant_decode(
     const void* q, int q_bf16, const void* k_pages, const void* v_pages,
     const float* k_scales, const float* v_scales, const int* block_tables,
     const int* seq_lens, float* out, float* lse, float* part_acc,
     float* part_ml, int* counters, int B, int Hq, int Hkv, int Tq,
     int head_dim, int num_pages, int page_size, int npages, int qtype,
-    int nsplit, int rp, float scale, float softcap, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || nsplit < 1 || num_pages < 1 || page_size < 1)
+    int grid, int rp, float scale, float softcap, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || grid < 1 || num_pages < 1 || page_size < 1)
     return cudaErrorInvalidValue;
   const int R = (Hq / Hkv) * Tq;
   const Launch launch{q, q_bf16, k_pages, v_pages, k_scales, v_scales,
                       block_tables, seq_lens,
                       Dest{out, lse, part_acc, part_ml, counters}, B, Hkv, R,
-                      num_pages, page_size, npages, nsplit, scale, softcap,
+                      num_pages, page_size, npages, grid, scale, softcap,
                       static_cast<cudaStream_t>(stream)};
   return dispatch<QT_INT8, QT_E4M3, QT_E5M2>(qtype, head_dim, R, rp, launch);
 }

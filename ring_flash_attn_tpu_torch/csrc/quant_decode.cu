@@ -15,13 +15,14 @@ namespace {
 
 using namespace rfa_qd;
 
+// Kv head h of lane b: the group's position 0 at token index base of the
+// (B, Hkv, S) cache, `len` live tokens.
 struct ContigSrc {
   const unsigned char* k;
   const unsigned char* v;
   const float* ks;
   const float* vs;
-  int n_chunks;
-  long long base;  // token index of the group's position 0
+  long long base;
   int len;
 
   __device__ __forceinline__ int count(int j) const {
@@ -35,6 +36,23 @@ struct ContigSrc {
   }
 };
 
+// Every lane holds the same `len` live tokens.
+struct ContigLanes {
+  const unsigned char* k;
+  const unsigned char* v;
+  const float* ks;
+  const float* vs;
+  int S, Hkv, len;
+
+  __device__ __forceinline__ int chunks(int) const {
+    return (len + C - 1) / C;
+  }
+
+  __device__ __forceinline__ ContigSrc src(int b, int h) const {
+    return ContigSrc{k, v, ks, vs, ((long long)b * Hkv + h) * S, len};
+  }
+};
+
 template <int QT, int RMAX, int D, bool RG>
 __global__ void __launch_bounds__(nthreads<D, RMAX, 1>(), 1)
 quant_decode_kernel(const void* __restrict__ q, int q_bf16,
@@ -43,16 +61,12 @@ quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ len_ptr, int len_val, int S,
-                    int Hkv, int R, float scale, float softcap, Dest dst) {
-  // with row groups blockIdx.y is kv head * nrg + row group
-  const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
-  const long long g =
-      (long long)blockIdx.z * Hkv + (RG ? blockIdx.y / nrg : blockIdx.y);
+                    int B, int Hkv, int R, float scale, float softcap,
+                    Dest dst) {
   const int len = min(max(len_ptr ? *len_ptr : len_val, 0), S);
-  const ContigSrc src{k_q, v_q, k_scale, v_scale, (len + C - 1) / C, g * S,
-                      len};
-  decode_split<QT, false, D, RMAX, false, RG>(
-      src, q, q_bf16, g, R, scale, softcap, dst, RG ? blockIdx.y % nrg : 0);
+  const ContigLanes lanes{k_q, v_q, k_scale, v_scale, S, Hkv, len};
+  decode_lanes<QT, false, D, RMAX, false, RG>(lanes, B, Hkv, q, q_bf16, R,
+                                              scale, softcap, dst);
 }
 
 // rfa_quant_decode's launch: run<QT, RMAX, D, RG>() launches that build
@@ -67,7 +81,7 @@ struct Launch {
   const int* len_ptr;
   int len_val;
   Dest dst;
-  int B, Hkv, R, S, nsplit;
+  int B, Hkv, R, S, grid;
   float scale, softcap;
   cudaStream_t stream;
 
@@ -75,7 +89,7 @@ struct Launch {
   int run() const {
     auto kern = quant_decode_kernel<QT, RMAX, D, RG>;
     constexpr int bytes = Smem<D, RMAX, 1>::BYTES;
-    if (nsplit > 1 && !merge_fits<D, RMAX, 1>(nsplit, RG ? RMAX : R))
+    if (grid > 1 && !merge_fits<D, RMAX, 1>(grid, RG ? RMAX : R))
       return cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {
@@ -84,12 +98,10 @@ struct Launch {
       if (e != cudaSuccess) return e;
       attr = true;
     }
-    const int nrg = RG ? (R + RMAX - 1) / RMAX : 1;
-    kern<<<dim3(nsplit, Hkv * nrg, B), nthreads<D, RMAX, 1>(), bytes,
-           stream>>>(q, q_bf16, static_cast<const unsigned char*>(k_q),
-                     static_cast<const unsigned char*>(v_q), k_scale,
-                     v_scale, len_ptr, len_val, S, Hkv, R, scale, softcap,
-                     dst);
+    kern<<<grid, nthreads<D, RMAX, 1>(), bytes, stream>>>(
+        q, q_bf16, static_cast<const unsigned char*>(k_q),
+        static_cast<const unsigned char*>(v_q), k_scale, v_scale, len_ptr,
+        len_val, S, B, Hkv, R, scale, softcap, dst);
     return cudaGetLastError();
   }
 };
@@ -100,28 +112,29 @@ struct Launch {
 // value, qtype 0 int8, 1 fp8 e4m3, 2 fp8 e5m2; k_scale, v_scale
 // (B, Hkv, S) fp32; len_ptr a device int32 or null (then len_val); all
 // contiguous; head_dim D 64, 128 or 256. out (B, Hq, Tq, D) and lse
-// (B, Hq, Tq) fp32. With nsplit > 1: part_acc (G, nsplit, rp, D) and
-// part_ml (G, nsplit, rp, 2) fp32 scratch and counters (G) int32, zero
-// before the launch and zero after it (not read with nsplit = 1): with
-// R = (Hq / Hkv) * Tq rows a kv head, G = B * Hkv and rp = R when R <=
-// max_rows(D), else G = B * Hkv * ceil(R / max_rows(D)) row groups and
-// rp = max_rows(D); any other rp is refused. softcap <= 0 disables
-// capping. Returns cudaGetLastError().
+// (B, Hq, Tq) fp32. `grid` blocks share the work (quant_decode.cuh::Plan):
+// with grid > 1, part_acc (G + grid, rp, D) and part_ml (G + grid, rp, 2)
+// fp32 scratch and counters (G) int32, zero before the launch and zero
+// after it (not read with grid = 1): with R = (Hq / Hkv) * Tq rows a kv
+// head, G = B * Hkv groups and rp = R when R <= max_rows(D), else G =
+// B * Hkv * ceil(R / max_rows(D)) row groups and rp = max_rows(D); any
+// other rp is refused. softcap <= 0 disables capping. Returns
+// cudaGetLastError().
 extern "C" int rfa_quant_decode(const void* q, int q_bf16, const void* k_q,
                                 const void* v_q, const float* k_scale,
                                 const float* v_scale, const int* len_ptr,
                                 int len_val, float* out, float* lse,
                                 float* part_acc, float* part_ml,
                                 int* counters, int B, int Hq, int Hkv, int Tq,
-                                int head_dim, int S, int qtype, int nsplit,
+                                int head_dim, int S, int qtype, int grid,
                                 int rp, float scale, float softcap,
                                 void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || S < 1 || nsplit < 1)
+  if (Hkv <= 0 || Hq % Hkv || S < 1 || grid < 1)
     return cudaErrorInvalidValue;
   const int R = (Hq / Hkv) * Tq;
   const Launch launch{q, q_bf16, k_q, v_q, k_scale, v_scale, len_ptr,
                       len_val, Dest{out, lse, part_acc, part_ml, counters},
-                      B, Hkv, R, S, nsplit, scale, softcap,
+                      B, Hkv, R, S, grid, scale, softcap,
                       static_cast<cudaStream_t>(stream)};
   return dispatch<QT_INT8, QT_E4M3, QT_E5M2>(qtype, head_dim, R, rp, launch);
 }

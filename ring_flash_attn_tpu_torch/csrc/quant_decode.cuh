@@ -1,4 +1,4 @@
-// Decode attention over a KV cache split over blocks: the loop that kernels
+// Decode attention over a KV cache spread over blocks: the loop that kernels
 // B4 (contiguous quantized cache, quant_decode.cu), B5 (bf16 pages,
 // paged_decode.cu) and B6 (quantized pages, paged_quant_decode.cu) share,
 // with the merge of a group's partials in the same launch.
@@ -18,13 +18,18 @@
 // What bounds it on the H100: bytes. A token's K and V are used by only the
 // R rows of its group (4 at Llama-3-8B widths), about two operations per
 // byte (one for bf16), so the least time is one read of the live cache and
-// scales at 3.35 TB/s. The design keeps cache bytes in flight all the time
-// and the arithmetic well below them:
+// scales at 3.35 TB/s. The design keeps cache bytes in flight on every SM
+// all the time and the arithmetic well below them:
 //
-//  - one block an SM, each running NP pipelines side by side (pipes());
-//    a group's 64-token chunks are dealt out in turn to its splits'
-//    pipelines (the plan, ops/quant_decode_cuda.py::num_splits, fills the
-//    SMs from shapes alone), so a short lane still spreads;
+//  - a work plan made on the device from the live lengths (Plan): every
+//    group's live 64-token chunks on one line, cut into equal runs, one a
+//    block, one block an SM, so that a long lane spreads over the card and
+//    a dead or short one takes no block of its own; the launcher sizes the
+//    grid from shapes alone (ops/quant_decode_cuda.py::plan_grid) and
+//    never syncs;
+//  - a block runs NP pipelines side by side (pipes()) and walks its run
+//    piece by piece, a piece being its part of one group, whose chunks are
+//    dealt out in turn to the pipelines;
 //  - a pipeline is a producer warp and NCW consumer warps over a ring of
 //    NST stages in shared memory. One producer thread issues a chunk's K
 //    and V rows as two bulk copies (contiguous in both sources: ContigSrc,
@@ -32,7 +37,7 @@
 //    stage's full mbarrier; the warp's lanes copy the 2 x 64 scales with
 //    cp.async (zero past the live tokens), arriving on the same barrier
 //    when they land, and look up 32 chunks' pages at once. It waits only
-//    for a stage's empty barrier;
+//    for a stage's empty barrier, and runs on into the next piece;
 //  - consumer warps never meet inside the loop: each owns 16 tokens of a
 //    chunk and keeps its own online-softmax state per row, waits on the
 //    full barrier and arrives on the empty one. QK and PV run on tensor
@@ -44,12 +49,13 @@
 //    QK_INT8 (B6 on int8 pages) q is quantized per row to int8 in the
 //    block and QK is an exact s8 x s8 -> s32 product times
 //    q_scale * k_scale, the function the TPU kernel computes;
-//  - the warps' states merge once, at the end of the block, in a fixed
-//    order; with one split the block writes (out, lse), otherwise its
+//  - the warps' states meet at the end of each piece, in a fixed order; a
+//    piece that is its whole group writes (out, lse), otherwise its
 //    partial, and the group's last block to finish (a counter per group,
-//    after a fence; the last block resets it to 0) merges the partials in
-//    split order, all its loads issued at once: the result does not depend
-//    on which block finished first, and there is no second launch.
+//    between fences; the last block resets it to 0) merges the pieces in
+//    piece order, all its loads issued at once: the result depends only
+//    on the lengths, not on which block finished first, and there is no
+//    second launch.
 //
 // The TPU kernels' sequential (B, n_blk) grid, all-heads block-diagonal
 // matmul, 128-multiple blocks and pages_per_step are shapes of that
@@ -58,9 +64,9 @@
 // Head dims D 64, 128 and 256 (a template constant), and any number of
 // rows: a block serves at most max_rows(D) of a group's R rows (16; 8 at
 // D = 256, where the PV accumulator of 16 rows would take 256 registers a
-// lane); past it (RG) the launch's grid takes one block row per row
-// group, the row groups of a (batch, kv head) group side by side in
-// launch order, so that their reads of a chunk meet in L2.
+// lane); past it (RG) each row group is a group of the plan, the row
+// groups of a (batch, kv head) side by side on its line, so that their
+// reads of a chunk meet in L2.
 
 #pragma once
 
@@ -94,7 +100,8 @@ __host__ __device__ constexpr int max_rows(int D) { return D > 128 ? 8 : 16; }
 // Stages of a pipeline's chunk ring: a stage is 2 x 64 rows of D values
 // (16 KB of int8/fp8 K+V at D = 128, 32 KB of bf16), and the rings of an
 // SM's pipelines keep far more than the ~38 KB in flight that 3.35 TB/s
-// needs at ~1.5 us of loaded latency: 3 stages up to 16 KB, else 2.
+// needs at ~1.5 us of loaded latency: 3 stages up to 16 KB, else 2 (on
+// the H100 6 stages at D = 64 and 3 at D = 256 measured no faster).
 template <int D, int EB>
 __host__ __device__ constexpr int stages() {
   return D * EB <= 128 ? 3 : 2;
@@ -103,22 +110,42 @@ __host__ __device__ constexpr int stages() {
 // Pipelines a block runs side by side, each a producer warp and NCW
 // consumer warps over its own ring and its own share of the block's
 // chunks; one block an SM. As many as the registers allow at RMAX rows
-// (65536 / threads: 136 a thread at 3 pipelines, 204 at 2; 4 pipelines,
-// at 96, spilled and lost): 3 up to 8 rows and 64 fp32 of O a lane, else
-// 2 (16 rows at 64 spill at 3: their QK tiles and p fragments are those
-// of 16 rows whatever D); and the shared memory (at D = 128, 3 pipelines
-// of int8/fp8 at ~51 KB, of bf16 at ~67 KB; a bf16 ring at D = 256, 2
-// stages of 64 KB, leaves room for one). Their states meet in shared
-// memory at the end of the block, so a group has a third as many
-// partials to merge as with a block a pipeline.
+// (an SM's four schedulers hold 16384 registers each, so a thread gets
+// 16384 / (32 ceil(warps / 4)): 128 at 3 pipelines, 15 warps; 4
+// pipelines, at 96, spilled and lost): 3 up to 8 rows and 64 fp32 of O a
+// lane below D = 256, else 2 (16 rows at 64 spill at 128 registers: their
+// QK tiles and p fragments are those of 16 rows whatever D); and the
+// shared memory (at D = 128, 3 pipelines of int8/fp8 at ~51 KB, of bf16 at
+// ~67 KB; a bf16 ring at D = 256, 2 stages of 64 KB, leaves room for
+// one). Their states meet in shared memory at the end of each piece, so a
+// group has a third as many partials to merge as with a block a pipeline.
+// 8 rows at 64 take 2 (the loop over pieces spilled at 3).
 template <int D, int RMAX, int EB>
 __host__ __device__ constexpr int pipes() {
-  return D * EB >= 512 ? 1 : RMAX <= 8 && D * RMAX <= 1024 ? 3 : 2;
+  return D * EB >= 512 ? 1
+         : (RMAX == 4 && D < 256) || (RMAX == 8 && D == 128) ? 3
+                                                              : 2;
 }
+
+// Two pipelines take a warpgroup of producers (two of its warps idle), so
+// that each pipeline's consumers are a warpgroup of their own: the
+// producers give registers back (setmaxnreg, 56 a thread) and the
+// consumers take 224 where 10 warps would hold 168 (16 rows at 64 and 128,
+// 4 and 8 rows of int8/fp8 at 256 spilled there).
+template <int D, int RMAX, int EB>
+__host__ __device__ constexpr bool wg_layout() {
+  return pipes<D, RMAX, EB>() == 2;
+}
+// setmaxnreg only moves the registers the launch gave: each of an SM's
+// four schedulers holds a producer warp and two consumer warps at 168
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+static_assert(PRODUCER_REGS + 2 * CONSUMER_REGS <= 3 * 168,
+              "setmaxnreg.inc would wait for registers that never come");
 
 template <int D, int RMAX, int EB>
 __host__ __device__ constexpr int nthreads() {
-  return 32 * (NCW + 1) * pipes<D, RMAX, EB>();
+  constexpr int NP = pipes<D, RMAX, EB>();
+  return 32 * (NCW * NP + (wg_layout<D, RMAX, EB>() ? 4 : NP));
 }
 
 // A lane's share of a D-wide fp32 row in the merge, D / 32 floats: a
@@ -199,7 +226,8 @@ struct Smem {
   static constexpr int SC = V + NST * C * RB;       // f32 [NST][2][C]
   static constexpr int P = SC + NST * 2 * C * 4;    // f32 [NCW][RMAX][CT]
   static constexpr int ML = P + NCW * RMAX * CT * 4;  // f32 [2][NCW][RMAX]
-  static constexpr int PIPE = (ML + 2 * NCW * RMAX * 4 + 127) / 128 * 128;
+  static constexpr int INFO = ML + 2 * NCW * RMAX * 4;  // s32x2 [NST]
+  static constexpr int PIPE = (INFO + NST * 8 + 127) / 128 * 128;
   // the block's part
   static constexpr int Q = NP * PIPE;               // f32 [RMAX][D]
   static constexpr int Q8 = Q + RMAX * D * 4;       // s8 [RMAX][D]
@@ -207,25 +235,37 @@ struct Smem {
   static constexpr int PRE = QSC + RMAX * 4;        // f32 [RMAX]
   static constexpr int BND = PRE + RMAX * 4;        // s32 [RMAX]
   static constexpr int QF = BND + RMAX * 4;  // u32x2 [D/16][RMAX/4][32]
-  static constexpr int LAST = QF + D / 16 * (RMAX / 4) * 32 * 8;  // s32
-  static constexpr int BYTES = LAST + 16;
-  // the end of the block reuses each pipeline's K and V stages for its
-  // warps' sums [NCW][RMAX][D], and the first's for the merge's m values
-  // [nsplit][R]
+  static constexpr int CTX = QF + D / 16 * (RMAX / 4) * 32 * 8;  // Ctx
+  static constexpr int DONE = CTX + 320;            // s32: pieces finished
+  static constexpr int END = DONE + 16;
+  // The end of a piece: the warps' sums [NW][RMAX][D], and the merge's m
+  // values [pieces][R] over the first of them, in a part of their own
+  // where it fits (OWN_RED: the producers then run on into the next
+  // piece), else in each pipeline's K and V stages (warp w's in pipeline
+  // w / NCW's), which the producers then wait for (bf16 at D = 128 with 3
+  // pipelines).
+  static constexpr int RED_BYTES = NCW * NP * RMAX * D * 4;
+  static constexpr bool OWN_RED = END + RED_BYTES <= 227 * 1024;
+  static constexpr int RED = END;
+  static constexpr int BYTES = OWN_RED ? END + RED_BYTES : END;
   static constexpr int KV_BYTES = 2 * NST * C * RB;
-  static_assert(NCW * RMAX * D * 4 <= KV_BYTES, "reduction must fit");
+  // the room of the merge's m values
+  static constexpr int MS_BYTES = OWN_RED ? RED_BYTES : KV_BYTES;
+  static_assert(OWN_RED || NCW * RMAX * D * 4 <= KV_BYTES,
+                "reduction must fit");
   static_assert(2 * NST * 8 <= K, "barriers must fit");
   static_assert(BYTES <= 227 * 1024, "one block an SM");
 };
 
-// Where a group's result goes: (out, lse) rows g * R + r when the group
-// has one split; otherwise each split's partial (acc, (m, l)) at
-// part_acc[((g * nsplit + split) * R + r) * D + d] and
-// part_ml[((g * nsplit + split) * R + r) * 2 + {0, 1}], merged into
-// (out, lse) by the group's last block, which counters[g] (0 between
-// launches) tells. With row groups (RG) g is the row group's own index,
-// (batch, kv head) group * ceil(R / RMAX) + row group, and its partials
-// take RMAX rows, the last row group's too.
+// Where a piece's result goes (see Plan): (out, lse) rows g * R + r when
+// the piece is its whole group; otherwise its partial (acc, (m, l)) in
+// slot `slot` = group + block (slots are distinct: a block's run lies
+// after every earlier block's), part_acc[(slot * PS + r) * D + d] and
+// part_ml[(slot * PS + r) * 2 + {0, 1}], merged into (out, lse) by the
+// group's last block, which counters[group] (0 between launches) tells.
+// With row groups (RG) a group is a row group, (batch, kv head) group *
+// ceil(R / RMAX) + row group, and its partials take PS = RMAX rows, the
+// last row group's too.
 struct Dest {
   float* out;
   float* lse;
@@ -233,6 +273,20 @@ struct Dest {
   float* part_ml;
   int* counters;
 };
+
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+// x as the compiler cannot see it. A thread's place made from
+// opaque(threadIdx.x) inside a loop, and all that depends on it, stays in
+// the loop: nothing of it is hoisted out to hold registers through the
+// rest (the chunk loop, whose registers are the loop's limit; without it
+// ptxas spilled 4 more bytes at 256 and 4 to 8 more at 64).
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
 
 __device__ __forceinline__ float warp_max(float x, int from, int to = 32) {
 #pragma unroll
@@ -332,49 +386,36 @@ __device__ __forceinline__ int own_row(int o, int t) {
   return RMAX == 4 ? 2 * (t & 1) + o : 8 * (o / 2) + 2 * t + o % 2;
 }
 
-// Warp w's sums [RMAX][D] at the end of the block: in its pipeline's K
-// and V stages.
+// Warp w's sums [RMAX][D] at the end of a piece (Smem::OWN_RED).
 template <int D, int RMAX, int EB>
 __device__ __forceinline__ float* red_of(unsigned char* smem, int w) {
   using S = Smem<D, RMAX, EB>;
+  if constexpr (S::OWN_RED)
+    return reinterpret_cast<float*>(smem + S::RED) + w * RMAX * D;
   return reinterpret_cast<float*>(smem + (w / NCW) * S::PIPE + S::K) +
          (w % NCW) * RMAX * D;
 }
 
-// body(c) for each of the D columns c over n threads, thread t taking
-// columns t, t + n, ...
-template <int D, int N, class F>
-__device__ __forceinline__ void each_column(int t, F body) {
-  if constexpr (N >= D) {
-    if (t < D) body(t);
-  } else {
-    for (int c = t; c < D; c += N) body(c);
-  }
-}
-
-// Merge the nsplit partials of group g into (out, lse) rows row0 ..
-// row0 + R - 1, in split order: the group's last block, consumer threads
-// only. A split's partial rows are PS apart (PS = R but with row groups).
-// All loads are issued at once: every (split, row)'s m into ms, and warp
-// w's splits w, w + NW, ... (UNR of them) into registers, D / 32 columns
-// a lane. Then warp r takes row r's maximum, each warp weighs and adds
-// its splits, and the warps' sums meet in shared memory, in a fixed
+// Merge the np pieces of group g, in slots first / PS .. (their partial
+// rows from `first`, PS rows a piece), into (out, lse) rows row0 ..
+// row0 + R - 1, in piece order: the group's last block, consumer threads
+// only. All loads are issued at once: every (piece, row)'s m into ms, and
+// warp w's pieces w, w + NW, ... (UNR of them) into registers, D / 32
+// columns a lane. Then warp r takes row r's maximum, each warp weighs and
+// adds its pieces, and the warps' sums meet in shared memory, in a fixed
 // order. m_s holds RMAX floats, l_w NW * RMAX.
-template <int D, int RMAX, int EB, bool RG>
+template <int D, int RMAX, int EB>
 __device__ __forceinline__ void merge_group(const Dest& dst, long long g,
-                                            long long row0, int nsplit,
-                                            int R, int PS,
+                                            long long row0, long long first,
+                                            int np, int R, int PS,
                                             unsigned char* smem, float* m_s,
                                             float* l_w) {
   constexpr int NW = NCW * pipes<D, RMAX, EB>();
   constexpr int UNR = D * RMAX <= 1024 ? 2 : 1;
-  float* ms = reinterpret_cast<float*>(smem + Smem<D, RMAX, EB>::K);
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const long long first = g * nsplit * PS;  // + sp * PS + r
-  for (int i = t; i < nsplit * R; i += 32 * NW)
-    ms[i] = __ldcg(dst.part_ml +
-                   (RG ? first + (long long)(i / R) * PS + i % R : first + i) *
-                       2);
+  float* ms = red_of<D, RMAX, EB>(smem, 0);
+  const int t = opaque(threadIdx.x), warp = t / 32, lane = t % 32;
+  for (int i = t; i < np * R; i += 32 * NW)
+    ms[i] = __ldcg(dst.part_ml + (first + (long long)(i / R) * PS + i % R) * 2);
   Part<D> acc[RMAX];
   float l[RMAX];
 #pragma unroll
@@ -382,50 +423,42 @@ __device__ __forceinline__ void merge_group(const Dest& dst, long long g,
     part_zero(acc[r]);
     l[r] = 0.f;
   }
-  for (int sp0 = warp; sp0 < nsplit; sp0 += NW * UNR) {
+  auto row_maxima = [&]() {  // once every m has landed
+    hop::bar_sync(CONSUMER_BAR, 32 * NW);
+    for (int r = warp; r < R; r += NW) {
+      float m = -INFINITY;
+      for (int sp = lane; sp < np; sp += 32) m = fmaxf(m, ms[sp * R + r]);
+      m = warp_max(m, 1);
+      if (lane == 0) m_s[r] = m;
+    }
+    hop::bar_sync(CONSUMER_BAR, 32 * NW);
+  };
+  for (int sp0 = warp; sp0 < np; sp0 += NW * UNR) {
     Part<D> a[UNR][RMAX];
     float li[UNR][RMAX];
 #pragma unroll
     for (int u = 0; u < UNR; ++u)
 #pragma unroll
       for (int r = 0; r < RMAX; ++r)
-        if (r < R && sp0 + NW * u < nsplit) {
+        if (r < R && sp0 + NW * u < np) {
           const long long row = first + (long long)(sp0 + NW * u) * PS + r;
           part_ld(a[u][r], dst.part_acc + row * D, lane);
           li[u][r] = __ldcg(dst.part_ml + row * 2 + 1);
         }
-    if (sp0 == warp) {  // the row maxima, once every m has landed
-      hop::bar_sync(CONSUMER_BAR, 32 * NW);
-      for (int r = warp; r < R; r += NW) {
-        float m = -INFINITY;
-        for (int sp = lane; sp < nsplit; sp += 32) m = fmaxf(m, ms[sp * R + r]);
-        m = warp_max(m, 1);
-        if (lane == 0) m_s[r] = m;
-      }
-      hop::bar_sync(CONSUMER_BAR, 32 * NW);
-    }
+    if (sp0 == warp) row_maxima();
 #pragma unroll
     for (int u = 0; u < UNR; ++u)
 #pragma unroll
       for (int r = 0; r < RMAX; ++r)
-        if (r < R && sp0 + NW * u < nsplit) {
+        if (r < R && sp0 + NW * u < np) {
           const float m_i = ms[(sp0 + NW * u) * R + r];
-          // an empty split, or a row with no live token, weighs nothing
+          // an empty piece, or a row with no live token, weighs nothing
           const float w = m_i > -INFINITY ? __expf(m_i - m_s[r]) : 0.f;
           part_axpy(acc[r], a[u][r], w);
           l[r] += li[u][r] * w;
         }
   }
-  if (warp >= nsplit) {  // no split of its own: it still takes the maxima
-    hop::bar_sync(CONSUMER_BAR, 32 * NW);
-    for (int r = warp; r < R; r += NW) {
-      float m = -INFINITY;
-      for (int sp = lane; sp < nsplit; sp += 32) m = fmaxf(m, ms[sp * R + r]);
-      m = warp_max(m, 1);
-      if (lane == 0) m_s[r] = m;
-    }
-    hop::bar_sync(CONSUMER_BAR, 32 * NW);
-  }
+  if (warp >= np) row_maxima();  // no piece of its own: it still takes them
   hop::bar_sync(CONSUMER_BAR, 32 * NW);  // ms is read; sums may overlap it
   float* red = red_of<D, RMAX, EB>(smem, warp);
 #pragma unroll
@@ -435,46 +468,230 @@ __device__ __forceinline__ void merge_group(const Dest& dst, long long g,
       if (lane == 0) l_w[warp * RMAX + r] = l[r];
     }
   hop::bar_sync(CONSUMER_BAR, 32 * NW);
-  each_column<D, 32 * NW>(t, [&](int c) {
-    for (int r = 0; r < R; ++r) {
-      float sum = 0.f, lsum = 0.f;
+  for (int i = t; i < R * D; i += 32 * NW) {  // a (row, column) a thread
+    const int r = i / D, c = i % D;
+    float sum = 0.f, lsum = 0.f;
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        sum += red_of<D, RMAX, EB>(smem, w)[r * D + c];
-        lsum += l_w[w * RMAX + r];
-      }
-      const long long row = row0 + r;
-      dst.out[row * D + c] = lsum > 0.f ? sum / lsum : 0.f;
-      if (c == 0)
-        dst.lse[row] = lsum > 0.f ? m_s[r] + logf(lsum) : RFA_NEG_INF;
+    for (int w = 0; w < NW; ++w) {
+      sum += red_of<D, RMAX, EB>(smem, w)[r * D + c];
+      lsum += l_w[w * RMAX + r];
     }
-  });
+    const long long row = row0 + r;
+    dst.out[row * D + c] = lsum > 0.f ? sum / lsum : 0.f;
+    if (c == 0)
+      dst.lse[row] = lsum > 0.f ? m_s[r] + logf(lsum) : RFA_NEG_INF;
+  }
   if (t == 0) dst.counters[g] = 0;  // no other block of the group is left
 }
 
-// One block's share of group g (gridDim.x blocks share it), nthreads()
-// threads: NP pipelines. Src gives the group's live chunks:
-//   n_chunks; k, v (bytes), ks, vs (fp32 scales; not read for QT_BF16);
-//   locate(j, tok0, valid): chunk j starts at token index tok0 of the k/v
-//   arrays (byte offset tok0 * D * value_bytes, scale offset tok0) and
-//   holds `valid` live tokens (1..C); count(j): that `valid` alone;
-//   with BOUNDS, pos(j): chunk j's first position in the group's sequence,
-//   and bound(r): row r of the group sees positions below it only.
-// q rows g * R .. g * R + R of the (rows, D) query; with RG (R > RMAX)
-// the block takes row group rg of them, rows rg * RMAX .. + RMAX.
+// The launch's work plan, made on the device from what the kernel reads
+// (the lanes' live lengths: seq_lens, or B4's length), by every warp the
+// same way, so that the launcher needs no host sync; ops/
+// quant_decode_cuda.py::work_plan is its twin, and the tests hold it.
+// Group g = b * GL + x is lane b's x-th (kv head x / nrg, row group
+// x % nrg); each of a lane's GL groups holds the lane's n(b) live chunks.
+// The live groups lie one after another on a line of units, group g
+// taking K units for the fixed cost of a piece (its q, the warps' meeting,
+// its write) and then one a chunk; the line's W units are cut into `used`
+// runs of equal length, block p taking units p W / used .. (p + 1) W /
+// used, so that no SM idles while a long lane streams (the balanced
+// split of FlashInfer, arXiv 2501.01005, made on the card) and a block's
+// many short groups count for what they cost. `used` is at least the live
+// groups, so that a group never waits for a block, up to one block a
+// MIN_CHUNKS live chunks, at most the grid, and a multiple of the live
+// groups when all live lanes are equal (B4 always), so that no run then
+// crosses the end of a group. A block's run is cut by group ends into
+// pieces; the pieces of a group lie in consecutive blocks.
+constexpr int MIN_CHUNKS = 4;
+
+// K: a piece's fixed cost in chunks, about that of 32 KB of K and V
+template <int D, int EB>
+__host__ __device__ constexpr int piece_cost() {
+  return D * EB >= 512 ? 1 : 512 / (D * EB);
+}
+
+// a / b for 0 <= a < 2^31, 0 < b: a float estimate, made exact. An
+// integer division costs ~200 cycles on the H100, and the plan sits in
+// front of a block's first load.
+__device__ __forceinline__ int udiv(int a, int b) {
+  int q = static_cast<int>(__fdividef(static_cast<float>(a),
+                                      static_cast<float>(b)));
+  while (q > 0 && q * b > a) --q;
+  while ((q + 1) * b <= a) ++q;
+  return q;
+}
+
+struct Plan {
+  int W;     // units in all (the launcher keeps them below 2^31)
+  int used;  // blocks with a run (the others only clear dead lanes)
+  int K;
+  int q, r;  // W = q used + r
+
+  __device__ __forceinline__ int start(int p) const {
+    return p * q + udiv(p * r, used);  // p W / used
+  }
+  // the block whose run holds unit x < W
+  __device__ __forceinline__ int block_of(int x) const {
+    int p = min(used - 1, static_cast<int>(static_cast<float>(x) * used /
+                                           static_cast<float>(W)));
+    while (p > 0 && start(p) > x) --p;
+    while (p + 1 < used && start(p + 1) <= x) ++p;
+    return p;
+  }
+};
+
+// A live lane's units: its GL groups of K + n(b) units each.
+__device__ __forceinline__ int lane_units(int n, int GL, int K) {
+  return n > 0 ? (n + K) * GL : 0;
+}
+
+template <class Lanes>
+__device__ __forceinline__ Plan make_plan(const Lanes& lanes, int B, int GL,
+                                          int K, int lane) {
+  int w = 0, live = 0, nmin = 0x7fffffff, nmax = 0;
+  for (int b = lane; b < B; b += 32) {
+    const int n = lanes.chunks(b);
+    w += n;
+    if (n > 0) {
+      ++live;
+      nmin = min(nmin, n);
+      nmax = max(nmax, n);
+    }
+  }
+  w = __reduce_add_sync(0xffffffff, w);
+  live = __reduce_add_sync(0xffffffff, live);
+  nmin = __reduce_min_sync(0xffffffff, nmin);
+  nmax = __reduce_max_sync(0xffffffff, nmax);
+  const int glive = live * GL;
+  Plan plan{(w + live * K) * GL, 0, K, 0, 0};
+  if (live > 0) {
+    int used = max(glive, (w * GL + MIN_CHUNKS - 1) / MIN_CHUNKS);
+    used = min(used, static_cast<int>(gridDim.x));
+    if (nmin == nmax && used >= glive)
+      used -= used - udiv(used, glive) * glive;  // a multiple of glive
+    plan.used = used;
+    plan.q = udiv(plan.W, used);
+    plan.r = plan.W - plan.q * used;
+  }
+  return plan;
+}
+
+// Where a block stands in its run: the unit pos of chunk j of group x of
+// lane b (n chunks a group there), and the run's end hi.
+struct Walk {
+  int pos, hi, b, x, j, n;
+};
+
+// Block p's first chunk (a warp's lanes scan the lanes 32 at a time).
+template <class Lanes>
+__device__ __forceinline__ Walk walk_start(const Lanes& lanes, int B, int GL,
+                                           const Plan& plan, int p,
+                                           int lane) {
+  const int lo = plan.start(p), hi = plan.start(p + 1);
+  int base = 0;
+  for (int c = 0; c < B; c += 32) {
+    const int n = c + lane < B ? lanes.chunks(c + lane) : 0;
+    const int v = lane_units(n, GL, plan.K);
+    int incl = v;
+#pragma unroll
+    for (int sft = 1; sft < 32; sft *= 2) {
+      const int u = __shfl_up_sync(0xffffffff, incl, sft);
+      if (lane >= sft) incl += u;
+    }
+    const unsigned hit = __ballot_sync(0xffffffff, base + incl > lo);
+    if (hit) {
+      const int f = __ffs(hit) - 1;
+      const int off = lo - base - __shfl_sync(0xffffffff, incl - v, f);
+      const int nf = __shfl_sync(0xffffffff, n, f);
+      const int x = udiv(off, nf + plan.K), k = off - x * (nf + plan.K);
+      // a run that starts on a group's fixed cost takes its first chunk
+      const int j = max(k - plan.K, 0);
+      return Walk{lo + j - (k - plan.K), hi, c + f, x, j, nf};
+    }
+    base += __shfl_sync(0xffffffff, incl, 31);
+  }
+  return Walk{hi, hi, B, 0, 0, 0};  // no run
+}
+
+// The chunks of the piece at w, and w moved past them (and past the next
+// group's fixed cost).
+__device__ __forceinline__ int piece_chunks(const Walk& w) {
+  return min(w.n - w.j, w.hi - w.pos);
+}
+
+template <class Lanes>
+__device__ __forceinline__ void walk_on(const Lanes& lanes, int B, int GL,
+                                        int K, Walk& w) {
+  const int cnt = piece_chunks(w);
+  w.pos += cnt;
+  w.j += cnt;
+  if (w.j < w.n || w.pos >= w.hi) return;
+  w.j = 0;
+  w.pos += K;
+  if (++w.x < GL) return;
+  w.x = 0;
+  do {
+    ++w.b;
+  } while (w.b < B && (w.n = lanes.chunks(w.b)) == 0);
+}
+
+// What the consumers take from one piece to the next, in shared memory
+// (so that none of it holds a register through the chunk loop): the
+// lanes, the shapes, q, the destination, the plan and their walk (thread
+// 0 moves it).
+// A group whose last piece this block wrote: its merge waits for the end
+// of the block's run (a merge inside the loop over pieces, beside the
+// chunk loop, made ptxas spill in every build). A run's middle pieces are
+// whole groups, so a block has at most two merges.
+struct Merge {
+  long long g, row0, first;
+  int np, R, PS;
+};
+
+template <class Lanes>
+struct Ctx {
+  Lanes lanes;
+  int B, Hkv, GL, nrg, R_group;
+  Plan plan;
+  Walk walk;
+  const void* q;
+  int q_bf16;
+  float scale;
+  Dest dst;
+  Merge merges[2];
+  int n_merges;
+};
+
+// The launch's share of block blockIdx.x, nthreads() threads: NP
+// pipelines. Lanes gives the lanes' live chunks and each group's source:
+//   chunks(b): lane b's live chunks (every kv head's alike);
+//   src(b, h): lane b's kv head h, with locate(j, tok0, valid): chunk j
+//   starts at token index tok0 of the k/v arrays (byte offset
+//   tok0 * D * value_bytes, scale offset tok0) and holds `valid` live
+//   tokens (1..C); count(j): that `valid` alone; with BOUNDS, pos(j):
+//   chunk j's first position in the lane, and bound(r): row r of the group
+//   sees positions below it only.
+// q rows (b * Hkv + h) * R .. + R of the (rows, D) query; with RG
+// (R > RMAX) a group takes row group rg of them, rows rg * RMAX .. + RMAX.
+// The block walks its run piece by piece (Plan): the consumers load the
+// piece's q, their pipelines take its chunks in turn, the warps' states
+// meet, and the piece writes (out, lse) or its partial; the producers run
+// ahead into the next piece (without Smem::OWN_RED, once the consumers are
+// done with the stages, which the end of a piece then reuses).
 template <int QT, bool QK_INT8, int D, int RMAX, bool BOUNDS = false,
-          bool RG = false, class Src>
-__device__ __forceinline__ void decode_split(const Src& src,
+          bool RG = false, class Lanes>
+__device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
+                                             int Hkv,
                                              const void* __restrict__ q,
-                                             int q_bf16, long long g,
-                                             int R_group, float scale,
-                                             float softcap, const Dest& dst,
-                                             int rg = 0) {
+                                             int q_bf16, int R_group,
+                                             float scale, float softcap,
+                                             const Dest& dst) {
   constexpr int EB = value_bytes<QT>();
   constexpr bool SCALES = QT != QT_BF16;
   using S = Smem<D, RMAX, EB>;
   constexpr int NST = S::NST, RB = S::RB, NP = S::NP;
   constexpr int NW = NCW * NP, NCONS = 32 * NW;  // consumer warps, threads
+  constexpr bool WG = wg_layout<D, RMAX, EB>();
   constexpr bool BF = QT == QT_BF16;
   constexpr int NT = RMAX / 4;                    // n-tiles of 8 columns
   constexpr int NKT = QK_INT8 ? D / 32 : D / 16;  // k-tiles of QK
@@ -482,14 +699,10 @@ __device__ __forceinline__ void decode_split(const Src& src,
   constexpr int MT = D / 16;                      // m-tiles of PV
   // bf16 K rows are read in blocks of BK elements, BP pieces of 8 a lane
   constexpr int BK = D < 128 ? D : 128, BP = BK / 32;
-  // the block's rows: R of them from the group's row r0, q and out rows
-  // from g * R_group + r0 (spelled out where used, so that a build
-  // without row groups computes g * R there as it always has); its
-  // partials and counter are group gd's, PS rows a split
-  const int r0 = RG ? rg * RMAX : 0;
-  const int R = RG ? min(RMAX, R_group - r0) : R_group;
-  const long long gd = RG ? g * ((R_group + RMAX - 1) / RMAX) + rg : g;
-  const int PS = RG ? RMAX : R_group;
+  // a group is a (lane, kv head) pair, or with RG one of its nrg row groups
+  const int nrg = RG ? (R_group + RMAX - 1) / RMAX : 1;
+  const int GL = Hkv * nrg;  // groups a lane
+  constexpr int K = piece_cost<D, EB>();
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + S::Q);
   signed char* q8 = reinterpret_cast<signed char*>(smem + S::Q8);
@@ -497,28 +710,32 @@ __device__ __forceinline__ void decode_split(const Src& src,
   float* pre_s = reinterpret_cast<float*>(smem + S::PRE);
   uint2* qf = reinterpret_cast<uint2*>(smem + S::QF);
   int* bnd_s = reinterpret_cast<int*>(smem + S::BND);
-  int* last_s = reinterpret_cast<int*>(smem + S::LAST);
+  Ctx<Lanes>* ctx = reinterpret_cast<Ctx<Lanes>*>(smem + S::CTX);
+  static_assert(sizeof(Ctx<Lanes>) <= 320, "the context must fit");
+  volatile int* done_s = reinterpret_cast<volatile int*>(smem + S::DONE);
 
   // warps 0 .. NW - 1 consume, pipeline w / NCW; warps NW .. NW + NP - 1
-  // produce, pipeline w - NW
+  // produce, pipeline w - NW (WG: the producers' warpgroup has 4 warps,
+  // the last 4 - NP idle)
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const int pipe = warp < NW ? warp / NCW : warp - NW;
-  unsigned char* ps = smem + pipe * S::PIPE;  // this pipeline's part
+  unsigned char* ps = smem + min(pipe, NP - 1) * S::PIPE;  // its part
   uint64_t* full = reinterpret_cast<uint64_t*>(ps + S::BAR);
   uint64_t* empty = full + NST;
   unsigned char* ks = ps + S::K;
   unsigned char* vs = ps + S::V;
   float* sc = reinterpret_cast<float*>(ps + S::SC);
-  float* m_w = reinterpret_cast<float*>(ps + S::ML);  // [NCW][RMAX]
-  float* l_w = m_w + NCW * RMAX;
+  int2* info = reinterpret_cast<int2*>(ps + S::INFO);  // [NST]
 
-  // the group's chunks are dealt out in turn over the splits' pipelines:
-  // this pipeline takes chunks j0, j0 + js, j0 + 2 js, ... (n of them), so
-  // a short lane still spreads over all its blocks
-  const int nsplit = gridDim.x;
-  const int j0 = blockIdx.x + nsplit * pipe, js = nsplit * NP;
-  const int n = max(0, (src.n_chunks - j0 + js - 1) / js);
-
+  // the plan and the block's first place, made while thread 0 sets the
+  // barriers up: by each producer, and by consumer warp 1 for the others
+  Plan plan{0, 0, K, 0, 0};
+  Walk walk{0, 0, B, 0, 0, 0};
+  if (warp == 1 || (warp >= NW && warp < NW + NP)) {
+    plan = make_plan(lanes, B, GL, K, lane);
+    if (static_cast<int>(blockIdx.x) < plan.used)
+      walk = walk_start(lanes, B, GL, plan, blockIdx.x, lane);
+  }
   if (t == 0) {
     for (int p = 0; p < NP; ++p)
       for (int s = 0; s < NST; ++s) {
@@ -527,41 +744,81 @@ __device__ __forceinline__ void decode_split(const Src& src,
         hop::mbar_init(&bar[NST + s], NCW);
       }
     hop::mbar_fence_init();
+    *done_s = 0;
+  }
+  if (t == 32) {  // what the consumers keep from piece to piece
+    ctx->lanes = lanes;
+    ctx->B = B;
+    ctx->Hkv = Hkv;
+    ctx->GL = GL;
+    ctx->nrg = nrg;
+    ctx->R_group = R_group;
+    ctx->q = q;
+    ctx->q_bf16 = q_bf16;
+    ctx->scale = scale;
+    ctx->dst = dst;
+    ctx->n_merges = 0;
+    ctx->plan = plan;
+    ctx->walk = walk;
   }
   __syncthreads();
 
   if (warp >= NW) {  // a producer
-    long long tok0_l = 0;  // lane l: where chunk 32 (i / 32) + l lies
-    int valid_l = 0;
-    for (int i = 0; i < n; ++i) {
-      const int st = i % NST;
-      // the lanes look up 32 chunks at once (a paged chunk's page id is a
-      // load from the block table), ahead of the wait for the stage
-      if (i % 32 == 0 && i + lane < n)
-        src.locate(j0 + (i + lane) * js, tok0_l, valid_l);
-      const long long tok0 = __shfl_sync(0xffffffff, tok0_l, i % 32);
-      const int valid = __shfl_sync(0xffffffff, valid_l, i % 32);
-      if (i >= NST) hop::mbar_wait(&empty[st], ((i / NST) + 1) & 1);
-      if (lane == 0) {
-        const uint32_t bytes = valid * RB;
-        hop::mbar_arrive_tx(&full[st], 2 * bytes);
-        hop::bulk_load(ks + st * C * RB, src.k + tok0 * RB, bytes, &full[st]);
-        hop::bulk_load(vs + st * C * RB, src.v + tok0 * RB, bytes, &full[st]);
-      }
-      if constexpr (SCALES) {
-#pragma unroll
-        for (int c = lane; c < C; c += 32) {
-          const bool ok = c < valid;
-          const long long at = ok ? tok0 + c : 0;
-          rfa::cp_async4(sc + st * 2 * C + c, src.ks + at, ok ? 4 : 0);
-          rfa::cp_async4(sc + (st * 2 + 1) * C + c, src.vs + at, ok ? 4 : 0);
+    if constexpr (WG) hop::setmaxnreg_dec<PRODUCER_REGS>();
+    if (pipe >= NP || static_cast<int>(blockIdx.x) >= plan.used) return;
+    Walk w = walk;
+    int it = 0;  // chunks this pipeline has issued
+#pragma unroll 1
+    for (int piece = 0; w.pos < w.hi; ++piece) {
+      // this pipeline takes the piece's chunks j0, j0 + NP, ...
+      const int n = max(0, (piece_chunks(w) - pipe + NP - 1) / NP);
+      const int j0 = w.j + pipe;
+      // the end of the consumers' last piece reused the stages
+      if (!S::OWN_RED && piece > 0 && n > 0)
+        while (*done_s < piece) __nanosleep(32);
+      const auto src = lanes.src(w.b, RG ? udiv(w.x, nrg) : w.x);
+      long long tok0_l = 0;  // lane l: where chunk 32 (i / 32) + l lies
+      int valid_l = 0;
+#pragma unroll 1
+      for (int i = 0; i < n; ++i, ++it) {
+        const int st = it % NST;
+        // the lanes look up 32 chunks at once (a paged chunk's page id is
+        // a load from the block table), ahead of the wait for the stage
+        if (i % 32 == 0 && i + lane < n)
+          src.locate(j0 + (i + lane) * NP, tok0_l, valid_l);
+        const long long tok0 = __shfl_sync(0xffffffff, tok0_l, i % 32);
+        const int valid = __shfl_sync(0xffffffff, valid_l, i % 32);
+        if (it >= NST) hop::mbar_wait(&empty[st], ((it / NST) + 1) & 1);
+        if (lane == 0) {
+          // the chunk's live tokens and first position, for the consumers
+          int pos = 0;
+          if constexpr (BOUNDS) pos = src.pos(j0 + i * NP);
+          info[st] = make_int2(valid, pos);
+          const uint32_t bytes = valid * RB;
+          hop::mbar_arrive_tx(&full[st], 2 * bytes);
+          hop::bulk_load(ks + st * C * RB, src.k + tok0 * RB, bytes,
+                         &full[st]);
+          hop::bulk_load(vs + st * C * RB, src.v + tok0 * RB, bytes,
+                         &full[st]);
         }
-        hop::cp_async_mbar_arrive(&full[st]);
+        if constexpr (SCALES) {
+#pragma unroll
+          for (int c = lane; c < C; c += 32) {
+            const bool ok = c < valid;
+            const long long at = ok ? tok0 + c : 0;
+            rfa::cp_async4(sc + st * 2 * C + c, src.ks + at, ok ? 4 : 0);
+            rfa::cp_async4(sc + (st * 2 + 1) * C + c, src.vs + at,
+                           ok ? 4 : 0);
+          }
+          hop::cp_async_mbar_arrive(&full[st]);
+        }
       }
+      walk_on(lanes, B, GL, K, w);
     }
     if constexpr (SCALES) rfa::cp_async_wait_all();  // none outlives us
     return;
   }
+  if constexpr (WG) hop::setmaxnreg_inc<CONSUMER_REGS>();
 
   // consumers, on tensor cores (mma.sync, lane = 4 g4 + t4): QK is S^T
   // (a warp's 16 tokens x 8 NT columns) = K q^T and PV is O^T (D dims x
@@ -572,448 +829,556 @@ __device__ __forceinline__ void decode_split(const Src& src,
   // fp16, bf16 in bf16), so the products stay within fp32 rounding of the
   // CUDA-core arithmetic. With QK_INT8, QK is an exact s8 x s8 product
   // (m16n8k32), the lo half zero.
-  const int g4 = lane >> 2, t4 = lane & 3;
-  const int wl = warp % NCW;  // the warp in its pipeline
-  for (int i = t; i < R * D; i += NCONS) {
-    const float x =
-        q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(
-                     q)[(RG ? g * R_group + r0 : g * R) * D + i])
-               : static_cast<const float*>(
-                     q)[(RG ? g * R_group + r0 : g * R) * D + i];
-    qs[i] = x * scale;
-  }
-  if constexpr (BOUNDS) {
-    if (t < R) bnd_s[t] = src.bound(r0 + t);
-  }
-  hop::bar_sync(CONSUMER_BAR, NCONS);
-  for (int r = warp; r < R; r += NW) {
-    float x[D / 32];
-    float amax = 0.f;
-#pragma unroll
-    for (int e = 0; e < D / 32; ++e) {
-      x[e] = qs[r * D + lane + 32 * e];
-      amax = fmaxf(amax, fabsf(x[e]));
+  // a lane with no live token: out = 0, lse = NEG_INF on all its rows,
+  // the lanes dealt out over the grid
+  for (int b = blockIdx.x; b < B; b += gridDim.x)
+    if (lanes.chunks(b) == 0) {
+      const long long rows = static_cast<long long>(Hkv) * R_group;
+      for (long long i = t; i < rows * D; i += NCONS)
+        dst.out[b * rows * D + i] = 0.f;
+      for (long long i = t; i < rows; i += NCONS)
+        dst.lse[b * rows + i] = RFA_NEG_INF;
     }
-    amax = warp_max(amax, 1);
-    if constexpr (QK_INT8) {
-      // q rows to int8: scale max|q| / 127 (floor 1e-20), round half to
-      // even
-      const float qsc = fmaxf(amax / 127.f, 1e-20f);
+  int it = 0;  // chunks this pipeline has taken
+#pragma unroll 1
+  for (int piece = 0;; ++piece) {
+    // the thread's place, made anew for each piece (opaque)
+    const int t = opaque(threadIdx.x), warp = t / 32, lane = t % 32;
+    const int g4 = lane >> 2, t4 = lane & 3, wl = warp % NCW;
+    const int pipe = warp / NCW;
+    unsigned char* ps = smem + pipe * S::PIPE;
+    uint64_t* full = reinterpret_cast<uint64_t*>(ps + S::BAR);
+    uint64_t* empty = full + NST;
+    unsigned char* ks = ps + S::K;
+    unsigned char* vs = ps + S::V;
+    float* sc = reinterpret_cast<float*>(ps + S::SC);
+    int2* info = reinterpret_cast<int2*>(ps + S::INFO);
+    float* pw = reinterpret_cast<float*>(ps + S::P) + wl * RMAX * CT;
+    // the piece: n chunks of this pipeline; R rows of its group from row
+    // r0, q and out rows from row0 = (b * Hkv + h) * R_group + r0 (the
+    // chunks' live tokens and positions come with them: info)
+    int n, R;
+    {
+      const Walk w = ctx->walk;
+      if (w.pos >= w.hi) break;
+      n = max(0, (piece_chunks(w) - pipe + NP - 1) / NP);
+      const int nrg = ctx->nrg, R_group = ctx->R_group;
+      const int h = RG ? udiv(w.x, nrg) : w.x;
+      const int r0 = RG ? (w.x - h * nrg) * RMAX : 0;
+      R = RG ? min(RMAX, R_group - r0) : R_group;
+      const long long row0 =
+          (static_cast<long long>(w.b) * ctx->Hkv + h) * R_group + r0;
+      const void* q = ctx->q;
+      const bool q_bf16 = ctx->q_bf16;
+      const float scale = ctx->scale;
+      for (int i = t; i < R * D; i += NCONS) {
+        const float x =
+            q_bf16 ? __bfloat162float(
+                         static_cast<const __nv_bfloat16*>(q)[row0 * D + i])
+                   : static_cast<const float*>(q)[row0 * D + i];
+        qs[i] = x * scale;
+      }
+      if constexpr (BOUNDS) {
+        if (t < R) bnd_s[t] = ctx->lanes.src(w.b, h).bound(r0 + t);
+      }
+    }
+    hop::bar_sync(CONSUMER_BAR, NCONS);
+    for (int r = warp; r < R; r += NW) {
+      float x[D / 32];
+      float amax = 0.f;
 #pragma unroll
       for (int e = 0; e < D / 32; ++e) {
-        const float v = rintf(x[e] / qsc);
-        q8[r * D + lane + 32 * e] =
-            static_cast<signed char>(fminf(fmaxf(v, -127.f), 127.f));
+        x[e] = qs[r * D + lane + 32 * e];
+        amax = fmaxf(amax, fabsf(x[e]));
       }
-      if (lane == 0) qsc_s[r] = qsc;
-    } else if (lane == 0) {
-      // fp16 halves: max|q| * 2^e in [2^14, 2^15), so that the lo half
-      // stays a normal number; bf16 halves need no prescale
-      int ex = 0;
-      frexpf(amax, &ex);
-      const float pre = (BF || amax == 0.f) ? 1.f : ldexpf(1.f, 15 - ex);
-      pre_s[r] = pre;
-      qsc_s[r] = 1.f / pre;  // exact: a power of two
-    }
-  }
-  hop::bar_sync(CONSUMER_BAR, NCONS);
-  // q's B fragments, once a block: kt, n-tile, lane
-  for (int i = t; i < NKT * NT * 32; i += NCONS) {
-    const int kt = i / (NT * 32), nt = (i / 32) % NT, ln = i % 32;
-    const int gg = ln >> 2, tt = ln & 3;
-    const int x = 8 * nt + gg, part = x / RMAX, row = x % RMAX;
-    uint2 b = make_uint2(0u, 0u);
-    if (row < R) {
+      amax = warp_max(amax, 1);
       if constexpr (QK_INT8) {
-        if (part == 0) {
-          const int d0 = 64 * (kt / 2) + 16 * tt + 8 * (kt % 2);
-          b.x = *reinterpret_cast<const uint32_t*>(q8 + row * D + d0);
-          b.y = *reinterpret_cast<const uint32_t*>(q8 + row * D + d0 + 4);
+        // q rows to int8: scale max|q| / 127 (floor 1e-20), round half to
+        // even
+        const float qsc = fmaxf(amax / 127.f, 1e-20f);
+#pragma unroll
+        for (int e = 0; e < D / 32; ++e) {
+          const float v = rintf(x[e] / qsc);
+          q8[r * D + lane + 32 * e] =
+              static_cast<signed char>(fminf(fmaxf(v, -127.f), 127.f));
         }
-      } else {
-        // (BF: lane t4 holds elements BK / 4 * t4 .. of each block of BK;
-        // see the QK loads below)
-        const int d0 = BF ? (D == 128 ? 32 * tt + 8 * (kt / 2) + 4 * (kt % 2)
-                                      : BK * (kt / 2 / BP) + BK / 4 * tt +
-                                            8 * (kt / 2 % BP) + 4 * (kt % 2))
-                          : 64 * (kt / 4) + 16 * tt + 4 * (kt % 4);
-        const float* qr = qs + row * D + d0;
-        const float pre = pre_s[row];
-        b.x = split_pair<BF>(qr[0] * pre, qr[1] * pre, part);
-        b.y = split_pair<BF>(qr[2] * pre, qr[3] * pre, part);
+        if (lane == 0) qsc_s[r] = qsc;
+      } else if (lane == 0) {
+        // fp16 halves: max|q| * 2^e in [2^14, 2^15), so that the lo half
+        // stays a normal number; bf16 halves need no prescale
+        int ex = 0;
+        frexpf(amax, &ex);
+        const float pre = (BF || amax == 0.f) ? 1.f : ldexpf(1.f, 15 - ex);
+        pre_s[r] = pre;
+        qsc_s[r] = 1.f / pre;  // exact: a power of two
       }
     }
-    qf[i] = b;
-  }
-  hop::bar_sync(CONSUMER_BAR, NCONS);
+    hop::bar_sync(CONSUMER_BAR, NCONS);
+    // q's B fragments, once a block: kt, n-tile, lane
+    for (int i = t; i < NKT * NT * 32; i += NCONS) {
+      const int kt = i / (NT * 32), nt = (i / 32) % NT, ln = i % 32;
+      const int gg = ln >> 2, tt = ln & 3;
+      const int x = 8 * nt + gg, part = x / RMAX, row = x % RMAX;
+      uint2 b = make_uint2(0u, 0u);
+      if (row < R) {
+        if constexpr (QK_INT8) {
+          if (part == 0) {
+            const int d0 = 64 * (kt / 2) + 16 * tt + 8 * (kt % 2);
+            b.x = *reinterpret_cast<const uint32_t*>(q8 + row * D + d0);
+            b.y = *reinterpret_cast<const uint32_t*>(q8 + row * D + d0 + 4);
+          }
+        } else {
+          // (BF: lane t4 holds elements BK / 4 * t4 .. of each block of BK;
+          // see the QK loads below)
+          const int d0 = BF ? (D == 128 ? 32 * tt + 8 * (kt / 2) + 4 * (kt % 2)
+                                        : BK * (kt / 2 / BP) + BK / 4 * tt +
+                                              8 * (kt / 2 % BP) + 4 * (kt % 2))
+                            : 64 * (kt / 4) + 16 * tt + 4 * (kt % 4);
+          const float* qr = qs + row * D + d0;
+          const float pre = pre_s[row];
+          b.x = split_pair<BF>(qr[0] * pre, qr[1] * pre, part);
+          b.y = split_pair<BF>(qr[2] * pre, qr[3] * pre, part);
+        }
+      }
+      qf[i] = b;
+    }
+    hop::bar_sync(CONSUMER_BAR, NCONS);
 
-  float oacc[MT][NT][4];  // O^T: m-tile, n-tile, fragment
+    float oacc[MT][NT][4];  // O^T: m-tile, n-tile, fragment
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[mt][nt][e] = 0.f;
-  float m[NO], l[NO];
-#pragma unroll
-  for (int o = 0; o < NO; ++o) {
-    m[o] = -INFINITY;
-    l[o] = 0.f;
-  }
-  float U = 1.f;  // oacc holds O / U (1-byte caches: p carries v_scale / U)
-  const bool writer = RMAX != 4 || t4 < 2;  // at 4 rows t4 ^ 2 agrees
-  float* pw = reinterpret_cast<float*>(ps + S::P) + wl * RMAX * CT;
-
-  for (int i = 0; i < n; ++i) {
-    const int st = i % NST;
-    hop::mbar_wait(&full[st], (i / NST) & 1);
-    const int valid = src.count(j0 + i * js);
-    const int tok0 = CT * wl;  // this warp's tokens: tok0 .. tok0 + 15
-    if (tok0 < valid) {
-      const unsigned char* kst = ks + st * C * RB;
-      const unsigned char* vst = vs + st * C * RB;
-      const float* ksc = sc + st * 2 * C;
-      const float* vsc = ksc + C;
-      int pos0 = 0;
-      if constexpr (BOUNDS) pos0 = src.pos(j0 + i * js);
-
-      // QK: rows g4 and g4 + 8 of the warp's tokens, 16 bytes a load
-      const unsigned char* kr0 = kst + (tok0 + g4) * RB;
-      const unsigned char* kr1 = kr0 + 8 * RB;
-      float sacc[NT][4];
-      int iacc[NT][4];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sacc[nt][e] = 0.f;
-          iacc[nt][e] = 0;
-        }
-      auto qfrag = [&](int kt, int nt) {
-        return qf[(kt * NT + nt) * 32 + lane];
-      };
-      if constexpr (BF) {
+        for (int e = 0; e < 4; ++e) oacc[mt][nt][e] = 0.f;
+    float m[NO], l[NO];
 #pragma unroll
-        for (int p = 0; p < D / 32; ++p) {
-          // lane t4's 8 elements of piece p: BK / 4 * t4 + 8 p within a
-          // block of BK, so that at 256 the banks meet as they do at 128
-          const int at = D == 128 ? 64 * t4 + 16 * p
-                                  : 2 * (BK * (p / BP) + BK / 4 * t4 +
-                                         8 * (p % BP));
-          const uint4 w0 = *reinterpret_cast<const uint4*>(kr0 + at);
-          const uint4 w1 = *reinterpret_cast<const uint4*>(kr1 + at);
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const uint32_t a[4] = {jj ? w0.z : w0.x, jj ? w1.z : w1.x,
-                                   jj ? w0.w : w0.y, jj ? w1.w : w1.y};
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              const uint2 b = qfrag(2 * p + jj, nt);
-              mma16<true>(sacc[nt], a, b.x, b.y);
-            }
-          }
-        }
-      } else {
-#pragma unroll
-        for (int h = 0; h < D / 64; ++h) {
-          const int at = 64 * h + 16 * t4;
-          const uint4 w0 = *reinterpret_cast<const uint4*>(kr0 + at);
-          const uint4 w1 = *reinterpret_cast<const uint4*>(kr1 + at);
-          const uint32_t c0[4] = {w0.x, w0.y, w0.z, w0.w};
-          const uint32_t c1[4] = {w1.x, w1.y, w1.z, w1.w};
-          if constexpr (QK_INT8) {
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-              const uint32_t a[4] = {c0[2 * jj], c1[2 * jj], c0[2 * jj + 1],
-                                     c1[2 * jj + 1]};
-#pragma unroll
-              for (int nt = 0; nt < NT; ++nt) {
-                const uint2 b = qfrag(2 * h + jj, nt);
-                mma_s8(iacc[nt], a, b.x, b.y);
-              }
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const uint32_t a[4] = {
-                  half2_of<QT>(c0[j], 0), half2_of<QT>(c1[j], 0),
-                  half2_of<QT>(c0[j], 1), half2_of<QT>(c1[j], 1)};
-#pragma unroll
-              for (int nt = 0; nt < NT; ++nt) {
-                const uint2 b = qfrag(4 * h + j, nt);
-                mma16<false>(sacc[nt], a, b.x, b.y);
-              }
-            }
-          }
-        }
-      }
-
-      // the owned rows' scores: o-th row, tokens g4 (k = 0) and g4 + 8
-      float sv[NO][2];
-#pragma unroll
-      for (int o = 0; o < NO; ++o)
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int e = 2 * k + o % 2;
-          float v;
-          if constexpr (RMAX == 4) {
-            if constexpr (QK_INT8) {
-              const int x = iacc[0][e];
-              v = static_cast<float>(x + __shfl_xor_sync(0xffffffff, x, 2));
-            } else {
-              v = sacc[0][e];
-              v += __shfl_xor_sync(0xffffffff, v, 2);
-            }
-          } else {
-            const int nt = o / 2;
-            if constexpr (QK_INT8)
-              v = static_cast<float>(iacc[nt][e] + iacc[nt + NT / 2][e]);
-            else
-              v = sacc[nt][e] + sacc[nt + NT / 2][e];
-          }
-          sv[o][k] = v;
-        }
-#pragma unroll
-      for (int o = 0; o < NO; ++o) {
-        const int r = own_row<RMAX>(o, t4);
-        const float rs = qsc_s[min(r, R - 1)];  // q_scale, or 2^-e
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int c = tok0 + g4 + 8 * k;
-          float s = sv[o][k];
-          if constexpr (QK_INT8)
-            s = s * rs * ksc[c];
-          else if constexpr (SCALES)
-            s = s * rs * ksc[c];
-          if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-          bool live = c < valid && r < R;
-          if constexpr (BOUNDS) live = live && pos0 + c < bnd_s[r];
-          sv[o][k] = live ? s : -INFINITY;
-        }
-      }
-
-      // online softmax of the owned rows; pw holds p (1-byte caches:
-      // p * v_scale / smax * 2^14, and U = smax * 2^-14 carries the rest)
-      float pscale = 1.f, u_new = 1.f;
-      if constexpr (SCALES) {
-        const float smax =
-            fmaxf(warp_max(vsc[tok0 + (lane & 15)], 1, 16), 1e-30f);
-        pscale = 16384.f / smax;
-        u_new = smax * (1.f / 16384.f);
-      }
-      float f[NO];  // what oacc's columns of each owned row are scaled by
-#pragma unroll
-      for (int o = 0; o < NO; ++o) {
-        const int r = own_row<RMAX>(o, t4);
-        const float mx = warp_max(fmaxf(sv[o][0], sv[o][1]), 4);
-        const float m_new = fmaxf(m[o], mx);
-        // a row may have no live token yet (BOUNDS, or past R):
-        // exponentiate against 0, so that it keeps p = 0, alpha = 0 and
-        // m = -inf
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = __expf(m[o] - m_use);
-        const float p0 = __expf(sv[o][0] - m_use);
-        const float p1 = __expf(sv[o][1] - m_use);
-        l[o] = l[o] * alpha + (p0 + p1);
-        m[o] = m_new;
-        f[o] = alpha * (U / u_new);
-        if (writer && r < R) {
-          float w0 = p0, w1 = p1;
-          if constexpr (SCALES) {
-            w0 *= vsc[tok0 + g4] * pscale;
-            w1 *= vsc[tok0 + g4 + 8] * pscale;
-          }
-          pw[r * CT + g4] = w0;
-          pw[r * CT + g4 + 8] = w1;
-        }
-      }
-      U = u_new;
-      __syncwarp();
-
-      // PV: oacc = oacc * f + V^T P^T
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int o0 = RMAX == 4 ? 0 : 2 * (nt % (NT / 2 > 0 ? NT / 2 : 1));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          oacc[mt][nt][0] *= f[o0];
-          oacc[mt][nt][2] *= f[o0];
-          oacc[mt][nt][1] *= f[o0 + 1];
-          oacc[mt][nt][3] *= f[o0 + 1];
-        }
-      }
-      uint32_t pb[NT][2];  // P^T's B fragments: tokens 4 t4 .. + 3
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int x = 8 * nt + g4, part = x / RMAX, row = x % RMAX;
-        float4 pv = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row < R)
-          pv = *reinterpret_cast<const float4*>(pw + row * CT + 4 * t4);
-        pb[nt][0] = split_pair<BF>(pv.x, pv.y, part);
-        pb[nt][1] = split_pair<BF>(pv.z, pv.w, part);
-      }
-      // a dead token's row may hold anything: its values are zero here
-      bool vlive[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) vlive[k] = tok0 + 4 * t4 + k < valid;
-      const unsigned char* vr = vst + (tok0 + 4 * t4) * RB + 4 * g4;
-      if constexpr (BF) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {  // dims 16 mt + 2 g4, + 1
-          uint32_t u[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            u[k] = vlive[k] ? *reinterpret_cast<const uint32_t*>(
-                                  vr + k * RB + 32 * mt)
-                            : 0u;
-          const uint32_t a[4] = {__byte_perm(u[0], u[1], 0x5410),
-                                 __byte_perm(u[0], u[1], 0x7632),
-                                 __byte_perm(u[2], u[3], 0x5410),
-                                 __byte_perm(u[2], u[3], 0x7632)};
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            mma16<true>(oacc[mt][nt], a, pb[nt][0], pb[nt][1]);
-        }
-      } else {
-#pragma unroll
-        for (int qd = 0; qd < D / 32; ++qd) {  // dims 32 qd + 4 g4 .. + 3
-          uint32_t u[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            u[k] = vlive[k] ? *reinterpret_cast<const uint32_t*>(
-                                  vr + k * RB + 32 * qd)
-                            : 0u;
-#pragma unroll
-          for (int sb = 0; sb < 2; ++sb) {
-            const uint32_t sel = sb ? 0x7362 : 0x5140;
-            const uint32_t p01 = __byte_perm(u[0], u[1], sel);
-            const uint32_t p23 = __byte_perm(u[2], u[3], sel);
-            const uint32_t a[4] = {half2_of<QT>(p01, 0), half2_of<QT>(p01, 1),
-                                   half2_of<QT>(p23, 0), half2_of<QT>(p23, 1)};
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-              mma16<false>(oacc[2 * qd + sb][nt], a, pb[nt][0], pb[nt][1]);
-          }
-        }
-      }
+    for (int o = 0; o < NO; ++o) {
+      m[o] = -INFINITY;
+      l[o] = 0.f;
     }
-    __syncwarp();  // the stage and pw are read
-    if (lane == 0) hop::mbar_arrive(&empty[st]);
-  }
+    float U = 1.f;  // oacc holds O / U (1-byte caches: p carries v_scale / U)
+    const bool writer = RMAX != 4 || t4 < 2;  // at 4 rows t4 ^ 2 agrees
 
-  // the block's warps' states meet in a fixed order (each pipeline's K
-  // and V stages hold its warps' sums: every copy has landed, since every
-  // chunk was waited for). oacc * U is O; the hi and lo columns add up.
+#pragma unroll 1
+    for (int i = 0; i < n; ++i, ++it) {
+      const int st = it % NST;
+      hop::mbar_wait(&full[st], (it / NST) & 1);
+      const int2 inf = info[st];  // the chunk's live tokens, position
+      const int valid = inf.x;
+      const int tok0 = CT * wl;  // this warp's tokens: tok0 .. tok0 + 15
+      if (tok0 < valid) {
+        const unsigned char* kst = ks + st * C * RB;
+        const unsigned char* vst = vs + st * C * RB;
+        const float* ksc = sc + st * 2 * C;
+        const float* vsc = ksc + C;
+        const int pos0 = inf.y;
+
+        // QK: rows g4 and g4 + 8 of the warp's tokens, 16 bytes a load
+        const unsigned char* kr0 = kst + (tok0 + g4) * RB;
+        const unsigned char* kr1 = kr0 + 8 * RB;
+        float sacc[NT][4];
+        int iacc[NT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = oacc[mt][nt][e] * U;
-        if constexpr (RMAX == 4) v += __shfl_xor_sync(0xffffffff, v, 2);
-        oacc[mt][nt][e] = v;
-      }
-  hop::bar_sync(CONSUMER_BAR, NCONS);
-  float* red = red_of<D, RMAX, EB>(smem, warp);
-  if (writer) {
-#pragma unroll
-    for (int nt = 0; nt < (RMAX == 4 ? 1 : NT / 2); ++nt)
-#pragma unroll
-      for (int cp = 0; cp < 2; ++cp) {
-        const int row = (8 * nt + 2 * t4 + cp) % RMAX;
-        if (row >= R) continue;
-        float v[MT][2];  // m-tile, fragment row (g4 or g4 + 8)
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            float x = oacc[mt][nt][2 * hh + cp];
-            if constexpr (RMAX != 4) x += oacc[mt][nt + NT / 2][2 * hh + cp];
-            v[mt][hh] = x;
+          for (int e = 0; e < 4; ++e) {
+            sacc[nt][e] = 0.f;
+            iacc[nt][e] = 0;
           }
-        float* rr = red + row * D;
+        auto qfrag = [&](int kt, int nt) {
+          return qf[(kt * NT + nt) * 32 + lane];
+        };
         if constexpr (BF) {
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            *reinterpret_cast<float2*>(rr + 16 * mt + 2 * g4) =
-                make_float2(v[mt][0], v[mt][1]);
+          for (int p = 0; p < D / 32; ++p) {
+            // lane t4's 8 elements of piece p: BK / 4 * t4 + 8 p within a
+            // block of BK, so that at 256 the banks meet as they do at 128
+            const int at = D == 128 ? 64 * t4 + 16 * p
+                                    : 2 * (BK * (p / BP) + BK / 4 * t4 +
+                                           8 * (p % BP));
+            const uint4 w0 = *reinterpret_cast<const uint4*>(kr0 + at);
+            const uint4 w1 = *reinterpret_cast<const uint4*>(kr1 + at);
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const uint32_t a[4] = {jj ? w0.z : w0.x, jj ? w1.z : w1.x,
+                                     jj ? w0.w : w0.y, jj ? w1.w : w1.y};
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                const uint2 b = qfrag(2 * p + jj, nt);
+                mma16<true>(sacc[nt], a, b.x, b.y);
+              }
+            }
+          }
         } else {
 #pragma unroll
-          for (int qd = 0; qd < D / 32; ++qd)
-            *reinterpret_cast<float4*>(rr + 32 * qd + 4 * g4) =
-                make_float4(v[2 * qd][0], v[2 * qd][1], v[2 * qd + 1][0],
-                            v[2 * qd + 1][1]);
+          for (int h = 0; h < D / 64; ++h) {
+            const int at = 64 * h + 16 * t4;
+            const uint4 w0 = *reinterpret_cast<const uint4*>(kr0 + at);
+            const uint4 w1 = *reinterpret_cast<const uint4*>(kr1 + at);
+            const uint32_t c0[4] = {w0.x, w0.y, w0.z, w0.w};
+            const uint32_t c1[4] = {w1.x, w1.y, w1.z, w1.w};
+            if constexpr (QK_INT8) {
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                const uint32_t a[4] = {c0[2 * jj], c1[2 * jj], c0[2 * jj + 1],
+                                       c1[2 * jj + 1]};
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                  const uint2 b = qfrag(2 * h + jj, nt);
+                  mma_s8(iacc[nt], a, b.x, b.y);
+                }
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const uint32_t a[4] = {
+                    half2_of<QT>(c0[j], 0), half2_of<QT>(c1[j], 0),
+                    half2_of<QT>(c0[j], 1), half2_of<QT>(c1[j], 1)};
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                  const uint2 b = qfrag(4 * h + j, nt);
+                  mma16<false>(sacc[nt], a, b.x, b.y);
+                }
+              }
+            }
+          }
+        }
+
+        // the owned rows' scores: o-th row, tokens g4 (k = 0) and g4 + 8
+        float sv[NO][2];
+#pragma unroll
+        for (int o = 0; o < NO; ++o)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int e = 2 * k + o % 2;
+            float v;
+            if constexpr (RMAX == 4) {
+              if constexpr (QK_INT8) {
+                const int x = iacc[0][e];
+                v = static_cast<float>(x + __shfl_xor_sync(0xffffffff, x, 2));
+              } else {
+                v = sacc[0][e];
+                v += __shfl_xor_sync(0xffffffff, v, 2);
+              }
+            } else {
+              const int nt = o / 2;
+              if constexpr (QK_INT8)
+                v = static_cast<float>(iacc[nt][e] + iacc[nt + NT / 2][e]);
+              else
+                v = sacc[nt][e] + sacc[nt + NT / 2][e];
+            }
+            sv[o][k] = v;
+          }
+#pragma unroll
+        for (int o = 0; o < NO; ++o) {
+          const int r = own_row<RMAX>(o, t4);
+          const float rs = qsc_s[min(r, R - 1)];  // q_scale, or 2^-e
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int c = tok0 + g4 + 8 * k;
+            float s = sv[o][k];
+            if constexpr (QK_INT8)
+              s = s * rs * ksc[c];
+            else if constexpr (SCALES)
+              s = s * rs * ksc[c];
+            if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+            bool live = c < valid && r < R;
+            if constexpr (BOUNDS) live = live && pos0 + c < bnd_s[r];
+            sv[o][k] = live ? s : -INFINITY;
+          }
+        }
+
+        // online softmax of the owned rows; pw holds p (1-byte caches:
+        // p * v_scale / smax * 2^14, and U = smax * 2^-14 carries the rest)
+        float pscale = 1.f, u_new = 1.f;
+        if constexpr (SCALES) {
+          const float smax =
+              fmaxf(warp_max(vsc[tok0 + (lane & 15)], 1, 16), 1e-30f);
+          pscale = 16384.f / smax;
+          u_new = smax * (1.f / 16384.f);
+        }
+        float f[NO];  // what oacc's columns of each owned row are scaled by
+#pragma unroll
+        for (int o = 0; o < NO; ++o) {
+          const int r = own_row<RMAX>(o, t4);
+          const float mx = warp_max(fmaxf(sv[o][0], sv[o][1]), 4);
+          const float m_new = fmaxf(m[o], mx);
+          // a row may have no live token yet (BOUNDS, or past R):
+          // exponentiate against 0, so that it keeps p = 0, alpha = 0 and
+          // m = -inf
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;
+          const float alpha = __expf(m[o] - m_use);
+          const float p0 = __expf(sv[o][0] - m_use);
+          const float p1 = __expf(sv[o][1] - m_use);
+          l[o] = l[o] * alpha + (p0 + p1);
+          m[o] = m_new;
+          f[o] = alpha * (U / u_new);
+          if (writer && r < R) {
+            float w0 = p0, w1 = p1;
+            if constexpr (SCALES) {
+              w0 *= vsc[tok0 + g4] * pscale;
+              w1 *= vsc[tok0 + g4 + 8] * pscale;
+            }
+            pw[r * CT + g4] = w0;
+            pw[r * CT + g4 + 8] = w1;
+          }
+        }
+        U = u_new;
+        __syncwarp();
+
+        // PV: oacc = oacc * f + V^T P^T
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int o0 = RMAX == 4 ? 0 : 2 * (nt % (NT / 2 > 0 ? NT / 2 : 1));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            oacc[mt][nt][0] *= f[o0];
+            oacc[mt][nt][2] *= f[o0];
+            oacc[mt][nt][1] *= f[o0 + 1];
+            oacc[mt][nt][3] *= f[o0 + 1];
+          }
+        }
+        uint32_t pb[NT][2];  // P^T's B fragments: tokens 4 t4 .. + 3
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int x = 8 * nt + g4, part = x / RMAX, row = x % RMAX;
+          float4 pv = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (row < R)
+            pv = *reinterpret_cast<const float4*>(pw + row * CT + 4 * t4);
+          pb[nt][0] = split_pair<BF>(pv.x, pv.y, part);
+          pb[nt][1] = split_pair<BF>(pv.z, pv.w, part);
+        }
+        // a dead token's row may hold anything: its values are zero here
+        bool vlive[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) vlive[k] = tok0 + 4 * t4 + k < valid;
+        const unsigned char* vr = vst + (tok0 + 4 * t4) * RB + 4 * g4;
+        if constexpr (BF) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {  // dims 16 mt + 2 g4, + 1
+            uint32_t u[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              u[k] = vlive[k] ? *reinterpret_cast<const uint32_t*>(
+                                    vr + k * RB + 32 * mt)
+                              : 0u;
+            const uint32_t a[4] = {__byte_perm(u[0], u[1], 0x5410),
+                                   __byte_perm(u[0], u[1], 0x7632),
+                                   __byte_perm(u[2], u[3], 0x5410),
+                                   __byte_perm(u[2], u[3], 0x7632)};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma16<true>(oacc[mt][nt], a, pb[nt][0], pb[nt][1]);
+          }
+        } else {
+#pragma unroll
+          for (int qd = 0; qd < D / 32; ++qd) {  // dims 32 qd + 4 g4 .. + 3
+            uint32_t u[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              u[k] = vlive[k] ? *reinterpret_cast<const uint32_t*>(
+                                    vr + k * RB + 32 * qd)
+                              : 0u;
+#pragma unroll
+            for (int sb = 0; sb < 2; ++sb) {
+              const uint32_t sel = sb ? 0x7362 : 0x5140;
+              const uint32_t p01 = __byte_perm(u[0], u[1], sel);
+              const uint32_t p23 = __byte_perm(u[2], u[3], sel);
+              const uint32_t a[4] = {
+                  half2_of<QT>(p01, 0), half2_of<QT>(p01, 1),
+                  half2_of<QT>(p23, 0), half2_of<QT>(p23, 1)};
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+                mma16<false>(oacc[2 * qd + sb][nt], a, pb[nt][0], pb[nt][1]);
+            }
+          }
         }
       }
-  }
-#pragma unroll
-  for (int o = 0; o < NO; ++o) {
-    const float lsum = warp_sum(l[o], 4);
-    const int r = own_row<RMAX>(o, t4);
-    if (writer && g4 == 0 && r < R) {
-      m_w[wl * RMAX + r] = m[o];
-      l_w[wl * RMAX + r] = lsum;
+      __syncwarp();  // the stage and pw are read
+      if (lane == 0) hop::mbar_arrive(&empty[st]);
     }
-  }
-  hop::bar_sync(CONSUMER_BAR, NCONS);
-  // warp w's m and l: in pipeline w / NCW's part
-  auto ml_of = [&](int w, int r, int which) {
-    return reinterpret_cast<const float*>(smem + (w / NCW) * S::PIPE +
-                                          S::ML)[(which * NCW + w % NCW) *
-                                                     RMAX +
-                                                 r];
-  };
-  const long long part0 = (gd * nsplit + blockIdx.x) * PS;
-  each_column<D, NCONS>(t, [&](int c) {
-    for (int r = 0; r < R; ++r) {
-      float mb = -INFINITY;
+
+    // the end of the piece, with the thread's place made anew (opaque):
+    // the block's warps' states meet in a fixed order (red_of: without
+    // OWN_RED in the stages, where every copy has landed, since every chunk
+    // was waited for). oacc * U is O; the hi and lo columns add up.
+    {
+      const int t = opaque(threadIdx.x), warp = t / 32, lane = t % 32;
+      const int g4 = lane >> 2, t4 = lane & 3, wl = warp % NCW;
+      float* m_w =
+          reinterpret_cast<float*>(smem + (warp / NCW) * S::PIPE + S::ML);
+      float* l_w = m_w + NCW * RMAX;
+      const bool writer = RMAX != 4 || t4 < 2;
 #pragma unroll
-      for (int w = 0; w < NW; ++w) mb = fmaxf(mb, ml_of(w, r, 0));
-      float acc = 0.f, lb = 0.f;
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = oacc[mt][nt][e] * U;
+            if constexpr (RMAX == 4) v += __shfl_xor_sync(0xffffffff, v, 2);
+            oacc[mt][nt][e] = v;
+          }
+      hop::bar_sync(CONSUMER_BAR, NCONS);
+      float* red = red_of<D, RMAX, EB>(smem, warp);
+      if (writer) {
+#pragma unroll
+        for (int nt = 0; nt < (RMAX == 4 ? 1 : NT / 2); ++nt)
+#pragma unroll
+          for (int cp = 0; cp < 2; ++cp) {
+            const int row = (8 * nt + 2 * t4 + cp) % RMAX;
+            if (row >= R) continue;
+            float v[MT][2];  // m-tile, fragment row (g4 or g4 + 8)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                float x = oacc[mt][nt][2 * hh + cp];
+                if constexpr (RMAX != 4)
+                  x += oacc[mt][nt + NT / 2][2 * hh + cp];
+                v[mt][hh] = x;
+              }
+            float* rr = red + row * D;
+            if constexpr (BF) {
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+                *reinterpret_cast<float2*>(rr + 16 * mt + 2 * g4) =
+                    make_float2(v[mt][0], v[mt][1]);
+            } else {
+#pragma unroll
+              for (int qd = 0; qd < D / 32; ++qd)
+                *reinterpret_cast<float4*>(rr + 32 * qd + 4 * g4) =
+                    make_float4(v[2 * qd][0], v[2 * qd][1], v[2 * qd + 1][0],
+                                v[2 * qd + 1][1]);
+            }
+          }
+      }
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        const float lsum = warp_sum(l[o], 4);
+        const int r = own_row<RMAX>(o, t4);
+        if (writer && g4 == 0 && r < R) {
+          m_w[wl * RMAX + r] = m[o];
+          l_w[wl * RMAX + r] = lsum;
+        }
+      }
+      hop::bar_sync(CONSUMER_BAR, NCONS);
+      // warp w's m and l: in pipeline w / NCW's part
+      auto ml_of = [&](int w, int r, int which) {
+        return reinterpret_cast<const float*>(smem + (w / NCW) * S::PIPE +
+                                              S::ML)[(which * NCW + w % NCW) *
+                                                         RMAX +
+                                                     r];
+      };
+      // where the piece's result goes: a whole group's (out, lse), or its
+      // partial in slot group + block (Dest)
+      bool whole;
+      long long gd, row0, first = 0, part0 = 0;
+      int np = 1, PS;  // the group's pieces, rows a partial holds
+      const Dest dst = ctx->dst;
+      {
+        const Walk w = ctx->walk;
+        const int nrg = ctx->nrg, R_group = ctx->R_group;
+        PS = RG ? RMAX : R_group;
+        whole = w.j == 0 && piece_chunks(w) == w.n;
+        gd = static_cast<long long>(w.b) * ctx->GL + w.x;
+        row0 = (static_cast<long long>(w.b) * ctx->Hkv +
+                (RG ? udiv(w.x, nrg) : w.x)) *
+                   R_group +
+               (RG ? (w.x - udiv(w.x, nrg) * nrg) * RMAX : 0);
+        if (!whole) {
+          const Plan plan = ctx->plan;
+          const int g0 = w.pos - w.j;  // where the group starts
+          const int p0 = plan.block_of(g0);
+          np = plan.block_of(g0 + w.n - 1) - p0 + 1;
+          first = (gd + p0) * PS;
+          part0 = (gd + blockIdx.x) * PS;
+        }
+      }
+      // each (row, warp)'s weight exp(m - the row's max) once, in pipeline
+      // 0's p scratch [R][NW + 1] (the max last), then each (row, column)
+      // of the result by a thread of its own, the warps in a fixed order
+      float* wt_s = reinterpret_cast<float*>(smem + S::P);
+      for (int i = t; i < R * NW; i += NCONS) {
+        const int r = i / NW, w = i % NW;
+        float mb = -INFINITY;
+#pragma unroll
+        for (int v = 0; v < NW; ++v) mb = fmaxf(mb, ml_of(v, r, 0));
         const float m_i = ml_of(w, r, 0);
-        const float wt = m_i > -INFINITY ? __expf(m_i - mb) : 0.f;
-        acc += red_of<D, RMAX, EB>(smem, w)[r * D + c] * wt;
-        lb += ml_of(w, r, 1) * wt;
+        wt_s[r * (NW + 1) + w] = m_i > -INFINITY ? __expf(m_i - mb) : 0.f;
+        if (w == 0) wt_s[r * (NW + 1) + NW] = mb;
       }
-      if (nsplit == 1) {
-        const long long row = (RG ? g * R_group + r0 : g * R) + r;
-        dst.out[row * D + c] = lb > 0.f ? acc / lb : 0.f;
-        if (c == 0) dst.lse[row] = lb > 0.f ? mb + logf(lb) : RFA_NEG_INF;
-      } else {
-        dst.part_acc[(part0 + r) * D + c] = acc;
-        if (c == 0) {
-          dst.part_ml[(part0 + r) * 2] = mb;
-          dst.part_ml[(part0 + r) * 2 + 1] = lb;
+      hop::bar_sync(CONSUMER_BAR, NCONS);
+      for (int i = t; i < R * D; i += NCONS) {
+        const int r = i / D, c = i % D;
+        const float* wr = wt_s + r * (NW + 1);
+        float acc = 0.f, lb = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          acc += red_of<D, RMAX, EB>(smem, w)[r * D + c] * wr[w];
+          lb += ml_of(w, r, 1) * wr[w];
+        }
+        const float mb = wr[NW];
+        if (whole) {
+          dst.out[(row0 + r) * D + c] = lb > 0.f ? acc / lb : 0.f;
+          if (c == 0)
+            dst.lse[row0 + r] = lb > 0.f ? mb + logf(lb) : RFA_NEG_INF;
+        } else {
+          dst.part_acc[(part0 + r) * D + c] = acc;
+          if (c == 0) {
+            dst.part_ml[(part0 + r) * 2] = mb;
+            dst.part_ml[(part0 + r) * 2 + 1] = lb;
+          }
         }
       }
+      if (!whole) {
+        // the group's last block to get here merges its pieces (Merge):
+        // one thread releases the block's partial (the barrier orders the
+        // others' stores before its fence) and, in the last block,
+        // acquires the others' before the barrier after which the merge
+        // loads them
+        hop::bar_sync(CONSUMER_BAR, NCONS);
+        if (t == 0) {
+          fence_acq_rel_gpu();
+          const bool last = atomicAdd(dst.counters + gd, 1) == np - 1;
+          fence_acq_rel_gpu();
+          if (last) ctx->merges[ctx->n_merges++] = Merge{gd, row0, first,
+                                                         np, R, PS};
+        }
+      }
+      // without OWN_RED the stages (the warps' sums, the merge's m values)
+      // go back to the producers, whose copies write them through the async
+      // proxy
+      if constexpr (!S::OWN_RED) hop::fence_proxy_async();
+      hop::bar_sync(CONSUMER_BAR, NCONS);
+      if (t == 0) {
+        walk_on(ctx->lanes, ctx->B, ctx->GL, K, ctx->walk);
+        *done_s = piece + 1;
+      }
+      hop::bar_sync(CONSUMER_BAR, NCONS);
     }
-  });
-  if (nsplit == 1) return;
-
-  // the group's last block to get here merges its partials
-  __threadfence();
-  hop::bar_sync(CONSUMER_BAR, NCONS);
-  if (t == 0) *last_s = atomicAdd(dst.counters + gd, 1) == nsplit - 1;
-  hop::bar_sync(CONSUMER_BAR, NCONS);
-  if (!*last_s) return;
-  __threadfence();
-  merge_group<D, RMAX, EB, RG>(dst, gd, RG ? g * R_group + r0 : g * R,
-                               nsplit, R, PS, smem,
-                               reinterpret_cast<float*>(smem + S::ML),
-                               reinterpret_cast<float*>(smem + S::P));
+  }
+#pragma unroll 1
+  for (int k = 0; k < ctx->n_merges; ++k) {
+    const Merge mg = ctx->merges[k];
+    merge_group<D, RMAX, EB>(ctx->dst, mg.g, mg.row0, mg.first, mg.np, mg.R,
+                             mg.PS, smem,
+                             reinterpret_cast<float*>(smem + S::ML),
+                             reinterpret_cast<float*>(smem + S::P));
+    hop::bar_sync(CONSUMER_BAR, NCONS);  // its scratch is the next one's
+  }
 }
 
-// The most splits a group may have at R rows: the merge keeps one m
-// per (split, row) in the K and V stages.
+// The most pieces a group may have at R rows: the merge keeps one m per
+// (piece, row) beside the warps' sums. A group has at most as many pieces
+// as the launch has blocks.
 template <int D, int RMAX, int EB>
-__host__ __device__ constexpr bool merge_fits(int nsplit, int R) {
-  return (long long)nsplit * R * 4 <= Smem<D, RMAX, EB>::KV_BYTES;
+__host__ __device__ constexpr bool merge_fits(int blocks, int R) {
+  return (long long)blocks * R * 4 <= Smem<D, RMAX, EB>::MS_BYTES;
 }
 
-// A lane's live chunks in a paged cache (B5, B6): `len` tokens through
+// Kv head h of a lane in a paged cache (B5, B6): its `len` tokens through
 // the lane's block-table row, 64-token chunks that never span a page (cpp
 // chunks per page, the last may be short).
 struct PagedSrc {
@@ -1021,8 +1386,7 @@ struct PagedSrc {
   const unsigned char* v;
   const float* ks;
   const float* vs;
-  int n_chunks;
-  const int* table;  // this lane's block-table row
+  const int* table;  // the lane's block-table row
   int h, Hkv, num_pages, page_size, cpp, len;
 
   __device__ __forceinline__ int count(int j) const {
@@ -1045,29 +1409,44 @@ struct PagedSrc {
   }
 };
 
-// The source of kv head h of lane b: its length clamped to the pages the
-// table holds, and the number of live chunks that gives.
-__device__ __forceinline__ PagedSrc paged_src(
-    const unsigned char* k, const unsigned char* v, const float* ks,
-    const float* vs, const int* block_tables, const int* seq_lens, int b,
-    int h, int Hkv, int num_pages, int page_size, int npages) {
-  const int len = min(max(seq_lens[b], 0), npages * page_size);
-  const int cpp = (page_size + C - 1) / C;
-  int n_chunks = 0;
-  if (len > 0) {
-    const int full = (len - 1) / page_size;  // pages before the last live
-    n_chunks = full * cpp + (len - full * page_size + C - 1) / C;
+// The lanes of a paged cache: lane b's length clamped to the pages its
+// table row holds, and the live chunks that gives.
+struct PagedLanes {
+  const unsigned char* k;
+  const unsigned char* v;
+  const float* ks;
+  const float* vs;
+  const int* block_tables;
+  const int* seq_lens;
+  int Hkv, num_pages, page_size, npages;
+
+  __device__ __forceinline__ int cpp() const {
+    return (page_size + C - 1) / C;
   }
-  return PagedSrc{k,        v,         ks,        vs,
-                  n_chunks, block_tables + (long long)b * npages,
-                  h,        Hkv,       num_pages, page_size,
-                  cpp,      len};
-}
+
+  __device__ __forceinline__ int len(int b) const {
+    return min(max(seq_lens[b], 0), npages * page_size);
+  }
+
+  __device__ __forceinline__ int chunks(int b) const {
+    const int n = len(b);
+    if (n <= 0) return 0;
+    const int full = (n - 1) / page_size;  // pages before the last live
+    return full * cpp() + (n - full * page_size + C - 1) / C;
+  }
+
+  __device__ __forceinline__ PagedSrc src(int b, int h) const {
+    return PagedSrc{k,         v,   ks,        vs,
+                    block_tables + (long long)b * npages,
+                    h,         Hkv, num_pages, page_size,
+                    cpp(),     len(b)};
+  }
+};
 
 // The host side's choice of a build, which B4, B5 and B6 share. The build
 // for R rows a kv head at head dim D: RMAX 4, 8 or 16 rows up to
 // max_rows(D), else row groups (RG) of max_rows(D) rows. rp is the rows a
-// split's partial holds in the caller's workspace (R, or max_rows(D) with
+// piece's partial holds in the caller's workspace (R, or max_rows(D) with
 // row groups: ops/quant_decode_cuda.py::row_groups); a build that would
 // lay its partials out otherwise is refused, not launched past the
 // workspace.

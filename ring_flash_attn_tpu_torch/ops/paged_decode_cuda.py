@@ -3,11 +3,12 @@
 It replaces the TPU kernel ``ring_flash_attn_tpu/ops/paged.py::
 _paged_kernel``. ``ops/paged.py::paged_decode_attention`` sends CUDA
 tensors here and CPU tensors to the kernel's plain version,
-``ops/paged.py::_plain_paged_decode``. A lane's tokens are split over
-``paged_num_splits`` blocks (shapes only: no host sync, the same plan
-every call) and the partials merged in split order; see the source's
-header for what bounds the kernel on the H100 and how its design answers
-that.
+``ops/paged.py::_plain_paged_decode``. The launch takes
+``paged_plan_grid`` blocks (shapes only: no host sync), over which the
+kernel spreads the lanes' live chunks from ``seq_lens`` on the device
+(``quant_decode_cuda.work_plan`` is the plan's twin), and merges the
+pieces of a group in order; see the source's header for what bounds the
+kernel on the H100 and how its design answers that.
 """
 
 import ctypes
@@ -16,12 +17,12 @@ import functools
 import torch
 
 from . import _build
-from .quant_decode_cuda import (check_operand, check_rows, paged_num_splits,
+from .quant_decode_cuda import (check_operand, check_rows, paged_plan_grid,
                                 row_groups, scratch_ptrs)
 
 # rfa_paged_decode(q, q_bf16, k_pages, v_pages, block_tables, seq_lens,
 #                  new_counts, out, lse, part_acc, part_ml, counters, B, Hq,
-#                  Hkv, Tq, head_dim, num_pages, page_size, npages, nsplit,
+#                  Hkv, Tq, head_dim, num_pages, page_size, npages, grid,
 #                  rp, scale, softcap, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
     ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -71,11 +72,11 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     if out.numel() == 0:
         return out, lse
     nrg, rows = row_groups((hq // hkv) * tq, d)
-    nsplit = paged_num_splits(b, hkv, npages, page_size, nrg)
+    grid = paged_plan_grid(b, hkv, npages, page_size, nrg)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, nsplit,
+        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, grid,
                                                    rows, d, dev, stream)
         rc = lib.rfa_paged_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
@@ -83,7 +84,7 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
             None if new_counts is None else new_counts.data_ptr(),
             out.data_ptr(), lse.data_ptr(), part_acc,
             part_ml, counters, b, hq, hkv, tq, d, num_pages, page_size,
-            npages, nsplit, rows, float(scale), float(softcap or 0.0),
+            npages, grid, rows, float(scale), float(softcap or 0.0),
             stream,
         )
         paged_decode_cuda.launches += 1

@@ -15,12 +15,12 @@ import torch
 
 from . import _build
 from .quant_decode_cuda import (QTYPES, check_operand, check_rows,
-                                paged_num_splits, row_groups, scratch_ptrs)
+                                paged_plan_grid, row_groups, scratch_ptrs)
 
 # rfa_paged_quant_decode(q, q_bf16, k_pages, v_pages, k_scales, v_scales,
 #                        block_tables, seq_lens, out, lse, part_acc, part_ml,
 #                        counters, B, Hq, Hkv, Tq, head_dim, num_pages,
-#                        page_size, npages, qtype, nsplit, rp, scale,
+#                        page_size, npages, qtype, grid, rp, scale,
 #                        softcap, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11 + [
     ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -76,11 +76,11 @@ def paged_quant_decode_cuda(q, k_pages, k_scales, v_pages, v_scales,
     if out.numel() == 0:
         return out, lse
     nrg, rows = row_groups((hq // hkv) * tq, d)
-    nsplit = paged_num_splits(b, hkv, npages, page_size, nrg)
+    grid = paged_plan_grid(b, hkv, npages, page_size, nrg)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, nsplit,
+        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, grid,
                                                    rows, d, dev, stream)
         rc = lib.rfa_paged_quant_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
@@ -88,7 +88,7 @@ def paged_quant_decode_cuda(q, k_pages, k_scales, v_pages, v_scales,
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             lse.data_ptr(), part_acc, part_ml, counters, b, hq,
             hkv, tq, d, num_pages, page_size, npages, QTYPES[k_pages.dtype],
-            nsplit, rows, float(scale), float(softcap or 0.0), stream,
+            grid, rows, float(scale), float(softcap or 0.0), stream,
         )
         paged_quant_decode_cuda.launches += 1
     _build.check_launch(lib, rc, "paged_quant_decode")

@@ -1,5 +1,5 @@
 """Launcher of kernel B4, decode over a contiguous quantized cache
-(``csrc/quant_decode.cu``), and the split plan that B4, B5 and B6 share.
+(``csrc/quant_decode.cu``), and the work plan that B4, B5 and B6 share.
 
 It replaces the TPU kernel ``ring_flash_attn_tpu/ops/quant_decode_pallas.py
 ::_kernel``. ``ops/quant.py::quant_decode_attention`` sends CUDA tensors
@@ -24,15 +24,16 @@ HEAD_DIMS = (64, 128, 256)  # the head dims the decode loop is built for
 # max_rows differs refuses the launch (rfa_qd::dispatch_rows)
 MAX_ROWS = {64: 16, 128: 16, 256: 8}
 CHUNK = 64  # tokens per chunk in the kernels (C in quant_decode.cuh)
-# Blocks to aim for (one per SM of 132: a block runs 1 to 3 pipelines
-# side by side, quant_decode.cuh) and the fewest chunks worth a block.
+# Blocks a launch may take (one per SM of 132: a block runs 1 to 3
+# pipelines side by side, quant_decode.cuh) and the fewest chunks worth a
+# block beyond one a group (MIN_CHUNKS in quant_decode.cuh::Plan).
 TARGET_BLOCKS = 132
-MIN_CHUNKS = 8
+MIN_CHUNKS = 4
 QTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
 # rfa_quant_decode(q, q_bf16, k_q, v_q, k_scale, v_scale, len_ptr, len_val,
 #                  out, lse, part_acc, part_ml, counters, B, Hq, Hkv, Tq,
-#                  head_dim, S, qtype, nsplit, rp, scale, softcap, stream)
+#                  head_dim, S, qtype, grid, rp, scale, softcap, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
     ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -80,20 +81,102 @@ def row_groups(rows, d):
     return -(-rows // per), per
 
 
-def num_splits(groups, max_chunks):
-    """Blocks that share one (batch, kv head) group's tokens: as many as
-    fill the card's SMs without a second wave, each with at least
-    MIN_CHUNKS chunks of the longest possible sequence (a block takes
-    ceil(max_chunks / splits) chunks of it). Depends on shapes only, so
-    results are reproducible (the partials merge in split order)."""
-    return max(1, min(TARGET_BLOCKS // groups, max_chunks // MIN_CHUNKS))
+def plan_grid(groups, max_chunks):
+    """Blocks of a launch of B4, B5 or B6 from shapes alone (no host sync):
+    no more than the card's SMs (a block loops over its run, never a
+    second wave), and no more than the device's plan could use, one a
+    group or one a MIN_CHUNKS chunks of ``groups`` lanes of
+    ``max_chunks`` chunks (the longest the cache allows). The device's
+    plan (``work_plan``) uses up to this many. The plan counts its units
+    (``work_plan``) in 32 bits with room to spare: a launch of 2^30 or
+    more raises."""
+    if groups * (max_chunks + piece_cost(64, 1)) >= 2**30:
+        raise ValueError(f"{groups} groups of up to {max_chunks} chunks are "
+                         "more than the decode plan counts")
+    return max(1, min(TARGET_BLOCKS,
+                      max(groups, -(-groups * max_chunks // MIN_CHUNKS))))
 
 
-def paged_num_splits(b, hkv, npages, page_size, nrg=1):
-    """``num_splits`` of a paged cache (B5, B6): B * Hkv * nrg groups (nrg
+def paged_plan_grid(b, hkv, npages, page_size, nrg=1):
+    """``plan_grid`` of a paged cache (B5, B6): B * Hkv * nrg groups (nrg
     row groups a kv head, ``row_groups``), each lane at most npages pages
     of ceil(page_size / CHUNK) chunks."""
-    return num_splits(b * hkv * nrg, npages * -(-page_size // CHUNK))
+    return plan_grid(b * hkv * nrg, npages * -(-page_size // CHUNK))
+
+
+def lane_chunks(length, page_size=None):
+    """The live chunks of a lane of ``length`` tokens: CHUNK-token chunks,
+    which in a paged cache never span a page (quant_decode.cuh::
+    PagedLanes::chunks; no page size: B4's contiguous cache)."""
+    if length <= 0:
+        return 0
+    if page_size is None:
+        return -(-length // CHUNK)
+    full = (length - 1) // page_size  # pages before the last live one
+    return full * -(-page_size // CHUNK) + -(-(length - full * page_size)
+                                            // CHUNK)
+
+
+def piece_cost(d, value_bytes):
+    """A piece's fixed cost in chunks in the device's plan (its q, the
+    warps' meeting, its write): about that of 32 KB of K and V
+    (quant_decode.cuh::piece_cost)."""
+    return 1 if d * value_bytes >= 512 else 512 // (d * value_bytes)
+
+
+def work_plan(chunks, groups_per_lane, grid, cost):
+    """The device's work plan (``csrc/quant_decode.cuh::Plan``, made in
+    every block from the lanes' live chunks), step by step as the kernel
+    takes it. ``chunks[b]``: lane b's live chunks (every kv head's and row
+    group's alike); group g = b * groups_per_lane + x; each live group
+    takes ``cost`` units (``piece_cost``) and then one a chunk on the line
+    that the used blocks cut into equal runs.
+
+    Returns (used blocks, [block p's pieces]), a piece a dict: group,
+    first (its first chunk in the group), chunks, whole (the group in one
+    piece: it writes (out, lse) itself), and otherwise slot (its partial's
+    slot, group + p), first_slot and pieces (the group's pieces, in
+    consecutive slots, merged in that order by the group's last block, whose
+    counter target that is)."""
+    gl = groups_per_lane
+    live = [n for n in chunks if n > 0]
+    if not live:
+        return 0, [[] for _ in range(grid)]
+    glive = len(live) * gl
+    w = (sum(live) + len(live) * cost) * gl  # units
+    used = min(grid, max(glive, -(-sum(live) * gl // MIN_CHUNKS)))
+    if min(live) == max(live) and used >= glive:
+        used -= used % glive
+
+    def start(p):
+        return p * w // used
+
+    def block_of(x):
+        return -(-((x + 1) * used) // w) - 1
+
+    runs = []
+    for p in range(grid):
+        pieces = []
+        if p < used:
+            lo, hi, at = start(p), start(p + 1), 0
+            for b, n in enumerate(chunks):
+                for x in range(gl if n else 0):
+                    g0 = at + cost  # the unit of the group's chunk 0
+                    at = g0 + n
+                    first, last = max(lo, g0), min(hi, at)
+                    if first >= last:
+                        continue
+                    piece = dict(group=b * gl + x, first=first - g0,
+                                 chunks=last - first,
+                                 whole=first == g0 and last == at)
+                    if not piece["whole"]:
+                        p0 = block_of(g0)
+                        piece.update(slot=b * gl + x + p,
+                                     first_slot=b * gl + x + p0,
+                                     pieces=block_of(at - 1) - p0 + 1)
+                    pieces.append(piece)
+        runs.append(pieces)
+    return used, runs
 
 
 _WORKSPACES = {}  # (device, stream) -> (fp32 partials, int32 counters)
@@ -116,19 +199,20 @@ def _buffers(floats, groups, dev, stream):
     return ws
 
 
-def scratch_ptrs(groups, nsplit, rows, d, dev, stream):
-    """The scratch of a split launch of B4, B5 or B6 at head dim d on
-    ``stream``, as the kernels take it: part_acc (groups, nsplit, rows, d)
-    and part_ml (groups, nsplit, rows, 2) fp32, the partials that each
-    group's last block merges, one after the other in the workspace, and
-    counters (groups,) int32; with row groups, ``groups`` counts them and
-    ``rows`` is a row group's (``row_groups``). Three nulls with one split:
-    the block then writes (out, lse) itself."""
-    if nsplit == 1:
+def scratch_ptrs(groups, grid, rows, d, dev, stream):
+    """The scratch of a launch of B4, B5 or B6 over ``grid`` blocks at head
+    dim d on ``stream``, as the kernels take it: part_acc (groups + grid,
+    rows, d) and part_ml (groups + grid, rows, 2) fp32, a slot for each
+    piece of a group cut across blocks (group + block: ``work_plan``),
+    which the group's last block merges, one after the other in the
+    workspace, and counters (groups,) int32; with row groups, ``groups``
+    counts them and ``rows`` is a row group's (``row_groups``). Three
+    nulls with one block: it writes every (out, lse) itself."""
+    if grid == 1:
         return None, None, None
-    n_acc = groups * nsplit * rows * d
-    part, counters = _buffers(n_acc + groups * nsplit * rows * 2, groups,
-                              dev, stream)
+    slots = groups + grid
+    n_acc = slots * rows * d
+    part, counters = _buffers(n_acc + slots * rows * 2, groups, dev, stream)
     ptr = part.data_ptr()
     return ptr, ptr + 4 * n_acc, counters.data_ptr()
 
@@ -176,17 +260,17 @@ def quant_decode_cuda(q, k_q, k_scale, v_q, v_scale, length, scale,
     if out.numel() == 0:
         return out, lse
     nrg, rows = row_groups((hq // hkv) * tq, d)
-    nsplit = num_splits(b * hkv * nrg, -(-s // CHUNK))
+    grid = plan_grid(b * hkv * nrg, -(-s // CHUNK))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, nsplit,
+        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, grid,
                                                    rows, d, dev, stream)
         rc = lib.rfa_quant_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
             v_q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), len_ptr,
             len_val, out.data_ptr(), lse.data_ptr(), part_acc, part_ml,
-            counters, b, hq, hkv, tq, d, s, QTYPES[k_q.dtype], nsplit, rows,
+            counters, b, hq, hkv, tq, d, s, QTYPES[k_q.dtype], grid, rows,
             float(scale), float(softcap or 0.0), stream,
         )
         quant_decode_cuda.launches += 1

@@ -13,14 +13,16 @@ import pytest
 import torch
 
 from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B3A_EDGE_CASES,
-                        B5_TOL, B7_EDGE_CASES, BAND_EDGE_CASES, BWD_REL_TOL,
+                        B4_PLAN_CASES, B5_TOL, B7_EDGE_CASES, BAND_EDGE_CASES, BWD_REL_TOL,
                         D256_BAND_EDGE_CASES, D256_EDGE_CASES,
                         D256_RING_CASES, D256_XFORM_EDGE_CASES, DECODE_CASES,
-                        RING_OUT_REL_TOL, SEG_EDGE_CASES, XFORM_EDGE_CASES,
+                        PLAN_CASES, RING_OUT_REL_TOL, SEG_EDGE_CASES,
+                        XFORM_EDGE_CASES, b4_plan_case_check,
                         b5_case_inputs, b5_edge_cases, band_case_check,
                         d256_case_check, d256_growth_check,
                         d256_ring_case_check,
-                        decode_case_check, xform_case_check,
+                        decode_case_check, plan_case_check,
+                        xform_case_check,
                         band_keep_checks, rel_err_rows, ring_steps,
                         seg_case_mask)
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
@@ -190,9 +192,10 @@ def test_cuda_bwd_kernels_match_plain_version(case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", range(len(b5_edge_cases())))
 def test_cuda_paged_decode_split_edges(case):
-    """B5 at the split plan's edges (chip_smoke's b5_edge_cases: one
-    32768-token lane, a lane ending on a split boundary, lanes of 0 and 1
-    token, 16-token pages, R = 16 with new_counts, softcap with fp32 q)
+    """B5 at the work plan's edges (chip_smoke's b5_edge_cases: one
+    32768-token lane, a lane one of whose groups starts a block's run,
+    lanes of 0 and 1 token, 16-token pages, R = 16 with new_counts,
+    softcap with fp32 q)
     against its plain version within B5_TOL; two calls give the same
     bits."""
     if not torch.cuda.is_available():
@@ -529,7 +532,7 @@ def test_cuda_quant_decode_is_bitwise_reproducible_across_shapes():
     from ring_flash_attn_tpu_torch.ops.quant import _plain_quant_decode
     from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as qd
     from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
-        num_splits, quant_decode_cuda)
+        lane_chunks, piece_cost, plan_grid, quant_decode_cuda, work_plan)
 
     g = torch.Generator(device="cuda").manual_seed(41)
     big, small = _quant_cache(g, 1, 8, 8192, "int8"), _quant_cache(
@@ -550,7 +553,16 @@ def test_cuda_quant_decode_is_bitwise_reproducible_across_shapes():
     ref = _plain_quant_decode(q2, small, 650, 0.088, None)
     assert float((other[0] - ref[0]).abs().max()) <= QUANT_TOL
     torch.cuda.synchronize()
-    assert num_splits(8, 128) > 1 and num_splits(4, 11) == 1
+    # the two shapes cut their groups over other numbers of blocks
+
+    def most_pieces(plan):
+        return max(p.get("pieces", 1) for run in plan[1] for p in run)
+
+    big_plan = work_plan([lane_chunks(8000)], 8, plan_grid(8, 128),
+                         piece_cost(128, 1))
+    small_plan = work_plan([lane_chunks(650)] * 2, 2, plan_grid(4, 11),
+                           piece_cost(128, 1))
+    assert most_pieces(big_plan) > most_pieces(small_plan) > 1
     _, counters = qd._WORKSPACES[(q1.device,
                                   torch.cuda.current_stream().cuda_stream)]
     assert torch.all(counters == 0)
@@ -1342,6 +1354,31 @@ def test_cuda_decode_head_dims_and_row_groups(case, kernel):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     decode_case_check(torch, DECODE_CASES[case], kernel, seed=case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B5", "B6"])
+@pytest.mark.parametrize("case", range(len(PLAN_CASES)))
+def test_cuda_decode_plan_edges(case, kernel):
+    """B5 and B6 at head dims 64 and 256 on the work plan's edges
+    (chip_smoke.PLAN_CASES: ragged lanes with a dead lane and lanes that
+    hold every token their table allows, new_counts, row groups, 48 lanes
+    whose groups outnumber the SMs) against their plain versions, twice,
+    the same bits, dead lanes at (0, NEG_INF)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    plan_case_check(torch, PLAN_CASES[case], kernel, seed=case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(B4_PLAN_CASES)))
+def test_cuda_quant_decode_plan_edges(case):
+    """B4 at head_dim 256 with one q row a kv head and on generate's
+    32-token tail cache at 64 and 256 (chip_smoke.B4_PLAN_CASES), at
+    lengths 0 to S, against its plain version, twice, the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    b4_plan_case_check(torch, B4_PLAN_CASES[case], seed=case)
 
 
 @pytest.mark.cuda

@@ -1,12 +1,17 @@
-"""The split plan that the decode kernels B4, B5 and B6 share
-(``ops/quant_decode_cuda.py::num_splits``, ``paged_num_splits``): how many
-blocks take one (batch, kv head) group's tokens; the row groups a launch
+"""The work plan that the decode kernels B4, B5 and B6 share
+(``ops/quant_decode_cuda.py``): the blocks a launch takes from shapes alone
+(``plan_grid``, ``paged_plan_grid``), the plan the kernels make on the
+device from the lanes' live lengths (its twin ``work_plan``, which mirrors
+``csrc/quant_decode.cuh::Plan``'s arithmetic); the row groups a launch
 takes past the rows one block serves (``row_groups``); the head dims and
 groups the launchers take (``check_rows``); and the scratch those blocks
 write their partials and group counters into (``scratch_ptrs``). All run
-on the host from shapes alone, so they are checked here without a
-card."""
+on the host, so they are checked here without a card."""
 
+import os
+import re
+
+import numpy as np
 import pytest
 import torch
 
@@ -15,7 +20,8 @@ from ring_flash_attn_tpu_torch.ops import (paged_decode_cuda,
 from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as qd
 from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
     CHUNK, HEAD_DIMS, MAX_ROWS, MIN_CHUNKS, TARGET_BLOCKS, check_rows,
-    num_splits, paged_num_splits, row_groups, scratch_ptrs)
+    lane_chunks, paged_plan_grid, piece_cost, plan_grid, row_groups,
+    scratch_ptrs, work_plan)
 
 D = 128  # the head dim of the scratch tests below
 
@@ -27,79 +33,269 @@ PLANS = [(1, 1), (1, 3), (1, 5), (1, 512), (8, 7), (8, 512), (24, 128),
 
 
 @pytest.mark.parametrize("groups,max_chunks", PLANS)
-def test_num_splits_fills_the_card_where_the_chunks_allow(groups,
-                                                          max_chunks):
-    """One block an SM (a block runs several pipelines side by side): as
-    many splits as fill the SMs without a second wave, unless the chunks
-    run out first."""
-    n = num_splits(groups, max_chunks)
-    assert n >= 1
-    assert n == 1 or n * groups <= TARGET_BLOCKS  # never a second wave
-    if max_chunks // MIN_CHUNKS >= TARGET_BLOCKS // groups:
-        # one split more would not fit in one wave
-        assert n == 1 or (n + 1) * groups > TARGET_BLOCKS
-    else:
-        assert n == max(1, max_chunks // MIN_CHUNKS)
-
-
-@pytest.mark.parametrize("groups,max_chunks", PLANS)
-def test_num_splits_never_needs_a_second_wave(groups, max_chunks):
-    """The decode kernels hold one block an SM: a plan of more blocks than
-    TARGET_BLOCKS would run a second, mostly idle wave."""
+def test_plan_grid_never_needs_a_second_wave(groups, max_chunks):
+    """One block an SM at most: a block walks its whole run (several
+    groups where they outnumber the SMs), so the grid never holds more
+    blocks than TARGET_BLOCKS."""
     assert TARGET_BLOCKS == 132
-    n = num_splits(groups, max_chunks)
-    assert n * groups <= max(TARGET_BLOCKS, groups)
+    assert 1 <= plan_grid(groups, max_chunks) <= TARGET_BLOCKS
 
 
 @pytest.mark.parametrize("groups,max_chunks", PLANS)
-def test_num_splits_gives_each_split_min_chunks(groups, max_chunks):
-    n = num_splits(groups, max_chunks)
-    share = -(-max_chunks // n)  # chunks a block takes of the longest lane
-    assert share >= min(MIN_CHUNKS, max_chunks)
-    if max_chunks < 2 * MIN_CHUNKS:
-        assert n == 1
+def test_plan_grid_gives_every_group_a_block_where_the_card_allows(
+        groups, max_chunks):
+    """The device's plan gives each live group at least a block of its own
+    (a group never waits for another's), so the grid holds one a group up
+    to the card's SMs."""
+    assert plan_grid(groups, max_chunks) >= min(groups, TARGET_BLOCKS)
 
 
-@pytest.mark.parametrize("groups", [TARGET_BLOCKS, TARGET_BLOCKS + 1, 4096])
-def test_num_splits_is_one_when_the_groups_fill_the_card(groups):
-    assert num_splits(groups, 10**6) == 1
+@pytest.mark.parametrize("groups,max_chunks", PLANS)
+def test_plan_grid_gives_each_block_min_chunks(groups, max_chunks):
+    """Beyond one block a group, a block more only for each MIN_CHUNKS
+    chunks the lanes could hold: a lane too short for that is not cut."""
+    n = plan_grid(groups, max_chunks)
+    assert n <= max(groups, -(-groups * max_chunks // MIN_CHUNKS))
+    if max_chunks < MIN_CHUNKS:
+        assert n == min(groups, TARGET_BLOCKS)
 
 
-def test_paged_num_splits_is_the_plan_of_the_table_shape():
-    """B5 and B6 split a lane of npages pages of page_size tokens
-    (64-token chunks that never span a page): at the serving table's
-    shape (8 lanes, 16 pages of 256) 2 splits, 128 blocks; at the engine's
-    4 lanes 4 splits, 128 blocks; 16-token pages count a chunk a page."""
+def test_plan_grid_refuses_more_than_the_plan_counts():
+    """The device's plan counts units (chunks and pieces' fixed costs) in
+    32 bits: the launcher refuses a shape whose units could pass 2^30."""
+    plan_grid(2**13, 2**16)
+    with pytest.raises(ValueError, match="more than the decode plan"):
+        plan_grid(2**14, 2**16)
+
+
+def test_paged_plan_grid_is_the_grid_of_the_table_shape():
+    """B5 and B6 size the grid from a lane of npages pages of page_size
+    tokens (64-token chunks that never span a page): at the serving
+    table's shape (8 lanes of 8 kv heads, 16 pages of 256) and at the
+    engine's 4 lanes every SM; 16-token pages count a chunk a page; a
+    table of one short page, a block a group."""
     assert CHUNK == 64
-    assert paged_num_splits(8, 8, 16, 256) == 2
-    assert paged_num_splits(4, 8, 16, 256) == 4
-    assert paged_num_splits(1, 8, 128, 256) == num_splits(8, 512) == 16
-    assert paged_num_splits(2, 8, 256, 16) == num_splits(16, 256)
-    assert paged_num_splits(3, 8, 64, 100) == num_splits(24, 128)
+    assert paged_plan_grid(8, 8, 16, 256) == TARGET_BLOCKS
+    assert paged_plan_grid(4, 8, 16, 256) == TARGET_BLOCKS
+    assert paged_plan_grid(2, 8, 256, 16) == plan_grid(16, 256)
+    assert paged_plan_grid(3, 8, 64, 100) == plan_grid(24, 128)
+    assert paged_plan_grid(2, 4, 1, 16) == 8
 
 
-def test_paged_num_splits_depends_on_shapes_only():
-    """The plan is a function of the cache's and the table's shapes alone
-    (Python ints: no read of seq_lens, so no host sync) and gives the same
-    int every call; a table twice as wide never gives fewer splits."""
-    shapes = [(b, p, ps) for b in (1, 4, 8) for p in (1, 16, 128)
-              for ps in (16, 256)]
-    first = [paged_num_splits(b, 8, p, ps) for b, p, ps in shapes]
-    again = [paged_num_splits(b, 8, p, ps) for b, p, ps in shapes]
-    assert first == again and all(type(n) is int for n in first)
-    for b, p, ps in shapes:
-        assert paged_num_splits(b, 8, 2 * p, ps) >= paged_num_splits(
-            b, 8, p, ps)
+@pytest.mark.parametrize("nrg", [1, 2, 15, 45])
+def test_paged_plan_grid_counts_row_groups(nrg):
+    """Row groups are groups of the plan: B * Hkv * nrg of them share the
+    card's blocks, never a second wave."""
+    n = paged_plan_grid(4, 1, 32, 256, nrg)
+    assert n == plan_grid(4 * nrg, 32 * 4)
+    assert min(4 * nrg, TARGET_BLOCKS) <= n <= TARGET_BLOCKS
+
+
+def test_plan_constants_mirror_the_kernels():
+    """MIN_CHUNKS and CHUNK are the kernels' own (csrc/quant_decode.cuh)."""
+    src = open(os.path.join(os.path.dirname(qd.__file__), os.pardir, "csrc",
+                            "quant_decode.cuh")).read()
+    assert re.search(r"constexpr int MIN_CHUNKS = (\d+);", src).group(1) \
+        == str(MIN_CHUNKS)
+    assert re.search(r"constexpr int C = (\d+);", src).group(1) == str(CHUNK)
+
+
+# work_plan's cases: (name, lane lengths, page size (None: B4's contiguous
+# cache of S tokens a lane), kv heads, row groups a kv head, the table's
+# pages a lane or B4's S, head dim, bytes a cached value): the decode
+# sub-table's ragged lanes at Llama-3.2-1B's and Gemma-7B's kv heads, the
+# engine's 4 lanes, the same tokens in equal lanes, B4's caches
+# (generate's prompt and tail, the sub-table's), dead lanes at either end
+# and between, one-token lanes, 16-token pages, row groups (StarCoder's
+# 240 rows, Falcon-7B's 355), the serving table's shape and more groups
+# than the card has SMs
+_RNG = np.random.default_rng(21)
+PLAN_CASES = [
+    ("ragged D64", [0, 1, 3000, 8192], 256, 8, 1, 32, 64, 2),
+    ("ragged D256", [0, 1, 3000, 8192], 256, 16, 1, 32, 256, 2),
+    ("engine", [3016, 1216, 2616, 316], 256, 8, 1, 16, 64, 2),
+    ("engine D256", [3016, 1216, 2616, 316], 256, 16, 1, 16, 256, 2),
+    ("equal lanes", [2798, 2798, 2798, 2799], 256, 8, 1, 32, 64, 2),
+    ("equal chunks", [2760, 2800, 2780, 2790], 256, 16, 1, 32, 256, 2),
+    ("B4 prompt", [32768], None, 8, 1, 32768, 64, 1),
+    ("B4 tail", [32], None, 8, 1, 32, 64, 1),
+    ("B4 one token", [1, 1], None, 16, 1, 32, 256, 1),
+    ("B4 sub-table", [8000, 8000], None, 8, 1, 8192, 64, 1),
+    ("B4 D256", [8000, 8000], None, 16, 1, 8192, 256, 1),
+    ("B4 length 0", [0, 0], None, 8, 1, 64, 128, 1),
+    ("all dead", [0, 0, 0], 256, 8, 1, 4, 128, 2),
+    ("one token lanes", [1, 1, 1, 1], 16, 8, 1, 4, 128, 2),
+    ("dead ends", [0, 4096, 0, 17, 0], 16, 8, 1, 256, 128, 1),
+    ("one long lane", [0] * 7 + [32768], 256, 8, 1, 128, 128, 2),
+    ("StarCoder 240 rows", [0, 1, 3000, 8192], 128, 1, 15, 64, 128, 2),
+    ("Falcon 355 rows", [0, 1, 3000, 8192], 256, 1, 23, 32, 64, 1),
+    ("table shape", [0, 1, 255, 256, 257, 1000, 4095, 4096], 256, 8, 1, 16,
+     128, 2),
+    ("64 lanes", [int(x) for x in _RNG.integers(0, 4096, 64)], 256, 8, 1,
+     16, 128, 2),
+]
+_IDS = [c[0] for c in PLAN_CASES]
+
+
+def _plan_of(case):
+    """(chunks a lane, groups a lane, grid, used, runs) of a case: the grid
+    from shapes as the launchers size it, the plan as the kernel makes it."""
+    _, lens, page, hkv, nrg, width, d, eb = case
+    chunks = [lane_chunks(n, page) for n in lens]
+    if page is None:
+        grid = plan_grid(len(lens) * hkv * nrg, lane_chunks(width))
+    else:
+        grid = paged_plan_grid(len(lens), hkv, width, page, nrg)
+    used, runs = work_plan(chunks, hkv * nrg, grid, piece_cost(d, eb))
+    return chunks, hkv * nrg, grid, used, runs
+
+
+def _pieces_by_group(runs):
+    out = {}
+    for p, run in enumerate(runs):
+        for piece in run:
+            out.setdefault(piece["group"], []).append((p, piece))
+    return out
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
+def test_plan_covers_every_live_chunk_once(case):
+    """Every live chunk of every group lies in exactly one piece of one
+    block, a dead lane's groups in none (the kernel clears those rows)."""
+    chunks, gl, grid, used, runs = _plan_of(case)
+    seen = []
+    for run in runs:
+        for piece in run:
+            assert piece["chunks"] >= 1
+            seen += [(piece["group"], piece["first"] + k)
+                     for k in range(piece["chunks"])]
+    want = [(b * gl + x, j) for b, n in enumerate(chunks) for x in range(gl)
+            for j in range(n)]
+    assert sorted(seen) == want
+    assert len(runs) == grid and all(not run for run in runs[used:])
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
+def test_plan_pieces_of_a_group_are_in_order(case):
+    """A group cut across blocks lies in consecutive blocks, piece k
+    holding the chunks after piece k - 1's; its pieces take consecutive
+    slots from first_slot, in block order, and each names the same count,
+    the counter's target, so the last block merges them in piece order
+    whichever finishes first. A whole group is one piece."""
+    _, _, _, _, runs = _plan_of(case)
+    for group, pieces in _pieces_by_group(runs).items():
+        blocks = [p for p, _ in pieces]
+        assert blocks == list(range(blocks[0], blocks[0] + len(blocks)))
+        at = 0
+        for p, piece in pieces:
+            assert piece["first"] == at
+            at += piece["chunks"]
+        if len(pieces) == 1:
+            assert pieces[0][1]["whole"]
+            continue
+        for k, (p, piece) in enumerate(pieces):
+            assert not piece["whole"]
+            assert piece["slot"] == group + p
+            assert piece["first_slot"] == group + blocks[0]
+            assert piece["slot"] == piece["first_slot"] + k
+            assert piece["pieces"] == len(pieces)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
+def test_plan_workspace_bound_holds(case):
+    """The slots of all partials are distinct and below groups + grid, the
+    workspace ``scratch_ptrs`` lays out from shapes alone; a group has at
+    most as many pieces as the grid has blocks (``merge_fits`` is held
+    for the grid); one block never writes a partial."""
+    chunks, gl, grid, _, runs = _plan_of(case)
+    groups = len(chunks) * gl
+    slots = [piece["slot"] for run in runs for piece in run
+             if not piece["whole"]]
+    assert len(slots) == len(set(slots))
+    assert all(0 <= s < groups + grid for s in slots)
+    assert all(piece["pieces"] <= grid for run in runs for piece in run
+               if not piece["whole"])
+    if grid == 1:
+        assert not slots
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
+def test_plan_depends_only_on_what_the_kernel_reads(case):
+    """The kernel reads the lanes' live chunks (from seq_lens or B4's
+    length), the groups a lane, its grid and its build's piece cost;
+    lengths that give the same chunks give the same plan, every call, and
+    the grid is the launcher's, from shapes (Python ints: no read of
+    seq_lens, no host sync)."""
+    _, lens, page, hkv, nrg, width, d, eb = case
+    chunks, gl, grid, used, runs = _plan_of(case)
+    assert type(grid) is int and isinstance(used, int)
+    # each live lane one token shorter, where that keeps its chunks
+    other = [n - 1 if n > 1 and lane_chunks(n - 1, page) == c else n
+             for n, c in zip(lens, chunks)]
+    cost = piece_cost(d, eb)
+    again = work_plan([lane_chunks(n, page) for n in other], gl, grid, cost)
+    assert again == (used, runs) == work_plan(chunks, gl, grid, cost)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
+def test_plan_balances_the_runs(case):
+    """Each used block's work, its chunks and a piece's fixed cost for
+    each piece, is at most an even share of the line plus one fixed cost,
+    so no SM idles while a long lane streams and a block of many short
+    groups takes fewer of them; a live group always has a block (used is
+    at least the live groups, up to the grid) and a block beyond that only
+    for MIN_CHUNKS chunks."""
+    _, _, _, _, _, _, d, eb = case
+    chunks, gl, grid, used, runs = _plan_of(case)
+    cost = piece_cost(d, eb)
+    live = sum(1 for n in chunks if n) * gl
+    if not live:
+        assert used == 0
+        return
+    share = -(-(sum(chunks) * gl + live * cost) // used)
+    for run in runs[:used]:
+        assert sum(p["chunks"] + cost for p in run) <= share + cost
+    assert min(live, grid) <= used <= grid
+    assert used <= max(live, -(-sum(chunks) * gl // MIN_CHUNKS))
+
+
+@pytest.mark.parametrize("d,eb,cost", [(64, 1, 8), (64, 2, 4), (128, 1, 4),
+                                       (128, 2, 2), (256, 1, 2),
+                                       (256, 2, 1)])
+def test_piece_cost_is_the_kernels(d, eb, cost):
+    """A piece costs about 32 KB of K and V: 8 chunks of int8 at head dim
+    64 down to one of bf16 at 256, as quant_decode.cuh::piece_cost."""
+    assert piece_cost(d, eb) == cost
+
+
+def _equal(case):
+    live = {lane_chunks(n, case[2]) for n in case[1] if n}
+    return len(live) == 1
+
+
+@pytest.mark.parametrize("case", [c for c in PLAN_CASES if _equal(c)],
+                         ids=[c[0] for c in PLAN_CASES if _equal(c)])
+def test_plan_equal_lanes_never_cross_a_group(case):
+    """Where every live lane holds the same chunks (B4 always), the used
+    blocks are a multiple of the live groups when they outnumber them, so
+    each block's run lies in one group: one piece a block, no merge
+    across groups."""
+    chunks, gl, grid, used, runs = _plan_of(case)
+    glive = sum(1 for n in chunks if n) * gl
+    if used >= glive:
+        assert used % glive == 0
+        assert all(len(run) == 1 for run in runs[:used])
 
 
 def test_partials_hold_one_row_per_split():
-    """The workspace holds one (acc, (m, l)) partial per group, split and
-    row, fp32, and one int32 counter per group, zero when allocated."""
+    """The workspace holds one (acc, (m, l)) partial per slot (groups +
+    blocks of them: ``work_plan``) and row, fp32, and one int32 counter
+    per group, zero when allocated."""
     qd._WORKSPACES.clear()
     scratch_ptrs(6, 9, 4, D, "cpu", 101)
     part, counters = qd._WORKSPACES[("cpu", 101)]
     assert part.dtype == torch.float32 and counters.dtype == torch.int32
-    assert part.numel() == 6 * 9 * 4 * (D + 2)
+    assert part.numel() == (6 + 9) * 4 * (D + 2)
     assert counters.numel() == 6 and torch.all(counters == 0)
 
 
@@ -116,39 +312,39 @@ def test_workspace_is_kept_per_stream_and_grows_on_demand():
     scratch_ptrs(64, 9, 16, D, "cpu", 7)
     part, counters = qd._WORKSPACES[("cpu", 7)]
     # grown, never shrunk: the earlier shape fits what is kept now
-    assert part.numel() == 64 * 9 * 16 * (D + 2)
+    assert part.numel() == (64 + 9) * 16 * (D + 2)
     assert counters.numel() == 64 and torch.all(counters == 0)
     assert len(qd._WORKSPACES) == 2
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("groups,nsplit,rows", [(8, 66, 4), (4, 16, 16),
-                                                (1, 3, 8)])
-def test_scratch_ptrs_lay_the_partials_out(groups, nsplit, rows, d):
-    """The kernels' pointers: part_acc (groups, nsplit, rows, D) at the
-    workspace's start, part_ml (groups, nsplit, rows, 2) right after it,
+@pytest.mark.parametrize("groups,grid,rows", [(8, 66, 4), (4, 16, 16),
+                                              (1, 3, 8)])
+def test_scratch_ptrs_lay_the_partials_out(groups, grid, rows, d):
+    """The kernels' pointers: part_acc (groups + grid, rows, D) at the
+    workspace's start, part_ml (groups + grid, rows, 2) right after it,
     and the counters, laid out by the call's head dim D."""
     qd._WORKSPACES.clear()
-    acc, ml, cnt = scratch_ptrs(groups, nsplit, rows, d, "cpu", 11)
+    acc, ml, cnt = scratch_ptrs(groups, grid, rows, d, "cpu", 11)
     part, counters = qd._WORKSPACES[("cpu", 11)]
     assert acc == part.data_ptr() and cnt == counters.data_ptr()
-    assert ml == acc + 4 * groups * nsplit * rows * d
-    assert part.numel() == groups * nsplit * rows * (d + 2)
+    assert ml == acc + 4 * (groups + grid) * rows * d
+    assert part.numel() == (groups + grid) * rows * (d + 2)
 
 
 def test_scratch_ptrs_are_null_with_one_split():
-    """With one split a block writes (out, lse) itself: no workspace."""
+    """With one block it writes every (out, lse) itself: no workspace."""
     qd._WORKSPACES.clear()
     assert scratch_ptrs(8, 1, 4, D, "cpu", 5) == (None, None, None)
     assert not qd._WORKSPACES
 
 
 def test_b5_wrapper_takes_the_shared_plan():
-    """B5's and B6's launchers import the plan and the scratch B4 uses (no
+    """B5's and B6's launchers import the grid and the scratch B4 uses (no
     plan of their own)."""
-    assert paged_decode_cuda.paged_num_splits is paged_num_splits
+    assert paged_decode_cuda.paged_plan_grid is paged_plan_grid
     assert paged_decode_cuda.scratch_ptrs is scratch_ptrs
-    assert paged_quant_decode_cuda.paged_num_splits is paged_num_splits
+    assert paged_quant_decode_cuda.paged_plan_grid is paged_plan_grid
     assert paged_quant_decode_cuda.scratch_ptrs is scratch_ptrs
 
 
@@ -173,15 +369,6 @@ def test_row_groups_cover_every_row(hq, hkv, tq, d):
     sizes = [min(per, rows - r0) for r0 in starts]
     assert sum(sizes) == rows and min(sizes) >= 1
     check_rows(hq, hkv, tq, d)  # every whole group is taken
-
-
-@pytest.mark.parametrize("nrg", [1, 2, 15, 45])
-def test_paged_num_splits_counts_row_groups(nrg):
-    """Row groups are groups of the plan: B * Hkv * nrg of them share the
-    card's blocks, never a second wave."""
-    n = paged_num_splits(4, 1, 32, 256, nrg)
-    assert n == num_splits(4 * nrg, 32 * 4)
-    assert n * 4 * nrg <= max(TARGET_BLOCKS, 4 * nrg)
 
 
 def test_check_rows_refuses_a_partial_group_and_other_head_dims():
