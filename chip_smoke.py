@@ -1336,25 +1336,14 @@ def b5_edge_cases():
     """The work plan's edges for B5 (phase 3 and tests/test_torch_cuda.py):
     dicts of lens, page_size, npages (the table's width), hq, hkv, tq,
     counts (new_counts or None), cap (softcap) and qdtype. The second
-    case's first lane is as long as puts a block's run start on the start
-    of one of its groups (``ops/quant_decode_cuda.work_plan``), among
-    lanes of 0 and 1 token, so it follows the plan."""
-    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
-        lane_chunks, paged_plan_grid, piece_cost, work_plan)
-
-    # 4 lanes, 32 pages of 256, 8 kv heads of 128 in bf16
-    grid, cost = paged_plan_grid(4, 8, 32, 256), piece_cost(128, 2)
-    first = next(
-        n for n in range(3000, 8192, 64)
-        if any(run and run[0]["first"] == 0 and run[0]["group"] < 8
-               for run in work_plan([lane_chunks(m, 256)
-                                     for m in (n, 0, 1, 8000)],
-                                    8, grid, cost)[1][1:]))
+    case's long lanes are cut over several blocks each beside lanes of 0
+    and 1 token, whose groups take a block each
+    (``ops/quant_decode_cuda.work_plan``)."""
     return [
         # B = 1, one lane of 32768 tokens: the most blocks a lane
         dict(lens=[32768], page_size=256, npages=128, hq=32, hkv=8, tq=1,
              counts=None, cap=None, qdtype="bfloat16"),
-        dict(lens=[first, 0, 1, 8000], page_size=256, npages=32,
+        dict(lens=[3000, 0, 1, 8000], page_size=256, npages=32,
              hq=32, hkv=8, tq=1, counts=None, cap=None, qdtype="bfloat16"),
         # 16-token pages (a chunk per page, shorter than 64), 8 rows
         dict(lens=[4096, 1000, 17], page_size=16, npages=256, hq=32, hkv=8,

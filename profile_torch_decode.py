@@ -45,7 +45,9 @@ groups".
    (``chip_smoke.DECODE_CASES``, lanes of 0, 1, 3000 and 8192 tokens) at
    the launcher's grid (``paged_plan_grid``; splits a group,
    ``paged_num_splits``, in a tree before the device's work plan) and at
-   others forced on the launcher: each held against the plain version, with the launch as
+   others forced on the launcher (FORCED_SPLITS splits in such a tree; a
+   block a group, no split, in a tree with the device's plan, whose grid
+   must hold a block a group): each held against the plain version, with the launch as
    torch.profiler records it (grid, threads, registers, shared memory,
    its estimate of occupancy), the blocks an SM can hold by those, the
    chunks a pipeline walks on the longest lane, and the kernel's time.
@@ -255,8 +257,11 @@ def row_group_trace(torch, flush):
             f"lanes' chunks {chunks}; the launcher's {grid} {plan}; bound "
             f"{bound:.5f} ms ({by})")
         real = getattr(mod, grid)
+        # a tree with the device's plan takes a block a group at least
+        forced = (FORCED_SPLITS if grid == "paged_num_splits"
+                  else (b * hkv * nrg,))
         try:
-            for n in sorted({plan, *FORCED_SPLITS}):
+            for n in sorted({plan, *forced}):
                 setattr(mod, grid, lambda *_, n=n: n)
                 got, ref = run(), plain()
                 err = max(max_err(x, y) for x, y in zip(got, ref))
@@ -420,7 +425,7 @@ def timings(torch, args):
         return ((2 * tokens * hkv * d + 8 * tokens * hkv)
                 / H100_BYTES_PER_S * 1e3)
 
-    fns = {} if args.only else {
+    fns = {
         "B5 table shape": (lambda: paged_decode_cuda(
             q8, kp, vp, tables, seq, scale), _b5_bound_ms(
             q8, sum(lens), hkv, tables)),

@@ -22,9 +22,9 @@
 //    meet in L2);
 //  - the lanes' live chunks (64 tokens, never spanning a page; PagedSrc)
 //    are spread over the grid's blocks of 1 to 3 pipelines by a plan made
-//    on the device from seq_lens (quant_decode.cuh::Plan), so that a few
-//    ragged lanes fill the 132 SMs; a group's last block merges its
-//    pieces in order (bitwise reproducible);
+//    on the device from seq_lens (quant_decode.cuh::plan_piece), whole
+//    blocks a group, so that a few ragged lanes fill the 132 SMs; a
+//    group's last block merges its pieces in order (bitwise reproducible);
 //  - QK and PV on tensor cores in bf16, q and p each in two bf16 halves
 //    against the exact bf16 cache.
 //
@@ -98,7 +98,8 @@ struct Launch {
     auto kern = paged_decode_kernel<RMAX, D, RG>;
     constexpr int EB = value_bytes<QT_BF16>();
     constexpr int bytes = Smem<D, RMAX, EB>::BYTES;
-    if (grid > 1 && !merge_fits<D, RMAX, EB>(grid, RG ? RMAX : R))
+    if (!grid_fits<RMAX, RG>(grid, B, Hkv, R) ||
+        (grid > 1 && !merge_fits<D, RMAX, EB>(grid, RG ? RMAX : R)))
       return cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {

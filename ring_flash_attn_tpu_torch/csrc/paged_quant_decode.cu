@@ -67,7 +67,8 @@ struct Launch {
   int run() const {
     auto kern = paged_quant_decode_kernel<QT, RMAX, D, RG>;
     constexpr int bytes = Smem<D, RMAX, 1>::BYTES;
-    if (grid > 1 && !merge_fits<D, RMAX, 1>(grid, RG ? RMAX : R))
+    if (!grid_fits<RMAX, RG>(grid, B, Hkv, R) ||
+        (grid > 1 && !merge_fits<D, RMAX, 1>(grid, RG ? RMAX : R)))
       return cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {

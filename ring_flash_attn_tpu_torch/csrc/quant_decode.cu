@@ -38,6 +38,7 @@ struct ContigSrc {
 
 // Every lane holds the same `len` live tokens.
 struct ContigLanes {
+  static constexpr bool EQUAL = true;  // plan_piece's closed form
   const unsigned char* k;
   const unsigned char* v;
   const float* ks;
@@ -89,7 +90,8 @@ struct Launch {
   int run() const {
     auto kern = quant_decode_kernel<QT, RMAX, D, RG>;
     constexpr int bytes = Smem<D, RMAX, 1>::BYTES;
-    if (grid > 1 && !merge_fits<D, RMAX, 1>(grid, RG ? RMAX : R))
+    if (!grid_fits<RMAX, RG>(grid, B, Hkv, R) ||
+        (grid > 1 && !merge_fits<D, RMAX, 1>(grid, RG ? RMAX : R)))
       return cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {
@@ -112,9 +114,10 @@ struct Launch {
 // value, qtype 0 int8, 1 fp8 e4m3, 2 fp8 e5m2; k_scale, v_scale
 // (B, Hkv, S) fp32; len_ptr a device int32 or null (then len_val); all
 // contiguous; head_dim D 64, 128 or 256. out (B, Hq, Tq, D) and lse
-// (B, Hq, Tq) fp32. `grid` blocks share the work (quant_decode.cuh::Plan):
-// with grid > 1, part_acc (G + grid, rp, D) and part_ml (G + grid, rp, 2)
-// fp32 scratch and counters (G) int32, zero before the launch and zero
+// (B, Hq, Tq) fp32. `grid` blocks share the work (quant_decode.cuh::
+// plan_piece; at least one a group): with grid > 1, part_acc (P, rp, D) and
+// part_ml (P, rp, 2) fp32 scratch, P = min(grid, TARGET_BLOCKS), and
+// counters (G) int32, zero before the launch and zero
 // after it (not read with grid = 1): with R = (Hq / Hkv) * Tq rows a kv
 // head, G = B * Hkv groups and rp = R when R <= max_rows(D), else G =
 // B * Hkv * ceil(R / max_rows(D)) row groups and rp = max_rows(D); any

@@ -21,15 +21,16 @@
 // scales at 3.35 TB/s. The design keeps cache bytes in flight on every SM
 // all the time and the arithmetic well below them:
 //
-//  - a work plan made on the device from the live lengths (Plan): every
-//    group's live 64-token chunks on one line, cut into equal runs, one a
-//    block, one block an SM, so that a long lane spreads over the card and
-//    a dead or short one takes no block of its own; the launcher sizes the
-//    grid from shapes alone (ops/quant_decode_cuda.py::plan_grid) and
-//    never syncs;
-//  - a block runs NP pipelines side by side (pipes()) and walks its run
-//    piece by piece, a piece being its part of one group, whose chunks are
-//    dealt out in turn to the pipelines;
+//  - a work plan made on the device from the live lengths (plan_piece):
+//    each live (lane, kv head) group takes whole blocks, as many as its
+//    live 64-token chunks ask for at the least per-block load that fits
+//    the card's SMs, so that a long lane spreads over the card and a dead
+//    or short one takes no more than a block; a block holds at most one
+//    piece (a group's consecutive chunks), and the launcher sizes the grid
+//    from shapes alone (ops/quant_decode_cuda.py::plan_grid) and never
+//    syncs;
+//  - a block runs NP pipelines side by side (pipes()), its piece's chunks
+//    dealt out in turn to them;
 //  - a pipeline is a producer warp and NCW consumer warps over a ring of
 //    NST stages in shared memory. One producer thread issues a chunk's K
 //    and V rows as two bulk copies (contiguous in both sources: ContigSrc,
@@ -37,7 +38,7 @@
 //    stage's full mbarrier; the warp's lanes copy the 2 x 64 scales with
 //    cp.async (zero past the live tokens), arriving on the same barrier
 //    when they land, and look up 32 chunks' pages at once. It waits only
-//    for a stage's empty barrier, and runs on into the next piece;
+//    for a stage's empty barrier;
 //  - consumer warps never meet inside the loop: each owns 16 tokens of a
 //    chunk and keeps its own online-softmax state per row, waits on the
 //    full barrier and arrives on the empty one. QK and PV run on tensor
@@ -49,13 +50,13 @@
 //    QK_INT8 (B6 on int8 pages) q is quantized per row to int8 in the
 //    block and QK is an exact s8 x s8 -> s32 product times
 //    q_scale * k_scale, the function the TPU kernel computes;
-//  - the warps' states meet at the end of each piece, in a fixed order; a
-//    piece that is its whole group writes (out, lse), otherwise its
-//    partial, and the group's last block to finish (a counter per group,
-//    between fences; the last block resets it to 0) merges the pieces in
-//    piece order, all its loads issued at once: the result depends only
-//    on the lengths, not on which block finished first, and there is no
-//    second launch.
+//  - the warps' states meet at the end of the piece, in a fixed order, in
+//    the K and V stages (every copy has landed); a piece that is its
+//    whole group writes (out, lse), otherwise its partial, and the group's
+//    last block to finish (a counter per group, between fences; the last
+//    block resets it to 0) merges the pieces in piece order, all its loads
+//    issued at once: the result depends only on the lengths, not on which
+//    block finished first, and there is no second launch.
 //
 // The TPU kernels' sequential (B, n_blk) grid, all-heads block-diagonal
 // matmul, 128-multiple blocks and pages_per_step are shapes of that
@@ -65,8 +66,8 @@
 // rows: a block serves at most max_rows(D) of a group's R rows (16; 8 at
 // D = 256, where the PV accumulator of 16 rows would take 256 registers a
 // lane); past it (RG) each row group is a group of the plan, the row
-// groups of a (batch, kv head) side by side on its line, so that their
-// reads of a chunk meet in L2.
+// groups of a (batch, kv head) in consecutive blocks, so that their reads
+// of a chunk meet in L2.
 
 #pragma once
 
@@ -117,9 +118,9 @@ __host__ __device__ constexpr int stages() {
 // QK tiles and p fragments are those of 16 rows whatever D); and the
 // shared memory (at D = 128, 3 pipelines of int8/fp8 at ~51 KB, of bf16 at
 // ~67 KB; a bf16 ring at D = 256, 2 stages of 64 KB, leaves room for
-// one). Their states meet in shared memory at the end of each piece, so a
+// one). Their states meet in shared memory at the end of the piece, so a
 // group has a third as many partials to merge as with a block a pipeline.
-// 8 rows at 64 take 2 (the loop over pieces spilled at 3).
+// 8 rows at 64 take 2 (0 spills with a consumer warpgroup a pipeline).
 template <int D, int RMAX, int EB>
 __host__ __device__ constexpr int pipes() {
   return D * EB >= 512 ? 1
@@ -235,33 +236,22 @@ struct Smem {
   static constexpr int PRE = QSC + RMAX * 4;        // f32 [RMAX]
   static constexpr int BND = PRE + RMAX * 4;        // s32 [RMAX]
   static constexpr int QF = BND + RMAX * 4;  // u32x2 [D/16][RMAX/4][32]
-  static constexpr int CTX = QF + D / 16 * (RMAX / 4) * 32 * 8;  // Ctx
-  static constexpr int DONE = CTX + 320;            // s32: pieces finished
-  static constexpr int END = DONE + 16;
-  // The end of a piece: the warps' sums [NW][RMAX][D], and the merge's m
-  // values [pieces][R] over the first of them, in a part of their own
-  // where it fits (OWN_RED: the producers then run on into the next
-  // piece), else in each pipeline's K and V stages (warp w's in pipeline
-  // w / NCW's), which the producers then wait for (bf16 at D = 128 with 3
-  // pipelines).
-  static constexpr int RED_BYTES = NCW * NP * RMAX * D * 4;
-  static constexpr bool OWN_RED = END + RED_BYTES <= 227 * 1024;
-  static constexpr int RED = END;
-  static constexpr int BYTES = OWN_RED ? END + RED_BYTES : END;
+  static constexpr int PIECE = QF + D / 16 * (RMAX / 4) * 32 * 8;  // Piece
+  static constexpr int BYTES = PIECE + 32;
+  // the end of the piece reuses each pipeline's K and V stages for its
+  // warps' sums [NCW][RMAX][D], and the first's for the merge's m values
+  // [pieces][R]
   static constexpr int KV_BYTES = 2 * NST * C * RB;
-  // the room of the merge's m values
-  static constexpr int MS_BYTES = OWN_RED ? RED_BYTES : KV_BYTES;
-  static_assert(OWN_RED || NCW * RMAX * D * 4 <= KV_BYTES,
-                "reduction must fit");
+  static_assert(NCW * RMAX * D * 4 <= KV_BYTES, "reduction must fit");
   static_assert(2 * NST * 8 <= K, "barriers must fit");
   static_assert(BYTES <= 227 * 1024, "one block an SM");
 };
 
-// Where a piece's result goes (see Plan): (out, lse) rows g * R + r when
-// the piece is its whole group; otherwise its partial (acc, (m, l)) in
-// slot `slot` = group + block (slots are distinct: a block's run lies
-// after every earlier block's), part_acc[(slot * PS + r) * D + d] and
-// part_ml[(slot * PS + r) * 2 + {0, 1}], merged into (out, lse) by the
+// Where a piece's result goes (see plan_piece): (out, lse) rows g * R + r
+// when the piece is its whole group; otherwise its partial (acc, (m, l))
+// in slot `slot` = its block (a block holds one piece at most, and a
+// block with a partial is below TARGET_BLOCKS), part_acc[(slot * PS + r)
+// * D + d] and part_ml[(slot * PS + r) * 2 + {0, 1}], merged into (out, lse) by the
 // group's last block, which counters[group] (0 between launches) tells.
 // With row groups (RG) a group is a row group, (batch, kv head) group *
 // ceil(R / RMAX) + row group, and its partials take PS = RMAX rows, the
@@ -279,10 +269,9 @@ __device__ __forceinline__ void fence_acq_rel_gpu() {
 }
 
 // x as the compiler cannot see it. A thread's place made from
-// opaque(threadIdx.x) inside a loop, and all that depends on it, stays in
-// the loop: nothing of it is hoisted out to hold registers through the
-// rest (the chunk loop, whose registers are the loop's limit; without it
-// ptxas spilled 4 more bytes at 256 and 4 to 8 more at 64).
+// opaque(threadIdx.x) after the chunk loop, and all that depends on it, is
+// made there: nothing of it is kept from before to hold registers through
+// the chunk loop, whose registers are the kernel's limit.
 __device__ __forceinline__ int opaque(int x) {
   asm volatile("" : "+r"(x));
   return x;
@@ -386,12 +375,11 @@ __device__ __forceinline__ int own_row(int o, int t) {
   return RMAX == 4 ? 2 * (t & 1) + o : 8 * (o / 2) + 2 * t + o % 2;
 }
 
-// Warp w's sums [RMAX][D] at the end of a piece (Smem::OWN_RED).
+// Warp w's sums [RMAX][D] at the end of the piece, in its pipeline's
+// stages.
 template <int D, int RMAX, int EB>
 __device__ __forceinline__ float* red_of(unsigned char* smem, int w) {
   using S = Smem<D, RMAX, EB>;
-  if constexpr (S::OWN_RED)
-    return reinterpret_cast<float*>(smem + S::RED) + w * RMAX * D;
   return reinterpret_cast<float*>(smem + (w / NCW) * S::PIPE + S::K) +
          (w % NCW) * RMAX * D;
 }
@@ -485,30 +473,24 @@ __device__ __forceinline__ void merge_group(const Dest& dst, long long g,
 }
 
 // The launch's work plan, made on the device from what the kernel reads
-// (the lanes' live lengths: seq_lens, or B4's length), by every warp the
-// same way, so that the launcher needs no host sync; ops/
+// (the lanes' live lengths: seq_lens, or B4's length), by every warp that
+// needs it the same way, so that the launcher needs no host sync; ops/
 // quant_decode_cuda.py::work_plan is its twin, and the tests hold it.
 // Group g = b * GL + x is lane b's x-th (kv head x / nrg, row group
 // x % nrg); each of a lane's GL groups holds the lane's n(b) live chunks.
-// The live groups lie one after another on a line of units, group g
-// taking K units for the fixed cost of a piece (its q, the warps' meeting,
-// its write) and then one a chunk; the line's W units are cut into `used`
-// runs of equal length, block p taking units p W / used .. (p + 1) W /
-// used, so that no SM idles while a long lane streams (the balanced
-// split of FlashInfer, arXiv 2501.01005, made on the card) and a block's
-// many short groups count for what they cost. `used` is at least the live
-// groups, so that a group never waits for a block, up to one block a
-// MIN_CHUNKS live chunks, at most the grid, and a multiple of the live
-// groups when all live lanes are equal (B4 always), so that no run then
-// crosses the end of a group. A block's run is cut by group ends into
-// pieces; the pieces of a group lie in consecutive blocks.
+// Each live group takes s(b) = ceil(n(b) / L) whole blocks, its chunks
+// cut into s(b) near-equal runs of consecutive chunks (pieces), at the
+// least load L of at least MIN_CHUNKS (or the longest lane's chunks) whose
+// blocks fit in U = max(live groups, min(grid, TARGET_BLOCKS)): a long
+// lane spreads over the card (the balanced split-KV of FlashInfer, arXiv
+// 2501.01005, with whole blocks a group), a group never waits for a
+// block, and a group is cut only within the first wave. The groups take
+// the blocks in order, a group's pieces in consecutive blocks. A block
+// holds one piece at most: two pieces of two groups in one block, each
+// with its own meeting of the warps and its own merge, cost more than
+// the balance they bought.
 constexpr int MIN_CHUNKS = 4;
-
-// K: a piece's fixed cost in chunks, about that of 32 KB of K and V
-template <int D, int EB>
-__host__ __device__ constexpr int piece_cost() {
-  return D * EB >= 512 ? 1 : 512 / (D * EB);
-}
+constexpr int TARGET_BLOCKS = 132;  // one block an SM of the H100 SXM
 
 // a / b for 0 <= a < 2^31, 0 < b: a float estimate, made exact. An
 // integer division costs ~200 cycles on the H100, and the plan sits in
@@ -521,146 +503,104 @@ __device__ __forceinline__ int udiv(int a, int b) {
   return q;
 }
 
-struct Plan {
-  int W;     // units in all (the launcher keeps them below 2^31)
-  int used;  // blocks with a run (the others only clear dead lanes)
-  int K;
-  int q, r;  // W = q used + r
-
-  __device__ __forceinline__ int start(int p) const {
-    return p * q + udiv(p * r, used);  // p W / used
-  }
-  // the block whose run holds unit x < W
-  __device__ __forceinline__ int block_of(int x) const {
-    int p = min(used - 1, static_cast<int>(static_cast<float>(x) * used /
-                                           static_cast<float>(W)));
-    while (p > 0 && start(p) > x) --p;
-    while (p + 1 < used && start(p + 1) <= x) ++p;
-    return p;
-  }
+// A block's piece: chunks j0 .. j0 + n - 1 of group x of lane b (n = 0:
+// the block has none), piece k of the group's s, which lie in blocks
+// blockIdx.x - k .. blockIdx.x - k + s - 1.
+struct Piece {
+  int b, x, j0, n, k, s;
 };
 
-// A live lane's units: its GL groups of K + n(b) units each.
-__device__ __forceinline__ int lane_units(int n, int GL, int K) {
-  return n > 0 ? (n + K) * GL : 0;
+// piece k of s of group x of lane b, whose n chunks are cut at k n / s (s
+// <= TARGET_BLOCKS where s > 1, so the products stay small)
+__device__ __forceinline__ Piece piece_of(int b, int x, int n, int k, int s) {
+  const int q = udiv(n, s), rem = n - q * s;
+  const int j0 = k * q + udiv(k * rem, s);
+  const int j1 = (k + 1) * q + udiv((k + 1) * rem, s);
+  return Piece{b, x, j0, j1 - j0, k, s};
 }
 
+// blockIdx.x's piece, by the 32 lanes of a warp (the lanes 32 at a time,
+// the first 32 lanes' chunks kept in a register: the plan sits in front of
+// a block's first load)
 template <class Lanes>
-__device__ __forceinline__ Plan make_plan(const Lanes& lanes, int B, int GL,
-                                          int K, int lane) {
-  int w = 0, live = 0, nmin = 0x7fffffff, nmax = 0;
-  for (int b = lane; b < B; b += 32) {
-    const int n = lanes.chunks(b);
-    w += n;
-    if (n > 0) {
-      ++live;
-      nmin = min(nmin, n);
-      nmax = max(nmax, n);
-    }
+__device__ __forceinline__ Piece plan_piece(const Lanes& lanes, int B,
+                                            int GL, int lane) {
+  const Piece none{0, 0, 0, 0, 0, 1};
+  if constexpr (Lanes::EQUAL) {
+    // every lane holds n chunks (B4): each group takes s = ceil(n / L)
+    // blocks, L the least from the same lower bound with G s <= U
+    const int n = lanes.chunks(0), G = B * GL;
+    if (n == 0) return none;
+    const int U = max(G, min(static_cast<int>(gridDim.x), TARGET_BLOCKS));
+    const int most = udiv(U, G);  // blocks a group may take
+    const int L = max(max(min(MIN_CHUNKS, n), udiv(G * n + U - 1, U)),
+                      udiv(n + most - 1, most));
+    const int s = udiv(n + L - 1, L), p = blockIdx.x;
+    if (p >= G * s) return none;
+    const int g = udiv(p, s), b = udiv(g, GL);
+    return piece_of(b, g - b * GL, n, p - g * s, s);
   }
-  w = __reduce_add_sync(0xffffffff, w);
-  live = __reduce_add_sync(0xffffffff, live);
-  nmin = __reduce_min_sync(0xffffffff, nmin);
+  const int n0 = lane < B ? lanes.chunks(lane) : 0;
+  auto chunks_at = [&](int c) {  // lane c + lane's chunks (0 past B)
+    return c == 0 ? n0 : c + lane < B ? lanes.chunks(c + lane) : 0;
+  };
+  int sum = 0, live = 0, nmax = 0;
+  for (int c = 0; c < B; c += 32) {
+    const int n = chunks_at(c);
+    sum += n;
+    live += n > 0;
+    nmax = max(nmax, n);
+  }
+  sum = __reduce_add_sync(0xffffffff, sum) * GL;
+  live = __reduce_add_sync(0xffffffff, live) * GL;
   nmax = __reduce_max_sync(0xffffffff, nmax);
-  const int glive = live * GL;
-  Plan plan{(w + live * K) * GL, 0, K, 0, 0};
-  if (live > 0) {
-    int used = max(glive, (w * GL + MIN_CHUNKS - 1) / MIN_CHUNKS);
-    used = min(used, static_cast<int>(gridDim.x));
-    if (nmin == nmax && used >= glive)
-      used -= used - udiv(used, glive) * glive;  // a multiple of glive
-    plan.used = used;
-    plan.q = udiv(plan.W, used);
-    plan.r = plan.W - plan.q * used;
+  if (live == 0) return none;
+  const int U = max(live, min(static_cast<int>(gridDim.x), TARGET_BLOCKS));
+  // the blocks that a load of L chunks a block takes
+  auto blocks_at = [&](int L) {
+    int v = 0;
+    for (int c = 0; c < B; c += 32) v += udiv(chunks_at(c) + L - 1, L);
+    return __reduce_add_sync(0xffffffff, v) * GL;
+  };
+  // the least L from lo that fits, found in (lo, hi]: hi fits, since a
+  // group takes at most n / L + 1 blocks, and so does nmax (a block a
+  // live group)
+  int L = max(min(MIN_CHUNKS, nmax), udiv(sum + U - 1, U));
+  int hi = live < U ? min(nmax, udiv(sum + U - live - 1, U - live)) : nmax;
+  if (L < hi && blocks_at(L) > U) {
+    while (hi - L > 1) {
+      const int mid = (L + hi) / 2;
+      if (blocks_at(mid) <= U)
+        hi = mid;
+      else
+        L = mid;
+    }
+    L = hi;
   }
-  return plan;
-}
-
-// Where a block stands in its run: the unit pos of chunk j of group x of
-// lane b (n chunks a group there), and the run's end hi.
-struct Walk {
-  int pos, hi, b, x, j, n;
-};
-
-// Block p's first chunk (a warp's lanes scan the lanes 32 at a time).
-template <class Lanes>
-__device__ __forceinline__ Walk walk_start(const Lanes& lanes, int B, int GL,
-                                           const Plan& plan, int p,
-                                           int lane) {
-  const int lo = plan.start(p), hi = plan.start(p + 1);
+  const int p = blockIdx.x;
   int base = 0;
   for (int c = 0; c < B; c += 32) {
-    const int n = c + lane < B ? lanes.chunks(c + lane) : 0;
-    const int v = lane_units(n, GL, plan.K);
+    const int n = chunks_at(c);
+    const int sb = udiv(n + L - 1, L), v = sb * GL;
     int incl = v;
 #pragma unroll
     for (int sft = 1; sft < 32; sft *= 2) {
       const int u = __shfl_up_sync(0xffffffff, incl, sft);
       if (lane >= sft) incl += u;
     }
-    const unsigned hit = __ballot_sync(0xffffffff, base + incl > lo);
+    const unsigned hit = __ballot_sync(0xffffffff, base + incl > p);
     if (hit) {
       const int f = __ffs(hit) - 1;
-      const int off = lo - base - __shfl_sync(0xffffffff, incl - v, f);
+      const int r = p - base - __shfl_sync(0xffffffff, incl - v, f);
       const int nf = __shfl_sync(0xffffffff, n, f);
-      const int x = udiv(off, nf + plan.K), k = off - x * (nf + plan.K);
-      // a run that starts on a group's fixed cost takes its first chunk
-      const int j = max(k - plan.K, 0);
-      return Walk{lo + j - (k - plan.K), hi, c + f, x, j, nf};
+      const int s = __shfl_sync(0xffffffff, sb, f);
+      const int x = udiv(r, s);
+      return piece_of(c + f, x, nf, r - x * s, s);
     }
     base += __shfl_sync(0xffffffff, incl, 31);
   }
-  return Walk{hi, hi, B, 0, 0, 0};  // no run
+  return none;  // past the blocks the plan takes
 }
-
-// The chunks of the piece at w, and w moved past them (and past the next
-// group's fixed cost).
-__device__ __forceinline__ int piece_chunks(const Walk& w) {
-  return min(w.n - w.j, w.hi - w.pos);
-}
-
-template <class Lanes>
-__device__ __forceinline__ void walk_on(const Lanes& lanes, int B, int GL,
-                                        int K, Walk& w) {
-  const int cnt = piece_chunks(w);
-  w.pos += cnt;
-  w.j += cnt;
-  if (w.j < w.n || w.pos >= w.hi) return;
-  w.j = 0;
-  w.pos += K;
-  if (++w.x < GL) return;
-  w.x = 0;
-  do {
-    ++w.b;
-  } while (w.b < B && (w.n = lanes.chunks(w.b)) == 0);
-}
-
-// What the consumers take from one piece to the next, in shared memory
-// (so that none of it holds a register through the chunk loop): the
-// lanes, the shapes, q, the destination, the plan and their walk (thread
-// 0 moves it).
-// A group whose last piece this block wrote: its merge waits for the end
-// of the block's run (a merge inside the loop over pieces, beside the
-// chunk loop, made ptxas spill in every build). A run's middle pieces are
-// whole groups, so a block has at most two merges.
-struct Merge {
-  long long g, row0, first;
-  int np, R, PS;
-};
-
-template <class Lanes>
-struct Ctx {
-  Lanes lanes;
-  int B, Hkv, GL, nrg, R_group;
-  Plan plan;
-  Walk walk;
-  const void* q;
-  int q_bf16;
-  float scale;
-  Dest dst;
-  Merge merges[2];
-  int n_merges;
-};
 
 // The launch's share of block blockIdx.x, nthreads() threads: NP
 // pipelines. Lanes gives the lanes' live chunks and each group's source:
@@ -673,11 +613,9 @@ struct Ctx {
 //   sees positions below it only.
 // q rows (b * Hkv + h) * R .. + R of the (rows, D) query; with RG
 // (R > RMAX) a group takes row group rg of them, rows rg * RMAX .. + RMAX.
-// The block walks its run piece by piece (Plan): the consumers load the
-// piece's q, their pipelines take its chunks in turn, the warps' states
-// meet, and the piece writes (out, lse) or its partial; the producers run
-// ahead into the next piece (without Smem::OWN_RED, once the consumers are
-// done with the stages, which the end of a piece then reuses).
+// The block takes its piece (plan_piece): the consumers load its q, their
+// pipelines take its chunks in turn, the warps' states meet, and the piece
+// writes (out, lse) or its partial, the group's last block merging them.
 template <int QT, bool QK_INT8, int D, int RMAX, bool BOUNDS = false,
           bool RG = false, class Lanes>
 __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
@@ -702,7 +640,6 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
   // a group is a (lane, kv head) pair, or with RG one of its nrg row groups
   const int nrg = RG ? (R_group + RMAX - 1) / RMAX : 1;
   const int GL = Hkv * nrg;  // groups a lane
-  constexpr int K = piece_cost<D, EB>();
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + S::Q);
   signed char* q8 = reinterpret_cast<signed char*>(smem + S::Q8);
@@ -710,9 +647,9 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
   float* pre_s = reinterpret_cast<float*>(smem + S::PRE);
   uint2* qf = reinterpret_cast<uint2*>(smem + S::QF);
   int* bnd_s = reinterpret_cast<int*>(smem + S::BND);
-  Ctx<Lanes>* ctx = reinterpret_cast<Ctx<Lanes>*>(smem + S::CTX);
-  static_assert(sizeof(Ctx<Lanes>) <= 320, "the context must fit");
-  volatile int* done_s = reinterpret_cast<volatile int*>(smem + S::DONE);
+  Piece* piece_s = reinterpret_cast<Piece*>(smem + S::PIECE);
+  int* last_s = reinterpret_cast<int*>(smem + S::PIECE + sizeof(Piece));
+  static_assert(sizeof(Piece) + 4 <= 32, "the piece must fit");
 
   // warps 0 .. NW - 1 consume, pipeline w / NCW; warps NW .. NW + NP - 1
   // produce, pipeline w - NW (WG: the producers' warpgroup has 4 warps,
@@ -727,15 +664,11 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
   float* sc = reinterpret_cast<float*>(ps + S::SC);
   int2* info = reinterpret_cast<int2*>(ps + S::INFO);  // [NST]
 
-  // the plan and the block's first place, made while thread 0 sets the
-  // barriers up: by each producer, and by consumer warp 1 for the others
-  Plan plan{0, 0, K, 0, 0};
-  Walk walk{0, 0, B, 0, 0, 0};
-  if (warp == 1 || (warp >= NW && warp < NW + NP)) {
-    plan = make_plan(lanes, B, GL, K, lane);
-    if (static_cast<int>(blockIdx.x) < plan.used)
-      walk = walk_start(lanes, B, GL, plan, blockIdx.x, lane);
-  }
+  // the block's piece, made while thread 0 sets the barriers up: by each
+  // producer, and by consumer warp 1 for the others
+  Piece pc{0, 0, 0, 0, 0, 1};
+  if (warp == 1 || (warp >= NW && warp < NW + NP))
+    pc = plan_piece(lanes, B, GL, lane);
   if (t == 0) {
     for (int p = 0; p < NP; ++p)
       for (int s = 0; s < NST; ++s) {
@@ -744,76 +677,52 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
         hop::mbar_init(&bar[NST + s], NCW);
       }
     hop::mbar_fence_init();
-    *done_s = 0;
   }
-  if (t == 32) {  // what the consumers keep from piece to piece
-    ctx->lanes = lanes;
-    ctx->B = B;
-    ctx->Hkv = Hkv;
-    ctx->GL = GL;
-    ctx->nrg = nrg;
-    ctx->R_group = R_group;
-    ctx->q = q;
-    ctx->q_bf16 = q_bf16;
-    ctx->scale = scale;
-    ctx->dst = dst;
-    ctx->n_merges = 0;
-    ctx->plan = plan;
-    ctx->walk = walk;
-  }
+  if (t == 32) *piece_s = pc;
   __syncthreads();
 
   if (warp >= NW) {  // a producer
     if constexpr (WG) hop::setmaxnreg_dec<PRODUCER_REGS>();
-    if (pipe >= NP || static_cast<int>(blockIdx.x) >= plan.used) return;
-    Walk w = walk;
-    int it = 0;  // chunks this pipeline has issued
+    // this pipeline takes the piece's chunks j0, j0 + NP, ...
+    const int n = pipe < NP ? max(0, (pc.n - pipe + NP - 1) / NP) : 0;
+    if (n == 0) return;
+    const int j0 = pc.j0 + pipe;
+    const auto src = lanes.src(pc.b, RG ? udiv(pc.x, nrg) : pc.x);
+    long long tok0_l = 0;  // lane l: where chunk 32 (i / 32) + l lies
+    int valid_l = 0;
 #pragma unroll 1
-    for (int piece = 0; w.pos < w.hi; ++piece) {
-      // this pipeline takes the piece's chunks j0, j0 + NP, ...
-      const int n = max(0, (piece_chunks(w) - pipe + NP - 1) / NP);
-      const int j0 = w.j + pipe;
-      // the end of the consumers' last piece reused the stages
-      if (!S::OWN_RED && piece > 0 && n > 0)
-        while (*done_s < piece) __nanosleep(32);
-      const auto src = lanes.src(w.b, RG ? udiv(w.x, nrg) : w.x);
-      long long tok0_l = 0;  // lane l: where chunk 32 (i / 32) + l lies
-      int valid_l = 0;
-#pragma unroll 1
-      for (int i = 0; i < n; ++i, ++it) {
-        const int st = it % NST;
-        // the lanes look up 32 chunks at once (a paged chunk's page id is
-        // a load from the block table), ahead of the wait for the stage
-        if (i % 32 == 0 && i + lane < n)
-          src.locate(j0 + (i + lane) * NP, tok0_l, valid_l);
-        const long long tok0 = __shfl_sync(0xffffffff, tok0_l, i % 32);
-        const int valid = __shfl_sync(0xffffffff, valid_l, i % 32);
-        if (it >= NST) hop::mbar_wait(&empty[st], ((it / NST) + 1) & 1);
-        if (lane == 0) {
-          // the chunk's live tokens and first position, for the consumers
-          int pos = 0;
-          if constexpr (BOUNDS) pos = src.pos(j0 + i * NP);
-          info[st] = make_int2(valid, pos);
-          const uint32_t bytes = valid * RB;
-          hop::mbar_arrive_tx(&full[st], 2 * bytes);
-          hop::bulk_load(ks + st * C * RB, src.k + tok0 * RB, bytes,
-                         &full[st]);
-          hop::bulk_load(vs + st * C * RB, src.v + tok0 * RB, bytes,
-                         &full[st]);
-        }
-        if constexpr (SCALES) {
-#pragma unroll
-          for (int c = lane; c < C; c += 32) {
-            const bool ok = c < valid;
-            const long long at = ok ? tok0 + c : 0;
-            rfa::cp_async4(sc + st * 2 * C + c, src.ks + at, ok ? 4 : 0);
-            rfa::cp_async4(sc + (st * 2 + 1) * C + c, src.vs + at,
-                           ok ? 4 : 0);
-          }
-          hop::cp_async_mbar_arrive(&full[st]);
-        }
+    for (int i = 0; i < n; ++i) {
+      const int st = i % NST;
+      // the lanes look up 32 chunks at once (a paged chunk's page id is
+      // a load from the block table), ahead of the wait for the stage
+      if (i % 32 == 0 && i + lane < n)
+        src.locate(j0 + (i + lane) * NP, tok0_l, valid_l);
+      const long long tok0 = __shfl_sync(0xffffffff, tok0_l, i % 32);
+      const int valid = __shfl_sync(0xffffffff, valid_l, i % 32);
+      if (i >= NST) hop::mbar_wait(&empty[st], ((i / NST) + 1) & 1);
+      if (lane == 0) {
+        // the chunk's live tokens and first position, for the consumers
+        int pos = 0;
+        if constexpr (BOUNDS) pos = src.pos(j0 + i * NP);
+        info[st] = make_int2(valid, pos);
+        const uint32_t bytes = valid * RB;
+        hop::mbar_arrive_tx(&full[st], 2 * bytes);
+        hop::bulk_load(ks + st * C * RB, src.k + tok0 * RB, bytes,
+                       &full[st]);
+        hop::bulk_load(vs + st * C * RB, src.v + tok0 * RB, bytes,
+                       &full[st]);
       }
-      walk_on(lanes, B, GL, K, w);
+      if constexpr (SCALES) {
+#pragma unroll
+        for (int c = lane; c < C; c += 32) {
+          const bool ok = c < valid;
+          const long long at = ok ? tok0 + c : 0;
+          rfa::cp_async4(sc + st * 2 * C + c, src.ks + at, ok ? 4 : 0);
+          rfa::cp_async4(sc + (st * 2 + 1) * C + c, src.vs + at,
+                         ok ? 4 : 0);
+        }
+        hop::cp_async_mbar_arrive(&full[st]);
+      }
     }
     if constexpr (SCALES) rfa::cp_async_wait_all();  // none outlives us
     return;
@@ -839,10 +748,9 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
       for (long long i = t; i < rows; i += NCONS)
         dst.lse[b * rows + i] = RFA_NEG_INF;
     }
-  int it = 0;  // chunks this pipeline has taken
-#pragma unroll 1
-  for (int piece = 0;; ++piece) {
-    // the thread's place, made anew for each piece (opaque)
+  {
+    // the thread's place, made anew (opaque): none of the prologue's
+    // values holds a register through the chunk loop
     const int t = opaque(threadIdx.x), warp = t / 32, lane = t % 32;
     const int g4 = lane >> 2, t4 = lane & 3, wl = warp % NCW;
     const int pipe = warp / NCW;
@@ -859,18 +767,14 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
     // chunks' live tokens and positions come with them: info)
     int n, R;
     {
-      const Walk w = ctx->walk;
-      if (w.pos >= w.hi) break;
-      n = max(0, (piece_chunks(w) - pipe + NP - 1) / NP);
-      const int nrg = ctx->nrg, R_group = ctx->R_group;
+      const Piece w = *piece_s;
+      if (w.n == 0) return;
+      n = max(0, (w.n - pipe + NP - 1) / NP);
       const int h = RG ? udiv(w.x, nrg) : w.x;
       const int r0 = RG ? (w.x - h * nrg) * RMAX : 0;
       R = RG ? min(RMAX, R_group - r0) : R_group;
       const long long row0 =
-          (static_cast<long long>(w.b) * ctx->Hkv + h) * R_group + r0;
-      const void* q = ctx->q;
-      const bool q_bf16 = ctx->q_bf16;
-      const float scale = ctx->scale;
+          (static_cast<long long>(w.b) * Hkv + h) * R_group + r0;
       for (int i = t; i < R * D; i += NCONS) {
         const float x =
             q_bf16 ? __bfloat162float(
@@ -879,7 +783,7 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
         qs[i] = x * scale;
       }
       if constexpr (BOUNDS) {
-        if (t < R) bnd_s[t] = ctx->lanes.src(w.b, h).bound(r0 + t);
+        if (t < R) bnd_s[t] = lanes.src(w.b, h).bound(r0 + t);
       }
     }
     hop::bar_sync(CONSUMER_BAR, NCONS);
@@ -961,9 +865,9 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
     const bool writer = RMAX != 4 || t4 < 2;  // at 4 rows t4 ^ 2 agrees
 
 #pragma unroll 1
-    for (int i = 0; i < n; ++i, ++it) {
-      const int st = it % NST;
-      hop::mbar_wait(&full[st], (it / NST) & 1);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % NST;
+      hop::mbar_wait(&full[st], (i / NST) & 1);
       const int2 inf = info[st];  // the chunk's live tokens, position
       const int valid = inf.x;
       const int tok0 = CT * wl;  // this warp's tokens: tok0 .. tok0 + 15
@@ -1200,9 +1104,9 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
     }
 
     // the end of the piece, with the thread's place made anew (opaque):
-    // the block's warps' states meet in a fixed order (red_of: without
-    // OWN_RED in the stages, where every copy has landed, since every chunk
-    // was waited for). oacc * U is O; the hi and lo columns add up.
+    // the block's warps' states meet in a fixed order (red_of: in the
+    // stages, where every copy has landed, since every chunk was waited
+    // for). oacc * U is O; the hi and lo columns add up.
     {
       const int t = opaque(threadIdx.x), warp = t / 32, lane = t % 32;
       const int g4 = lane >> 2, t4 = lane & 3, wl = warp % NCW;
@@ -1272,29 +1176,20 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
                                                      r];
       };
       // where the piece's result goes: a whole group's (out, lse), or its
-      // partial in slot group + block (Dest)
+      // partial in slot block (Dest), the group's in slots first / PS ..
       bool whole;
-      long long gd, row0, first = 0, part0 = 0;
-      int np = 1, PS;  // the group's pieces, rows a partial holds
-      const Dest dst = ctx->dst;
+      long long gd, row0, first, part0;
+      int np, PS = RG ? RMAX : R_group;  // the group's pieces, rows a partial
       {
-        const Walk w = ctx->walk;
-        const int nrg = ctx->nrg, R_group = ctx->R_group;
-        PS = RG ? RMAX : R_group;
-        whole = w.j == 0 && piece_chunks(w) == w.n;
-        gd = static_cast<long long>(w.b) * ctx->GL + w.x;
-        row0 = (static_cast<long long>(w.b) * ctx->Hkv +
-                (RG ? udiv(w.x, nrg) : w.x)) *
-                   R_group +
-               (RG ? (w.x - udiv(w.x, nrg) * nrg) * RMAX : 0);
-        if (!whole) {
-          const Plan plan = ctx->plan;
-          const int g0 = w.pos - w.j;  // where the group starts
-          const int p0 = plan.block_of(g0);
-          np = plan.block_of(g0 + w.n - 1) - p0 + 1;
-          first = (gd + p0) * PS;
-          part0 = (gd + blockIdx.x) * PS;
-        }
+        const Piece w = *piece_s;
+        np = w.s;
+        whole = np == 1;
+        gd = static_cast<long long>(w.b) * GL + w.x;
+        const int h = RG ? udiv(w.x, nrg) : w.x;
+        row0 = (static_cast<long long>(w.b) * Hkv + h) * R_group +
+               (RG ? (w.x - h * nrg) * RMAX : 0);
+        part0 = static_cast<long long>(blockIdx.x) * PS;
+        first = part0 - static_cast<long long>(w.k) * PS;
       }
       // each (row, warp)'s weight exp(m - the row's max) once, in pipeline
       // 0's p scratch [R][NW + 1] (the max last), then each (row, column)
@@ -1332,50 +1227,42 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
           }
         }
       }
-      if (!whole) {
-        // the group's last block to get here merges its pieces (Merge):
-        // one thread releases the block's partial (the barrier orders the
-        // others' stores before its fence) and, in the last block,
-        // acquires the others' before the barrier after which the merge
-        // loads them
-        hop::bar_sync(CONSUMER_BAR, NCONS);
-        if (t == 0) {
-          fence_acq_rel_gpu();
-          const bool last = atomicAdd(dst.counters + gd, 1) == np - 1;
-          fence_acq_rel_gpu();
-          if (last) ctx->merges[ctx->n_merges++] = Merge{gd, row0, first,
-                                                         np, R, PS};
-        }
-      }
-      // without OWN_RED the stages (the warps' sums, the merge's m values)
-      // go back to the producers, whose copies write them through the async
-      // proxy
-      if constexpr (!S::OWN_RED) hop::fence_proxy_async();
+      if (whole) return;
+      // the group's last block to get here merges its pieces: one thread
+      // releases the block's partial (the barrier orders the others' stores
+      // before its fence) and, in the last block, acquires the others'
+      // before the barrier after which the merge loads them
       hop::bar_sync(CONSUMER_BAR, NCONS);
       if (t == 0) {
-        walk_on(ctx->lanes, ctx->B, ctx->GL, K, ctx->walk);
-        *done_s = piece + 1;
+        fence_acq_rel_gpu();
+        *last_s = atomicAdd(dst.counters + gd, 1) == np - 1;
+        fence_acq_rel_gpu();
       }
       hop::bar_sync(CONSUMER_BAR, NCONS);
+      if (*last_s)
+        merge_group<D, RMAX, EB>(dst, gd, row0, first, np, R, PS, smem,
+                                 reinterpret_cast<float*>(smem + S::ML),
+                                 reinterpret_cast<float*>(smem + S::P));
     }
-  }
-#pragma unroll 1
-  for (int k = 0; k < ctx->n_merges; ++k) {
-    const Merge mg = ctx->merges[k];
-    merge_group<D, RMAX, EB>(ctx->dst, mg.g, mg.row0, mg.first, mg.np, mg.R,
-                             mg.PS, smem,
-                             reinterpret_cast<float*>(smem + S::ML),
-                             reinterpret_cast<float*>(smem + S::P));
-    hop::bar_sync(CONSUMER_BAR, NCONS);  // its scratch is the next one's
   }
 }
 
 // The most pieces a group may have at R rows: the merge keeps one m per
-// (piece, row) beside the warps' sums. A group has at most as many pieces
-// as the launch has blocks.
+// (piece, row) in pipeline 0's stages. A group has at most as many pieces
+// as the launch has blocks, and no more than TARGET_BLOCKS (plan_piece).
 template <int D, int RMAX, int EB>
 __host__ __device__ constexpr bool merge_fits(int blocks, int R) {
-  return (long long)blocks * R * 4 <= Smem<D, RMAX, EB>::MS_BYTES;
+  return (long long)(blocks < TARGET_BLOCKS ? blocks : TARGET_BLOCKS) * R *
+             4 <=
+         Smem<D, RMAX, EB>::KV_BYTES;
+}
+
+// A launch's grid gives every group a block (plan_piece): B * Hkv groups,
+// times the row groups with RG.
+template <int RMAX, bool RG>
+__host__ __device__ constexpr bool grid_fits(int grid, int B, int Hkv,
+                                             int R) {
+  return grid >= (long long)B * Hkv * (RG ? (R + RMAX - 1) / RMAX : 1);
 }
 
 // Kv head h of a lane in a paged cache (B5, B6): its `len` tokens through
@@ -1412,6 +1299,7 @@ struct PagedSrc {
 // The lanes of a paged cache: lane b's length clamped to the pages its
 // table row holds, and the live chunks that gives.
 struct PagedLanes {
+  static constexpr bool EQUAL = false;  // lanes of their own lengths
   const unsigned char* k;
   const unsigned char* v;
   const float* ks;

@@ -24,9 +24,10 @@ HEAD_DIMS = (64, 128, 256)  # the head dims the decode loop is built for
 # max_rows differs refuses the launch (rfa_qd::dispatch_rows)
 MAX_ROWS = {64: 16, 128: 16, 256: 8}
 CHUNK = 64  # tokens per chunk in the kernels (C in quant_decode.cuh)
-# Blocks a launch may take (one per SM of 132: a block runs 1 to 3
-# pipelines side by side, quant_decode.cuh) and the fewest chunks worth a
-# block beyond one a group (MIN_CHUNKS in quant_decode.cuh::Plan).
+# The blocks a launch cuts its groups over (one per SM of 132: a block runs
+# 1 to 3 pipelines side by side) and the fewest chunks worth a block beyond
+# one a group (TARGET_BLOCKS and MIN_CHUNKS in quant_decode.cuh::
+# plan_piece).
 TARGET_BLOCKS = 132
 MIN_CHUNKS = 4
 QTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
@@ -83,18 +84,18 @@ def row_groups(rows, d):
 
 def plan_grid(groups, max_chunks):
     """Blocks of a launch of B4, B5 or B6 from shapes alone (no host sync):
-    no more than the card's SMs (a block loops over its run, never a
-    second wave), and no more than the device's plan could use, one a
-    group or one a MIN_CHUNKS chunks of ``groups`` lanes of
-    ``max_chunks`` chunks (the longest the cache allows). The device's
-    plan (``work_plan``) uses up to this many. The plan counts its units
-    (``work_plan``) in 32 bits with room to spare: a launch of 2^30 or
-    more raises."""
-    if groups * (max_chunks + piece_cost(64, 1)) >= 2**30:
+    one a group at least, so that a block holds at most one piece; beyond
+    that up to the card's SMs, and no more than one a MIN_CHUNKS chunks of
+    ``groups`` lanes of ``max_chunks`` chunks (the longest the cache
+    allows). The device's plan (``work_plan``) uses up to this many, and
+    cuts a group over several only within TARGET_BLOCKS. The plan counts
+    chunks in 32 bits with room to spare: a launch of 2^30 or more
+    raises."""
+    if groups * max_chunks >= 2**30:
         raise ValueError(f"{groups} groups of up to {max_chunks} chunks are "
                          "more than the decode plan counts")
-    return max(1, min(TARGET_BLOCKS,
-                      max(groups, -(-groups * max_chunks // MIN_CHUNKS))))
+    return max(1, groups, min(TARGET_BLOCKS,
+                              -(-groups * max_chunks // MIN_CHUNKS)))
 
 
 def paged_plan_grid(b, hkv, npages, page_size, nrg=1):
@@ -117,66 +118,54 @@ def lane_chunks(length, page_size=None):
                                             // CHUNK)
 
 
-def piece_cost(d, value_bytes):
-    """A piece's fixed cost in chunks in the device's plan (its q, the
-    warps' meeting, its write): about that of 32 KB of K and V
-    (quant_decode.cuh::piece_cost)."""
-    return 1 if d * value_bytes >= 512 else 512 // (d * value_bytes)
+def work_plan(chunks, groups_per_lane, grid):
+    """The device's work plan (``csrc/quant_decode.cuh::plan_piece``, made
+    in every block from the lanes' live chunks), step by step as the
+    kernel takes it. ``chunks[b]``: lane b's live chunks (every kv head's
+    and row group's alike); group g = b * groups_per_lane + x. Each live
+    group takes ceil(n / L) whole blocks, its n chunks cut into that many
+    near-equal runs of consecutive chunks, at the least load L of at least
+    min(MIN_CHUNKS, the longest lane's chunks) whose blocks fit in
+    max(live groups, min(grid, TARGET_BLOCKS)); the groups take the blocks
+    in order.
 
-
-def work_plan(chunks, groups_per_lane, grid, cost):
-    """The device's work plan (``csrc/quant_decode.cuh::Plan``, made in
-    every block from the lanes' live chunks), step by step as the kernel
-    takes it. ``chunks[b]``: lane b's live chunks (every kv head's and row
-    group's alike); group g = b * groups_per_lane + x; each live group
-    takes ``cost`` units (``piece_cost``) and then one a chunk on the line
-    that the used blocks cut into equal runs.
-
-    Returns (used blocks, [block p's pieces]), a piece a dict: group,
-    first (its first chunk in the group), chunks, whole (the group in one
-    piece: it writes (out, lse) itself), and otherwise slot (its partial's
-    slot, group + p), first_slot and pieces (the group's pieces, in
-    consecutive slots, merged in that order by the group's last block, whose
-    counter target that is)."""
+    Returns (used blocks, [block p's pieces]), at most one piece a block, a
+    piece a dict: group, first (its first chunk in the group), chunks,
+    whole (the group in one piece: it writes (out, lse) itself), and
+    otherwise slot (its partial's slot, its block p), first_slot and
+    pieces (the group's pieces, in consecutive slots, merged in that order
+    by the group's last block, whose counter target that is)."""
     gl = groups_per_lane
+    runs = [[] for _ in range(grid)]
     live = [n for n in chunks if n > 0]
     if not live:
-        return 0, [[] for _ in range(grid)]
-    glive = len(live) * gl
-    w = (sum(live) + len(live) * cost) * gl  # units
-    used = min(grid, max(glive, -(-sum(live) * gl // MIN_CHUNKS)))
-    if min(live) == max(live) and used >= glive:
-        used -= used % glive
+        return 0, runs
+    cap = max(len(live) * gl, min(grid, TARGET_BLOCKS))
+    nmax = max(live)
 
-    def start(p):
-        return p * w // used
+    def blocks_at(load):
+        return gl * sum(-(-n // load) for n in live)
 
-    def block_of(x):
-        return -(-((x + 1) * used) // w) - 1
-
-    runs = []
-    for p in range(grid):
-        pieces = []
-        if p < used:
-            lo, hi, at = start(p), start(p + 1), 0
-            for b, n in enumerate(chunks):
-                for x in range(gl if n else 0):
-                    g0 = at + cost  # the unit of the group's chunk 0
-                    at = g0 + n
-                    first, last = max(lo, g0), min(hi, at)
-                    if first >= last:
-                        continue
-                    piece = dict(group=b * gl + x, first=first - g0,
-                                 chunks=last - first,
-                                 whole=first == g0 and last == at)
-                    if not piece["whole"]:
-                        p0 = block_of(g0)
-                        piece.update(slot=b * gl + x + p,
-                                     first_slot=b * gl + x + p0,
-                                     pieces=block_of(at - 1) - p0 + 1)
-                    pieces.append(piece)
-        runs.append(pieces)
-    return used, runs
+    load = max(min(MIN_CHUNKS, nmax), -(-sum(live) * gl // cap))
+    if blocks_at(load) > cap:  # load nmax fits: a block a live group
+        lo, hi = load, nmax
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if blocks_at(mid) <= cap else (mid, hi)
+        load = hi
+    p = 0
+    for b, n in enumerate(chunks):
+        s = -(-n // load)
+        for x in range(gl if n else 0):
+            for k in range(s):
+                piece = dict(group=b * gl + x, first=k * n // s,
+                             chunks=(k + 1) * n // s - k * n // s,
+                             whole=s == 1)
+                if s > 1:
+                    piece.update(slot=p, first_slot=p - k, pieces=s)
+                runs[p].append(piece)
+                p += 1
+    return p, runs
 
 
 _WORKSPACES = {}  # (device, stream) -> (fp32 partials, int32 counters)
@@ -201,16 +190,16 @@ def _buffers(floats, groups, dev, stream):
 
 def scratch_ptrs(groups, grid, rows, d, dev, stream):
     """The scratch of a launch of B4, B5 or B6 over ``grid`` blocks at head
-    dim d on ``stream``, as the kernels take it: part_acc (groups + grid,
-    rows, d) and part_ml (groups + grid, rows, 2) fp32, a slot for each
-    piece of a group cut across blocks (group + block: ``work_plan``),
-    which the group's last block merges, one after the other in the
-    workspace, and counters (groups,) int32; with row groups, ``groups``
-    counts them and ``rows`` is a row group's (``row_groups``). Three
-    nulls with one block: it writes every (out, lse) itself."""
+    dim d on ``stream``, as the kernels take it: part_acc (slots, rows, d)
+    and part_ml (slots, rows, 2) fp32, slots = min(grid, TARGET_BLOCKS), a
+    slot for each piece of a group cut across blocks (its block:
+    ``work_plan``), which the group's last block merges, one after the
+    other in the workspace, and counters (groups,) int32; with row groups,
+    ``groups`` counts them and ``rows`` is a row group's (``row_groups``).
+    Three nulls with one block: it writes every (out, lse) itself."""
     if grid == 1:
         return None, None, None
-    slots = groups + grid
+    slots = min(grid, TARGET_BLOCKS)
     n_acc = slots * rows * d
     part, counters = _buffers(n_acc + slots * rows * 2, groups, dev, stream)
     ptr = part.data_ptr()

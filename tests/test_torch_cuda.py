@@ -532,7 +532,7 @@ def test_cuda_quant_decode_is_bitwise_reproducible_across_shapes():
     from ring_flash_attn_tpu_torch.ops.quant import _plain_quant_decode
     from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as qd
     from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
-        lane_chunks, piece_cost, plan_grid, quant_decode_cuda, work_plan)
+        lane_chunks, plan_grid, quant_decode_cuda, work_plan)
 
     g = torch.Generator(device="cuda").manual_seed(41)
     big, small = _quant_cache(g, 1, 8, 8192, "int8"), _quant_cache(
@@ -558,10 +558,8 @@ def test_cuda_quant_decode_is_bitwise_reproducible_across_shapes():
     def most_pieces(plan):
         return max(p.get("pieces", 1) for run in plan[1] for p in run)
 
-    big_plan = work_plan([lane_chunks(8000)], 8, plan_grid(8, 128),
-                         piece_cost(128, 1))
-    small_plan = work_plan([lane_chunks(650)] * 2, 2, plan_grid(4, 11),
-                           piece_cost(128, 1))
+    big_plan = work_plan([lane_chunks(8000)], 8, plan_grid(8, 128))
+    small_plan = work_plan([lane_chunks(650)] * 2, 2, plan_grid(4, 11))
     assert most_pieces(big_plan) > most_pieces(small_plan) > 1
     _, counters = qd._WORKSPACES[(q1.device,
                                   torch.cuda.current_stream().cuda_stream)]
@@ -1403,14 +1401,14 @@ def test_cuda_decode_refuses_other_row_groups(d, rows):
     out = torch.zeros((1, rows, 1, d), dtype=torch.float32, device=dev)
     lse = torch.zeros((1, rows, 1), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _, rp = row_groups(rows, d)
+    nrg, rp = row_groups(rows, d)
 
-    def launch(rp):  # B=1, Hq=rows, Hkv=1, Tq=1, one page, one split
+    def launch(rp):  # B=1, Hq=rows, Hkv=1, Tq=1, one page, a block a group
         return b5._lib().rfa_paged_decode(
             q.data_ptr(), 1, pages.data_ptr(), pages.data_ptr(),
             tables.data_ptr(), lens.data_ptr(), None, out.data_ptr(),
-            lse.data_ptr(), None, None, None, 1, rows, 1, 1, d, 1, 64, 1, 1,
-            rp, 0.1, 0.0, stream)
+            lse.data_ptr(), None, None, None, 1, rows, 1, 1, d, 1, 64, 1,
+            nrg, rp, 0.1, 0.0, stream)
 
     for other in (rp - 1, rp + 1, 2 * rp):
         assert launch(other) == 1

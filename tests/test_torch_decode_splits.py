@@ -20,8 +20,8 @@ from ring_flash_attn_tpu_torch.ops import (paged_decode_cuda,
 from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as qd
 from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
     CHUNK, HEAD_DIMS, MAX_ROWS, MIN_CHUNKS, TARGET_BLOCKS, check_rows,
-    lane_chunks, paged_plan_grid, piece_cost, plan_grid, row_groups,
-    scratch_ptrs, work_plan)
+    lane_chunks, paged_plan_grid, plan_grid, row_groups, scratch_ptrs,
+    work_plan)
 
 D = 128  # the head dim of the scratch tests below
 
@@ -34,20 +34,21 @@ PLANS = [(1, 1), (1, 3), (1, 5), (1, 512), (8, 7), (8, 512), (24, 128),
 
 @pytest.mark.parametrize("groups,max_chunks", PLANS)
 def test_plan_grid_never_needs_a_second_wave(groups, max_chunks):
-    """One block an SM at most: a block walks its whole run (several
-    groups where they outnumber the SMs), so the grid never holds more
-    blocks than TARGET_BLOCKS."""
+    """One block an SM at most, but where the groups alone outnumber the
+    SMs: then a block a group, each whole (the plan cuts a group only
+    within TARGET_BLOCKS blocks, ``test_plan_workspace_bound_holds``), so
+    a launch takes a second wave only as one a group would."""
     assert TARGET_BLOCKS == 132
-    assert 1 <= plan_grid(groups, max_chunks) <= TARGET_BLOCKS
+    assert 1 <= plan_grid(groups, max_chunks) <= max(groups, TARGET_BLOCKS)
 
 
 @pytest.mark.parametrize("groups,max_chunks", PLANS)
 def test_plan_grid_gives_every_group_a_block_where_the_card_allows(
         groups, max_chunks):
     """The device's plan gives each live group at least a block of its own
-    (a group never waits for another's), so the grid holds one a group up
-    to the card's SMs."""
-    assert plan_grid(groups, max_chunks) >= min(groups, TARGET_BLOCKS)
+    (a group never waits for another's, and a block holds one piece at
+    most), so the grid holds one a group, past the card's SMs too."""
+    assert plan_grid(groups, max_chunks) >= groups
 
 
 @pytest.mark.parametrize("groups,max_chunks", PLANS)
@@ -57,12 +58,12 @@ def test_plan_grid_gives_each_block_min_chunks(groups, max_chunks):
     n = plan_grid(groups, max_chunks)
     assert n <= max(groups, -(-groups * max_chunks // MIN_CHUNKS))
     if max_chunks < MIN_CHUNKS:
-        assert n == min(groups, TARGET_BLOCKS)
+        assert n == groups
 
 
 def test_plan_grid_refuses_more_than_the_plan_counts():
-    """The device's plan counts units (chunks and pieces' fixed costs) in
-    32 bits: the launcher refuses a shape whose units could pass 2^30."""
+    """The device's plan counts chunks in 32 bits: the launcher refuses a
+    shape whose chunks could reach 2^30."""
     plan_grid(2**13, 2**16)
     with pytest.raises(ValueError, match="more than the decode plan"):
         plan_grid(2**14, 2**16)
@@ -85,18 +86,21 @@ def test_paged_plan_grid_is_the_grid_of_the_table_shape():
 @pytest.mark.parametrize("nrg", [1, 2, 15, 45])
 def test_paged_plan_grid_counts_row_groups(nrg):
     """Row groups are groups of the plan: B * Hkv * nrg of them share the
-    card's blocks, never a second wave."""
+    card's blocks, one a row group at least."""
     n = paged_plan_grid(4, 1, 32, 256, nrg)
     assert n == plan_grid(4 * nrg, 32 * 4)
-    assert min(4 * nrg, TARGET_BLOCKS) <= n <= TARGET_BLOCKS
+    assert 4 * nrg <= n <= max(4 * nrg, TARGET_BLOCKS)
 
 
 def test_plan_constants_mirror_the_kernels():
-    """MIN_CHUNKS and CHUNK are the kernels' own (csrc/quant_decode.cuh)."""
+    """MIN_CHUNKS, TARGET_BLOCKS and CHUNK are the kernels' own
+    (csrc/quant_decode.cuh)."""
     src = open(os.path.join(os.path.dirname(qd.__file__), os.pardir, "csrc",
                             "quant_decode.cuh")).read()
     assert re.search(r"constexpr int MIN_CHUNKS = (\d+);", src).group(1) \
         == str(MIN_CHUNKS)
+    assert re.search(r"constexpr int TARGET_BLOCKS = (\d+);",
+                     src).group(1) == str(TARGET_BLOCKS)
     assert re.search(r"constexpr int C = (\d+);", src).group(1) == str(CHUNK)
 
 
@@ -146,7 +150,7 @@ def _plan_of(case):
         grid = plan_grid(len(lens) * hkv * nrg, lane_chunks(width))
     else:
         grid = paged_plan_grid(len(lens), hkv, width, page, nrg)
-    used, runs = work_plan(chunks, hkv * nrg, grid, piece_cost(d, eb))
+    used, runs = work_plan(chunks, hkv * nrg, grid)
     return chunks, hkv * nrg, grid, used, runs
 
 
@@ -178,7 +182,7 @@ def test_plan_covers_every_live_chunk_once(case):
 @pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
 def test_plan_pieces_of_a_group_are_in_order(case):
     """A group cut across blocks lies in consecutive blocks, piece k
-    holding the chunks after piece k - 1's; its pieces take consecutive
+    holding the chunks after piece k - 1's; its pieces take their blocks'
     slots from first_slot, in block order, and each names the same count,
     the counter's target, so the last block merges them in piece order
     whichever finishes first. A whole group is one piece."""
@@ -195,25 +199,26 @@ def test_plan_pieces_of_a_group_are_in_order(case):
             continue
         for k, (p, piece) in enumerate(pieces):
             assert not piece["whole"]
-            assert piece["slot"] == group + p
-            assert piece["first_slot"] == group + blocks[0]
+            assert piece["slot"] == p
+            assert piece["first_slot"] == blocks[0]
             assert piece["slot"] == piece["first_slot"] + k
             assert piece["pieces"] == len(pieces)
 
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
 def test_plan_workspace_bound_holds(case):
-    """The slots of all partials are distinct and below groups + grid, the
-    workspace ``scratch_ptrs`` lays out from shapes alone; a group has at
-    most as many pieces as the grid has blocks (``merge_fits`` is held
-    for the grid); one block never writes a partial."""
+    """The slots of all partials are distinct and below min(grid,
+    TARGET_BLOCKS), the workspace ``scratch_ptrs`` lays out from shapes
+    alone: a group is cut only within the first wave, and has at most as
+    many pieces (``merge_fits`` is held for them); one block never writes
+    a partial."""
     chunks, gl, grid, _, runs = _plan_of(case)
-    groups = len(chunks) * gl
+    cap = min(grid, TARGET_BLOCKS)
     slots = [piece["slot"] for run in runs for piece in run
              if not piece["whole"]]
     assert len(slots) == len(set(slots))
-    assert all(0 <= s < groups + grid for s in slots)
-    assert all(piece["pieces"] <= grid for run in runs for piece in run
+    assert all(0 <= s < cap for s in slots)
+    assert all(piece["pieces"] <= cap for run in runs for piece in run
                if not piece["whole"])
     if grid == 1:
         assert not slots
@@ -222,8 +227,8 @@ def test_plan_workspace_bound_holds(case):
 @pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
 def test_plan_depends_only_on_what_the_kernel_reads(case):
     """The kernel reads the lanes' live chunks (from seq_lens or B4's
-    length), the groups a lane, its grid and its build's piece cost;
-    lengths that give the same chunks give the same plan, every call, and
+    length), the groups a lane and its grid; lengths that give the same
+    chunks give the same plan, every call, and
     the grid is the launcher's, from shapes (Python ints: no read of
     seq_lens, no host sync)."""
     _, lens, page, hkv, nrg, width, d, eb = case
@@ -232,40 +237,44 @@ def test_plan_depends_only_on_what_the_kernel_reads(case):
     # each live lane one token shorter, where that keeps its chunks
     other = [n - 1 if n > 1 and lane_chunks(n - 1, page) == c else n
              for n, c in zip(lens, chunks)]
-    cost = piece_cost(d, eb)
-    again = work_plan([lane_chunks(n, page) for n in other], gl, grid, cost)
-    assert again == (used, runs) == work_plan(chunks, gl, grid, cost)
+    again = work_plan([lane_chunks(n, page) for n in other], gl, grid)
+    assert again == (used, runs) == work_plan(chunks, gl, grid)
 
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
 def test_plan_balances_the_runs(case):
-    """Each used block's work, its chunks and a piece's fixed cost for
-    each piece, is at most an even share of the line plus one fixed cost,
-    so no SM idles while a long lane streams and a block of many short
-    groups takes fewer of them; a live group always has a block (used is
-    at least the live groups, up to the grid) and a block beyond that only
-    for MIN_CHUNKS chunks."""
-    _, _, _, _, _, _, d, eb = case
+    """The busiest block holds the least load, in chunks, that any cut of
+    each group into whole blocks of near-equal runs fits in the blocks
+    the plan may take (one a live group, up to min(grid, TARGET_BLOCKS))
+    at a load of at least MIN_CHUNKS (or the longest lane's chunks), so no
+    SM idles while a long lane streams; a live group always has a block."""
     chunks, gl, grid, used, runs = _plan_of(case)
-    cost = piece_cost(d, eb)
-    live = sum(1 for n in chunks if n) * gl
+    live = [n for n in chunks if n]
     if not live:
         assert used == 0
         return
-    share = -(-(sum(chunks) * gl + live * cost) // used)
-    for run in runs[:used]:
-        assert sum(p["chunks"] + cost for p in run) <= share + cost
-    assert min(live, grid) <= used <= grid
-    assert used <= max(live, -(-sum(chunks) * gl // MIN_CHUNKS))
+    cap = max(len(live) * gl, min(grid, TARGET_BLOCKS))
+    load = max(p["chunks"] for run in runs for p in run)
+    assert len(live) * gl <= used <= cap
+    floor = min(MIN_CHUNKS, max(live))
+    assert load >= floor
+    if load > floor:  # one chunk less a block would take too many blocks
+        assert gl * sum(-(-n // (load - 1)) for n in live) > cap
 
 
-@pytest.mark.parametrize("d,eb,cost", [(64, 1, 8), (64, 2, 4), (128, 1, 4),
-                                       (128, 2, 2), (256, 1, 2),
-                                       (256, 2, 1)])
-def test_piece_cost_is_the_kernels(d, eb, cost):
-    """A piece costs about 32 KB of K and V: 8 chunks of int8 at head dim
-    64 down to one of bf16 at 256, as quant_decode.cuh::piece_cost."""
-    assert piece_cost(d, eb) == cost
+@pytest.mark.parametrize("case", PLAN_CASES, ids=_IDS)
+def test_plan_holds_one_piece_a_block(case):
+    """A block holds one piece at most (one meeting of its warps, one
+    merge), the used blocks first; a group's pieces differ by one chunk at
+    most, and a group is whole exactly when it is one piece."""
+    chunks, _, _, used, runs = _plan_of(case)
+    assert all(len(run) == 1 for run in runs[:used])
+    assert all(not run for run in runs[used:])
+    for pieces in _pieces_by_group(runs).values():
+        sizes = [piece["chunks"] for _, piece in pieces]
+        assert max(sizes) - min(sizes) <= 1
+        assert all(piece["whole"] == (len(pieces) == 1)
+                   for _, piece in pieces)
 
 
 def _equal(case):
@@ -276,10 +285,9 @@ def _equal(case):
 @pytest.mark.parametrize("case", [c for c in PLAN_CASES if _equal(c)],
                          ids=[c[0] for c in PLAN_CASES if _equal(c)])
 def test_plan_equal_lanes_never_cross_a_group(case):
-    """Where every live lane holds the same chunks (B4 always), the used
-    blocks are a multiple of the live groups when they outnumber them, so
-    each block's run lies in one group: one piece a block, no merge
-    across groups."""
+    """Where every live lane holds the same chunks (B4 always), every live
+    group takes the same number of blocks, so the used blocks are a
+    multiple of the live groups, one piece of one group a block."""
     chunks, gl, grid, used, runs = _plan_of(case)
     glive = sum(1 for n in chunks if n) * gl
     if used >= glive:
@@ -287,15 +295,38 @@ def test_plan_equal_lanes_never_cross_a_group(case):
         assert all(len(run) == 1 for run in runs[:used])
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 7, 125, 128, 511, 512])
+@pytest.mark.parametrize("lanes,gl", [(1, 8), (2, 8), (2, 16), (1, 23),
+                                      (4, 32), (200, 1)])
+def test_plan_closed_form_of_equal_lanes_is_the_search(lanes, gl, n):
+    """B4's lanes all hold n chunks, and its kernel takes the plan in
+    closed form (quant_decode.cuh::plan_piece with Lanes::EQUAL): s =
+    ceil(n / L) blocks a group, L = max(the search's lower bound,
+    ceil(n / floor(U / G))). It is the search's plan."""
+    g = lanes * gl
+    grid = plan_grid(g, n)
+    u = max(g, min(grid, TARGET_BLOCKS))
+    most = u // g
+    load = max(min(MIN_CHUNKS, n), -(-g * n // u), -(-n // most))
+    s = -(-n // load)
+    used, runs = work_plan([n] * lanes, gl, grid)
+    assert used == g * s
+    for p in range(used):
+        (piece,) = runs[p]
+        assert piece["group"] == p // s
+        assert piece["first"] == (p % s) * n // s
+        assert piece.get("pieces", 1) == s
+
+
 def test_partials_hold_one_row_per_split():
-    """The workspace holds one (acc, (m, l)) partial per slot (groups +
-    blocks of them: ``work_plan``) and row, fp32, and one int32 counter
-    per group, zero when allocated."""
+    """The workspace holds one (acc, (m, l)) partial per slot (a block's,
+    up to TARGET_BLOCKS: ``work_plan``) and row, fp32, and one int32
+    counter per group, zero when allocated."""
     qd._WORKSPACES.clear()
     scratch_ptrs(6, 9, 4, D, "cpu", 101)
     part, counters = qd._WORKSPACES[("cpu", 101)]
     assert part.dtype == torch.float32 and counters.dtype == torch.int32
-    assert part.numel() == (6 + 9) * 4 * (D + 2)
+    assert part.numel() == 9 * 4 * (D + 2)
     assert counters.numel() == 6 and torch.all(counters == 0)
 
 
@@ -312,24 +343,28 @@ def test_workspace_is_kept_per_stream_and_grows_on_demand():
     scratch_ptrs(64, 9, 16, D, "cpu", 7)
     part, counters = qd._WORKSPACES[("cpu", 7)]
     # grown, never shrunk: the earlier shape fits what is kept now
-    assert part.numel() == (64 + 9) * 16 * (D + 2)
-    assert counters.numel() == 64 and torch.all(counters == 0)
+    assert part.numel() == 66 * 4 * (D + 2)
+    scratch_ptrs(300, 300, 16, D, "cpu", 7)  # slots stop at TARGET_BLOCKS
+    part, counters = qd._WORKSPACES[("cpu", 7)]
+    assert part.numel() == TARGET_BLOCKS * 16 * (D + 2)
+    assert counters.numel() == 300 and torch.all(counters == 0)
     assert len(qd._WORKSPACES) == 2
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("groups,grid,rows", [(8, 66, 4), (4, 16, 16),
-                                              (1, 3, 8)])
+                                              (1, 3, 8), (200, 200, 4)])
 def test_scratch_ptrs_lay_the_partials_out(groups, grid, rows, d):
-    """The kernels' pointers: part_acc (groups + grid, rows, D) at the
-    workspace's start, part_ml (groups + grid, rows, 2) right after it,
-    and the counters, laid out by the call's head dim D."""
+    """The kernels' pointers: part_acc (slots, rows, D) at the workspace's
+    start, part_ml (slots, rows, 2) right after it, slots = min(grid,
+    TARGET_BLOCKS), and the counters, laid out by the call's head dim D."""
     qd._WORKSPACES.clear()
     acc, ml, cnt = scratch_ptrs(groups, grid, rows, d, "cpu", 11)
     part, counters = qd._WORKSPACES[("cpu", 11)]
+    slots = min(grid, TARGET_BLOCKS)
     assert acc == part.data_ptr() and cnt == counters.data_ptr()
-    assert ml == acc + 4 * (groups + grid) * rows * d
-    assert part.numel() == (groups + grid) * rows * (d + 2)
+    assert ml == acc + 4 * slots * rows * d
+    assert part.numel() == slots * rows * (d + 2)
 
 
 def test_scratch_ptrs_are_null_with_one_split():
