@@ -29,8 +29,11 @@ Phases, each of which raises on failure:
    128, Tq 1 to 5 with new_counts, softcap, a dead lane), each case timed
    beside its bound, and the plan's edges at 64 and 256 (``PLAN_CASES``:
    dead and full lanes, new_counts, row groups, 48 lanes; for B4
-   ``B4_PLAN_CASES``: one row a kv head at 256, the 32-token tails), each
-   twice, bitwise equal (this holds for phases 7 and 8 too).
+   ``B4_PLAN_CASES``: one row a kv head at 256, the 32-token tails) and the
+   row tile's edges (``TILE_CASES``: 17 to 355 rows a kv head at 64, 128
+   and 256, pages of 16 and 64, a one-token lane), each twice, bitwise
+   equal, and the row-tile builds free of spills and on wgmma
+   (``tile_builds``) (this holds for phases 7 and 8 too).
 4. The ServingEngine at Llama-3-8B widths with 4 layers and seeded random
    weights: the first prefill and first decode-step logits of the kernels
    against the plain versions on the card, then 6 requests (two queue, one
@@ -189,7 +192,7 @@ Phases, each of which raises on failure:
    skipped), B1 at ragged chunks of 320, 192 and 64 rows, and the first
    token of a 256-token request behind a 3840-token prompt, dense and
    chunked; (b) ``speculate_k`` 4 (16 rows a kv head) and 8 (32 rows: one
-   launch of B5 a layer, two row groups of 16 on its grid) on repetitive
+   launch of B5 a layer, one row tile a kv head on its grid) on repetitive
    prompts against the plain greedy engine,
    every verify's B5 against ``_plain_paged_decode``, drafts proposed and
    accepted, tokens a decode step, and one verify forward's wall and
@@ -2572,6 +2575,97 @@ B4_PLAN_CASES = [
 ]
 
 
+# The row-tile loop's edges (csrc/quant_decode.cuh::decode_tiles: past
+# max_rows(D) rows a kv head, tiles of row_tile(D) = 128 rows, 64 at 256)
+# in PLAN_CASES' form: R = G * Tq rows a kv head just past the small-row
+# loop's (17), beside and at one warpgroup's 64 rows (63, 64, 65), at and
+# past a tile of 128 (128, 129) and Falcon-7B's 355, each at head dims 64,
+# 128 and 256; two kv heads at 64 and 129 rows; lanes of one token, none,
+# 700 and 3000 in pages of 16 and 64 in turn; the three cache types in
+# turn (B6, B4); softcap 20 on every other pair; new_counts (B5) wherever
+# Tq > 1
+TILE_ROWS = {17: (17, 1), 63: (21, 3), 64: (16, 4), 65: (13, 5),
+             128: (64, 2), 129: (43, 3), 355: (71, 5)}
+TILE_CASES = [
+    (f"R={rows} D={d}", d, g * (2 if rows in (64, 129) else 1),
+     2 if rows in (64, 129) else 1, tq, [1, 0, 700, 3000],
+     (16, 64)[n % 2], 3072 // (16, 64)[n % 2],
+     None if tq == 1 else [1, 0, tq, tq],
+     ("int8", "fp8_e4m3", "fp8_e5m2")[(n + n // 3) % 3],
+     (None, 20.0)[n // 2 % 2])
+    for n, (rows, d, (g, tq)) in enumerate(
+        (rows, d, gt) for rows, gt in TILE_ROWS.items()
+        for d in (64, 128, 256))]
+
+
+def tile_case_check(torch, case, kernel, seed=0):
+    """A TILE_CASES case through ``kernel``: B5 and B6 as
+    ``plan_case_check`` holds them; B4 over a contiguous cache of the
+    case's tokens a lane (B=2) at lengths 1 and 3000 (a device tensor at
+    the second) with the case's rows, twice, the same bits, within
+    QUANT_TOL of its plain version. Returns the worst error."""
+    if kernel != "B4":
+        return plan_case_check(torch, case, kernel, seed)
+    from ring_flash_attn_tpu_torch.ops.quant import (
+        _plain_quant_decode, quantize_kv)
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    name, d, hq, hkv, tq, lens, page, pps, _, qdtype, cap = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2300 + seed)
+    s = page * pps
+    c = quantize_kv(torch.randn((2, hkv, s, d), generator=gen, device=dev),
+                    torch.randn((2, hkv, s, d), generator=gen, device=dev),
+                    qdtype)
+    q = torch.randn((2, hq, tq, d), generator=gen, device=dev).to(
+        torch.bfloat16 if seed % 2 else torch.float32)
+    worst = 0.0
+    for n in (1, max(lens)):
+        arg = torch.tensor([n], dtype=torch.int32, device=dev) if n > 1 \
+            else n
+        got, again = (quant_decode_cuda(q, c.k_q, c.k_scale, c.v_q,
+                                        c.v_scale, arg, d ** -0.5,
+                                        softcap=cap) for _ in range(2))
+        ref = _plain_quant_decode(q, c, n, d ** -0.5, cap)
+        torch.cuda.synchronize()
+        err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+        if not err <= QUANT_TOL:
+            raise AssertionError(f"B4 {name} length {n}: error {err:.3e}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"B4 {name} length {n}: two calls differ")
+        worst = max(worst, err)
+    return worst
+
+
+def tile_builds(kernel):
+    """ptxas's facts and the HGMMA count of ``kernel``'s row-tile builds
+    (the kernel's last template flag, RG, on): {build: facts with "hgmma"}.
+    Raises if one spills or has no HGMMA (the loop runs on wgmma)."""
+    import re
+
+    from ring_flash_attn_tpu_torch.ops import _build
+
+    path = _build.build_all()[DECODE_KERNELS[kernel][0]]
+    rg = re.compile(r"decode_kernelI((?:L[ib]\d+E)+)Lb1EE")
+    hgmma = {n: c for n, c in hgmma_counts(path, "decode_kernel").items()
+             if rg.search(n)}
+    builds = {}
+    for n, f in ptxas_facts(path[:-3] + ".log").items():
+        m = rg.search(n)
+        if m:
+            label = "<" + ", ".join(re.findall(r"L[ib](\d+)E",
+                                               m.group(1))) + ", RG>"
+            builds[label] = dict(f, hgmma=next(
+                (c for h, c in hgmma.items() if n in h or h in n), 0))
+    log(f"  {kernel} row-tile builds (ptxas, HGMMA): {builds}")
+    if not builds or any(f["spill_bytes"] or not f["hgmma"]
+                         for f in builds.values()):
+        raise AssertionError(f"{kernel}: a row-tile build spills, has no "
+                             f"HGMMA or is missing: {builds}")
+    return builds
+
+
 def plan_case_check(torch, case, kernel, seed=0):
     """A PLAN_CASES case through ``kernel`` ("B5" or "B6"): twice, the same
     bits, within the kernel's tolerance of its plain version, every dead
@@ -2677,9 +2771,11 @@ def b4_plan_case_check(torch, case, seed=0):
 
 def decode_wide(torch, kernel, flush):
     """Phases 3, 7 and 8: ``kernel`` on every DECODE_CASES case against its
-    plain version, each timed beside its bound; B4 also at length 0 in row
-    groups. Returns {family: [its readings]}, the first case of each
-    family with the plain version's time."""
+    plain version, each timed beside its bound, on the plan's edges and on
+    the row tile's (TILE_CASES), and its row-tile builds free of spills
+    and on wgmma (``tile_builds``); B4 also at length 0 in row tiles.
+    Returns {family: [its readings]}, the first case of each family with
+    the plain version's time."""
     from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
         quant_decode_cuda)
 
@@ -2709,6 +2805,11 @@ def decode_wide(torch, kernel, flush):
                 for i, case in enumerate(cases))
     log(f"    the plan's edges ({len(cases)} cases): worst error "
         f"{worst:.3e}; two calls bitwise equal")
+    worst = max(tile_case_check(torch, case, kernel, i)
+                for i, case in enumerate(TILE_CASES))
+    log(f"    the row tile's edges ({len(TILE_CASES)} cases): worst error "
+        f"{worst:.3e}; two calls bitwise equal")
+    tile_builds(kernel)
     if kernel == "B4":  # length 0 in row groups: every row dead
         _, d, hq, hkv, tq, _, _, _ = DECODE_CASES[5]
         dev = torch.device("cuda")
@@ -6006,8 +6107,8 @@ def _checked_chunks(torch, counters, seen):
 @contextlib.contextmanager
 def _checked_verify(torch, seen):
     """paged_decode_attention's calls with new_counts (the speculative
-    verify: B5, one launch whose grid takes row groups past the rows one
-    block serves) also held against ``_plain_paged_decode``. Records
+    verify: B5, one launch whose grid takes row tiles past the rows the
+    small-row loop serves) also held against ``_plain_paged_decode``. Records
     (Tq, (|out| error, |lse| error)) of each call in ``seen``."""
     from ring_flash_attn_tpu_torch.ops import paged
 
@@ -6229,7 +6330,7 @@ def phase_serving_options(torch):
                                  for n, (s, l, t) in ttft.items()}
 
     # (b) speculate_k=4 (16 rows at G=4) and 8 (32 rows: one launch of B5
-    # a layer, two row groups of 16) on repetitive prompts, against the
+    # a layer, one row tile a kv head) on repetitive prompts, against the
     # plain greedy engine
     rng = np.random.default_rng(19)
     rep = {rid: np.tile(rng.integers(0, cfg.vocab, size=u),

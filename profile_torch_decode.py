@@ -38,7 +38,13 @@ groups".
    (B=2, S=8192, length 8000) at both, over ``generate``'s prompt cache at
    64 (B=1, S=32768) and on the 32-token tail cache at both; B6 at
    Gemma-2B's 8/1 heads of 256. A digest of their outputs is printed
-   before they are timed.
+   before they are timed. Then the row-tile loop (``RG_CASES``, "RG" in
+   their names; ``--only RG`` times them alone): B5 at StarCoder's 48/1
+   heads of 128 on the engine's 4 lanes and at its k = 4 verify (192
+   rows), B5 at the Llama-3-8B k = 8 verify (32 rows), B4 over
+   ``generate``'s StarCoder prompt cache and its 32-token tail, and
+   ``chip_smoke.DECODE_CASES``' StarCoder (B4, B5), StarCoder Tq=5 (B5)
+   and Falcon-7B Tq=5 (B6) cases, with a digest of their outputs.
 
 4. Where the tree has row groups (past the rows one block serves): traces
    B6 at Falcon-7B's 355 rows and B5 at StarCoder's 240 rows
@@ -248,8 +254,12 @@ def row_group_trace(torch, flush):
         _, d, hq, hkv, tq, _, _, page = case
         nrg, rows = Q.row_groups(hq // hkv * tq, d)
         b = len(DECODE_LENS)
-        plan = getattr(Q, grid)(b, hkv, DECODE_S // page, page, nrg)
-        chunks = [_lane_chunks(n, page) for n in DECODE_LENS]
+        # a tree whose row-tile loop runs in clusters takes whole clusters
+        cs = getattr(Q, "TILE_CLUSTER", 1)
+        kw = {"tiles": True} if cs > 1 else {}
+        plan = getattr(Q, grid)(b, hkv, DECODE_S // page, page, nrg, **kw)
+        chunks = [(Q.tile_chunks(n, page) if kw else _lane_chunks(n, page))
+                  for n in DECODE_LENS]
         run, plain, tol, (bound, by), what = decode_case_inputs(
             torch, case, kernel)
         log(f"  row groups: {kernel} {name} (D={d}, {what}): {nrg} row "
@@ -259,7 +269,7 @@ def row_group_trace(torch, flush):
         real = getattr(mod, grid)
         # a tree with the device's plan takes a block a group at least
         forced = (FORCED_SPLITS if grid == "paged_num_splits"
-                  else (b * hkv * nrg,))
+                  else (b * hkv * nrg * cs,))
         try:
             for n in sorted({plan, *forced}):
                 setattr(mod, grid, lambda *_, n=n: n)
@@ -366,6 +376,70 @@ def wide_rows(torch):
     return rows
 
 
+# the row-tile loop's readings (RG: past MAX_ROWS rows a kv head) at the
+# shapes that give its launches: StarCoder's 48/1 heads of 128 on the
+# engine's 4 lanes and its k = 4 verify (4 x 48 = 192 rows, phase 24),
+# the default Llama-3-8B widths' k = 8 verify (4 x 8 = 32 rows, phase
+# 19), generate's StarCoder prompt cache (8192 tokens) and its 32-token
+# tail, and chip_smoke.DECODE_CASES' 48, 240 and 355 rows
+RG_CASES = ("StarCoder (48 rows)", "StarCoder Tq=5 (240 rows)",
+            "Falcon-7B Tq=5 (355 rows)")
+
+
+def rg_rows(torch):
+    """{name: (call, bound ms)} of the RG readings, the bound from
+    ``chip_smoke._decode_bound_ms``."""
+    from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
+        paged_decode_cuda)
+    from ring_flash_attn_tpu_torch.ops.quant import quantize_kv
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        quant_decode_cuda)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = {}
+    for name, hq, hkv, tq in (("StarCoder engine 4 lanes (48 rows)", 48, 1,
+                               1),
+                              ("StarCoder k=4 verify (192 rows)", 48, 1, 4),
+                              ("Llama-3-8B k=8 verify (32 rows)", 32, 8, 8)):
+        d = 128
+        q, kp, vp, tables, seq = _b5_lanes(torch, gen, hq, hkv, d,
+                                           ENGINE_LENS, 16)
+        q = torch.randn((len(ENGINE_LENS), hq, tq, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        counts = None if tq == 1 else torch.full(
+            (len(ENGINE_LENS),), tq, dtype=torch.int32, device=dev)
+        rows[f"RG B5 {name} lanes {ENGINE_LENS}"] = (
+            lambda q=q, kp=kp, vp=vp, t=tables, s=seq, c=counts:
+            paged_decode_cuda(q, kp, vp, t, s, d ** -0.5, new_counts=c),
+            _decode_bound_ms(q, sum(ENGINE_LENS), hkv, 2, False,
+                             tables.numel())[0])
+    for s in (8192, 32):
+        c = quantize_kv(torch.randn((1, 1, s, 128), generator=gen,
+                                    device=dev),
+                        torch.randn((1, 1, s, 128), generator=gen,
+                                    device=dev), "int8")
+        q = torch.randn((1, 48, 1, 128), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        label = "tail S=32" if s == 32 else "prompt cache S=8192"
+        rows[f"RG B4 StarCoder generate {label} int8 (48 rows)"] = (
+            lambda q=q, c=c, s=s: quant_decode_cuda(
+                q, c.k_q, c.k_scale, c.v_q, c.v_scale, s, 128 ** -0.5),
+            _decode_bound_ms(q, s, 1, 1, True)[0])
+    for kernel, name in (("B4", RG_CASES[0]), ("B5", RG_CASES[0]),
+                         ("B5", RG_CASES[1]), ("B6", RG_CASES[2])):
+        i = next(j for j, c in enumerate(DECODE_CASES) if c[0] == name)
+        run, _, _, (bound, _), what = decode_case_inputs(
+            torch, DECODE_CASES[i], kernel, i)
+        rows[f"RG {kernel} {name} {what}"] = (run, bound)
+        if DECODE_CASES[i][6]:  # the same without the softcap
+            case = DECODE_CASES[i][:6] + (None,) + DECODE_CASES[i][7:]
+            run, _, _, (bound, _), what = decode_case_inputs(
+                torch, case, kernel, i)
+            rows[f"RG {kernel} {name} {what}, no softcap"] = (run, bound)
+    return rows
+
+
 def timings(torch, args):
     from ring_flash_attn_tpu_torch.ops import paged as P
     from ring_flash_attn_tpu_torch.ops.paged_decode_cuda import (
@@ -459,6 +533,10 @@ def timings(torch, args):
     log("  digest of (out, lse) at head dims 64 and 256: " + _digest(
         torch, [fn() for fn, _ in wide.values()]))
     fns.update(wide)
+    rg = rg_rows(torch)
+    log("  digest of (out, lse) of the RG readings: " + _digest(
+        torch, [fn() for fn, _ in rg.values()]))
+    fns.update(rg)
     if args.only:
         fns = {k: f for k, f in fns.items() if any(t in k for t in args.only)}
     times = collections.defaultdict(list)

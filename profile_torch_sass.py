@@ -112,10 +112,12 @@ def instructions(func):
 
 
 def sass(paths):
-    """{(library, kernel, arguments): [instructions]} of a tree."""
+    """{(library, kernel, arguments): [instructions]} of a tree (of the
+    LIBS it holds: a copy that keeps only the decode loop's sources
+    compares those)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found = {}
-    for lib in LIBS:
+    for lib in (lib for lib in LIBS if lib in paths):  # those it holds
         text = subprocess.run([tool, "-sass", paths[lib]],
                               capture_output=True, text=True,
                               check=True).stdout

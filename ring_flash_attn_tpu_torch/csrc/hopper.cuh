@@ -54,29 +54,62 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// The 32 accumulator operands d[0] .. d[31] of an asm statement, read and
+// written: fp32 (HOP_F32) or s32 (HOP_S32).
+#define HOP_8(k, d, i)                                                      \
+  k(d[i]), k(d[i + 1]), k(d[i + 2]), k(d[i + 3]), k(d[i + 4]), k(d[i + 5]), \
+      k(d[i + 6]), k(d[i + 7])
+#define HOP_32(k, d) \
+  HOP_8(k, d, 0), HOP_8(k, d, 8), HOP_8(k, d, 16), HOP_8(k, d, 24)
+#define HOP_FOP(x) "+f"(x)
+#define HOP_IOP(x) "+r"(x)
+#define HOP_F32(d) HOP_32(HOP_FOP, d)
+#define HOP_S32(d) HOP_32(HOP_IOP, d)
 
 // D (64 x 64 fp32) = A (64 x 16) * B (16 x 64) [+ D]; A and B in shared
-// memory through their descriptors; TA / TB: 1 = MN-major (transposed).
-template <int TA, int TB>
+// memory through their descriptors; TA / TB: 1 = MN-major (transposed);
+// bf16, or fp16 with F16.
+template <int TA, int TB, bool F16 = false>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
+#define HOP_SS_N64(TY)                                                     \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                          \
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"                                  \
+      : HOP_F32(d)                                                         \
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB))
+  if constexpr (F16)
+    HOP_SS_N64("f16");
+  else
+    HOP_SS_N64("bf16");
+#undef HOP_SS_N64
+}
+
+// S (64 x 64 s32) = A (64 x 32) * B (32 x 64) [+ S], int8, both K-major in
+// shared memory through their descriptors: exact.
+__device__ __forceinline__ void wgmma_ss_s8_n64(int (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
       "{%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+      "%32, %33, p;\n}\n"
+      : HOP_S32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // D (64 x 80 fp32) = A (64 x 16) * B (16 x 80) [+ D]; A and B in shared
@@ -160,68 +193,58 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// D (64 x 128 fp32) = A (64 x 16, bf16 fragments in registers) *
-// B (16 x 128, shared memory) [+ D]; TB: 1 = B is MN-major.
-template <int TB>
+// D (64 x 128 fp32) = A (64 x 16, bf16 fragments in registers; fp16 with
+// F16) * B (16 x 128, shared memory) [+ D]; TB: 1 = B is MN-major.
+template <int TB, bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              const uint32_t (&a)[4],
                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
-        "n"(TB));
+#define HOP_RS_N128(TY)                                                    \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                            \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                            \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                            \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                            \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                          \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                      \
+      : HOP_F32(d), HOP_F32((d + 32))                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),               \
+        "r"(accumulate), "n"(TB))
+  if constexpr (F16)
+    HOP_RS_N128("f16");
+  else
+    HOP_RS_N128("bf16");
+#undef HOP_RS_N128
 }
 
-// D (64 x 64 fp32) = A (64 x 16, bf16 fragments in registers) *
-// B (16 x 64, shared memory) [+ D]; TB: 1 = B is MN-major.
-template <int TB>
+// D (64 x 64 fp32) = A (64 x 16, bf16 fragments in registers; fp16 with
+// F16) * B (16 x 64, shared memory) [+ D]; TB: 1 = B is MN-major.
+template <int TB, bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
-        "n"(TB));
+#define HOP_RS_N64(TY)                                                     \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                          \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                      \
+      : HOP_F32(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),               \
+        "r"(accumulate), "n"(TB))
+  if constexpr (F16)
+    HOP_RS_N64("f16");
+  else
+    HOP_RS_N64("bf16");
+#undef HOP_RS_N64
 }
 
 // The m64nN accumulator of a warpgroup (element i: row 16 warp + g + 8 ((i
@@ -306,6 +329,54 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "@!p bra WAIT;\n}\n" ::"r"(rfa::smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Clusters
+
+// The block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster's barrier, in two halves: every thread of every block of the
+// cluster arrives (releasing its shared-memory writes), then waits
+// (acquiring its peers').
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of this block's shared-memory address `addr` in the shared
+// memory of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t map_peer(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Loads from a cluster shared-memory address (map_peer).
+__device__ __forceinline__ float ld_peer(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_peer4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------

@@ -18,8 +18,9 @@
 //
 //  - a block's piece of a (lane, kv head) group serves all G * Tq rows of
 //    the head's group, so each K/V page is read from device memory once
-//    (past max_rows(D) rows, a piece per row group, whose reads of a page
-//    meet in L2);
+//    (past max_rows(D) rows the row-tile loop, decode_tiles: a cluster of
+//    blocks a piece of a tile of up to 128 rows, its chunks over pages of
+//    fewer than 64 tokens, merged across the cluster);
 //  - the lanes' live chunks (64 tokens, never spanning a page; PagedSrc)
 //    are spread over the grid's blocks of 1 to 3 pipelines by a plan made
 //    on the device from seq_lens (quant_decode.cuh::plan_piece), whole
@@ -60,7 +61,7 @@ struct BoundedLanes : PagedLanes {
 };
 
 template <int RMAX, int D, bool RG>
-__global__ void __launch_bounds__(nthreads<D, RMAX, 2>(), 1)
+__global__ void __launch_bounds__(launch_threads<D, RMAX, 2, RG>(), 1)
 paged_decode_kernel(const void* __restrict__ q, int q_bf16,
                     const unsigned char* __restrict__ k_pages,
                     const unsigned char* __restrict__ v_pages,
@@ -73,8 +74,12 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16,
       PagedLanes{k_pages, v_pages, nullptr, nullptr, block_tables, seq_lens,
                  Hkv, num_pages, page_size, npages},
       new_counts, Tq};
-  decode_lanes<QT_BF16, false, D, RMAX, true, RG>(lanes, B, Hkv, q, q_bf16,
-                                                  R, scale, softcap, dst);
+  if constexpr (RG)
+    decode_tiles<QT_BF16, false, D, true>(lanes, B, Hkv, q, q_bf16, R, scale,
+                                          softcap, dst);
+  else
+    decode_lanes<QT_BF16, false, D, RMAX, true>(lanes, B, Hkv, q, q_bf16, R,
+                                                scale, softcap, dst);
 }
 
 // rfa_paged_decode's launch: run<QT_BF16, RMAX, D, RG>() launches that
@@ -97,9 +102,8 @@ struct Launch {
     static_assert(QT == QT_BF16, "B5 reads bf16 pages");
     auto kern = paged_decode_kernel<RMAX, D, RG>;
     constexpr int EB = value_bytes<QT_BF16>();
-    constexpr int bytes = Smem<D, RMAX, EB>::BYTES;
-    if (!grid_fits<RMAX, RG>(grid, B, Hkv, R) ||
-        (grid > 1 && !merge_fits<D, RMAX, EB>(grid, RG ? RMAX : R)))
+    constexpr int bytes = launch_smem<D, RMAX, EB, RG>();
+    if (!launch_fits<D, RMAX, EB, RG>(grid, B, Hkv, R))
       return cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {
@@ -108,12 +112,12 @@ struct Launch {
       if (e != cudaSuccess) return e;
       attr = true;
     }
-    kern<<<grid, nthreads<D, RMAX, EB>(), bytes, stream>>>(
+    return launch_build<RG>(
+        kern, grid, launch_threads<D, RMAX, EB, RG>(), bytes, stream,
         q, q_bf16, static_cast<const unsigned char*>(k_pages),
         static_cast<const unsigned char*>(v_pages), block_tables, seq_lens,
         new_counts, B, Hkv, Tq, R, num_pages, page_size, npages, scale,
         softcap, dst);
-    return cudaGetLastError();
   }
 };
 

@@ -30,7 +30,7 @@ namespace {
 using namespace rfa_qd;
 
 template <int QT, int RMAX, int D, bool RG>
-__global__ void __launch_bounds__(nthreads<D, RMAX, 1>(), 1)
+__global__ void __launch_bounds__(launch_threads<D, RMAX, 1, RG>(), 1)
 paged_quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                           const unsigned char* __restrict__ k_pages,
                           const unsigned char* __restrict__ v_pages,
@@ -43,8 +43,12 @@ paged_quant_decode_kernel(const void* __restrict__ q, int q_bf16,
   const PagedLanes lanes{k_pages,      v_pages,  k_scales, v_scales,
                          block_tables, seq_lens, Hkv,      num_pages,
                          page_size,    npages};
-  decode_lanes<QT, QT == QT_INT8, D, RMAX, false, RG>(
-      lanes, B, Hkv, q, q_bf16, R, scale, softcap, dst);
+  if constexpr (RG)
+    decode_tiles<QT, QT == QT_INT8, D, false>(lanes, B, Hkv, q, q_bf16, R,
+                                              scale, softcap, dst);
+  else
+    decode_lanes<QT, QT == QT_INT8, D, RMAX, false>(lanes, B, Hkv, q, q_bf16,
+                                                    R, scale, softcap, dst);
 }
 
 // rfa_paged_quant_decode's launch: run<QT, RMAX, D, RG>() launches that
@@ -66,9 +70,8 @@ struct Launch {
   template <int QT, int RMAX, int D, bool RG>
   int run() const {
     auto kern = paged_quant_decode_kernel<QT, RMAX, D, RG>;
-    constexpr int bytes = Smem<D, RMAX, 1>::BYTES;
-    if (!grid_fits<RMAX, RG>(grid, B, Hkv, R) ||
-        (grid > 1 && !merge_fits<D, RMAX, 1>(grid, RG ? RMAX : R)))
+    constexpr int bytes = launch_smem<D, RMAX, 1, RG>();
+    if (!launch_fits<D, RMAX, 1, RG>(grid, B, Hkv, R))
       return cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {
@@ -77,12 +80,12 @@ struct Launch {
       if (e != cudaSuccess) return e;
       attr = true;
     }
-    kern<<<grid, nthreads<D, RMAX, 1>(), bytes, stream>>>(
+    return launch_build<RG>(
+        kern, grid, launch_threads<D, RMAX, 1, RG>(), bytes, stream,
         q, q_bf16, static_cast<const unsigned char*>(k_pages),
         static_cast<const unsigned char*>(v_pages), k_scales, v_scales,
         block_tables, seq_lens, B, Hkv, R, num_pages, page_size, npages,
         scale, softcap, dst);
-    return cudaGetLastError();
   }
 };
 

@@ -55,7 +55,7 @@ struct ContigLanes {
 };
 
 template <int QT, int RMAX, int D, bool RG>
-__global__ void __launch_bounds__(nthreads<D, RMAX, 1>(), 1)
+__global__ void __launch_bounds__(launch_threads<D, RMAX, 1, RG>(), 1)
 quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                     const unsigned char* __restrict__ k_q,
                     const unsigned char* __restrict__ v_q,
@@ -66,8 +66,12 @@ quant_decode_kernel(const void* __restrict__ q, int q_bf16,
                     Dest dst) {
   const int len = min(max(len_ptr ? *len_ptr : len_val, 0), S);
   const ContigLanes lanes{k_q, v_q, k_scale, v_scale, S, Hkv, len};
-  decode_lanes<QT, false, D, RMAX, false, RG>(lanes, B, Hkv, q, q_bf16, R,
-                                              scale, softcap, dst);
+  if constexpr (RG)
+    decode_tiles<QT, false, D, false>(lanes, B, Hkv, q, q_bf16, R, scale,
+                                      softcap, dst);
+  else
+    decode_lanes<QT, false, D, RMAX, false>(lanes, B, Hkv, q, q_bf16, R,
+                                            scale, softcap, dst);
 }
 
 // rfa_quant_decode's launch: run<QT, RMAX, D, RG>() launches that build
@@ -89,9 +93,8 @@ struct Launch {
   template <int QT, int RMAX, int D, bool RG>
   int run() const {
     auto kern = quant_decode_kernel<QT, RMAX, D, RG>;
-    constexpr int bytes = Smem<D, RMAX, 1>::BYTES;
-    if (!grid_fits<RMAX, RG>(grid, B, Hkv, R) ||
-        (grid > 1 && !merge_fits<D, RMAX, 1>(grid, RG ? RMAX : R)))
+    constexpr int bytes = launch_smem<D, RMAX, 1, RG>();
+    if (!launch_fits<D, RMAX, 1, RG>(grid, B, Hkv, R))
       return cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {
@@ -100,11 +103,11 @@ struct Launch {
       if (e != cudaSuccess) return e;
       attr = true;
     }
-    kern<<<grid, nthreads<D, RMAX, 1>(), bytes, stream>>>(
+    return launch_build<RG>(
+        kern, grid, launch_threads<D, RMAX, 1, RG>(), bytes, stream,
         q, q_bf16, static_cast<const unsigned char*>(k_q),
         static_cast<const unsigned char*>(v_q), k_scale, v_scale, len_ptr,
         len_val, S, B, Hkv, R, scale, softcap, dst);
-    return cudaGetLastError();
   }
 };
 
@@ -119,9 +122,11 @@ struct Launch {
 // part_ml (P, rp, 2) fp32 scratch, P = min(grid, TARGET_BLOCKS), and
 // counters (G) int32, zero before the launch and zero
 // after it (not read with grid = 1): with R = (Hq / Hkv) * Tq rows a kv
-// head, G = B * Hkv groups and rp = R when R <= max_rows(D), else G =
-// B * Hkv * ceil(R / max_rows(D)) row groups and rp = max_rows(D); any
-// other rp is refused. softcap <= 0 disables capping. Returns
+// head, G = B * Hkv groups and rp = R when R <= max_rows(D), else (the
+// row-tile loop, whole clusters of TILE_CLUSTER blocks, one a group at
+// least) G = B * Hkv * ceil(R / row_tile(D)) * TILE_CLUSTER counters (a
+// group's one a rank of its clusters) and rp = row_tile(D); any other rp
+// is refused. softcap <= 0 disables capping. Returns
 // cudaGetLastError().
 extern "C" int rfa_quant_decode(const void* q, int q_bf16, const void* k_q,
                                 const void* v_q, const float* k_scale,

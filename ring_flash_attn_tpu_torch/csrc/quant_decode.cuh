@@ -63,11 +63,11 @@
 // machine and are not carried over: any length S >= 1 is taken.
 //
 // Head dims D 64, 128 and 256 (a template constant), and any number of
-// rows: a block serves at most max_rows(D) of a group's R rows (16; 8 at
-// D = 256, where the PV accumulator of 16 rows would take 256 registers a
-// lane); past it (RG) each row group is a group of the plan, the row
-// groups of a (batch, kv head) in consecutive blocks, so that their reads
-// of a chunk meet in L2.
+// rows: the loop above serves up to max_rows(D) of a group's R rows (16; 8
+// at D = 256, where the PV accumulator of 16 rows would take 256 registers
+// a lane); past it (RG) the row-tile loop (decode_tiles, below) serves a
+// tile of up to 128 rows (64 at D = 256) on wgmma, each chunk read once
+// for all of them.
 
 #pragma once
 
@@ -253,9 +253,9 @@ struct Smem {
 // block with a partial is below TARGET_BLOCKS), part_acc[(slot * PS + r)
 // * D + d] and part_ml[(slot * PS + r) * 2 + {0, 1}], merged into (out, lse) by the
 // group's last block, which counters[group] (0 between launches) tells.
-// With row groups (RG) a group is a row group, (batch, kv head) group *
-// ceil(R / RMAX) + row group, and its partials take PS = RMAX rows, the
-// last row group's too.
+// In the row-tile loop (RG) a group is a row tile, (batch, kv head) group *
+// ceil(R / RT) + row tile, and its partials take PS = RT = row_tile(D)
+// rows, the last row tile's too.
 struct Dest {
   float* out;
   float* lse;
@@ -507,7 +507,7 @@ __device__ __forceinline__ int udiv(int a, int b) {
 // the block has none), piece k of the group's s, which lie in blocks
 // blockIdx.x - k .. blockIdx.x - k + s - 1.
 struct Piece {
-  int b, x, j0, n, k, s;
+  int b, x, j0, n, k, s;  // in this order (decode_tiles reads them back)
 };
 
 // piece k of s of group x of lane b, whose n chunks are cut at k n / s (s
@@ -521,21 +521,26 @@ __device__ __forceinline__ Piece piece_of(int b, int x, int n, int k, int s) {
 
 // blockIdx.x's piece, by the 32 lanes of a warp (the lanes 32 at a time,
 // the first 32 lanes' chunks kept in a register: the plan sits in front of
-// a block's first load)
-template <class Lanes>
+// a block's first load). With CS > 1 the plan's units are clusters of CS
+// blocks (the row-tile loop): cluster blockIdx.x / CS's piece, of the
+// gridDim.x / CS clusters, TARGET of them cut, at a load of at least MINC
+// chunks.
+template <int CS = 1, int MINC = MIN_CHUNKS, int TARGET = TARGET_BLOCKS,
+          class Lanes>
 __device__ __forceinline__ Piece plan_piece(const Lanes& lanes, int B,
                                             int GL, int lane) {
   const Piece none{0, 0, 0, 0, 0, 1};
+  const int grid = static_cast<int>(gridDim.x) / CS;
   if constexpr (Lanes::EQUAL) {
     // every lane holds n chunks (B4): each group takes s = ceil(n / L)
     // blocks, L the least from the same lower bound with G s <= U
     const int n = lanes.chunks(0), G = B * GL;
     if (n == 0) return none;
-    const int U = max(G, min(static_cast<int>(gridDim.x), TARGET_BLOCKS));
+    const int U = max(G, min(grid, TARGET));
     const int most = udiv(U, G);  // blocks a group may take
-    const int L = max(max(min(MIN_CHUNKS, n), udiv(G * n + U - 1, U)),
+    const int L = max(max(min(MINC, n), udiv(G * n + U - 1, U)),
                       udiv(n + most - 1, most));
-    const int s = udiv(n + L - 1, L), p = blockIdx.x;
+    const int s = udiv(n + L - 1, L), p = blockIdx.x / CS;
     if (p >= G * s) return none;
     const int g = udiv(p, s), b = udiv(g, GL);
     return piece_of(b, g - b * GL, n, p - g * s, s);
@@ -555,7 +560,7 @@ __device__ __forceinline__ Piece plan_piece(const Lanes& lanes, int B,
   live = __reduce_add_sync(0xffffffff, live) * GL;
   nmax = __reduce_max_sync(0xffffffff, nmax);
   if (live == 0) return none;
-  const int U = max(live, min(static_cast<int>(gridDim.x), TARGET_BLOCKS));
+  const int U = max(live, min(grid, TARGET));
   // the blocks that a load of L chunks a block takes
   auto blocks_at = [&](int L) {
     int v = 0;
@@ -565,7 +570,7 @@ __device__ __forceinline__ Piece plan_piece(const Lanes& lanes, int B,
   // the least L from lo that fits, found in (lo, hi]: hi fits, since a
   // group takes at most n / L + 1 blocks, and so does nmax (a block a
   // live group)
-  int L = max(min(MIN_CHUNKS, nmax), udiv(sum + U - 1, U));
+  int L = max(min(MINC, nmax), udiv(sum + U - 1, U));
   int hi = live < U ? min(nmax, udiv(sum + U - live - 1, U - live)) : nmax;
   if (L < hi && blocks_at(L) > U) {
     while (hi - L > 1) {
@@ -577,7 +582,7 @@ __device__ __forceinline__ Piece plan_piece(const Lanes& lanes, int B,
     }
     L = hi;
   }
-  const int p = blockIdx.x;
+  const int p = blockIdx.x / CS;
   int base = 0;
   for (int c = 0; c < B; c += 32) {
     const int n = chunks_at(c);
@@ -611,13 +616,12 @@ __device__ __forceinline__ Piece plan_piece(const Lanes& lanes, int B,
 //   tokens (1..C); count(j): that `valid` alone; with BOUNDS, pos(j):
 //   chunk j's first position in the lane, and bound(r): row r of the group
 //   sees positions below it only.
-// q rows (b * Hkv + h) * R .. + R of the (rows, D) query; with RG
-// (R > RMAX) a group takes row group rg of them, rows rg * RMAX .. + RMAX.
+// q rows (b * Hkv + h) * R .. + R of the (rows, D) query, R <= RMAX.
 // The block takes its piece (plan_piece): the consumers load its q, their
 // pipelines take its chunks in turn, the warps' states meet, and the piece
 // writes (out, lse) or its partial, the group's last block merging them.
 template <int QT, bool QK_INT8, int D, int RMAX, bool BOUNDS = false,
-          bool RG = false, class Lanes>
+          class Lanes>
 __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
                                              int Hkv,
                                              const void* __restrict__ q,
@@ -637,9 +641,7 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
   constexpr int MT = D / 16;                      // m-tiles of PV
   // bf16 K rows are read in blocks of BK elements, BP pieces of 8 a lane
   constexpr int BK = D < 128 ? D : 128, BP = BK / 32;
-  // a group is a (lane, kv head) pair, or with RG one of its nrg row groups
-  const int nrg = RG ? (R_group + RMAX - 1) / RMAX : 1;
-  const int GL = Hkv * nrg;  // groups a lane
+  const int GL = Hkv;  // groups a lane: a group is a (lane, kv head) pair
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + S::Q);
   signed char* q8 = reinterpret_cast<signed char*>(smem + S::Q8);
@@ -687,7 +689,7 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
     const int n = pipe < NP ? max(0, (pc.n - pipe + NP - 1) / NP) : 0;
     if (n == 0) return;
     const int j0 = pc.j0 + pipe;
-    const auto src = lanes.src(pc.b, RG ? udiv(pc.x, nrg) : pc.x);
+    const auto src = lanes.src(pc.b, pc.x);
     long long tok0_l = 0;  // lane l: where chunk 32 (i / 32) + l lies
     int valid_l = 0;
 #pragma unroll 1
@@ -762,19 +764,16 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
     float* sc = reinterpret_cast<float*>(ps + S::SC);
     int2* info = reinterpret_cast<int2*>(ps + S::INFO);
     float* pw = reinterpret_cast<float*>(ps + S::P) + wl * RMAX * CT;
-    // the piece: n chunks of this pipeline; R rows of its group from row
-    // r0, q and out rows from row0 = (b * Hkv + h) * R_group + r0 (the
-    // chunks' live tokens and positions come with them: info)
+    // the piece: n chunks of this pipeline; the R rows of its group, q
+    // and out rows from row0 = (b * Hkv + h) * R (the chunks' live tokens
+    // and positions come with them: info)
     int n, R;
     {
       const Piece w = *piece_s;
       if (w.n == 0) return;
       n = max(0, (w.n - pipe + NP - 1) / NP);
-      const int h = RG ? udiv(w.x, nrg) : w.x;
-      const int r0 = RG ? (w.x - h * nrg) * RMAX : 0;
-      R = RG ? min(RMAX, R_group - r0) : R_group;
-      const long long row0 =
-          (static_cast<long long>(w.b) * Hkv + h) * R_group + r0;
+      R = R_group;
+      const long long row0 = (static_cast<long long>(w.b) * Hkv + w.x) * R;
       for (int i = t; i < R * D; i += NCONS) {
         const float x =
             q_bf16 ? __bfloat162float(
@@ -783,7 +782,7 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
         qs[i] = x * scale;
       }
       if constexpr (BOUNDS) {
-        if (t < R) bnd_s[t] = lanes.src(w.b, h).bound(r0 + t);
+        if (t < R) bnd_s[t] = lanes.src(w.b, w.x).bound(t);
       }
     }
     hop::bar_sync(CONSUMER_BAR, NCONS);
@@ -1179,15 +1178,13 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
       // partial in slot block (Dest), the group's in slots first / PS ..
       bool whole;
       long long gd, row0, first, part0;
-      int np, PS = RG ? RMAX : R_group;  // the group's pieces, rows a partial
+      int np, PS = R_group;  // the group's pieces, rows a partial
       {
         const Piece w = *piece_s;
         np = w.s;
         whole = np == 1;
         gd = static_cast<long long>(w.b) * GL + w.x;
-        const int h = RG ? udiv(w.x, nrg) : w.x;
-        row0 = (static_cast<long long>(w.b) * Hkv + h) * R_group +
-               (RG ? (w.x - h * nrg) * RMAX : 0);
+        row0 = (static_cast<long long>(w.b) * Hkv + w.x) * R_group;
         part0 = static_cast<long long>(blockIdx.x) * PS;
         first = part0 - static_cast<long long>(w.k) * PS;
       }
@@ -1245,24 +1242,6 @@ __device__ __forceinline__ void decode_lanes(const Lanes& lanes, int B,
                                  reinterpret_cast<float*>(smem + S::P));
     }
   }
-}
-
-// The most pieces a group may have at R rows: the merge keeps one m per
-// (piece, row) in pipeline 0's stages. A group has at most as many pieces
-// as the launch has blocks, and no more than TARGET_BLOCKS (plan_piece).
-template <int D, int RMAX, int EB>
-__host__ __device__ constexpr bool merge_fits(int blocks, int R) {
-  return (long long)(blocks < TARGET_BLOCKS ? blocks : TARGET_BLOCKS) * R *
-             4 <=
-         Smem<D, RMAX, EB>::KV_BYTES;
-}
-
-// A launch's grid gives every group a block (plan_piece): B * Hkv groups,
-// times the row groups with RG.
-template <int RMAX, bool RG>
-__host__ __device__ constexpr bool grid_fits(int grid, int B, int Hkv,
-                                             int R) {
-  return grid >= (long long)B * Hkv * (RG ? (R + RMAX - 1) / RMAX : 1);
 }
 
 // Kv head h of a lane in a paged cache (B5, B6): its `len` tokens through
@@ -1331,17 +1310,992 @@ struct PagedLanes {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The row-tile loop (RG): past max_rows(D) rows a kv head.
+
+// A group of the plan is a (lane, kv head, row tile): a tile of RT =
+// row_tile(D) of the head's R rows, so that a block reads each chunk once
+// for all of them and a (lane, kv head) of up to RT rows is one group; the
+// rows are the M of wgmma, those of a prefill tile (FlashInfer's GQA
+// decode, arXiv 2501.01005). The blocks come in clusters of CS =
+// TILE_CLUSTER, the plan's unit (plan_piece<CS>): a cluster takes a piece
+// of a group and deals its chunks out to its blocks, the first ones a
+// chunk more. A block is NC consumer warpgroups of 64 rows each (two, RT = 128,
+// up to D = 128; one at 256, where O alone takes 128 fp32 a thread) and a
+// producer warpgroup:
+//  - its warp 0 copies a chunk's K and V rows into a ring of NRS raw
+//    stages, a bulk copy a page for each (a chunk is 64 positions of the
+//    lane, over C / page_size whole pages where smaller pages divide C:
+//    TileLanes), and its lanes the 2 x 64 scales;
+//  - its four warps turn a raw stage into a tile stage: K and V as 64
+//    token rows in 128B-swizzled panels (hopper.cuh), fp16 for the 1-byte
+//    caches (exact), B5's bf16 as it is, and with QK_INT8 K's int8 bytes as
+//    they are (K-major, as an s8 wgmma takes them); rows past the chunk's
+//    live tokens are zero, since 0 x a stale NaN is NaN;
+//  - consumer warpgroup wg owns tile rows 64 wg .. + 63: S = Q K^T (M = 64
+//    rows, N = 64 tokens, K = D; q in two 16-bit halves, two A tiles, or
+//    with QK_INT8 as int8, s8 x s8 -> s32), k_scale on S's columns, the
+//    online softmax of each row over its quad, v_scale into P, then O += P
+//    V (P's two 16-bit halves from registers, V MN-major, N = D). A row is
+//    one quad's, so the warpgroups never meet in the loop. A tile of up to
+//    64 rows with two warpgroups (split) gives both the same rows and q
+//    tiles and the chunks in turn; their states meet once, at the end;
+//  - the merge is spread over the cluster (tile_merge): each block leaves
+//    its rows' state in its shared memory, and after the cluster's barrier
+//    block r of the cluster merges rows r * ceil(R / CS) .. of the CS
+//    states, read from its peers' shared memory; a cluster that holds its
+//    whole group writes those rows' (out, lse), otherwise their partial,
+//    and the last block of the group's clusters to bring its rows (a
+//    counter per group and rank) merges them, so the partials a block
+//    reads are 1 / CS of a tile's rows. Merges run in a fixed order: the
+//    result is bitwise reproducible.
+// What rules it on the H100 at the engine's shapes is latency, not bytes
+// (PERF.md): a block's dependent round trips to memory (the plan, q, the
+// first chunk, the merge's), each ~1 us while the card streams the cache,
+// and a merge that one SM would read alone.
+
+template <int D>
+__host__ __device__ constexpr int tile_wgs() {
+  return D > 128 ? 1 : 2;
+}
+
+// the rows of a row tile at head dim D
+__host__ __device__ constexpr int row_tile(int D) { return D > 128 ? 64 : 128; }
+
+// blocks a cluster of the row-tile loop, the clusters its plan cuts a
+// group over (the H100 SXM holds 30 clusters of 4 such blocks at once:
+// cudaOccupancyMaxActiveClusters) and the fewest chunks worth a block of
+// it beyond one a cluster (ops/quant_decode_cuda.py::TILE_CLUSTER,
+// TILE_CLUSTERS, TILE_MIN_CHUNKS)
+constexpr int TILE_CLUSTER = 4;
+constexpr int TILE_CLUSTERS = 30;
+constexpr int TILE_MIN_CHUNKS = 2;
+
+// The row-tile loop's shared memory, offsets from a 1024-aligned base. A
+// raw stage is what the copies bring (2 x 64 rows of D values); a tile
+// stage its K and V panels (16-bit; an int8 K in the same room) and
+// scales. NTS = 2 tile stages and NRS = 3 raw stages up to 16 KB of K+V
+// raw, 2 at 32 KB; at D = 256 one tile stage and (bf16) one raw stage, in
+// 227 KB beside the q tiles. After the loop the tile and raw stages hold
+// the block's state for the cluster's merge: RT rows of DP floats (O) at
+// KV, (m, l) at ML.
+template <int D, int EB>
+struct TileSmem {
+  static constexpr int NC = tile_wgs<D>();
+  static constexpr int RT = 64 * NC;
+  static constexpr int PANEL = C * 128;     // 64 rows of 128 B
+  static constexpr int TILE = C * D * 2;    // a K or V tile
+  static constexpr int RAW = C * D * EB;    // a raw K or V chunk
+  static constexpr int QT = 64 * D * 2;     // a warpgroup's q half
+  static constexpr int NTS = D > 128 ? 1 : 2;
+  static constexpr int NRS = D * EB <= 128 ? 3 : D * EB == 256 ? 2 : 1;
+  static constexpr int DP = D + 4;          // a state row's floats
+  static constexpr int Q = 0;                          // [NC][2][QT]
+  static constexpr int KV = Q + NC * 2 * QT;           // [NTS][2][TILE]
+  static constexpr int RAWS = KV + NTS * 2 * TILE;     // [NRS][2][RAW]
+  static constexpr int RSC = RAWS + NRS * 2 * RAW;     // f32 [NRS][2][C]
+  static constexpr int TSC = RSC + NRS * 2 * C * 4;    // f32 [NTS][2][C]
+  static constexpr int TINFO = TSC + NTS * 2 * C * 4;  // s32x4 [NTS]
+  static constexpr int RINFO = TINFO + NTS * 16;       // s32x2 [NRS]
+  // u64 raw full [NRS], tile full, tile empty [NTS]
+  static constexpr int BAR = RINFO + NRS * 8;
+  static constexpr int QSC = BAR + 8 * (NRS + 2 * NTS);  // f32 [RT]
+  static constexpr int ML = QSC + RT * 4;             // f32 [2][RT]
+  static constexpr int PIECE = ML + 2 * RT * 4;       // Piece, last flag
+  static constexpr int BYTES = PIECE + 32 + 1024;     // + the alignment
+  static_assert(BYTES <= 227 * 1024, "one block an SM");
+  static_assert(RT * DP * 4 <= RSC - KV, "the state fits the stages");
+};
+
+// tanh(x) to a few fp32 ulps, inline (tanhf is a call, whose spills and
+// cold code cost more than the chunk's products): an odd polynomial (its
+// Taylor series to x^15) below TANH_SMALL (tanh_small), 1 - 2 / (e^(2|x|)
+// + 1) above
+constexpr float TANH_SMALL = 0.55f;
+__device__ __forceinline__ float tanh_small(float x) {
+  const float y = x * x;
+  float p = -1.4558344e-3f;
+  p = fmaf(p, y, 3.5921280e-3f);
+  p = fmaf(p, y, -8.8632355e-3f);
+  p = fmaf(p, y, 2.1869488e-2f);
+  p = fmaf(p, y, -5.3968254e-2f);
+  p = fmaf(p, y, 1.3333333e-1f);
+  p = fmaf(p, y, -3.3333334e-1f);
+  return fmaf(x * y, p, x);
+}
+__device__ __forceinline__ float tanh_acc(float x) {
+  const float a = fabsf(x);
+  const float big = copysignf(fmaf(-2.f, __frcp_rn(expf(2.f * a) + 1.f), 1.f), x);
+  return a < TANH_SMALL ? tanh_small(x) : big;
+}
+
+// split_pair's two halves of (a, b) at once, by packed conversions
+template <bool BF>
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  if constexpr (BF) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 f = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(a - f.x, b - f.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  } else {
+    const __half2 h = __floats2half2_rn(a, b);
+    const float2 f = __half22float2(h);
+    const __half2 l = __floats2half2_rn(a - f.x, b - f.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  }
+}
+
+// Byte column bc (a multiple of 16 for a whole chunk) of row r of a tile of
+// 128B-swizzled panels: 128 bytes of a row a panel, 16-byte chunk c of row
+// r at chunk c ^ (r % 8)
+__device__ __forceinline__ unsigned char* tile_at(unsigned char* tile, int r,
+                                                  int bc) {
+  return tile + (bc >> 7) * (C * 128) + r * 128 +
+         ((((bc >> 4) & 7) ^ (r & 7)) << 4) + (bc & 15);
+}
+
+// A raw chunk (C rows of D values, value_bytes<QT>() each, rows from
+// `valid` on stale) as a tile: 16-bit panels (the 1-byte values converted
+// to fp16, exactly; bf16 as it is), or with S8 the int8 bytes as they are;
+// rows from `valid` on zero. NCVT threads, 16 raw bytes a step.
+template <int QT, bool S8, int D, int NCVT>
+__device__ __forceinline__ void to_tile(const unsigned char* raw,
+                                        unsigned char* tile, int valid,
+                                        int ct) {
+  constexpr int EB = value_bytes<QT>();
+  constexpr int UPR = D * EB / 16;  // 16-byte units a row
+#pragma unroll 4
+  for (int u = ct; u < C * UPR; u += NCVT) {
+    const int r = u / UPR, cu = u % UPR;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid)
+      w = *reinterpret_cast<const uint4*>(raw + r * D * EB + 16 * cu);
+    if constexpr (S8 || EB == 2) {
+      *reinterpret_cast<uint4*>(tile_at(tile, r, 16 * cu)) = w;
+    } else {
+      *reinterpret_cast<uint4*>(tile_at(tile, r, 32 * cu)) =
+          make_uint4(half2_of<QT>(w.x, 0), half2_of<QT>(w.x, 1),
+                     half2_of<QT>(w.y, 0), half2_of<QT>(w.y, 1));
+      *reinterpret_cast<uint4*>(tile_at(tile, r, 32 * cu + 16)) =
+          make_uint4(half2_of<QT>(w.z, 0), half2_of<QT>(w.z, 1),
+                     half2_of<QT>(w.w, 0), half2_of<QT>(w.w, 1));
+    }
+  }
+}
+
+// Pages a chunk of the row-tile loop: a paged cache whose pages hold fewer
+// than C tokens and divide C (at least 2 tokens, so that a warp's lanes
+// look a chunk's pages up at once) gives C / page_size; every other cache
+// 1, its chunks those of the loop above.
+__host__ __device__ constexpr int chunk_pages(int page_size) {
+  return page_size >= 2 && page_size < C && C % page_size == 0
+             ? C / page_size
+             : 1;
+}
+template <class Lanes>
+__device__ __forceinline__ int pages_a_chunk(const Lanes& lanes) {
+  if constexpr (std::is_base_of_v<PagedLanes, Lanes>)
+    return chunk_pages(lanes.page_size);
+  else
+    return 1;
+}
+
+// The lanes as the row-tile loop's plan counts them: with ppc > 1, lane b's
+// ceil(len / C) chunks of C positions (ops/quant_decode_cuda.py::
+// tile_chunks).
+template <class Lanes>
+struct TileLanes {
+  static constexpr bool EQUAL = Lanes::EQUAL;
+  const Lanes& lanes;
+  int ppc;
+
+  __device__ __forceinline__ int chunks(int b) const {
+    if constexpr (std::is_base_of_v<PagedLanes, Lanes>)
+      if (ppc > 1) return (lanes.len(b) + C - 1) / C;
+    return lanes.chunks(b);
+  }
+};
+
+// Page seg of the row-tile loop's chunk j of a source (ppc pages a chunk;
+// with ppc = 1 seg 0 is the source's own chunk j): its first token index
+// in the k/v arrays and its live tokens (cnt = 0: none, and no read of
+// the table).
+template <class Src>
+__device__ __forceinline__ void tile_locate(const Src& src, int j, int seg,
+                                            int ppc, long long& tok0,
+                                            int& cnt) {
+  if constexpr (std::is_base_of_v<PagedSrc, Src>) {
+    if (ppc > 1) {
+      const int pg = j * ppc + seg;
+      cnt = min(max(src.len - pg * src.page_size, 0), src.page_size);
+      if (cnt > 0) {
+        // out-of-range ids are clamped, as the plain version's gather does
+        const int page = min(max(src.table[pg], 0), src.num_pages - 1);
+        tok0 = ((long long)page * src.Hkv + src.h) * src.page_size;
+      }
+      return;
+    }
+  }
+  cnt = 0;
+  if (seg == 0) src.locate(j, tok0, cnt);
+}
+
+// chunk j's first position in the lane (BOUNDS)
+template <class Src>
+__device__ __forceinline__ int tile_pos(const Src& src, int j, int ppc) {
+  return ppc > 1 ? j * C : src.pos(j);
+}
+
+// Merge rows r .. r + nr - 1 of np partials, RT rows a slot from slot row
+// `first` on, into (out, lse) rows row0 + r ..: a thread an item (row, 4
+// columns), the partials in order, UNR of them loaded at once and weighed
+// against the running maximum (a fixed order: bitwise reproducible).
+template <int D, int RT>
+__device__ __forceinline__ void merge_rows(const Dest& dst, long long first,
+                                           long long row0, int np, int nr,
+                                           int t, int nt) {
+  constexpr int C4 = D / 4, UNR = 8;
+  for (int x = t; x < nr * C4; x += nt) {
+    const int r = x / C4, c4 = x - r * C4;
+    float M = -INFINITY, L = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i0 = 0; i0 < np; i0 += UNR) {
+      float2 ml[UNR];
+      float4 a[UNR];
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        ml[u] = make_float2(-INFINITY, 0.f);
+        a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i0 + u < np) {
+          const long long row = first + (long long)(i0 + u) * RT + r;
+          ml[u] = __ldcg(reinterpret_cast<const float2*>(dst.part_ml) + row);
+          a[u] = __ldcg(reinterpret_cast<const float4*>(dst.part_acc +
+                                                        row * D) + c4);
+        }
+      }
+      float Mb = M;
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) Mb = fmaxf(Mb, ml[u].x);
+      // a partial, or a row, with no live token weighs nothing
+      const float Mu = Mb == -INFINITY ? 0.f : Mb;
+      const float f = M > -INFINITY ? __expf(M - Mu) : 0.f;
+      acc = make_float4(acc.x * f, acc.y * f, acc.z * f, acc.w * f);
+      L *= f;
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const float w = ml[u].x > -INFINITY ? __expf(ml[u].x - Mu) : 0.f;
+        L += ml[u].y * w;
+        acc.x += a[u].x * w;
+        acc.y += a[u].y * w;
+        acc.z += a[u].z * w;
+        acc.w += a[u].w * w;
+      }
+      M = Mb;
+    }
+    const float il = L > 0.f ? 1.f / L : 0.f;
+    const long long row = row0 + r;
+    reinterpret_cast<float4*>(dst.out + row * D)[c4] =
+        make_float4(acc.x * il, acc.y * il, acc.z * il, acc.w * il);
+    if (c4 == 0) dst.lse[row] = L > 0.f ? M + logf(L) : RFA_NEG_INF;
+  }
+}
+
+// The cluster's merge of a tile's R rows, by all NT threads of every block
+// of the cluster, each block's state (O * U at st, RT rows of DP floats;
+// m, l at ml) in its shared memory: block `rank` takes rows rank * RS ..
+// (RS = ceil(R / CS)) of the CS states, in rank order, read from its
+// peers' shared memory, then writes them as (out, lse) rows row0 + r with
+// `whole`, else as its cluster's partial in slot `slot` (RT rows a slot),
+// and the last block of the group's np clusters to bring its rows (counter
+// `cnt`) merges theirs, in cluster order, from slot `first` on.
+template <int D, int RT, int NT>
+__device__ __forceinline__ void tile_merge(const Dest& dst, float* st,
+                                           float* ml, int* last_s, int R,
+                                           long long row0, bool whole,
+                                           long long slot, long long first,
+                                           int np, long long cnt) {
+  constexpr int CS = TILE_CLUSTER, C4 = D / 4, DP = D + 4;
+  const int t = threadIdx.x, rank = static_cast<int>(hop::cluster_rank());
+  const int RS = (R + CS - 1) / CS, r0 = rank * RS;
+  const int nr = max(min(RS, R - r0), 0);
+  hop::cluster_arrive();  // the states are in place
+  hop::cluster_wait();
+  uint32_t pst[CS], pml[CS];
+#pragma unroll
+  for (int p = 0; p < CS; ++p) {
+    pst[p] = hop::map_peer(rfa::smem_u32(st), p);
+    pml[p] = hop::map_peer(rfa::smem_u32(ml), p);
+  }
+  for (int x = t; x < nr * C4; x += NT) {
+    const int r = r0 + x / C4, c4 = x % C4;
+    float m[CS], l[CS];
+    float4 o[CS];
+#pragma unroll
+    for (int p = 0; p < CS; ++p) {
+      m[p] = hop::ld_peer(pml[p] + 4 * r);
+      l[p] = hop::ld_peer(pml[p] + 4 * (RT + r));
+      o[p] = hop::ld_peer4(pst[p] + 4 * (r * DP + 4 * c4));
+    }
+    float M = -INFINITY;
+#pragma unroll
+    for (int p = 0; p < CS; ++p) M = fmaxf(M, m[p]);
+    const float Mu = M == -INFINITY ? 0.f : M;
+    float L = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int p = 0; p < CS; ++p) {
+      // a block with no live token of the row weighs nothing
+      const float w = m[p] > -INFINITY ? __expf(m[p] - Mu) : 0.f;
+      L += l[p] * w;
+      acc.x += o[p].x * w;
+      acc.y += o[p].y * w;
+      acc.z += o[p].z * w;
+      acc.w += o[p].w * w;
+    }
+    if (whole) {
+      const float il = L > 0.f ? 1.f / L : 0.f;
+      reinterpret_cast<float4*>(dst.out + (row0 + r) * D)[c4] =
+          make_float4(acc.x * il, acc.y * il, acc.z * il, acc.w * il);
+      if (c4 == 0) dst.lse[row0 + r] = L > 0.f ? M + logf(L) : RFA_NEG_INF;
+    } else {
+      const long long row = slot * RT + r;
+      reinterpret_cast<float4*>(dst.part_acc + row * D)[c4] = acc;
+      if (c4 == 0)
+        reinterpret_cast<float2*>(dst.part_ml)[row] = make_float2(M, L);
+    }
+  }
+  hop::cluster_arrive();  // the peers' states are read
+  if (!whole) {
+    // one thread releases the block's rows (the barrier orders the others'
+    // stores before its fence) and, in the last block, acquires the
+    // others' before the barrier after which the merge loads them
+    __syncthreads();
+    if (t == 0) {
+      fence_acq_rel_gpu();
+      *last_s = atomicAdd(dst.counters + cnt, 1) == np - 1;
+      fence_acq_rel_gpu();
+    }
+    __syncthreads();
+    if (*last_s) {
+      merge_rows<D, RT>(dst, first * RT + r0, row0 + r0, np, nr, t, NT);
+      if (t == 0) dst.counters[cnt] = 0;  // no other cluster is left
+    }
+  }
+  hop::cluster_wait();  // no block leaves while a peer reads its state
+}
+
+// The launch's share of block blockIdx.x in the row-tile loop: Lanes and
+// the arguments as decode_lanes takes them, R_group > max_rows(D); the
+// grid in clusters of TILE_CLUSTER blocks.
+template <int QT, bool QK_INT8, int D, bool BOUNDS, class Lanes>
+__device__ __forceinline__ void decode_tiles(const Lanes& lanes, int B,
+                                             int Hkv,
+                                             const void* __restrict__ q,
+                                             int q_bf16, int R_group,
+                                             float scale, float softcap,
+                                             const Dest& dst) {
+  constexpr int EB = value_bytes<QT>();
+  constexpr bool SCALES = QT != QT_BF16;
+  constexpr bool BF = QT == QT_BF16;
+  constexpr bool F16 = !BF;  // the 16-bit products' type
+  constexpr int CS = TILE_CLUSTER;
+  using S = TileSmem<D, EB>;
+  constexpr int NC = S::NC, RT = S::RT, NRS = S::NRS, NTS = S::NTS;
+  constexpr int PANEL = S::PANEL, RB = D * EB, DP = S::DP;
+  constexpr int NCONS = 128 * NC, NCVT = 128;  // consumer, producer threads
+  constexpr int PRODUCER_BAR = 4;  // named barrier of the producers
+  const int nrt = (R_group + RT - 1) / RT;    // row tiles a kv head
+  const int GL = Hkv * nrt;                   // groups a lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (rfa::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* tile_full = raw_full + NRS;
+  uint64_t* tile_empty = tile_full + NTS;
+  float* rsc = reinterpret_cast<float*>(smem + S::RSC);
+  float* tsc = reinterpret_cast<float*>(smem + S::TSC);
+  int2* rinfo = reinterpret_cast<int2*>(smem + S::RINFO);
+  int4* tinfo = reinterpret_cast<int4*>(smem + S::TINFO);
+  Piece* piece_s = reinterpret_cast<Piece*>(smem + S::PIECE);
+  int* last_s = reinterpret_cast<int*>(smem + S::PIECE + sizeof(Piece));
+  static_assert(sizeof(Piece) + 4 <= 32, "the piece must fit");
+
+  // warps 0 .. 4 NC - 1 consume; then the producer warpgroup: its warp 0
+  // copies, all four convert
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int ppc = pages_a_chunk(lanes);
+  if (warp == 1) {
+    const Piece pc = plan_piece<CS, CS * TILE_MIN_CHUNKS, TILE_CLUSTERS>(
+        TileLanes<Lanes>{lanes, ppc}, B, GL, lane);
+    if (lane == 0) *piece_s = pc;
+  }
+  if (t == 0) {
+    for (int s = 0; s < NRS; ++s)
+      hop::mbar_init(&raw_full[s], 1 + (SCALES ? 32 : 0));
+    for (int s = 0; s < NTS; ++s) {
+      hop::mbar_init(&tile_full[s], NCVT);
+      hop::mbar_init(&tile_empty[s], NCONS);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  // the cluster's piece, and the block's share of its chunks (the first
+  // n % CS blocks of the cluster one more)
+  const Piece pc = *piece_s;
+  const int rank = static_cast<int>(hop::cluster_rank());
+  const int nq = pc.n / CS, nrem = pc.n - nq * CS;
+  const int j0 = pc.j0 + rank * nq + min(rank, nrem);
+  const int n = nq + (rank < nrem);
+  const int h = udiv(pc.x, nrt), r0 = (pc.x - h * nrt) * RT;
+
+  // consumers: a lane with no live token gives out = 0, lse = NEG_INF on
+  // all its rows, the lanes dealt out over the grid (after q's loads, in a
+  // block with chunks)
+  auto dead_lanes = [&]() {
+    for (int b = blockIdx.x; b < B; b += gridDim.x)
+      if (lanes.chunks(b) == 0) {
+        const long long rows = static_cast<long long>(Hkv) * R_group;
+        float4* out4 = reinterpret_cast<float4*>(dst.out + b * rows * D);
+        for (long long i = t; i < rows * D / 4; i += NCONS)
+          out4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (long long i = t; i < rows; i += NCONS)
+          dst.lse[b * rows + i] = RFA_NEG_INF;
+      }
+  };
+  if (pc.n == 0) {  // the cluster has no piece: none of its blocks has
+    if (t < NCONS) dead_lanes();
+    return;
+  }
+  const int R = min(RT, R_group - r0);
+  const long long row0 = (static_cast<long long>(pc.b) * Hkv + h) * R_group +
+                         r0;
+
+  if (t >= NCONS) {  // the producer warpgroup
+    // warp 0 copies chunk i into raw stage i % NRS (its lanes look up the
+    // pages of 32 / ppc chunks at once, lane l holding page l % ppc of
+    // chunk 32 (i / per) + l / ppc; lane l of the chunk's ppc copies its
+    // page); the warpgroup converts chunk i, then, the raw stage read by
+    // all (PRODUCER_BAR), warp 0 copies chunk i + NRS into it
+    const int pt = t - NCONS, pw = pt / 32;
+    const auto src = lanes.src(pc.b, h);
+    const int per = 32 / ppc;  // chunks a look-up
+    long long tok0_l = 0;
+    int cnt_l = 0;
+    auto copy = [&](int i) {
+      const int st = i % NRS, ci = i % per, lo = ci * ppc;
+      if (ci == 0) {
+        cnt_l = 0;
+        if (i + lane / ppc < n)
+          tile_locate(src, j0 + i + lane / ppc, lane % ppc, ppc, tok0_l,
+                      cnt_l);
+      }
+      int valid = 0;
+      for (int g = 0; g < ppc; ++g)
+        valid += __shfl_sync(0xffffffff, cnt_l, lo + g);
+      unsigned char* kr = smem + S::RAWS + st * 2 * S::RAW;
+      if (lane == 0) {
+        int pos = 0;
+        if constexpr (BOUNDS) pos = tile_pos(src, j0 + i, ppc);
+        rinfo[st] = make_int2(valid, pos);
+        hop::mbar_arrive_tx(&raw_full[st], 2 * valid * RB);
+      }
+      __syncwarp();
+      const int seg = lane - lo;
+      if (seg >= 0 && seg < ppc && cnt_l > 0) {
+        const int at = seg * (ppc > 1 ? C / ppc : 0) * RB;
+        hop::bulk_load(kr + at, src.k + tok0_l * RB, cnt_l * RB,
+                       &raw_full[st]);
+        hop::bulk_load(kr + S::RAW + at, src.v + tok0_l * RB, cnt_l * RB,
+                       &raw_full[st]);
+      }
+      if constexpr (SCALES) {
+#pragma unroll
+        for (int c = lane; c < C; c += 32) {
+          // token c lies in page c / (C / ppc) of the chunk
+          const int cp = ppc > 1 ? c / (C / ppc) : 0;
+          const long long tk =
+              __shfl_sync(0xffffffff, tok0_l, lo + cp) + c - cp * (C / ppc);
+          const bool ok = c < valid;
+          const long long a = ok ? tk : 0;
+          rfa::cp_async4(rsc + st * 2 * C + c, src.ks + a, ok ? 4 : 0);
+          rfa::cp_async4(rsc + (st * 2 + 1) * C + c, src.vs + a, ok ? 4 : 0);
+        }
+        hop::cp_async_mbar_arrive(&raw_full[st]);
+      }
+    };
+    if (pw == 0)
+      for (int i = 0; i < min(n, NRS); ++i) copy(i);
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      const int rs = i % NRS, ts = i % NTS;
+      hop::mbar_wait(&raw_full[rs], (i / NRS) & 1);
+      if (i >= NTS) hop::mbar_wait(&tile_empty[ts], ((i / NTS) + 1) & 1);
+      const int2 inf = rinfo[rs];
+      const unsigned char* kr = smem + S::RAWS + rs * 2 * S::RAW;
+      unsigned char* kt = smem + S::KV + ts * 2 * S::TILE;
+      to_tile<QT, QK_INT8, D, NCVT>(kr, kt, inf.x, pt);
+      to_tile<QT, false, D, NCVT>(kr + S::RAW, kt + S::TILE, inf.x, pt);
+      // the scales, and the chunk's v_scale maximum for the consumers
+      float smax = 0.f;
+      if constexpr (SCALES) {
+        tsc[ts * 2 * C + pt] = rsc[rs * 2 * C + pt];
+        if (pw == 1)
+          smax = warp_max(fmaxf(rsc[(rs * 2 + 1) * C + lane],
+                                rsc[(rs * 2 + 1) * C + 32 + lane]),
+                          1);
+      }
+      if (pt == 32)
+        tinfo[ts] = make_int4(inf.x, inf.y, __float_as_int(smax), 0);
+      hop::fence_proxy_async();  // the tiles, for wgmma
+      hop::mbar_arrive(&tile_full[ts]);
+      hop::bar_sync(PRODUCER_BAR, NCVT);  // raw stage rs is read
+      if (pw == 0 && i + NRS < n) copy(i + NRS);
+    }
+    if constexpr (SCALES) rfa::cp_async_wait_all();  // none outlives us
+  } else {
+    // warpgroup wg owns tile rows 64 wg .. + 63; lane 4 g + tq of its warp
+    // w4 holds rows 16 w4 + g and + 8 of S, P and O (hopper.cuh). A tile
+    // of up to 64 rows with two warpgroups (split) gives both the same
+    // rows and the chunks in turn, and their states meet at the end
+    const int wg = t / 128, w4 = warp % 4, g = lane >> 2, tq = lane & 3;
+    const bool split = NC == 2 && R <= 64;
+    const int rw0 = split ? 0 : 64 * wg;
+    bool rlive[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      rlive[rr] = rw0 + 16 * w4 + g + 8 * rr < R;
+    // O element 4 j + 2 rr + e: row 16 w4 + g + 8 rr, column 8 j + 2 tq
+    // + e; O * U is the rows' unnormalised output (1-byte caches: p
+    // carries v_scale / U)
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, U = 1.f;
+    if (n == 0) {
+      dead_lanes();
+    } else {
+      // the warpgroup's q tiles, hi (or int8) and lo; with split both read
+      // warpgroup 0's, each building half its rows
+      unsigned char* qa = smem + S::Q + (split ? 0 : wg) * 2 * S::QT;
+      float* qsc_s = reinterpret_cast<float*>(smem + S::QSC);
+      // q * scale into the A tiles, a warp a row (rows qr0 + w4 + 4 k,
+      // columns 64 e + 2 lane, + 1), QB rows' loads in flight at once:
+      // two fp16 halves after a power-of-two prescale (max|q| * 2^e in
+      // [2^14, 2^15), so that the lo half stays normal), bf16 halves for
+      // B5, or with QK_INT8 int8 at max|q| / 127 (floor 1e-20, round half
+      // to even); the row's scale in sc_s
+      float* sc_s = qsc_s + (split ? 0 : 64 * wg);
+      constexpr int QB = 1024 / D < 16 ? 1024 / D : 16;  // rows at once
+      const int qr0 = split ? 32 * wg : 0, nk = split ? 8 : 16;
+#pragma unroll 1
+      for (int k0 = 0; k0 < nk; k0 += QB) {
+        float2 x[QB][D / 64];
+#pragma unroll
+        for (int u = 0; u < QB; ++u) {
+          const int r = rw0 + qr0 + w4 + 4 * (k0 + u);
+#pragma unroll
+          for (int e = 0; e < D / 64; ++e) {
+            float2 v = make_float2(0.f, 0.f);
+            if (r < R && k0 + u < nk) {
+              const long long at = (row0 + r) * D + 64 * e + 2 * lane;
+              v = q_bf16 ? __bfloat1622float2(
+                               *reinterpret_cast<const __nv_bfloat162*>(
+                                   static_cast<const __nv_bfloat16*>(q) + at))
+                         : *reinterpret_cast<const float2*>(
+                               static_cast<const float*>(q) + at);
+            }
+            x[u][e] = make_float2(v.x * scale, v.y * scale);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < QB; ++u) {
+          if (k0 + u >= nk) break;
+          const int rr = qr0 + w4 + 4 * (k0 + u);
+          float amax = 0.f;
+#pragma unroll
+          for (int e = 0; e < D / 64; ++e)
+            amax = fmaxf(amax, fmaxf(fabsf(x[u][e].x), fabsf(x[u][e].y)));
+          amax = warp_max(amax, 1);
+          float rs, pre;
+          if constexpr (QK_INT8) {
+            rs = fmaxf(amax / 127.f, 1e-20f);
+            pre = 0.f;  // q / rs below, as the plain version divides
+          } else {
+            // amax = m 2^ex, m in [0.5, 1): pre = 2^(15 - ex), rs = 1 /
+            // pre, both exact (ldexpf where the bits would leave the
+            // normal range)
+            const int be = (__float_as_int(amax) >> 23) & 0xff;
+            const int ex = be - 126;
+            if (BF || amax == 0.f) {
+              rs = pre = 1.f;
+            } else if (be > 15 && be < 255) {
+              pre = __int_as_float((142 - ex) << 23);
+              rs = __int_as_float((ex + 112) << 23);
+            } else {
+              int e2 = 0;
+              frexpf(amax, &e2);
+              pre = ldexpf(1.f, 15 - e2);
+              rs = 1.f / pre;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < D / 64; ++e) {
+            const int c = 64 * e + 2 * lane;
+            if constexpr (QK_INT8) {
+              const float a =
+                  fminf(fmaxf(rintf(x[u][e].x / rs), -127.f), 127.f);
+              const float b =
+                  fminf(fmaxf(rintf(x[u][e].y / rs), -127.f), 127.f);
+              *reinterpret_cast<uint16_t*>(tile_at(qa, rr, c)) =
+                  static_cast<uint16_t>(
+                      static_cast<uint8_t>(static_cast<int>(a)) |
+                      (static_cast<uint8_t>(static_cast<int>(b)) << 8));
+            } else {
+              split2<BF>(x[u][e].x * pre, x[u][e].y * pre,
+                         *reinterpret_cast<uint32_t*>(tile_at(qa, rr, 2 * c)),
+                         *reinterpret_cast<uint32_t*>(
+                             tile_at(qa + S::QT, rr, 2 * c)));
+            }
+          }
+          if (lane == 0) sc_s[rr] = rs;
+        }
+      }
+      hop::fence_proxy_async();  // the q tiles, for wgmma
+      dead_lanes();
+      // the lane's rows' bounds (BOUNDS; their q scales stay in sc_s, read
+      // in the loop: at D = 256 a register spilled)
+      int bnd[2] = {0, 0};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        if constexpr (BOUNDS)
+          if (rlive[rr])
+            bnd[rr] = lanes.src(pc.b, h).bound(r0 + rw0 + 16 * w4 + g +
+                                               8 * rr);
+      if (split)
+        hop::bar_sync(CONSUMER_BAR, NCONS);
+      else
+        hop::bar_sync(2 + wg, 128);
+      const bool live_wg = rw0 < R;  // the warpgroup has a row of the tile
+
+#pragma unroll 1
+      for (int i = 0; i < n; ++i) {
+        const int ts = i % NTS;
+        hop::mbar_wait(&tile_full[ts], (i / NTS) & 1);
+        if (live_wg && (!split || (i & 1) == wg)) {
+          // live tokens, first position, max v_scale
+          const int4 inf = tinfo[ts];
+          const int valid = inf.x, pos0 = inf.y;
+          unsigned char* kt = smem + S::KV + ts * 2 * S::TILE;
+          unsigned char* vt = kt + S::TILE;
+          const float* ksc = tsc + ts * 2 * C;
+          const float* vsc = ksc + C;
+          using Acc = std::conditional_t<QK_INT8, int, float>;
+          Acc sa[32];
+          hop::wgmma_fence();
+          if constexpr (QK_INT8) {
+#pragma unroll
+            for (int kk = 0; kk < D / 32; ++kk) {
+              const int at = (kk / 4) * PANEL + (kk % 4) * 32;
+              hop::wgmma_ss_s8_n64(sa, hop::desc_sw128(qa + at, 16),
+                                   hop::desc_sw128(kt + at, 16), kk > 0);
+            }
+          } else {
+#pragma unroll
+            for (int part = 0; part < 2; ++part)
+#pragma unroll
+              for (int kk = 0; kk < D / 16; ++kk) {
+                const int at = (kk / 4) * PANEL + (kk % 4) * 32;
+                hop::wgmma_ss_n64<0, 0, F16>(
+                    sa, hop::desc_sw128(qa + part * S::QT + at, 16),
+                    hop::desc_sw128(kt + at, 16), part + kk > 0);
+              }
+          }
+          hop::wgmma_commit();
+          hop::wgmma_wait<0>();
+          hop::fence_regs(sa);
+
+          // the online softmax of the lane's two rows over their quads; p
+          // as P's A fragments (1-byte caches: p * v_scale / smax * 2^14,
+          // and U = smax * 2^-14 carries the rest)
+          float pscale = 1.f, u_new = 1.f;
+          if constexpr (SCALES) {
+            const float smax = fmaxf(__int_as_float(inf.z), 1e-30f);
+            pscale = 16384.f / smax;
+            u_new = smax * (1.f / 16384.f);
+          }
+          // S's columns times k_scale (and the row's q scale), then the
+          // cap, under one branch
+          float sv[32], f[2];
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            sv[x] = static_cast<float>(sa[x]);
+            if constexpr (QK_INT8 || SCALES)
+              sv[x] = sv[x] * sc_s[16 * w4 + g + 8 * ((x % 4) / 2)] *
+                      ksc[8 * (x / 4) + 2 * tq + x % 2];
+          }
+          if (softcap > 0.f) {
+            // the polynomial alone where no logit of the warp's reaches
+            // past it (the same values: tanh_acc takes it there)
+            const float inv = 1.f / softcap;
+            float amax = 0.f;
+#pragma unroll
+            for (int x = 0; x < 32; ++x) amax = fmaxf(amax, fabsf(sv[x] * inv));
+            if (__all_sync(0xffffffff, amax < TANH_SMALL)) {
+#pragma unroll
+              for (int x = 0; x < 32; ++x)
+                sv[x] = softcap * tanh_small(sv[x] * inv);
+            } else {
+#pragma unroll
+              for (int x = 0; x < 32; ++x)
+                sv[x] = softcap * tanh_acc(sv[x] * inv);
+            }
+          }
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int x = 4 * j + 2 * rr + e, c = 8 * j + 2 * tq + e;
+                float s = sv[x];
+                bool live = rlive[rr] && c < valid;
+                if constexpr (BOUNDS) live = live && pos0 + c < bnd[rr];
+                sv[x] = live ? s : -INFINITY;
+                mx = fmaxf(mx, sv[x]);
+              }
+            mx = warp_max(mx, 1, 4);
+            const float m_new = fmaxf(m[rr], mx);
+            // a row may have no live token yet (BOUNDS, or past R):
+            // exponentiate against 0, so that it keeps p = 0, alpha = 0
+            // and m = -inf
+            const float m_use = m_new == -INFINITY ? 0.f : m_new;
+            const float alpha = __expf(m[rr] - m_use);
+            float ls = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int x = 4 * j + 2 * rr + e;
+                float p = __expf(sv[x] - m_use);
+                ls += p;
+                if constexpr (SCALES) p *= vsc[8 * j + 2 * tq + e] * pscale;
+                sv[x] = p;
+              }
+            l[rr] = l[rr] * alpha + ls;
+            m[rr] = m_new;
+            f[rr] = alpha * (U / u_new);
+          }
+          U = u_new;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            o[4 * j] *= f[0];
+            o[4 * j + 1] *= f[0];
+            o[4 * j + 2] *= f[1];
+            o[4 * j + 3] *= f[1];
+          }
+          // P's A fragments, 16 tokens each (hopper.cuh::pack_fragments),
+          // hi and lo halves
+          uint32_t pa[2][4][4];
+#pragma unroll
+          for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              split2<BF>(sv[8 * kc + 2 * r], sv[8 * kc + 2 * r + 1],
+                         pa[0][kc][r], pa[1][kc][r]);
+          hop::wgmma_fence();
+#pragma unroll
+          for (int part = 0; part < 2; ++part)
+#pragma unroll
+            for (int kc = 0; kc < 4; ++kc) {
+              // V MN-major: its rows, the tokens, are the reduction, 16
+              // tokens = 2048 B a step; lbo the step to the next 64
+              // columns
+              if constexpr (D == 256) {
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                  hop::wgmma_rs_n128<1, F16>(
+                      *reinterpret_cast<float(*)[64]>(o + 64 * half),
+                      pa[part][kc],
+                      hop::desc_sw128(vt + 2 * half * PANEL + kc * 2048,
+                                      PANEL),
+                      1);
+              } else if constexpr (D == 128) {
+                hop::wgmma_rs_n128<1, F16>(
+                    o, pa[part][kc], hop::desc_sw128(vt + kc * 2048, PANEL),
+                    1);
+              } else {
+                hop::wgmma_rs_n64<1, F16>(
+                    o, pa[part][kc], hop::desc_sw128(vt + kc * 2048, PANEL),
+                    1);
+              }
+            }
+          hop::wgmma_commit();
+          hop::wgmma_wait<0>();
+          hop::fence_regs(o);
+        }
+        hop::mbar_arrive(&tile_empty[ts]);
+      }
+
+      if (split) {
+        // warpgroup 1's state, element by element as its lanes hold it,
+        // into the raw stages (every copy has landed and been read), then
+        // into warpgroup 0's: the same thread of each holds the same
+        // elements
+        static_assert(NC == 1 || (D / 2 + 4) * 128 * 4 <= NRS * 2 * S::RAW,
+                      "the states must meet in the raw stages");
+        float* xo = reinterpret_cast<float*>(smem + S::RAWS);
+        const int wt = t % 128;
+        if (wg == 1) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) xo[i * 128 + wt] = o[i] * U;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            xo[(D / 2 + rr) * 128 + wt] = m[rr];
+            xo[(D / 2 + 2 + rr) * 128 + wt] = l[rr];
+          }
+        }
+        hop::bar_sync(CONSUMER_BAR, NCONS);
+        if (wg == 0) {
+          float f0[2], f1[2];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const float m1 = xo[(D / 2 + rr) * 128 + wt];
+            const float M = fmaxf(m[rr], m1);
+            const float m_use = M == -INFINITY ? 0.f : M;
+            const float a0 = __expf(m[rr] - m_use), a1 = __expf(m1 - m_use);
+            l[rr] = l[rr] * a0 + xo[(D / 2 + 2 + rr) * 128 + wt] * a1;
+            m[rr] = M;
+            f0[rr] = a0 * U;
+            f1[rr] = a1;
+          }
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i)
+            o[i] = o[i] * f0[(i % 4) / 2] + xo[i * 128 + wt] * f1[(i % 4) / 2];
+          U = 1.f;
+        }
+      }
+    }
+    if (split && wg == 1) rlive[0] = rlive[1] = false;  // warpgroup 0's rows
+    // the block's state for the cluster's merge: O * U over the tile and
+    // raw stages (every warpgroup is past them), (m, l) at ML
+    hop::bar_sync(CONSUMER_BAR, NCONS);
+    float* st = reinterpret_cast<float*>(smem + S::KV);
+    float* mls = reinterpret_cast<float*>(smem + S::ML);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffff, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffff, l[rr], 2);
+      const int r = rw0 + 16 * w4 + g + 8 * rr;
+      if (!rlive[rr]) continue;
+      float* srow = st + r * DP + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(srow + 8 * j) = make_float2(
+            o[4 * j + 2 * rr] * U, o[4 * j + 2 * rr + 1] * U);
+      if (tq == 0) {
+        mls[r] = m[rr];
+        mls[RT + r] = l[rr];
+      }
+    }
+  }
+
+  // the tile's rows: a whole group's (out, lse), or the cluster's partial
+  // in slot blockIdx.x / CS, the group's in slots from first on, the
+  // group's counters one a rank. The piece is read again from shared
+  // memory: nothing of it stays in a register across the loop (at D = 256
+  // that spilled)
+  const volatile int* pv = reinterpret_cast<const volatile int*>(piece_s);
+  const int pb = pv[0], px = pv[1], pk = pv[4], ps = pv[5];
+  const int ph = udiv(px, nrt), pr0 = (px - ph * nrt) * RT;
+  const long long gd = static_cast<long long>(pb) * GL + px;
+  const long long slot = blockIdx.x / CS;
+  tile_merge<D, RT, 128 * (NC + 1)>(
+      dst, reinterpret_cast<float*>(smem + S::KV),
+      reinterpret_cast<float*>(smem + S::ML), last_s,
+      min(RT, R_group - pr0),
+      (static_cast<long long>(pb) * Hkv + ph) * R_group + pr0, ps == 1, slot,
+      slot - pk, ps, gd * CS + static_cast<int>(hop::cluster_rank()));
+}
+
+// A launch's threads and shared memory: the loop above up to max_rows(D)
+// rows, the row-tile loop past it (RG).
+template <int D, int RMAX, int EB, bool RG>
+__host__ __device__ constexpr int launch_threads() {
+  if constexpr (RG)
+    return 128 * (tile_wgs<D>() + 1);
+  else
+    return nthreads<D, RMAX, EB>();
+}
+
+template <int D, int RMAX, int EB, bool RG>
+__host__ __device__ constexpr int launch_smem() {
+  if constexpr (RG)
+    return TileSmem<D, EB>::BYTES;
+  else
+    return Smem<D, RMAX, EB>::BYTES;
+}
+
+// Whether a grid of `grid` blocks serves a launch at R rows a kv head: a
+// block a group at least (plan_piece), B * Hkv groups; with RG a cluster
+// of TILE_CLUSTER blocks a group (B * Hkv times the row tiles) and whole
+// clusters; and without RG the merge's m values, one per (piece, row), in
+// pipeline 0's stages (a group has at most as many pieces as the launch
+// has blocks, and no more than TARGET_BLOCKS; TileSmem holds its own).
+template <int D, int RMAX, int EB, bool RG>
+bool launch_fits(int grid, int B, int Hkv, int R) {
+  if constexpr (RG)
+    return grid % TILE_CLUSTER == 0 &&
+           grid / TILE_CLUSTER >=
+               (long long)B * Hkv * ((R + row_tile(D) - 1) / row_tile(D));
+  else
+    return grid >= (long long)B * Hkv &&
+           (grid == 1 ||
+            (long long)(grid < TARGET_BLOCKS ? grid : TARGET_BLOCKS) * R * 4 <=
+                Smem<D, RMAX, EB>::KV_BYTES);
+}
+
+// Launch a build: kern<<<grid, threads, bytes, stream>>>(args...), the
+// row-tile loop's (RG) in clusters of TILE_CLUSTER blocks. Returns
+// cudaGetLastError() (or the launch's own error).
+template <bool RG, class... P, class... A>
+int launch_build(void (*kern)(P...), int grid, int threads, int bytes,
+                 cudaStream_t stream, A... args) {
+  if constexpr (RG) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = TILE_CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+    if (e != cudaSuccess) return e;
+  } else {
+    kern<<<grid, threads, bytes, stream>>>(args...);
+  }
+  return cudaGetLastError();
+}
+
 // The host side's choice of a build, which B4, B5 and B6 share. The build
 // for R rows a kv head at head dim D: RMAX 4, 8 or 16 rows up to
-// max_rows(D), else row groups (RG) of max_rows(D) rows. rp is the rows a
-// piece's partial holds in the caller's workspace (R, or max_rows(D) with
-// row groups: ops/quant_decode_cuda.py::row_groups); a build that would
-// lay its partials out otherwise is refused, not launched past the
+// max_rows(D), else the row-tile loop (RG) over tiles of row_tile(D) rows.
+// rp is the rows a piece's partial holds in the caller's workspace (R, or
+// row_tile(D) with RG: ops/quant_decode_cuda.py::row_groups); a build that
+// would lay its partials out otherwise is refused, not launched past the
 // workspace.
 template <int QT, int D, class F>
 int dispatch_rows(int R, int rp, const F& f) {
   constexpr int MR = max_rows(D);
-  if (rp != (R > MR ? MR : R)) return cudaErrorInvalidValue;
+  if (rp != (R > MR ? row_tile(D) : R)) return cudaErrorInvalidValue;
   if (R > MR) return f.template run<QT, MR, D, true>();
   if (R <= 4) return f.template run<QT, 4, D, false>();
   if (R <= 8) return f.template run<QT, 8, D, false>();

@@ -6,8 +6,8 @@ tensors here and CPU tensors to the kernel's plain version,
 ``ops/paged.py::_plain_paged_decode``. The launch takes
 ``paged_plan_grid`` blocks (shapes only: no host sync), over which the
 kernel spreads the lanes' live chunks from ``seq_lens`` on the device
-(``quant_decode_cuda.work_plan`` is the plan's twin), and merges the
-pieces of a group in order; see the source's header for what bounds the
+(``quant_decode_cuda.work_plan`` is the plan's twin, ``tile_plan`` past
+MAX_ROWS rows a kv head), and merges the pieces of a group in order; see the source's header for what bounds the
 kernel on the H100 and how its design answers that.
 """
 
@@ -17,8 +17,9 @@ import functools
 import torch
 
 from . import _build
-from .quant_decode_cuda import (check_operand, check_rows, paged_plan_grid,
-                                row_groups, scratch_ptrs)
+from .quant_decode_cuda import (MAX_ROWS, check_operand, check_rows,
+                                paged_plan_grid, plan_counters, row_groups,
+                                scratch_ptrs)
 
 # rfa_paged_decode(q, q_bf16, k_pages, v_pages, block_tables, seq_lens,
 #                  new_counts, out, lse, part_acc, part_ml, counters, B, Hq,
@@ -43,9 +44,9 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     q (B, Hq, Tq, D) bf16 or fp32; pages (num_pages, Hkv, page_size, D)
     bf16 with D 64, 128 or 256; block_tables (B, npages) and seq_lens,
     new_counts (B,) int32; any whole group Hq / Hkv and any Tq (past
-    MAX_ROWS[D] rows a kv head, one block row per row group, each row
-    keeping its own new_counts bound). Out-of-range page ids are clamped
-    into the pool, as the plain version's gather does."""
+    MAX_ROWS[D] rows a kv head, a group of the plan a tile of ROW_TILE[D]
+    rows, each row keeping its own new_counts bound). Out-of-range page
+    ids are clamped into the pool, as the plain version's gather does."""
     dev = q.device
     check_operand("q", q, dev, (torch.bfloat16, torch.float32), 4)
     check_operand("k_pages", k_pages, dev, (torch.bfloat16,), 4)
@@ -72,12 +73,13 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     if out.numel() == 0:
         return out, lse
     nrg, rows = row_groups((hq // hkv) * tq, d)
-    grid = paged_plan_grid(b, hkv, npages, page_size, nrg)
+    tiles = rows > MAX_ROWS[d]
+    grid = paged_plan_grid(b, hkv, npages, page_size, nrg, tiles)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, grid,
-                                                   rows, d, dev, stream)
+        part_acc, part_ml, counters = scratch_ptrs(
+            plan_counters(b * hkv * nrg, tiles), grid, rows, d, dev, stream)
         rc = lib.rfa_paged_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),

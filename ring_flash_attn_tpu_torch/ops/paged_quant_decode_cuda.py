@@ -14,8 +14,9 @@ import functools
 import torch
 
 from . import _build
-from .quant_decode_cuda import (QTYPES, check_operand, check_rows,
-                                paged_plan_grid, row_groups, scratch_ptrs)
+from .quant_decode_cuda import (MAX_ROWS, QTYPES, check_operand, check_rows,
+                                paged_plan_grid, plan_counters, row_groups,
+                                scratch_ptrs)
 
 # rfa_paged_quant_decode(q, q_bf16, k_pages, v_pages, k_scales, v_scales,
 #                        block_tables, seq_lens, out, lse, part_acc, part_ml,
@@ -43,7 +44,8 @@ def paged_quant_decode_cuda(q, k_pages, k_scales, v_pages, v_scales,
     int8, float8_e4m3fn or float8_e5m2 with D 64, 128 or 256; scales
     (num_pages, Hkv, 1, page_size) fp32; block_tables (B, npages) and
     seq_lens (B,) int32; any whole group Hq / Hkv and any Tq (past
-    MAX_ROWS[D] rows a kv head, one block row per row group). On int8
+    MAX_ROWS[D] rows a kv head, a group of the plan a tile of ROW_TILE[D]
+    rows). On int8
     pages q is quantized per row to int8 inside the kernel (the
     int8-native QK of the TPU kernel). Out-of-range page ids are clamped
     into the pool, as the plain version's gather does."""
@@ -76,12 +78,13 @@ def paged_quant_decode_cuda(q, k_pages, k_scales, v_pages, v_scales,
     if out.numel() == 0:
         return out, lse
     nrg, rows = row_groups((hq // hkv) * tq, d)
-    grid = paged_plan_grid(b, hkv, npages, page_size, nrg)
+    tiles = rows > MAX_ROWS[d]
+    grid = paged_plan_grid(b, hkv, npages, page_size, nrg, tiles)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, grid,
-                                                   rows, d, dev, stream)
+        part_acc, part_ml, counters = scratch_ptrs(
+            plan_counters(b * hkv * nrg, tiles), grid, rows, d, dev, stream)
         rc = lib.rfa_paged_quant_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
             v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),

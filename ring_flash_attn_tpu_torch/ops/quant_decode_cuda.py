@@ -17,12 +17,15 @@ from . import _build
 from .flash_fwd_cuda import head_dim_error
 
 HEAD_DIMS = (64, 128, 256)  # the head dims the decode loop is built for
-# the most of a kv head's G * Tq query rows that one block serves, by head
-# dim (csrc/quant_decode.cuh::max_rows); past it a launch takes one block
-# row per row group of that many rows. The workspace is laid out by it and
-# each launch passes its row group's rows (``row_groups``): a library whose
-# max_rows differs refuses the launch (rfa_qd::dispatch_rows)
+# the most of a kv head's G * Tq query rows that the small-row loop serves,
+# by head dim (csrc/quant_decode.cuh::max_rows); past it the row-tile loop
+# serves tiles of ROW_TILE rows (row_tile: a consumer warpgroup's 64 rows,
+# two of them up to 128), a group of the plan a tile. The workspace is
+# laid out by them and each launch passes the rows a partial holds
+# (``row_groups``): a library that lays them out otherwise refuses the
+# launch (rfa_qd::dispatch_rows)
 MAX_ROWS = {64: 16, 128: 16, 256: 8}
+ROW_TILE = {64: 128, 128: 128, 256: 64}
 CHUNK = 64  # tokens per chunk in the kernels (C in quant_decode.cuh)
 # The blocks a launch cuts its groups over (one per SM of 132: a block runs
 # 1 to 3 pipelines side by side) and the fewest chunks worth a block beyond
@@ -30,6 +33,15 @@ CHUNK = 64  # tokens per chunk in the kernels (C in quant_decode.cuh)
 # plan_piece).
 TARGET_BLOCKS = 132
 MIN_CHUNKS = 4
+# The row-tile loop's blocks come in clusters of TILE_CLUSTER, the unit of
+# its plan (a cluster takes a piece and deals its chunks out to its blocks,
+# which merge their rows across the cluster), a group cut over up to
+# TILE_CLUSTERS of them (as many as the H100 holds at once), at a load of
+# at least TILE_MIN_CHUNKS chunks a block (quant_decode.cuh::TILE_CLUSTER,
+# TILE_CLUSTERS, TILE_MIN_CHUNKS).
+TILE_CLUSTER = 4
+TILE_CLUSTERS = 30
+TILE_MIN_CHUNKS = 2
 QTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
 # rfa_quant_decode(q, q_bf16, k_q, v_q, k_scale, v_scale, len_ptr, len_val,
@@ -74,35 +86,49 @@ def check_rows(hq, hkv, tq, d):
 def row_groups(rows, d):
     """(row groups a kv head, rows a row group's partials hold) of a launch
     with ``rows`` = (Hq / Hkv) * Tq rows a kv head at head dim d: one group
-    of all rows up to MAX_ROWS[d], else ceil(rows / MAX_ROWS[d]) groups of
-    MAX_ROWS[d] (the last may hold fewer)."""
-    per = MAX_ROWS[d]
-    if rows <= per:
+    of all rows up to MAX_ROWS[d]; past it the row tiles,
+    ceil(rows / ROW_TILE[d]) groups whose partials hold ROW_TILE[d] rows
+    (the last tile may hold fewer rows)."""
+    if rows <= MAX_ROWS[d]:
         return 1, rows
+    per = ROW_TILE[d]
     return -(-rows // per), per
 
 
-def plan_grid(groups, max_chunks):
+def plan_grid(groups, max_chunks, tiles=False):
     """Blocks of a launch of B4, B5 or B6 from shapes alone (no host sync):
     one a group at least, so that a block holds at most one piece; beyond
     that up to the card's SMs, and no more than one a MIN_CHUNKS chunks of
     ``groups`` lanes of ``max_chunks`` chunks (the longest the cache
     allows). The device's plan (``work_plan``) uses up to this many, and
-    cuts a group over several only within TARGET_BLOCKS. The plan counts
-    chunks in 32 bits with room to spare: a launch of 2^30 or more
-    raises."""
+    cuts a group over several only within TARGET_BLOCKS. With ``tiles``
+    (the row-tile loop, past MAX_ROWS rows a kv head) the same in clusters
+    of TILE_CLUSTER blocks (``tile_plan``), up to TILE_CLUSTERS of them, at
+    TILE_MIN_CHUNKS chunks a block. The plan counts chunks in 32 bits with room to spare: a launch
+    of 2^30 or more raises."""
     if groups * max_chunks >= 2**30:
         raise ValueError(f"{groups} groups of up to {max_chunks} chunks are "
                          "more than the decode plan counts")
-    return max(1, groups, min(TARGET_BLOCKS,
-                              -(-groups * max_chunks // MIN_CHUNKS)))
+    cs, units, least = ((TILE_CLUSTER, TILE_CLUSTERS,
+                         TILE_CLUSTER * TILE_MIN_CHUNKS) if tiles
+                        else (1, TARGET_BLOCKS, MIN_CHUNKS))
+    return cs * max(1, groups, min(units, -(-groups * max_chunks // least)))
 
 
-def paged_plan_grid(b, hkv, npages, page_size, nrg=1):
+def paged_plan_grid(b, hkv, npages, page_size, nrg=1, tiles=False):
     """``plan_grid`` of a paged cache (B5, B6): B * Hkv * nrg groups (nrg
     row groups a kv head, ``row_groups``), each lane at most npages pages
-    of ceil(page_size / CHUNK) chunks."""
-    return plan_grid(b * hkv * nrg, npages * -(-page_size // CHUNK))
+    of ceil(page_size / CHUNK) chunks; with ``tiles`` the row-tile loop's
+    chunks (``tile_max_chunks``)."""
+    most = (tile_max_chunks(npages, page_size) if tiles
+            else npages * -(-page_size // CHUNK))
+    return plan_grid(b * hkv * nrg, most, tiles)
+
+
+def tile_max_chunks(npages, page_size):
+    """The most chunks a paged lane of ``npages`` pages holds in the
+    row-tile loop (``tile_chunks``)."""
+    return -(-npages // pages_a_chunk(page_size)) * -(-page_size // CHUNK)
 
 
 def lane_chunks(length, page_size=None):
@@ -116,6 +142,26 @@ def lane_chunks(length, page_size=None):
     full = (length - 1) // page_size  # pages before the last live one
     return full * -(-page_size // CHUNK) + -(-(length - full * page_size)
                                             // CHUNK)
+
+
+def pages_a_chunk(page_size):
+    """Pages a chunk of the row-tile loop holds: CHUNK // page_size where
+    pages of 2 to CHUNK / 2 tokens divide CHUNK (a chunk is then CHUNK
+    positions of the lane over whole pages), else 1
+    (quant_decode.cuh::pages_a_chunk)."""
+    if page_size is not None and 2 <= page_size < CHUNK and \
+            CHUNK % page_size == 0:
+        return CHUNK // page_size
+    return 1
+
+
+def tile_chunks(length, page_size=None):
+    """The live chunks of a lane of ``length`` tokens in the row-tile loop
+    (quant_decode.cuh::TileLanes): ceil(length / CHUNK) where a chunk holds
+    several pages (``pages_a_chunk``), else ``lane_chunks``."""
+    if pages_a_chunk(page_size) > 1:
+        return -(-max(length, 0) // CHUNK)
+    return lane_chunks(length, page_size)
 
 
 def work_plan(chunks, groups_per_lane, grid):
@@ -135,18 +181,53 @@ def work_plan(chunks, groups_per_lane, grid):
     otherwise slot (its partial's slot, its block p), first_slot and
     pieces (the group's pieces, in consecutive slots, merged in that order
     by the group's last block, whose counter target that is)."""
+    return _plan(chunks, groups_per_lane, grid, TARGET_BLOCKS, MIN_CHUNKS)
+
+
+def tile_plan(chunks, groups_per_lane, grid):
+    """The row-tile loop's plan (``plan_piece<TILE_CLUSTER>`` and
+    ``decode_tiles``): ``work_plan``'s in clusters of cs = TILE_CLUSTER
+    blocks, grid // cs of them, TILE_CLUSTERS cut, at a load of at least cs
+    * TILE_MIN_CHUNKS chunks (``chunks``: ``tile_chunks``). Cluster c's
+    piece is dealt out to its blocks c * cs + r, r = 0 .. cs - 1, the
+    first (chunks % cs) of them a chunk more.
+
+    Returns (used blocks, [block p's pieces]): each block of a used
+    cluster one piece, a dict of its cluster's piece (group; whole, or
+    slot, first_slot and pieces of the cluster partials, counted in
+    clusters) with its own first and chunks (0 in a block past the
+    cluster's chunks), its cluster and rank, and counter, the group's
+    counter of that rank (group * TILE_CLUSTER + rank)."""
+    cs = TILE_CLUSTER
+    used, runs_c = _plan(chunks, groups_per_lane, grid // cs, TILE_CLUSTERS,
+                         cs * TILE_MIN_CHUNKS)
+    runs = [[] for _ in range(grid)]
+    for c, run in enumerate(runs_c):
+        for piece in run:
+            q, rem = divmod(piece["chunks"], cs)
+            for r in range(cs):
+                runs[c * cs + r].append(dict(
+                    piece, first=piece["first"] + r * q + min(r, rem),
+                    chunks=q + (r < rem), cluster=c, rank=r,
+                    counter=piece["group"] * cs + r))
+    return used * cs, runs
+
+
+def _plan(chunks, groups_per_lane, grid, target, least):
+    """``work_plan`` over ``grid`` units (blocks, or clusters), ``target``
+    of them cut, at a load of at least ``least`` chunks."""
     gl = groups_per_lane
     runs = [[] for _ in range(grid)]
     live = [n for n in chunks if n > 0]
     if not live:
         return 0, runs
-    cap = max(len(live) * gl, min(grid, TARGET_BLOCKS))
+    cap = max(len(live) * gl, min(grid, target))
     nmax = max(live)
 
     def blocks_at(load):
         return gl * sum(-(-n // load) for n in live)
 
-    load = max(min(MIN_CHUNKS, nmax), -(-sum(live) * gl // cap))
+    load = max(min(least, nmax), -(-sum(live) * gl // cap))
     if blocks_at(load) > cap:  # load nmax fits: a block a live group
         lo, hi = load, nmax
         while hi - lo > 1:
@@ -166,6 +247,13 @@ def work_plan(chunks, groups_per_lane, grid):
                 runs[p].append(piece)
                 p += 1
     return p, runs
+
+
+def plan_counters(groups, tiles):
+    """The counters of a launch's workspace: one a group; in the row-tile
+    loop (``tiles``) one a rank of the group's clusters, TILE_CLUSTER a
+    group."""
+    return groups * (TILE_CLUSTER if tiles else 1)
 
 
 _WORKSPACES = {}  # (device, stream) -> (fp32 partials, int32 counters)
@@ -214,7 +302,8 @@ def quant_decode_cuda(q, k_q, k_scale, v_q, v_scale, length, scale,
     q (B, Hq, Tq, D) bf16 or fp32; k_q, v_q (B, Hkv, S, D) int8,
     float8_e4m3fn or float8_e5m2 with D 64, 128 or 256 and any S >= 1;
     scales (B, Hkv, S) fp32; any whole group Hq / Hkv and any Tq (past
-    MAX_ROWS[D] rows a kv head, one block row per row group of them).
+    MAX_ROWS[D] rows a kv head, a group of the plan a tile of ROW_TILE[D]
+    of them).
     ``length`` is a Python int or
     a 1-element int32 CUDA tensor, which the kernel reads on the device
     (no host sync); it is clamped to [0, S]."""
@@ -249,12 +338,13 @@ def quant_decode_cuda(q, k_q, k_scale, v_q, v_scale, length, scale,
     if out.numel() == 0:
         return out, lse
     nrg, rows = row_groups((hq // hkv) * tq, d)
-    grid = plan_grid(b * hkv * nrg, -(-s // CHUNK))
+    tiles = rows > MAX_ROWS[d]
+    grid = plan_grid(b * hkv * nrg, -(-s // CHUNK), tiles)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part_acc, part_ml, counters = scratch_ptrs(b * hkv * nrg, grid,
-                                                   rows, d, dev, stream)
+        part_acc, part_ml, counters = scratch_ptrs(
+            plan_counters(b * hkv * nrg, tiles), grid, rows, d, dev, stream)
         rc = lib.rfa_quant_decode(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
             v_q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), len_ptr,

@@ -17,11 +17,12 @@ from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B3A_EDGE_CASES,
                         D256_BAND_EDGE_CASES, D256_EDGE_CASES,
                         D256_RING_CASES, D256_XFORM_EDGE_CASES, DECODE_CASES,
                         PLAN_CASES, RING_OUT_REL_TOL, SEG_EDGE_CASES,
-                        XFORM_EDGE_CASES, b4_plan_case_check,
+                        TILE_CASES, XFORM_EDGE_CASES, b4_plan_case_check,
                         b5_case_inputs, b5_edge_cases, band_case_check,
                         d256_case_check, d256_growth_check,
                         d256_ring_case_check,
                         decode_case_check, plan_case_check,
+                        tile_builds, tile_case_check,
                         xform_case_check,
                         band_keep_checks, rel_err_rows, ring_steps,
                         seg_case_mask)
@@ -1369,6 +1370,30 @@ def test_cuda_decode_plan_edges(case, kernel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B4", "B5", "B6"])
+@pytest.mark.parametrize("case", range(len(TILE_CASES)))
+def test_cuda_decode_row_tile_edges(case, kernel):
+    """B4, B5 and B6 at the row tile's edges (chip_smoke.TILE_CASES: 17,
+    63, 64, 65, 128, 129 and 355 rows a kv head at head dims 64, 128 and
+    256, pages of 16 and 64, a lane of one token and a dead lane, every
+    cache type, softcap, new_counts) against their plain versions, twice,
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    tile_case_check(torch, TILE_CASES[case], kernel, seed=case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B4", "B5", "B6"])
+def test_cuda_decode_row_tile_builds(kernel):
+    """Every row-tile build (RG) of B4, B5 and B6 runs on wgmma (HGMMA in
+    its SASS) and spills nothing (ptxas; chip_smoke.tile_builds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    tile_builds(kernel)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", range(len(B4_PLAN_CASES)))
 def test_cuda_quant_decode_plan_edges(case):
     """B4 at head_dim 256 with one q row a kv head and on generate's
@@ -1387,11 +1412,13 @@ def test_cuda_decode_refuses_other_row_groups(d, rows):
     share) and refuse a launch whose rows a row group, by which the caller
     sized its workspace (ops/quant_decode_cuda.py::row_groups), differ:
     B5's entry point returns cudaErrorInvalidValue (1) and launches
-    nothing; with the launcher's rows it runs."""
+    nothing; with the launcher's rows and grid (past MAX_ROWS rows a kv
+    head the row-tile loop's, whole clusters) it runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from ring_flash_attn_tpu_torch.ops import paged_decode_cuda as b5
-    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import row_groups
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        MAX_ROWS, paged_plan_grid, row_groups)
 
     dev = torch.device("cuda")
     q = torch.ones((1, rows, 1, d), dtype=torch.bfloat16, device=dev)
@@ -1402,13 +1429,14 @@ def test_cuda_decode_refuses_other_row_groups(d, rows):
     lse = torch.zeros((1, rows, 1), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     nrg, rp = row_groups(rows, d)
+    grid = paged_plan_grid(1, 1, 1, 64, nrg, tiles=rp > MAX_ROWS[d])
 
     def launch(rp):  # B=1, Hq=rows, Hkv=1, Tq=1, one page, a block a group
         return b5._lib().rfa_paged_decode(
             q.data_ptr(), 1, pages.data_ptr(), pages.data_ptr(),
             tables.data_ptr(), lens.data_ptr(), None, out.data_ptr(),
             lse.data_ptr(), None, None, None, 1, rows, 1, 1, d, 1, 64, 1,
-            nrg, rp, 0.1, 0.0, stream)
+            grid, rp, 0.1, 0.0, stream)
 
     for other in (rp - 1, rp + 1, 2 * rp):
         assert launch(other) == 1

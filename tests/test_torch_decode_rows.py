@@ -1,7 +1,8 @@
 """The decode paths of kernels B5, B4 and B6 at head dims 64 and 256 and
-past the 16 rows a kv head that one block serves (multi-query groups of
-48 and 71 q heads a kv head, Tq 1 and 5), the port against the JAX
-package on identical numpy inputs.
+past the 16 rows a kv head that the small-row loop serves (multi-query
+groups of 48 and 71 q heads a kv head, Tq 1 and 5; the row tile's edges
+at 63, 64, 65 and 129 rows), the port against the JAX package on
+identical numpy inputs.
 
 On the CPU the port's entry points (``paged_decode_attention``,
 ``quant_decode_attention``, ``paged_quant_decode_attention``) run the
@@ -24,7 +25,7 @@ from ring_flash_attn_tpu.ops import paged as jpaged
 from ring_flash_attn_tpu.ops import quant as jquant
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
 from ring_flash_attn_tpu_torch.ops import quant as tquant
-from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import row_groups
+from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import MAX_ROWS
 
 XLA_TOL = 1e-5
 PALLAS_TOL = 1e-2
@@ -54,8 +55,8 @@ def _q(rng, d, g, tq):
 def test_paged_decode_rows_match_jax(d, g, tq):
     """B5's route: Tq rows with new_counts (a speculative verify of
     Tq - 1 drafts; lanes whose counts are Tq, 0 and Tq - 2) and softcap,
-    G * Tq rows a kv head in ``row_groups`` of 16 (8 at 256) on the
-    card, against JAX's ``paged_decode_attention``."""
+    G * Tq rows a kv head in row tiles of 128 (64 at 256) on the card,
+    against JAX's ``paged_decode_attention``."""
     rng = np.random.default_rng(d + g + tq)
     n = B * PPS
     k, v = (rng.standard_normal((n, HKV, PS, d)).astype(np.float32)
@@ -65,7 +66,7 @@ def test_paged_decode_rows_match_jax(d, g, tq):
     counts = np.asarray([tq, 0, max(1, tq - 2)], np.int32)
     q = _q(rng, d, g, tq)
     scale = d ** -0.5
-    assert row_groups(g * tq, d)[0] > 1  # past one block's rows
+    assert g * tq > MAX_ROWS[d]  # the row-tile loop's rows
     got = tpaged.paged_decode_attention(
         torch.from_numpy(q),
         tpaged.PagedKVCache(*(torch.from_numpy(x)
@@ -138,3 +139,23 @@ def test_paged_quant_decode_rows_match_jax(d, g, tq):
                 got_ = got
             _close(got_, want, tol, f"B6 {qdtype} {backend}")
         assert torch.all(got[0][1] == 0) and torch.all(got[1][1] == -1e30)
+
+
+# the row tile's edges (csrc/quant_decode.cuh::row_tile: two consumer
+# warpgroups of 64 rows, one at 256), (head dim, G, Tq): 63 rows in one
+# warpgroup short of its 64, 64 exactly, 65 past one warpgroup at 256 (two
+# tiles there), 129 past two (two tiles at 128)
+TILE_EDGES = [(64, 63, 1), (128, 16, 4), (256, 13, 5), (128, 43, 3)]
+
+
+@pytest.mark.parametrize("kernel", ["B5", "B4", "B6"])
+@pytest.mark.parametrize("d,g,tq", TILE_EDGES)
+def test_row_tile_edges_match_jax(d, g, tq, kernel):
+    """B5's, B4's (int8) and B6's routes at the row tile's edges, as the
+    tests above hold them against JAX."""
+    if kernel == "B5":
+        test_paged_decode_rows_match_jax(d, g, tq)
+    elif kernel == "B4":
+        test_quant_decode_rows_match_jax(d, g, tq, "int8")
+    else:
+        test_paged_quant_decode_rows_match_jax(d, g, tq)

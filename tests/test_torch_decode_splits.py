@@ -8,6 +8,7 @@ groups the launchers take (``check_rows``); and the scratch those blocks
 write their partials and group counters into (``scratch_ptrs``). All run
 on the host, so they are checked here without a card."""
 
+import itertools
 import os
 import re
 
@@ -19,9 +20,10 @@ from ring_flash_attn_tpu_torch.ops import (paged_decode_cuda,
                                            paged_quant_decode_cuda)
 from ring_flash_attn_tpu_torch.ops import quant_decode_cuda as qd
 from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
-    CHUNK, HEAD_DIMS, MAX_ROWS, MIN_CHUNKS, TARGET_BLOCKS, check_rows,
-    lane_chunks, paged_plan_grid, plan_grid, row_groups, scratch_ptrs,
-    work_plan)
+    CHUNK, HEAD_DIMS, MAX_ROWS, MIN_CHUNKS, ROW_TILE, TARGET_BLOCKS,
+    TILE_CLUSTER, TILE_CLUSTERS, TILE_MIN_CHUNKS, check_rows, lane_chunks,
+    pages_a_chunk, paged_plan_grid, plan_counters, plan_grid, row_groups,
+    scratch_ptrs, tile_chunks, tile_max_chunks, tile_plan, work_plan)
 
 D = 128  # the head dim of the scratch tests below
 
@@ -83,13 +85,20 @@ def test_paged_plan_grid_is_the_grid_of_the_table_shape():
     assert paged_plan_grid(2, 4, 1, 16) == 8
 
 
-@pytest.mark.parametrize("nrg", [1, 2, 15, 45])
-def test_paged_plan_grid_counts_row_groups(nrg):
-    """Row groups are groups of the plan: B * Hkv * nrg of them share the
-    card's blocks, one a row group at least."""
-    n = paged_plan_grid(4, 1, 32, 256, nrg)
-    assert n == plan_grid(4 * nrg, 32 * 4)
-    assert 4 * nrg <= n <= max(4 * nrg, TARGET_BLOCKS)
+@pytest.mark.parametrize("rows,d", [(128, 64), (240, 128), (355, 64),
+                                    (355, 256)])
+def test_paged_plan_grid_counts_row_groups(rows, d):
+    """Row tiles are groups of the plan: B * Hkv * nrg of them share the
+    card's blocks in clusters of TILE_CLUSTER, one cluster a tile at least
+    (nrg = 1, 2, 3 and 6: a tile of 128 rows at head dims 64 and 128, of 64
+    at 256)."""
+    nrg = row_groups(rows, d)[0]
+    assert nrg == -(-rows // ROW_TILE[d])
+    n = paged_plan_grid(4, 1, 32, 256, nrg, tiles=True)
+    assert n == plan_grid(4 * nrg, 32 * 4, tiles=True)
+    cs = TILE_CLUSTER
+    assert n % cs == 0
+    assert 4 * nrg <= n // cs <= max(4 * nrg, TILE_CLUSTERS)
 
 
 def test_plan_constants_mirror_the_kernels():
@@ -102,6 +111,12 @@ def test_plan_constants_mirror_the_kernels():
     assert re.search(r"constexpr int TARGET_BLOCKS = (\d+);",
                      src).group(1) == str(TARGET_BLOCKS)
     assert re.search(r"constexpr int C = (\d+);", src).group(1) == str(CHUNK)
+    assert re.search(r"constexpr int TILE_CLUSTER = (\d+);",
+                     src).group(1) == str(TILE_CLUSTER)
+    assert re.search(r"constexpr int TILE_CLUSTERS = (\d+);",
+                     src).group(1) == str(TILE_CLUSTERS)
+    assert re.search(r"constexpr int TILE_MIN_CHUNKS = (\d+);",
+                     src).group(1) == str(TILE_MIN_CHUNKS)
 
 
 # work_plan's cases: (name, lane lengths, page size (None: B4's contiguous
@@ -131,8 +146,8 @@ PLAN_CASES = [
     ("one token lanes", [1, 1, 1, 1], 16, 8, 1, 4, 128, 2),
     ("dead ends", [0, 4096, 0, 17, 0], 16, 8, 1, 256, 128, 1),
     ("one long lane", [0] * 7 + [32768], 256, 8, 1, 128, 128, 2),
-    ("StarCoder 240 rows", [0, 1, 3000, 8192], 128, 1, 15, 64, 128, 2),
-    ("Falcon 355 rows", [0, 1, 3000, 8192], 256, 1, 23, 32, 64, 1),
+    ("StarCoder 240 rows", [0, 1, 3000, 8192], 128, 1, 2, 64, 128, 2),
+    ("Falcon 355 rows", [0, 1, 3000, 8192], 256, 1, 3, 32, 64, 1),
     ("table shape", [0, 1, 255, 256, 257, 1000, 4095, 4096], 256, 8, 1, 16,
      128, 2),
     ("64 lanes", [int(x) for x in _RNG.integers(0, 4096, 64)], 256, 8, 1,
@@ -388,18 +403,20 @@ def test_b5_wrapper_takes_the_shared_plan():
                                        (8, 1, 5), (48, 1, 1), (48, 1, 5),
                                        (71, 1, 1), (71, 1, 5), (16, 16, 1)])
 def test_row_groups_cover_every_row(hq, hkv, tq, d):
-    """A launch at R = (Hq / Hkv) * Tq rows a kv head takes one block row
-    per row group: one group of R rows up to MAX_ROWS[D] (16; 8 at 256,
-    csrc/quant_decode.cuh::max_rows), else ceil(R / MAX_ROWS[D]) groups of
-    MAX_ROWS[D] rows whose partials hold that many rows, the last group
-    the rest. Every row falls in exactly one group."""
+    """A launch at R = (Hq / Hkv) * Tq rows a kv head takes a group of the
+    plan per row group: one group of R rows up to MAX_ROWS[D] (16; 8 at
+    256, csrc/quant_decode.cuh::max_rows), else the row-tile loop's
+    ceil(R / ROW_TILE[D]) tiles (128 rows; 64 at 256, row_tile) whose
+    partials hold that many rows, the last tile the rest. Every row falls
+    in exactly one group."""
     rows = (hq // hkv) * tq
     nrg, per = row_groups(rows, d)
     assert MAX_ROWS[d] == (8 if d == 256 else 16)
+    assert ROW_TILE[d] == (64 if d == 256 else 128)
     if rows <= MAX_ROWS[d]:
         assert (nrg, per) == (1, rows)
     else:
-        assert per == MAX_ROWS[d] and (nrg - 1) * per < rows <= nrg * per
+        assert per == ROW_TILE[d] and (nrg - 1) * per < rows <= nrg * per
     starts = [g * per for g in range(nrg)]
     sizes = [min(per, rows - r0) for r0 in starts]
     assert sum(sizes) == rows and min(sizes) >= 1
@@ -413,3 +430,177 @@ def test_check_rows_refuses_a_partial_group_and_other_head_dims():
         check_rows(12, 8, 1, 128)
     with pytest.raises(ValueError, match="must be one of"):
         check_rows(8, 8, 1, 96)
+
+
+# the row tile's edges: R rows a kv head just past the small-row loop's, at
+# and beside one and two warpgroups' 64 rows, and Falcon-7B's 355
+TILE_ROWS = [17, 63, 64, 65, 128, 129, 355]
+
+
+def _check_tile_plan(chunks, gl, grid):
+    """The row-tile loop's plan (``tile_plan``) as its kernel takes it:
+    every live chunk of every group once; a used cluster's blocks hold
+    consecutive runs of one piece, in rank order, the first ones a chunk
+    more; a group's clusters consecutive, in order, whole exactly when
+    alone, else with distinct partial slots below the workspace's
+    min(grid, TARGET_BLOCKS) and the counters a rank of their group. Returns
+    the used blocks and the plan's runs."""
+    cs = TILE_CLUSTER
+    used, runs = tile_plan(chunks, gl, grid)
+    assert used % cs == 0 and grid % cs == 0 and len(runs) == grid
+    assert all(len(run) == 1 for run in runs[:used])
+    assert all(not run for run in runs[used:])
+    seen = sorted((piece["group"], piece["first"] + k) for run in runs
+                  for piece in run for k in range(piece["chunks"]))
+    assert seen == [(b * gl + x, j) for b, n in enumerate(chunks)
+                    for x in range(gl) for j in range(n)]
+    clusters = {}
+    for p in range(used):
+        (piece,) = runs[p]
+        assert (piece["cluster"], piece["rank"]) == divmod(p, cs)
+        assert piece["counter"] == piece["group"] * cs + piece["rank"]
+        assert piece["counter"] < plan_counters(len(chunks) * gl, True)
+        clusters.setdefault(piece["cluster"], []).append(piece)
+    groups = {}
+    for c, pieces in sorted(clusters.items()):
+        assert len({piece["group"] for piece in pieces}) == 1
+        sizes = [piece["chunks"] for piece in pieces]
+        assert sizes == sorted(sizes, reverse=True)
+        assert sizes[0] - sizes[-1] <= 1 and sizes[0] >= 1
+        assert [piece["first"] for piece in pieces] == list(
+            itertools.accumulate([pieces[0]["first"]] + sizes[:-1]))
+        groups.setdefault(pieces[0]["group"], []).append(
+            (c, pieces[0]["first"], sum(sizes), pieces[0]))
+    cap = min(grid, TARGET_BLOCKS)
+    slots = []
+    for g, cl in groups.items():
+        assert [c for c, _, _, _ in cl] == list(range(cl[0][0],
+                                                      cl[0][0] + len(cl)))
+        assert [first for _, first, _, _ in cl] == list(
+            itertools.accumulate([0] + [n for _, _, n, _ in cl[:-1]]))
+        for k, (c, _, _, piece) in enumerate(cl):
+            assert piece["whole"] == (len(cl) == 1)
+            if not piece["whole"]:
+                assert piece["slot"] == c and piece["first_slot"] == cl[0][0]
+                assert piece["pieces"] == len(cl)
+                slots.append(c)
+    assert len(slots) == len(set(slots)) and all(0 <= x < cap for x in slots)
+    return used, runs
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("rows", TILE_ROWS)
+def test_plan_of_row_tiles(rows, d):
+    """Past MAX_ROWS[D] rows a kv head a group of the plan is a (lane, kv
+    head, row tile): ceil(R / ROW_TILE[D]) groups a kv head, so a kv head
+    of up to ROW_TILE[D] rows is one group and each chunk is read once a
+    tile. On the decode sub-table's lanes in pages of 16 (a dead lane, one
+    token, ragged and long lanes; a chunk four pages) at 2 kv heads: the
+    row-tile loop's plan in clusters (``_check_tile_plan``), and the
+    partials' slots within the workspace that ``scratch_ptrs`` lays out
+    for ROW_TILE[D] rows a slot, with TILE_CLUSTER counters a group."""
+    nrg, per = row_groups(rows, d)
+    if rows <= MAX_ROWS[d]:
+        pytest.fail(f"{rows} rows at {d} are not past the small-row loop")
+    assert per == ROW_TILE[d] and nrg == -(-rows // ROW_TILE[d])
+    assert (nrg == 1) == (rows <= ROW_TILE[d])
+    lens, hkv, page, pps = [0, 1, 3000, 8192], 2, 16, 512
+    chunks = [tile_chunks(n, page) for n in lens]
+    assert chunks == [0, 1, 47, 128]
+    grid = paged_plan_grid(len(lens), hkv, pps, page, nrg, tiles=True)
+    _check_tile_plan(chunks, hkv * nrg, grid)
+    cap = min(grid, TARGET_BLOCKS)
+    qd._WORKSPACES.clear()
+    acc, ml, _ = scratch_ptrs(plan_counters(len(lens) * hkv * nrg, True),
+                              grid, per, d, "cpu", 3)
+    part, counters = qd._WORKSPACES[("cpu", 3)]
+    assert ml == acc + 4 * cap * per * d
+    assert part.numel() == cap * per * (d + 2)
+    assert counters.numel() == len(lens) * hkv * nrg * TILE_CLUSTER
+
+
+# the row-tile loop's launches: (name, lane lengths, page size (None: B4's
+# contiguous cache of S tokens a lane), kv heads, rows a kv head, the
+# table's pages a lane or B4's S, head dim): StarCoder's engine lanes (48
+# rows, pages of 16) and its k = 4 verify (192), the Llama-3-8B k = 8
+# verify (32 rows, 8 kv heads), generate's StarCoder prompt and tail, the
+# decode sub-table's 240 and 355 rows, one-token and dead lanes, pages of
+# 32 and 48 (two pages a chunk; a page a chunk), and more groups than the
+# card's clusters
+TILE_PLAN_CASES = [
+    ("engine 48 rows", [3016, 1216, 2616, 316], 16, 1, 48, 512, 128),
+    ("k=4 verify 192 rows", [3016, 1216, 2616, 316], 16, 1, 192, 512, 128),
+    ("k=8 verify 32 rows", [3016, 1216, 2616, 316], 16, 8, 32, 512, 128),
+    ("generate prompt", [8192], None, 1, 48, 8192, 128),
+    ("generate tail", [32], None, 1, 48, 32, 128),
+    ("240 rows", [0, 1, 3000, 8192], 128, 1, 240, 64, 128),
+    ("355 rows", [0, 1, 3000, 8192], 256, 1, 355, 32, 64),
+    ("one token lanes", [1, 1, 1], 16, 2, 20, 4, 256),
+    ("dead lanes", [0, 0, 5000, 0], 32, 1, 65, 256, 64),
+    ("pages of 48", [100, 4000], 48, 1, 129, 100, 128),
+    ("64 lanes", [int(x) for x in _RNG.integers(0, 4096, 64)], 16, 8, 20,
+     256, 64),
+]
+
+
+@pytest.mark.parametrize("case", TILE_PLAN_CASES,
+                         ids=[c[0] for c in TILE_PLAN_CASES])
+def test_tile_plan_holds_every_chunk_in_clusters(case):
+    """The row-tile loop's plan at the launches that take it, from the
+    launchers' grid (whole clusters, one a group at least): every live
+    chunk once, in clusters (``_check_tile_plan``); a cluster's load at
+    least min(TILE_CLUSTER * TILE_MIN_CHUNKS, the longest lane) and the
+    least that fits the card's clusters; the lanes' chunks as the kernel
+    counts them (a chunk is 64 positions over pages of 16 or 32)."""
+    _, lens, page, hkv, rows, width, d = case
+    nrg, _ = row_groups(rows, d)
+    gl = hkv * nrg
+    chunks = [tile_chunks(n, page) for n in lens]
+    if page is None:
+        most = tile_chunks(width)
+        grid = plan_grid(len(lens) * gl, most, tiles=True)
+    else:
+        most = tile_max_chunks(width, page)
+        grid = paged_plan_grid(len(lens), hkv, width, page, nrg, tiles=True)
+    assert all(c <= most for c in chunks)
+    cs = TILE_CLUSTER
+    live = [n for n in chunks if n]
+    used, runs = _check_tile_plan(chunks, gl, grid)
+    assert len(live) * gl * cs <= used <= max(len(live) * gl * cs, grid)
+    cap = max(len(live) * gl, min(grid // cs, TILE_CLUSTERS))
+    clusters = {}
+    for run in runs[:used]:
+        clusters.setdefault(run[0]["cluster"], 0)
+        clusters[run[0]["cluster"]] += run[0]["chunks"]
+    load = max(clusters.values())
+    floor = min(cs * TILE_MIN_CHUNKS, max(live))
+    assert load >= floor
+    if load > floor:
+        assert gl * sum(-(-n // (load - 1)) for n in live) > cap
+
+
+@pytest.mark.parametrize("groups,max_chunks", PLANS)
+def test_tile_plan_grid_takes_whole_clusters(groups, max_chunks):
+    """The row-tile loop's grid: whole clusters of TILE_CLUSTER blocks, a
+    cluster a group at least, beyond that one a TILE_CLUSTER *
+    TILE_MIN_CHUNKS chunks of the lanes, and no more than the card's
+    TILE_CLUSTERS where the groups alone do not outnumber them (more would
+    wait for a second wave)."""
+    n = plan_grid(groups, max_chunks, tiles=True)
+    assert n % TILE_CLUSTER == 0
+    clusters = n // TILE_CLUSTER
+    assert groups <= clusters <= max(groups, TILE_CLUSTERS)
+    assert clusters <= max(groups, -(-groups * max_chunks // (
+        TILE_CLUSTER * TILE_MIN_CHUNKS)))
+
+
+def test_pages_a_chunk_span_small_pages():
+    """The row-tile loop's chunk is 64 positions of the lane over whole
+    pages where pages of 2 to 32 tokens divide 64, else the loop above's
+    chunk (never past a page): its chunks a lane follow."""
+    assert [pages_a_chunk(p) for p in (1, 2, 16, 32, 48, 64, 100, 256,
+                                       None)] == [1, 32, 4, 2, 1, 1, 1, 1, 1]
+    assert tile_chunks(3016, 16) == 48 and tile_chunks(0, 16) == 0
+    assert tile_chunks(65, 32) == 2 and tile_chunks(64, 32) == 1
+    for n, page in ((3000, 128), (100, 48), (8192, None), (1, 1), (0, 48)):
+        assert tile_chunks(n, page) == lane_chunks(n, page)

@@ -320,13 +320,14 @@ def test_spec_verify_rows_c6(models, monkeypatch):
 def test_b5_row_groups_equal_one_call(tq):
     """A speculative verify's B5 past 16 rows a kv head (G = 4, Tq rows
     with new_counts: 4, 36 and 64 rows) is one call: on the card one
-    launch whose grid takes the row groups of ``row_groups``, each row
-    with its own bound; here the plain version over all rows at once,
+    launch whose grid takes the row tiles of ``row_groups`` (one of 128
+    rows at head dim 64), each row with its own bound; here the plain version over all rows at once,
     against JAX's XLA path (1e-5: the same fp32 formula) and its kernel in
     interpret mode (2e-2: that kernel rounds q * scale and p to bf16,
     2^-9 of logits up to ~5, which lanes of 11 to 48 tokens do not
     average out)."""
-    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import row_groups
+    from ring_flash_attn_tpu_torch.ops.quant_decode_cuda import (
+        ROW_TILE, row_groups)
 
     rng = np.random.default_rng(tq)
     b, hq, hkv, d, ps, pps = 4, 8, 2, 64, 8, 6
@@ -343,7 +344,8 @@ def test_b5_row_groups_equal_one_call(tq):
                                    for x in (k, v, tables, lens)))
     rows = (hq // hkv) * tq
     nrg, per = row_groups(rows, d)
-    assert (nrg, per) == ((1, rows) if rows <= 16 else (-(-rows // 16), 16))
+    assert (nrg, per) == ((1, rows) if rows <= 16 else
+                          (-(-rows // ROW_TILE[d]), ROW_TILE[d]))
     got = tpaged.paged_decode_attention(torch.from_numpy(q), cache, 0.2,
                                         new_counts=torch.from_numpy(counts))
     for backend, tol in (("xla", 1e-5), ("pallas_interpret", 2e-2)):
