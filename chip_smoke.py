@@ -49,8 +49,8 @@ Phases, each of which raises on failure:
    q-major dq loop's (``B3A_EDGE_CASES``: Sq 127 to 255, Skv 63 to 127,
    a first q tile with no key); every call twice, B3 and B2's dk/dv
    bitwise reproducible; the HGMMA count of each instantiation of both
-   loops (``cuobjdump -sass``, none may be 0) and B3a's ptxas spills (none
-   may spill);
+   loops (``cuobjdump -sass``, none may be 0) and B3a's ptxas spills (no
+   build but the WALK builds past its class table may spill);
    ``flash_attention`` picking B3 past the fused limit (Skv = 36864, D =
    128); timed at the causal S=8192 shape beside their flop bounds (TFLOP/s),
    the plain version and the backward of ``F.scaled_dot_product_attention``
@@ -265,7 +265,10 @@ Phases, each of which raises on failure:
    (``D256_XFORM_EDGE_CASES``, ``D256_BAND_EDGE_CASES``, ``D256_RING_CASES``:
    caps of 2 to 5 that bend the logits among them), B1 and B7 on logits
    that grow along the keys (``d256_growth_check``: the forward loop's
-   running max, which may lag by 2^8, catching up), on the last 512 of
+   running max, which may lag by 2^8, catching up), B3a's segmented builds
+   over 524,288 keys, past the kv tiles its table holds for a call
+   (``LONG_DQ_CASES``: one document, a packing, softcap, the ALL build),
+   on the last 512 of
    8192 rows, global and sliding, with q and q x 4, and B7/B8 on a rank's
    diagonal step and an earlier shard of 8192 keys (softcap 50 and 5) on
    its last 512 rows; (b) timed at S = 8192
@@ -282,7 +285,13 @@ Phases, each of which raises on failure:
    ``ring_attention_forward(softcap=50)`` at W=1; (e) a decode step and a
    verify step with ``append=False`` at phase 4's widths: no page written,
    the logits against the plain versions', each timed beside
-   ``append=True``.
+   ``append=True``; (f) llama3's last rank of W = 8 at Gemma-2-9B's widths
+   through ``parallel/llama3.py``'s rank functions (counted on the gemma2
+   path): 65,536 rows over 524,288 packed keys (``gemma2_rank7_packing``,
+   its first document of 516,096 tokens), B1 then B3a/B3b, against the
+   plain versions on 64 rows at the long document's end and the last 64
+   rows (out, lse, dq) and on the first 512 keys (dk, dv), B3a timed
+   beside its masked-flop bound.
 
 Every kernel is timed twice at its shape, L2 flushed before each call:
 ``ms`` between CUDA events around the wrapper's call and ``device_ms``,
@@ -876,6 +885,18 @@ def ring_steps(n, skv, causal):
                  kv_pos0=(rank - i) * skv) for i in range(n)]
 
 
+def held_gather(kv, stride=None):
+    """A stand-in ``gather`` for ``parallel/llama3.py``'s rank functions
+    whose whole sequence's stacked k and v ``kv`` are in place already:
+    chunk i's kv heads [i, i + stride) (all of them where ``stride`` is
+    None) as a ``Posted`` with nothing posted."""
+    from ring_flash_attn_tpu_torch.parallel.mesh import Posted
+
+    if stride is None:
+        return lambda i: Posted(kv)
+    return lambda i: Posted(kv[:, :, i:i + stride])
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -995,7 +1016,7 @@ INSTANTIATIONS = {
     "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb0ELi0EE"),
     "B5 paged_decode": ("paged_decode", "paged_decode_kernelILi4ELi128ELb0EE"),
     "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb0ELb0ELi0EE"),
-    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb0ELb0ELi0EE"),
+    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb0ELb0ELi0ELb0EE"),
     "B3b flash_bwd_dkv": ("flash_bwd_split",
                           "bwd_kv_kernelILi128ELb0ELb0ELb0ELb0ELi0EE"),
     "B4 quant_decode": ("quant_decode",
@@ -1009,7 +1030,7 @@ INSTANTIATIONS = {
     "B2 flash_bwd XFORM": ("flash_bwd",
                            "bwd_kv_kernelILi128ELb1ELb0ELb0ELb1ELi0EE"),
     "B3a flash_bwd_dq XFORM": ("flash_bwd_split",
-                               "bwd_dq_kernelILi128ELb0ELb1ELi0EE"),
+                               "bwd_dq_kernelILi128ELb0ELb1ELi0ELb0EE"),
     "B3b flash_bwd_dkv XFORM": ("flash_bwd_split",
                                 "bwd_kv_kernelILi128ELb0ELb0ELb0ELb1ELi0EE"),
     # the window/dropout instantiations (phase 18), without segments
@@ -1018,7 +1039,7 @@ INSTANTIATIONS = {
     "B2 flash_bwd BAND": ("flash_bwd",
                           "bwd_kv_kernelILi128ELb1ELb0ELb0ELb1ELi1EE"),
     "B3a flash_bwd_dq BAND": ("flash_bwd_split",
-                              "bwd_dq_kernelILi128ELb0ELb1ELi1EE"),
+                              "bwd_dq_kernelILi128ELb0ELb1ELi1ELb0EE"),
     "B3b flash_bwd_dkv BAND": ("flash_bwd_split",
                                "bwd_kv_kernelILi128ELb0ELb0ELb0ELb1ELi1EE"),
 }
@@ -1027,14 +1048,14 @@ INSTANTIATIONS = {
 SEG_INSTANTIATIONS = {
     "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb0ELb1ELi0EE"),
     "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi128ELb1ELb0ELb1ELb0ELi0EE"),
-    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb1ELb0ELi0EE"),
+    "B3a flash_bwd_dq": ("flash_bwd_split", "bwd_dq_kernelILi128ELb1ELb0ELi0ELb0EE"),
     "B3b flash_bwd_dkv": ("flash_bwd_split",
                           "bwd_kv_kernelILi128ELb0ELb0ELb1ELb0ELi0EE"),
     "B1 flash_fwd XFORM": ("flash_fwd", "flash_fwd_kernelILi128ELb0ELb1ELb1ELi0EE"),
     "B2 flash_bwd XFORM": ("flash_bwd",
                            "bwd_kv_kernelILi128ELb1ELb0ELb1ELb1ELi0EE"),
     "B3a flash_bwd_dq XFORM": ("flash_bwd_split",
-                               "bwd_dq_kernelILi128ELb1ELb1ELi0EE"),
+                               "bwd_dq_kernelILi128ELb1ELb1ELi0ELb0EE"),
     "B3b flash_bwd_dkv XFORM": ("flash_bwd_split",
                                 "bwd_kv_kernelILi128ELb0ELb0ELb1ELb1ELi0EE"),
     "B1 flash_fwd BAND": ("flash_fwd",
@@ -1042,7 +1063,7 @@ SEG_INSTANTIATIONS = {
     "B2 flash_bwd BAND": ("flash_bwd",
                           "bwd_kv_kernelILi128ELb1ELb0ELb1ELb1ELi1EE"),
     "B3a flash_bwd_dq BAND": ("flash_bwd_split",
-                              "bwd_dq_kernelILi128ELb1ELb1ELi1EE"),
+                              "bwd_dq_kernelILi128ELb1ELb1ELi1ELb0EE"),
     "B3b flash_bwd_dkv BAND": ("flash_bwd_split",
                                "bwd_kv_kernelILi128ELb0ELb0ELb1ELb1ELi1EE"),
 }
@@ -1106,7 +1127,7 @@ def hgmma_counts(path, piece):
 # tree without the last flags has no such builds)
 LOOP_FLAGS = {"flash_fwd_kernel": ("D", "ring", "xform", "seg", "band"),
               "bwd_kv_kernel": ("D", "dq", "ring", "seg", "xform", "band"),
-              "bwd_dq_kernel": ("D", "seg", "xform", "band")}
+              "bwd_dq_kernel": ("D", "seg", "xform", "band", "walk")}
 
 
 def loop_flags(piece, name):
@@ -1135,7 +1156,8 @@ def check_hgmma(what, lib, piece):
         flags = loop_flags(piece, name)
         return f"D={flags['D']}" + (" XFORM" if flags.get("xform") else "") \
             + (f" BAND={flags['band']}" if flags.get("band") else "") \
-            + (" SEG" if flags.get("seg") else "")
+            + (" SEG" if flags.get("seg") else "") \
+            + (" WALK" if flags.get("walk") else "")
 
     counts = {label(n): c for n, c in sorted(
         hgmma_counts(_build.build_all()[lib], piece).items())}
@@ -1771,7 +1793,10 @@ def phase_bwd(torch, flush):
     b3a_ptxas = {n: f for n, f in ptxas_facts(log_path).items()
                  if "bwd_dq_kernel" in n}
     log(f"  B3a ptxas: {b3a_ptxas}")
-    if not b3a_ptxas or any(f["spill_bytes"] for f in b3a_ptxas.values()):
+    # the WALK builds (past the class table) are logged, not held
+    table = [f for n, f in b3a_ptxas.items()
+             if not loop_flags("bwd_dq_kernel", n).get("walk")]
+    if not table or any(f["spill_bytes"] for f in table):
         raise AssertionError(f"B3a: a build spills or is missing: "
                              f"{b3a_ptxas}")
     check_hgmma("B3b", "flash_bwd_split", "bwd_kv_kernel")
@@ -4041,13 +4066,13 @@ def phase_llama3(torch, flash_losses):
     kv = torch.stack([k, v])
 
     def l3_fwd(qq, kv_all, offset):
-        return llama3._rank_fwd(qq, lambda i: kv_all[:, :, i:i + hkv], hkv,
+        return llama3._rank_fwd(qq, held_gather(kv_all, hkv), hkv,
                                 scale, MaskArgs(causal=True, offset=offset),
                                 hkv, None)
 
     def l3_bwd(qq, o, lse_q, dd, kv_all, offset):
         (dq, dk, dv), = llama3._rank_bwd(
-            qq, o, lse_q, dd, lambda i: kv_all[:, :, i:i + hkv], hkv, scale,
+            qq, o, lse_q, dd, held_gather(kv_all, hkv), hkv, scale,
             MaskArgs(causal=True, offset=offset), hkv, None)
         return dq, dk, dv
 
@@ -4569,12 +4594,12 @@ def phase_varlen(torch, flush):
 
                 def fwd(qr_=qr_, mask=mask, stride=stride):
                     return llama3._rank_fwd(
-                        qr_, lambda i: kv_all[:, :, i:i + stride], hkv,
+                        qr_, held_gather(kv_all, stride), hkv,
                         scale, mask, stride, None)
 
                 o, lse_r = fwd()
                 dq_parts = list(llama3._rank_bwd(
-                    qr_, o, lse_r, dr_, lambda i: kv_all[:, :, i:i + stride],
+                    qr_, o, lse_r, dr_, held_gather(kv_all, stride),
                     hkv, scale, mask, stride, None))
                 dq = torch.cat([p[0] for p in dq_parts], dim=1)
                 for j, (_, dk_g, dv_g) in enumerate(dq_parts):
@@ -4594,7 +4619,7 @@ def phase_varlen(torch, flush):
                     bwd_ms.append(_events_ms(torch, lambda: list(
                         llama3._rank_bwd(
                             qr_, o, lse_r, dr_,
-                            lambda i: kv_all[:, :, i:i + stride], hkv,
+                            held_gather(kv_all, stride), hkv,
                             scale, mask, stride, None)), 3))
             rel = [_rel_err(dkv[i], ref_g[1 + i].transpose(0, 1)[None].float())
                    for i in (0, 1)]
@@ -5110,12 +5135,12 @@ def phase_xform(torch, flush):
                  for x in (q, dout))
 
     def l3_fwd(qq, kv_all, m):
-        return llama3._rank_fwd(qq, lambda i: kv_all[:, :, i:i + stride],
+        return llama3._rank_fwd(qq, held_gather(kv_all, stride),
                                 hkv, scale, m, stride, None)
 
     def l3_bwd(qq, o, lse_q, dd, kv_all, m):
         parts = list(llama3._rank_bwd(
-            qq, o, lse_q, dd, lambda i: kv_all[:, :, i:i + stride], hkv,
+            qq, o, lse_q, dd, held_gather(kv_all, stride), hkv,
             scale, m, stride, None))
         return (torch.cat([p[0] for p in parts], dim=1),
                 torch.cat([p[1] for p in parts], dim=1),
@@ -5738,12 +5763,12 @@ def phase_band(torch, flush):
                  for x in (q, dout))
 
     def l3_fwd(qq, kv_all, m):
-        return llama3._rank_fwd(qq, lambda i: kv_all[:, :, i:i + stride],
+        return llama3._rank_fwd(qq, held_gather(kv_all, stride),
                                 hkv, scale, m, stride, None)
 
     def l3_bwd(qq, o, lse_q, dd_, kv_all, m):
         parts = list(llama3._rank_bwd(
-            qq, o, lse_q, dd_, lambda i: kv_all[:, :, i:i + stride], hkv,
+            qq, o, lse_q, dd_, held_gather(kv_all, stride), hkv,
             scale, m, stride, None))
         return [torch.cat([p[i] for p in parts], dim=1) for i in range(3)]
 
@@ -6579,12 +6604,12 @@ def phase_adapter(torch, hq=32, hkv=8, d=128):
             qr, dr = (x[rows].transpose(0, 1)[None] for x in (q, dout))
 
             def fwd(qr=qr, mask=mask):
-                return llama3._rank_fwd(qr, lambda i: kv_all, hkv, scale,
+                return llama3._rank_fwd(qr, held_gather(kv_all), hkv, scale,
                                         mask, hkv, None)
 
             def bwd(o, lse_r, qr=qr, dr=dr, mask=mask):
                 return list(llama3._rank_bwd(qr, o, lse_r, dr,
-                                             lambda i: kv_all, hkv, scale,
+                                             held_gather(kv_all), hkv, scale,
                                              mask, hkv, None))
 
             o, lse_r = fwd()
@@ -7188,7 +7213,7 @@ D256_INSTANTIATIONS = {
     "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi256ELb0ELb0ELb0ELi0EE"),
     "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi256ELb1ELb0ELb0ELb0ELi0EE"),
     "B3a flash_bwd_dq": ("flash_bwd_split",
-                         "bwd_dq_kernelILi256ELb0ELb0ELi0EE"),
+                         "bwd_dq_kernelILi256ELb0ELb0ELi0ELb0EE"),
     "B3b flash_bwd_dkv": ("flash_bwd_split",
                           "bwd_kv_kernelILi256ELb0ELb0ELb0ELb0ELi0EE"),
 }
@@ -7196,7 +7221,7 @@ D256_SEG_INSTANTIATIONS = {
     "B1 flash_fwd": ("flash_fwd", "flash_fwd_kernelILi256ELb0ELb0ELb1ELi0EE"),
     "B2 flash_bwd": ("flash_bwd", "bwd_kv_kernelILi256ELb1ELb0ELb1ELb0ELi0EE"),
     "B3a flash_bwd_dq": ("flash_bwd_split",
-                         "bwd_dq_kernelILi256ELb1ELb0ELi0EE"),
+                         "bwd_dq_kernelILi256ELb1ELb0ELi0ELb0EE"),
     "B3b flash_bwd_dkv": ("flash_bwd_split",
                           "bwd_kv_kernelILi256ELb0ELb0ELb1ELb0ELi0EE"),
 }
@@ -7433,6 +7458,147 @@ def phase_d256(torch, flush):
     return entries, launches
 
 
+# B3a's class tables, as csrc/flash_bwd_split.cu lays them out: two bits a
+# kv tile past DqSmem (Q, dout, two K stages, two V stages or one at 256,
+# the barriers and a 1024-byte alignment pad) hold the whole call's tiles
+# (dq_class_tiles); past them the WALK build keeps each K stage's tile in a
+# word first (dq_walk_tiles)
+def dq_smem_bytes(d):
+    """B3a's shared memory beside its class table at head_dim d."""
+    bm, bn, stages = 128, 64, 2
+    v_stages = 1 if d > 128 else stages
+    tiles = 2 * bm * d * 2 + (stages + v_stages) * bn * d * 2
+    return tiles + (1 + 2 * stages + 2 * v_stages) * 8 + 1024
+
+
+def dq_seg_max_kv_tiles(d):
+    """The most kv tiles of 64 keys whose classes B3a's table holds for a
+    whole call at head_dim d: 7968 (509,952 keys) at 256."""
+    from ring_flash_attn_tpu_torch.ops.block_meta import max_class_tiles
+    return max_class_tiles(dq_smem_bytes(d))
+
+
+def dq_walk_table_tiles(d):
+    """The widest range of one q tile whose classes the WALK build keeps
+    in its table at head_dim d: 7936 (507,904 keys) at 256."""
+    from ring_flash_attn_tpu_torch.ops.block_meta import max_class_tiles
+    return max_class_tiles(dq_smem_bytes(d) + 8)
+
+
+def dq_class_ranges(q_meta, d, skv, causal, offset, band=None):
+    """(t_lo, t_hi, walks) of each q tile of B3a's segmented builds, as the
+    kernel computes them: the kv tiles [t_lo, t_hi] whose classes it takes
+    (rows 4 and 5 of ``q_meta``, the ``block_meta`` bounds of 128-row q
+    tiles and 64-key kv tiles, cut at the causal bound by index of the
+    tile's last row at ``offset``, and to the tiles of the band ``band``
+    = (wl, wr, pos_off) where the positions are the index), and whether it
+    classifies them on the walk: in a call past ``dq_seg_max_kv_tiles``,
+    where its range is wider than ``dq_walk_table_tiles``. int64 tensors
+    on q_meta's device."""
+    import torch
+
+    bm, bn = 128, 64
+    n_q = q_meta.shape[1]
+    m0 = torch.arange(n_q, device=q_meta.device, dtype=torch.int64) * bm
+    n_end = torch.full_like(m0, skv)
+    if causal:
+        n_end = (m0 + bm + offset).clamp(0, skv)
+    n_tiles = -(-n_end // bn)
+    t_lo = q_meta[4].to(torch.int64)
+    if band is not None:  # rfa_band::index_tiles, mine_is_q
+        wl, wr, off = band
+        jlo, jhi = m0 + off - wl, m0 + bm - 1 + off + wr
+        k_lo = torch.where(jlo <= 0, 0, jlo // bn).clamp(max=n_tiles)
+        n_tiles = torch.where(jhi < 0, 0, jhi // bn + 1).clamp(max=n_tiles)
+        t_lo = torch.maximum(t_lo, k_lo)
+    t_hi = torch.minimum(n_tiles - 1, q_meta[5].to(torch.int64))
+    walks = t_hi - t_lo >= dq_walk_table_tiles(d)
+    return t_lo, t_hi, walks & (-(-skv // bn) > dq_seg_max_kv_tiles(d))
+
+
+# B3a's segmented builds at head_dim 256 past the 7968 kv tiles (509,952
+# keys) whose classes its table holds for a whole call, where its launcher
+# once refused the call and now runs its WALK build: one causal document
+# over every key (every q tile's range the widest), a packing of seeded
+# documents whose last long one (60% of the keys) holds all but the last
+# 100 rows, the XFORM build with softcap 5 on that packing, and the ALL
+# build (softcap 5, a window of Skv - 4096 and dropout 0.1) on one
+# document with explicit positions
+LONG_DQ_CASES = ("document", "packing", "softcap", "all")
+LONG_DQ_SKV = (524288, 1048576)
+
+
+def long_dq_mask(torch, case, skv, sq, dev, seed=0):
+    """The mask of LONG_DQ_CASES' ``case`` for the last ``sq`` q rows of a
+    causal sequence of ``skv`` keys."""
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+
+    def ids(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev)
+
+    if case in ("document", "all"):
+        kv_seg = ids(np.zeros(skv))
+        mask = MaskArgs(causal=True, q_segids=kv_seg[-sq:], kv_segids=kv_seg)
+        if case == "document":
+            return mask._replace(offset=skv - sq)
+        pos = ids(np.arange(skv))
+        return mask._replace(q_pos=pos[-sq:], kv_pos=pos, softcap=5.0,
+                             window_left=skv - 4096, dropout_p=0.1,
+                             dropout_seed=7)
+    rng = np.random.default_rng(seed)
+    last = int(0.6 * skv)
+    lens = []
+    while sum(lens) < skv - last - 100 - 30000:
+        lens.append(int(rng.integers(1000, 30000)))
+    lens += [skv - last - 100 - sum(lens), last, 100]
+    kv_seg = ids(np.repeat(np.arange(len(lens)), lens))
+    mask = MaskArgs(causal=True, offset=skv - sq, q_segids=kv_seg[-sq:],
+                    kv_segids=kv_seg)
+    return mask._replace(softcap=5.0) if case == "softcap" else mask
+
+
+def long_dq_check(torch, case, skv, seed=0):
+    """B3a at head_dim 256 on LONG_DQ_CASES' ``case`` over ``skv`` keys:
+    2 q heads over 1 kv head, the last 256 q rows; dq within BWD_REL_TOL
+    of max|plain| (raises past it). Returns (the error, the q tiles that
+    classify their kv tiles on the walk, of how many)."""
+    from ring_flash_attn_tpu_torch.ops.block_meta import (
+        index_causal, kernel_segments)
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        DQ_TILES, flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.naive import naive_block_bwd
+
+    dev = torch.device("cuda")
+    d, sq, scale = 256, 256, 256 ** -0.5
+    mask = long_dq_mask(torch, case, skv, sq, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(h, s):
+        return torch.randn((1, h, s, d), generator=g,
+                           device=dev).to(torch.bfloat16)
+
+    q, k, v, dout = rnd(2, sq), rnd(1, skv), rnd(1, skv), rnd(2, sq)
+    out, lse = flash_fwd_cuda(q, k, v, scale, mask, out_dtype=torch.bfloat16)
+    delta = compute_delta(dout, out)
+    dq = flash_bwd_dq_cuda(dout, q, k, v, lse, delta, scale, mask)
+    ref = naive_block_bwd(dout, q, k, v, lse, delta, scale, mask)[0]
+    err = _rel_err(dq, ref)
+    _, held = kernel_segments(mask, q.device, sq, skv, *DQ_TILES)
+    walks = dq_class_ranges(held[4], d, skv, index_causal(mask),
+                            mask.offset or 0)[2]
+    walked = int(walks.sum())
+    log(f"    B3a D256 {case} over {skv} keys: dq {err:.2e} of max|plain| "
+        f"(tol {BWD_REL_TOL}); {walked} of {walks.numel()} q tiles classify "
+        f"on the walk")
+    if not err <= BWD_REL_TOL:
+        raise AssertionError(f"B3a D256 {case} over {skv} keys: dq {err:.2e}")
+    del q, k, v, dout, out, lse, delta, dq, ref
+    torch.cuda.empty_cache()
+    return err, walked, walks.numel()
+
+
 # Gemma-2-9B's attention (google/gemma-2-9b config.json): 16 q heads and 8
 # kv heads of 256, attn_logit_softcapping 50.0, query_pre_attn_scalar 256
 # (scale 256^-0.5), sliding_window 4096 on every other layer (the window
@@ -7453,9 +7619,9 @@ D256_NEW_INSTANTIATIONS = {
     "B2 flash_bwd D256 BAND": (
         "flash_bwd", "bwd_kv_kernelILi256ELb1ELb0ELb0ELb1ELi2EE"),
     "B3a flash_bwd_dq D256 XFORM": (
-        "flash_bwd_split", "bwd_dq_kernelILi256ELb0ELb1ELi0EE"),
+        "flash_bwd_split", "bwd_dq_kernelILi256ELb0ELb1ELi0ELb0EE"),
     "B3a flash_bwd_dq D256 BAND": (
-        "flash_bwd_split", "bwd_dq_kernelILi256ELb0ELb1ELi2EE"),
+        "flash_bwd_split", "bwd_dq_kernelILi256ELb0ELb1ELi2ELb0EE"),
     "B3b flash_bwd_dkv D256 XFORM": (
         "flash_bwd_split", "bwd_kv_kernelILi256ELb0ELb0ELb0ELb1ELi0EE"),
     "B3b flash_bwd_dkv D256 BAND": (
@@ -7506,7 +7672,7 @@ def phase_gemma2(torch, flush):
     from ring_flash_attn_tpu_torch.ops.varlen import (
         cu_seqlens_to_positions, cu_seqlens_to_segids)
     from ring_flash_attn_tpu_torch.parallel import (
-        fused_ring as fr, layouts, ring, zigzag)
+        fused_ring as fr, layouts, llama3, ring, zigzag)
     from ring_flash_attn_tpu_torch.parallel.fused_ring_cuda import (
         fused_ring_bwd_cuda, fused_ring_fwd_cuda)
 
@@ -7572,6 +7738,9 @@ def phase_gemma2(torch, flush):
         grown = d256_growth_check(torch)
         log(f"  growing logits (O rescaled past the running max's slack): "
             f"worst {grown}")
+        # B3a's segmented builds past the keys its class table holds
+        for case in LONG_DQ_CASES:
+            long_dq_check(torch, case, LONG_DQ_SKV[0])
         # B7 and B8 at the path's own shape: a rank's diagonal step and an
         # earlier shard of 8192 keys each, plain on the last 512 q rows (as
         # phase 10's headline case at 128), with the path's cap of 50 and a
@@ -7936,6 +8105,18 @@ def phase_gemma2(torch, flush):
         torch.cuda.empty_cache()
     del q, k, v, dout, q8, k8, v8, d8
     torch.cuda.empty_cache()
+
+    # (f) llama3's last rank of W = 8 at Gemma-2-9B's widths, softcap 50,
+    # through the module's rank functions (one head chunk, the gathered k
+    # and v handed in): 65,536 rows a rank, so 524,288 gathered keys, past
+    # the 509,952 keys where B3a's launcher once refused the call, over
+    # seeded packed documents
+    # (the first of 516,096 tokens, so that the rank's q tiles late in it
+    # classify their kv tiles on the walk, then 512 to 4096 tokens each);
+    # B1, then B3a/B3b (past the fused kernel's 16,384 keys); held against
+    # the plain versions on 64 rows at the end of the long document, on
+    # the last 64 rows, and (dk, dv) on the first 512 keys over all rows
+    llama3_w8 = llama3_rank7_check(torch, flush, path_run, uncounted)
     log(f"  launches on the gemma2 path: {launches}")
     need = [f"{n} {a}" for n in list(counters)[:4]
             for a in ("xform_launches", "band_launches")] + [
@@ -8043,7 +8224,134 @@ def phase_gemma2(torch, flush):
                   + (f", window ({wl}, 0)" if layer == "sliding" else "")
                   + f": Gemma-2-9B's {layer} layers"))
     entries[0]["serving_append_false"] = serving
+    for e in entries:
+        if e["name"] == "B3a flash_bwd_dq D256 XFORM":
+            e["llama3_w8_rank7"] = llama3_w8
     return entries, launches
+
+
+def gemma2_rank7_packing(seed=251):
+    """The document lengths of phase 25 (f)'s packing of llama3's W = 8
+    ranks of 65,536 tokens (524,288 in all): the first 516,096 tokens, past
+    the 509,952 keys where B3a's launcher once refused a segmented call,
+    then seeded ones of 512 to 4096."""
+    rng = np.random.default_rng(seed)
+    lens, total = [516096], 8 * 65536
+    while sum(lens) < total:
+        lens.append(int(rng.integers(512, 4097)))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+def causal_pairs_in(lens, offset, rows):
+    """The (q row, key) pairs that rows [offset, offset + rows) of a
+    packing of documents of ``lens`` tokens attend causally within their
+    documents: row p of the document [a, b) sees keys a to p."""
+    pairs, a = 0, 0
+    for n in lens:
+        lo, hi = max(a, offset), min(a + n, offset + rows)
+        if hi > lo:
+            pairs += ((hi - a) * (hi - a + 1) // 2
+                      - (lo - a) * (lo - a + 1) // 2)
+        a += n
+    return pairs
+
+
+def llama3_rank7_check(torch, flush, path_run, uncounted):
+    """Phase 25 (f): llama3's last rank of W = 8 at Gemma-2-9B's widths
+    through ``parallel/llama3.py``'s ``_rank_fwd``/``_rank_bwd``, its
+    launches counted by ``path_run``. Raises past the limits; returns the
+    errors, B3a's time over the 524,288 keys (``uncounted``) beside its
+    masked-flop bound, and the q tiles that classify on the walk."""
+    from ring_flash_attn_tpu_torch.ops.block_meta import kernel_segments
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        DQ_TILES, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+    from ring_flash_attn_tpu_torch.ops.naive import (
+        naive_block_bwd, naive_block_fwd)
+    from ring_flash_attn_tpu_torch.parallel import llama3
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(251)
+    bf16 = torch.bfloat16
+    hq, hkv, d, cap = (GEMMA2_ATTN[x] for x in (
+        "heads", "kv_heads", "head_dim", "softcap"))
+    world, ll, rank, rows, keys = 8, 65536, 7, 64, 512
+    skv, offset, scale = world * ll, rank * ll, d ** -0.5
+    lens = gemma2_rank7_packing()
+    seg = torch.as_tensor(np.repeat(np.arange(len(lens)), lens),
+                          dtype=torch.int32, device=dev)
+    pairs = causal_pairs_in(lens, offset, ll)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q, dout = rnd(1, hq, ll, d), rnd(1, hq, ll, d)
+    kv = torch.stack([rnd(1, hkv, skv, d), rnd(1, hkv, skv, d)])
+    k, v = kv[0], kv[1]
+    mask = MaskArgs(causal=True, offset=offset, q_segids=seg[offset:],
+                    kv_segids=seg, softcap=cap)
+    with path_run():  # the counts start at 0 in it
+        out, lse = llama3._rank_fwd(q, held_gather(kv), hkv, scale, mask, hkv,
+                                    None)
+        (dq, dk, dv), = llama3._rank_bwd(q, out, lse, dout, held_gather(kv),
+                                         hkv, scale, mask, hkv, None)
+        ran = flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches
+    delta = compute_delta(dout, out)
+    errs = {}
+    # rows at the end of the long document, and the rank's last rows
+    for name, r0 in (("long document's last rows", lens[0] - offset - rows),
+                     ("last rows", ll - rows)):
+        sl = slice(r0, r0 + rows)
+        m = mask._replace(offset=offset + r0, q_segids=seg[offset + r0:][
+            :rows])
+        p_out, p_lse = naive_block_fwd(q[:, :, sl], k, v, scale, m)
+        p_dq = naive_block_bwd(dout[:, :, sl], q[:, :, sl], k, v,
+                               lse[:, :, sl], delta[:, :, sl], scale, m)[0]
+        errs[name] = [_rel_err(out[:, :, sl], p_out),
+                      max_err(lse[:, :, sl], p_lse), _rel_err(dq[:, :, sl],
+                                                              p_dq)]
+        del p_out, p_lse, p_dq
+        torch.cuda.empty_cache()
+    m = mask._replace(kv_segids=seg[:keys])
+    _, p_dk, p_dv = naive_block_bwd(dout, q, k[:, :, :keys], v[:, :, :keys],
+                                    lse, delta, scale, m)
+    errs["first keys"] = [_rel_err(dk[:, :, :keys], p_dk),
+                          _rel_err(dv[:, :, :keys], p_dv)]
+    del p_dk, p_dv, dq, dk, dv
+    torch.cuda.empty_cache()
+    _, held = kernel_segments(mask, q.device, ll, skv, *DQ_TILES)
+    walks = dq_class_ranges(held[4], d, skv, True, offset)[2]
+    with uncounted():
+        t = kernel_ms(torch, lambda: flash_bwd_dq_cuda(
+            dout, q, k, v, lse, delta, scale, mask, dq_dtype=bf16), 2, flush)
+    bound = 3 * 2 * hq * d * pairs / H100_BF16_FLOPS * 1e3
+    log(f"  (f) llama3 W={world} rank {rank} at Gemma-2-9B's widths (q "
+        f"{tuple(q.shape)}, {skv} keys, offset {offset}, {len(lens)} "
+        f"documents, softcap {cap}): B3a/B3b launched {ran}; vs plain "
+        + "; ".join(f"{n}: " + " ".join(f"{x:.2e}" for x in e)
+                    for n, e in errs.items())
+        + f" (out rel, lse, dq rel; dk, dv rel; tol {RING_OUT_REL_TOL}, "
+        f"{RING_LSE_TOL}, {BWD_REL_TOL})")
+    log(f"  B3a past the old class ceiling ({skv} keys, {int(walks.sum())} "
+        f"of {walks.numel()} q tiles classify on the walk): {t['ms']:.3f} ms "
+        f"(device {t['device_ms']:.3f}), masked-flop bound {bound:.3f} ms "
+        f"({pairs} pairs a head, 3 products at 989 TFLOP/s; "
+        f"{t['ms'] / bound:.2f}x)")
+    if not (ran == (1, 1) and max(e[0] for e in list(errs.values())[:2])
+            <= RING_OUT_REL_TOL
+            and max(e[1] for e in list(errs.values())[:2]) <= RING_LSE_TOL
+            and max(e[2] for e in list(errs.values())[:2]) <= BWD_REL_TOL
+            and max(errs["first keys"]) <= BWD_REL_TOL):
+        raise AssertionError("llama3's last rank of W=8 at Gemma-2-9B's "
+                             "widths is wrong")
+    del q, dout, kv, k, v, out, lse, delta
+    torch.cuda.empty_cache()
+    return {"errors": errs, "b3a_ms": t["ms"], "b3a_device_ms":
+            t["device_ms"], "b3a_bound_ms": bound, "pairs_a_head": pairs,
+            "walked_q_tiles": int(walks.sum()), "q_tiles": walks.numel(),
+            "documents": len(lens)}
 
 
 # the decode loop's new builds in the kernels line: the library, the TPU

@@ -5,7 +5,7 @@ one NVIDIA H100.
 Run from the root of a checkout:
 
     python3 profile_torch_bwd.py [--root DIR] [--rounds N]
-        [--head-dim {128,256,both}] [--only TEXT]
+        [--head-dim {128,256,both,long}] [--only TEXT]
 
 ``--root`` imports ``ring_flash_attn_tpu_torch`` from another checkout (for
 example the parent commit unpacked beside this one), so that two trees are
@@ -48,6 +48,15 @@ parent. ``--head-dim`` picks the shapes of step 2 (default both);
    softcap 50 and without. SDPA's backward causal, with the dense band
    mask, with the packing's dense mask, and not causal (beside B8).
 
+   ``--head-dim long``: B3a past its segment class table, on llama3's
+   rank 7 of W = 8 at Gemma-2-9B's widths (chip_smoke.py phase 25 (f)):
+   q (1,16,65536,256) at offset 458,752, kv (1,8,524288,256), on
+   ``gemma2_rank7_packing`` with softcap 50 (the XFORM SEG build) and
+   without (the SEG build), and on one causal document with softcap 50
+   (the XFORM build without segments), each beside its masked-flop
+   bound; 2 calls a reading. No SDPA: its dense mask at 524,288 keys
+   does not fit.
+
 The loop's correctness is ``chip_smoke.py``'s (phases 5, 10 to 12, 16 to
 18, 23, 25) and ``tests/test_torch_cuda.py``'s. Prints the card's name and
 power limit first.
@@ -60,8 +69,9 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    GEMMA2_ATTN, H100_BF16_FLOPS, VARLEN_PACKINGS, band_pairs, has_segments,
-    kernel_ms, log, profile_loop, varlen_mask, varlen_pairs)
+    GEMMA2_ATTN, H100_BF16_FLOPS, VARLEN_PACKINGS, band_pairs,
+    causal_pairs_in, gemma2_rank7_packing, has_segments, kernel_ms, log,
+    profile_loop, varlen_mask, varlen_pairs)
 
 LOOP = ("B2 flash_bwd", "B3b flash_bwd_dkv", "B8 fused_ring_bwd")
 PIECES = ("bwd_kv_kernel", "bwd_dq_kernel")
@@ -74,7 +84,66 @@ def timings(torch, args):
         best.update(timings_128(torch, args.rounds, flush))
     if args.head_dim in ("256", "both"):
         best.update(timings_256(torch, args.rounds, flush, args.only))
+    if args.head_dim == "long":
+        best.update(timings_long(torch, args.rounds, flush))
     return best
+
+
+def timings_long(torch, rounds, flush):
+    """B3a over the 524,288 keys of llama3's rank 7 of W = 8 at
+    Gemma-2-9B's widths, ``rounds`` times in turns (module docstring)."""
+    import numpy as np
+
+    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
+    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
+        flash_bwd_dq_cuda)
+    from ring_flash_attn_tpu_torch.ops.flash_fwd_cuda import flash_fwd_cuda
+    from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(251)
+    hq, hkv, d, cap = (GEMMA2_ATTN[x] for x in (
+        "heads", "kv_heads", "head_dim", "softcap"))
+    ll, offset = 65536, 7 * 65536
+    skv, scale = offset + ll, d ** -0.5
+    lens = gemma2_rank7_packing()
+    seg = torch.as_tensor(np.repeat(np.arange(len(lens)), lens),
+                          dtype=torch.int32, device=dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, dout = rnd(1, hq, ll, d), rnd(1, hq, ll, d)
+    k, v = rnd(1, hkv, skv, d), rnd(1, hkv, skv, d)
+    packed = MaskArgs(causal=True, offset=offset, q_segids=seg[offset:],
+                      kv_segids=seg)
+    cases = {
+        "B3a rank 7 softcap": (packed._replace(softcap=cap), lens),
+        "B3a rank 7": (packed, lens),
+        "B3a rank 7 one document, softcap": (
+            MaskArgs(causal=True, offset=offset, softcap=cap), [skv])}
+    fns, bound = {}, {}
+    for name, (mask, docs) in cases.items():
+        out, lse = flash_fwd_cuda(q, k, v, scale, mask,
+                                  out_dtype=torch.bfloat16)
+        delta = compute_delta(dout, out)
+        fns[name] = (lambda mask=mask, lse=lse, delta=delta:
+                     flash_bwd_dq_cuda(dout, q, k, v, lse, delta, scale,
+                                       mask, dq_dtype=torch.bfloat16))
+        bound[name] = (3 * 2 * hq * d * causal_pairs_in(docs, offset, ll)
+                       / H100_BF16_FLOPS * 1e3)
+        del out
+    times = collections.defaultdict(list)
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(kernel_ms(torch, fn, 2, flush))
+    for name, ts in times.items():
+        best = min(t["ms"] for t in ts)
+        log(f"  {name}: " + ", ".join(f"{t['ms']:.2f}" for t in ts)
+            + " ms; device " + ", ".join(f"{t['device_ms']:.2f}" for t in ts)
+            + f" ms; bound {bound[name]:.2f} ms, {best / bound[name]:.2f}x")
+    return {name: min(t["ms"] for t in ts) for name, ts in times.items()}
 
 
 def run_rounds(torch, groups, rounds, flush, flops, lib):
@@ -106,8 +175,9 @@ def run_rounds(torch, groups, rounds, flush, flops, lib):
 
 
 def add_arguments(ap):
-    ap.add_argument("--head-dim", choices=("128", "256", "both"),
-                    default="both", help="the shapes of the timings")
+    ap.add_argument("--head-dim", choices=("128", "256", "both", "long"),
+                    default="both", help="the shapes of the timings (long: "
+                    "B3a past its class table at 524,288 keys)")
     ap.add_argument("--only", action="append", default=[], metavar="TEXT",
                     help="at head_dim 256, time only the kernels whose name "
                     "holds TEXT (repeatable), beside their SDPA yardstick")

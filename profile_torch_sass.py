@@ -23,8 +23,9 @@ names them; the BAND parameter (windows and dropout,
 the rest) that the three loops take last, and the XFORM flag (softcap and
 ALiBi, ``csrc/xform.cuh``) that ``bwd_kv_kernel`` and ``bwd_dq_kernel``
 take before it, are dropped where they have their defaults (off; XFORM
-on with RING, the fused ring's B8), so that a tree without them and one
-with them name the same instantiation alike. Instructions are compared
+on with RING, the fused ring's B8), and so is ``bwd_dq_kernel``'s WALK
+flag after BAND (B3a past its class table) where it is off, so that a
+tree without them and one with them name the same instantiation alike. Instructions are compared
 as written, operands, constant-bank offsets and immediates included;
 only the branch labels are renumbered in their order of first use within
 a kernel.
@@ -82,6 +83,11 @@ def key(name):
     args = tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2)))
     if len(args) == DECODE_ARGS.get(kernel):
         return kernel, (args[:-2] if args[-2:] == (128, 0) else args)
+    if kernel == "bwd_dq_kernel" and len(args) == 5:
+        # <D, SEG, XFORM, BAND, WALK = false>
+        if args[-1]:
+            return kernel, args[:-1] + ("walk",)
+        args = args[:-1]
     if len(args) == BAND_ARGS.get(kernel):
         if args[-1]:
             return kernel, args + ("band",)
@@ -144,7 +150,7 @@ def main():
     parent = sass(build(os.path.abspath(args.root)))
     change = sass(build(ROOT))
     bad = meant = 0
-    # the keys mix ints and the flags' names at one place ("band", "new"):
+    # the keys mix ints and the flags' names ("band", "new", "walk"):
     # sorted by their text
     for k in sorted(parent, key=str):
         name = f"{k[0]} {k[1]}<{', '.join(map(str, k[2]))}>"

@@ -62,7 +62,8 @@
 // in all), so a tile issues S on K alone, waits for the previous tile's dQ,
 // then issues dP once V has come: V's next load runs under dS, dQ and the
 // next S (with SEG and XFORM, once P is made: see LATE_DP). The classes of
-// SEG then fit 7968 kv tiles (509,952 keys). Measured at Gemma-7B's q, kv
+// SEG then fit 7968 kv tiles (509,952 keys); past them the WALK build
+// runs (see Packed sequences below). Measured at Gemma-7B's q, kv
 // (1, 16, 8192, 256) causal (profile_torch_bwd.py, NVIDIA H100 80GB HBM3,
 // 700 W, in turns): 1.18 to 1.19 ms, about 650 TFLOP/s of its 3 products;
 // the 64-row tile both warpgroups shared, each making the same S and dP,
@@ -74,7 +75,24 @@
 // the kv tiles [q_meta[4], q_meta[5]] of its q tile and B3b the q steps
 // [kv_meta[4], kv_meta[5]] of its kv tile, each skipping the tiles whose
 // segments or positions cannot meet and masking those that straddle an
-// edge, exactly as the forward applied the mask.
+// edge, exactly as the forward applied the mask. B3a sorts its range
+// into a table of classes in shared memory beside its tiles, which holds
+// 7968 kv tiles at head_dim 256 (dq_class_tiles; 401,120 at 128). A call
+// with more kv tiles runs bwd_dq_kernel<..., WALK>, in which a q
+// tile keeps its range's classes in the table where the range fits
+// (dq_walk_tiles: 7936 tiles at 256, the producer's tile of each K stage
+// taking a word), and a q tile with a wider range (one document over more
+// than 507,904 keys at 256) classifies each kv tile from kv_meta as the
+// producer reaches it, the same test on the same bounds, after the block
+// has counted the live ones in parallel (count_live); the producer hands
+// each K stage's tile and whether it is masked to the consumers (tile_of),
+// who read it once the stage is full. So any Skv the mask-free build takes
+// is taken, and a call within the table runs the kernel it ran before.
+// (The consumers' walk through tile_of in every call cost bwd_dq_kernel<
+// 256, SEG> 48 bytes of spill and 4% on the five-sequence packing; with
+// every range classified on the walk the softcap build ran that packing
+// 4 to 5% slower: NVIDIA H100 80GB HBM3, 700 W, profile_torch_bwd.py in
+// turns.)
 //
 // Softcap and ALiBi (csrc/xform.cuh) are compiled apart too (XFORM): B3a
 // scales its logits to base 2, caps them, takes ALiBi from the index and
@@ -128,6 +146,17 @@ struct DqSmem {
   static constexpr int BYTES = BAR + (1 + 2 * STAGES + 2 * V_ST) * 8 + 1024;
 };
 
+// SEG: the most kv tiles whose classes the table past the barriers holds
+// (two bits a tile, up to the block's shared memory): bwd_dq_kernel takes
+// a call of up to this many, and with WALK the rest, its table then,
+// after the producer's tile of each K stage, holds one q tile's range of
+// up to dq_walk_tiles and which classifies a wider one on the walk
+template <int D>
+constexpr int dq_class_tiles = (rfa_seg::MAX_SMEM - DqSmem<D>::BYTES) / 4 * 16;
+template <int D>
+constexpr int dq_walk_tiles =
+    (rfa_seg::MAX_SMEM - DqSmem<D>::BYTES - 4 * STAGES) / 4 * 16;
+
 // TMA maps of q and dout (boxes of 64 columns by BM rows) and of k and v
 // (64 columns by BN rows).
 struct DqMaps {
@@ -149,7 +178,35 @@ __device__ __forceinline__ void dq_scores(float (&acc)[32], const char* a,
   }
 }
 
-template <int D, bool SEG = false, bool XFORM = false, int BAND = 0>
+// WALK: kv tile t's class against the q tile whose bounds are bounds[0,
+// 4), as the table's fill (rfa_seg::fill_classes or rfa_band's, then
+// rfa_seg::keep_affine) would have made it
+template <bool XFORM, int BAND>
+__device__ __forceinline__ int dq_classify(const int* bounds,
+                                           const rfa_seg_args& seg,
+                                           const rfa_xform_args& xf,
+                                           const rfa_band_args& band, int t) {
+  const rfa_seg::Bounds mine{bounds[0], bounds[1], bounds[2], bounds[3]};
+  const rfa_seg::Bounds o = rfa_seg::tile(seg.kv_meta, seg.n_kv, t);
+  int c;
+  if constexpr (BAND)
+    c = rfa_band::classify(mine, o, seg.pos_causal != 0, seg.q_pos != nullptr,
+                           band);
+  else
+    c = rfa_seg::classify(mine, o, rfa_seg::skip_on_positions<XFORM>(seg));
+  if constexpr (XFORM) {  // keep_affine's test
+    if (c == 2 && seg.q_pos &&
+        (xf.slopes || (BAND == rfa_band::ALL && band.thr)) &&
+        __ldg(seg.kv_step + t) == INT_MIN)
+      c = 1;
+  }
+  return c;
+}
+
+// WALK: SEG past the kv tiles whose classes a table holds for the whole
+// call (see Packed sequences above).
+template <int D, bool SEG = false, bool XFORM = false, int BAND = 0,
+          bool WALK = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_dq_kernel(const __grid_constant__ DqMaps maps,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -158,6 +215,7 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
               const __grid_constant__ rfa_seg_args seg,
               const rfa_xform_args xf, const rfa_band_args band) {
   static_assert(!BAND || XFORM, "BAND comes with XFORM");
+  static_assert(SEG || !WALK, "WALK comes with SEG");
   using S = DqSmem<D>;
   // head_dim 256: V in one stage, dP issued apart from S; with segments
   // and a transform, once P is made (the masked body's P beside dP's
@@ -195,10 +253,19 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
   }
 
   // SEG: the classes of the kv tiles [t_lo, t_hi] against this q tile, in
-  // shared memory past the barriers; the walk visits the live ones in
-  // order and n_tiles counts them
-  uint32_t* seg_bits = reinterpret_cast<uint32_t*>(smem + S::BYTES - 1024);
+  // shared memory past the barriers; producer and consumers walk the live
+  // ones in order and n_tiles counts them. WALK: past the barriers, the
+  // producer's tile of each K stage (tile_of: 2 t + masked), then the
+  // table where the range fits it (table), else the classes made from
+  // kv_meta as the producer's walk reaches each tile against this q
+  // tile's bounds, held in the table's place beside the count of live
+  // tiles; the consumers take each tile from tile_of
+  int* tile_of = reinterpret_cast<int*>(smem + S::BYTES - 1024);
+  uint32_t* seg_bits = reinterpret_cast<uint32_t*>(
+      smem + S::BYTES - 1024 + (WALK ? 4 * STAGES : 0));
+  int* walk = reinterpret_cast<int*>(seg_bits);  // [0] count, [1, 4] bounds
   int t_lo = 0, t_hi = 0;
+  bool table = true;
   auto tile_class = [&](int t) {
     return rfa_seg::class_of(seg_bits, t - t_lo);
   };
@@ -237,21 +304,34 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
     t_lo = rfa_seg::range_lo(seg.q_meta, seg.n_q, qt);
     if constexpr (BAND) t_lo = max(t_lo, k_lo);
     t_hi = min(n_tiles - 1, rfa_seg::range_hi(seg.q_meta, seg.n_q, qt));
-    if constexpr (BAND) {
-      n_tiles = rfa_band::fill_classes<NTHREADS>(
-          seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
-          seg.n_kv, t_lo, t_hi, seg.pos_causal != 0, seg.q_pos != nullptr,
-          true, band);
-    } else {
-      n_tiles = rfa_seg::fill_classes<NTHREADS>(
-          seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
-          seg.n_kv, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg),
-          true);
+    if constexpr (WALK) {
+      table = t_hi - t_lo < dq_walk_tiles<D>;
+      if (!table) {
+        if (threadIdx.x < 4)
+          walk[1 + threadIdx.x] =
+              __ldg(seg.q_meta + threadIdx.x * seg.n_q + qt);
+        n_tiles = rfa_seg::count_live<NTHREADS>(walk, t_lo, t_hi, [&](int t) {
+          return dq_classify<XFORM, BAND>(walk + 1, seg, xf, band, t);
+        });
+      }
+    }
+    if (!WALK || table) {
+      if constexpr (BAND) {
+        n_tiles = rfa_band::fill_classes<NTHREADS>(
+            seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
+            seg.n_kv, t_lo, t_hi, seg.pos_causal != 0, seg.q_pos != nullptr,
+            true, band);
+      } else {
+        n_tiles = rfa_seg::fill_classes<NTHREADS>(
+            seg_bits, rfa_seg::tile(seg.q_meta, seg.n_q, qt), seg.kv_meta,
+            seg.n_kv, t_lo, t_hi, rfa_seg::skip_on_positions<XFORM>(seg),
+            true);
+      }
     }
     if constexpr (XFORM) {
       // BAND: dropout on explicit positions hashes each key's, which an
       // unmasked tile gives by its first position and step too
-      if (seg.q_pos &&
+      if ((!WALK || table) && seg.q_pos &&
           (xf.slopes || (BAND == rfa_band::ALL && band.thr)))
         rfa_seg::keep_affine<NTHREADS>(seg_bits, seg.kv_step + t_lo,
                                        t_hi - t_lo + 1);
@@ -270,25 +350,54 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
         hop::tma_load_4d(dos + p * S::PANEL_Q, &maps.o, q_bar, 64 * p, m0, h,
                          b);
       }
-      int t = 0;
-      if constexpr (SEG) t = next_live(t_lo);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % STAGES;
-        const uint32_t parity = ((j / STAGES) & 1) ^ 1;
-        const int kt = SEG ? t : k_lo + j;
-        hop::mbar_wait(&empty_k[s], parity);
-        hop::mbar_arrive_tx(&full_k[s], BN * D * 2);
-        for (int p = 0; p < D / 64; ++p)
-          hop::tma_load_4d(ks(s) + p * S::PANEL_KV, &maps.k, &full_k[s],
-                           64 * p, kt * BN, hk, b);
-        const int sv = V1 ? 0 : s;  // V's stage and its parity
-        const uint32_t pv = V1 ? (j & 1) ^ 1 : parity;
-        hop::mbar_wait(&empty_v[sv], pv);
-        hop::mbar_arrive_tx(&full_v[sv], BN * D * 2);
-        for (int p = 0; p < D / 64; ++p)
-          hop::tma_load_4d(vs(sv) + p * S::PANEL_KV, &maps.v, &full_v[sv],
-                           64 * p, kt * BN, hk, b);
-        if constexpr (SEG) t = next_live(t + 1);
+      // the kv tiles in turn; SEG: the live ones, their classes from the
+      // table, or (WALK) made as they are reached in a loop of its own
+      auto load_tiles = [&](auto live) {
+        int t = 0;
+        if constexpr (SEG) t = live(t_lo);
+        for (int j = 0; j < n_tiles; ++j) {
+          const int s = j % STAGES;
+          const uint32_t parity = ((j / STAGES) & 1) ^ 1;
+          const int kt = SEG ? t : k_lo + j;
+          hop::mbar_wait(&empty_k[s], parity);
+          if constexpr (WALK) tile_of[s] = 2 * kt + (live.cls == 1);
+          hop::mbar_arrive_tx(&full_k[s], BN * D * 2);
+          for (int p = 0; p < D / 64; ++p)
+            hop::tma_load_4d(ks(s) + p * S::PANEL_KV, &maps.k, &full_k[s],
+                             64 * p, kt * BN, hk, b);
+          const int sv = V1 ? 0 : s;  // V's stage and its parity
+          const uint32_t pv = V1 ? (j & 1) ^ 1 : parity;
+          hop::mbar_wait(&empty_v[sv], pv);
+          hop::mbar_arrive_tx(&full_v[sv], BN * D * 2);
+          for (int p = 0; p < D / 64; ++p)
+            hop::tma_load_4d(vs(sv) + p * S::PANEL_KV, &maps.v, &full_v[sv],
+                             64 * p, kt * BN, hk, b);
+          if constexpr (SEG) t = live(t + 1);
+        }
+      };
+      if constexpr (WALK) {
+        // the next live tile at or past t and its class
+        struct Live {
+          const int* bounds;
+          const rfa_seg_args& seg;
+          const rfa_xform_args& xf;
+          const rfa_band_args& band;
+          const uint32_t* bits;
+          int lo, hi;
+          bool table;
+          int cls = 0;
+          __device__ int operator()(int t) {
+            while (t <= hi &&
+                   (cls = table ? rfa_seg::class_of(bits, t - lo)
+                                : dq_classify<XFORM, BAND>(bounds, seg, xf,
+                                                           band, t)) == 0)
+              ++t;
+            return t;
+          }
+        };
+        load_tiles(Live{walk + 1, seg, xf, band, seg_bits, t_lo, t_hi, table});
+      } else {
+        load_tiles(next_live);
       }
     }
     return;
@@ -370,13 +479,22 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
     // one V stage, dP is issued after that wait, once V has come.
     uint32_t da[4][4];
     int t = k_lo;  // SEG: the live kv tile of step j
-    if constexpr (SEG) t = next_live(t_lo);
+    if constexpr (SEG && !WALK) t = next_live(t_lo);
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % STAGES;
       const uint32_t ph = (j / STAGES) & 1;
+      // WALK: the producer's tile, once K is in
+      if constexpr (WALK) {
+        hop::mbar_wait(&full_k[s], ph);
+        t = tile_of[s] >> 1;
+      }
       const int n0 = (SEG ? t : k_lo + j) * BN;
-      const bool seg_masked = SEG && tile_class(t) == 1;
-      if constexpr (SEG) t = next_live(t + 1);
+      bool seg_masked;
+      if constexpr (WALK)
+        seg_masked = tile_of[s] & 1;
+      else
+        seg_masked = SEG && tile_class(t) == 1;
+      if constexpr (SEG && !WALK) t = next_live(t + 1);
       // SEG: the lane's share of the masked tile's keys n0 + 2 lane +
       // {0, 1}, loaded before the products are waited for
       rfa_seg::Pair kv{};
@@ -403,7 +521,7 @@ bwd_dq_kernel(const __grid_constant__ DqMaps maps,
         dq_scores<D>(dp, doa, vs(0));
         hop::wgmma_commit();
       };
-      hop::mbar_wait(&full_k[s], ph);
+      if constexpr (!WALK) hop::mbar_wait(&full_k[s], ph);
       if constexpr (V1) {
         hop::wgmma_fence();
         dq_scores<D>(sc, qa, ks(s));
@@ -712,11 +830,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const rfa_seg_args& seg = rfa_seg_args{},
               const rfa_xform_args& xf = rfa_xform_args{},
               const rfa_band_args& band = rfa_band_args{}) {
+  // SEG: the kv tiles' classes past the barriers, the whole call's where
+  // they fit, else (WALK) each q tile's range's where it fits after the
+  // stages' tiles
+  static_assert(DqSmem<D>::BYTES + 4 * STAGES +
+                    rfa_seg::class_bytes(dq_walk_tiles<D>) <=
+                rfa_seg::MAX_SMEM);
   auto kern = bwd_dq_kernel<D, SEG, XFORM, BAND>;
-  // SEG: the kv tiles' classes past the barriers
-  const int bytes =
-      DqSmem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
-  if (bytes > rfa_seg::MAX_SMEM) return cudaErrorInvalidValue;
+  int bytes = DqSmem<D>::BYTES + (SEG ? rfa_seg::class_bytes(seg.n_kv) : 0);
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -724,6 +845,21 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
         SEG ? rfa_seg::MAX_SMEM : DqSmem<D>::BYTES);
     if (e != cudaSuccess) return e;
     attr = true;
+  }
+  if constexpr (SEG) {
+    if (seg.n_kv > dq_class_tiles<D>) {
+      kern = bwd_dq_kernel<D, true, XFORM, BAND, true>;
+      bytes = DqSmem<D>::BYTES + 4 * STAGES +
+              rfa_seg::class_bytes(dq_walk_tiles<D>);
+      static bool walk_attr = false;
+      if (!walk_attr) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            rfa_seg::MAX_SMEM);
+        if (e != cudaSuccess) return e;
+        walk_attr = true;
+      }
+    }
   }
   const int tiles = (Sq + BM - 1) / BM;
   if (tiles > 65535) return cudaErrorInvalidValue;  // gridDim.y's limit

@@ -137,6 +137,21 @@ __device__ int fill_classes(uint32_t* bits, const Bounds& mine,
   return live;
 }
 
+// The number of live tiles among [t_lo, t_hi], cls(t) giving tile t's
+// class, by all NT threads of the block, summed in the shared int `count`
+// (it synchronises them): fill_classes' count where a kernel classifies
+// its tiles as it walks them instead of keeping a table.
+template <int NT, class Cls>
+__device__ int count_live(int* count, int t_lo, int t_hi, Cls cls) {
+  if (threadIdx.x == 0) *count = 0;
+  __syncthreads();
+  int live = 0;
+  for (int t = t_lo + threadIdx.x; t <= t_hi; t += NT) live += cls(t) != 0;
+  if (live) atomicAdd(count, live);
+  __syncthreads();
+  return *count;
+}
+
 // The segment ids and positions of entries i and i + 1 of (seg, pos), 0
 // past n or where the array is null: a lane's share of a tile.
 struct Pair {

@@ -21,8 +21,7 @@ import ctypes
 import torch
 
 from . import _build
-from .block_meta import (SegArgs, index_causal, launch_masked,
-                         max_class_tiles, segmented)
+from .block_meta import SegArgs, index_causal, launch_masked
 from .flash_bwd_cuda import bwd_delta, bwd_strides, check_bwd, kv_major_tiles
 from .flash_fwd_cuda import BAND_TAIL, XFORM_TAIL, count_launch
 from .mask import MaskArgs
@@ -41,18 +40,6 @@ _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
 ]
 _SEG_TAIL = [ctypes.POINTER(SegArgs), ctypes.c_void_p]
 DQ_TILES = (128, 64)  # B3a: 128 q rows a block, 64 keys a tile
-
-
-def dq_seg_max_kv_tiles(d):
-    """The most kv tiles (of 64 keys) whose segment classes B3a's
-    segmented builds hold in shared memory at head_dim d
-    (``csrc/flash_bwd_split.cu::DqSmem``: Q, dout, two stages of K and two
-    of V, one of V at 256): 7968 (509,952 keys) at 256."""
-    bm, bn = DQ_TILES
-    v_stages = 1 if d > 128 else 2
-    tiles = 2 * bm * d * 2 + (2 + v_stages) * bn * d * 2
-    barriers = (5 + 2 * v_stages) * 8
-    return max_class_tiles(tiles + barriers + 1024)
 
 
 def _lib():
@@ -89,12 +76,6 @@ def _dq(dout, q, k, v, lse, delta, scale, mask, offset, dq_dtype):
     dq = torch.empty(q.shape, dtype=dq_dtype, device=q.device)
     if not q.numel():
         return dq
-    d, n_kv = q.shape[3], -(-k.shape[2] // DQ_TILES[1])
-    if segmented(mask) and n_kv > dq_seg_max_kv_tiles(d):
-        raise ValueError(
-            f"flash_bwd_dq: the segmented build at head_dim {d} holds the "
-            f"classes of at most {dq_seg_max_kv_tiles(d)} kv tiles of 64 keys "
-            f"in shared memory, Skv = {k.shape[2]} needs {n_kv}")
     lib = _lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_dims(q, k),

@@ -11,6 +11,15 @@ by chunk, runs ``block_bwd`` (B2, or B3a/B3b past the fused kernel's
 limit) on the gathered keys with gathered-size fp32 dk/dv, and
 reduce-scatters them home along the token axis.
 
+The collectives are posted ahead, as the JAX module's are scheduled: chunk
+i + 1's gather is posted before chunk i's kernel (the reference's double
+buffer: at most two gathered chunks alive), and each chunk's dk and dv
+reduce-scatters are posted after its kernel and waited for after the next
+chunk's, or at the end (``mesh.all_gather_start``,
+``mesh.reduce_scatter_start``). On NCCL the next gather then runs on the
+backend's stream under the current kernel; the values are the blocking
+collectives' bit for bit.
+
 Packed sequences: ``q_segids`` are the rank's tokens' globally consistent
 segment labels; the kv labels are all-gathered once (``mesh.all_gather``)
 and every head chunk's mask, forward and backward, is segments plus the
@@ -37,7 +46,8 @@ import torch
 from ..config import use_kernel
 from ..ops.flash import _kernel_layout, block_bwd, block_fwd, compute_delta
 from ..ops.mask import MaskArgs, slopes_on
-from .mesh import all_gather, reduce_scatter, ring_rank
+from .mesh import (all_gather, all_gather_start, reduce_scatter_start,
+                   ring_rank)
 
 
 def _mask(causal, q, q_segids, group, extras):
@@ -83,14 +93,23 @@ def _chunks(q, hkv, heads_k_stride):
             for i in range(0, hkv, heads_k_stride)]
 
 
+def _posts(gather, chunks):
+    """``post(n)``: chunk n's ``gather``, posted (None past the last)."""
+    return lambda n: gather(chunks[n][0]) if n < len(chunks) else None
+
+
 def _rank_fwd(q, gather, hkv, scale, mask, heads_k_stride, backend):
     """One rank's forward: q (B, Hq, L, D) its shard, ``gather(i)`` the
-    stacked (2, B, heads_k_stride, S, D) k and v of kv heads [i, i +
-    heads_k_stride) over the whole sequence, ``mask`` with the rank's
-    offset. Returns (out, lse)."""
-    outs, lses = [], []
-    for i, first, hs in _chunks(q, hkv, heads_k_stride):
-        kv = gather(i)
+    ``Posted`` gather of the stacked (2, B, heads_k_stride, S, D) k and v
+    of kv heads [i, i + heads_k_stride) over the whole sequence, ``mask``
+    with the rank's offset. Chunk i + 1's gather is asked for before
+    chunk i's kernel runs. Returns (out, lse)."""
+    chunks = _chunks(q, hkv, heads_k_stride)
+    post = _posts(gather, chunks)
+    outs, lses, nxt = [], [], post(0)
+    for n, (i, first, hs) in enumerate(chunks):
+        kv = nxt.wait()
+        nxt = post(n + 1)
         o_i, lse_i = block_fwd(q[:, hs], kv[0], kv[1], scale,
                                _chunk_mask(mask, first, hs, q.device),
                                backend, out_dtype=q.dtype)
@@ -107,8 +126,12 @@ def _rank_bwd(q, out, lse, dout, gather, hkv, scale, mask, heads_k_stride,
     ``fused`` goes to ``block_bwd`` (False: the reproducible B3a/B3b)."""
     kernel = use_kernel(q, backend)
     delta = compute_delta(dout, out)
-    for i, first, hs in _chunks(q, hkv, heads_k_stride):
-        kv = gather(i)
+    chunks = _chunks(q, hkv, heads_k_stride)
+    post = _posts(gather, chunks)
+    nxt = post(0)
+    for n, (i, first, hs) in enumerate(chunks):
+        kv = nxt.wait()
+        nxt = post(n + 1)
         dout_i, q_i = dout[:, hs], q[:, hs]
         if kernel:
             dout_i, q_i = _kernel_layout(dout_i), _kernel_layout(q_i)
@@ -119,10 +142,11 @@ def _rank_bwd(q, out, lse, dout, gather, hkv, scale, mask, heads_k_stride,
 
 
 def _gather(k, v, heads_k_stride, group):
-    """``gather(i)`` for the rank functions: all-gathers kv heads [i, i +
-    heads_k_stride) of k and v along the token axis."""
+    """``gather(i)`` for the rank functions: posts the all-gather of kv
+    heads [i, i + heads_k_stride) of k and v along the token axis."""
     kv = torch.stack([k, v])
-    return lambda i: all_gather(kv[:, :, i:i + heads_k_stride], 3, group)
+    return lambda i: all_gather_start(kv[:, :, i:i + heads_k_stride], 3,
+                                      group)
 
 
 def _llama3_fwd(q, k, v, q_segids, scale, causal, heads_k_stride, group,
@@ -135,15 +159,25 @@ def _llama3_fwd(q, k, v, q_segids, scale, causal, heads_k_stride, group,
 def _llama3_bwd(q, k, v, q_segids, out, lse, dout, scale, causal,
                 heads_k_stride, group, backend, extras, fused=None):
     """(dq, dk, dv) in the inputs' dtypes."""
-    dqs, dks, dvs = [], [], []
+    dqs, dks, dvs, posted = [], [], [], ()
+
+    def land(posted):
+        if posted:
+            dks.append(posted[0].wait().to(k.dtype))
+            dvs.append(posted[1].wait().to(v.dtype))
+
     for dq_i, dk_g, dv_g in _rank_bwd(
             q, out, lse, dout, _gather(k, v, heads_k_stride, group),
             k.shape[1], scale, _mask(causal, q, q_segids, group, extras),
             heads_k_stride, backend, fused):
-        # gathered-size fp32 dk/dv, summed over the ranks and sharded home
-        dks.append(reduce_scatter(dk_g, 2, group).to(k.dtype))
-        dvs.append(reduce_scatter(dv_g, 2, group).to(v.dtype))
+        # the previous chunk's reduce-scatters, waited for once this
+        # chunk's kernel is queued; this chunk's gathered-size fp32 dk/dv,
+        # summed over the ranks and sharded home, posted
+        land(posted)
+        posted = (reduce_scatter_start(dk_g, 2, group),
+                  reduce_scatter_start(dv_g, 2, group))
         dqs.append(dq_i)
+    land(posted)
     return _cat(dqs), _cat(dks), _cat(dvs)
 
 

@@ -14,7 +14,10 @@ The ring is a batched isend/irecv pair to rank +- 1
 so that the next step's KV travels while this step's kernel runs. The step
 loops of ring, zigzag and fused ring all move their tensors through
 ``RingBuffer``: two buffers that take turns at sending and receiving.
-Ulysses moves its activations with ``all_to_all`` instead.
+Ulysses moves its activations with ``all_to_all`` instead. llama3 posts
+its head chunks' gathers and reduce-scatters the same way
+(``all_gather_start``, ``reduce_scatter_start``), as XLA schedules the JAX
+module's ``all_gather`` and ``psum_scatter`` asynchronously.
 """
 
 import torch
@@ -37,37 +40,44 @@ def _global_rank(group, rank):
     return rank if group is None else dist.get_global_rank(group, rank)
 
 
-class Rotation:
-    """A posted ring rotation: ``wait()`` returns the received tensor.
+class Posted:
+    """A posted collective (a ring rotation, a gather, a reduce-scatter):
+    ``wait()`` returns its result.
 
-    Between ``ring_rotate_start`` and ``wait`` the sent tensor must not be
-    written and the receive buffer must not be touched; kernels launched
-    in between run while the message travels (the reference's
-    ``commit()``/``wait()``). On NCCL the transfer runs on the backend's
+    Between the post and ``wait`` the tensors sent must not be written and
+    the buffers received into must not be touched; kernels launched in
+    between run while the collective does (the reference's
+    ``commit()``/``wait()``). On NCCL the collective runs on the backend's
     own stream, ordered after the work already on the current stream, and
     ``wait`` orders the current stream after it; on gloo ``wait`` blocks
-    the host."""
+    the host. ``finish`` makes the result out of what was received (a
+    gather's concatenation) at the first ``wait``; ``held`` are the
+    tensors sent, kept alive until then."""
 
-    def __init__(self, received, requests=()):
+    def __init__(self, received, requests=(), finish=None, held=()):
         self._received = received
         self._requests = requests
+        self._finish = finish
+        self._held = held
 
     def wait(self):
         for req in self._requests:
             req.wait()
-        self._requests = ()
+        self._requests = self._held = ()
+        if self._finish is not None:
+            self._received, self._finish = self._finish(self._received), None
         return self._received
 
 
 def ring_rotate_start(x, group=None, reverse=False, out=None):
     """Post the rotation of x one step around the ring (rank i's value
     moves to rank i + 1; ``reverse=True``: to i - 1) and return its
-    ``Rotation``. ``out``, when given, is the contiguous buffer the
+    ``Posted``. ``out``, when given, is the contiguous buffer the
     message lands in (so that a loop can alternate between two buffers).
     At world size 1 nothing is posted and ``wait()`` returns x."""
     n = ring_size(group)
     if n == 1:
-        return Rotation(x)
+        return Posted(x)
     rank = ring_rank(group)
     step = -1 if reverse else 1
     dst = _global_rank(group, (rank + step) % n)
@@ -76,7 +86,7 @@ def ring_rotate_start(x, group=None, reverse=False, out=None):
     recv = torch.empty_like(x) if out is None else out
     ops = [dist.P2POp(dist.isend, x, dst, group),
            dist.P2POp(dist.irecv, recv, src, group)]
-    return Rotation(recv, dist.batch_isend_irecv(ops))
+    return Posted(recv, dist.batch_isend_irecv(ops))
 
 
 def ring_rotate(x, group=None, reverse=False):
@@ -130,33 +140,45 @@ def all_reduce(x, op="sum", group=None):
     return out
 
 
+def all_gather_start(x, dim, group=None):
+    """Post ``all_gather(x, dim, group)`` and return its ``Posted``; at
+    world size 1 nothing is posted and ``wait()`` returns x."""
+    n = ring_size(group)
+    if n == 1:
+        return Posted(x)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    req = dist.all_gather(parts, x, group=group, async_op=True)
+    return Posted(parts, (req,), lambda p: torch.cat(p, dim=dim), (x,))
+
+
 def all_gather(x, dim, group=None):
     """The ranks' x concatenated along ``dim`` in rank order (JAX's tiled
     all_gather); x itself at world size 1."""
-    n = ring_size(group)
-    if n == 1:
-        return x
-    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-             for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    return all_gather_start(x, dim, group).wait()
 
 
-def reduce_scatter(x, dim, group=None):
-    """JAX's tiled ``psum_scatter``: x summed over the group, of which rank
-    r keeps the r-th of W equal chunks along ``dim``; x itself at world
-    size 1."""
+def reduce_scatter_start(x, dim, group=None):
+    """Post ``reduce_scatter(x, dim, group)`` and return its ``Posted``; at
+    world size 1 nothing is posted and ``wait()`` returns x."""
     n = ring_size(group)
     if n == 1:
-        return x
+        return Posted(x)
     dim %= x.ndim
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split into "
                          f"{n} equal chunks")
     parts = [c.contiguous() for c in x.chunk(n, dim)]
     out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, group=group)
-    return out
+    req = dist.reduce_scatter(out, parts, group=group, async_op=True)
+    return Posted(out, (req,), held=parts)
+
+
+def reduce_scatter(x, dim, group=None):
+    """JAX's tiled ``psum_scatter``: x summed over the group, of which rank
+    r keeps the r-th of W equal chunks along ``dim``; x itself at world
+    size 1."""
+    return reduce_scatter_start(x, dim, group).wait()
 
 
 def _all_to_all(x, split_dim, concat_dim, group):

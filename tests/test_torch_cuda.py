@@ -24,7 +24,9 @@ from chip_smoke import (B1_EDGE_CASES, B1_LSE_TOL, B1_OUT_TOL, B3A_EDGE_CASES,
                         decode_case_check, plan_case_check,
                         tile_builds, tile_case_check,
                         xform_case_check,
-                        band_keep_checks, rel_err_rows, ring_steps,
+                        band_keep_checks, LONG_DQ_CASES, LONG_DQ_SKV,
+                        dq_seg_max_kv_tiles, long_dq_check, rel_err_rows,
+                        ring_steps,
                         seg_case_mask)
 from ring_flash_attn_tpu_torch.ops import paged as tpaged
 from ring_flash_attn_tpu_torch.ops.mask import MaskArgs
@@ -302,38 +304,28 @@ def test_cuda_long_packing_past_b2_segment_classes(tiles):
 
 
 @pytest.mark.cuda
-def test_cuda_head_dim_256_dq_at_its_segment_class_ceiling():
-    """B3a's segmented build at head_dim 256 over as many kv tiles as its
-    shared memory holds the classes of (``dq_seg_max_kv_tiles``: 7968,
-    509,952 keys; the build before the 128-row q tiles held ~139k), one
-    q tile's segment over all but the last 512 keys, the other's over
-    those: dq within BWD_REL_TOL of max|plain|; one tile more raises a
-    ValueError that names the ceiling, not a launch error."""
+@pytest.mark.parametrize("skv", LONG_DQ_SKV)
+@pytest.mark.parametrize("case", LONG_DQ_CASES)
+def test_cuda_head_dim_256_dq_at_its_segment_class_ceiling(case, skv):
+    """B3a's segmented builds at head_dim 256 past the 7968 kv tiles
+    (509,952 keys) whose classes its table holds for a whole call
+    (``dq_seg_max_kv_tiles``), where its launcher once raised a
+    ValueError and now runs its WALK build: 524,288 and 1,048,576
+    keys, 2 q heads over 1 kv head, the last 256 q rows
+    (``chip_smoke.long_dq_check``): one causal document over every key, a
+    packing of documents, the XFORM build with softcap and the ALL build
+    with softcap, a window and dropout. dq within BWD_REL_TOL of
+    max|plain|; one document over every key has every q tile classify its
+    kv tiles on the walk, the packing only where its long document passes
+    the WALK build's table (``dq_walk_table_tiles``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
-    from ring_flash_attn_tpu_torch.ops.flash import compute_delta
-    from ring_flash_attn_tpu_torch.ops.flash_bwd_split_cuda import (
-        dq_seg_max_kv_tiles, flash_bwd_dq_cuda)
-    from ring_flash_attn_tpu_torch.ops.naive import naive_block_bwd
-
-    d, sq = 256, 256
-    most = dq_seg_max_kv_tiles(d)
-    assert most == 7968
-    skv = 64 * most
-    q_seg = (torch.arange(sq, device="cuda") >= 128).to(torch.int32)
-    kv_seg = (torch.arange(skv, device="cuda") >= skv - 512).to(torch.int32)
-    mask = MaskArgs(q_segids=q_seg, kv_segids=kv_seg)
-    g = torch.Generator(device="cuda").manual_seed(20)
-    q, k, v, dout, out, lse = _bwd_inputs(g, 1, 2, 1, sq, skv, d, mask,
-                                          d ** -0.5)
-    delta = compute_delta(dout, out)
-    dq = flash_bwd_dq_cuda(dout, q, k, v, lse, delta, d ** -0.5, mask)
-    ref = naive_block_bwd(dout, q, k, v, lse, delta, d ** -0.5, mask)[0]
-    assert _rel_err(dq, ref) <= BWD_REL_TOL
-    more = torch.cat([k, k[:, :, :64]], dim=2)
-    longer = mask._replace(kv_segids=torch.cat([kv_seg, kv_seg[-64:]]))
-    with pytest.raises(ValueError, match=f"at most {most} kv tiles"):
-        flash_bwd_dq_cuda(dout, q, more, more, lse, delta, d ** -0.5, longer)
+    assert dq_seg_max_kv_tiles(256) == 7968
+    _, walked, n = long_dq_check(torch, case, skv)
+    if case in ("document", "all"):
+        assert walked == n
+    else:
+        assert (walked > 0) == (0.6 * skv > 64 * 7936)
 
 
 @pytest.mark.cuda

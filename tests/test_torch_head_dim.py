@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from ring_flash_attn_tpu import api as japi
 from ring_flash_attn_tpu_torch import api
 from ring_flash_attn_tpu_torch.ops import flash_bwd_cuda as fbc
@@ -274,9 +275,13 @@ def test_segment_class_ceilings_and_the_backward_selector():
     """The most tiles whose segment classes each segmented backward build
     keeps beside its tiles in shared memory (the kernels' own layouts,
     ``KvSmem`` and ``DqSmem``, held on the card at these numbers by
-    tests/test_torch_cuda.py), and ``block_bwd``'s selector: a segmented
-    call whose q tiles' classes B2 cannot hold goes to B3a/B3b, as one
-    past ``FUSED_MAX_KV_BYTES`` does."""
+    tests/test_torch_cuda.py; past B3a's, its WALK build keeps a q tile's
+    range of up to ``dq_walk_table_tiles`` and classifies a wider one on
+    the walk: ``chip_smoke``'s host twin, against the layout's arithmetic
+    in ``_dq_tables``), and
+    ``block_bwd``'s selector: a segmented call whose q tiles' classes B2
+    cannot hold goes to B3a/B3b, as one past ``FUSED_MAX_KV_BYTES``
+    does."""
     seg = torch.zeros(8, dtype=torch.int32)
     packed = MaskArgs(causal=True, q_segids=seg, kv_segids=seg)
     gemma2 = packed._replace(softcap=50.0, window_left=4096)  # ALL
@@ -286,8 +291,10 @@ def test_segment_class_ceilings_and_the_backward_selector():
     assert fbc.fused_bwd_seg_max_q_tiles(256, window) == 3872
     assert fbc.fused_bwd_seg_max_q_tiles(128, gemma2) == 1888
     assert fbc.fused_bwd_seg_max_q_tiles(128, packed) == 3936
-    assert fbs.dq_seg_max_kv_tiles(256) == 7968
-    assert fbs.dq_seg_max_kv_tiles(128) == 401120
+    assert cs.dq_seg_max_kv_tiles(256) == _dq_tables(256)[0] == 7968
+    assert cs.dq_seg_max_kv_tiles(128) == _dq_tables(128)[0] == 401120
+    assert cs.dq_walk_table_tiles(256) == _dq_tables(256)[1] == 7936
+    assert cs.dq_walk_table_tiles(128) == _dq_tables(128)[1] == 401088
     for mask, n in ((gemma2, 1824), (packed, 3872)):
         assert fbc.fused_bwd_takes(mask, 64 * n, 16384, 256)
         assert not fbc.fused_bwd_takes(mask, 64 * n + 1, 16384, 256)
@@ -296,6 +303,121 @@ def test_segment_class_ceilings_and_the_backward_selector():
     assert fbc.fused_bwd_takes(MaskArgs(causal=True), 2**20, 16384, 256)
     assert not fbc.fused_bwd_takes(MaskArgs(causal=True), 64, 16385, 256)
     assert fbc.fused_bwd_takes(MaskArgs(), 2**20, 32768, 128)
+
+
+def _dq_tables(d):
+    """The kv tiles whose classes B3a's tables hold at head_dim d, from
+    ``csrc/flash_bwd_split.cu``'s layout: past ``DqSmem`` (Q and dout of
+    128 rows, two K stages and two V stages of 64 keys, one V stage at
+    256; an 8-byte mbarrier each of q, full and empty; the 1024-byte
+    alignment pad) up to the block's 232,448 bytes, two bits a tile in
+    4-byte words: (the whole call's table, the WALK build's table, which
+    first keeps the two K stages' tiles in 8 bytes)."""
+    v_stages = 1 if d > 128 else 2
+    smem = (2 * 128 * d * 2 + (2 + v_stages) * 64 * d * 2
+            + (1 + 2 * 2 + 2 * v_stages) * 8 + 1024)
+    return ((232448 - smem) // 4 * 16, (232448 - smem - 8) // 4 * 16)
+
+
+def _dq_ranges_reference(kv_seg, sq, d, causal, offset, wl):
+    """numpy: (t_lo, t_hi, walks) of each of B3a's 128-row q tiles over
+    the last ``sq`` rows of the packing ``kv_seg``: the kv tiles of 64
+    keys whose segment ranges meet the q tile's, cut at the causal bound
+    by index of the tile's last row and to a causal window of ``wl`` keys
+    on the index; walks in a call past the whole call's table where the
+    range passes the WALK build's table (``_dq_tables``)."""
+    skv = len(kv_seg)
+    q_seg = kv_seg[-sq:]
+    n_kv = -(-skv // 64)
+    k_min = [kv_seg[64 * t:64 * t + 64].min() for t in range(n_kv)]
+    k_max = [kv_seg[64 * t:64 * t + 64].max() for t in range(n_kv)]
+    out = []
+    for m0 in range(0, sq, 128):
+        lo, hi = q_seg[m0:m0 + 128].min(), q_seg[m0:m0 + 128].max()
+        need = [t for t in range(n_kv) if k_max[t] >= lo and k_min[t] <= hi]
+        t_lo, t_hi = (need[0], need[-1]) if need else (0, 0)
+        n_end = min(skv, max(0, m0 + 128 + offset)) if causal else skv
+        n_tiles = -(-n_end // 64)
+        if wl is not None:
+            first = m0 + offset - wl
+            t_lo = max(t_lo, min(0 if first <= 0 else first // 64, n_tiles))
+        t_hi = min(n_tiles - 1, t_hi)
+        whole, table = _dq_tables(d)
+        out.append((t_lo, t_hi, n_kv > whole and t_hi - t_lo + 1 > table))
+    return [np.array(x) for x in zip(*out)]
+
+
+@pytest.mark.parametrize("form", ["causal", "full", "window"])
+@pytest.mark.parametrize("seed", range(4))
+def test_dq_class_ranges_match_a_numpy_reference(seed, form):
+    """``chip_smoke.dq_class_ranges`` (the kv tiles whose classes each q
+    tile of B3a's segmented builds takes, and whether it classifies them on the
+    walk because its table cannot hold them) on ``block_meta``'s bounds
+    of the last 1024 rows of a seeded packing of 2^20 keys (documents of
+    1000 to 200,000 tokens, then the rows' document of 300,000 to
+    1,000,000, then one of 300), causal at the rows' offset, not causal,
+    or causal with a window of 400,000 keys, at head_dims 256 and 128,
+    against a numpy reference."""
+    from ring_flash_attn_tpu_torch.ops.block_meta import (
+        index_causal, kernel_segments, NO_BOUND)
+
+    rng = np.random.default_rng(seed)
+    skv, sq = 2**20, 1024
+    long = int(rng.integers(300000, 1000000))  # the q rows' document
+    lens = []
+    while sum(lens) < skv - long - 300:
+        lens.append(int(rng.integers(1000, 200000)))
+    lens += [long, 300]
+    kv_seg = np.repeat(np.arange(len(lens)), lens)[-skv:].astype(np.int32)
+    wl = 400000 if form == "window" else None  # cut under the table
+    mask = MaskArgs(causal=form != "full", offset=skv - sq,
+                    q_segids=torch.from_numpy(kv_seg[-sq:]),
+                    kv_segids=torch.from_numpy(kv_seg), window_left=wl)
+    _, held = kernel_segments(mask, torch.device("cpu"), sq, skv,
+                              *fbs.DQ_TILES)
+    band = None if wl is None else (wl, NO_BOUND, skv - sq)
+    for d in (256, 128):
+        got = cs.dq_class_ranges(held[4], d, skv, index_causal(mask),
+                                 skv - sq, band=band)
+        want = _dq_ranges_reference(kv_seg, sq, d, form != "full", skv - sq,
+                                    wl)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+        if d == 256:
+            # the q tiles in the long document walk where it passes the
+            # table (the last tile straddles the 300-token one)
+            most = 64 * _dq_tables(256)[1]
+            assert bool(got[2][0]) == (long > most + 128 and (
+                wl is None or wl > most)), (long, got[2])
+    assert not got[2].any()  # at 128 the table holds 401,088 tiles
+
+
+@pytest.mark.parametrize("tiles", [7936, 7937, 7950, 7968, 7969])
+def test_dq_class_ranges_at_the_walk_tables_edge(tiles):
+    """Non-causal q rows in a document whose range is ``tiles`` kv tiles of
+    64 keys, in a packing of 2^20 keys: past the WALK build's table
+    (7936 tiles at 256) a q tile classifies on the walk, also where the
+    whole call's table (7968) would still have held its range, in
+    ``chip_smoke.dq_class_ranges`` and the numpy reference alike."""
+    from ring_flash_attn_tpu_torch.ops.block_meta import kernel_segments
+
+    skv, sq, tail = 2**20, 1024, 300
+    last = (skv - tail - 1) // 64  # the document's last kv tile
+    start = 64 * (last - tiles + 1)  # its first, from the tile's start
+    lens = [100000] * (start // 100000) + [start % 100000,
+                                           skv - tail - start, tail]
+    kv_seg = np.repeat(np.arange(len(lens)), lens).astype(np.int32)
+    mask = MaskArgs(q_segids=torch.from_numpy(kv_seg[-sq:]),
+                    kv_segids=torch.from_numpy(kv_seg))
+    _, held = kernel_segments(mask, torch.device("cpu"), sq, skv,
+                              *fbs.DQ_TILES)
+    got = cs.dq_class_ranges(held[4], 256, skv, False, 0)
+    want = _dq_ranges_reference(kv_seg, sq, 256, False, 0, None)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    # q tiles 0 to 4 lie in the document alone
+    assert (got[1][:5] - got[0][:5] + 1).tolist() == [tiles] * 5
+    assert got[2][:5].tolist() == [tiles > _dq_tables(256)[1]] * 5
 
 
 @pytest.mark.parametrize("extra", [

@@ -35,7 +35,8 @@ from ring_flash_attn_tpu_torch.parallel import (
     ring_size, sharded_cache_update, sharded_quant_decode, stripe_attention,
     ulysses_attention, usp_attention, zigzag_ring_attention)
 from ring_flash_attn_tpu_torch.parallel.mesh import (
-    RingBuffer, all_gather, all_reduce, all_to_all, reduce_scatter)
+    Posted, RingBuffer, all_gather, all_gather_start, all_reduce, all_to_all,
+    reduce_scatter, reduce_scatter_start)
 
 START_TIMEOUT = 120  # seconds for all ranks to import torch and report
 JOIN_TIMEOUT = 20
@@ -141,6 +142,130 @@ def task_llama3(rank, world, p):
         for key, x in zip(("out", "lse", "dq", "dk", "dv"),
                           (o, lse, *grads)):
             out[f"{key}_{name}"] = _np(x)
+    return out
+
+
+def _l3_blocking(q, k, v, segids, dout, scale, kw):
+    """llama3's forward and backward through the module's rank functions
+    over the blocking collectives (``all_gather`` a chunk at a time when
+    the kernel asks for it, ``reduce_scatter`` right after each chunk's
+    kernel): (out, lse, dq, dk, dv)."""
+    from ring_flash_attn_tpu_torch.parallel import llama3 as l3
+
+    hkv = k.shape[1]
+    stride = kw.get("heads_k_stride") or hkv
+    extras = {n: kw.get(n) for n in ("softcap", "alibi_slopes", "dropout_p",
+                                     "dropout_seed", "window_left")}
+    kv = torch.stack([k, v])
+
+    def gather(i):  # gathered at the call, nothing left posted
+        return Posted(all_gather(kv[:, :, i:i + stride], 3))
+
+    mask = l3._mask(kw.get("causal", True), q, segids, None, extras)
+    out, lse = l3._rank_fwd(q, gather, hkv, scale, mask, stride, None)
+    dqs, dks, dvs = [], [], []
+    for dq_i, dk_g, dv_g in l3._rank_bwd(q, out, lse, dout, gather, hkv,
+                                         scale, mask, stride, None):
+        dqs.append(dq_i)
+        dks.append(reduce_scatter(dk_g, 2).to(k.dtype))
+        dvs.append(reduce_scatter(dv_g, 2).to(v.dtype))
+    return (out, lse) + tuple(torch.cat(x, dim=1)
+                              for x in (dqs, dks, dvs))
+
+
+def _l3_recorded(run):
+    """run() with llama3's posted collectives and block kernels wrapped:
+    (the events in order, the most gathered chunks alive at once). A
+    gather's chunk is alive from its post until the tensor its wait
+    returned is freed."""
+    import weakref
+
+    from ring_flash_attn_tpu_torch.parallel import llama3 as l3
+    from ring_flash_attn_tpu_torch.parallel.mesh import Posted
+
+    events, alive, most = [], [0], [0]
+    names = ("all_gather_start", "reduce_scatter_start", "block_fwd",
+             "block_bwd")
+    real = {n: getattr(l3, n) for n in names}
+
+    def release():
+        alive[0] -= 1
+
+    class Logged(Posted):
+        def __init__(self, inner, tag, gathered):
+            self._inner, self._tag, self._gathered = inner, tag, gathered
+
+        def wait(self):
+            events.append(f"wait {self._tag}")
+            x = self._inner.wait()
+            if self._gathered:
+                weakref.finalize(x, release)
+            return x
+
+    def gather(*a, **kw):
+        tag = f"g{sum(e.startswith('post g') for e in events)}"
+        events.append(f"post {tag}")
+        alive[0] += 1
+        most[0] = max(most[0], alive[0])
+        return Logged(real["all_gather_start"](*a, **kw), tag, True)
+
+    def scatter(*a, **kw):
+        events.append("post rs")
+        return Logged(real["reduce_scatter_start"](*a, **kw), "rs", False)
+
+    def kernel(name):
+        def fn(*a, **kw):
+            events.append(name)
+            return real[f"block_{name}"](*a, **kw)
+        return fn
+
+    patched = {"all_gather_start": gather, "reduce_scatter_start": scatter,
+               "block_fwd": kernel("fwd"), "block_bwd": kernel("bwd")}
+    try:
+        for n, fn in patched.items():
+            setattr(l3, n, fn)
+        run()
+    finally:
+        for n, fn in real.items():
+            setattr(l3, n, fn)
+    return events, most[0]
+
+
+def task_llama3_posted(rank, world, p):
+    """For each variant, llama3_attention's out, lse and gradients (its
+    collectives posted ahead) and the blocking path's
+    (``_l3_blocking``), keys "posted/..." and "blocking/..."; the order
+    of the posted collectives and the kernels in ``p["order"]``'s
+    variant ("events", "most_alive"); the posted gather and reduce-scatter
+    of this rank's ``p["x"][rank]`` beside the blocking ones."""
+    q, k, v, dout = (torch.from_numpy(_shard(p[n], rank, world, 2))
+                     for n in ("q", "k", "v", "dout"))
+    segids = torch.from_numpy(_shard(p["segids"], rank, world, 0))
+    out = {}
+
+    def posted(kw):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        kw = dict(kw)
+        ids = segids if kw.pop("packed", False) else None
+        o, lse = llama3_attention(*leaves, ids, scale=p["scale"], **kw)
+        return (o.detach(), lse) + torch.autograd.grad(o, leaves, dout)
+
+    for name, kw in p["variants"].items():
+        ids = segids if kw.get("packed") else None
+        ref = _l3_blocking(q, k, v, ids, dout, p["scale"],
+                           {n: x for n, x in kw.items() if n != "packed"})
+        for key, a, b in zip(("out", "lse", "dq", "dk", "dv"), posted(kw),
+                             ref):
+            out[f"posted/{key}_{name}"], out[f"blocking/{key}_{name}"] = (
+                _np(a), _np(b))
+    events, most = _l3_recorded(lambda: posted(p["variants"][p["order"]]))
+    out["events"], out["most_alive"] = np.array(events), np.array(most)
+    x = torch.from_numpy(p["x"][rank])
+    for dim in (0, 1, -1):
+        out[f"gather{dim}"] = _np(all_gather_start(x, dim).wait())
+        out[f"gather{dim}_blocking"] = _np(all_gather(x, dim))
+        out[f"scatter{dim}"] = _np(reduce_scatter_start(x, dim).wait())
+        out[f"scatter{dim}_blocking"] = _np(reduce_scatter(x, dim))
     return out
 
 
@@ -801,7 +926,8 @@ def task_pipeline(rank, world, p):
 
 
 TASKS = {"collectives": task_collectives, "decode": task_decode,
-         "llama3": task_llama3, "generate": task_generate,
+         "llama3": task_llama3, "llama3_posted": task_llama3_posted,
+         "generate": task_generate,
          "schedules": task_schedules, "api": task_api, "train": task_train,
          "cp": task_cp, "ulysses_heads": task_ulysses_heads,
          "reduce_scatter": task_reduce_scatter, "moe_ep": task_moe_ep,
